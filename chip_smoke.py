@@ -1,0 +1,577 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``. It needs
+one CUDA card, imports nothing of JAX or of the JAX package, and drives
+the port (``differential_transformer_replication_tpu_torch``) through
+these phases, each printing its own lines:
+
+1. card: the GPU's name and power limit (nvidia-smi), torch/CUDA
+   versions, and the build of every kernel from the checkout's sources
+   (both ``nvcc`` builds started together, the Triton JIT at first use);
+2. kernels: each hand-written kernel against its plain PyTorch version
+   on the card at the recipe's shapes, fp32 and bf16, with max-abs
+   error against a stated bound, and median times beside the plain
+   version, the bound (least time the card could take) and, where one
+   exists, a one-call PyTorch equivalent;
+3. serve: a diff model at recipe width (random weights from a seed)
+   behind the port's HTTP ``serve()``, 12 concurrent ``/generate``
+   requests, launch counters read around that run;
+4. e2e: prefill + decode logits of one prompt in fp32 on the card
+   (kernels) against the CPU (plain versions).
+
+It then prints the kernels' JSON summary, the card line, and, last,
+``{"ok": true, "device": {...}}``. Any failure exits non-zero before
+the last line.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+
+# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+L2_BYTES = 50 * 2**20
+
+RECIPE = dict(model="diff", vocab_size=12000, n_embd=768, n_head=4,
+              n_layer=8, block_size=512, dropout=0.0)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
+    """(least time in ms, "bytes" | "operations") on the H100 SXM."""
+    name = str(dtype).replace("torch.", "")
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = flops / PEAK_FLOPS[name]
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+def call_ms(calls, iters: int = 20, reps: int = 7) -> float:
+    """Median time of one call as the host launches them back to back
+    (CUDA events over ``iters`` calls): includes the host's launch cost,
+    which bounds small kernels."""
+    import torch
+
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(iters):
+            calls[i % len(calls)]()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def device_ms(calls, iters: int = 20, reps: int = 7) -> float:
+    """Median DEVICE time of one call: ``iters`` calls captured once in
+    a CUDA graph and replayed, timed by CUDA events, so the host's
+    launch cost is out of the number. ``calls`` are closures over
+    distinct input buffers, cycled so that together they exceed the L2
+    cache (the serving loop finds a layer's weights and cache cold)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            calls[i % len(calls)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def timings(k_calls, p_calls, lib_calls=None) -> dict:
+    """Device and per-call times of a kernel, its plain version and the
+    one-call PyTorch equivalent (None where there is none)."""
+    out = {"ms": device_ms(k_calls), "call_ms": call_ms(k_calls),
+           "plain_ms": device_ms(p_calls), "library_ms": None}
+    if lib_calls:
+        out["library_ms"] = device_ms(lib_calls)
+    return out
+
+
+def fmt_times(t: dict, bms: float, by: str) -> str:
+    lib = (f", one-call PyTorch {t['library_ms'] * 1e3:.2f} us"
+           if t["library_ms"] is not None else "")
+    return (f"device {t['ms'] * 1e3:.2f} us (per call from the host "
+            f"{t['call_ms'] * 1e3:.2f} us), plain {t['plain_ms'] * 1e3:.2f} "
+            f"us{lib}, bound {bms * 1e3:.3f} us ({by})")
+
+
+def n_copies(nbytes: int) -> int:
+    """How many input sets a timing cycles through so that together
+    they exceed the L2 cache."""
+    return max(1, min(16, math.ceil(2 * L2_BYTES / max(nbytes, 1))))
+
+
+class Failure(AssertionError):
+    pass
+
+
+def expect(cond: bool, msg: str) -> None:
+    if not cond:
+        raise Failure(msg)
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def bf16_ulp_bound(ref) -> float:
+    """One bf16 rounding step at the largest |value|: a kernel and its
+    plain version that agree in fp32 differ after the final cast by at
+    most this."""
+    return 2.0 ** -7 * float(ref.abs().max())
+
+
+def check_norm(torch, fnr, dtype, M, E, with_delta, gen):
+    dev = "cuda"
+    es = torch.finfo(dtype).bits // 8
+    x = torch.randn(M, E, generator=gen, device=dev).to(dtype)
+    d = torch.randn(M, E, generator=gen, device=dev).to(dtype)
+    w = 1.0 + 0.1 * torch.randn(E, generator=gen, device=dev)
+    b = 0.1 * torch.randn(E, generator=gen, device=dev)
+    if with_delta:
+        carry, got = fnr.fused_add_norm(x, d, w, b)
+        ref_carry, ref = fnr.add_norm_reference(x, d, w, b)
+        carry_err = float((carry.float() - ref_carry.float()).abs().max())
+        expect(carry_err == 0.0, f"add-norm carry differs: {carry_err}")
+    else:
+        got = fnr.fused_norm(x, w, b)
+        ref = fnr.norm_reference(x, w, b)
+    err = float((got.float() - ref.float()).abs().max())
+    tol = 1e-5 if dtype == torch.float32 else bf16_ulp_bound(ref.float())
+    nbytes = (4 if with_delta else 2) * M * E * es + 2 * E * 4
+    flops = 8 * M * E
+    return err, tol, nbytes, flops, (x, d, w, b)
+
+
+def run_kernels(torch, ops) -> dict:
+    """Phase 2. Returns {kernel name: json entry sans launches}."""
+    fnr, ffn, dat = ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    entries = {}
+    tiny = torch.zeros(1, device="cuda")
+    floor = call_ms([lambda: tiny.add_(1.0)], iters=200)
+    floor_dev = device_ms([lambda: tiny.add_(1.0)], iters=200)
+    log(f"[kernels] launch floor (1-element add_): {floor * 1e3:.2f} us per "
+        f"call from the host, {floor_dev * 1e3:.2f} us on the device")
+
+    # A: fused residual-add + LayerNorm (Triton)
+    for with_delta in (True, False):
+        name = "fused_add_norm" if with_delta else "fused_norm"
+        for dtype in (torch.float32, torch.bfloat16):
+            for M in (8, 128):
+                E = 768
+                err, tol, nbytes, flops, (x, d, w, b) = check_norm(
+                    torch, fnr, dtype, M, E, with_delta, gen)
+                expect(err <= tol, f"{name} {dtype} ({M},{E}): max-abs "
+                       f"{err:.3g} > bound {tol:.3g}")
+                sets = [(torch.randn_like(x, dtype=torch.float32).to(dtype),
+                         torch.randn_like(d, dtype=torch.float32).to(dtype))
+                        for _ in range(n_copies(nbytes))]
+                if with_delta:
+                    k_calls = [lambda a=a, c=c: fnr.fused_add_norm(a, c, w, b)
+                               for a, c in sets]
+                    p_calls = [lambda a=a, c=c: fnr.add_norm_reference(a, c, w, b)
+                               for a, c in sets]
+                    lib_calls = None
+                else:
+                    k_calls = [lambda a=a: fnr.fused_norm(a, w, b) for a, _ in sets]
+                    p_calls = [lambda a=a: fnr.norm_reference(a, w, b)
+                               for a, _ in sets]
+                    wl, bl = w.to(dtype), b.to(dtype)
+                    lib_calls = [lambda a=a: torch.nn.functional.layer_norm(
+                        a, (E,), wl, bl, 1e-5) for a, _ in sets]
+                t = timings(k_calls, p_calls, lib_calls)
+                bms, by = bound_ms(nbytes, flops, dtype)
+                log(f"[kernels] {name} {str(dtype)[6:]} ({M},{E}): max-abs "
+                    f"{err:.3g} (bound {tol:.3g}); " + fmt_times(t, bms, by))
+                if dtype == torch.bfloat16 and M == 8:
+                    entries[name] = dict(
+                        name=name, route="triton",
+                        source="differential_transformer_replication_tpu_torch/ops/fused_norm_residual.py",
+                        replaces="differential_transformer_replication_tpu/ops/fused_norm_residual.py:75",
+                        max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
+                        bound_ms=bms, bound_by=by, library_ms=t["library_ms"])
+
+    # B: fused SwiGLU (CUDA C++)
+    E, F = 768, 3072
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.finfo(dtype).bits // 8
+        wbytes = 2 * E * F * es
+        wsets = []
+        for _ in range(n_copies(wbytes)):
+            wsets.append(tuple(
+                (0.02 * torch.randn(*shape, generator=gen, device="cuda")).to(dtype)
+                for shape in ((E, F), (F,), (E, F), (F,))))
+        wg, bg, wx, bx = wsets[0]
+        for M in (8, 128):
+            x = torch.randn(M, E, generator=gen, device="cuda").to(dtype)
+            got = ffn.fused_swiglu(x, wg, bg, wx, bx)
+            ref = ffn.swiglu_reference(x, wg, bg, wx, bx)
+            err = float((got.float() - ref.float()).abs().max())
+            # fp32: accumulation order over E = 768 products
+            tol = 5e-5 if dtype == torch.float32 else bf16_ulp_bound(ref.float())
+            expect(err <= tol, f"fused_swiglu {dtype} M={M}: max-abs {err:.3g} "
+                   f"> bound {tol:.3g}")
+            k_calls = [lambda s=s: ffn.fused_swiglu(x, *s) for s in wsets]
+            p_calls = [lambda s=s: ffn.swiglu_reference(x, *s) for s in wsets]
+            t = timings(k_calls, p_calls)
+            nbytes = M * E * es + wbytes + 2 * F * es + M * F * es
+            bms, by = bound_ms(nbytes, 4 * M * E * F + 6 * M * F, dtype)
+            log(f"[kernels] fused_swiglu {str(dtype)[6:]} M={M} E={E} F={F}: "
+                f"max-abs {err:.3g} (bound {tol:.3g}); " + fmt_times(t, bms, by)
+                + "; no one-call PyTorch equivalent")
+            if dtype == torch.bfloat16 and M == 8:
+                entries["fused_swiglu"] = dict(
+                    name="fused_swiglu", route="cuda",
+                    source="differential_transformer_replication_tpu_torch/csrc/fused_swiglu.cu",
+                    replaces="differential_transformer_replication_tpu/ops/fused_ffn.py:81",
+                    max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
+                    bound_ms=bms, bound_by=by, library_ms=None)
+
+    # C: decode attention (CUDA C++)
+    S, B, H, M, d, dv = 2, 8, 4, 512, 96, 192
+    pos = torch.tensor([0, 37, 300, 511, 511, 300, 37, 700],
+                       dtype=torch.int32, device="cuda")
+    lam = torch.tensor([0.2, 0.35, 0.5, 0.7], device="cuda")
+    coeffs = torch.stack([torch.ones_like(lam), -lam]).contiguous()
+    n_vis = int(torch.clamp(pos + 1, max=M).sum())
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.finfo(dtype).bits // 8
+        cache_bytes = (S * d + dv) * B * H * M * es
+        sets = []
+        for _ in range(n_copies(cache_bytes)):
+            sets.append((
+                torch.randn(S, B, H, d, generator=gen, device="cuda").to(dtype),
+                torch.randn(S, B, H, M, d, generator=gen, device="cuda").to(dtype),
+                torch.randn(B, H, M, dv, generator=gen, device="cuda").to(dtype)))
+        q, k, v = sets[0]
+        got = dat.decode_attention(q, k, v, pos, coeffs)
+        ref = dat.decode_attention_reference(q, k, v, pos, coeffs)
+        err = float((got.float() - ref.float()).abs().max())
+        if dtype == torch.float32:
+            tol = 1e-5
+        else:
+            # per-stream p rounded to bf16 before PV (kernel) vs the
+            # combined map rounded once (plain): 2^-8 of sum|c| * max|V|,
+            # plus one bf16 step of the output
+            tol = (2.0 ** -8 * float(coeffs.abs().sum(0).max())
+                   * float(v.float().abs().max()) + bf16_ulp_bound(ref.float()))
+        expect(err <= tol, f"decode_attention {dtype}: max-abs {err:.3g} > "
+               f"bound {tol:.3g}")
+        k_calls = [lambda s=s: dat.decode_attention(*s, pos, coeffs) for s in sets]
+        p_calls = [lambda s=s: dat.decode_attention_reference(*s, pos, coeffs)
+                   for s in sets]
+        t = timings(k_calls, p_calls)
+        # bytes this run's data needs: only visible keys are read
+        nbytes = (S * B * H * d * es + n_vis * H * (S * d + dv) * es
+                  + B * 4 + S * H * 4 + B * H * dv * es)
+        flops = n_vis * H * (2 * S * d + 2 * S * dv + 5 * S)
+        bms, by = bound_ms(nbytes, flops, dtype)
+        log(f"[kernels] decode_attention {str(dtype)[6:]} S={S} B={B} H={H} "
+            f"M={M} d={d} dv={dv} pos={pos.tolist()}: max-abs {err:.3g} "
+            f"(bound {tol:.3g}); " + fmt_times(t, bms, by)
+            + "; no one-call PyTorch equivalent (multi-stream combine)")
+        if dtype == torch.bfloat16:
+            entries["decode_attention"] = dict(
+                name="decode_attention", route="cuda",
+                source="differential_transformer_replication_tpu_torch/csrc/decode_attention.cu",
+                replaces="differential_transformer_replication_tpu/ops/decode_attention.py:102",
+                max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
+                bound_ms=bms, bound_by=by, library_ms=None)
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 3: serve the diff recipe through the HTTP front-end
+# ---------------------------------------------------------------------------
+
+PROMPT_LENS = (17, 45, 80, 123, 160, 200, 237, 280, 311, 350, 377, 400)
+NEW_TOKENS = 64
+
+
+def _post(url: str, body: dict) -> tuple:
+    req = urllib.request.Request(
+        url, data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"},
+    )
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.status, json.load(r)
+
+
+def _counters():
+    from differential_transformer_replication_tpu_torch.ops import (
+        decode_attention as dat,
+        fused_ffn as ffn,
+        fused_norm_residual as fnr,
+    )
+
+    return {"fused_add_norm": fnr.fused_add_norm, "fused_norm": fnr.fused_norm,
+            "fused_swiglu": ffn.fused_swiglu,
+            "decode_attention": dat.decode_attention}
+
+
+def run_serve(torch, card: str) -> dict:
+    """Phase 3. Returns the launch count of each kernel wrapper over the
+    served run."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+
+    from differential_transformer_replication_tpu_torch.config import (
+        ModelConfig,
+        ServingConfig,
+    )
+    from differential_transformer_replication_tpu_torch.models import (
+        init_model,
+        param_count,
+    )
+    from differential_transformer_replication_tpu_torch.serving.engine import (
+        ServingEngine,
+    )
+    from differential_transformer_replication_tpu_torch.serving.server import (
+        ServingClient,
+        serve,
+    )
+
+    cfg = ModelConfig(**RECIPE, compute_dtype="bfloat16", param_dtype="float32")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = init_model(gen, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServingEngine(
+        params, cfg,
+        ServingConfig(num_slots=8, prefill_chunk=128, prefill_budget=256),
+        device="cuda",
+    )
+    del params
+    log(f"[serve] diff recipe: {cfg.n_layer} layers, width {cfg.n_embd}, "
+        f"{cfg.n_head} heads (d {cfg.head_size}, dv {cfg.value_size}), block "
+        f"{cfg.block_size}, vocab {cfg.vocab_size}, bf16 compute, "
+        f"{param_count(engine.params) / 1e6:.1f} M params; KV pool "
+        f"{sum(t.numel() * t.element_size() for c in engine.cache for t in c.values()) / 1e6:.1f} MB")
+    client = ServingClient(engine)
+    httpd = serve(client, port=0)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    rng = np.random.default_rng(0)
+    bodies = []
+    for i, n in enumerate(PROMPT_LENS):
+        body = {"prompt_ids": rng.integers(0, cfg.vocab_size, n).tolist(),
+                "max_new_tokens": NEW_TOKENS, "temperature": 0.0}
+        if i in (3, 8):  # two sampled requests
+            body.update(temperature=0.8, top_k=50, seed=100 + i)
+        bodies.append(body)
+    try:
+        counters = _counters()
+        for fn in counters.values():
+            fn.launches = 0
+        stats0 = engine.stats.snapshot()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(bodies)) as pool:
+            replies = list(pool.map(lambda b: _post(url + "/generate", b), bodies))
+        wall = time.perf_counter() - t0
+        counts = {name: fn.launches for name, fn in counters.items()}
+        stats1 = engine.stats.snapshot()
+        for (status, reply), body in zip(replies, bodies):
+            expect(status == 200, f"/generate answered {status}: {reply}")
+            expect(len(reply["tokens"]) == NEW_TOKENS
+                   and reply["finish_reason"] == "length",
+                   f"reply has {len(reply['tokens'])} tokens, "
+                   f"{reply['finish_reason']}")
+            expect(all(0 <= t < cfg.vocab_size for t in reply["tokens"]),
+                   "token id out of range")
+            expect(reply["prompt_ids"] == body["prompt_ids"], "prompt echo")
+        steps = stats1["decode_steps"] - stats0["decode_steps"]
+        chunks = stats1["prefill_chunks"] - stats0["prefill_chunks"]
+        L = cfg.n_layer
+        expected = {"fused_norm": (2 * L + 1) * (steps + chunks),
+                    "fused_add_norm": L * (steps + chunks),
+                    "fused_swiglu": L * (steps + chunks),
+                    "decode_attention": L * steps}
+        log(f"[serve] {len(bodies)} requests, {steps} decode steps, {chunks} "
+            f"prefill chunks; launches {counts} (expected {expected})")
+        for name, n in expected.items():
+            expect(counts[name] == n and n > 0,
+                   f"{name} launched {counts[name]} times, expected {n}")
+        # greedy replies are deterministic: the same request again
+        status, again = _post(url + "/generate", bodies[0])
+        expect(again["tokens"] == replies[0][1]["tokens"],
+               "greedy reply changed on a repeat")
+        health = json.load(urllib.request.urlopen(url + "/health", timeout=60))
+        expect(health["ok"] and health["stats"]["completed"] >= len(bodies) + 1,
+               f"/health: {health}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        client.close()
+        server.join(timeout=30)
+    ttft = sorted(r["ttft_ms"] for _, r in replies)
+    p50 = statistics.median(ttft)
+    p95 = ttft[min(len(ttft) - 1, math.ceil(0.95 * len(ttft)) - 1)]
+    out_tok = NEW_TOKENS * len(bodies)
+    log(f"[serve] TTFT p50 {p50:.1f} ms, p95 {p95:.1f} ms; {out_tok} output "
+        f"tokens in {wall:.2f} s = {out_tok / wall:.1f} tok/s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the card's kernels against the CPU's plain versions, end to end
+# ---------------------------------------------------------------------------
+
+
+def run_e2e(torch) -> None:
+    """Prefill of one 64-token prompt and 8 teacher-forced decode steps
+    of the diff recipe in fp32, on the card (kernels) and on the CPU
+    (plain versions), from the same weights."""
+    import numpy as np
+
+    from differential_transformer_replication_tpu_torch.config import ModelConfig
+    from differential_transformer_replication_tpu_torch.models import common, init_model
+    from differential_transformer_replication_tpu_torch.models.decode import (
+        forward_chunk,
+        forward_decode_pool,
+        init_cache,
+    )
+
+    cfg = ModelConfig(**RECIPE, compute_dtype="float32")
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(1)
+    params = init_model(gen, cfg)
+    rng = np.random.default_rng(1)
+    prompt = rng.integers(0, cfg.vocab_size, 64)
+    feed = rng.integers(0, cfg.vocab_size, 8)
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        p = common.inference_params(params, torch.float32, dev)
+        cache = init_cache(cfg, 1, dev)
+        out, _ = forward_chunk(p, torch.as_tensor(prompt, device=dev)[None],
+                               0, cache, cfg)
+        steps = [out[0, -1]]
+        for t, tok in enumerate(feed):
+            out, _ = forward_decode_pool(
+                p, torch.as_tensor([tok], device=dev),
+                torch.as_tensor([64 + t], dtype=torch.int32, device=dev),
+                cache, cfg)
+            steps.append(out[0])
+        logits[dev] = torch.stack(steps).to("cpu", torch.float32)
+    card, host = logits["cuda"], logits["cpu"]
+    err = float((card - host).abs().max())
+    scale = float(host.abs().max())
+    tol = 1e-3  # fp32 through 8 layers, sums in another order on each side
+    log(f"[e2e] diff recipe fp32, prefill 64 + 8 decode steps: max-abs logit "
+        f"difference card vs CPU {err:.3g} (bound {tol:g}; max |logit| "
+        f"{scale:.3g})")
+    expect(bool(torch.isfinite(card).all()), "non-finite logits")
+    expect(err <= tol, f"card and CPU logits differ by {err:.3g} > {tol:g}")
+
+
+# ---------------------------------------------------------------------------
+# main
+# ---------------------------------------------------------------------------
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this smoke test needs one "
+              "GPU", file=sys.stderr)
+        return 2
+    try:
+        from differential_transformer_replication_tpu_torch.ops import (
+            _kernels,
+            decode_attention as dat,
+            fused_ffn as ffn,
+            fused_norm_residual as fnr,
+        )
+    except ImportError as e:
+        print(f"chip_smoke: the port package is not importable here ({e}); "
+              "run from the root of a checkout", file=sys.stderr)
+        return 2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"[card] {card}")
+    log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"python {sys.version.split()[0]}, device "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    paths = _kernels.build()
+    log(f"[build] nvcc sm_90a: {', '.join(p.name for p in paths.values())} "
+        f"in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    x = torch.zeros(8, 768, device="cuda", dtype=torch.bfloat16)
+    w = torch.ones(768, device="cuda")
+    fnr.fused_add_norm(x, x, w, w)
+    fnr.fused_norm(x, w, w)
+    torch.cuda.synchronize()
+    log(f"[build] triton JIT of the add+norm kernel (both variants): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    entries = run_kernels(torch, (fnr, ffn, dat))
+    counts = run_serve(torch, card)
+    run_e2e(torch)
+
+    for name, ent in entries.items():
+        ent["launches"] = counts.get(name, 0)
+    order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: ent[k] for k in order}
+                                  for ent in entries.values()]}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

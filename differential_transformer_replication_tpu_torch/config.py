@@ -1,0 +1,230 @@
+"""Configuration dataclasses of the PyTorch port.
+
+A copy of the JAX package's ``ModelConfig`` (every field, so a saved
+model config carries over unchanged) and of the ``ServingConfig`` fields
+the contiguous-pool serving slice reads
+(``differential_transformer_replication_tpu/config.py``). The port keeps
+its own copy: it imports nothing of the JAX package.
+
+Kernel dispatch in the port is by DEVICE, not by these fields: every
+kernel wrapper (``ops/fused_norm_residual.py``, ``ops/fused_ffn.py``,
+``ops/decode_attention.py``) launches its hand-written GPU kernel for a
+CUDA tensor and runs its plain PyTorch version only for a CPU tensor.
+``ffn_impl`` and ``decode_attention_impl`` are kept, and validated, so
+that configs round-trip between the two packages, but no value of them
+can put a plain version on the card's path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+MODEL_KINDS = ("control", "diff", "ndiff")
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Hyperparameters shared by all three model families (the reference
+    recipe's defaults: 8 layers, width 768, T=512, vocab 12000)."""
+
+    model: str = "control"  # one of MODEL_KINDS
+    vocab_size: int = 12000
+    n_embd: int = 768
+    n_head: int = 4  # the *diff* head count
+    n_layer: int = 8
+    block_size: int = 512
+    dropout: float = 0.0
+    n_terms: int = 4  # ndiff streams
+    compute_dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    # Training attention backend of the JAX package ("xla" | "pallas");
+    # carried for config round-trips, unused by the serving slice.
+    attention_impl: str = "xla"
+    # "xla" | "pallas" in the JAX package. The port validates the value
+    # and otherwise ignores it: its fused add+LayerNorm and SwiGLU
+    # wrappers always launch their GPU kernels on a CUDA tensor and run
+    # their plain versions only on a CPU tensor.
+    ffn_impl: str = "xla"
+    # "xla" | "pallas" in the JAX package; same rule: the port's
+    # decode-attention wrapper dispatches by device, never by this field.
+    decode_attention_impl: str = "xla"
+    # KV-cache storage dtype: "auto" stores compute_dtype, "bf16" forces
+    # bfloat16. "int8" is accepted here for config round-trips; the
+    # serving slice refuses it (the int8 KV path comes in a later slice).
+    kv_cache_dtype: str = "auto"
+    sequence_impl: str = "ring"
+    remat: bool = False
+    remat_policy: str = "none"
+    loss_chunk: Optional[int] = None
+
+    def __post_init__(self):
+        if self.model not in MODEL_KINDS:
+            raise ValueError(f"model must be one of {MODEL_KINDS}, got {self.model!r}")
+        for name in ("attention_impl", "ffn_impl", "decode_attention_impl"):
+            if getattr(self, name) not in ("xla", "pallas"):
+                raise ValueError(
+                    f"{name} must be 'xla' or 'pallas', got "
+                    f"{getattr(self, name)!r}"
+                )
+        if self.kv_cache_dtype not in ("auto", "bf16", "int8"):
+            raise ValueError(
+                "kv_cache_dtype must be one of auto|bf16|int8, got "
+                f"{self.kv_cache_dtype!r}"
+            )
+        if self.remat_policy not in (
+            "none", "dots", "dots_no_batch", "nothing", "everything"
+        ):
+            raise ValueError(
+                "remat_policy must be one of none|dots|dots_no_batch|"
+                f"nothing|everything, got {self.remat_policy!r}"
+            )
+        if self.sequence_impl not in ("ring", "ulysses"):
+            raise ValueError(
+                "sequence_impl must be 'ring' or 'ulysses', got "
+                f"{self.sequence_impl!r}"
+            )
+        if self.loss_chunk is not None and self.loss_chunk < 1:
+            raise ValueError(f"loss_chunk must be positive, got {self.loss_chunk}")
+        if self.model == "ndiff" and self.n_terms < 1:
+            raise ValueError("n_terms must be >= 1")
+
+    @property
+    def head_size(self) -> int:
+        """Per-head query/key width; halved for the differential
+        variants, whose heads carry a doubled value."""
+        if self.model == "control":
+            return self.n_embd // self.n_head
+        return self.n_embd // (self.n_head * 2)
+
+    @property
+    def value_size(self) -> int:
+        """Per-head value width: doubled for the differential variants."""
+        if self.model == "control":
+            return self.head_size
+        return self.head_size * 2
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ServingConfig:
+    """Continuous-batching engine knobs read by the contiguous-pool
+    serving slice (serving/engine.py). Same names, defaults and meaning
+    as the JAX package's ServingConfig; its paged-KV, speculative,
+    structured-decoding, tiering and telemetry fields belong to later
+    slices of the port and are absent here."""
+
+    # Fixed decode batch = KV slot pool size.
+    num_slots: int = 8
+    # Largest single prefill chunk; prompts split into descending
+    # power-of-two chunks no larger than this.
+    prefill_chunk: int = 128
+    # Max prompt tokens prefilled per engine iteration, across admissions.
+    prefill_budget: int = 256
+    # RoPE table length = cap on prompt + generated tokens for control/
+    # ndiff (0 = block_size). The diff family is always capped at
+    # block_size: its learned position table cannot roll.
+    max_seq_len: int = 0
+    eos_token_id: Optional[int] = None
+    # Reject submissions past this many waiting requests (0 = unbounded).
+    max_queue_len: int = 0
+    default_deadline_s: float = 0.0
+    drain_timeout_s: float = 30.0
+    max_restarts: int = 3
+    restart_backoff_s: float = 0.5
+    restart_backoff_max_s: float = 30.0
+    step_time_budget_s: float = 0.0
+    # Anti-starvation aging for priority scheduling: a queued request's
+    # effective rank improves by one class per this many seconds waited.
+    priority_aging_s: float = 10.0
+    # Per-class concurrent-slot bounds, "class:N,class:N" ("" = none).
+    priority_max_slots: str = ""
+    # Serving-side override of ModelConfig.kv_cache_dtype ("" = inherit).
+    # (The JAX package's decode_attention_impl override is absent: the
+    # port's kernels dispatch by device, so it would select nothing.)
+    kv_cache_dtype: str = ""
+
+    def __post_init__(self):
+        if self.kv_cache_dtype not in ("", "auto", "bf16", "int8"):
+            raise ValueError(
+                "kv_cache_dtype must be ''|auto|bf16|int8, got "
+                f"{self.kv_cache_dtype!r}"
+            )
+        if self.num_slots < 1:
+            raise ValueError(f"num_slots must be >= 1, got {self.num_slots}")
+        if self.max_queue_len < 0:
+            raise ValueError(
+                f"max_queue_len must be >= 0, got {self.max_queue_len}"
+            )
+        for name in ("default_deadline_s", "drain_timeout_s",
+                     "restart_backoff_s", "restart_backoff_max_s",
+                     "step_time_budget_s"):
+            if getattr(self, name) < 0:
+                raise ValueError(
+                    f"{name} must be >= 0, got {getattr(self, name)}"
+                )
+        if self.max_restarts < 0:
+            raise ValueError(
+                f"max_restarts must be >= 0, got {self.max_restarts}"
+            )
+        if self.prefill_chunk < 1 or (
+            self.prefill_chunk & (self.prefill_chunk - 1)
+        ):
+            raise ValueError(
+                f"prefill_chunk must be a positive power of two, got "
+                f"{self.prefill_chunk}"
+            )
+        if self.prefill_budget < 1:
+            raise ValueError(
+                f"prefill_budget must be >= 1, got {self.prefill_budget}"
+            )
+        if self.max_seq_len < 0:
+            raise ValueError(f"max_seq_len must be >= 0, got {self.max_seq_len}")
+        if self.priority_aging_s < 0:
+            raise ValueError(
+                f"priority_aging_s must be >= 0, got {self.priority_aging_s}"
+            )
+        self.priority_slot_bounds()  # validate the spec string eagerly
+
+    def priority_slot_bounds(self) -> dict:
+        """Parsed ``priority_max_slots``: {class: max concurrent slots}.
+        Raises on unknown classes or malformed entries."""
+        bounds: dict = {}
+        if not self.priority_max_slots:
+            return bounds
+        valid = ("high", "normal", "batch")
+        for part in self.priority_max_slots.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            cls, sep, n = part.partition(":")
+            cls = cls.strip()
+            if not sep or cls not in valid:
+                raise ValueError(
+                    "priority_max_slots entries must be 'class:N' with "
+                    f"class in {valid}, got {part!r}"
+                )
+            try:
+                bound = int(n)
+            except ValueError:
+                raise ValueError(
+                    f"priority_max_slots bound must be an int, got {n!r}"
+                )
+            if bound < 1:
+                raise ValueError(
+                    f"priority_max_slots bound must be >= 1, got {bound}"
+                )
+            bounds[cls] = bound
+        return bounds
+
+    def resolved_max_seq_len(self, model: ModelConfig) -> int:
+        """Hard cap on prompt + generated length for this model family."""
+        if model.model == "diff":
+            return model.block_size
+        return max(self.max_seq_len, model.block_size)
+
+    def replace(self, **kw) -> "ServingConfig":
+        return dataclasses.replace(self, **kw)

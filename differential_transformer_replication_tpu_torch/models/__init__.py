@@ -1,0 +1,7 @@
+"""Models of the PyTorch port: per-family param init (JAX layout) and
+the cached serving forward (models/decode.py)."""
+
+from differential_transformer_replication_tpu_torch.models.registry import (  # noqa: F401
+    init_model,
+    param_count,
+)

@@ -1,0 +1,24 @@
+"""Model-select switch: ``ModelConfig.model`` picks the family's init.
+All three families share the serving forward in models/decode.py."""
+
+from __future__ import annotations
+
+import torch
+
+from differential_transformer_replication_tpu_torch.config import ModelConfig
+from differential_transformer_replication_tpu_torch.models import control, diff, ndiff
+
+_MODULES = {"control": control, "diff": diff, "ndiff": ndiff}
+
+
+def init_model(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """Random params in the JAX layout, drawn from ``gen`` on its device."""
+    return _MODULES[cfg.model].init(gen, cfg)
+
+
+def param_count(params) -> int:
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    if isinstance(params, list):
+        return sum(param_count(v) for v in params)
+    return params.numel()

@@ -1,0 +1,4 @@
+"""Ops of the PyTorch port: plain tensor functions, and the three
+kernel-holding modules (``fused_norm_residual``, ``fused_ffn``,
+``decode_attention``) whose wrappers launch a hand-written Hopper kernel
+on a CUDA tensor and run their plain version on a CPU tensor."""

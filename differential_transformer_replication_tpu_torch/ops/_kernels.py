@@ -1,0 +1,143 @@
+"""Build and load the port's CUDA C++ kernels.
+
+Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into
+a shared library with a plain C interface, at first use, and loaded with
+``ctypes``. The library lands in ``build/torch_kernels/`` at the root of
+the checkout, named after a hash of its source, so an edited source is
+never served by a stale build; a concurrent build writes to a
+temporary name and renames. Pointers and the CUDA stream cross as
+``ctypes.c_void_p``; every C entry point that launches returns the CUDA
+error code of its launches (``cudaGetLastError()``), which the wrapper
+turns into an exception. Nothing here imports or builds anything when the module is
+imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C signature of every kernel library: {library: {function: argtypes}}.
+SIGNATURES = {
+    "fused_swiglu": {
+        # x, wg, bg, wx, bx, out, M, E, F, dtype, stream
+        "fused_swiglu_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    },
+    "decode_attention": {
+        # S, B, H, M, d, dv, dtype -> workspace floats (-1: refused)
+        "decode_attention_workspace": (_I, _I, _I, _I, _I, _I, _I),
+        # q, k, v, pos, coeffs, out, work, S, B, H, M, d, dv, scale,
+        # dtype, stream
+        "decode_attention_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _F, _I, _P),
+    },
+}
+
+# dtype codes shared with the C sources
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def require_cuda(t: torch.Tensor, what: str) -> None:
+    """Raise unless ``t`` is a CUDA tensor on a machine with a card: a
+    kernel wrapper never falls back to its plain version off the CPU."""
+    if t.device.type != "cuda":
+        raise RuntimeError(
+            f"{what}: no kernel for device {t.device.type!r}; the plain "
+            "version runs only for CPU tensors"
+        )
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{what}: CUDA is not available")
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels build on a machine "
+                       "with the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def _compile_cmd(name: str, out: Path) -> list:
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+
+
+def build(names=None) -> dict:
+    """Compile the named kernel libraries (all by default) that are not
+    built yet, one ``nvcc`` per source, all started together. Returns
+    {name: library path}. Raises with the compiler's output on failure."""
+    names = list(SIGNATURES) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = {}
+    for name in names:
+        path = library_path(name)
+        if not path.exists():
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            todo[name] = (path, Path(tmp), subprocess.Popen(
+                _compile_cmd(name, Path(tmp)), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True,
+            ))
+    errors = []
+    for name, (path, tmp, proc) in todo.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+        else:
+            os.replace(tmp, path)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return {name: library_path(name) for name in names}
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name`` (built first if needed), with
+    ``argtypes``/``restype`` declared for each C entry point (all of them
+    return an int)."""
+    path = build([name])[name]
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Turn a launch's CUDA error code into an exception."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

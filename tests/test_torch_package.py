@@ -1,0 +1,123 @@
+"""Pins of the PyTorch port's package boundary, on the CPU.
+
+The port imports ``torch`` and never ``jax``, and nothing of the JAX
+package, not even its jax-free modules: a fresh interpreter that imports
+every module of the port must end with neither in ``sys.modules`` (the
+pattern of tests/test_lint_clean.py), and no source file of the port may
+name them in an import statement, lazy imports inside functions
+included. Kernel wrappers dispatch by device: off the CPU they launch
+their kernel or raise, never run the plain version.
+"""
+
+from __future__ import annotations
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = "differential_transformer_replication_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "differential_transformer_replication_tpu")
+
+
+def _modules():
+    root = REPO / PKG
+    out = []
+    for path in sorted(root.rglob("*.py")):
+        rel = path.relative_to(REPO).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        out.append(".".join(parts))
+    return out
+
+
+def test_every_module_imports_without_jax():
+    mods = _modules()
+    assert len(mods) >= 15
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def _imported_roots(tree):
+    for node in ast.walk(tree):  # walks function bodies: lazy imports too
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module.split(".")[0], node.lineno
+        elif (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+              and node.func.attr == "import_module" and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in [*(REPO / PKG).rglob("*.py"),
+                                       REPO / "chip_smoke.py"]))
+def test_source_names_no_jax_import(path):
+    tree = ast.parse((REPO / path).read_text(), filename=path)
+    bad = [(root, line) for root, line in _imported_roots(tree)
+           if root in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_kernel_wrappers_raise_off_the_cpu_instead_of_falling_back():
+    from differential_transformer_replication_tpu_torch.ops import (
+        decode_attention as dat,
+        fused_ffn as ffn,
+        fused_norm_residual as fnr,
+    )
+
+    meta = torch.device("meta")
+    x = torch.empty(4, 32, device=meta)
+    w = torch.empty(32, device=meta)
+    calls = {
+        "fused_norm": lambda: fnr.fused_norm(x, w, w),
+        "fused_add_norm": lambda: fnr.fused_add_norm(x, x, w, w),
+        "fused_swiglu": lambda: ffn.fused_swiglu(
+            x, torch.empty(32, 64, device=meta), torch.empty(64, device=meta),
+            torch.empty(32, 64, device=meta), torch.empty(64, device=meta)),
+        "decode_attention": lambda: dat.decode_attention(
+            torch.empty(1, 2, 2, 8, device=meta),
+            torch.empty(1, 2, 2, 16, 8, device=meta),
+            torch.empty(2, 2, 16, 8, device=meta),
+            torch.empty(2, dtype=torch.int32, device=meta),
+            torch.empty(1, 2, device=meta)),
+    }
+    wrappers = {"fused_norm": fnr.fused_norm, "fused_add_norm": fnr.fused_add_norm,
+                "fused_swiglu": ffn.fused_swiglu,
+                "decode_attention": dat.decode_attention}
+    before = {k: f.launches for k, f in wrappers.items()}
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no kernel for device 'meta'"):
+            call()
+    assert {k: f.launches for k, f in wrappers.items()} == before
+
+
+def test_kernel_sources_and_build_flags():
+    from differential_transformer_replication_tpu_torch.ops import _kernels
+
+    for name in _kernels.SIGNATURES:
+        src = (_kernels.CSRC / f"{name}.cu").read_text()
+        assert "extern \"C\" int" in src
+        for fn in _kernels.SIGNATURES[name]:
+            assert fn in src
+    assert "arch=compute_90a,code=sm_90a" in _kernels.NVCC_FLAGS
+    # the build output lives in a directory git ignores
+    ignored = (REPO / ".gitignore").read_text().split()
+    assert "build/" in ignored
+    assert _kernels.BUILD_DIR.relative_to(REPO).parts[0] == "build"
