@@ -4,21 +4,34 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs
 one CUDA card, imports nothing of JAX or of the JAX package, and drives
 the port (``differential_transformer_replication_tpu_torch``) through
-these phases, each printing its own lines:
+these phases, each printing its own lines and its seconds:
 
 1. card: the GPU's name and power limit (nvidia-smi), torch/CUDA
    versions, and the build of every kernel from the checkout's sources
-   (both ``nvcc`` builds started together, the Triton JIT at first use);
+   (one ``nvcc`` per CUDA source, all started together, the Triton JIT
+   at first use);
 2. kernels: each hand-written kernel against its plain PyTorch version
    on the card at the recipe's shapes, fp32 and bf16, with max-abs
    error against a stated bound, and median times beside the plain
    version, the bound (least time the card could take) and, where one
-   exists, a one-call PyTorch equivalent;
+   exists, a one-call PyTorch equivalent: the serving kernels (add+norm,
+   SwiGLU, decode attention) and the training kernels (token-major
+   attention forward and backward for the diff, control and ndiff
+   recipes, add+norm backward, SwiGLU backward; add+norm and SwiGLU
+   forward also at the training shape M = 16384);
 3. serve: a diff model at recipe width (random weights from a seed)
    behind the port's HTTP ``serve()``, 12 concurrent ``/generate``
    requests, launch counters read around that run;
 4. e2e: prefill + decode logits of one prompt in fp32 on the card
-   (kernels) against the CPU (plain versions).
+   (kernels) against the CPU (plain versions);
+5. train: the diff recipe at full width and depth, then the control
+   recipe, each from a seed-0 init through the trainer's entry point
+   (``train.trainer.train``) on a seeded synthetic ``tokens.npy``,
+   then a few steps on one repeated batch whose loss must fall; launch
+   counters read around each run;
+6. train e2e: one train step of a 2-layer diff model at recipe width in
+   fp32, loss and every gradient on the card (kernels) against the CPU
+   (plain versions).
 
 It then prints the kernels' JSON summary, the card line, and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -43,6 +56,14 @@ L2_BYTES = 50 * 2**20
 
 RECIPE = dict(model="diff", vocab_size=12000, n_embd=768, n_head=4,
               n_layer=8, block_size=512, dropout=0.0)
+TRAIN_B = 32  # the recipe's micro-batch
+TRAIN_M = TRAIN_B * RECIPE["block_size"]  # rows of a training activation
+
+
+def few(long: bool) -> dict:
+    """Timing iterations for a kernel of tens of ms: fewer, so the smoke
+    stays inside its time limit."""
+    return dict(iters=4, reps=5) if long else {}
 
 
 def log(msg: str) -> None:
@@ -122,13 +143,15 @@ def device_ms(calls, iters: int = 20, reps: int = 7) -> float:
     return statistics.median(times)
 
 
-def timings(k_calls, p_calls, lib_calls=None) -> dict:
+def timings(k_calls, p_calls, lib_calls=None, iters: int = 20,
+            reps: int = 7) -> dict:
     """Device and per-call times of a kernel, its plain version and the
     one-call PyTorch equivalent (None where there is none)."""
-    out = {"ms": device_ms(k_calls), "call_ms": call_ms(k_calls),
-           "plain_ms": device_ms(p_calls), "library_ms": None}
+    out = {"ms": device_ms(k_calls, iters, reps),
+           "call_ms": call_ms(k_calls, iters, reps),
+           "plain_ms": device_ms(p_calls, iters, reps), "library_ms": None}
     if lib_calls:
-        out["library_ms"] = device_ms(lib_calls)
+        out["library_ms"] = device_ms(lib_calls, iters, reps)
     return out
 
 
@@ -205,7 +228,7 @@ def run_kernels(torch, ops) -> dict:
     for with_delta in (True, False):
         name = "fused_add_norm" if with_delta else "fused_norm"
         for dtype in (torch.float32, torch.bfloat16):
-            for M in (8, 128):
+            for M in (8, 128, TRAIN_M):
                 E = 768
                 err, tol, nbytes, flops, (x, d, w, b) = check_norm(
                     torch, fnr, dtype, M, E, with_delta, gen)
@@ -250,7 +273,7 @@ def run_kernels(torch, ops) -> dict:
                 (0.02 * torch.randn(*shape, generator=gen, device="cuda")).to(dtype)
                 for shape in ((E, F), (F,), (E, F), (F,))))
         wg, bg, wx, bx = wsets[0]
-        for M in (8, 128):
+        for M in (8, 128, TRAIN_M):
             x = torch.randn(M, E, generator=gen, device="cuda").to(dtype)
             got = ffn.fused_swiglu(x, wg, bg, wx, bx)
             ref = ffn.swiglu_reference(x, wg, bg, wx, bx)
@@ -261,7 +284,7 @@ def run_kernels(torch, ops) -> dict:
                    f"> bound {tol:.3g}")
             k_calls = [lambda s=s: ffn.fused_swiglu(x, *s) for s in wsets]
             p_calls = [lambda s=s: ffn.swiglu_reference(x, *s) for s in wsets]
-            t = timings(k_calls, p_calls)
+            t = timings(k_calls, p_calls, **few(M == TRAIN_M))
             nbytes = M * E * es + wbytes + 2 * F * es + M * F * es
             bms, by = bound_ms(nbytes, 4 * M * E * F + 6 * M * F, dtype)
             log(f"[kernels] fused_swiglu {str(dtype)[6:]} M={M} E={E} F={F}: "
@@ -514,6 +537,384 @@ def run_e2e(torch) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 2, continued: the training kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+SRC = "differential_transformer_replication_tpu_torch/"
+TPU = "differential_transformer_replication_tpu/ops/"
+
+# (name, S, H, d, dv, packed): the three recipes' attention shapes
+TM_CONFIGS = (("diff", 2, 4, 96, 192, True), ("control", 1, 8, 96, 96, False),
+              ("ndiff", 4, 4, 96, 192, False))
+
+
+def bf16_tol(ref, terms: int) -> float:
+    """bf16 bound of a training kernel against its plain version: both
+    round p, ds and the stream-combined p (or dg/dt) at the same points
+    from fp32 values summed in another order, so a rounding can flip;
+    one bf16 step of the result plus 2^-8 of max|ref| * sqrt(terms)."""
+    top = float(ref.float().abs().max())
+    return 2.0 ** -7 * top + 2.0 ** -8 * top * terms ** 0.5
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def tm_operands(torch, gen, dtype, B, T, S, H, d, dv, packed):
+    W = 2 * S * H * d + H * dv
+    proj = torch.randn(B, T, W, generator=gen, device="cuda").to(dtype)
+    Hd = H * d
+    qs = [proj[..., s * Hd:(s + 1) * Hd] for s in range(S)]
+    ks = [proj[..., (S + s) * Hd:(S + s + 1) * Hd] for s in range(S)]
+    v = proj[..., 2 * S * Hd:]
+    if not packed:
+        qs = [t.contiguous() for t in qs]
+        ks = [t.contiguous() for t in ks]
+        v = v.contiguous()
+    c = 0.5 * torch.randn(S, H, generator=gen, device="cuda")
+    c[0] = 1.0
+    return proj, qs, ks, v, c
+
+
+def run_train_kernels(torch, ops) -> dict:
+    """Phase 2 for the training kernels D, E, F, G. Returns {name: json
+    entry sans launches}."""
+    fnr, ffn, flash = ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    entries = {}
+    B, T = TRAIN_B, RECIPE["block_size"]
+    n_pairs = B * T * (T + 1) // 2  # causal (q, k) pairs per head
+    for name, S, H, d, dv, packed in TM_CONFIGS:
+        for dtype in (torch.float32, torch.bfloat16):
+            es = torch.finfo(dtype).bits // 8
+            proj, qs, ks, v, c = tm_operands(torch, gen, dtype, B, T, S, H, d,
+                                             dv, packed)
+            out, o_all, lse = flash.flash_tm_fwd(qs, ks, v, c, H, True)
+            r_out, r_oall, r_lse = flash.tm_attention_fwd_reference(qs, ks, v, c, H)
+            g = torch.randn(B, T, H * dv, generator=gen, device="cuda").to(dtype)
+            base = torch.einsum("bthd,bhstd->bths",
+                                g.float().reshape(B, T, H, dv), r_oall.float())
+            delta = (base * c.t()[None, None]).reshape(B, T, H * S).contiguous()
+            grads = [torch.empty(B, T, H * d, dtype=dtype, device="cuda")
+                     for _ in range(2 * S)]
+            dv_ = torch.empty(B, T, H * dv, dtype=dtype, device="cuda")
+            bwd_args = (qs, ks, v, g, r_lse, delta, c, H)
+            flash.flash_tm_bwd(*bwd_args, grads[:S], grads[S:], dv_)
+            rq, rk, rv = flash.tm_attention_bwd_reference(*bwd_args)
+            torch.cuda.synchronize()
+            f_err = max(max_err(out, r_out), max_err(o_all, r_oall))
+            l_err = max_err(lse, r_lse)
+            b_errs = [max_err(a, b) for a, b in zip([*grads, dv_], [*rq, *rk, rv])]
+            if dtype == torch.float32:
+                f_tol, l_tol = 1e-5, 1e-5
+                b_tols = [1e-4 * float(r.float().abs().max()) for r in [*rq, *rk, rv]]
+            else:
+                # p rounded before PV on both sides; a flip moves a row
+                # by 2^-8 of sum|c| * max|V|, plus one bf16 step
+                f_tol = (2.0 ** -8 * float(c.abs().sum(0).max())
+                         * float(v.float().abs().max()) + bf16_ulp_bound(r_out.float()))
+                l_tol = 1e-5 * float(r_lse.abs().max())
+                b_tols = [bf16_tol(r, T) for r in [*rq, *rk, rv]]
+            expect(f_err <= f_tol and l_err <= l_tol,
+                   f"flash_tm_fwd {name} {dtype}: max-abs {f_err:.3g} (bound "
+                   f"{f_tol:.3g}), lse {l_err:.3g} (bound {l_tol:.3g})")
+            for e, tl in zip(b_errs, b_tols):
+                expect(e <= tl, f"flash_tm_bwd {name} {dtype}: max-abs {e:.3g} "
+                       f"> bound {tl:.3g}")
+            b_err = max(b_errs)
+            log(f"[kernels] flash_tm {name} {str(dtype)[6:]} B={B} T={T} S={S} "
+                f"H={H} d={d} dv={dv} {'packed' if packed else 'per-array'}: "
+                f"fwd max-abs {f_err:.3g} (bound {f_tol:.3g}), lse {l_err:.3g}; "
+                f"bwd max-abs {b_err:.3g} (bound {min(b_tols):.3g}..{max(b_tols):.3g})")
+            if dtype != torch.bfloat16:
+                continue
+            # times, bf16: forward with residuals and the backward
+            in_bytes = B * T * H * (2 * S * d + dv) * es
+            fwd_bytes = (in_bytes + B * T * H * dv * es + B * H * S * T * dv * es
+                         + B * T * H * S * 4)
+            fwd_flops = n_pairs * H * S * (2 * d + 2 * dv)
+            lib = None
+            if S == 1:  # one causal softmax stream: SDPA computes it
+                qt, kt, vt = (t.reshape(B, T, H, -1).transpose(1, 2)
+                              for t in (qs[0], ks[0], v))
+                lib = [lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True)]
+            t = timings([lambda: flash.flash_tm_fwd(qs, ks, v, c, H, True)],
+                        [lambda: flash.tm_attention_fwd_reference(qs, ks, v, c, H)],
+                        lib, **few(True))
+            bms, by = bound_ms(fwd_bytes, fwd_flops, dtype)
+            log(f"[kernels] flash_tm_fwd {name} bf16: " + fmt_times(t, bms, by)
+                + ("; one-call PyTorch is SDPA" if lib else
+                   "; no one-call PyTorch equivalent (multi-stream combine)"))
+            if name == "diff":
+                entries["flash_tm_fwd"] = dict(
+                    name="flash_tm_fwd", route="cuda", source=SRC + "csrc/flash_tm.cu",
+                    replaces=TPU + "flash.py:1945", max_abs_err=f_err,
+                    ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=bms,
+                    bound_by=by, library_ms=t["library_ms"])
+            bwd_bytes = (2 * in_bytes + B * T * H * dv * es
+                         + 2 * B * T * H * S * 4)
+            bwd_flops = n_pairs * H * (4 * dv + 6 * d * S)
+            t = timings([lambda: flash.flash_tm_bwd(*bwd_args, grads[:S], grads[S:], dv_)],
+                        [lambda: flash.tm_attention_bwd_reference(*bwd_args)],
+                        None, **few(True))
+            bms, by = bound_ms(bwd_bytes, bwd_flops, dtype)
+            log(f"[kernels] flash_tm_bwd {name} bf16: " + fmt_times(t, bms, by)
+                + "; no one-call PyTorch equivalent")
+            if name == "diff":
+                entries["flash_tm_bwd"] = dict(
+                    name="flash_tm_bwd", route="cuda", source=SRC + "csrc/flash_tm.cu",
+                    replaces=TPU + "flash.py:2118", max_abs_err=b_err,
+                    ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=bms,
+                    bound_by=by, library_ms=None)
+            del proj, qs, ks, v, out, o_all, lse, r_out, r_oall, r_lse, grads
+            del base, delta, g, dv_, rq, rk, rv, bwd_args
+
+    # F: add+LayerNorm backward with the carry cotangent (the add+ln2)
+    M, E = TRAIN_M, RECIPE["n_embd"]
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.finfo(dtype).bits // 8
+        x, gn, gx = (torch.randn(M, E, generator=gen, device="cuda").to(dtype)
+                     for _ in range(3))
+        w = 1.0 + 0.1 * torch.randn(E, generator=gen, device="cuda")
+        dx, dw, db = fnr.add_norm_bwd(x, w, gn, gx)
+        rdx, rdw, rdb = fnr.add_norm_bwd_reference(x, w, gn, gx)
+        err = max_err(dx, rdx)
+        p_err = max(max_err(dw, rdw) / float(rdw.abs().max()),
+                    max_err(db, rdb) / float(rdb.abs().max()))
+        tol = (1e-5 * float(rdx.abs().max()) if dtype == torch.float32
+               else bf16_ulp_bound(rdx.float()))
+        expect(err <= tol and p_err <= 1e-4,
+               f"add_norm_bwd {dtype}: dx max-abs {err:.3g} (bound {tol:.3g}), "
+               f"dw/db relative {p_err:.3g} (bound 1e-4)")
+        t = timings([lambda: fnr.add_norm_bwd(x, w, gn, gx)],
+                    [lambda: fnr.add_norm_bwd_reference(x, w, gn, gx)])
+        bms, by = bound_ms(4 * M * E * es + E * 4 + 2 * E * 4, 12 * M * E, dtype)
+        log(f"[kernels] add_norm_bwd {str(dtype)[6:]} ({M},{E}) with the carry "
+            f"cotangent: dx max-abs {err:.3g} (bound {tol:.3g}), dw/db relative "
+            f"{p_err:.3g} (bound 1e-4); " + fmt_times(t, bms, by)
+            + "; no one-call PyTorch equivalent (a carry term, no saved stats)")
+        if dtype == torch.bfloat16:
+            entries["add_norm_bwd"] = dict(
+                name="add_norm_bwd", route="triton",
+                source=SRC + "ops/fused_norm_residual.py",
+                replaces=TPU + "fused_norm_residual.py:153", max_abs_err=err,
+                ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=bms, bound_by=by,
+                library_ms=None)
+        del x, gn, gx, dx, rdx
+
+    # G: SwiGLU backward
+    F = 4 * E
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.finfo(dtype).bits // 8
+        x = torch.randn(M, E, generator=gen, device="cuda").to(dtype)
+        ws = [(0.02 * torch.randn(*shape, generator=gen, device="cuda")).to(dtype)
+              for shape in ((E, F), (F,), (E, F), (F,))]
+        gh = torch.randn(M, F, generator=gen, device="cuda").to(dtype)
+        dgt, dw, db = ffn.swiglu_bwd(x, *ws, gh)
+        rdgt, rdw, rdb = ffn.swiglu_bwd_reference(x, *ws, gh)
+        err = max_err(dgt, rdgt)
+        w_err = max(max_err(dw, rdw) / float(rdw.abs().max()),
+                    max_err(db, rdb) / float(rdb.abs().max()))
+        if dtype == torch.float32:
+            tol, w_tol = 1e-5 * float(rdgt.abs().max()), 1e-4
+        else:
+            # dg/dt one bf16 step; a flipped dg/dt rounding moves a weight
+            # grad by 2^-8 of one of its M terms
+            tol, w_tol = bf16_ulp_bound(rdgt.float()), 2.0 ** -7
+        expect(err <= tol and w_err <= w_tol,
+               f"swiglu_bwd {dtype}: dg/dt max-abs {err:.3g} (bound {tol:.3g}), "
+               f"dW/db relative {w_err:.3g} (bound {w_tol:.3g})")
+        t = timings([lambda: ffn.swiglu_bwd(x, *ws, gh)],
+                    [lambda: ffn.swiglu_bwd_reference(x, *ws, gh)], None,
+                    **few(True))
+        nbytes = (M * E + 2 * E * F + 2 * F + M * F + 2 * M * F) * es + 2 * E * F * 4 + 2 * F * 4
+        bms, by = bound_ms(nbytes, 8 * M * E * F + 20 * M * F, dtype)
+        log(f"[kernels] swiglu_bwd {str(dtype)[6:]} M={M} E={E} F={F}: dg/dt "
+            f"max-abs {err:.3g} (bound {tol:.3g}), dW/db relative {w_err:.3g} "
+            f"(bound {w_tol:.3g}); " + fmt_times(t, bms, by)
+            + "; no one-call PyTorch equivalent")
+        if dtype == torch.bfloat16:
+            entries["swiglu_bwd"] = dict(
+                name="swiglu_bwd", route="cuda", source=SRC + "csrc/fused_swiglu.cu",
+                replaces=TPU + "fused_ffn.py:169", max_abs_err=err, ms=t["ms"],
+                plain_ms=t["plain_ms"], bound_ms=bms, bound_by=by, library_ms=None)
+        del x, ws, gh, dgt, rdgt
+    torch.cuda.empty_cache()
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 5: train the diff and control recipes through the trainer
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 6     # trainer steps per recipe
+REPEAT_STEPS = 4    # steps on one repeated batch, whose loss must fall
+TRAIN_COUNTERS = ("fused_norm", "fused_add_norm", "fused_swiglu",
+                  "flash_tm_fwd", "flash_tm_bwd", "add_norm_bwd", "swiglu_bwd")
+
+
+def _train_counters():
+    from differential_transformer_replication_tpu_torch.ops import (
+        flash,
+        fused_ffn as ffn,
+        fused_norm_residual as fnr,
+    )
+
+    return {"fused_norm": fnr.fused_norm, "fused_add_norm": fnr.fused_add_norm,
+            "fused_swiglu": ffn.fused_swiglu, "flash_tm_fwd": flash.flash_tm_fwd,
+            "flash_tm_bwd": flash.flash_tm_bwd, "add_norm_bwd": fnr.add_norm_bwd,
+            "swiglu_bwd": ffn.swiglu_bwd}
+
+
+def synthetic_tokens(path, n: int, vocab: int, seed: int) -> None:
+    """A seeded Zipf-distributed token stream (skewed like text, so a few
+    steps visibly lower the loss), saved as the trainer's tokens.npy."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    tokens = (rng.zipf(1.3, n) - 1) % vocab
+    np.save(path, tokens.astype(np.int32))
+
+
+def run_train(torch, card: str) -> dict:
+    """Phase 5. Returns the launch count of each training kernel wrapper
+    over the diff recipe's trainer run."""
+    from pathlib import Path
+
+    from differential_transformer_replication_tpu_torch.config import (
+        ModelConfig,
+        TrainConfig,
+    )
+    from differential_transformer_replication_tpu_torch.train.trainer import train
+    from differential_transformer_replication_tpu_torch.train.step import (
+        make_eval_step,
+        make_train_step,
+    )
+
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tokens = out_dir / "tokens.npy"
+    synthetic_tokens(tokens, 2_000_000, RECIPE["vocab_size"], seed=0)
+    counters = _train_counters()
+    diff_counts = None
+    for model, n_layer in (("diff", 8), ("control", 8)):
+        cfg = TrainConfig(
+            model=ModelConfig(**dict(RECIPE, model=model, n_layer=n_layer),
+                              compute_dtype="bfloat16", param_dtype="float32"),
+            vocab_size=RECIPE["vocab_size"], micro_batch_size=TRAIN_B,
+            max_iters=TRAIN_STEPS, eval_interval=TRAIN_STEPS, eval_iters=2,
+            log_interval=1, learning_rate=1e-3, warmup_iters=2,
+            sampler="replacement", seed=0,
+            metrics_path=str(out_dir / f"metrics_{model}.jsonl"))
+        mcfg = cfg.resolved_model()
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, history = train(cfg, str(tokens), device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: fn.launches for name, fn in counters.items()}
+        losses = [m["loss"] for m in history]
+        expect(len(history) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+               f"{model}: non-finite or missing losses {losses}")
+        expect(all(m["bad"] == 0 for m in history), f"{model}: a step was skipped")
+        L = mcfg.n_layer
+        # backward kernels run once per layer (norm: ln1, GroupLN for
+        # diff, ln2 carry, ln_f) per train step and never in eval
+        per_step_bwd = {"flash_tm_bwd": L, "swiglu_bwd": L,
+                        "add_norm_bwd": L * (3 if model == "diff" else 2) + 1}
+        for name, per in per_step_bwd.items():
+            expect(counts[name] == per * TRAIN_STEPS,
+                   f"{model}: {name} launched {counts[name]} times, expected "
+                   f"{per * TRAIN_STEPS}")
+        for name in TRAIN_COUNTERS:
+            expect(counts[name] > 0, f"{model}: {name} never launched")
+        step_ms = statistics.median(m["step_time_ms"] for m in history[1:])
+        toks = TRAIN_B * mcfg.block_size
+        log(f"[train] {model} recipe: {L} layers, width {mcfg.n_embd}, "
+            f"{mcfg.n_head} heads (d {mcfg.head_size}, dv {mcfg.value_size}), "
+            f"T {mcfg.block_size}, micro-batch {TRAIN_B}, vocab "
+            f"{mcfg.vocab_size}, bf16 compute, fp32 params, AdamW; "
+            f"{TRAIN_STEPS} trainer steps in {wall:.1f} s (eval included)")
+        log(f"[train] {model}: losses {[round(x, 4) for x in losses]}; median "
+            f"step {step_ms:.1f} ms = {toks / step_ms * 1e3:.0f} tok/s (steps 2..); "
+            f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            f"GiB; launches {counts}; {card}")
+        # a few more steps on ONE repeated batch: its loss must fall (a
+        # schedule whose cosine has not decayed yet: lr stays ~1e-3)
+        step = make_train_step(cfg.replace(max_iters=1000))
+        eval_step = make_eval_step(cfg)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(1)
+        idx = torch.randint(0, mcfg.vocab_size, (1, TRAIN_B, mcfg.block_size + 1),
+                            generator=g, device="cuda")
+        batch = {"x": idx[..., :-1], "y": idx[..., 1:]}
+        before = float(eval_step(state["params"], batch["x"][0], batch["y"][0]))
+        rep = []
+        for _ in range(REPEAT_STEPS):
+            state, m = step(state, batch)
+            rep.append(m["loss"])
+        after = float(eval_step(state["params"], batch["x"][0], batch["y"][0]))
+        log(f"[train] {model}: one repeated batch, loss {before:.4f} -> "
+            f"{[round(x, 4) for x in rep]} -> {after:.4f}")
+        expect(math.isfinite(after) and after < before and rep[-1] < rep[0],
+               f"{model}: the loss on a repeated batch did not fall "
+               f"({before} -> {rep} -> {after})")
+        if model == "diff":
+            diff_counts = counts
+        del state, history, step
+        torch.cuda.empty_cache()
+    return diff_counts
+
+
+# ---------------------------------------------------------------------------
+# phase 6: one train step, the card's kernels against the CPU's plain versions
+# ---------------------------------------------------------------------------
+
+
+def run_train_e2e(torch) -> None:
+    """Loss and every gradient of a 2-layer diff model at recipe width,
+    fp32, micro-batch 2, on the card and on the CPU, from the same
+    weights and batch."""
+    from differential_transformer_replication_tpu_torch.config import ModelConfig
+    from differential_transformer_replication_tpu_torch.models import (
+        init_model,
+        model_forward,
+    )
+    from differential_transformer_replication_tpu_torch.train.optim import (
+        leaves,
+        unflatten,
+    )
+
+    cfg = ModelConfig(**dict(RECIPE, n_layer=2), compute_dtype="float32")
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(3)
+    params = init_model(gen, cfg)
+    idx = torch.randint(0, cfg.vocab_size, (2, cfg.block_size + 1), generator=gen)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        p = [t.to(dev).requires_grad_(True) for t in leaves(params)]
+        tree = unflatten(params, p)
+        _, loss = model_forward(tree, idx[:, :-1].to(dev), cfg,
+                                targets=idx[:, 1:].to(dev))
+        grads = torch.autograd.grad(loss, p)
+        res[dev] = (float(loss.detach()), [g.cpu() for g in grads])
+    (lc, gc), (lh, gh) = res["cuda"], res["cpu"]
+    rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+              for a, b in zip(gc, gh))
+    # fp32 through 2 layers, sums in another order on each side
+    log(f"[train-e2e] diff recipe width, 2 layers, fp32, micro-batch 2: loss "
+        f"card {lc:.6f} vs CPU {lh:.6f} (bound 1e-4); worst gradient max-abs "
+        f"relative to its leaf's max {rel:.3g} over {len(gc)} leaves (bound 1e-3)")
+    expect(abs(lc - lh) <= 1e-4, f"loss card {lc} vs CPU {lh}")
+    expect(rel <= 1e-3, f"gradients differ: {rel:.3g} > 1e-3")
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -528,6 +929,7 @@ def main() -> int:
         from differential_transformer_replication_tpu_torch.ops import (
             _kernels,
             decode_attention as dat,
+            flash,
             fused_ffn as ffn,
             fused_norm_residual as fnr,
         )
@@ -543,7 +945,7 @@ def main() -> int:
     log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, device "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    t0 = time.perf_counter()
+    t_all = t0 = time.perf_counter()
     paths = _kernels.build()
     log(f"[build] nvcc sm_90a: {', '.join(p.name for p in paths.values())} "
         f"in {time.perf_counter() - t0:.1f} s")
@@ -552,16 +954,37 @@ def main() -> int:
     w = torch.ones(768, device="cuda")
     fnr.fused_add_norm(x, x, w, w)
     fnr.fused_norm(x, w, w)
+    fnr.add_norm_bwd(x, w, x, x)
+    fnr.add_norm_bwd(x, w, x)
     torch.cuda.synchronize()
-    log(f"[build] triton JIT of the add+norm kernel (both variants): "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[build] triton JIT of the add+norm kernels (forward both variants, "
+        f"backward both variants): {time.perf_counter() - t0:.1f} s")
 
-    entries = run_kernels(torch, (fnr, ffn, dat))
-    counts = run_serve(torch, card)
-    run_e2e(torch)
+    phases = {}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phases[name] = time.perf_counter() - t
+        log(f"[{name}] phase took {phases[name]:.1f} s")
+        return out
+
+    entries = phase("kernels", run_kernels, torch, (fnr, ffn, dat))
+    entries.update(phase("kernels-train", run_train_kernels, torch,
+                         (fnr, ffn, flash)))
+    serve_counts = phase("serve", run_serve, torch, card)
+    phase("e2e", run_e2e, torch)
+    train_counts = phase("train", run_train, torch, card)
+    phase("train-e2e", run_train_e2e, torch)
+    log(f"[done] phases {', '.join(f'{k} {v:.1f} s' for k, v in phases.items())}; "
+        f"total {time.perf_counter() - t_all:.1f} s")
 
     for name, ent in entries.items():
-        ent["launches"] = counts.get(name, 0)
+        # serving kernels: launches over the served run; training
+        # kernels: over the diff recipe's trainer run
+        ent["launches"] = (train_counts[name] if name in
+                           ("flash_tm_fwd", "flash_tm_bwd", "add_norm_bwd",
+                            "swiglu_bwd") else serve_counts.get(name, 0))
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: ent[k] for k in order}

@@ -1,18 +1,20 @@
 """Configuration dataclasses of the PyTorch port.
 
 A copy of the JAX package's ``ModelConfig`` (every field, so a saved
-model config carries over unchanged) and of the ``ServingConfig`` fields
-the contiguous-pool serving slice reads
-(``differential_transformer_replication_tpu/config.py``). The port keeps
-its own copy: it imports nothing of the JAX package.
+model config carries over unchanged), of the ``ServingConfig`` fields
+the contiguous-pool serving slice reads, and of ``TrainConfig``
+(``differential_transformer_replication_tpu/config.py``), whose fields
+of later slices must stay at their defaults. The port keeps its own
+copy: it imports nothing of the JAX package.
 
 Kernel dispatch in the port is by DEVICE, not by these fields: every
 kernel wrapper (``ops/fused_norm_residual.py``, ``ops/fused_ffn.py``,
-``ops/decode_attention.py``) launches its hand-written GPU kernel for a
-CUDA tensor and runs its plain PyTorch version only for a CPU tensor.
-``ffn_impl`` and ``decode_attention_impl`` are kept, and validated, so
-that configs round-trip between the two packages, but no value of them
-can put a plain version on the card's path.
+``ops/flash.py``, ``ops/decode_attention.py``) launches its hand-written
+GPU kernel for a CUDA tensor and runs its plain PyTorch version only for
+a CPU tensor. ``attention_impl``, ``ffn_impl`` and
+``decode_attention_impl`` are kept, and validated, so that configs
+round-trip between the two packages, but no value of them can put a
+plain version on the card's path.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
     # Training attention backend of the JAX package ("xla" | "pallas");
-    # carried for config round-trips, unused by the serving slice.
+    # carried for config round-trips: the port's training attention
+    # (ops/flash.py) dispatches by device.
     attention_impl: str = "xla"
     # "xla" | "pallas" in the JAX package. The port validates the value
     # and otherwise ignores it: its fused add+LayerNorm and SwiGLU
@@ -228,3 +231,158 @@ class ServingConfig:
 
     def replace(self, **kw) -> "ServingConfig":
         return dataclasses.replace(self, **kw)
+
+
+# TrainConfig fields the training slice keeps (so a JAX recipe's config
+# carries over) but does not run yet: each must stay at its default, and
+# the ROADMAP item that brings it is named when it does not.
+LATER_SLICE_FIELDS = {
+    "checkpoint_path": "checkpoints (ROADMAP Queue A: checkpoints)",
+    "last_checkpoint_path": "checkpoints (ROADMAP Queue A: checkpoints)",
+    "resume_from": "checkpoints (ROADMAP Queue A: checkpoints)",
+    "checkpoint_min_interval_s": "checkpoints (ROADMAP Queue A: checkpoints)",
+    "ckpt_interval": "checkpoints (ROADMAP Queue A: checkpoints)",
+    "ckpt_dir": "checkpoints (ROADMAP Queue A: checkpoints)",
+    "ckpt_async": "checkpoints (ROADMAP Queue A: checkpoints)",
+    "ckpt_keep_last": "checkpoints (ROADMAP Queue A: checkpoints)",
+    "ckpt_keep_every": "checkpoints (ROADMAP Queue A: checkpoints)",
+    "allow_inexact_resume": "checkpoints (ROADMAP Queue A: checkpoints)",
+    "num_train_samples": "the corpus/BPE data slice (ROADMAP Queue A: data)",
+    "min_frequency": "the corpus/BPE data slice (ROADMAP Queue A: data)",
+    "tokenizer_dir": "the corpus/BPE data slice (ROADMAP Queue A: data)",
+    "anomaly_rollback_after": "guard rollback (ROADMAP Queue A: full trainer)",
+    "anomaly_max_rollbacks": "guard rollback (ROADMAP Queue A: full trainer)",
+    "anomaly_snapshot_interval": "guard rollback (ROADMAP Queue A: full trainer)",
+    "anomaly_check_interval": "guard rollback (ROADMAP Queue A: full trainer)",
+    "step_deadline_s": "the watchdog (ROADMAP Queue A: full trainer)",
+    "hang_report_path": "the watchdog (ROADMAP Queue A: full trainer)",
+    "heartbeat_dir": "the watchdog (ROADMAP Queue A: full trainer)",
+    "heartbeat_interval_s": "the watchdog (ROADMAP Queue A: full trainer)",
+    "heartbeat_timeout_s": "the watchdog (ROADMAP Queue A: full trainer)",
+    "profile_dir": "profiling (ROADMAP Queue A: full trainer)",
+    "profile_every": "profiling (ROADMAP Queue A: full trainer)",
+    "profile_spool_dir": "profiling (ROADMAP Queue A: full trainer)",
+    "metrics_port": "the obs sidecar (ROADMAP Queue A: full trainer)",
+    "trace_path": "the obs sidecar (ROADMAP Queue A: full trainer)",
+    "use_wandb": "the obs sidecar (ROADMAP Queue A: full trainer)",
+    "faults": "fault injection (ROADMAP Queue A: full trainer)",
+    "dp_overlap": "parallelism (ROADMAP Queue A: parallelism)",
+    "dp_bucket_layers": "parallelism (ROADMAP Queue A: parallelism)",
+}
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The training recipe: a copy of the JAX package's TrainConfig
+    (same names, defaults and meaning). The fields in
+    :data:`LATER_SLICE_FIELDS` are kept for config round-trips and must
+    stay at their defaults; the mesh of the JAX config is absent (one
+    card; parallelism is a later slice)."""
+
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+
+    # Optimization
+    grad_acc_steps: int = 1
+    micro_batch_size: int = 32
+    max_iters: int = 40_000
+    eval_interval: int = 500
+    eval_iters: int = 200
+    learning_rate: float = 3.2e-4
+    min_lr: float = 6e-5
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    warmup_iters: int = 1000
+    grad_clip: float = 1.0
+
+    # The reference's quirk: training the control model doubles its head
+    # count so that it roughly param-matches diff (resolved_model()).
+    control_head_multiplier: int = 2
+
+    # Data. "epoch" (the exact epoch permutation, the JAX default) waits
+    # for the data slice; this slice runs "replacement" only.
+    dataset: str = "tinystories"
+    sampler: str = "epoch"
+    num_train_samples: int = 1_000_000
+    vocab_size: int = 12000
+    min_frequency: int = 2
+    val_fraction: float = 0.1
+    tokenizer_dir: str = "tokenizer"
+
+    profile_dir: Optional[str] = None
+    profile_every: int = 0
+    profile_spool_dir: str = "auto"
+    metrics_port: int = 0
+    trace_path: Optional[str] = None
+
+    # Logging
+    log_interval: int = 10
+    wandb_project: str = "diff-transformer"
+    wandb_run_name: Optional[str] = None
+    use_wandb: bool = False
+    metrics_path: Optional[str] = "metrics.jsonl"
+
+    checkpoint_path: str = "best_model.ckpt"
+    last_checkpoint_path: Optional[str] = "auto"
+    resume_from: Optional[str] = None
+    checkpoint_min_interval_s: float = 0.0
+    ckpt_interval: int = 0
+    ckpt_dir: str = "auto"
+    ckpt_async: bool = True
+    ckpt_keep_last: int = 3
+    ckpt_keep_every: int = 0
+
+    # Anomaly guard: a step whose loss or grad norm is non-finite, or
+    # whose grad norm exceeds spike_factor x the EMA of good steps' norms
+    # (armed after warmup_steps good steps), skips its update.
+    anomaly_guard: bool = True
+    anomaly_spike_factor: float = 4.0
+    anomaly_ema_beta: float = 0.99
+    anomaly_warmup_steps: int = 50
+    anomaly_rollback_after: int = 20
+    anomaly_max_rollbacks: int = 3
+    anomaly_snapshot_interval: int = 200
+    anomaly_check_interval: int = 10
+
+    dp_overlap: bool = True
+    dp_bucket_layers: int = 2
+    step_deadline_s: float = 0.0
+    hang_report_path: str = "auto"
+    heartbeat_dir: Optional[str] = None
+    heartbeat_interval_s: float = 1.0
+    heartbeat_timeout_s: float = 10.0
+    allow_inexact_resume: bool = False
+    faults: Optional[str] = None
+
+    seed: int = 1337
+
+    def __post_init__(self):
+        defaults = {f.name: f.default for f in dataclasses.fields(self)}
+        for name, item in LATER_SLICE_FIELDS.items():
+            if getattr(self, name) != defaults[name]:
+                raise NotImplementedError(
+                    f"TrainConfig.{name}={getattr(self, name)!r}: the port "
+                    f"does not run {item} yet; leave it at its default "
+                    f"{defaults[name]!r}"
+                )
+        if self.sampler not in ("epoch", "replacement"):
+            raise ValueError(f"unknown sampler {self.sampler!r}")
+        if self.grad_acc_steps < 1 or self.micro_batch_size < 1:
+            raise ValueError("grad_acc_steps and micro_batch_size must be >= 1")
+
+    def resolved_model(self) -> ModelConfig:
+        """Apply trainer-level switches to the model config: the
+        control-head-doubling quirk and the trainer's vocab_size as the
+        single source of truth."""
+        m = self.model
+        if m.vocab_size != self.vocab_size:
+            m = m.replace(vocab_size=self.vocab_size)
+        if m.model == "control" and self.control_head_multiplier != 1:
+            m = m.replace(n_head=m.n_head * self.control_head_multiplier)
+        return m
+
+    def replace(self, **kw) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)

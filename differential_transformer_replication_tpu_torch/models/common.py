@@ -1,5 +1,6 @@
-"""Shared model plumbing of the port: parameter init, linear, and the
-block-boundary norm/FFN application (forward only, eval mode).
+"""Shared model plumbing of the port: parameter init, linear, the
+block-boundary norm/FFN application, the token-major attention dispatch
+and the training tail (final norm + lm head + loss).
 
 The param tree has the JAX package's layout exactly: Linear ``w`` is
 ``(in, out)`` so application is ``x @ W + b``; LayerNorm params are
@@ -9,29 +10,55 @@ lambda vectors zero. Draws come from an explicit ``torch.Generator``
 (they cannot reproduce ``jax.random``'s; parity tests hand both sides
 the JAX-initialized params through ``params.py``).
 
-The block-boundary norms and the SwiGLU chain always go through the
-kernel wrappers (ops/fused_norm_residual.py, ops/fused_ffn.py), which
-dispatch by device: GPU kernel for a CUDA tensor, plain version for a
-CPU tensor. There is no config switch between the two.
+The block-boundary norms, the SwiGLU chain and the training attention
+always go through the kernel wrappers (ops/fused_norm_residual.py,
+ops/fused_ffn.py, ops/flash.py), which dispatch by device: GPU kernel
+for a CUDA tensor, plain version for a CPU tensor, differentiable either
+way. There is no config switch between the two.
 """
 
 from __future__ import annotations
 
 import torch
 
+from differential_transformer_replication_tpu_torch.ops.flash import (
+    multi_stream_flash_attention_tm,
+    multi_stream_flash_attention_tm_packed,
+    require_tm,
+)
 from differential_transformer_replication_tpu_torch.ops.fused_ffn import fused_swiglu
 from differential_transformer_replication_tpu_torch.ops.fused_norm_residual import (
     fused_add_norm,
     fused_group_norm,
     fused_norm,
 )
+from differential_transformer_replication_tpu_torch.ops.lambdas import (
+    diff_lambda,
+    lambda_init_schedule,
+    ndiff_lambdas,
+    ndiff_signs,
+)
+from differential_transformer_replication_tpu_torch.ops.losses import (
+    dense_linear_cross_entropy,
+)
+from differential_transformer_replication_tpu_torch.ops.rope import apply_rope
+from differential_transformer_replication_tpu_torch.ops.streams import (
+    diff_coeffs,
+    ndiff_coeffs,
+    vanilla_coeffs,
+)
 
 INIT_STD = 0.02
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # the param-tree keys whose leaves stay fp32 at inference: LayerNorm
 # params feed the fused norm's fp32 affine, lambda vectors the fp32
 # combine coefficients
 _FP32_SUBTREES = ("ln1", "ln2", "ln_f", "gn", "lambda_q", "lambda_k")
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    return DTYPES[cfg.compute_dtype]
 
 
 def normal_init(gen: torch.Generator, shape, std: float = INIT_STD) -> torch.Tensor:
@@ -90,6 +117,80 @@ def apply_block_ffn(x: torch.Tensor, attn_out: torch.Tensor,
     h = fused_swiglu(normed, p["gate"]["w"], p["gate"]["b"],
                      p["xform"]["w"], p["xform"]["b"])
     return x + linear(h, p["out"])
+
+
+def layer_coeffs(cfg, p_attn: dict, layer_idx: int) -> torch.Tensor:
+    """(S, H) fp32 stream-combine coefficients of one layer (1-based
+    ``layer_idx``): [1] for control, [1, -lambda] for diff, sign *
+    lambda for ndiff; differentiable in the lambda vectors."""
+    if cfg.model == "control":
+        return vanilla_coeffs(cfg.n_head, device=p_attn["wq"].device)
+    lq = p_attn["lambda_q"].to(torch.float32)
+    lk = p_attn["lambda_k"].to(torch.float32)
+    if cfg.model == "diff":
+        lam = diff_lambda(lq[0], lk[0], lq[1], lk[1],
+                          lambda_init_schedule(layer_idx))
+        return diff_coeffs(lam).contiguous()
+    lams = ndiff_lambdas(lq, lk, lambda_init_schedule(layer_idx))
+    return ndiff_coeffs(lams, ndiff_signs(cfg.n_terms, device=lq.device)).contiguous()
+
+
+def flash_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+                    wv: torch.Tensor, coeffs: torch.Tensor, cos=None,
+                    sin=None) -> torch.Tensor:
+    """The training attention of all three families (the JAX
+    ``flash_bh_fn`` token-major branches): x (B, T, E) normed block
+    input, wq/wk (S, E, H, d), wv (E, H, dv), coeffs (S, H) fp32; returns
+    (B, T, H, dv).
+
+    Without RoPE (diff) it is the PACKED route: one projection matmul
+    ``x @ [Wq_0..|Wk_0..|Wv]`` whose column windows the kernel reads and
+    whose one packed gradient the backward writes. With RoPE (control,
+    ndiff) each projection is its own matmul, rotated (headed layout),
+    on the per-array route. Shapes outside the token-major kernels
+    raise (ops/flash.py:require_tm)."""
+    B, T, E = x.shape
+    S, _, H, d = wq.shape
+    dv = wv.shape[-1]
+    require_tm(S, T, 0.0)
+    if cos is None:
+        wcat = torch.cat([wq[s].reshape(E, H * d) for s in range(S)]
+                         + [wk[s].reshape(E, H * d) for s in range(S)]
+                         + [wv.reshape(E, H * dv)], dim=1).to(x.dtype)
+        return multi_stream_flash_attention_tm_packed(x @ wcat, coeffs, B, H,
+                                                      S, d, dv)
+    wq_c, wk_c = wq.to(x.dtype), wk.to(x.dtype)
+    qs = [apply_rope((x @ wq_c[s].reshape(E, H * d)).reshape(B, T, H, d),
+                     cos, sin, headed=True) for s in range(S)]
+    ks = [apply_rope((x @ wk_c[s].reshape(E, H * d)).reshape(B, T, H, d),
+                     cos, sin, headed=True) for s in range(S)]
+    v = (x @ wv.to(x.dtype).reshape(E, H * dv)).reshape(B, T, H, dv)
+    return multi_stream_flash_attention_tm(qs, ks, v, coeffs, B, H)
+
+
+def apply_tail(x: torch.Tensor, params: dict) -> torch.Tensor:
+    """Final LayerNorm + untied lm head."""
+    return linear(apply_pre_norm(x, params["ln_f"]), params["lm_head"])
+
+
+def tail_and_loss(x: torch.Tensor, params: dict, cfg, targets=None):
+    """The end of every family's forward: ``(logits, loss)``. With
+    targets, the final norm feeds :func:`ops.losses.dense_linear_cross_
+    entropy` and the logits returned are its own (no gradient path);
+    without, ``(apply_tail(x), None)``. ``cfg.loss_chunk`` (the chunked
+    loss) is a later slice and raises."""
+    if targets is None:
+        return apply_tail(x, params), None
+    if cfg.loss_chunk:
+        raise NotImplementedError(
+            "loss_chunk: the chunked fused lm-head loss is not ported yet "
+            "(ROADMAP Queue A: chunked loss)"
+        )
+    x_ln = apply_pre_norm(x, params["ln_f"])
+    p = params["lm_head"]
+    loss, logits = dense_linear_cross_entropy(x_ln, p["w"], p.get("b"),
+                                              targets)
+    return logits, loss
 
 
 def inference_params(params: dict, compute_dtype: torch.dtype,

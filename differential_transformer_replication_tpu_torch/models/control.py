@@ -1,14 +1,19 @@
 """StandardTransformer (the vanilla-attention control model): param
-init in the JAX package's layout. RoPE is its only position encoding;
-no position table. Its forward on the serving path is
-models/decode.py's shared multi-stream form with S = 1."""
+init in the JAX package's layout and the training forward. RoPE is its
+only position encoding; no position table. Its attention is the
+multi-stream form with S = 1 and coefficient 1, on the per-array
+token-major route (models/common.py:flash_attention); its serving
+forward is models/decode.py's."""
 
 from __future__ import annotations
 
 import torch
 
+import torch.nn.functional as F
+
 from differential_transformer_replication_tpu_torch.config import ModelConfig
 from differential_transformer_replication_tpu_torch.models import common
+from differential_transformer_replication_tpu_torch.ops.rope import rope_cos_sin
 
 USES_ROPE = True
 
@@ -36,3 +41,32 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
         "ln_f": common.layer_norm_params(E, dev),
         "lm_head": common.linear_params(gen, E, cfg.vocab_size),
     }
+
+
+def _attn(x: torch.Tensor, p: dict, cfg: ModelConfig, cos, sin) -> torch.Tensor:
+    B, T, _ = x.shape
+    out = common.flash_attention(x, p["wq"][None], p["wk"][None], p["wv"],
+                                 common.layer_coeffs(cfg, p, 1), cos, sin)
+    return common.linear(out.reshape(B, T, -1), p["out"])
+
+
+def embed(params: dict, idx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Token embedding only (RoPE is the position encoding)."""
+    return F.embedding(idx, params["tok_emb"]).to(common.compute_dtype(cfg))
+
+
+def block_forward(x: torch.Tensor, blk: dict, layer_idx: int,
+                  cfg: ModelConfig, cos=None, sin=None) -> torch.Tensor:
+    """One pre-LN residual block (``layer_idx`` unused: no schedule)."""
+    del layer_idx
+    a = _attn(common.apply_pre_norm(x, blk["ln1"]), blk["attn"], cfg, cos, sin)
+    return common.apply_block_ffn(x, a, blk)
+
+
+def forward(params: dict, idx: torch.Tensor, cfg: ModelConfig, targets=None):
+    """(B, T) int64 tokens -> (logits (B, T, V), loss or None)."""
+    x = embed(params, idx, cfg)
+    cos, sin = rope_cos_sin(cfg.head_size, idx.shape[-1], device=x.device)
+    for li, blk in enumerate(params["blocks"], 1):
+        x = block_forward(x, blk, li, cfg, cos, sin)
+    return common.tail_and_loss(x, params, cfg, targets)

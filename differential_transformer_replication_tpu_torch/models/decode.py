@@ -42,26 +42,16 @@ from differential_transformer_replication_tpu_torch.models import common
 from differential_transformer_replication_tpu_torch.ops.decode_attention import (
     decode_attention,
 )
-from differential_transformer_replication_tpu_torch.ops.lambdas import (
-    OUTPUT_SCALE,
-    diff_lambda,
-    lambda_init_schedule,
-    ndiff_lambdas,
-    ndiff_signs,
-)
+from differential_transformer_replication_tpu_torch.ops.lambdas import OUTPUT_SCALE
 from differential_transformer_replication_tpu_torch.ops.rope import (
     apply_rope,
     rope_cos_sin,
     rope_rows,
 )
-from differential_transformer_replication_tpu_torch.ops.streams import (
-    NEG_INF,
-    diff_coeffs,
-    ndiff_coeffs,
-    vanilla_coeffs,
-)
+from differential_transformer_replication_tpu_torch.ops.streams import NEG_INF
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = common.DTYPES
+compute_dtype = common.compute_dtype
 
 
 def _n_streams(cfg: ModelConfig) -> int:
@@ -70,10 +60,6 @@ def _n_streams(cfg: ModelConfig) -> int:
 
 def _uses_rope(cfg: ModelConfig) -> bool:
     return cfg.model in ("control", "ndiff")
-
-
-def compute_dtype(cfg: ModelConfig) -> torch.dtype:
-    return DTYPES[cfg.compute_dtype]
 
 
 def kv_store_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -117,20 +103,6 @@ def _stacked_wq(p_attn: dict):
     return wq, wk
 
 
-def _layer_coeffs(cfg: ModelConfig, p_attn: dict, layer_idx: int) -> torch.Tensor:
-    """(S, H) fp32 combine coefficients (1-based ``layer_idx``)."""
-    if cfg.model == "control":
-        return vanilla_coeffs(cfg.n_head, device=p_attn["wq"].device)
-    lq = p_attn["lambda_q"].to(torch.float32)
-    lk = p_attn["lambda_k"].to(torch.float32)
-    if cfg.model == "diff":
-        lam = diff_lambda(lq[0], lk[0], lq[1], lk[1],
-                          lambda_init_schedule(layer_idx))
-        return diff_coeffs(lam).contiguous()
-    lams = ndiff_lambdas(lq, lk, lambda_init_schedule(layer_idx))
-    return ndiff_coeffs(lams, ndiff_signs(cfg.n_terms, device=lq.device)).contiguous()
-
-
 def _post_attention(out: torch.Tensor, p_attn: dict, cfg: ModelConfig):
     """Head concat -> (diff/ndiff: GroupLayerNorm, x0.2) -> out-proj."""
     if cfg.model in ("diff", "ndiff"):
@@ -172,7 +144,7 @@ def _attn_chunk(x: torch.Tensor, p_attn: dict, layer_cache: dict, pos: int,
                          torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)  # per stream, fp32
 
-    coeffs = _layer_coeffs(cfg, p_attn, layer_idx)
+    coeffs = common.layer_coeffs(cfg, p_attn, layer_idx)
     combined = torch.einsum("sh,sbhlm->bhlm", coeffs, probs)
     out = torch.einsum("bhlm,bhme->blhe", combined.to(v.dtype), v_cache)
     return _post_attention(out.reshape(B, L, -1), p_attn, cfg)
@@ -260,7 +232,7 @@ def _pool_attn(x: torch.Tensor, p_attn: dict, layer_cache: dict,
         qs = rope_rows(qs, cos, sin)
         ks = rope_rows(ks, cos, sin)
     _update_cache_rows(layer_cache, ks, v, pos, cfg.block_size, rows)
-    coeffs = _layer_coeffs(cfg, p_attn, layer_idx)
+    coeffs = common.layer_coeffs(cfg, p_attn, layer_idx)
     out = decode_attention(qs.contiguous(), layer_cache["k"], layer_cache["v"],
                            pos, coeffs)
     return _post_attention(out.reshape(B, -1), p_attn, cfg)

@@ -1,15 +1,21 @@
 """DiffTransformer (2-term differential attention): param init in the
-JAX package's layout. Learned ABSOLUTE position embeddings (the only
-family with a position table, so it cannot roll past block_size), two
-Q/K streams stacked on a leading axis, a doubled value projection, zero-
-init lambda vectors and a full-width GroupLayerNorm."""
+JAX package's layout and the training forward. Learned ABSOLUTE
+position embeddings (the only family with a position table, so it
+cannot roll past block_size), two Q/K streams stacked on a leading
+axis, a doubled value projection, zero-init lambda vectors, the
+per-layer lambda schedule with 1-BASED layer indices, a full-width
+GroupLayerNorm and the constant 0.2 output scale. Its attention takes
+the packed token-major route (models/common.py:flash_attention)."""
 
 from __future__ import annotations
 
 import torch
 
+import torch.nn.functional as F
+
 from differential_transformer_replication_tpu_torch.config import ModelConfig
 from differential_transformer_replication_tpu_torch.models import common
+from differential_transformer_replication_tpu_torch.ops.lambdas import OUTPUT_SCALE
 
 USES_ROPE = False
 
@@ -40,3 +46,37 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
         "ln_f": common.layer_norm_params(E, dev),
         "lm_head": common.linear_params(gen, E, cfg.vocab_size),
     }
+
+
+def _attn(x: torch.Tensor, p: dict, layer_idx: int, cfg: ModelConfig) -> torch.Tensor:
+    B, T, _ = x.shape
+    out = common.flash_attention(x, p["wq"], p["wk"], p["wv"],
+                                 common.layer_coeffs(cfg, p, layer_idx))
+    out = common.apply_group_norm(out.reshape(B, T, -1), p["gn"])
+    return common.linear(out * OUTPUT_SCALE, p["out"])
+
+
+def embed(params: dict, idx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Token embedding PLUS the learned absolute position table (added in
+    fp32, then cast to the compute dtype)."""
+    T = idx.shape[-1]
+    if T > cfg.block_size:
+        raise ValueError(f"sequence length {T} exceeds block_size {cfg.block_size}")
+    x = F.embedding(idx, params["tok_emb"]) + params["pos_emb"][:T]
+    return x.to(common.compute_dtype(cfg))
+
+
+def block_forward(x: torch.Tensor, blk: dict, layer_idx: int,
+                  cfg: ModelConfig, cos=None, sin=None) -> torch.Tensor:
+    """One pre-LN residual block; ``layer_idx`` is 1-based."""
+    del cos, sin  # no RoPE in this family
+    a = _attn(common.apply_pre_norm(x, blk["ln1"]), blk["attn"], layer_idx, cfg)
+    return common.apply_block_ffn(x, a, blk)
+
+
+def forward(params: dict, idx: torch.Tensor, cfg: ModelConfig, targets=None):
+    """(B, T) int64 tokens -> (logits (B, T, V), loss or None)."""
+    x = embed(params, idx, cfg)
+    for li, blk in enumerate(params["blocks"], 1):
+        x = block_forward(x, blk, li, cfg)
+    return common.tail_and_loss(x, params, cfg, targets)

@@ -1,14 +1,21 @@
 """AlternatingDiffTransformer (N-term differential attention): param
-init in the JAX package's layout. RoPE positions, n_terms Q/K
-projections stacked on a leading term axis, one doubled value, per-term
-zero-init lambda vectors and a full-width GroupLayerNorm."""
+init in the JAX package's layout and the training forward. RoPE
+positions, n_terms Q/K projections stacked on a leading term axis, one
+doubled value, per-term zero-init lambda vectors (the chain where term
+i subtracts term i-1's exponential, the first map scaled by lambda_0),
+1-based layer indices, a full-width GroupLayerNorm and the constant 0.2
+output scale. Its attention takes the per-array token-major route."""
 
 from __future__ import annotations
 
 import torch
 
+import torch.nn.functional as F
+
 from differential_transformer_replication_tpu_torch.config import ModelConfig
 from differential_transformer_replication_tpu_torch.models import common
+from differential_transformer_replication_tpu_torch.ops.lambdas import OUTPUT_SCALE
+from differential_transformer_replication_tpu_torch.ops.rope import rope_cos_sin
 
 USES_ROPE = True
 
@@ -38,3 +45,34 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
         "ln_f": common.layer_norm_params(E, dev),
         "lm_head": common.linear_params(gen, E, cfg.vocab_size),
     }
+
+
+def _attn(x: torch.Tensor, p: dict, layer_idx: int, cfg: ModelConfig, cos,
+          sin) -> torch.Tensor:
+    B, T, _ = x.shape
+    out = common.flash_attention(x, p["wq"], p["wk"], p["wv"],
+                                 common.layer_coeffs(cfg, p, layer_idx), cos, sin)
+    out = common.apply_group_norm(out.reshape(B, T, -1), p["gn"])
+    return common.linear(out * OUTPUT_SCALE, p["out"])
+
+
+def embed(params: dict, idx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Token embedding only (RoPE positions)."""
+    return F.embedding(idx, params["tok_emb"]).to(common.compute_dtype(cfg))
+
+
+def block_forward(x: torch.Tensor, blk: dict, layer_idx: int,
+                  cfg: ModelConfig, cos=None, sin=None) -> torch.Tensor:
+    """One pre-LN residual block; ``layer_idx`` is 1-based."""
+    a = _attn(common.apply_pre_norm(x, blk["ln1"]), blk["attn"], layer_idx,
+              cfg, cos, sin)
+    return common.apply_block_ffn(x, a, blk)
+
+
+def forward(params: dict, idx: torch.Tensor, cfg: ModelConfig, targets=None):
+    """(B, T) int64 tokens -> (logits (B, T, V), loss or None)."""
+    x = embed(params, idx, cfg)
+    cos, sin = rope_cos_sin(cfg.head_size, idx.shape[-1], device=x.device)
+    for li, blk in enumerate(params["blocks"], 1):
+        x = block_forward(x, blk, li, cfg, cos, sin)
+    return common.tail_and_loss(x, params, cfg, targets)

@@ -1,5 +1,6 @@
-"""Model-select switch: ``ModelConfig.model`` picks the family's init.
-All three families share the serving forward in models/decode.py."""
+"""Model-select switch: ``ModelConfig.model`` picks the family's init
+and training forward. All three families share the serving forward in
+models/decode.py."""
 
 from __future__ import annotations
 
@@ -14,6 +15,12 @@ _MODULES = {"control": control, "diff": diff, "ndiff": ndiff}
 def init_model(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Random params in the JAX layout, drawn from ``gen`` on its device."""
     return _MODULES[cfg.model].init(gen, cfg)
+
+
+def model_forward(params: dict, idx: torch.Tensor, cfg: ModelConfig,
+                  targets=None):
+    """(B, T) int64 tokens -> (logits (B, T, V), loss or None)."""
+    return _MODULES[cfg.model].forward(params, idx, cfg, targets=targets)
 
 
 def param_count(params) -> int:

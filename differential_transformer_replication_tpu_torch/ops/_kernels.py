@@ -38,10 +38,27 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 # C signature of every kernel library: {library: {function: argtypes}}.
+_PP = ctypes.POINTER(ctypes.c_void_p)  # a host array of device pointers
+
 SIGNATURES = {
     "fused_swiglu": {
         # x, wg, bg, wx, bx, out, M, E, F, dtype, stream
         "fused_swiglu_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        # M, F -> workspace floats (-1: refused)
+        "fused_swiglu_bwd_workspace": (_I, _I),
+        # x, wg, bg, wx, bx, gh, dgt, dw, db, work, M, E, F, dtype, stream
+        "fused_swiglu_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _P),
+    },
+    "flash_tm": {
+        # qs[S], ks[S], v, coeffs, out, o_all, lse, S, B, T, H, d, dv,
+        # ld_qk, ld_v, scale, dtype, stream
+        "flash_tm_fwd": (_PP, _PP, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _F, _I, _P),
+        # qs[S], ks[S], v, g, lse, delta, coeffs, dqs[S], dks[S], dv, S, B,
+        # T, H, d, dv, ld_qk, ld_v, ld_dqk, ld_dv, scale, dtype, stream
+        "flash_tm_bwd": (_PP, _PP, _P, _P, _P, _P, _P, _PP, _PP, _P, _I, _I,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     },
     "decode_attention": {
         # S, B, H, M, d, dv, dtype -> workspace floats (-1: refused)
@@ -67,6 +84,27 @@ def require_cuda(t: torch.Tensor, what: str) -> None:
         )
     if not torch.cuda.is_available():
         raise RuntimeError(f"{what}: CUDA is not available")
+
+
+def on_card(t: torch.Tensor, what: str) -> bool:
+    """The dispatch rule of every kernel wrapper: False for a CPU tensor
+    (run the plain version), True for a CUDA tensor (launch the kernel),
+    and raise for any other device or a CUDA tensor without a card."""
+    if t.device.type == "cpu":
+        return False
+    require_cuda(t, what)
+    return True
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd will want a backward through these inputs."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def pointers(tensors) -> ctypes.Array:
+    """A host array of the tensors' device pointers (for ``_PP``)."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
 def nvcc_path() -> str:

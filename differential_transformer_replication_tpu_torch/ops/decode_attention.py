@@ -17,7 +17,9 @@ kernel belongs to a later slice: passing scales raises.
 
 Dispatch is by device: a CPU tensor runs :func:`decode_attention_reference`,
 a CUDA tensor always launches the kernel (or raises), any other device
-raises. ``decode_attention.launches`` counts the kernel launches.
+raises. ``decode_attention.launches`` counts the kernel launches. It has
+no backward (nor has the TPU kernel): an input that requires grad, with
+grad mode on, raises on every device.
 
 The kernel and the plain version agree in fp32. In bf16 they differ by
 rounding: the kernel (like the TPU kernel) casts each stream's
@@ -71,6 +73,14 @@ def decode_attention(qs: torch.Tensor, k_cache: torch.Tensor,
     if k_scale is not None or v_scale is not None:
         raise NotImplementedError(
             "decode_attention: the int8 KV branch is not ported yet"
+        )
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (qs, k_cache, v_cache, coeffs)):
+        # the JAX kernel has no backward either; a kernel output would
+        # carry no gradient path and train nothing without a word
+        raise RuntimeError(
+            "decode_attention has no backward: call it under torch.no_grad() "
+            "or on tensors that do not require grad"
         )
     if qs.device.type == "cpu":
         return decode_attention_reference(qs, k_cache, v_cache, pos, coeffs)

@@ -6,6 +6,8 @@ The two packages share one param layout (Linear ``w`` is ``(in, out)``,
 transpose: ``params_from_jax(jax.tree.map(np.asarray, tree), cfg, ...)``
 on one side, :func:`params_to_numpy` on the other. No JAX is imported:
 anything ``numpy.asarray`` accepts is a valid leaf.
+:func:`train_state_from_jax` carries a whole JAX train state (params,
+the optax AdamW moments and count, the step, the guard) the same way.
 """
 
 from __future__ import annotations
@@ -71,3 +73,53 @@ def params_to_numpy(params):
     if t.is_floating_point():
         t = t.to(torch.float32)
     return t.numpy()
+
+
+def _find_adam(node):
+    """The optax ScaleByAdamState inside an optax chain state (any object
+    with ``mu``, ``nu`` and ``count``), found by walking tuples."""
+    if all(hasattr(node, a) for a in ("mu", "nu", "count")):
+        return node
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            found = _find_adam(child)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_jax(state, cfg: ModelConfig, device="cpu") -> dict:
+    """The port's train state (train/step.py layout) from a JAX one
+    ``{"params", "opt_state", "step"[, "guard"]}`` whose leaves are
+    numpy-convertible: fp32 params that require grad, the AdamW moments
+    ``mu``/``nu`` in the param layout and the optimizer ``count``."""
+    import numpy as np
+
+    adam = _find_adam(state["opt_state"])
+    if adam is None:
+        raise ValueError("no AdamW state (mu, nu, count) in opt_state")
+    params = params_from_jax(state["params"], cfg, device)
+    for leaf in _leaves(params):
+        leaf.requires_grad_(True)
+    out = {
+        "params": params,
+        "opt_state": {"mu": params_from_jax(adam.mu, cfg, device),
+                      "nu": params_from_jax(adam.nu, cfg, device),
+                      "count": int(np.asarray(adam.count))},
+        "step": int(np.asarray(state["step"])),
+    }
+    if "guard" in state:
+        g = state["guard"]
+        out["guard"] = {"ema": np.float32(np.asarray(g["ema"])),
+                        "good_steps": int(np.asarray(g["good_steps"])),
+                        "bad_streak": int(np.asarray(g["bad_streak"])),
+                        "skipped": int(np.asarray(g["skipped"]))}
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]

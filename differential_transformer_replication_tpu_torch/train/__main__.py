@@ -1,0 +1,155 @@
+"""Command line of the port's trainer:
+
+    python -m differential_transformer_replication_tpu_torch.train \\
+        --model diff --tokens tokens.npy --sampler replacement --device cuda
+
+It takes the flags of the JAX package's ``train.py`` that this slice
+runs, under the same names, plus ``--tokens`` (an encoded ``.npy``
+token stream, the JAX trainer's cache-hit input), ``--sampler`` and
+``--device``. Every other ``train.py`` flag is refused with the ROADMAP
+item that brings it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from differential_transformer_replication_tpu_torch.config import (
+    ModelConfig,
+    TrainConfig,
+)
+
+# train.py flags that wait for a later slice -> the ROADMAP item
+LATER_FLAGS = {
+    "--attention-impl": "none: the port dispatches kernels by device",
+    "--ffn-impl": "none: the port dispatches kernels by device",
+    "--sequence-impl": "parallelism (ROADMAP Queue A)",
+    "--loss-chunk": "the chunked loss (ROADMAP Queue A)",
+    "--remat": "remat (ROADMAP Queue A)",
+    "--remat-policy": "remat (ROADMAP Queue A)",
+    "--no-dp-overlap": "parallelism (ROADMAP Queue A)",
+    "--dp-bucket-layers": "parallelism (ROADMAP Queue A)",
+    "--dataset": "the corpus/BPE data slice (ROADMAP Queue A); pass --tokens",
+    "--num-train-samples": "the corpus/BPE data slice (ROADMAP Queue A)",
+    "--tokenizer-dir": "the corpus/BPE data slice (ROADMAP Queue A)",
+    "--checkpoint-path": "checkpoints (ROADMAP Queue A)",
+    "--last-checkpoint-path": "checkpoints (ROADMAP Queue A)",
+    "--resume-from": "checkpoints (ROADMAP Queue A)",
+    "--ckpt-interval": "checkpoints (ROADMAP Queue A)",
+    "--ckpt-dir": "checkpoints (ROADMAP Queue A)",
+    "--ckpt-async": "checkpoints (ROADMAP Queue A)",
+    "--no-ckpt-async": "checkpoints (ROADMAP Queue A)",
+    "--ckpt-keep-last": "checkpoints (ROADMAP Queue A)",
+    "--ckpt-keep-every": "checkpoints (ROADMAP Queue A)",
+    "--checkpoint-min-interval-s": "checkpoints (ROADMAP Queue A)",
+    "--allow-inexact-resume": "checkpoints (ROADMAP Queue A)",
+    "--anomaly-rollback-after": "the full trainer (ROADMAP Queue A)",
+    "--anomaly-max-rollbacks": "the full trainer (ROADMAP Queue A)",
+    "--anomaly-snapshot-interval": "the full trainer (ROADMAP Queue A)",
+    "--anomaly-check-interval": "the full trainer (ROADMAP Queue A)",
+    "--step-deadline-s": "the full trainer (ROADMAP Queue A)",
+    "--hang-report-path": "the full trainer (ROADMAP Queue A)",
+    "--heartbeat-dir": "the full trainer (ROADMAP Queue A)",
+    "--heartbeat-interval-s": "the full trainer (ROADMAP Queue A)",
+    "--heartbeat-timeout-s": "the full trainer (ROADMAP Queue A)",
+    "--faults": "the full trainer (ROADMAP Queue A)",
+    "--metrics-port": "the full trainer (ROADMAP Queue A)",
+    "--trace-path": "the full trainer (ROADMAP Queue A)",
+    "--wandb": "the full trainer (ROADMAP Queue A)",
+    "--profile-dir": "the full trainer (ROADMAP Queue A)",
+    "--profile-every": "the full trainer (ROADMAP Queue A)",
+    "--profile-spool-dir": "the full trainer (ROADMAP Queue A)",
+    "--data-parallel": "parallelism (ROADMAP Queue A)",
+    "--tensor-parallel": "parallelism (ROADMAP Queue A)",
+    "--fsdp": "parallelism (ROADMAP Queue A)",
+    "--sequence-parallel": "parallelism (ROADMAP Queue A)",
+    "--pipeline-parallel": "parallelism (ROADMAP Queue A)",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m differential_transformer_replication_tpu_torch.train",
+        description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    m, t = ModelConfig(), TrainConfig()
+    p.add_argument("--model", choices=("control", "diff", "ndiff"), default=m.model)
+    p.add_argument("--n-embd", type=int, default=m.n_embd)
+    p.add_argument("--n-head", type=int, default=m.n_head)
+    p.add_argument("--n-layer", type=int, default=m.n_layer)
+    p.add_argument("--block-size", type=int, default=m.block_size)
+    p.add_argument("--dropout", type=float, default=m.dropout)
+    p.add_argument("--n-terms", type=int, default=m.n_terms)
+    p.add_argument("--compute-dtype", default=m.compute_dtype,
+                   choices=("float32", "bfloat16"))
+    p.add_argument("--vocab-size", type=int, default=t.vocab_size)
+    p.add_argument("--micro-batch-size", type=int, default=t.micro_batch_size)
+    p.add_argument("--grad-acc-steps", type=int, default=t.grad_acc_steps)
+    p.add_argument("--max-iters", type=int, default=t.max_iters)
+    p.add_argument("--eval-interval", type=int, default=t.eval_interval)
+    p.add_argument("--eval-iters", type=int, default=t.eval_iters)
+    p.add_argument("--learning-rate", type=float, default=t.learning_rate)
+    p.add_argument("--min-lr", type=float, default=t.min_lr)
+    p.add_argument("--weight-decay", type=float, default=t.weight_decay)
+    p.add_argument("--warmup-iters", type=int, default=t.warmup_iters)
+    p.add_argument("--seed", type=int, default=t.seed)
+    p.add_argument("--metrics-path", default=t.metrics_path)
+    p.add_argument("--anomaly-guard", action=argparse.BooleanOptionalAction,
+                   default=t.anomaly_guard)
+    p.add_argument("--anomaly-spike-factor", type=float,
+                   default=t.anomaly_spike_factor)
+    p.add_argument("--anomaly-warmup-steps", type=int,
+                   default=t.anomaly_warmup_steps)
+    # the port's own
+    p.add_argument("--tokens", required=True,
+                   help="encoded token stream (.npy, 1-D integer ids)")
+    p.add_argument("--sampler", choices=("epoch", "replacement"),
+                   default=t.sampler,
+                   help="'replacement' is the one this slice runs")
+    p.add_argument("--log-interval", type=int, default=t.log_interval)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return p
+
+
+def refused_flags(argv) -> list:
+    return [a.split("=")[0] for a in argv if a.split("=")[0] in LATER_FLAGS]
+
+
+def config_from_args(args: argparse.Namespace) -> TrainConfig:
+    model = ModelConfig(
+        model=args.model, vocab_size=args.vocab_size, n_embd=args.n_embd,
+        n_head=args.n_head, n_layer=args.n_layer, block_size=args.block_size,
+        dropout=args.dropout, n_terms=args.n_terms,
+        compute_dtype=args.compute_dtype,
+    )
+    return TrainConfig(
+        model=model, vocab_size=args.vocab_size,
+        micro_batch_size=args.micro_batch_size,
+        grad_acc_steps=args.grad_acc_steps, max_iters=args.max_iters,
+        eval_interval=args.eval_interval, eval_iters=args.eval_iters,
+        learning_rate=args.learning_rate, min_lr=args.min_lr,
+        weight_decay=args.weight_decay, warmup_iters=args.warmup_iters,
+        seed=args.seed, metrics_path=args.metrics_path or None,
+        anomaly_guard=args.anomaly_guard,
+        anomaly_spike_factor=args.anomaly_spike_factor,
+        anomaly_warmup_steps=args.anomaly_warmup_steps,
+        sampler=args.sampler, log_interval=args.log_interval,
+    )
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    parser = build_parser()
+    bad = refused_flags(argv)
+    if bad:
+        parser.error("; ".join(f"{f} is not run by the port yet: "
+                               f"{LATER_FLAGS[f]}" for f in bad))
+    args = parser.parse_args(argv)
+    from differential_transformer_replication_tpu_torch.train.trainer import train
+
+    train(config_from_args(args), args.tokens, device=args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

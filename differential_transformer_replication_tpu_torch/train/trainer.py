@@ -1,0 +1,192 @@
+"""The training loop of the port: data, steps, eval and metrics.
+
+Counterpart of the core of ``differential_transformer_replication_tpu/
+train/trainer.py``: the same recipe, eval protocol (``estimate_loss``),
+log cadence and metrics.jsonl keys, on one card. Data comes from a
+token stream already encoded, the JAX trainer's ``tokens.npy`` cache-hit
+branch: ``train(cfg, tokens_path)`` loads it, splits it 90/10 and draws
+training windows with replacement (``sampler="replacement"``). The
+corpus/BPE branch, the epoch sampler, checkpoints, rollback, the
+watchdog and the obs sidecar belong to later slices (ROADMAP Queue A).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from differential_transformer_replication_tpu_torch.config import TrainConfig
+from differential_transformer_replication_tpu_torch.data.sampler import (
+    TokenWindows,
+    split_tokens,
+)
+from differential_transformer_replication_tpu_torch.train.step import (
+    create_train_state,
+    make_eval_many,
+    make_train_step,
+)
+
+
+def resolve_device(device) -> torch.device:
+    """The entry points' device: CUDA unless the caller asks for the CPU,
+    and never a silent fallback when CUDA is asked for and absent."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' was asked for but CUDA is not "
+                           "available; pass device='cpu' for a CPU run")
+    return device
+
+
+def estimate_loss(eval_many, params: dict, train_ds: TokenWindows,
+                  val_ds: TokenWindows, cfg: TrainConfig,
+                  rng: np.random.Generator) -> dict:
+    """Mean loss over eval_iters batches of each split: train batches
+    shuffled (one ``integers(size=B)`` draw per batch), val batches
+    sequential from the start."""
+    out = {}
+    for split, ds in (("train", train_ds), ("val", val_ds)):
+        if split == "train":
+            offs = np.stack([
+                rng.integers(0, len(ds), size=cfg.micro_batch_size, dtype=np.int64)
+                for _ in range(cfg.eval_iters)
+            ])
+        else:
+            offs = np.stack([ds.sequential_offsets(k, cfg.micro_batch_size)
+                             for k in range(cfg.eval_iters)])
+        batch = ds.batches(offs)
+        losses = eval_many(params, batch["x"], batch["y"])
+        out[split] = float(losses.to(torch.float64).mean())
+    return out
+
+
+def build_data(cfg: TrainConfig, tokens_path: str, device):
+    """The ``tokens.npy`` cache-hit branch: load the encoded stream, check
+    it against the vocabulary, split it 90/10 into window datasets."""
+    tokens = np.load(tokens_path)
+    print(f"Loaded {len(tokens)} cached tokens from {tokens_path}")
+    if tokens.ndim != 1 or not np.issubdtype(tokens.dtype, np.integer):
+        raise ValueError(f"{tokens_path}: expected a 1-D integer token stream")
+    if len(tokens) and (tokens.min() < 0 or tokens.max() >= cfg.vocab_size):
+        raise ValueError(f"{tokens_path}: token ids outside [0, "
+                         f"{cfg.vocab_size})")
+    print(f"Total tokens: {len(tokens)}")
+    train_tokens, val_tokens = split_tokens(tokens, cfg.val_fraction)
+    block = cfg.model.block_size
+    return (TokenWindows(train_tokens, block, device),
+            TokenWindows(val_tokens, block, device))
+
+
+class MetricLogger:
+    """stdout + metrics.jsonl with the JAX trainer's record keys: a
+    ``run_header``, per-log ``iter``/``loss``/``learning_rate``/
+    ``gpu_memory``/``tokens_per_sec`` (+ extras), per-eval
+    ``train_loss``/``val_loss``; every record carries ``ts``."""
+
+    def __init__(self, cfg: TrainConfig, device: torch.device):
+        self._jsonl = None
+        self._cuda = device.type == "cuda"
+        if cfg.metrics_path:
+            self._jsonl = open(cfg.metrics_path, "a", buffering=1)
+            blob = json.dumps(cfg.to_dict(), sort_keys=True, default=str)
+            self._emit({
+                "record": "run_header",
+                "config_hash": hashlib.sha1(blob.encode()).hexdigest()[:12],
+                "torch_version": torch.__version__,
+                "device_kind": (torch.cuda.get_device_name(device)
+                                if self._cuda else "cpu"),
+                "device_count": torch.cuda.device_count() if self._cuda else 1,
+                "process_count": 1,
+                "model": cfg.resolved_model().model,
+            })
+
+    def _emit(self, payload: dict) -> None:
+        payload.setdefault("ts", round(time.time(), 3))
+        if self._jsonl is not None:
+            self._jsonl.write(json.dumps(payload) + "\n")
+
+    def log_step(self, iter_num: int, loss: float, lr: float,
+                 tokens_per_sec: Optional[float], extra: dict) -> None:
+        print(f"iter {iter_num}: loss {loss:.4f}, lr {lr:.2e}", flush=True)
+        payload = {"iter": iter_num, "loss": loss, "learning_rate": lr}
+        if self._cuda:  # omitted on the CPU, never a fake 0.0
+            payload["gpu_memory"] = torch.cuda.memory_allocated() / 1024 ** 2
+        if tokens_per_sec is not None:
+            payload["tokens_per_sec"] = round(tokens_per_sec, 1)
+        payload.update(extra)
+        self._emit(payload)
+
+    def log_eval(self, iter_num: int, train_loss: float, val_loss: float) -> None:
+        print(f"step {iter_num}: train loss {train_loss:.4f}, val loss "
+              f"{val_loss:.4f}", flush=True)
+        self._emit({"iter": iter_num, "train_loss": train_loss,
+                    "val_loss": val_loss})
+
+    def close(self) -> None:
+        if self._jsonl is not None:
+            self._jsonl.close()
+
+
+def train(cfg: TrainConfig, tokens_path: str, device="cuda") -> tuple:
+    """Run the recipe for ``cfg.max_iters`` steps on ``device``. Returns
+    (final train state, per-step metrics list)."""
+    if cfg.sampler != "replacement":
+        raise NotImplementedError(
+            f"sampler {cfg.sampler!r}: the epoch sampler (the exact epoch "
+            "permutation) is not ported yet (ROADMAP Queue A: data); pass "
+            "sampler='replacement'"
+        )
+    device = resolve_device(device)
+    train_ds, val_ds = build_data(cfg, tokens_path, device)
+    model_cfg = cfg.resolved_model()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(cfg.seed)
+    state = create_train_state(gen, cfg, device)
+    train_step = make_train_step(cfg)
+    eval_many = make_eval_many(cfg)
+    data_rng = np.random.default_rng(cfg.seed)
+    eval_rng = np.random.default_rng(cfg.seed + 1)
+    logger = MetricLogger(cfg, device)
+    tokens_per_step = cfg.micro_batch_size * cfg.grad_acc_steps * model_cfg.block_size
+    history = []
+    print(f"Starting training on {device} ({model_cfg.model}, "
+          f"{model_cfg.n_layer} layers, width {model_cfg.n_embd}, "
+          f"{model_cfg.n_head} heads)", flush=True)
+    t0 = t_log = time.time()
+    steps_since_log = 0
+    try:
+        iter_num = state["step"]
+        while iter_num < cfg.max_iters:
+            batch = train_ds.random_batches(data_rng, cfg.micro_batch_size,
+                                            cfg.grad_acc_steps)
+            t_step = time.perf_counter()
+            state, metrics = train_step(state, batch)
+            metrics["step_time_ms"] = 1e3 * (time.perf_counter() - t_step)
+            history.append(metrics)
+            iter_num += 1
+            steps_since_log += 1
+            if iter_num % cfg.log_interval == 0:
+                now = time.time()
+                extra = {"step_time_ms": round(metrics["step_time_ms"], 3)}
+                if cfg.anomaly_guard:
+                    extra["skipped_steps"] = metrics["skipped"]
+                logger.log_step(iter_num, metrics["loss"],
+                                metrics["learning_rate"],
+                                steps_since_log * tokens_per_step / (now - t_log),
+                                extra)
+                t_log, steps_since_log = now, 0
+            if iter_num % cfg.eval_interval == 0:
+                losses = estimate_loss(eval_many, state["params"], train_ds,
+                                       val_ds, cfg, eval_rng)
+                logger.log_eval(iter_num, losses["train"], losses["val"])
+        dt = time.time() - t0
+        seen = len(history) * tokens_per_step
+        print(f"Training done: {seen} tokens in {dt:.1f}s "
+              f"({seen / max(dt, 1e-9):.0f} tokens/sec)", flush=True)
+    finally:
+        logger.close()
+    return state, history

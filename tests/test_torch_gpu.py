@@ -8,9 +8,17 @@ conftest:
 
 fp32 bounds: 1e-5 (norm, attention), 5e-5 (SwiGLU: fp32 accumulation
 order over E products). bf16 bounds: one bf16 rounding step at the
-largest output (2^-7 * max|ref|), and for attention also 2^-8 of
+largest output (2^-7 * max|ref|), and for decode attention also 2^-8 of
 sum|c| * max|V| (the kernel rounds each stream's probabilities before
 its PV product, the plain version rounds the combined map once).
+
+The training kernels (token-major attention forward/backward, add+norm
+backward, SwiGLU backward) share their plain versions' rounding points,
+so what differs is the order of fp32 sums: gradients are held to 1e-4
+of each result's max |value| in fp32; in bf16 an order difference can
+flip one rounding of an intermediate (p, ds, dg/dt), which moves a
+result by at most 2^-8 of the sum of the magnitudes it adds up, bounded
+here by 2^-8 * max|ref| * sqrt(terms) plus one bf16 step (see _bf16_tol).
 """
 
 from __future__ import annotations
@@ -23,10 +31,18 @@ from differential_transformer_replication_tpu_torch.config import (
     ServingConfig,
 )
 from differential_transformer_replication_tpu_torch.models import init_model
+from differential_transformer_replication_tpu_torch.models import model_forward
 from differential_transformer_replication_tpu_torch.ops import decode_attention as dat
+from differential_transformer_replication_tpu_torch.ops import flash
 from differential_transformer_replication_tpu_torch.ops import fused_ffn as ffn
 from differential_transformer_replication_tpu_torch.ops import fused_norm_residual as fnr
 from differential_transformer_replication_tpu_torch.serving.engine import ServingEngine
+from differential_transformer_replication_tpu_torch.config import TrainConfig
+from differential_transformer_replication_tpu_torch.train.optim import leaves
+from differential_transformer_replication_tpu_torch.train.step import (
+    make_train_step,
+    train_state,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -72,7 +88,10 @@ def test_add_norm_kernels_match_plain(gen, dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
-@pytest.mark.parametrize("M,E,F", [(8, 768, 3072), (128, 768, 3072), (5, 70, 99)])
+# M = 1024 in bf16 takes the tensor-core path (M >= 512, E and F
+# multiples of 64); the others the SIMT path
+@pytest.mark.parametrize("M,E,F", [(8, 768, 3072), (128, 768, 3072), (5, 70, 99),
+                                   (1024, 768, 3072)])
 def test_swiglu_kernel_matches_plain(gen, dtype, M, E, F):
     x = torch.randn(M, E, generator=gen, device="cuda").to(dtype)
     ws = [(0.05 * torch.randn(*s, generator=gen, device="cuda")).to(dtype)
@@ -132,3 +151,140 @@ def test_engine_on_the_card_matches_the_cpu(gen, kind):
     on_cpu = ServingEngine(params, cfg, serving, device="cpu").generate(
         prompts, max_new_tokens=12, temperature=0.0)
     assert [o.tokens for o in on_card] == [o.tokens for o in on_cpu]
+
+
+# ---------------------------------------------------------------------------
+# the training kernels
+# ---------------------------------------------------------------------------
+
+
+def _bf16_tol(ref: torch.Tensor, terms: int) -> float:
+    """bf16 bound for a kernel whose sums run in another order than its
+    plain version's: one bf16 step of the result, plus 2^-8 of
+    max|ref| * sqrt(terms) for roundings of intermediates that flip."""
+    top = float(ref.float().abs().max())
+    return 2.0 ** -7 * top + 2.0 ** -8 * top * terms ** 0.5
+
+
+def _rel(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return _err(got, ref) / max(float(ref.float().abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("S,B,T,H,d,dv,packed", [
+    (1, 2, 40, 2, 8, 8, False), (2, 2, 40, 2, 8, 16, True),
+    (4, 2, 40, 3, 12, 24, False),
+    (2, 2, 512, 4, 96, 192, True),   # diff recipe (batch cut)
+    (1, 2, 512, 8, 96, 96, False),   # control recipe
+    (4, 1, 512, 4, 96, 192, False),  # ndiff recipe
+])
+def test_flash_tm_kernels_match_plain(gen, dtype, S, B, T, H, d, dv, packed):
+    W = 2 * S * H * d + H * dv
+    proj = torch.randn(B, T, W, generator=gen, device="cuda").to(dtype)
+    if not packed:
+        proj = proj.clone()
+    Hd = H * d
+    qs = [proj[..., s * Hd:(s + 1) * Hd] for s in range(S)]
+    ks = [proj[..., (S + s) * Hd:(S + s + 1) * Hd] for s in range(S)]
+    v = proj[..., 2 * S * Hd:]
+    if not packed:
+        qs, ks, v = ([t.contiguous() for t in qs], [t.contiguous() for t in ks],
+                     v.contiguous())
+    c = torch.randn(S, H, generator=gen, device="cuda") * 0.5
+    c[0] = 1.0
+    f0, b0 = flash.flash_tm_fwd.launches, flash.flash_tm_bwd.launches
+    out, o_all, lse = flash.flash_tm_fwd(qs, ks, v, c, H, True)
+    r_out, r_oall, r_lse = flash.tm_attention_fwd_reference(qs, ks, v, c, H)
+    assert flash.flash_tm_fwd(qs, ks, v, c, H, False)[1] is None
+    g = torch.randn(B, T, H * dv, generator=gen, device="cuda").to(dtype)
+    delta = torch.randn(B, T, H * S, generator=gen, device="cuda")
+    dqs = [torch.empty_like(q, memory_format=torch.contiguous_format) for q in qs]
+    dks = [torch.empty_like(k, memory_format=torch.contiguous_format) for k in ks]
+    dv_ = torch.empty(B, T, H * dv, dtype=dtype, device="cuda")
+    flash.flash_tm_bwd(qs, ks, v, g, r_lse, delta, c, H, dqs, dks, dv_)
+    rq, rk, rv = flash.tm_attention_bwd_reference(qs, ks, v, g, r_lse, delta, c, H)
+    assert (flash.flash_tm_fwd.launches - f0, flash.flash_tm_bwd.launches - b0) == (2, 1)
+    if dtype == torch.float32:
+        assert _err(out, r_out) <= 1e-5 and _err(o_all, r_oall) <= 1e-5
+        assert _err(lse, r_lse) <= 1e-5
+        for got, ref in zip([*dqs, *dks, dv_], [*rq, *rk, rv]):
+            assert _rel(got, ref) <= 1e-4
+    else:
+        tol = (2.0 ** -8 * float(c.abs().sum(0).max()) * float(v.float().abs().max())
+               + _ulp(r_out))
+        assert _err(out, r_out) <= tol
+        assert _err(lse, r_lse) <= 1e-5 * float(r_lse.abs().max())
+        for got, ref in zip([*dqs, *dks, dv_], [*rq, *rk, rv]):
+            assert _err(got, ref) <= _bf16_tol(ref, T)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape,with_gx", [((300, 768), True), ((3, 5, 100), False),
+                                           ((16384, 768), True)])
+def test_add_norm_bwd_kernel_matches_plain(gen, dtype, shape, with_gx):
+    E = shape[-1]
+    x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    gn = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    gx = torch.randn(*shape, generator=gen, device="cuda").to(dtype) if with_gx else None
+    w = 1 + 0.1 * torch.randn(E, generator=gen, device="cuda")
+    n0 = fnr.add_norm_bwd.launches
+    dx, dw, db = fnr.add_norm_bwd(x, w, gn, gx)
+    rdx, rdw, rdb = fnr.add_norm_bwd_reference(x, w, gn, gx)
+    assert fnr.add_norm_bwd.launches - n0 == 1
+    assert _err(dx, rdx) <= (1e-5 * float(rdx.abs().max()) if dtype == torch.float32
+                             else _ulp(rdx))
+    assert _rel(dw, rdw) <= 1e-4 and _rel(db, rdb) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("M,E,F", [(300, 768, 3072), (5, 70, 99), (16384, 768, 3072)])
+def test_swiglu_bwd_kernel_matches_plain(gen, dtype, M, E, F):
+    x = torch.randn(M, E, generator=gen, device="cuda").to(dtype)
+    ws = [(0.05 * torch.randn(*s, generator=gen, device="cuda")).to(dtype)
+          for s in ((E, F), (F,), (E, F), (F,))]
+    gh = torch.randn(M, F, generator=gen, device="cuda").to(dtype)
+    n0 = ffn.swiglu_bwd.launches
+    dgt, dw, db = ffn.swiglu_bwd(x, *ws, gh)
+    rdgt, rdw, rdb = ffn.swiglu_bwd_reference(x, *ws, gh)
+    assert ffn.swiglu_bwd.launches - n0 == 1
+    if dtype == torch.float32:
+        assert _rel(dgt, rdgt) <= 1e-5
+    else:
+        assert _err(dgt, rdgt) <= _ulp(rdgt)
+    assert _rel(dw, rdw) <= (1e-4 if dtype == torch.float32 else 2.0 ** -7)
+    assert _rel(db, rdb) <= 1e-4
+
+
+def test_train_step_on_the_card_matches_the_cpu(gen):
+    """One fp32 step of a 2-layer diff model at recipe width: the card
+    (kernels) against the CPU (plain versions), loss, every gradient
+    and the updated params."""
+    cfg = ModelConfig(model="diff", n_layer=2, vocab_size=512, block_size=128,
+                      compute_dtype="float32")
+    tcfg = TrainConfig(model=cfg, vocab_size=512, micro_batch_size=4,
+                       warmup_iters=0, learning_rate=1e-3, sampler="replacement")
+    cpu_gen = torch.Generator()
+    cpu_gen.manual_seed(4)
+    params = init_model(cpu_gen, cfg)
+    idx = torch.randint(0, 512, (1, 4, 129), generator=cpu_gen)
+    batch = {"x": idx[..., :-1], "y": idx[..., 1:]}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = train_state(params, tcfg, dev)
+        p = state["params"]
+        _, loss = model_forward(p, batch["x"][0].to(dev), cfg,
+                                targets=batch["y"][0].to(dev))
+        grads = torch.autograd.grad(loss, leaves(p))
+        state, m = make_train_step(tcfg)(state, {k: t.to(dev) for k, t in batch.items()})
+        out[dev] = (float(loss.detach()), [g.cpu() for g in grads],
+                    [t.detach().cpu() for t in leaves(state["params"])], m)
+    (lc, gc, pc, mc), (lh, gh, ph, mh) = out["cuda"], out["cpu"]
+    assert abs(lc - lh) <= 1e-5 and abs(mc["grad_norm"] - mh["grad_norm"]) <= 1e-4 * mh["grad_norm"]
+    for a, b in zip(gc, gh):
+        assert _rel(a, b) <= 1e-3
+    # Adam's first step moves a param by lr * g / (|g| + eps): where g is
+    # ~0 its sign, and so the step, can differ between two fp32 sum
+    # orders; anywhere else the updates agree to fp32 rounding
+    for a, b in zip(pc, ph):
+        assert _err(a, b) <= 2 * tcfg.learning_rate
+        assert float((a - b).abs().mean()) <= 1e-6

@@ -78,11 +78,14 @@ def test_source_names_no_jax_import(path):
 def test_kernel_wrappers_raise_off_the_cpu_instead_of_falling_back():
     from differential_transformer_replication_tpu_torch.ops import (
         decode_attention as dat,
+        flash,
         fused_ffn as ffn,
         fused_norm_residual as fnr,
     )
 
     meta = torch.device("meta")
+    qkv = [torch.empty(1, 8, 2 * 4, device=meta) for _ in range(3)]
+    lse = torch.empty(1, 8, 2, device=meta)
     x = torch.empty(4, 32, device=meta)
     w = torch.empty(32, device=meta)
     calls = {
@@ -97,10 +100,23 @@ def test_kernel_wrappers_raise_off_the_cpu_instead_of_falling_back():
             torch.empty(2, 2, 16, 8, device=meta),
             torch.empty(2, dtype=torch.int32, device=meta),
             torch.empty(1, 2, device=meta)),
+        "add_norm_bwd": lambda: fnr.add_norm_bwd(x, w, x, x),
+        "swiglu_bwd": lambda: ffn.swiglu_bwd(
+            x, torch.empty(32, 64, device=meta), torch.empty(64, device=meta),
+            torch.empty(32, 64, device=meta), torch.empty(64, device=meta),
+            torch.empty(4, 64, device=meta)),
+        "flash_tm_fwd": lambda: flash.flash_tm_fwd(
+            qkv[:1], qkv[1:2], qkv[2], torch.ones(1, 2, device=meta), 2, True),
+        "flash_tm_bwd": lambda: flash.flash_tm_bwd(
+            qkv[:1], qkv[1:2], qkv[2], qkv[2], lse, lse,
+            torch.ones(1, 2, device=meta), 2, qkv[:1], qkv[1:2], qkv[2]),
     }
     wrappers = {"fused_norm": fnr.fused_norm, "fused_add_norm": fnr.fused_add_norm,
                 "fused_swiglu": ffn.fused_swiglu,
-                "decode_attention": dat.decode_attention}
+                "decode_attention": dat.decode_attention,
+                "add_norm_bwd": fnr.add_norm_bwd, "swiglu_bwd": ffn.swiglu_bwd,
+                "flash_tm_fwd": flash.flash_tm_fwd,
+                "flash_tm_bwd": flash.flash_tm_bwd}
     before = {k: f.launches for k, f in wrappers.items()}
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no kernel for device 'meta'"):
