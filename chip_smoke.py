@@ -18,12 +18,28 @@ these phases, each printing its own lines and its seconds:
    SwiGLU, decode attention) and the training kernels (token-major
    attention forward and backward for the diff, control and ndiff
    recipes, add+norm backward, SwiGLU backward; add+norm and SwiGLU
-   forward also at the training shape M = 16384);
+   forward also at the training shape M = 16384); and the
+   decode-attention instances of the paged pool, the int8 cache and the
+   speculative verify (rows 5-int8, 6, 7, 8) at the recipes' decode
+   shapes (8 slots, M 512, pages of 16, 5 verify rows) in fp32, bf16
+   and int8, with the paged-vs-contiguous difference on the same
+   contents;
 3. serve: a diff model at recipe width (random weights from a seed)
    behind the port's HTTP ``serve()``, 12 concurrent ``/generate``
-   requests, launch counters read around that run;
+   requests, launch counters read around that run; serve-paged: the
+   same model served (a) paged, int8, prefix cache, n-gram speculation
+   with batched verify and (b) contiguous, int8, batched verify — one
+   request carrying a 64-token prefix, then 12 concurrent requests of
+   which four share it — with prefix hits, draft acceptance, tokens per
+   decode step, TTFT of hits and misses and launch counters; greedy
+   identity runs (paged vs contiguous, exact spec vs none); and the
+   steady-state decode step of ``serving/decode_profile.py`` (wall, device
+   busy, idle share) for the contiguous bf16 step, the paged int8 step and
+   the paged batched verify step;
 4. e2e: prefill + decode logits of one prompt in fp32 on the card
-   (kernels) against the CPU (plain versions);
+   (kernels) against the CPU (plain versions); and a 2-layer diff at
+   recipe width through the paged pool: paged steps and batched verify
+   blocks, card vs CPU;
 5. train: the diff recipe at full width and depth, then the control
    recipe, each from a seed-0 init through the trainer's entry point
    (``train.trainer.train``) on a seeded synthetic ``tokens.npy``,
@@ -352,6 +368,185 @@ def run_kernels(torch, ops) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2, continued: the decode-attention instances of rows 5-int8, 6, 7, 8
+# ---------------------------------------------------------------------------
+
+DEC_B, DEC_M, DEC_PS, DEC_L = 8, 512, 16, 5
+# (name, S, H, d, dv): the recipes' decode shapes
+DEC_CONFIGS = (("diff", 2, 4, 96, 192), ("control", 1, 8, 96, 96),
+               ("ndiff", 4, 4, 96, 192))
+# the JSON line's entries (int8 storage): name -> TPU kernel body line
+DEC_ENTRIES = {"decode_attention_int8": 102, "decode_attention_paged": 268,
+               "decode_attention_multi": 428, "decode_attention_multi_paged": 613}
+
+
+def paged_copy(torch, t, tab, ps: int, axis: int, n_pages: int, gen):
+    """A paged pool holding the slots of the contiguous leaf ``t`` (batch
+    axis ``axis``) behind ``tab``; the other pages, the trash page 0
+    included, hold garbage a correct kernel never reads."""
+    shape = list(t.shape)
+    shape[axis], shape[axis + 2] = n_pages, ps
+    if t.dtype == torch.int8:
+        out = torch.randint(-127, 128, shape, generator=gen, device="cuda").to(torch.int8)
+    else:
+        out = torch.rand(*shape, generator=gen, device="cuda").to(t.dtype)
+    B, pp = tab.shape
+    for b in range(B):
+        for j in range(pp):
+            out.select(axis, int(tab[b, j])).copy_(
+                t.select(axis, b).narrow(axis + 1, j * ps, ps))
+    return out
+
+
+def dec_operands(torch, dat, gen, S, H, d, dv, store, R):
+    """A contiguous cache of R rows and the same B slots in a paged pool
+    behind a scrambled table: {"kc", "vc", "kp", "vp", "tab", "cs", "ps"}
+    where cs/ps are the scale keywords (empty for float storage), and the
+    first B rows as contiguous tensors ("kc1", "vc1", "cs1")."""
+    dtype = torch.float32 if store == "fp32" else torch.bfloat16
+    kc = torch.randn(S, R, H, DEC_M, d, generator=gen, device="cuda").to(dtype)
+    vc = torch.randn(R, H, DEC_M, dv, generator=gen, device="cuda").to(dtype)
+    pp = DEC_M // DEC_PS
+    P = 1 + DEC_B * pp + 7
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(S))
+    tab = (1 + perm[:DEC_B * pp]).reshape(DEC_B, pp).to(torch.int32).cuda()
+    cs, ps = {}, {}
+    if store == "int8":
+        (kc, ks), (vc, vs) = dat.quantize_kv(kc), dat.quantize_kv(vc)
+        cs = {"k_scale": ks, "v_scale": vs}
+        ps = {"k_scale": paged_copy(torch, ks[:, :DEC_B].unsqueeze(-1), tab, DEC_PS,
+                                    1, P, gen).squeeze(-1),
+              "v_scale": paged_copy(torch, vs[:DEC_B].unsqueeze(-1), tab, DEC_PS,
+                                    0, P, gen).squeeze(-1)}
+    kp = paged_copy(torch, kc[:, :DEC_B], tab, DEC_PS, 1, P, gen)
+    vp = paged_copy(torch, vc[:DEC_B], tab, DEC_PS, 0, P, gen)
+    # the single-row contiguous instance takes exactly B cache rows
+    cs1 = {k: (v[:, :DEC_B] if k == "k_scale" else v[:DEC_B]).contiguous()
+           for k, v in cs.items()}
+    return dict(kc=kc, vc=vc, kp=kp, vp=vp, tab=tab, cs=cs, ps=ps,
+                kc1=kc[:, :DEC_B].contiguous(), vc1=vc[:DEC_B].contiguous(), cs1=cs1)
+
+
+def run_decode_kernels(torch, dat) -> dict:
+    """Rows 5 (float, already timed above, and int8), 6, 7 and 8 at the
+    recipes' decode shapes (B = 8 slots, M = 512, pages of 16, L = 5
+    verify rows), fp32, bf16 and int8 K/V with bf16 queries: each
+    instance against its plain version, the paged instances against the
+    contiguous ones on the same contents, device times by CUDA-graph
+    replay beside the plain version and the bound; SDPA with a boolean
+    mask at the control shape (S = 1) for rows 5 and 7."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    entries = {}
+    base = torch.tensor([0, 37, 300, 506, 506, 300, 37, 150], dtype=torch.int32,
+                        device="cuda")
+    pos_l = (base[:, None] + torch.arange(DEC_L, device="cuda",
+                                          dtype=torch.int32)).contiguous()
+    pos_1 = pos_l[:, 0].contiguous()
+    n_vis = [int(v) for v in torch.clamp(pos_l + 1, max=DEC_M).sum(0)]
+    for name, S, H, d, dv in DEC_CONFIGS:
+        c = torch.randn(S, H, generator=gen, device="cuda") * 0.5
+        c[0] = 1.0
+        for store in ("fp32", "bf16", "int8"):
+            qdt = torch.float32 if store == "fp32" else torch.bfloat16
+            es = 1 if store == "int8" else torch.finfo(qdt).bits // 8
+            cache_bytes = (S * d + dv) * (DEC_B + 1) * H * DEC_M * es
+            sets = [dec_operands(torch, dat, gen, S, H, d, dv, store, DEC_B + 1)
+                    for _ in range(n_copies(cache_bytes))]
+            q_l = torch.randn(S, DEC_B, DEC_L, H, d, generator=gen, device="cuda").to(qdt)
+            q_1 = q_l[:, :, 0].contiguous()
+            # each instance: (kernel call, plain call, K/V rows it reads)
+            fns = {
+                "decode_attention": (
+                    lambda s: dat.decode_attention(q_1, s["kc1"], s["vc1"], pos_1, c,
+                                                   **s["cs1"]),
+                    lambda s: dat.decode_attention_reference(
+                        q_1, s["kc1"], s["vc1"], pos_1, c, **s["cs1"]), 1),
+                "decode_attention_paged": (
+                    lambda s: dat.decode_attention_paged(q_1, s["kp"], s["vp"], s["tab"],
+                                                         pos_1, c, **s["ps"]),
+                    lambda s: dat.decode_attention_paged_reference(
+                        q_1, s["kp"], s["vp"], s["tab"], pos_1, c, **s["ps"]), 1),
+                "decode_attention_multi": (
+                    lambda s: dat.decode_attention_multi(q_l, s["kc"], s["vc"], pos_l, c,
+                                                         **s["cs"]),
+                    lambda s: dat.decode_attention_multi_reference(
+                        q_l, s["kc"], s["vc"], pos_l, c, **s["cs"]), DEC_L),
+                "decode_attention_multi_paged": (
+                    lambda s: dat.decode_attention_multi_paged(
+                        q_l, s["kp"], s["vp"], s["tab"], pos_l, c, **s["ps"]),
+                    lambda s: dat.decode_attention_multi_paged_reference(
+                        q_l, s["kp"], s["vp"], s["tab"], pos_l, c, **s["ps"]), DEC_L),
+            }
+            o = sets[0]
+            outs = {k: (kf(o), pf(o)) for k, (kf, pf, _) in fns.items()}
+            vmax = (float(o["vc"].float().abs().max()) if store != "int8"
+                    else float(o["cs"]["v_scale"].max()) * 127.0)
+            if store == "fp32":
+                tol = 1e-5
+            else:  # as row 5's bf16 bound, over the (dequantized) V
+                tol = (2.0 ** -8 * float(c.abs().sum(0).max()) * vmax
+                       + bf16_ulp_bound(outs["decode_attention_multi"][1].float()))
+            errs = {k: max_err(*v) for k, v in outs.items()}
+            for k, e in errs.items():
+                expect(e <= tol, f"{k} {name} {store}: max-abs {e:.3g} > bound {tol:.3g}")
+            paged_diff = max(
+                max_err(outs["decode_attention"][0], outs["decode_attention_paged"][0]),
+                max_err(outs["decode_attention_multi"][0],
+                        outs["decode_attention_multi_paged"][0]))
+            rows_diff = max_err(outs["decode_attention_multi"][0][:, 0],
+                                outs["decode_attention"][0])
+            log(f"[kernels] decode {name} {store} S={S} B={DEC_B} H={H} M={DEC_M} "
+                f"d={d} dv={dv} pages of {DEC_PS}, L={DEC_L}: max-abs vs plain "
+                + ", ".join(f"{k[17:] or 'contiguous'} {e:.3g}" for k, e in errs.items())
+                + f" (bound {tol:.3g}); paged vs contiguous on the same contents "
+                f"{paged_diff:.3g}; multi row 0 vs single row {rows_diff:.3g}")
+            if store == "fp32":
+                continue
+            # bytes: each visible key's K/V (and scales) read once for all
+            # rows, queries, outputs and page tables; flops per row
+            per_key = H * ((S * d + dv) * es + ((S + 1) * 4 if store == "int8" else 0))
+            vis = {1: int(torch.clamp(pos_1 + 1, max=DEC_M).sum()),
+                   DEC_L: int(torch.clamp(pos_l.max(1).values + 1, max=DEC_M).sum())}
+            rows_keys = {1: vis[1], DEC_L: sum(n_vis)}
+            calls = {}
+            for k, (kf, pf, L) in fns.items():
+                nbytes = (vis[L] * per_key + S * DEC_B * L * H * d * 2
+                          + DEC_B * L * H * dv * 2
+                          + (DEC_B * (DEC_M // DEC_PS) * 4 if "paged" in k else 0))
+                flops = rows_keys[L] * H * (2 * S * d + 2 * S * dv + 5 * S)
+                calls[k] = ([lambda s=s, kf=kf: kf(s) for s in sets],
+                            [lambda s=s, pf=pf: pf(s) for s in sets], nbytes, flops)
+            for k, (k_calls, p_calls, nbytes, flops) in calls.items():
+                lib = None
+                if S == 1 and store == "bf16" and k in ("decode_attention",
+                                                        "decode_attention_multi"):
+                    # one causal stream: SDPA with a boolean visibility mask
+                    L = 1 if k == "decode_attention" else DEC_L
+                    qt = q_l[0, :, :L].transpose(1, 2)  # (B, H, L, d)
+                    kt, vt = o["kc"][0, :DEC_B], o["vc"][:DEC_B]
+                    mask = (torch.arange(DEC_M, device="cuda")[None, None, :]
+                            <= pos_l[:, :L, None])[:, None]
+                    lib = [lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask)]
+                t = timings(k_calls, p_calls, lib)
+                bms, by = bound_ms(nbytes, flops, torch.bfloat16)
+                log(f"[kernels] {k} {name} {store}: " + fmt_times(t, bms, by)
+                    + ("; one-call PyTorch is SDPA with a boolean mask" if lib else ""))
+                key = k + ("_int8" if k == "decode_attention" else "")
+                if name == "diff" and store == "int8" and key in DEC_ENTRIES:
+                    entries[key] = dict(
+                        name=key, route="cuda",
+                        source=SRC + "csrc/decode_attention.cu",
+                        replaces=f"{TPU}decode_attention.py:{DEC_ENTRIES[key]}",
+                        max_abs_err=errs[k], ms=t["ms"], plain_ms=t["plain_ms"],
+                        bound_ms=bms, bound_by=by, library_ms=None)
+            del sets, o, outs
+        torch.cuda.empty_cache()
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # phase 3: serve the diff recipe through the HTTP front-end
 # ---------------------------------------------------------------------------
 
@@ -486,6 +681,221 @@ def run_serve(torch, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: serve the diff recipe through the paged pool, the prefix
+# cache, the int8 cache and speculative verify
+# ---------------------------------------------------------------------------
+
+SHARED = 64   # tokens of the prefix four requests share
+HITS = (1, 4, 7, 10)       # wave-2 requests on the shared prefix
+MOTIFS = (2, 5, 8, 11)     # wave-2 requests repeating a short motif
+SAMPLED = (3, 9)           # wave-2 requests that sample
+PAGED_COUNTERS = ("decode_attention", "decode_attention_paged",
+                  "decode_attention_multi", "decode_attention_multi_paged")
+
+
+def paged_bodies(vocab: int):
+    """Wave 1: one greedy request carrying the shared prefix, served
+    alone so that its prompt pages are cached (and its first decode
+    step, with no draft yet, runs the L=1 kernel). Wave 2: 12 concurrent
+    requests; hit prompts are the prefix plus < 64 tokens, so their
+    prefill chunks line up with the contiguous pool's (a 64-token chunk
+    first) and the pools' outputs can be compared bit for bit."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    shared = rng.integers(0, vocab, SHARED).tolist()
+    donor = {"prompt_ids": shared + rng.integers(0, vocab, 16).tolist(),
+             "max_new_tokens": 16, "temperature": 0.0}
+    wave = []
+    for i in range(12):
+        if i in HITS:
+            p = shared + rng.integers(0, vocab, 8 + 12 * HITS.index(i)).tolist()
+        elif i in MOTIFS:
+            motif = rng.integers(0, vocab, 3 + i % 4).tolist()
+            p = (motif * 64)[:40 + 10 * i]
+        else:
+            p = rng.integers(0, vocab, 30 + 25 * i).tolist()
+        body = {"prompt_ids": p, "max_new_tokens": NEW_TOKENS, "temperature": 0.0}
+        if i in SAMPLED:
+            body.update(temperature=0.8, top_k=50, seed=100 + i)
+        wave.append(body)
+    return donor, wave
+
+
+def serve_waves(torch, params, cfg, serving, donor, wave) -> dict:
+    """One engine behind ``serve()``: the donor alone, then the wave
+    concurrently; launch counters set to 0 just before and read just
+    after; the engine's stats, /health and the replies."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from differential_transformer_replication_tpu_torch.ops import (
+        decode_attention as dat,
+    )
+    from differential_transformer_replication_tpu_torch.serving.engine import (
+        ServingEngine,
+    )
+    from differential_transformer_replication_tpu_torch.serving.server import (
+        ServingClient,
+        serve,
+    )
+
+    engine = ServingEngine(params, cfg, serving, device="cuda")
+    client = ServingClient(engine)
+    httpd = serve(client, port=0)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    try:
+        counters = {k: getattr(dat, k) for k in PAGED_COUNTERS}
+        for fn in counters.values():
+            fn.launches = fn.int8_launches = 0
+        torch.cuda.synchronize()
+        status, first = _post(url + "/generate", donor)
+        expect(status == 200, f"/generate answered {status}: {first}")
+        stats0 = engine.stats.snapshot()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(wave)) as pool:
+            replies = list(pool.map(lambda b: _post(url + "/generate", b), wave))
+        wall = time.perf_counter() - t0
+        counts = {k: (fn.launches, fn.int8_launches) for k, fn in counters.items()}
+        stats1 = engine.stats.snapshot()
+        health = json.load(urllib.request.urlopen(url + "/health", timeout=60))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        client.close()
+        server.join(timeout=30)
+    for (status, reply), body in zip(replies, wave):
+        expect(status == 200 and len(reply["tokens"]) == NEW_TOKENS
+               and reply["prompt_ids"] == body["prompt_ids"]
+               and all(0 <= t < cfg.vocab_size for t in reply["tokens"]),
+               f"/generate answered {status}: {reply}")
+    return dict(first=first, replies=[r for _, r in replies], counts=counts,
+                stats0=stats0, stats1=stats1, health=health, wall=wall)
+
+
+def first_difference(a: list, b: list):
+    """(request, token position) of the first difference, or None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        for j, (s, t) in enumerate(zip(x, y)):
+            if s != t:
+                return i, j
+    return None
+
+
+def run_serve_paged(torch, card: str) -> dict:
+    """Phase 3b. Serves the diff recipe (random weights from a seed) in
+    (a) the paged pool, int8 K/V, prefix cache, n-gram speculation with
+    batched verify (rows 6 and 8), (b) the contiguous pool, int8 K/V,
+    batched verify (rows 5-int8 and 7), then the identity runs: paged
+    and contiguous without speculation, and paged with the exact verify.
+    Returns the launch count of each row's instance over (a) and (b)."""
+    from differential_transformer_replication_tpu_torch.config import (
+        ModelConfig,
+        ServingConfig,
+    )
+    from differential_transformer_replication_tpu_torch.models import init_model
+    from differential_transformer_replication_tpu_torch.serving import decode_profile
+
+    cfg = ModelConfig(**RECIPE, compute_dtype="bfloat16", param_dtype="float32")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = init_model(gen, cfg)
+    donor, wave = paged_bodies(cfg.vocab_size)
+    base = dict(num_slots=8, prefill_chunk=128, prefill_budget=4096,
+                kv_cache_dtype="int8", spec_draft_len=4)
+    paged = dict(kv_page_size=16)
+    runs = {}
+    for key, label, kw in (
+            ("a", "paged, prefix cache, batched verify",
+             dict(paged, spec_mode="ngram", spec_verify="batched")),
+            ("b", "contiguous, batched verify",
+             dict(spec_mode="ngram", spec_verify="batched")),
+            ("paged", "paged, prefix cache, no spec", paged),
+            ("contiguous", "contiguous, no spec", {}),
+            ("paged-exact", "paged, prefix cache, exact verify",
+             dict(paged, spec_mode="ngram", spec_verify="exact"))):
+        runs[key] = r = serve_waves(torch, params, cfg, ServingConfig(**base, **kw),
+                                    donor, wave)
+        s0, s1 = r["stats0"], r["stats1"]
+        steps = s1["decode_steps"] - s0["decode_steps"]
+        verify = s1["spec_steps"] - s0["spec_steps"]
+        proposed = s1["spec_proposed"] - s0["spec_proposed"]
+        accepted = s1["spec_accepted"] - s0["spec_accepted"]
+        tokens = s1["decode_tokens"] - s0["decode_tokens"]
+        iters = s1["iterations"] - s0["iterations"]
+        ttft = {h: [r["replies"][i]["ttft_ms"] for i in range(len(wave))
+                    if (i in HITS) == h] for h in (True, False)}
+        pages = r["health"].get("kv_pages")
+        log(f"[serve-paged] ({key}) {label}, int8 KV, pages of 16, k = 4: wave of {len(wave)} in {r['wall']:.2f} s over {iters} engine iterations "
+            f"({r['wall'] / max(iters, 1) * 1e3:.1f} ms per iteration); {steps} decode "
+            f"steps ({verify} verify), {tokens / max(steps, 1):.2f} tokens per decode "
+            f"step over all slots; drafts {accepted}/{proposed} accepted"
+            + (f" ({accepted / proposed:.3f})" if proposed else "")
+            + f"; prefix hits {pages['hits_total'] if pages else 'n/a'}; TTFT p50 "
+            f"hits {statistics.median(ttft[True]):.1f} ms, misses "
+            f"{statistics.median(ttft[False]):.1f} ms; launches {r['counts']}; {card}")
+    greedy = [i for i in range(len(wave)) if i not in SAMPLED]
+    toks = {k: [r["replies"][i]["tokens"] for i in greedy] for k, r in runs.items()}
+    for name, x, y, must in (("paged vs contiguous (no spec)", "paged", "contiguous", True),
+                             ("exact spec vs no spec (paged)", "paged-exact", "paged", True),
+                             ("batched paged vs batched contiguous", "a", "b", False),
+                             ("batched spec vs no spec (paged)", "a", "paged", False)):
+        diff = first_difference(toks[x], toks[y])
+        same = sum(p == q for p, q in zip(toks[x], toks[y]))
+        log(f"[serve-paged] greedy identity, {name}: {same}/{len(greedy)} requests "
+            "identical" + ("" if diff is None else
+                           f"; first difference: request {greedy[diff[0]]}, token "
+                           f"{diff[1]}") + ("" if must else " (reported, not required:"
+                                           " a batched verify's larger products may "
+                                           "round differently)"))
+        if must:
+            expect(diff is None, f"greedy {name} differ at {diff}")
+    a, b = runs["a"], runs["b"]
+    expect(a["health"]["kv_pages"]["hits_total"] >= len(HITS),
+           f"prefix hits {a['health']['kv_pages']['hits_total']} < {len(HITS)}")
+    for key in ("a", "b"):
+        acc = runs[key]["stats1"]["spec_accepted"] - runs[key]["stats0"]["spec_accepted"]
+        expect(acc > 0, f"run ({key}) accepted no draft")
+    L = cfg.n_layer
+    out = {}
+    for key, run, l1_name, multi_name in (
+            ("a", a, "decode_attention_paged", "decode_attention_multi_paged"),
+            ("b", b, "decode_attention", "decode_attention_multi")):
+        st = run["stats1"]
+        l1 = st["decode_steps"] - st["spec_steps"]
+        want = {l1_name: L * l1, multi_name: L * st["spec_steps"]}
+        for name, n in want.items():
+            total, int8 = run["counts"][name]
+            expect(total == int8 == n and n > 0,
+                   f"run ({key}): {name} launched {total} times ({int8} int8), "
+                   f"expected {n} int8 launches")
+        out["decode_attention_int8" if l1_name == "decode_attention" else l1_name] = \
+            want[l1_name]
+        out[multi_name] = want[multi_name]
+    # steady-state decode steps (8 slots, 256-token contexts): the
+    # contiguous bf16 step, the paged int8 step and the paged batched verify
+    for kw in ({}, dict(kv_page_size=16, kv_cache_dtype="int8"),
+               dict(kv_page_size=16, kv_cache_dtype="int8", spec_mode="ngram",
+                    spec_verify="batched")):
+        serving = ServingConfig(num_slots=decode_profile.SLOTS, prefill_chunk=128,
+                                prefill_budget=4096, **kw)
+        prof = decode_profile.profile(
+            decode_profile.recipe_engine(serving),
+            decode_profile.prompts_for(serving, cfg.vocab_size))
+        log(f"[serve-paged] decode_profile {kw or 'contiguous bf16'}: "
+            f"{prof['wall_ms_per_step']:.2f} ms wall per step, device busy "
+            f"{prof['device_busy_ms_per_step']:.3f} ms, idle share "
+            f"{prof['device_idle_share']:.3f}, {prof['tokens_per_step']:.2f} "
+            f"tokens per step, accept rate {prof['accept_rate']}, "
+            f"{prof['device_kernels_per_step']:.0f} kernels per step; top "
+            f"{[(k['name'][:40], round(k['ms_per_step'], 3)) for k in prof['top_kernels'][:4]]}; "
+            f"{card}")
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the card's kernels against the CPU's plain versions, end to end
 # ---------------------------------------------------------------------------
 
@@ -534,6 +944,75 @@ def run_e2e(torch) -> None:
         f"{scale:.3g})")
     expect(bool(torch.isfinite(card).all()), "non-finite logits")
     expect(err <= tol, f"card and CPU logits differ by {err:.3g} > {tol:g}")
+    run_e2e_paged(torch)
+
+
+def run_e2e_paged(torch) -> None:
+    """A 2-layer diff model at recipe width in fp32, one slot on a paged
+    pool behind a scrambled table (pages of 16): prefill through
+    gather/scatter_slot_cache, 4 paged L=1 steps
+    (``forward_decode_pool_paged``), then 2 batched verify blocks of 5
+    rows (``forward_decode_spec_paged``), on the card and on the CPU."""
+    import numpy as np
+
+    from differential_transformer_replication_tpu_torch.config import ModelConfig
+    from differential_transformer_replication_tpu_torch.models import common, init_model
+    from differential_transformer_replication_tpu_torch.models.decode import (
+        forward_chunk,
+        forward_decode_pool_paged,
+        forward_decode_spec_paged,
+        gather_slot_cache,
+        init_cache_paged,
+        scatter_slot_cache,
+    )
+
+    cfg = ModelConfig(**dict(RECIPE, n_layer=2), compute_dtype="float32")
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(5)
+    params = init_model(gen, cfg)
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(0, cfg.vocab_size, 64)
+    feed = rng.integers(0, cfg.vocab_size, 4)
+    blocks = rng.integers(0, cfg.vocab_size, (2, 5))
+    ps = 16
+    pp = cfg.block_size // ps
+    P = 1 + pp + 3
+    tab = (1 + rng.permutation(P - 1)[:pp]).astype(np.int32)[None]
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        p = common.inference_params(params, torch.float32, dev)
+        cache = init_cache_paged(cfg, P, ps, dev)
+        t = torch.as_tensor(tab, device=dev)
+        row = gather_slot_cache(cache, t[0])
+        out, _ = forward_chunk(p, torch.as_tensor(prompt, device=dev)[None], 0, row, cfg)
+        scatter_slot_cache(cache, row, t[0])
+        steps, pos = [out[0, -1]], len(prompt)
+        for tok in feed:
+            out, _ = forward_decode_pool_paged(
+                p, torch.as_tensor([tok], device=dev),
+                torch.as_tensor([pos], dtype=torch.int32, device=dev), cache, t,
+                torch.as_tensor([tab[0, pos // ps]], device=dev), cfg)
+            steps.append(out[0])
+            pos += 1
+        for blk in blocks:
+            vpos = pos + np.arange(len(blk), dtype=np.int32)
+            out, _ = forward_decode_spec_paged(
+                p, torch.as_tensor(blk, device=dev)[None],
+                torch.as_tensor(vpos, device=dev)[None], cache, t,
+                torch.as_tensor(tab[0, vpos // ps], device=dev)[None], cfg,
+                batched=True)
+            steps.extend(out[0])
+            pos += len(blk)
+        logits[dev] = torch.stack(steps).to("cpu", torch.float32)
+    card, host = logits["cuda"], logits["cpu"]
+    err = float((card - host).abs().max())
+    tol = 1e-3  # fp32 through 2 layers, sums in another order on each side
+    log(f"[e2e] paged: 2-layer diff at recipe width fp32, prefill 64, 4 paged "
+        f"steps, 2 batched verify blocks of 5 rows: max-abs logit difference "
+        f"card vs CPU {err:.3g} (bound {tol:g}; max |logit| "
+        f"{float(host.abs().max()):.3g})")
+    expect(bool(torch.isfinite(card).all()), "non-finite paged logits")
+    expect(err <= tol, f"paged card and CPU logits differ by {err:.3g} > {tol:g}")
 
 
 # ---------------------------------------------------------------------------
@@ -661,8 +1140,22 @@ def run_train_kernels(torch, ops) -> dict:
                         [lambda: flash.tm_attention_bwd_reference(*bwd_args)],
                         None, **few(True))
             bms, by = bound_ms(bwd_bytes, bwd_flops, dtype)
+            lib_note = "; no one-call PyTorch equivalent"
+            if S == 1:
+                # SDPA's backward (one autograd.grad call) on the same
+                # operands, timed per call from the host: it is not
+                # captured in a CUDA graph
+                qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+                og = torch.nn.functional.scaled_dot_product_attention(
+                    qg, kg, vg, is_causal=True)
+                gt = g.reshape(B, T, H, -1).transpose(1, 2)
+                lib_b = call_ms([lambda: torch.autograd.grad(
+                    og, (qg, kg, vg), gt, retain_graph=True)], **few(True))
+                lib_note = (f"; one-call PyTorch (SDPA backward, per call from the "
+                            f"host) {lib_b * 1e3:.2f} us")
+                del qg, kg, vg, og, gt
             log(f"[kernels] flash_tm_bwd {name} bf16: " + fmt_times(t, bms, by)
-                + "; no one-call PyTorch equivalent")
+                + lib_note)
             if name == "diff":
                 entries["flash_tm_bwd"] = dict(
                     name="flash_tm_bwd", route="cuda", source=SRC + "csrc/flash_tm.cu",
@@ -969,10 +1462,12 @@ def main() -> int:
         log(f"[{name}] phase took {phases[name]:.1f} s")
         return out
 
-    entries = phase("kernels", run_kernels, torch, (fnr, ffn, dat))
+    entries = phase("kernels", lambda: {**run_kernels(torch, (fnr, ffn, dat)),
+                                        **run_decode_kernels(torch, dat)})
     entries.update(phase("kernels-train", run_train_kernels, torch,
                          (fnr, ffn, flash)))
     serve_counts = phase("serve", run_serve, torch, card)
+    serve_counts.update(phase("serve-paged", run_serve_paged, torch, card))
     phase("e2e", run_e2e, torch)
     train_counts = phase("train", run_train, torch, card)
     phase("train-e2e", run_train_e2e, torch)

@@ -2,7 +2,9 @@
 
 A copy of the JAX package's ``ModelConfig`` (every field, so a saved
 model config carries over unchanged), of the ``ServingConfig`` fields
-the contiguous-pool serving slice reads, and of ``TrainConfig``
+the serving slices read (the slot pool, the paged KV pool with its
+radix prefix cache, the int8 KV cache and n-gram speculative decoding),
+and of ``TrainConfig``
 (``differential_transformer_replication_tpu/config.py``), whose fields
 of later slices must stay at their defaults. The port keeps its own
 copy: it imports nothing of the JAX package.
@@ -54,8 +56,8 @@ class ModelConfig:
     # decode-attention wrapper dispatches by device, never by this field.
     decode_attention_impl: str = "xla"
     # KV-cache storage dtype: "auto" stores compute_dtype, "bf16" forces
-    # bfloat16. "int8" is accepted here for config round-trips; the
-    # serving slice refuses it (the int8 KV path comes in a later slice).
+    # bfloat16, "int8" stores symmetric per-vector int8 values plus fp32
+    # scale planes (ops/decode_attention.py:quantize_kv).
     kv_cache_dtype: str = "auto"
     sequence_impl: str = "ring"
     remat: bool = False
@@ -114,11 +116,14 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class ServingConfig:
-    """Continuous-batching engine knobs read by the contiguous-pool
-    serving slice (serving/engine.py). Same names, defaults and meaning
-    as the JAX package's ServingConfig; its paged-KV, speculative,
-    structured-decoding, tiering and telemetry fields belong to later
-    slices of the port and are absent here."""
+    """Continuous-batching engine knobs (serving/engine.py). Same names,
+    defaults, meaning and validation as the JAX package's ServingConfig
+    for the fields kept: the slot pool, the paged KV pool and its radix
+    prefix cache, the int8 KV cache and speculative decoding. Its
+    structured-decoding, profiling and telemetry fields are absent; the
+    host tier (``host_tier_bytes > 0``) and the model drafter
+    (``spec_mode="model"``) are refused with the ROADMAP item that
+    brings them."""
 
     # Fixed decode batch = KV slot pool size.
     num_slots: int = 8
@@ -149,12 +154,75 @@ class ServingConfig:
     # (The JAX package's decode_attention_impl override is absent: the
     # port's kernels dispatch by device, so it would select nothing.)
     kv_cache_dtype: str = ""
+    # Paged KV cache (serving/pages.py): tokens per page (must divide
+    # block_size); 0 = the contiguous per-slot rings. Admission then keys
+    # on free pages, not slots.
+    kv_page_size: int = 0
+    # Physical pages in the pool (one trash page is added on top); 0 =
+    # num_slots * block_size / kv_page_size + prefix_cache_pages.
+    kv_pool_pages: int = 0
+    # Radix-tree shared-prefix reuse over retired prompts' pages (paged
+    # pool only): a request sharing a cached prefix skips its prefill.
+    prefix_cache: bool = True
+    # Extra pool pages kept as cached-prefix headroom.
+    prefix_cache_pages: int = 0
+    # Speculative decoding (serving/spec.py): "" = off, "ngram" = the
+    # prompt-lookup drafter; the target verifies up to spec_draft_len
+    # drafted tokens per slot in one k+1-row pool step. "model" (a
+    # drafter checkpoint) is refused until checkpoints are ported.
+    spec_mode: str = ""
+    spec_draft_len: int = 4
+    spec_drafter_ckpt: str = ""
+    # Verify formulation (models/decode.py:forward_decode_spec): "exact"
+    # unrolls k+1 L=1 steps (greedy output bit-identical to no spec);
+    # "batched" runs all rows in one pass through the multi-row kernel.
+    spec_verify: str = "exact"
+    # Host-RAM KV page tier; refused while > 0 (a later slice).
+    host_tier_bytes: int = 0
 
     def __post_init__(self):
         if self.kv_cache_dtype not in ("", "auto", "bf16", "int8"):
             raise ValueError(
                 "kv_cache_dtype must be ''|auto|bf16|int8, got "
                 f"{self.kv_cache_dtype!r}"
+            )
+        for name in ("kv_page_size", "kv_pool_pages", "prefix_cache_pages"):
+            if getattr(self, name) < 0:
+                raise ValueError(
+                    f"{name} must be >= 0, got {getattr(self, name)}"
+                )
+        if self.spec_mode not in ("", "ngram", "model"):
+            raise ValueError(
+                "spec_mode must be ''|'ngram'|'model', got "
+                f"{self.spec_mode!r}"
+            )
+        if self.spec_mode and self.spec_draft_len < 1:
+            raise ValueError(
+                f"spec_draft_len must be >= 1 with spec_mode set, got "
+                f"{self.spec_draft_len}"
+            )
+        if self.spec_verify not in ("exact", "batched"):
+            raise ValueError(
+                "spec_verify must be 'exact'|'batched', got "
+                f"{self.spec_verify!r}"
+            )
+        if self.host_tier_bytes < 0:
+            raise ValueError(
+                f"host_tier_bytes must be >= 0, got {self.host_tier_bytes}"
+            )
+        if self.spec_mode == "model":
+            raise NotImplementedError(
+                "spec_mode='model' is not served by the port yet: its "
+                "drafter loads from a checkpoint (ROADMAP Queue A: "
+                "checkpoints; ModelDrafter in Queue A: serving subsystems "
+                "left); use spec_mode='ngram'"
+            )
+        if self.host_tier_bytes > 0:
+            raise NotImplementedError(
+                f"host_tier_bytes={self.host_tier_bytes}: the port does not "
+                "run the host-RAM page tier yet (ROADMAP Queue A: serving "
+                "subsystems left: host tier, preemption, migration); leave "
+                "it at 0"
             )
         if self.num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {self.num_slots}")
@@ -222,6 +290,29 @@ class ServingConfig:
                 )
             bounds[cls] = bound
         return bounds
+
+    def paged(self) -> bool:
+        """Whether the engine runs the paged KV pool."""
+        return self.kv_page_size > 0
+
+    def spec_enabled(self) -> bool:
+        """Whether the engine runs speculative decoding."""
+        return bool(self.spec_mode)
+
+    def resolved_pool_pages(self, model: ModelConfig) -> int:
+        """Physical pages EXCLUDING the trash page: explicit
+        ``kv_pool_pages`` or the contiguous-equivalent sizing, plus the
+        prefix-cache headroom."""
+        if not self.paged():
+            return 0
+        if model.block_size % self.kv_page_size:
+            raise ValueError(
+                f"kv_page_size ({self.kv_page_size}) must divide "
+                f"block_size ({model.block_size})"
+            )
+        per_slot = model.block_size // self.kv_page_size
+        base = self.kv_pool_pages or self.num_slots * per_slot
+        return base + self.prefix_cache_pages
 
     def resolved_max_seq_len(self, model: ModelConfig) -> int:
         """Hard cap on prompt + generated length for this model family."""

@@ -61,12 +61,14 @@ SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     },
     "decode_attention": {
-        # S, B, H, M, d, dv, dtype -> workspace floats (-1: refused)
-        "decode_attention_workspace": (_I, _I, _I, _I, _I, _I, _I),
-        # q, k, v, pos, coeffs, out, work, S, B, H, M, d, dv, scale,
-        # dtype, stream
-        "decode_attention_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 _I, _I, _F, _I, _P),
+        # S, B, L, H, M, d, dv, dtype -> workspace floats (-1: refused)
+        "decode_attention_workspace": (_I, _I, _I, _I, _I, _I, _I, _I),
+        # q, k, v, k_scale, v_scale, pos, tables, coeffs, out, work, S, B,
+        # L, H, M, d, dv, n_pages, page_size, pages_per_slot, scale,
+        # dtype, kv_int8, paged, stream
+        "decode_attention_run": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                 _I, _I, _P),
     },
 }
 

@@ -1,29 +1,43 @@
-"""Fused single-query decode attention over the serving slot pool, a
-CUDA C++ kernel for Hopper.
+"""Fused multi-stream decode attention over the serving KV pool, a CUDA
+C++ kernel for Hopper, with the int8 KV quantization it reads.
 
-Replaces the TPU kernel ``differential_transformer_replication_tpu/ops/
-decode_attention.py:_dattn_fwd_kernel`` (via ``decode_attention``) on
-its float-KV branch. Each decode step runs one query per slot and S
-streams over the head-major ring cache — K (S, B, H, M, d), V
-(B, H, M, dv) — with row b seeing slot m iff ``m <= pos[b]``; the
-current token's K/V are already written at ``pos % M``. The kernel, its
-bound on the H100 (the K/V read) and its design (one block per (b, h,
-tile of keys), tiles past ``pos`` skipped, per-tile fp32 softmax
-statistics combined by a second small kernel that also applies the
-coefficients, no score map in device memory) are described in
-``csrc/decode_attention.cu``. The wrapper allocates the per-tile
-partial records the two kernels share. The int8 KV branch of the TPU
-kernel belongs to a later slice: passing scales raises.
+Replaces the TPU kernels of ``differential_transformer_replication_tpu/
+ops/decode_attention.py``, float and int8 branches alike:
 
-Dispatch is by device: a CPU tensor runs :func:`decode_attention_reference`,
-a CUDA tensor always launches the kernel (or raises), any other device
-raises. ``decode_attention.launches`` counts the kernel launches. It has
-no backward (nor has the TPU kernel): an input that requires grad, with
-grad mode on, raises on every device.
+- :func:`decode_attention` (``_dattn_fwd_kernel``): one query per slot
+  over the contiguous head-major ring — K (S, B, H, M, d), V
+  (B, H, M, dv) — row b seeing slot m iff ``m <= pos[b]``;
+- :func:`decode_attention_paged` (``_dattn_paged_kernel``): the same
+  through a page table — K (S, P, H, ps, d), V (P, H, ps, dv), tables
+  (B, M / ps), key m of slot b at page ``tables[b, m // ps]``, offset
+  ``m % ps``;
+- :func:`decode_attention_multi` (``_dattn_mq_fwd_kernel``): L query
+  rows per slot (the speculative verify step), row (b, l) seeing
+  ``m <= pos[b, l]``, over a contiguous cache of R >= B rows (rows past
+  B, the verify step's trash row, are never read);
+- :func:`decode_attention_multi_paged` (``_dattn_mq_paged_kernel``):
+  L rows through the page table.
 
-The kernel and the plain version agree in fp32. In bf16 they differ by
+The current tokens' K/V are already written into the cache. With
+``k_scale``/``v_scale`` the cache is int8 (:func:`quantize_kv`) and the
+kernel dequantizes inside its tile loads. All four run one templated
+kernel (``csrc/decode_attention.cu``, where its bound on the H100, the
+K/V read, and its design are described): one block per (b, h, tile of
+keys), tiles past every row's position skipped, keys visited in logical
+order whatever the storage, so a paged call does a contiguous call's
+arithmetic bit for bit. The wrapper allocates the per-tile partial
+records the two kernels share.
+
+Dispatch is by device: a CPU tensor runs the function's plain version
+(``*_reference``), a CUDA tensor always launches the kernel (or
+raises), any other device raises. Each wrapper counts its kernel
+launches in ``.launches`` and those of its int8 instance also in
+``.int8_launches``. None has a backward (nor has the TPU kernel): an
+input that requires grad, with grad mode on, raises on every device.
+
+The kernel and the plain versions agree in fp32. In bf16 they differ by
 rounding: the kernel (like the TPU kernel) casts each stream's
-probabilities to the cache dtype before its PV product and combines the
+probabilities to the query dtype before its PV product and combines the
 S outputs afterwards, while the plain version combines the fp32
 probabilities first and casts the combined map once.
 """
@@ -38,12 +52,67 @@ import torch
 from differential_transformer_replication_tpu_torch.ops import _kernels
 from differential_transformer_replication_tpu_torch.ops.streams import NEG_INF
 
+MAX_ROWS = 8  # query rows per slot the kernel takes (k + 1 of the verify)
 
-def decode_attention_reference(qs, k_cache, v_cache, pos, coeffs) -> torch.Tensor:
-    """Plain version: fp32 scores (the TPU kernel's fp32 accumulation),
-    ring visibility ``m <= pos[b]``, fp32 per-stream softmax, the
-    coefficient combine on the probabilities, then one PV product with
-    the combined map cast to V's dtype. Returns (B, H, dv) in q's dtype."""
+
+# ---------------------------------------------------------------------------
+# int8 KV quantization (per-vector symmetric scales)
+# ---------------------------------------------------------------------------
+
+
+def quantize_kv(x: torch.Tensor):
+    """Symmetric int8 quantization over the LAST axis, bit for bit the
+    JAX package's: one fp32 scale per leading-index vector,
+    ``max(amax, 1e-12) / 127``, values ``round(x / scale)`` (half to
+    even). Returns ``(int8 values, fp32 scales)``."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.clamp_min(amax, 1e-12) / 127.0
+    q = torch.round(xf / scale[..., None]).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv` in ``dtype``: ``float(q) * scale``
+    rounded once (the kernel does the same multiply in its tile loads)."""
+    return (q.to(torch.float32) * scale[..., None].to(torch.float32)).to(dtype)
+
+
+def _float_cache(k, v, k_scale, v_scale, dtype):
+    """The cache as float tensors of ``dtype`` (dequantized on the int8
+    path, as the TPU kernel does: rounded to the query dtype)."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be given together")
+    if k_scale is None:
+        return k, v
+    return dequantize_kv(k, k_scale, dtype), dequantize_kv(v, v_scale, dtype)
+
+
+def gather_pool_view(leaf: torch.Tensor, tables: torch.Tensor,
+                     axis: int) -> torch.Tensor:
+    """Every slot's contiguous ring view of a paged leaf: (…, P, H, ps, …)
+    gathered through the (B, pages_per_slot) table into (…, B, H, M, …)
+    (the JAX ``models/decode.py:_gather_pool_view``)."""
+    B, pp = tables.shape
+    g = torch.index_select(leaf, axis, tables.reshape(-1).to(torch.int64))
+    g = g.unflatten(axis, (B, pp)).movedim(axis + 1, axis + 2)
+    return g.flatten(axis + 2, axis + 3)
+
+
+# ---------------------------------------------------------------------------
+# the plain versions
+# ---------------------------------------------------------------------------
+
+
+def decode_attention_reference(qs, k_cache, v_cache, pos, coeffs,
+                               k_scale=None, v_scale=None) -> torch.Tensor:
+    """Plain version of :func:`decode_attention`: dequantize (int8),
+    fp32 scores (the TPU kernel's fp32 accumulation), ring visibility
+    ``m <= pos[b]``, fp32 per-stream softmax, the coefficient combine on
+    the probabilities, then one PV product with the combined map cast
+    to V's dtype. Returns (B, H, dv) in q's dtype."""
+    k_cache, v_cache = _float_cache(k_cache, v_cache, k_scale, v_scale, qs.dtype)
     S, B, H, M, d = k_cache.shape
     scale = 1.0 / math.sqrt(d)
     scores = torch.einsum(
@@ -61,73 +130,262 @@ def decode_attention_reference(qs, k_cache, v_cache, pos, coeffs) -> torch.Tenso
     return out.to(qs.dtype)
 
 
+def decode_attention_paged_reference(qs, k_pages, v_pages, tables, pos, coeffs,
+                                     k_scale=None, v_scale=None) -> torch.Tensor:
+    """Plain version of :func:`decode_attention_paged`: gather every
+    slot's ring view through the table, then
+    :func:`decode_attention_reference`."""
+    view = [gather_pool_view(t, tables, axis) if t is not None else None
+            for t, axis in ((k_pages, 1), (v_pages, 0), (k_scale, 1),
+                            (v_scale, 0))]
+    return decode_attention_reference(qs, view[0], view[1], pos, coeffs,
+                                      view[2], view[3])
+
+
+def decode_attention_multi_reference(qs, k_cache, v_cache, pos, coeffs,
+                                     k_scale=None, v_scale=None) -> torch.Tensor:
+    """Plain version of :func:`decode_attention_multi`: the first B rows
+    of the cache, then an unroll over the L rows, each running
+    :func:`decode_attention_reference` at its own position (the JAX
+    ``decode_attention_multi_reference``). Returns (B, L, H, dv)."""
+    S, B, L, H, d = qs.shape
+    k_cache, v_cache = k_cache[:, :B], v_cache[:B]
+    if k_scale is not None:
+        k_scale, v_scale = k_scale[:, :B], v_scale[:B]
+    rows = [decode_attention_reference(qs[:, :, l], k_cache, v_cache,
+                                       pos[:, l], coeffs, k_scale, v_scale)
+            for l in range(L)]
+    return torch.stack(rows, dim=1)
+
+
+def decode_attention_multi_paged_reference(qs, k_pages, v_pages, tables, pos,
+                                           coeffs, k_scale=None,
+                                           v_scale=None) -> torch.Tensor:
+    """Plain version of :func:`decode_attention_multi_paged`: the pool
+    view gathered through the table, then
+    :func:`decode_attention_multi_reference`."""
+    view = [gather_pool_view(t, tables, axis) if t is not None else None
+            for t, axis in ((k_pages, 1), (v_pages, 0), (k_scale, 1),
+                            (v_scale, 0))]
+    return decode_attention_multi_reference(qs, view[0], view[1], pos, coeffs,
+                                            view[2], view[3])
+
+
+# ---------------------------------------------------------------------------
+# the kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _refuse_grad(what, *tensors) -> None:
+    if _kernels.needs_grad(*tensors):
+        # the JAX kernel has no backward either; a kernel output would
+        # carry no gradient path and train nothing without a word
+        raise RuntimeError(
+            f"{what} has no backward: call it under torch.no_grad() "
+            "or on tensors that do not require grad"
+        )
+
+
+def _launch(what: str, qs, k, v, k_scale, v_scale, pos, tables, coeffs, *,
+            B: int, L: int, M: int, n_pages: int, page_size: int) -> torch.Tensor:
+    """Check the operands of one kernel call, allocate its output and
+    workspace, and launch it. ``qs`` is (S, B, [L,] H, d); K/V hold
+    ``n_pages`` cache rows of M tokens (``tables`` None) or pages of
+    ``page_size`` tokens."""
+    S, H, d = qs.shape[0], qs.shape[-2], qs.shape[-1]
+    dv = v.shape[-1]
+    dt = qs.dtype
+    if dt not in _kernels.DTYPE_CODES:
+        raise TypeError(f"{what}: unsupported query dtype {dt}")
+    int8 = k_scale is not None
+    if int8 != (v_scale is not None):
+        raise ValueError(f"{what}: k_scale and v_scale must be given together")
+    if int8:
+        if k.dtype != torch.int8 or v.dtype != torch.int8:
+            raise TypeError(f"{what}: scales need an int8 K/V cache")
+        if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+            raise TypeError(f"{what}: K/V scales must be float32")
+    elif k.dtype != dt or v.dtype != dt:
+        raise TypeError(f"{what}: q, K and V must share one dtype "
+                        "(or K/V int8 with scales)")
+    if pos.dtype != torch.int32 or coeffs.dtype != torch.float32:
+        raise TypeError(f"{what}: pos must be int32, coeffs float32")
+    ops = [("q", qs), ("K", k), ("V", v), ("pos", pos), ("coeffs", coeffs)]
+    if int8:
+        ops += [("k_scale", k_scale), ("v_scale", v_scale)]
+    if tables is not None:
+        if tables.dtype != torch.int32:
+            raise TypeError(f"{what}: page tables must be int32")
+        ops.append(("tables", tables))
+    for name, t in ops:
+        if t.device != qs.device or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous on {qs.device}")
+    if S > 8 or d > 256 or dv > 512 or L > MAX_ROWS:
+        raise ValueError(
+            f"{what}: kernel takes S <= 8, d <= 256, dv <= 512, L <= "
+            f"{MAX_ROWS}; got S={S}, d={d}, dv={dv}, L={L}"
+        )
+    code = _kernels.DTYPE_CODES[dt]
+    lib = _kernels.load("decode_attention")
+    n_work = lib.decode_attention_workspace(S, B, L, H, M, d, dv, code)
+    if n_work < 0:
+        raise ValueError(f"{what}: shapes refused by the kernel")
+    out_shape = (B, H, dv) if qs.dim() == 4 else (B, L, H, dv)
+    out = torch.empty(out_shape, dtype=dt, device=qs.device)
+    work = torch.empty((n_work,), dtype=torch.float32, device=qs.device)
+    rc = lib.decode_attention_run(
+        qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+        k_scale.data_ptr() if int8 else None,
+        v_scale.data_ptr() if int8 else None, pos.data_ptr(),
+        tables.data_ptr() if tables is not None else None, coeffs.data_ptr(),
+        out.data_ptr(), work.data_ptr(), S, B, L, H, M, d, dv, n_pages,
+        page_size, M // page_size, 1.0 / math.sqrt(d), code, int(int8),
+        int(tables is not None), _kernels.stream_handle(qs.device),
+    )
+    _kernels.check(rc, what)
+    return out
+
+
+def _count(fn, k_scale) -> None:
+    fn.launches += 1
+    if k_scale is not None:
+        fn.int8_launches += 1
+
+
+def _shapes_agree(what, ok: bool, **shapes) -> None:
+    if not ok:
+        raise ValueError(f"{what}: shapes disagree: " + ", ".join(
+            f"{k} {tuple(v.shape) if v is not None else None}"
+            for k, v in shapes.items()))
+
+
+def _scales_agree(k, v, k_scale, v_scale) -> bool:
+    return k_scale is None or (k_scale.shape == k.shape[:-1]
+                               and v_scale is not None
+                               and v_scale.shape == v.shape[:-1])
+
+
 def decode_attention(qs: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: torch.Tensor,
                      coeffs: torch.Tensor, *,
                      k_scale: Optional[torch.Tensor] = None,
                      v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Fused single-query multi-stream attention over the slot pool.
-    ``qs`` (S, B, H, d) post-RoPE queries, ``k_cache`` (S, B, H, M, d),
-    ``v_cache`` (B, H, M, dv), ``pos`` (B,) int32 absolute positions,
-    ``coeffs`` (S, H) fp32. Returns (B, H, dv) in the query dtype."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "decode_attention: the int8 KV branch is not ported yet"
-        )
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (qs, k_cache, v_cache, coeffs)):
-        # the JAX kernel has no backward either; a kernel output would
-        # carry no gradient path and train nothing without a word
-        raise RuntimeError(
-            "decode_attention has no backward: call it under torch.no_grad() "
-            "or on tensors that do not require grad"
-        )
+    """Fused single-query multi-stream attention over the contiguous
+    slot pool. ``qs`` (S, B, H, d) post-RoPE queries, ``k_cache``
+    (S, B, H, M, d), ``v_cache`` (B, H, M, dv), float or int8 with
+    ``k_scale`` (S, B, H, M) / ``v_scale`` (B, H, M) fp32, ``pos`` (B,)
+    int32 absolute positions, ``coeffs`` (S, H) fp32. Returns (B, H, dv)
+    in the query dtype."""
+    what = "decode_attention"
+    _refuse_grad(what, qs, k_cache, v_cache, coeffs)
     if qs.device.type == "cpu":
-        return decode_attention_reference(qs, k_cache, v_cache, pos, coeffs)
-    _kernels.require_cuda(qs, "decode_attention")
+        return decode_attention_reference(qs, k_cache, v_cache, pos, coeffs,
+                                          k_scale, v_scale)
+    _kernels.require_cuda(qs, what)
     S, B, H, M, d = k_cache.shape
-    dv = v_cache.shape[-1]
-    dt = qs.dtype
-    if dt not in _kernels.DTYPE_CODES:
-        raise TypeError(f"decode_attention: unsupported dtype {dt}")
-    if qs.shape != (S, B, H, d) or v_cache.shape != (B, H, M, dv) \
-            or pos.shape != (B,) or coeffs.shape != (S, H):
-        raise ValueError(
-            "decode_attention: shapes disagree: q "
-            f"{tuple(qs.shape)}, K {tuple(k_cache.shape)}, V "
-            f"{tuple(v_cache.shape)}, pos {tuple(pos.shape)}, coeffs "
-            f"{tuple(coeffs.shape)}"
-        )
-    if k_cache.dtype != dt or v_cache.dtype != dt:
-        raise TypeError("decode_attention: q, K and V must share one dtype")
-    if pos.dtype != torch.int32 or coeffs.dtype != torch.float32:
-        raise TypeError("decode_attention: pos must be int32, coeffs float32")
-    for name, t in (("q", qs), ("K", k_cache), ("V", v_cache), ("pos", pos),
-                    ("coeffs", coeffs)):
-        if t.device != qs.device or not t.is_contiguous():
-            raise ValueError(
-                f"decode_attention: {name} must be contiguous on {qs.device}"
-            )
-    if S > 8 or d > 256 or dv > 512:
-        raise ValueError(
-            f"decode_attention: kernel takes S <= 8, d <= 256, dv <= 512; "
-            f"got S={S}, d={d}, dv={dv}"
-        )
-    code = _kernels.DTYPE_CODES[dt]
-    lib = _kernels.load("decode_attention")
-    n_work = lib.decode_attention_workspace(S, B, H, M, d, dv, code)
-    if n_work < 0:
-        raise ValueError("decode_attention: shapes refused by the kernel")
-    out = torch.empty((B, H, dv), dtype=dt, device=qs.device)
-    work = torch.empty((n_work,), dtype=torch.float32, device=qs.device)
-    rc = lib.decode_attention_fwd(
-        qs.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-        coeffs.data_ptr(), out.data_ptr(), work.data_ptr(), S, B, H, M, d, dv,
-        1.0 / math.sqrt(d), code, _kernels.stream_handle(qs.device),
-    )
-    _kernels.check(rc, "decode_attention")
-    decode_attention.launches += 1
+    _shapes_agree(what, qs.shape == (S, B, H, d)
+                  and v_cache.shape[:3] == (B, H, M) and pos.shape == (B,)
+                  and coeffs.shape == (S, H)
+                  and _scales_agree(k_cache, v_cache, k_scale, v_scale),
+                  q=qs, K=k_cache, V=v_cache, pos=pos, coeffs=coeffs,
+                  k_scale=k_scale, v_scale=v_scale)
+    out = _launch(what, qs, k_cache, v_cache, k_scale, v_scale, pos, None,
+                  coeffs, B=B, L=1, M=M, n_pages=B, page_size=M)
+    _count(decode_attention, k_scale)
     return out
 
 
-decode_attention.launches = 0
+def decode_attention_paged(qs: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, page_tables: torch.Tensor,
+                           pos: torch.Tensor, coeffs: torch.Tensor, *,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`decode_attention` through a page table: ``k_pages``
+    (S, P, H, ps, d), ``v_pages`` (P, H, ps, dv) (int8 scales
+    (S, P, H, ps) / (P, H, ps)), ``page_tables`` (B, M / ps) int32
+    physical page of each logical page of each slot."""
+    what = "decode_attention_paged"
+    _refuse_grad(what, qs, k_pages, v_pages, coeffs)
+    if qs.device.type == "cpu":
+        return decode_attention_paged_reference(qs, k_pages, v_pages, page_tables,
+                                                pos, coeffs, k_scale, v_scale)
+    _kernels.require_cuda(qs, what)
+    S, P, H, ps, d = k_pages.shape
+    B, pp = page_tables.shape
+    _shapes_agree(what, qs.shape == (S, B, H, d)
+                  and v_pages.shape[:3] == (P, H, ps) and pos.shape == (B,)
+                  and coeffs.shape == (S, H)
+                  and _scales_agree(k_pages, v_pages, k_scale, v_scale),
+                  q=qs, K=k_pages, V=v_pages, tables=page_tables, pos=pos,
+                  coeffs=coeffs)
+    out = _launch(what, qs, k_pages, v_pages, k_scale, v_scale, pos,
+                  page_tables, coeffs, B=B, L=1, M=pp * ps, n_pages=P,
+                  page_size=ps)
+    _count(decode_attention_paged, k_scale)
+    return out
+
+
+def decode_attention_multi(qs: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, pos: torch.Tensor,
+                           coeffs: torch.Tensor, *,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """L query rows per slot (the verify step): ``qs`` (S, B, L, H, d),
+    ``k_cache`` (S, R, H, M, d) and ``v_cache`` (R, H, M, dv) with
+    R >= B (rows past B are never read), ``pos`` (B, L) int32, row (b, l)
+    seeing ``m <= pos[b, l]``. Returns (B, L, H, dv)."""
+    what = "decode_attention_multi"
+    _refuse_grad(what, qs, k_cache, v_cache, coeffs)
+    if qs.device.type == "cpu":
+        return decode_attention_multi_reference(qs, k_cache, v_cache, pos, coeffs,
+                                                k_scale, v_scale)
+    _kernels.require_cuda(qs, what)
+    S, B, L, H, d = qs.shape
+    R, M = k_cache.shape[1], k_cache.shape[3]
+    _shapes_agree(what, k_cache.shape == (S, R, H, M, d) and R >= B
+                  and v_cache.shape[:3] == (R, H, M) and pos.shape == (B, L)
+                  and coeffs.shape == (S, H)
+                  and _scales_agree(k_cache, v_cache, k_scale, v_scale),
+                  q=qs, K=k_cache, V=v_cache, pos=pos, coeffs=coeffs)
+    out = _launch(what, qs, k_cache, v_cache, k_scale, v_scale, pos, None,
+                  coeffs, B=B, L=L, M=M, n_pages=R, page_size=M)
+    _count(decode_attention_multi, k_scale)
+    return out
+
+
+def decode_attention_multi_paged(qs: torch.Tensor, k_pages: torch.Tensor,
+                                 v_pages: torch.Tensor, page_tables: torch.Tensor,
+                                 pos: torch.Tensor, coeffs: torch.Tensor, *,
+                                 k_scale: Optional[torch.Tensor] = None,
+                                 v_scale: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """:func:`decode_attention_multi` through a page table (the paged
+    verify step). Returns (B, L, H, dv)."""
+    what = "decode_attention_multi_paged"
+    _refuse_grad(what, qs, k_pages, v_pages, coeffs)
+    if qs.device.type == "cpu":
+        return decode_attention_multi_paged_reference(
+            qs, k_pages, v_pages, page_tables, pos, coeffs, k_scale, v_scale)
+    _kernels.require_cuda(qs, what)
+    S, B, L, H, d = qs.shape
+    P, ps = k_pages.shape[1], k_pages.shape[3]
+    pp = page_tables.shape[1]
+    _shapes_agree(what, k_pages.shape == (S, P, H, ps, d)
+                  and page_tables.shape == (B, pp)
+                  and v_pages.shape[:3] == (P, H, ps) and pos.shape == (B, L)
+                  and coeffs.shape == (S, H)
+                  and _scales_agree(k_pages, v_pages, k_scale, v_scale),
+                  q=qs, K=k_pages, V=v_pages, tables=page_tables, pos=pos,
+                  coeffs=coeffs)
+    out = _launch(what, qs, k_pages, v_pages, k_scale, v_scale, pos,
+                  page_tables, coeffs, B=B, L=L, M=pp * ps, n_pages=P,
+                  page_size=ps)
+    _count(decode_attention_multi_paged, k_scale)
+    return out
+
+
+for _fn in (decode_attention, decode_attention_paged, decode_attention_multi,
+            decode_attention_multi_paged):
+    _fn.launches = 0
+    _fn.int8_launches = 0
+del _fn

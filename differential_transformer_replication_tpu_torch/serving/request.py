@@ -8,10 +8,12 @@ request carries its own ``seed``: the port draws the t-th generated
 token from a ``torch.Generator`` seeded by a pure function of
 ``(seed, t)``, so sampled output is a function of (params, prompt,
 sampling params) only, independent of slot assignment, batch
-composition and admission order. Fields that belong to later slices of
-the port (structured decoding, penalties, logprobs, speculative draft
-lengths, replay offsets) are kept so that requests validate exactly as
-in the JAX package; the port's engine refuses a request that sets one.
+composition and admission order. ``draft_len`` caps the request's
+speculative draft length, and ``RequestOutput.spec_proposed`` /
+``spec_accepted`` count its drafts. Fields that belong to later slices
+of the port (structured decoding, penalties, logprobs, replay offsets)
+are kept so that requests validate exactly as in the JAX package; the
+port's engine refuses a request that sets one.
 """
 
 from __future__ import annotations

@@ -16,11 +16,14 @@ Counterpart of the JAX package's serving/server.py for this slice:
 - :func:`serve` / ``python -m differential_transformer_replication_tpu_torch.serving.server``
   — a stdlib ``http.server`` JSON endpoint: ``POST /generate`` with
   ``{"prompt_ids": [...]}`` (same request and reply keys as the JAX
-  server) and ``GET /health`` for engine state and stats.
+  server) and ``GET /health`` for engine state and stats, with
+  ``kv_pages`` (the paged pool and its prefix cache) and ``spec``
+  (speculative decoding) when those are on. A request the page pool
+  cannot take answers HTTP 503 ``page_pool_exhausted``.
 
 A request that carries a field of a later slice of the port (structured
-decoding, penalties, logprobs, speculative or replay fields, text
-prompts) is refused with HTTP 400 ``bad_request`` naming the field.
+decoding, penalties, logprobs, replay fields, text prompts) is refused
+with HTTP 400 ``bad_request`` naming the field.
 """
 
 from __future__ import annotations
@@ -38,6 +41,9 @@ from differential_transformer_replication_tpu_torch.serving.engine import (
     EngineCrashError,
     ServingEngine,
 )
+from differential_transformer_replication_tpu_torch.serving.pages import (
+    PagePoolExhaustedError,
+)
 from differential_transformer_replication_tpu_torch.serving.request import (
     RequestOutput,
     SamplingParams,
@@ -51,12 +57,12 @@ from differential_transformer_replication_tpu_torch.serving.scheduler import (
 GENERATE_KEYS = (
     "prompt_ids", "max_new_tokens", "temperature", "top_k", "seed",
     "eos_token_id", "stop", "priority", "deadline_s", "timeout",
-    "traceparent",
+    "traceparent", "draft_len",
 )
 LATER_SLICE_KEYS = (
     "prompt", "json_schema", "regex", "choices", "repetition_penalty",
-    "presence_penalty", "frequency_penalty", "logprobs", "draft_len",
-    "spec", "key_offset", "journal_id",
+    "presence_penalty", "frequency_penalty", "logprobs", "spec",
+    "key_offset", "journal_id",
 )
 
 
@@ -244,6 +250,13 @@ class EngineRunner:
                     f"deadline after {len(out.tokens)} generated tokens",
                     output=out,
                 ))
+            elif out.finish_reason == "page_exhausted":
+                err = PagePoolExhaustedError(
+                    f"request {out.request_id} shed at admission: KV page "
+                    "pool exhausted; retry later")
+                err.output = out
+                err.retry_after = out.retry_after
+                self._settle(pending, error=err)
             else:
                 self._settle(pending, result=out)
 
@@ -463,6 +476,10 @@ def _make_handler(client: ServingClient):
                     "last_step_s": client.runner.last_step_s,
                     "stats": client.stats,
                     "device": str(client.runner.engine.device),
+                    **{key: val for key, val in (
+                        ("kv_pages", client.runner.engine.page_stats()),
+                        ("spec", client.runner.engine.spec_stats()))
+                       if val is not None},
                 })
             else:
                 self._reply(404, {"error": f"unknown path {self.path}"})
@@ -485,6 +502,7 @@ def _make_handler(client: ServingClient):
             top_k = req.get("top_k")
             eos = req.get("eos_token_id")
             stop = req.get("stop")
+            draft_len = req.get("draft_len")
             params = SamplingParams(
                 max_new_tokens=int(req.get("max_new_tokens", 16)),
                 temperature=float(req.get("temperature", 1.0)),
@@ -494,6 +512,7 @@ def _make_handler(client: ServingClient):
                 stop=(None if stop is None
                       else tuple(tuple(int(t) for t in seq) for seq in stop)),
                 priority=str(req.get("priority", "normal")),
+                draft_len=None if draft_len is None else int(draft_len),
             )
             deadline_s = req.get("deadline_s")
             return client.generate(
@@ -525,6 +544,18 @@ def _make_handler(client: ServingClient):
                 self._reply(503, {"error": str(e), "code": "shutting_down",
                                   "trace_id": trace_id},
                             headers=self._retry_after())
+                return
+            except PagePoolExhaustedError as e:
+                # retriable: the pool drains as requests retire; a
+                # request that can never fit carries retriable=False
+                # and no Retry-After
+                headers = None
+                if getattr(e, "retriable", True):
+                    ra = getattr(e, "retry_after", None)
+                    headers = ({"Retry-After": str(max(1, int(ra + 0.999)))}
+                               if ra is not None else self._retry_after())
+                self._reply(503, {"error": str(e), "code": "page_pool_exhausted",
+                                  "trace_id": trace_id}, headers=headers)
                 return
             except EngineCrashError as e:
                 if getattr(e, "retriable", True):
@@ -607,6 +638,34 @@ def main() -> None:
     p.add_argument("--restart-backoff", type=float, default=0.5)
     p.add_argument("--restart-backoff-max", type=float, default=30.0)
     p.add_argument("--step-time-budget", type=float, default=0.0)
+    p.add_argument("--kv-cache-dtype", default="",
+                   choices=("", "auto", "bf16", "int8"),
+                   help="KV-cache storage dtype; int8 stores per-vector "
+                        "scaled int8 K/V (about half the bf16 bytes); '' "
+                        "keeps the model config")
+    p.add_argument("--kv-page-size", type=int, default=0,
+                   help="paged KV cache: tokens per page (must divide "
+                        "block_size); admission then keys on free pages. "
+                        "0 = contiguous per-slot rings")
+    p.add_argument("--kv-pool-pages", type=int, default=0,
+                   help="physical pages in the paged pool; 0 = num_slots "
+                        "* block_size / page_size")
+    p.add_argument("--no-prefix-cache", action="store_true",
+                   help="disable the radix-tree shared-prefix cache (on "
+                        "by default with --kv-page-size)")
+    p.add_argument("--prefix-cache-pages", type=int, default=0,
+                   help="extra pool pages kept as cached-prefix headroom")
+    p.add_argument("--spec-mode", default="", choices=("", "ngram", "model"),
+                   help="speculative decoding: 'ngram' = prompt lookup over "
+                        "each request's own tokens; 'model' is refused "
+                        "until checkpoints are ported")
+    p.add_argument("--spec-draft-len", type=int, default=4,
+                   help="draft tokens verified per slot per iteration")
+    p.add_argument("--spec-verify", default="exact",
+                   choices=("exact", "batched"),
+                   help="'exact' (k+1 unrolled L=1 steps: greedy output "
+                        "bit-identical to no spec) or 'batched' (one pass "
+                        "through the multi-row decode-attention kernel)")
     args = p.parse_args()
 
     if args.recipe:
@@ -628,6 +687,11 @@ def main() -> None:
         restart_backoff_s=args.restart_backoff,
         restart_backoff_max_s=args.restart_backoff_max,
         step_time_budget_s=args.step_time_budget,
+        kv_cache_dtype=args.kv_cache_dtype, kv_page_size=args.kv_page_size,
+        kv_pool_pages=args.kv_pool_pages,
+        prefix_cache=not args.no_prefix_cache,
+        prefix_cache_pages=args.prefix_cache_pages, spec_mode=args.spec_mode,
+        spec_draft_len=args.spec_draft_len, spec_verify=args.spec_verify,
     )
     engine = ServingEngine(params, model_cfg, serving, device=args.device)
     client = ServingClient(engine)
@@ -651,8 +715,10 @@ def main() -> None:
 
     signal.signal(signal.SIGTERM, _graceful)
     print(f"[serve] {model_cfg.model} model on {engine.device}, "
-          f"{serving.num_slots} slots — POST http://{args.host}:{args.port}"
-          "/generate")
+          f"{serving.num_slots} slots, {engine.cfg.kv_cache_dtype} KV, "
+          f"{'paged' if serving.paged() else 'contiguous'} pool, spec "
+          f"{serving.spec_mode or 'off'} — POST "
+          f"http://{args.host}:{args.port}/generate")
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

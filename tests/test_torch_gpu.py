@@ -10,7 +10,10 @@ fp32 bounds: 1e-5 (norm, attention), 5e-5 (SwiGLU: fp32 accumulation
 order over E products). bf16 bounds: one bf16 rounding step at the
 largest output (2^-7 * max|ref|), and for decode attention also 2^-8 of
 sum|c| * max|V| (the kernel rounds each stream's probabilities before
-its PV product, the plain version rounds the combined map once).
+its PV product, the plain version rounds the combined map once; with
+int8 K/V, |V| is bounded by 127 times the largest V scale). The paged
+and multi-row decode-attention instances must equal the contiguous
+single-row instance bit for bit on the same contents.
 
 The training kernels (token-major attention forward/backward, add+norm
 backward, SwiGLU backward) share their plain versions' rounding points,
@@ -127,6 +130,119 @@ def test_decode_attention_kernel_matches_plain(gen, dtype, S, d, dv):
                + _ulp(ref))
     assert _err(got, ref) <= tol
     assert dat.decode_attention.launches - n0 == 1
+
+
+def _paged_copy(t: torch.Tensor, tab: torch.Tensor, ps: int, axis: int,
+                n_pages: int, gen) -> torch.Tensor:
+    """A paged pool holding the slots of the contiguous leaf ``t`` (batch
+    axis ``axis``) behind ``tab``; every other page, the trash page 0
+    included, holds garbage that a correct kernel never reads."""
+    B, pp = tab.shape
+    shape = list(t.shape)
+    shape[axis], shape[axis + 2] = n_pages, ps  # (.., B, H, M, ..) -> (.., P, H, ps, ..)
+    out = torch.randn(*shape, generator=gen, device=t.device).to(t.dtype) \
+        if t.dtype != torch.int8 else torch.randint(
+            -127, 128, shape, generator=gen, device=t.device).to(torch.int8)
+    for b in range(B):
+        for j in range(pp):
+            dst = out.select(axis, int(tab[b, j]))
+            src = t.select(axis, b).narrow(axis + 1, j * ps, ps)
+            dst.copy_(src)
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("ps", [8, 16, 64, 128])
+# (4, 40, 80): d not a multiple of 16, the int8 scalar staging path
+@pytest.mark.parametrize("S,d,dv", [(2, 96, 192), (4, 40, 80)])
+def test_paged_and_multi_kernels_match_plain(gen, dtype, int8, ps, S, d, dv):
+    """Rows 5 (float and int8), 6, 7 and 8 on the card: each kernel
+    instance against its plain version for L = 1..5 rows; the paged
+    instances equal the contiguous ones bit for bit on the same contents
+    (same tile order), and row l of the multi-row instance equals the
+    single-row instance at pos[:, l]."""
+    B, H, M = 6, 4, 512
+    R = B + 1
+    kc = torch.randn(S, R, H, M, d, generator=gen, device="cuda").to(dtype)
+    vc = torch.randn(R, H, M, dv, generator=gen, device="cuda").to(dtype)
+    scales = {}
+    if int8:
+        (kc, ks), (vc, vs) = dat.quantize_kv(kc), dat.quantize_kv(vc)
+        scales = {"k_scale": ks, "v_scale": vs}
+    pp = M // ps
+    P = 1 + B * pp + 5
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(ps))
+    tab = (1 + perm[:B * pp]).reshape(B, pp).to(torch.int32).cuda()
+    kp = _paged_copy(kc[:, :B], tab, ps, 1, P, gen)
+    vp = _paged_copy(vc[:B], tab, ps, 0, P, gen)
+    pscales = {}
+    if int8:
+        pscales = {"k_scale": _paged_copy(ks[:, :B].unsqueeze(-1), tab, ps, 1, P,
+                                          gen).squeeze(-1).abs(),
+                   "v_scale": _paged_copy(vs[:B].unsqueeze(-1), tab, ps, 0, P,
+                                          gen).squeeze(-1).abs()}
+    c = torch.randn(S, H, generator=gen, device="cuda") * 0.5
+    c[0] = 1.0
+    vmax = float(vc.float().abs().max()) if not int8 else float(vs.max()) * 127
+    for L in range(1, 6):
+        base = torch.tensor([0, 7, 15 + ps, 300, 511 - L, 128 - L],
+                            dtype=torch.int32, device="cuda")
+        pos = (base[:, None] + torch.arange(L, device="cuda", dtype=torch.int32)).contiguous()
+        q = torch.randn(S, B, L, H, d, generator=gen, device="cuda").to(dtype)
+        counts = [f.launches for f in (dat.decode_attention, dat.decode_attention_paged,
+                                       dat.decode_attention_multi,
+                                       dat.decode_attention_multi_paged)]
+        multi = dat.decode_attention_multi(q, kc, vc, pos, c, **scales)
+        multi_p = dat.decode_attention_multi_paged(q, kp, vp, tab, pos, c, **pscales)
+        ref = dat.decode_attention_multi_reference(q, kc, vc, pos, c, **scales)
+        tol = 1e-5 if dtype == torch.float32 else (
+            2.0 ** -8 * float(c.abs().sum(0).max()) * vmax + _ulp(ref))
+        assert _err(multi, ref) <= tol and torch.equal(multi, multi_p), L
+        for l in range(L):
+            ql, pl = q[:, :, l].contiguous(), pos[:, l].contiguous()
+            one = dat.decode_attention(
+                ql, kc[:, :B].contiguous(), vc[:B].contiguous(), pl, c,
+                **{k: (v[:, :B] if k == "k_scale" else v[:B]).contiguous()
+                   for k, v in scales.items()})
+            one_p = dat.decode_attention_paged(ql, kp, vp, tab, pl, c, **pscales)
+            ref1 = dat.decode_attention_paged_reference(ql, kp, vp, tab, pl, c, **pscales)
+            assert _err(one_p, ref1) <= tol, (L, l)
+            assert torch.equal(one, one_p) and torch.equal(one, multi[:, l]), (L, l)
+        after = [f.launches for f in (dat.decode_attention, dat.decode_attention_paged,
+                                      dat.decode_attention_multi,
+                                      dat.decode_attention_multi_paged)]
+        assert [a - b for a, b in zip(after, counts)] == [L, L, 1, 1]
+
+
+@pytest.mark.parametrize("verify", ["exact", "batched"])
+@pytest.mark.parametrize("kind", ["control", "diff", "ndiff"])
+def test_paged_int8_spec_engine_on_the_card_matches_the_cpu(gen, kind, verify):
+    """fp32 greedy serving with the paged pool, the prefix cache, the
+    int8 cache and n-gram speculation (exact: unrolled paged L=1 steps;
+    batched: the multi-row kernel): the card (kernels) gives the CPU's
+    tokens, and the paged kernels of that verify ran."""
+    cfg = ModelConfig(model=kind, vocab_size=97, n_embd=64, n_head=2,
+                      n_layer=2, block_size=64, n_terms=3,
+                      compute_dtype="float32")
+    cpu_gen = torch.Generator()
+    cpu_gen.manual_seed(3)
+    params = init_model(cpu_gen, cfg)
+    shared = [(11 * j) % 97 for j in range(20)]
+    prompts = [shared + [1, 2], [5, 6, 7, 8] * 4, shared + [3], [9, 4, 9, 4, 9]]
+    serving = ServingConfig(num_slots=2, prefill_chunk=8, prefill_budget=16,
+                            kv_page_size=16, kv_cache_dtype="int8",
+                            spec_mode="ngram", spec_verify=verify)
+    wrappers = (dat.decode_attention_paged,) + (
+        (dat.decode_attention_multi_paged,) if verify == "batched" else ())
+    before = [w.int8_launches for w in wrappers]
+    eng = ServingEngine(params, cfg, serving)
+    on_card = eng.generate(prompts, max_new_tokens=12, temperature=0.0)
+    assert all(w.int8_launches > n for w, n in zip(wrappers, before))
+    assert eng.page_stats()["hits_total"] >= 1
+    on_cpu = ServingEngine(params, cfg, serving, device="cpu").generate(
+        prompts, max_new_tokens=12, temperature=0.0)
+    assert [o.tokens for o in on_card] == [o.tokens for o in on_cpu]
 
 
 @pytest.mark.parametrize("kind", ["control", "diff", "ndiff"])

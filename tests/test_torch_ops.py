@@ -27,6 +27,7 @@ from differential_transformer_replication_tpu.ops import streams as jstreams
 from differential_transformer_replication_tpu.ops.swiglu import swiglu as j_swiglu
 from differential_transformer_replication_tpu.ops.decode_attention import (
     decode_attention as j_decode_attention,
+    quantize_kv as j_quantize_kv,
 )
 from differential_transformer_replication_tpu.ops.fused_ffn import (
     fused_swiglu as j_fused_swiglu,
@@ -42,6 +43,7 @@ from differential_transformer_replication_tpu_torch.ops import streams as tstrea
 from differential_transformer_replication_tpu_torch.ops.swiglu import swiglu as t_swiglu
 from differential_transformer_replication_tpu_torch.ops.decode_attention import (
     decode_attention as t_decode_attention,
+    quantize_kv as t_quantize_kv,
 )
 from differential_transformer_replication_tpu_torch.ops.fused_ffn import (
     fused_swiglu as t_fused_swiglu,
@@ -256,11 +258,39 @@ def test_decode_attention_cpu_path_matches_pallas(S, jdt, tdt):
     assert t_decode_attention.launches == 0
 
 
-def test_decode_attention_refuses_int8_scales():
-    q = torch.zeros(1, 1, 1, 4)
-    k = torch.zeros(1, 1, 1, 8, 4)
-    v = torch.zeros(1, 1, 8, 4)
-    with pytest.raises(NotImplementedError):
-        t_decode_attention(q, k, v, torch.zeros(1, dtype=torch.int32),
-                           torch.ones(1, 1), k_scale=torch.ones(1, 1, 1, 8),
-                           v_scale=torch.ones(1, 1, 8))
+@pytest.mark.parametrize("jdt,tdt", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("S", [1, 2, 3])
+def test_decode_attention_int8_cpu_path_matches_pallas(S, jdt, tdt):
+    """The int8 branch: K/V quantized by each side's quantize_kv (the
+    int8 values and fp32 scales must be identical), then the port's
+    plain version against the Pallas kernel's fused dequantization."""
+    rng = _rng(20 + S)
+    B, H, M, d, dv = 5, 2, 32, 8, 16
+    q = _randn(rng, S, B, H, d)
+    k = _randn(rng, S, B, H, M, d)
+    v = _randn(rng, B, H, M, dv)
+    k[0, 0, 0, 3] = 0.0  # an all-zero vector takes the floor scale
+    pos = np.array([0, 7, 31, 32, 75], np.int32)
+    coeffs = _randn(rng, S, H, scale=0.5)
+    coeffs[0] = 1.0
+    jk, jks = j_quantize_kv(_j(k, jdt))
+    jv, jvs = j_quantize_kv(_j(v, jdt))
+    tk, tks = t_quantize_kv(_t(k, tdt))
+    tv, tvs = t_quantize_kv(_t(v, tdt))
+    for a, b in ((jk, tk), (jks, tks), (jv, tv), (jvs, tvs)):
+        assert np.array_equal(np.asarray(a), b.numpy())
+    ref = j_decode_attention(_j(q, jdt), jk, jv, jnp.asarray(pos), _j(coeffs),
+                             k_scale=jks, v_scale=jvs)
+    got = t_decode_attention(_t(q, tdt), tk, tv, torch.from_numpy(pos),
+                             _t(coeffs), k_scale=tks, v_scale=tvs)
+    assert got.dtype == tdt and tuple(got.shape) == (B, H, dv)
+    if tdt == torch.float32:
+        tol = FP32_TOL
+    else:
+        # as the float bf16 case, over the dequantized V (|V| <= its
+        # per-vector amax, which the scales carry)
+        vmax = float(np.abs(np.asarray(tvs)).max()) * 127.0
+        tol = (2.0 ** -8 * float(np.abs(coeffs).sum(0).max()) * vmax
+               + _bf16_ulp(ref))
+    assert _err(ref, got) <= tol
+    assert t_decode_attention.launches == 0
