@@ -12,8 +12,9 @@ these phases, each printing its own lines and its seconds:
    at first use);
 2. kernels: each hand-written kernel against its plain PyTorch version
    on the card at the recipe's shapes, fp32 and bf16, with max-abs
-   error against a stated bound, and median times beside the plain
-   version, the bound (least time the card could take) and, where one
+   error against a stated bound (the attention kernels row by row, each
+   row against its own scale: ``testing.py``), and median times beside
+   the plain version, the bound (least time the card could take) and, where one
    exists, a one-call PyTorch equivalent: the serving kernels (add+norm,
    SwiGLU, decode attention) and the training kernels (token-major
    attention forward and backward for the diff, control and ndiff
@@ -23,7 +24,14 @@ these phases, each printing its own lines and its seconds:
    speculative verify (rows 5-int8, 6, 7, 8) at the recipes' decode
    shapes (8 slots, M 512, pages of 16, 5 verify rows) in fp32, bf16
    and int8, with the paged-vs-contiguous difference on the same
-   contents;
+   contents; kernels-hm: the head-major attention kernels K1-K4
+   (forward; dq; dk/dv; fused backward) with attention dropout 0.1 at
+   the train-hm shapes (diff T 2048, diff and control T 512, ndiff T
+   512, diff T 8192) in bf16 and at one shape per route in fp32, and at
+   S = 5 streams (two passes) in both, each row held to its own scale
+   (``testing.py``) and faults planted at T 2048 shown to fail that
+   bound, with SDPA's forward and backward beside them at the control
+   shape;
 3. serve: a diff model at recipe width (random weights from a seed)
    behind the port's HTTP ``serve()``, 12 concurrent ``/generate``
    requests, launch counters read around that run; serve-paged: the
@@ -45,9 +53,16 @@ these phases, each printing its own lines and its seconds:
    (``train.trainer.train``) on a seeded synthetic ``tokens.npy``,
    then a few steps on one repeated batch whose loss must fall; launch
    counters read around each run;
+   train-hm: training through the head-major kernels with attention,
+   residual and FFN dropout 0.1 through the trainer: diff at T 2048
+   (micro-batch 8, routes resident + split), diff and control at T 512
+   (micro-batch 32, fused), diff at T 8192 (micro-batch 2, tiled), all
+   8 layers at recipe width; exact launch counts per route and step, a
+   falling loss on a repeated batch; then ``train/step_profile.py`` of
+   the T 2048 and T 8192 dropout steps;
 6. train e2e: one train step of a 2-layer diff model at recipe width in
    fp32, loss and every gradient on the card (kernels) against the CPU
-   (plain versions).
+   (plain versions); again at T 640 through the head-major route.
 
 It then prints the kernels' JSON summary, the card line, and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -64,6 +79,7 @@ import sys
 import threading
 import time
 import urllib.request
+from pathlib import Path
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_BYTES_S = 3.35e12
@@ -1027,15 +1043,6 @@ TM_CONFIGS = (("diff", 2, 4, 96, 192, True), ("control", 1, 8, 96, 96, False),
               ("ndiff", 4, 4, 96, 192, False))
 
 
-def bf16_tol(ref, terms: int) -> float:
-    """bf16 bound of a training kernel against its plain version: both
-    round p, ds and the stream-combined p (or dg/dt) at the same points
-    from fp32 values summed in another order, so a rounding can flip;
-    one bf16 step of the result plus 2^-8 of max|ref| * sqrt(terms)."""
-    top = float(ref.float().abs().max())
-    return 2.0 ** -7 * top + 2.0 ** -8 * top * terms ** 0.5
-
-
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -1059,6 +1066,7 @@ def tm_operands(torch, gen, dtype, B, T, S, H, d, dv, packed):
 def run_train_kernels(torch, ops) -> dict:
     """Phase 2 for the training kernels D, E, F, G. Returns {name: json
     entry sans launches}."""
+    from differential_transformer_replication_tpu_torch import testing
     fnr, ffn, flash = ops
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
@@ -1086,27 +1094,26 @@ def run_train_kernels(torch, ops) -> dict:
             f_err = max(max_err(out, r_out), max_err(o_all, r_oall))
             l_err = max_err(lse, r_lse)
             b_errs = [max_err(a, b) for a, b in zip([*grads, dv_], [*rq, *rk, rv])]
-            if dtype == torch.float32:
-                f_tol, l_tol = 1e-5, 1e-5
-                b_tols = [1e-4 * float(r.float().abs().max()) for r in [*rq, *rk, rv]]
-            else:
-                # p rounded before PV on both sides; a flip moves a row
-                # by 2^-8 of sum|c| * max|V|, plus one bf16 step
-                f_tol = (2.0 ** -8 * float(c.abs().sum(0).max())
-                         * float(v.float().abs().max()) + bf16_ulp_bound(r_out.float()))
-                l_tol = 1e-5 * float(r_lse.abs().max())
-                b_tols = [bf16_tol(r, T) for r in [*rq, *rk, rv]]
-            expect(f_err <= f_tol and l_err <= l_tol,
-                   f"flash_tm_fwd {name} {dtype}: max-abs {f_err:.3g} (bound "
-                   f"{f_tol:.3g}), lse {l_err:.3g} (bound {l_tol:.3g})")
-            for e, tl in zip(b_errs, b_tols):
-                expect(e <= tl, f"flash_tm_bwd {name} {dtype}: max-abs {e:.3g} "
-                       f"> bound {tl:.3g}")
+            # row by row (testing.py), one row per (token, head)
+            def heads(t):
+                return t.reshape(B, T, H, -1).transpose(1, 2).reshape(B * H, T, -1)
+            f_ratio = max(testing.attention_fwd_ratios(
+                heads(out), o_all.reshape(B * H, S, T, dv), heads(r_out),
+                r_oall.reshape(B * H, S, T, dv), c.t().repeat(B, 1)))
+            b_ratio = max(testing.grad_ratio(heads(a), heads(b))
+                          for a, b in zip([*grads, dv_], [*rq, *rk, rv]))
+            l_tol = 1e-5 * (1.0 if dtype == torch.float32 else float(r_lse.abs().max()))
+            expect(f_ratio <= 1.0 and l_err <= l_tol,
+                   f"flash_tm_fwd {name} {dtype}: worst row at {f_ratio:.3g} of its "
+                   f"bound (max-abs {f_err:.3g}), lse {l_err:.3g} (bound {l_tol:.3g})")
+            expect(b_ratio <= 1.0, f"flash_tm_bwd {name} {dtype}: worst row at "
+                   f"{b_ratio:.3g} of its bound (max-abs {max(b_errs):.3g})")
             b_err = max(b_errs)
             log(f"[kernels] flash_tm {name} {str(dtype)[6:]} B={B} T={T} S={S} "
                 f"H={H} d={d} dv={dv} {'packed' if packed else 'per-array'}: "
-                f"fwd max-abs {f_err:.3g} (bound {f_tol:.3g}), lse {l_err:.3g}; "
-                f"bwd max-abs {b_err:.3g} (bound {min(b_tols):.3g}..{max(b_tols):.3g})")
+                f"fwd max-abs {f_err:.3g} (worst row at {f_ratio:.3g} of its bound), "
+                f"lse {l_err:.3g}; bwd max-abs {b_err:.3g} (worst row at "
+                f"{b_ratio:.3g} of its bound)")
             if dtype != torch.bfloat16:
                 continue
             # times, bf16: forward with residuals and the backward
@@ -1240,6 +1247,223 @@ def run_train_kernels(torch, ops) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2, continued: the head-major attention kernels K1-K4 against their
+# plain versions, at the train-hm phase's shapes
+# ---------------------------------------------------------------------------
+
+HM_RATE = 0.1      # the attention dropout of the train-hm runs
+HM_WORDS = (0x51F00D, 0x2A7E11)
+# (label, S, B, T, H, d, dv, kernels, JSON entry names or None): diff at
+# T = 2048 (routes resident + split), diff and control at T = 512 (fused),
+# ndiff at T = 512 (split: S * T^2 past the fused budget), diff at T =
+# 8192 (tiled)
+HM_CONFIGS = (
+    ("diff T=2048", 2, 8, 2048, 4, 96, 192, ("fwd", "dq", "dkv"),
+     {"fwd": "flash_bh_fwd", "dq": "flash_bh_bwd_dq", "dkv": "flash_bh_bwd_dkv"}),
+    ("diff T=512", 2, 32, 512, 4, 96, 192, ("fwd", "fused"),
+     {"fused": "flash_bh_bwd_fused"}),
+    ("control T=512", 1, 32, 512, 8, 96, 96, ("fwd", "fused"), {}),
+    ("ndiff T=512", 4, 32, 512, 4, 96, 192, ("fwd", "dq", "dkv"), {}),
+    ("diff T=8192", 2, 2, 8192, 4, 96, 192, ("fwd", "dq", "dkv"),
+     {"fwd": "flash_bh_fwd_tiled", "dq": "flash_bh_bwd_dq_tiled",
+      "dkv": "flash_bh_bwd_dkv_tiled"}),
+)
+HM_REPLACES = {  # the TPU kernel bodies (ops/flash.py) each entry stands for
+    "flash_bh_fwd": 339, "flash_bh_fwd_tiled": 572, "flash_bh_bwd_dq": 1011,
+    "flash_bh_bwd_dkv": 1108, "flash_bh_bwd_dq_tiled": 721,
+    "flash_bh_bwd_dkv_tiled": 795, "flash_bh_bwd_fused": 1238,
+}
+# the wrapper and route each entry's launches are counted under
+HM_COUNTS = {
+    "flash_bh_fwd": ("flash_bh_fwd", "resident"),
+    "flash_bh_fwd_tiled": ("flash_bh_fwd", "tiled"),
+    "flash_bh_bwd_dq": ("flash_bh_bwd_dq", "split"),
+    "flash_bh_bwd_dkv": ("flash_bh_bwd_dkv", "split"),
+    "flash_bh_bwd_dq_tiled": ("flash_bh_bwd_dq", "tiled"),
+    "flash_bh_bwd_dkv_tiled": ("flash_bh_bwd_dkv", "tiled"),
+    "flash_bh_bwd_fused": ("flash_bh_bwd_fused", "fused"),
+}
+
+
+def hm_operands(torch, gen, dtype, S, B, T, H, d, dv):
+    BH = B * H
+    q, k = (torch.randn(BH, S, T, d, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    v, g = (torch.randn(BH, T, dv, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    c = 0.5 * torch.randn(S, H, generator=gen, device="cuda")
+    c[0] = 1.0
+    return q, k, v, g, c
+
+
+def hm_check(torch, flash, dtype, S, T, q, k, v, g, c, H, rate, kernels,
+             plant=False):
+    """Each listed kernel against its plain version, row by row (each
+    query row of out/o_all/dq, each key row of dk/dv against its own
+    scale: ``testing.py``). Returns (max-abs error per kernel, worst
+    row's share of its bound per kernel, (the plain lse, delta)). With
+    ``plant``, faults planted in the results (dq and dk zero past T/2,
+    the keep mask left out of the plain forward and backward) must fail
+    the same bounds."""
+    from differential_transformer_replication_tpu_torch import testing
+    words = HM_WORDS if rate > 0 else (0, 0)
+    out, o_all, lse = flash.flash_bh_fwd(q, k, v, c, H, rate, words, True)
+    r_out, r_oall, r_lse = flash.bh_attention_fwd_reference(q, k, v, c, rate, words)
+    c_bh = flash._coeffs_bh(c, q.shape[0])
+    base = torch.einsum("btd,bstd->bst", g.float(), r_oall.float())
+    delta = (base * c_bh[:, :, None]).contiguous()
+    bwd = (q, k, v, g, r_lse, delta, c, H, rate, words)
+    rq, rk, rv = flash.bh_attention_bwd_reference(q, k, v, g, r_lse, delta, c,
+                                                  rate, words)
+    got = {}
+    if "dq" in kernels:
+        got["dq"] = [(flash.flash_bh_bwd_dq(*bwd), rq)]
+    if "dkv" in kernels:
+        got["dkv"] = list(zip(flash.flash_bh_bwd_dkv(*bwd), (rk, rv)))
+    if "fused" in kernels:
+        got["fused"] = list(zip(flash.flash_bh_bwd_fused(*bwd), (rq, rk, rv)))
+    torch.cuda.synchronize()
+    errs = {"fwd": max(max_err(out, r_out), max_err(o_all, r_oall))}
+    ratios = {"fwd": max(testing.attention_fwd_ratios(out, o_all, r_out, r_oall, c_bh))}
+    l_err = max_err(lse, r_lse)
+    expect(ratios["fwd"] <= 1.0 and l_err <= 1e-5 * float(r_lse.abs().max()),
+           f"flash_bh_fwd {dtype} S={S} T={T}: worst row at {ratios['fwd']:.3g} of "
+           f"its bound (max-abs {errs['fwd']:.3g}), lse {l_err:.3g}")
+    for name, pairs in got.items():
+        for a, b in pairs:
+            r = testing.grad_ratio(a, b)
+            expect(r <= 1.0, f"flash_bh {name} {dtype} S={S} T={T}: worst row at "
+                   f"{r:.3g} of its bound (max-abs {max_err(a, b):.3g})")
+            errs[name] = max(errs.get(name, 0.0), max_err(a, b))
+            ratios[name] = max(ratios.get(name, 0.0), r)
+    if plant:
+        zq, zk = rq.clone(), rk.clone()
+        zq[:, :, T // 2:] = 0
+        zk[:, :, T // 2:] = 0
+        nq, nk, nv = flash.bh_attention_bwd_reference(q, k, v, g, r_lse, delta, c,
+                                                      0.0, words)
+        n_out, n_oall, _ = flash.bh_attention_fwd_reference(q, k, v, c, 0.0, words)
+        planted = {
+            "dq zero past T/2": testing.grad_ratio(zq, rq),
+            "dk zero past T/2": testing.grad_ratio(zk, rk),
+            "backward without the mask (dq)": testing.grad_ratio(nq, rq),
+            "backward without the mask (dk)": testing.grad_ratio(nk, rk),
+            "backward without the mask (dv)": testing.grad_ratio(nv, rv),
+            "forward without the mask": min(testing.attention_fwd_ratios(
+                n_out, n_oall, r_out, r_oall, c_bh)),
+        }
+        log(f"[kernels-hm] planted faults {dtype} S={S} T={T}, worst row's share of "
+            "its bound (each must exceed 1): "
+            + ", ".join(f"{n} {r:.3g}" for n, r in planted.items()))
+        expect(min(planted.values()) > 1.0, "a planted fault passed the row bounds")
+        del zq, zk, nq, nk, nv, n_out, n_oall
+    return errs, ratios, (r_lse, delta)
+
+
+def run_bh_kernels(torch, flash) -> dict:
+    """Phase 2 for the head-major kernels K1-K4. Returns {name: json entry
+    sans launches}."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    entries = {}
+    # fp32 (SIMT path): every kernel at one shape per route, small batch;
+    # and S = 5 (two passes over the streams: 4 + 1) in both dtypes
+    for dtype, S, T, H, dv in ((torch.float32, 2, 2048, 2, 192),
+                               (torch.float32, 1, 512, 2, 96),
+                               (torch.float32, 2, 8192, 1, 192),
+                               (torch.float32, 5, 520, 2, 192),
+                               (torch.bfloat16, 5, 520, 2, 192)):
+        q, k, v, g, c = hm_operands(torch, gen, dtype, S, 1, T, H, 96, dv)
+        errs, ratios, _ = hm_check(torch, flash, dtype, S, T, q, k, v, g, c,
+                                   H, HM_RATE, ("dq", "dkv") if T > 2048
+                                   else ("dq", "dkv", "fused"))
+        log(f"[kernels-hm] flash_bh {dtype} S={S} B=1 T={T} H={H} d=96 dv={dv} "
+            f"rate {HM_RATE}: " + ", ".join(
+                f"{n} max-abs {e:.3g} (worst row at {ratios[n]:.3g} of its bound)"
+                for n, e in errs.items()))
+        del q, k, v, g, c
+    for label, S, B, T, H, d, dv, kernels, names in HM_CONFIGS:
+        dtype = torch.bfloat16
+        es = 2
+        q, k, v, g, c = hm_operands(torch, gen, dtype, S, B, T, H, d, dv)
+        BH = B * H
+        errs, ratios, (lse, delta) = hm_check(torch, flash, dtype, S, T, q, k, v,
+                                              g, c, H, HM_RATE, kernels,
+                                              plant=T == 2048)
+        log(f"[kernels-hm] flash_bh bf16 {label} S={S} B={B} H={H} d={d} dv={dv} "
+            f"rate {HM_RATE} (routes {flash.fwd_route(T)}, {flash.bwd_route(S, T)}): "
+            + ", ".join(f"{n} max-abs {e:.3g} (worst row at {ratios[n]:.3g} of its "
+                        "bound)" for n, e in errs.items()))
+        n_pairs = T * (T + 1) // 2  # causal (q, k) pairs per (b, h)
+        long = T >= 2048
+        kw = dict(iters=2, reps=3) if T > 4096 else few(long)
+        words = HM_WORDS
+        qkv_bytes = BH * T * (2 * S * d + dv) * es
+        res_bytes = BH * S * T * (dv * es + 4)  # o_all + lse
+        work = {
+            "fwd": (lambda: flash.flash_bh_fwd(q, k, v, c, H, HM_RATE, words, True),
+                    lambda: flash.bh_attention_fwd_reference(q, k, v, c, HM_RATE, words),
+                    qkv_bytes + BH * T * dv * es + res_bytes,
+                    BH * n_pairs * S * (2 * d + 2 * dv)),
+            "dq": (lambda: flash.flash_bh_bwd_dq(q, k, v, g, lse, delta, c, H,
+                                                 HM_RATE, words),
+                   None, qkv_bytes + BH * T * dv * es + 2 * BH * S * T * 4
+                   + BH * S * T * d * es,
+                   BH * n_pairs * (2 * dv + S * 4 * d)),
+            "dkv": (lambda: flash.flash_bh_bwd_dkv(q, k, v, g, lse, delta, c, H,
+                                                   HM_RATE, words),
+                    None, qkv_bytes + BH * T * dv * es + 2 * BH * S * T * 4
+                    + BH * T * (S * d + dv) * es,
+                    BH * n_pairs * (4 * dv + S * 4 * d)),
+            "fused": (lambda: flash.flash_bh_bwd_fused(q, k, v, g, lse, delta, c, H,
+                                                       HM_RATE, words),
+                      lambda: flash.bh_attention_bwd_reference(
+                          q, k, v, g, lse, delta, c, HM_RATE, words),
+                      qkv_bytes + BH * T * dv * es + 2 * BH * S * T * 4 + qkv_bytes,
+                      BH * n_pairs * (4 * dv + S * 6 * d)),
+        }
+        plain_bwd = lambda: flash.bh_attention_bwd_reference(  # noqa: E731
+            q, k, v, g, lse, delta, c, HM_RATE, words)
+        for kern in kernels:
+            k_call, p_call, nbytes, flops = work[kern]
+            t = timings([k_call], [p_call or plain_bwd], None, **kw)
+            bms, by = bound_ms(nbytes, flops, dtype)
+            note = ("" if p_call else "; plain is the whole plain backward")
+            log(f"[kernels-hm] flash_bh {kern} bf16 {label}: " + fmt_times(t, bms, by)
+                + note + "; no one-call PyTorch equivalent (dropout, multi-stream)")
+            name = names.get(kern)
+            if name:
+                entries[name] = dict(
+                    name=name, route="cuda", source=SRC + "csrc/flash_bh.cu",
+                    replaces=TPU + f"flash.py:{HM_REPLACES[name]}",
+                    max_abs_err=errs[kern], ms=t["ms"], plain_ms=t["plain_ms"],
+                    bound_ms=bms, bound_by=by, library_ms=None)
+        if S == 1:
+            # the one-call yardstick at dropout 0: SDPA (causal) on the
+            # same (B, H, T, d) operands, forward and backward
+            qt, kt = (x.reshape(B, H, T, d) for x in (q, k))
+            vt, gt = (x.reshape(B, H, T, dv) for x in (v, g))
+            lib_f = device_ms([lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)], **few(True))
+            k_f = device_ms([lambda: flash.flash_bh_fwd(q, k, v, c, H, 0.0, (0, 0),
+                                                        True)], **few(True))
+            qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+            og = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg,
+                                                                  is_causal=True)
+            lib_b = call_ms([lambda: torch.autograd.grad(og, (qg, kg, vg), gt,
+                                                         retain_graph=True)], **few(True))
+            k_b = call_ms([lambda: flash.flash_bh_bwd_fused(q, k, v, g, lse, delta, c,
+                                                            H, 0.0, (0, 0))], **few(True))
+            log(f"[kernels-hm] {label} at dropout 0: SDPA forward {lib_f * 1e3:.2f} us "
+                f"(K1 {k_f * 1e3:.2f} us, device); SDPA backward {lib_b * 1e3:.2f} us "
+                f"(K4 {k_b * 1e3:.2f} us; both per call from the host)")
+            del qg, kg, vg, og
+        del q, k, v, g, c, lse, delta, work
+        torch.cuda.empty_cache()
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # phase 5: train the diff and control recipes through the trainer
 # ---------------------------------------------------------------------------
 
@@ -1365,6 +1589,126 @@ def run_train(torch, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5b (train-hm): training through the head-major kernels: attention
+# dropout and long context
+# ---------------------------------------------------------------------------
+
+# (label, model, T, micro-batch, steps, n_layer): diff at T = 2048 (routes
+# resident + split), diff and control at T = 512 (resident + fused), diff at
+# T = 8192 (tiled). Every run has 16,384 tokens per step, as the recipe.
+HM_RUNS = (("diff T=2048", "diff", 2048, 8, 6, 8),
+           ("diff T=512", "diff", 512, 32, 6, 8),
+           ("control T=512", "control", 512, 32, 6, 8),
+           ("diff T=8192", "diff", 8192, 2, 3, 8))
+HM_EVAL_ITERS = 2
+
+
+def run_train_hm(torch, card: str, tokens) -> dict:
+    """Phase train-hm. Returns the launch count of each head-major JSON
+    entry (wrapper and route) over the four runs."""
+    from differential_transformer_replication_tpu_torch.config import (
+        ModelConfig,
+        TrainConfig,
+    )
+    from differential_transformer_replication_tpu_torch.ops import flash
+    from differential_transformer_replication_tpu_torch.ops.dropout import fold_seed
+    from differential_transformer_replication_tpu_torch.train import step_profile
+    from differential_transformer_replication_tpu_torch.train.step import (
+        make_eval_step,
+        make_train_step,
+    )
+    from differential_transformer_replication_tpu_torch.train.trainer import train
+
+    totals = {name: 0 for name in HM_COUNTS}
+    for label, model, T, B, steps, n_layer in HM_RUNS:
+        cfg = TrainConfig(
+            model=ModelConfig(**dict(RECIPE, model=model, n_layer=n_layer,
+                                     block_size=T, dropout=HM_RATE),
+                              compute_dtype="bfloat16", param_dtype="float32"),
+            vocab_size=RECIPE["vocab_size"], micro_batch_size=B, max_iters=steps,
+            eval_interval=steps, eval_iters=HM_EVAL_ITERS, log_interval=1,
+            learning_rate=1e-3, warmup_iters=2, sampler="replacement", seed=0)
+        mcfg = cfg.resolved_model()
+        L, S = mcfg.n_layer, {"control": 1, "diff": 2}[model]
+        flash.reset_bh_counters()
+        flash.flash_tm_fwd.launches = flash.flash_tm_bwd.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, history = train(cfg, str(tokens), device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [m["loss"] for m in history]
+        expect(len(history) == steps and all(math.isfinite(x) for x in losses),
+               f"{label}: non-finite or missing losses {losses}")
+        expect(all(m["bad"] == 0 for m in history), f"{label}: a step was skipped")
+        # per train step: one forward (with dropout: head-major) and one
+        # backward per layer; eval runs 2 * eval_iters forwards without
+        # dropout, head-major past T = 512 and token-major at T = 512
+        fr, br = flash.fwd_route(T), flash.bwd_route(S, T)
+        n_eval = 2 * HM_EVAL_ITERS
+        want = {("flash_bh_fwd", fr): L * (steps + (n_eval if T > 512 else 0))}
+        if br == "fused":
+            want[("flash_bh_bwd_fused", "fused")] = L * steps
+        else:
+            want[("flash_bh_bwd_dq", br)] = L * steps
+            want[("flash_bh_bwd_dkv", br)] = L * steps
+        got = {(fn.__name__, r): n for fn in flash.BH_WRAPPERS
+               for r, n in fn.routes.items()}
+        expect(got == want, f"{label}: head-major launches by route {got}, "
+               f"expected {want}")
+        tm_want = (L * n_eval if T <= 512 else 0, 0)
+        tm_got = (flash.flash_tm_fwd.launches, flash.flash_tm_bwd.launches)
+        expect(tm_got == tm_want, f"{label}: token-major launches {tm_got}, "
+               f"expected {tm_want} (eval only)")
+        for name, (fn, route) in HM_COUNTS.items():
+            totals[name] += got.get((fn, route), 0)
+        step_ms = statistics.median(m["step_time_ms"] for m in history[1:])
+        log(f"[train-hm] {label}: {model}, {L} layers, width {mcfg.n_embd}, "
+            f"{mcfg.n_head} heads, T {T}, micro-batch {B}, attention/residual/FFN "
+            f"dropout {HM_RATE}, bf16; {steps} trainer steps in {wall:.1f} s (eval "
+            f"included); losses {[round(x, 4) for x in losses]}; median step "
+            f"{step_ms:.1f} ms = {B * T / step_ms * 1e3:.0f} tok/s (steps 2..); peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"launches by route {got} (per step: fwd {fr}, bwd {br}); {card}")
+        # a few steps on ONE repeated batch, each with its own dropout seed:
+        # the dropout-free eval loss on it must fall
+        step = make_train_step(cfg.replace(max_iters=1000))
+        eval_step = make_eval_step(cfg)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(1)
+        idx = torch.randint(0, mcfg.vocab_size, (1, B, T + 1), generator=g,
+                            device="cuda")
+        batch = {"x": idx[..., :-1], "y": idx[..., 1:]}
+        before = float(eval_step(state["params"], batch["x"][0], batch["y"][0]))
+        rep = []
+        for i in range(REPEAT_STEPS):
+            state, m = step(state, batch, fold_seed(99, i))
+            rep.append(m["loss"])
+        after = float(eval_step(state["params"], batch["x"][0], batch["y"][0]))
+        log(f"[train-hm] {label}: one repeated batch, loss {before:.4f} -> "
+            f"{[round(x, 4) for x in rep]} -> {after:.4f}")
+        expect(math.isfinite(after) and after < before,
+               f"{label}: the loss on a repeated batch did not fall "
+               f"({before} -> {rep} -> {after})")
+        del state, history, step
+        torch.cuda.empty_cache()
+    # where a long-context dropout step's time goes (train/step_profile.py)
+    for T, B in ((2048, 8), (8192, 2)):
+        prof = step_profile.profile("diff", T, B, HM_RATE)
+        top = ", ".join(f"{k['name'][:48]} {k['ms_per_step']:.2f}"
+                        for k in prof["top_kernels"][:8])
+        log(f"[train-hm] step_profile diff T={T} B={B} dropout {HM_RATE}: wall "
+            f"{prof['wall_ms_per_step']:.1f} ms ({prof['tokens_per_s']:.0f} tok/s), "
+            f"busy {prof['device_busy_ms_per_step']:.1f} ms, idle "
+            f"{100 * prof['device_idle_share']:.1f}%, peak "
+            f"{prof['peak_device_memory_gib']:.2f} GiB, "
+            f"{prof['device_kernels_per_step']:.0f} kernels/step, routes "
+            f"{prof['head_major_routes_per_step']}; top device ms/step: {top}")
+        torch.cuda.empty_cache()
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # phase 6: one train step, the card's kernels against the CPU's plain versions
 # ---------------------------------------------------------------------------
 
@@ -1405,6 +1749,35 @@ def run_train_e2e(torch) -> None:
         f"relative to its leaf's max {rel:.3g} over {len(gc)} leaves (bound 1e-3)")
     expect(abs(lc - lh) <= 1e-4, f"loss card {lc} vs CPU {lh}")
     expect(rel <= 1e-3, f"gradients differ: {rel:.3g} > 1e-3")
+
+    # the head-major route: T = 640 is past the token-major envelope
+    from differential_transformer_replication_tpu_torch.ops import flash
+
+    cfg = ModelConfig(**dict(RECIPE, n_layer=2, block_size=640),
+                      compute_dtype="float32")
+    gen.manual_seed(5)
+    params = init_model(gen, cfg)
+    idx = torch.randint(0, cfg.vocab_size, (1, 641), generator=gen)
+    flash.reset_bh_counters()
+    res = {}
+    for dev in ("cuda", "cpu"):
+        p = [t.to(dev).requires_grad_(True) for t in leaves(params)]
+        _, loss = model_forward(unflatten(params, p), idx[:, :-1].to(dev), cfg,
+                                targets=idx[:, 1:].to(dev))
+        res[dev] = (float(loss.detach()),
+                    [g.cpu() for g in torch.autograd.grad(loss, p)])
+    expect(flash.flash_bh_fwd.routes["resident"] == 2
+           and flash.flash_bh_bwd_dq.routes["split"] == 2,
+           "the T = 640 step did not run the head-major kernels")
+    (lc, gc), (lh, gh) = res["cuda"], res["cpu"]
+    rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+              for a, b in zip(gc, gh))
+    log(f"[train-e2e] diff recipe width, 2 layers, fp32, T 640 (head-major, "
+        f"dropout 0), micro-batch 1: loss card {lc:.6f} vs CPU {lh:.6f} (bound "
+        f"1e-4); worst gradient max-abs relative to its leaf's max {rel:.3g} "
+        f"(bound 1e-3)")
+    expect(abs(lc - lh) <= 1e-4, f"T=640: loss card {lc} vs CPU {lh}")
+    expect(rel <= 1e-3, f"T=640: gradients differ: {rel:.3g} > 1e-3")
 
 
 # ---------------------------------------------------------------------------
@@ -1466,20 +1839,28 @@ def main() -> int:
                                         **run_decode_kernels(torch, dat)})
     entries.update(phase("kernels-train", run_train_kernels, torch,
                          (fnr, ffn, flash)))
+    entries.update(phase("kernels-hm", run_bh_kernels, torch, flash))
     serve_counts = phase("serve", run_serve, torch, card)
     serve_counts.update(phase("serve-paged", run_serve_paged, torch, card))
     phase("e2e", run_e2e, torch)
     train_counts = phase("train", run_train, torch, card)
+    hm_counts = phase("train-hm", run_train_hm, torch, card,
+                      Path(__file__).resolve().parent / "build" / "chip_smoke"
+                      / "tokens.npy")
     phase("train-e2e", run_train_e2e, torch)
     log(f"[done] phases {', '.join(f'{k} {v:.1f} s' for k, v in phases.items())}; "
         f"total {time.perf_counter() - t_all:.1f} s")
 
     for name, ent in entries.items():
         # serving kernels: launches over the served run; training
-        # kernels: over the diff recipe's trainer run
-        ent["launches"] = (train_counts[name] if name in
-                           ("flash_tm_fwd", "flash_tm_bwd", "add_norm_bwd",
-                            "swiglu_bwd") else serve_counts.get(name, 0))
+        # kernels: over the diff recipe's trainer run;
+        # head-major kernels: over the train-hm runs, by route
+        if name in hm_counts:
+            ent["launches"] = hm_counts[name]
+        elif name in ("flash_tm_fwd", "flash_tm_bwd", "add_norm_bwd", "swiglu_bwd"):
+            ent["launches"] = train_counts[name]
+        else:
+            ent["launches"] = serve_counts.get(name, 0)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: ent[k] for k in order}

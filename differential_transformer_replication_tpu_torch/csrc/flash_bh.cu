@@ -1,0 +1,873 @@
+// Head-major multi-stream causal flash attention for Hopper (sm_90a), with
+// in-kernel attention-probability dropout:
+//
+//   out = sum_s c[s, h] * dropout(softmax(Q_s K_s^T / sqrt(d) + causal)) V
+//
+// Four kernels replace the seven TPU kernel bodies of
+// differential_transformer_replication_tpu/ops/flash.py on the head-major
+// route:
+//   K1 bh_fwd_kernel       _fwd_kernel (_fwd_call, resident, T <= 4096)
+//                          and _tiled_fwd_kernel (_tiled_fwd_call, T > 4096)
+//   K2 bh_dq_kernel        _bwd_dq_kernel (_bwd_call) and _tiled_dq_kernel
+//                          (_tiled_bwd_call)
+//   K3 bh_dkv_kernel       _bwd_dkv_kernel (_bwd_call) and _tiled_dkv_kernel
+//                          (_tiled_bwd_call)
+//   K4 bh_bwd_fused_kernel _bwd_fused_kernel (_fused_bwd_call)
+// On the TPU the resident/tiled and fused/split splits follow what fits in
+// VMEM. Here every kernel streams 32-key tiles through shared memory, so it
+// is valid at any T; the route (resident, tiled, fused, split) only picks
+// which kernels run (ops/flash.py:fwd_route, bwd_route). Any number of
+// streams S: a block holds sc <= MAX_SC streams' tiles and accumulators
+// at once (the launcher picks the largest sc that fits) and walks the
+// streams in passes of sc; S <= sc, every shape of the recipes, is one pass.
+//
+// Layouts (the JAX package's): q, k (BH, S, T, d); v (BH, T, dv); g (BH, T,
+// dv); o_all (BH, S, T, dv) in the storage type; lse, delta (BH, S, T)
+// fp32; coeffs (S, H) fp32 with h = bh % H. All contiguous.
+//
+// What bounds it on the H100: at the slice's shapes (T = 512..8192, d = 96,
+// dv = 192) a head's work is ~T^2 (d + dv) multiply-adds over ~T (d + dv)
+// elements, far above the ~295 FLOP/byte ridge: the bound is the tensor
+// cores. This first version runs every product of a tile pair (QK^T, PV,
+// gV^T, dS K, dS^T Q, P^T g) as bf16 WMMA 16x16x16 fragments with fp32
+// accumulation out of shared memory (fp32 operands take a SIMT FMA loop
+// instead, exact like the plain version); wgmma, TMA and overlapped loads
+// are later work. Tiles are 32 x 32 (BK = the warp size, so a row's 32
+// keys sit one per lane for its max and sum), four warps a block.
+//
+// Numerics follow the TPU kernels: the forward is online softmax over key
+// tiles; the normalizer l sums the UNDROPPED p; p (dropped and scaled by
+// 1/(1-rate)) is rounded to the storage type before PV; o_s = acc /
+// max(l, 1e-30); the streams combine in fp32 and round once; lse = m +
+// log(max(l, 1e-30)). The backward recomputes p = exp(s*scale - lse),
+// takes dP_s = c_s (g V^T) (the factored form: one product per tile pair
+// shared by the streams), masks and scales it with the same keep mask, and
+// rounds ds = p (dP - delta) to the storage type before the dq/dk
+// products; dv = (sum_s c_s P~_s, rounded)^T g. Causal tiles entirely in
+// the future are skipped. The dropout keep mask is the JAX package's
+// counter hash of (seed words, b*H + h, stream, row, column) in uint32
+// arithmetic (flash.py:dropout_keep_ids), so all kernels and the plain
+// version regenerate the same bits.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <mma.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+namespace wm = nvcuda::wmma;
+using bf16 = __nv_bfloat16;
+
+constexpr int BQ = 32;  // query rows per tile
+constexpr int BK = 32;  // keys per tile: one per lane in the row passes
+constexpr int NWARPS = 4;
+constexpr int THREADS = NWARPS * 32;
+constexpr int RPW = BQ / NWARPS;  // rows a warp owns in the row passes
+constexpr int MAX_SC = 4;  // streams a block holds in shared memory at once
+constexpr int MAX_D = 128;
+constexpr int MAX_DV = 256;
+constexpr int SMEM_LIMIT = 232448;  // 227 KB, the most a block may take
+constexpr int SC_LD = BK + 4;       // fp32 [BQ][BK] tiles
+
+__host__ __device__ constexpr int round16(int w) { return (w + 15) & ~15; }
+
+// leading dimension of a shared-memory tile of width w: a multiple of 8
+// elements for bf16 WMMA operands (+8 breaks bank alignment of rows), of 4
+// floats for fp32 tiles and WMMA accumulators
+template <typename T> __host__ __device__ int ld_in(int w);
+template <> __host__ __device__ int ld_in<bf16>(int w) { return round16(w) + 8; }
+template <> __host__ __device__ int ld_in<float>(int w) { return round16(w) + 4; }
+__host__ __device__ inline int ld_acc(int w) { return round16(w) + 4; }
+
+// carves 128-byte-aligned buffers out of dynamic shared memory; with a
+// null base it only counts bytes (the host's size computation)
+struct Carve {
+  unsigned char* base;
+  size_t off = 0;
+  template <typename U> __host__ __device__ U* take(size_t n) {
+    off = (off + 127) & ~size_t(127);
+    U* p = base ? reinterpret_cast<U*>(base + off) : nullptr;
+    off += n * sizeof(U);
+    return p;
+  }
+};
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
+
+// ---------------------------------------------------------------------------
+// dropout: the JAX package's counter hash (ops/flash.py:_fmix32,
+// dropout_keep_ids), uint32 arithmetic wrapping mod 2^32
+// ---------------------------------------------------------------------------
+
+struct Drop {
+  uint32_t w0, w1m, threshold;  // w1m = w1 * 0x9E3779B1
+  float inv_keep;               // float32(1 / (1 - rate))
+  int on;
+};
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+__device__ __forceinline__ uint32_t stream_key(const Drop& dr, int bh, int s) {
+  return fmix32(dr.w0 ^ ((uint32_t)bh * 0x9E3779B1u) ^ ((uint32_t)s * 0x27D4EB2Fu));
+}
+
+__device__ __forceinline__ bool keep_bit(const Drop& dr, uint32_t key, int row, int col) {
+  const uint32_t x = ((uint32_t)row * 0x85EBCA77u) ^ ((uint32_t)col * 0xC2B2AE3Du);
+  return fmix32(fmix32(x + key) ^ dr.w1m) >= dr.threshold;
+}
+
+// ---------------------------------------------------------------------------
+// staging and tile products
+// ---------------------------------------------------------------------------
+
+// rows [t0, t0 + rows) of a (T_len, w) row-major slab into dst[rows][ld],
+// zero past T_len and in the padding columns [w, round16(w)). Where w
+// holds whole 16-byte vectors (every width of the slice), each thread
+// issues STAGE_UNROLL 16-byte loads before it stores any, so a tile's
+// loads are in flight together; else one element at a time.
+constexpr int STAGE_UNROLL = 4;
+
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, int ld, const T* __restrict__ src,
+                                      int T_len, int t0, int rows, int w) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int wp = round16(w);
+  if (w % VEC == 0) {
+    const int wv = wp / VEC, n = rows * wv;
+    for (int base = threadIdx.x; base < n; base += THREADS * STAGE_UNROLL) {
+      uint4 val[STAGE_UNROLL];
+#pragma unroll
+      for (int u = 0; u < STAGE_UNROLL; ++u) {
+        const int i = base + u * THREADS;
+        const int r = i / wv, c = (i - r * wv) * VEC, t = t0 + r;
+        val[u] = make_uint4(0u, 0u, 0u, 0u);
+        if (i < n && t < T_len && c < w)
+          val[u] = *reinterpret_cast<const uint4*>(src + (size_t)t * w + c);
+      }
+#pragma unroll
+      for (int u = 0; u < STAGE_UNROLL; ++u) {
+        const int i = base + u * THREADS;
+        if (i < n) {
+          const int r = i / wv, c = (i - r * wv) * VEC;
+          *reinterpret_cast<uint4*>(dst + r * ld + c) = val[u];
+        }
+      }
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < rows * wp; i += THREADS) {
+    const int r = i / wp, c = i - r * wp;
+    const int t = t0 + r;
+    dst[r * ld + c] = (t < T_len && c < w) ? src[(size_t)t * w + c] : from_f<T>(0.f);
+  }
+}
+
+// C[M][N] (fp32, row-major, ldc; shared or global) = (ACC ? C : 0) + A B
+// with A (M x K) read as A[m*lda + k] (A_ROW) or A[k*lda + m], and B (K x
+// N) read as B[k*ldb + n] (B_ROW) or B[n*ldb + k]. M, N, K are multiples
+// of 16. Called by the whole block; a C tile belongs to one warp (bf16) or
+// a C element to one thread (fp32), the same one at every call.
+template <bool A_ROW, bool B_ROW, bool ACC>
+__device__ __forceinline__ void mm(float* C, int ldc, const bf16* A, int lda,
+                                   const bf16* B, int ldb, int M, int N, int K) {
+  using LA = std::conditional_t<A_ROW, wm::row_major, wm::col_major>;
+  using LB = std::conditional_t<B_ROW, wm::row_major, wm::col_major>;
+  const int warp = threadIdx.x >> 5;
+  const int tn = N / 16, tiles = (M / 16) * tn;
+  for (int t = warp; t < tiles; t += NWARPS) {
+    const int i = (t / tn) * 16, j = (t % tn) * 16;
+    wm::fragment<wm::accumulator, 16, 16, 16, float> c;
+    if (ACC)
+      wm::load_matrix_sync(c, C + (size_t)i * ldc + j, ldc, wm::mem_row_major);
+    else
+      wm::fill_fragment(c, 0.f);
+    for (int k = 0; k < K; k += 16) {
+      wm::fragment<wm::matrix_a, 16, 16, 16, bf16, LA> a;
+      wm::fragment<wm::matrix_b, 16, 16, 16, bf16, LB> b;
+      wm::load_matrix_sync(a, A_ROW ? A + i * lda + k : A + k * lda + i, lda);
+      wm::load_matrix_sync(b, B_ROW ? B + k * ldb + j : B + j * ldb + k, ldb);
+      wm::mma_sync(c, a, b, c);
+    }
+    wm::store_matrix_sync(C + (size_t)i * ldc + j, c, ldc, wm::mem_row_major);
+  }
+}
+
+template <bool A_ROW, bool B_ROW, bool ACC>
+__device__ __forceinline__ void mm(float* C, int ldc, const float* A, int lda,
+                                   const float* B, int ldb, int M, int N, int K) {
+  for (int e = threadIdx.x; e < M * N; e += THREADS) {
+    const int m = e / N, n = e - m * N;
+    float acc = ACC ? C[(size_t)m * ldc + n] : 0.f;
+    for (int k = 0; k < K; ++k) {
+      const float a = A_ROW ? A[m * lda + k] : A[k * lda + m];
+      const float b = B_ROW ? B[k * ldb + n] : B[n * ldb + k];
+      acc = fmaf(a, b, acc);
+    }
+    C[(size_t)m * ldc + n] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K1, forward: one block per (bh, 32-row q tile); key tiles outer, streams
+// inner, so each V tile is staged once for all S streams
+// ---------------------------------------------------------------------------
+
+// sc streams per pass; Comb holds the combined output between passes
+// (S > sc only)
+template <typename T>
+struct FwdSmem {
+  T *Qs, *Ks, *Vs, *Ps;
+  float *Sc, *Acc, *Mx, *Lx, *Comb;
+  size_t bytes;
+  __host__ __device__ FwdSmem(unsigned char* base, int S, int sc, int d, int dv) {
+    Carve cv{base};
+    Qs = cv.take<T>((size_t)sc * BQ * ld_in<T>(d));
+    Ks = cv.take<T>((size_t)BK * ld_in<T>(d));
+    Vs = cv.take<T>((size_t)BK * ld_in<T>(dv));
+    Ps = cv.take<T>((size_t)BQ * ld_in<T>(BK));
+    Sc = cv.take<float>((size_t)BQ * SC_LD);
+    Acc = cv.take<float>((size_t)sc * BQ * ld_acc(dv));
+    Mx = cv.take<float>((size_t)sc * BQ);
+    Lx = cv.take<float>((size_t)sc * BQ);
+    Comb = S > sc ? cv.take<float>((size_t)BQ * ld_acc(dv)) : nullptr;
+    bytes = cv.off;
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+bh_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const float* __restrict__ coeffs, T* __restrict__ out,
+              T* __restrict__ o_all, float* __restrict__ lse, int S, int sc, int T_len,
+              int H, int d, int dv, float scale, Drop dr) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const FwdSmem<T> sm(smem, S, sc, d, dv);
+  const int ldq = ld_in<T>(d), ldv = ld_in<T>(dv), ldp = ld_in<T>(BK);
+  const int lda = ld_acc(dv), dp = round16(d), dvp = round16(dv);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nqt = (T_len + BQ - 1) / BQ;
+  const int qt = nqt - 1 - (int)(blockIdx.x % nqt);  // longest rows first
+  const int bh = blockIdx.x / nqt, h = bh % H;
+  const int q0 = qt * BQ;
+  const int kend = min(T_len, q0 + BQ);
+  const size_t slab = (size_t)T_len * d;
+  const T* qb = q + (size_t)bh * S * slab;
+  const T* kb = k + (size_t)bh * S * slab;
+  const T* vb = v + (size_t)bh * T_len * dv;
+
+  for (int s0 = 0; s0 < S; s0 += sc) {  // a pass over streams [s0, s0 + sn)
+    const int sn = min(sc, S - s0);
+    __syncthreads();  // the last pass has read its results out
+    for (int s = 0; s < sn; ++s)
+      stage<T>(sm.Qs + s * BQ * ldq, ldq, qb + (s0 + s) * slab, T_len, q0, BQ, d);
+    for (int i = threadIdx.x; i < sn * BQ * lda; i += THREADS) sm.Acc[i] = 0.f;
+    for (int i = threadIdx.x; i < sn * BQ; i += THREADS) {
+      sm.Mx[i] = -INFINITY;
+      sm.Lx[i] = 0.f;
+    }
+
+    for (int k0 = 0; k0 < kend; k0 += BK) {
+      __syncthreads();  // the last tile's PV products are done with Vs
+      stage<T>(sm.Vs, ldv, vb, T_len, k0, BK, dv);
+      for (int s = 0; s < sn; ++s) {
+        stage<T>(sm.Ks, ldq, kb + (s0 + s) * slab, T_len, k0, BK, d);
+        __syncthreads();
+        mm<true, false, false>(sm.Sc, SC_LD, sm.Qs + s * BQ * ldq, ldq, sm.Ks, ldq, BQ, BK, dp);
+        __syncthreads();
+        const uint32_t skey = dr.on ? stream_key(dr, bh, s0 + s) : 0u;
+        float* acc = sm.Acc + s * BQ * lda;
+        float* mx = sm.Mx + s * BQ;
+        float* lx = sm.Lx + s * BQ;
+        // the warp's RPW rows together: their shuffle reductions interleave
+        const int r0 = warp * RPW, key = k0 + lane;
+        float sv[RPW], mn[RPW], alpha[RPW], p[RPW], ps[RPW];
+#pragma unroll
+        for (int j = 0; j < RPW; ++j) {
+          sv[j] = key <= q0 + r0 + j ? sm.Sc[(r0 + j) * SC_LD + lane] * scale : -INFINITY;
+          mn[j] = sv[j];
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+          for (int j = 0; j < RPW; ++j) mn[j] = fmaxf(mn[j], __shfl_xor_sync(0xffffffffu, mn[j], o));
+#pragma unroll
+        for (int j = 0; j < RPW; ++j) {
+          const float m_old = mx[r0 + j];
+          mn[j] = fmaxf(m_old, mn[j]);
+          alpha[j] = expf(m_old - mn[j]);
+          p[j] = key <= q0 + r0 + j ? expf(sv[j] - mn[j]) : 0.f;
+          ps[j] = p[j];
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+          for (int j = 0; j < RPW; ++j) ps[j] += __shfl_xor_sync(0xffffffffu, ps[j], o);
+#pragma unroll
+        for (int j = 0; j < RPW; ++j) {
+          const int r = r0 + j;
+          float pp = p[j];
+          if (dr.on) pp = keep_bit(dr, skey, q0 + r, key) ? p[j] * dr.inv_keep : 0.f;
+          sm.Ps[r * ldp + lane] = from_f<T>(pp);
+          if (alpha[j] != 1.f)  // warp-uniform: the row's max moved
+            for (int c = lane; c < dvp; c += 32) acc[r * lda + c] *= alpha[j];
+        }
+        __syncwarp();
+        if (lane == 0) {
+#pragma unroll
+          for (int j = 0; j < RPW; ++j) {
+            mx[r0 + j] = mn[j];
+            lx[r0 + j] = lx[r0 + j] * alpha[j] + ps[j];
+          }
+        }
+        __syncthreads();
+        mm<true, true, true>(acc, lda, sm.Ps, ldp, sm.Vs, ldv, BQ, dvp, BK);
+      }
+    }
+    __syncthreads();
+
+    // the streams combine in order s = 0..S-1 in fp32; a thread keeps the
+    // same (row, column) elements in every pass, so Comb needs no barrier
+    const bool last = s0 + sn == S;
+    for (int j = 0; j < RPW; ++j) {
+      const int r = warp * RPW + j, row = q0 + r;
+      if (row >= T_len) continue;
+      for (int c = lane; c < dv; c += 32) {
+        float comb = s0 == 0 ? 0.f : sm.Comb[r * lda + c];
+        for (int s = 0; s < sn; ++s) {
+          const float l_safe = fmaxf(sm.Lx[s * BQ + r], 1e-30f);
+          const float o = sm.Acc[(s * BQ + r) * lda + c] / l_safe;
+          const float co = coeffs[(s0 + s) * H + h] * o;
+          comb = s0 + s == 0 ? co : comb + co;
+          if (o_all != nullptr)
+            o_all[((size_t)(bh * S + s0 + s) * T_len + row) * dv + c] = from_f<T>(o);
+        }
+        if (last)
+          out[((size_t)bh * T_len + row) * dv + c] = from_f<T>(comb);
+        else
+          sm.Comb[r * lda + c] = comb;
+      }
+      if (lse != nullptr && lane < sn)
+        lse[(size_t)(bh * S + s0 + lane) * T_len + row] =
+            sm.Mx[lane * BQ + r] + logf(fmaxf(sm.Lx[lane * BQ + r], 1e-30f));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the backward's row pass, shared by K2-K4: for the tile pair (q rows q0..,
+// keys k0..) and stream s, from Sc = Q_s K_s^T and GV = g V^T (fp32
+// [BQ][BK]), writes ds = round(p (dP - delta)) into Ds and, when PC is
+// given, accumulates PC += c_s P~ (PC = c_0 P~ at s = 0)
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__device__ __forceinline__ void bwd_rows(const float* Sc, const float* GV, T* Ds, int ldp,
+                                         float* PC, const float* lse_r, const float* dl_r,
+                                         int q0, int k0, int T_len, int bh, int s, float cs,
+                                         float scale, const Drop& dr) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint32_t skey = dr.on ? stream_key(dr, bh, s) : 0u;
+  for (int j = 0; j < RPW; ++j) {
+    const int r = warp * RPW + j, row = q0 + r, key = k0 + lane;
+    const bool live = key <= row && row < T_len;
+    const float p = live ? expf(Sc[r * SC_LD + lane] * scale - lse_r[r]) : 0.f;
+    float dpv = cs * GV[r * SC_LD + lane];
+    float pv = p;
+    if (dr.on) {
+      const bool kp = keep_bit(dr, skey, row, key);
+      dpv = kp ? dpv * dr.inv_keep : 0.f;
+      pv = kp ? p * dr.inv_keep : 0.f;
+    }
+    Ds[r * ldp + lane] = from_f<T>(p * (dpv - dl_r[r]));
+    if (PC != nullptr) {
+      float* pc = PC + r * SC_LD + lane;
+      *pc = s == 0 ? pv * cs : *pc + pv * cs;
+    }
+  }
+}
+
+// lse and delta of rows [q0, q0 + BQ) for every stream into Lse/Dl [S][BQ]
+// (0 past T_len: those rows are masked)
+__device__ __forceinline__ void stage_rows(float* Lse, float* Dl, const float* __restrict__ lse,
+                                           const float* __restrict__ delta, int bh, int S,
+                                           int T_len, int q0) {
+  for (int i = threadIdx.x; i < S * BQ; i += THREADS) {
+    const int s = i / BQ, r = i - s * BQ, row = q0 + r;
+    const size_t at = (size_t)(bh * S + s) * T_len + row;
+    Lse[i] = row < T_len ? lse[at] : 0.f;
+    Dl[i] = row < T_len ? delta[at] : 0.f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2, dq: one block per (bh, 32-row q tile); key tiles outer, streams inner
+// (one g V^T per tile pair)
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct DqSmem {
+  T *Qs, *Gs, *Ks, *Vs, *Ds;
+  float *GV, *Sc, *DQ, *Lse, *Dl;
+  size_t bytes;
+  __host__ __device__ DqSmem(unsigned char* base, int S, int sc, int d, int dv) {
+    Carve cv{base};
+    Qs = cv.take<T>((size_t)sc * BQ * ld_in<T>(d));
+    Gs = cv.take<T>((size_t)BQ * ld_in<T>(dv));
+    Ks = cv.take<T>((size_t)BK * ld_in<T>(d));
+    Vs = cv.take<T>((size_t)BK * ld_in<T>(dv));
+    Ds = cv.take<T>((size_t)BQ * ld_in<T>(BK));
+    GV = cv.take<float>((size_t)BQ * SC_LD);
+    Sc = cv.take<float>((size_t)BQ * SC_LD);
+    DQ = cv.take<float>((size_t)sc * BQ * ld_acc(d));
+    Lse = cv.take<float>((size_t)S * BQ);
+    Dl = cv.take<float>((size_t)S * BQ);
+    bytes = cv.off;
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+bh_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+             const T* __restrict__ g, const float* __restrict__ lse,
+             const float* __restrict__ delta, const float* __restrict__ coeffs,
+             T* __restrict__ dq, int S, int sc, int T_len, int H, int d, int dv, float scale,
+             Drop dr) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const DqSmem<T> sm(smem, S, sc, d, dv);
+  const int ldq = ld_in<T>(d), ldv = ld_in<T>(dv), ldp = ld_in<T>(BK);
+  const int ldd = ld_acc(d), dp = round16(d), dvp = round16(dv);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nqt = (T_len + BQ - 1) / BQ;
+  const int qt = nqt - 1 - (int)(blockIdx.x % nqt);
+  const int bh = blockIdx.x / nqt, h = bh % H;
+  const int q0 = qt * BQ;
+  const int kend = min(T_len, q0 + BQ);
+  const size_t slab = (size_t)T_len * d;
+  const T* qb = q + (size_t)bh * S * slab;
+  const T* kb = k + (size_t)bh * S * slab;
+  const T* vb = v + (size_t)bh * T_len * dv;
+
+  stage<T>(sm.Gs, ldv, g + (size_t)bh * T_len * dv, T_len, q0, BQ, dv);
+  stage_rows(sm.Lse, sm.Dl, lse, delta, bh, S, T_len, q0);
+  for (int s0 = 0; s0 < S; s0 += sc) {  // a pass over streams [s0, s0 + sn)
+    const int sn = min(sc, S - s0);
+    __syncthreads();  // the last pass has written its dq out
+    for (int s = 0; s < sn; ++s)
+      stage<T>(sm.Qs + s * BQ * ldq, ldq, qb + (s0 + s) * slab, T_len, q0, BQ, d);
+    for (int i = threadIdx.x; i < sn * BQ * ldd; i += THREADS) sm.DQ[i] = 0.f;
+
+    for (int k0 = 0; k0 < kend; k0 += BK) {
+      __syncthreads();
+      stage<T>(sm.Vs, ldv, vb, T_len, k0, BK, dv);
+      __syncthreads();
+      mm<true, false, false>(sm.GV, SC_LD, sm.Gs, ldv, sm.Vs, ldv, BQ, BK, dvp);
+      for (int s = 0; s < sn; ++s) {
+        const int gs = s0 + s;
+        __syncthreads();  // the previous stream's dq product is done with Ks, Ds
+        stage<T>(sm.Ks, ldq, kb + gs * slab, T_len, k0, BK, d);
+        __syncthreads();
+        mm<true, false, false>(sm.Sc, SC_LD, sm.Qs + s * BQ * ldq, ldq, sm.Ks, ldq, BQ, BK, dp);
+        __syncthreads();
+        bwd_rows<T>(sm.Sc, sm.GV, sm.Ds, ldp, nullptr, sm.Lse + gs * BQ, sm.Dl + gs * BQ, q0,
+                    k0, T_len, bh, gs, coeffs[gs * H + h], scale, dr);
+        __syncthreads();
+        mm<true, true, true>(sm.DQ + s * BQ * ldd, ldd, sm.Ds, ldp, sm.Ks, ldq, BQ, dp, BK);
+      }
+    }
+    __syncthreads();
+    for (int j = 0; j < RPW; ++j) {
+      const int r = warp * RPW + j, row = q0 + r;
+      if (row >= T_len) continue;
+      for (int s = 0; s < sn; ++s)
+        for (int c = lane; c < d; c += 32)
+          dq[((size_t)(bh * S + s0 + s) * T_len + row) * d + c] =
+              from_f<T>(sm.DQ[(s * BQ + r) * ldd + c] * scale);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3 (dk, dv: one block per (bh, 32-key tile), q tiles outer, streams
+// inner) and K4 (fused: one block per bh walking the key tiles in order;
+// each q-tile pass also adds ds K into dq_acc, an fp32 scratch that only
+// this block touches, and q tile kt is final once key tile kt is done)
+// ---------------------------------------------------------------------------
+
+// sc streams' K tiles and dk accumulators per pass; Kx is the slot the
+// first pass stages the other streams' K tiles into for dv (S > sc only)
+template <typename T>
+struct DkvSmem {
+  T *Ks, *Kx, *Vs, *Qs, *Gs, *Ds, *Pr;
+  float *GV, *Sc, *PC, *DK, *DV, *Lse, *Dl;
+  size_t bytes;
+  __host__ __device__ DkvSmem(unsigned char* base, int S, int sc, int d, int dv) {
+    Carve cv{base};
+    Ks = cv.take<T>((size_t)sc * BK * ld_in<T>(d));
+    Kx = S > sc ? cv.take<T>((size_t)BK * ld_in<T>(d)) : nullptr;
+    Vs = cv.take<T>((size_t)BK * ld_in<T>(dv));
+    Qs = cv.take<T>((size_t)BQ * ld_in<T>(d));
+    Gs = cv.take<T>((size_t)BQ * ld_in<T>(dv));
+    Ds = cv.take<T>((size_t)BQ * ld_in<T>(BK));
+    Pr = cv.take<T>((size_t)BQ * ld_in<T>(BK));
+    GV = cv.take<float>((size_t)BQ * SC_LD);
+    Sc = cv.take<float>((size_t)BQ * SC_LD);
+    PC = cv.take<float>((size_t)BQ * SC_LD);
+    DK = cv.take<float>((size_t)sc * BK * ld_acc(d));
+    DV = cv.take<float>((size_t)BK * ld_acc(dv));
+    Lse = cv.take<float>((size_t)S * BQ);
+    Dl = cv.take<float>((size_t)S * BQ);
+    bytes = cv.off;
+  }
+};
+
+// one pass of one key tile's backward over streams [s0, s0 + sn): walks
+// the q tiles at or past it, leaves dk of those streams in DK and (with_dv)
+// dv of the tile in DV, and (dq_acc != null) adds ds K into dq_acc rows
+// (ld = round16(d)), overwriting them when first is set. dv needs the
+// stream-combined map of every stream before its one rounding, so the
+// pass that makes it also visits the streams outside [s0, s0 + sn), with
+// their K tiles staged into Kx
+template <typename T>
+__device__ __forceinline__ void dkv_tile(const DkvSmem<T>& sm, const T* __restrict__ q,
+                                         const T* __restrict__ k, const T* __restrict__ v,
+                                         const T* __restrict__ g, const float* __restrict__ lse,
+                                         const float* __restrict__ delta,
+                                         const float* __restrict__ coeffs, float* dq_acc,
+                                         bool first, int bh, int kt, int S, int s0, int sn,
+                                         bool with_dv, int T_len, int H, int d, int dv,
+                                         float scale, const Drop& dr) {
+  const int ldq = ld_in<T>(d), ldv = ld_in<T>(dv), ldp = ld_in<T>(BK);
+  const int ldd = ld_acc(d), ldva = ld_acc(dv), dp = round16(d), dvp = round16(dv);
+  const int h = bh % H, k0 = kt * BK;
+  const size_t slab = (size_t)T_len * d;
+  const T* qb = q + (size_t)bh * S * slab;
+  const T* kb = k + (size_t)bh * S * slab;
+  const T* gb = g + (size_t)bh * T_len * dv;
+  const int s_lo = with_dv ? 0 : s0, s_hi = with_dv ? S : s0 + sn;
+
+  __syncthreads();  // the previous tile's results are written out
+  for (int s = 0; s < sn; ++s)
+    stage<T>(sm.Ks + s * BK * ldq, ldq, kb + (s0 + s) * slab, T_len, k0, BK, d);
+  stage<T>(sm.Vs, ldv, v + (size_t)bh * T_len * dv, T_len, k0, BK, dv);
+  for (int i = threadIdx.x; i < sn * BK * ldd; i += THREADS) sm.DK[i] = 0.f;
+  if (with_dv)
+    for (int i = threadIdx.x; i < BK * ldva; i += THREADS) sm.DV[i] = 0.f;
+
+  for (int q0 = k0; q0 < T_len; q0 += BQ) {  // BQ == BK: tile q0 = k0 is the first
+    __syncthreads();                         // the last pass is done with Gs, Pr
+    stage<T>(sm.Gs, ldv, gb, T_len, q0, BQ, dv);
+    stage_rows(sm.Lse, sm.Dl, lse, delta, bh, S, T_len, q0);
+    __syncthreads();
+    mm<true, false, false>(sm.GV, SC_LD, sm.Gs, ldv, sm.Vs, ldv, BQ, BK, dvp);
+    for (int s = s_lo; s < s_hi; ++s) {
+      const bool mine = s >= s0 && s < s0 + sn;
+      const T* Kt = mine ? sm.Ks + (s - s0) * BK * ldq : sm.Kx;
+      __syncthreads();  // the previous stream's products are done with Qs, Ds, Kx
+      stage<T>(sm.Qs, ldq, qb + s * slab, T_len, q0, BQ, d);
+      if (!mine) stage<T>(sm.Kx, ldq, kb + s * slab, T_len, k0, BK, d);
+      __syncthreads();
+      mm<true, false, false>(sm.Sc, SC_LD, sm.Qs, ldq, Kt, ldq, BQ, BK, dp);
+      __syncthreads();
+      bwd_rows<T>(sm.Sc, sm.GV, sm.Ds, ldp, with_dv ? sm.PC : nullptr, sm.Lse + s * BQ,
+                  sm.Dl + s * BQ, q0, k0, T_len, bh, s, coeffs[s * H + h], scale, dr);
+      if (with_dv && s == S - 1) {  // the stream-combined dropped map, rounded once
+        const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+        for (int j = 0; j < RPW; ++j) {
+          const int r = warp * RPW + j;
+          sm.Pr[r * ldp + lane] = from_f<T>(sm.PC[r * SC_LD + lane]);
+        }
+      }
+      __syncthreads();
+      if (!mine) continue;
+      // dk_s += ds^T Q_s
+      mm<false, true, true>(sm.DK + (s - s0) * BK * ldd, ldd, sm.Ds, ldp, sm.Qs, ldq, BK, dp,
+                            BQ);
+      if (dq_acc != nullptr) {
+        float* dst = dq_acc + ((size_t)s * (((T_len + BQ - 1) / BQ) * BQ) + q0) * dp;
+        if (first)
+          mm<true, true, false>(dst, dp, sm.Ds, ldp, Kt, ldq, BQ, dp, BK);
+        else
+          mm<true, true, true>(dst, dp, sm.Ds, ldp, Kt, ldq, BQ, dp, BK);
+      }
+    }
+    // dv += (sum_s c_s P~_s)^T g
+    if (with_dv) mm<false, true, true>(sm.DV, ldva, sm.Pr, ldp, sm.Gs, ldv, BK, dvp, BQ);
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__device__ __forceinline__ void write_dkv(const DkvSmem<T>& sm, T* __restrict__ dk,
+                                          T* __restrict__ dvo, int bh, int kt, int S, int s0,
+                                          int sn, bool with_dv, int T_len, int d, int dv,
+                                          float scale) {
+  const int ldd = ld_acc(d), ldva = ld_acc(dv);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int j = 0; j < RPW; ++j) {
+    const int r = warp * RPW + j, key = kt * BK + r;
+    if (key >= T_len) continue;
+    for (int s = 0; s < sn; ++s)
+      for (int c = lane; c < d; c += 32)
+        dk[((size_t)(bh * S + s0 + s) * T_len + key) * d + c] =
+            from_f<T>(sm.DK[(s * BK + r) * ldd + c] * scale);
+    if (with_dv)
+      for (int c = lane; c < dv; c += 32)
+        dvo[((size_t)bh * T_len + key) * dv + c] = from_f<T>(sm.DV[r * ldva + c]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+bh_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const T* __restrict__ g, const float* __restrict__ lse,
+              const float* __restrict__ delta, const float* __restrict__ coeffs,
+              T* __restrict__ dk, T* __restrict__ dvo, int S, int sc, int T_len, int H, int d,
+              int dv, float scale, Drop dr) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const DkvSmem<T> sm(smem, S, sc, d, dv);
+  const int nkt = (T_len + BK - 1) / BK;
+  const int kt = blockIdx.x % nkt;  // low key tiles have the most q tiles: first
+  const int bh = blockIdx.x / nkt;
+  for (int s0 = 0; s0 < S; s0 += sc) {
+    const int sn = min(sc, S - s0);
+    dkv_tile<T>(sm, q, k, v, g, lse, delta, coeffs, nullptr, false, bh, kt, S, s0, sn,
+                s0 == 0, T_len, H, d, dv, scale, dr);
+    write_dkv<T>(sm, dk, dvo, bh, kt, S, s0, sn, s0 == 0, T_len, d, dv, scale);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+bh_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ g, const float* __restrict__ lse,
+                    const float* __restrict__ delta, const float* __restrict__ coeffs,
+                    T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dvo,
+                    float* __restrict__ dq_acc, int S, int sc, int T_len, int H, int d, int dv,
+                    float scale, Drop dr) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const DkvSmem<T> sm(smem, S, sc, d, dv);
+  const int nkt = (T_len + BK - 1) / BK;
+  const int bh = blockIdx.x;
+  const int dp = round16(d);
+  const size_t tpad = (size_t)nkt * BQ;
+  float* acc = dq_acc + (size_t)bh * S * tpad * dp;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int kt = 0; kt < nkt; ++kt) {
+    // every q tile is first reached from key tile 0, which overwrites it
+    for (int s0 = 0; s0 < S; s0 += sc) {
+      const int sn = min(sc, S - s0);
+      dkv_tile<T>(sm, q, k, v, g, lse, delta, coeffs, acc, kt == 0, bh, kt, S, s0, sn,
+                  s0 == 0, T_len, H, d, dv, scale, dr);
+      write_dkv<T>(sm, dk, dvo, bh, kt, S, s0, sn, s0 == 0, T_len, d, dv, scale);
+    }
+    // q tile kt took its last ds K at key tile kt (the diagonal)
+    for (int j = 0; j < RPW; ++j) {
+      const int r = warp * RPW + j, row = kt * BQ + r;
+      if (row >= T_len) continue;
+      for (int s = 0; s < S; ++s)
+        for (int c = lane; c < d; c += 32)
+          dq[((size_t)(bh * S + s) * T_len + row) * d + c] =
+              from_f<T>(acc[((size_t)s * tpad + row) * dp + c] * scale);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+
+// lets launches of ``Kernel`` take ``smem`` bytes of dynamic shared memory
+// (above 48 KB a launch without it is refused); set again only when a
+// launch needs more than before, so graph-captured launches make no calls
+template <auto Kernel>
+int allow_smem(size_t smem) {
+  static size_t granted = 0;
+  if (smem <= granted) return 0;
+  const cudaError_t err =
+      cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) granted = smem;
+  return static_cast<int>(err);
+}
+
+bool shapes_ok(int S, int BH, int T_len, int H, int d, int dv) {
+  return S >= 1 && BH > 0 && T_len > 0 && H > 0 && BH % H == 0 && d > 0 && d <= MAX_D &&
+         dv > 0 && dv <= MAX_DV;
+}
+
+Drop make_drop(unsigned w0, unsigned w1, unsigned threshold, float inv_keep, int on) {
+  return Drop{w0, w1 * 0x9E3779B1u, threshold, inv_keep, on};
+}
+
+// the most streams per pass (<= MAX_SC) whose shared memory fits, and its
+// bytes; 0 when not even one stream fits
+template <typename Smem>
+int streams_per_pass(int S, int d, int dv, size_t* smem) {
+  for (int sc = S < MAX_SC ? S : MAX_SC; sc >= 1; --sc) {
+    *smem = Smem(nullptr, S, sc, d, dv).bytes;
+    if (*smem <= SMEM_LIMIT) return sc;
+  }
+  return 0;
+}
+
+template <typename T>
+int fwd(const void* q, const void* k, const void* v, const float* coeffs, void* out,
+        void* o_all, float* lse, int S, int BH, int T_len, int H, int d, int dv, float scale,
+        Drop dr, cudaStream_t stream) {
+  size_t smem = 0;
+  const int sc = streams_per_pass<FwdSmem<T>>(S, d, dv, &smem);
+  if (sc == 0) return static_cast<int>(cudaErrorInvalidValue);
+  int rc = allow_smem<bh_fwd_kernel<T>>(smem);
+  if (rc != 0) return rc;
+  const int nqt = (T_len + BQ - 1) / BQ;
+  bh_fwd_kernel<T><<<BH * nqt, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), coeffs,
+      static_cast<T*>(out), static_cast<T*>(o_all), lse, S, sc, T_len, H, d, dv, scale, dr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int bwd_dq(const void* q, const void* k, const void* v, const void* g, const float* lse,
+           const float* delta, const float* coeffs, void* dq, int S, int BH, int T_len, int H,
+           int d, int dv, float scale, Drop dr, cudaStream_t stream) {
+  size_t smem = 0;
+  const int sc = streams_per_pass<DqSmem<T>>(S, d, dv, &smem);
+  if (sc == 0) return static_cast<int>(cudaErrorInvalidValue);
+  int rc = allow_smem<bh_dq_kernel<T>>(smem);
+  if (rc != 0) return rc;
+  const int nqt = (T_len + BQ - 1) / BQ;
+  bh_dq_kernel<T><<<BH * nqt, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(g), lse, delta, coeffs, static_cast<T*>(dq), S, sc, T_len, H, d,
+      dv, scale, dr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int bwd_dkv(const void* q, const void* k, const void* v, const void* g, const float* lse,
+            const float* delta, const float* coeffs, void* dk, void* dvo, int S, int BH,
+            int T_len, int H, int d, int dv, float scale, Drop dr, cudaStream_t stream) {
+  size_t smem = 0;
+  const int sc = streams_per_pass<DkvSmem<T>>(S, d, dv, &smem);
+  if (sc == 0) return static_cast<int>(cudaErrorInvalidValue);
+  int rc = allow_smem<bh_dkv_kernel<T>>(smem);
+  if (rc != 0) return rc;
+  const int nkt = (T_len + BK - 1) / BK;
+  bh_dkv_kernel<T><<<BH * nkt, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(g), lse, delta, coeffs, static_cast<T*>(dk), static_cast<T*>(dvo),
+      S, sc, T_len, H, d, dv, scale, dr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int bwd_fused(const void* q, const void* k, const void* v, const void* g, const float* lse,
+              const float* delta, const float* coeffs, void* dq, void* dk, void* dvo,
+              float* dq_acc, int S, int BH, int T_len, int H, int d, int dv, float scale,
+              Drop dr, cudaStream_t stream) {
+  size_t smem = 0;
+  const int sc = streams_per_pass<DkvSmem<T>>(S, d, dv, &smem);
+  if (sc == 0) return static_cast<int>(cudaErrorInvalidValue);
+  int rc = allow_smem<bh_bwd_fused_kernel<T>>(smem);
+  if (rc != 0) return rc;
+  bh_bwd_fused_kernel<T><<<BH, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(g), lse, delta, coeffs, static_cast<T*>(dq), static_cast<T*>(dk),
+      static_cast<T*>(dvo), dq_acc, S, sc, T_len, H, d, dv, scale, dr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. Dropout: the two 24-bit seed words,
+// the keep threshold min(round(rate * 2^32), 2^32 - 1), float32(1 / (1 -
+// rate)) and on = rate > 0. Each returns the launch's CUDA error code
+// (cudaErrorInvalidValue for shapes the kernels do not take).
+
+extern "C" int flash_bh_fwd(const void* q, const void* k, const void* v, const void* coeffs,
+                            void* out, void* o_all, void* lse, int S, int BH, int T_len, int H,
+                            int d, int dv, float scale, unsigned w0, unsigned w1,
+                            unsigned threshold, float inv_keep, int dropout_on, int dtype,
+                            void* stream) {
+  if (!shapes_ok(S, BH, T_len, H, d, dv)) return static_cast<int>(cudaErrorInvalidValue);
+  const Drop dr = make_drop(w0, w1, threshold, inv_keep, dropout_on);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* c = static_cast<const float*>(coeffs);
+  float* l = static_cast<float*>(lse);
+  switch (dtype) {
+    case 0: return fwd<float>(q, k, v, c, out, o_all, l, S, BH, T_len, H, d, dv, scale, dr, st);
+    case 1: return fwd<bf16>(q, k, v, c, out, o_all, l, S, BH, T_len, H, d, dv, scale, dr, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int flash_bh_bwd_dq(const void* q, const void* k, const void* v, const void* g,
+                               const void* lse, const void* delta, const void* coeffs,
+                               void* dq, int S, int BH, int T_len, int H, int d, int dv,
+                               float scale, unsigned w0, unsigned w1, unsigned threshold,
+                               float inv_keep, int dropout_on, int dtype, void* stream) {
+  if (!shapes_ok(S, BH, T_len, H, d, dv)) return static_cast<int>(cudaErrorInvalidValue);
+  const Drop dr = make_drop(w0, w1, threshold, inv_keep, dropout_on);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  const float* c = static_cast<const float*>(coeffs);
+  switch (dtype) {
+    case 0: return bwd_dq<float>(q, k, v, g, l, dl, c, dq, S, BH, T_len, H, d, dv, scale, dr, st);
+    case 1: return bwd_dq<bf16>(q, k, v, g, l, dl, c, dq, S, BH, T_len, H, d, dv, scale, dr, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int flash_bh_bwd_dkv(const void* q, const void* k, const void* v, const void* g,
+                                const void* lse, const void* delta, const void* coeffs,
+                                void* dk, void* dv_out, int S, int BH, int T_len, int H, int d,
+                                int dv, float scale, unsigned w0, unsigned w1,
+                                unsigned threshold, float inv_keep, int dropout_on, int dtype,
+                                void* stream) {
+  if (!shapes_ok(S, BH, T_len, H, d, dv)) return static_cast<int>(cudaErrorInvalidValue);
+  const Drop dr = make_drop(w0, w1, threshold, inv_keep, dropout_on);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  const float* c = static_cast<const float*>(coeffs);
+  switch (dtype) {
+    case 0: return bwd_dkv<float>(q, k, v, g, l, dl, c, dk, dv_out, S, BH, T_len, H, d, dv, scale, dr, st);
+    case 1: return bwd_dkv<bf16>(q, k, v, g, l, dl, c, dk, dv_out, S, BH, T_len, H, d, dv, scale, dr, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// dq_acc: fp32 scratch of (BH, S, ceil(T / 32) * 32, round16(d)) floats,
+// written before it is read (no initialization needed)
+extern "C" int flash_bh_bwd_fused(const void* q, const void* k, const void* v, const void* g,
+                                  const void* lse, const void* delta, const void* coeffs,
+                                  void* dq, void* dk, void* dv_out, void* dq_acc, int S, int BH,
+                                  int T_len, int H, int d, int dv, float scale, unsigned w0,
+                                  unsigned w1, unsigned threshold, float inv_keep,
+                                  int dropout_on, int dtype, void* stream) {
+  if (!shapes_ok(S, BH, T_len, H, d, dv)) return static_cast<int>(cudaErrorInvalidValue);
+  const Drop dr = make_drop(w0, w1, threshold, inv_keep, dropout_on);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  const float* c = static_cast<const float*>(coeffs);
+  float* acc = static_cast<float*>(dq_acc);
+  switch (dtype) {
+    case 0: return bwd_fused<float>(q, k, v, g, l, dl, c, dq, dk, dv_out, acc, S, BH, T_len, H, d, dv, scale, dr, st);
+    case 1: return bwd_fused<bf16>(q, k, v, g, l, dl, c, dq, dk, dv_out, acc, S, BH, T_len, H, d, dv, scale, dr, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

@@ -10,6 +10,11 @@ lambda vectors zero. Draws come from an explicit ``torch.Generator``
 (they cannot reproduce ``jax.random``'s; parity tests hand both sides
 the JAX-initialized params through ``params.py``).
 
+Dropout follows the JAX package's sites and order of key splits, with
+integer seeds in place of keys (:func:`split_seed`): per layer, then per
+block (attention, FFN), then per attention (probabilities, output). A
+forward without a seed (eval) drops nothing.
+
 The block-boundary norms, the SwiGLU chain and the training attention
 always go through the kernel wrappers (ops/fused_norm_residual.py,
 ops/fused_ffn.py, ops/flash.py), which dispatch by device: GPU kernel
@@ -21,10 +26,16 @@ from __future__ import annotations
 
 import torch
 
+from differential_transformer_replication_tpu_torch.ops.dropout import (
+    dropout,
+    fold_seed,
+    generator,
+)
 from differential_transformer_replication_tpu_torch.ops.flash import (
+    multi_stream_flash_attention_bh,
     multi_stream_flash_attention_tm,
     multi_stream_flash_attention_tm_packed,
-    require_tm,
+    use_tm,
 )
 from differential_transformer_replication_tpu_torch.ops.fused_ffn import fused_swiglu
 from differential_transformer_replication_tpu_torch.ops.fused_norm_residual import (
@@ -106,17 +117,34 @@ def apply_group_norm(x: torch.Tensor, p: dict) -> torch.Tensor:
     return fused_group_norm(x.contiguous(), p["w"], p["b"])
 
 
-def apply_block_ffn(x: torch.Tensor, attn_out: torch.Tensor,
-                    blk: dict) -> torch.Tensor:
+def split_seed(seed, n: int) -> tuple:
+    """Split an optional dropout seed into n optional seeds (the
+    counterpart of the JAX ``split_rng``)."""
+    if seed is None:
+        return (None,) * n
+    return tuple(fold_seed(seed, i) for i in range(n))
+
+
+def apply_dropout(x: torch.Tensor, rate: float, seed) -> torch.Tensor:
+    """Residual/FFN-output dropout with a generator on x's device made
+    from ``seed`` (identity without one)."""
+    if rate <= 0.0 or seed is None:
+        return x
+    return dropout(x, rate, generator(seed, x.device))
+
+
+def apply_block_ffn(x: torch.Tensor, attn_out: torch.Tensor, blk: dict,
+                    rate: float = 0.0, seed=None) -> torch.Tensor:
     """The block's FFN half: attention residual add + ln2 (one fused
     pass producing the carried residual and the normalized FFN input),
-    the fused SwiGLU chain, the down projection and the FFN residual."""
+    the fused SwiGLU chain, the down projection, its dropout and the FFN
+    residual."""
     p = blk["ffn"]
     x, normed = fused_add_norm(x.contiguous(), attn_out.contiguous(),
                                blk["ln2"]["w"], blk["ln2"]["b"])
     h = fused_swiglu(normed, p["gate"]["w"], p["gate"]["b"],
                      p["xform"]["w"], p["xform"]["b"])
-    return x + linear(h, p["out"])
+    return x + apply_dropout(linear(h, p["out"]), rate, seed)
 
 
 def layer_coeffs(cfg, p_attn: dict, layer_idx: int) -> torch.Tensor:
@@ -137,35 +165,61 @@ def layer_coeffs(cfg, p_attn: dict, layer_idx: int) -> torch.Tensor:
 
 def flash_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
                     wv: torch.Tensor, coeffs: torch.Tensor, cos=None,
-                    sin=None) -> torch.Tensor:
+                    sin=None, rate: float = 0.0, seed=None) -> torch.Tensor:
     """The training attention of all three families (the JAX
-    ``flash_bh_fn`` token-major branches): x (B, T, E) normed block
-    input, wq/wk (S, E, H, d), wv (E, H, dv), coeffs (S, H) fp32; returns
-    (B, T, H, dv).
+    ``flash_bh_fn``): x (B, T, E) normed block input, wq/wk (S, E, H, d),
+    wv (E, H, dv), coeffs (S, H) fp32, attention-dropout ``rate`` with an
+    optional ``seed``; returns (B, T, H, dv).
 
-    Without RoPE (diff) it is the PACKED route: one projection matmul
-    ``x @ [Wq_0..|Wk_0..|Wv]`` whose column windows the kernel reads and
-    whose one packed gradient the backward writes. With RoPE (control,
-    ndiff) each projection is its own matmul, rotated (headed layout),
-    on the per-array route. Shapes outside the token-major kernels
-    raise (ops/flash.py:require_tm)."""
+    As in JAX the rate counts only with a seed (``rate_live``). Inside
+    the token-major envelope (no live dropout, T <= 512, S <= 4): without
+    RoPE (diff) the PACKED route, one projection matmul ``x @
+    [Wq_0..|Wk_0..|Wv]`` whose column windows the kernel reads; with RoPE
+    (control, ndiff) each projection is its own matmul, rotated (headed
+    layout), on the per-array route. Everything else takes the HEAD-MAJOR
+    route: the same one projection matmul, its q/k/v windows laid out as
+    (B*H, S, T, width), rotated there (RoPE tables broadcast over B*H),
+    and the head-major kernels with in-kernel attention dropout whose
+    seed words come from a CPU generator seeded with ``seed``."""
     B, T, E = x.shape
     S, _, H, d = wq.shape
     dv = wv.shape[-1]
-    require_tm(S, T, 0.0)
-    if cos is None:
-        wcat = torch.cat([wq[s].reshape(E, H * d) for s in range(S)]
-                         + [wk[s].reshape(E, H * d) for s in range(S)]
-                         + [wv.reshape(E, H * dv)], dim=1).to(x.dtype)
-        return multi_stream_flash_attention_tm_packed(x @ wcat, coeffs, B, H,
-                                                      S, d, dv)
-    wq_c, wk_c = wq.to(x.dtype), wk.to(x.dtype)
-    qs = [apply_rope((x @ wq_c[s].reshape(E, H * d)).reshape(B, T, H, d),
-                     cos, sin, headed=True) for s in range(S)]
-    ks = [apply_rope((x @ wk_c[s].reshape(E, H * d)).reshape(B, T, H, d),
-                     cos, sin, headed=True) for s in range(S)]
-    v = (x @ wv.to(x.dtype).reshape(E, H * dv)).reshape(B, T, H, dv)
-    return multi_stream_flash_attention_tm(qs, ks, v, coeffs, B, H)
+    rate_live = rate if seed is not None else 0.0
+    if use_tm(S, T, rate_live):
+        if cos is None:
+            wcat = torch.cat([wq[s].reshape(E, H * d) for s in range(S)]
+                             + [wk[s].reshape(E, H * d) for s in range(S)]
+                             + [wv.reshape(E, H * dv)], dim=1).to(x.dtype)
+            return multi_stream_flash_attention_tm_packed(x @ wcat, coeffs, B,
+                                                          H, S, d, dv)
+        wq_c, wk_c = wq.to(x.dtype), wk.to(x.dtype)
+        qs = [apply_rope((x @ wq_c[s].reshape(E, H * d)).reshape(B, T, H, d),
+                         cos, sin, headed=True) for s in range(S)]
+        ks = [apply_rope((x @ wk_c[s].reshape(E, H * d)).reshape(B, T, H, d),
+                         cos, sin, headed=True) for s in range(S)]
+        v = (x @ wv.to(x.dtype).reshape(E, H * dv)).reshape(B, T, H, dv)
+        return multi_stream_flash_attention_tm(qs, ks, v, coeffs, B, H)
+    wcat = torch.cat([wq.permute(1, 0, 2, 3).reshape(E, S * H * d),
+                      wk.permute(1, 0, 2, 3).reshape(E, S * H * d),
+                      wv.reshape(E, H * dv)], dim=1).to(x.dtype)
+    proj = x @ wcat
+    SHd = S * H * d
+
+    def heads(cols):  # (B, T, S, H, d) -> (B*H, S, T, d)
+        return cols.reshape(B, T, S, H, d).permute(0, 3, 2, 1, 4).reshape(
+            B * H, S, T, d)
+
+    q_r, k_r = heads(proj[..., :SHd]), heads(proj[..., SHd:2 * SHd])
+    v_r = proj[..., 2 * SHd:].reshape(B, T, H, dv).transpose(1, 2).reshape(
+        B * H, T, dv)
+    if cos is not None:
+        q_r = apply_rope(q_r, cos, sin, headed=False)
+        k_r = apply_rope(k_r, cos, sin, headed=False)
+    gen = generator(seed, "cpu") if rate_live > 0.0 else None
+    out = multi_stream_flash_attention_bh(q_r, k_r, v_r, coeffs, B, H,
+                                          dropout_rate=rate_live,
+                                          dropout_gen=gen)
+    return out.reshape(B, H, T, dv).transpose(1, 2)
 
 
 def apply_tail(x: torch.Tensor, params: dict) -> torch.Tensor:

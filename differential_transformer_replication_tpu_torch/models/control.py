@@ -2,8 +2,9 @@
 init in the JAX package's layout and the training forward. RoPE is its
 only position encoding; no position table. Its attention is the
 multi-stream form with S = 1 and coefficient 1, on the per-array
-token-major route (models/common.py:flash_attention); its serving
-forward is models/decode.py's."""
+token-major route or, with attention dropout or past T = 512, the
+head-major one (models/common.py:flash_attention); its serving forward
+is models/decode.py's."""
 
 from __future__ import annotations
 
@@ -43,11 +44,15 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
-def _attn(x: torch.Tensor, p: dict, cfg: ModelConfig, cos, sin) -> torch.Tensor:
+def _attn(x: torch.Tensor, p: dict, cfg: ModelConfig, cos, sin,
+          seed=None) -> torch.Tensor:
     B, T, _ = x.shape
+    s_att, s_out = common.split_seed(seed, 2)
     out = common.flash_attention(x, p["wq"][None], p["wk"][None], p["wv"],
-                                 common.layer_coeffs(cfg, p, 1), cos, sin)
-    return common.linear(out.reshape(B, T, -1), p["out"])
+                                 common.layer_coeffs(cfg, p, 1), cos, sin,
+                                 rate=cfg.dropout, seed=s_att)
+    out = common.linear(out.reshape(B, T, -1), p["out"])
+    return common.apply_dropout(out, cfg.dropout, s_out)
 
 
 def embed(params: dict, idx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -56,17 +61,22 @@ def embed(params: dict, idx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def block_forward(x: torch.Tensor, blk: dict, layer_idx: int,
-                  cfg: ModelConfig, cos=None, sin=None) -> torch.Tensor:
+                  cfg: ModelConfig, cos=None, sin=None, seed=None) -> torch.Tensor:
     """One pre-LN residual block (``layer_idx`` unused: no schedule)."""
     del layer_idx
-    a = _attn(common.apply_pre_norm(x, blk["ln1"]), blk["attn"], cfg, cos, sin)
-    return common.apply_block_ffn(x, a, blk)
+    s_attn, s_ffn = common.split_seed(seed, 2)
+    a = _attn(common.apply_pre_norm(x, blk["ln1"]), blk["attn"], cfg, cos, sin,
+              s_attn)
+    return common.apply_block_ffn(x, a, blk, cfg.dropout, s_ffn)
 
 
-def forward(params: dict, idx: torch.Tensor, cfg: ModelConfig, targets=None):
-    """(B, T) int64 tokens -> (logits (B, T, V), loss or None)."""
+def forward(params: dict, idx: torch.Tensor, cfg: ModelConfig, targets=None,
+            seed=None):
+    """(B, T) int64 tokens -> (logits (B, T, V), loss or None); ``seed``
+    turns dropout on (None: eval)."""
     x = embed(params, idx, cfg)
     cos, sin = rope_cos_sin(cfg.head_size, idx.shape[-1], device=x.device)
-    for li, blk in enumerate(params["blocks"], 1):
-        x = block_forward(x, blk, li, cfg, cos, sin)
+    seeds = common.split_seed(seed, cfg.n_layer)
+    for li, (blk, s) in enumerate(zip(params["blocks"], seeds), 1):
+        x = block_forward(x, blk, li, cfg, cos, sin, s)
     return common.tail_and_loss(x, params, cfg, targets)

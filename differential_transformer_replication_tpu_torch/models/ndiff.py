@@ -4,7 +4,8 @@ positions, n_terms Q/K projections stacked on a leading term axis, one
 doubled value, per-term zero-init lambda vectors (the chain where term
 i subtracts term i-1's exponential, the first map scaled by lambda_0),
 1-based layer indices, a full-width GroupLayerNorm and the constant 0.2
-output scale. Its attention takes the per-array token-major route."""
+output scale. Its attention takes the per-array token-major route, or
+the head-major one with attention dropout or past T = 512."""
 
 from __future__ import annotations
 
@@ -48,12 +49,15 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def _attn(x: torch.Tensor, p: dict, layer_idx: int, cfg: ModelConfig, cos,
-          sin) -> torch.Tensor:
+          sin, seed=None) -> torch.Tensor:
     B, T, _ = x.shape
+    s_att, s_out = common.split_seed(seed, 2)
     out = common.flash_attention(x, p["wq"], p["wk"], p["wv"],
-                                 common.layer_coeffs(cfg, p, layer_idx), cos, sin)
+                                 common.layer_coeffs(cfg, p, layer_idx), cos, sin,
+                                 rate=cfg.dropout, seed=s_att)
     out = common.apply_group_norm(out.reshape(B, T, -1), p["gn"])
-    return common.linear(out * OUTPUT_SCALE, p["out"])
+    out = common.linear(out * OUTPUT_SCALE, p["out"])
+    return common.apply_dropout(out, cfg.dropout, s_out)
 
 
 def embed(params: dict, idx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -62,17 +66,21 @@ def embed(params: dict, idx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def block_forward(x: torch.Tensor, blk: dict, layer_idx: int,
-                  cfg: ModelConfig, cos=None, sin=None) -> torch.Tensor:
+                  cfg: ModelConfig, cos=None, sin=None, seed=None) -> torch.Tensor:
     """One pre-LN residual block; ``layer_idx`` is 1-based."""
+    s_attn, s_ffn = common.split_seed(seed, 2)
     a = _attn(common.apply_pre_norm(x, blk["ln1"]), blk["attn"], layer_idx,
-              cfg, cos, sin)
-    return common.apply_block_ffn(x, a, blk)
+              cfg, cos, sin, s_attn)
+    return common.apply_block_ffn(x, a, blk, cfg.dropout, s_ffn)
 
 
-def forward(params: dict, idx: torch.Tensor, cfg: ModelConfig, targets=None):
-    """(B, T) int64 tokens -> (logits (B, T, V), loss or None)."""
+def forward(params: dict, idx: torch.Tensor, cfg: ModelConfig, targets=None,
+            seed=None):
+    """(B, T) int64 tokens -> (logits (B, T, V), loss or None); ``seed``
+    turns dropout on (None: eval)."""
     x = embed(params, idx, cfg)
     cos, sin = rope_cos_sin(cfg.head_size, idx.shape[-1], device=x.device)
-    for li, blk in enumerate(params["blocks"], 1):
-        x = block_forward(x, blk, li, cfg, cos, sin)
+    seeds = common.split_seed(seed, cfg.n_layer)
+    for li, (blk, s) in enumerate(zip(params["blocks"], seeds), 1):
+        x = block_forward(x, blk, li, cfg, cos, sin, s)
     return common.tail_and_loss(x, params, cfg, targets)

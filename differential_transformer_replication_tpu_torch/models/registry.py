@@ -18,9 +18,12 @@ def init_model(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def model_forward(params: dict, idx: torch.Tensor, cfg: ModelConfig,
-                  targets=None):
-    """(B, T) int64 tokens -> (logits (B, T, V), loss or None)."""
-    return _MODULES[cfg.model].forward(params, idx, cfg, targets=targets)
+                  targets=None, seed=None):
+    """(B, T) int64 tokens -> (logits (B, T, V), loss or None). ``seed``
+    (an int) turns on the ``cfg.dropout`` sites, the counterpart of the
+    JAX ``rng``; None is eval."""
+    return _MODULES[cfg.model].forward(params, idx, cfg, targets=targets,
+                                       seed=seed)
 
 
 def param_count(params) -> int:

@@ -36,6 +36,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
 
 # C signature of every kernel library: {library: {function: argtypes}}.
 _PP = ctypes.POINTER(ctypes.c_void_p)  # a host array of device pointers
@@ -59,6 +60,23 @@ SIGNATURES = {
         # T, H, d, dv, ld_qk, ld_v, ld_dqk, ld_dv, scale, dtype, stream
         "flash_tm_bwd": (_PP, _PP, _P, _P, _P, _P, _P, _PP, _PP, _P, _I, _I,
                          _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    },
+    "flash_bh": {
+        # q, k, v, coeffs, out, o_all, lse, S, BH, T, H, d, dv, scale,
+        # w0, w1, threshold, inv_keep, dropout_on, dtype, stream
+        "flash_bh_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _F, _U, _U, _U, _F, _I, _I, _P),
+        # q, k, v, g, lse, delta, coeffs, dq, S, BH, T, H, d, dv, scale,
+        # w0, w1, threshold, inv_keep, dropout_on, dtype, stream
+        "flash_bh_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _F, _U, _U, _U, _F, _I, _I, _P),
+        # ... dk, dv, S, ... (as flash_bh_bwd_dq with two outputs)
+        "flash_bh_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _I, _F, _U, _U, _U, _F, _I, _I, _P),
+        # ... dq, dk, dv, dq_acc, S, ...
+        "flash_bh_bwd_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _F, _U, _U, _U, _F,
+                               _I, _I, _P),
     },
     "decode_attention": {
         # S, B, L, H, M, d, dv, dtype -> workspace floats (-1: refused)

@@ -18,7 +18,7 @@ import torch
 
 from differential_transformer_replication_tpu_torch.config import ModelConfig, TrainConfig
 from differential_transformer_replication_tpu_torch.models import init_model, model_forward
-from differential_transformer_replication_tpu_torch.ops.flash import require_tm
+from differential_transformer_replication_tpu_torch.ops.dropout import fold_seed
 from differential_transformer_replication_tpu_torch.train.anomaly import (
     apply_guard,
     init_guard_state,
@@ -58,8 +58,8 @@ def create_train_state(gen: torch.Generator, cfg: TrainConfig, device) -> dict:
 
 
 def loss_fn(params: dict, x: torch.Tensor, y: torch.Tensor,
-            model_cfg: ModelConfig) -> torch.Tensor:
-    _, loss = model_forward(params, x, model_cfg, targets=y)
+            model_cfg: ModelConfig, seed=None) -> torch.Tensor:
+    _, loss = model_forward(params, x, model_cfg, targets=y, seed=seed)
     return loss
 
 
@@ -77,22 +77,24 @@ def group_norms(tree) -> dict:
 
 
 def make_step_fn(cfg: TrainConfig):
-    """``step(state, batch) -> (state, metrics)``. ``batch`` is ``{"x":
-    (A, B, T), "y": (A, B, T)}`` int64 with A = grad_acc_steps. The state
-    is updated in place and returned; metrics are host floats."""
+    """``step(state, batch, seed=None) -> (state, metrics)``. ``batch`` is
+    ``{"x": (A, B, T), "y": (A, B, T)}`` int64 with A = grad_acc_steps.
+    ``seed`` is the step's dropout seed (None: no dropout); microbatch i
+    runs with ``fold_seed(seed, i)``, as JAX folds ``i`` into the step's
+    key. The state is updated in place and returned; metrics are host
+    floats."""
     model_cfg = cfg.resolved_model()
-    # training runs the token-major kernels only: no attention dropout
-    require_tm(1, model_cfg.block_size, model_cfg.dropout)
     schedule = cosine_warmup_schedule(cfg.learning_rate, cfg.warmup_iters,
                                       cfg.max_iters, cfg.min_lr)
 
-    def step(state: dict, batch: dict):
+    def step(state: dict, batch: dict, seed=None):
         params = state["params"]
         plist = leaves(params)
         n_micro = batch["x"].shape[0]
         grads = loss = None
         for i in range(n_micro):
-            li = loss_fn(params, batch["x"][i], batch["y"][i], model_cfg)
+            si = None if seed is None else fold_seed(seed, i)
+            li = loss_fn(params, batch["x"][i], batch["y"][i], model_cfg, si)
             gi = torch.autograd.grad(li, plist)
             if grads is None:
                 grads, loss = list(gi), li.detach()

@@ -1,21 +1,26 @@
 """Where a train step of the port spends its time on the GPU.
 
-    python -m differential_transformer_replication_tpu_torch.train.step_profile [--model diff]
+    python -m differential_transformer_replication_tpu_torch.train.step_profile \
+        [--model diff] [--block-size 2048 --micro-batch 8 --dropout 0.1]
 
 Builds the recipe (8 layers, width 768, T = 512, vocab 12000, micro-batch
-32, bf16 compute, fp32 params; random weights from seed 0) and runs
-train steps on random batches: a few to warm up, then ``STEPS`` timed by
-the host clock (each step ends in its metrics' device-to-host copy),
-then ``STEPS`` under ``torch.profiler`` to sum the device time of every
-kernel. Prints one JSON line: the card, host wall ms per step, tokens
-per second, device busy ms per step, the device's idle share, peak
-device memory, kernel launches per step of each kernel wrapper, and the
-kernels that take the most device time. Needs a CUDA GPU.
+32, bf16 compute, fp32 params; random weights from seed 0), or the
+context length, micro-batch and dropout given, and runs train
+steps on random batches (each with its own dropout seed when dropout >
+0): a few to warm up, then ``STEPS`` timed by the host clock (each step
+ends in its metrics' device-to-host copy), then ``STEPS`` under
+``torch.profiler`` to sum the device time of every kernel. Prints one
+JSON line: the card, host wall ms per step, tokens per second, device
+busy ms per step, the device's idle share, peak device memory, kernel
+launches per step of each kernel wrapper (head-major ones also by
+route), and the kernels that take the most device time. Needs a CUDA
+GPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import statistics
 import subprocess
@@ -27,6 +32,7 @@ from differential_transformer_replication_tpu_torch.config import (
     ModelConfig,
     TrainConfig,
 )
+from differential_transformer_replication_tpu_torch.ops.dropout import fold_seed
 from differential_transformer_replication_tpu_torch.ops import (
     flash,
     fused_ffn as ffn,
@@ -40,7 +46,10 @@ from differential_transformer_replication_tpu_torch.train.step import (
 WRAPPERS = {"fused_norm": fnr.fused_norm, "fused_add_norm": fnr.fused_add_norm,
             "fused_swiglu": ffn.fused_swiglu, "swiglu_bwd": ffn.swiglu_bwd,
             "add_norm_bwd": fnr.add_norm_bwd, "flash_tm_fwd": flash.flash_tm_fwd,
-            "flash_tm_bwd": flash.flash_tm_bwd}
+            "flash_tm_bwd": flash.flash_tm_bwd, "flash_bh_fwd": flash.flash_bh_fwd,
+            "flash_bh_bwd_dq": flash.flash_bh_bwd_dq,
+            "flash_bh_bwd_dkv": flash.flash_bh_bwd_dkv,
+            "flash_bh_bwd_fused": flash.flash_bh_bwd_fused}
 BATCH, STEPS, WARMUP, TOP = 32, 5, 2, 16
 
 
@@ -51,73 +60,94 @@ def _card() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def main(argv=None) -> None:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--model", choices=("control", "diff", "ndiff"), default="diff")
-    args = p.parse_args(argv)
+def profile(model: str = "diff", block_size: int = 512, micro_batch: int = BATCH,
+            dropout: float = 0.0) -> dict:
+    """The breakdown of one train step of this configuration (see the
+    module docstring); returns the JSON record."""
     if not torch.cuda.is_available():
         raise SystemExit("step_profile needs a CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = TrainConfig(model=ModelConfig(model=args.model), micro_batch_size=BATCH,
-                      warmup_iters=2, learning_rate=1e-3, sampler="replacement")
+    cfg = TrainConfig(model=ModelConfig(model=model, block_size=block_size,
+                                        dropout=dropout),
+                      micro_batch_size=micro_batch, warmup_iters=2,
+                      learning_rate=1e-3, sampler="replacement")
     mcfg = cfg.resolved_model()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     state = create_train_state(gen, cfg, "cuda")
     step = make_train_step(cfg)
     T = mcfg.block_size
+    seeds = itertools.count()
+
+    def run(b):
+        seed = fold_seed(2, next(seeds)) if dropout > 0.0 else None
+        return step(state, b, seed)[0]
 
     def batch():
-        idx = torch.randint(0, mcfg.vocab_size, (1, BATCH, T + 1),
+        idx = torch.randint(0, mcfg.vocab_size, (1, micro_batch, T + 1),
                             generator=gen, device="cuda")
         return {"x": idx[..., :-1], "y": idx[..., 1:]}
 
     for _ in range(WARMUP):
-        state, _ = step(state, batch())
+        state = run(batch())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     wall = []
     for _ in range(STEPS):
         b = batch()
         t0 = time.perf_counter()
-        state, _ = step(state, b)
+        state = run(b)
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated()
 
     for fn in WRAPPERS.values():
         fn.launches = 0
+    flash.reset_bh_counters()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     batches = [batch() for _ in range(STEPS)]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         for b in batches:
-            state, _ = step(state, b)
+            state = run(b)
         torch.cuda.synchronize()
     launches = {k: fn.launches / STEPS for k, fn in WRAPPERS.items()}
+    routes = {k: {r: n / STEPS for r, n in fn.routes.items()}
+              for k, fn in WRAPPERS.items() if getattr(fn, "routes", None)}
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     wall_ms = statistics.median(wall)
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
-    out = {
+    return {
         "card": _card(), "model": mcfg.model, "n_layer": mcfg.n_layer,
-        "micro_batch": BATCH, "T": T, "steps": STEPS,
+        "micro_batch": micro_batch, "T": T, "dropout": dropout, "steps": STEPS,
         "wall_ms_per_step": wall_ms,
-        "tokens_per_s": BATCH * T / wall_ms * 1e3,
+        "tokens_per_s": micro_batch * T / wall_ms * 1e3,
         "device_busy_ms_per_step": busy_us / STEPS / 1e3 if busy_us else None,
         "device_idle_share": (1.0 - busy_us / STEPS / 1e3 / wall_ms
                               if busy_us else None),
         "peak_device_memory_gib": peak / 2 ** 30,
         "device_kernels_per_step": sum(e.count for e in kernels) / STEPS,
         "wrapper_launches_per_step": launches,
+        "head_major_routes_per_step": routes,
         "top_kernels": [
             {"name": e.key[:80], "ms_per_step": e.self_device_time_total
              / STEPS / 1e3, "calls_per_step": e.count / STEPS}
             for e in top[:TOP]
         ],
     }
-    print(json.dumps(out))
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--model", choices=("control", "diff", "ndiff"), default="diff")
+    p.add_argument("--block-size", type=int, default=512)
+    p.add_argument("--micro-batch", type=int, default=BATCH)
+    p.add_argument("--dropout", type=float, default=0.0)
+    args = p.parse_args(argv)
+    print(json.dumps(profile(args.model, args.block_size, args.micro_batch,
+                             args.dropout)))
 
 
 if __name__ == "__main__":

@@ -25,6 +25,7 @@ from differential_transformer_replication_tpu_torch.data.sampler import (
     TokenWindows,
     split_tokens,
 )
+from differential_transformer_replication_tpu_torch.ops.dropout import fold_seed
 from differential_transformer_replication_tpu_torch.train.step import (
     create_train_state,
     make_eval_many,
@@ -150,6 +151,9 @@ def train(cfg: TrainConfig, tokens_path: str, device="cuda") -> tuple:
     eval_many = make_eval_many(cfg)
     data_rng = np.random.default_rng(cfg.seed)
     eval_rng = np.random.default_rng(cfg.seed + 1)
+    # the dropout seed of step i is fold_seed(seed + 2, i): JAX folds the
+    # iteration into PRNGKey(seed + 2); eval runs without one
+    dropout_seed = cfg.seed + 2 if model_cfg.dropout > 0.0 else None
     logger = MetricLogger(cfg, device)
     tokens_per_step = cfg.micro_batch_size * cfg.grad_acc_steps * model_cfg.block_size
     history = []
@@ -164,7 +168,9 @@ def train(cfg: TrainConfig, tokens_path: str, device="cuda") -> tuple:
             batch = train_ds.random_batches(data_rng, cfg.micro_batch_size,
                                             cfg.grad_acc_steps)
             t_step = time.perf_counter()
-            state, metrics = train_step(state, batch)
+            seed = (None if dropout_seed is None
+                    else fold_seed(dropout_seed, iter_num))
+            state, metrics = train_step(state, batch, seed)
             metrics["step_time_ms"] = 1e3 * (time.perf_counter() - t_step)
             history.append(metrics)
             iter_num += 1
