@@ -31,7 +31,13 @@ these phases, each printing its own lines and its seconds:
    S = 5 streams (two passes) in both, each row held to its own scale
    (``testing.py``) and faults planted at T 2048 shown to fail that
    bound, with SDPA's forward and backward beside them at the control
-   shape;
+   shape; kernels-ring: the ring chunk's modes of K1 (no combine) and
+   K2/K3 (per-stream cotangents) at chunk lengths 2048, 4096 and 8192
+   (both sides of the 4096 route split), causal offsets 0, +Tl, +3Tl and
+   -Tl, bf16 and fp32, dropout 0 and 0.1, diff/control/ndiff widths, held
+   row by row, then at each train-ring run's own shapes and offsets;
+   timed at the ring's shapes (diff, B 2, H 4) with the bound
+   of the visible pairs only, SDPA beside them at S 1 and dropout 0;
 3. serve: a diff model at recipe width (random weights from a seed)
    behind the port's HTTP ``serve()``, 12 concurrent ``/generate``
    requests, launch counters read around that run; serve-paged: the
@@ -60,9 +66,24 @@ these phases, each printing its own lines and its seconds:
    8 layers at recipe width; exact launch counts per route and step, a
    falling loss on a repeated batch; then ``train/step_profile.py`` of
    the T 2048 and T 8192 dropout steps;
+   train-ring: sequence-parallel training through the ring (ring flash
+   attention over P ranks, ``parallel/ring.py``): the trainer's command
+   line under ``torch.distributed.run`` with ``--dist-backend gloo``, the
+   P ranks sharing this card, diff at recipe width, 8 layers, dropout 0.1,
+   16,384 tokens per step: P 2 at T 8192 (chunk routes resident +
+   split), P 4 at T 8192, P 2 at T 16384 (tiled), control P 2 at T 8192;
+   exact launches per route and rank, losses equal on every rank and
+   falling on a repeated batch, params bit-identical across ranks; with
+   two or more cards the first run again over nccl (else a line says the
+   leg was not run); the first run's ranks then run
+   ``train/step_profile.py`` over the ring (rank 0: wall, busy, the
+   exchanges' host time);
 6. train e2e: one train step of a 2-layer diff model at recipe width in
    fp32, loss and every gradient on the card (kernels) against the CPU
-   (plain versions); again at T 640 through the head-major route.
+   (plain versions); again at T 640 through the head-major route;
+   train-ring-e2e: one fp32 step of a 2-layer diff and control at recipe
+   width, T 1024, over P 2 and 4 gloo ranks on the card against the
+   single-card head-major step (loss, grads, updated params).
 
 It then prints the kernels' JSON summary, the card line, and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -1709,6 +1730,528 @@ def run_train_hm(torch, card: str, tokens) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2, continued (kernels-ring): the ring chunk's kernel modes, K1
+# without the combine and K2/K3 with per-stream cotangents, under causal
+# offsets, against their plain versions
+# ---------------------------------------------------------------------------
+
+RING_RATE = 0.1
+# (family, S, H, d, dv) at recipe width
+RING_FAMILIES = (("diff", 2, 4, 96, 192), ("control", 1, 8, 96, 96),
+                 ("ndiff", 4, 4, 96, 192))
+RING_TLS = (2048, 4096, 8192)         # chunk lengths: both sides of 4096
+RING_OFFS = (0, 1, 3, -1)             # offsets in chunk lengths
+RING_DTYPE_RATES = (("bfloat16", RING_RATE), ("float32", 0.0),
+                    ("bfloat16", 0.0), ("float32", RING_RATE))
+# JSON entries of the ring path: (name, Tl, kernel, TPU function line)
+RING_ENTRIES = (
+    ("flash_chunk_fwd", 4096, "fwd", 1579), ("flash_chunk_fwd_tiled", 8192, "fwd", 572),
+    ("flash_chunk_bwd_dq", 4096, "dq", 1011), ("flash_chunk_bwd_dkv", 4096, "dkv", 1108),
+    ("flash_chunk_bwd_dq_tiled", 8192, "dq", 721),
+    ("flash_chunk_bwd_dkv_tiled", 8192, "dkv", 795),
+)
+# the wrapper and route each entry's launches are counted under
+RING_COUNTS = {
+    "flash_chunk_fwd": ("flash_chunk_fwd", "chunk-resident"),
+    "flash_chunk_fwd_tiled": ("flash_chunk_fwd", "chunk-tiled"),
+    "flash_chunk_bwd_dq": ("flash_chunk_bwd_dq", "chunk-split"),
+    "flash_chunk_bwd_dkv": ("flash_chunk_bwd_dkv", "chunk-split"),
+    "flash_chunk_bwd_dq_tiled": ("flash_chunk_bwd_dq", "chunk-tiled"),
+    "flash_chunk_bwd_dkv_tiled": ("flash_chunk_bwd_dkv", "chunk-tiled"),
+}
+
+
+def chunk_operands(torch, gen, dtype, S, BH, T, d, dv):
+    q, k = (torch.randn(BH, S, T, d, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    v = torch.randn(BH, T, dv, generator=gen, device="cuda").to(dtype)
+    do = torch.randn(BH, S, T, dv, generator=gen, device="cuda").to(dtype)
+    return q, k, v, do
+
+
+def chunk_check(torch, flash, dtype, q, k, v, do, off, rate):
+    """K1 (no combine), K2 and K3 (per-stream cotangents) at offset
+    ``off`` against their plain versions, row by row (``testing.py``).
+    Returns ({kernel: max-abs error}, {kernel: worst row's share of its
+    bound}, (the plain lse, delta))."""
+    from differential_transformer_replication_tpu_torch import testing
+
+    words = HM_WORDS if rate > 0 else (0, 0)
+    o_all, lse = flash.flash_chunk_fwd(q, k, v, off, rate, words)
+    _, r_o, r_lse = flash.bh_attention_fwd_reference(q, k, v, None, rate, words, off)
+    # delta as the chunk backward forms it (rowsum(do . o)), lse cotangent 0
+    delta = torch.einsum("bstd,bstd->bst", do.float(), r_o.float()).contiguous()
+    bwd = (q, k, v, do, r_lse, delta, off, rate, words)
+    dq = flash.flash_chunk_bwd_dq(*bwd)
+    dk, dv = flash.flash_chunk_bwd_dkv(*bwd)
+    rq, rk, rv = flash.bh_attention_bwd_reference(q, k, v, do, r_lse, delta, None,
+                                                  rate, words, off)
+    torch.cuda.synchronize()
+    fwd_bounds = ((testing.FP32_FWD_ROW, testing.FP32_FWD_FLOOR)
+                  if dtype == torch.float32 else (testing.BF16_ROW, testing.BF16_FLOOR))
+    ratios = {"fwd": testing.row_ratio(o_all, r_o, *fwd_bounds),
+              "dq": testing.grad_ratio(dq, rq),
+              "dkv": max(testing.grad_ratio(dk, rk), testing.grad_ratio(dv, rv))}
+    errs = {"fwd": max_err(o_all, r_o), "dq": max_err(dq, rq),
+            "dkv": max(max_err(dk, rk), max_err(dv, rv))}
+    masked = r_lse < -1e29  # rows with no visible key: lse = -1e30 exactly
+    live = ~masked
+    l_err = max_err(lse[live], r_lse[live]) if bool(live.any()) else 0.0
+    expect(bool(torch.isfinite(lse).all()) and torch.equal(lse[masked], r_lse[masked])
+           and l_err <= 1e-5 * max(float(r_lse[live].abs().max()) if bool(live.any())
+                                   else 1.0, 1.0),
+           f"flash_chunk_fwd {dtype} off={off}: lse {l_err:.3g} from the plain lse, "
+           "or a masked row's lse is not -1e30")
+    for name, r in ratios.items():
+        expect(r <= 1.0, f"flash_chunk {name} {dtype} off={off}: worst row at {r:.3g} "
+               f"of its bound (max-abs {errs[name]:.3g})")
+    return errs, ratios, (r_lse, delta)
+
+
+def run_ring_kernels(torch, flash) -> dict:
+    """Phase kernels-ring. Returns {name: json entry sans launches}."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    # correctness: each chunk length, offset, dtype and rate, the family
+    # cycling, at 2 heads (B*H = 2); past 4096 fp32 (the exact SIMT loop)
+    # takes one rate per offset, both rates over the offsets
+    worst = {}
+    n = 0
+    for Tl in RING_TLS:
+        for oi, om in enumerate(RING_OFFS):
+            for di, (dname, rate) in enumerate(RING_DTYPE_RATES):
+                if Tl > 4096 and dname == "float32" and (rate > 0) != (oi % 2 == 1):
+                    continue
+                fam, S, _, d, dv = RING_FAMILIES[(oi + di) % len(RING_FAMILIES)]
+                dtype = getattr(torch, dname)
+                q, k, v, do = chunk_operands(torch, gen, dtype, S, 2, Tl, d, dv)
+                errs, ratios, _ = chunk_check(torch, flash, dtype, q, k, v, do,
+                                              om * Tl, rate)
+                for kern, r in ratios.items():
+                    key = (kern, dname)
+                    worst[key] = max(worst.get(key, 0.0), r)
+                n += 1
+                del q, k, v, do
+        log(f"[kernels-ring] Tl={Tl} (routes {flash.chunk_fwd_route(Tl)}, "
+            f"{flash.chunk_bwd_route(Tl)}): offsets {[o * Tl for o in RING_OFFS]}, "
+            "bf16 and fp32 at dropout 0 and 0.1, diff/control/ndiff widths: held")
+        torch.cuda.empty_cache()
+    log(f"[kernels-ring] {n} checks; worst row's share of its bound per kernel and "
+        "dtype: " + ", ".join(f"{k} {d} {r:.3g}" for (k, d), r in sorted(worst.items())))
+
+    # each train-ring run's own chunk shapes (its B*H, S, Tl, d, dv; bf16,
+    # dropout 0.1) at every offset its ranks meet: k*Tl, |k| < P
+    fams = {f[0]: f for f in RING_FAMILIES}
+    for label, model, P, T, B, _ in RING_RUNS:
+        _, S, H, d, dv = fams[model]
+        Tl = T // P
+        q, k, v, do = chunk_operands(torch, gen, torch.bfloat16, S, B * H, Tl, d, dv)
+        run_worst = {}
+        for m in range(1 - P, P):
+            _, ratios, _ = chunk_check(torch, flash, torch.bfloat16, q, k, v, do,
+                                       m * Tl, RING_RATE)
+            for kern, r in ratios.items():
+                run_worst[kern] = max(run_worst.get(kern, 0.0), r)
+        log(f"[kernels-ring] {label} shapes (B*H {B * H}, S {S}, Tl {Tl}, d {d}, dv {dv}"
+            f", bf16, dropout {RING_RATE}) at offsets {[m * Tl for m in range(1 - P, P)]}:"
+            " held; worst row's share of its bound "
+            + ", ".join(f"{kern} {r:.3g}" for kern, r in run_worst.items()))
+        del q, k, v, do
+        torch.cuda.empty_cache()
+
+    # times at the ring's shapes: diff, B 2, H 4, bf16, dropout 0.1
+    entries = {}
+    fam, S, H, d, dv = RING_FAMILIES[0]
+    B, es, dtype = 2, 2, torch.bfloat16
+    BH = B * H
+    for Tl in (4096, 8192):
+        q, k, v, do = chunk_operands(torch, gen, dtype, S, BH, Tl, d, dv)
+        kw = dict(iters=2, reps=3) if Tl > 4096 else few(True)
+        times = {}
+        for om in (1, 0, -1):
+            off = om * Tl
+            errs, ratios, (lse, delta) = chunk_check(torch, flash, dtype, q, k, v, do,
+                                                     off, RING_RATE)
+            words = HM_WORDS
+            pairs = {1: Tl * Tl, 0: Tl * (Tl + 1) // 2, -1: 0}[om]  # visible, per bh
+            qkv = BH * Tl * (2 * S * d + dv) * es
+            work = {
+                "fwd": (lambda: flash.flash_chunk_fwd(q, k, v, off, RING_RATE, words),
+                        lambda: flash.bh_attention_fwd_reference(
+                            q, k, v, None, RING_RATE, words, off),
+                        qkv + BH * S * Tl * (dv * es + 4),
+                        BH * pairs * S * (2 * d + 2 * dv)),
+                "dq": (lambda: flash.flash_chunk_bwd_dq(q, k, v, do, lse, delta, off,
+                                                        RING_RATE, words),
+                       None, qkv + BH * S * Tl * (dv * es + 8 + d * es),
+                       BH * pairs * S * (4 * d + 2 * dv)),
+                "dkv": (lambda: flash.flash_chunk_bwd_dkv(q, k, v, do, lse, delta, off,
+                                                          RING_RATE, words),
+                        None, qkv + BH * S * Tl * (dv * es + 8 + d * es)
+                        + BH * Tl * dv * es,
+                        BH * pairs * S * (4 * d + 4 * dv)),
+            }
+            plain_bwd = lambda: flash.bh_attention_bwd_reference(  # noqa: E731
+                q, k, v, do, lse, delta, None, RING_RATE, words, off)
+            for kern, (k_call, p_call, nbytes, flops) in work.items():
+                t = timings([k_call], [p_call or plain_bwd], None, **kw)
+                bms, by = bound_ms(nbytes, flops, dtype)
+                times[(kern, om)] = (t, bms, by, errs[kern])
+                log(f"[kernels-ring] flash_chunk {kern} bf16 diff Tl={Tl} B={B} off="
+                    f"{off} ({flash.chunk_fwd_route(Tl) if kern == 'fwd' else flash.chunk_bwd_route(Tl)}"
+                    f", dropout {RING_RATE}): " + fmt_times(t, bms, by)
+                    + ("" if p_call else "; plain is the whole plain backward")
+                    + "; worst row at " + f"{ratios[kern]:.3g} of its bound")
+            del lse, delta, work
+        for name, eTl, kern, line in RING_ENTRIES:
+            if eTl != Tl:
+                continue
+            t, bms, by, err = times[(kern, 1)]  # the full chunk (off = +Tl)
+            entries[name] = dict(
+                name=name, route="cuda", source=SRC + "csrc/flash_bh.cu",
+                replaces=TPU + f"flash.py:{line}", max_abs_err=err, ms=t["ms"],
+                plain_ms=t["plain_ms"], bound_ms=bms, bound_by=by, library_ms=None)
+        del q, k, v, do
+        torch.cuda.empty_cache()
+
+    # the one-call yardstick, S = 1 at dropout 0 (control width, Tl 4096):
+    # SDPA causal against off 0, non-causal against off +Tl
+    fam, S, H, d, dv = RING_FAMILIES[1]
+    Tl = 4096
+    q, k, v, _ = chunk_operands(torch, gen, dtype, S, B * H, Tl, d, dv)
+    qt, kt, vt = (x.reshape(B, H, Tl, -1) for x in (q, k, v))
+    for om, causal in ((0, True), (1, False)):
+        lib = device_ms([lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal)], **few(True))
+        kern = device_ms([lambda: flash.flash_chunk_fwd(q, k, v, om * Tl, 0.0, (0, 0))],
+                         **few(True))
+        log(f"[kernels-ring] control Tl={Tl} B={B} H={H} off={om * Tl} at dropout 0: "
+            f"chunk K1 {kern * 1e3:.2f} us, SDPA ({'causal' if causal else 'non-causal'})"
+            f" {lib * 1e3:.2f} us (device)")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 5c (train-ring): sequence-parallel training through the ring, P
+# ranks sharing this card over gloo (the ranks are processes started with
+# torch.distributed.run, each running this script as a worker)
+# ---------------------------------------------------------------------------
+
+# (label, model, P, T, micro-batch, steps): 16,384 tokens per step
+RING_RUNS = (("diff P=2 T=8192", "diff", 2, 8192, 2, 3),
+             ("diff P=4 T=8192", "diff", 4, 8192, 2, 3),
+             ("diff P=2 T=16384", "diff", 2, 16384, 1, 3),
+             ("control P=2 T=8192", "control", 2, 8192, 2, 3))
+RING_EVAL_ITERS = 1
+RING_TIMEOUT_S = 300
+
+
+def _port_counters():
+    from differential_transformer_replication_tpu_torch.ops import flash
+
+    counters = _train_counters()
+    for fn in flash.BH_WRAPPERS + flash.CHUNK_WRAPPERS:
+        counters[fn.__name__] = fn
+    return counters
+
+
+def launch_ranks(P: int, spec: dict, timeout: float = RING_TIMEOUT_S) -> list:
+    """Run ``spec`` on P rank processes of this script (``--ring-worker``)
+    under torch.distributed.run; every rank must exit 0 in time. Returns
+    each rank's JSON record."""
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / "ring"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    spec = dict(spec, out=str(out_dir / spec["label"].replace(" ", "_").replace("=", "")))
+    for r in range(P):
+        Path(f"{spec['out']}.rank{r}.json").unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={P}", str(Path(__file__).resolve()),
+           "--ring-worker", json.dumps(spec)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+    expect(proc.returncode == 0, f"{spec['label']}: a rank failed (exit "
+           f"{proc.returncode}):\n{proc.stdout[-4000:]}\n{proc.stderr[-6000:]}")
+    return [json.loads(Path(f"{spec['out']}.rank{r}.json").read_text())
+            for r in range(P)]
+
+
+def ring_worker(spec: dict) -> int:
+    """One rank of a train-ring or train-ring-e2e run (see launch_ranks)."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from differential_transformer_replication_tpu_torch.config import (
+        MeshConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+    from differential_transformer_replication_tpu_torch.ops import flash
+    from differential_transformer_replication_tpu_torch.ops.dropout import fold_seed
+    from differential_transformer_replication_tpu_torch.parallel import init_sequence_group
+    from differential_transformer_replication_tpu_torch.train import __main__ as cli
+    from differential_transformer_replication_tpu_torch.train.optim import leaves
+    from differential_transformer_replication_tpu_torch.train.step import (
+        make_eval_step,
+        make_grad_fn,
+        make_train_step,
+        train_state,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = spec["backend"]
+    # the ring's group, joined here so that it outlives the trainer's run
+    # (the trainer joins it rather than making its own)
+    sg = init_sequence_group(backend, "cuda")
+    rank, P = sg.rank, sg.size
+    rec = {"rank": rank, "device": str(sg.device)}
+
+    def checksum(params):
+        flat = torch.cat([t.detach().reshape(-1) for t in leaves(params)])
+        return hashlib.sha1(flat.cpu().numpy().tobytes()).hexdigest()
+
+    if spec["task"] == "train":
+        counters = _port_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        flash.reset_bh_counters()
+        state, history = cli.run(spec["argv"])
+        torch.cuda.synchronize()
+        rec["launches"] = {k: fn.launches for k, fn in counters.items()}
+        rec["routes"] = {f"{fn.__name__}/{r}": n
+                         for fn in flash.BH_WRAPPERS + flash.CHUNK_WRAPPERS
+                         for r, n in fn.routes.items()}
+        rec["losses"] = [m["loss"] for m in history]
+        rec["bad"] = [m["bad"] for m in history]
+        rec["step_ms"] = [m["step_time_ms"] for m in history]
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rec["checksum"] = checksum(state["params"])
+        # a few steps on ONE repeated batch, each with its own dropout seed:
+        # the dropout-free eval loss on it must fall
+        args = cli.build_parser().parse_args(spec["argv"])
+        cfg = cli.config_from_args(args)
+        step = make_train_step(cfg.replace(max_iters=1000), sg)
+        eval_step = make_eval_step(cfg, sg)
+        g = torch.Generator(device=sg.device)
+        g.manual_seed(1)
+        T = cfg.model.block_size
+        idx = torch.randint(0, cfg.vocab_size, (1, args.micro_batch_size, T + 1),
+                            generator=g, device=sg.device)
+        batch = {"x": idx[..., :-1], "y": idx[..., 1:]}
+        rec["before"] = float(eval_step(state["params"], batch["x"][0], batch["y"][0]))
+        rec["repeat"] = []
+        for i in range(REPEAT_STEPS):
+            state, m = step(state, batch, fold_seed(99, i))
+            rec["repeat"].append(m["loss"])
+        rec["after"] = float(eval_step(state["params"], batch["x"][0], batch["y"][0]))
+        rec["checksum_after"] = checksum(state["params"])
+        if spec.get("profile"):
+            # where the ring step's time goes: train/step_profile.py on
+            # these ranks (rank 0 profiled; it joins this group)
+            from differential_transformer_replication_tpu_torch.train import step_profile
+
+            del state, step, eval_step
+            rec["profile"] = step_profile.profile(
+                args.model, T, args.micro_batch_size, HM_RATE, P, backend)
+    else:  # e2e: one fp32 step from a seeded init, grads and params
+        for kind in ("diff", "control"):
+            mcfg = ModelConfig(**dict(RECIPE, model=kind, n_layer=2, block_size=1024),
+                               compute_dtype="float32")
+            tcfg = TrainConfig(model=mcfg, mesh=MeshConfig(sequence=P),
+                               vocab_size=RECIPE["vocab_size"], micro_batch_size=1,
+                               warmup_iters=0, learning_rate=1e-3, sampler="replacement")
+            params, batch = e2e_inputs(torch, tcfg)
+            state = train_state(params, tcfg, sg.device)
+            batch = {k: t.to(sg.device) for k, t in batch.items()}
+            loss, grads = make_grad_fn(tcfg, sg)(state["params"], batch)
+            state, m = make_train_step(tcfg, sg)(state, batch)
+            rec[kind] = {"loss": m["loss"], "grad_norm": m["grad_norm"],
+                         "checksum": checksum(state["params"])}
+            if rank == 0:
+                torch.save({"grads": [t.cpu() for t in grads],
+                            "params": [t.detach().cpu() for t in leaves(state["params"])]},
+                           f"{spec['out']}.{kind}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    Path(f"{spec['out']}.rank{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
+def ring_argv(model: str, P: int, T: int, B: int, steps: int, tokens, backend: str,
+              metrics: str) -> list:
+    """The trainer's command line for one train-ring run (what a user runs
+    under torchrun)."""
+    return ["--model", model, "--tokens", str(tokens), "--sampler", "replacement",
+            "--device", "cuda", "--n-embd", str(RECIPE["n_embd"]),
+            "--n-head", str(RECIPE["n_head"]), "--n-layer", str(RECIPE["n_layer"]),
+            "--block-size", str(T), "--vocab-size", str(RECIPE["vocab_size"]),
+            "--micro-batch-size", str(B), "--max-iters", str(steps),
+            "--eval-interval", str(steps), "--eval-iters", str(RING_EVAL_ITERS),
+            "--warmup-iters", "2", "--learning-rate", "1e-3", "--dropout", str(HM_RATE),
+            "--compute-dtype", "bfloat16", "--log-interval", "1", "--seed", "0",
+            "--metrics-path", metrics, "--sequence-parallel", str(P),
+            "--dist-backend", backend]
+
+
+def run_train_ring(torch, card: str, tokens) -> dict:
+    """Phase train-ring. Returns the launch count of each ring JSON entry
+    (wrapper and route), summed over the ranks of the four runs."""
+    from differential_transformer_replication_tpu_torch.ops import flash
+
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    totals = {name: 0 for name in RING_COUNTS}
+    runs = [(label, model, P, T, B, steps, "gloo")
+            for label, model, P, T, B, steps in RING_RUNS]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        runs.append(("diff P=2 T=8192 nccl", "diff", 2, 8192, 2, 3, "nccl"))
+    else:
+        log(f"[train-ring] NCCL leg not run: this machine has {n_cards} card "
+            "(it needs one card per rank, 2); the runs below are gloo ranks sharing "
+            "one card")
+    prof = None
+    for i, (label, model, P, T, B, steps, backend) in enumerate(runs):
+        argv = ring_argv(model, P, T, B, steps, tokens, backend,
+                         str(out_dir / f"metrics_ring_{model}_P{P}_T{T}.jsonl"))
+        t0 = time.perf_counter()
+        recs = launch_ranks(P, {"label": label, "task": "train", "argv": argv,
+                                "backend": backend, "profile": i == 0})
+        prof = prof or recs[0].get("profile")
+        wall = time.perf_counter() - t0
+        Tl, L = T // P, RECIPE["n_layer"]
+        r0 = recs[0]
+        losses = r0["losses"]
+        expect(len(losses) == steps and all(math.isfinite(x) for x in losses),
+               f"{label}: non-finite or missing losses {losses}")
+        expect(all(b == 0 for b in r0["bad"]), f"{label}: a step was skipped")
+        expect(all(r["losses"] == losses for r in recs),
+               f"{label}: the ranks report different losses")
+        expect(len({r["checksum"] for r in recs}) == 1
+               and len({r["checksum_after"] for r in recs}) == 1,
+               f"{label}: the params differ between ranks")
+        # per rank and layer: P chunk forwards per forward (train steps and
+        # 2 * eval_iters eval batches), P chunk backwards (dq, dk/dv) per
+        # train step; the last rotation is skipped (P - 1 per layer and
+        # direction) but no chunk is: masked chunks launch and write zeros
+        fr, br = flash.chunk_fwd_route(Tl), flash.chunk_bwd_route(Tl)
+        n_fwd = steps + 2 * RING_EVAL_ITERS
+        want = {f"flash_chunk_fwd/{fr}": L * P * n_fwd,
+                f"flash_chunk_bwd_dq/{br}": L * P * steps,
+                f"flash_chunk_bwd_dkv/{br}": L * P * steps}
+        for r in recs:
+            expect(r["routes"] == want, f"{label} rank {r['rank']}: launches by route "
+                   f"{r['routes']}, expected {want}")
+            for name in ("fused_norm", "fused_add_norm", "fused_swiglu", "add_norm_bwd",
+                         "swiglu_bwd"):
+                expect(r["launches"][name] > 0, f"{label}: {name} never launched")
+        if backend == "gloo":
+            for name, (fn, route) in RING_COUNTS.items():
+                totals[name] += sum(r["routes"].get(f"{fn}/{route}", 0) for r in recs)
+        log(f"[train-ring] {label}: {model}, {L} layers, width {RECIPE['n_embd']}, "
+            f"T {T} over {P} ranks (Tl {Tl}), micro-batch {B}, attention/residual/FFN "
+            f"dropout {HM_RATE}, bf16, {backend}; {steps} trainer steps in {wall:.1f} s "
+            f"(process start and eval included); losses {[round(x, 4) for x in losses]}; "
+            f"rank 0 step ms {[round(x, 1) for x in r0['step_ms']]}; peak device memory "
+            f"per rank {[round(r['peak_gib'], 2) for r in recs]} GiB; launches per rank "
+            f"by route {want} (fwd {fr}, bwd {br}); params equal on all ranks "
+            f"({r0['checksum'][:12]}); {card}; ranks share one card: not a multi-card "
+            "ring")
+        log(f"[train-ring] {label}: one repeated batch, loss {r0['before']:.4f} -> "
+            f"{[round(x, 4) for x in r0['repeat']]} -> {r0['after']:.4f}")
+        expect(math.isfinite(r0["after"]) and r0["after"] < r0["before"],
+               f"{label}: the loss on a repeated batch did not fall "
+               f"({r0['before']} -> {r0['repeat']} -> {r0['after']})")
+    # where the ring step's time goes: train/step_profile.py on run (a)'s
+    # ranks, after its trainer run
+    expect(prof is not None, f"{runs[0][0]}: no step profile")
+    top = ", ".join(f"{k['name'][:40]} {k['ms_per_step']:.2f}"
+                    for k in prof["top_kernels"][:8])
+    log(f"[train-ring] step_profile diff P=2 T=8192 B=2 dropout {HM_RATE} (gloo, ranks "
+        f"sharing one card; rank 0 profiled): wall {prof['wall_ms_per_step']:.1f} ms "
+        f"({prof['tokens_per_s']:.0f} tok/s over the ring), rank 0 busy "
+        f"{prof['device_busy_ms_per_step']:.1f} ms, {prof['rotations_per_step']:.0f} "
+        f"exchanges/step of {prof['rotation_mb_per_step']:.1f} MB in all, their host "
+        f"time {prof['rotation_host_ms_per_step']:.1f} ms/step, peak "
+        f"{prof['peak_device_memory_gib']:.2f} GiB, routes "
+        f"{prof['head_major_routes_per_step']}; top device ms/step: {top}")
+    return totals
+
+
+def e2e_inputs(torch, tcfg):
+    """The seeded params and batch of the train-ring-e2e step (the same in
+    every process that asks)."""
+    from differential_transformer_replication_tpu_torch.models import init_model
+
+    mcfg = tcfg.resolved_model()
+    gen = torch.Generator()
+    gen.manual_seed(21)
+    params = init_model(gen, mcfg)
+    idx = torch.randint(0, mcfg.vocab_size, (1, tcfg.micro_batch_size,
+                                             mcfg.block_size + 1), generator=gen)
+    return params, {"x": idx[..., :-1], "y": idx[..., 1:]}
+
+
+def run_train_ring_e2e(torch) -> None:
+    """Phase train-ring-e2e: one fp32 step of a 2-layer diff and control at
+    recipe width, T 1024, over P = 2 and 4 gloo ranks on this card, against
+    the single-card head-major step from the same params and batch."""
+    from differential_transformer_replication_tpu_torch.config import (
+        ModelConfig,
+        TrainConfig,
+    )
+    from differential_transformer_replication_tpu_torch.train.optim import leaves
+    from differential_transformer_replication_tpu_torch.train.step import (
+        make_grad_fn,
+        make_train_step,
+        train_state,
+    )
+
+    ref = {}
+    for kind in ("diff", "control"):
+        mcfg = ModelConfig(**dict(RECIPE, model=kind, n_layer=2, block_size=1024),
+                           compute_dtype="float32")
+        tcfg = TrainConfig(model=mcfg, vocab_size=RECIPE["vocab_size"],
+                           micro_batch_size=1, warmup_iters=0, learning_rate=1e-3,
+                           sampler="replacement")
+        params, batch = e2e_inputs(torch, tcfg)
+        state = train_state(params, tcfg, "cuda")
+        batch = {k: t.cuda() for k, t in batch.items()}
+        _, grads = make_grad_fn(tcfg)(state["params"], batch)
+        state, m = make_train_step(tcfg)(state, batch)
+        ref[kind] = (m, [g.cpu() for g in grads],
+                     [t.detach().cpu() for t in leaves(state["params"])])
+    lr = 1e-3
+    for P in (2, 4):
+        recs = launch_ranks(P, {"label": f"e2e P={P}", "task": "e2e",
+                                "backend": "gloo"})
+        base = (Path(__file__).resolve().parent / "build" / "chip_smoke" / "ring"
+                / f"e2e_P{P}")
+        for kind, (m, grads, params) in ref.items():
+            got = torch.load(f"{base}.{kind}.pt")
+            r0 = recs[0][kind]
+            rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                      for a, b in zip(got["grads"], grads))
+            p_max = max(float((a - b).abs().max()) for a, b in zip(got["params"], params))
+            p_mean = max(float((a - b).abs().mean()) for a, b in zip(got["params"], params))
+            log(f"[train-ring-e2e] {kind} recipe width, 2 layers, fp32, T 1024 over P={P} "
+                f"gloo ranks vs one card (head-major): loss {r0['loss']:.6f} vs "
+                f"{m['loss']:.6f} (bound 1e-5), grad norm {r0['grad_norm']:.6f} vs "
+                f"{m['grad_norm']:.6f} (1e-4 relative), worst gradient {rel:.3g} of its "
+                f"leaf's max (1e-3), params after the step max {p_max:.3g} (2 lr = "
+                f"{2 * lr}), mean {p_mean:.3g} (1e-6); params equal on all ranks")
+            expect(abs(r0["loss"] - m["loss"]) <= 1e-5, f"e2e P={P} {kind}: loss")
+            expect(abs(r0["grad_norm"] - m["grad_norm"]) <= 1e-4 * m["grad_norm"],
+                   f"e2e P={P} {kind}: grad norm")
+            expect(rel <= 1e-3, f"e2e P={P} {kind}: gradients differ: {rel:.3g}")
+            expect(p_max <= 2 * lr and p_mean <= 1e-6, f"e2e P={P} {kind}: params")
+            expect(len({r[kind]["checksum"] for r in recs}) == 1,
+                   f"e2e P={P} {kind}: the params differ between ranks")
+
+
+# ---------------------------------------------------------------------------
 # phase 6: one train step, the card's kernels against the CPU's plain versions
 # ---------------------------------------------------------------------------
 
@@ -1787,6 +2330,8 @@ def run_train_e2e(torch) -> None:
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 3 and sys.argv[1] == "--ring-worker":
+        return ring_worker(json.loads(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs one "
               "GPU", file=sys.stderr)
@@ -1840,6 +2385,7 @@ def main() -> int:
     entries.update(phase("kernels-train", run_train_kernels, torch,
                          (fnr, ffn, flash)))
     entries.update(phase("kernels-hm", run_bh_kernels, torch, flash))
+    entries.update(phase("kernels-ring", run_ring_kernels, torch, flash))
     serve_counts = phase("serve", run_serve, torch, card)
     serve_counts.update(phase("serve-paged", run_serve_paged, torch, card))
     phase("e2e", run_e2e, torch)
@@ -1847,6 +2393,10 @@ def main() -> int:
     hm_counts = phase("train-hm", run_train_hm, torch, card,
                       Path(__file__).resolve().parent / "build" / "chip_smoke"
                       / "tokens.npy")
+    ring_counts = phase("train-ring", run_train_ring, torch, card,
+                        Path(__file__).resolve().parent / "build" / "chip_smoke"
+                        / "tokens.npy")
+    phase("train-ring-e2e", run_train_ring_e2e, torch)
     phase("train-e2e", run_train_e2e, torch)
     log(f"[done] phases {', '.join(f'{k} {v:.1f} s' for k, v in phases.items())}; "
         f"total {time.perf_counter() - t_all:.1f} s")
@@ -1854,8 +2404,11 @@ def main() -> int:
     for name, ent in entries.items():
         # serving kernels: launches over the served run; training
         # kernels: over the diff recipe's trainer run;
-        # head-major kernels: over the train-hm runs, by route
-        if name in hm_counts:
+        # head-major kernels: over the train-hm runs, by route; the ring
+        # chunk modes: over the train-ring runs' ranks, by route
+        if name in ring_counts:
+            ent["launches"] = ring_counts[name]
+        elif name in hm_counts:
             ent["launches"] = hm_counts[name]
         elif name in ("flash_tm_fwd", "flash_tm_bwd", "add_norm_bwd", "swiglu_bwd"):
             ent["launches"] = train_counts[name]

@@ -324,6 +324,45 @@ class ServingConfig:
         return dataclasses.replace(self, **kw)
 
 
+# the mesh axes the port does not run yet -> the ROADMAP item that brings it
+LATER_MESH_AXES = {
+    "data": "data parallelism (ROADMAP Queue A: parallelism, DDP/FSDP)",
+    "fsdp": "FSDP (ROADMAP Queue A: parallelism, DDP/FSDP)",
+    "tensor": "tensor parallelism (ROADMAP Queue A: parallelism)",
+    "pipeline": "pipeline parallelism (ROADMAP Queue A: parallelism)",
+}
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """A copy of the JAX package's MeshConfig (the same axes, defaults and
+    order). The port runs the ``sequence`` axis (ring attention over
+    ``torch.distributed`` ranks, ``parallel/``); every other axis must
+    stay 1 and names the ROADMAP item that brings it."""
+
+    pipeline: int = 1
+    data: int = 1
+    fsdp: int = 1
+    tensor: int = 1
+    sequence: int = 1
+
+    def __post_init__(self):
+        for name in ("pipeline", "data", "fsdp", "tensor", "sequence"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"mesh axis {name} must be >= 1, got "
+                                 f"{getattr(self, name)}")
+        for name, item in LATER_MESH_AXES.items():
+            if getattr(self, name) != 1:
+                raise NotImplementedError(
+                    f"MeshConfig.{name}={getattr(self, name)}: the port does "
+                    f"not run {item} yet; only the sequence axis may be > 1"
+                )
+
+    @property
+    def n_devices(self) -> int:
+        return self.data * self.fsdp * self.tensor * self.sequence * self.pipeline
+
+
 # TrainConfig fields the training slice keeps (so a JAX recipe's config
 # carries over) but does not run yet: each must stay at its default, and
 # the ROADMAP item that brings it is named when it does not.
@@ -367,10 +406,11 @@ class TrainConfig:
     """The training recipe: a copy of the JAX package's TrainConfig
     (same names, defaults and meaning). The fields in
     :data:`LATER_SLICE_FIELDS` are kept for config round-trips and must
-    stay at their defaults; the mesh of the JAX config is absent (one
-    card; parallelism is a later slice)."""
+    stay at their defaults. ``mesh.sequence`` > 1 is the sequence-parallel
+    ring over that many ranks (the other mesh axes are refused)."""
 
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
     # Optimization
     grad_acc_steps: int = 1
@@ -460,6 +500,19 @@ class TrainConfig:
             raise ValueError(f"unknown sampler {self.sampler!r}")
         if self.grad_acc_steps < 1 or self.micro_batch_size < 1:
             raise ValueError("grad_acc_steps and micro_batch_size must be >= 1")
+        if self.mesh.sequence > 1:
+            if self.model.sequence_impl != "ring":
+                raise NotImplementedError(
+                    f"sequence_impl={self.model.sequence_impl!r}: the port "
+                    "runs the ring only; Ulysses sequence parallelism is a "
+                    "later slice (ROADMAP Queue A: parallelism)"
+                )
+            P, T = self.mesh.sequence, self.model.block_size
+            if T % P:
+                # any shard length: the chunk kernels mask rows and keys
+                # past it and causal offsets off their 32-row tile grid
+                raise ValueError(f"block_size {T} must split into {P} equal "
+                                 "sequence shards")
 
     def resolved_model(self) -> ModelConfig:
         """Apply trainer-level switches to the model config: the

@@ -5,14 +5,22 @@
 //
 // Four kernels replace the seven TPU kernel bodies of
 // differential_transformer_replication_tpu/ops/flash.py on the head-major
-// route:
-//   K1 bh_fwd_kernel       _fwd_kernel (_fwd_call, resident, T <= 4096)
-//                          and _tiled_fwd_kernel (_tiled_fwd_call, T > 4096)
+// route and on the sequence-parallel ring:
+//   K1 bh_fwd_kernel       _fwd_kernel (_fwd_call, resident, T <= 4096;
+//                          _chunk_fwd_call, the ring chunk) and
+//                          _tiled_fwd_kernel (_tiled_fwd_call, T > 4096)
 //   K2 bh_dq_kernel        _bwd_dq_kernel (_bwd_call) and _tiled_dq_kernel
 //                          (_tiled_bwd_call)
 //   K3 bh_dkv_kernel       _bwd_dkv_kernel (_bwd_call) and _tiled_dkv_kernel
 //                          (_tiled_bwd_call)
 //   K4 bh_bwd_fused_kernel _bwd_fused_kernel (_fused_bwd_call)
+// K1-K3 take a causal offset ``off``: column c is visible to row r iff c <=
+// r + off (0 on the aligned path; a multiple of the chunk length on the
+// ring, negative where the chunk lies in the row's future). K1 without
+// coefficients writes only the per-stream (o_all, lse), the ring chunk's
+// no-combine mode; K2/K3 without coefficients take one cotangent per stream
+// (g (BH, S, T, dv), JAX ``coeffs=None``) and sum dv = sum_s P~_s^T g_s,
+// each P~_s rounded on its own. K4 is aligned and factored only.
 // On the TPU the resident/tiled and fused/split splits follow what fits in
 // VMEM. Here every kernel streams 32-key tiles through shared memory, so it
 // is valid at any T; the route (resident, tiled, fused, split) only picks
@@ -22,8 +30,9 @@
 // streams in passes of sc; S <= sc, every shape of the recipes, is one pass.
 //
 // Layouts (the JAX package's): q, k (BH, S, T, d); v (BH, T, dv); g (BH, T,
-// dv); o_all (BH, S, T, dv) in the storage type; lse, delta (BH, S, T)
-// fp32; coeffs (S, H) fp32 with h = bh % H. All contiguous.
+// dv), or (BH, S, T, dv) per stream; o_all (BH, S, T, dv) in the storage
+// type; lse, delta (BH, S, T) fp32; coeffs (S, H) fp32 with h = bh % H. All
+// contiguous.
 //
 // What bounds it on the H100: at the slice's shapes (T = 512..8192, d = 96,
 // dv = 192) a head's work is ~T^2 (d + dv) multiply-adds over ~T (d + dv)
@@ -44,10 +53,12 @@
 // shared by the streams), masks and scales it with the same keep mask, and
 // rounds ds = p (dP - delta) to the storage type before the dq/dk
 // products; dv = (sum_s c_s P~_s, rounded)^T g. Causal tiles entirely in
-// the future are skipped. The dropout keep mask is the JAX package's
-// counter hash of (seed words, b*H + h, stream, row, column) in uint32
-// arithmetic (flash.py:dropout_keep_ids), so all kernels and the plain
-// version regenerate the same bits.
+// the future are skipped. A row with no visible key ends with l = 0, o = 0
+// and lse = NEG_INF + log(1e-30) = -1e30, as the JAX kernel's (the ring
+// merge then gives it zero weight). The dropout keep mask is the JAX
+// package's counter hash of (seed words, b*H + h, stream, row, column -
+// off) in uint32 arithmetic (flash.py:dropout_keep_ids, _keep_mask_block),
+// so all kernels and the plain version regenerate the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,6 +83,7 @@ constexpr int MAX_D = 128;
 constexpr int MAX_DV = 256;
 constexpr int SMEM_LIMIT = 232448;  // 227 KB, the most a block may take
 constexpr int SC_LD = BK + 4;       // fp32 [BQ][BK] tiles
+constexpr float NEG_INF = -1e30f;   // the JAX package's finite -inf (streams.py)
 
 __host__ __device__ constexpr int round16(int w) { return (w + 15) & ~15; }
 
@@ -232,7 +244,7 @@ struct FwdSmem {
   T *Qs, *Ks, *Vs, *Ps;
   float *Sc, *Acc, *Mx, *Lx, *Comb;
   size_t bytes;
-  __host__ __device__ FwdSmem(unsigned char* base, int S, int sc, int d, int dv) {
+  __host__ __device__ FwdSmem(unsigned char* base, int S, int sc, int d, int dv, bool) {
     Carve cv{base};
     Qs = cv.take<T>((size_t)sc * BQ * ld_in<T>(d));
     Ks = cv.take<T>((size_t)BK * ld_in<T>(d));
@@ -247,14 +259,17 @@ struct FwdSmem {
   }
 };
 
-template <typename T>
+// RING: the ring chunk's mode, no combine (out and coeffs unread; o_all and
+// lse given) under the causal offset off; else the aligned combined forward
+// (off = 0), compiled as its own instance
+template <typename T, bool RING>
 __global__ void __launch_bounds__(THREADS)
 bh_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const float* __restrict__ coeffs, T* __restrict__ out,
               T* __restrict__ o_all, float* __restrict__ lse, int S, int sc, int T_len,
-              int H, int d, int dv, float scale, Drop dr) {
+              int H, int d, int dv, int off, float scale, Drop dr) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const FwdSmem<T> sm(smem, S, sc, d, dv);
+  const FwdSmem<T> sm(smem, S, sc, d, dv, false);
   const int ldq = ld_in<T>(d), ldv = ld_in<T>(dv), ldp = ld_in<T>(BK);
   const int lda = ld_acc(dv), dp = round16(d), dvp = round16(dv);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -262,7 +277,9 @@ bh_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int qt = nqt - 1 - (int)(blockIdx.x % nqt);  // longest rows first
   const int bh = blockIdx.x / nqt, h = bh % H;
   const int q0 = qt * BQ;
-  const int kend = min(T_len, q0 + BQ);
+  // key tiles past kend lie in the future of every row of the tile
+  const int kend = RING ? max(0, min(T_len, q0 + BQ + off)) : min(T_len, q0 + BQ);
+  constexpr bool emit = !RING;
   const size_t slab = (size_t)T_len * d;
   const T* qb = q + (size_t)bh * S * slab;
   const T* kb = k + (size_t)bh * S * slab;
@@ -294,9 +311,11 @@ bh_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
         // the warp's RPW rows together: their shuffle reductions interleave
         const int r0 = warp * RPW, key = k0 + lane;
         float sv[RPW], mn[RPW], alpha[RPW], p[RPW], ps[RPW];
+        bool vis[RPW];
 #pragma unroll
         for (int j = 0; j < RPW; ++j) {
-          sv[j] = key <= q0 + r0 + j ? sm.Sc[(r0 + j) * SC_LD + lane] * scale : -INFINITY;
+          vis[j] = RING ? key < T_len && key <= q0 + r0 + j + off : key <= q0 + r0 + j;
+          sv[j] = vis[j] ? sm.Sc[(r0 + j) * SC_LD + lane] * scale : -INFINITY;
           mn[j] = sv[j];
         }
 #pragma unroll
@@ -307,8 +326,9 @@ bh_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
         for (int j = 0; j < RPW; ++j) {
           const float m_old = mx[r0 + j];
           mn[j] = fmaxf(m_old, mn[j]);
-          alpha[j] = expf(m_old - mn[j]);
-          p[j] = key <= q0 + r0 + j ? expf(sv[j] - mn[j]) : 0.f;
+          // a ring row that has seen no visible key yet: nothing to rescale
+          alpha[j] = RING && mn[j] == -INFINITY ? 1.f : expf(m_old - mn[j]);
+          p[j] = vis[j] ? expf(sv[j] - mn[j]) : 0.f;
           ps[j] = p[j];
         }
 #pragma unroll
@@ -319,7 +339,8 @@ bh_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
         for (int j = 0; j < RPW; ++j) {
           const int r = r0 + j;
           float pp = p[j];
-          if (dr.on) pp = keep_bit(dr, skey, q0 + r, key) ? p[j] * dr.inv_keep : 0.f;
+          if (dr.on)
+            pp = keep_bit(dr, skey, q0 + r, RING ? key - off : key) ? p[j] * dr.inv_keep : 0.f;
           sm.Ps[r * ldp + lane] = from_f<T>(pp);
           if (alpha[j] != 1.f)  // warp-uniform: the row's max moved
             for (int c = lane; c < dvp; c += 32) acc[r * lda + c] *= alpha[j];
@@ -345,23 +366,28 @@ bh_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
       const int r = warp * RPW + j, row = q0 + r;
       if (row >= T_len) continue;
       for (int c = lane; c < dv; c += 32) {
-        float comb = s0 == 0 ? 0.f : sm.Comb[r * lda + c];
+        float comb = (!emit || s0 == 0) ? 0.f : sm.Comb[r * lda + c];
         for (int s = 0; s < sn; ++s) {
           const float l_safe = fmaxf(sm.Lx[s * BQ + r], 1e-30f);
           const float o = sm.Acc[(s * BQ + r) * lda + c] / l_safe;
-          const float co = coeffs[(s0 + s) * H + h] * o;
-          comb = s0 + s == 0 ? co : comb + co;
+          if (emit) {
+            const float co = coeffs[(s0 + s) * H + h] * o;
+            comb = s0 + s == 0 ? co : comb + co;
+          }
           if (o_all != nullptr)
             o_all[((size_t)(bh * S + s0 + s) * T_len + row) * dv + c] = from_f<T>(o);
         }
+        if (!emit) continue;
         if (last)
           out[((size_t)bh * T_len + row) * dv + c] = from_f<T>(comb);
         else
           sm.Comb[r * lda + c] = comb;
       }
-      if (lse != nullptr && lane < sn)
+      if (lse != nullptr && lane < sn) {
+        const float m = sm.Mx[lane * BQ + r];  // -inf: no visible key
         lse[(size_t)(bh * S + s0 + lane) * T_len + row] =
-            sm.Mx[lane * BQ + r] + logf(fmaxf(sm.Lx[lane * BQ + r], 1e-30f));
+            (RING && m == -INFINITY ? NEG_INF : m) + logf(fmaxf(sm.Lx[lane * BQ + r], 1e-30f));
+      }
     }
   }
 }
@@ -369,25 +395,28 @@ bh_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 // ---------------------------------------------------------------------------
 // the backward's row pass, shared by K2-K4: for the tile pair (q rows q0..,
 // keys k0..) and stream s, from Sc = Q_s K_s^T and GV = g V^T (fp32
-// [BQ][BK]), writes ds = round(p (dP - delta)) into Ds and, when PC is
-// given, accumulates PC += c_s P~ (PC = c_0 P~ at s = 0)
+// [BQ][BK]; g_s V^T per stream, cs = 1), writes ds = round(p (dP - delta))
+// into Ds; when PC is given, accumulates PC += c_s P~ (PC = c_0 P~ at s =
+// 0); in the RING mode (offset off) when Pr is given, writes the stream's
+// own rounded P~ into it
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, bool RING>
 __device__ __forceinline__ void bwd_rows(const float* Sc, const float* GV, T* Ds, int ldp,
-                                         float* PC, const float* lse_r, const float* dl_r,
-                                         int q0, int k0, int T_len, int bh, int s, float cs,
-                                         float scale, const Drop& dr) {
+                                         float* PC, T* Pr, const float* lse_r,
+                                         const float* dl_r, int q0, int k0, int T_len, int off,
+                                         int bh, int s, float cs, float scale, const Drop& dr) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const uint32_t skey = dr.on ? stream_key(dr, bh, s) : 0u;
   for (int j = 0; j < RPW; ++j) {
     const int r = warp * RPW + j, row = q0 + r, key = k0 + lane;
-    const bool live = key <= row && row < T_len;
+    const bool live = RING ? row < T_len && key < T_len && key <= row + off
+                           : key <= row && row < T_len;
     const float p = live ? expf(Sc[r * SC_LD + lane] * scale - lse_r[r]) : 0.f;
     float dpv = cs * GV[r * SC_LD + lane];
     float pv = p;
     if (dr.on) {
-      const bool kp = keep_bit(dr, skey, row, key);
+      const bool kp = keep_bit(dr, skey, row, RING ? key - off : key);
       dpv = kp ? dpv * dr.inv_keep : 0.f;
       pv = kp ? p * dr.inv_keep : 0.f;
     }
@@ -396,6 +425,7 @@ __device__ __forceinline__ void bwd_rows(const float* Sc, const float* GV, T* Ds
       float* pc = PC + r * SC_LD + lane;
       *pc = s == 0 ? pv * cs : *pc + pv * cs;
     }
+    if (RING && Pr != nullptr) Pr[r * ldp + lane] = from_f<T>(pv);
   }
 }
 
@@ -414,7 +444,7 @@ __device__ __forceinline__ void stage_rows(float* Lse, float* Dl, const float* _
 
 // ---------------------------------------------------------------------------
 // K2, dq: one block per (bh, 32-row q tile); key tiles outer, streams inner
-// (one g V^T per tile pair)
+// (one g V^T per tile pair; per stream with per-stream cotangents, ps)
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -422,10 +452,10 @@ struct DqSmem {
   T *Qs, *Gs, *Ks, *Vs, *Ds;
   float *GV, *Sc, *DQ, *Lse, *Dl;
   size_t bytes;
-  __host__ __device__ DqSmem(unsigned char* base, int S, int sc, int d, int dv) {
+  __host__ __device__ DqSmem(unsigned char* base, int S, int sc, int d, int dv, bool ps) {
     Carve cv{base};
     Qs = cv.take<T>((size_t)sc * BQ * ld_in<T>(d));
-    Gs = cv.take<T>((size_t)BQ * ld_in<T>(dv));
+    Gs = cv.take<T>((size_t)(ps ? sc : 1) * BQ * ld_in<T>(dv));
     Ks = cv.take<T>((size_t)BK * ld_in<T>(d));
     Vs = cv.take<T>((size_t)BK * ld_in<T>(dv));
     Ds = cv.take<T>((size_t)BQ * ld_in<T>(BK));
@@ -438,15 +468,18 @@ struct DqSmem {
   }
 };
 
-template <typename T>
+// RING: per-stream cotangents g (BH, S, T, dv), coeffs unread, offset off;
+// else the factored form (off = 0)
+template <typename T, bool RING>
 __global__ void __launch_bounds__(THREADS)
 bh_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              const T* __restrict__ g, const float* __restrict__ lse,
              const float* __restrict__ delta, const float* __restrict__ coeffs,
-             T* __restrict__ dq, int S, int sc, int T_len, int H, int d, int dv, float scale,
-             Drop dr) {
+             T* __restrict__ dq, int S, int sc, int T_len, int H, int d, int dv, int off,
+             float scale, Drop dr) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const DqSmem<T> sm(smem, S, sc, d, dv);
+  constexpr bool ps = RING;
+  const DqSmem<T> sm(smem, S, sc, d, dv, ps);
   const int ldq = ld_in<T>(d), ldv = ld_in<T>(dv), ldp = ld_in<T>(BK);
   const int ldd = ld_acc(d), dp = round16(d), dvp = round16(dv);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -454,35 +487,42 @@ bh_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const int qt = nqt - 1 - (int)(blockIdx.x % nqt);
   const int bh = blockIdx.x / nqt, h = bh % H;
   const int q0 = qt * BQ;
-  const int kend = min(T_len, q0 + BQ);
-  const size_t slab = (size_t)T_len * d;
+  const int kend = RING ? max(0, min(T_len, q0 + BQ + off)) : min(T_len, q0 + BQ);
+  const size_t slab = (size_t)T_len * d, gslab = (size_t)T_len * dv;
   const T* qb = q + (size_t)bh * S * slab;
   const T* kb = k + (size_t)bh * S * slab;
   const T* vb = v + (size_t)bh * T_len * dv;
+  const T* gb = g + (size_t)bh * (ps ? S : 1) * gslab;
 
-  stage<T>(sm.Gs, ldv, g + (size_t)bh * T_len * dv, T_len, q0, BQ, dv);
+  if (!ps) stage<T>(sm.Gs, ldv, gb, T_len, q0, BQ, dv);
   stage_rows(sm.Lse, sm.Dl, lse, delta, bh, S, T_len, q0);
   for (int s0 = 0; s0 < S; s0 += sc) {  // a pass over streams [s0, s0 + sn)
     const int sn = min(sc, S - s0);
     __syncthreads();  // the last pass has written its dq out
-    for (int s = 0; s < sn; ++s)
+    for (int s = 0; s < sn; ++s) {
       stage<T>(sm.Qs + s * BQ * ldq, ldq, qb + (s0 + s) * slab, T_len, q0, BQ, d);
+      if (ps) stage<T>(sm.Gs + s * BQ * ldv, ldv, gb + (s0 + s) * gslab, T_len, q0, BQ, dv);
+    }
     for (int i = threadIdx.x; i < sn * BQ * ldd; i += THREADS) sm.DQ[i] = 0.f;
 
     for (int k0 = 0; k0 < kend; k0 += BK) {
       __syncthreads();
       stage<T>(sm.Vs, ldv, vb, T_len, k0, BK, dv);
       __syncthreads();
-      mm<true, false, false>(sm.GV, SC_LD, sm.Gs, ldv, sm.Vs, ldv, BQ, BK, dvp);
+      if (!ps) mm<true, false, false>(sm.GV, SC_LD, sm.Gs, ldv, sm.Vs, ldv, BQ, BK, dvp);
       for (int s = 0; s < sn; ++s) {
         const int gs = s0 + s;
-        __syncthreads();  // the previous stream's dq product is done with Ks, Ds
+        __syncthreads();  // the previous stream's dq product is done with Ks, Ds, GV
         stage<T>(sm.Ks, ldq, kb + gs * slab, T_len, k0, BK, d);
         __syncthreads();
         mm<true, false, false>(sm.Sc, SC_LD, sm.Qs + s * BQ * ldq, ldq, sm.Ks, ldq, BQ, BK, dp);
+        if (ps)  // dP_s = g_s V^T
+          mm<true, false, false>(sm.GV, SC_LD, sm.Gs + s * BQ * ldv, ldv, sm.Vs, ldv, BQ, BK,
+                                 dvp);
         __syncthreads();
-        bwd_rows<T>(sm.Sc, sm.GV, sm.Ds, ldp, nullptr, sm.Lse + gs * BQ, sm.Dl + gs * BQ, q0,
-                    k0, T_len, bh, gs, coeffs[gs * H + h], scale, dr);
+        bwd_rows<T, RING>(sm.Sc, sm.GV, sm.Ds, ldp, nullptr, nullptr, sm.Lse + gs * BQ,
+                    sm.Dl + gs * BQ, q0, k0, T_len, off, bh, gs,
+                    ps ? 1.f : coeffs[gs * H + h], scale, dr);
         __syncthreads();
         mm<true, true, true>(sm.DQ + s * BQ * ldd, ldd, sm.Ds, ldp, sm.Ks, ldq, BQ, dp, BK);
       }
@@ -513,7 +553,7 @@ struct DkvSmem {
   T *Ks, *Kx, *Vs, *Qs, *Gs, *Ds, *Pr;
   float *GV, *Sc, *PC, *DK, *DV, *Lse, *Dl;
   size_t bytes;
-  __host__ __device__ DkvSmem(unsigned char* base, int S, int sc, int d, int dv) {
+  __host__ __device__ DkvSmem(unsigned char* base, int S, int sc, int d, int dv, bool) {
     Carve cv{base};
     Ks = cv.take<T>((size_t)sc * BK * ld_in<T>(d));
     Kx = S > sc ? cv.take<T>((size_t)BK * ld_in<T>(d)) : nullptr;
@@ -534,29 +574,35 @@ struct DkvSmem {
 };
 
 // one pass of one key tile's backward over streams [s0, s0 + sn): walks
-// the q tiles at or past it, leaves dk of those streams in DK and (with_dv)
-// dv of the tile in DV, and (dq_acc != null) adds ds K into dq_acc rows
-// (ld = round16(d)), overwriting them when first is set. dv needs the
-// stream-combined map of every stream before its one rounding, so the
-// pass that makes it also visits the streams outside [s0, s0 + sn), with
-// their K tiles staged into Kx
-template <typename T>
+// the q tiles that see any of its keys, leaves dk of those streams in DK
+// and (with_dv) dv of the tile in DV, and (dq_acc != null) adds ds K into
+// dq_acc rows (ld = round16(d)), overwriting them when first is set. dv
+// needs every stream (the factored form rounds their combined map once;
+// per-stream cotangents, coeffs == nullptr, add each stream's own P~_s^T
+// g_s), so the pass that makes it also visits the streams outside [s0, s0
+// + sn), with their K tiles staged into Kx. RING: per-stream cotangents
+// and the offset off; else factored and aligned (off = 0)
+template <typename T, bool RING>
 __device__ __forceinline__ void dkv_tile(const DkvSmem<T>& sm, const T* __restrict__ q,
                                          const T* __restrict__ k, const T* __restrict__ v,
                                          const T* __restrict__ g, const float* __restrict__ lse,
                                          const float* __restrict__ delta,
                                          const float* __restrict__ coeffs, float* dq_acc,
                                          bool first, int bh, int kt, int S, int s0, int sn,
-                                         bool with_dv, int T_len, int H, int d, int dv,
+                                         bool with_dv, int T_len, int H, int d, int dv, int off,
                                          float scale, const Drop& dr) {
   const int ldq = ld_in<T>(d), ldv = ld_in<T>(dv), ldp = ld_in<T>(BK);
   const int ldd = ld_acc(d), ldva = ld_acc(dv), dp = round16(d), dvp = round16(dv);
   const int h = bh % H, k0 = kt * BK;
-  const size_t slab = (size_t)T_len * d;
+  constexpr bool ps = RING;
+  const size_t slab = (size_t)T_len * d, gslab = (size_t)T_len * dv;
   const T* qb = q + (size_t)bh * S * slab;
   const T* kb = k + (size_t)bh * S * slab;
-  const T* gb = g + (size_t)bh * T_len * dv;
+  const T* gb = ps ? g + (size_t)bh * S * gslab : g + (size_t)bh * T_len * dv;
   const int s_lo = with_dv ? 0 : s0, s_hi = with_dv ? S : s0 + sn;
+  // the first q tile with a row that sees key k0 (row >= k0 - off; BQ ==
+  // BK, so tile k0 itself when aligned)
+  const int lo = k0 - off, q_first = !RING ? k0 : lo <= 0 ? 0 : (lo / BQ) * BQ;
 
   __syncthreads();  // the previous tile's results are written out
   for (int s = 0; s < sn; ++s)
@@ -566,24 +612,27 @@ __device__ __forceinline__ void dkv_tile(const DkvSmem<T>& sm, const T* __restri
   if (with_dv)
     for (int i = threadIdx.x; i < BK * ldva; i += THREADS) sm.DV[i] = 0.f;
 
-  for (int q0 = k0; q0 < T_len; q0 += BQ) {  // BQ == BK: tile q0 = k0 is the first
-    __syncthreads();                         // the last pass is done with Gs, Pr
-    stage<T>(sm.Gs, ldv, gb, T_len, q0, BQ, dv);
+  for (int q0 = q_first; q0 < T_len; q0 += BQ) {
+    __syncthreads();  // the last pass is done with Gs, Pr
+    if (!ps) stage<T>(sm.Gs, ldv, gb, T_len, q0, BQ, dv);
     stage_rows(sm.Lse, sm.Dl, lse, delta, bh, S, T_len, q0);
     __syncthreads();
-    mm<true, false, false>(sm.GV, SC_LD, sm.Gs, ldv, sm.Vs, ldv, BQ, BK, dvp);
+    if (!ps) mm<true, false, false>(sm.GV, SC_LD, sm.Gs, ldv, sm.Vs, ldv, BQ, BK, dvp);
     for (int s = s_lo; s < s_hi; ++s) {
       const bool mine = s >= s0 && s < s0 + sn;
       const T* Kt = mine ? sm.Ks + (s - s0) * BK * ldq : sm.Kx;
-      __syncthreads();  // the previous stream's products are done with Qs, Ds, Kx
+      __syncthreads();  // the previous stream's products are done with Qs, Ds, Kx, Gs, Pr
       stage<T>(sm.Qs, ldq, qb + s * slab, T_len, q0, BQ, d);
       if (!mine) stage<T>(sm.Kx, ldq, kb + s * slab, T_len, k0, BK, d);
+      if (ps) stage<T>(sm.Gs, ldv, gb + s * gslab, T_len, q0, BQ, dv);
       __syncthreads();
       mm<true, false, false>(sm.Sc, SC_LD, sm.Qs, ldq, Kt, ldq, BQ, BK, dp);
+      if (ps) mm<true, false, false>(sm.GV, SC_LD, sm.Gs, ldv, sm.Vs, ldv, BQ, BK, dvp);
       __syncthreads();
-      bwd_rows<T>(sm.Sc, sm.GV, sm.Ds, ldp, with_dv ? sm.PC : nullptr, sm.Lse + s * BQ,
-                  sm.Dl + s * BQ, q0, k0, T_len, bh, s, coeffs[s * H + h], scale, dr);
-      if (with_dv && s == S - 1) {  // the stream-combined dropped map, rounded once
+      bwd_rows<T, RING>(sm.Sc, sm.GV, sm.Ds, ldp, (with_dv && !ps) ? sm.PC : nullptr,
+                  (with_dv && ps) ? sm.Pr : nullptr, sm.Lse + s * BQ, sm.Dl + s * BQ, q0, k0,
+                  T_len, off, bh, s, ps ? 1.f : coeffs[s * H + h], scale, dr);
+      if (with_dv && !ps && s == S - 1) {  // the stream-combined dropped map, rounded once
         const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
         for (int j = 0; j < RPW; ++j) {
           const int r = warp * RPW + j;
@@ -591,6 +640,8 @@ __device__ __forceinline__ void dkv_tile(const DkvSmem<T>& sm, const T* __restri
         }
       }
       __syncthreads();
+      // per-stream cotangents: dv += P~_s^T g_s
+      if (with_dv && ps) mm<false, true, true>(sm.DV, ldva, sm.Pr, ldp, sm.Gs, ldv, BK, dvp, BQ);
       if (!mine) continue;
       // dk_s += ds^T Q_s
       mm<false, true, true>(sm.DK + (s - s0) * BK * ldd, ldd, sm.Ds, ldp, sm.Qs, ldq, BK, dp,
@@ -604,7 +655,7 @@ __device__ __forceinline__ void dkv_tile(const DkvSmem<T>& sm, const T* __restri
       }
     }
     // dv += (sum_s c_s P~_s)^T g
-    if (with_dv) mm<false, true, true>(sm.DV, ldva, sm.Pr, ldp, sm.Gs, ldv, BK, dvp, BQ);
+    if (with_dv && !ps) mm<false, true, true>(sm.DV, ldva, sm.Pr, ldp, sm.Gs, ldv, BK, dvp, BQ);
   }
   __syncthreads();
 }
@@ -629,22 +680,24 @@ __device__ __forceinline__ void write_dkv(const DkvSmem<T>& sm, T* __restrict__ 
   }
 }
 
-template <typename T>
+template <typename T, bool RING>
 __global__ void __launch_bounds__(THREADS)
 bh_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const T* __restrict__ g, const float* __restrict__ lse,
               const float* __restrict__ delta, const float* __restrict__ coeffs,
               T* __restrict__ dk, T* __restrict__ dvo, int S, int sc, int T_len, int H, int d,
-              int dv, float scale, Drop dr) {
+              int dv, int off, float scale, Drop dr) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const DkvSmem<T> sm(smem, S, sc, d, dv);
+  const DkvSmem<T> sm(smem, S, sc, d, dv, RING);
   const int nkt = (T_len + BK - 1) / BK;
   const int kt = blockIdx.x % nkt;  // low key tiles have the most q tiles: first
   const int bh = blockIdx.x / nkt;
   for (int s0 = 0; s0 < S; s0 += sc) {
     const int sn = min(sc, S - s0);
-    dkv_tile<T>(sm, q, k, v, g, lse, delta, coeffs, nullptr, false, bh, kt, S, s0, sn,
-                s0 == 0, T_len, H, d, dv, scale, dr);
+    // the aligned instance takes a literal 0 offset (with off passed
+    // through, its code measured ~4% slower on the H100)
+    dkv_tile<T, RING>(sm, q, k, v, g, lse, delta, coeffs, nullptr, false, bh, kt, S, s0, sn,
+                      s0 == 0, T_len, H, d, dv, RING ? off : 0, scale, dr);
     write_dkv<T>(sm, dk, dvo, bh, kt, S, s0, sn, s0 == 0, T_len, d, dv, scale);
   }
 }
@@ -658,7 +711,7 @@ bh_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     float* __restrict__ dq_acc, int S, int sc, int T_len, int H, int d, int dv,
                     float scale, Drop dr) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const DkvSmem<T> sm(smem, S, sc, d, dv);
+  const DkvSmem<T> sm(smem, S, sc, d, dv, false);
   const int nkt = (T_len + BK - 1) / BK;
   const int bh = blockIdx.x;
   const int dp = round16(d);
@@ -669,8 +722,8 @@ bh_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     // every q tile is first reached from key tile 0, which overwrites it
     for (int s0 = 0; s0 < S; s0 += sc) {
       const int sn = min(sc, S - s0);
-      dkv_tile<T>(sm, q, k, v, g, lse, delta, coeffs, acc, kt == 0, bh, kt, S, s0, sn,
-                  s0 == 0, T_len, H, d, dv, scale, dr);
+      dkv_tile<T, false>(sm, q, k, v, g, lse, delta, coeffs, acc, kt == 0, bh, kt, S, s0, sn,
+                  s0 == 0, T_len, H, d, dv, 0, scale, dr);
       write_dkv<T>(sm, dk, dvo, bh, kt, S, s0, sn, s0 == 0, T_len, d, dv, scale);
     }
     // q tile kt took its last ds K at key tile kt (the diagonal)
@@ -714,61 +767,63 @@ Drop make_drop(unsigned w0, unsigned w1, unsigned threshold, float inv_keep, int
 // the most streams per pass (<= MAX_SC) whose shared memory fits, and its
 // bytes; 0 when not even one stream fits
 template <typename Smem>
-int streams_per_pass(int S, int d, int dv, size_t* smem) {
+int streams_per_pass(int S, int d, int dv, bool ps, size_t* smem) {
   for (int sc = S < MAX_SC ? S : MAX_SC; sc >= 1; --sc) {
-    *smem = Smem(nullptr, S, sc, d, dv).bytes;
+    *smem = Smem(nullptr, S, sc, d, dv, ps).bytes;
     if (*smem <= SMEM_LIMIT) return sc;
   }
   return 0;
 }
 
-template <typename T>
+template <typename T, bool RING>
 int fwd(const void* q, const void* k, const void* v, const float* coeffs, void* out,
-        void* o_all, float* lse, int S, int BH, int T_len, int H, int d, int dv, float scale,
-        Drop dr, cudaStream_t stream) {
+        void* o_all, float* lse, int S, int BH, int T_len, int H, int d, int dv, int off,
+        float scale, Drop dr, cudaStream_t stream) {
   size_t smem = 0;
-  const int sc = streams_per_pass<FwdSmem<T>>(S, d, dv, &smem);
+  const int sc = streams_per_pass<FwdSmem<T>>(S, d, dv, false, &smem);
   if (sc == 0) return static_cast<int>(cudaErrorInvalidValue);
-  int rc = allow_smem<bh_fwd_kernel<T>>(smem);
+  int rc = allow_smem<bh_fwd_kernel<T, RING>>(smem);
   if (rc != 0) return rc;
   const int nqt = (T_len + BQ - 1) / BQ;
-  bh_fwd_kernel<T><<<BH * nqt, THREADS, smem, stream>>>(
+  bh_fwd_kernel<T, RING><<<BH * nqt, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), coeffs,
-      static_cast<T*>(out), static_cast<T*>(o_all), lse, S, sc, T_len, H, d, dv, scale, dr);
+      static_cast<T*>(out), static_cast<T*>(o_all), lse, S, sc, T_len, H, d, dv, off, scale,
+      dr);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool RING>
 int bwd_dq(const void* q, const void* k, const void* v, const void* g, const float* lse,
            const float* delta, const float* coeffs, void* dq, int S, int BH, int T_len, int H,
-           int d, int dv, float scale, Drop dr, cudaStream_t stream) {
+           int d, int dv, int off, float scale, Drop dr, cudaStream_t stream) {
   size_t smem = 0;
-  const int sc = streams_per_pass<DqSmem<T>>(S, d, dv, &smem);
+  const int sc = streams_per_pass<DqSmem<T>>(S, d, dv, RING, &smem);
   if (sc == 0) return static_cast<int>(cudaErrorInvalidValue);
-  int rc = allow_smem<bh_dq_kernel<T>>(smem);
+  int rc = allow_smem<bh_dq_kernel<T, RING>>(smem);
   if (rc != 0) return rc;
   const int nqt = (T_len + BQ - 1) / BQ;
-  bh_dq_kernel<T><<<BH * nqt, THREADS, smem, stream>>>(
+  bh_dq_kernel<T, RING><<<BH * nqt, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), lse, delta, coeffs, static_cast<T*>(dq), S, sc, T_len, H, d,
-      dv, scale, dr);
+      dv, off, scale, dr);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool RING>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* g, const float* lse,
             const float* delta, const float* coeffs, void* dk, void* dvo, int S, int BH,
-            int T_len, int H, int d, int dv, float scale, Drop dr, cudaStream_t stream) {
+            int T_len, int H, int d, int dv, int off, float scale, Drop dr,
+            cudaStream_t stream) {
   size_t smem = 0;
-  const int sc = streams_per_pass<DkvSmem<T>>(S, d, dv, &smem);
+  const int sc = streams_per_pass<DkvSmem<T>>(S, d, dv, RING, &smem);
   if (sc == 0) return static_cast<int>(cudaErrorInvalidValue);
-  int rc = allow_smem<bh_dkv_kernel<T>>(smem);
+  int rc = allow_smem<bh_dkv_kernel<T, RING>>(smem);
   if (rc != 0) return rc;
   const int nkt = (T_len + BK - 1) / BK;
-  bh_dkv_kernel<T><<<BH * nkt, THREADS, smem, stream>>>(
+  bh_dkv_kernel<T, RING><<<BH * nkt, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), lse, delta, coeffs, static_cast<T*>(dk), static_cast<T*>(dvo),
-      S, sc, T_len, H, d, dv, scale, dr);
+      S, sc, T_len, H, d, dv, off, scale, dr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -778,7 +833,7 @@ int bwd_fused(const void* q, const void* k, const void* v, const void* g, const 
               float* dq_acc, int S, int BH, int T_len, int H, int d, int dv, float scale,
               Drop dr, cudaStream_t stream) {
   size_t smem = 0;
-  const int sc = streams_per_pass<DkvSmem<T>>(S, d, dv, &smem);
+  const int sc = streams_per_pass<DkvSmem<T>>(S, d, dv, false, &smem);
   if (sc == 0) return static_cast<int>(cudaErrorInvalidValue);
   int rc = allow_smem<bh_bwd_fused_kernel<T>>(smem);
   if (rc != 0) return rc;
@@ -791,61 +846,80 @@ int bwd_fused(const void* q, const void* k, const void* v, const void* g, const 
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Dropout: the two 24-bit seed words,
+// dtype: 0 = float32, 1 = bfloat16. off: the causal offset (column c is
+// visible to row r iff c <= r + off). Dropout: the two 24-bit seed words,
 // the keep threshold min(round(rate * 2^32), 2^32 - 1), float32(1 / (1 -
 // rate)) and on = rate > 0. Each returns the launch's CUDA error code
-// (cudaErrorInvalidValue for shapes the kernels do not take).
+// (cudaErrorInvalidValue for shapes or modes the kernels do not take).
 
+// out == nullptr (and coeffs == nullptr): the no-combine mode, which needs
+// o_all and lse
 extern "C" int flash_bh_fwd(const void* q, const void* k, const void* v, const void* coeffs,
                             void* out, void* o_all, void* lse, int S, int BH, int T_len, int H,
-                            int d, int dv, float scale, unsigned w0, unsigned w1,
+                            int d, int dv, int off, float scale, unsigned w0, unsigned w1,
                             unsigned threshold, float inv_keep, int dropout_on, int dtype,
                             void* stream) {
   if (!shapes_ok(S, BH, T_len, H, d, dv)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool ring = out == nullptr;
+  if (ring ? (o_all == nullptr || lse == nullptr) : (coeffs == nullptr || off != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Drop dr = make_drop(w0, w1, threshold, inv_keep, dropout_on);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* c = static_cast<const float*>(coeffs);
   float* l = static_cast<float*>(lse);
   switch (dtype) {
-    case 0: return fwd<float>(q, k, v, c, out, o_all, l, S, BH, T_len, H, d, dv, scale, dr, st);
-    case 1: return fwd<bf16>(q, k, v, c, out, o_all, l, S, BH, T_len, H, d, dv, scale, dr, st);
+    case 0: return (ring ? fwd<float, true> : fwd<float, false>)(
+        q, k, v, c, out, o_all, l, S, BH, T_len, H, d, dv, off, scale, dr, st);
+    case 1: return (ring ? fwd<bf16, true> : fwd<bf16, false>)(
+        q, k, v, c, out, o_all, l, S, BH, T_len, H, d, dv, off, scale, dr, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// coeffs == nullptr: per-stream cotangents g (BH, S, T, dv)
 extern "C" int flash_bh_bwd_dq(const void* q, const void* k, const void* v, const void* g,
                                const void* lse, const void* delta, const void* coeffs,
                                void* dq, int S, int BH, int T_len, int H, int d, int dv,
-                               float scale, unsigned w0, unsigned w1, unsigned threshold,
-                               float inv_keep, int dropout_on, int dtype, void* stream) {
+                               int off, float scale, unsigned w0, unsigned w1,
+                               unsigned threshold, float inv_keep, int dropout_on, int dtype,
+                               void* stream) {
   if (!shapes_ok(S, BH, T_len, H, d, dv)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool ring = coeffs == nullptr;  // per-stream cotangents, offset off
+  if (!ring && off != 0) return static_cast<int>(cudaErrorInvalidValue);
   const Drop dr = make_drop(w0, w1, threshold, inv_keep, dropout_on);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   const float* c = static_cast<const float*>(coeffs);
   switch (dtype) {
-    case 0: return bwd_dq<float>(q, k, v, g, l, dl, c, dq, S, BH, T_len, H, d, dv, scale, dr, st);
-    case 1: return bwd_dq<bf16>(q, k, v, g, l, dl, c, dq, S, BH, T_len, H, d, dv, scale, dr, st);
+    case 0: return (ring ? bwd_dq<float, true> : bwd_dq<float, false>)(
+        q, k, v, g, l, dl, c, dq, S, BH, T_len, H, d, dv, off, scale, dr, st);
+    case 1: return (ring ? bwd_dq<bf16, true> : bwd_dq<bf16, false>)(
+        q, k, v, g, l, dl, c, dq, S, BH, T_len, H, d, dv, off, scale, dr, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// coeffs == nullptr: per-stream cotangents g (BH, S, T, dv)
 extern "C" int flash_bh_bwd_dkv(const void* q, const void* k, const void* v, const void* g,
                                 const void* lse, const void* delta, const void* coeffs,
                                 void* dk, void* dv_out, int S, int BH, int T_len, int H, int d,
-                                int dv, float scale, unsigned w0, unsigned w1,
+                                int dv, int off, float scale, unsigned w0, unsigned w1,
                                 unsigned threshold, float inv_keep, int dropout_on, int dtype,
                                 void* stream) {
   if (!shapes_ok(S, BH, T_len, H, d, dv)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool ring = coeffs == nullptr;  // per-stream cotangents, offset off
+  if (!ring && off != 0) return static_cast<int>(cudaErrorInvalidValue);
   const Drop dr = make_drop(w0, w1, threshold, inv_keep, dropout_on);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   const float* c = static_cast<const float*>(coeffs);
   switch (dtype) {
-    case 0: return bwd_dkv<float>(q, k, v, g, l, dl, c, dk, dv_out, S, BH, T_len, H, d, dv, scale, dr, st);
-    case 1: return bwd_dkv<bf16>(q, k, v, g, l, dl, c, dk, dv_out, S, BH, T_len, H, d, dv, scale, dr, st);
+    case 0: return (ring ? bwd_dkv<float, true> : bwd_dkv<float, false>)(
+        q, k, v, g, l, dl, c, dk, dv_out, S, BH, T_len, H, d, dv, off, scale, dr, st);
+    case 1: return (ring ? bwd_dkv<bf16, true> : bwd_dkv<bf16, false>)(
+        q, k, v, g, l, dl, c, dk, dv_out, S, BH, T_len, H, d, dv, off, scale, dr, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

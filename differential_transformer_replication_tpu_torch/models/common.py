@@ -13,7 +13,10 @@ the JAX-initialized params through ``params.py``).
 Dropout follows the JAX package's sites and order of key splits, with
 integer seeds in place of keys (:func:`split_seed`): per layer, then per
 block (attention, FFN), then per attention (probabilities, output). A
-forward without a seed (eval) drops nothing.
+forward without a seed (eval) drops nothing. On the sequence-parallel
+ring each rank folds its rank into the forward's seed first
+(:func:`rank_seed`), as JAX's ``sequence_shard_map`` folds the mesh
+position into the attention key: every rank's masks are its own.
 
 The block-boundary norms, the SwiGLU chain and the training attention
 always go through the kernel wrappers (ops/fused_norm_residual.py,
@@ -32,6 +35,7 @@ from differential_transformer_replication_tpu_torch.ops.dropout import (
     generator,
 )
 from differential_transformer_replication_tpu_torch.ops.flash import (
+    dropout_seed_from_generator,
     multi_stream_flash_attention_bh,
     multi_stream_flash_attention_tm,
     multi_stream_flash_attention_tm_packed,
@@ -57,6 +61,10 @@ from differential_transformer_replication_tpu_torch.ops.streams import (
     diff_coeffs,
     ndiff_coeffs,
     vanilla_coeffs,
+)
+from differential_transformer_replication_tpu_torch.parallel.ring import (
+    ring_flash_body,
+    use_ring,
 )
 
 INIT_STD = 0.02
@@ -125,6 +133,20 @@ def split_seed(seed, n: int) -> tuple:
     return tuple(fold_seed(seed, i) for i in range(n))
 
 
+def rank_seed(seed, group):
+    """The forward's dropout seed on this rank: ``seed`` with the ring
+    rank folded in on the sequence-parallel path, else ``seed``."""
+    if seed is None or not use_ring(group):
+        return seed
+    return fold_seed(seed, group.rank)
+
+
+def shard_start(T: int, group) -> int:
+    """The global position of this rank's first token: rank r of the ring
+    holds positions r*T .. (r+1)*T - 1 of every sequence; 0 without one."""
+    return group.rank * T if use_ring(group) else 0
+
+
 def apply_dropout(x: torch.Tensor, rate: float, seed) -> torch.Tensor:
     """Residual/FFN-output dropout with a generator on x's device made
     from ``seed`` (identity without one)."""
@@ -165,7 +187,8 @@ def layer_coeffs(cfg, p_attn: dict, layer_idx: int) -> torch.Tensor:
 
 def flash_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
                     wv: torch.Tensor, coeffs: torch.Tensor, cos=None,
-                    sin=None, rate: float = 0.0, seed=None) -> torch.Tensor:
+                    sin=None, rate: float = 0.0, seed=None,
+                    group=None) -> torch.Tensor:
     """The training attention of all three families (the JAX
     ``flash_bh_fn``): x (B, T, E) normed block input, wq/wk (S, E, H, d),
     wv (E, H, dv), coeffs (S, H) fp32, attention-dropout ``rate`` with an
@@ -180,12 +203,18 @@ def flash_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     route: the same one projection matmul, its q/k/v windows laid out as
     (B*H, S, T, width), rotated there (RoPE tables broadcast over B*H),
     and the head-major kernels with in-kernel attention dropout whose
-    seed words come from a CPU generator seeded with ``seed``."""
+    seed words come from a CPU generator seeded with ``seed``.
+
+    With a sequence ``group`` of more than one rank (JAX
+    ``dispatch_attention`` branch 1), x is this rank's T-shard and the
+    same head-major operands (RoPE tables at the shard's global
+    positions) go around the ring (``parallel/ring.py``); ``seed`` is
+    then already this rank's (:func:`rank_seed`)."""
     B, T, E = x.shape
     S, _, H, d = wq.shape
     dv = wv.shape[-1]
     rate_live = rate if seed is not None else 0.0
-    if use_tm(S, T, rate_live):
+    if not use_ring(group) and use_tm(S, T, rate_live):
         if cos is None:
             wcat = torch.cat([wq[s].reshape(E, H * d) for s in range(S)]
                              + [wk[s].reshape(E, H * d) for s in range(S)]
@@ -216,9 +245,13 @@ def flash_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
         q_r = apply_rope(q_r, cos, sin, headed=False)
         k_r = apply_rope(k_r, cos, sin, headed=False)
     gen = generator(seed, "cpu") if rate_live > 0.0 else None
-    out = multi_stream_flash_attention_bh(q_r, k_r, v_r, coeffs, B, H,
-                                          dropout_rate=rate_live,
-                                          dropout_gen=gen)
+    if use_ring(group):
+        words = dropout_seed_from_generator(gen) if gen is not None else None
+        out = ring_flash_body(q_r, k_r, v_r, coeffs, group, words, rate_live)
+    else:
+        out = multi_stream_flash_attention_bh(q_r, k_r, v_r, coeffs, B, H,
+                                              dropout_rate=rate_live,
+                                              dropout_gen=gen)
     return out.reshape(B, H, T, dv).transpose(1, 2)
 
 
@@ -227,12 +260,15 @@ def apply_tail(x: torch.Tensor, params: dict) -> torch.Tensor:
     return linear(apply_pre_norm(x, params["ln_f"]), params["lm_head"])
 
 
-def tail_and_loss(x: torch.Tensor, params: dict, cfg, targets=None):
+def tail_and_loss(x: torch.Tensor, params: dict, cfg, targets=None,
+                  group=None):
     """The end of every family's forward: ``(logits, loss)``. With
     targets, the final norm feeds :func:`ops.losses.dense_linear_cross_
     entropy` and the logits returned are its own (no gradient path);
-    without, ``(apply_tail(x), None)``. ``cfg.loss_chunk`` (the chunked
-    loss) is a later slice and raises."""
+    without, ``(apply_tail(x), None)``. On the ring the loss is this
+    rank's share of the mean over all ranks' tokens (its sum over the
+    global B*T), so the ranks' losses sum to the global mean.
+    ``cfg.loss_chunk`` (the chunked loss) is a later slice and raises."""
     if targets is None:
         return apply_tail(x, params), None
     if cfg.loss_chunk:
@@ -242,8 +278,9 @@ def tail_and_loss(x: torch.Tensor, params: dict, cfg, targets=None):
         )
     x_ln = apply_pre_norm(x, params["ln_f"])
     p = params["lm_head"]
+    n_total = targets.numel() * group.size if use_ring(group) else None
     loss, logits = dense_linear_cross_entropy(x_ln, p["w"], p.get("b"),
-                                              targets)
+                                              targets, n_total)
     return logits, loss
 
 

@@ -50,44 +50,49 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def _attn(x: torch.Tensor, p: dict, layer_idx: int, cfg: ModelConfig,
-          seed=None) -> torch.Tensor:
+          seed=None, group=None) -> torch.Tensor:
     B, T, _ = x.shape
     s_att, s_out = common.split_seed(seed, 2)
     out = common.flash_attention(x, p["wq"], p["wk"], p["wv"],
                                  common.layer_coeffs(cfg, p, layer_idx),
-                                 rate=cfg.dropout, seed=s_att)
+                                 rate=cfg.dropout, seed=s_att, group=group)
     out = common.apply_group_norm(out.reshape(B, T, -1), p["gn"])
     out = common.linear(out * OUTPUT_SCALE, p["out"])
     return common.apply_dropout(out, cfg.dropout, s_out)
 
 
-def embed(params: dict, idx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def embed(params: dict, idx: torch.Tensor, cfg: ModelConfig,
+          group=None) -> torch.Tensor:
     """Token embedding PLUS the learned absolute position table (added in
-    fp32, then cast to the compute dtype)."""
+    fp32, then cast to the compute dtype); on the ring, the rows of this
+    rank's global positions."""
     T = idx.shape[-1]
-    if T > cfg.block_size:
-        raise ValueError(f"sequence length {T} exceeds block_size {cfg.block_size}")
-    x = F.embedding(idx, params["tok_emb"]) + params["pos_emb"][:T]
+    t0 = common.shard_start(T, group)
+    if t0 + T > cfg.block_size:
+        raise ValueError(f"sequence length {t0 + T} exceeds block_size {cfg.block_size}")
+    x = F.embedding(idx, params["tok_emb"]) + params["pos_emb"][t0:t0 + T]
     return x.to(common.compute_dtype(cfg))
 
 
 def block_forward(x: torch.Tensor, blk: dict, layer_idx: int,
-                  cfg: ModelConfig, cos=None, sin=None, seed=None) -> torch.Tensor:
+                  cfg: ModelConfig, cos=None, sin=None, seed=None,
+                  group=None) -> torch.Tensor:
     """One pre-LN residual block; ``layer_idx`` is 1-based; ``seed`` the
-    block's dropout seed (None: no dropout)."""
+    block's dropout seed (None: no dropout); ``group`` the sequence ring."""
     del cos, sin  # no RoPE in this family
     s_attn, s_ffn = common.split_seed(seed, 2)
     a = _attn(common.apply_pre_norm(x, blk["ln1"]), blk["attn"], layer_idx,
-              cfg, s_attn)
+              cfg, s_attn, group)
     return common.apply_block_ffn(x, a, blk, cfg.dropout, s_ffn)
 
 
 def forward(params: dict, idx: torch.Tensor, cfg: ModelConfig, targets=None,
-            seed=None):
+            seed=None, group=None):
     """(B, T) int64 tokens -> (logits (B, T, V), loss or None); ``seed``
-    turns dropout on (None: eval)."""
-    x = embed(params, idx, cfg)
-    seeds = common.split_seed(seed, cfg.n_layer)
+    turns dropout on (None: eval); ``group`` the sequence ring, whose rank
+    holds the T-shard ``idx``."""
+    x = embed(params, idx, cfg, group)
+    seeds = common.split_seed(common.rank_seed(seed, group), cfg.n_layer)
     for li, (blk, s) in enumerate(zip(params["blocks"], seeds), 1):
-        x = block_forward(x, blk, li, cfg, seed=s)
-    return common.tail_and_loss(x, params, cfg, targets)
+        x = block_forward(x, blk, li, cfg, seed=s, group=group)
+    return common.tail_and_loss(x, params, cfg, targets, group)

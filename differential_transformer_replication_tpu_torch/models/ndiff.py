@@ -49,12 +49,12 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def _attn(x: torch.Tensor, p: dict, layer_idx: int, cfg: ModelConfig, cos,
-          sin, seed=None) -> torch.Tensor:
+          sin, seed=None, group=None) -> torch.Tensor:
     B, T, _ = x.shape
     s_att, s_out = common.split_seed(seed, 2)
     out = common.flash_attention(x, p["wq"], p["wk"], p["wv"],
                                  common.layer_coeffs(cfg, p, layer_idx), cos, sin,
-                                 rate=cfg.dropout, seed=s_att)
+                                 rate=cfg.dropout, seed=s_att, group=group)
     out = common.apply_group_norm(out.reshape(B, T, -1), p["gn"])
     out = common.linear(out * OUTPUT_SCALE, p["out"])
     return common.apply_dropout(out, cfg.dropout, s_out)
@@ -66,21 +66,25 @@ def embed(params: dict, idx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def block_forward(x: torch.Tensor, blk: dict, layer_idx: int,
-                  cfg: ModelConfig, cos=None, sin=None, seed=None) -> torch.Tensor:
+                  cfg: ModelConfig, cos=None, sin=None, seed=None,
+                  group=None) -> torch.Tensor:
     """One pre-LN residual block; ``layer_idx`` is 1-based."""
     s_attn, s_ffn = common.split_seed(seed, 2)
     a = _attn(common.apply_pre_norm(x, blk["ln1"]), blk["attn"], layer_idx,
-              cfg, cos, sin, s_attn)
+              cfg, cos, sin, s_attn, group)
     return common.apply_block_ffn(x, a, blk, cfg.dropout, s_ffn)
 
 
 def forward(params: dict, idx: torch.Tensor, cfg: ModelConfig, targets=None,
-            seed=None):
+            seed=None, group=None):
     """(B, T) int64 tokens -> (logits (B, T, V), loss or None); ``seed``
-    turns dropout on (None: eval)."""
+    turns dropout on (None: eval); ``group`` the sequence ring, whose rank
+    holds the T-shard ``idx`` (RoPE at its global positions)."""
     x = embed(params, idx, cfg)
-    cos, sin = rope_cos_sin(cfg.head_size, idx.shape[-1], device=x.device)
-    seeds = common.split_seed(seed, cfg.n_layer)
+    T = idx.shape[-1]
+    t0 = common.shard_start(T, group)
+    cos, sin = (t[t0:] for t in rope_cos_sin(cfg.head_size, t0 + T, device=x.device))
+    seeds = common.split_seed(common.rank_seed(seed, group), cfg.n_layer)
     for li, (blk, s) in enumerate(zip(params["blocks"], seeds), 1):
-        x = block_forward(x, blk, li, cfg, cos, sin, s)
-    return common.tail_and_loss(x, params, cfg, targets)
+        x = block_forward(x, blk, li, cfg, cos, sin, s, group)
+    return common.tail_and_loss(x, params, cfg, targets, group)

@@ -18,12 +18,15 @@ def init_model(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def model_forward(params: dict, idx: torch.Tensor, cfg: ModelConfig,
-                  targets=None, seed=None):
+                  targets=None, seed=None, group=None):
     """(B, T) int64 tokens -> (logits (B, T, V), loss or None). ``seed``
     (an int) turns on the ``cfg.dropout`` sites, the counterpart of the
-    JAX ``rng``; None is eval."""
+    JAX ``rng``; None is eval. ``group`` (a ``parallel.SequenceGroup``,
+    the counterpart of the JAX ``mesh``) runs the sequence-parallel ring:
+    ``idx``/``targets`` are then this rank's T-shards and the loss its
+    share of the global mean."""
     return _MODULES[cfg.model].forward(params, idx, cfg, targets=targets,
-                                       seed=seed)
+                                       seed=seed, group=group)
 
 
 def param_count(params) -> int:

@@ -62,17 +62,17 @@ SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     },
     "flash_bh": {
-        # q, k, v, coeffs, out, o_all, lse, S, BH, T, H, d, dv, scale,
-        # w0, w1, threshold, inv_keep, dropout_on, dtype, stream
+        # q, k, v, coeffs, out, o_all, lse, S, BH, T, H, d, dv, off,
+        # scale, w0, w1, threshold, inv_keep, dropout_on, dtype, stream
         "flash_bh_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _F, _U, _U, _U, _F, _I, _I, _P),
-        # q, k, v, g, lse, delta, coeffs, dq, S, BH, T, H, d, dv, scale,
-        # w0, w1, threshold, inv_keep, dropout_on, dtype, stream
+                         _I, _F, _U, _U, _U, _F, _I, _I, _P),
+        # q, k, v, g, lse, delta, coeffs, dq, S, BH, T, H, d, dv, off,
+        # scale, w0, w1, threshold, inv_keep, dropout_on, dtype, stream
         "flash_bh_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _F, _U, _U, _U, _F, _I, _I, _P),
+                            _I, _I, _I, _F, _U, _U, _U, _F, _I, _I, _P),
         # ... dk, dv, S, ... (as flash_bh_bwd_dq with two outputs)
         "flash_bh_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                             _I, _I, _I, _F, _U, _U, _U, _F, _I, _I, _P),
+                             _I, _I, _I, _I, _F, _U, _U, _U, _F, _I, _I, _P),
         # ... dq, dk, dv, dq_acc, S, ...
         "flash_bh_bwd_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _F, _U, _U, _U, _F,

@@ -18,6 +18,14 @@ in the JAX package (``ops/flash.py``: ``use_tm`` picks):
   The TPU's splits by VMEM (resident/tiled at ``_KV_TILE_THRESHOLD``,
   fused/split at ``_FUSED_BWD_BUDGET``) are kept as the route names of
   each launch (:func:`fwd_route`, :func:`bwd_route`).
+- the ring chunk (sequence parallelism, ``parallel/ring.py``): the
+  counterpart of JAX ``flash_chunk_attention``, per-stream ``(o_all,
+  lse)`` under a causal offset, with no stream combine. Replaces
+  ``_chunk_fwd_call`` (K1 without coefficients; ``_tiled_fwd_call`` in
+  that mode past T = 4096) and the per-stream form of ``_bwd_call`` /
+  ``_tiled_bwd_call`` (``coeffs=None``: K2/K3 with one cotangent per
+  stream). Routes ``chunk-resident``/``chunk-tiled`` (forward) and
+  ``chunk-split``/``chunk-tiled`` (backward).
 
 Each computes, per batch row, head and causal query row,
 
@@ -46,6 +54,7 @@ from dataclasses import dataclass
 import torch
 
 from differential_transformer_replication_tpu_torch.ops import _kernels
+from differential_transformer_replication_tpu_torch.ops.streams import NEG_INF
 
 # the token-major envelope of the JAX package (ops/flash.py use_tm)
 TM_MAX_T = 512
@@ -473,13 +482,17 @@ def _coeffs_bh(coeffs: torch.Tensor, BH: int) -> torch.Tensor:
 
 
 def bh_attention_fwd_reference(q, k, v, coeffs, rate: float = 0.0,
-                               words=(0, 0)):
-    """Plain version of :func:`flash_bh_fwd`: q, k (BH, S, T, d), v (BH,
-    T, dv), coeffs (S, H) fp32. Returns (out (BH, T, dv), o_all (BH, S, T,
-    dv) in the storage dtype, lse (BH, S, T) fp32). The kernel's online
+                               words=(0, 0), off: int = 0):
+    """Plain version of :func:`flash_bh_fwd` and :func:`flash_chunk_fwd`:
+    q, k (BH, S, T, d), v (BH, T, dv), coeffs (S, H) fp32, or None for
+    the no-combine mode. Returns (out (BH, T, dv), None without coeffs;
+    o_all (BH, S, T, dv) in the storage dtype; lse (BH, S, T) fp32).
+    Column c is visible to row r iff c <= r + off. The kernel's online
     softmax over key tiles of :data:`BLOCK`: the normalizer sums the
-    undropped p; p (dropped, scaled by 1/(1-rate)) is rounded to the
-    storage dtype before PV; the streams combine in fp32."""
+    undropped p; p (dropped, scaled by 1/(1-rate); the hash takes column
+    c - off) is rounded to the storage dtype before PV; the streams
+    combine in fp32. A row with no visible key ends with o = 0 and lse =
+    NEG_INF + log(1e-30) (= -1e30 in fp32), as the JAX kernel's."""
     dt, dev = q.dtype, q.device
     BH, S, T, d = q.shape
     dv = v.shape[-1]
@@ -493,48 +506,59 @@ def bh_attention_fwd_reference(q, k, v, coeffs, rate: float = 0.0,
     pos = torch.arange(T, device=dev)
     for k0 in range(0, T, BLOCK):
         k1 = min(T, k0 + BLOCK)
-        # rows before k0 see no key of this tile (the kernel skips it)
-        s = torch.einsum("bsqd,bskd->bsqk", qf[:, :, k0:], kf[:, :, k0:k1]) * scale
-        vis = pos[k0:k1][None, :] <= pos[k0:][:, None]
+        # rows before k0 - off see no key of this tile (the kernel leaves
+        # them as they are); each row from r0 on sees key k0
+        r0 = max(0, k0 - off)
+        if r0 >= T:
+            break
+        s = torch.einsum("bsqd,bskd->bsqk", qf[:, :, r0:], kf[:, :, k0:k1]) * scale
+        vis = pos[k0:k1][None, :] <= pos[r0:][:, None] + off
         s = s.masked_fill(~vis, float("-inf"))
-        m_old = m[:, :, k0:]
+        m_old = m[:, :, r0:]
         m_new = torch.maximum(m_old, s.amax(dim=-1))
         alpha = torch.exp(m_old - m_new)
         p = torch.exp(s - m_new[..., None])
-        l[:, :, k0:] = l[:, :, k0:] * alpha + p.sum(dim=-1)
+        l[:, :, r0:] = l[:, :, r0:] * alpha + p.sum(dim=-1)
         if rate > 0.0:
-            keep = _keep_block(words, rate, BH, S, pos[k0:], pos[k0:k1], dev)
+            keep = _keep_block(words, rate, BH, S, pos[r0:], pos[k0:k1] - off, dev)
             p = torch.where(keep, p * inv_keep, 0.0)
         pv = torch.einsum("bsqk,bkc->bsqc", p.to(dt).to(torch.float32),
                           vf[:, k0:k1])
-        acc[:, :, k0:] = acc[:, :, k0:] * alpha[..., None] + pv
-        m[:, :, k0:] = m_new
+        acc[:, :, r0:] = acc[:, :, r0:] * alpha[..., None] + pv
+        m[:, :, r0:] = m_new
     l_safe = torch.clamp(l, min=1e-30)
     o = acc / l_safe[..., None]
+    lse = torch.where(m == float("-inf"), NEG_INF, m) + torch.log(l_safe)
+    if coeffs is None:
+        return None, o.to(dt), lse
     c = _coeffs_bh(coeffs, BH)
     comb = o[:, 0] * c[:, 0, None, None]
     for si in range(1, S):
         comb = comb + o[:, si] * c[:, si, None, None]
-    return comb.to(dt), o.to(dt), m + torch.log(l_safe)
+    return comb.to(dt), o.to(dt), lse
 
 
 _QUERY_CHUNK = 1024  # plain backward: query rows per pass (bounds memory)
 
 
 def bh_attention_bwd_reference(q, k, v, g, lse, delta, coeffs,
-                               rate: float = 0.0, words=(0, 0)):
-    """Plain version of the head-major backward kernels (the JAX factored
-    ``_bwd_call`` math): g (BH, T, dv) in the storage dtype, lse/delta
-    (BH, S, T) fp32. p = exp(s*scale - lse); dP_s = c_s (g V^T), masked
-    and scaled by the same keep mask; ds = p (dP - delta) rounded to the
-    storage dtype before the dq/dk products; dv = (sum_s c_s P~_s,
-    rounded)^T g. Returns (dq, dk (BH, S, T, d), dv (BH, T, dv))."""
+                               rate: float = 0.0, words=(0, 0), off: int = 0):
+    """Plain version of the head-major backward kernels. With coeffs (S,
+    H), the JAX factored ``_bwd_call`` math: g (BH, T, dv) in the storage
+    dtype, dP_s = c_s (g V^T), dv = (sum_s c_s P~_s, rounded)^T g. With
+    ``coeffs=None``, the per-stream form (the ring chunk's): g (BH, S, T,
+    dv), dP_s = g_s V^T, dv = sum_s (P~_s, rounded)^T g_s. Both: lse/delta
+    (BH, S, T) fp32; p = exp(s*scale - lse) where column c <= row + off;
+    dP masked and scaled by the same keep mask (hash column c - off); ds =
+    p (dP - delta) rounded to the storage dtype before the dq/dk products.
+    Returns (dq, dk (BH, S, T, d), dv (BH, T, dv))."""
     dt, dev = q.dtype, q.device
     BH, S, T, d = q.shape
     scale = 1.0 / math.sqrt(d)
+    per_stream = coeffs is None
     qf, kf = q.to(torch.float32), k.to(torch.float32)
     vf, gf = v.to(torch.float32), g.to(torch.float32)
-    c = _coeffs_bh(coeffs, BH)
+    c = None if per_stream else _coeffs_bh(coeffs, BH)
     # a fill, not a host copy: the plain versions are graph-capturable
     inv_keep = torch.full((), 1.0 / (1.0 - rate), dtype=torch.float32, device=dev)
     dq = torch.zeros_like(qf)
@@ -543,26 +567,37 @@ def bh_attention_bwd_reference(q, k, v, g, lse, delta, coeffs,
     pos = torch.arange(T, device=dev)
     for q0 in range(0, T, _QUERY_CHUNK):
         q1 = min(T, q0 + _QUERY_CHUNK)
-        gv = torch.einsum("bqc,bkc->bqk", gf[:, q0:q1], vf[:, :q1])
-        vis = pos[:q1][None, :] <= pos[q0:q1][:, None]
-        keep = (_keep_block(words, rate, BH, S, pos[q0:q1], pos[:q1], dev)
+        kn = min(T, q1 + off)  # keys past kn lie in every row's future
+        if kn <= 0:
+            continue
+        vis = pos[:kn][None, :] <= pos[q0:q1][:, None] + off
+        keep = (_keep_block(words, rate, BH, S, pos[q0:q1], pos[:kn] - off, dev)
                 if rate > 0.0 else None)
+        gv = None if per_stream else torch.einsum("bqc,bkc->bqk", gf[:, q0:q1], vf[:, :kn])
         pc = None
         for si in range(S):
-            sc = torch.einsum("bqd,bkd->bqk", qf[:, si, q0:q1], kf[:, si, :q1]) * scale
+            sc = torch.einsum("bqd,bkd->bqk", qf[:, si, q0:q1], kf[:, si, :kn]) * scale
             p = torch.where(vis, torch.exp(sc - lse[:, si, q0:q1, None]), 0.0)
-            cs = c[:, si, None, None]
-            dp = gv * cs
+            if per_stream:
+                dp = torch.einsum("bqc,bkc->bqk", gf[:, si, q0:q1], vf[:, :kn])
+            else:
+                cs = c[:, si, None, None]
+                dp = gv * cs
             pv = p
             if keep is not None:
                 dp = torch.where(keep[:, si], dp * inv_keep, 0.0)
                 pv = torch.where(keep[:, si], p * inv_keep, 0.0)
             ds = (p * (dp - delta[:, si, q0:q1, None])).to(dt).to(torch.float32)
-            dq[:, si, q0:q1] = torch.einsum("bqk,bkd->bqd", ds, kf[:, si, :q1]) * scale
-            dk[:, si, :q1] += torch.einsum("bqk,bqd->bkd", ds, qf[:, si, q0:q1])
-            pc = pv * cs if pc is None else pc + pv * cs
-        dv[:, :q1] += torch.einsum("bqk,bqc->bkc", pc.to(dt).to(torch.float32),
-                                   gf[:, q0:q1])
+            dq[:, si, q0:q1] = torch.einsum("bqk,bkd->bqd", ds, kf[:, si, :kn]) * scale
+            dk[:, si, :kn] += torch.einsum("bqk,bqd->bkd", ds, qf[:, si, q0:q1])
+            if per_stream:
+                dv[:, :kn] += torch.einsum("bqk,bqc->bkc", pv.to(dt).to(torch.float32),
+                                           gf[:, si, q0:q1])
+            else:
+                pc = pv * cs if pc is None else pc + pv * cs
+        if not per_stream:
+            dv[:, :kn] += torch.einsum("bqk,bqc->bkc", pc.to(dt).to(torch.float32),
+                                       gf[:, q0:q1])
     return dq.to(dt), (dk * scale).to(dt), dv.to(dt)
 
 
@@ -593,17 +628,20 @@ def _check_bh(what, q, k, v, coeffs, H):
                 or t.data_ptr() % 16:
             raise ValueError(f"{what}: q, k and v must be contiguous, 16-byte "
                              "aligned and share dtype and device")
-    if coeffs.dtype != torch.float32 or not coeffs.is_contiguous() \
-            or tuple(coeffs.shape) != (S, H):
+    if coeffs is not None and (coeffs.dtype != torch.float32
+                               or not coeffs.is_contiguous()
+                               or tuple(coeffs.shape) != (S, H)):
         raise ValueError(f"{what}: coeffs must be contiguous fp32 ({S}, {H})")
     return BH, S, T, d, v.shape[-1]
 
 
-def _check_bwd_inputs(what, q, g, lse, delta, BH, S, T, dv):
-    if tuple(g.shape) != (BH, T, dv) or g.dtype != q.dtype \
+def _check_bwd_inputs(what, q, g, lse, delta, BH, S, T, dv,
+                      per_stream: bool = False):
+    g_shape = (BH, S, T, dv) if per_stream else (BH, T, dv)
+    if tuple(g.shape) != g_shape or g.dtype != q.dtype \
             or not g.is_contiguous() or g.data_ptr() % 16:
         raise ValueError(f"{what}: g must be contiguous, 16-byte aligned "
-                         f"({BH}, {T}, {dv}) in the storage dtype")
+                         f"{g_shape} in the storage dtype")
     for t in (lse, delta):
         if tuple(t.shape) != (BH, S, T) or t.dtype != torch.float32 \
                 or not t.is_contiguous():
@@ -619,21 +657,36 @@ def flash_bh_fwd(q, k, v, coeffs, H: int, rate: float, words,
         out, o_all, lse = bh_attention_fwd_reference(q, k, v, coeffs, rate, words)
         return (out, o_all, lse) if save_residuals else (out, None, None)
     BH, S, T, d, dv = _check_bh("flash_bh_fwd", q, k, v, coeffs, H)
+    out, o_all, lse = _launch_fwd("flash_bh_fwd", q, k, v, coeffs, H, 0, rate,
+                                  words, save_residuals)
+    flash_bh_fwd.launches += 1
+    flash_bh_fwd.routes[fwd_route(T)] += 1
+    return out, o_all, lse
+
+
+def _launch_fwd(what, q, k, v, coeffs, H: int, off: int, rate: float, words,
+                save_residuals: bool):
+    """K1 on checked operands: with ``coeffs`` the combined output (and
+    the residuals when asked), without them the no-combine mode (the
+    residuals only)."""
+    BH, S, T, d = q.shape
+    dv = v.shape[-1]
     dt, dev = q.dtype, q.device
-    out = torch.empty((BH, T, dv), dtype=dt, device=dev)
-    o_all = lse = None
+    out = o_all = lse = None
+    if coeffs is not None:
+        out = torch.empty((BH, T, dv), dtype=dt, device=dev)
     if save_residuals:
         o_all = torch.empty((BH, S, T, dv), dtype=dt, device=dev)
         lse = torch.empty((BH, S, T), dtype=torch.float32, device=dev)
     rc = _kernels.load("flash_bh").flash_bh_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), coeffs.data_ptr(),
-        out.data_ptr(), o_all.data_ptr() if save_residuals else None,
-        lse.data_ptr() if save_residuals else None, S, BH, T, H, d, dv,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if coeffs is None else coeffs.data_ptr(),
+        None if out is None else out.data_ptr(),
+        None if o_all is None else o_all.data_ptr(),
+        None if lse is None else lse.data_ptr(), S, BH, T, H, d, dv, int(off),
         1.0 / math.sqrt(d), *_drop_args(rate, words), _kernels.DTYPE_CODES[dt],
         _kernels.stream_handle(dev))
-    _kernels.check(rc, "flash_bh_fwd")
-    flash_bh_fwd.launches += 1
-    flash_bh_fwd.routes[fwd_route(T)] += 1
+    _kernels.check(rc, what)
     return out, o_all, lse
 
 
@@ -646,15 +699,25 @@ def flash_bh_bwd_dq(q, k, v, g, lse, delta, coeffs, H: int, rate: float,
                                           rate, words)[0]
     BH, S, T, d, dv = _check_bh("flash_bh_bwd_dq", q, k, v, coeffs, H)
     _check_bwd_inputs("flash_bh_bwd_dq", q, g, lse, delta, BH, S, T, dv)
+    dq = _launch_dq("flash_bh_bwd_dq", q, k, v, g, lse, delta, coeffs, H, 0,
+                    rate, words)
+    flash_bh_bwd_dq.launches += 1
+    flash_bh_bwd_dq.routes[bwd_route(S, T)] += 1
+    return dq
+
+
+def _launch_dq(what, q, k, v, g, lse, delta, coeffs, H: int, off: int,
+               rate: float, words) -> torch.Tensor:
+    """K2 on checked operands (``coeffs=None``: per-stream g)."""
+    BH, S, T, d = q.shape
     dq = torch.empty_like(q)
     rc = _kernels.load("flash_bh").flash_bh_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), coeffs.data_ptr(), dq.data_ptr(), S, BH, T, H, d,
-        dv, 1.0 / math.sqrt(d), *_drop_args(rate, words),
-        _kernels.DTYPE_CODES[q.dtype], _kernels.stream_handle(q.device))
-    _kernels.check(rc, "flash_bh_bwd_dq")
-    flash_bh_bwd_dq.launches += 1
-    flash_bh_bwd_dq.routes[bwd_route(S, T)] += 1
+        delta.data_ptr(), None if coeffs is None else coeffs.data_ptr(),
+        dq.data_ptr(), S, BH, T, H, d, v.shape[-1], int(off), 1.0 / math.sqrt(d),
+        *_drop_args(rate, words), _kernels.DTYPE_CODES[q.dtype],
+        _kernels.stream_handle(q.device))
+    _kernels.check(rc, what)
     return dq
 
 
@@ -667,15 +730,25 @@ def flash_bh_bwd_dkv(q, k, v, g, lse, delta, coeffs, H: int, rate: float,
                                           rate, words)[1:]
     BH, S, T, d, dv = _check_bh("flash_bh_bwd_dkv", q, k, v, coeffs, H)
     _check_bwd_inputs("flash_bh_bwd_dkv", q, g, lse, delta, BH, S, T, dv)
+    dk, dv_ = _launch_dkv("flash_bh_bwd_dkv", q, k, v, g, lse, delta, coeffs,
+                          H, 0, rate, words)
+    flash_bh_bwd_dkv.launches += 1
+    flash_bh_bwd_dkv.routes[bwd_route(S, T)] += 1
+    return dk, dv_
+
+
+def _launch_dkv(what, q, k, v, g, lse, delta, coeffs, H: int, off: int,
+                rate: float, words) -> tuple:
+    """K3 on checked operands (``coeffs=None``: per-stream g)."""
+    BH, S, T, d = q.shape
     dk, dv_ = torch.empty_like(k), torch.empty_like(v)
     rc = _kernels.load("flash_bh").flash_bh_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), coeffs.data_ptr(), dk.data_ptr(), dv_.data_ptr(), S,
-        BH, T, H, d, dv, 1.0 / math.sqrt(d), *_drop_args(rate, words),
+        delta.data_ptr(), None if coeffs is None else coeffs.data_ptr(),
+        dk.data_ptr(), dv_.data_ptr(), S, BH, T, H, d, v.shape[-1], int(off),
+        1.0 / math.sqrt(d), *_drop_args(rate, words),
         _kernels.DTYPE_CODES[q.dtype], _kernels.stream_handle(q.device))
-    _kernels.check(rc, "flash_bh_bwd_dkv")
-    flash_bh_bwd_dkv.launches += 1
-    flash_bh_bwd_dkv.routes[bwd_route(S, T)] += 1
+    _kernels.check(rc, what)
     return dk, dv_
 
 
@@ -705,15 +778,94 @@ def flash_bh_bwd_fused(q, k, v, g, lse, delta, coeffs, H: int, rate: float,
     return dq, dk, dv_
 
 
+# ---------------------------------------------------------------------------
+# ring-chunk wrappers: K1 without the combine, K2/K3 with per-stream
+# cotangents, all under a causal offset (JAX _chunk_fwd_call and the
+# coeffs=None form of _bwd_call / _tiled_bwd_call)
+# ---------------------------------------------------------------------------
+
+
+def chunk_fwd_route(T: int) -> str:
+    """``chunk-resident`` (Queue B row 14, ``_chunk_fwd_call``) or
+    ``chunk-tiled`` (row 10 in the no-combine mode), at the JAX split."""
+    return "chunk-tiled" if T > _KV_TILE_THRESHOLD else "chunk-resident"
+
+
+def chunk_bwd_route(T: int) -> str:
+    """``chunk-split`` (row 13's per-stream form) or ``chunk-tiled`` (row
+    11's): JAX never takes the fused backward with an offset."""
+    return "chunk-tiled" if T > _BWD_KV_TILE_THRESHOLD else "chunk-split"
+
+
+def flash_chunk_fwd(q, k, v, off: int, rate: float, words) -> tuple:
+    """Kernel K1 in the no-combine mode: per-stream (o_all (BH, S, T, dv),
+    lse (BH, S, T) fp32) of q, k (BH, S, T, d) against v (BH, T, dv), with
+    column c visible to row r iff c <= r + off."""
+    if not _kernels.on_card(v, "flash_chunk_fwd"):
+        return bh_attention_fwd_reference(q, k, v, None, rate, words, off)[1:]
+    _, S, T, _, _ = _check_bh("flash_chunk_fwd", q, k, v, None, 1)
+    _, o_all, lse = _launch_fwd("flash_chunk_fwd", q, k, v, None, 1, off, rate,
+                                words, True)
+    flash_chunk_fwd.launches += 1
+    flash_chunk_fwd.routes[chunk_fwd_route(T)] += 1
+    return o_all, lse
+
+
+def flash_chunk_bwd_dq(q, k, v, do, lse, delta, off: int, rate: float,
+                       words) -> torch.Tensor:
+    """Kernel K2 with per-stream cotangents ``do`` (BH, S, T, dv) and the
+    offset: dq (BH, S, T, d)."""
+    if not _kernels.on_card(v, "flash_chunk_bwd_dq"):
+        return bh_attention_bwd_reference(q, k, v, do, lse, delta, None, rate,
+                                          words, off)[0]
+    BH, S, T, _, dv = _check_bh("flash_chunk_bwd_dq", q, k, v, None, 1)
+    _check_bwd_inputs("flash_chunk_bwd_dq", q, do, lse, delta, BH, S, T, dv, True)
+    dq = _launch_dq("flash_chunk_bwd_dq", q, k, v, do, lse, delta, None, 1, off,
+                    rate, words)
+    flash_chunk_bwd_dq.launches += 1
+    flash_chunk_bwd_dq.routes[chunk_bwd_route(T)] += 1
+    return dq
+
+
+def flash_chunk_bwd_dkv(q, k, v, do, lse, delta, off: int, rate: float,
+                        words) -> tuple:
+    """Kernel K3 with per-stream cotangents and the offset: (dk (BH, S, T,
+    d), dv (BH, T, dv) = sum_s P~_s^T do_s)."""
+    if not _kernels.on_card(v, "flash_chunk_bwd_dkv"):
+        return bh_attention_bwd_reference(q, k, v, do, lse, delta, None, rate,
+                                          words, off)[1:]
+    BH, S, T, _, dv = _check_bh("flash_chunk_bwd_dkv", q, k, v, None, 1)
+    _check_bwd_inputs("flash_chunk_bwd_dkv", q, do, lse, delta, BH, S, T, dv, True)
+    dk, dv_ = _launch_dkv("flash_chunk_bwd_dkv", q, k, v, do, lse, delta, None,
+                          1, off, rate, words)
+    flash_chunk_bwd_dkv.launches += 1
+    flash_chunk_bwd_dkv.routes[chunk_bwd_route(T)] += 1
+    return dk, dv_
+
+
+def flash_chunk_bwd(q, k, v, do, lse, delta, off: int, rate: float,
+                    words) -> tuple:
+    """The chunk backward, K2 then K3: (dq, dk, dv)."""
+    if not _kernels.on_card(v, "flash_chunk_bwd"):
+        return bh_attention_bwd_reference(q, k, v, do, lse, delta, None, rate,
+                                          words, off)
+    dq = flash_chunk_bwd_dq(q, k, v, do, lse, delta, off, rate, words)
+    dk, dv = flash_chunk_bwd_dkv(q, k, v, do, lse, delta, off, rate, words)
+    return dq, dk, dv
+
+
 BH_WRAPPERS = (flash_bh_fwd, flash_bh_bwd_dq, flash_bh_bwd_dkv,
                flash_bh_bwd_fused)
-for _fn in BH_WRAPPERS:
+CHUNK_WRAPPERS = (flash_chunk_fwd, flash_chunk_bwd_dq, flash_chunk_bwd_dkv)
+for _fn in BH_WRAPPERS + CHUNK_WRAPPERS:
     _fn.launches = 0
     _fn.routes = Counter()
 
 
 def reset_bh_counters() -> None:
-    for fn in BH_WRAPPERS:
+    """Zero the launch and route counts of the head-major kernels' wrappers
+    (K1-K4 and their ring-chunk modes)."""
+    for fn in BH_WRAPPERS + CHUNK_WRAPPERS:
         fn.launches = 0
         fn.routes = Counter()
 
@@ -826,3 +978,62 @@ def multi_stream_flash_attention(qs, ks, v, coeffs, *, dropout_rate: float = 0.0
                                           dropout_rate=dropout_rate,
                                           dropout_gen=dropout_gen)
     return out.reshape(B, H, T, dv).transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# the ring chunk's differentiable entry point
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class _ChunkCall:
+    off: int
+    rate: float
+    words: tuple
+
+
+class _FlashChunkFn(torch.autograd.Function):
+    """The JAX ``flash_chunk_attention`` custom VJP: (o_all, lse), both
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, call, q, k, v):
+        o_all, lse = flash_chunk_fwd(q, k, v, call.off, call.rate, call.words)
+        ctx.call = call
+        ctx.save_for_backward(q, k, v, o_all, lse)
+        return o_all, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        call = ctx.call
+        q, k, v, o_all, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o_all)
+        do = do.to(q.dtype).contiguous()
+        # dS = P (dP - delta + dlse): the lse cotangent folds into delta
+        # (JAX _flash_chunk_bwd); with dropout only dP is masked
+        delta = torch.einsum("bstd,bstd->bst", do.to(torch.float32),
+                             o_all.to(torch.float32))
+        if dlse is not None:
+            delta = delta - dlse.to(torch.float32)
+        dq, dk, dv = flash_chunk_bwd(q, k, v, do, lse, delta.contiguous(),
+                                     call.off, call.rate, call.words)
+        return None, dq, dk, dv
+
+
+def flash_chunk_attention(q, k, v, off: int, seed=None,
+                          rate: float = 0.0) -> tuple:
+    """The counterpart of JAX ``flash_chunk_attention``: per-stream
+    ``(o_all (BH, S, T, dv), lse (BH, S, T) fp32)`` of q, k (BH, S, T, d)
+    against v (BH, T, dv), column c visible to row r iff c <= r + off;
+    ``seed`` a (1, 2) float32 CPU tensor of seed words (or None) and
+    ``rate`` the attention-dropout rate (masks hash (row, col - off)). The
+    lse sums the UNDROPPED probabilities, so chunks merge exactly by the
+    running logsumexp (``parallel/ring.py``). Under ``torch.no_grad`` the
+    forward keeps no residuals."""
+    if seed is None or rate <= 0.0:
+        rate, words = 0.0, (0, 0)
+    else:
+        rate, words = float(rate), seed_words(seed)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    return _FlashChunkFn.apply(_ChunkCall(int(off), rate, words), q, k, v)

@@ -25,14 +25,16 @@ import torch
 class _DenseLinearCE(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, h, w, b, targets):
+    def forward(ctx, h, w, b, targets, n_total):
         logits = h @ w.to(h.dtype)
         if b is not None:
             logits = logits + b.to(h.dtype)
         lse = torch.logsumexp(logits.to(torch.float32), dim=-1)
         tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
-        loss = torch.mean(lse - tgt.to(torch.float32))
+        nll = lse - tgt.to(torch.float32)
+        loss = torch.mean(nll) if n_total is None else torch.sum(nll) / n_total
         ctx.save_for_backward(h, w, logits, lse, targets)
+        ctx.n_total = n_total
         ctx.b_dtype = None if b is None else b.dtype
         ctx.mark_non_differentiable(logits)
         return loss, logits
@@ -41,7 +43,7 @@ class _DenseLinearCE(torch.autograd.Function):
     def backward(ctx, g, _g_logits):
         h, w, logits, lse, targets = ctx.saved_tensors
         V = logits.shape[-1]
-        n = logits.numel() // V
+        n = ctx.n_total or logits.numel() // V
         p = torch.exp(logits.to(torch.float32) - lse[..., None]).reshape(-1, V)
         t = targets.reshape(-1)
         scale = g / n
@@ -56,14 +58,17 @@ class _DenseLinearCE(torch.autograd.Function):
             counts = torch.zeros(V, dtype=torch.float32, device=t.device)
             counts.index_add_(0, t, torch.ones_like(t, dtype=torch.float32))
             db = ((p.sum(0) - counts) * scale).to(ctx.b_dtype)
-        return dh, dw, db, None
+        return dh, dw, db, None, None
 
 
 def dense_linear_cross_entropy(h: torch.Tensor, w: torch.Tensor,
                                b: Optional[torch.Tensor],
-                               targets: torch.Tensor):
+                               targets: torch.Tensor,
+                               n_total: Optional[int] = None):
     """``(loss, logits)``: the mean cross-entropy of ``h @ w + b`` against
     ``targets`` (int64), differentiable in ``h``, ``w`` and ``b``; the
     logits are the loss's own forward logits, returned without a
-    gradient path (a train step uses the loss only)."""
-    return _DenseLinearCE.apply(h, w, b, targets)
+    gradient path (a train step uses the loss only). ``n_total`` divides
+    the sum instead of the local token count (a shard's share of a mean
+    over ``n_total`` tokens)."""
+    return _DenseLinearCE.apply(h, w, b, targets, n_total)

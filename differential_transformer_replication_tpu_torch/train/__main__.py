@@ -5,9 +5,20 @@
 
 It takes the flags of the JAX package's ``train.py`` that this slice
 runs, under the same names, plus ``--tokens`` (an encoded ``.npy``
-token stream, the JAX trainer's cache-hit input), ``--sampler`` and
-``--device``. Every other ``train.py`` flag is refused with the ROADMAP
-item that brings it.
+token stream, the JAX trainer's cache-hit input), ``--sampler``,
+``--device`` and ``--dist-backend``. Every other ``train.py`` flag is
+refused with the ROADMAP item that brings it.
+
+Sequence parallelism (ring attention over P ranks) runs under torchrun,
+with the backend named:
+
+    torchrun --nproc-per-node P -m differential_transformer_replication_tpu_torch.train \
+        --sequence-parallel P --dist-backend gloo ...
+
+``nccl`` needs one card per rank; ``gloo`` lets the P ranks share one
+card (the ring's K/V exchanges then go through host memory) or run on
+the CPU (``--device cpu``). ``--block-size`` must split into P equal
+shards.
 """
 
 from __future__ import annotations
@@ -16,6 +27,7 @@ import argparse
 import sys
 
 from differential_transformer_replication_tpu_torch.config import (
+    MeshConfig,
     ModelConfig,
     TrainConfig,
 )
@@ -24,7 +36,6 @@ from differential_transformer_replication_tpu_torch.config import (
 LATER_FLAGS = {
     "--attention-impl": "none: the port dispatches kernels by device",
     "--ffn-impl": "none: the port dispatches kernels by device",
-    "--sequence-impl": "parallelism (ROADMAP Queue A)",
     "--loss-chunk": "the chunked loss (ROADMAP Queue A)",
     "--remat": "remat (ROADMAP Queue A)",
     "--remat-policy": "remat (ROADMAP Queue A)",
@@ -63,7 +74,6 @@ LATER_FLAGS = {
     "--data-parallel": "parallelism (ROADMAP Queue A)",
     "--tensor-parallel": "parallelism (ROADMAP Queue A)",
     "--fsdp": "parallelism (ROADMAP Queue A)",
-    "--sequence-parallel": "parallelism (ROADMAP Queue A)",
     "--pipeline-parallel": "parallelism (ROADMAP Queue A)",
 }
 
@@ -108,6 +118,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="'replacement' is the one this slice runs")
     p.add_argument("--log-interval", type=int, default=t.log_interval)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--sequence-parallel", type=int, default=1,
+                   help="ranks of the sequence ring (run under torchrun)")
+    p.add_argument("--sequence-impl", choices=("ring", "ulysses"),
+                   default=m.sequence_impl,
+                   help="'ring' is the one the port runs")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default="nccl",
+                   help="the ring's backend: nccl (one card per rank, the "
+                   "default) or gloo (ranks may share a card, or the CPU)")
     return p
 
 
@@ -120,10 +138,11 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         model=args.model, vocab_size=args.vocab_size, n_embd=args.n_embd,
         n_head=args.n_head, n_layer=args.n_layer, block_size=args.block_size,
         dropout=args.dropout, n_terms=args.n_terms,
-        compute_dtype=args.compute_dtype,
+        compute_dtype=args.compute_dtype, sequence_impl=args.sequence_impl,
     )
     return TrainConfig(
-        model=model, vocab_size=args.vocab_size,
+        model=model, mesh=MeshConfig(sequence=args.sequence_parallel),
+        vocab_size=args.vocab_size,
         micro_batch_size=args.micro_batch_size,
         grad_acc_steps=args.grad_acc_steps, max_iters=args.max_iters,
         eval_interval=args.eval_interval, eval_iters=args.eval_iters,
@@ -137,17 +156,28 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
     )
 
 
-def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else list(argv)
+def run(argv) -> tuple:
+    """Parse ``argv`` as the command line does and train: (final train
+    state, per-step metrics)."""
     parser = build_parser()
     bad = refused_flags(argv)
     if bad:
         parser.error("; ".join(f"{f} is not run by the port yet: "
                                f"{LATER_FLAGS[f]}" for f in bad))
     args = parser.parse_args(argv)
+    if args.sequence_impl != "ring":
+        parser.error(f"--sequence-impl {args.sequence_impl} is not run by the "
+                     "port yet: Ulysses sequence parallelism (ROADMAP Queue A: "
+                     "parallelism); use ring")
     from differential_transformer_replication_tpu_torch.train.trainer import train
 
-    train(config_from_args(args), args.tokens, device=args.device)
+    sp = args.sequence_parallel > 1
+    return train(config_from_args(args), args.tokens, device=args.device,
+                 dist_backend=args.dist_backend if sp else None)
+
+
+def main(argv=None) -> int:
+    run(sys.argv[1:] if argv is None else list(argv))
     return 0
 
 

@@ -15,11 +15,25 @@ busy ms per step, the device's idle share, peak device memory, kernel
 launches per step of each kernel wrapper (head-major ones also by
 route), and the kernels that take the most device time. Needs a CUDA
 GPU.
+
+``--sequence-parallel P --dist-backend {nccl,gloo}`` profiles the
+sequence-parallel step (ring attention over P ranks) under torchrun:
+
+    torchrun --nproc-per-node P -m differential_transformer_replication_tpu_torch.train.step_profile \
+        --sequence-parallel P --dist-backend gloo --block-size 8192 --micro-batch 2
+
+Every rank runs the same steps on the same batches; rank 0 is profiled
+and prints the line, which adds the ring's exchanges per step: their
+count, megabytes and host time (``parallel/ring.py``: with gloo each
+exchange stages through host memory). Its device time is rank 0's
+kernels only; with ranks sharing one card the wall time is the shared
+card's.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import statistics
@@ -29,6 +43,7 @@ import time
 import torch
 
 from differential_transformer_replication_tpu_torch.config import (
+    MeshConfig,
     ModelConfig,
     TrainConfig,
 )
@@ -37,6 +52,11 @@ from differential_transformer_replication_tpu_torch.ops import (
     flash,
     fused_ffn as ffn,
     fused_norm_residual as fnr,
+)
+from differential_transformer_replication_tpu_torch.parallel import ring
+from differential_transformer_replication_tpu_torch.parallel.mesh import (
+    destroy_sequence_group,
+    init_sequence_group,
 )
 from differential_transformer_replication_tpu_torch.train.step import (
     create_train_state,
@@ -49,7 +69,10 @@ WRAPPERS = {"fused_norm": fnr.fused_norm, "fused_add_norm": fnr.fused_add_norm,
             "flash_tm_bwd": flash.flash_tm_bwd, "flash_bh_fwd": flash.flash_bh_fwd,
             "flash_bh_bwd_dq": flash.flash_bh_bwd_dq,
             "flash_bh_bwd_dkv": flash.flash_bh_bwd_dkv,
-            "flash_bh_bwd_fused": flash.flash_bh_bwd_fused}
+            "flash_bh_bwd_fused": flash.flash_bh_bwd_fused,
+            "flash_chunk_fwd": flash.flash_chunk_fwd,
+            "flash_chunk_bwd_dq": flash.flash_chunk_bwd_dq,
+            "flash_chunk_bwd_dkv": flash.flash_chunk_bwd_dkv}
 BATCH, STEPS, WARMUP, TOP = 32, 5, 2, 16
 
 
@@ -61,21 +84,37 @@ def _card() -> str:
 
 
 def profile(model: str = "diff", block_size: int = 512, micro_batch: int = BATCH,
-            dropout: float = 0.0) -> dict:
+            dropout: float = 0.0, sequence_parallel: int = 1,
+            dist_backend: str = "nccl") -> dict:
     """The breakdown of one train step of this configuration (see the
-    module docstring); returns the JSON record."""
+    module docstring); returns the JSON record (on rank 0; None on the
+    other ranks of a sequence-parallel run)."""
     if not torch.cuda.is_available():
         raise SystemExit("step_profile needs a CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
+    group = (init_sequence_group(dist_backend, "cuda") if sequence_parallel > 1
+             else None)
+    try:
+        return _profile(model, block_size, micro_batch, dropout, sequence_parallel,
+                        group)
+    finally:
+        if group is not None:
+            destroy_sequence_group(group)
+
+
+def _profile(model, block_size, micro_batch, dropout, P, group):
     cfg = TrainConfig(model=ModelConfig(model=model, block_size=block_size,
                                         dropout=dropout),
+                      mesh=MeshConfig(sequence=P),
                       micro_batch_size=micro_batch, warmup_iters=2,
                       learning_rate=1e-3, sampler="replacement")
     mcfg = cfg.resolved_model()
-    gen = torch.Generator(device="cuda")
+    dev = "cuda" if group is None else group.device
+    primary = group is None or group.rank == 0
+    gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    state = create_train_state(gen, cfg, "cuda")
-    step = make_train_step(cfg)
+    state = create_train_state(gen, cfg, dev)
+    step = make_train_step(cfg, group)
     T = mcfg.block_size
     seeds = itertools.count()
 
@@ -85,7 +124,7 @@ def profile(model: str = "diff", block_size: int = 512, micro_batch: int = BATCH
 
     def batch():
         idx = torch.randint(0, mcfg.vocab_size, (1, micro_batch, T + 1),
-                            generator=gen, device="cuda")
+                            generator=gen, device=dev)
         return {"x": idx[..., :-1], "y": idx[..., 1:]}
 
     for _ in range(WARMUP):
@@ -104,13 +143,18 @@ def profile(model: str = "diff", block_size: int = 512, micro_batch: int = BATCH
     for fn in WRAPPERS.values():
         fn.launches = 0
     flash.reset_bh_counters()
+    ring.reset_rotation_stats()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     batches = [batch() for _ in range(STEPS)]
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
+    with (torch.profiler.profile(activities=acts) if primary
+          else contextlib.nullcontext()) as prof:
         for b in batches:
             state = run(b)
         torch.cuda.synchronize()
+    if not primary:
+        return None
+    rot = dict(ring.ROTATION)
     launches = {k: fn.launches / STEPS for k, fn in WRAPPERS.items()}
     routes = {k: {r: n / STEPS for r, n in fn.routes.items()}
               for k, fn in WRAPPERS.items() if getattr(fn, "routes", None)}
@@ -119,9 +163,16 @@ def profile(model: str = "diff", block_size: int = 512, micro_batch: int = BATCH
     busy_us = sum(e.self_device_time_total for e in kernels)
     wall_ms = statistics.median(wall)
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
+    sp = {}
+    if group is not None:
+        sp = {"sequence_parallel": P, "dist_backend": group.backend,
+              "rotations_per_step": rot["calls"] / STEPS,
+              "rotation_mb_per_step": rot["bytes"] / STEPS / 2 ** 20,
+              "rotation_host_ms_per_step": rot["host_s"] / STEPS * 1e3}
     return {
         "card": _card(), "model": mcfg.model, "n_layer": mcfg.n_layer,
         "micro_batch": micro_batch, "T": T, "dropout": dropout, "steps": STEPS,
+        **sp,
         "wall_ms_per_step": wall_ms,
         "tokens_per_s": micro_batch * T / wall_ms * 1e3,
         "device_busy_ms_per_step": busy_us / STEPS / 1e3 if busy_us else None,
@@ -145,9 +196,13 @@ def main(argv=None) -> None:
     p.add_argument("--block-size", type=int, default=512)
     p.add_argument("--micro-batch", type=int, default=BATCH)
     p.add_argument("--dropout", type=float, default=0.0)
+    p.add_argument("--sequence-parallel", type=int, default=1)
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default="nccl")
     args = p.parse_args(argv)
-    print(json.dumps(profile(args.model, args.block_size, args.micro_batch,
-                             args.dropout)))
+    rec = profile(args.model, args.block_size, args.micro_batch, args.dropout,
+                  args.sequence_parallel, args.dist_backend)
+    if rec is not None:
+        print(json.dumps(rec), flush=True)
 
 
 if __name__ == "__main__":

@@ -8,6 +8,14 @@ branch: ``train(cfg, tokens_path)`` loads it, splits it 90/10 and draws
 training windows with replacement (``sampler="replacement"``). The
 corpus/BPE branch, the epoch sampler, checkpoints, rollback, the
 watchdog and the obs sidecar belong to later slices (ROADMAP Queue A).
+
+``cfg.mesh.sequence`` = P > 1 trains sequence-parallel (JAX's sharded
+path on a ``sequence`` mesh): the process is one of P ranks started by
+``torchrun``, joins the ring over the backend the caller names
+(``parallel/mesh.py``), draws the same batches from the same seeds as
+every other rank and trains on its T-shard of them
+(``train/step.py``). Only rank 0 prints and writes metrics; the group is
+left on exit and on error.
 """
 
 from __future__ import annotations
@@ -26,6 +34,10 @@ from differential_transformer_replication_tpu_torch.data.sampler import (
     split_tokens,
 )
 from differential_transformer_replication_tpu_torch.ops.dropout import fold_seed
+from differential_transformer_replication_tpu_torch.parallel.mesh import (
+    destroy_sequence_group,
+    init_sequence_group,
+)
 from differential_transformer_replication_tpu_torch.train.step import (
     create_train_state,
     make_eval_many,
@@ -65,17 +77,17 @@ def estimate_loss(eval_many, params: dict, train_ds: TokenWindows,
     return out
 
 
-def build_data(cfg: TrainConfig, tokens_path: str, device):
+def build_data(cfg: TrainConfig, tokens_path: str, device, say=print):
     """The ``tokens.npy`` cache-hit branch: load the encoded stream, check
     it against the vocabulary, split it 90/10 into window datasets."""
     tokens = np.load(tokens_path)
-    print(f"Loaded {len(tokens)} cached tokens from {tokens_path}")
+    say(f"Loaded {len(tokens)} cached tokens from {tokens_path}")
     if tokens.ndim != 1 or not np.issubdtype(tokens.dtype, np.integer):
         raise ValueError(f"{tokens_path}: expected a 1-D integer token stream")
     if len(tokens) and (tokens.min() < 0 or tokens.max() >= cfg.vocab_size):
         raise ValueError(f"{tokens_path}: token ids outside [0, "
                          f"{cfg.vocab_size})")
-    print(f"Total tokens: {len(tokens)}")
+    say(f"Total tokens: {len(tokens)}")
     train_tokens, val_tokens = split_tokens(tokens, cfg.val_fraction)
     block = cfg.model.block_size
     return (TokenWindows(train_tokens, block, device),
@@ -88,10 +100,12 @@ class MetricLogger:
     ``gpu_memory``/``tokens_per_sec`` (+ extras), per-eval
     ``train_loss``/``val_loss``; every record carries ``ts``."""
 
-    def __init__(self, cfg: TrainConfig, device: torch.device):
+    def __init__(self, cfg: TrainConfig, device: torch.device,
+                 primary: bool = True):
         self._jsonl = None
         self._cuda = device.type == "cuda"
-        if cfg.metrics_path:
+        self._primary = primary  # only the primary rank prints and writes
+        if cfg.metrics_path and primary:
             self._jsonl = open(cfg.metrics_path, "a", buffering=1)
             blob = json.dumps(cfg.to_dict(), sort_keys=True, default=str)
             self._emit({
@@ -101,7 +115,7 @@ class MetricLogger:
                 "device_kind": (torch.cuda.get_device_name(device)
                                 if self._cuda else "cpu"),
                 "device_count": torch.cuda.device_count() if self._cuda else 1,
-                "process_count": 1,
+                "process_count": cfg.mesh.n_devices,
                 "model": cfg.resolved_model().model,
             })
 
@@ -110,9 +124,13 @@ class MetricLogger:
         if self._jsonl is not None:
             self._jsonl.write(json.dumps(payload) + "\n")
 
+    def say(self, msg: str) -> None:
+        if self._primary:
+            print(msg, flush=True)
+
     def log_step(self, iter_num: int, loss: float, lr: float,
                  tokens_per_sec: Optional[float], extra: dict) -> None:
-        print(f"iter {iter_num}: loss {loss:.4f}, lr {lr:.2e}", flush=True)
+        self.say(f"iter {iter_num}: loss {loss:.4f}, lr {lr:.2e}")
         payload = {"iter": iter_num, "loss": loss, "learning_rate": lr}
         if self._cuda:  # omitted on the CPU, never a fake 0.0
             payload["gpu_memory"] = torch.cuda.memory_allocated() / 1024 ** 2
@@ -122,8 +140,8 @@ class MetricLogger:
         self._emit(payload)
 
     def log_eval(self, iter_num: int, train_loss: float, val_loss: float) -> None:
-        print(f"step {iter_num}: train loss {train_loss:.4f}, val loss "
-              f"{val_loss:.4f}", flush=True)
+        self.say(f"step {iter_num}: train loss {train_loss:.4f}, val loss "
+                 f"{val_loss:.4f}")
         self._emit({"iter": iter_num, "train_loss": train_loss,
                     "val_loss": val_loss})
 
@@ -132,67 +150,93 @@ class MetricLogger:
             self._jsonl.close()
 
 
-def train(cfg: TrainConfig, tokens_path: str, device="cuda") -> tuple:
+def train(cfg: TrainConfig, tokens_path: str, device="cuda",
+          dist_backend: Optional[str] = None) -> tuple:
     """Run the recipe for ``cfg.max_iters`` steps on ``device``. Returns
-    (final train state, per-step metrics list)."""
+    (final train state, per-step metrics list). With ``cfg.mesh.sequence``
+    > 1 this process is one rank of the ring: ``dist_backend`` (``nccl``
+    or ``gloo``) must be named, and ``device`` picks cuda or cpu (gloo)."""
     if cfg.sampler != "replacement":
         raise NotImplementedError(
             f"sampler {cfg.sampler!r}: the epoch sampler (the exact epoch "
             "permutation) is not ported yet (ROADMAP Queue A: data); pass "
             "sampler='replacement'"
         )
-    device = resolve_device(device)
-    train_ds, val_ds = build_data(cfg, tokens_path, device)
+    group = None
+    if cfg.mesh.sequence > 1:
+        if dist_backend is None:
+            raise ValueError("sequence parallelism needs a named dist "
+                             "backend: 'nccl' (one card per rank) or 'gloo'")
+        group = init_sequence_group(dist_backend, str(torch.device(device).type))
+    elif dist_backend is not None:
+        raise ValueError(f"dist backend {dist_backend!r} without sequence "
+                         "parallelism: set mesh.sequence > 1")
+    try:
+        if group is not None and group.size != cfg.mesh.sequence:
+            raise ValueError(f"{group.size} ranks joined, mesh.sequence is "
+                             f"{cfg.mesh.sequence}")
+        device = resolve_device(device) if group is None else group.device
+        logger = MetricLogger(cfg, device, group is None or group.rank == 0)
+        try:
+            return _train_loop(cfg, tokens_path, device, group, logger)
+        finally:
+            logger.close()
+    finally:
+        if group is not None:
+            destroy_sequence_group(group)
+
+
+def _train_loop(cfg: TrainConfig, tokens_path: str, device: torch.device,
+                group, logger: MetricLogger) -> tuple:
+    train_ds, val_ds = build_data(cfg, tokens_path, device, logger.say)
     model_cfg = cfg.resolved_model()
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed)
     state = create_train_state(gen, cfg, device)
-    train_step = make_train_step(cfg)
-    eval_many = make_eval_many(cfg)
+    train_step = make_train_step(cfg, group)
+    eval_many = make_eval_many(cfg, group)
     data_rng = np.random.default_rng(cfg.seed)
     eval_rng = np.random.default_rng(cfg.seed + 1)
     # the dropout seed of step i is fold_seed(seed + 2, i): JAX folds the
     # iteration into PRNGKey(seed + 2); eval runs without one
     dropout_seed = cfg.seed + 2 if model_cfg.dropout > 0.0 else None
-    logger = MetricLogger(cfg, device)
     tokens_per_step = cfg.micro_batch_size * cfg.grad_acc_steps * model_cfg.block_size
     history = []
-    print(f"Starting training on {device} ({model_cfg.model}, "
-          f"{model_cfg.n_layer} layers, width {model_cfg.n_embd}, "
-          f"{model_cfg.n_head} heads)", flush=True)
+    where = (f"{device}" if group is None else
+             f"{group.size} ranks over {group.backend} (rank 0 on {device})")
+    logger.say(f"Starting training on {where} ({model_cfg.model}, "
+               f"{model_cfg.n_layer} layers, width {model_cfg.n_embd}, "
+               f"{model_cfg.n_head} heads)")
     t0 = t_log = time.time()
     steps_since_log = 0
-    try:
-        iter_num = state["step"]
-        while iter_num < cfg.max_iters:
-            batch = train_ds.random_batches(data_rng, cfg.micro_batch_size,
-                                            cfg.grad_acc_steps)
-            t_step = time.perf_counter()
-            seed = (None if dropout_seed is None
-                    else fold_seed(dropout_seed, iter_num))
-            state, metrics = train_step(state, batch, seed)
-            metrics["step_time_ms"] = 1e3 * (time.perf_counter() - t_step)
-            history.append(metrics)
-            iter_num += 1
-            steps_since_log += 1
-            if iter_num % cfg.log_interval == 0:
-                now = time.time()
-                extra = {"step_time_ms": round(metrics["step_time_ms"], 3)}
-                if cfg.anomaly_guard:
-                    extra["skipped_steps"] = metrics["skipped"]
-                logger.log_step(iter_num, metrics["loss"],
-                                metrics["learning_rate"],
-                                steps_since_log * tokens_per_step / (now - t_log),
-                                extra)
-                t_log, steps_since_log = now, 0
-            if iter_num % cfg.eval_interval == 0:
-                losses = estimate_loss(eval_many, state["params"], train_ds,
-                                       val_ds, cfg, eval_rng)
-                logger.log_eval(iter_num, losses["train"], losses["val"])
-        dt = time.time() - t0
-        seen = len(history) * tokens_per_step
-        print(f"Training done: {seen} tokens in {dt:.1f}s "
-              f"({seen / max(dt, 1e-9):.0f} tokens/sec)", flush=True)
-    finally:
-        logger.close()
+    iter_num = state["step"]
+    while iter_num < cfg.max_iters:
+        batch = train_ds.random_batches(data_rng, cfg.micro_batch_size,
+                                        cfg.grad_acc_steps)
+        t_step = time.perf_counter()
+        seed = (None if dropout_seed is None
+                else fold_seed(dropout_seed, iter_num))
+        state, metrics = train_step(state, batch, seed)
+        metrics["step_time_ms"] = 1e3 * (time.perf_counter() - t_step)
+        history.append(metrics)
+        iter_num += 1
+        steps_since_log += 1
+        if iter_num % cfg.log_interval == 0:
+            now = time.time()
+            extra = {"step_time_ms": round(metrics["step_time_ms"], 3)}
+            if cfg.anomaly_guard:
+                extra["skipped_steps"] = metrics["skipped"]
+            logger.log_step(iter_num, metrics["loss"],
+                            metrics["learning_rate"],
+                            steps_since_log * tokens_per_step / (now - t_log),
+                            extra)
+            t_log, steps_since_log = now, 0
+        if iter_num % cfg.eval_interval == 0:
+            losses = estimate_loss(eval_many, state["params"], train_ds,
+                                   val_ds, cfg, eval_rng)
+            logger.log_eval(iter_num, losses["train"], losses["val"])
+    dt = time.time() - t0
+    seen = len(history) * tokens_per_step
+    logger.say(f"Training done: {seen} tokens in {dt:.1f}s "
+               f"({seen / max(dt, 1e-9):.0f} tokens/sec)")
     return state, history

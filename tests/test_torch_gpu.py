@@ -546,3 +546,152 @@ def test_ndiff_past_four_streams_trains_on_the_card_like_the_cpu(gen):
     assert abs(lc - lh) <= 1e-4
     for a, b in zip(gc, gh):
         assert _rel(a, b) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the ring chunk's kernel modes: K1 without the combine, K2/K3 with one
+# cotangent per stream, under a causal offset (csrc/flash_bh.cu), against
+# the plain versions row by row; and the ring's train step on the card
+# ---------------------------------------------------------------------------
+
+
+def _check_chunk(gen, dtype, S, B, T, H, d, dv, off, rate):
+    BH = B * H
+    q, k = (torch.randn(BH, S, T, d, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    v = torch.randn(BH, T, dv, generator=gen, device="cuda").to(dtype)
+    do = torch.randn(BH, S, T, dv, generator=gen, device="cuda").to(dtype)
+    delta = torch.randn(BH, S, T, generator=gen, device="cuda")
+    words = (0x51F00D, 0x2A7E11) if rate > 0 else (0, 0)
+    o_all, lse = flash.flash_chunk_fwd(q, k, v, off, rate, words)
+    _, r_o, r_lse = flash.bh_attention_fwd_reference(q, k, v, None, rate, words, off)
+    fwd = ((testing.FP32_FWD_ROW, testing.FP32_FWD_FLOOR) if dtype == torch.float32
+           else (testing.BF16_ROW, testing.BF16_FLOOR))
+    assert testing.row_ratio(o_all, r_o, *fwd) <= 1.0
+    # rows with no visible key: lse exactly NEG_INF + log(1e-30) (-1e30 in
+    # fp32) on both sides, o = 0; elsewhere the fp32 lse within 1e-5
+    masked = r_lse < -1e29
+    assert torch.isfinite(lse).all() and torch.equal(lse[masked], r_lse[masked])
+    live = ~masked
+    if live.any():
+        assert _err(lse[live], r_lse[live]) <= 1e-5 * float(r_lse[live].abs().max())
+    bwd = (q, k, v, do, r_lse, delta, off, rate, words)
+    dq = flash.flash_chunk_bwd_dq(*bwd)
+    dk, dv_ = flash.flash_chunk_bwd_dkv(*bwd)
+    rq, rk, rv = flash.bh_attention_bwd_reference(q, k, v, do, r_lse, delta, None,
+                                                  rate, words, off)
+    for a, b in ((dq, rq), (dk, rk), (dv_, rv)):
+        assert testing.grad_ratio(a, b) <= 1.0
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5], ids=["p0", "p05"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("mult,extra", [(0, 0), (1, 0), (3, 0), (-1, 0), (0, 40),
+                                        (0, -24)])
+@pytest.mark.parametrize("S,B,T,H,d,dv", [
+    (2, 1, 96, 2, 96, 192), (1, 2, 64, 2, 96, 96), (4, 1, 100, 1, 40, 80),
+    (5, 1, 96, 1, 96, 192),
+])
+def test_flash_chunk_kernels_match_plain(gen, dtype, S, B, T, H, d, dv, mult,
+                                         extra, rate):
+    """K1 in the no-combine mode and K2/K3 with per-stream cotangents at
+    offsets 0, +T, +3T, -T and two off the tile grid (+40: partly
+    visible tiles; -24: rows with no visible key in a visited tile)."""
+    n0 = [fn.launches for fn in flash.CHUNK_WRAPPERS]
+    _check_chunk(gen, dtype, S, B, T, H, d, dv, mult * T + extra, rate)
+    assert [fn.launches - n for fn, n in zip(flash.CHUNK_WRAPPERS, n0)] == [1, 1, 1]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("mult", [0, 1, -1])
+def test_flash_chunk_kernels_match_plain_past_4096(gen, dtype, mult):
+    """The chunk-tiled routes (T > 4096), diff width, dropout 0.1."""
+    flash.reset_bh_counters()
+    _check_chunk(gen, dtype, 2, 1, 4160, 1, 96, 192, mult * 4160, 0.1)
+    assert dict(flash.flash_chunk_fwd.routes) == {"chunk-tiled": 1}
+    assert dict(flash.flash_chunk_bwd_dkv.routes) == {"chunk-tiled": 1}
+
+
+def test_chunk_row_bounds_reject_planted_faults(gen):
+    """The kernel bounds above reject a kernel that ignores the offset or
+    sums dv over one stream only (plain results with the fault planted)."""
+    S, T, off = 2, 512, 256
+    q, k = (torch.randn(2, S, T, 96, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    v = torch.randn(2, T, 192, generator=gen, device="cuda").to(torch.bfloat16)
+    do = torch.randn(2, S, T, 192, generator=gen, device="cuda").to(torch.bfloat16)
+    delta = torch.randn(2, S, T, generator=gen, device="cuda")
+    _, r_o, r_lse = flash.bh_attention_fwd_reference(q, k, v, None, 0.1, (5, 7), off)
+    _, f_o, _ = flash.bh_attention_fwd_reference(q, k, v, None, 0.1, (5, 7), 0)
+    assert testing.row_ratio(f_o, r_o, testing.BF16_ROW, testing.BF16_FLOOR) > 1.0
+    ref = flash.bh_attention_bwd_reference(q, k, v, do, r_lse, delta, None, 0.1,
+                                           (5, 7), off)
+    bad = flash.bh_attention_bwd_reference(q, k, v, do, r_lse, delta, None, 0.1,
+                                           (5, 7), 0)
+    assert min(testing.grad_ratio(a, b) for a, b in zip(bad, ref)) > 1.0
+    one = do.clone()
+    one[:, 1:] = 0
+    bad_dv = flash.bh_attention_bwd_reference(q, k, v, one, r_lse, delta, None,
+                                              0.1, (5, 7), off)[2]
+    assert testing.grad_ratio(bad_dv, ref[2]) > 1.0
+
+
+def test_ring_step_on_the_card_matches_the_single_card_step(gen, tmp_path):
+    """One fp32 train step of a 2-layer diff model at recipe width, T 1024,
+    micro-batch 2: two gloo ranks sharing the card (the ring through the
+    chunk kernels) against the single-card head-major step on the same
+    card, from the same params and batch; bounds as
+    test_train_step_on_the_card_matches_the_cpu."""
+    _ring_step_vs_single_card(tmp_path, 1024)
+
+
+def test_ring_step_off_the_tile_grid_matches_the_single_card_step(gen, tmp_path):
+    """As above at T 200: shards of 100 tokens, off the chunk kernels'
+    32-row tile grid, with causal offsets of +-100 (the single-card step
+    takes the token-major route at this length)."""
+    _ring_step_vs_single_card(tmp_path, 200)
+
+
+def _ring_step_vs_single_card(tmp_path, T):
+    import json
+
+    import numpy as np
+
+    from torch_ring_worker import run_ranks
+
+    P = 2
+    mdict = dict(model="diff", n_layer=2, vocab_size=512, block_size=T,
+                 compute_dtype="float32")
+    tdict = dict(vocab_size=512, micro_batch_size=2, warmup_iters=0,
+                 learning_rate=1e-3, sampler="replacement")
+    cfg = ModelConfig(**mdict)
+    tcfg = TrainConfig(model=cfg, **tdict)
+    cpu_gen = torch.Generator()
+    cpu_gen.manual_seed(9)
+    params = init_model(cpu_gen, cfg)
+    idx = torch.randint(0, 512, (1, 2, T + 1), generator=cpu_gen)
+    batch = {"x": idx[..., :-1], "y": idx[..., 1:]}
+    state = train_state(params, tcfg, "cuda")
+    from differential_transformer_replication_tpu_torch.train.step import make_grad_fn
+    loss, grads = make_grad_fn(tcfg)(state["params"], {k: t.cuda() for k, t in batch.items()})
+    state, m = make_train_step(tcfg)(state, {k: t.cuda() for k, t in batch.items()})
+    ref_p = [t.detach().cpu() for t in leaves(state["params"])]
+
+    s0 = train_state(params, tcfg, "cpu")
+    meta = {"model": mdict, "train": tdict, "count": 0, "step": 0,
+            "guard": {"ema": 0.0, "good_steps": 0, "bad_streak": 0, "skipped": 0}}
+    inputs = {"meta": np.array(json.dumps(meta)), "x": batch["x"].numpy(),
+              "y": batch["y"].numpy(), "device": np.array("cuda")}
+    for name, tree in (("p", s0["params"]), ("mu", s0["opt_state"]["mu"]),
+                       ("nu", s0["opt_state"]["nu"])):
+        inputs.update({f"{name}{i}": t.detach().numpy() for i, t in enumerate(leaves(tree))})
+    outs = run_ranks("step", P, tmp_path, inputs, timeout=300)
+    o = outs[0]
+    assert abs(float(o["loss"]) - m["loss"]) <= 1e-5
+    assert abs(float(o["grad_norm"]) - m["grad_norm"]) <= 1e-4 * m["grad_norm"]
+    for i, (g, p) in enumerate(zip(grads, ref_p)):
+        assert _rel(torch.from_numpy(o[f"g{i}"]), g.cpu()) <= 1e-3, i
+        got = torch.from_numpy(o[f"p{i}"])
+        assert _err(got, p) <= 2 * tcfg.learning_rate
+        assert float((got - p).abs().mean()) <= 1e-6
+        assert np.array_equal(outs[1][f"p{i}"], o[f"p{i}"]), i

@@ -12,6 +12,7 @@ their kernel or raise, never run the plain version.
 from __future__ import annotations
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -39,6 +40,10 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert len(mods) >= 15
+    # the walk reaches every subpackage, the sequence-parallel ring included
+    for sub in ("ops", "models", "serving", "train", "parallel"):
+        assert f"{PKG}.{sub}" in mods, sub
+    assert {f"{PKG}.parallel.mesh", f"{PKG}.parallel.ring"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -86,6 +91,9 @@ def test_kernel_wrappers_raise_off_the_cpu_instead_of_falling_back():
     meta = torch.device("meta")
     qkv = [torch.empty(1, 8, 2 * 4, device=meta) for _ in range(3)]
     lse = torch.empty(1, 8, 2, device=meta)
+    # head-major chunk operands: q/k (BH, S, T, d), v, per-stream do, lse
+    hm = [torch.empty(2, 2, 8, 16, device=meta), torch.empty(2, 8, 32, device=meta),
+          torch.empty(2, 2, 8, 32, device=meta), torch.empty(2, 2, 8, device=meta)]
     x = torch.empty(4, 32, device=meta)
     w = torch.empty(32, device=meta)
     calls = {
@@ -110,13 +118,22 @@ def test_kernel_wrappers_raise_off_the_cpu_instead_of_falling_back():
         "flash_tm_bwd": lambda: flash.flash_tm_bwd(
             qkv[:1], qkv[1:2], qkv[2], qkv[2], lse, lse,
             torch.ones(1, 2, device=meta), 2, qkv[:1], qkv[1:2], qkv[2]),
+        "flash_chunk_fwd": lambda: flash.flash_chunk_fwd(
+            hm[0], hm[0], hm[1], 0, 0.0, (0, 0)),
+        "flash_chunk_bwd_dq": lambda: flash.flash_chunk_bwd_dq(
+            hm[0], hm[0], hm[1], hm[2], hm[3], hm[3], 8, 0.0, (0, 0)),
+        "flash_chunk_bwd_dkv": lambda: flash.flash_chunk_bwd_dkv(
+            hm[0], hm[0], hm[1], hm[2], hm[3], hm[3], -8, 0.0, (0, 0)),
     }
     wrappers = {"fused_norm": fnr.fused_norm, "fused_add_norm": fnr.fused_add_norm,
                 "fused_swiglu": ffn.fused_swiglu,
                 "decode_attention": dat.decode_attention,
                 "add_norm_bwd": fnr.add_norm_bwd, "swiglu_bwd": ffn.swiglu_bwd,
                 "flash_tm_fwd": flash.flash_tm_fwd,
-                "flash_tm_bwd": flash.flash_tm_bwd}
+                "flash_tm_bwd": flash.flash_tm_bwd,
+                "flash_chunk_fwd": flash.flash_chunk_fwd,
+                "flash_chunk_bwd_dq": flash.flash_chunk_bwd_dq,
+                "flash_chunk_bwd_dkv": flash.flash_chunk_bwd_dkv}
     before = {k: f.launches for k, f in wrappers.items()}
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no kernel for device 'meta'"):
@@ -130,8 +147,11 @@ def test_kernel_sources_and_build_flags():
     for name in _kernels.SIGNATURES:
         src = (_kernels.CSRC / f"{name}.cu").read_text()
         assert "extern \"C\" int" in src
-        for fn in _kernels.SIGNATURES[name]:
+        for fn, argtypes in _kernels.SIGNATURES[name].items():
             assert fn in src
+            # the ctypes declaration has one type per C parameter
+            m = re.search(r'extern "C" int ' + fn + r"\((.*?)\)", src, re.S)
+            assert m and len(m.group(1).split(",")) == len(argtypes), fn
     assert "arch=compute_90a,code=sm_90a" in _kernels.NVCC_FLAGS
     # the build output lives in a directory git ignores
     ignored = (REPO / ".gitignore").read_text().split()
