@@ -9,7 +9,8 @@ these phases, each printing its own lines and its seconds:
 1. card: the GPU's name and power limit (nvidia-smi), torch/CUDA
    versions, and the build of every kernel from the checkout's sources
    (one ``nvcc`` per CUDA source, all started together, the Triton JIT
-   at first use);
+   at first use), with the registers and spills ``ptxas -v`` reports for
+   the bf16 tensor-core instances of kernels D and E (none may spill);
 2. kernels: each hand-written kernel against its plain PyTorch version
    on the card at the recipe's shapes, fp32 and bf16, with max-abs
    error against a stated bound (the attention kernels row by row, each
@@ -18,8 +19,9 @@ these phases, each printing its own lines and its seconds:
    exists, a one-call PyTorch equivalent: the serving kernels (add+norm,
    SwiGLU, decode attention) and the training kernels (token-major
    attention forward and backward for the diff, control and ndiff
-   recipes, add+norm backward, SwiGLU backward; add+norm and SwiGLU
-   forward also at the training shape M = 16384); and the
+   recipes, with SDPA's forward and backward at the control shape, both
+   by CUDA-graph replay; add+norm backward, SwiGLU backward; add+norm and
+   SwiGLU forward also at the training shape M = 16384); and the
    decode-attention instances of the paged pool, the int8 cache and the
    speculative verify (rows 5-int8, 6, 7, 8) at the recipes' decode
    shapes (8 slots, M 512, pages of 16, 5 verify rows) in fp32, bf16
@@ -94,6 +96,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -1170,18 +1173,20 @@ def run_train_kernels(torch, ops) -> dict:
             bms, by = bound_ms(bwd_bytes, bwd_flops, dtype)
             lib_note = "; no one-call PyTorch equivalent"
             if S == 1:
-                # SDPA's backward (one autograd.grad call) on the same
-                # operands, timed per call from the host: it is not
-                # captured in a CUDA graph
+                # SDPA's backward on the same operands, by CUDA-graph
+                # replay like the kernel: the graph of forward + backward
+                # (one autograd.grad) less the forward's device time
                 qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
-                og = torch.nn.functional.scaled_dot_product_attention(
-                    qg, kg, vg, is_causal=True)
                 gt = g.reshape(B, T, H, -1).transpose(1, 2)
-                lib_b = call_ms([lambda: torch.autograd.grad(
-                    og, (qg, kg, vg), gt, retain_graph=True)], **few(True))
-                lib_note = (f"; one-call PyTorch (SDPA backward, per call from the "
-                            f"host) {lib_b * 1e3:.2f} us")
-                del qg, kg, vg, og, gt
+                sdpa = torch.nn.functional.scaled_dot_product_attention
+                lib_fb = device_ms([lambda: torch.autograd.grad(
+                    sdpa(qg, kg, vg, is_causal=True), (qg, kg, vg), gt)],
+                    **few(True))
+                lib_b = lib_fb - device_ms(
+                    [lambda: sdpa(qt, kt, vt, is_causal=True)], **few(True))
+                lib_note = (f"; one-call PyTorch (SDPA backward: graph of forward "
+                            f"+ backward less the forward) {lib_b * 1e3:.2f} us")
+                del qg, kg, vg, gt
             log(f"[kernels] flash_tm_bwd {name} bf16: " + fmt_times(t, bms, by)
                 + lib_note)
             if name == "diff":
@@ -2360,6 +2365,17 @@ def main() -> int:
     paths = _kernels.build()
     log(f"[build] nvcc sm_90a: {', '.join(p.name for p in paths.values())} "
         f"in {time.perf_counter() - t0:.1f} s")
+    # kernels D and E in bf16 (the tensor-core instances, "_mma"): their
+    # registers per thread, and no local-memory spill (ptxas -v)
+    usage = {k: v for k, v in _kernels.ptxas_usage("flash_tm").items() if "_mma" in k}
+    for fn, (regs, spill) in sorted(usage.items()):
+        m = re.search(r"(tm_(?:fwd|bwd_dq|bwd_dk|bwd_dv)_mma)I(\w*?)EEv", fn)
+        log(f"[build] ptxas {m.group(1) if m else fn} <{m.group(2) if m else ''}>: "
+            f"{regs} registers, {spill} bytes spilled")
+    spilled = [fn for fn, (_, spill) in usage.items() if spill]
+    if not usage or spilled:
+        raise Failure(f"flash_tm bf16 kernels spill to local memory: {spilled}"
+                      if usage else "no ptxas report for flash_tm")
     t0 = time.perf_counter()
     x = torch.zeros(8, 768, device="cuda", dtype=torch.bfloat16)
     w = torch.ones(768, device="cuda")

@@ -85,6 +85,12 @@ class ModelConfig:
                 "remat_policy must be one of none|dots|dots_no_batch|"
                 f"nothing|everything, got {self.remat_policy!r}"
             )
+        if self.remat or self.remat_policy != "none":
+            raise NotImplementedError(
+                f"remat={self.remat}, remat_policy={self.remat_policy!r}: "
+                "activation rematerialization is not ported yet (ROADMAP "
+                "Queue A: remat)"
+            )
         if self.sequence_impl not in ("ring", "ulysses"):
             raise ValueError(
                 "sequence_impl must be 'ring' or 'ulysses', got "

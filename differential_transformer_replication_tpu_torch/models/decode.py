@@ -76,7 +76,7 @@ compute_dtype = common.compute_dtype
 KV_CACHE_BATCH_AXIS = {"k": 1, "v": 0, "k_scale": 1, "v_scale": 0}
 
 
-def _n_streams(cfg: ModelConfig) -> int:
+def n_streams(cfg: ModelConfig) -> int:
     return {"control": 1, "diff": 2, "ndiff": cfg.n_terms}[cfg.model]
 
 
@@ -97,7 +97,7 @@ def init_cache(cfg: ModelConfig, batch_size: int, device=None) -> list:
     """Per-layer zeroed K (S, B, H, M, d) / V (B, H, M, dv) buffers, plus
     the fp32 scale planes k_scale (S, B, H, M) / v_scale (B, H, M) on the
     int8 path."""
-    S = _n_streams(cfg)
+    S = n_streams(cfg)
     H, d, dv, M = cfg.n_head, cfg.head_size, cfg.value_size, cfg.block_size
     dt = kv_store_dtype(cfg)
     cache = []

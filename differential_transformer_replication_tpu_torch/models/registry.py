@@ -8,6 +8,8 @@ import torch
 
 from differential_transformer_replication_tpu_torch.config import ModelConfig
 from differential_transformer_replication_tpu_torch.models import control, diff, ndiff
+from differential_transformer_replication_tpu_torch.models.decode import n_streams
+from differential_transformer_replication_tpu_torch.ops import decode_attention, flash
 
 _MODULES = {"control": control, "diff": diff, "ndiff": ndiff}
 
@@ -35,3 +37,30 @@ def param_count(params) -> int:
     if isinstance(params, list):
         return sum(param_count(v) for v in params)
     return params.numel()
+
+
+def check_card_envelope(cfg: ModelConfig, use: str) -> None:
+    """Hold a model's stream count and head widths against the kernels
+    that ``use`` launches on the card: ``"train"`` the training attention
+    (d <= 128, dv <= 256, any number of streams), ``"serve"`` the decode
+    attention (S <= 8, d <= 256, dv <= 512). The trainer and the serving
+    engine call it before their first launch on a CUDA device; the CPU's
+    plain versions take any width, as JAX does."""
+    if use == "train":
+        limits = {"d": flash.MAX_D, "dv": flash.MAX_DV}
+        kernels = "the training attention kernels"
+    elif use == "serve":
+        limits = {"S": decode_attention.MAX_S, "d": decode_attention.MAX_D,
+                  "dv": decode_attention.MAX_DV}
+        kernels = "the decode attention kernel"
+    else:
+        raise ValueError(f"use must be 'train' or 'serve', got {use!r}")
+    got = {"S": n_streams(cfg), "d": cfg.head_size, "dv": cfg.value_size}
+    over = [f"{k} = {got[k]} > {lim}" for k, lim in limits.items()
+            if got[k] > lim]
+    if over:
+        raise ValueError(
+            f"{cfg.model} (n_embd {cfg.n_embd}, n_head {cfg.n_head}): "
+            f"{', '.join(over)}, past what {kernels} take on the card "
+            "(ROADMAP Queue C: head widths)"
+        )

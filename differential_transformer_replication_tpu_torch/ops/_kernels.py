@@ -18,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -30,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -171,10 +172,30 @@ def build(names=None) -> dict:
             tmp.unlink(missing_ok=True)
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
         else:
+            path.with_suffix(".log").write_text(log)
             os.replace(tmp, path)
     if errors:
         raise RuntimeError("\n".join(errors))
     return {name: library_path(name) for name in names}
+
+
+def ptxas_usage(name: str) -> dict:
+    """{kernel (mangled name): (registers, spill bytes stored + loaded)}
+    of the built library ``name``, from ``ptxas -v`` (the build keeps its
+    output beside the library)."""
+    usage, fn = {}, None
+    for line in library_path(name).with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            usage[fn] = [0, 0]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            usage[fn][1] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            usage[fn][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in usage.items()}
 
 
 @functools.lru_cache(maxsize=None)

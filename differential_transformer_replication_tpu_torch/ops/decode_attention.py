@@ -53,6 +53,8 @@ from differential_transformer_replication_tpu_torch.ops import _kernels
 from differential_transformer_replication_tpu_torch.ops.streams import NEG_INF
 
 MAX_ROWS = 8  # query rows per slot the kernel takes (k + 1 of the verify)
+# streams and head widths the kernel takes (csrc/decode_attention.cu)
+MAX_S, MAX_D, MAX_DV = 8, 256, 512
 
 
 # ---------------------------------------------------------------------------
@@ -220,10 +222,10 @@ def _launch(what: str, qs, k, v, k_scale, v_scale, pos, tables, coeffs, *,
     for name, t in ops:
         if t.device != qs.device or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous on {qs.device}")
-    if S > 8 or d > 256 or dv > 512 or L > MAX_ROWS:
+    if S > MAX_S or d > MAX_D or dv > MAX_DV or L > MAX_ROWS:
         raise ValueError(
-            f"{what}: kernel takes S <= 8, d <= 256, dv <= 512, L <= "
-            f"{MAX_ROWS}; got S={S}, d={d}, dv={dv}, L={L}"
+            f"{what}: kernel takes S <= {MAX_S}, d <= {MAX_D}, dv <= "
+            f"{MAX_DV}, L <= {MAX_ROWS}; got S={S}, d={d}, dv={dv}, L={L}"
         )
     code = _kernels.DTYPE_CODES[dt]
     lib = _kernels.load("decode_attention")

@@ -59,6 +59,9 @@ from differential_transformer_replication_tpu_torch.ops.streams import NEG_INF
 # the token-major envelope of the JAX package (ops/flash.py use_tm)
 TM_MAX_T = 512
 TM_MAX_S = 4
+# head widths every training attention kernel takes (MAX_D, MAX_DV of
+# csrc/flash_tm.cu and csrc/flash_bh.cu)
+MAX_D, MAX_DV = 128, 256
 
 
 def use_tm(S: int, T: int, rate: float) -> bool:

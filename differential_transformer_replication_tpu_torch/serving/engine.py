@@ -62,7 +62,10 @@ from differential_transformer_replication_tpu_torch.config import (
     ModelConfig,
     ServingConfig,
 )
-from differential_transformer_replication_tpu_torch.models import common
+from differential_transformer_replication_tpu_torch.models import (
+    check_card_envelope,
+    common,
+)
 from differential_transformer_replication_tpu_torch.models.decode import (
     KV_CACHE_BATCH_AXIS,
     compute_dtype,
@@ -283,6 +286,8 @@ class ServingEngine:
         self.serving = serving or ServingConfig()
         if self.serving.kv_cache_dtype:
             cfg = cfg.replace(kv_cache_dtype=self.serving.kv_cache_dtype)
+        if self.device.type == "cuda":
+            check_card_envelope(cfg, "serve")
         self.cfg = cfg
         self.max_total = self.serving.resolved_max_seq_len(cfg)
         self.params = common.inference_params(params, compute_dtype(cfg),

@@ -13,7 +13,8 @@ ends in its metrics' device-to-host copy), then ``STEPS`` under
 JSON line: the card, host wall ms per step, tokens per second, device
 busy ms per step, the device's idle share, peak device memory, kernel
 launches per step of each kernel wrapper (head-major ones also by
-route), and the kernels that take the most device time. Needs a CUDA
+route), the device ms per step of the token-major kernels D and E, and
+the kernels that take the most device time. Needs a CUDA
 GPU.
 
 ``--sequence-parallel P --dist-backend {nccl,gloo}`` profiles the
@@ -180,6 +181,11 @@ def _profile(model, block_size, micro_batch, dropout, P, group):
                               if busy_us else None),
         "peak_device_memory_gib": peak / 2 ** 30,
         "device_kernels_per_step": sum(e.count for e in kernels) / STEPS,
+        # kernels D and E (csrc/flash_tm.cu), all their CUDA kernels
+        "tm_attention_ms_per_step": {
+            part: sum(e.self_device_time_total for e in kernels
+                      if f"tm_{part}" in e.key) / STEPS / 1e3
+            for part in ("fwd", "bwd")},
         "wrapper_launches_per_step": launches,
         "head_major_routes_per_step": routes,
         "top_kernels": [

@@ -33,6 +33,7 @@ from differential_transformer_replication_tpu_torch.data.sampler import (
     TokenWindows,
     split_tokens,
 )
+from differential_transformer_replication_tpu_torch.models import check_card_envelope
 from differential_transformer_replication_tpu_torch.ops.dropout import fold_seed
 from differential_transformer_replication_tpu_torch.parallel.mesh import (
     destroy_sequence_group,
@@ -53,6 +54,26 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("device 'cuda' was asked for but CUDA is not "
                            "available; pass device='cpu' for a CPU run")
     return device
+
+
+class Throughput:
+    """Rolling tokens/sec between ``update`` calls (a copy of the JAX
+    package's ``utils/profiling.py`` ``Throughput``): ``update`` takes the
+    cumulative token count and returns the rate since the previous call,
+    None on the first call, when there is no interval yet."""
+
+    def __init__(self) -> None:
+        self._last_t: Optional[float] = None
+        self._last_tokens = 0
+
+    def update(self, total_tokens: int) -> Optional[float]:
+        now = time.perf_counter()
+        rate = None
+        if self._last_t is not None and now > self._last_t:
+            rate = (total_tokens - self._last_tokens) / (now - self._last_t)
+        self._last_t = now
+        self._last_tokens = total_tokens
+        return rate
 
 
 def estimate_loss(eval_many, params: dict, train_ds: TokenWindows,
@@ -97,8 +118,10 @@ def build_data(cfg: TrainConfig, tokens_path: str, device, say=print):
 class MetricLogger:
     """stdout + metrics.jsonl with the JAX trainer's record keys: a
     ``run_header``, per-log ``iter``/``loss``/``learning_rate``/
-    ``gpu_memory``/``tokens_per_sec`` (+ extras), per-eval
-    ``train_loss``/``val_loss``; every record carries ``ts``."""
+    ``gpu_memory``/``tokens_per_sec`` (none on the first log) + extras
+    (``step_time_ms``, the mean iteration wall since the last log;
+    ``data_wait_frac``, the batch draw's share of it; ``skipped_steps``),
+    per-eval ``train_loss``/``val_loss``; every record carries ``ts``."""
 
     def __init__(self, cfg: TrainConfig, device: torch.device,
                  primary: bool = True):
@@ -188,8 +211,10 @@ def train(cfg: TrainConfig, tokens_path: str, device="cuda",
 
 def _train_loop(cfg: TrainConfig, tokens_path: str, device: torch.device,
                 group, logger: MetricLogger) -> tuple:
-    train_ds, val_ds = build_data(cfg, tokens_path, device, logger.say)
     model_cfg = cfg.resolved_model()
+    if device.type == "cuda":
+        check_card_envelope(model_cfg, "train")
+    train_ds, val_ds = build_data(cfg, tokens_path, device, logger.say)
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed)
     state = create_train_state(gen, cfg, device)
@@ -207,30 +232,42 @@ def _train_loop(cfg: TrainConfig, tokens_path: str, device: torch.device,
     logger.say(f"Starting training on {where} ({model_cfg.model}, "
                f"{model_cfg.n_layer} layers, width {model_cfg.n_embd}, "
                f"{model_cfg.n_head} heads)")
-    t0 = t_log = time.time()
-    steps_since_log = 0
+    t0 = time.time()
+    throughput = Throughput()
+    tokens_seen = 0
+    # wall time of each iteration (batch draw included) and the batch
+    # draw's share of it, summed since the last log, as the JAX trainer
+    # keeps them
+    acc_step = acc_data = 0.0
+    acc_n = 0
     iter_num = state["step"]
     while iter_num < cfg.max_iters:
+        t_iter = time.perf_counter()
         batch = train_ds.random_batches(data_rng, cfg.micro_batch_size,
                                         cfg.grad_acc_steps)
-        t_step = time.perf_counter()
+        data_wait = time.perf_counter() - t_iter
         seed = (None if dropout_seed is None
                 else fold_seed(dropout_seed, iter_num))
         state, metrics = train_step(state, batch, seed)
-        metrics["step_time_ms"] = 1e3 * (time.perf_counter() - t_step)
+        step_wall = time.perf_counter() - t_iter
+        metrics["step_time_ms"] = 1e3 * step_wall
         history.append(metrics)
         iter_num += 1
-        steps_since_log += 1
+        tokens_seen += tokens_per_step
+        acc_step += step_wall
+        acc_data += data_wait
+        acc_n += 1
         if iter_num % cfg.log_interval == 0:
-            now = time.time()
-            extra = {"step_time_ms": round(metrics["step_time_ms"], 3)}
+            extra = {}
             if cfg.anomaly_guard:
                 extra["skipped_steps"] = metrics["skipped"]
+            extra["step_time_ms"] = round(1e3 * acc_step / max(acc_n, 1), 3)
+            extra["data_wait_frac"] = round(acc_data / max(acc_step, 1e-9), 4)
+            acc_step = acc_data = 0.0
+            acc_n = 0
             logger.log_step(iter_num, metrics["loss"],
                             metrics["learning_rate"],
-                            steps_since_log * tokens_per_step / (now - t_log),
-                            extra)
-            t_log, steps_since_log = now, 0
+                            throughput.update(tokens_seen), extra)
         if iter_num % cfg.eval_interval == 0:
             losses = estimate_loss(eval_many, state["params"], train_ds,
                                    val_ds, cfg, eval_rng)

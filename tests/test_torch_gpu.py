@@ -287,10 +287,19 @@ def _rel(got: torch.Tensor, ref: torch.Tensor) -> float:
     return _err(got, ref) / max(float(ref.float().abs().max()), 1e-30)
 
 
+# bf16 instances: "16-byte" copies where every base pointer, row stride and
+# head width is a multiple of 8 bf16 (16 bytes), else "2-byte" loads (the
+# d = 12 cases); T off the 64-row tile, d off the 16-wide product depth,
+# and S 3 and 4 at dv 192 (the largest accumulators)
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
 @pytest.mark.parametrize("S,B,T,H,d,dv,packed", [
     (1, 2, 40, 2, 8, 8, False), (2, 2, 40, 2, 8, 16, True),
-    (4, 2, 40, 3, 12, 24, False),
+    (4, 2, 40, 3, 12, 24, False),    # 2-byte
+    (2, 2, 100, 2, 24, 48, True),    # T off the tile, d 24, 16-byte
+    (2, 2, 500, 2, 12, 24, True),    # T 500, 2-byte
+    (1, 2, 100, 3, 40, 40, False),   # d 40, 16-byte
+    (3, 1, 500, 2, 96, 192, False),  # S 3 at dv 192
+    (4, 1, 100, 2, 96, 192, True),   # S 4 at dv 192, packed
     (2, 2, 512, 4, 96, 192, True),   # diff recipe (batch cut)
     (1, 2, 512, 8, 96, 96, False),   # control recipe
     (4, 1, 512, 4, 96, 192, False),  # ndiff recipe
@@ -332,6 +341,14 @@ def test_flash_tm_kernels_match_plain(gen, dtype, S, B, T, H, d, dv, packed):
         assert _err(lse, r_lse) <= 1e-5 * float(r_lse.abs().max())
     for got, ref in zip([*dqs, *dks, dv_], [*rq, *rk, rv]):
         assert testing.grad_ratio(_heads(got, B, T, H), _heads(ref, B, T, H)) <= 1.0
+    # a second launch gives the same bits (one writer per output, no atomics)
+    out2, o_all2, lse2 = flash.flash_tm_fwd(qs, ks, v, c, H, True)
+    assert torch.equal(out2, out) and torch.equal(o_all2, o_all)
+    assert torch.equal(lse2, lse)
+    again = [torch.empty_like(t) for t in [*dqs, *dks, dv_]]
+    flash.flash_tm_bwd(qs, ks, v, g, r_lse, delta, c, H, again[:S],
+                       again[S:2 * S], again[2 * S])
+    assert all(torch.equal(a, b) for a, b in zip(again, [*dqs, *dks, dv_]))
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])

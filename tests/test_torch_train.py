@@ -530,3 +530,101 @@ def test_decode_attention_refuses_inputs_that_require_grad():
         decode_attention(q, k, v, pos, c)
     with torch.no_grad():
         assert decode_attention(q, k, v, pos, c).shape == (1, 1, 4)
+
+
+# ---------------------------------------------------------------------------
+# config refusals and the trainer's records
+# ---------------------------------------------------------------------------
+
+
+def test_remat_is_refused_until_it_is_ported():
+    from differential_transformer_replication_tpu_torch.config import MeshConfig
+
+    for kw in ({"remat": True}, {"remat_policy": "dots"},
+               {"remat": True, "remat_policy": "dots"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue A: remat"):
+            TrainConfig(model=ModelConfig(**kw), sampler="replacement")
+    # the JAX package takes them; the defaults still build in the port
+    JModelConfig(remat=True, remat_policy="dots")
+    assert not TrainConfig(model=ModelConfig(), sampler="replacement",
+                           mesh=MeshConfig()).model.remat
+
+
+@pytest.mark.parametrize("kind", ["control", "diff", "ndiff"])
+def test_card_envelope_holds_the_recipe_and_refuses_past_each_limit(kind):
+    from differential_transformer_replication_tpu_torch.models import (
+        check_card_envelope,
+    )
+
+    recipe = TrainConfig(model=ModelConfig(model=kind),
+                         sampler="replacement").resolved_model()
+    for use in ("train", "serve"):
+        check_card_envelope(recipe, use)
+    # one head, width n_embd: d = n_embd (control) or n_embd / 2 with
+    # dv = 2 d (diff, ndiff); at each limit it passes, one past it fails
+    per_d = 1 if kind == "control" else 2
+    for use, d_max, dv_max in (("train", 128, 256), ("serve", 256, 512)):
+        check_card_envelope(ModelConfig(model=kind, n_embd=d_max * per_d,
+                                        n_head=1), use)
+        past = ModelConfig(model=kind, n_embd=(d_max + 1) * per_d, n_head=1)
+        names = [rf"d = {d_max + 1} > {d_max}"]
+        if kind != "control":  # dv = 2 d passes its own limit with d
+            names.append(rf"dv = {2 * d_max + 2} > {dv_max}")
+        with pytest.raises(ValueError, match=", ".join(names)
+                           + r".*\(ROADMAP Queue C: head widths\)"):
+            check_card_envelope(past, use)
+    if kind == "ndiff":
+        check_card_envelope(ModelConfig(model=kind, n_terms=8), "serve")
+        with pytest.raises(ValueError, match=r"S = 9 > 8.*head widths"):
+            check_card_envelope(ModelConfig(model=kind, n_terms=9), "serve")
+        # training takes any stream count (head-major passes of four)
+        check_card_envelope(ModelConfig(model=kind, n_terms=9), "train")
+
+
+def test_metrics_records_match_the_jax_trainer(tmp_path):
+    """Both trainers on one tiny config: the same step-record keys (less
+    what the port has not ported: XLA's compile events and the guard's
+    rollbacks), no tokens/sec on the first log, step_time_ms the mean of
+    the steps since the last log and data_wait_frac a share of it."""
+    import json
+
+    from differential_transformer_replication_tpu.train.trainer import (
+        train as j_train,
+    )
+    from differential_transformer_replication_tpu_torch.train import trainer
+
+    tiny = dict(model="diff", vocab_size=256, n_embd=32, n_head=2, n_layer=2,
+                block_size=16, dropout=0.0, compute_dtype="float32")
+    common = dict(vocab_size=256, micro_batch_size=4, max_iters=6,
+                  eval_interval=6, eval_iters=1, log_interval=2,
+                  learning_rate=3e-3, min_lr=3e-4, warmup_iters=2, seed=7)
+    jcfg = JTrainConfig(
+        model=JModelConfig(**tiny), dataset="synthetic", num_train_samples=200,
+        tokenizer_dir=str(tmp_path / "tok"),
+        checkpoint_path=str(tmp_path / "ckpt"),
+        last_checkpoint_path=str(tmp_path / "last"),
+        metrics_path=str(tmp_path / "jax.jsonl"), **common)
+    j_train(jcfg)
+    np.save(tmp_path / "t.npy",
+            np.random.default_rng(0).integers(0, 256, 4000).astype(np.int32))
+    tcfg = TrainConfig(model=ModelConfig(**tiny), sampler="replacement",
+                       metrics_path=str(tmp_path / "port.jsonl"), **common)
+    _, history = trainer.train(tcfg, str(tmp_path / "t.npy"), device="cpu")
+
+    def steps(path):
+        return [r for r in map(json.loads, open(path)) if "loss" in r]
+
+    jrec, trec = steps(tmp_path / "jax.jsonl"), steps(tmp_path / "port.jsonl")
+    assert [r["iter"] for r in jrec] == [r["iter"] for r in trec] == [2, 4, 6]
+    not_ported = {"compile_events", "rollbacks"}
+    for j, t in zip(jrec, trec):
+        assert set(t) == set(j) - not_ported
+    for recs in (jrec, trec):
+        assert "tokens_per_sec" not in recs[0]
+        assert all(r["tokens_per_sec"] > 0 for r in recs[1:])
+        assert all(r["step_time_ms"] > 0 and 0.0 <= r["data_wait_frac"] <= 1.0
+                   for r in recs)
+    for r in trec:  # the mean of the log_interval steps up to this log
+        window = history[r["iter"] - 2:r["iter"]]
+        mean = sum(m["step_time_ms"] for m in window) / len(window)
+        assert r["step_time_ms"] == round(mean, 3)
