@@ -10,7 +10,7 @@ these phases, each printing its own lines and its seconds:
    versions, and the build of every kernel from the checkout's sources
    (one ``nvcc`` per CUDA source, all started together, the Triton JIT
    at first use), with the registers and spills ``ptxas -v`` reports for
-   the bf16 tensor-core instances of kernels D and E (none may spill);
+   the bf16 tensor-core instances of kernels D, E and K1 (none may spill);
 2. kernels: each hand-written kernel against its plain PyTorch version
    on the card at the recipe's shapes, fp32 and bf16, with max-abs
    error against a stated bound (the attention kernels row by row, each
@@ -32,14 +32,21 @@ these phases, each printing its own lines and its seconds:
    512, diff T 8192) in bf16 and at one shape per route in fp32, and at
    S = 5 streams (two passes) in both, each row held to its own scale
    (``testing.py``) and faults planted at T 2048 shown to fail that
-   bound, with SDPA's forward and backward beside them at the control
-   shape; kernels-ring: the ring chunk's modes of K1 (no combine) and
-   K2/K3 (per-stream cotangents) at chunk lengths 2048, 4096 and 8192
-   (both sides of the 4096 route split), causal offsets 0, +Tl, +3Tl and
-   -Tl, bf16 and fp32, dropout 0 and 0.1, diff/control/ndiff widths, held
-   row by row, then at each train-ring run's own shapes and offsets;
-   timed at the ring's shapes (diff, B 2, H 4) with the bound
-   of the visible pairs only, SDPA beside them at S 1 and dropout 0;
+   bound; then, at dropout 0 and the control width (S 1), SDPA's forward
+   and backward beside K1 and the backward of each route (T 512 fused,
+   T 2048 split, T 8192 tiled), with entries of their own for K1 (T 512,
+   T 8192) and K4 (T 512) there, held against their plain versions and
+   carrying SDPA's time on the same operands as library_ms (the diff
+   entries carry none: no one call computes S streams with dropout);
+   bounds from ``testing.attention_work``; kernels-ring: the ring
+   chunk's modes of K1 (no combine) and K2/K3 (per-stream cotangents) at
+   chunk lengths 2048, 4096 and 8192 (both sides of the 4096 route
+   split), causal offsets 0, +Tl, +3Tl and -Tl, bf16 and fp32, dropout
+   0 and 0.1, diff/control/ndiff widths, held row by row, then at each
+   train-ring run's own shapes and offsets; timed at the ring's shapes
+   (diff, B 2, H 4) with the bound of the visible pairs only (and of
+   the operands they read), SDPA beside the chunk forward at S 1 and
+   dropout 0 (Tl 4096 and 8192; the full chunk an entry of its own);
 3. serve: a diff model at recipe width (random weights from a seed)
    behind the port's HTTP ``serve()``, 12 concurrent ``/generate``
    requests, launch counters read around that run; serve-paged: the
@@ -1096,7 +1103,6 @@ def run_train_kernels(torch, ops) -> dict:
     gen.manual_seed(2)
     entries = {}
     B, T = TRAIN_B, RECIPE["block_size"]
-    n_pairs = B * T * (T + 1) // 2  # causal (q, k) pairs per head
     for name, S, H, d, dv, packed in TM_CONFIGS:
         for dtype in (torch.float32, torch.bfloat16):
             es = torch.finfo(dtype).bits // 8
@@ -1141,10 +1147,7 @@ def run_train_kernels(torch, ops) -> dict:
             if dtype != torch.bfloat16:
                 continue
             # times, bf16: forward with residuals and the backward
-            in_bytes = B * T * H * (2 * S * d + dv) * es
-            fwd_bytes = (in_bytes + B * T * H * dv * es + B * H * S * T * dv * es
-                         + B * T * H * S * 4)
-            fwd_flops = n_pairs * H * S * (2 * d + 2 * dv)
+            _, fwd_bytes, fwd_flops = testing.attention_work(B, H, S, T, d, dv, 0, "fwd", es)
             lib = None
             if S == 1:  # one causal softmax stream: SDPA computes it
                 qt, kt, vt = (t.reshape(B, T, H, -1).transpose(1, 2)
@@ -1164,9 +1167,7 @@ def run_train_kernels(torch, ops) -> dict:
                     replaces=TPU + "flash.py:1945", max_abs_err=f_err,
                     ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=bms,
                     bound_by=by, library_ms=t["library_ms"])
-            bwd_bytes = (2 * in_bytes + B * T * H * dv * es
-                         + 2 * B * T * H * S * 4)
-            bwd_flops = n_pairs * H * (4 * dv + 6 * d * S)
+            _, bwd_bytes, bwd_flops = testing.attention_work(B, H, S, T, d, dv, 0, "bwd", es)
             t = timings([lambda: flash.flash_tm_bwd(*bwd_args, grads[:S], grads[S:], dv_)],
                         [lambda: flash.tm_attention_bwd_reference(*bwd_args)],
                         None, **few(True))
@@ -1294,12 +1295,27 @@ HM_CONFIGS = (
      {"fwd": "flash_bh_fwd_tiled", "dq": "flash_bh_bwd_dq_tiled",
       "dkv": "flash_bh_bwd_dkv_tiled"}),
 )
+HM_SOURCES = {"fwd": "csrc/flash_bh_fwd.cu", "dq": "csrc/flash_bh.cu",
+              "dkv": "csrc/flash_bh.cu", "fused": "csrc/flash_bh.cu"}
+# the SDPA yardsticks (control width, S 1, dropout 0): (T, B, backward
+# kernels timed beside SDPA's backward)
+YARD_SHAPES = ((512, 32, "fused"), (2048, 8, "split"), (8192, 2, "tiled"))
+# the control-width entries, whose ms, plain_ms and library_ms (SDPA) are
+# timed on the same operands: T -> {kernel: entry}. K1 computes SDPA's
+# function there, and K4 the whole backward as SDPA's backward does; K2
+# and K3 each compute half of it, so SDPA's backward stands beside their
+# sum in the log only
+HM_CONTROL = {512: {"fwd": "flash_bh_fwd_control", "fused": "flash_bh_bwd_fused_control"},
+              8192: {"fwd": "flash_bh_fwd_tiled_control"}}
 HM_REPLACES = {  # the TPU kernel bodies (ops/flash.py) each entry stands for
     "flash_bh_fwd": 339, "flash_bh_fwd_tiled": 572, "flash_bh_bwd_dq": 1011,
     "flash_bh_bwd_dkv": 1108, "flash_bh_bwd_dq_tiled": 721,
     "flash_bh_bwd_dkv_tiled": 795, "flash_bh_bwd_fused": 1238,
+    "flash_bh_fwd_control": 339, "flash_bh_fwd_tiled_control": 572,
+    "flash_bh_bwd_fused_control": 1238,
 }
-# the wrapper and route each entry's launches are counted under
+# the wrapper and route each entry's launches are counted under (a
+# control-width entry: its kernel's, over every train-hm run)
 HM_COUNTS = {
     "flash_bh_fwd": ("flash_bh_fwd", "resident"),
     "flash_bh_fwd_tiled": ("flash_bh_fwd", "tiled"),
@@ -1308,6 +1324,9 @@ HM_COUNTS = {
     "flash_bh_bwd_dq_tiled": ("flash_bh_bwd_dq", "tiled"),
     "flash_bh_bwd_dkv_tiled": ("flash_bh_bwd_dkv", "tiled"),
     "flash_bh_bwd_fused": ("flash_bh_bwd_fused", "fused"),
+    "flash_bh_fwd_control": ("flash_bh_fwd", "resident"),
+    "flash_bh_fwd_tiled_control": ("flash_bh_fwd", "tiled"),
+    "flash_bh_bwd_fused_control": ("flash_bh_bwd_fused", "fused"),
 }
 
 
@@ -1389,6 +1408,7 @@ def hm_check(torch, flash, dtype, S, T, q, k, v, g, c, H, rate, kernels,
 def run_bh_kernels(torch, flash) -> dict:
     """Phase 2 for the head-major kernels K1-K4. Returns {name: json entry
     sans launches}."""
+    from differential_transformer_replication_tpu_torch import testing
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     entries = {}
@@ -1412,7 +1432,6 @@ def run_bh_kernels(torch, flash) -> dict:
         dtype = torch.bfloat16
         es = 2
         q, k, v, g, c = hm_operands(torch, gen, dtype, S, B, T, H, d, dv)
-        BH = B * H
         errs, ratios, (lse, delta) = hm_check(torch, flash, dtype, S, T, q, k, v,
                                               g, c, H, HM_RATE, kernels,
                                               plant=T == 2048)
@@ -1420,71 +1439,105 @@ def run_bh_kernels(torch, flash) -> dict:
             f"rate {HM_RATE} (routes {flash.fwd_route(T)}, {flash.bwd_route(S, T)}): "
             + ", ".join(f"{n} max-abs {e:.3g} (worst row at {ratios[n]:.3g} of its "
                         "bound)" for n, e in errs.items()))
-        n_pairs = T * (T + 1) // 2  # causal (q, k) pairs per (b, h)
         long = T >= 2048
         kw = dict(iters=2, reps=3) if T > 4096 else few(long)
         words = HM_WORDS
-        qkv_bytes = BH * T * (2 * S * d + dv) * es
-        res_bytes = BH * S * T * (dv * es + 4)  # o_all + lse
         work = {
             "fwd": (lambda: flash.flash_bh_fwd(q, k, v, c, H, HM_RATE, words, True),
-                    lambda: flash.bh_attention_fwd_reference(q, k, v, c, HM_RATE, words),
-                    qkv_bytes + BH * T * dv * es + res_bytes,
-                    BH * n_pairs * S * (2 * d + 2 * dv)),
+                    lambda: flash.bh_attention_fwd_reference(q, k, v, c, HM_RATE, words)),
             "dq": (lambda: flash.flash_bh_bwd_dq(q, k, v, g, lse, delta, c, H,
-                                                 HM_RATE, words),
-                   None, qkv_bytes + BH * T * dv * es + 2 * BH * S * T * 4
-                   + BH * S * T * d * es,
-                   BH * n_pairs * (2 * dv + S * 4 * d)),
+                                                 HM_RATE, words), None),
             "dkv": (lambda: flash.flash_bh_bwd_dkv(q, k, v, g, lse, delta, c, H,
-                                                   HM_RATE, words),
-                    None, qkv_bytes + BH * T * dv * es + 2 * BH * S * T * 4
-                    + BH * T * (S * d + dv) * es,
-                    BH * n_pairs * (4 * dv + S * 4 * d)),
+                                                   HM_RATE, words), None),
             "fused": (lambda: flash.flash_bh_bwd_fused(q, k, v, g, lse, delta, c, H,
                                                        HM_RATE, words),
                       lambda: flash.bh_attention_bwd_reference(
-                          q, k, v, g, lse, delta, c, HM_RATE, words),
-                      qkv_bytes + BH * T * dv * es + 2 * BH * S * T * 4 + qkv_bytes,
-                      BH * n_pairs * (4 * dv + S * 6 * d)),
+                          q, k, v, g, lse, delta, c, HM_RATE, words)),
         }
         plain_bwd = lambda: flash.bh_attention_bwd_reference(  # noqa: E731
             q, k, v, g, lse, delta, c, HM_RATE, words)
         for kern in kernels:
-            k_call, p_call, nbytes, flops = work[kern]
+            k_call, p_call = work[kern]
+            _, nbytes, flops = testing.attention_work(
+                B, H, S, T, d, dv, 0, "bwd" if kern == "fused" else kern, es)
             t = timings([k_call], [p_call or plain_bwd], None, **kw)
             bms, by = bound_ms(nbytes, flops, dtype)
             note = ("" if p_call else "; plain is the whole plain backward")
             log(f"[kernels-hm] flash_bh {kern} bf16 {label}: " + fmt_times(t, bms, by)
-                + note + "; no one-call PyTorch equivalent (dropout, multi-stream)")
+                + note + "; one-call PyTorch: none at this shape (dropout, "
+                "multi-stream); SDPA at S 1, dropout 0 below")
             name = names.get(kern)
             if name:
                 entries[name] = dict(
-                    name=name, route="cuda", source=SRC + "csrc/flash_bh.cu",
+                    name=name, route="cuda", source=SRC + HM_SOURCES[kern],
                     replaces=TPU + f"flash.py:{HM_REPLACES[name]}",
                     max_abs_err=errs[kern], ms=t["ms"], plain_ms=t["plain_ms"],
                     bound_ms=bms, bound_by=by, library_ms=None)
-        if S == 1:
-            # the one-call yardstick at dropout 0: SDPA (causal) on the
-            # same (B, H, T, d) operands, forward and backward
-            qt, kt = (x.reshape(B, H, T, d) for x in (q, k))
-            vt, gt = (x.reshape(B, H, T, dv) for x in (v, g))
-            lib_f = device_ms([lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True)], **few(True))
-            k_f = device_ms([lambda: flash.flash_bh_fwd(q, k, v, c, H, 0.0, (0, 0),
-                                                        True)], **few(True))
-            qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
-            og = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg,
-                                                                  is_causal=True)
-            lib_b = call_ms([lambda: torch.autograd.grad(og, (qg, kg, vg), gt,
-                                                         retain_graph=True)], **few(True))
-            k_b = call_ms([lambda: flash.flash_bh_bwd_fused(q, k, v, g, lse, delta, c,
-                                                            H, 0.0, (0, 0))], **few(True))
-            log(f"[kernels-hm] {label} at dropout 0: SDPA forward {lib_f * 1e3:.2f} us "
-                f"(K1 {k_f * 1e3:.2f} us, device); SDPA backward {lib_b * 1e3:.2f} us "
-                f"(K4 {k_b * 1e3:.2f} us; both per call from the host)")
-            del qg, kg, vg, og
         del q, k, v, g, c, lse, delta, work
+        torch.cuda.empty_cache()
+
+    # the one-call yardsticks: SDPA (causal) at dropout 0 and S 1, the
+    # control width, on the same (B, H, T, d) operands as the kernels timed
+    # beside it (device time, CUDA-graph replay; SDPA's backward is the
+    # graph of forward + backward less the forward): K1 (rows 9, 10), K4
+    # (row 12), K2 + K3 (split, row 13; tiled, row 11). The diff entries
+    # above keep library_ms None: no one call computes S streams with
+    # dropout. The HM_CONTROL entries are held against their plain
+    # versions and timed beside SDPA on these operands.
+    S, H, d, dv = 1, 8, 96, 96
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for T, B, bwd_kernels in YARD_SHAPES:
+        q, k, v, g, c = hm_operands(torch, gen, dtype, S, B, T, H, d, dv)
+        _, o_all, lse = flash.flash_bh_fwd(q, k, v, c, H, 0.0, (0, 0), True)
+        delta = torch.einsum("btd,bstd->bst", g.float(), o_all.float()).contiguous()
+        kw = dict(iters=2, reps=3) if T > 4096 else few(True)
+        qt, kt, vt, gt = (x.reshape(B, H, T, -1) for x in (q, k, v, g))
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+        bwd = (q, k, v, g, lse, delta, c, H, 0.0, (0, 0))
+        if bwd_kernels == "fused":
+            k_bwd = [lambda: flash.flash_bh_bwd_fused(*bwd)]
+        else:
+            k_bwd = [lambda: (flash.flash_bh_bwd_dq(*bwd), flash.flash_bh_bwd_dkv(*bwd))]
+        named = HM_CONTROL.get(T, {})
+        errs = {}
+        if named:
+            errs, ratios, _ = hm_check(torch, flash, dtype, S, T, q, k, v, g, c, H, 0.0,
+                                       tuple(kern for kern in named if kern != "fwd"))
+            log(f"[kernels-hm] flash_bh bf16 control T={T} B={B} H={H} d={d} dv={dv} "
+                "dropout 0: " + ", ".join(
+                    f"{n} max-abs {e:.3g} (worst row at {ratios[n]:.3g} of its bound)"
+                    for n, e in errs.items()))
+        t_f = timings([lambda: flash.flash_bh_fwd(q, k, v, c, H, 0.0, (0, 0), True)],
+                      [lambda: flash.bh_attention_fwd_reference(q, k, v, c, 0.0, (0, 0))],
+                      [lambda: sdpa(qt, kt, vt, is_causal=True)], **kw)
+        k_f, lib_f = t_f["ms"], t_f["library_ms"]
+        k_b = device_ms(k_bwd, **kw)
+        lib_b = device_ms([lambda: torch.autograd.grad(
+            sdpa(qg, kg, vg, is_causal=True), (qg, kg, vg), gt)], **kw) - lib_f
+        log(f"[kernels-hm] control T={T} B={B} H={H} at dropout 0 (routes "
+            f"{flash.fwd_route(T)}, {flash.bwd_route(S, T)}): SDPA forward "
+            f"{lib_f * 1e3:.2f} us (K1 {k_f * 1e3:.2f} us); SDPA backward "
+            f"{lib_b * 1e3:.2f} us ({'K4' if bwd_kernels == 'fused' else 'K2 + K3'} "
+            f"{k_b * 1e3:.2f} us); device")
+        for kern, name in named.items():
+            if kern == "fwd":
+                t = t_f
+            else:  # K4: the whole backward, as SDPA's
+                t = {"ms": k_b, "library_ms": lib_b, "plain_ms": device_ms(
+                    [lambda: flash.bh_attention_bwd_reference(*bwd[:7], 0.0, (0, 0))],
+                    **kw)}
+            _, nbytes, flops = testing.attention_work(
+                B, H, S, T, d, dv, 0, "bwd" if kern == "fused" else kern, 2)
+            bms, by = bound_ms(nbytes, flops, dtype)
+            entries[name] = dict(
+                name=name, route="cuda", source=SRC + HM_SOURCES[kern],
+                replaces=TPU + f"flash.py:{HM_REPLACES[name]}", max_abs_err=errs[kern],
+                ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=bms, bound_by=by,
+                library_ms=t["library_ms"])
+            log(f"[kernels-hm] {name} (T={T} B={B}): device {t['ms'] * 1e3:.2f} us, "
+                f"plain {t['plain_ms'] * 1e3:.2f} us, SDPA {t['library_ms'] * 1e3:.2f} us, "
+                f"bound {bms * 1e3:.3f} us ({by})")
+        del q, k, v, g, c, o_all, lse, delta, qt, kt, vt, gt, qg, kg, vg, bwd, k_bwd
         torch.cuda.empty_cache()
     return entries
 
@@ -1763,6 +1816,8 @@ RING_COUNTS = {
     "flash_chunk_bwd_dkv": ("flash_chunk_bwd_dkv", "chunk-split"),
     "flash_chunk_bwd_dq_tiled": ("flash_chunk_bwd_dq", "chunk-tiled"),
     "flash_chunk_bwd_dkv_tiled": ("flash_chunk_bwd_dkv", "chunk-tiled"),
+    "flash_chunk_fwd_control": ("flash_chunk_fwd", "chunk-resident"),
+    "flash_chunk_fwd_tiled_control": ("flash_chunk_fwd", "chunk-tiled"),
 }
 
 
@@ -1815,6 +1870,7 @@ def chunk_check(torch, flash, dtype, q, k, v, do, off, rate):
 
 def run_ring_kernels(torch, flash) -> dict:
     """Phase kernels-ring. Returns {name: json entry sans launches}."""
+    from differential_transformer_replication_tpu_torch import testing
     gen = torch.Generator(device="cuda")
     gen.manual_seed(14)
     # correctness: each chunk length, offset, dtype and rate, the family
@@ -1878,27 +1934,21 @@ def run_ring_kernels(torch, flash) -> dict:
             errs, ratios, (lse, delta) = chunk_check(torch, flash, dtype, q, k, v, do,
                                                      off, RING_RATE)
             words = HM_WORDS
-            pairs = {1: Tl * Tl, 0: Tl * (Tl + 1) // 2, -1: 0}[om]  # visible, per bh
-            qkv = BH * Tl * (2 * S * d + dv) * es
             work = {
                 "fwd": (lambda: flash.flash_chunk_fwd(q, k, v, off, RING_RATE, words),
                         lambda: flash.bh_attention_fwd_reference(
-                            q, k, v, None, RING_RATE, words, off),
-                        qkv + BH * S * Tl * (dv * es + 4),
-                        BH * pairs * S * (2 * d + 2 * dv)),
+                            q, k, v, None, RING_RATE, words, off)),
                 "dq": (lambda: flash.flash_chunk_bwd_dq(q, k, v, do, lse, delta, off,
-                                                        RING_RATE, words),
-                       None, qkv + BH * S * Tl * (dv * es + 8 + d * es),
-                       BH * pairs * S * (4 * d + 2 * dv)),
+                                                        RING_RATE, words), None),
                 "dkv": (lambda: flash.flash_chunk_bwd_dkv(q, k, v, do, lse, delta, off,
-                                                          RING_RATE, words),
-                        None, qkv + BH * S * Tl * (dv * es + 8 + d * es)
-                        + BH * Tl * dv * es,
-                        BH * pairs * S * (4 * d + 4 * dv)),
+                                                          RING_RATE, words), None),
             }
             plain_bwd = lambda: flash.bh_attention_bwd_reference(  # noqa: E731
                 q, k, v, do, lse, delta, None, RING_RATE, words, off)
-            for kern, (k_call, p_call, nbytes, flops) in work.items():
+            for kern, (k_call, p_call) in work.items():
+                # the bound of the visible pairs and the operands they read
+                _, nbytes, flops = testing.attention_work(B, H, S, Tl, d, dv, off,
+                                                          "chunk_" + kern, es)
                 t = timings([k_call], [p_call or plain_bwd], None, **kw)
                 bms, by = bound_ms(nbytes, flops, dtype)
                 times[(kern, om)] = (t, bms, by, errs[kern])
@@ -1913,28 +1963,52 @@ def run_ring_kernels(torch, flash) -> dict:
                 continue
             t, bms, by, err = times[(kern, 1)]  # the full chunk (off = +Tl)
             entries[name] = dict(
-                name=name, route="cuda", source=SRC + "csrc/flash_bh.cu",
+                name=name, route="cuda", source=SRC + HM_SOURCES[kern],
                 replaces=TPU + f"flash.py:{line}", max_abs_err=err, ms=t["ms"],
                 plain_ms=t["plain_ms"], bound_ms=bms, bound_by=by, library_ms=None)
         del q, k, v, do
         torch.cuda.empty_cache()
 
-    # the one-call yardstick, S = 1 at dropout 0 (control width, Tl 4096):
-    # SDPA causal against off 0, non-causal against off +Tl
+    # the one-call yardstick, S = 1 at dropout 0 (control width, Tl 4096
+    # and 8192): SDPA causal against off 0, non-causal against off +Tl.
+    # The diff entries above keep library_ms None (S streams with
+    # dropout); the full chunk at the control width is an entry of its
+    # own, held against its plain version and timed beside SDPA on the
+    # same operands
     fam, S, H, d, dv = RING_FAMILIES[1]
-    Tl = 4096
-    q, k, v, _ = chunk_operands(torch, gen, dtype, S, B * H, Tl, d, dv)
-    qt, kt, vt = (x.reshape(B, H, Tl, -1) for x in (q, k, v))
-    for om, causal in ((0, True), (1, False)):
-        lib = device_ms([lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal)], **few(True))
-        kern = device_ms([lambda: flash.flash_chunk_fwd(q, k, v, om * Tl, 0.0, (0, 0))],
-                         **few(True))
-        log(f"[kernels-ring] control Tl={Tl} B={B} H={H} off={om * Tl} at dropout 0: "
-            f"chunk K1 {kern * 1e3:.2f} us, SDPA ({'causal' if causal else 'non-causal'})"
-            f" {lib * 1e3:.2f} us (device)")
-    del q, k, v, qt, kt, vt
-    torch.cuda.empty_cache()
+    for Tl, name in ((4096, "flash_chunk_fwd_control"),
+                     (8192, "flash_chunk_fwd_tiled_control")):
+        q, k, v, do = chunk_operands(torch, gen, dtype, S, B * H, Tl, d, dv)
+        qt, kt, vt = (x.reshape(B, H, Tl, -1) for x in (q, k, v))
+        kw = dict(iters=2, reps=3) if Tl > 4096 else few(True)
+        for om, causal in ((0, True), (1, False)):
+            off = om * Tl
+            sdpa = [lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal)]
+            kern = [lambda: flash.flash_chunk_fwd(q, k, v, off, 0.0, (0, 0))]
+            if causal:
+                t = {"ms": device_ms(kern, **kw), "library_ms": device_ms(sdpa, **kw)}
+            else:
+                errs, ratios, _ = chunk_check(torch, flash, dtype, q, k, v, do, off, 0.0)
+                t = timings(kern, [lambda: flash.bh_attention_fwd_reference(
+                    q, k, v, None, 0.0, (0, 0), off)], sdpa, **kw)
+                _, nbytes, flops = testing.attention_work(B, H, S, Tl, d, dv, off,
+                                                          "chunk_fwd", 2)
+                bms, by = bound_ms(nbytes, flops, dtype)
+                entries[name] = dict(
+                    name=name, route="cuda", source=SRC + HM_SOURCES["fwd"],
+                    replaces=TPU + f"flash.py:{1579 if Tl == 4096 else 572}",
+                    max_abs_err=errs["fwd"], ms=t["ms"], plain_ms=t["plain_ms"],
+                    bound_ms=bms, bound_by=by, library_ms=t["library_ms"])
+            log(f"[kernels-ring] control Tl={Tl} B={B} H={H} off={off} at dropout 0: "
+                f"chunk K1 {t['ms'] * 1e3:.2f} us, SDPA "
+                f"({'causal' if causal else 'non-causal'}) {t['library_ms'] * 1e3:.2f} us "
+                "(device)" + ("" if causal else
+                              f"; plain {t['plain_ms'] * 1e3:.2f} us, bound "
+                              f"{bms * 1e3:.3f} us ({by}), worst row at "
+                              f"{ratios['fwd']:.3g} of its bound"))
+        del q, k, v, do, qt, kt, vt
+        torch.cuda.empty_cache()
     return entries
 
 
@@ -2365,17 +2439,18 @@ def main() -> int:
     paths = _kernels.build()
     log(f"[build] nvcc sm_90a: {', '.join(p.name for p in paths.values())} "
         f"in {time.perf_counter() - t0:.1f} s")
-    # kernels D and E in bf16 (the tensor-core instances, "_mma"): their
-    # registers per thread, and no local-memory spill (ptxas -v)
-    usage = {k: v for k, v in _kernels.ptxas_usage("flash_tm").items() if "_mma" in k}
-    for fn, (regs, spill) in sorted(usage.items()):
-        m = re.search(r"(tm_(?:fwd|bwd_dq|bwd_dk|bwd_dv)_mma)I(\w*?)EEv", fn)
-        log(f"[build] ptxas {m.group(1) if m else fn} <{m.group(2) if m else ''}>: "
-            f"{regs} registers, {spill} bytes spilled")
-    spilled = [fn for fn, (_, spill) in usage.items() if spill]
-    if not usage or spilled:
-        raise Failure(f"flash_tm bf16 kernels spill to local memory: {spilled}"
-                      if usage else "no ptxas report for flash_tm")
+    # kernels D and E and K1 in bf16 (the tensor-core instances, "_mma"):
+    # their registers per thread, and no local-memory spill (ptxas -v)
+    for lib in ("flash_tm", "flash_bh_fwd"):
+        usage = {k: v for k, v in _kernels.ptxas_usage(lib).items() if "_mma" in k}
+        for fn, (regs, spill) in sorted(usage.items()):
+            m = re.search(r"((?:tm|bh)_(?:fwd|bwd_dq|bwd_dk|bwd_dv)_mma)I(\w*?)EEv", fn)
+            log(f"[build] ptxas {m.group(1) if m else fn} <{m.group(2) if m else ''}>: "
+                f"{regs} registers, {spill} bytes spilled")
+        spilled = [fn for fn, (_, spill) in usage.items() if spill]
+        if not usage or spilled:
+            raise Failure(f"{lib} bf16 kernels spill to local memory: {spilled}"
+                          if usage else f"no ptxas report for {lib}")
     t0 = time.perf_counter()
     x = torch.zeros(8, 768, device="cuda", dtype=torch.bfloat16)
     w = torch.ones(768, device="cuda")
@@ -2421,7 +2496,8 @@ def main() -> int:
         # serving kernels: launches over the served run; training
         # kernels: over the diff recipe's trainer run;
         # head-major kernels: over the train-hm runs, by route; the ring
-        # chunk modes: over the train-ring runs' ranks, by route
+        # chunk modes: over the train-ring runs' ranks, by route (an
+        # entry at the control width: its kernel's route)
         if name in ring_counts:
             ent["launches"] = ring_counts[name]
         elif name in hm_counts:

@@ -1,14 +1,16 @@
 // Head-major multi-stream causal flash attention for Hopper (sm_90a), with
-// in-kernel attention-probability dropout:
+// in-kernel attention-probability dropout, the backward:
 //
 //   out = sum_s c[s, h] * dropout(softmax(Q_s K_s^T / sqrt(d) + causal)) V
 //
 // Four kernels replace the seven TPU kernel bodies of
 // differential_transformer_replication_tpu/ops/flash.py on the head-major
-// route and on the sequence-parallel ring:
-//   K1 bh_fwd_kernel       _fwd_kernel (_fwd_call, resident, T <= 4096;
-//                          _chunk_fwd_call, the ring chunk) and
-//                          _tiled_fwd_kernel (_tiled_fwd_call, T > 4096)
+// route and on the sequence-parallel ring; K1, the forward, lives in
+// flash_bh_fwd.cu (its own library, so the two build side by side), K2-K4
+// here:
+//   K1 bh_fwd_mma (bf16),  _fwd_kernel (_fwd_call, resident, T <= 4096;
+//      bh_fwd_kernel       _chunk_fwd_call, the ring chunk) and
+//      (fp32)              _tiled_fwd_kernel (_tiled_fwd_call, T > 4096)
 //   K2 bh_dq_kernel        _bwd_dq_kernel (_bwd_call) and _tiled_dq_kernel
 //                          (_tiled_bwd_call)
 //   K3 bh_dkv_kernel       _bwd_dkv_kernel (_bwd_call) and _tiled_dkv_kernel
@@ -25,9 +27,10 @@
 // VMEM. Here every kernel streams 32-key tiles through shared memory, so it
 // is valid at any T; the route (resident, tiled, fused, split) only picks
 // which kernels run (ops/flash.py:fwd_route, bwd_route). Any number of
-// streams S: a block holds sc <= MAX_SC streams' tiles and accumulators
-// at once (the launcher picks the largest sc that fits) and walks the
-// streams in passes of sc; S <= sc, every shape of the recipes, is one pass.
+// streams S (here and in K1's fp32 instances): a block holds sc <= MAX_SC
+// streams' tiles and accumulators at once (the launcher picks the largest
+// sc that fits) and walks the streams in passes of sc; S <= sc, every
+// shape of the recipes, is one pass.
 //
 // Layouts (the JAX package's): q, k (BH, S, T, d); v (BH, T, dv); g (BH, T,
 // dv), or (BH, S, T, dv) per stream; o_all (BH, S, T, dv) in the storage
@@ -37,8 +40,8 @@
 // What bounds it on the H100: at the slice's shapes (T = 512..8192, d = 96,
 // dv = 192) a head's work is ~T^2 (d + dv) multiply-adds over ~T (d + dv)
 // elements, far above the ~295 FLOP/byte ridge: the bound is the tensor
-// cores. This first version runs every product of a tile pair (QK^T, PV,
-// gV^T, dS K, dS^T Q, P^T g) as bf16 WMMA 16x16x16 fragments with fp32
+// cores. K2-K4 run every product of a tile pair (gV^T, QK^T, dS K, dS^T
+// Q, P^T g) as bf16 WMMA 16x16x16 fragments with fp32
 // accumulation out of shared memory (fp32 operands take a SIMT FMA loop
 // instead, exact like the plain version); wgmma, TMA and overlapped loads
 // are later work. Tiles are 32 x 32 (BK = the warp size, so a row's 32
@@ -60,337 +63,9 @@
 // off) in uint32 arithmetic (flash.py:dropout_keep_ids, _keep_mask_block),
 // so all kernels and the plain version regenerate the same bits.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "flash_bh_common.cuh"
 
 namespace {
-
-namespace wm = nvcuda::wmma;
-using bf16 = __nv_bfloat16;
-
-constexpr int BQ = 32;  // query rows per tile
-constexpr int BK = 32;  // keys per tile: one per lane in the row passes
-constexpr int NWARPS = 4;
-constexpr int THREADS = NWARPS * 32;
-constexpr int RPW = BQ / NWARPS;  // rows a warp owns in the row passes
-constexpr int MAX_SC = 4;  // streams a block holds in shared memory at once
-constexpr int MAX_D = 128;
-constexpr int MAX_DV = 256;
-constexpr int SMEM_LIMIT = 232448;  // 227 KB, the most a block may take
-constexpr int SC_LD = BK + 4;       // fp32 [BQ][BK] tiles
-constexpr float NEG_INF = -1e30f;   // the JAX package's finite -inf (streams.py)
-
-__host__ __device__ constexpr int round16(int w) { return (w + 15) & ~15; }
-
-// leading dimension of a shared-memory tile of width w: a multiple of 8
-// elements for bf16 WMMA operands (+8 breaks bank alignment of rows), of 4
-// floats for fp32 tiles and WMMA accumulators
-template <typename T> __host__ __device__ int ld_in(int w);
-template <> __host__ __device__ int ld_in<bf16>(int w) { return round16(w) + 8; }
-template <> __host__ __device__ int ld_in<float>(int w) { return round16(w) + 4; }
-__host__ __device__ inline int ld_acc(int w) { return round16(w) + 4; }
-
-// carves 128-byte-aligned buffers out of dynamic shared memory; with a
-// null base it only counts bytes (the host's size computation)
-struct Carve {
-  unsigned char* base;
-  size_t off = 0;
-  template <typename U> __host__ __device__ U* take(size_t n) {
-    off = (off + 127) & ~size_t(127);
-    U* p = base ? reinterpret_cast<U*>(base + off) : nullptr;
-    off += n * sizeof(U);
-    return p;
-  }
-};
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
-
-// ---------------------------------------------------------------------------
-// dropout: the JAX package's counter hash (ops/flash.py:_fmix32,
-// dropout_keep_ids), uint32 arithmetic wrapping mod 2^32
-// ---------------------------------------------------------------------------
-
-struct Drop {
-  uint32_t w0, w1m, threshold;  // w1m = w1 * 0x9E3779B1
-  float inv_keep;               // float32(1 / (1 - rate))
-  int on;
-};
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ uint32_t stream_key(const Drop& dr, int bh, int s) {
-  return fmix32(dr.w0 ^ ((uint32_t)bh * 0x9E3779B1u) ^ ((uint32_t)s * 0x27D4EB2Fu));
-}
-
-__device__ __forceinline__ bool keep_bit(const Drop& dr, uint32_t key, int row, int col) {
-  const uint32_t x = ((uint32_t)row * 0x85EBCA77u) ^ ((uint32_t)col * 0xC2B2AE3Du);
-  return fmix32(fmix32(x + key) ^ dr.w1m) >= dr.threshold;
-}
-
-// ---------------------------------------------------------------------------
-// staging and tile products
-// ---------------------------------------------------------------------------
-
-// rows [t0, t0 + rows) of a (T_len, w) row-major slab into dst[rows][ld],
-// zero past T_len and in the padding columns [w, round16(w)). Where w
-// holds whole 16-byte vectors (every width of the slice), each thread
-// issues STAGE_UNROLL 16-byte loads before it stores any, so a tile's
-// loads are in flight together; else one element at a time.
-constexpr int STAGE_UNROLL = 4;
-
-template <typename T>
-__device__ __forceinline__ void stage(T* dst, int ld, const T* __restrict__ src,
-                                      int T_len, int t0, int rows, int w) {
-  constexpr int VEC = 16 / sizeof(T);
-  const int wp = round16(w);
-  if (w % VEC == 0) {
-    const int wv = wp / VEC, n = rows * wv;
-    for (int base = threadIdx.x; base < n; base += THREADS * STAGE_UNROLL) {
-      uint4 val[STAGE_UNROLL];
-#pragma unroll
-      for (int u = 0; u < STAGE_UNROLL; ++u) {
-        const int i = base + u * THREADS;
-        const int r = i / wv, c = (i - r * wv) * VEC, t = t0 + r;
-        val[u] = make_uint4(0u, 0u, 0u, 0u);
-        if (i < n && t < T_len && c < w)
-          val[u] = *reinterpret_cast<const uint4*>(src + (size_t)t * w + c);
-      }
-#pragma unroll
-      for (int u = 0; u < STAGE_UNROLL; ++u) {
-        const int i = base + u * THREADS;
-        if (i < n) {
-          const int r = i / wv, c = (i - r * wv) * VEC;
-          *reinterpret_cast<uint4*>(dst + r * ld + c) = val[u];
-        }
-      }
-    }
-    return;
-  }
-  for (int i = threadIdx.x; i < rows * wp; i += THREADS) {
-    const int r = i / wp, c = i - r * wp;
-    const int t = t0 + r;
-    dst[r * ld + c] = (t < T_len && c < w) ? src[(size_t)t * w + c] : from_f<T>(0.f);
-  }
-}
-
-// C[M][N] (fp32, row-major, ldc; shared or global) = (ACC ? C : 0) + A B
-// with A (M x K) read as A[m*lda + k] (A_ROW) or A[k*lda + m], and B (K x
-// N) read as B[k*ldb + n] (B_ROW) or B[n*ldb + k]. M, N, K are multiples
-// of 16. Called by the whole block; a C tile belongs to one warp (bf16) or
-// a C element to one thread (fp32), the same one at every call.
-template <bool A_ROW, bool B_ROW, bool ACC>
-__device__ __forceinline__ void mm(float* C, int ldc, const bf16* A, int lda,
-                                   const bf16* B, int ldb, int M, int N, int K) {
-  using LA = std::conditional_t<A_ROW, wm::row_major, wm::col_major>;
-  using LB = std::conditional_t<B_ROW, wm::row_major, wm::col_major>;
-  const int warp = threadIdx.x >> 5;
-  const int tn = N / 16, tiles = (M / 16) * tn;
-  for (int t = warp; t < tiles; t += NWARPS) {
-    const int i = (t / tn) * 16, j = (t % tn) * 16;
-    wm::fragment<wm::accumulator, 16, 16, 16, float> c;
-    if (ACC)
-      wm::load_matrix_sync(c, C + (size_t)i * ldc + j, ldc, wm::mem_row_major);
-    else
-      wm::fill_fragment(c, 0.f);
-    for (int k = 0; k < K; k += 16) {
-      wm::fragment<wm::matrix_a, 16, 16, 16, bf16, LA> a;
-      wm::fragment<wm::matrix_b, 16, 16, 16, bf16, LB> b;
-      wm::load_matrix_sync(a, A_ROW ? A + i * lda + k : A + k * lda + i, lda);
-      wm::load_matrix_sync(b, B_ROW ? B + k * ldb + j : B + j * ldb + k, ldb);
-      wm::mma_sync(c, a, b, c);
-    }
-    wm::store_matrix_sync(C + (size_t)i * ldc + j, c, ldc, wm::mem_row_major);
-  }
-}
-
-template <bool A_ROW, bool B_ROW, bool ACC>
-__device__ __forceinline__ void mm(float* C, int ldc, const float* A, int lda,
-                                   const float* B, int ldb, int M, int N, int K) {
-  for (int e = threadIdx.x; e < M * N; e += THREADS) {
-    const int m = e / N, n = e - m * N;
-    float acc = ACC ? C[(size_t)m * ldc + n] : 0.f;
-    for (int k = 0; k < K; ++k) {
-      const float a = A_ROW ? A[m * lda + k] : A[k * lda + m];
-      const float b = B_ROW ? B[k * ldb + n] : B[n * ldb + k];
-      acc = fmaf(a, b, acc);
-    }
-    C[(size_t)m * ldc + n] = acc;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K1, forward: one block per (bh, 32-row q tile); key tiles outer, streams
-// inner, so each V tile is staged once for all S streams
-// ---------------------------------------------------------------------------
-
-// sc streams per pass; Comb holds the combined output between passes
-// (S > sc only)
-template <typename T>
-struct FwdSmem {
-  T *Qs, *Ks, *Vs, *Ps;
-  float *Sc, *Acc, *Mx, *Lx, *Comb;
-  size_t bytes;
-  __host__ __device__ FwdSmem(unsigned char* base, int S, int sc, int d, int dv, bool) {
-    Carve cv{base};
-    Qs = cv.take<T>((size_t)sc * BQ * ld_in<T>(d));
-    Ks = cv.take<T>((size_t)BK * ld_in<T>(d));
-    Vs = cv.take<T>((size_t)BK * ld_in<T>(dv));
-    Ps = cv.take<T>((size_t)BQ * ld_in<T>(BK));
-    Sc = cv.take<float>((size_t)BQ * SC_LD);
-    Acc = cv.take<float>((size_t)sc * BQ * ld_acc(dv));
-    Mx = cv.take<float>((size_t)sc * BQ);
-    Lx = cv.take<float>((size_t)sc * BQ);
-    Comb = S > sc ? cv.take<float>((size_t)BQ * ld_acc(dv)) : nullptr;
-    bytes = cv.off;
-  }
-};
-
-// RING: the ring chunk's mode, no combine (out and coeffs unread; o_all and
-// lse given) under the causal offset off; else the aligned combined forward
-// (off = 0), compiled as its own instance
-template <typename T, bool RING>
-__global__ void __launch_bounds__(THREADS)
-bh_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const float* __restrict__ coeffs, T* __restrict__ out,
-              T* __restrict__ o_all, float* __restrict__ lse, int S, int sc, int T_len,
-              int H, int d, int dv, int off, float scale, Drop dr) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const FwdSmem<T> sm(smem, S, sc, d, dv, false);
-  const int ldq = ld_in<T>(d), ldv = ld_in<T>(dv), ldp = ld_in<T>(BK);
-  const int lda = ld_acc(dv), dp = round16(d), dvp = round16(dv);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nqt = (T_len + BQ - 1) / BQ;
-  const int qt = nqt - 1 - (int)(blockIdx.x % nqt);  // longest rows first
-  const int bh = blockIdx.x / nqt, h = bh % H;
-  const int q0 = qt * BQ;
-  // key tiles past kend lie in the future of every row of the tile
-  const int kend = RING ? max(0, min(T_len, q0 + BQ + off)) : min(T_len, q0 + BQ);
-  constexpr bool emit = !RING;
-  const size_t slab = (size_t)T_len * d;
-  const T* qb = q + (size_t)bh * S * slab;
-  const T* kb = k + (size_t)bh * S * slab;
-  const T* vb = v + (size_t)bh * T_len * dv;
-
-  for (int s0 = 0; s0 < S; s0 += sc) {  // a pass over streams [s0, s0 + sn)
-    const int sn = min(sc, S - s0);
-    __syncthreads();  // the last pass has read its results out
-    for (int s = 0; s < sn; ++s)
-      stage<T>(sm.Qs + s * BQ * ldq, ldq, qb + (s0 + s) * slab, T_len, q0, BQ, d);
-    for (int i = threadIdx.x; i < sn * BQ * lda; i += THREADS) sm.Acc[i] = 0.f;
-    for (int i = threadIdx.x; i < sn * BQ; i += THREADS) {
-      sm.Mx[i] = -INFINITY;
-      sm.Lx[i] = 0.f;
-    }
-
-    for (int k0 = 0; k0 < kend; k0 += BK) {
-      __syncthreads();  // the last tile's PV products are done with Vs
-      stage<T>(sm.Vs, ldv, vb, T_len, k0, BK, dv);
-      for (int s = 0; s < sn; ++s) {
-        stage<T>(sm.Ks, ldq, kb + (s0 + s) * slab, T_len, k0, BK, d);
-        __syncthreads();
-        mm<true, false, false>(sm.Sc, SC_LD, sm.Qs + s * BQ * ldq, ldq, sm.Ks, ldq, BQ, BK, dp);
-        __syncthreads();
-        const uint32_t skey = dr.on ? stream_key(dr, bh, s0 + s) : 0u;
-        float* acc = sm.Acc + s * BQ * lda;
-        float* mx = sm.Mx + s * BQ;
-        float* lx = sm.Lx + s * BQ;
-        // the warp's RPW rows together: their shuffle reductions interleave
-        const int r0 = warp * RPW, key = k0 + lane;
-        float sv[RPW], mn[RPW], alpha[RPW], p[RPW], ps[RPW];
-        bool vis[RPW];
-#pragma unroll
-        for (int j = 0; j < RPW; ++j) {
-          vis[j] = RING ? key < T_len && key <= q0 + r0 + j + off : key <= q0 + r0 + j;
-          sv[j] = vis[j] ? sm.Sc[(r0 + j) * SC_LD + lane] * scale : -INFINITY;
-          mn[j] = sv[j];
-        }
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-#pragma unroll
-          for (int j = 0; j < RPW; ++j) mn[j] = fmaxf(mn[j], __shfl_xor_sync(0xffffffffu, mn[j], o));
-#pragma unroll
-        for (int j = 0; j < RPW; ++j) {
-          const float m_old = mx[r0 + j];
-          mn[j] = fmaxf(m_old, mn[j]);
-          // a ring row that has seen no visible key yet: nothing to rescale
-          alpha[j] = RING && mn[j] == -INFINITY ? 1.f : expf(m_old - mn[j]);
-          p[j] = vis[j] ? expf(sv[j] - mn[j]) : 0.f;
-          ps[j] = p[j];
-        }
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-#pragma unroll
-          for (int j = 0; j < RPW; ++j) ps[j] += __shfl_xor_sync(0xffffffffu, ps[j], o);
-#pragma unroll
-        for (int j = 0; j < RPW; ++j) {
-          const int r = r0 + j;
-          float pp = p[j];
-          if (dr.on)
-            pp = keep_bit(dr, skey, q0 + r, RING ? key - off : key) ? p[j] * dr.inv_keep : 0.f;
-          sm.Ps[r * ldp + lane] = from_f<T>(pp);
-          if (alpha[j] != 1.f)  // warp-uniform: the row's max moved
-            for (int c = lane; c < dvp; c += 32) acc[r * lda + c] *= alpha[j];
-        }
-        __syncwarp();
-        if (lane == 0) {
-#pragma unroll
-          for (int j = 0; j < RPW; ++j) {
-            mx[r0 + j] = mn[j];
-            lx[r0 + j] = lx[r0 + j] * alpha[j] + ps[j];
-          }
-        }
-        __syncthreads();
-        mm<true, true, true>(acc, lda, sm.Ps, ldp, sm.Vs, ldv, BQ, dvp, BK);
-      }
-    }
-    __syncthreads();
-
-    // the streams combine in order s = 0..S-1 in fp32; a thread keeps the
-    // same (row, column) elements in every pass, so Comb needs no barrier
-    const bool last = s0 + sn == S;
-    for (int j = 0; j < RPW; ++j) {
-      const int r = warp * RPW + j, row = q0 + r;
-      if (row >= T_len) continue;
-      for (int c = lane; c < dv; c += 32) {
-        float comb = (!emit || s0 == 0) ? 0.f : sm.Comb[r * lda + c];
-        for (int s = 0; s < sn; ++s) {
-          const float l_safe = fmaxf(sm.Lx[s * BQ + r], 1e-30f);
-          const float o = sm.Acc[(s * BQ + r) * lda + c] / l_safe;
-          if (emit) {
-            const float co = coeffs[(s0 + s) * H + h] * o;
-            comb = s0 + s == 0 ? co : comb + co;
-          }
-          if (o_all != nullptr)
-            o_all[((size_t)(bh * S + s0 + s) * T_len + row) * dv + c] = from_f<T>(o);
-        }
-        if (!emit) continue;
-        if (last)
-          out[((size_t)bh * T_len + row) * dv + c] = from_f<T>(comb);
-        else
-          sm.Comb[r * lda + c] = comb;
-      }
-      if (lse != nullptr && lane < sn) {
-        const float m = sm.Mx[lane * BQ + r];  // -inf: no visible key
-        lse[(size_t)(bh * S + s0 + lane) * T_len + row] =
-            (RING && m == -INFINITY ? NEG_INF : m) + logf(fmaxf(sm.Lx[lane * BQ + r], 1e-30f));
-      }
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // the backward's row pass, shared by K2-K4: for the tile pair (q rows q0..,
@@ -742,62 +417,12 @@ bh_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 // launchers
 // ---------------------------------------------------------------------------
 
-// lets launches of ``Kernel`` take ``smem`` bytes of dynamic shared memory
-// (above 48 KB a launch without it is refused); set again only when a
-// launch needs more than before, so graph-captured launches make no calls
-template <auto Kernel>
-int allow_smem(size_t smem) {
-  static size_t granted = 0;
-  if (smem <= granted) return 0;
-  const cudaError_t err =
-      cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) granted = smem;
-  return static_cast<int>(err);
-}
-
-bool shapes_ok(int S, int BH, int T_len, int H, int d, int dv) {
-  return S >= 1 && BH > 0 && T_len > 0 && H > 0 && BH % H == 0 && d > 0 && d <= MAX_D &&
-         dv > 0 && dv <= MAX_DV;
-}
-
-Drop make_drop(unsigned w0, unsigned w1, unsigned threshold, float inv_keep, int on) {
-  return Drop{w0, w1 * 0x9E3779B1u, threshold, inv_keep, on};
-}
-
-// the most streams per pass (<= MAX_SC) whose shared memory fits, and its
-// bytes; 0 when not even one stream fits
-template <typename Smem>
-int streams_per_pass(int S, int d, int dv, bool ps, size_t* smem) {
-  for (int sc = S < MAX_SC ? S : MAX_SC; sc >= 1; --sc) {
-    *smem = Smem(nullptr, S, sc, d, dv, ps).bytes;
-    if (*smem <= SMEM_LIMIT) return sc;
-  }
-  return 0;
-}
-
-template <typename T, bool RING>
-int fwd(const void* q, const void* k, const void* v, const float* coeffs, void* out,
-        void* o_all, float* lse, int S, int BH, int T_len, int H, int d, int dv, int off,
-        float scale, Drop dr, cudaStream_t stream) {
-  size_t smem = 0;
-  const int sc = streams_per_pass<FwdSmem<T>>(S, d, dv, false, &smem);
-  if (sc == 0) return static_cast<int>(cudaErrorInvalidValue);
-  int rc = allow_smem<bh_fwd_kernel<T, RING>>(smem);
-  if (rc != 0) return rc;
-  const int nqt = (T_len + BQ - 1) / BQ;
-  bh_fwd_kernel<T, RING><<<BH * nqt, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), coeffs,
-      static_cast<T*>(out), static_cast<T*>(o_all), lse, S, sc, T_len, H, d, dv, off, scale,
-      dr);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T, bool RING>
 int bwd_dq(const void* q, const void* k, const void* v, const void* g, const float* lse,
            const float* delta, const float* coeffs, void* dq, int S, int BH, int T_len, int H,
            int d, int dv, int off, float scale, Drop dr, cudaStream_t stream) {
   size_t smem = 0;
-  const int sc = streams_per_pass<DqSmem<T>>(S, d, dv, RING, &smem);
+  const int sc = streams_per_pass<DqSmem<T>>(S, d, dv, &smem, RING);
   if (sc == 0) return static_cast<int>(cudaErrorInvalidValue);
   int rc = allow_smem<bh_dq_kernel<T, RING>>(smem);
   if (rc != 0) return rc;
@@ -815,7 +440,7 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* g, const fl
             int T_len, int H, int d, int dv, int off, float scale, Drop dr,
             cudaStream_t stream) {
   size_t smem = 0;
-  const int sc = streams_per_pass<DkvSmem<T>>(S, d, dv, RING, &smem);
+  const int sc = streams_per_pass<DkvSmem<T>>(S, d, dv, &smem, RING);
   if (sc == 0) return static_cast<int>(cudaErrorInvalidValue);
   int rc = allow_smem<bh_dkv_kernel<T, RING>>(smem);
   if (rc != 0) return rc;
@@ -833,7 +458,7 @@ int bwd_fused(const void* q, const void* k, const void* v, const void* g, const 
               float* dq_acc, int S, int BH, int T_len, int H, int d, int dv, float scale,
               Drop dr, cudaStream_t stream) {
   size_t smem = 0;
-  const int sc = streams_per_pass<DkvSmem<T>>(S, d, dv, false, &smem);
+  const int sc = streams_per_pass<DkvSmem<T>>(S, d, dv, &smem, false);
   if (sc == 0) return static_cast<int>(cudaErrorInvalidValue);
   int rc = allow_smem<bh_bwd_fused_kernel<T>>(smem);
   if (rc != 0) return rc;
@@ -851,30 +476,6 @@ int bwd_fused(const void* q, const void* k, const void* v, const void* g, const 
 // the keep threshold min(round(rate * 2^32), 2^32 - 1), float32(1 / (1 -
 // rate)) and on = rate > 0. Each returns the launch's CUDA error code
 // (cudaErrorInvalidValue for shapes or modes the kernels do not take).
-
-// out == nullptr (and coeffs == nullptr): the no-combine mode, which needs
-// o_all and lse
-extern "C" int flash_bh_fwd(const void* q, const void* k, const void* v, const void* coeffs,
-                            void* out, void* o_all, void* lse, int S, int BH, int T_len, int H,
-                            int d, int dv, int off, float scale, unsigned w0, unsigned w1,
-                            unsigned threshold, float inv_keep, int dropout_on, int dtype,
-                            void* stream) {
-  if (!shapes_ok(S, BH, T_len, H, d, dv)) return static_cast<int>(cudaErrorInvalidValue);
-  const bool ring = out == nullptr;
-  if (ring ? (o_all == nullptr || lse == nullptr) : (coeffs == nullptr || off != 0))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Drop dr = make_drop(w0, w1, threshold, inv_keep, dropout_on);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* c = static_cast<const float*>(coeffs);
-  float* l = static_cast<float*>(lse);
-  switch (dtype) {
-    case 0: return (ring ? fwd<float, true> : fwd<float, false>)(
-        q, k, v, c, out, o_all, l, S, BH, T_len, H, d, dv, off, scale, dr, st);
-    case 1: return (ring ? fwd<bf16, true> : fwd<bf16, false>)(
-        q, k, v, c, out, o_all, l, S, BH, T_len, H, d, dv, off, scale, dr, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
 
 // coeffs == nullptr: per-stream cotangents g (BH, S, T, dv)
 extern "C" int flash_bh_bwd_dq(const void* q, const void* k, const void* v, const void* g,

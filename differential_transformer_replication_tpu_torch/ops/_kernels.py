@@ -3,13 +3,13 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface, at first use, and loaded with
 ``ctypes``. The library lands in ``build/torch_kernels/`` at the root of
-the checkout, named after a hash of its source, so an edited source is
-never served by a stale build; a concurrent build writes to a
-temporary name and renames. Pointers and the CUDA stream cross as
-``ctypes.c_void_p``; every C entry point that launches returns the CUDA
-error code of its launches (``cudaGetLastError()``), which the wrapper
-turns into an exception. Nothing here imports or builds anything when the module is
-imported.
+the checkout, named after a hash of its source and the ``csrc/`` headers
+it includes, so an edited source is never served by a stale build; a
+concurrent build writes to a temporary name and renames. Pointers and
+the CUDA stream cross as ``ctypes.c_void_p``; every C entry point that
+launches returns the CUDA error code of its launches
+(``cudaGetLastError()``), which the wrapper turns into an exception.
+Nothing here imports or builds anything when the module is imported.
 """
 
 from __future__ import annotations
@@ -62,11 +62,13 @@ SIGNATURES = {
         "flash_tm_bwd": (_PP, _PP, _P, _P, _P, _P, _P, _PP, _PP, _P, _I, _I,
                          _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     },
-    "flash_bh": {
+    "flash_bh_fwd": {
         # q, k, v, coeffs, out, o_all, lse, S, BH, T, H, d, dv, off,
         # scale, w0, w1, threshold, inv_keep, dropout_on, dtype, stream
         "flash_bh_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _F, _U, _U, _U, _F, _I, _I, _P),
+    },
+    "flash_bh": {
         # q, k, v, g, lse, delta, coeffs, dq, S, BH, T, H, d, dv, off,
         # scale, w0, w1, threshold, inv_keep, dropout_on, dtype, stream
         "flash_bh_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -140,7 +142,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is built: named after a hash
+    of the source, the local headers it includes and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in re.findall(rb'#include "([^"]+)"', src):
+        src += (CSRC / header.decode()).read_bytes()
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -13,8 +13,9 @@ in the JAX package (``ops/flash.py``: ``use_tm`` picks):
   counterpart of ``multi_stream_flash_attention_bh`` / ``_flash``, over
   the ``(B*H, S, T, d)`` layout, with in-kernel attention dropout from the
   JAX package's counter hash. Replaces ``_fwd_call`` and
-  ``_tiled_fwd_call`` (kernel K1), ``_bwd_call`` and ``_tiled_bwd_call``
-  (K2 dq, K3 dk/dv) and ``_fused_bwd_call`` (K4), ``csrc/flash_bh.cu``.
+  ``_tiled_fwd_call`` (kernel K1, ``csrc/flash_bh_fwd.cu``), ``_bwd_call``
+  and ``_tiled_bwd_call`` (K2 dq, K3 dk/dv) and ``_fused_bwd_call`` (K4),
+  ``csrc/flash_bh.cu``.
   The TPU's splits by VMEM (resident/tiled at ``_KV_TILE_THRESHOLD``,
   fused/split at ``_FUSED_BWD_BUDGET``) are kept as the route names of
   each launch (:func:`fwd_route`, :func:`bwd_route`).
@@ -60,7 +61,7 @@ from differential_transformer_replication_tpu_torch.ops.streams import NEG_INF
 TM_MAX_T = 512
 TM_MAX_S = 4
 # head widths every training attention kernel takes (MAX_D, MAX_DV of
-# csrc/flash_tm.cu and csrc/flash_bh.cu)
+# csrc/flash_tm.cu and csrc/flash_bh_common.cuh)
 MAX_D, MAX_DV = 128, 256
 
 
@@ -369,9 +370,9 @@ _KV_TILE_THRESHOLD = 4096
 _BWD_KV_TILE_THRESHOLD = _KV_TILE_THRESHOLD
 # the largest S * T * T of its whole-T fused backward
 _FUSED_BWD_BUDGET = 2 * 512 * 512
-# the kernels' tile (csrc/flash_bh.cu BQ = BK); the plain forward runs its
-# online softmax over key tiles of the same width, so p is rounded against
-# the same running max as in the kernel
+# the kernels' key tile (csrc/flash_bh_common.cuh BK; K1's bf16 KC); the
+# plain forward runs its online softmax over key tiles of the same width,
+# so p is rounded against the same running max as in the kernel
 BLOCK = 32
 
 
@@ -681,7 +682,7 @@ def _launch_fwd(what, q, k, v, coeffs, H: int, off: int, rate: float, words,
     if save_residuals:
         o_all = torch.empty((BH, S, T, dv), dtype=dt, device=dev)
         lse = torch.empty((BH, S, T), dtype=torch.float32, device=dev)
-    rc = _kernels.load("flash_bh").flash_bh_fwd(
+    rc = _kernels.load("flash_bh_fwd").flash_bh_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if coeffs is None else coeffs.data_ptr(),
         None if out is None else out.data_ptr(),

@@ -1,49 +1,83 @@
-"""Device time of the token-major attention kernels D and E
-(``ops/flash.py`` ``flash_tm_fwd`` / ``flash_tm_bwd``, ``csrc/flash_tm.cu``)
-at the three recipes' attention shapes (B 32, T 512, bf16), beside
-PyTorch's ``scaled_dot_product_attention`` at the control shape.
+"""Device time of the training attention kernels: the token-major kernels
+D and E (``ops/flash.py`` ``flash_tm_fwd`` / ``flash_tm_bwd``,
+``csrc/flash_tm.cu``) at the three recipes' attention shapes (B 32, T 512,
+bf16), beside PyTorch's ``scaled_dot_product_attention`` at the control
+shape; and the head-major kernels (``flash_bh_fwd``, ``flash_chunk_fwd``:
+K1, ``csrc/flash_bh_fwd.cu``; K2-K4, ``csrc/flash_bh.cu``) at the shapes of
+the long-context and ring runs, each beside its bound and, at S 1 and
+dropout 0, beside SDPA.
 
     python differential_transformer_replication_tpu_torch/train/attention_bench.py \
         [--root DIR] [--tag NAME]
 
 ``--root`` names the checkout whose package is timed (default: the one
 that holds this file), so that two trees are compared on one card in one
-call, in turns (A B B A). Each call of a kernel is captured in a CUDA
+call, in turns (A B B A). The bounds come from this file's own tree
+(``testing.attention_work``). Each call of a kernel is captured in a CUDA
 graph and replayed (``ITERS`` calls, median of ``REPS`` replays), so the
-host's launch cost is out of the number; the operands (75 MB) exceed the
-50 MB L2. SDPA's backward is the graph of forward + backward less the
-graph of the forward, both captured the same way. Prints one JSON line:
-the card, the tag, and per shape the forward and backward ms. Needs a
-CUDA GPU.
+host's launch cost is out of the number; the calls cycle through copies
+of their operands that together exceed the 50 MB L2. SDPA's backward is
+the graph of forward + backward less the graph of the forward, both
+captured the same way. Prints one JSON line: the card's name and power
+limit, the tag, and per shape the kernels' ms (the head-major ones under
+``hm``, each with its bound's ms). Needs a CUDA GPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
+import math
 import statistics
 import subprocess
 import sys
 from pathlib import Path
 
 ITERS, REPS = 10, 5
+L2_BYTES = 50 * 2**20
+PEAK_BYTES_S, PEAK_BF16 = 3.35e12, 989e12  # H100 SXM data sheet, dense
 # (name, S, H, d, dv, packed): the diff, control and ndiff recipes
 SHAPES = (("diff", 2, 4, 96, 192, True), ("control", 1, 8, 96, 96, False),
           ("ndiff", 4, 4, 96, 192, False))
 B, T = 32, 512
+HM_RATE = 0.1  # the attention dropout of the long-context and ring runs
+HM_WORDS = (0x51F00D, 0x2A7E11)
+DIFF, CONTROL = (2, 4, 96, 192), (1, 8, 96, 96)  # (S, H, d, dv)
+# K1: (name, (S, H, d, dv), B, T, rate, off in T or None for the combined
+# forward, SDPA's causal flag or None)
+K1_SHAPES = (
+    ("diff T2048 p0", DIFF, 8, 2048, 0.0, None, None),
+    ("diff T2048 p0.1", DIFF, 8, 2048, HM_RATE, None, None),
+    ("control T512 p0", CONTROL, 32, 512, 0.0, None, True),
+    ("diff T8192 p0", DIFF, 2, 8192, 0.0, None, None),
+    ("diff T8192 p0.1", DIFF, 2, 8192, HM_RATE, None, None),
+    ("chunk diff Tl4096 +Tl p0", DIFF, 2, 4096, 0.0, 1, None),
+    ("chunk diff Tl4096 +Tl p0.1", DIFF, 2, 4096, HM_RATE, 1, None),
+    ("chunk diff Tl4096 0 p0.1", DIFF, 2, 4096, HM_RATE, 0, None),
+    ("chunk diff Tl4096 -Tl p0.1", DIFF, 2, 4096, HM_RATE, -1, None),
+    ("chunk control Tl4096 +Tl p0", CONTROL, 2, 4096, 0.0, 1, False),
+    ("chunk control Tl4096 0 p0", CONTROL, 2, 4096, 0.0, 0, True),
+)
+# K2-K4 at the train-hm shapes, dropout 0.1: (name, B, T, kernels)
+BWD_SHAPES = (("diff T2048 split", 8, 2048, ("dq", "dkv")),
+              ("diff T512 fused", 32, 512, ("bwd",)),
+              ("diff T8192 tiled", 2, 8192, ("dq", "dkv")))
 
 
-def device_ms(torch, fn) -> float:
-    """Median device ms of one ``fn()``: ITERS calls in one CUDA graph."""
+def device_ms(torch, calls) -> float:
+    """Median device ms of one call: ITERS calls (cycling through
+    ``calls``) in one CUDA graph."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        for fn in calls:
+            fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(ITERS):
-            fn()
+        for i in range(ITERS):
+            calls[i % len(calls)]()
     graph.replay()
     torch.cuda.synchronize()
     times = []
@@ -58,7 +92,19 @@ def device_ms(torch, fn) -> float:
     return statistics.median(times)
 
 
-def bench(torch, flash) -> dict:
+def bound_ms(work) -> float:
+    """The least ms for (pairs, bytes, operations) of bf16 work."""
+    _, nbytes, ops = work
+    return max(nbytes / PEAK_BYTES_S, ops / PEAK_BF16) * 1e3
+
+
+def copies(nbytes: int, make) -> list:
+    """``make()`` called often enough that the operand sets it returns
+    together exceed the L2 cache twice over."""
+    return [make() for _ in range(max(1, math.ceil(2 * L2_BYTES / nbytes)))]
+
+
+def bench_tm(torch, flash) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     res = {}
@@ -80,9 +126,9 @@ def bench(torch, flash) -> dict:
                for _ in range(2 * S)]
         dvo = torch.empty(B, T, H * dv, dtype=torch.bfloat16, device="cuda")
         row = {
-            "fwd_ms": device_ms(torch, lambda: flash.flash_tm_fwd(qs, ks, v, c, H, True)),
-            "bwd_ms": device_ms(torch, lambda: flash.flash_tm_bwd(
-                qs, ks, v, g, lse, delta, c, H, dqs[:S], dqs[S:], dvo)),
+            "fwd_ms": device_ms(torch, [lambda: flash.flash_tm_fwd(qs, ks, v, c, H, True)]),
+            "bwd_ms": device_ms(torch, [lambda: flash.flash_tm_bwd(
+                qs, ks, v, g, lse, delta, c, H, dqs[:S], dqs[S:], dvo)]),
         }
         if S == 1:
             qt, kt, vt = (t.reshape(B, T, H, -1).transpose(1, 2).detach()
@@ -95,12 +141,80 @@ def bench(torch, flash) -> dict:
                 torch.autograd.grad(o, (qt, kt, vt), gt)
 
             with torch.no_grad():
-                f = device_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True))
+                f = device_ms(torch, [lambda: sdpa(qt, kt, vt, is_causal=True)])
             row["sdpa_fwd_ms"] = f
-            row["sdpa_bwd_ms"] = device_ms(torch, fwd_bwd) - f
+            row["sdpa_bwd_ms"] = device_ms(torch, [fwd_bwd]) - f
         res[name] = row
         del proj, qs, ks, v, out, o_all, lse, g, delta, dqs, dvo
     return res
+
+
+def bench_hm(torch, flash, work) -> dict:
+    """K1 at the long-context and ring shapes, and K2-K4 at the train-hm
+    shapes; ``work`` is ``testing.attention_work``."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    dt = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def operands(S, BH, Tn, d, dv):
+        q, k = (torch.randn(BH, S, Tn, d, generator=gen, device="cuda").to(dt)
+                for _ in range(2))
+        v, g = (torch.randn(BH, Tn, dv, generator=gen, device="cuda").to(dt)
+                for _ in range(2))
+        return q, k, v, g
+
+    res = {}
+    for name, (S, H, d, dv), Bn, Tn, rate, om, causal in K1_SHAPES:
+        words = HM_WORDS if rate > 0 else (0, 0)
+        off = None if om is None else om * Tn
+        kind = "fwd" if off is None else "chunk_fwd"
+        w = work(Bn, H, S, Tn, d, dv, off or 0, kind)
+        sets = copies(w[1], lambda: operands(S, Bn * H, Tn, d, dv))
+        c = torch.ones(S, H, device="cuda")
+        if off is None:
+            calls = [lambda q=q, k=k, v=v: flash.flash_bh_fwd(q, k, v, c, H, rate, words, True)
+                     for q, k, v, _ in sets]
+        else:
+            calls = [lambda q=q, k=k, v=v: flash.flash_chunk_fwd(q, k, v, off, rate, words)
+                     for q, k, v, _ in sets]
+        row = {"ms": device_ms(torch, calls), "bound_ms": bound_ms(w)}
+        if causal is not None:
+            views = [tuple(x.reshape(Bn, H, Tn, -1) for x in s[:3]) for s in sets]
+            row["sdpa_ms"] = device_ms(torch, [
+                lambda q=q, k=k, v=v: sdpa(q, k, v, is_causal=causal) for q, k, v in views])
+        res[name] = row
+        del sets, calls
+        torch.cuda.empty_cache()
+    S, H, d, dv = DIFF
+    for name, Bn, Tn, kernels in BWD_SHAPES:
+        sets = []
+        for q, k, v, g in copies(work(Bn, H, S, Tn, d, dv, 0, "bwd")[1],
+                                 lambda: operands(S, Bn * H, Tn, d, dv)):
+            c = 0.5 * torch.randn(S, H, generator=gen, device="cuda")
+            _, _, lse = flash.flash_bh_fwd(q, k, v, c, H, HM_RATE, HM_WORDS, True)
+            delta = torch.randn(Bn * H, S, Tn, generator=gen, device="cuda")
+            sets.append((q, k, v, g, lse, delta, c, H, HM_RATE, HM_WORDS))
+        fns = {"dq": flash.flash_bh_bwd_dq, "dkv": flash.flash_bh_bwd_dkv,
+               "bwd": flash.flash_bh_bwd_fused}
+        row = {}
+        for kern in kernels:
+            row[f"{kern}_ms"] = device_ms(torch, [lambda a=a, f=fns[kern]: f(*a) for a in sets])
+            row[f"{kern}_bound_ms"] = bound_ms(work(Bn, H, S, Tn, d, dv, 0, kern))
+        res[name] = row
+        del sets
+        torch.cuda.empty_cache()
+    return res
+
+
+def _attention_work():
+    """``testing.attention_work`` of the tree that holds this file, which
+    ``--root`` need not have."""
+    path = Path(__file__).resolve().parents[1] / "testing.py"
+    spec = importlib.util.spec_from_file_location("_bench_testing", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.attention_work
 
 
 def main() -> int:
@@ -108,6 +222,7 @@ def main() -> int:
     p.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     p.add_argument("--tag", default="")
     args = p.parse_args()
+    work = _attention_work()
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
 
@@ -121,7 +236,8 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(json.dumps({"card": card, "tag": args.tag, "root": args.root,
-                      "package": flash.__file__, **bench(torch, flash)}), flush=True)
+                      "package": flash.__file__, **bench_tm(torch, flash),
+                      "hm": bench_hm(torch, flash, work)}), flush=True)
     return 0
 
 

@@ -424,10 +424,11 @@ def test_train_step_on_the_card_matches_the_cpu(gen):
 
 
 # ---------------------------------------------------------------------------
-# head-major attention kernels K1-K4 (csrc/flash_bh.cu). The plain forward
-# runs the kernel's online softmax over the same 32-key tiles, so p is
-# rounded against the same running max on both sides; at rate 0.5 half of
-# every map is dropped, so a keep mask that differs by one bit shows.
+# head-major attention kernels K1-K4 (csrc/flash_bh_fwd.cu, csrc/flash_bh.cu).
+# The plain forward runs the kernel's online softmax over the same 32-key
+# tiles, so p is rounded against the same running max on both sides; at
+# rate 0.5 half of every map is dropped, so a keep mask that differs by
+# one bit shows.
 # ---------------------------------------------------------------------------
 
 
@@ -494,6 +495,67 @@ def test_flash_bh_kernels_match_plain_at_8192(gen, dtype, rate):
     only the fused route, S * T^2 <= 2 * 512^2)."""
     assert flash.fwd_route(8192) == "tiled" and flash.bwd_route(2, 8192) == "tiled"
     _check_bh(gen, dtype, 2, 1, 8192, 1, 96, 192, rate, ("dq", "dkv"))
+
+
+# K1's bf16 tensor-core instances (csrc/flash_bh_fwd.cu): one per padded
+# dv (64/128/192/256) and d (64/96/128), aligned or ring, 16-byte or 2-byte
+# loads; T off the 64-row block grid and past 4096; held row by row to the
+# plain forward, lse to 1e-5, and two launches bit for bit.
+K1_WIDTHS = [(d, dv) for d in (64, 96, 128) for dv in (64, 96, 192, 256)] + [
+    (100, 96), (40, 80)]  # the 2-byte-load instances
+
+
+def _check_k1(gen, S, B, T, H, d, dv, rate, off=None):
+    q, k, v, _, c, _ = _bh_operands(gen, torch.bfloat16, S, B, T, H, d, dv)
+    words = (0x51F00D, 0x2A7E11) if rate > 0 else (0, 0)
+    if off is None:
+        got = flash.flash_bh_fwd(q, k, v, c, H, rate, words, True)
+        again = flash.flash_bh_fwd(q, k, v, c, H, rate, words, True)
+        r_out, r_oall, r_lse = flash.bh_attention_fwd_reference(q, k, v, c, rate, words)
+        assert max(testing.attention_fwd_ratios(got[0], got[1], r_out, r_oall,
+                                                flash._coeffs_bh(c, B * H))) <= 1.0
+        assert torch.equal(flash.flash_bh_fwd(q, k, v, c, H, rate, words, False)[0],
+                           got[0])  # the eval variant
+        o_all, lse = got[1:]
+    else:
+        got = o_all, lse = flash.flash_chunk_fwd(q, k, v, off, rate, words)
+        again = flash.flash_chunk_fwd(q, k, v, off, rate, words)
+        _, r_oall, r_lse = flash.bh_attention_fwd_reference(q, k, v, None, rate, words,
+                                                            off)
+        assert testing.row_ratio(o_all, r_oall, testing.BF16_ROW,
+                                 testing.BF16_FLOOR) <= 1.0
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    masked = r_lse < -1e29
+    assert torch.equal(lse[masked], r_lse[masked])
+    live = ~masked
+    if live.any():
+        assert _err(lse[live], r_lse[live]) <= 1e-5 * float(r_lse[live].abs().max())
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["p0", "p01"])
+@pytest.mark.parametrize("S", [1, 2, 4, 5])
+@pytest.mark.parametrize("d,dv", K1_WIDTHS)
+def test_k1_bf16_instances_match_plain(gen, d, dv, S, rate):
+    """Every bf16 K1 instance of the combined forward at T 100 and 520
+    (off the 64-row grid), S 1 to 5 streams."""
+    for T in (100, 520):
+        _check_k1(gen, S, 1, T, 2, d, dv, rate)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["p0", "p01"])
+@pytest.mark.parametrize("mult,extra", [(1, 0), (0, 0), (-1, 0), (0, 40), (0, -24)])
+@pytest.mark.parametrize("d,dv", [(96, 192), (128, 256), (64, 64), (100, 96)])
+def test_k1_bf16_ring_instances_match_plain(gen, d, dv, mult, extra, rate):
+    """The ring chunk's bf16 K1 instances at offsets +T, 0, -T and off the
+    tile grid (+40, -24), T 100 and 520."""
+    for T in (100, 520):
+        _check_k1(gen, 2, 1, T, 2, d, dv, rate, mult * T + extra)
+
+
+@pytest.mark.parametrize("off", [None, 4160, 0, -4160], ids=["aligned", "+T", "0", "-T"])
+def test_k1_bf16_past_4096_matches_plain(gen, off):
+    """Past 4096 rows (the tiled routes) at the widest instance, dropout 0.1."""
+    _check_k1(gen, 2, 1, 4160, 1, 128, 256, 0.1, off)
 
 
 def test_flash_bh_routes_count_their_launches(gen):
@@ -567,7 +629,7 @@ def test_ndiff_past_four_streams_trains_on_the_card_like_the_cpu(gen):
 
 # ---------------------------------------------------------------------------
 # the ring chunk's kernel modes: K1 without the combine, K2/K3 with one
-# cotangent per stream, under a causal offset (csrc/flash_bh.cu), against
+# cotangent per stream, under a causal offset (csrc/flash_bh*.cu), against
 # the plain versions row by row; and the ring's train step on the card
 # ---------------------------------------------------------------------------
 
