@@ -10,7 +10,8 @@ these phases, each printing its own lines and its seconds:
    versions, and the build of every kernel from the checkout's sources
    (one ``nvcc`` per CUDA source, all started together, the Triton JIT
    at first use), with the registers and spills ``ptxas -v`` reports for
-   the bf16 tensor-core instances of kernels D, E and K1 (none may spill);
+   the bf16 tensor-core instances of kernels D, E and K1-K3 (none may
+   spill);
 2. kernels: each hand-written kernel against its plain PyTorch version
    on the card at the recipe's shapes, fp32 and bf16, with max-abs
    error against a stated bound (the attention kernels row by row, each
@@ -31,10 +32,11 @@ these phases, each printing its own lines and its seconds:
    the train-hm shapes (diff T 2048, diff and control T 512, ndiff T
    512, diff T 8192) in bf16 and at one shape per route in fp32, and at
    S = 5 streams (two passes) in both, each row held to its own scale
-   (``testing.py``) and faults planted at T 2048 shown to fail that
-   bound; then, at dropout 0 and the control width (S 1), SDPA's forward
-   and backward beside K1 and the backward of each route (T 512 fused,
-   T 2048 split, T 8192 tiled), with entries of their own for K1 (T 512,
+   (``testing.py``) and faults planted at T 2048 (in the plain results
+   and in K2's and K3's own) shown to fail that bound; then, at dropout
+   0 and the control width (S 1), SDPA's forward and backward beside K1
+   and the backward of each route (T 512 fused, T 2048 split, T 8192
+   tiled), with entries of their own for K1 (T 512,
    T 8192) and K4 (T 512) there, held against their plain versions and
    carrying SDPA's time on the same operands as library_ms (the diff
    entries carry none: no one call computes S streams with dropout);
@@ -1295,8 +1297,8 @@ HM_CONFIGS = (
      {"fwd": "flash_bh_fwd_tiled", "dq": "flash_bh_bwd_dq_tiled",
       "dkv": "flash_bh_bwd_dkv_tiled"}),
 )
-HM_SOURCES = {"fwd": "csrc/flash_bh_fwd.cu", "dq": "csrc/flash_bh.cu",
-              "dkv": "csrc/flash_bh.cu", "fused": "csrc/flash_bh.cu"}
+HM_SOURCES = {"fwd": "csrc/flash_bh_fwd.cu", "dq": "csrc/flash_bh_bwd_dq.cu",
+              "dkv": "csrc/flash_bh_bwd_dkv.cu", "fused": "csrc/flash_bh.cu"}
 # the SDPA yardsticks (control width, S 1, dropout 0): (T, B, backward
 # kernels timed beside SDPA's backward)
 YARD_SHAPES = ((512, 32, "fused"), (2048, 8, "split"), (8192, 2, "tiled"))
@@ -1341,6 +1343,19 @@ def hm_operands(torch, gen, dtype, S, B, T, H, d, dv):
     return q, k, v, g, c
 
 
+def _zero_late(got, T):
+    """(name, the kernel's result with its rows from T/2 on zeroed, the
+    plain result) for K2's dq and K3's dk and dv in ``got`` (hm_check's
+    {kernel: [(kernel's result, plain result)]})."""
+    out = []
+    for kern, names in (("dq", ("dq",)), ("dkv", ("dk", "dv"))):
+        for name, (res, ref) in zip(names, got.get(kern, ())):
+            z = res.clone()
+            z[..., T // 2:, :] = 0
+            out.append((name, z, ref))
+    return out
+
+
 def hm_check(torch, flash, dtype, S, T, q, k, v, g, c, H, rate, kernels,
              plant=False):
     """Each listed kernel against its plain version, row by row (each
@@ -1348,8 +1363,9 @@ def hm_check(torch, flash, dtype, S, T, q, k, v, g, c, H, rate, kernels,
     scale: ``testing.py``). Returns (max-abs error per kernel, worst
     row's share of its bound per kernel, (the plain lse, delta)). With
     ``plant``, faults planted in the results (dq and dk zero past T/2,
-    the keep mask left out of the plain forward and backward) must fail
-    the same bounds."""
+    in the plain results and in the kernels' own; dv zero past T/2 in
+    K3's; the keep mask left out of the plain forward and backward) must
+    fail the same bounds."""
     from differential_transformer_replication_tpu_torch import testing
     words = HM_WORDS if rate > 0 else (0, 0)
     out, o_all, lse = flash.flash_bh_fwd(q, k, v, c, H, rate, words, True)
@@ -1391,6 +1407,8 @@ def hm_check(torch, flash, dtype, S, T, q, k, v, g, c, H, rate, kernels,
         planted = {
             "dq zero past T/2": testing.grad_ratio(zq, rq),
             "dk zero past T/2": testing.grad_ratio(zk, rk),
+            **{f"kernel {name} zero past T/2": testing.grad_ratio(z, ref)
+               for name, z, ref in _zero_late(got, T)},
             "backward without the mask (dq)": testing.grad_ratio(nq, rq),
             "backward without the mask (dk)": testing.grad_ratio(nk, rk),
             "backward without the mask (dv)": testing.grad_ratio(nv, rv),
@@ -2439,12 +2457,13 @@ def main() -> int:
     paths = _kernels.build()
     log(f"[build] nvcc sm_90a: {', '.join(p.name for p in paths.values())} "
         f"in {time.perf_counter() - t0:.1f} s")
-    # kernels D and E and K1 in bf16 (the tensor-core instances, "_mma"):
-    # their registers per thread, and no local-memory spill (ptxas -v)
-    for lib in ("flash_tm", "flash_bh_fwd"):
+    # kernels D and E and K1-K3 in bf16 (the tensor-core instances,
+    # "_mma"): their registers per thread, and no local-memory spill
+    # (ptxas -v)
+    for lib in ("flash_tm", "flash_bh_fwd", "flash_bh_bwd_dq", "flash_bh_bwd_dkv"):
         usage = {k: v for k, v in _kernels.ptxas_usage(lib).items() if "_mma" in k}
         for fn, (regs, spill) in sorted(usage.items()):
-            m = re.search(r"((?:tm|bh)_(?:fwd|bwd_dq|bwd_dk|bwd_dv)_mma)I(\w*?)EEv", fn)
+            m = re.search(r"((?:tm|bh)_(?:fwd|bwd_dq|bwd_dkv|bwd_dk|bwd_dv)_mma)I(\w*?)EEv", fn)
             log(f"[build] ptxas {m.group(1) if m else fn} <{m.group(2) if m else ''}>: "
                 f"{regs} registers, {spill} bytes spilled")
         spilled = [fn for fn, (_, spill) in usage.items() if spill]

@@ -6,15 +6,19 @@
 // Four kernels replace the seven TPU kernel bodies of
 // differential_transformer_replication_tpu/ops/flash.py on the head-major
 // route and on the sequence-parallel ring; K1, the forward, lives in
-// flash_bh_fwd.cu (its own library, so the two build side by side), K2-K4
-// here:
+// flash_bh_fwd.cu, and the bf16 instances of K2 and K3 (tensor cores) in
+// flash_bh_bwd_dq.cu and flash_bh_bwd_dkv.cu (each its own library, so
+// they build side by side; ops/flash.py loads K2/K3's library by dtype).
+// Here: the fp32 instances of K2 and K3, and K4 in both types:
 //   K1 bh_fwd_mma (bf16),  _fwd_kernel (_fwd_call, resident, T <= 4096;
 //      bh_fwd_kernel       _chunk_fwd_call, the ring chunk) and
 //      (fp32)              _tiled_fwd_kernel (_tiled_fwd_call, T > 4096)
 //   K2 bh_dq_kernel        _bwd_dq_kernel (_bwd_call) and _tiled_dq_kernel
-//                          (_tiled_bwd_call)
+//      (fp32; bf16:        (_tiled_bwd_call)
+//      flash_bh_bwd_dq.cu)
 //   K3 bh_dkv_kernel       _bwd_dkv_kernel (_bwd_call) and _tiled_dkv_kernel
-//                          (_tiled_bwd_call)
+//      (fp32; bf16:        (_tiled_bwd_call)
+//      flash_bh_bwd_dkv.cu)
 //   K4 bh_bwd_fused_kernel _bwd_fused_kernel (_fused_bwd_call)
 // K1-K3 take a causal offset ``off``: column c is visible to row r iff c <=
 // r + off (0 on the aligned path; a multiple of the chunk length on the
@@ -40,12 +44,13 @@
 // What bounds it on the H100: at the slice's shapes (T = 512..8192, d = 96,
 // dv = 192) a head's work is ~T^2 (d + dv) multiply-adds over ~T (d + dv)
 // elements, far above the ~295 FLOP/byte ridge: the bound is the tensor
-// cores. K2-K4 run every product of a tile pair (gV^T, QK^T, dS K, dS^T
+// cores. K4 runs every product of a tile pair (gV^T, QK^T, dS K, dS^T
 // Q, P^T g) as bf16 WMMA 16x16x16 fragments with fp32
 // accumulation out of shared memory (fp32 operands take a SIMT FMA loop
-// instead, exact like the plain version); wgmma, TMA and overlapped loads
-// are later work. Tiles are 32 x 32 (BK = the warp size, so a row's 32
-// keys sit one per lane for its max and sum), four warps a block.
+// instead, exact like the plain version, in K2-K4); wgmma, TMA and
+// overlapped loads are later work. Tiles are 32 x 32 (BK = the warp size,
+// so a row's 32 keys sit one per lane for its max and sum), four warps a
+// block.
 //
 // Numerics follow the TPU kernels: the forward is online softmax over key
 // tiles; the normalizer l sums the UNDROPPED p; p (dropped and scaled by
@@ -471,7 +476,8 @@ int bwd_fused(const void* q, const void* k, const void* v, const void* g, const 
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. off: the causal offset (column c is
+// dtype: 0 = float32 (K2, K3; bfloat16 is their tensor-core libraries'),
+// 1 = bfloat16 (K4 only). off: the causal offset (column c is
 // visible to row r iff c <= r + off). Dropout: the two 24-bit seed words,
 // the keep threshold min(round(rate * 2^32), 2^32 - 1), float32(1 / (1 -
 // rate)) and on = rate > 0. Each returns the launch's CUDA error code
@@ -495,9 +501,7 @@ extern "C" int flash_bh_bwd_dq(const void* q, const void* k, const void* v, cons
   switch (dtype) {
     case 0: return (ring ? bwd_dq<float, true> : bwd_dq<float, false>)(
         q, k, v, g, l, dl, c, dq, S, BH, T_len, H, d, dv, off, scale, dr, st);
-    case 1: return (ring ? bwd_dq<bf16, true> : bwd_dq<bf16, false>)(
-        q, k, v, g, l, dl, c, dq, S, BH, T_len, H, d, dv, off, scale, dr, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: return static_cast<int>(cudaErrorInvalidValue);  // bf16: flash_bh_bwd_dq.cu
   }
 }
 
@@ -519,9 +523,7 @@ extern "C" int flash_bh_bwd_dkv(const void* q, const void* k, const void* v, con
   switch (dtype) {
     case 0: return (ring ? bwd_dkv<float, true> : bwd_dkv<float, false>)(
         q, k, v, g, l, dl, c, dk, dv_out, S, BH, T_len, H, d, dv, off, scale, dr, st);
-    case 1: return (ring ? bwd_dkv<bf16, true> : bwd_dkv<bf16, false>)(
-        q, k, v, g, l, dl, c, dk, dv_out, S, BH, T_len, H, d, dv, off, scale, dr, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: return static_cast<int>(cudaErrorInvalidValue);  // bf16: flash_bh_bwd_dkv.cu
   }
 }
 

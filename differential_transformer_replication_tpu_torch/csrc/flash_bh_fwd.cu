@@ -66,6 +66,7 @@
 // against the plain twin; the fp32 tests and the card-vs-CPU steps use it.
 
 #include "flash_bh_common.cuh"
+#include "flash_bh_mma.cuh"
 
 namespace {
 
@@ -247,144 +248,6 @@ int fwd(const void* q, const void* k, const void* v, const float* coeffs, void* 
 // ===========================================================================
 // bf16: tensor cores (mma.sync m16n8k16, fp32 accumulators in registers)
 // ===========================================================================
-
-constexpr int TILE = 64;     // q rows per block
-constexpr int KC = 32;       // keys per step: the online softmax's rescale steps
-constexpr int MT = 128;      // 4 warps; warp w owns tile rows 16w .. 16w+15
-constexpr int SKT = KC / 8;  // 8-column score fragments across a key tile
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// four 8x8 b16 matrices; thread t gives the address of row t % 8 of
-// matrix t / 8 and gets, of matrix i, elements (t / 4, 2 (t % 4) + {0,1})
-__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)) : "memory");
-}
-
-// the same, each matrix transposed on the way
-__device__ __forceinline__ void ldsm4t(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)) : "memory");
-}
-
-// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats rounded to bf16, the lower column in the low half
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// rows [t0, t0 + rows) of a (T_len, w) row-major slab into a bf16 tile of
-// row stride sld; rows past T_len are zeros, columns past w are never
-// written (zeroed once at the kernel's start). VEC: 16-byte cp.async
-// copies (w a multiple of 8, the slab 16-byte aligned); else 2-byte loads.
-template <bool VEC>
-__device__ __forceinline__ void load_rows(bf16* dst, int sld, const bf16* __restrict__ src,
-                                          int T_len, int t0, int rows, int w) {
-  if (VEC) {
-    // chunk i = threadIdx.x + k MT is (row r, 16-byte chunk cc); stepping
-    // i by MT adds (dr, dc) with a carry, so no division per chunk
-    const int chunks = w >> 3, dr = MT / chunks, dc = MT - dr * chunks;
-    int r = threadIdx.x / chunks, cc = threadIdx.x - r * chunks;
-    for (int i = threadIdx.x; i < rows * chunks; i += MT) {
-      const int c = cc << 3, t = t0 + r;
-      const bool ok = t < T_len;
-      cp_async16(dst + r * sld + c, src + (size_t)(ok ? t : 0) * w + c, ok);
-      r += dr;
-      cc += dc;
-      if (cc >= chunks) {
-        cc -= chunks;
-        ++r;
-      }
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * w; i += MT) {
-      const int r = i / w, c = i - r * w;
-      const int t = t0 + r;
-      dst[r * sld + c] = t < T_len ? src[(size_t)t * w + c] : __float2bfloat16_rn(0.f);
-    }
-  }
-}
-
-__device__ __forceinline__ void zero_smem(void* p, size_t bytes) {
-  int4* q = static_cast<int4*>(p);
-  for (size_t i = threadIdx.x; i < bytes / 16; i += MT) q[i] = make_int4(0, 0, 0, 0);
-}
-
-// acc (16 x 8N fp32 fragments, N of them live: n < nlive) += P (16 x KC,
-// bf16 A fragments pa[kk] for columns 16kk..16kk+15) times the KC x 8N
-// tile B of stride ldb stored [P column][acc column] (read transposed)
-template <int N>
-__device__ __forceinline__ void tile_pb(float (&acc)[N][4], const unsigned (&pa)[KC / 16][4],
-                                        const bf16* B, int ldb, int nlive) {
-  const int lane = threadIdx.x & 31;
-  const bf16* b_row = B + ((lane & 7) + ((lane >> 3) & 1) * 8) * ldb + (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < KC / 16; ++kk) {
-#pragma unroll
-    for (int np = 0; np < N / 2; ++np) {
-      if (2 * np < nlive) {
-        unsigned bb[4];
-        ldsm4t(bb, b_row + kk * 16 * ldb + np * 16);
-        mma16816(acc[2 * np], pa[kk], bb[0], bb[1]);
-        mma16816(acc[2 * np + 1], pa[kk], bb[2], bb[3]);
-      }
-    }
-  }
-}
-
-// the C fragments of s (16 x KC) as A fragments of the next product
-__device__ __forceinline__ void to_a(unsigned (&pa)[KC / 16][4], const float (&s)[SKT][4]) {
-#pragma unroll
-  for (int kk = 0; kk < KC / 16; ++kk) {
-    pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-    pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-    pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-  }
-}
-
-// one row's pair of adjacent columns (c, c + 1) of a bf16 output
-template <bool VEC>
-__device__ __forceinline__ void store2(bf16* dst, int c, int w, float x0, float x1) {
-  if (VEC) {
-    if (c < w) *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x0, x1);
-  } else {
-    if (c < w) dst[0] = __float2bfloat16_rn(x0);
-    if (c + 1 < w) dst[1] = __float2bfloat16_rn(x1);
-  }
-}
-
-// the keep bit of keep_bit() with the row and column factors precomputed:
-// x = row * 0x85EBCA77 ^ col * 0xC2B2AE3D
-__device__ __forceinline__ bool keep_x(const Drop& dr, uint32_t key, uint32_t x) {
-  return fmix32(fmix32(x + key) ^ dr.w1m) >= dr.threshold;
-}
 
 // K1, bf16: one block per (bh, 64-row q tile), longest rows first; the
 // streams one after another, each stream's O accumulator in registers
@@ -598,18 +461,6 @@ bh_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
 }
 
 // --- bf16 launchers --------------------------------------------------------
-
-int pad16(int x) { return (x + 15) & ~15; }
-// fragment counts of an instance, by bucket: one instance per bucket, the
-// fragments past the head's width skipped at run time
-int v_bucket(int dv) {  // 8-column O fragments
-  const int n = pad16(dv) / 8;
-  return n <= 8 ? 8 : n <= 16 ? 16 : n <= 24 ? 24 : 32;
-}
-int d_bucket(int d) {  // 8-column Q fragments (two per 16-deep product step)
-  const int n = pad16(d) / 8;
-  return n <= 8 ? 8 : n <= 12 ? 12 : 16;
-}
 
 size_t fwd_mma_smem(bool ring, int S, int d, int dv, int vn) {
   const int QS = pad16(d) + 8, VS = pad16(dv) + 8;

@@ -42,6 +42,14 @@ _U = ctypes.c_uint
 # C signature of every kernel library: {library: {function: argtypes}}.
 _PP = ctypes.POINTER(ctypes.c_void_p)  # a host array of device pointers
 
+# q, k, v, g, lse, delta, coeffs, dq, S, BH, T, H, d, dv, off, scale, w0,
+# w1, threshold, inv_keep, dropout_on, dtype, stream
+_BWD_DQ = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _U,
+           _U, _U, _F, _I, _I, _P)
+# ... dk, dv, S, ... (as _BWD_DQ with two outputs)
+_BWD_DKV = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+            _U, _U, _U, _F, _I, _I, _P)
+
 SIGNATURES = {
     "fused_swiglu": {
         # x, wg, bg, wx, bx, out, M, E, F, dtype, stream
@@ -68,19 +76,19 @@ SIGNATURES = {
         "flash_bh_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _F, _U, _U, _U, _F, _I, _I, _P),
     },
+    # K2 and K3 in fp32 (flash_bh) and bf16 (flash_bh_bwd_dq,
+    # flash_bh_bwd_dkv: tensor cores) under one C signature each
     "flash_bh": {
-        # q, k, v, g, lse, delta, coeffs, dq, S, BH, T, H, d, dv, off,
-        # scale, w0, w1, threshold, inv_keep, dropout_on, dtype, stream
-        "flash_bh_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _I, _F, _U, _U, _U, _F, _I, _I, _P),
-        # ... dk, dv, S, ... (as flash_bh_bwd_dq with two outputs)
-        "flash_bh_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                             _I, _I, _I, _I, _F, _U, _U, _U, _F, _I, _I, _P),
-        # ... dq, dk, dv, dq_acc, S, ...
+        "flash_bh_bwd_dq": _BWD_DQ,
+        "flash_bh_bwd_dkv": _BWD_DKV,
+        # q, k, v, g, lse, delta, coeffs, dq, dk, dv, dq_acc, S, ... (as
+        # flash_bh_bwd_dq with three outputs and a scratch)
         "flash_bh_bwd_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _F, _U, _U, _U, _F,
                                _I, _I, _P),
     },
+    "flash_bh_bwd_dq": {"flash_bh_bwd_dq": _BWD_DQ},
+    "flash_bh_bwd_dkv": {"flash_bh_bwd_dkv": _BWD_DKV},
     "decode_attention": {
         # S, B, L, H, M, d, dv, dtype -> workspace floats (-1: refused)
         "decode_attention_workspace": (_I, _I, _I, _I, _I, _I, _I, _I),

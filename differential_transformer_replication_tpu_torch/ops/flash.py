@@ -710,12 +710,19 @@ def flash_bh_bwd_dq(q, k, v, g, lse, delta, coeffs, H: int, rate: float,
     return dq
 
 
+# the library of K2 and K3 by storage dtype: fp32 is flash_bh.cu's SIMT
+# loop, bf16 the tensor-core kernels of flash_bh_bwd_dq.cu and
+# flash_bh_bwd_dkv.cu (one C signature each)
+_BWD_LIBS = {"dq": {torch.float32: "flash_bh", torch.bfloat16: "flash_bh_bwd_dq"},
+             "dkv": {torch.float32: "flash_bh", torch.bfloat16: "flash_bh_bwd_dkv"}}
+
+
 def _launch_dq(what, q, k, v, g, lse, delta, coeffs, H: int, off: int,
                rate: float, words) -> torch.Tensor:
     """K2 on checked operands (``coeffs=None``: per-stream g)."""
     BH, S, T, d = q.shape
     dq = torch.empty_like(q)
-    rc = _kernels.load("flash_bh").flash_bh_bwd_dq(
+    rc = _kernels.load(_BWD_LIBS["dq"][q.dtype]).flash_bh_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), None if coeffs is None else coeffs.data_ptr(),
         dq.data_ptr(), S, BH, T, H, d, v.shape[-1], int(off), 1.0 / math.sqrt(d),
@@ -746,7 +753,7 @@ def _launch_dkv(what, q, k, v, g, lse, delta, coeffs, H: int, off: int,
     """K3 on checked operands (``coeffs=None``: per-stream g)."""
     BH, S, T, d = q.shape
     dk, dv_ = torch.empty_like(k), torch.empty_like(v)
-    rc = _kernels.load("flash_bh").flash_bh_bwd_dkv(
+    rc = _kernels.load(_BWD_LIBS["dkv"][q.dtype]).flash_bh_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), None if coeffs is None else coeffs.data_ptr(),
         dk.data_ptr(), dv_.data_ptr(), S, BH, T, H, d, v.shape[-1], int(off),

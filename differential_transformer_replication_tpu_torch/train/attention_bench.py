@@ -3,9 +3,11 @@ D and E (``ops/flash.py`` ``flash_tm_fwd`` / ``flash_tm_bwd``,
 ``csrc/flash_tm.cu``) at the three recipes' attention shapes (B 32, T 512,
 bf16), beside PyTorch's ``scaled_dot_product_attention`` at the control
 shape; and the head-major kernels (``flash_bh_fwd``, ``flash_chunk_fwd``:
-K1, ``csrc/flash_bh_fwd.cu``; K2-K4, ``csrc/flash_bh.cu``) at the shapes of
-the long-context and ring runs, each beside its bound and, at S 1 and
-dropout 0, beside SDPA.
+K1, ``csrc/flash_bh_fwd.cu``; K2 and K3, ``csrc/flash_bh_bwd_dq.cu`` and
+``csrc/flash_bh_bwd_dkv.cu``, also as the ring chunk's
+``flash_chunk_bwd_dq``/``_dkv``; K4, ``csrc/flash_bh.cu``) at the shapes
+of the long-context and ring runs, each beside its bound and, at S 1 and
+dropout 0, beside SDPA (K2 + K3 beside SDPA's backward).
 
     python differential_transformer_replication_tpu_torch/train/attention_bench.py \
         [--root DIR] [--tag NAME]
@@ -63,6 +65,11 @@ K1_SHAPES = (
 BWD_SHAPES = (("diff T2048 split", 8, 2048, ("dq", "dkv")),
               ("diff T512 fused", 32, 512, ("bwd",)),
               ("diff T8192 tiled", 2, 8192, ("dq", "dkv")))
+# K2 + K3 at the control width, dropout 0, beside SDPA's backward: (T, B)
+CONTROL_BWD_SHAPES = ((2048, 8), (8192, 2))
+# the ring chunk's K2 and K3 (per-stream cotangents), diff width, Tl 4096,
+# B 2, dropout 0.1, at offsets +Tl (full), 0 (causal), -Tl (masked)
+CHUNK_BWD_TL, CHUNK_BWD_B, CHUNK_BWD_OFFS = 4096, 2, (("+Tl", 1), ("0", 0), ("-Tl", -1))
 
 
 def device_ms(torch, calls) -> float:
@@ -202,6 +209,47 @@ def bench_hm(torch, flash, work) -> dict:
             row[f"{kern}_ms"] = device_ms(torch, [lambda a=a, f=fns[kern]: f(*a) for a in sets])
             row[f"{kern}_bound_ms"] = bound_ms(work(Bn, H, S, Tn, d, dv, 0, kern))
         res[name] = row
+        del sets
+        torch.cuda.empty_cache()
+    S, H, d, dv = CONTROL
+    for Tn, Bn in CONTROL_BWD_SHAPES:
+        sets = []
+        for q, k, v, g in copies(work(Bn, H, S, Tn, d, dv, 0, "bwd")[1],
+                                 lambda: operands(S, Bn * H, Tn, d, dv)):
+            c = torch.ones(S, H, device="cuda")
+            _, o_all, lse = flash.flash_bh_fwd(q, k, v, c, H, 0.0, (0, 0), True)
+            delta = torch.einsum("btd,bstd->bst", g.float(), o_all.float()).contiguous()
+            sets.append((q, k, v, g, lse, delta, c, H, 0.0, (0, 0)))
+        row = {}
+        for kern, f in (("dq", flash.flash_bh_bwd_dq), ("dkv", flash.flash_bh_bwd_dkv)):
+            row[f"{kern}_ms"] = device_ms(torch, [lambda a=a, f=f: f(*a) for a in sets])
+            row[f"{kern}_bound_ms"] = bound_ms(work(Bn, H, S, Tn, d, dv, 0, kern))
+        views = [tuple(x.reshape(Bn, H, Tn, -1).detach().requires_grad_(True)
+                       for x in a[:3]) + (a[3].reshape(Bn, H, Tn, -1),) for a in sets]
+        with torch.no_grad():
+            f = device_ms(torch, [lambda a=a: sdpa(*a[:3], is_causal=True) for a in views])
+        row["sdpa_bwd_ms"] = device_ms(torch, [
+            lambda a=a: torch.autograd.grad(sdpa(*a[:3], is_causal=True), a[:3], a[3])
+            for a in views]) - f
+        res[f"control T{Tn} split/tiled p0"] = row
+        del sets, views
+        torch.cuda.empty_cache()
+    S, H, d, dv = DIFF
+    Tl, Bn = CHUNK_BWD_TL, CHUNK_BWD_B
+    for label, om in CHUNK_BWD_OFFS:
+        off = om * Tl
+        sets = []
+        for q, k, v, _ in copies(work(Bn, H, S, Tl, d, dv, Tl, "chunk_dkv")[1],
+                                 lambda: operands(S, Bn * H, Tl, d, dv)):
+            do = torch.randn(Bn * H, S, Tl, dv, generator=gen, device="cuda").to(dt)
+            _, lse = flash.flash_chunk_fwd(q, k, v, off, HM_RATE, HM_WORDS)
+            delta = torch.randn(Bn * H, S, Tl, generator=gen, device="cuda")
+            sets.append((q, k, v, do, lse, delta, off, HM_RATE, HM_WORDS))
+        row = {}
+        for kern, f in (("dq", flash.flash_chunk_bwd_dq), ("dkv", flash.flash_chunk_bwd_dkv)):
+            row[f"{kern}_ms"] = device_ms(torch, [lambda a=a, f=f: f(*a) for a in sets])
+            row[f"{kern}_bound_ms"] = bound_ms(work(Bn, H, S, Tl, d, dv, off, "chunk_" + kern))
+        res[f"chunk bwd diff Tl{Tl} {label} p0.1"] = row
         del sets
         torch.cuda.empty_cache()
     return res

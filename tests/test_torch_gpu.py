@@ -424,7 +424,8 @@ def test_train_step_on_the_card_matches_the_cpu(gen):
 
 
 # ---------------------------------------------------------------------------
-# head-major attention kernels K1-K4 (csrc/flash_bh_fwd.cu, csrc/flash_bh.cu).
+# head-major attention kernels K1-K4 (csrc/flash_bh_fwd.cu,
+# csrc/flash_bh_bwd_dq.cu, csrc/flash_bh_bwd_dkv.cu, csrc/flash_bh.cu).
 # The plain forward runs the kernel's online softmax over the same 32-key
 # tiles, so p is rounded against the same running max on both sides; at
 # rate 0.5 half of every map is dropped, so a keep mask that differs by
@@ -556,6 +557,64 @@ def test_k1_bf16_ring_instances_match_plain(gen, d, dv, mult, extra, rate):
 def test_k1_bf16_past_4096_matches_plain(gen, off):
     """Past 4096 rows (the tiled routes) at the widest instance, dropout 0.1."""
     _check_k1(gen, 2, 1, 4160, 1, 128, 256, 0.1, off)
+
+
+# K2 and K3's bf16 tensor-core instances (csrc/flash_bh_bwd_dq.cu,
+# csrc/flash_bh_bwd_dkv.cu): d padded to 64/96/128 (two streams a block at
+# d <= 96 in the factored form) and dv to 64/128/192/256, factored or ring,
+# 16-byte or 2-byte loads; dv with every stream's K tile held or staged
+# per step (S 4 and 5 at d 128); T off the 64-row grid and past 4096; each
+# result held row by row to the plain backward, and two launches bit for
+# bit.
+
+
+def _check_k2k3(gen, S, B, T, H, d, dv, rate, off=None):
+    q, k, v, g, c, delta = _bh_operands(gen, torch.bfloat16, S, B, T, H, d, dv)
+    words = (0x51F00D, 0x2A7E11) if rate > 0 else (0, 0)
+    if off is None:
+        _, _, lse = flash.bh_attention_fwd_reference(q, k, v, c, rate, words)
+        args = (q, k, v, g, lse, delta, c, H, rate, words)
+        dq_fn, dkv_fn = flash.flash_bh_bwd_dq, flash.flash_bh_bwd_dkv
+        ref = flash.bh_attention_bwd_reference(*args[:7], rate, words)
+    else:
+        g = torch.randn(B * H, S, T, dv, generator=gen, device="cuda").to(torch.bfloat16)
+        _, _, lse = flash.bh_attention_fwd_reference(q, k, v, None, rate, words, off)
+        args = (q, k, v, g, lse, delta, off, rate, words)
+        dq_fn, dkv_fn = flash.flash_chunk_bwd_dq, flash.flash_chunk_bwd_dkv
+        ref = flash.bh_attention_bwd_reference(q, k, v, g, lse, delta, None, rate,
+                                               words, off)
+    got = (dq_fn(*args), *dkv_fn(*args))
+    again = (dq_fn(*args), *dkv_fn(*args))
+    for name, a, b, a2 in zip(("dq", "dk", "dv"), got, ref, again):
+        assert testing.grad_ratio(a, b) <= 1.0, name
+        assert torch.equal(a, a2), name
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["p0", "p01"])
+@pytest.mark.parametrize("S", [1, 2, 4, 5])
+@pytest.mark.parametrize("d,dv", K1_WIDTHS)
+def test_k2k3_bf16_instances_match_plain(gen, d, dv, S, rate):
+    """Every bf16 K2 and K3 instance of the factored backward at T 100 and
+    520 (off the 64-row grid), S 1 to 5 streams."""
+    for T in (100, 520):
+        _check_k2k3(gen, S, 1, T, 2, d, dv, rate)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["p0", "p01"])
+@pytest.mark.parametrize("mult,extra", [(1, 0), (0, 0), (-1, 0), (0, 40), (0, -24)])
+@pytest.mark.parametrize("d,dv", [(96, 192), (128, 256), (64, 64), (100, 96), (40, 80)])
+def test_k2k3_bf16_ring_instances_match_plain(gen, d, dv, mult, extra, rate):
+    """The ring chunk's bf16 K2 and K3 instances (per-stream cotangents) at
+    offsets +T, 0, -T and off the tile grid (+40, -24), T 100 and 520."""
+    for T in (100, 520):
+        _check_k2k3(gen, 2, 1, T, 2, d, dv, rate, mult * T + extra)
+
+
+@pytest.mark.parametrize("off", [None, 4160, 0, -4160], ids=["aligned", "+T", "0", "-T"])
+def test_k2k3_bf16_past_4096_matches_plain(gen, off):
+    """Past 4096 rows (the tiled routes) at the widest instances, dropout
+    0.1."""
+    _check_k2k3(gen, 2, 1, 4160, 1, 128, 256, 0.1, off)
 
 
 def test_flash_bh_routes_count_their_launches(gen):

@@ -116,11 +116,13 @@ def run_ranks(task: str, P: int, d: Path, inputs: dict) -> list:
 # ---------------------------------------------------------------------------
 
 # (offset in units of T: off = round(mult * T), S, T, rate): each offset
-# with both rates, every S and T among them
+# with both rates, every S and T among them; and T 96 at +40, an offset
+# off the kernels' tile grids that the card's tests use (tiles partly
+# visible; the other, -24, is held against the dense math below)
 CHUNK_CASES = [
     (0.0, 2, 64, 0.0), (0.0, 1, 96, 0.3), (1.0, 4, 64, 0.3), (1.0, 5, 96, 0.0),
     (-1.0, 2, 96, 0.3), (-1.0, 1, 64, 0.0), (2.0, 1, 64, 0.3), (2.0, 2, 96, 0.0),
-    (0.5, 5, 64, 0.3), (0.5, 4, 96, 0.0),
+    (0.5, 5, 64, 0.3), (0.5, 4, 96, 0.0), (40 / 96, 2, 96, 0.0), (40 / 96, 2, 96, 0.3),
 ]
 BH, D, DV = 3, 8, 16
 
@@ -161,6 +163,49 @@ def test_chunk_op_matches_jax_flash_chunk_attention(mult, S, T, rate):
         assert float(tq.grad.abs().max()) == 0.0
     for ref, got in ((jdq, tq.grad), (jdk, tk.grad), (jdv, tv.grad)):
         assert _err(ref, got) <= GRAD_REL * _top(ref)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_chunk_op_matches_dense_math_off_the_block_grid(rate):
+    """The chunk op at offset -24, T 96 (rows 0-23 see no key), forward
+    and every gradient against the dense float64 math. JAX's chunk kernel
+    is not the reference here: where a negative offset does not fall on
+    its 16-row blocks it gives the rows with no visible key of a partly
+    visible block (16-23) nonzero outputs; the ring's offsets, multiples of
+    the chunk length, never meet that."""
+    S, T, off = 2, 96, -24
+    rng = np.random.default_rng([S, T, int(rate * 10), 3])
+    q, k, v, do, dlse = (torch.from_numpy(a) for a in _chunk_inputs(rng, S, T))
+    seed = torch.from_numpy(_seed_pair(rng))
+    pos = torch.arange(T)
+    vis = pos[None, :] <= pos[:, None] + off
+    live = vis.any(-1)[:, None]  # rows with a visible key
+
+    def dense(q, k, v):
+        s = torch.einsum("bsqd,bskd->bsqk", q, k) / D ** 0.5
+        s = s.masked_fill(~vis, float("-inf"))
+        m = s.amax(-1, keepdim=True).masked_fill(~live, 0.0)
+        p = torch.exp(s - m)
+        l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+        if rate > 0:
+            keep = tflash._keep_block(tflash.seed_words(seed), rate, BH, S, pos,
+                                      pos - off, "cpu")
+            p = torch.where(keep, p / (1.0 - rate), 0.0)
+        o = torch.einsum("bsqk,bkc->bsqc", p, v) / l
+        lse = torch.where(live, m + torch.log(l), torch.full_like(m, -1e30))
+        return o, lse[..., 0]
+
+    got_in = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref_in = [t.double().requires_grad_(True) for t in (q, k, v)]
+    o, lse = tflash.flash_chunk_attention(*got_in, off, seed, rate)
+    r_o, r_lse = dense(*ref_in)
+    assert _err(r_o, o) <= FP32_TOL
+    assert torch.equal(lse[:, :, :-off], torch.full((BH, S, -off), np.float32(-1e30)))
+    assert _err(r_lse[:, :, -off:], lse[:, :, -off:]) <= FP32_TOL * _top(r_lse[:, :, -off:])
+    torch.autograd.backward([o, lse], [do, dlse])
+    torch.autograd.backward([r_o, r_lse], [do.double(), dlse.double()])
+    for ref, got in zip(ref_in, got_in):
+        assert _err(ref.grad, got.grad) <= GRAD_REL * _top(ref.grad)
 
 
 def test_chunk_routes_follow_the_jax_thresholds():
