@@ -10,7 +10,7 @@ these phases, each printing its own lines and its seconds:
    versions, and the build of every kernel from the checkout's sources
    (one ``nvcc`` per CUDA source, all started together, the Triton JIT
    at first use), with the registers and spills ``ptxas -v`` reports for
-   the bf16 tensor-core instances of kernels D, E and K1-K3 (none may
+   the bf16 tensor-core instances of kernels D, E and K1-K4 (none may
    spill);
 2. kernels: each hand-written kernel against its plain PyTorch version
    on the card at the recipe's shapes, fp32 and bf16, with max-abs
@@ -76,7 +76,7 @@ these phases, each printing its own lines and its seconds:
    (micro-batch 32, fused), diff at T 8192 (micro-batch 2, tiled), all
    8 layers at recipe width; exact launch counts per route and step, a
    falling loss on a repeated batch; then ``train/step_profile.py`` of
-   the T 2048 and T 8192 dropout steps;
+   the diff T 512 (fused), T 2048 and T 8192 dropout steps;
    train-ring: sequence-parallel training through the ring (ring flash
    attention over P ranks, ``parallel/ring.py``): the trainer's command
    line under ``torch.distributed.run`` with ``--dist-backend gloo``, the
@@ -1298,7 +1298,7 @@ HM_CONFIGS = (
       "dkv": "flash_bh_bwd_dkv_tiled"}),
 )
 HM_SOURCES = {"fwd": "csrc/flash_bh_fwd.cu", "dq": "csrc/flash_bh_bwd_dq.cu",
-              "dkv": "csrc/flash_bh_bwd_dkv.cu", "fused": "csrc/flash_bh.cu"}
+              "dkv": "csrc/flash_bh_bwd_dkv.cu", "fused": "csrc/flash_bh_bwd_fused.cu"}
 # the SDPA yardsticks (control width, S 1, dropout 0): (T, B, backward
 # kernels timed beside SDPA's backward)
 YARD_SHAPES = ((512, 32, "fused"), (2048, 8, "split"), (8192, 2, "tiled"))
@@ -1442,7 +1442,8 @@ def run_bh_kernels(torch, flash) -> dict:
                                    H, HM_RATE, ("dq", "dkv") if T > 2048
                                    else ("dq", "dkv", "fused"))
         log(f"[kernels-hm] flash_bh {dtype} S={S} B=1 T={T} H={H} d=96 dv={dv} "
-            f"rate {HM_RATE}: " + ", ".join(
+            f"rate {HM_RATE} (K4 instance {flash.fused_bwd_instance(S, 96, dv, dtype)}): "
+            + ", ".join(
                 f"{n} max-abs {e:.3g} (worst row at {ratios[n]:.3g} of its bound)"
                 for n, e in errs.items()))
         del q, k, v, g, c
@@ -1454,7 +1455,8 @@ def run_bh_kernels(torch, flash) -> dict:
                                               g, c, H, HM_RATE, kernels,
                                               plant=T == 2048)
         log(f"[kernels-hm] flash_bh bf16 {label} S={S} B={B} H={H} d={d} dv={dv} "
-            f"rate {HM_RATE} (routes {flash.fwd_route(T)}, {flash.bwd_route(S, T)}): "
+            f"rate {HM_RATE} (routes {flash.fwd_route(T)}, {flash.bwd_route(S, T)}; K4 "
+            f"instance {flash.fused_bwd_instance(S, d, dv, dtype)}): "
             + ", ".join(f"{n} max-abs {e:.3g} (worst row at {ratios[n]:.3g} of its "
                         "bound)" for n, e in errs.items()))
         long = T >= 2048
@@ -1789,8 +1791,9 @@ def run_train_hm(torch, card: str, tokens) -> dict:
                f"({before} -> {rep} -> {after})")
         del state, history, step
         torch.cuda.empty_cache()
-    # where a long-context dropout step's time goes (train/step_profile.py)
-    for T, B in ((2048, 8), (8192, 2)):
+    # where a dropout step's time goes (train/step_profile.py): the fused
+    # route at T 512, the split and tiled routes at long context
+    for T, B in ((512, 32), (2048, 8), (8192, 2)):
         prof = step_profile.profile("diff", T, B, HM_RATE)
         top = ", ".join(f"{k['name'][:48]} {k['ms_per_step']:.2f}"
                         for k in prof["top_kernels"][:8])
@@ -2457,13 +2460,15 @@ def main() -> int:
     paths = _kernels.build()
     log(f"[build] nvcc sm_90a: {', '.join(p.name for p in paths.values())} "
         f"in {time.perf_counter() - t0:.1f} s")
-    # kernels D and E and K1-K3 in bf16 (the tensor-core instances,
+    # kernels D and E and K1-K4 in bf16 (the tensor-core instances,
     # "_mma"): their registers per thread, and no local-memory spill
     # (ptxas -v)
-    for lib in ("flash_tm", "flash_bh_fwd", "flash_bh_bwd_dq", "flash_bh_bwd_dkv"):
+    for lib in ("flash_tm", "flash_bh_fwd", "flash_bh_bwd_dq", "flash_bh_bwd_dkv",
+                "flash_bh_bwd_fused"):
         usage = {k: v for k, v in _kernels.ptxas_usage(lib).items() if "_mma" in k}
         for fn, (regs, spill) in sorted(usage.items()):
-            m = re.search(r"((?:tm|bh)_(?:fwd|bwd_dq|bwd_dkv|bwd_dk|bwd_dv)_mma)I(\w*?)EEv", fn)
+            m = re.search(r"((?:tm|bh)_(?:fwd|bwd_dq|bwd_dkv|bwd_fused_dkv|bwd_fused_dk|"
+                          r"bwd_dk|bwd_dv)_mma)I(\w*?)EEv", fn)
             log(f"[build] ptxas {m.group(1) if m else fn} <{m.group(2) if m else ''}>: "
                 f"{regs} registers, {spill} bytes spilled")
         spilled = [fn for fn, (_, spill) in usage.items() if spill]

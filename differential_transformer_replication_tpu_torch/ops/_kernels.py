@@ -49,6 +49,10 @@ _BWD_DQ = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _U,
 # ... dk, dv, S, ... (as _BWD_DQ with two outputs)
 _BWD_DKV = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
             _U, _U, _U, _F, _I, _I, _P)
+# q, k, v, g, lse, delta, coeffs, dq, dk, dv, dq_acc, S, ... (as _BWD_DQ
+# with three outputs and a scratch, and no offset)
+_BWD_FUSED = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+              _I, _F, _U, _U, _U, _F, _I, _I, _P)
 
 SIGNATURES = {
     "fused_swiglu": {
@@ -77,18 +81,17 @@ SIGNATURES = {
                          _I, _F, _U, _U, _U, _F, _I, _I, _P),
     },
     # K2 and K3 in fp32 (flash_bh) and bf16 (flash_bh_bwd_dq,
-    # flash_bh_bwd_dkv: tensor cores) under one C signature each
+    # flash_bh_bwd_dkv: tensor cores), K4 in fp32 and bf16 past the
+    # tensor-core instances (flash_bh) and on them (flash_bh_bwd_fused),
+    # under one C signature each
     "flash_bh": {
         "flash_bh_bwd_dq": _BWD_DQ,
         "flash_bh_bwd_dkv": _BWD_DKV,
-        # q, k, v, g, lse, delta, coeffs, dq, dk, dv, dq_acc, S, ... (as
-        # flash_bh_bwd_dq with three outputs and a scratch)
-        "flash_bh_bwd_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _F, _U, _U, _U, _F,
-                               _I, _I, _P),
+        "flash_bh_bwd_fused": _BWD_FUSED,
     },
     "flash_bh_bwd_dq": {"flash_bh_bwd_dq": _BWD_DQ},
     "flash_bh_bwd_dkv": {"flash_bh_bwd_dkv": _BWD_DKV},
+    "flash_bh_bwd_fused": {"flash_bh_bwd_fused": _BWD_FUSED},
     "decode_attention": {
         # S, B, L, H, M, d, dv, dtype -> workspace floats (-1: refused)
         "decode_attention_workspace": (_I, _I, _I, _I, _I, _I, _I, _I),

@@ -14,8 +14,10 @@ in the JAX package (``ops/flash.py``: ``use_tm`` picks):
   the ``(B*H, S, T, d)`` layout, with in-kernel attention dropout from the
   JAX package's counter hash. Replaces ``_fwd_call`` and
   ``_tiled_fwd_call`` (kernel K1, ``csrc/flash_bh_fwd.cu``), ``_bwd_call``
-  and ``_tiled_bwd_call`` (K2 dq, K3 dk/dv) and ``_fused_bwd_call`` (K4),
-  ``csrc/flash_bh.cu``.
+  and ``_tiled_bwd_call`` (K2 dq, K3 dk/dv: ``csrc/flash_bh_bwd_dq.cu``,
+  ``csrc/flash_bh_bwd_dkv.cu``; fp32 ``csrc/flash_bh.cu``) and
+  ``_fused_bwd_call`` (K4: ``csrc/flash_bh_bwd_fused.cu``; fp32 and the
+  shapes past its instances ``csrc/flash_bh.cu``).
   The TPU's splits by VMEM (resident/tiled at ``_KV_TILE_THRESHOLD``,
   fused/split at ``_FUSED_BWD_BUDGET``) are kept as the route names of
   each launch (:func:`fwd_route`, :func:`bwd_route`).
@@ -763,11 +765,34 @@ def _launch_dkv(what, q, k, v, g, lse, delta, coeffs, H: int, off: int,
     return dk, dv_
 
 
+# the tensor-core K4 (csrc/flash_bh_bwd_fused.cu): bf16, at most this many
+# streams, head widths in multiples of 8 (16-byte loads), dv at most this
+K4_MMA_MAX_S, K4_MMA_MAX_DV = 2, 192
+
+
+def fused_bwd_instance(S: int, d: int, dv: int, dtype: torch.dtype) -> str:
+    """Which K4 runs on the card for these shapes: ``mma``, the tensor-core
+    kernels of ``csrc/flash_bh_bwd_fused.cu`` (bf16, S <= 2, d and dv
+    multiples of 8, dv <= 192: every fused shape of the recipes);
+    ``wmma``, the bf16 kernel of ``csrc/flash_bh.cu`` (more streams, other
+    widths); ``simt``, its fp32 loop."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    if S <= K4_MMA_MAX_S and d % 8 == 0 and dv % 8 == 0 and dv <= K4_MMA_MAX_DV:
+        return "mma"
+    return "wmma"
+
+
 def flash_bh_bwd_fused(q, k, v, g, lse, delta, coeffs, H: int, rate: float,
                        words) -> tuple:
     """Kernel K4 (the fused route): (dq, dk, dv) with one softmax
-    recompute per tile pair, one block per (b, h); dq accumulates in an
-    fp32 scratch only that block touches (no atomics: deterministic)."""
+    recompute per visible pair (:func:`fused_bwd_instance` picks the
+    kernel). The ``mma`` instance adds each 64-key block's dq partial into
+    a zeroed fp32 scratch with atomic adds, then converts the sums in a
+    second device launch, so dq may differ in its last bits between two
+    calls on the same inputs (dk and dv are bit-equal); the ``wmma`` and
+    ``simt`` instances are one launch, one block per (b, h) over a scratch
+    only that block touches: deterministic."""
     if not _kernels.on_card(v, "flash_bh_bwd_fused"):
         return bh_attention_bwd_reference(q, k, v, g, lse, delta, coeffs,
                                           rate, words)
@@ -775,9 +800,14 @@ def flash_bh_bwd_fused(q, k, v, g, lse, delta, coeffs, H: int, rate: float,
     _check_bwd_inputs("flash_bh_bwd_fused", q, g, lse, delta, BH, S, T, dv)
     dq, dk, dv_ = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     t_pad = -(-T // BLOCK) * BLOCK
-    scratch = torch.empty((BH, S, t_pad, -(-d // 16) * 16), dtype=torch.float32,
-                          device=q.device)
-    rc = _kernels.load("flash_bh").flash_bh_bwd_fused(
+    n_acc = BH * S * t_pad * (-(-d // 16) * 16)
+    if fused_bwd_instance(S, d, dv, q.dtype) == "mma":  # dq's sums, zero at the launch
+        lib = "flash_bh_bwd_fused"
+        scratch = torch.zeros(n_acc, dtype=torch.float32, device=q.device)
+    else:  # written before it is read
+        lib = "flash_bh"
+        scratch = torch.empty(n_acc, dtype=torch.float32, device=q.device)
+    rc = _kernels.load(lib).flash_bh_bwd_fused(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), coeffs.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv_.data_ptr(), scratch.data_ptr(), S, BH, T, H, d, dv,

@@ -5,9 +5,11 @@ bf16), beside PyTorch's ``scaled_dot_product_attention`` at the control
 shape; and the head-major kernels (``flash_bh_fwd``, ``flash_chunk_fwd``:
 K1, ``csrc/flash_bh_fwd.cu``; K2 and K3, ``csrc/flash_bh_bwd_dq.cu`` and
 ``csrc/flash_bh_bwd_dkv.cu``, also as the ring chunk's
-``flash_chunk_bwd_dq``/``_dkv``; K4, ``csrc/flash_bh.cu``) at the shapes
-of the long-context and ring runs, each beside its bound and, at S 1 and
-dropout 0, beside SDPA (K2 + K3 beside SDPA's backward).
+``flash_chunk_bwd_dq``/``_dkv``; K4, ``csrc/flash_bh_bwd_fused.cu``) at
+the shapes of the long-context and ring runs, each beside its bound and,
+at S 1 and dropout 0, beside SDPA (K4 and K2 + K3 beside SDPA's
+backward); at the fused route's shapes (T 512, B 32) K2 + K3 are timed
+beside K4 as the other way to the same backward.
 
     python differential_transformer_replication_tpu_torch/train/attention_bench.py \
         [--root DIR] [--tag NAME]
@@ -61,12 +63,16 @@ K1_SHAPES = (
     ("chunk control Tl4096 +Tl p0", CONTROL, 2, 4096, 0.0, 1, False),
     ("chunk control Tl4096 0 p0", CONTROL, 2, 4096, 0.0, 0, True),
 )
-# K2-K4 at the train-hm shapes, dropout 0.1: (name, B, T, kernels)
+# K2-K4 at the train-hm shapes, dropout 0.1: (name, B, T, kernels; "bwd"
+# is K4)
 BWD_SHAPES = (("diff T2048 split", 8, 2048, ("dq", "dkv")),
-              ("diff T512 fused", 32, 512, ("bwd",)),
+              ("diff T512 fused", 32, 512, ("bwd", "dq", "dkv")),
               ("diff T8192 tiled", 2, 8192, ("dq", "dkv")))
-# K2 + K3 at the control width, dropout 0, beside SDPA's backward: (T, B)
-CONTROL_BWD_SHAPES = ((2048, 8), (8192, 2))
+# the backward at the control width, dropout 0, beside SDPA's backward:
+# (name, T, B, kernels)
+CONTROL_BWD_SHAPES = (("control T512 fused p0", 512, 32, ("bwd", "dq", "dkv")),
+                      ("control T2048 split/tiled p0", 2048, 8, ("dq", "dkv")),
+                      ("control T8192 split/tiled p0", 8192, 2, ("dq", "dkv")))
 # the ring chunk's K2 and K3 (per-stream cotangents), diff width, Tl 4096,
 # B 2, dropout 0.1, at offsets +Tl (full), 0 (causal), -Tl (masked)
 CHUNK_BWD_TL, CHUNK_BWD_B, CHUNK_BWD_OFFS = 4096, 2, (("+Tl", 1), ("0", 0), ("-Tl", -1))
@@ -193,6 +199,8 @@ def bench_hm(torch, flash, work) -> dict:
         res[name] = row
         del sets, calls
         torch.cuda.empty_cache()
+    fns = {"dq": flash.flash_bh_bwd_dq, "dkv": flash.flash_bh_bwd_dkv,
+           "bwd": flash.flash_bh_bwd_fused}
     S, H, d, dv = DIFF
     for name, Bn, Tn, kernels in BWD_SHAPES:
         sets = []
@@ -202,8 +210,6 @@ def bench_hm(torch, flash, work) -> dict:
             _, _, lse = flash.flash_bh_fwd(q, k, v, c, H, HM_RATE, HM_WORDS, True)
             delta = torch.randn(Bn * H, S, Tn, generator=gen, device="cuda")
             sets.append((q, k, v, g, lse, delta, c, H, HM_RATE, HM_WORDS))
-        fns = {"dq": flash.flash_bh_bwd_dq, "dkv": flash.flash_bh_bwd_dkv,
-               "bwd": flash.flash_bh_bwd_fused}
         row = {}
         for kern in kernels:
             row[f"{kern}_ms"] = device_ms(torch, [lambda a=a, f=fns[kern]: f(*a) for a in sets])
@@ -212,7 +218,7 @@ def bench_hm(torch, flash, work) -> dict:
         del sets
         torch.cuda.empty_cache()
     S, H, d, dv = CONTROL
-    for Tn, Bn in CONTROL_BWD_SHAPES:
+    for label, Tn, Bn, kernels in CONTROL_BWD_SHAPES:
         sets = []
         for q, k, v, g in copies(work(Bn, H, S, Tn, d, dv, 0, "bwd")[1],
                                  lambda: operands(S, Bn * H, Tn, d, dv)):
@@ -221,8 +227,8 @@ def bench_hm(torch, flash, work) -> dict:
             delta = torch.einsum("btd,bstd->bst", g.float(), o_all.float()).contiguous()
             sets.append((q, k, v, g, lse, delta, c, H, 0.0, (0, 0)))
         row = {}
-        for kern, f in (("dq", flash.flash_bh_bwd_dq), ("dkv", flash.flash_bh_bwd_dkv)):
-            row[f"{kern}_ms"] = device_ms(torch, [lambda a=a, f=f: f(*a) for a in sets])
+        for kern in kernels:
+            row[f"{kern}_ms"] = device_ms(torch, [lambda a=a, f=fns[kern]: f(*a) for a in sets])
             row[f"{kern}_bound_ms"] = bound_ms(work(Bn, H, S, Tn, d, dv, 0, kern))
         views = [tuple(x.reshape(Bn, H, Tn, -1).detach().requires_grad_(True)
                        for x in a[:3]) + (a[3].reshape(Bn, H, Tn, -1),) for a in sets]
@@ -231,7 +237,7 @@ def bench_hm(torch, flash, work) -> dict:
         row["sdpa_bwd_ms"] = device_ms(torch, [
             lambda a=a: torch.autograd.grad(sdpa(*a[:3], is_causal=True), a[:3], a[3])
             for a in views]) - f
-        res[f"control T{Tn} split/tiled p0"] = row
+        res[label] = row
         del sets, views
         torch.cuda.empty_cache()
     S, H, d, dv = DIFF

@@ -392,3 +392,30 @@ def test_row_bounds_hold_a_sum_order_change(monkeypatch, dtype):
     got = tflash.bh_attention_bwd_reference(q, k, v, g, lse, delta, c, 0.5, PLANT_WORDS)
     assert any(not torch.equal(a, b) for a, b in zip(got, ref))
     assert max(testing.grad_ratio(a, b) for a, b in zip(got, ref)) <= 0.5
+
+
+# ---------------------------------------------------------------------------
+# (g) which K4 instance the card runs: a plain-Python shape rule
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("S,d,dv,dtype,want", [
+    # the recipes' fused shapes: diff (S 2, d 96, dv 192), control (S 1, 96, 96)
+    (2, 96, 192, torch.bfloat16, "mma"), (1, 96, 96, torch.bfloat16, "mma"),
+    # every d/dv bucket, one stream or two, widths in multiples of 8
+    (1, 64, 64, torch.bfloat16, "mma"), (2, 128, 192, torch.bfloat16, "mma"),
+    (1, 128, 192, torch.bfloat16, "mma"), (2, 40, 80, torch.bfloat16, "mma"),
+    # more streams (ndiff, the tests' S 3-9), widths off the 8 grid, dv > 192
+    (3, 96, 192, torch.bfloat16, "wmma"), (9, 40, 80, torch.bfloat16, "wmma"),
+    (2, 100, 96, torch.bfloat16, "wmma"), (1, 96, 100, torch.bfloat16, "wmma"),
+    (2, 96, 200, torch.bfloat16, "wmma"), (1, 128, 256, torch.bfloat16, "wmma"),
+    # fp32 keeps its SIMT loop at every shape
+    (2, 96, 192, torch.float32, "simt"), (1, 64, 64, torch.float32, "simt"),
+    (5, 96, 192, torch.float32, "simt"),
+])
+def test_fused_backward_instance_rule(S, d, dv, dtype, want):
+    """``fused_bwd_instance`` sends the bf16 fused backward to the
+    tensor-core kernels (``csrc/flash_bh_bwd_fused.cu``) for S <= 2, d and
+    dv multiples of 8 and dv <= 192, the rest of bf16 to ``csrc/flash_bh.cu``'s
+    WMMA kernel and fp32 to its SIMT loop."""
+    assert tflash.fused_bwd_instance(S, d, dv, dtype) == want

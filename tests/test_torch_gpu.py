@@ -425,7 +425,8 @@ def test_train_step_on_the_card_matches_the_cpu(gen):
 
 # ---------------------------------------------------------------------------
 # head-major attention kernels K1-K4 (csrc/flash_bh_fwd.cu,
-# csrc/flash_bh_bwd_dq.cu, csrc/flash_bh_bwd_dkv.cu, csrc/flash_bh.cu).
+# csrc/flash_bh_bwd_dq.cu, csrc/flash_bh_bwd_dkv.cu,
+# csrc/flash_bh_bwd_fused.cu, csrc/flash_bh.cu).
 # The plain forward runs the kernel's online softmax over the same 32-key
 # tiles, so p is rounded against the same running max on both sides; at
 # rate 0.5 half of every map is dropped, so a keep mask that differs by
@@ -615,6 +616,83 @@ def test_k2k3_bf16_past_4096_matches_plain(gen, off):
     """Past 4096 rows (the tiled routes) at the widest instances, dropout
     0.1."""
     _check_k2k3(gen, 2, 1, 4160, 1, 128, 256, 0.1, off)
+
+
+# K4's bf16 tensor-core instances (csrc/flash_bh_bwd_fused.cu): S 1 and 2
+# (one stream in the dk warps, or S + 1 warp groups), d padded to
+# 64/96/128 and dv to 64/128/192, widths in multiples of 8 off the 16
+# grid; T off the 64-key grid (45, 100, 520) and 2048, which the wrapper
+# takes directly (the route sends it to K2 + K3); each result held row by
+# row to the plain backward. Two launches on the same inputs: dk and dv
+# bit-equal; dq, whose key tiles' partials meet in an order that changes
+# from launch to launch, within 2^-7 of each row's max |dq|.
+K4_WIDTHS = [(d, dv) for d in (64, 96, 128) for dv in (64, 128, 192)] + [
+    (96, 96), (40, 80)]
+
+
+def _check_k4(gen, S, T, d, dv, rate):
+    assert flash.fused_bwd_instance(S, d, dv, torch.bfloat16) == "mma"
+    q, k, v, g, c, delta = _bh_operands(gen, torch.bfloat16, S, 1, T, 2, d, dv)
+    words = (0x51F00D, 0x2A7E11) if rate > 0 else (0, 0)
+    _, _, lse = flash.bh_attention_fwd_reference(q, k, v, c, rate, words)
+    args = (q, k, v, g, lse, delta, c, 2, rate, words)
+    n0 = flash.flash_bh_bwd_fused.launches
+    got = flash.flash_bh_bwd_fused(*args)
+    again = flash.flash_bh_bwd_fused(*args)
+    assert flash.flash_bh_bwd_fused.launches - n0 == 2
+    ref = flash.bh_attention_bwd_reference(*args[:7], rate, words)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert testing.grad_ratio(a, b) <= 1.0, name
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    assert testing.row_ratio(again[0], got[0], 2.0 ** -7, 0.0) <= 1.0
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5], ids=["p0", "p05"])
+@pytest.mark.parametrize("S", [1, 2])
+@pytest.mark.parametrize("d,dv", K4_WIDTHS)
+def test_k4_bf16_instances_match_plain(gen, d, dv, S, rate):
+    """Every bf16 tensor-core K4 instance at T 45, 100, 520 and 2048."""
+    for T in (45, 100, 520, 2048):
+        _check_k4(gen, S, T, d, dv, rate)
+
+
+def test_fused_backward_trains_like_the_split_route_in_bf16(gen, monkeypatch):
+    """A 2-layer diff model at recipe width in bf16, T 512, attention (and
+    residual, FFN) dropout 0.1: loss and every gradient with the backward
+    on the fused route (K4's tensor-core instance) and on the split route
+    (K2 + K3: ``_FUSED_BWD_BUDGET`` patched to 0), both on the card. The
+    forward runs the same kernels, so the losses agree to fp32 rounding;
+    the two backwards round p, ds and the combined map at the same points
+    from fp32 sums in other orders, so a bf16 rounding may flip on either
+    side: each is within 2^-6 of its rows' scale of the plain backward
+    (``testing.py``), so within 2^-5 of each other, and the model's bf16
+    backward carries that linearly into each leaf, held within 2^-5 of
+    its max |value|."""
+    from differential_transformer_replication_tpu_torch.train.optim import unflatten
+
+    cfg = ModelConfig(model="diff", n_layer=2, vocab_size=512, block_size=512,
+                      dropout=0.1, compute_dtype="bfloat16")
+    cpu_gen = torch.Generator()
+    cpu_gen.manual_seed(8)
+    params = init_model(cpu_gen, cfg)
+    idx = torch.randint(0, 512, (2, 513), generator=cpu_gen).to("cuda")
+    out = {}
+    for route, budget in (("fused", flash._FUSED_BWD_BUDGET), ("split", 0)):
+        monkeypatch.setattr(flash, "_FUSED_BWD_BUDGET", budget)
+        flash.reset_bh_counters()
+        p = [t.to("cuda").requires_grad_(True) for t in leaves(params)]
+        _, loss = model_forward(unflatten(params, p), idx[:, :-1], cfg,
+                                targets=idx[:, 1:], seed=5)
+        out[route] = (float(loss.detach()), torch.autograd.grad(loss, p))
+        routes = {fn.__name__: dict(fn.routes) for fn in flash.BH_WRAPPERS[1:]
+                  if fn.routes}
+        want = ({"flash_bh_bwd_fused": {"fused": 2}} if route == "fused" else
+                {"flash_bh_bwd_dq": {"split": 2}, "flash_bh_bwd_dkv": {"split": 2}})
+        assert routes == want
+    (lf, gf), (ls, gs) = out["fused"], out["split"]
+    assert abs(lf - ls) <= 1e-6 * abs(ls)
+    for a, b in zip(gf, gs):
+        assert _err(a, b) <= 2.0 ** -5 * float(b.abs().max())
 
 
 def test_flash_bh_routes_count_their_launches(gen):
