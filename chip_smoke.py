@@ -10,8 +10,8 @@ these phases, each printing its own lines and its seconds:
    versions, and the build of every kernel from the checkout's sources
    (one ``nvcc`` per CUDA source, all started together, the Triton JIT
    at first use), with the registers and spills ``ptxas -v`` reports for
-   the bf16 tensor-core instances of kernels D, E and K1-K4 (none may
-   spill);
+   the bf16 tensor-core instances of kernels D, E, K1-K4 and the decode
+   attention's split kernel (none may spill);
 2. kernels: each hand-written kernel against its plain PyTorch version
    on the card at the recipe's shapes, fp32 and bf16, with max-abs
    error against a stated bound (the attention kernels row by row, each
@@ -27,7 +27,10 @@ these phases, each printing its own lines and its seconds:
    speculative verify (rows 5-int8, 6, 7, 8) at the recipes' decode
    shapes (8 slots, M 512, pages of 16, 5 verify rows) in fp32, bf16
    and int8, with the paged-vs-contiguous difference on the same
-   contents; kernels-hm: the head-major attention kernels K1-K4
+   contents, the split body and tile length of each shape
+   (``decode_instance``), and the split and combine kernels' device
+   times (torch.profiler) beside the whole call at L 1 and 5;
+   kernels-hm: the head-major attention kernels K1-K4
    (forward; dq; dk/dv; fused backward) with attention dropout 0.1 at
    the train-hm shapes (diff T 2048, diff and control T 512, ndiff T
    512, diff T 8192) in bf16 and at one shape per route in fp32, and at
@@ -206,6 +209,26 @@ def device_ms(calls, iters: int = 20, reps: int = 7) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def kernel_us(calls, names, n: int = 40) -> dict:
+    """Device us per call of the CUDA kernels whose names hold each of
+    ``names`` (``torch.profiler`` over ``n`` calls, cycling through
+    ``calls``, launched back to back from the host)."""
+    import torch
+
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(n):
+            calls[i % len(calls)]()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {k: sum(e.self_device_time_total for e in evs if k in e.key) / n
+            for k in names}
 
 
 def timings(k_calls, p_calls, lib_calls=None, iters: int = 20,
@@ -545,11 +568,14 @@ def run_decode_kernels(torch, dat) -> dict:
                         outs["decode_attention_multi_paged"][0]))
             rows_diff = max_err(outs["decode_attention_multi"][0][:, 0],
                                 outs["decode_attention"][0])
+            inst = {L: dat.decode_instance(qdt, S, L, d, dv) for L in (1, DEC_L)}
             log(f"[kernels] decode {name} {store} S={S} B={DEC_B} H={H} M={DEC_M} "
                 f"d={d} dv={dv} pages of {DEC_PS}, L={DEC_L}: max-abs vs plain "
                 + ", ".join(f"{k[17:] or 'contiguous'} {e:.3g}" for k, e in errs.items())
                 + f" (bound {tol:.3g}); paged vs contiguous on the same contents "
-                f"{paged_diff:.3g}; multi row 0 vs single row {rows_diff:.3g}")
+                f"{paged_diff:.3g}; multi row 0 vs single row {rows_diff:.3g}; "
+                + "; ".join(f"L {L}: split body {r}, {tk}-key tiles"
+                            for L, (r, tk) in inst.items()))
             if store == "fp32":
                 continue
             # bytes: each visible key's K/V (and scales) read once for all
@@ -580,7 +606,15 @@ def run_decode_kernels(torch, dat) -> dict:
                         qt, kt, vt, attn_mask=mask)]
                 t = timings(k_calls, p_calls, lib)
                 bms, by = bound_ms(nbytes, flops, torch.bfloat16)
-                log(f"[kernels] {k} {name} {store}: " + fmt_times(t, bms, by)
+                parts = ""
+                if k in ("decode_attention", "decode_attention_multi"):
+                    # the two device launches of a call (L 1 and DEC_L)
+                    us = kernel_us(k_calls, ("dattn_split", "dattn_combine"))
+                    parts = (f"; split kernel {us['dattn_split']:.2f} us, combine "
+                             f"{us['dattn_combine']:.2f} us a call (torch.profiler, "
+                             "launched from the host; the combine starts early and "
+                             "its time holds its wait for the split)")
+                log(f"[kernels] {k} {name} {store}: " + fmt_times(t, bms, by) + parts
                     + ("; one-call PyTorch is SDPA with a boolean mask" if lib else ""))
                 key = k + ("_int8" if k == "decode_attention" else "")
                 if name == "diff" and store == "int8" and key in DEC_ENTRIES:
@@ -2460,15 +2494,16 @@ def main() -> int:
     paths = _kernels.build()
     log(f"[build] nvcc sm_90a: {', '.join(p.name for p in paths.values())} "
         f"in {time.perf_counter() - t0:.1f} s")
-    # kernels D and E and K1-K4 in bf16 (the tensor-core instances,
-    # "_mma"): their registers per thread, and no local-memory spill
+    # kernels D and E, K1-K4 and the decode attention's split kernel in
+    # bf16 (the tensor-core instances, "_mma"; bf16 and int8 K/V for the
+    # decode): their registers per thread, and no local-memory spill
     # (ptxas -v)
     for lib in ("flash_tm", "flash_bh_fwd", "flash_bh_bwd_dq", "flash_bh_bwd_dkv",
-                "flash_bh_bwd_fused"):
+                "flash_bh_bwd_fused", "decode_attention"):
         usage = {k: v for k, v in _kernels.ptxas_usage(lib).items() if "_mma" in k}
         for fn, (regs, spill) in sorted(usage.items()):
             m = re.search(r"((?:tm|bh)_(?:fwd|bwd_dq|bwd_dkv|bwd_fused_dkv|bwd_fused_dk|"
-                          r"bwd_dk|bwd_dv)_mma)I(\w*?)EEv", fn)
+                          r"bwd_dk|bwd_dv)_mma|dattn_split_mma)I(\w*?)EEv", fn)
             log(f"[build] ptxas {m.group(1) if m else fn} <{m.group(2) if m else ''}>: "
                 f"{regs} registers, {spill} bytes spilled")
         spilled = [fn for fn, (_, spill) in usage.items() if spill]

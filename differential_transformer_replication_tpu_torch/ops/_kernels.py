@@ -93,14 +93,14 @@ SIGNATURES = {
     "flash_bh_bwd_dkv": {"flash_bh_bwd_dkv": _BWD_DKV},
     "flash_bh_bwd_fused": {"flash_bh_bwd_fused": _BWD_FUSED},
     "decode_attention": {
-        # S, B, L, H, M, d, dv, dtype -> workspace floats (-1: refused)
+        # S, B, L, H, M, d, dv, TK -> workspace floats (-1: refused)
         "decode_attention_workspace": (_I, _I, _I, _I, _I, _I, _I, _I),
         # q, k, v, k_scale, v_scale, pos, tables, coeffs, out, work, S, B,
-        # L, H, M, d, dv, n_pages, page_size, pages_per_slot, scale,
+        # L, H, M, d, dv, TK, n_pages, page_size, pages_per_slot, scale,
         # dtype, kv_int8, paged, stream
         "decode_attention_run": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                                 _I, _I, _P),
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                 _I, _I, _I, _P),
     },
 }
 
@@ -154,10 +154,16 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is built: named after a hash
-    of the source, the local headers it includes and the flags."""
+    of the source, the local headers it reaches (through other headers
+    too) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    for header in re.findall(rb'#include "([^"]+)"', src):
-        src += (CSRC / header.decode()).read_bytes()
+    seen, todo = set(), [src]
+    while todo:
+        for header in re.findall(rb'#include "([^"]+)"', todo.pop()):
+            if header not in seen:
+                seen.add(header)
+                todo.append((CSRC / header.decode()).read_bytes())
+                src += todo[-1]
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -25,8 +25,12 @@ kernel (``csrc/decode_attention.cu``, where its bound on the H100, the
 K/V read, and its design are described): one block per (b, h, tile of
 keys), tiles past every row's position skipped, keys visited in logical
 order whatever the storage, so a paged call does a contiguous call's
-arithmetic bit for bit. The wrapper allocates the per-tile partial
-records the two kernels share.
+arithmetic bit for bit. :func:`decode_instance` states which split body
+runs (tensor cores for bf16 queries, SIMT for fp32) and the keys per
+tile, which the wrapper passes to the kernel; the tile length does not
+depend on L, so row l of an L-row call equals the single-row call at
+that row's position bit for bit. The wrapper allocates the per-tile
+partial records the two kernels share.
 
 Dispatch is by device: a CPU tensor runs the function's plain version
 (``*_reference``), a CUDA tensor always launches the kernel (or
@@ -55,6 +59,65 @@ from differential_transformer_replication_tpu_torch.ops.streams import NEG_INF
 MAX_ROWS = 8  # query rows per slot the kernel takes (k + 1 of the verify)
 # streams and head widths the kernel takes (csrc/decode_attention.cu)
 MAX_S, MAX_D, MAX_DV = 8, 256, 512
+MAX_TK = 64  # keys per tile
+SMEM_LIMIT = 232448  # bytes of shared memory a block may take on the H100
+
+
+# ---------------------------------------------------------------------------
+# the instance rule
+# ---------------------------------------------------------------------------
+
+
+def _pad16(w: int) -> int:
+    return -(-w // 16) * 16
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def decode_smem_bytes(route: str, S: int, TK: int, d: int, dv: int) -> int:
+    """Shared memory of one split-kernel block, the twin of
+    ``csrc/decode_attention.cu``'s ``SmemMma`` (``mma``: bf16 tiles, rows
+    padded to 16 columns plus 8; the queries and probabilities as 8 rows
+    a stream; each key's storage row) and ``SmemSimt`` (``simt``: fp32,
+    sized at MAX_ROWS rows)."""
+    if route == "mma":
+        ldk, ldv, ldp = _pad16(d) + 8, _pad16(dv) + 8, TK + 8
+        k = _align16(S * 8 * ldk * 2)
+        v = _align16(k + S * TK * ldk * 2)
+        p = _align16(v + TK * ldv * 2)
+        rows = _align16(p + S * 8 * ldp * 2)
+        return rows + TK * 8 + MAX_ROWS * 4
+    L = MAX_ROWS
+    k = _align16(S * L * d * 4)
+    v = _align16(k + S * TK * d * 4)
+    p = _align16(v + TK * dv * 4)
+    stats = p + S * L * TK * 4
+    return stats + 2 * S * L * 4 + L * 4
+
+
+def decode_instance(dtype: torch.dtype, S: int, L: int, d: int, dv: int) -> tuple:
+    """Which split body runs on the card and its keys per tile: ``("mma",
+    TK)`` for bf16 queries (bf16 or int8 K/V: tensor cores) or
+    ``("simt", TK)`` for fp32 (bf16 or tf32 products would not hold the
+    plain version's 1e-5). TK is the largest power of two up to MAX_TK
+    (down to 16 for ``mma``, whole 16-key row tiles, 8 for ``simt``) whose
+    block fits the shared memory. It does not depend on L, so an L-row
+    call cuts the keys into the single-row call's tiles: row l of the one
+    equals the other at ``pos[:, l]`` bit for bit."""
+    if not (1 <= S <= MAX_S and 1 <= L <= MAX_ROWS and 1 <= d <= MAX_D
+            and 1 <= dv <= MAX_DV):
+        raise ValueError(
+            f"decode attention takes S <= {MAX_S}, L <= {MAX_ROWS}, d <= "
+            f"{MAX_D}, dv <= {MAX_DV}; got S={S}, L={L}, d={d}, dv={dv}")
+    if dtype not in _kernels.DTYPE_CODES:
+        raise TypeError(f"decode attention: unsupported query dtype {dtype}")
+    route = "mma" if dtype == torch.bfloat16 else "simt"
+    TK, least = MAX_TK, 16 if route == "mma" else 8
+    while TK > least and decode_smem_bytes(route, S, TK, d, dv) > SMEM_LIMIT:
+        TK //= 2
+    return route, TK
 
 
 # ---------------------------------------------------------------------------
@@ -197,8 +260,6 @@ def _launch(what: str, qs, k, v, k_scale, v_scale, pos, tables, coeffs, *,
     S, H, d = qs.shape[0], qs.shape[-2], qs.shape[-1]
     dv = v.shape[-1]
     dt = qs.dtype
-    if dt not in _kernels.DTYPE_CODES:
-        raise TypeError(f"{what}: unsupported query dtype {dt}")
     int8 = k_scale is not None
     if int8 != (v_scale is not None):
         raise ValueError(f"{what}: k_scale and v_scale must be given together")
@@ -222,14 +283,10 @@ def _launch(what: str, qs, k, v, k_scale, v_scale, pos, tables, coeffs, *,
     for name, t in ops:
         if t.device != qs.device or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous on {qs.device}")
-    if S > MAX_S or d > MAX_D or dv > MAX_DV or L > MAX_ROWS:
-        raise ValueError(
-            f"{what}: kernel takes S <= {MAX_S}, d <= {MAX_D}, dv <= "
-            f"{MAX_DV}, L <= {MAX_ROWS}; got S={S}, d={d}, dv={dv}, L={L}"
-        )
+    _, TK = decode_instance(dt, S, L, d, dv)
     code = _kernels.DTYPE_CODES[dt]
     lib = _kernels.load("decode_attention")
-    n_work = lib.decode_attention_workspace(S, B, L, H, M, d, dv, code)
+    n_work = lib.decode_attention_workspace(S, B, L, H, M, d, dv, TK)
     if n_work < 0:
         raise ValueError(f"{what}: shapes refused by the kernel")
     out_shape = (B, H, dv) if qs.dim() == 4 else (B, L, H, dv)
@@ -240,7 +297,7 @@ def _launch(what: str, qs, k, v, k_scale, v_scale, pos, tables, coeffs, *,
         k_scale.data_ptr() if int8 else None,
         v_scale.data_ptr() if int8 else None, pos.data_ptr(),
         tables.data_ptr() if tables is not None else None, coeffs.data_ptr(),
-        out.data_ptr(), work.data_ptr(), S, B, L, H, M, d, dv, n_pages,
+        out.data_ptr(), work.data_ptr(), S, B, L, H, M, d, dv, TK, n_pages,
         page_size, M // page_size, 1.0 / math.sqrt(d), code, int(int8),
         int(tables is not None), _kernels.stream_handle(qs.device),
     )

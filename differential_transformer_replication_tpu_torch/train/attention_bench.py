@@ -9,10 +9,14 @@ K1, ``csrc/flash_bh_fwd.cu``; K2 and K3, ``csrc/flash_bh_bwd_dq.cu`` and
 the shapes of the long-context and ring runs, each beside its bound and,
 at S 1 and dropout 0, beside SDPA (K4 and K2 + K3 beside SDPA's
 backward); at the fused route's shapes (T 512, B 32) K2 + K3 are timed
-beside K4 as the other way to the same backward.
+beside K4 as the other way to the same backward. It also times the
+decode attention of the serving step (``ops/decode_attention.py``,
+``csrc/decode_attention.cu``: rows 5-8, contiguous and paged, bf16 and
+int8 K/V, L 1 and 5, under ``decode``) at the diff and control decode
+shapes, beside SDPA with a boolean mask at the control shape.
 
     python differential_transformer_replication_tpu_torch/train/attention_bench.py \
-        [--root DIR] [--tag NAME]
+        [--root DIR] [--tag NAME] [--parts tm,hm,decode]
 
 ``--root`` names the checkout whose package is timed (default: the one
 that holds this file), so that two trees are compared on one card in one
@@ -76,6 +80,14 @@ CONTROL_BWD_SHAPES = (("control T512 fused p0", 512, 32, ("bwd", "dq", "dkv")),
 # the ring chunk's K2 and K3 (per-stream cotangents), diff width, Tl 4096,
 # B 2, dropout 0.1, at offsets +Tl (full), 0 (causal), -Tl (masked)
 CHUNK_BWD_TL, CHUNK_BWD_B, CHUNK_BWD_OFFS = 4096, 2, (("+Tl", 1), ("0", 0), ("-Tl", -1))
+# decode attention (Queue B rows 5-8) at the serving recipes' decode step:
+# 8 slots of M 512 keys, pages of 16, L 1 (the decode step) and 5 (the
+# verify step of 4 drafts); (name, S, H, d, dv); the slots' first rows sit
+# at DEC_POS (chip_smoke.py's positions), row l at DEC_POS + l
+DEC_B, DEC_M, DEC_PS, DEC_LS = 8, 512, 16, (1, 5)
+DEC_SHAPES = (("diff", 2, 4, 96, 192), ("control", 1, 8, 96, 96))
+DEC_POS = (0, 37, 300, 506, 506, 300, 37, 150)
+PARTS = ("tm", "hm", "decode")
 
 
 def device_ms(torch, calls) -> float:
@@ -261,6 +273,82 @@ def bench_hm(torch, flash, work) -> dict:
     return res
 
 
+def bench_decode(torch, dat) -> dict:
+    """Rows 5-8: each wrapper (contiguous and paged, bf16 and int8 K/V,
+    bf16 queries) at the decode shapes, with the bound of the bytes the
+    call must move (each visible key's K/V and scales once, the queries,
+    the outputs, the page table); SDPA with a boolean visibility mask
+    beside the contiguous bf16 calls at the control shape (one stream)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    dt = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pp = DEC_M // DEC_PS
+    base = torch.tensor(DEC_POS, dtype=torch.int32, device="cuda")
+    res = {}
+    for name, S, H, d, dv in DEC_SHAPES:
+        c = 0.5 * torch.randn(S, H, generator=gen, device="cuda")
+        c[0] = 1.0
+        for store in ("bf16", "int8"):
+            int8 = store == "int8"
+            es = 1 if int8 else 2
+
+            def operands():
+                kc = torch.randn(S, DEC_B, H, DEC_M, d, generator=gen, device="cuda").to(dt)
+                vc = torch.randn(DEC_B, H, DEC_M, dv, generator=gen, device="cuda").to(dt)
+                cs = {}
+                if int8:
+                    (kc, ks), (vc, vs) = dat.quantize_kv(kc), dat.quantize_kv(vc)
+                    cs = {"k_scale": ks, "v_scale": vs}
+                tab = torch.randperm(DEC_B * pp, generator=gen, device="cuda").to(
+                    torch.int32).reshape(DEC_B, pp)
+
+                def pages(t, axis):  # (.., B, H, M, ..) -> (.., B * pp, H, ps, ..)
+                    src = t.unflatten(axis + 2, (pp, DEC_PS)).movedim(axis + 2, axis + 1)
+                    return torch.empty_like(src.flatten(axis, axis + 1)).index_copy_(
+                        axis, tab.reshape(-1).long(), src.flatten(axis, axis + 1))
+
+                ps = {k: pages(v, 1 if k == "k_scale" else 0) for k, v in cs.items()}
+                return dict(kc=kc, vc=vc, cs=cs, kp=pages(kc, 1), vp=pages(vc, 0),
+                            tab=tab, ps=ps)
+
+            per_key = H * ((S * d + dv) * es + ((S + 1) * 4 if int8 else 0))
+            sets = copies(2 * per_key * DEC_B * DEC_M, operands)
+            for L in DEC_LS:
+                pos = (base[:, None] + torch.arange(L, device="cuda", dtype=torch.int32))
+                q = torch.randn(S, DEC_B, L, H, d, generator=gen, device="cuda").to(dt)
+                if L == 1:
+                    pos, q = pos[:, 0].contiguous(), q[:, :, 0].contiguous()
+                    contiguous, paged = dat.decode_attention, dat.decode_attention_paged
+                else:
+                    contiguous = dat.decode_attention_multi
+                    paged = dat.decode_attention_multi_paged
+                vis = int(torch.clamp(pos.reshape(DEC_B, -1).max(1).values + 1,
+                                      max=DEC_M).sum())
+                nbytes = vis * per_key + (S * d + dv) * DEC_B * L * H * es
+                row = {
+                    "ms": device_ms(torch, [
+                        lambda o=o: contiguous(q, o["kc"], o["vc"], pos, c, **o["cs"])
+                        for o in sets]),
+                    "paged_ms": device_ms(torch, [
+                        lambda o=o: paged(q, o["kp"], o["vp"], o["tab"], pos, c, **o["ps"])
+                        for o in sets]),
+                    "bound_ms": nbytes / PEAK_BYTES_S * 1e3,
+                    "paged_bound_ms": (nbytes + DEC_B * pp * 4) / PEAK_BYTES_S * 1e3,
+                }
+                if S == 1 and not int8:
+                    qt = q[0].reshape(DEC_B, L, H, d).transpose(1, 2)
+                    mask = (torch.arange(DEC_M, device="cuda")[None, None, :]
+                            <= pos.reshape(DEC_B, L, 1))[:, None]
+                    row["sdpa_ms"] = device_ms(torch, [
+                        lambda o=o: sdpa(qt, o["kc"][0], o["vc"], attn_mask=mask)
+                        for o in sets])
+                res[f"{name} {store} L{L}"] = row
+            del sets
+            torch.cuda.empty_cache()
+    return res
+
+
 def _attention_work():
     """``testing.attention_work`` of the tree that holds this file, which
     ``--root`` need not have."""
@@ -275,7 +363,12 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     p.add_argument("--tag", default="")
+    p.add_argument("--parts", default=",".join(PARTS),
+                   help="comma-separated parts to time: " + ", ".join(PARTS))
     args = p.parse_args()
+    parts = args.parts.split(",")
+    if not set(parts) <= set(PARTS):
+        p.error(f"--parts takes {', '.join(PARTS)}")
     work = _attention_work()
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
@@ -283,15 +376,23 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("attention_bench needs a CUDA GPU", file=sys.stderr)
         return 2
-    from differential_transformer_replication_tpu_torch.ops import flash
+    from differential_transformer_replication_tpu_torch.ops import (
+        decode_attention as dat,
+        flash,
+    )
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    print(json.dumps({"card": card, "tag": args.tag, "root": args.root,
-                      "package": flash.__file__, **bench_tm(torch, flash),
-                      "hm": bench_hm(torch, flash, work)}), flush=True)
+    out = {"card": card, "tag": args.tag, "root": args.root, "package": flash.__file__}
+    if "tm" in parts:
+        out.update(bench_tm(torch, flash))
+    if "hm" in parts:
+        out["hm"] = bench_hm(torch, flash, work)
+    if "decode" in parts:
+        out["decode"] = bench_decode(torch, dat)
+    print(json.dumps(out), flush=True)
     return 0
 
 

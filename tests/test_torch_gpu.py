@@ -141,18 +141,14 @@ def _paged_copy(t: torch.Tensor, tab: torch.Tensor, ps: int, axis: int,
     """A paged pool holding the slots of the contiguous leaf ``t`` (batch
     axis ``axis``) behind ``tab``; every other page, the trash page 0
     included, holds garbage that a correct kernel never reads."""
-    B, pp = tab.shape
     shape = list(t.shape)
     shape[axis], shape[axis + 2] = n_pages, ps  # (.., B, H, M, ..) -> (.., P, H, ps, ..)
     out = torch.randn(*shape, generator=gen, device=t.device).to(t.dtype) \
         if t.dtype != torch.int8 else torch.randint(
             -127, 128, shape, generator=gen, device=t.device).to(torch.int8)
-    for b in range(B):
-        for j in range(pp):
-            dst = out.select(axis, int(tab[b, j]))
-            src = t.select(axis, b).narrow(axis + 1, j * ps, ps)
-            dst.copy_(src)
-    return out
+    # slot b's logical page j at physical page tab[b, j]
+    pages = t.unflatten(axis + 2, (-1, ps)).movedim(axis + 2, axis + 1).flatten(axis, axis + 1)
+    return out.index_copy_(axis, tab.reshape(-1).long(), pages)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
@@ -217,6 +213,84 @@ def test_paged_and_multi_kernels_match_plain(gen, dtype, int8, ps, S, d, dv):
                                       dat.decode_attention_multi,
                                       dat.decode_attention_multi_paged)]
         assert [a - b for a, b in zip(after, counts)] == [L, L, 1, 1]
+
+
+def _decode_rows_ok(got: torch.Tensor, ref: torch.Tensor, c: torch.Tensor,
+                    vmax: float) -> torch.Tensor:
+    """Per output row (b, l) of a (B, L, H, dv) result: within the bf16
+    bound of decode attention, 2^-8 of sum|c| * max|V| plus one bf16 step
+    of that row's own largest value."""
+    err = (got.float() - ref.float()).abs().amax(dim=(2, 3))
+    tol = (2.0 ** -8 * float(c.abs().sum(0).max()) * vmax
+           + 2.0 ** -7 * ref.float().abs().amax(dim=(2, 3)))
+    return err <= tol
+
+
+@pytest.mark.parametrize("store", ["bf16", "int8"])
+@pytest.mark.parametrize("S", [1, 2, 4, 8])
+# (40, 80): widths off the 16-column step and the int8 16-value loads
+@pytest.mark.parametrize("d,dv", [(96, 192), (96, 96), (40, 80), (64, 64),
+                                  (128, 128), (256, 512)])
+def test_decode_mma_instances_across_the_envelope(gen, store, S, d, dv):
+    """The tensor-core instances (bf16 queries, bf16 or int8 K/V) of rows
+    5-8 for L 1, 2, 5, 8 over pages of 8, 16 and 128 and the contiguous
+    cache, at positions 0, off the tile grid, M - 1 and past M: each row
+    of the multi-row call within the bf16 bound of its plain version; row
+    l equal to the single-row call at pos[:, l], paged equal to contiguous
+    and two calls equal, bit for bit; outputs zeroed past row L/2 fail the
+    bound."""
+    B, H, M = 4, 2, 512
+    R = B + 1
+    assert dat.decode_instance(torch.bfloat16, S, 1, d, dv)[0] == "mma"
+    kc = torch.randn(S, R, H, M, d, generator=gen, device="cuda").to(torch.bfloat16)
+    vc = torch.randn(R, H, M, dv, generator=gen, device="cuda").to(torch.bfloat16)
+    scales = {}
+    if store == "int8":
+        (kc, ks), (vc, vs) = dat.quantize_kv(kc), dat.quantize_kv(vc)
+        scales = {"k_scale": ks, "v_scale": vs}
+    one_scales = {k: (v[:, :B] if k == "k_scale" else v[:B]).contiguous()
+                  for k, v in scales.items()}
+    kc1, vc1 = kc[:, :B].contiguous(), vc[:B].contiguous()
+    pools = {}
+    for ps in (8, 16, 128):
+        pp = M // ps
+        P = 1 + B * pp + 3
+        perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(ps))
+        tab = (1 + perm[:B * pp]).reshape(B, pp).to(torch.int32).cuda()
+        pscales = {k: _paged_copy(v, tab, ps, 1 if k == "k_scale" else 0, P, gen)
+                   for k, v in one_scales.items()}
+        pools[ps] = (_paged_copy(kc1, tab, ps, 1, P, gen),
+                     _paged_copy(vc1, tab, ps, 0, P, gen), tab, pscales)
+    c = torch.randn(S, H, generator=gen, device="cuda") * 0.5
+    c[0] = 1.0
+    vmax = float(vc.float().abs().max()) if store == "bf16" else float(vs.max()) * 127
+    for L in (1, 2, 5, 8):
+        # slot 0's rows start at key 0, slot 1's off every tile grid, slot
+        # 2's last row at M - 1, slot 3's rows all past M (every key)
+        base = torch.tensor([0, 77, M - L, M + 5], dtype=torch.int32, device="cuda")
+        pos = (base[:, None] + torch.arange(L, device="cuda", dtype=torch.int32)).contiguous()
+        q = torch.randn(S, B, L, H, d, generator=gen, device="cuda").to(torch.bfloat16)
+        multi = dat.decode_attention_multi(q, kc, vc, pos, c, **scales)
+        assert torch.equal(multi, dat.decode_attention_multi(q, kc, vc, pos, c, **scales))
+        ref = dat.decode_attention_multi_reference(q, kc, vc, pos, c, **scales)
+        ok = _decode_rows_ok(multi, ref, c, vmax)
+        assert bool(ok.all()), (L, ok.logical_not().nonzero().tolist())
+        if L == 8:
+            bad = multi.clone()
+            bad[:, L // 2 + 1:] = 0
+            assert not bool(_decode_rows_ok(bad, ref, c, vmax)[:, L // 2 + 1:].all())
+        for ps, (kp, vp, tab, pscales) in pools.items():
+            assert torch.equal(
+                dat.decode_attention_multi_paged(q, kp, vp, tab, pos, c, **pscales),
+                multi), (L, ps)
+        for l in range(L):
+            ql, pl = q[:, :, l].contiguous(), pos[:, l].contiguous()
+            one = dat.decode_attention(ql, kc1, vc1, pl, c, **one_scales)
+            assert torch.equal(one, multi[:, l]), (L, l)
+            for ps, (kp, vp, tab, pscales) in pools.items():
+                assert torch.equal(
+                    dat.decode_attention_paged(ql, kp, vp, tab, pl, c, **pscales),
+                    one), (L, l, ps)
 
 
 @pytest.mark.parametrize("verify", ["exact", "batched"])

@@ -174,6 +174,45 @@ def test_multi_rows_equal_single_row_calls():
         assert torch.equal(multi[:, l], one)
 
 
+SMEM_OPT_IN = 232448  # the H100's per-block shared memory, 227 KB
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("S", [1, 2, 8])
+# the envelope's edges (d 1..256, dv 1..512) and the recipes' widths
+@pytest.mark.parametrize("d,dv", [(1, 1), (40, 80), (96, 192), (256, 1), (1, 512),
+                                  (256, 512)])
+def test_decode_instance_rule(dtype, S, d, dv):
+    """``decode_instance``: fp32 takes the SIMT split body, bf16 queries
+    (bf16 or int8 K/V) the tensor cores; the keys per tile are a power of
+    two, the same for every L, and the largest whose block (the twin of
+    the kernel's shared-memory layout) fits the 227 KB opt-in."""
+    picks = {TDA.decode_instance(dtype, S, L, d, dv) for L in range(1, TDA.MAX_ROWS + 1)}
+    assert len(picks) == 1
+    (route, TK), = picks
+    assert route == ("mma" if dtype == torch.bfloat16 else "simt")
+    assert TK & (TK - 1) == 0 and (16 if route == "mma" else 8) <= TK <= TDA.MAX_TK
+    assert TDA.decode_smem_bytes(route, S, TK, d, dv) <= SMEM_OPT_IN
+    assert TK == TDA.MAX_TK or TDA.decode_smem_bytes(route, S, 2 * TK, d, dv) > SMEM_OPT_IN
+
+
+def test_decode_instance_at_the_recipes_and_outside_the_envelope():
+    """The recipes' decode widths take 64-key tiles in both dtypes; at the
+    envelope's widest corner (S 8, d 256, dv 512) a bf16 K tile of 64 keys
+    alone is 264 KB, so the tile halves; shapes past the envelope raise."""
+    for S, d, dv in ((1, 96, 96), (2, 96, 192), (4, 96, 192)):
+        assert TDA.decode_instance(torch.bfloat16, S, 5, d, dv) == ("mma", 64)
+        assert TDA.decode_instance(torch.float32, S, 5, d, dv) == ("simt", 64)
+    assert TDA.decode_instance(torch.bfloat16, 8, 1, 256, 512) == ("mma", 32)
+    assert TDA.decode_instance(torch.float32, 8, 1, 256, 512) == ("simt", 8)
+    for S, L, d, dv in ((9, 1, 96, 96), (1, 9, 96, 96), (1, 0, 96, 96),
+                        (1, 1, 257, 96), (1, 1, 96, 513)):
+        with pytest.raises(ValueError):
+            TDA.decode_instance(torch.bfloat16, S, L, d, dv)
+    with pytest.raises(TypeError):
+        TDA.decode_instance(torch.float16, 1, 1, 96, 96)
+
+
 # ---------------------------------------------------------------------------
 # the model functions
 # ---------------------------------------------------------------------------
