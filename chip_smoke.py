@@ -10,8 +10,8 @@ these phases, each printing its own lines and its seconds:
    versions, and the build of every kernel from the checkout's sources
    (one ``nvcc`` per CUDA source, all started together, the Triton JIT
    at first use), with the registers and spills ``ptxas -v`` reports for
-   the bf16 tensor-core instances of kernels D, E, K1-K4 and the decode
-   attention's split kernel (none may spill);
+   the bf16 tensor-core instances of kernels D, E, K1-K4, the decode
+   attention's split kernel and the SwiGLU kernels (none may spill);
 2. kernels: each hand-written kernel against its plain PyTorch version
    on the card at the recipe's shapes, fp32 and bf16, with max-abs
    error against a stated bound (the attention kernels row by row, each
@@ -22,12 +22,17 @@ these phases, each printing its own lines and its seconds:
    attention forward and backward for the diff, control and ndiff
    recipes, with SDPA's forward and backward at the control shape, both
    by CUDA-graph replay; add+norm backward, SwiGLU backward; add+norm and
-   SwiGLU forward also at the training shape M = 16384); and the
+   SwiGLU forward also at the training shape M = 16384; the SwiGLU's
+   instance at each shape (``swiglu_instance``), cuBLAS computing its
+   products alone beside it as a yardstick, the backward's three
+   launches by torch.profiler and two backward calls bit-equal); and the
    decode-attention instances of the paged pool, the int8 cache and the
    speculative verify (rows 5-int8, 6, 7, 8) at the recipes' decode
    shapes (8 slots, M 512, pages of 16, 5 verify rows) in fp32, bf16
    and int8, with the paged-vs-contiguous difference on the same
-   contents, the split body and tile length of each shape
+   contents, a batched verify of L 9 rows (two kernel passes) against
+   the plain version with every row equal to the single-row call bit for
+   bit, the split body and tile length of each shape
    (``decode_instance``), and the split and combine kernels' device
    times (torch.profiler) beside the whole call at L 1 and 5;
    kernels-hm: the head-major attention kernels K1-K4
@@ -59,7 +64,8 @@ these phases, each printing its own lines and its seconds:
    with batched verify and (b) contiguous, int8, batched verify — one
    request carrying a 64-token prefix, then 12 concurrent requests of
    which four share it — with prefix hits, draft acceptance, tokens per
-   decode step, TTFT of hits and misses and launch counters; greedy
+   decode step, TTFT of hits and misses and launch counters; (c) as (a)
+   with drafts of 8 (9 verify rows a slot) served to completion; greedy
    identity runs (paged vs contiguous, exact spec vs none); and the
    steady-state decode step of ``serving/decode_profile.py`` (wall, device
    busy, idle share) for the contiguous bf16 step, the paged int8 step and
@@ -350,7 +356,15 @@ def run_kernels(torch, ops) -> dict:
                         max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
                         bound_ms=bms, bound_by=by, library_ms=t["library_ms"])
 
-    # B: fused SwiGLU (CUDA C++)
+    # B: fused SwiGLU (CUDA C++) at the row counts the smoke's runs give
+    # it, so every instance branch is held against the plain version: the
+    # prefill chunks (powers of two up to 128: 1, 16, 32 and 64 take the
+    # skinny instance's 8-, 16-, 32- and 64-row branches, 128 one full mma
+    # tile), the decode step (8 slots), batched verify of 4 and 8 drafts
+    # over 8 slots (40: the 64-row branch, ragged; 72: a ragged mma tile)
+    # and the training shape (bf16; fp32 runs the SIMT kernel), beside
+    # cuBLAS computing the products alone (x @ [Wg | Wx], a yardstick: no
+    # one call computes the function)
     E, F = 768, 3072
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.finfo(dtype).bits // 8
@@ -361,26 +375,36 @@ def run_kernels(torch, ops) -> dict:
                 (0.02 * torch.randn(*shape, generator=gen, device="cuda")).to(dtype)
                 for shape in ((E, F), (F,), (E, F), (F,))))
         wg, bg, wx, bx = wsets[0]
-        for M in (8, 128, TRAIN_M):
+        wcats = [torch.cat([w[0], w[2]], dim=1) for w in wsets]
+        for M in (1, 8, 16, 32, 40, 64, 72, 128, TRAIN_M):
             x = torch.randn(M, E, generator=gen, device="cuda").to(dtype)
+            inst = ffn.swiglu_instance(dtype, M, E, F)
+            n0 = ffn.fused_swiglu.instances[inst]
             got = ffn.fused_swiglu(x, wg, bg, wx, bx)
             ref = ffn.swiglu_reference(x, wg, bg, wx, bx)
             err = float((got.float() - ref.float()).abs().max())
             # fp32: accumulation order over E = 768 products
             tol = 5e-5 if dtype == torch.float32 else bf16_ulp_bound(ref.float())
-            expect(err <= tol, f"fused_swiglu {dtype} M={M}: max-abs {err:.3g} "
-                   f"> bound {tol:.3g}")
+            expect(err <= tol and ffn.fused_swiglu.instances[inst] == n0 + 1,
+                   f"fused_swiglu {dtype} M={M} ({inst}): max-abs {err:.3g} "
+                   f"(bound {tol:.3g})")
             k_calls = [lambda s=s: ffn.fused_swiglu(x, *s) for s in wsets]
             p_calls = [lambda s=s: ffn.swiglu_reference(x, *s) for s in wsets]
             t = timings(k_calls, p_calls, **few(M == TRAIN_M))
+            yard = ""
+            if dtype == torch.bfloat16:
+                cub = device_ms([lambda c=c: x @ c for c in wcats], **few(M == TRAIN_M))
+                yard = (f"; cuBLAS x @ [Wg | Wx] alone {cub * 1e3:.2f} us "
+                        "(a yardstick, not the function)")
             nbytes = M * E * es + wbytes + 2 * F * es + M * F * es
             bms, by = bound_ms(nbytes, 4 * M * E * F + 6 * M * F, dtype)
-            log(f"[kernels] fused_swiglu {str(dtype)[6:]} M={M} E={E} F={F}: "
-                f"max-abs {err:.3g} (bound {tol:.3g}); " + fmt_times(t, bms, by)
-                + "; no one-call PyTorch equivalent")
-            if dtype == torch.bfloat16 and M == 8:
-                entries["fused_swiglu"] = dict(
-                    name="fused_swiglu", route="cuda",
+            log(f"[kernels] fused_swiglu {str(dtype)[6:]} M={M} E={E} F={F} "
+                f"({inst}): max-abs {err:.3g} (bound {tol:.3g}); "
+                + fmt_times(t, bms, by) + yard + "; no one-call PyTorch equivalent")
+            name = {8: "fused_swiglu", TRAIN_M: "fused_swiglu_train"}.get(M)
+            if dtype == torch.bfloat16 and name:
+                entries[name] = dict(
+                    name=name, route="cuda",
                     source="differential_transformer_replication_tpu_torch/csrc/fused_swiglu.cu",
                     replaces="differential_transformer_replication_tpu/ops/fused_ffn.py:81",
                     max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
@@ -568,12 +592,36 @@ def run_decode_kernels(torch, dat) -> dict:
                         outs["decode_attention_multi_paged"][0]))
             rows_diff = max_err(outs["decode_attention_multi"][0][:, 0],
                                 outs["decode_attention"][0])
-            inst = {L: dat.decode_instance(qdt, S, L, d, dv) for L in (1, DEC_L)}
+            # batched verify past one kernel pass: L = 9 rows (passes of 8
+            # and 1) against the plain version, paged equal to contiguous,
+            # and row l equal to the single-row call at pos[:, l], bit for bit
+            pos_9 = (base[:, None] + torch.arange(9, device="cuda",
+                                                  dtype=torch.int32)).contiguous()
+            q_9 = torch.randn(S, DEC_B, 9, H, d, generator=gen, device="cuda").to(qdt)
+            m9 = dat.decode_attention_multi(q_9, o["kc"], o["vc"], pos_9, c, **o["cs"])
+            r9 = dat.decode_attention_multi_reference(q_9, o["kc"], o["vc"], pos_9, c,
+                                                      **o["cs"])
+            p9 = dat.decode_attention_multi_paged(q_9, o["kp"], o["vp"], o["tab"], pos_9,
+                                                  c, **o["ps"])
+            tol9 = tol if store == "fp32" else (
+                tol - bf16_ulp_bound(outs["decode_attention_multi"][1].float())
+                + bf16_ulp_bound(r9.float()))
+            rows9 = all(torch.equal(m9[:, l], dat.decode_attention(
+                q_9[:, :, l].contiguous(), o["kc1"], o["vc1"], pos_9[:, l].contiguous(), c,
+                **o["cs1"])) for l in range(9))
+            err9 = max_err(m9, r9)
+            expect(err9 <= tol9 and torch.equal(m9, p9) and rows9,
+                   f"decode_attention_multi {name} {store} L=9: max-abs {err9:.3g} "
+                   f"(bound {tol9:.3g}), paged equal {torch.equal(m9, p9)}, rows "
+                   f"equal to single-row calls {rows9}")
+            inst = {L: dat.decode_instance(qdt, S, L, d, dv) for L in (1, DEC_L, 9)}
             log(f"[kernels] decode {name} {store} S={S} B={DEC_B} H={H} M={DEC_M} "
                 f"d={d} dv={dv} pages of {DEC_PS}, L={DEC_L}: max-abs vs plain "
                 + ", ".join(f"{k[17:] or 'contiguous'} {e:.3g}" for k, e in errs.items())
                 + f" (bound {tol:.3g}); paged vs contiguous on the same contents "
-                f"{paged_diff:.3g}; multi row 0 vs single row {rows_diff:.3g}; "
+                f"{paged_diff:.3g}; multi row 0 vs single row {rows_diff:.3g}; L 9 "
+                f"(two passes) max-abs {err9:.3g} (bound {tol9:.3g}), paged and every "
+                "row equal to the single-row calls bit for bit; "
                 + "; ".join(f"L {L}: split body {r}, {tk}-key tiles"
                             for L, (r, tk) in inst.items()))
             if store == "fp32":
@@ -713,12 +761,14 @@ def run_serve(torch, card: str) -> dict:
         counters = _counters()
         for fn in counters.values():
             fn.launches = 0
+        counters["fused_swiglu"].instances.clear()
         stats0 = engine.stats.snapshot()
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(bodies)) as pool:
             replies = list(pool.map(lambda b: _post(url + "/generate", b), bodies))
         wall = time.perf_counter() - t0
         counts = {name: fn.launches for name, fn in counters.items()}
+        instances = dict(counters["fused_swiglu"].instances)
         stats1 = engine.stats.snapshot()
         for (status, reply), body in zip(replies, bodies):
             expect(status == 200, f"/generate answered {status}: {reply}")
@@ -737,7 +787,12 @@ def run_serve(torch, card: str) -> dict:
                     "fused_swiglu": L * (steps + chunks),
                     "decode_attention": L * steps}
         log(f"[serve] {len(bodies)} requests, {steps} decode steps, {chunks} "
-            f"prefill chunks; launches {counts} (expected {expected})")
+            f"prefill chunks; launches {counts} (expected {expected}); "
+            f"fused_swiglu instances {instances}")
+        # the decode steps (8 rows) run the skinny instance
+        expect(instances.get("skinny", 0) >= L * steps
+               and sum(instances.values()) == counts["fused_swiglu"],
+               f"fused_swiglu instances {instances}")
         for name, n in expected.items():
             expect(counts[name] == n and n > 0,
                    f"{name} launched {counts[name]} times, expected {n}")
@@ -897,9 +952,12 @@ def run_serve_paged(torch, card: str) -> dict:
             ("paged", "paged, prefix cache, no spec", paged),
             ("contiguous", "contiguous, no spec", {}),
             ("paged-exact", "paged, prefix cache, exact verify",
-             dict(paged, spec_mode="ngram", spec_verify="exact"))):
-        runs[key] = r = serve_waves(torch, params, cfg, ServingConfig(**base, **kw),
-                                    donor, wave)
+             dict(paged, spec_mode="ngram", spec_verify="exact")),
+            ("c", "paged, prefix cache, batched verify of 8 drafts (9 rows: two "
+             "kernel passes)",
+             dict(paged, spec_mode="ngram", spec_verify="batched", spec_draft_len=8))):
+        serving = ServingConfig(**{**base, **kw})
+        runs[key] = r = serve_waves(torch, params, cfg, serving, donor, wave)
         s0, s1 = r["stats0"], r["stats1"]
         steps = s1["decode_steps"] - s0["decode_steps"]
         verify = s1["spec_steps"] - s0["spec_steps"]
@@ -910,7 +968,8 @@ def run_serve_paged(torch, card: str) -> dict:
         ttft = {h: [r["replies"][i]["ttft_ms"] for i in range(len(wave))
                     if (i in HITS) == h] for h in (True, False)}
         pages = r["health"].get("kv_pages")
-        log(f"[serve-paged] ({key}) {label}, int8 KV, pages of 16, k = 4: wave of {len(wave)} in {r['wall']:.2f} s over {iters} engine iterations "
+        log(f"[serve-paged] ({key}) {label}, int8 KV, pages of 16, k = {serving.spec_draft_len}: "
+            f"wave of {len(wave)} in {r['wall']:.2f} s over {iters} engine iterations "
             f"({r['wall'] / max(iters, 1) * 1e3:.1f} ms per iteration); {steps} decode "
             f"steps ({verify} verify), {tokens / max(steps, 1):.2f} tokens per decode "
             f"step over all slots; drafts {accepted}/{proposed} accepted"
@@ -937,7 +996,14 @@ def run_serve_paged(torch, card: str) -> dict:
     a, b = runs["a"], runs["b"]
     expect(a["health"]["kv_pages"]["hits_total"] >= len(HITS),
            f"prefix hits {a['health']['kv_pages']['hits_total']} < {len(HITS)}")
-    for key in ("a", "b"):
+    # (c) served every request to completion (serve_waves) through the
+    # multi-row paged kernel, once a layer per verify step
+    c_st, c_counts = runs["c"]["stats1"], runs["c"]["counts"]
+    expect(c_counts["decode_attention_multi_paged"][0] == cfg.n_layer * c_st["spec_steps"] > 0,
+           f"run (c): decode_attention_multi_paged launched "
+           f"{c_counts['decode_attention_multi_paged'][0]} times over "
+           f"{c_st['spec_steps']} verify steps")
+    for key in ("a", "b", "c"):
         acc = runs[key]["stats1"]["spec_accepted"] - runs[key]["stats0"]["spec_accepted"]
         expect(acc > 0, f"run ({key}) accepted no draft")
     L = cfg.n_layer
@@ -1290,21 +1356,35 @@ def run_train_kernels(torch, ops) -> dict:
         expect(err <= tol and w_err <= w_tol,
                f"swiglu_bwd {dtype}: dg/dt max-abs {err:.3g} (bound {tol:.3g}), "
                f"dW/db relative {w_err:.3g} (bound {w_tol:.3g})")
+        # no atomics: a second call gives the same results bit for bit
+        again = ffn.swiglu_bwd(x, *ws, gh)
+        expect(all(torch.equal(a, b) for a, b in zip((dgt, dw, db), again)),
+               f"swiglu_bwd {dtype}: two calls differ")
+        inst = ffn.swiglu_instance(dtype, M, E, F, backward=True)
         t = timings([lambda: ffn.swiglu_bwd(x, *ws, gh)],
                     [lambda: ffn.swiglu_bwd_reference(x, *ws, gh)], None,
                     **few(True))
+        yard = ""
+        if dtype == torch.bfloat16:
+            wcat = torch.cat([ws[0], ws[2]], dim=1)
+            cub = device_ms([lambda: (x @ wcat, x.t() @ dgt)], **few(True))
+            parts = kernel_us([lambda: ffn.swiglu_bwd(x, *ws, gh)],
+                              ("swiglu_act_wgmma", "swiglu_wgrad_wgmma", "finish"), n=6)
+            yard = (f"; cuBLAS x @ [Wg | Wx] + x^T @ [dg | dt] alone {cub * 1e3:.2f} us "
+                    f"(a yardstick, not the function); launches (torch.profiler): "
+                    + ", ".join(f"{k} {v:.1f} us" for k, v in parts.items()))
         nbytes = (M * E + 2 * E * F + 2 * F + M * F + 2 * M * F) * es + 2 * E * F * 4 + 2 * F * 4
         bms, by = bound_ms(nbytes, 8 * M * E * F + 20 * M * F, dtype)
-        log(f"[kernels] swiglu_bwd {str(dtype)[6:]} M={M} E={E} F={F}: dg/dt "
+        log(f"[kernels] swiglu_bwd {str(dtype)[6:]} M={M} E={E} F={F} ({inst}): dg/dt "
             f"max-abs {err:.3g} (bound {tol:.3g}), dW/db relative {w_err:.3g} "
-            f"(bound {w_tol:.3g}); " + fmt_times(t, bms, by)
-            + "; no one-call PyTorch equivalent")
+            f"(bound {w_tol:.3g}), two calls bit-equal; " + fmt_times(t, bms, by)
+            + yard + "; no one-call PyTorch equivalent")
         if dtype == torch.bfloat16:
             entries["swiglu_bwd"] = dict(
                 name="swiglu_bwd", route="cuda", source=SRC + "csrc/fused_swiglu.cu",
                 replaces=TPU + "fused_ffn.py:169", max_abs_err=err, ms=t["ms"],
                 plain_ms=t["plain_ms"], bound_ms=bms, bound_by=by, library_ms=None)
-        del x, ws, gh, dgt, rdgt
+        del x, ws, gh, dgt, rdgt, again
     torch.cuda.empty_cache()
     return entries
 
@@ -1662,12 +1742,21 @@ def run_train(torch, card: str) -> dict:
         mcfg = cfg.resolved_model()
         for fn in counters.values():
             fn.launches = 0
+        swiglu = (counters["fused_swiglu"], counters["swiglu_bwd"])
+        for fn in swiglu:
+            fn.instances.clear()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         state, history = train(cfg, str(tokens), device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {name: fn.launches for name, fn in counters.items()}
+        # every SwiGLU call of the run (M = 16384 rows, bf16) on the mma
+        # instance, forward and backward
+        for fn in swiglu:
+            expect(dict(fn.instances) == {"mma": fn.launches},
+                   f"{model}: SwiGLU instances {dict(fn.instances)}, expected "
+                   f"{fn.launches} mma")
         losses = [m["loss"] for m in history]
         expect(len(history) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
                f"{model}: non-finite or missing losses {losses}")
@@ -2494,17 +2583,20 @@ def main() -> int:
     paths = _kernels.build()
     log(f"[build] nvcc sm_90a: {', '.join(p.name for p in paths.values())} "
         f"in {time.perf_counter() - t0:.1f} s")
-    # kernels D and E, K1-K4 and the decode attention's split kernel in
-    # bf16 (the tensor-core instances, "_mma"; bf16 and int8 K/V for the
-    # decode): their registers per thread, and no local-memory spill
-    # (ptxas -v)
+    # kernels D and E, K1-K4, the decode attention's split kernel and the
+    # SwiGLU kernels in bf16 (the tensor-core instances, "_mma" and
+    # "wgmma"; bf16 and int8 K/V for the decode; the SwiGLU's wgmma tiles
+    # and skinny instance):
+    # their registers per thread, and no local-memory spill (ptxas -v)
     for lib in ("flash_tm", "flash_bh_fwd", "flash_bh_bwd_dq", "flash_bh_bwd_dkv",
-                "flash_bh_bwd_fused", "decode_attention"):
-        usage = {k: v for k, v in _kernels.ptxas_usage(lib).items() if "_mma" in k}
+                "flash_bh_bwd_fused", "decode_attention", "fused_swiglu"):
+        usage = {k: v for k, v in _kernels.ptxas_usage(lib).items()
+                 if "_mma" in k or "wgmma" in k}
         for fn, (regs, spill) in sorted(usage.items()):
             m = re.search(r"((?:tm|bh)_(?:fwd|bwd_dq|bwd_dkv|bwd_fused_dkv|bwd_fused_dk|"
-                          r"bwd_dk|bwd_dv)_mma|dattn_split_mma)I(\w*?)EEv", fn)
-            log(f"[build] ptxas {m.group(1) if m else fn} <{m.group(2) if m else ''}>: "
+                          r"bwd_dk|bwd_dv)_mma|dattn_split_mma)I(\w*?)EEv", fn) or \
+                re.search(r"\d(swiglu_[a-z_]+?mma)(?:I(\w+?)E)?E", fn)
+            log(f"[build] ptxas {m.group(1) if m else fn} <{(m.group(2) or '') if m else ''}>: "
                 f"{regs} registers, {spill} bytes spilled")
         spilled = [fn for fn, (_, spill) in usage.items() if spill]
         if not usage or spilled:
@@ -2563,6 +2655,8 @@ def main() -> int:
             ent["launches"] = hm_counts[name]
         elif name in ("flash_tm_fwd", "flash_tm_bwd", "add_norm_bwd", "swiglu_bwd"):
             ent["launches"] = train_counts[name]
+        elif name == "fused_swiglu_train":
+            ent["launches"] = train_counts["fused_swiglu"]
         else:
             ent["launches"] = serve_counts.get(name, 0)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -14,6 +14,8 @@
 
 #include <type_traits>
 
+#include "smem_opt_in.cuh"
+
 namespace {
 
 namespace wm = nvcuda::wmma;
@@ -176,19 +178,6 @@ __device__ __forceinline__ void mm(float* C, int ldc, const float* A, int lda,
     }
     C[(size_t)m * ldc + n] = acc;
   }
-}
-
-// lets launches of ``Kernel`` take ``smem`` bytes of dynamic shared memory
-// (above 48 KB a launch without it is refused); set again only when a
-// launch needs more than before, so graph-captured launches make no calls
-template <auto Kernel>
-int allow_smem(size_t smem) {
-  static size_t granted = 0;
-  if (smem <= granted) return 0;
-  const cudaError_t err =
-      cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) granted = smem;
-  return static_cast<int>(err);
 }
 
 bool shapes_ok(int S, int BH, int T_len, int H, int d, int dv) {

@@ -98,6 +98,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "smem_opt_in.cuh"
+
 namespace {
 
 constexpr int BQ = 32;        // query rows per tile
@@ -1237,20 +1239,6 @@ size_t dkdv_smem(int S, int d, int dv) {
   const int DP = d | 1, VP = dv | 1;
   return sizeof(float) * ((size_t)S * KT * DP + (size_t)KT * dv + (size_t)BQ * DP +
                           (size_t)BQ * VP + 2 * (size_t)KT * (BQ + 1));
-}
-
-// lets launches of ``kernel`` take ``smem`` bytes of dynamic shared
-// memory (above 48 KB a launch without it is refused, error 1); the
-// attribute is set again only when a launch needs more than before, so
-// launches captured into a CUDA graph make no attribute calls
-template <auto Kernel>
-int allow_smem(size_t smem) {
-  static size_t granted = 0;  // one per kernel
-  if (smem <= granted) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) granted = smem;
-  return static_cast<int>(err);
 }
 
 bool shapes_ok(int S, int B, int T_len, int H, int d, int dv) {

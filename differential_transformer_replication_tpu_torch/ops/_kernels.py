@@ -56,13 +56,14 @@ _BWD_FUSED = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
 
 SIGNATURES = {
     "fused_swiglu": {
-        # x, wg, bg, wx, bx, out, M, E, F, dtype, stream
-        "fused_swiglu_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-        # M, F -> workspace floats (-1: refused)
-        "fused_swiglu_bwd_workspace": (_I, _I),
-        # x, wg, bg, wx, bx, gh, dgt, dw, db, work, M, E, F, dtype, stream
+        # x, wg, bg, wx, bx, out, M, E, F, dtype, instance, stream
+        "fused_swiglu_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        # M, E, F, instance -> workspace floats (-1: refused)
+        "fused_swiglu_bwd_workspace": (_I, _I, _I, _I),
+        # x, wg, bg, wx, bx, gh, dgt, dw, db, work, M, E, F, dtype,
+        # instance, stream
         "fused_swiglu_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                             _I, _I, _P),
+                             _I, _I, _I, _P),
     },
     "flash_tm": {
         # qs[S], ks[S], v, coeffs, out, o_all, lse, S, B, T, H, d, dv,

@@ -29,15 +29,18 @@ arithmetic bit for bit. :func:`decode_instance` states which split body
 runs (tensor cores for bf16 queries, SIMT for fp32) and the keys per
 tile, which the wrapper passes to the kernel; the tile length does not
 depend on L, so row l of an L-row call equals the single-row call at
-that row's position bit for bit. The wrapper allocates the per-tile
-partial records the two kernels share.
+that row's position bit for bit. The kernel takes at most MAX_ROWS query
+rows a slot; the multi-row wrappers run any L in passes of at most
+MAX_ROWS rows (:func:`verify_passes`, two device launches a pass). The
+wrapper allocates the per-tile partial records the two kernels share.
 
 Dispatch is by device: a CPU tensor runs the function's plain version
 (``*_reference``), a CUDA tensor always launches the kernel (or
-raises), any other device raises. Each wrapper counts its kernel
-launches in ``.launches`` and those of its int8 instance also in
-``.int8_launches``. None has a backward (nor has the TPU kernel): an
-input that requires grad, with grad mode on, raises on every device.
+raises), any other device raises. Each wrapper counts its calls that
+launch the kernel in ``.launches`` (one a call, whatever its passes)
+and those of its int8 instance also in ``.int8_launches``. None has a
+backward (nor has the TPU kernel): an input that requires grad, with
+grad mode on, raises on every device.
 
 The kernel and the plain versions agree in fp32. In bf16 they differ by
 rounding: the kernel (like the TPU kernel) casts each stream's
@@ -56,7 +59,7 @@ import torch
 from differential_transformer_replication_tpu_torch.ops import _kernels
 from differential_transformer_replication_tpu_torch.ops.streams import NEG_INF
 
-MAX_ROWS = 8  # query rows per slot the kernel takes (k + 1 of the verify)
+MAX_ROWS = 8  # query rows per slot one kernel pass takes (verify_passes)
 # streams and head widths the kernel takes (csrc/decode_attention.cu)
 MAX_S, MAX_D, MAX_DV = 8, 256, 512
 MAX_TK = 64  # keys per tile
@@ -105,12 +108,14 @@ def decode_instance(dtype: torch.dtype, S: int, L: int, d: int, dv: int) -> tupl
     (down to 16 for ``mma``, whole 16-key row tiles, 8 for ``simt``) whose
     block fits the shared memory. It does not depend on L, so an L-row
     call cuts the keys into the single-row call's tiles: row l of the one
-    equals the other at ``pos[:, l]`` bit for bit."""
-    if not (1 <= S <= MAX_S and 1 <= L <= MAX_ROWS and 1 <= d <= MAX_D
+    equals the other at ``pos[:, l]`` bit for bit. Any L >= 1 is taken:
+    the wrapper runs the rows in passes of at most MAX_ROWS
+    (:func:`verify_passes`)."""
+    if not (1 <= S <= MAX_S and L >= 1 and 1 <= d <= MAX_D
             and 1 <= dv <= MAX_DV):
         raise ValueError(
-            f"decode attention takes S <= {MAX_S}, L <= {MAX_ROWS}, d <= "
-            f"{MAX_D}, dv <= {MAX_DV}; got S={S}, L={L}, d={d}, dv={dv}")
+            f"decode attention takes S <= {MAX_S}, L >= 1, d <= {MAX_D}, "
+            f"dv <= {MAX_DV}; got S={S}, L={L}, d={d}, dv={dv}")
     if dtype not in _kernels.DTYPE_CODES:
         raise TypeError(f"decode attention: unsupported query dtype {dtype}")
     route = "mma" if dtype == torch.bfloat16 else "simt"
@@ -118,6 +123,17 @@ def decode_instance(dtype: torch.dtype, S: int, L: int, d: int, dv: int) -> tupl
     while TK > least and decode_smem_bytes(route, S, TK, d, dv) > SMEM_LIMIT:
         TK //= 2
     return route, TK
+
+
+def verify_passes(L: int) -> list:
+    """The row ranges ``[l0, l1)`` of an L-row call's kernel passes, at
+    most MAX_ROWS rows each (the kernel's shared memory is sized for
+    MAX_ROWS query rows a slot). Each pass is a full kernel call on rows
+    ``l0 .. l1 - 1`` with their own positions, so every row is computed
+    exactly as in the single-row call."""
+    if L < 1:
+        raise ValueError(f"decode attention needs L >= 1 rows, got {L}")
+    return [(l0, min(l0 + MAX_ROWS, L)) for l0 in range(0, L, MAX_ROWS)]
 
 
 # ---------------------------------------------------------------------------
@@ -305,6 +321,20 @@ def _launch(what: str, qs, k, v, k_scale, v_scale, pos, tables, coeffs, *,
     return out
 
 
+def _launch_rows(what: str, qs, k, v, k_scale, v_scale, pos, tables, coeffs,
+                 **shape) -> torch.Tensor:
+    """:func:`_launch` for ``qs`` (S, B, L, H, d) in the passes of
+    :func:`verify_passes`. A pass past the first copies its rows of
+    ``qs`` and ``pos`` into contiguous tensors (a few KB) and the C
+    launcher runs unchanged on them; the passes' (B, l1 - l0, H, dv)
+    outputs are joined along the rows."""
+    outs = [_launch(what, qs[:, :, l0:l1].contiguous(), k, v, k_scale, v_scale,
+                    pos[:, l0:l1].contiguous(), tables, coeffs, L=l1 - l0,
+                    **shape)
+            for l0, l1 in verify_passes(qs.shape[2])]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
 def _count(fn, k_scale) -> None:
     fn.launches += 1
     if k_scale is not None:
@@ -406,8 +436,8 @@ def decode_attention_multi(qs: torch.Tensor, k_cache: torch.Tensor,
                   and coeffs.shape == (S, H)
                   and _scales_agree(k_cache, v_cache, k_scale, v_scale),
                   q=qs, K=k_cache, V=v_cache, pos=pos, coeffs=coeffs)
-    out = _launch(what, qs, k_cache, v_cache, k_scale, v_scale, pos, None,
-                  coeffs, B=B, L=L, M=M, n_pages=R, page_size=M)
+    out = _launch_rows(what, qs, k_cache, v_cache, k_scale, v_scale, pos, None,
+                       coeffs, B=B, M=M, n_pages=R, page_size=M)
     _count(decode_attention_multi, k_scale)
     return out
 
@@ -436,9 +466,9 @@ def decode_attention_multi_paged(qs: torch.Tensor, k_pages: torch.Tensor,
                   and _scales_agree(k_pages, v_pages, k_scale, v_scale),
                   q=qs, K=k_pages, V=v_pages, tables=page_tables, pos=pos,
                   coeffs=coeffs)
-    out = _launch(what, qs, k_pages, v_pages, k_scale, v_scale, pos,
-                  page_tables, coeffs, B=B, L=L, M=pp * ps, n_pages=P,
-                  page_size=ps)
+    out = _launch_rows(what, qs, k_pages, v_pages, k_scale, v_scale, pos,
+                       page_tables, coeffs, B=B, M=pp * ps, n_pages=P,
+                       page_size=ps)
     _count(decode_attention_multi_paged, k_scale)
     return out
 

@@ -8,7 +8,10 @@ pre-activations, and its backward, which recomputes them tile by tile.
 The kernels, their bounds on the H100 and their designs are described in
 ``csrc/fused_swiglu.cu``: the forward is bound by the weight read at
 decode and prefill-chunk sizes, the backward by arithmetic at the
-training shape (M = 16384 rows).
+training shape (M = 16384 rows). :func:`swiglu_instance` names the
+kernel that runs for a dtype and shape (tensor cores for bf16 at widths
+in multiples of 8, SIMT otherwise); the wrapper passes it to the C
+launcher, which does not decide again.
 
 The backward kernel returns the pre-activation cotangents ``[dg | dt]``
 in the storage dtype, fp32 ``dWg = x^T dg`` and ``dWx = x^T dt`` from
@@ -22,14 +25,52 @@ Dispatch is by device: a CPU tensor runs :func:`swiglu_reference` /
 (or raises), any other device raises. :func:`fused_swiglu` is
 differentiable (a ``torch.autograd.Function`` whose backward is
 :func:`swiglu_bwd`). ``fused_swiglu.launches`` counts the forward
-kernel's launches, ``swiglu_bwd.launches`` the backward's.
+kernel's calls (one device launch each), ``swiglu_bwd.launches`` the
+backward's (three device launches each); ``.instances`` counts them by
+instance.
 """
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from differential_transformer_replication_tpu_torch.ops import _kernels
+
+# the instance codes shared with csrc/fused_swiglu.cu
+INSTANCES = {"simt": 0, "mma": 1, "skinny": 2}
+# forward rows up to which the skinny instance beats the mma tiles on the
+# H100 (past them every 16-column block's re-read of x costs more than the
+# mma tiles' idle SMs)
+SKINNY_MAX_M = 64
+
+
+def swiglu_instance(dtype: torch.dtype, M: int, E: int, F: int, *,
+                    backward: bool = False) -> str:
+    """Which kernel runs on the card for M rows of x (M, E) against
+    (E, F) weights. ``skinny``: the bf16 forward at M <= SKINNY_MAX_M
+    (the decode step's rows), weight-read bound, the weights as the
+    tensor cores' m16 operand; ``mma``: bf16 at larger M and every
+    bf16 backward, warpgroup-MMA (wgmma) tiles of both products;
+    ``simt``: fp32 (bf16 or tf32 products would not hold the plain
+    version's 5e-5) and bf16 widths that are not multiples of 8 (the
+    kernels stage 16-byte vectors). Ragged M, E and F edges are masked
+    inside the tensor-core kernels."""
+    if dtype not in _kernels.DTYPE_CODES:
+        raise TypeError(f"fused SwiGLU: unsupported dtype {dtype}")
+    if dtype != torch.bfloat16 or E % 8 or F % 8:
+        return "simt"
+    if not backward and M <= SKINNY_MAX_M:
+        return "skinny"
+    return "mma"
+
+
+def _aligned16(tensors):
+    """The tensor-core kernels load 16-byte vectors: operands whose data
+    does not start 16-byte aligned (a view into a larger buffer) are
+    copied, which aligns them."""
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors]
 
 
 def swiglu_reference(x, w_gate, b_gate, w_xform, b_xform) -> torch.Tensor:
@@ -95,14 +136,18 @@ def _forward(x, wg, bg, wx, bx) -> torch.Tensor:
 def _launch(x, wg, bg, wx, bx) -> torch.Tensor:
     E, F = _check("fused_swiglu", x, (wg, bg, wx, bx))
     M = x.numel() // E
+    inst = swiglu_instance(x.dtype, M, E, F)
+    if inst != "simt":
+        x, wg, bg, wx, bx = _aligned16((x, wg, bg, wx, bx))
     out = torch.empty(x.shape[:-1] + (F,), dtype=x.dtype, device=x.device)
     lib = _kernels.load("fused_swiglu")
     rc = lib.fused_swiglu_fwd(
         x.data_ptr(), wg.data_ptr(), bg.data_ptr(), wx.data_ptr(),
         bx.data_ptr(), out.data_ptr(), M, E, F, _kernels.DTYPE_CODES[x.dtype],
-        _kernels.stream_handle(x.device),
+        INSTANCES[inst], _kernels.stream_handle(x.device),
     )
     _kernels.check(rc, "fused_swiglu")
+    fused_swiglu.instances[inst] += 1
     return out
 
 
@@ -116,8 +161,12 @@ def swiglu_bwd(x, w_gate, b_gate, w_xform, b_xform, gh):
     M = x.shape[0]
     if gh.shape != (M, F):
         raise ValueError(f"swiglu_bwd: gh must be ({M}, {F})")
+    inst = swiglu_instance(x.dtype, M, E, F, backward=True)
+    if inst != "simt":
+        x, w_gate, b_gate, w_xform, b_xform, gh = _aligned16(
+            (x, w_gate, b_gate, w_xform, b_xform, gh))
     lib = _kernels.load("fused_swiglu")
-    n_work = lib.fused_swiglu_bwd_workspace(M, F)
+    n_work = lib.fused_swiglu_bwd_workspace(M, E, F, INSTANCES[inst])
     if n_work < 0:
         raise ValueError("swiglu_bwd: shapes refused by the kernel")
     dev = x.device
@@ -129,10 +178,11 @@ def swiglu_bwd(x, w_gate, b_gate, w_xform, b_xform, gh):
         x.data_ptr(), w_gate.data_ptr(), b_gate.data_ptr(), w_xform.data_ptr(),
         b_xform.data_ptr(), gh.data_ptr(), dgt.data_ptr(), dw.data_ptr(),
         db.data_ptr(), work.data_ptr(), M, E, F, _kernels.DTYPE_CODES[x.dtype],
-        _kernels.stream_handle(dev),
+        INSTANCES[inst], _kernels.stream_handle(dev),
     )
     _kernels.check(rc, "swiglu_bwd")
     swiglu_bwd.launches += 1
+    swiglu_bwd.instances[inst] += 1
     return dgt, dw, db
 
 
@@ -174,3 +224,5 @@ def fused_swiglu(x: torch.Tensor, w_gate: torch.Tensor, b_gate: torch.Tensor,
 
 fused_swiglu.launches = 0
 swiglu_bwd.launches = 0
+fused_swiglu.instances = Counter()
+swiglu_bwd.instances = Counter()

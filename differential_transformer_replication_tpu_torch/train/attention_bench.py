@@ -13,10 +13,19 @@ beside K4 as the other way to the same backward. It also times the
 decode attention of the serving step (``ops/decode_attention.py``,
 ``csrc/decode_attention.cu``: rows 5-8, contiguous and paged, bf16 and
 int8 K/V, L 1 and 5, under ``decode``) at the diff and control decode
-shapes, beside SDPA with a boolean mask at the control shape.
+shapes, beside SDPA with a boolean mask at the control shape. Under
+``ffn`` it times the fused SwiGLU (``ops/fused_ffn.py``,
+``csrc/fused_swiglu.cu``: Queue B rows 3 and 4), forward and backward at
+the recipe's widths (E 768, F 3072) and M 8 (a decode step), 128 (a
+prefill chunk) and 16384 (a training step), each beside its bound and
+beside cuBLAS computing the same products alone (``x @ [Wg | Wx]``; for
+the backward that plus ``x^T @ [dg | dt]``): a yardstick of what the
+card reaches at these shapes, not a one-call equivalent of the function;
+and the forward on both of its tensor-core instances at 32 to 128 rows,
+where ``swiglu_instance`` switches between them.
 
     python differential_transformer_replication_tpu_torch/train/attention_bench.py \
-        [--root DIR] [--tag NAME] [--parts tm,hm,decode]
+        [--root DIR] [--tag NAME] [--parts tm,hm,decode,ffn]
 
 ``--root`` names the checkout whose package is timed (default: the one
 that holds this file), so that two trees are compared on one card in one
@@ -87,7 +96,11 @@ CHUNK_BWD_TL, CHUNK_BWD_B, CHUNK_BWD_OFFS = 4096, 2, (("+Tl", 1), ("0", 0), ("-T
 DEC_B, DEC_M, DEC_PS, DEC_LS = 8, 512, 16, (1, 5)
 DEC_SHAPES = (("diff", 2, 4, 96, 192), ("control", 1, 8, 96, 96))
 DEC_POS = (0, 37, 300, 506, 506, 300, 37, 150)
-PARTS = ("tm", "hm", "decode")
+# the fused SwiGLU (Queue B rows 3 and 4): the recipe's widths, and the
+# rows of a decode step, a prefill chunk and a training step
+FFN_E, FFN_F, FFN_MS = 768, 3072, (8, 128, 16384)
+FFN_SWITCH_MS = (32, 64, 96, 128)  # rows timed on both forward instances
+PARTS = ("tm", "hm", "decode", "ffn")
 
 
 def device_ms(torch, calls) -> float:
@@ -349,6 +362,61 @@ def bench_decode(torch, dat) -> dict:
     return res
 
 
+def bench_ffn(torch, ffn) -> dict:
+    """Rows 3 and 4 in bf16: ``fused_swiglu`` and ``swiglu_bwd`` at each M
+    of FFN_MS, the weights cycled past the L2, with the bound (each
+    operand read once, each result written once; 4 M E F products
+    forward, 8 M E F backward) and cuBLAS's time for the products alone;
+    under "switch", where the package has ``swiglu_instance``, the
+    forward on each tensor-core instance at FFN_SWITCH_MS rows."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    dt, E, F = torch.bfloat16, FFN_E, FFN_F
+
+    def weights():
+        w = [(0.02 * torch.randn(*s, generator=gen, device="cuda")).to(dt)
+             for s in ((E, F), (F,), (E, F), (F,))]
+        return w, torch.cat([w[0], w[2]], dim=1)
+
+    sets = copies(4 * E * F, weights)
+    res = {}
+    for M in FFN_MS:
+        x = torch.randn(M, E, generator=gen, device="cuda").to(dt)
+        gh = torch.randn(M, F, generator=gen, device="cuda").to(dt)
+        dgt = torch.randn(M, 2 * F, generator=gen, device="cuda").to(dt)
+        fwd_bytes = 2 * (M * E + 2 * E * F + 2 * F + M * F)
+        bwd_bytes = 2 * (M * E + 2 * E * F + 2 * F + 3 * M * F) + 4 * (2 * E * F + 2 * F)
+        res[f"M{M}"] = {
+            "fwd_ms": device_ms(torch, [lambda w=w: ffn.fused_swiglu(x, *w) for w, _ in sets]),
+            "fwd_bound_ms": max(fwd_bytes / PEAK_BYTES_S,
+                                (4 * M * E * F + 6 * M * F) / PEAK_BF16) * 1e3,
+            "fwd_cublas_ms": device_ms(torch, [lambda c=c: x @ c for _, c in sets]),
+            "bwd_ms": device_ms(torch, [lambda w=w: ffn.swiglu_bwd(x, *w, gh)
+                                        for w, _ in sets]),
+            "bwd_bound_ms": max(bwd_bytes / PEAK_BYTES_S,
+                                (8 * M * E * F + 20 * M * F) / PEAK_BF16) * 1e3,
+            "bwd_cublas_ms": device_ms(torch, [lambda c=c: (x @ c, x.t() @ dgt)
+                                               for _, c in sets]),
+        }
+        del x, gh, dgt
+    if hasattr(ffn, "swiglu_instance"):
+        # the forward's two tensor-core instances on both sides of the
+        # rows where swiglu_instance switches from one to the other
+        pick = ffn.swiglu_instance
+        try:
+            for M in FFN_SWITCH_MS:
+                x = torch.randn(M, E, generator=gen, device="cuda").to(dt)
+                for inst in ("skinny", "mma"):
+                    ffn.swiglu_instance = lambda *a, inst=inst, **k: inst
+                    res.setdefault("switch", {}).setdefault(f"M{M}", {})[inst + "_ms"] = \
+                        device_ms(torch, [lambda w=w: ffn.fused_swiglu(x, *w) for w, _ in sets])
+        finally:
+            ffn.swiglu_instance = pick
+    del sets
+    torch.cuda.empty_cache()
+    return res
+
+
 def _attention_work():
     """``testing.attention_work`` of the tree that holds this file, which
     ``--root`` need not have."""
@@ -379,6 +447,7 @@ def main() -> int:
     from differential_transformer_replication_tpu_torch.ops import (
         decode_attention as dat,
         flash,
+        fused_ffn as ffn,
     )
 
     card = subprocess.run(
@@ -392,6 +461,8 @@ def main() -> int:
         out["hm"] = bench_hm(torch, flash, work)
     if "decode" in parts:
         out["decode"] = bench_decode(torch, dat)
+    if "ffn" in parts:
+        out["ffn"] = bench_ffn(torch, ffn)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -94,21 +94,35 @@ def test_add_norm_kernels_match_plain(gen, dtype, shape):
     assert (fnr.fused_norm.launches - n0, fnr.fused_add_norm.launches - a0) == (1, 1)
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
-# M = 1024 in bf16 takes the tensor-core path (M >= 512, E and F
-# multiples of 64); the others the SIMT path
-@pytest.mark.parametrize("M,E,F", [(8, 768, 3072), (128, 768, 3072), (5, 70, 99),
-                                   (1024, 768, 3072)])
-def test_swiglu_kernel_matches_plain(gen, dtype, M, E, F):
+# bf16 takes the tensor-core instances at widths in multiples of 8
+# (swiglu_instance: skinny at M <= 64, mma above; M 40, 100 and 1000 off
+# the 8- and 128-row grids; (64, 256) and (72, 200) widths off the
+# 128-column tile); fp32 and (5, 70, 99) the SIMT kernels
+SWIGLU_SHAPES = [(M, E, F) for E, F in ((768, 3072), (64, 256), (72, 200))
+                 for M in (1, 8, 40, 64, 100, 128, 1000, 16384)] + [(5, 70, 99),
+                                                                    (1024, 768, 3072)]
+
+
+def _swiglu_operands(gen, dtype, M, E, F):
     x = torch.randn(M, E, generator=gen, device="cuda").to(dtype)
     ws = [(0.05 * torch.randn(*s, generator=gen, device="cuda")).to(dtype)
           for s in ((E, F), (F,), (E, F), (F,))]
-    n0 = ffn.fused_swiglu.launches
+    return x, ws
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("M,E,F", SWIGLU_SHAPES)
+def test_swiglu_kernel_matches_plain(gen, dtype, M, E, F):
+    x, ws = _swiglu_operands(gen, dtype, M, E, F)
+    inst = ffn.swiglu_instance(dtype, M, E, F)
+    n0, i0 = ffn.fused_swiglu.launches, ffn.fused_swiglu.instances[inst]
     got = ffn.fused_swiglu(x, *ws)
     ref = ffn.swiglu_reference(x, *ws)
     assert got.dtype == dtype and got.shape == (M, F)
     assert _err(got, ref) <= (5e-5 if dtype == torch.float32 else _ulp(ref))
     assert ffn.fused_swiglu.launches - n0 == 1
+    assert ffn.fused_swiglu.instances[inst] - i0 == 1
+    assert torch.equal(got, ffn.fused_swiglu(x, *ws))
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
@@ -233,7 +247,8 @@ def _decode_rows_ok(got: torch.Tensor, ref: torch.Tensor, c: torch.Tensor,
                                   (128, 128), (256, 512)])
 def test_decode_mma_instances_across_the_envelope(gen, store, S, d, dv):
     """The tensor-core instances (bf16 queries, bf16 or int8 K/V) of rows
-    5-8 for L 1, 2, 5, 8 over pages of 8, 16 and 128 and the contiguous
+    5-8 for L 1, 2, 5, 8, 9, 16 (past 8: passes of 8 rows) over pages of
+    8, 16 and 128 and the contiguous
     cache, at positions 0, off the tile grid, M - 1 and past M: each row
     of the multi-row call within the bf16 bound of its plain version; row
     l equal to the single-row call at pos[:, l], paged equal to contiguous
@@ -264,7 +279,7 @@ def test_decode_mma_instances_across_the_envelope(gen, store, S, d, dv):
     c = torch.randn(S, H, generator=gen, device="cuda") * 0.5
     c[0] = 1.0
     vmax = float(vc.float().abs().max()) if store == "bf16" else float(vs.max()) * 127
-    for L in (1, 2, 5, 8):
+    for L in (1, 2, 5, 8, 9, 16):
         # slot 0's rows start at key 0, slot 1's off every tile grid, slot
         # 2's last row at M - 1, slot 3's rows all past M (every key)
         base = torch.tensor([0, 77, M - L, M + 5], dtype=torch.int32, device="cuda")
@@ -321,6 +336,32 @@ def test_paged_int8_spec_engine_on_the_card_matches_the_cpu(gen, kind, verify):
     on_cpu = ServingEngine(params, cfg, serving, device="cpu").generate(
         prompts, max_new_tokens=12, temperature=0.0)
     assert [o.tokens for o in on_card] == [o.tokens for o in on_cpu]
+
+
+@pytest.mark.parametrize("page_size", [0, 16])
+def test_batched_verify_of_eight_drafts_on_the_card_matches_the_cpu(gen, page_size):
+    """Batched verify of up to 8 drafts (L = 9 rows a slot, two kernel
+    passes) serves to completion on the card, fp32 greedy, with the CPU's
+    tokens, contiguous and paged."""
+    cfg = ModelConfig(model="diff", vocab_size=97, n_embd=64, n_head=2,
+                      n_layer=2, block_size=96, compute_dtype="float32")
+    cpu_gen = torch.Generator()
+    cpu_gen.manual_seed(5)
+    params = init_model(cpu_gen, cfg)
+    motif = [5, 6, 7, 8, 9, 10, 11, 12, 13, 14]
+    prompts = [motif * 3, [3, 1, 4, 1, 5, 9, 2, 6] * 3, motif * 2 + [1]]
+    serving = ServingConfig(num_slots=2, prefill_chunk=8, prefill_budget=16,
+                            kv_page_size=page_size, spec_mode="ngram",
+                            spec_draft_len=8, spec_verify="batched")
+    multi = dat.decode_attention_multi_paged if page_size else dat.decode_attention_multi
+    n0 = multi.launches
+    eng = ServingEngine(params, cfg, serving)
+    on_card = eng.generate(prompts, max_new_tokens=24, temperature=0.0)
+    assert multi.launches > n0
+    on_cpu = ServingEngine(params, cfg, serving, device="cpu").generate(
+        prompts, max_new_tokens=24, temperature=0.0)
+    assert [o.tokens for o in on_card] == [o.tokens for o in on_cpu]
+    assert all(len(o.tokens) == 24 for o in on_card)
 
 
 @pytest.mark.parametrize("kind", ["control", "diff", "ndiff"])
@@ -444,22 +485,57 @@ def test_add_norm_bwd_kernel_matches_plain(gen, dtype, shape, with_gx):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
-@pytest.mark.parametrize("M,E,F", [(300, 768, 3072), (5, 70, 99), (16384, 768, 3072)])
+@pytest.mark.parametrize("M,E,F", SWIGLU_SHAPES + [(300, 768, 3072)])
 def test_swiglu_bwd_kernel_matches_plain(gen, dtype, M, E, F):
-    x = torch.randn(M, E, generator=gen, device="cuda").to(dtype)
-    ws = [(0.05 * torch.randn(*s, generator=gen, device="cuda")).to(dtype)
-          for s in ((E, F), (F,), (E, F), (F,))]
+    x, ws = _swiglu_operands(gen, dtype, M, E, F)
     gh = torch.randn(M, F, generator=gen, device="cuda").to(dtype)
-    n0 = ffn.swiglu_bwd.launches
+    inst = ffn.swiglu_instance(dtype, M, E, F, backward=True)
+    n0, i0 = ffn.swiglu_bwd.launches, ffn.swiglu_bwd.instances[inst]
     dgt, dw, db = ffn.swiglu_bwd(x, *ws, gh)
     rdgt, rdw, rdb = ffn.swiglu_bwd_reference(x, *ws, gh)
     assert ffn.swiglu_bwd.launches - n0 == 1
+    assert ffn.swiglu_bwd.instances[inst] - i0 == 1
     if dtype == torch.float32:
         assert _rel(dgt, rdgt) <= 1e-5
     else:
         assert _err(dgt, rdgt) <= _ulp(rdgt)
     assert _rel(dw, rdw) <= (1e-4 if dtype == torch.float32 else 2.0 ** -7)
     assert _rel(db, rdb) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("M,E,F", [(16384, 768, 3072), (1000, 72, 200), (5, 70, 99)])
+def test_swiglu_bwd_is_deterministic(gen, dtype, M, E, F):
+    """No atomics: two backward calls on the same inputs give bit-equal
+    [dg | dt], dW and db (the mma instance sums its weight grad's row
+    slices and the bias grads' row tiles in a fixed order)."""
+    x, ws = _swiglu_operands(gen, dtype, M, E, F)
+    gh = torch.randn(M, F, generator=gen, device="cuda").to(dtype)
+    first = ffn.swiglu_bwd(x, *ws, gh)
+    second = ffn.swiglu_bwd(x, *ws, gh)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_swiglu_bounds_reject_planted_faults(gen):
+    """The bounds the SwiGLU tests hold the tensor-core instances to see a
+    wrong tile: the columns past F/2 of one 128-row tile zeroed, in the
+    forward's output and in the backward's [dg | dt], fail them."""
+    M, E, F = 16384, 768, 3072
+    x, ws = _swiglu_operands(gen, torch.bfloat16, M, E, F)
+    for m in (8, 128, M):
+        got = ffn.fused_swiglu(x[:m], *ws)
+        ref = ffn.swiglu_reference(x[:m], *ws)
+        assert _err(got, ref) <= _ulp(ref)
+        bad = got.clone()
+        bad[:128, F // 2:] = 0
+        assert _err(bad, ref) > _ulp(ref), m
+    gh = torch.randn(M, F, generator=gen, device="cuda").to(torch.bfloat16)
+    dgt, _, _ = ffn.swiglu_bwd(x, *ws, gh)
+    rdgt, _, _ = ffn.swiglu_bwd_reference(x, *ws, gh)
+    assert _err(dgt, rdgt) <= _ulp(rdgt)
+    bad = dgt.clone()
+    bad[128:256, F // 2:F] = 0
+    assert _err(bad, rdgt) > _ulp(rdgt)
 
 
 def test_train_step_on_the_card_matches_the_cpu(gen):

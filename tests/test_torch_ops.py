@@ -47,6 +47,7 @@ from differential_transformer_replication_tpu_torch.ops.decode_attention import 
 )
 from differential_transformer_replication_tpu_torch.ops.fused_ffn import (
     fused_swiglu as t_fused_swiglu,
+    swiglu_instance,
 )
 from differential_transformer_replication_tpu_torch.ops.fused_norm_residual import (
     fused_add_norm as t_fused_add_norm,
@@ -225,6 +226,28 @@ def test_fused_swiglu_cpu_path_matches_pallas(jdt, tdt):
     tol = FP32_TOL if tdt == torch.float32 else _bf16_ulp(ref)
     assert _err(ref, got) <= tol
     assert t_fused_swiglu.launches == 0
+
+
+def test_swiglu_instance_rule():
+    """Which SwiGLU kernel runs on the card: fp32 the SIMT kernels; bf16
+    the tensor cores at widths in multiples of 8 (skinny forward up to
+    64 rows, mma above and for every backward); other bf16 widths SIMT."""
+    for M in (1, 8, 128, 16384):
+        assert swiglu_instance(torch.float32, M, 768, 3072) == "simt"
+        assert swiglu_instance(torch.float32, M, 768, 3072, backward=True) == "simt"
+        assert swiglu_instance(torch.bfloat16, M, 768, 3072, backward=True) == "mma"
+    for M in (1, 8, 40, 64):
+        assert swiglu_instance(torch.bfloat16, M, 768, 3072) == "skinny"
+        assert swiglu_instance(torch.bfloat16, M, 72, 200) == "skinny"
+    for M in (65, 100, 128, 1000, 16384):
+        assert swiglu_instance(torch.bfloat16, M, 768, 3072) == "mma"
+        assert swiglu_instance(torch.bfloat16, M, 64, 256) == "mma"
+    for E, F in ((70, 99), (768, 100), (36, 3072)):
+        for M in (8, 16384):
+            assert swiglu_instance(torch.bfloat16, M, E, F) == "simt"
+            assert swiglu_instance(torch.bfloat16, M, E, F, backward=True) == "simt"
+    with pytest.raises(TypeError):
+        swiglu_instance(torch.float16, 8, 768, 3072)
 
 
 @pytest.mark.parametrize("jdt,tdt", DTYPES, ids=["fp32", "bf16"])

@@ -131,7 +131,7 @@ def test_paged_cpu_path_matches_pallas(ps, int8, jdt, tdt):
 
 @pytest.mark.parametrize("jdt,tdt", DTYPES, ids=["fp32", "bf16"])
 @pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
-@pytest.mark.parametrize("L", [1, 3])
+@pytest.mark.parametrize("L", [1, 3, 9])
 def test_multi_cpu_paths_match_pallas(L, int8, jdt, tdt):
     """Rows 7 and 8: L rows per slot with row-causal positions, over a
     contiguous cache of R = B + 1 rows (the trash row never read) and
@@ -187,7 +187,8 @@ def test_decode_instance_rule(dtype, S, d, dv):
     (bf16 or int8 K/V) the tensor cores; the keys per tile are a power of
     two, the same for every L, and the largest whose block (the twin of
     the kernel's shared-memory layout) fits the 227 KB opt-in."""
-    picks = {TDA.decode_instance(dtype, S, L, d, dv) for L in range(1, TDA.MAX_ROWS + 1)}
+    picks = {TDA.decode_instance(dtype, S, L, d, dv)
+             for L in list(range(1, TDA.MAX_ROWS + 1)) + [9, 16]}
     assert len(picks) == 1
     (route, TK), = picks
     assert route == ("mma" if dtype == torch.bfloat16 else "simt")
@@ -199,14 +200,17 @@ def test_decode_instance_rule(dtype, S, d, dv):
 def test_decode_instance_at_the_recipes_and_outside_the_envelope():
     """The recipes' decode widths take 64-key tiles in both dtypes; at the
     envelope's widest corner (S 8, d 256, dv 512) a bf16 K tile of 64 keys
-    alone is 264 KB, so the tile halves; shapes past the envelope raise."""
+    alone is 264 KB, so the tile halves; any L >= 1 is taken (the wrapper
+    runs passes of MAX_ROWS rows); shapes past the envelope raise."""
     for S, d, dv in ((1, 96, 96), (2, 96, 192), (4, 96, 192)):
         assert TDA.decode_instance(torch.bfloat16, S, 5, d, dv) == ("mma", 64)
         assert TDA.decode_instance(torch.float32, S, 5, d, dv) == ("simt", 64)
+        for L in (9, 16):
+            assert TDA.decode_instance(torch.bfloat16, S, L, d, dv) == ("mma", 64)
     assert TDA.decode_instance(torch.bfloat16, 8, 1, 256, 512) == ("mma", 32)
     assert TDA.decode_instance(torch.float32, 8, 1, 256, 512) == ("simt", 8)
-    for S, L, d, dv in ((9, 1, 96, 96), (1, 9, 96, 96), (1, 0, 96, 96),
-                        (1, 1, 257, 96), (1, 1, 96, 513)):
+    for S, L, d, dv in ((9, 1, 96, 96), (9, 9, 96, 96), (9, 16, 96, 96),
+                        (1, 0, 96, 96), (1, 1, 257, 96), (1, 1, 96, 513)):
         with pytest.raises(ValueError):
             TDA.decode_instance(torch.bfloat16, S, L, d, dv)
     with pytest.raises(TypeError):
@@ -476,3 +480,43 @@ def test_ngram_drafter_matches_jax():
     assert outs[0] == outs[1]
     assert any(outs[0])
     assert drafters[0].stats()["proposed_total"] == drafters[1].stats()["proposed_total"]
+
+
+def test_verify_passes_plan():
+    """The multi-row wrappers' passes: MAX_ROWS rows at most, in order,
+    covering every row once."""
+    assert TDA.MAX_ROWS == 8
+    assert TDA.verify_passes(1) == [(0, 1)]
+    assert TDA.verify_passes(8) == [(0, 8)]
+    assert TDA.verify_passes(9) == [(0, 8), (8, 9)]
+    assert TDA.verify_passes(16) == [(0, 8), (8, 16)]
+    assert TDA.verify_passes(17) == [(0, 8), (8, 16), (16, 17)]
+    with pytest.raises(ValueError):
+        TDA.verify_passes(0)
+
+
+@pytest.mark.parametrize("L", [5, 9, 16, 19])
+def test_verify_passes_join_to_the_whole_call(monkeypatch, L):
+    """The pass loop of the multi-row wrappers (the card's path), with the
+    kernel launch replaced by the plain version on each pass's rows: each
+    pass sees at most MAX_ROWS contiguous rows with their own positions,
+    and the joined passes equal the whole L-row plain call bit for bit."""
+    S, B, H, M, d, dv = 2, 3, 2, 32, 8, 16
+    _, t, _, _ = _operands(np.random.default_rng(20 + L), S, B, H, M, d, dv, L, 8,
+                           "float32", torch.float32, False, B + 1)
+    seen = []
+
+    def fake_launch(what, qs, k, v, k_scale, v_scale, pos, tables, coeffs, *,
+                    B, L, M, n_pages, page_size):
+        assert qs.is_contiguous() and pos.is_contiguous()
+        assert qs.shape[2] == L == pos.shape[1] <= TDA.MAX_ROWS
+        seen.append(L)
+        return TDA.decode_attention_multi_reference(qs, k, v, pos, coeffs)
+
+    monkeypatch.setattr(TDA, "_launch", fake_launch)
+    got = TDA._launch_rows("decode_attention_multi", t["q"], t["kc"], t["vc"], None,
+                           None, t["pos"], None, t["c"], B=B, M=M, n_pages=B + 1,
+                           page_size=M)
+    want = TDA.decode_attention_multi_reference(t["q"], t["kc"], t["vc"], t["pos"], t["c"])
+    assert seen == [b - a for a, b in TDA.verify_passes(L)]
+    assert torch.equal(got, want)

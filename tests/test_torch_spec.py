@@ -62,8 +62,9 @@ N_NEW = 8
 PAGED = dict(num_slots=2, prefill_chunk=4, prefill_budget=6, kv_page_size=8)
 
 
-def _setup(kind: str):
-    jcfg = JModelConfig(model=kind, **SMALL)
+def _setup(kind: str, **over):
+    small = {**SMALL, **over}
+    jcfg = JModelConfig(model=kind, **small)
     tree = jax.tree_util.tree_map(
         np.asarray, j_init_model(jax.random.PRNGKey(0), jcfg))
     rng = np.random.default_rng(5)
@@ -72,7 +73,7 @@ def _setup(kind: str):
             if key in blk["attn"]:
                 blk["attn"][key] = (rng.standard_normal(blk["attn"][key].shape)
                                     * 0.1).astype(np.float32)
-    tcfg = ModelConfig(model=kind, **SMALL)
+    tcfg = ModelConfig(model=kind, **small)
     return jcfg, tcfg, jax.tree_util.tree_map(jnp.asarray, tree), \
         params_from_jax(tree, tcfg)
 
@@ -123,6 +124,29 @@ def test_paged_prefix_spec_greedy_tokens_match_jax_engine(kind, verify):
     assert [o.tokens for o in plain.generate(prompts, max_new_tokens=N_NEW,
                                              temperature=0.0)] == \
         [o.tokens for o in touts]
+    assert all(s.state == FREE for s in teng.scheduler.slots)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_batched_verify_of_eight_drafts_matches_jax_engine(paged):
+    """Batched verify at spec_draft_len 8: L = 9 query rows a slot, past
+    the 8 rows of one kernel pass on the card (two passes there). The
+    port's CPU engine gives the JAX engine's greedy tokens and draft
+    counts, over the contiguous rings and the paged pool."""
+    jcfg, tcfg, jparams, tparams = _setup("diff", block_size=64)
+    prompts = _prompts()
+    cfg = dict(num_slots=2, prefill_chunk=4, prefill_budget=6,
+               kv_page_size=8 if paged else 0, spec_mode="ngram",
+               spec_draft_len=8, spec_verify="batched")
+    jeng = JServingEngine(jparams, jcfg, JServingConfig(**cfg))
+    jouts = jeng.generate(prompts, max_new_tokens=2 * N_NEW, temperature=0.0)
+    _no_near_ties(jparams, jcfg, prompts, jouts)
+    teng = ServingEngine(tparams, tcfg, ServingConfig(**cfg), device="cpu")
+    touts = teng.generate(prompts, max_new_tokens=2 * N_NEW, temperature=0.0)
+    assert [o.tokens for o in touts] == [o.tokens for o in jouts]
+    assert [(o.spec_proposed, o.spec_accepted) for o in touts] == \
+        [(o.spec_proposed, o.spec_accepted) for o in jouts]
+    assert max(o.spec_proposed for o in touts) >= 8
     assert all(s.state == FREE for s in teng.scheduler.slots)
 
 
