@@ -11,7 +11,8 @@ these phases, each printing its own lines and its seconds:
    (one ``nvcc`` per CUDA source, all started together, the Triton JIT
    at first use), with the registers and spills ``ptxas -v`` reports for
    the bf16 tensor-core instances of kernels D, E, K1-K4, the decode
-   attention's split kernel and the SwiGLU kernels (none may spill);
+   attention's split kernel and the SwiGLU kernels, and for every
+   instance of the add+norm backward (none may spill);
 2. kernels: each hand-written kernel against its plain PyTorch version
    on the card at the recipe's shapes, fp32 and bf16, with max-abs
    error against a stated bound (the attention kernels row by row, each
@@ -21,7 +22,12 @@ these phases, each printing its own lines and its seconds:
    SwiGLU, decode attention) and the training kernels (token-major
    attention forward and backward for the diff, control and ndiff
    recipes, with SDPA's forward and backward at the control shape, both
-   by CUDA-graph replay; add+norm backward, SwiGLU backward; add+norm and
+   by CUDA-graph replay; add+norm backward with and without the carry
+   cotangent, each against its own byte bound, on its instance
+   (``add_norm_bwd_instance``), two calls bit-equal, its two launches
+   split by torch.profiler, ``aten.native_layer_norm_backward`` on saved
+   statistics beside the form without the carry as a yardstick; SwiGLU
+   backward; add+norm and
    SwiGLU forward also at the training shape M = 16384; the SwiGLU's
    instance at each shape (``swiglu_instance``), cuBLAS computing its
    products alone beside it as a yardstick, the backward's three
@@ -78,7 +84,9 @@ these phases, each printing its own lines and its seconds:
    recipe, each from a seed-0 init through the trainer's entry point
    (``train.trainer.train``) on a seeded synthetic ``tokens.npy``,
    then a few steps on one repeated batch whose loss must fall; launch
-   counters read around each run;
+   counters read around each run (the add+norm backward's calls with
+   and without the carry counted apart, and every one of them on the
+   bf16 warp instance, here, in train-hm and on every train-ring rank);
    train-hm: training through the head-major kernels with attention,
    residual and FFN dropout 0.1 through the trainer: diff at T 2048
    (micro-batch 8, routes resident + split), diff and control at T 512
@@ -1301,38 +1309,88 @@ def run_train_kernels(torch, ops) -> dict:
             del proj, qs, ks, v, out, o_all, lse, r_out, r_oall, r_lse, grads
             del base, delta, g, dv_, rq, rk, rv, bwd_args
 
-    # F: add+LayerNorm backward with the carry cotangent (the add+ln2)
+    # F: add+LayerNorm backward (CUDA), with the carry cotangent (the
+    # add+ln2 in front of each FFN) and without (ln1, the GroupLayerNorm,
+    # ln_f), at the training rows; each form against its own byte bound,
+    # two calls bit-equal, the launches of a call split by the profiler;
+    # beside the form without the carry the yardstick
+    # aten.native_layer_norm_backward fed native_layer_norm's mean and
+    # rstd (it does not recompute the statistics: not the same function;
+    # with params in the rows' dtype, as aten refuses bf16 rows with fp32
+    # params)
     M, E = TRAIN_M, RECIPE["n_embd"]
+    aten = torch.ops.aten
+    # its quotients (one reciprocal a row, an FMA correction each) against
+    # IEEE division, on 2^30 operand pairs per mode
+    from differential_transformer_replication_tpu_torch.ops import _kernels
+    for mode in (0, 1):
+        bad = torch.zeros(1, dtype=torch.int64, device="cuda")
+        _kernels.check(_kernels.load("fused_norm_residual").fused_norm_residual_quot_check(
+            bad.data_ptr(), 65536, 7 + mode, mode, _kernels.stream_handle(bad.device)),
+            "quotient check")
+        expect(int(bad) == 0, f"add_norm_bwd quotients differ from IEEE division in "
+               f"{int(bad)} of 2^30 pairs (mode {mode})")
+        log(f"[kernels] add_norm_bwd quotients, mode {mode}: 2^30 pairs, all equal to "
+            "IEEE division bit for bit")
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.finfo(dtype).bits // 8
         x, gn, gx = (torch.randn(M, E, generator=gen, device="cuda").to(dtype)
                      for _ in range(3))
         w = 1.0 + 0.1 * torch.randn(E, generator=gen, device="cuda")
-        dx, dw, db = fnr.add_norm_bwd(x, w, gn, gx)
-        rdx, rdw, rdb = fnr.add_norm_bwd_reference(x, w, gn, gx)
-        err = max_err(dx, rdx)
-        p_err = max(max_err(dw, rdw) / float(rdw.abs().max()),
-                    max_err(db, rdb) / float(rdb.abs().max()))
-        tol = (1e-5 * float(rdx.abs().max()) if dtype == torch.float32
-               else bf16_ulp_bound(rdx.float()))
-        expect(err <= tol and p_err <= 1e-4,
-               f"add_norm_bwd {dtype}: dx max-abs {err:.3g} (bound {tol:.3g}), "
-               f"dw/db relative {p_err:.3g} (bound 1e-4)")
-        t = timings([lambda: fnr.add_norm_bwd(x, w, gn, gx)],
-                    [lambda: fnr.add_norm_bwd_reference(x, w, gn, gx)])
-        bms, by = bound_ms(4 * M * E * es + E * 4 + 2 * E * 4, 12 * M * E, dtype)
-        log(f"[kernels] add_norm_bwd {str(dtype)[6:]} ({M},{E}) with the carry "
-            f"cotangent: dx max-abs {err:.3g} (bound {tol:.3g}), dw/db relative "
-            f"{p_err:.3g} (bound 1e-4); " + fmt_times(t, bms, by)
-            + "; no one-call PyTorch equivalent (a carry term, no saved stats)")
-        if dtype == torch.bfloat16:
-            entries["add_norm_bwd"] = dict(
-                name="add_norm_bwd", route="triton",
-                source=SRC + "ops/fused_norm_residual.py",
-                replaces=TPU + "fused_norm_residual.py:153", max_abs_err=err,
-                ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=bms, bound_by=by,
-                library_ms=None)
-        del x, gn, gx, dx, rdx
+        b = 0.1 * torch.randn(E, generator=gen, device="cuda")
+        inst = fnr.add_norm_bwd_instance(dtype, E)
+        for carry in (True, False):
+            g2 = gx if carry else None
+            form = "with the carry cotangent" if carry else "without the carry"
+            i0 = fnr.add_norm_bwd.instances[inst]
+            dx, dw, db = fnr.add_norm_bwd(x, w, gn, g2)
+            expect(fnr.add_norm_bwd.instances[inst] - i0 == 1,
+                   f"add_norm_bwd {dtype}: instance {inst} did not run")
+            rdx, rdw, rdb = fnr.add_norm_bwd_reference(x, w, gn, g2)
+            err = max_err(dx, rdx)
+            p_err = max(max_err(dw, rdw) / float(rdw.abs().max()),
+                        max_err(db, rdb) / float(rdb.abs().max()))
+            tol = (1e-5 * float(rdx.abs().max()) if dtype == torch.float32
+                   else bf16_ulp_bound(rdx.float()))
+            expect(err <= tol and p_err <= 1e-4,
+                   f"add_norm_bwd {dtype} {form}: dx max-abs {err:.3g} (bound "
+                   f"{tol:.3g}), dw/db relative {p_err:.3g} (bound 1e-4)")
+            # no float atomics: a second call gives the same results bit for bit
+            again = fnr.add_norm_bwd(x, w, gn, g2)
+            expect(all(torch.equal(a, b_) for a, b_ in zip((dx, dw, db), again)),
+                   f"add_norm_bwd {dtype} {form}: two calls differ")
+            lib_calls = None
+            if not carry:
+                wl, bl = w.to(dtype), b.to(dtype)
+                mean, rstd = aten.native_layer_norm(x, (E,), wl, bl, 1e-5)[1:]
+                lib_calls = [lambda: aten.native_layer_norm_backward(
+                    gn, x, (E,), mean, rstd, wl, bl, [True, True, True])]
+            t = timings([lambda: fnr.add_norm_bwd(x, w, gn, g2)],
+                        [lambda: fnr.add_norm_bwd_reference(x, w, gn, g2)], lib_calls)
+            parts = kernel_us([lambda: fnr.add_norm_bwd(x, w, gn, g2)],
+                              ("addnorm_bwd_warp", "addnorm_bwd_block",
+                               "addnorm_bwd_finish"))
+            # x, gn (, gx) read and dx written once, w read, dw and db
+            # written; ~16 flops an element
+            nbytes = (4 if carry else 3) * M * E * es + 3 * E * 4
+            bms, by = bound_ms(nbytes, 16 * M * E, dtype)
+            lib = ("; the yardstick above is aten.native_layer_norm_backward with "
+                   "saved mean and rstd (not the same function)" if lib_calls else
+                   "; no one-call PyTorch equivalent (a carry term, no saved stats)")
+            log(f"[kernels] add_norm_bwd {str(dtype)[6:]} ({M},{E}) {form} ({inst}): "
+                f"dx max-abs {err:.3g} (bound {tol:.3g}), dw/db relative {p_err:.3g} "
+                f"(bound 1e-4), two calls bit-equal; " + fmt_times(t, bms, by) + lib
+                + "; launches (torch.profiler): "
+                + ", ".join(f"{k} {v:.2f} us" for k, v in parts.items() if v))
+            if dtype == torch.bfloat16:
+                name = "add_norm_bwd" if carry else "add_norm_bwd_nocarry"
+                entries[name] = dict(
+                    name=name, route="cuda", source=SRC + "csrc/fused_norm_residual.cu",
+                    replaces=TPU + "fused_norm_residual.py:153", max_abs_err=err,
+                    ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=bms, bound_by=by,
+                    library_ms=t["library_ms"])
+            del dx, rdx, again
+        del x, gn, gx
 
     # G: SwiGLU backward
     F = 4 * E
@@ -1699,6 +1757,19 @@ def _train_counters():
             "swiglu_bwd": ffn.swiglu_bwd}
 
 
+def expect_norm_bwd_instances(torch, label: str, launches: int, instances: dict) -> None:
+    """Every add+norm backward call of a run at recipe width in bf16 ran
+    the bf16 warp instance (``launches`` and ``instances``: the wrapper's
+    counts over the run)."""
+    from differential_transformer_replication_tpu_torch.ops import (
+        fused_norm_residual as fnr,
+    )
+
+    inst = fnr.add_norm_bwd_instance(torch.bfloat16, RECIPE["n_embd"])
+    expect(launches > 0 and instances == {inst: launches},
+           f"{label}: add_norm_bwd instances {instances}, expected {launches} {inst}")
+
+
 def synthetic_tokens(path, n: int, vocab: int, seed: int) -> None:
     """A seeded Zipf-distributed token stream (skewed like text, so a few
     steps visibly lower the loss), saved as the trainer's tokens.npy."""
@@ -1745,18 +1816,24 @@ def run_train(torch, card: str) -> dict:
         swiglu = (counters["fused_swiglu"], counters["swiglu_bwd"])
         for fn in swiglu:
             fn.instances.clear()
+        norm_bwd = counters["add_norm_bwd"]
+        norm_bwd.carry_launches = 0
+        norm_bwd.instances.clear()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         state, history = train(cfg, str(tokens), device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {name: fn.launches for name, fn in counters.items()}
+        counts["add_norm_bwd_carry"] = norm_bwd.carry_launches
         # every SwiGLU call of the run (M = 16384 rows, bf16) on the mma
-        # instance, forward and backward
+        # instance, forward and backward; every add+norm backward on the
+        # bf16 warp instance
         for fn in swiglu:
             expect(dict(fn.instances) == {"mma": fn.launches},
                    f"{model}: SwiGLU instances {dict(fn.instances)}, expected "
                    f"{fn.launches} mma")
+        expect_norm_bwd_instances(torch, model, norm_bwd.launches, dict(norm_bwd.instances))
         losses = [m["loss"] for m in history]
         expect(len(history) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
                f"{model}: non-finite or missing losses {losses}")
@@ -1765,7 +1842,8 @@ def run_train(torch, card: str) -> dict:
         # backward kernels run once per layer (norm: ln1, GroupLN for
         # diff, ln2 carry, ln_f) per train step and never in eval
         per_step_bwd = {"flash_tm_bwd": L, "swiglu_bwd": L,
-                        "add_norm_bwd": L * (3 if model == "diff" else 2) + 1}
+                        "add_norm_bwd": L * (3 if model == "diff" else 2) + 1,
+                        "add_norm_bwd_carry": L}
         for name, per in per_step_bwd.items():
             expect(counts[name] == per * TRAIN_STEPS,
                    f"{model}: {name} launched {counts[name]} times, expected "
@@ -1833,6 +1911,9 @@ def run_train_hm(torch, card: str, tokens) -> dict:
         TrainConfig,
     )
     from differential_transformer_replication_tpu_torch.ops import flash
+    from differential_transformer_replication_tpu_torch.ops import (
+        fused_norm_residual as fnr,
+    )
     from differential_transformer_replication_tpu_torch.ops.dropout import fold_seed
     from differential_transformer_replication_tpu_torch.train import step_profile
     from differential_transformer_replication_tpu_torch.train.step import (
@@ -1854,6 +1935,8 @@ def run_train_hm(torch, card: str, tokens) -> dict:
         L, S = mcfg.n_layer, {"control": 1, "diff": 2}[model]
         flash.reset_bh_counters()
         flash.flash_tm_fwd.launches = flash.flash_tm_bwd.launches = 0
+        fnr.add_norm_bwd.launches = 0
+        fnr.add_norm_bwd.instances.clear()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         state, history = train(cfg, str(tokens), device="cuda")
@@ -1878,6 +1961,8 @@ def run_train_hm(torch, card: str, tokens) -> dict:
                for r, n in fn.routes.items()}
         expect(got == want, f"{label}: head-major launches by route {got}, "
                f"expected {want}")
+        expect_norm_bwd_instances(torch, label, fnr.add_norm_bwd.launches,
+                                  dict(fnr.add_norm_bwd.instances))
         tm_want = (L * n_eval if T <= 512 else 0, 0)
         tm_got = (flash.flash_tm_fwd.launches, flash.flash_tm_bwd.launches)
         expect(tm_got == tm_want, f"{label}: token-major launches {tm_got}, "
@@ -2212,6 +2297,9 @@ def ring_worker(spec: dict) -> int:
         TrainConfig,
     )
     from differential_transformer_replication_tpu_torch.ops import flash
+    from differential_transformer_replication_tpu_torch.ops import (
+        fused_norm_residual as fnr,
+    )
     from differential_transformer_replication_tpu_torch.ops.dropout import fold_seed
     from differential_transformer_replication_tpu_torch.parallel import init_sequence_group
     from differential_transformer_replication_tpu_torch.train import __main__ as cli
@@ -2241,9 +2329,11 @@ def ring_worker(spec: dict) -> int:
         for fn in counters.values():
             fn.launches = 0
         flash.reset_bh_counters()
+        fnr.add_norm_bwd.instances.clear()
         state, history = cli.run(spec["argv"])
         torch.cuda.synchronize()
         rec["launches"] = {k: fn.launches for k, fn in counters.items()}
+        rec["norm_bwd_instances"] = dict(fnr.add_norm_bwd.instances)
         rec["routes"] = {f"{fn.__name__}/{r}": n
                          for fn in flash.BH_WRAPPERS + flash.CHUNK_WRAPPERS
                          for r, n in fn.routes.items()}
@@ -2370,6 +2460,8 @@ def run_train_ring(torch, card: str, tokens) -> dict:
             for name in ("fused_norm", "fused_add_norm", "fused_swiglu", "add_norm_bwd",
                          "swiglu_bwd"):
                 expect(r["launches"][name] > 0, f"{label}: {name} never launched")
+            expect_norm_bwd_instances(torch, f"{label} rank {r['rank']}",
+                                      r["launches"]["add_norm_bwd"], r["norm_bwd_instances"])
         if backend == "gloo":
             for name, (fn, route) in RING_COUNTS.items():
                 totals[name] += sum(r["routes"].get(f"{fn}/{route}", 0) for r in recs)
@@ -2602,16 +2694,30 @@ def main() -> int:
         if not usage or spilled:
             raise Failure(f"{lib} bf16 kernels spill to local memory: {spilled}"
                           if usage else f"no ptxas report for {lib}")
+    # the add+norm backward: every instance (warp: dtype, chunks of 8 a
+    # lane, with the carry cotangent; block: dtype, carry) and the finish
+    usage = {}
+    for fn, ru in _kernels.ptxas_usage("fused_norm_residual").items():
+        m = re.search(r"addnorm_bwd_(warp|block|finish)(?:I(13__nv_bfloat16|f)(?:Li(\d)E)?"
+                      r"Lb(\d)E)?", fn)
+        if m:
+            kind, dt, c, gx = m.groups()
+            usage[kind + ("" if dt is None else f"<{'bf16' if dt != 'f' else 'fp32'}"
+                          + (f", C={c}" if c else "") + f", carry={gx}>")] = ru
+    for fn, (regs, spill) in sorted(usage.items()):
+        log(f"[build] ptxas addnorm_bwd_{fn}: {regs} registers, {spill} bytes spilled")
+    spilled = [fn for fn, (_, spill) in usage.items() if spill]
+    if len(usage) != 21 or spilled:
+        raise Failure(f"fused_norm_residual: {len(usage)} add+norm kernels in the ptxas "
+                      f"report (21 expected), spilled: {spilled}")
     t0 = time.perf_counter()
     x = torch.zeros(8, 768, device="cuda", dtype=torch.bfloat16)
     w = torch.ones(768, device="cuda")
     fnr.fused_add_norm(x, x, w, w)
     fnr.fused_norm(x, w, w)
-    fnr.add_norm_bwd(x, w, x, x)
-    fnr.add_norm_bwd(x, w, x)
     torch.cuda.synchronize()
-    log(f"[build] triton JIT of the add+norm kernels (forward both variants, "
-        f"backward both variants): {time.perf_counter() - t0:.1f} s")
+    log(f"[build] triton JIT of the add+norm forward (both variants): "
+        f"{time.perf_counter() - t0:.1f} s")
 
     phases = {}
 
@@ -2653,8 +2759,12 @@ def main() -> int:
             ent["launches"] = ring_counts[name]
         elif name in hm_counts:
             ent["launches"] = hm_counts[name]
-        elif name in ("flash_tm_fwd", "flash_tm_bwd", "add_norm_bwd", "swiglu_bwd"):
+        elif name in ("flash_tm_fwd", "flash_tm_bwd", "swiglu_bwd"):
             ent["launches"] = train_counts[name]
+        elif name == "add_norm_bwd":
+            ent["launches"] = train_counts["add_norm_bwd_carry"]
+        elif name == "add_norm_bwd_nocarry":
+            ent["launches"] = train_counts["add_norm_bwd"] - train_counts["add_norm_bwd_carry"]
         elif name == "fused_swiglu_train":
             ent["launches"] = train_counts["fused_swiglu"]
         else:

@@ -55,6 +55,15 @@ _BWD_FUSED = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
               _I, _F, _U, _U, _U, _F, _I, _I, _P)
 
 SIGNATURES = {
+    "fused_norm_residual": {
+        # M, E, dtype, instance -> workspace floats (-1: refused)
+        "fused_norm_residual_bwd_workspace": (_I, _I, _I, _I),
+        # x, w, gn, gx, dx, dwb, work, M, E, eps, dtype, instance, stream
+        "fused_norm_residual_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I,
+                                    _I, _P),
+        # bad (uint64), blocks, seed, mode, stream: the quotient check
+        "fused_norm_residual_quot_check": (_P, _I, _U, _I, _P),
+    },
     "fused_swiglu": {
         # x, wg, bg, wx, bx, out, M, E, F, dtype, instance, stream
         "fused_swiglu_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -135,6 +144,14 @@ def needs_grad(*tensors) -> bool:
     """Whether autograd will want a backward through these inputs."""
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
+
+
+def aligned16(tensors) -> list:
+    """The kernels that load 16-byte vectors take operands whose data
+    starts 16-byte aligned: any other (a view into a larger buffer) is
+    copied, which aligns it. None passes through."""
+    return [t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+            for t in tensors]
 
 
 def pointers(tensors) -> ctypes.Array:

@@ -66,13 +66,6 @@ def swiglu_instance(dtype: torch.dtype, M: int, E: int, F: int, *,
     return "mma"
 
 
-def _aligned16(tensors):
-    """The tensor-core kernels load 16-byte vectors: operands whose data
-    does not start 16-byte aligned (a view into a larger buffer) are
-    copied, which aligns them."""
-    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors]
-
-
 def swiglu_reference(x, w_gate, b_gate, w_xform, b_xform) -> torch.Tensor:
     """Plain version: the products accumulate in fp32 (the TPU kernel's
     ``preferred_element_type=float32``), the biases are cast to x.dtype
@@ -138,7 +131,7 @@ def _launch(x, wg, bg, wx, bx) -> torch.Tensor:
     M = x.numel() // E
     inst = swiglu_instance(x.dtype, M, E, F)
     if inst != "simt":
-        x, wg, bg, wx, bx = _aligned16((x, wg, bg, wx, bx))
+        x, wg, bg, wx, bx = _kernels.aligned16((x, wg, bg, wx, bx))
     out = torch.empty(x.shape[:-1] + (F,), dtype=x.dtype, device=x.device)
     lib = _kernels.load("fused_swiglu")
     rc = lib.fused_swiglu_fwd(
@@ -163,7 +156,7 @@ def swiglu_bwd(x, w_gate, b_gate, w_xform, b_xform, gh):
         raise ValueError(f"swiglu_bwd: gh must be ({M}, {F})")
     inst = swiglu_instance(x.dtype, M, E, F, backward=True)
     if inst != "simt":
-        x, w_gate, b_gate, w_xform, b_xform, gh = _aligned16(
+        x, w_gate, b_gate, w_xform, b_xform, gh = _kernels.aligned16(
             (x, w_gate, b_gate, w_xform, b_xform, gh))
     lib = _kernels.load("fused_swiglu")
     n_work = lib.fused_swiglu_bwd_workspace(M, E, F, INSTANCES[inst])

@@ -1,5 +1,5 @@
-"""Fused residual-add + LayerNorm, forward and backward, Triton kernels
-for Hopper.
+"""Fused residual-add + LayerNorm, forward and backward, kernels for
+Hopper: the forward in Triton, the backward in CUDA C++.
 
 Replaces the TPU kernels ``differential_transformer_replication_tpu/ops/
 fused_norm_residual.py:_addnorm_fwd_kernel`` (via ``_fwd_call``) and
@@ -15,11 +15,14 @@ reduction plus an elementwise pass, no tensor cores. It is one Triton
 program per row with ``BLOCK = next_pow2(E)`` lanes (1024 for E = 768),
 masked, so a row is loaded once and both outputs come from registers.
 At (8, 768) the whole call moves ~50 KB and is bound by the launch.
-The backward reads the post-add x, gn (and the carry cotangent gx) once
-and writes dx once; each program takes ``_BWD_ROWS`` rows and keeps
-their fp32 dw/db partial sums in registers, and a second small kernel
-adds the programs' partials in program order. No float atomics: the
-parameter grads do not depend on the order the programs ran in.
+The backward (``csrc/fused_norm_residual.cu``) reads the post-add x, gn
+(and the carry cotangent gx) once and writes dx once: one warp per row
+with 16-byte loads and warp-shuffle statistics on a persistent grid, the
+lanes' dw/db partials in registers, then a second launch that adds the
+blocks' partial rows in a fixed order. No float atomics: the parameter
+grads do not depend on the order the blocks ran in, and two calls agree
+bit for bit. :func:`add_norm_bwd_instance` names the kernel that runs
+for a dtype and width.
 
 Numerics are exactly :func:`ops.norms.layer_norm`'s: the add happens in
 the STORED dtype before the fp32 statistics (like the XLA ``x + delta``),
@@ -39,12 +42,16 @@ kernel (or raises), and any other device raises. ``fused_add_norm``,
 ``fused_norm`` and the group aliases are differentiable
 (``torch.autograd.Function``s whose backward is :func:`add_norm_bwd`).
 ``fused_add_norm.launches`` / ``fused_norm.launches`` count the forward
-kernel's launches, ``add_norm_bwd.launches`` the backward's.
+kernel's launches; ``add_norm_bwd.launches`` counts the backward's calls
+(two device launches each), ``add_norm_bwd.carry_launches`` those with
+the carry cotangent, and ``add_norm_bwd.instances`` the calls by
+instance.
 """
 
 from __future__ import annotations
 
 import functools
+from collections import Counter
 
 import torch
 
@@ -77,53 +84,26 @@ def _addnorm_fwd_kernel(x_ptr, d_ptr, w_ptr, b_ptr, outx_ptr, outn_ptr, E,
              mask=live)
 
 
-def _addnorm_bwd_kernel(x_ptr, w_ptr, gn_ptr, gx_ptr, dx_ptr, part_ptr, M, E,
-                        eps, HAS_GX: tl.constexpr, ROWS: tl.constexpr,
-                        BLOCK: tl.constexpr):
-    pid = tl.program_id(0)
-    cols = tl.arange(0, BLOCK)
-    live = cols < E
-    w = tl.load(w_ptr + cols, mask=live, other=0.0)
-    acc_w = tl.zeros([BLOCK], dtype=tl.float32)
-    acc_b = tl.zeros([BLOCK], dtype=tl.float32)
-    for i in range(ROWS):
-        row = pid.to(tl.int64) * ROWS + i
-        m = live & (row < M)
-        xf = tl.load(x_ptr + row * E + cols, mask=m, other=0.0).to(tl.float32)
-        mean = tl.sum(xf, axis=0) / E
-        c = tl.where(live, xf - mean, 0.0)
-        var = tl.sum(c * c, axis=0) / E
-        denom = tl.sqrt(var + eps)
-        xhat = c / denom
-        gn = tl.load(gn_ptr + row * E + cols, mask=m, other=0.0).to(tl.float32)
-        dxh = gn * w
-        m1 = tl.sum(dxh, axis=0) / E
-        m2 = tl.sum(dxh * xhat, axis=0) / E
-        dx = (dxh - m1 - xhat * m2) / denom
-        if HAS_GX:
-            dx = dx + tl.load(gx_ptr + row * E + cols, mask=m,
-                              other=0.0).to(tl.float32)
-        tl.store(dx_ptr + row * E + cols, dx.to(dx_ptr.dtype.element_ty),
-                 mask=m)
-        acc_w += gn * xhat
-        acc_b += gn
-    base = pid.to(tl.int64) * 2 * E
-    tl.store(part_ptr + base + cols, acc_w, mask=live)
-    tl.store(part_ptr + base + E + cols, acc_b, mask=live)
+# the instance codes shared with csrc/fused_norm_residual.cu
+INSTANCES = {"block": 0, "warp": 1}
+# a warp instance's lane holds chunks of CHUNK columns (one 16-byte bf16
+# load), at most WARP_MAX_E / 256 of them
+CHUNK = 8
+WARP_MAX_E = 1024
 
 
-def _colsum_kernel(part_ptr, out_ptr, P, W, BLOCK: tl.constexpr):
-    cols = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-    live = cols < W
-    acc = tl.zeros([BLOCK], dtype=tl.float32)
-    for r in range(0, P):
-        acc += tl.load(part_ptr + r * W + cols, mask=live, other=0.0)
-    tl.store(out_ptr + cols, acc, mask=live)
-
-
-# rows per backward program: 16384 rows (the recipe's B*T) -> 512
-# programs, each with E fp32 partials per parameter grad
-_BWD_ROWS = 32
+def add_norm_bwd_instance(dtype: torch.dtype, E: int) -> str:
+    """Which backward kernel runs on the card for rows of width E:
+    ``<dtype>-warp<n>`` (one warp per row, n = 8 * ceil(E / 256) elements
+    a lane; E a multiple of CHUNK up to WARP_MAX_E) or ``<dtype>-block``
+    (one block per row, scalar loads: other widths); dtype ``bf16`` or
+    ``fp32``."""
+    if dtype not in _kernels.DTYPE_CODES:
+        raise TypeError(f"add_norm_bwd: unsupported dtype {dtype}")
+    dt = "bf16" if dtype == torch.bfloat16 else "fp32"
+    if E % CHUNK or E > WARP_MAX_E:
+        return f"{dt}-block"
+    return f"{dt}-warp{CHUNK * -(-E // (32 * CHUNK))}"
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,8 +112,7 @@ def _compiled():
     import triton
     import triton.language as tl
 
-    return (triton.jit(_addnorm_fwd_kernel), triton.jit(_addnorm_bwd_kernel),
-            triton.jit(_colsum_kernel))
+    return triton.jit(_addnorm_fwd_kernel)
 
 
 def add_norm_reference(x, delta, weight, bias, eps: float = 1e-5):
@@ -200,7 +179,7 @@ def _launch(x: torch.Tensor, delta, w, b, eps: float):
     M = x.numel() // E
     normed = torch.empty_like(x)
     carry = torch.empty_like(x) if delta is not None else normed
-    kernel = _compiled()[0]
+    kernel = _compiled()
     block = 1 << (E - 1).bit_length()
     kernel[(M,)](x, delta if delta is not None else x, w, b, carry, normed,
                  E, float(eps), HAS_DELTA=delta is not None, BLOCK=block,
@@ -233,18 +212,28 @@ def add_norm_bwd(x: torch.Tensor, weight: torch.Tensor, gn: torch.Tensor,
     _check_params("add_norm_bwd", x, weight)
     E = x.shape[-1]
     M = x.numel() // E
-    programs = -(-M // _BWD_ROWS)
+    inst = add_norm_bwd_instance(x.dtype, E)
+    kind = "block" if inst.endswith("block") else "warp"
+    if kind == "warp":
+        x, gn, gx = _kernels.aligned16((x, gn, gx))
+    lib = _kernels.load("fused_norm_residual")
+    code = _kernels.DTYPE_CODES[x.dtype]
+    n_work = lib.fused_norm_residual_bwd_workspace(M, E, code, INSTANCES[kind])
+    if n_work < 0:
+        raise ValueError(f"add_norm_bwd: shapes ({M}, {E}) refused by the kernel")
+    dev = x.device
     dx = torch.empty_like(x)
-    part = torch.empty((programs, 2 * E), dtype=torch.float32, device=x.device)
-    dwb = torch.empty((2 * E,), dtype=torch.float32, device=x.device)
-    _, bwd, colsum = _compiled()
-    block = 1 << (E - 1).bit_length()
-    bwd[(programs,)](x, weight, gn, gx if gx is not None else gn, dx, part, M,
-                     E, float(eps), HAS_GX=gx is not None, ROWS=_BWD_ROWS,
-                     BLOCK=block, num_warps=4 if block <= 2048 else 8)
-    colsum[(-(-2 * E // 256),)](part, dwb, programs, 2 * E, BLOCK=256,
-                                num_warps=4)
+    dwb = torch.empty((2 * E,), dtype=torch.float32, device=dev)
+    work = torch.empty((n_work,), dtype=torch.float32, device=dev)
+    rc = lib.fused_norm_residual_bwd(
+        x.data_ptr(), weight.data_ptr(), gn.data_ptr(),
+        None if gx is None else gx.data_ptr(), dx.data_ptr(), dwb.data_ptr(),
+        work.data_ptr(), M, E, float(eps), code, INSTANCES[kind],
+        _kernels.stream_handle(dev))
+    _kernels.check(rc, "add_norm_bwd")
     add_norm_bwd.launches += 1
+    add_norm_bwd.carry_launches += gx is not None
+    add_norm_bwd.instances[inst] += 1
     return dx, dwb[:E], dwb[E:]
 
 
@@ -315,6 +304,8 @@ def fused_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 fused_add_norm.launches = 0
 fused_norm.launches = 0
 add_norm_bwd.launches = 0
+add_norm_bwd.carry_launches = 0
+add_norm_bwd.instances = Counter()
 
 # The reference's GroupLayerNorm IS a full-width LayerNorm: same kernels.
 fused_add_group_norm = fused_add_norm

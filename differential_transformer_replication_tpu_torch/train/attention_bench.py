@@ -22,10 +22,16 @@ beside cuBLAS computing the same products alone (``x @ [Wg | Wx]``; for
 the backward that plus ``x^T @ [dg | dt]``): a yardstick of what the
 card reaches at these shapes, not a one-call equivalent of the function;
 and the forward on both of its tensor-core instances at 32 to 128 rows,
-where ``swiglu_instance`` switches between them.
+where ``swiglu_instance`` switches between them. Under ``norm`` it times
+the add+LayerNorm kernels (``ops/fused_norm_residual.py``: Queue B rows 1
+and 2, the Triton forward and ``csrc/fused_norm_residual.cu``'s backward)
+at the training rows (16384, 768) and a decode step's (8, 768), with and
+without the residual add or the carry cotangent, each beside its byte
+bound, ``F.layer_norm`` and a backward yardstick beside them, and the
+backward's launches split by the profiler.
 
     python differential_transformer_replication_tpu_torch/train/attention_bench.py \
-        [--root DIR] [--tag NAME] [--parts tm,hm,decode,ffn]
+        [--root DIR] [--tag NAME] [--parts tm,hm,decode,ffn,norm]
 
 ``--root`` names the checkout whose package is timed (default: the one
 that holds this file), so that two trees are compared on one card in one
@@ -100,7 +106,10 @@ DEC_POS = (0, 37, 300, 506, 506, 300, 37, 150)
 # rows of a decode step, a prefill chunk and a training step
 FFN_E, FFN_F, FFN_MS = 768, 3072, (8, 128, 16384)
 FFN_SWITCH_MS = (32, 64, 96, 128)  # rows timed on both forward instances
-PARTS = ("tm", "hm", "decode", "ffn")
+# the add+LayerNorm kernels (Queue B rows 1 and 2): width 768, the rows of
+# a training step and of a decode step
+NORM_E, NORM_MS = 768, (16384, 8)
+PARTS = ("tm", "hm", "decode", "ffn", "norm")
 
 
 def device_ms(torch, calls) -> float:
@@ -417,6 +426,82 @@ def bench_ffn(torch, ffn) -> dict:
     return res
 
 
+def kernel_split_us(torch, calls, n: int = 20) -> dict:
+    """Device us per call of each CUDA kernel the calls launch
+    (torch.profiler over ``n`` calls, cycling through ``calls``)."""
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(n):
+            calls[i % len(calls)]()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / n for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
+def bench_norm(torch, fnr) -> dict:
+    """Rows 1 and 2 in bf16 at each M of NORM_MS: the forward with the
+    residual add (``fused_add_norm``) and without (``fused_norm``), the
+    backward with the carry cotangent and without (``add_norm_bwd``),
+    rows cycled past the L2, each beside its byte bound (each input read
+    once, each output written once); ``F.layer_norm`` beside the forward
+    without the add; beside the backward without the carry
+    ``aten.native_layer_norm_backward`` fed the mean and rstd that
+    ``aten.native_layer_norm`` returns (it does not recompute the
+    statistics: a yardstick, not the same function); both with bf16
+    params, as aten refuses bf16 rows with fp32 ones; and the backward's
+    device us by kernel (torch.profiler), which splits one call's
+    launches."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    dt, E = torch.bfloat16, NORM_E
+    aten = torch.ops.aten
+    w = 1.0 + 0.1 * torch.randn(E, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(E, generator=gen, device="cuda")
+    wl, bl = w.to(dt), b.to(dt)
+    res = {}
+    for M in NORM_MS:
+        nb = M * E * 2
+        # as many row sets as exceed the L2 twice over, at most one per
+        # call of a graph (the decode step's rows then stay in the L2, as
+        # they do in the serving step)
+        sets = [[torch.randn(M, E, generator=gen, device="cuda").to(dt) for _ in range(3)]
+                for _ in range(min(ITERS, math.ceil(2 * L2_BYTES / (4 * nb))))]
+        stats = [aten.native_layer_norm(s[0], (E,), wl, bl, 1e-5)[1:] for s in sets]
+        mask = [True, True, True]
+        row = {
+            "fwd_add_ms": device_ms(torch, [lambda s=s: fnr.fused_add_norm(s[0], s[1], w, b)
+                                            for s in sets]),
+            "fwd_add_bound_ms": (4 * nb + 2 * E * 4) / PEAK_BYTES_S * 1e3,
+            "fwd_ms": device_ms(torch, [lambda s=s: fnr.fused_norm(s[0], w, b) for s in sets]),
+            "fwd_bound_ms": (2 * nb + 2 * E * 4) / PEAK_BYTES_S * 1e3,
+            "fwd_layer_norm_ms": device_ms(torch, [
+                lambda s=s: torch.nn.functional.layer_norm(s[0], (E,), wl, bl, 1e-5)
+                for s in sets]),
+            "bwd_carry_ms": device_ms(torch, [lambda s=s: fnr.add_norm_bwd(s[0], w, s[1], s[2])
+                                              for s in sets]),
+            "bwd_carry_bound_ms": (4 * nb + 3 * E * 4) / PEAK_BYTES_S * 1e3,
+            "bwd_ms": device_ms(torch, [lambda s=s: fnr.add_norm_bwd(s[0], w, s[1])
+                                        for s in sets]),
+            "bwd_bound_ms": (3 * nb + 3 * E * 4) / PEAK_BYTES_S * 1e3,
+            "bwd_yardstick_ms": device_ms(torch, [
+                lambda s=s, st=st: aten.native_layer_norm_backward(
+                    s[1], s[0], (E,), st[0], st[1], wl, bl, mask)
+                for s, st in zip(sets, stats)]),
+            "bwd_carry_kernels_us": kernel_split_us(
+                torch, [lambda s=s: fnr.add_norm_bwd(s[0], w, s[1], s[2]) for s in sets]),
+            "bwd_kernels_us": kernel_split_us(
+                torch, [lambda s=s: fnr.add_norm_bwd(s[0], w, s[1]) for s in sets]),
+        }
+        res[f"M{M}"] = row
+        del sets, stats
+    torch.cuda.empty_cache()
+    return res
+
+
 def _attention_work():
     """``testing.attention_work`` of the tree that holds this file, which
     ``--root`` need not have."""
@@ -448,6 +533,7 @@ def main() -> int:
         decode_attention as dat,
         flash,
         fused_ffn as ffn,
+        fused_norm_residual as fnr,
     )
 
     card = subprocess.run(
@@ -463,6 +549,8 @@ def main() -> int:
         out["decode"] = bench_decode(torch, dat)
     if "ffn" in parts:
         out["ffn"] = bench_ffn(torch, ffn)
+    if "norm" in parts:
+        out["norm"] = bench_norm(torch, fnr)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -466,22 +466,52 @@ def test_flash_tm_kernels_match_plain(gen, dtype, S, B, T, H, d, dv, packed):
     assert all(torch.equal(a, b) for a, b in zip(again, [*dqs, *dks, dv_]))
 
 
+# M 1, a ragged 2053 rows (prime: no rows-per-block divides it), the
+# recipe's 16384 with and without the carry; every warp instance's width
+# (E 64, 264, 768, 1024) and the block instance (100, 1032)
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
-@pytest.mark.parametrize("shape,with_gx", [((300, 768), True), ((3, 5, 100), False),
-                                           ((16384, 768), True)])
+@pytest.mark.parametrize("shape,with_gx", [
+    ((300, 768), True), ((3, 5, 100), False), ((16384, 768), True),
+    ((1, 768), True), ((1, 768), False), ((2053, 768), False), ((2053, 768), True),
+    ((16384, 768), False), ((7, 64), True), ((129, 264), False), ((257, 1024), True),
+    ((33, 1032), False), ((2053, 100), True)])
 def test_add_norm_bwd_kernel_matches_plain(gen, dtype, shape, with_gx):
     E = shape[-1]
     x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
     gn = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
     gx = torch.randn(*shape, generator=gen, device="cuda").to(dtype) if with_gx else None
     w = 1 + 0.1 * torch.randn(E, generator=gen, device="cuda")
-    n0 = fnr.add_norm_bwd.launches
+    inst = fnr.add_norm_bwd_instance(dtype, E)
+    n0, c0, i0 = (fnr.add_norm_bwd.launches, fnr.add_norm_bwd.carry_launches,
+                  fnr.add_norm_bwd.instances[inst])
     dx, dw, db = fnr.add_norm_bwd(x, w, gn, gx)
     rdx, rdw, rdb = fnr.add_norm_bwd_reference(x, w, gn, gx)
     assert fnr.add_norm_bwd.launches - n0 == 1
+    assert fnr.add_norm_bwd.carry_launches - c0 == int(with_gx)
+    assert fnr.add_norm_bwd.instances[inst] - i0 == 1
+    assert inst.endswith("block") == (E % 8 != 0 or E > fnr.WARP_MAX_E)
     assert _err(dx, rdx) <= (1e-5 * float(rdx.abs().max()) if dtype == torch.float32
                              else _ulp(rdx))
     assert _rel(dw, rdw) <= 1e-4 and _rel(db, rdb) <= 1e-4
+    # no float atomics: a second call gives the same bits
+    again = fnr.add_norm_bwd(x, w, gn, gx)
+    assert all(torch.equal(a, b) for a, b in zip(again, (dx, dw, db)))
+
+
+@pytest.mark.parametrize("mode", [0, 1], ids=["uniform", "a-near-2-b-near-1"])
+def test_add_norm_bwd_quotient_equals_ieee_division(gen, mode):
+    """The backward's quotients by a row's denom come from one correctly
+    rounded reciprocal and an FMA correction each; on 2^26 pairs with
+    exponents within 2^+-60 (significands uniform, or where a * (1/b) is
+    farthest from a / b) they equal IEEE division bit for bit."""
+    from differential_transformer_replication_tpu_torch.ops import _kernels
+
+    bad = torch.zeros(1, dtype=torch.int64, device="cuda")
+    lib = _kernels.load("fused_norm_residual")
+    rc = lib.fused_norm_residual_quot_check(bad.data_ptr(), 4096, 12 + mode, mode,
+                                            _kernels.stream_handle(bad.device))
+    assert rc == 0
+    assert int(bad) == 0
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])

@@ -50,6 +50,8 @@ from differential_transformer_replication_tpu_torch.ops.fused_ffn import (
     swiglu_instance,
 )
 from differential_transformer_replication_tpu_torch.ops.fused_norm_residual import (
+    WARP_MAX_E,
+    add_norm_bwd_instance,
     fused_add_norm as t_fused_add_norm,
     fused_norm as t_fused_norm,
 )
@@ -248,6 +250,25 @@ def test_swiglu_instance_rule():
             assert swiglu_instance(torch.bfloat16, M, E, F, backward=True) == "simt"
     with pytest.raises(TypeError):
         swiglu_instance(torch.float16, 8, 768, 3072)
+
+
+@pytest.mark.parametrize("dtype,name", [(torch.float32, "fp32"),
+                                        (torch.bfloat16, "bf16")], ids=["fp32", "bf16"])
+def test_add_norm_bwd_instance_rule(dtype, name):
+    """Which add+norm backward kernel runs on the card: one warp a row
+    with 8 * ceil(E / 256) elements a lane for widths in multiples of 8
+    up to WARP_MAX_E (the recipe's 768: 24), one block a row otherwise.
+    The dtype names the instance; the rows never decide."""
+    assert WARP_MAX_E == 1024
+    assert add_norm_bwd_instance(dtype, 768) == f"{name}-warp24"
+    assert add_norm_bwd_instance(dtype, 64) == f"{name}-warp8"
+    assert add_norm_bwd_instance(dtype, 256) == f"{name}-warp8"
+    assert add_norm_bwd_instance(dtype, 264) == f"{name}-warp16"
+    assert add_norm_bwd_instance(dtype, WARP_MAX_E) == f"{name}-warp32"
+    for E in (100, 36, 770, WARP_MAX_E + 8, 1536):
+        assert add_norm_bwd_instance(dtype, E) == f"{name}-block"
+    with pytest.raises(TypeError):
+        add_norm_bwd_instance(torch.float16, 768)
 
 
 @pytest.mark.parametrize("jdt,tdt", DTYPES, ids=["fp32", "bf16"])
