@@ -111,7 +111,26 @@ these phases, each printing its own lines and its seconds:
    (plain versions); again at T 640 through the head-major route;
    train-ring-e2e: one fp32 step of a 2-layer diff and control at recipe
    width, T 1024, over P 2 and 4 gloo ranks on the card against the
-   single-card head-major step (loss, grads, updated params).
+   single-card head-major step (loss, grads, updated params);
+7. train-ckpt: the default recipe with checkpoints, through the command
+   lines, each in a process of its own (``chip_smoke.py --cli-worker``:
+   the trainer's or the server's ``main`` with the kernel wrappers'
+   counts written out at its end): the diff recipe at full width and
+   depth, bf16, micro-batch 8 x 48 grad-acc steps, the epoch sampler on a
+   seeded stream whose epoch ends inside the run, async step checkpoints
+   and an eval every N = 6 steps. (a) where the epoch boundary falls; (b)
+   an uninterrupted 2N-step run against one killed by SIGKILL once its
+   step-N checkpoint is certified and resumed with ``--resume-from auto``
+   to 2N: the last checkpoints' ``state.msgpack`` bit-equal and every
+   step's loss equal, the backward kernels' exact launches in both runs;
+   (d) the checkpoint's MB, the async save's seconds, the loop's time in
+   each periodic save and its back-pressure, the inline best and last
+   saves, verify and load seconds; (c) the server on the best checkpoint
+   (``--checkpoint``) answering four greedy requests one after another
+   with the in-process engine's tokens on ``load_params_for_inference``
+   of the same directory. Its files live in a temporary directory under
+   ``build/``, removed at the end. The earlier train phases write their
+   best checkpoints to ``build/chip_smoke/best.ckpt``, removed likewise.
 
 It then prints the kernels' JSON summary, the card line, and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -1738,6 +1757,9 @@ def run_bh_kernels(torch, flash) -> dict:
 # phase 5: train the diff and control recipes through the trainer
 # ---------------------------------------------------------------------------
 
+# the best checkpoint of the train, train-hm and train-ring runs (each
+# writes its best at its eval, over the one before; removed at the end)
+SMOKE_BEST = Path(__file__).resolve().parent / "build" / "chip_smoke" / "best.ckpt"
 TRAIN_STEPS = 6     # trainer steps per recipe
 REPEAT_STEPS = 4    # steps on one repeated batch, whose loss must fall
 TRAIN_COUNTERS = ("fused_norm", "fused_add_norm", "fused_swiglu",
@@ -1809,7 +1831,8 @@ def run_train(torch, card: str) -> dict:
             max_iters=TRAIN_STEPS, eval_interval=TRAIN_STEPS, eval_iters=2,
             log_interval=1, learning_rate=1e-3, warmup_iters=2,
             sampler="replacement", seed=0,
-            metrics_path=str(out_dir / f"metrics_{model}.jsonl"))
+            metrics_path=str(out_dir / f"metrics_{model}.jsonl"),
+            checkpoint_path=str(SMOKE_BEST), last_checkpoint_path=None)
         mcfg = cfg.resolved_model()
         for fn in counters.values():
             fn.launches = 0
@@ -1930,7 +1953,8 @@ def run_train_hm(torch, card: str, tokens) -> dict:
                               compute_dtype="bfloat16", param_dtype="float32"),
             vocab_size=RECIPE["vocab_size"], micro_batch_size=B, max_iters=steps,
             eval_interval=steps, eval_iters=HM_EVAL_ITERS, log_interval=1,
-            learning_rate=1e-3, warmup_iters=2, sampler="replacement", seed=0)
+            learning_rate=1e-3, warmup_iters=2, sampler="replacement", seed=0,
+            checkpoint_path=str(SMOKE_BEST), last_checkpoint_path=None)
         mcfg = cfg.resolved_model()
         L, S = mcfg.n_layer, {"control": 1, "diff": 2}[model]
         flash.reset_bh_counters()
@@ -2406,7 +2430,8 @@ def ring_argv(model: str, P: int, T: int, B: int, steps: int, tokens, backend: s
             "--warmup-iters", "2", "--learning-rate", "1e-3", "--dropout", str(HM_RATE),
             "--compute-dtype", "bfloat16", "--log-interval", "1", "--seed", "0",
             "--metrics-path", metrics, "--sequence-parallel", str(P),
-            "--dist-backend", backend]
+            "--dist-backend", backend, "--checkpoint-path", str(SMOKE_BEST),
+            "--last-checkpoint-path", ""]
 
 
 def run_train_ring(torch, card: str, tokens) -> dict:
@@ -2642,11 +2667,305 @@ def run_train_e2e(torch) -> None:
 # main
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase train-ckpt: the default recipe (epoch sampler) with checkpoints,
+# killed and resumed, then its best checkpoint served, through the
+# command lines in processes of their own
+# ---------------------------------------------------------------------------
+
+CKPT_N = 6          # steps between step checkpoints and evals; runs of 2N
+CKPT_B = 8          # micro-batch
+CKPT_ACC = 48       # grad-acc steps: 384 windows a step, so 2N steps cross
+CKPT_TOKENS = 5300  # an epoch of int(0.9 * 5300) - 512 = 4258 windows
+CKPT_PROMPTS = (5, 40, 97, 200)  # greedy requests to the served checkpoint
+CKPT_NEW = 24
+CKPT_TIMEOUT_S = 300
+
+
+def ckpt_argv(tokens, run_dir, *extra) -> list:
+    """The trainer's command line for one train-ckpt run: the diff recipe
+    at full width and depth, bf16 compute, the epoch sampler, async step
+    checkpoints and an eval every N steps."""
+    return ["--model", "diff", "--tokens", str(tokens), "--device", "cuda",
+            "--n-embd", str(RECIPE["n_embd"]), "--n-head", str(RECIPE["n_head"]),
+            "--n-layer", str(RECIPE["n_layer"]),
+            "--block-size", str(RECIPE["block_size"]),
+            "--vocab-size", str(RECIPE["vocab_size"]), "--compute-dtype", "bfloat16",
+            "--micro-batch-size", str(CKPT_B), "--grad-acc-steps", str(CKPT_ACC),
+            "--max-iters", str(2 * CKPT_N), "--eval-interval", str(CKPT_N),
+            "--eval-iters", "2", "--log-interval", "1", "--warmup-iters", "2",
+            "--learning-rate", "1e-3", "--seed", "0", "--sampler", "epoch",
+            "--ckpt-interval", str(CKPT_N), "--ckpt-async",
+            "--checkpoint-path", str(Path(run_dir) / "best.ckpt"),
+            "--metrics-path", str(Path(run_dir) / "metrics.jsonl"), *extra]
+
+
+def cli_worker(spec: dict) -> int:
+    """A process of the train-ckpt phase (``--cli-worker``): the trainer's
+    or the server's command line, run in this process with the kernel
+    wrappers' counts set to 0 before and written to ``spec["out"]`` after
+    (a process killed before its end writes none)."""
+    import sys as _sys
+
+    from differential_transformer_replication_tpu_torch.ops import (
+        decode_attention as dat,
+    )
+
+    counters = dict(_train_counters(), decode_attention=dat.decode_attention)
+    for fn in counters.values():
+        fn.launches = 0
+    carry = counters["add_norm_bwd"]
+    carry.carry_launches = 0
+    if spec["cli"] == "train":
+        from differential_transformer_replication_tpu_torch.train import __main__ as cli
+
+        rc = cli.main(spec["argv"])
+    else:
+        from differential_transformer_replication_tpu_torch.serving import server
+
+        _sys.argv = ["server", *spec["argv"]]
+        server.main()
+        rc = 0
+    counts = {name: fn.launches for name, fn in counters.items()}
+    counts["add_norm_bwd_carry"] = carry.carry_launches
+    Path(spec["out"]).write_text(json.dumps(counts))
+    return rc
+
+
+def start_worker(cli: str, argv: list, out: Path) -> subprocess.Popen:
+    out.unlink(missing_ok=True)
+    return subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--cli-worker",
+         json.dumps({"cli": cli, "argv": argv, "out": str(out)})],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_worker(proc: subprocess.Popen, label: str, timeout: float = CKPT_TIMEOUT_S,
+                  rc: int = 0) -> str:
+    try:
+        out = proc.communicate(timeout=timeout)[0]
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out = proc.communicate()[0]
+        raise Failure(f"{label}: no end within {timeout} s:\n{out[-4000:]}")
+    expect(proc.returncode == rc, f"{label}: exit {proc.returncode}, expected {rc}:\n"
+           f"{out[-6000:]}")
+    return out
+
+
+def step_records(path: Path) -> list:
+    return [r for r in map(json.loads, path.read_text().splitlines()) if "loss" in r]
+
+
+def state_bytes(ckpt_dir: Path) -> bytes:
+    return (ckpt_dir / "state.msgpack").read_bytes()
+
+
+def expect_train_launches(counts: dict, steps: int, label: str) -> None:
+    """The backward kernels ran once per layer and microbatch of each step
+    (never in eval); every forward kernel of the path launched."""
+    L, A = RECIPE["n_layer"], CKPT_ACC
+    per_micro = {"flash_tm_bwd": L, "swiglu_bwd": L, "add_norm_bwd": 3 * L + 1,
+                 "add_norm_bwd_carry": L}
+    for name, per in per_micro.items():
+        expect(counts[name] == per * A * steps,
+               f"{label}: {name} launched {counts[name]} times, expected "
+               f"{per * A * steps}")
+    for name in ("flash_tm_fwd", "fused_norm", "fused_add_norm", "fused_swiglu"):
+        expect(counts[name] > 0, f"{label}: {name} never launched")
+
+
+def run_train_ckpt(torch, card: str) -> dict:
+    """Phase train-ckpt. (a) the epoch sampler across an epoch boundary,
+    (b) a run killed by SIGKILL after its step-N checkpoint and resumed
+    with ``--resume-from auto`` ends bit-equal to an uninterrupted 2N-step
+    run, (c) the server on the best checkpoint gives the in-process
+    engine's greedy tokens, (d) the checkpoints' costs on this machine's
+    disk. Returns the uninterrupted run's launch counts."""
+    import shutil
+    import socket
+    import tempfile
+
+    import numpy as np
+
+    from differential_transformer_replication_tpu_torch.config import ServingConfig
+    from differential_transformer_replication_tpu_torch.data.native import (
+        EpochPermutation,
+    )
+    from differential_transformer_replication_tpu_torch.models import param_count
+    from differential_transformer_replication_tpu_torch.serving.engine import (
+        ServingEngine,
+    )
+    from differential_transformer_replication_tpu_torch.train.checkpoint import (
+        load_params_for_inference,
+        read_meta,
+    )
+    from differential_transformer_replication_tpu_torch.train.ckpt_writer import (
+        step_dir_name,
+        verify_checkpoint,
+    )
+
+    N = CKPT_N
+    work = Path(tempfile.mkdtemp(prefix="train_ckpt_",
+                                 dir=Path(__file__).resolve().parent / "build"))
+    try:
+        tokens = work / "tokens.npy"
+        synthetic_tokens(tokens, CKPT_TOKENS, RECIPE["vocab_size"], seed=3)
+        windows = int(0.9 * CKPT_TOKENS) - RECIPE["block_size"]
+        per_step = CKPT_B * CKPT_ACC
+        expect(N * per_step < windows < 2 * N * per_step,
+               "train-ckpt: the resumed half of the run must cross the epoch")
+        # (a) where the epoch boundary falls, from the port's permutation
+        perm = EpochPermutation(windows, 0)
+        cross = 0
+        while perm.epoch == 0:
+            perm.take(per_step)
+            cross += 1
+        log(f"[train-ckpt] (a) epoch sampler: {windows} training windows an epoch, "
+            f"{per_step} a step (micro-batch {CKPT_B} x {CKPT_ACC}); step {cross} "
+            f"crosses into epoch 1, after the resume at step {N} (the draws equal "
+            f"the JAX package's EpochPermutation bit for bit: tests/test_torch_data.py)")
+        # 1. the uninterrupted run
+        a, b = work / "a", work / "b"
+        a.mkdir()
+        b.mkdir()
+        t0 = time.perf_counter()
+        proc = start_worker("train", ckpt_argv(tokens, a), work / "a.json")
+        out_a = finish_worker(proc, "train-ckpt uninterrupted run")
+        wall_a = time.perf_counter() - t0
+        counts = json.loads((work / "a.json").read_text())
+        expect_train_launches(counts, 2 * N, "train-ckpt uninterrupted run")
+        # 2. the run killed once its step-N checkpoint is certified
+        t0 = time.perf_counter()
+        proc = start_worker("train", ckpt_argv(tokens, b), work / "b.json")
+        manifest = b / "best.steps" / step_dir_name(N) / "manifest.json"
+        while not manifest.exists() and proc.poll() is None \
+                and time.perf_counter() - t0 < CKPT_TIMEOUT_S:
+            time.sleep(0.01)
+        proc.send_signal(9)
+        out_b = finish_worker(proc, "train-ckpt killed run", rc=-9)
+        killed_at = max(r["iter"] for r in step_records(b / "metrics.jsonl"))
+        # 3. the resume
+        t0 = time.perf_counter()
+        proc = start_worker("train", ckpt_argv(tokens, b, "--resume-from", "auto"),
+                            work / "c.json")
+        out_c = finish_worker(proc, "train-ckpt resumed run")
+        wall_c = time.perf_counter() - t0
+        resumed = re.search(r"resuming from (\S+)", out_c)
+        expect(resumed is not None, f"train-ckpt: the resume found no checkpoint:\n{out_c}")
+        resumed_step = read_meta(resumed.group(1))["iter_num"]
+        counts_c = json.loads((work / "c.json").read_text())
+        expect_train_launches(counts_c, 2 * N - resumed_step, "train-ckpt resumed run")
+        # (b) bit for bit: the train states (params, mu, nu, counts, step)
+        # serialize to the same bytes, and every step's loss is equal
+        ra, rb = step_records(a / "metrics.jsonl"), step_records(b / "metrics.jsonl")
+        la = {r["iter"]: r["loss"] for r in ra}
+        expect(sorted(la) == list(range(1, 2 * N + 1)), f"train-ckpt: steps {sorted(la)}")
+        unequal = [(r["iter"], r["loss"], la[r["iter"]]) for r in rb
+                   if r["loss"] != la[r["iter"]]]
+        same = state_bytes(a / "best.last.ckpt") == state_bytes(b / "best.last.ckpt")
+        log(f"[train-ckpt] (b) killed at step {killed_at} (SIGKILL once "
+            f"step-{N} was certified), resumed from {resumed.group(1)} (step "
+            f"{resumed_step}) to {2 * N}: state.msgpack of the last checkpoints "
+            f"{'bit-equal' if same else 'DIFFERENT'}, {len(rb)} step losses of the "
+            f"killed and resumed runs against the uninterrupted run's, "
+            f"{len(unequal)} unequal {unequal[:4]}; losses "
+            f"{[round(la[i], 4) for i in sorted(la)]}")
+        expect(same and not unequal, "train-ckpt: the resumed run is not bit-equal "
+               "to the uninterrupted run")
+        # (d) costs on this machine's disk
+        save_ms = [r["ckpt_save_ms"] for r in ra if "ckpt_save_ms" in r]
+        blocked = [r["ckpt_blocked_ms"] for r in ra if r["iter"] % N == 0]
+        loop = [r["ckpt_loop_ms"] for r in ra if r["iter"] % N == 0]
+        best_s = [float(x) for x in re.findall(r"\[ckpt\] best checkpoint written to "
+                                               r"\S+ in ([\d.]+) s", out_a)]
+        last_s = [float(x) for x in re.findall(r"\[ckpt\] last checkpoint written to "
+                                               r"\S+ in ([\d.]+) s", out_a)]
+        step_dir = a / "best.steps" / step_dir_name(2 * N)
+        mb = sum(f.stat().st_size for f in step_dir.iterdir()) / 1e6
+        t0 = time.perf_counter()
+        verify_checkpoint(str(step_dir))
+        verify_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params, mcfg, meta = load_params_for_inference(str(a / "best.ckpt"), device="cuda")
+        load_s = time.perf_counter() - t0
+        expect(meta["consumed_windows"] % per_step == 0 and meta["iter_num"] > 0,
+               f"train-ckpt: best checkpoint meta {meta['iter_num']}, "
+               f"{meta['consumed_windows']}")
+        log(f"[train-ckpt] (d) checkpoint {mb:.1f} MB (state.msgpack + meta + manifest, "
+            f"{param_count(params) / 1e6:.1f} M params and two "
+            f"moments); async step saves {sorted({round(x / 1e3, 3) for x in save_ms})} s "
+            f"on the writer thread; the "
+            f"loop's time in each periodic save {[round(x, 1) for x in loop]} ms, of it "
+            f"blocked on the previous save {[round(x, 1) for x in blocked]} ms; best "
+            f"(inline) saves {best_s} s; last {last_s} s; verify "
+            f"{verify_s:.3f} s; load for inference {load_s:.3f} s; uninterrupted run "
+            f"{wall_a:.1f} s, resumed run {wall_c:.1f} s (process start included); {card}")
+        # (c) the server on the best checkpoint against the in-process engine
+        serving = dict(num_slots=8, prefill_chunk=128, prefill_budget=256)
+        rng = np.random.default_rng(4)
+        prompts = [rng.integers(0, RECIPE["vocab_size"], n).tolist() for n in CKPT_PROMPTS]
+        engine = ServingEngine(params, mcfg, ServingConfig(**serving), device="cuda")
+        want = [engine.generate([p], max_new_tokens=CKPT_NEW, temperature=0.0)[0].tokens
+                for p in prompts]
+        del engine, params
+        torch.cuda.empty_cache()
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        proc = start_worker("serve", ["--checkpoint", str(a / "best.ckpt"),
+                                      "--device", "cuda", "--port", str(port),
+                                      "--num-slots", "8", "--prefill-chunk", "128",
+                                      "--prefill-budget", "256"], work / "s.json")
+        url = f"http://127.0.0.1:{port}"
+        try:
+            t0 = time.perf_counter()
+            while True:
+                try:
+                    with urllib.request.urlopen(url + "/health", timeout=5) as r:
+                        if json.load(r)["ok"]:
+                            break
+                except OSError:
+                    expect(proc.poll() is None and time.perf_counter() - t0 < CKPT_TIMEOUT_S,
+                           f"train-ckpt: the server did not come up:\n"
+                           f"{proc.stdout.read() if proc.poll() is not None else ''}")
+                    time.sleep(0.2)
+            up_s = time.perf_counter() - t0
+            got = []
+            for p in prompts:  # one at a time, as the engine ran them
+                status, reply = _post(url + "/generate", {
+                    "prompt_ids": p, "max_new_tokens": CKPT_NEW, "temperature": 0.0})
+                expect(status == 200, f"train-ckpt: /generate answered {status}")
+                got.append(reply["tokens"])
+        finally:
+            proc.send_signal(15)
+        out_s = finish_worker(proc, "train-ckpt server")
+        served = json.loads((work / "s.json").read_text())
+        expect(served["decode_attention"] > 0 and served["fused_swiglu"] > 0
+               and served["fused_norm"] > 0 and served["fused_add_norm"] > 0,
+               f"train-ckpt: the server's kernels did not launch: {served}")
+        expect(str(a / "best.ckpt") in out_s, "train-ckpt: the server did not name "
+               "its checkpoint")
+        log(f"[train-ckpt] (c) server on {a / 'best.ckpt'} (step {meta['iter_num']}, up "
+            f"in {up_s:.1f} s): {len(prompts)} greedy requests of {list(CKPT_PROMPTS)} "
+            f"prompt tokens, {CKPT_NEW} new tokens each, "
+            f"{'equal to' if got == want else 'DIFFERENT from'} the in-process engine on "
+            f"load_params_for_inference of the same directory; server launches "
+            f"{ {k: served[k] for k in ('decode_attention', 'fused_swiglu', 'fused_norm', 'fused_add_norm')} }")
+        expect(got == want, f"train-ckpt: served tokens {got} != engine tokens {want}")
+        log(f"[train-ckpt] uninterrupted run launches {counts}")
+        return counts
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
     if len(sys.argv) == 3 and sys.argv[1] == "--ring-worker":
         return ring_worker(json.loads(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--cli-worker":
+        return cli_worker(json.loads(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs one "
               "GPU", file=sys.stderr)
@@ -2746,6 +3065,10 @@ def main() -> int:
                         / "tokens.npy")
     phase("train-ring-e2e", run_train_ring_e2e, torch)
     phase("train-e2e", run_train_e2e, torch)
+    phase("train-ckpt", run_train_ckpt, torch, card)
+    import shutil
+
+    shutil.rmtree(SMOKE_BEST, ignore_errors=True)
     log(f"[done] phases {', '.join(f'{k} {v:.1f} s' for k, v in phases.items())}; "
         f"total {time.perf_counter() - t_all:.1f} s")
 

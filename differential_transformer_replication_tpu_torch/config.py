@@ -175,7 +175,7 @@ class ServingConfig:
     # Speculative decoding (serving/spec.py): "" = off, "ngram" = the
     # prompt-lookup drafter; the target verifies up to spec_draft_len
     # drafted tokens per slot in one k+1-row pool step. "model" (a
-    # drafter checkpoint) is refused until checkpoints are ported.
+    # drafter checkpoint, ModelDrafter) is refused until it is ported.
     spec_mode: str = ""
     spec_draft_len: int = 4
     spec_drafter_ckpt: str = ""
@@ -218,10 +218,9 @@ class ServingConfig:
             )
         if self.spec_mode == "model":
             raise NotImplementedError(
-                "spec_mode='model' is not served by the port yet: its "
-                "drafter loads from a checkpoint (ROADMAP Queue A: "
-                "checkpoints; ModelDrafter in Queue A: serving subsystems "
-                "left); use spec_mode='ngram'"
+                "spec_mode='model' is not served by the port yet: "
+                "ModelDrafter (ROADMAP Queue A: serving subsystems); use "
+                "spec_mode='ngram'"
             )
         if self.host_tier_bytes > 0:
             raise NotImplementedError(
@@ -373,16 +372,6 @@ class MeshConfig:
 # carries over) but does not run yet: each must stay at its default, and
 # the ROADMAP item that brings it is named when it does not.
 LATER_SLICE_FIELDS = {
-    "checkpoint_path": "checkpoints (ROADMAP Queue A: checkpoints)",
-    "last_checkpoint_path": "checkpoints (ROADMAP Queue A: checkpoints)",
-    "resume_from": "checkpoints (ROADMAP Queue A: checkpoints)",
-    "checkpoint_min_interval_s": "checkpoints (ROADMAP Queue A: checkpoints)",
-    "ckpt_interval": "checkpoints (ROADMAP Queue A: checkpoints)",
-    "ckpt_dir": "checkpoints (ROADMAP Queue A: checkpoints)",
-    "ckpt_async": "checkpoints (ROADMAP Queue A: checkpoints)",
-    "ckpt_keep_last": "checkpoints (ROADMAP Queue A: checkpoints)",
-    "ckpt_keep_every": "checkpoints (ROADMAP Queue A: checkpoints)",
-    "allow_inexact_resume": "checkpoints (ROADMAP Queue A: checkpoints)",
     "num_train_samples": "the corpus/BPE data slice (ROADMAP Queue A: data)",
     "min_frequency": "the corpus/BPE data slice (ROADMAP Queue A: data)",
     "tokenizer_dir": "the corpus/BPE data slice (ROADMAP Queue A: data)",
@@ -436,8 +425,9 @@ class TrainConfig:
     # count so that it roughly param-matches diff (resolved_model()).
     control_head_multiplier: int = 2
 
-    # Data. "epoch" (the exact epoch permutation, the JAX default) waits
-    # for the data slice; this slice runs "replacement" only.
+    # Data. "epoch": every window once per epoch in a fresh seeded
+    # permutation (data/native.py), the JAX default; "replacement": windows
+    # drawn uniformly with replacement.
     dataset: str = "tinystories"
     sampler: str = "epoch"
     num_train_samples: int = 1_000_000
@@ -519,6 +509,25 @@ class TrainConfig:
                 # past it and causal offsets off their 32-row tile grid
                 raise ValueError(f"block_size {T} must split into {P} equal "
                                  "sequence shards")
+
+    def resolved_last_checkpoint_path(self) -> Optional[str]:
+        if self.last_checkpoint_path != "auto":
+            return self.last_checkpoint_path
+        import os
+
+        root, ext = os.path.splitext(self.checkpoint_path)
+        return f"{root}.last{ext or '.ckpt'}"
+
+    def resolved_ckpt_dir(self) -> str:
+        """Root of the rotating step-checkpoint tree
+        (train/ckpt_writer.py); "auto" keys it off checkpoint_path like
+        the rescue checkpoint, so runs never share a rotation tree."""
+        if self.ckpt_dir != "auto":
+            return self.ckpt_dir
+        import os
+
+        root, _ = os.path.splitext(self.checkpoint_path)
+        return f"{root}.steps"
 
     def resolved_model(self) -> ModelConfig:
         """Apply trainer-level switches to the model config: the

@@ -1,2 +1,3 @@
-"""Data of the port: the token-stream window sampler (data/sampler.py).
-The corpus, BPE tokenizer and epoch sampler are a later slice."""
+"""Data of the port: the token-stream window sampler (data/sampler.py)
+and the epoch sampler's permutation (data/native.py). The corpus and
+BPE tokenizer are a later slice."""

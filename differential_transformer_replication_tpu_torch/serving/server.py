@@ -603,8 +603,9 @@ def serve(client: ServingClient, host: str = "127.0.0.1",
 
 
 def main() -> None:
-    """CLI: serve a random-init model (weights from seed 0) over HTTP on
-    ``--device``."""
+    """CLI: serve a training checkpoint (``--checkpoint DIR``, either
+    package's format) or a random-init demo model (weights from seed 0)
+    over HTTP on ``--device``."""
     import argparse
     import signal
 
@@ -617,6 +618,12 @@ def main() -> None:
     from differential_transformer_replication_tpu_torch.models import init_model
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--checkpoint", default=None,
+                   help="training checkpoint dir (meta.json + "
+                        "state.msgpack); omit for a random-init demo model")
+    p.add_argument("--no-verify-checkpoint", action="store_true",
+                   help="skip integrity-manifest verification of "
+                        "--checkpoint (needed for pre-manifest checkpoints)")
     p.add_argument("--model", default="control",
                    help="model family of the random-init demo model")
     p.add_argument("--recipe", action="store_true",
@@ -657,8 +664,8 @@ def main() -> None:
                    help="extra pool pages kept as cached-prefix headroom")
     p.add_argument("--spec-mode", default="", choices=("", "ngram", "model"),
                    help="speculative decoding: 'ngram' = prompt lookup over "
-                        "each request's own tokens; 'model' is refused "
-                        "until checkpoints are ported")
+                        "each request's own tokens; 'model' (ModelDrafter) "
+                        "is refused until it is ported")
     p.add_argument("--spec-draft-len", type=int, default=4,
                    help="draft tokens verified per slot per iteration")
     p.add_argument("--spec-verify", default="exact",
@@ -668,16 +675,24 @@ def main() -> None:
                         "through the multi-row decode-attention kernel)")
     args = p.parse_args()
 
-    if args.recipe:
-        model_cfg = ModelConfig(model=args.model)
-    else:
-        model_cfg = ModelConfig(
-            model=args.model, vocab_size=512, n_embd=64, n_head=2,
-            n_layer=2, block_size=128, compute_dtype="float32",
+    if args.checkpoint:
+        from differential_transformer_replication_tpu_torch.train.checkpoint import (
+            load_params_for_inference,
         )
-    gen = torch.Generator(device="cpu")
-    gen.manual_seed(0)
-    params = init_model(gen, model_cfg)
+
+        params, model_cfg, _ = load_params_for_inference(
+            args.checkpoint, verify=not args.no_verify_checkpoint)
+    else:
+        if args.recipe:
+            model_cfg = ModelConfig(model=args.model)
+        else:
+            model_cfg = ModelConfig(
+                model=args.model, vocab_size=512, n_embd=64, n_head=2,
+                n_layer=2, block_size=128, compute_dtype="float32",
+            )
+        gen = torch.Generator(device="cpu")
+        gen.manual_seed(0)
+        params = init_model(gen, model_cfg)
     serving = ServingConfig(
         num_slots=args.num_slots, prefill_chunk=args.prefill_chunk,
         prefill_budget=args.prefill_budget, max_seq_len=args.max_seq_len,
@@ -714,7 +729,8 @@ def main() -> None:
         threading.Thread(target=_drain_then_stop, daemon=True).start()
 
     signal.signal(signal.SIGTERM, _graceful)
-    print(f"[serve] {model_cfg.model} model on {engine.device}, "
+    print(f"[serve] {model_cfg.model} model "
+          f"({args.checkpoint or 'random init'}) on {engine.device}, "
           f"{serving.num_slots} slots, {engine.cfg.kv_cache_dtype} KV, "
           f"{'paged' if serving.paged() else 'contiguous'} pool, spec "
           f"{serving.spec_mode or 'off'} — POST "

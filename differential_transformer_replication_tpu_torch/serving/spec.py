@@ -14,8 +14,9 @@ sampled requests run the acceptance-ratio test (Leviathan et al. 2023).
 host-side suffix map over each request's prompt + emitted tokens
 proposes the continuation that followed the most recent occurrence of
 the current n-gram suffix. Zero device cost. The JAX package's
-``ModelDrafter`` (a small checkpoint on its own slot pool) waits for the
-port's checkpoints; ``ServingConfig`` refuses ``spec_mode="model"``.
+``ModelDrafter`` (a small checkpoint on its own slot pool) is a later
+item (ROADMAP Queue A: serving subsystems); ``ServingConfig`` refuses
+``spec_mode="model"``.
 
 Thread-safety: the drafter owns a lock — the engine thread mutates the
 suffix maps while /health handlers read :meth:`NGramDrafter.stats`.

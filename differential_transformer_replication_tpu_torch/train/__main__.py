@@ -3,11 +3,21 @@
     python -m differential_transformer_replication_tpu_torch.train \\
         --model diff --tokens tokens.npy --sampler replacement --device cuda
 
-It takes the flags of the JAX package's ``train.py`` that this slice
+It takes the flags of the JAX package's ``train.py`` that the port
 runs, under the same names, plus ``--tokens`` (an encoded ``.npy``
 token stream, the JAX trainer's cache-hit input), ``--sampler``,
 ``--device`` and ``--dist-backend``. Every other ``train.py`` flag is
 refused with the ROADMAP item that brings it.
+
+Checkpoints and resume, as ``train.py`` takes them:
+
+    python -m differential_transformer_replication_tpu_torch.train ... \
+        --checkpoint-path run/best.ckpt --ckpt-interval 500 --resume-from auto
+
+writes the best state at each improving eval, a certified
+``run/best.steps/step-NNNNNNNN`` every 500 steps and ``run/best.last.ckpt``
+on every exit; run again, ``--resume-from auto`` continues from the
+newest checkpoint that verifies.
 
 Sequence parallelism (ring attention over P ranks) runs under torchrun,
 with the backend named:
@@ -44,17 +54,6 @@ LATER_FLAGS = {
     "--dataset": "the corpus/BPE data slice (ROADMAP Queue A); pass --tokens",
     "--num-train-samples": "the corpus/BPE data slice (ROADMAP Queue A)",
     "--tokenizer-dir": "the corpus/BPE data slice (ROADMAP Queue A)",
-    "--checkpoint-path": "checkpoints (ROADMAP Queue A)",
-    "--last-checkpoint-path": "checkpoints (ROADMAP Queue A)",
-    "--resume-from": "checkpoints (ROADMAP Queue A)",
-    "--ckpt-interval": "checkpoints (ROADMAP Queue A)",
-    "--ckpt-dir": "checkpoints (ROADMAP Queue A)",
-    "--ckpt-async": "checkpoints (ROADMAP Queue A)",
-    "--no-ckpt-async": "checkpoints (ROADMAP Queue A)",
-    "--ckpt-keep-last": "checkpoints (ROADMAP Queue A)",
-    "--ckpt-keep-every": "checkpoints (ROADMAP Queue A)",
-    "--checkpoint-min-interval-s": "checkpoints (ROADMAP Queue A)",
-    "--allow-inexact-resume": "checkpoints (ROADMAP Queue A)",
     "--anomaly-rollback-after": "the full trainer (ROADMAP Queue A)",
     "--anomaly-max-rollbacks": "the full trainer (ROADMAP Queue A)",
     "--anomaly-snapshot-interval": "the full trainer (ROADMAP Queue A)",
@@ -104,6 +103,47 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup-iters", type=int, default=t.warmup_iters)
     p.add_argument("--seed", type=int, default=t.seed)
     p.add_argument("--metrics-path", default=t.metrics_path)
+    p.add_argument("--checkpoint-path", default=t.checkpoint_path)
+    p.add_argument("--last-checkpoint-path", default=t.last_checkpoint_path,
+                   help="resumable last-state checkpoint written on any "
+                        "exit (SIGTERM/Ctrl-C/crash/completion); '' disables")
+    p.add_argument("--resume-from", default=None,
+                   help="checkpoint dir to resume from, or 'auto' to "
+                        "pick the newest checkpoint that passes "
+                        "integrity verification (step tree, then "
+                        "last/best), falling back to older ones; with "
+                        "no verified checkpoint, starts fresh")
+    p.add_argument("--ckpt-interval", type=int, default=t.ckpt_interval,
+                   help="iterations between rotating step-NNNNNNNN "
+                        "checkpoints, each certified by a SHA-256 "
+                        "manifest (train/ckpt_writer.py); 0 = off")
+    p.add_argument("--ckpt-dir", default=t.ckpt_dir,
+                   help="root of the step-checkpoint tree ('auto' = "
+                        "<checkpoint-path stem>.steps)")
+    p.add_argument("--ckpt-async", action=argparse.BooleanOptionalAction,
+                   default=t.ckpt_async,
+                   help="write step checkpoints from a background "
+                        "thread (the loop blocks only for the "
+                        "device->host snapshot); --no-ckpt-async "
+                        "writes inline")
+    p.add_argument("--ckpt-keep-last", type=int, default=t.ckpt_keep_last,
+                   help="retention: newest N verified step checkpoints "
+                        "to keep")
+    p.add_argument("--ckpt-keep-every", type=int, default=t.ckpt_keep_every,
+                   help="retention: additionally keep every Nth-step "
+                        "checkpoint forever (0 = none)")
+    p.add_argument("--checkpoint-min-interval-s", type=float,
+                   default=t.checkpoint_min_interval_s,
+                   help="throttle best-checkpoint disk writes to at most "
+                        "one per this many seconds (0 = write every "
+                        "improvement; the best state is still copied on "
+                        "the device each improvement and written at exit)")
+    p.add_argument("--allow-inexact-resume", action="store_true",
+                   help="accept an elastic resume whose epoch-sampler "
+                        "position cannot be reproduced exactly under "
+                        "the new batch math (mid-accumulation boundary "
+                        "or legacy checkpoint) instead of raising "
+                        "ElasticResumeError")
     p.add_argument("--anomaly-guard", action=argparse.BooleanOptionalAction,
                    default=t.anomaly_guard)
     p.add_argument("--anomaly-spike-factor", type=float,
@@ -115,7 +155,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="encoded token stream (.npy, 1-D integer ids)")
     p.add_argument("--sampler", choices=("epoch", "replacement"),
                    default=t.sampler,
-                   help="'replacement' is the one this slice runs")
+                   help="'epoch': every window once per epoch in a seeded "
+                        "permutation (the JAX order); 'replacement': "
+                        "uniform draws")
     p.add_argument("--log-interval", type=int, default=t.log_interval)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--sequence-parallel", type=int, default=1,
@@ -153,6 +195,14 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         anomaly_spike_factor=args.anomaly_spike_factor,
         anomaly_warmup_steps=args.anomaly_warmup_steps,
         sampler=args.sampler, log_interval=args.log_interval,
+        checkpoint_path=args.checkpoint_path,
+        last_checkpoint_path=args.last_checkpoint_path or None,
+        resume_from=args.resume_from,
+        checkpoint_min_interval_s=args.checkpoint_min_interval_s,
+        ckpt_interval=args.ckpt_interval, ckpt_dir=args.ckpt_dir,
+        ckpt_async=args.ckpt_async, ckpt_keep_last=args.ckpt_keep_last,
+        ckpt_keep_every=args.ckpt_keep_every,
+        allow_inexact_resume=args.allow_inexact_resume,
     )
 
 

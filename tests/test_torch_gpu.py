@@ -1091,3 +1091,69 @@ def _ring_step_vs_single_card(tmp_path, T):
         assert _err(got, p) <= 2 * tcfg.learning_rate
         assert float((got - p).abs().mean()) <= 1e-6
         assert np.array_equal(outs[1][f"p{i}"], o[f"p{i}"]), i
+
+
+def _train_cli(argv, **popen):
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    return subprocess.Popen(
+        [sys.executable, "-m", "differential_transformer_replication_tpu_torch.train",
+         *argv], cwd=str(Path(__file__).resolve().parents[1]),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, **popen)
+
+
+def test_killed_and_resumed_run_is_bit_equal_on_the_card(gen, tmp_path):
+    """A 2-layer diff run at recipe width (bf16, T 512, vocab 12000, B 8,
+    epoch sampler) through the command line: 8 uninterrupted steps
+    against a run killed by SIGKILL once its step-4 checkpoint is
+    certified, then resumed with ``--resume-from auto`` to 8. The train
+    states end bit-equal (the same ``state.msgpack`` bytes) and every
+    step's loss is equal."""
+    import json
+    import os
+    import signal
+    import time
+
+    import numpy as np
+
+    tokens = tmp_path / "t.npy"
+    np.save(tokens, np.random.default_rng(0).integers(0, 12000, 6000).astype(np.int32))
+    common = ["--model", "diff", "--tokens", str(tokens), "--device", "cuda",
+              "--n-layer", "2", "--compute-dtype", "bfloat16",
+              "--micro-batch-size", "8", "--max-iters", "8", "--eval-interval", "4",
+              "--eval-iters", "1", "--log-interval", "1", "--warmup-iters", "2",
+              "--ckpt-interval", "4"]
+
+    def run(name, *extra):
+        d = tmp_path / name
+        d.mkdir(exist_ok=True)
+        return _train_cli(common + ["--checkpoint-path", str(d / "best.ckpt"),
+                                    "--metrics-path", str(d / "m.jsonl"), *extra])
+
+    whole = run("a")
+    out = whole.communicate(timeout=600)[0]
+    assert whole.returncode == 0, out
+    cut = run("b")
+    manifest = tmp_path / "b" / "best.steps" / "step-00000004" / "manifest.json"
+    deadline = time.time() + 600
+    while not manifest.exists() and cut.poll() is None and time.time() < deadline:
+        time.sleep(0.01)
+    cut.send_signal(signal.SIGKILL)
+    out = cut.communicate(timeout=60)[0]
+    assert cut.returncode == -signal.SIGKILL, out
+    resumed = run("b", "--resume-from", "auto")
+    out = resumed.communicate(timeout=600)[0]
+    assert resumed.returncode == 0 and "resuming from" in out, out
+
+    def losses(name):
+        recs = [json.loads(line) for line in open(tmp_path / name / "m.jsonl")]
+        return [(r["iter"], r["loss"]) for r in recs if "loss" in r]
+
+    a, b = dict(losses("a")), losses("b")
+    assert sorted(a) == list(range(1, 9))
+    assert all(a[i] == loss for i, loss in b) and {i for i, _ in b} == set(a)
+    last = lambda n: open(os.path.join(tmp_path, n, "best.last.ckpt",  # noqa: E731
+                                       "state.msgpack"), "rb").read()
+    assert last("a") == last("b")

@@ -22,7 +22,8 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = "differential_transformer_replication_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "differential_transformer_replication_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack",
+             "differential_transformer_replication_tpu")
 
 
 def _modules():
