@@ -97,40 +97,54 @@ these phases, each printing its own lines and its seconds:
    train-ring: sequence-parallel training through the ring (ring flash
    attention over P ranks, ``parallel/ring.py``): the trainer's command
    line under ``torch.distributed.run`` with ``--dist-backend gloo``, the
-   P ranks sharing this card, diff at recipe width, 8 layers, dropout 0.1,
+   P ranks sharing this card, diff at recipe width, 4 layers, dropout 0.1,
    16,384 tokens per step: P 2 at T 8192 (chunk routes resident +
    split), P 4 at T 8192, P 2 at T 16384 (tiled), control P 2 at T 8192;
    exact launches per route and rank, losses equal on every rank and
    falling on a repeated batch, params bit-identical across ranks; with
    two or more cards the first run again over nccl (else a line says the
    leg was not run); the first run's ranks then run
-   ``train/step_profile.py`` over the ring (rank 0: wall, busy, the
-   exchanges' host time);
+   ``train/step_profile.py`` over the ring at the recipe's 8 layers
+   (rank 0: wall, busy, the exchanges' host time);
 6. train e2e: one train step of a 2-layer diff model at recipe width in
    fp32, loss and every gradient on the card (kernels) against the CPU
    (plain versions); again at T 640 through the head-major route;
    train-ring-e2e: one fp32 step of a 2-layer diff and control at recipe
    width, T 1024, over P 2 and 4 gloo ranks on the card against the
    single-card head-major step (loss, grads, updated params);
-7. train-ckpt: the default recipe with checkpoints, through the command
-   lines, each in a process of its own (``chip_smoke.py --cli-worker``:
-   the trainer's or the server's ``main`` with the kernel wrappers'
-   counts written out at its end): the diff recipe at full width and
-   depth, bf16, micro-batch 8 x 48 grad-acc steps, the epoch sampler on a
-   seeded stream whose epoch ends inside the run, async step checkpoints
-   and an eval every N = 6 steps. (a) where the epoch boundary falls; (b)
-   an uninterrupted 2N-step run against one killed by SIGKILL once its
-   step-N checkpoint is certified and resumed with ``--resume-from auto``
-   to 2N: the last checkpoints' ``state.msgpack`` bit-equal and every
-   step's loss equal, the backward kernels' exact launches in both runs;
-   (d) the checkpoint's MB, the async save's seconds, the loop's time in
-   each periodic save and its back-pressure, the inline best and last
-   saves, verify and load seconds; (c) the server on the best checkpoint
-   (``--checkpoint``) answering four greedy requests one after another
-   with the in-process engine's tokens on ``load_params_for_inference``
-   of the same directory. Its files live in a temporary directory under
-   ``build/``, removed at the end. The earlier train phases write their
-   best checkpoints to ``build/chip_smoke/best.ckpt``, removed likewise.
+7. train-ckpt: the default recipe from text, with checkpoints, through
+   the command lines, each in a process of its own (``chip_smoke.py
+   --cli-worker``: the trainer's, the server's or the sampler's ``main``
+   with the kernel wrappers' counts written out at its end): the diff
+   recipe at full width and depth, bf16, micro-batch 8 x 48 grad-acc
+   steps, built with ``--dataset synthetic --num-train-samples D
+   --tokenizer-dir`` (D the first corpus size whose stream, encoded by the
+   port's BPE, has an epoch that ends inside the run; the model's vocab
+   is the tokenizer's), the epoch sampler, async step checkpoints and an
+   eval every N = 6 steps. (a) where the epoch boundary falls; the first
+   run builds the corpus cache (its stream equal to the one built in
+   this process) and the later runs load it; an uninterrupted 2N-step
+   run against one killed by SIGKILL once its step-N checkpoint is
+   certified and resumed with ``--resume-from auto`` to 2N: the last
+   checkpoints' ``state.msgpack`` bit-equal and every step's loss equal,
+   the backward kernels' exact launches in both runs, every checkpoint
+   recording the tokenizer's fingerprint; (b) ``sample --temperature 0``
+   on the best checkpoint, through generate_cached and through the
+   windowed generate (a prompt near 512 tokens plus new tokens past
+   it), its text equal to the in-process generators' output decoded by
+   the tokenizer, with the decode kernel's and kernel D's launches of
+   each run; (c) the server on the best checkpoint with ``--tokenizer``
+   answering four greedy token requests and four greedy text requests
+   one after another with the in-process engine's tokens on
+   ``load_params_for_inference`` of the same directory (text prompts on
+   the tokenizer's encoding; the reply's ``text`` its decoding); (d) the
+   host's costs: corpus, BPE training, encoding and cache-hit seconds,
+   sampling tokens/s of both routes, the checkpoint's MB, the async
+   save's seconds, the loop's time in each periodic save and its
+   back-pressure, the inline best and last saves, verify and load
+   seconds. Its files live in a temporary directory under ``build/``,
+   removed at the end. The earlier train phases write their best
+   checkpoints to ``build/chip_smoke/best.ckpt``, removed likewise.
 
 It then prints the kernels' JSON summary, the card line, and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -2277,6 +2291,7 @@ RING_RUNS = (("diff P=2 T=8192", "diff", 2, 8192, 2, 3),
              ("diff P=2 T=16384", "diff", 2, 16384, 1, 3),
              ("control P=2 T=8192", "control", 2, 8192, 2, 3))
 RING_EVAL_ITERS = 1
+RING_LAYERS = 4     # the train-ring runs' depth: the recipe's width, half its depth
 RING_TIMEOUT_S = 300
 
 
@@ -2423,7 +2438,7 @@ def ring_argv(model: str, P: int, T: int, B: int, steps: int, tokens, backend: s
     under torchrun)."""
     return ["--model", model, "--tokens", str(tokens), "--sampler", "replacement",
             "--device", "cuda", "--n-embd", str(RECIPE["n_embd"]),
-            "--n-head", str(RECIPE["n_head"]), "--n-layer", str(RECIPE["n_layer"]),
+            "--n-head", str(RECIPE["n_head"]), "--n-layer", str(RING_LAYERS),
             "--block-size", str(T), "--vocab-size", str(RECIPE["vocab_size"]),
             "--micro-batch-size", str(B), "--max-iters", str(steps),
             "--eval-interval", str(steps), "--eval-iters", str(RING_EVAL_ITERS),
@@ -2459,7 +2474,7 @@ def run_train_ring(torch, card: str, tokens) -> dict:
                                 "backend": backend, "profile": i == 0})
         prof = prof or recs[0].get("profile")
         wall = time.perf_counter() - t0
-        Tl, L = T // P, RECIPE["n_layer"]
+        Tl, L = T // P, RING_LAYERS
         r0 = recs[0]
         losses = r0["losses"]
         expect(len(losses) == steps and all(math.isfinite(x) for x in losses),
@@ -2668,43 +2683,82 @@ def run_train_e2e(torch) -> None:
 # ---------------------------------------------------------------------------
 
 # ---------------------------------------------------------------------------
-# phase train-ckpt: the default recipe (epoch sampler) with checkpoints,
-# killed and resumed, then its best checkpoint served, through the
-# command lines in processes of their own
+# phase train-ckpt: the default recipe from text (corpus, BPE, epoch
+# sampler) with checkpoints, killed and resumed, then its best checkpoint
+# sampled and served, through the command lines in processes of their own
 # ---------------------------------------------------------------------------
 
 CKPT_N = 6          # steps between step checkpoints and evals; runs of 2N
 CKPT_B = 8          # micro-batch
 CKPT_ACC = 48       # grad-acc steps: 384 windows a step, so 2N steps cross
-CKPT_TOKENS = 5300  # an epoch of int(0.9 * 5300) - 512 = 4258 windows
-CKPT_PROMPTS = (5, 40, 97, 200)  # greedy requests to the served checkpoint
+CKPT_DOCS = 200     # synthetic documents: the stream crosses an epoch in the
+                    # resumed half and leaves the eval its validation windows
+CKPT_EVAL_ITERS = 2
+CKPT_PROMPTS = (5, 40, 97, 200)  # greedy token requests to the served checkpoint
+CKPT_TEXT_DOCS = (1, 2, 4, 8)    # greedy text requests: synthetic documents each
 CKPT_NEW = 24
+CKPT_SAMPLE_NEW = 64             # sample, generate_cached route (n 2)
+CKPT_WINDOWED_NEW = 40           # sample, windowed route: a prompt near 512
 CKPT_TIMEOUT_S = 300
 
 
-def ckpt_argv(tokens, run_dir, *extra) -> list:
+def ckpt_argv(tok_dir, run_dir, *extra) -> list:
     """The trainer's command line for one train-ckpt run: the diff recipe
-    at full width and depth, bf16 compute, the epoch sampler, async step
-    checkpoints and an eval every N steps."""
-    return ["--model", "diff", "--tokens", str(tokens), "--device", "cuda",
+    at full width and depth from the synthetic corpus (BPE target vocab
+    12000, the tokenizer's own size in the end), bf16 compute, the epoch
+    sampler, async step checkpoints and an eval every N steps."""
+    return ["--model", "diff", "--dataset", "synthetic", "--num-train-samples",
+            str(CKPT_DOCS), "--tokenizer-dir", str(tok_dir), "--device", "cuda",
             "--n-embd", str(RECIPE["n_embd"]), "--n-head", str(RECIPE["n_head"]),
             "--n-layer", str(RECIPE["n_layer"]),
             "--block-size", str(RECIPE["block_size"]),
             "--vocab-size", str(RECIPE["vocab_size"]), "--compute-dtype", "bfloat16",
             "--micro-batch-size", str(CKPT_B), "--grad-acc-steps", str(CKPT_ACC),
             "--max-iters", str(2 * CKPT_N), "--eval-interval", str(CKPT_N),
-            "--eval-iters", "2", "--log-interval", "1", "--warmup-iters", "2",
-            "--learning-rate", "1e-3", "--seed", "0", "--sampler", "epoch",
-            "--ckpt-interval", str(CKPT_N), "--ckpt-async",
+            "--eval-iters", str(CKPT_EVAL_ITERS), "--log-interval", "1",
+            "--warmup-iters", "2", "--learning-rate", "1e-3", "--seed", "0",
+            "--sampler", "epoch", "--ckpt-interval", str(CKPT_N), "--ckpt-async",
             "--checkpoint-path", str(Path(run_dir) / "best.ckpt"),
             "--metrics-path", str(Path(run_dir) / "metrics.jsonl"), *extra]
 
 
+def ckpt_stream():
+    """(tokenizer, tokens) of the train-ckpt corpus (CKPT_DOCS synthetic
+    documents, seed 0, the port's BPE), held to what the run needs: an
+    epoch of training windows between N and 2N steps of batches, and
+    enough validation windows for the eval."""
+    from differential_transformer_replication_tpu_torch.data.corpus import (
+        synthetic_corpus,
+    )
+    from differential_transformer_replication_tpu_torch.data.tokenizer import (
+        encode_corpus,
+        train_bpe_tokenizer,
+    )
+
+    per_step, T = CKPT_B * CKPT_ACC, RECIPE["block_size"]
+    texts = synthetic_corpus(CKPT_DOCS, 0)
+    tok = train_bpe_tokenizer(texts, RECIPE["vocab_size"], 2, None)
+    tokens = encode_corpus(tok, texts)
+    n_train = int(0.9 * len(tokens))
+    expect(CKPT_N * per_step < n_train - T < 2 * CKPT_N * per_step
+           and len(tokens) - n_train - T >= CKPT_B * CKPT_EVAL_ITERS,
+           f"train-ckpt: {CKPT_DOCS} documents give {len(tokens)} tokens, "
+           f"{n_train - T} training windows (an epoch must end between "
+           f"{CKPT_N * per_step} and {2 * CKPT_N * per_step}) and "
+           f"{len(tokens) - n_train - T} validation windows (the eval needs "
+           f"{CKPT_B * CKPT_EVAL_ITERS})")
+    return tok, tokens
+
+
 def cli_worker(spec: dict) -> int:
-    """A process of the train-ckpt phase (``--cli-worker``): the trainer's
-    or the server's command line, run in this process with the kernel
-    wrappers' counts set to 0 before and written to ``spec["out"]`` after
-    (a process killed before its end writes none)."""
+    """A process of the train-ckpt phase (``--cli-worker``): the trainer's,
+    the server's or the sampler's command line, run in this process with
+    the kernel wrappers' counts set to 0 before and written to
+    ``spec["out"]`` after (a process killed before its end writes none).
+    ``sample`` runs each of ``spec["runs"]`` in turn, with its counts and
+    its standard output and error recorded apart."""
+    import contextlib
+    import io
     import sys as _sys
 
     from differential_transformer_replication_tpu_torch.ops import (
@@ -2712,31 +2766,51 @@ def cli_worker(spec: dict) -> int:
     )
 
     counters = dict(_train_counters(), decode_attention=dat.decode_attention)
-    for fn in counters.values():
-        fn.launches = 0
     carry = counters["add_norm_bwd"]
-    carry.carry_launches = 0
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+        carry.carry_launches = 0
+
+    def counts():
+        out = {name: fn.launches for name, fn in counters.items()}
+        out["add_norm_bwd_carry"] = carry.carry_launches
+        return out
+
+    zero()
     if spec["cli"] == "train":
         from differential_transformer_replication_tpu_torch.train import __main__ as cli
 
         rc = cli.main(spec["argv"])
+    elif spec["cli"] == "sample":
+        from differential_transformer_replication_tpu_torch import sample
+
+        rc, runs = 0, []
+        for argv in spec["runs"]:
+            zero()
+            out, err = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                rc |= sample.main(argv)
+            runs.append({"counts": counts(), "stdout": out.getvalue(),
+                         "stderr": err.getvalue()})
+        Path(spec["out"]).write_text(json.dumps(runs))
+        return rc
     else:
         from differential_transformer_replication_tpu_torch.serving import server
 
         _sys.argv = ["server", *spec["argv"]]
         server.main()
         rc = 0
-    counts = {name: fn.launches for name, fn in counters.items()}
-    counts["add_norm_bwd_carry"] = carry.carry_launches
-    Path(spec["out"]).write_text(json.dumps(counts))
+    Path(spec["out"]).write_text(json.dumps(counts()))
     return rc
 
 
-def start_worker(cli: str, argv: list, out: Path) -> subprocess.Popen:
+def start_worker(cli: str, argv: list, out: Path, **spec) -> subprocess.Popen:
     out.unlink(missing_ok=True)
     return subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--cli-worker",
-         json.dumps({"cli": cli, "argv": argv, "out": str(out)})],
+         json.dumps({"cli": cli, "argv": argv, "out": str(out), **spec})],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
@@ -2775,13 +2849,87 @@ def expect_train_launches(counts: dict, steps: int, label: str) -> None:
         expect(counts[name] > 0, f"{label}: {name} never launched")
 
 
+def ckpt_samples(torch, params, mcfg, tok, tok_dir: Path, ckpt: Path, work: Path,
+                 card: str) -> None:
+    """(b) the ``sample`` command line on the best checkpoint, greedy, once
+    through generate_cached (in the window) and once through the windowed
+    generate (a prompt near 512 tokens plus new tokens past it): its text
+    equals the in-process generators' output decoded by the tokenizer,
+    with the decode kernel's and kernel D's launches of each run."""
+    from differential_transformer_replication_tpu_torch.data.corpus import (
+        synthetic_corpus,
+    )
+    from differential_transformer_replication_tpu_torch.models import (
+        generate,
+        generate_cached,
+    )
+
+    T, L = RECIPE["block_size"], RECIPE["n_layer"]
+    long_ids = tok.encode(" ".join(synthetic_corpus(40, seed=5))).ids
+    long_prompt = tok.decode(long_ids[-(T - 24):])  # ~488 tokens: 488 + 40 > 512
+    cases = (("generate_cached", "One day, Tom", CKPT_SAMPLE_NEW, 2, generate_cached),
+             ("generate", long_prompt, CKPT_WINDOWED_NEW, 1, generate))
+    runs, want, rates = [], [], {}
+    for route, prompt, new, n, fn in cases:
+        ids = tok.encode(prompt).ids
+        expect((len(ids) + new > T) == (route == "generate"),
+               f"train-ckpt: the {route} prompt ({len(ids)} + {new} tokens) takes "
+               "the other route")
+        idx = torch.tensor([ids] * n, dtype=torch.int64, device="cuda")
+        for rep in range(2):  # the second call timed: first-use costs paid
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(params, idx, mcfg, new, 0, temperature=0.0)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        rates[route] = (n * new / dt, dt, n, new, len(ids))
+        want.append("".join(f"--- sample {i} ---\n{tok.decode(row)}\n"
+                            for i, row in enumerate(out.tolist())))
+        runs.append(["--checkpoint", str(ckpt), "--tokenizer", str(tok_dir),
+                     "--prompt", prompt, "--max-new-tokens", str(new), "--n", str(n),
+                     "--temperature", "0", "--device", "cuda"])
+    proc = start_worker("sample", [], work / "sample.json", runs=runs)
+    finish_worker(proc, "train-ckpt sample")
+    got = json.loads((work / "sample.json").read_text())
+    for (route, _, new, n, _), rec, text in zip(cases, got, want):
+        c = rec["counts"]
+        rate = re.search(r"\(([\d.]+) tokens/s\)", rec["stderr"])
+        log(f"[train-ckpt] (b) sample --temperature 0 --n {n} --max-new-tokens {new} "
+            f"through {route} ({rates[route][4]} prompt tokens): text "
+            f"{'equal to' if rec['stdout'] == text else 'DIFFERENT from'} the "
+            f"in-process {route} decoded by the tokenizer; launches decode_attention "
+            f"{c['decode_attention']}, flash_tm_fwd {c['flash_tm_fwd']}, fused_swiglu "
+            f"{c['fused_swiglu']}; the CLI's own rate "
+            f"{rate.group(1) if rate else '?'} tokens/s (first call in its process)")
+        expect(rec["stdout"] == text, f"train-ckpt: sample through {route} printed\n"
+               f"{rec['stdout'][:2000]}\nnot\n{text[:2000]}")
+        expect(f"through {route} in" in rec["stderr"],
+               f"train-ckpt: sample took another route: {rec['stderr']}")
+        if route == "generate_cached":  # one decode step a layer and new token
+            expect(c["decode_attention"] == L * (new - 1) and c["flash_tm_fwd"] == 0,
+                   f"train-ckpt: generate_cached launches {c}")
+        else:  # a full window forward a token: kernel D a layer
+            expect(c["flash_tm_fwd"] == L * new and c["decode_attention"] == 0,
+                   f"train-ckpt: generate launches {c}")
+        expect(c["fused_swiglu"] > 0 and c["fused_norm"] > 0,
+               f"train-ckpt: sample through {route}: kernels did not launch {c}")
+    log(f"[train-ckpt] (d) sampling at the diff recipe, in process, greedy, second "
+        f"call: " + "; ".join(
+            f"{route} {r[0]:.1f} tokens/s ({r[2]} x {r[3]} new tokens in {r[1]:.3f} s)"
+            for route, r in rates.items()) + f"; {card}")
+
+
 def run_train_ckpt(torch, card: str) -> dict:
-    """Phase train-ckpt. (a) the epoch sampler across an epoch boundary,
-    (b) a run killed by SIGKILL after its step-N checkpoint and resumed
-    with ``--resume-from auto`` ends bit-equal to an uninterrupted 2N-step
-    run, (c) the server on the best checkpoint gives the in-process
-    engine's greedy tokens, (d) the checkpoints' costs on this machine's
-    disk. Returns the uninterrupted run's launch counts."""
+    """Phase train-ckpt, from text: (a) the corpus, the BPE and the epoch
+    sampler across an epoch boundary, the first run building the cache
+    and the later ones loading it; a run killed by SIGKILL after its
+    step-N checkpoint and resumed with ``--resume-from auto`` ends
+    bit-equal to an uninterrupted 2N-step run, every checkpoint carrying
+    the tokenizer's fingerprint; (b) the ``sample`` command line on the
+    best checkpoint; (c) the server on it gives the in-process engine's
+    greedy tokens for token and text prompts; (d) the host's data,
+    sampling and checkpoint costs. Returns the uninterrupted run's
+    launch counts."""
     import shutil
     import socket
     import tempfile
@@ -2789,8 +2937,15 @@ def run_train_ckpt(torch, card: str) -> dict:
     import numpy as np
 
     from differential_transformer_replication_tpu_torch.config import ServingConfig
+    from differential_transformer_replication_tpu_torch.data.corpus import (
+        synthetic_corpus,
+    )
     from differential_transformer_replication_tpu_torch.data.native import (
         EpochPermutation,
+    )
+    from differential_transformer_replication_tpu_torch.data.tokenizer import (
+        load_tokenizer,
+        tokenizer_fingerprint,
     )
     from differential_transformer_replication_tpu_torch.models import param_count
     from differential_transformer_replication_tpu_torch.serving.engine import (
@@ -2809,35 +2964,50 @@ def run_train_ckpt(torch, card: str) -> dict:
     work = Path(tempfile.mkdtemp(prefix="train_ckpt_",
                                  dir=Path(__file__).resolve().parent / "build"))
     try:
-        tokens = work / "tokens.npy"
-        synthetic_tokens(tokens, CKPT_TOKENS, RECIPE["vocab_size"], seed=3)
-        windows = int(0.9 * CKPT_TOKENS) - RECIPE["block_size"]
+        t0 = time.perf_counter()
+        tok_pred, stream = ckpt_stream()
+        pred_s = time.perf_counter() - t0
+        tok_dir = work / "tok"
+        windows = int(0.9 * len(stream)) - RECIPE["block_size"]
         per_step = CKPT_B * CKPT_ACC
-        expect(N * per_step < windows < 2 * N * per_step,
-               "train-ckpt: the resumed half of the run must cross the epoch")
         # (a) where the epoch boundary falls, from the port's permutation
         perm = EpochPermutation(windows, 0)
         cross = 0
         while perm.epoch == 0:
             perm.take(per_step)
             cross += 1
-        log(f"[train-ckpt] (a) epoch sampler: {windows} training windows an epoch, "
-            f"{per_step} a step (micro-batch {CKPT_B} x {CKPT_ACC}); step {cross} "
-            f"crosses into epoch 1, after the resume at step {N} (the draws equal "
-            f"the JAX package's EpochPermutation bit for bit: tests/test_torch_data.py)")
-        # 1. the uninterrupted run
+        log(f"[train-ckpt] (a) corpus: {CKPT_DOCS} synthetic documents (seed 0), BPE "
+            f"vocab {tok_pred.get_vocab_size()}, {len(stream)} tokens (predicted in "
+            f"process in {pred_s:.2f} s); epoch sampler: {windows} training windows "
+            f"an epoch, {per_step} a step (micro-batch {CKPT_B} x {CKPT_ACC}); step "
+            f"{cross} crosses into epoch 1, after the resume at step {N} (the draws "
+            f"equal the JAX package's EpochPermutation bit for bit: "
+            f"tests/test_torch_data.py)")
+        # 1. the uninterrupted run: builds the corpus cache
         a, b = work / "a", work / "b"
         a.mkdir()
         b.mkdir()
         t0 = time.perf_counter()
-        proc = start_worker("train", ckpt_argv(tokens, a), work / "a.json")
+        proc = start_worker("train", ckpt_argv(tok_dir, a), work / "a.json")
         out_a = finish_worker(proc, "train-ckpt uninterrupted run")
         wall_a = time.perf_counter() - t0
         counts = json.loads((work / "a.json").read_text())
         expect_train_launches(counts, 2 * N, "train-ckpt uninterrupted run")
+        miss = re.search(r"\[data\] cache miss: .*? in ([\d.]+) s; BPE trained in "
+                         r"([\d.]+) s; (\d+) tokens encoded in ([\d.]+) s \((\d+) "
+                         r"tokens/s\)", out_a)
+        expect(miss is not None, f"train-ckpt: the first run built no cache:\n{out_a[-3000:]}")
+        (entry,) = [p for p in tok_dir.iterdir() if p.name.startswith("cache-")]
+        cached = np.load(entry / "tokens.npy")
+        expect(np.array_equal(cached, stream), "train-ckpt: the CLI's cached stream "
+               "differs from the in-process corpus + BPE")
+        tok = load_tokenizer(str(tok_dir))
+        fp = tokenizer_fingerprint(tok)
+        expect(fp == tokenizer_fingerprint(tok_pred) == tokenizer_fingerprint(
+            load_tokenizer(str(entry))), "train-ckpt: the tokenizers differ")
         # 2. the run killed once its step-N checkpoint is certified
         t0 = time.perf_counter()
-        proc = start_worker("train", ckpt_argv(tokens, b), work / "b.json")
+        proc = start_worker("train", ckpt_argv(tok_dir, b), work / "b.json")
         manifest = b / "best.steps" / step_dir_name(N) / "manifest.json"
         while not manifest.exists() and proc.poll() is None \
                 and time.perf_counter() - t0 < CKPT_TIMEOUT_S:
@@ -2847,8 +3017,8 @@ def run_train_ckpt(torch, card: str) -> dict:
         killed_at = max(r["iter"] for r in step_records(b / "metrics.jsonl"))
         # 3. the resume
         t0 = time.perf_counter()
-        proc = start_worker("train", ckpt_argv(tokens, b, "--resume-from", "auto"),
-                            work / "c.json")
+        proc = start_worker("train", ckpt_argv(tok_dir, b, "--resume-from",
+                                               "auto"), work / "c.json")
         out_c = finish_worker(proc, "train-ckpt resumed run")
         wall_c = time.perf_counter() - t0
         resumed = re.search(r"resuming from (\S+)", out_c)
@@ -2856,7 +3026,21 @@ def run_train_ckpt(torch, card: str) -> dict:
         resumed_step = read_meta(resumed.group(1))["iter_num"]
         counts_c = json.loads((work / "c.json").read_text())
         expect_train_launches(counts_c, 2 * N - resumed_step, "train-ckpt resumed run")
-        # (b) bit for bit: the train states (params, mu, nu, counts, step)
+        hits = [re.search(r"\[data\] cache hit: tokenizer and stream loaded in "
+                          r"([\d.]+) s", o) for o in (out_b, out_c)]
+        expect(all(hits), "train-ckpt: the killed or resumed run missed the cache")
+        # every checkpoint of both runs records the tokenizer's fingerprint
+        metas = [p.parent for p in a.rglob("meta.json")] + \
+            [p.parent for p in b.rglob("meta.json")]
+        bad_fp = [str(m) for m in metas if read_meta(str(m)).get(
+            "tokenizer_fingerprint") != fp]
+        expect(len(metas) >= 6 and not bad_fp, f"train-ckpt: checkpoints without the "
+               f"fingerprint {fp}: {bad_fp} (of {len(metas)})")
+        log(f"[train-ckpt] (a) the first run built the cache {entry.name} from "
+            f"--dataset synthetic (the stream equal to the in-process build), the "
+            f"killed and the resumed run loaded it; {len(metas)} checkpoints "
+            f"(best, last, step) all record tokenizer fingerprint {fp}")
+        # bit for bit: the train states (params, mu, nu, counts, step)
         # serialize to the same bytes, and every step's loss is equal
         ra, rb = step_records(a / "metrics.jsonl"), step_records(b / "metrics.jsonl")
         la = {r["iter"]: r["loss"] for r in ra}
@@ -2864,7 +3048,7 @@ def run_train_ckpt(torch, card: str) -> dict:
         unequal = [(r["iter"], r["loss"], la[r["iter"]]) for r in rb
                    if r["loss"] != la[r["iter"]]]
         same = state_bytes(a / "best.last.ckpt") == state_bytes(b / "best.last.ckpt")
-        log(f"[train-ckpt] (b) killed at step {killed_at} (SIGKILL once "
+        log(f"[train-ckpt] (a) killed at step {killed_at} (SIGKILL once "
             f"step-{N} was certified), resumed from {resumed.group(1)} (step "
             f"{resumed_step}) to {2 * N}: state.msgpack of the last checkpoints "
             f"{'bit-equal' if same else 'DIFFERENT'}, {len(rb)} step losses of the "
@@ -2892,6 +3076,12 @@ def run_train_ckpt(torch, card: str) -> dict:
         expect(meta["consumed_windows"] % per_step == 0 and meta["iter_num"] > 0,
                f"train-ckpt: best checkpoint meta {meta['iter_num']}, "
                f"{meta['consumed_windows']}")
+        expect(mcfg.vocab_size == tok.get_vocab_size(), f"train-ckpt: model vocab "
+               f"{mcfg.vocab_size} is not the tokenizer's {tok.get_vocab_size()}")
+        log(f"[train-ckpt] (d) data on this host: corpus of {CKPT_DOCS} documents "
+            f"{miss.group(1)} s, BPE trained in {miss.group(2)} s, {miss.group(3)} "
+            f"tokens encoded in {miss.group(4)} s ({miss.group(5)} tokens/s); cache "
+            f"hits loaded in {hits[0].group(1)} s and {hits[1].group(1)} s; {card}")
         log(f"[train-ckpt] (d) checkpoint {mb:.1f} MB (state.msgpack + meta + manifest, "
             f"{param_count(params) / 1e6:.1f} M params and two "
             f"moments); async step saves {sorted({round(x / 1e3, 3) for x in save_ms})} s "
@@ -2901,19 +3091,24 @@ def run_train_ckpt(torch, card: str) -> dict:
             f"(inline) saves {best_s} s; last {last_s} s; verify "
             f"{verify_s:.3f} s; load for inference {load_s:.3f} s; uninterrupted run "
             f"{wall_a:.1f} s, resumed run {wall_c:.1f} s (process start included); {card}")
-        # (c) the server on the best checkpoint against the in-process engine
+        # (b) the sample command line against the in-process generators
+        ckpt_samples(torch, params, mcfg, tok, tok_dir, a / "best.ckpt", work, card)
+        # (c) the server on the best checkpoint against the in-process engine:
+        # token prompts, then text prompts
         serving = dict(num_slots=8, prefill_chunk=128, prefill_budget=256)
         rng = np.random.default_rng(4)
-        prompts = [rng.integers(0, RECIPE["vocab_size"], n).tolist() for n in CKPT_PROMPTS]
+        prompts = [rng.integers(0, mcfg.vocab_size, n).tolist() for n in CKPT_PROMPTS]
+        texts = [" ".join(synthetic_corpus(k, seed=6 + k)) for k in CKPT_TEXT_DOCS]
         engine = ServingEngine(params, mcfg, ServingConfig(**serving), device="cuda")
         want = [engine.generate([p], max_new_tokens=CKPT_NEW, temperature=0.0)[0].tokens
-                for p in prompts]
+                for p in prompts + [tok.encode(t).ids for t in texts]]
         del engine, params
         torch.cuda.empty_cache()
         with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
             port = s.getsockname()[1]
         proc = start_worker("serve", ["--checkpoint", str(a / "best.ckpt"),
+                                      "--tokenizer", str(tok_dir),
                                       "--device", "cuda", "--port", str(port),
                                       "--num-slots", "8", "--prefill-chunk", "128",
                                       "--prefill-budget", "256"], work / "s.json")
@@ -2931,12 +3126,14 @@ def run_train_ckpt(torch, card: str) -> dict:
                            f"{proc.stdout.read() if proc.poll() is not None else ''}")
                     time.sleep(0.2)
             up_s = time.perf_counter() - t0
-            got = []
-            for p in prompts:  # one at a time, as the engine ran them
-                status, reply = _post(url + "/generate", {
-                    "prompt_ids": p, "max_new_tokens": CKPT_NEW, "temperature": 0.0})
+            replies = []
+            for body in ([{"prompt_ids": p} for p in prompts]
+                         + [{"prompt": t} for t in texts]):
+                # one at a time, as the engine ran them
+                status, reply = _post(url + "/generate", dict(
+                    body, max_new_tokens=CKPT_NEW, temperature=0.0))
                 expect(status == 200, f"train-ckpt: /generate answered {status}")
-                got.append(reply["tokens"])
+                replies.append(reply)
         finally:
             proc.send_signal(15)
         out_s = finish_worker(proc, "train-ckpt server")
@@ -2946,13 +3143,24 @@ def run_train_ckpt(torch, card: str) -> dict:
                f"train-ckpt: the server's kernels did not launch: {served}")
         expect(str(a / "best.ckpt") in out_s, "train-ckpt: the server did not name "
                "its checkpoint")
-        log(f"[train-ckpt] (c) server on {a / 'best.ckpt'} (step {meta['iter_num']}, up "
-            f"in {up_s:.1f} s): {len(prompts)} greedy requests of {list(CKPT_PROMPTS)} "
-            f"prompt tokens, {CKPT_NEW} new tokens each, "
+        got = [r["tokens"] for r in replies]
+        text_ok = all(r["prompt_ids"] == tok.encode(t).ids
+                      and r["text"] == tok.decode(r["tokens"])
+                      for r, t in zip(replies[len(prompts):], texts))
+        log(f"[train-ckpt] (c) server on {a / 'best.ckpt'} with --tokenizer (step "
+            f"{meta['iter_num']}, up in {up_s:.1f} s): {len(prompts)} greedy token "
+            f"requests of {list(CKPT_PROMPTS)} prompt tokens and {len(texts)} greedy "
+            f"text requests of {[len(tok.encode(t).ids) for t in texts]} tokens, "
+            f"{CKPT_NEW} new tokens each, "
             f"{'equal to' if got == want else 'DIFFERENT from'} the in-process engine on "
-            f"load_params_for_inference of the same directory; server launches "
+            f"load_params_for_inference of the same directory (text prompts on "
+            f"encode(text)); replies' \"text\" "
+            f"{'equal to' if text_ok else 'DIFFERENT from'} decode(tokens), e.g. "
+            f"{replies[-1]['text'][:60]!r}; server launches "
             f"{ {k: served[k] for k in ('decode_attention', 'fused_swiglu', 'fused_norm', 'fused_add_norm')} }")
         expect(got == want, f"train-ckpt: served tokens {got} != engine tokens {want}")
+        expect(text_ok, "train-ckpt: a text reply's prompt or text is not the "
+               "tokenizer's")
         log(f"[train-ckpt] uninterrupted run launches {counts}")
         return counts
     finally:

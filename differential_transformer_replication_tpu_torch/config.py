@@ -372,9 +372,6 @@ class MeshConfig:
 # carries over) but does not run yet: each must stay at its default, and
 # the ROADMAP item that brings it is named when it does not.
 LATER_SLICE_FIELDS = {
-    "num_train_samples": "the corpus/BPE data slice (ROADMAP Queue A: data)",
-    "min_frequency": "the corpus/BPE data slice (ROADMAP Queue A: data)",
-    "tokenizer_dir": "the corpus/BPE data slice (ROADMAP Queue A: data)",
     "anomaly_rollback_after": "guard rollback (ROADMAP Queue A: full trainer)",
     "anomaly_max_rollbacks": "guard rollback (ROADMAP Queue A: full trainer)",
     "anomaly_snapshot_interval": "guard rollback (ROADMAP Queue A: full trainer)",

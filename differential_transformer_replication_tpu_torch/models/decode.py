@@ -573,3 +573,69 @@ def forward_decode_spec_paged(params: dict, tokens: torch.Tensor,
             write_pages[:, l], cfg, rope_len=rope_len)
         rows.append(lg.to(torch.float32))
     return torch.stack(rows, dim=1), cache
+
+
+# ---------------------------------------------------------------------------
+# KV-cached generation: one prefill chunk, then one pool step a token
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def generate_cached(params: dict, idx: torch.Tensor, cfg: ModelConfig,
+                    max_new_tokens: int, seed: int = 0, temperature: float = 1.0,
+                    top_k: Optional[int] = None) -> torch.Tensor:
+    """KV-cached counterpart of models/generate.py: the same sampling
+    contract (``sample_token`` over the last position, the prompt
+    included in the return), O(T) a new token instead of a full
+    ``block_size`` forward. The prompt is prefilled by
+    :func:`forward_chunk`, then every token is one
+    :func:`forward_decode_pool` step (all B rows at the same position),
+    whose attention is the decode-attention kernel on the card.
+
+    RoPE families (control/ndiff) may generate PAST block_size: the ring
+    cache rolls the oldest keys off, so every step attends over the last
+    block_size tokens (sliding-window attention). The diff family's
+    learned absolute position table cannot roll, so it keeps the
+    ``T0 + max_new_tokens <= block_size`` bound and models/generate.py
+    for longer runs. Draws come from a generator seeded from ``seed``."""
+    from differential_transformer_replication_tpu_torch.models.generate import (
+        make_generator,
+        sample_token,
+    )
+
+    B, T0 = idx.shape
+    M = cfg.block_size
+    if cfg.model == "diff" and T0 + max_new_tokens > M:
+        raise ValueError(
+            f"prompt ({T0}) + max_new_tokens ({max_new_tokens}) exceeds "
+            f"block_size ({M}) and the diff family's learned absolute "
+            "position table cannot roll with a KV cache; use "
+            "models.generate for its sliding-window behavior"
+        )
+    # the reference crops the prompt to the last block_size tokens;
+    # rebasing the crop to position 0 is invariant for RoPE and exact for
+    # diff (which fits by the guard above)
+    idx_cond = idx[:, -M:] if T0 > M else idx
+    Tc = idx_cond.shape[1]
+    total = Tc + max_new_tokens
+    dev = idx.device
+    gen = make_generator(seed, dev)
+    # weights cast to the compute dtype once, not in every step
+    params = common.inference_params(params, compute_dtype(cfg), dev)
+    cache = init_cache(cfg, B, device=dev)
+    logits, cache = forward_chunk(params, idx_cond.to(torch.int64), 0, cache,
+                                  cfg, rope_len=total)
+    samples = []
+    if max_new_tokens > 0:
+        samples.append(sample_token(gen, logits[:, -1, :].to(torch.float32),
+                                    temperature, top_k))
+    pos = torch.empty((B,), dtype=torch.int32, device=dev)
+    for i in range(1, max_new_tokens):
+        pos.fill_(Tc + i - 1)
+        last, cache = forward_decode_pool(params, samples[-1], pos, cache, cfg,
+                                          rope_len=total)
+        samples.append(sample_token(gen, last.to(torch.float32), temperature,
+                                    top_k))
+    if not samples:
+        return idx.clone()
+    return torch.cat([idx, torch.stack(samples, dim=1).to(idx.dtype)], dim=1)

@@ -15,15 +15,17 @@ Counterpart of the JAX package's serving/server.py for this slice:
   n callers = n concurrent streams batched by the engine.
 - :func:`serve` / ``python -m differential_transformer_replication_tpu_torch.serving.server``
   — a stdlib ``http.server`` JSON endpoint: ``POST /generate`` with
-  ``{"prompt_ids": [...]}`` (same request and reply keys as the JAX
-  server) and ``GET /health`` for engine state and stats, with
+  ``{"prompt_ids": [...]}`` or, when the server was started with a
+  tokenizer (``--tokenizer DIR``), ``{"prompt": "text"}``, whose reply
+  carries the decoded ``"text"`` too (same request and reply keys as
+  the JAX server), and ``GET /health`` for engine state and stats, with
   ``kv_pages`` (the paged pool and its prefix cache) and ``spec``
   (speculative decoding) when those are on. A request the page pool
   cannot take answers HTTP 503 ``page_pool_exhausted``.
 
 A request that carries a field of a later slice of the port (structured
-decoding, penalties, logprobs, replay fields, text prompts) is refused
-with HTTP 400 ``bad_request`` naming the field.
+decoding, penalties, logprobs, replay fields) is refused with HTTP 400
+``bad_request`` naming the field.
 """
 
 from __future__ import annotations
@@ -57,10 +59,10 @@ from differential_transformer_replication_tpu_torch.serving.scheduler import (
 GENERATE_KEYS = (
     "prompt_ids", "max_new_tokens", "temperature", "top_k", "seed",
     "eos_token_id", "stop", "priority", "deadline_s", "timeout",
-    "traceparent", "draft_len",
+    "traceparent", "draft_len", "prompt",
 )
 LATER_SLICE_KEYS = (
-    "prompt", "json_schema", "regex", "choices", "repetition_penalty",
+    "json_schema", "regex", "choices", "repetition_penalty",
     "presence_penalty", "frequency_penalty", "logprobs", "spec",
     "key_offset", "journal_id",
 )
@@ -444,7 +446,7 @@ def trace_id_of(req: dict) -> str:
     return os.urandom(16).hex()
 
 
-def _make_handler(client: ServingClient):
+def _make_handler(client: ServingClient, tokenizer=None):
 
     class Handler(BaseHTTPRequestHandler):
         def _reply(self, code: int, payload: dict,
@@ -497,8 +499,17 @@ def _make_handler(client: ServingClient):
                 if key not in GENERATE_KEYS:
                     raise ValueError(f"unknown field {key!r}")
             prompt_ids = req.get("prompt_ids")
+            if prompt_ids is None and "prompt" in req:
+                if tokenizer is None:
+                    raise ValueError(
+                        "text prompts need the server started with a "
+                        "tokenizer dir; send prompt_ids instead"
+                    )
+                if not isinstance(req["prompt"], str):
+                    raise TypeError("prompt must be a string")
+                prompt_ids = tokenizer.encode(req["prompt"]).ids
             if not prompt_ids:
-                raise ValueError("prompt_ids required")
+                raise ValueError("prompt_ids (or prompt) required")
             top_k = req.get("top_k")
             eos = req.get("eos_token_id")
             stop = req.get("stop")
@@ -581,14 +592,17 @@ def _make_handler(client: ServingClient):
                 self._reply(500, {"error": str(e) or repr(e),
                                   "code": "internal", "trace_id": trace_id})
                 return
-            self._reply(200, {
+            payload = {
                 "request_id": out.request_id,
                 "prompt_ids": out.prompt,
                 "tokens": out.tokens,
                 "finish_reason": out.finish_reason,
                 "ttft_ms": round(out.ttft * 1e3, 3),
                 "trace_id": trace_id,
-            })
+            }
+            if tokenizer is not None:
+                payload["text"] = tokenizer.decode(out.tokens)
+            self._reply(200, payload)
 
         def log_message(self, *a):  # quiet by default
             pass
@@ -596,16 +610,18 @@ def _make_handler(client: ServingClient):
     return Handler
 
 
-def serve(client: ServingClient, host: str = "127.0.0.1",
-          port: int = 8000) -> ThreadingHTTPServer:
-    """Build the HTTP server (not yet serving; call serve_forever())."""
-    return ThreadingHTTPServer((host, port), _make_handler(client))
+def serve(client: ServingClient, host: str = "127.0.0.1", port: int = 8000,
+          tokenizer=None) -> ThreadingHTTPServer:
+    """Build the HTTP server (not yet serving; call serve_forever()).
+    ``tokenizer`` (data/tokenizer.py) enables text prompts."""
+    return ThreadingHTTPServer((host, port), _make_handler(client, tokenizer))
 
 
 def main() -> None:
     """CLI: serve a training checkpoint (``--checkpoint DIR``, either
     package's format) or a random-init demo model (weights from seed 0)
-    over HTTP on ``--device``."""
+    over HTTP on ``--device``; ``--tokenizer DIR`` enables text
+    prompts."""
     import argparse
     import signal
 
@@ -621,6 +637,9 @@ def main() -> None:
     p.add_argument("--checkpoint", default=None,
                    help="training checkpoint dir (meta.json + "
                         "state.msgpack); omit for a random-init demo model")
+    p.add_argument("--tokenizer", default=None,
+                   help="tokenizer dir enabling text prompts "
+                        "(vocab.json + merges.txt)")
     p.add_argument("--no-verify-checkpoint", action="store_true",
                    help="skip integrity-manifest verification of "
                         "--checkpoint (needed for pre-manifest checkpoints)")
@@ -680,9 +699,10 @@ def main() -> None:
             load_params_for_inference,
         )
 
-        params, model_cfg, _ = load_params_for_inference(
+        params, model_cfg, meta = load_params_for_inference(
             args.checkpoint, verify=not args.no_verify_checkpoint)
     else:
+        meta = None
         if args.recipe:
             model_cfg = ModelConfig(model=args.model)
         else:
@@ -693,6 +713,20 @@ def main() -> None:
         gen = torch.Generator(device="cpu")
         gen.manual_seed(0)
         params = init_model(gen, model_cfg)
+    tokenizer = None
+    if args.tokenizer:
+        from differential_transformer_replication_tpu_torch.data.tokenizer import (
+            check_tokenizer_matches,
+            load_tokenizer,
+        )
+
+        tokenizer = load_tokenizer(args.tokenizer)
+        if meta is not None:
+            # a tokenizer that cannot belong to the checkpoint would
+            # silently serve garbage text
+            check_tokenizer_matches(
+                tokenizer, model_cfg.vocab_size,
+                meta.get("tokenizer_fingerprint"), context=args.checkpoint)
     serving = ServingConfig(
         num_slots=args.num_slots, prefill_chunk=args.prefill_chunk,
         prefill_budget=args.prefill_budget, max_seq_len=args.max_seq_len,
@@ -710,7 +744,7 @@ def main() -> None:
     )
     engine = ServingEngine(params, model_cfg, serving, device=args.device)
     client = ServingClient(engine)
-    httpd = serve(client, args.host, args.port)
+    httpd = serve(client, args.host, args.port, tokenizer)
     drained = {"done": False}
 
     def _graceful(signum, frame):

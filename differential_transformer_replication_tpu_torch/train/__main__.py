@@ -1,13 +1,18 @@
 """Command line of the port's trainer:
 
     python -m differential_transformer_replication_tpu_torch.train \\
-        --model diff --tokens tokens.npy --sampler replacement --device cuda
+        --model diff --dataset synthetic --num-train-samples 20000 \\
+        --tokenizer-dir tokenizer --device cuda
 
-It takes the flags of the JAX package's ``train.py`` that the port
-runs, under the same names, plus ``--tokens`` (an encoded ``.npy``
-token stream, the JAX trainer's cache-hit input), ``--sampler``,
-``--device`` and ``--dist-backend``. Every other ``train.py`` flag is
-refused with the ROADMAP item that brings it.
+builds its data as the JAX package's ``train.py`` does: the corpus
+(``tinystories`` where it loads, else ``synthetic``; or a text file),
+a byte-level BPE trained on it, the encoded stream, cached together
+under ``<tokenizer-dir>/cache-<key>/``. It takes the flags of
+``train.py`` that the port runs, under the same names, plus
+``--tokens`` (an encoded ``.npy`` token stream to train on instead,
+with no tokenizer), ``--sampler``, ``--device`` and ``--dist-backend``.
+Every other ``train.py`` flag is refused with the ROADMAP item that
+brings it.
 
 Checkpoints and resume, as ``train.py`` takes them:
 
@@ -51,9 +56,6 @@ LATER_FLAGS = {
     "--remat-policy": "remat (ROADMAP Queue A)",
     "--no-dp-overlap": "parallelism (ROADMAP Queue A)",
     "--dp-bucket-layers": "parallelism (ROADMAP Queue A)",
-    "--dataset": "the corpus/BPE data slice (ROADMAP Queue A); pass --tokens",
-    "--num-train-samples": "the corpus/BPE data slice (ROADMAP Queue A)",
-    "--tokenizer-dir": "the corpus/BPE data slice (ROADMAP Queue A)",
     "--anomaly-rollback-after": "the full trainer (ROADMAP Queue A)",
     "--anomaly-max-rollbacks": "the full trainer (ROADMAP Queue A)",
     "--anomaly-snapshot-interval": "the full trainer (ROADMAP Queue A)",
@@ -92,6 +94,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute-dtype", default=m.compute_dtype,
                    choices=("float32", "bfloat16"))
     p.add_argument("--vocab-size", type=int, default=t.vocab_size)
+    p.add_argument("--dataset", default=t.dataset,
+                   help="tinystories | synthetic | path/to/corpus.txt")
+    p.add_argument("--num-train-samples", type=int, default=t.num_train_samples)
+    p.add_argument("--tokenizer-dir", default=t.tokenizer_dir,
+                   help="tokenizer artifacts + token-stream cache dir")
     p.add_argument("--micro-batch-size", type=int, default=t.micro_batch_size)
     p.add_argument("--grad-acc-steps", type=int, default=t.grad_acc_steps)
     p.add_argument("--max-iters", type=int, default=t.max_iters)
@@ -151,8 +158,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--anomaly-warmup-steps", type=int,
                    default=t.anomaly_warmup_steps)
     # the port's own
-    p.add_argument("--tokens", required=True,
-                   help="encoded token stream (.npy, 1-D integer ids)")
+    p.add_argument("--tokens", default=None,
+                   help="an encoded token stream (.npy, 1-D integer ids below "
+                        "--vocab-size) to train on instead of --dataset; no "
+                        "tokenizer, so checkpoints record no fingerprint")
     p.add_argument("--sampler", choices=("epoch", "replacement"),
                    default=t.sampler,
                    help="'epoch': every window once per epoch in a seeded "
@@ -184,7 +193,9 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
     )
     return TrainConfig(
         model=model, mesh=MeshConfig(sequence=args.sequence_parallel),
-        vocab_size=args.vocab_size,
+        vocab_size=args.vocab_size, dataset=args.dataset,
+        num_train_samples=args.num_train_samples,
+        tokenizer_dir=args.tokenizer_dir,
         micro_batch_size=args.micro_batch_size,
         grad_acc_steps=args.grad_acc_steps, max_iters=args.max_iters,
         eval_interval=args.eval_interval, eval_iters=args.eval_iters,

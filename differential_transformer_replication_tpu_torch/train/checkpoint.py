@@ -15,8 +15,9 @@ verifies in the other. ``save_pretrained`` / ``from_pretrained`` keep
 the JAX package's ``params.msgpack`` + ``config.json`` pair.
 
 The port has no pipeline, so the stage-stacked layout is never written
-or read, and no tokenizer yet, so no ``tokenizer_fingerprint`` is
-written (the trainer checks a recorded one's vocab size only). With a
+or read. A run built from a corpus records its tokenizer's
+``tokenizer_fingerprint`` in the meta (a pre-encoded token stream has
+none); the trainer checks it on resume. With a
 sequence-parallel group every rank holds the same state: rank 0 writes,
 every rank reads.
 """

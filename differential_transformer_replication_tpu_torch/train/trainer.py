@@ -3,11 +3,16 @@
 Counterpart of the core of ``differential_transformer_replication_tpu/
 train/trainer.py``: the same recipe, eval protocol (``estimate_loss``),
 log cadence and metrics.jsonl keys, on one card. Data comes from a
-token stream already encoded, the JAX trainer's ``tokens.npy`` cache-hit
-branch: ``train(cfg, tokens_path)`` loads it, splits it 90/10 and draws
-training windows in a seeded epoch permutation (``sampler="epoch"``,
-data/native.py: the JAX package's window order, step for step) or with
-replacement (``sampler="replacement"``).
+corpus (``cfg.dataset``: synthetic, a text file, or TinyStories where
+it loads), a byte-level BPE trained on it and the encoded stream,
+cached together under ``tokenizer_dir/cache-<key>/`` (the JAX
+package's ``build_data`` and cache key, so either package reads the
+other's cache); or from a token stream already encoded
+(``train(cfg, tokens_path)``, no tokenizer).
+The stream is split 90/10 and training windows are drawn in a seeded
+epoch permutation (``sampler="epoch"``, data/native.py: the JAX
+package's window order, step for step) or with replacement
+(``sampler="replacement"``).
 
 Checkpoints (train/checkpoint.py, the JAX package's format): the best
 state at each eval whose val loss improves (``checkpoint_path``, at most
@@ -15,12 +20,14 @@ one write per ``checkpoint_min_interval_s``, a deferred one kept as a
 device copy and written at exit), rotating ``step-*`` checkpoints every
 ``ckpt_interval`` steps (from a background writer when ``ckpt_async``),
 and the last state on every exit, SIGTERM included
-(``last_checkpoint_path``). ``resume_from`` (a directory, or ``auto``:
-the newest that verifies) continues a run: its state, its best val loss
-and the epoch sampler's position, recorded in consumed windows so a
-resume under another global batch stays exact where it can
-(``elastic_resume_info``). The corpus/BPE branch, rollback, the watchdog
-and the obs sidecar belong to later slices (ROADMAP Queue A).
+(``last_checkpoint_path``), each recording the tokenizer's fingerprint.
+``resume_from`` (a directory, or ``auto``: the newest that verifies)
+continues a run: its state, its best val loss and the epoch sampler's
+position, recorded in consumed windows so a resume under another global
+batch stays exact where it can (``elastic_resume_info``); a tokenizer
+whose fingerprint differs from the checkpoint's is refused. Rollback,
+the watchdog and the obs sidecar belong to later slices (ROADMAP Queue
+A).
 
 ``cfg.mesh.sequence`` = P > 1 trains sequence-parallel (JAX's sharded
 path on a ``sequence`` mesh): the process is one of P ranks started by
@@ -49,6 +56,16 @@ from differential_transformer_replication_tpu_torch.data.native import EpochPerm
 from differential_transformer_replication_tpu_torch.data.sampler import (
     TokenWindows,
     split_tokens,
+)
+from differential_transformer_replication_tpu_torch.data.corpus import (
+    load_corpus_resolved,
+)
+from differential_transformer_replication_tpu_torch.data.tokenizer import (
+    check_tokenizer_matches,
+    encode_corpus,
+    load_tokenizer,
+    tokenizer_fingerprint,
+    train_bpe_tokenizer,
 )
 from differential_transformer_replication_tpu_torch.models import check_card_envelope
 from differential_transformer_replication_tpu_torch.ops.dropout import fold_seed
@@ -126,20 +143,135 @@ def estimate_loss(eval_many, params: dict, train_ds: TokenWindows,
     return out
 
 
-def build_data(cfg: TrainConfig, tokens_path: str, device, say=print):
-    """The ``tokens.npy`` cache-hit branch: load the encoded stream, check
-    it against the vocabulary, split it 90/10 into window datasets."""
-    tokens = np.load(tokens_path)
-    say(f"Loaded {len(tokens)} cached tokens from {tokens_path}")
-    if tokens.ndim != 1 or not np.issubdtype(tokens.dtype, np.integer):
-        raise ValueError(f"{tokens_path}: expected a 1-D integer token stream")
-    if len(tokens) and (tokens.min() < 0 or tokens.max() >= cfg.vocab_size):
-        raise ValueError(f"{tokens_path}: token ids outside [0, "
-                         f"{cfg.vocab_size})")
+def _cache_key(cfg: TrainConfig, source: str) -> str:
+    """Key of the (token stream, tokenizer) cache pair: the JAX
+    package's parts, over the corpus source actually used (the
+    tinystories -> synthetic fallback must not poison the tinystories
+    key); file datasets also key on mtime and size."""
+    import hashlib
+
+    key_parts = [
+        source, str(cfg.num_train_samples), str(cfg.vocab_size),
+        str(cfg.min_frequency), str(cfg.seed), "v1",
+    ]
+    if os.path.exists(source):
+        st = os.stat(source)
+        key_parts += [str(st.st_mtime_ns), str(st.st_size)]
+    return hashlib.sha1("|".join(key_parts).encode()).hexdigest()[:16]
+
+
+def corpus_tokens(cfg: TrainConfig, say=print) -> tuple:
+    """Corpus -> tokenizer -> token stream, cached: (tokenizer, tokens).
+
+    The encoded stream and its tokenizer live TOGETHER under
+    ``tokenizer_dir/cache-<key>/``, so a cache hit can never pair a
+    stream with another config's tokenizer. A miss trains the BPE,
+    encodes, saves the tokenizer to ``tokenizer_dir`` itself too, and
+    builds the whole entry in a scratch directory renamed into place (a
+    crash or a concurrent builder never leaves a half-written entry; the
+    loser of a rename race adopts the winner's). The seconds of each part
+    go out in one ``[data] cache hit`` or ``[data] cache miss`` line."""
+    # only "tinystories" is ambiguous (its fallback depends on the HF
+    # cache and the network): probe it with a 1-document load
+    if cfg.dataset == "tinystories":
+        _, source = load_corpus_resolved(cfg.dataset, 1, cfg.seed)
+    else:
+        source = cfg.dataset
+
+    def cache_paths(src):
+        d = os.path.join(cfg.tokenizer_dir, f"cache-{_cache_key(cfg, src)}")
+        return d, os.path.join(d, "tokens.npy")
+
+    cache_dir, tokens_path = cache_paths(source)
+    if os.path.exists(tokens_path):
+        t0 = time.perf_counter()
+        tokenizer = load_tokenizer(cache_dir)
+        tokens = np.load(tokens_path)
+        say(f"Loaded {len(tokens)} cached tokens from {tokens_path}")
+        say(f"Vocabulary size: {tokenizer.get_vocab_size()}")
+        say(f"[data] cache hit: tokenizer and stream loaded in "
+            f"{time.perf_counter() - t0:.3f} s")
+        return tokenizer, tokens
+    t0 = time.perf_counter()
+    texts, source = load_corpus_resolved(cfg.dataset, cfg.num_train_samples,
+                                         cfg.seed)
+    corpus_s = time.perf_counter() - t0
+    # the full load may resolve differently than the probe: key on what
+    # was used
+    cache_dir, tokens_path = cache_paths(source)
+    t0 = time.perf_counter()
+    tokenizer = train_bpe_tokenizer(texts, cfg.vocab_size, cfg.min_frequency,
+                                    cfg.tokenizer_dir)
+    bpe_s = time.perf_counter() - t0
+    say(f"Vocabulary size: {tokenizer.get_vocab_size()}")
+    t0 = time.perf_counter()
+    tokens = encode_corpus(tokenizer, texts)
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tmp_dir = f"{cache_dir}.tmp.{os.getpid()}"
+    os.makedirs(tmp_dir, exist_ok=True)
+    tokenizer.save_model(tmp_dir)
+    with open(os.path.join(tmp_dir, "tokens.npy"), "wb") as f:
+        np.save(f, tokens)
+    try:
+        os.rename(tmp_dir, cache_dir)
+    except OSError:
+        import shutil
+
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+    say(f"[data] cache miss: {len(texts)} documents from {source} in "
+        f"{corpus_s:.3f} s; BPE trained in {bpe_s:.3f} s; "
+        f"{len(tokens)} tokens encoded in {encode_s:.3f} s "
+        f"({len(tokens) / max(encode_s, 1e-9):.0f} tokens/s); entry written "
+        f"in {time.perf_counter() - t0:.3f} s")
+    return tokenizer, tokens
+
+
+def ring_corpus_tokens(cfg: TrainConfig, say, group) -> tuple:
+    """:func:`corpus_tokens` on a ring: rank 0 builds or loads the cache
+    entry while the other ranks wait on one all-reduce, then they load
+    it. So a host trains the BPE once, and one process writes
+    ``tokenizer_dir``. A failure on rank 0 is raised on every rank."""
+    if group.rank == 0:
+        built = None
+        try:
+            built = corpus_tokens(cfg, say)
+        finally:
+            all_reduce_sum_(torch.tensor([0.0 if built else 1.0],
+                                         device=group.device), group)
+        return built
+    failed = all_reduce_sum_(torch.zeros(1, device=group.device), group)
+    if failed.item() > 0:
+        raise RuntimeError("rank 0 could not build the corpus cache entry")
+    return corpus_tokens(cfg, say)
+
+
+def build_data(cfg: TrainConfig, tokens_path: Optional[str], device, say=print,
+               group=None):
+    """The run's data: (tokenizer or None, vocab size, train windows, val
+    windows). With ``tokens_path`` the encoded stream is loaded and held
+    against ``cfg.vocab_size`` (no tokenizer); without it the corpus is
+    built or loaded from the cache (:func:`corpus_tokens`, through rank 0
+    first on a ring ``group``) and the vocab size is the tokenizer's. The
+    stream is split 90/10."""
+    tokenizer = None
+    if tokens_path is None:
+        tokenizer, tokens = (corpus_tokens(cfg, say) if group is None
+                             else ring_corpus_tokens(cfg, say, group))
+        vocab_size = tokenizer.get_vocab_size()
+    else:
+        tokens = np.load(tokens_path)
+        say(f"Loaded {len(tokens)} cached tokens from {tokens_path}")
+        if tokens.ndim != 1 or not np.issubdtype(tokens.dtype, np.integer):
+            raise ValueError(f"{tokens_path}: expected a 1-D integer token stream")
+        if len(tokens) and (tokens.min() < 0 or tokens.max() >= cfg.vocab_size):
+            raise ValueError(f"{tokens_path}: token ids outside [0, "
+                             f"{cfg.vocab_size})")
+        vocab_size = cfg.vocab_size
     say(f"Total tokens: {len(tokens)}")
     train_tokens, val_tokens = split_tokens(tokens, cfg.val_fraction)
     block = cfg.model.block_size
-    return (TokenWindows(train_tokens, block, device),
+    return (tokenizer, vocab_size, TokenWindows(train_tokens, block, device),
             TokenWindows(val_tokens, block, device))
 
 
@@ -200,11 +332,13 @@ class MetricLogger:
             self._jsonl.close()
 
 
-def resolve_resume(cfg: TrainConfig, say=print) -> tuple:
+def resolve_resume(cfg: TrainConfig, say=print, tokenizer=None) -> tuple:
     """The resume half of the JAX trainer's start: ``resume_from="auto"``
     becomes the newest checkpoint that verifies (or None: a fresh start),
     and a checkpoint's meta is held against this run
-    (:func:`elastic_resume_info`, the recorded vocabulary). Returns (cfg
+    (:func:`elastic_resume_info`; the run's tokenizer against the
+    recorded vocabulary and fingerprint, or, for a pre-encoded stream,
+    ``cfg.vocab_size`` against the recorded vocabulary). Returns (cfg
     with the resolved ``resume_from``, whether the load must still
     verify the digests, the elastic-resume facts or None)."""
     verify = True
@@ -234,23 +368,24 @@ def resolve_resume(cfg: TrainConfig, say=print) -> tuple:
         recorded_vocab = (saved_cfg.get("vocab_size")
                           or (saved_cfg.get("model") or {}).get("vocab_size")
                           or cfg.vocab_size)
-        if recorded_vocab != cfg.vocab_size:
+        if tokenizer is not None:
+            check_tokenizer_matches(tokenizer, recorded_vocab,
+                                    meta.get("tokenizer_fingerprint"),
+                                    context=cfg.resume_from)
+        elif recorded_vocab != cfg.vocab_size:
             raise SystemExit(
                 f"token vocab {cfg.vocab_size} != the checkpoint's vocab "
                 f"{recorded_vocab} for {cfg.resume_from} — resume with the "
                 "token stream and vocab_size the checkpoint was trained with"
             )
-        if meta.get("tokenizer_fingerprint"):
-            say(f"[ckpt] {cfg.resume_from} records tokenizer fingerprint "
-                f"{meta['tokenizer_fingerprint']}; the port checks the vocab "
-                "size only until the corpus/tokenizer slice (ROADMAP Queue "
-                "A: data)")
     return cfg, verify, info
 
 
-def train(cfg: TrainConfig, tokens_path: str, device="cuda",
+def train(cfg: TrainConfig, tokens_path: Optional[str] = None, device="cuda",
           dist_backend: Optional[str] = None) -> tuple:
-    """Run the recipe for ``cfg.max_iters`` steps on ``device``. Returns
+    """Run the recipe for ``cfg.max_iters`` steps on ``device``, on the
+    pre-encoded stream at ``tokens_path`` or, when it is None, on
+    ``cfg.dataset`` through the BPE (:func:`build_data`). Returns
     (final train state, per-step metrics list). With ``cfg.mesh.sequence``
     > 1 this process is one rank of the ring: ``dist_backend`` (``nccl``
     or ``gloo``) must be named, and ``device`` picks cuda or cpu (gloo)."""
@@ -269,12 +404,17 @@ def train(cfg: TrainConfig, tokens_path: str, device="cuda",
                              f"{cfg.mesh.sequence}")
         device = resolve_device(device) if group is None else group.device
         primary = group is None or group.rank == 0
-        cfg, verify, info = resolve_resume(
-            cfg, (lambda m: print(m, flush=True)) if primary else (lambda m: None))
+        say = (lambda m: print(m, flush=True)) if primary else (lambda m: None)
+        tokenizer, vocab_size, train_ds, val_ds = build_data(
+            cfg, tokens_path, device, say, group)
+        cfg = cfg.replace(vocab_size=vocab_size)
+        tok_fp = (None if tokenizer is None
+                  else tokenizer_fingerprint(tokenizer))
+        cfg, verify, info = resolve_resume(cfg, say, tokenizer)
         logger = MetricLogger(cfg, device, primary)
         try:
-            return _train_loop(cfg, tokens_path, device, group, logger,
-                               verify, info)
+            return _train_loop(cfg, (train_ds, val_ds), tok_fp, device, group,
+                               logger, verify, info)
         finally:
             logger.close()
     finally:
@@ -294,13 +434,14 @@ def _snapshot(tree):
     return tree
 
 
-def _train_loop(cfg: TrainConfig, tokens_path: str, device: torch.device,
-                group, logger: MetricLogger, resume_verify: bool = True,
+def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
+                device: torch.device, group, logger: MetricLogger,
+                resume_verify: bool = True,
                 resume_info: Optional[dict] = None) -> tuple:
     model_cfg = cfg.resolved_model()
     if device.type == "cuda":
         check_card_envelope(model_cfg, "train")
-    train_ds, val_ds = build_data(cfg, tokens_path, device, logger.say)
+    train_ds, val_ds = data
     primary = group is None or group.rank == 0
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed)
@@ -437,7 +578,7 @@ def _train_loop(cfg: TrainConfig, tokens_path: str, device: torch.device,
                 t_ck = time.perf_counter()
                 try:
                     blocked = save_step_checkpoint(
-                        ckpt_root, state, best_val_loss, cfg,
+                        ckpt_root, state, best_val_loss, cfg, tok_fp,
                         writer=ckpt_writer, keep_last=cfg.ckpt_keep_last,
                         keep_every=cfg.ckpt_keep_every,
                         consumed_windows=consumed_at(iter_num))
@@ -492,7 +633,8 @@ def _train_loop(cfg: TrainConfig, tokens_path: str, device: torch.device,
                             t_b = time.perf_counter()
                             save_checkpoint(
                                 cfg.checkpoint_path, state, best_val_loss,
-                                cfg, consumed_windows=consumed_at(iter_num))
+                                cfg, tok_fp,
+                                consumed_windows=consumed_at(iter_num))
                             logger.say(f"[ckpt] best checkpoint written to "
                                        f"{cfg.checkpoint_path} in "
                                        f"{time.perf_counter() - t_b:.3f} s")
@@ -514,7 +656,7 @@ def _train_loop(cfg: TrainConfig, tokens_path: str, device: torch.device,
                 _finish_checkpoints(
                     cfg, ckpt_writer, state, metrics, best_val_loss, in_step,
                     last_ckpt_path, consumed_at(iter_num), best_snapshot,
-                    consumed_at(best_snapshot_iter), crashed, logger)
+                    consumed_at(best_snapshot_iter), crashed, logger, tok_fp)
         finally:
             if prev_handler is not None:
                 signal.signal(signal.SIGTERM, prev_handler)
@@ -525,7 +667,8 @@ def _finish_checkpoints(cfg: TrainConfig, writer, state: dict, metrics,
                         best_val_loss: float, in_step: bool,
                         last_path: Optional[str], consumed: int, best_snapshot,
                         best_consumed: int, crashed: bool,
-                        logger: MetricLogger) -> None:
+                        logger: MetricLogger,
+                        tok_fp: Optional[str] = None) -> None:
     """The exit's saves, in the JAX trainer's order: drain the async
     writer (an in-flight step checkpoint lands and certifies first), the
     last checkpoint, then a deferred best checkpoint. A failure raises,
@@ -543,18 +686,18 @@ def _finish_checkpoints(cfg: TrainConfig, writer, state: dict, metrics,
     if writer is not None:
         run("draining the checkpoint writer", writer.close, 600.0)
     run("the last-checkpoint save", _save_last, cfg, state, metrics,
-        best_val_loss, in_step, last_path, consumed, logger)
+        best_val_loss, in_step, last_path, consumed, logger, tok_fp)
     if best_snapshot is not None:
         logger.say(f"writing pending best checkpoint (val loss "
                    f"{best_val_loss:.4f})")
         run("the pending best-checkpoint save", save_checkpoint,
-            cfg.checkpoint_path, best_snapshot, best_val_loss, cfg, None,
+            cfg.checkpoint_path, best_snapshot, best_val_loss, cfg, tok_fp,
             best_consumed)
 
 
 def _save_last(cfg: TrainConfig, state: dict, metrics, best_val_loss: float,
                in_step: bool, path: Optional[str], consumed: int,
-               logger: MetricLogger) -> None:
+               logger: MetricLogger, tok_fp: Optional[str] = None) -> None:
     """The last checkpoint, written whatever the exit (a normal end,
     SIGTERM, an exception between steps), so ``--resume-from`` continues
     from the latest step. Not written when there is no path, when the
@@ -573,6 +716,7 @@ def _save_last(cfg: TrainConfig, state: dict, metrics, best_val_loss: float,
                    "intact)")
         return
     t0 = time.perf_counter()
-    save_checkpoint(path, state, best_val_loss, cfg, consumed_windows=consumed)
+    save_checkpoint(path, state, best_val_loss, cfg, tok_fp,
+                    consumed_windows=consumed)
     logger.say(f"[ckpt] last checkpoint written to {path} in "
                f"{time.perf_counter() - t0:.3f} s")

@@ -1,4 +1,5 @@
-"""The port's epoch sampler against the JAX package's, on the CPU.
+"""The port's data against the JAX package's, on the CPU: the epoch
+sampler, and the corpus -> tokenizer -> token stream cache.
 
 ``data/native.py`` of the port keeps the numpy Feistel permutation of the
 JAX package's ``data/native.py`` (which calls the C++ library when it
@@ -7,9 +8,19 @@ bit-identical by design). Both ``permute_indices`` and
 ``EpochPermutation.take`` must give the same indices bit for bit, across
 epoch boundaries, and the port's trainer must draw the windows the JAX
 trainer's epoch branch draws from the same consumed-window count.
+
+``build_data`` from a corpus must name the same ``cache-<key>`` directory
+as the JAX package's and write the same ``tokens.npy`` and tokenizer
+files, and a cache written by either package must load in the other.
+The trainer run from ``--dataset`` records the tokenizer's fingerprint
+in every checkpoint, and a resume whose tokenizer has the checkpoint's
+vocabulary size but other content is refused with the JAX message.
 """
 
 from __future__ import annotations
+
+import json
+import sys
 
 import numpy as np
 import pytest
@@ -147,3 +158,192 @@ def test_trainer_fast_forward_equals_jax_from_consumed_windows(monkeypatch,
     assert state["step"] == 20 and len(seen) == 11
     for t, j in zip(seen, want):
         assert np.array_equal(t.numpy(), j)
+
+
+# ---------------------------------------------------------------------------
+# the corpus -> tokenizer -> token stream cache (build_data's miss branch)
+# ---------------------------------------------------------------------------
+
+
+def _data_cfgs(tmp_path, dataset="synthetic", n=300):
+    from differential_transformer_replication_tpu.config import (
+        ModelConfig as JModelConfig,
+    )
+    from differential_transformer_replication_tpu.config import (
+        TrainConfig as JTrainConfig,
+    )
+
+    tiny = dict(model="diff", n_embd=16, n_head=2, n_layer=1, block_size=16)
+    common = dict(dataset=dataset, num_train_samples=n, seed=7,
+                  tokenizer_dir=str(tmp_path / "tok"))
+    return (JTrainConfig(model=JModelConfig(**tiny), **common),
+            TrainConfig(model=ModelConfig(**tiny), **common))
+
+
+def _cache_entry(tmp_path):
+    (entry,) = [p for p in (tmp_path / "tok").iterdir() if p.name.startswith("cache-")]
+    return entry
+
+
+@pytest.mark.parametrize("first", ["jax", "port"])
+def test_build_data_cache_equals_jax_and_loads_across(tmp_path, capsys, first):
+    from differential_transformer_replication_tpu.train.trainer import (
+        build_data as j_build_data,
+    )
+    from differential_transformer_replication_tpu_torch.data.tokenizer import (
+        tokenizer_fingerprint,
+    )
+    from differential_transformer_replication_tpu_torch.train import trainer
+
+    jcfg, pcfg = _data_cfgs(tmp_path / "a")
+    _, fresh = _data_cfgs(tmp_path / "b")  # the port alone, a miss
+    if first == "jax":
+        jtok_, jvocab, _, _ = j_build_data(jcfg)
+        capsys.readouterr()
+        tok, vocab, train_ds, val_ds = trainer.build_data(pcfg, None, "cpu")
+        assert "Loaded" in capsys.readouterr().out  # a hit on JAX's entry
+    else:
+        tok, vocab, train_ds, val_ds = trainer.build_data(pcfg, None, "cpu")
+        capsys.readouterr()
+        jtok_, jvocab, _, _ = j_build_data(jcfg)
+        assert "Loaded" in capsys.readouterr().out  # a hit on the port's entry
+    ftok, fvocab, _, _ = trainer.build_data(fresh, None, "cpu")
+    assert "cache miss" in capsys.readouterr().out
+    entry, fentry = _cache_entry(tmp_path / "a"), _cache_entry(tmp_path / "b")
+    assert entry.name == fentry.name
+    assert sorted(p.name for p in entry.iterdir()) == \
+        sorted(p.name for p in fentry.iterdir()) == ["merges.txt", "tokens.npy",
+                                                       "vocab.json"]
+    for name in ("merges.txt", "tokens.npy", "vocab.json"):
+        assert (entry / name).read_bytes() == (fentry / name).read_bytes(), name
+        # the tokenizer also lands in tokenizer_dir itself
+        if name != "tokens.npy":
+            assert (tmp_path / "b" / "tok" / name).read_bytes() == \
+                (entry / name).read_bytes()
+    assert vocab == jvocab == fvocab == tok.get_vocab_size()
+    assert tokenizer_fingerprint(tok) == tokenizer_fingerprint(ftok)
+    tokens = np.load(entry / "tokens.npy")
+    n = int(0.9 * len(tokens))
+    assert torch.equal(train_ds.tokens.cpu(), torch.from_numpy(tokens[:n]).to(
+        train_ds.tokens.dtype))
+    assert len(val_ds) == len(tokens) - n - pcfg.model.block_size
+
+
+@pytest.mark.parametrize("dataset", ["file", "tinystories"])
+def test_cache_key_of_a_file_and_of_the_tinystories_fallback_equal_jax(
+        tmp_path, monkeypatch, dataset):
+    """A text file keys on its path, mtime and size; ``tinystories`` whose
+    ``datasets`` load fails falls back to synthetic and keys on that."""
+    import types
+
+    from differential_transformer_replication_tpu.train.trainer import (
+        build_data as j_build_data,
+    )
+    from differential_transformer_replication_tpu_torch.data.corpus import (
+        synthetic_corpus,
+    )
+    from differential_transformer_replication_tpu_torch.train import trainer
+
+    if dataset == "file":
+        path = tmp_path / "corpus.txt"
+        path.write_text("\n".join(synthetic_corpus(150, seed=2)) + "\n")
+        name = str(path)
+    else:
+        stub = types.ModuleType("datasets")
+
+        def load_dataset(*a, **k):
+            raise ConnectionError("no network")
+
+        stub.load_dataset = load_dataset
+        monkeypatch.setitem(sys.modules, "datasets", stub)
+        name = "tinystories"
+    jcfg, pcfg = _data_cfgs(tmp_path / "j", dataset=name, n=150)
+    _, pcfg_b = _data_cfgs(tmp_path / "p", dataset=name, n=150)
+    j_build_data(jcfg)
+    trainer.build_data(pcfg_b, None, "cpu")
+    je, pe = _cache_entry(tmp_path / "j"), _cache_entry(tmp_path / "p")
+    assert je.name == pe.name
+    source = str(path) if dataset == "file" else "synthetic"
+    assert je.name == f"cache-{trainer._cache_key(pcfg_b, source)}"
+    assert (je / "tokens.npy").read_bytes() == (pe / "tokens.npy").read_bytes()
+
+
+def test_trainer_from_the_corpus_records_the_fingerprint_and_refuses_another(
+        tmp_path, capsys):
+    """``--dataset`` with no ``--tokens``: every checkpoint (best, last,
+    step) records the tokenizer's fingerprint, JAX's for the same files;
+    a resume whose cache holds a tokenizer of the same size and other
+    content exits with JAX's message; with its own it resumes."""
+    import shutil
+
+    from differential_transformer_replication_tpu.data import tokenizer as jtok
+    from differential_transformer_replication_tpu_torch.data import tokenizer as ptok
+    from differential_transformer_replication_tpu_torch.data.corpus import (
+        synthetic_corpus,
+    )
+    from differential_transformer_replication_tpu_torch.train import __main__ as cli
+
+    argv = ["--model", "diff", "--dataset", "synthetic", "--num-train-samples",
+            "200", "--tokenizer-dir", str(tmp_path / "tok"), "--device", "cpu",
+            "--n-embd", "16", "--n-head", "2", "--n-layer", "1",
+            "--block-size", "16", "--micro-batch-size", "4",
+            "--eval-interval", "3", "--eval-iters", "1", "--log-interval", "3",
+            "--warmup-iters", "1", "--compute-dtype", "float32",
+            "--checkpoint-path", str(tmp_path / "run" / "best.ckpt"),
+            "--ckpt-interval", "3", "--no-ckpt-async", "--metrics-path", ""]
+    state, _ = cli.run([*argv, "--max-iters", "6"])
+    assert "cache miss" in capsys.readouterr().out
+    entry = _cache_entry(tmp_path)
+    fp = jtok.tokenizer_fingerprint(jtok.load_tokenizer(str(entry)))
+    run = tmp_path / "run"
+    metas = [run / "best.ckpt", run / "best.last.ckpt",
+             run / "best.steps" / "step-00000003", run / "best.steps" / "step-00000006"]
+    for m in metas:
+        meta = json.loads((m / "meta.json").read_text())
+        assert meta["tokenizer_fingerprint"] == fp, m
+        assert meta["config"]["vocab_size"] == state["params"]["tok_emb"].shape[0]
+    # a same-size tokenizer of other content in the cache entry
+    keep = tmp_path / "keep"
+    shutil.copytree(entry, keep)
+    other = ptok.train_bpe_tokenizer(synthetic_corpus(200, seed=11), 12000, 2, None)
+    assert other.get_vocab_size() == ptok.load_tokenizer(str(entry)).get_vocab_size()
+    other.save_model(str(entry))
+    step6 = str(run / "best.steps" / "step-00000006")
+    with pytest.raises(SystemExit) as want:
+        jtok.check_tokenizer_matches(jtok.load_tokenizer(str(entry)),
+                                     other.get_vocab_size(), fp, context=step6)
+    with pytest.raises(SystemExit) as got:
+        cli.run([*argv, "--max-iters", "9", "--resume-from", "auto"])
+    assert str(got.value) == str(want.value) and "fingerprint" in str(got.value)
+    for name in ("vocab.json", "merges.txt"):
+        shutil.copy(keep / name, entry / name)
+    capsys.readouterr()
+    state, _ = cli.run([*argv, "--max-iters", "9", "--resume-from", "auto"])
+    out = capsys.readouterr().out
+    assert "cache hit" in out and f"resuming from {step6}" in out
+    assert state["step"] == 9
+
+
+def test_data_bench_reads_the_trainers_data_lines(tmp_path, capsys):
+    """``data/bench.py`` parses the seconds out of the ``[data]`` lines
+    that ``corpus_tokens`` prints, so the two stay in step; its stream is
+    the default config's at that corpus size, and ``--dir`` is removed."""
+    from differential_transformer_replication_tpu_torch.data import bench
+    from differential_transformer_replication_tpu_torch.data.corpus import (
+        synthetic_corpus,
+    )
+    from differential_transformer_replication_tpu_torch.data.tokenizer import (
+        encode_corpus,
+        train_bpe_tokenizer,
+    )
+
+    d = tmp_path / "bench"
+    assert bench.main(["--docs", "60", "--dir", str(d)]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    texts = synthetic_corpus(60, 1337)
+    tok = train_bpe_tokenizer(texts, 12000, 2, None)
+    assert out["tokens"] == len(encode_corpus(tok, texts))
+    assert out["vocab"] == tok.get_vocab_size() and out["docs"] == 60
+    for key in ("corpus_s", "bpe_train_s", "encode_s", "cache_write_s", "hit_load_s"):
+        assert out[key] >= 0, key
+    assert out["encode_tokens_per_s"] > 0 and not d.exists()

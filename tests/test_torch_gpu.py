@@ -1157,3 +1157,69 @@ def test_killed_and_resumed_run_is_bit_equal_on_the_card(gen, tmp_path):
     last = lambda n: open(os.path.join(tmp_path, n, "best.last.ckpt",  # noqa: E731
                                        "state.msgpack"), "rb").read()
     assert last("a") == last("b")
+
+
+# ---------------------------------------------------------------------------
+# generation: the two generators on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+def _on(tree, device):
+    if isinstance(tree, dict):
+        return {k: _on(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_on(v, device) for v in tree]
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("kind", ["control", "diff", "ndiff"])
+@pytest.mark.parametrize("route", ["generate", "generate_cached"])
+def test_generators_on_the_card_match_the_cpu(gen, monkeypatch, kind, route):
+    """fp32, 2 layers, greedy: every step's logits on the card within
+    1e-4 of the CPU's (the decode tests' bound), and the tokens equal up
+    to the first step whose top-2 gap on the CPU is within that bound
+    (past it the inputs differ). The windowed route runs past its window
+    (30 + 40 > 64) and the cached one past block_size for the RoPE
+    families; the kernels of each route launched on the card."""
+    import importlib
+
+    from differential_transformer_replication_tpu_torch.models import (
+        generate,
+        generate_cached,
+    )
+
+    pgen = importlib.import_module(
+        "differential_transformer_replication_tpu_torch.models.generate")
+    cfg = ModelConfig(model=kind, vocab_size=97, n_embd=64, n_head=2,
+                      n_layer=2, block_size=64, n_terms=3,
+                      compute_dtype="float32")
+    cpu_gen = torch.Generator()
+    cpu_gen.manual_seed(3)
+    params = init_model(cpu_gen, cfg)
+    fn = generate if route == "generate" else generate_cached
+    T0, new = 30, (30 if (route, kind) == ("generate_cached", "diff") else 40)
+    idx = torch.tensor([[(7 * i + j) % 97 for j in range(T0)] for i in range(2)])
+    logs = []
+    real = pgen.sample_token
+
+    def spy(g, logits, temperature=1.0, top_k=None):
+        logs.append(logits.detach().float().cpu())
+        return real(g, logits, temperature, top_k)
+
+    monkeypatch.setattr(pgen, "sample_token", spy)
+    want = fn(params, idx, cfg, new, 0, temperature=0.0)
+    cpu_logs = logs[:]
+    logs.clear()
+    wrappers = (fnr.fused_norm, ffn.fused_swiglu,
+                dat.decode_attention if route == "generate_cached"
+                else flash.flash_tm_fwd)
+    before = [w.launches for w in wrappers]
+    got = fn(_on(params, "cuda"), idx.cuda(), cfg, new, 0, temperature=0.0).cpu()
+    assert all(w.launches > n for w, n in zip(wrappers, before))
+    assert len(logs) == len(cpu_logs) == new
+    for step, (a, b) in enumerate(zip(cpu_logs, logs)):
+        assert _err(a, b) <= 1e-4, (step, _err(a, b))
+        if not torch.equal(want[:, T0 + step], got[:, T0 + step]):
+            top = a.topk(2, dim=-1).values
+            assert float((top[:, 0] - top[:, 1]).min()) <= 1e-4, step
+            break

@@ -5,7 +5,10 @@ package, not even its jax-free modules: a fresh interpreter that imports
 every module of the port must end with neither in ``sys.modules`` (the
 pattern of tests/test_lint_clean.py), and no source file of the port may
 name them in an import statement, lazy imports inside functions
-included. Kernel wrappers dispatch by device: off the CPU they launch
+included. Nor does it import ``tokenizers`` or ``regex``: the card's
+machine is not promised them, and the port's byte-level BPE is its own
+(``datasets`` stays allowed, imported lazily inside the corpus loader's
+fallback ``try``). Kernel wrappers dispatch by device: off the CPU they launch
 their kernel or raise, never run the plain version.
 """
 
@@ -22,7 +25,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = "differential_transformer_replication_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack",
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "tokenizers", "regex",
              "differential_transformer_replication_tpu")
 
 

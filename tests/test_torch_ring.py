@@ -500,6 +500,40 @@ def test_cli_trains_sequence_parallel_over_gloo_on_the_cpu(tmp_path):
     assert np.array_equal(outs[1]["losses"], losses)
 
 
+def test_cli_trains_sequence_parallel_from_the_corpus_over_gloo(tmp_path):
+    """``--dataset`` on a ring: rank 0 trains the BPE and writes the cache
+    entry and ``tokenizer_dir`` while rank 1 waits, then rank 1 loads the
+    entry (no BPE of its own); both train on that stream to the same
+    losses, and the checkpoints record the tokenizer's fingerprint."""
+    from differential_transformer_replication_tpu_torch.data.tokenizer import (
+        load_tokenizer,
+        tokenizer_fingerprint,
+    )
+    from differential_transformer_replication_tpu_torch.train.checkpoint import (
+        read_meta,
+    )
+
+    tok_dir, run = tmp_path / "tok", tmp_path / "run"
+    argv = ["--model", "diff", "--dataset", "synthetic", "--num-train-samples", "200",
+            "--tokenizer-dir", str(tok_dir), "--device", "cpu", "--n-embd", "32",
+            "--n-head", "2", "--n-layer", "1", "--block-size", "64",
+            "--micro-batch-size", "2", "--max-iters", "2", "--eval-interval", "2",
+            "--eval-iters", "1", "--warmup-iters", "1", "--compute-dtype", "float32",
+            "--metrics-path", "", "--checkpoint-path", str(run / "best.ckpt"),
+            "--sequence-parallel", "2", "--dist-backend", "gloo"]
+    outs = run_ranks("cli_corpus", 2, tmp_path / "ranks", {"argv": np.array(argv)})
+    assert [int(o["bpe_trainings"]) for o in outs] == [1, 0]
+    losses = outs[0]["losses"]
+    assert len(losses) == 2 and np.all(np.isfinite(losses))
+    assert np.array_equal(outs[1]["losses"], losses)
+    entries = sorted(p.name for p in tok_dir.iterdir() if p.is_dir())
+    assert len(entries) == 1 and entries[0].startswith("cache-")  # no tmp left
+    fp = tokenizer_fingerprint(load_tokenizer(str(tok_dir)))
+    assert fp == tokenizer_fingerprint(load_tokenizer(str(tok_dir / entries[0])))
+    for ckpt in ("best.ckpt", "best.last.ckpt"):
+        assert read_meta(str(run / ckpt))["tokenizer_fingerprint"] == fp
+
+
 def test_cli_refuses_ulysses_and_a_bad_split():
     with pytest.raises(SystemExit):
         cli.run(["--tokens", "t.npy", "--sequence-parallel", "2",

@@ -19,7 +19,8 @@ through a ``file://`` rendezvous in DIR (no TCP port), reads
 - ``model``: ``model_forward`` of each family given (its params passed as
   leaves), this rank's logits and loss share;
 - ``step``: one SP train step from a given train state, and the grads;
-- ``cli``: the trainer's command line with the arguments given.
+- ``cli``: the trainer's command line with the arguments given;
+- ``cli_corpus``: ``cli``, with the rank's BPE trainings counted.
 """
 
 from __future__ import annotations
@@ -188,8 +189,22 @@ def task_cli(sg, inp):
     return {"losses": np.array([m["loss"] for m in history], np.float64)}
 
 
+def task_cli_corpus(sg, inp):
+    from differential_transformer_replication_tpu_torch.train import trainer
+
+    real, trained = trainer.train_bpe_tokenizer, []
+
+    def counted(*args, **kwargs):
+        trained.append(1)
+        return real(*args, **kwargs)
+
+    trainer.train_bpe_tokenizer = counted
+    return {**task_cli(sg, inp), "bpe_trainings": np.array(len(trained))}
+
+
 TASKS = {"rotate": task_rotate, "ring": task_ring, "wrappers": task_wrappers,
-         "model": task_model, "step": task_step, "cli": task_cli}
+         "model": task_model, "step": task_step, "cli": task_cli,
+         "cli_corpus": task_cli_corpus}
 
 
 def run_ranks(task: str, P: int, d: Path, inputs: dict, timeout: float) -> list:
