@@ -155,7 +155,9 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2292,7 +2294,7 @@ RING_RUNS = (("diff P=2 T=8192", "diff", 2, 8192, 2, 3),
              ("control P=2 T=8192", "control", 2, 8192, 2, 3))
 RING_EVAL_ITERS = 1
 RING_LAYERS = 4     # the train-ring runs' depth: the recipe's width, half its depth
-RING_TIMEOUT_S = 300
+RING_TIMEOUT_S = 600  # a launch: all the runs at one P
 
 
 def _port_counters():
@@ -2304,132 +2306,176 @@ def _port_counters():
     return counters
 
 
-def launch_ranks(P: int, spec: dict, timeout: float = RING_TIMEOUT_S) -> list:
-    """Run ``spec`` on P rank processes of this script (``--ring-worker``)
-    under torch.distributed.run; every rank must exit 0 in time. Returns
-    each rank's JSON record."""
+def launch_ranks(P: int, backend: str, tasks: list, timeout: float = RING_TIMEOUT_S) -> list:
+    """Run ``tasks`` in turn on P rank processes of this script
+    (``--ring-worker``) under one torch.distributed.run launch, so the
+    ranks start and join the group once for all of them; every rank must
+    exit 0 in time. Returns, per task, each rank's JSON record."""
     out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / "ring"
     out_dir.mkdir(parents=True, exist_ok=True)
-    spec = dict(spec, out=str(out_dir / spec["label"].replace(" ", "_").replace("=", "")))
-    for r in range(P):
-        Path(f"{spec['out']}.rank{r}.json").unlink(missing_ok=True)
+    tasks = [dict(t, out=str(out_dir / t["label"].replace(" ", "_").replace("=", "")))
+             for t in tasks]
+    for t in tasks:
+        for r in range(P):
+            Path(f"{t['out']}.rank{r}.json").unlink(missing_ok=True)
+    spec = {"backend": backend, "tasks": tasks}
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc-per-node={P}", str(Path(__file__).resolve()),
            "--ring-worker", json.dumps(spec)]
+    label = f"P={P} {backend} launch ({', '.join(t['label'] for t in tasks)})"
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
-    expect(proc.returncode == 0, f"{spec['label']}: a rank failed (exit "
+    expect(proc.returncode == 0, f"{label}: a rank failed (exit "
            f"{proc.returncode}):\n{proc.stdout[-4000:]}\n{proc.stderr[-6000:]}")
-    return [json.loads(Path(f"{spec['out']}.rank{r}.json").read_text())
-            for r in range(P)]
+    return [[json.loads(Path(f"{t['out']}.rank{r}.json").read_text())
+             for r in range(P)] for t in tasks]
 
 
 def ring_worker(spec: dict) -> int:
-    """One rank of a train-ring or train-ring-e2e run (see launch_ranks)."""
-    import hashlib
-
+    """One rank of a train-ring launch (see launch_ranks): joins the ring
+    once, then runs each task of ``spec["tasks"]`` in turn, a trainer run
+    (``train``) or the fp32 step against one card (``e2e``), and writes
+    each task's record."""
     import torch
     import torch.distributed as dist
 
-    from differential_transformer_replication_tpu_torch.config import (
-        MeshConfig,
-        ModelConfig,
-        TrainConfig,
-    )
+    from differential_transformer_replication_tpu_torch.parallel import init_sequence_group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the ring's group, joined here so that it outlives the trainer's runs
+    # (the trainer joins it rather than making its own)
+    sg = init_sequence_group(spec["backend"], "cuda")
+    for task in spec["tasks"]:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        rec = {"train": ring_train_task, "e2e": ring_e2e_task,
+               "profile": ring_profile_task}[task["task"]](torch, sg, task)
+        torch.cuda.synchronize()
+        dist.barrier()
+        rec.update(rank=sg.rank, device=str(sg.device),
+                   task_s=time.perf_counter() - t0)
+        Path(f"{task['out']}.rank{sg.rank}.json").write_text(json.dumps(rec))
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return 0
+
+
+def ring_train_task(torch, sg, spec: dict) -> dict:
+    """A trainer run on this rank (the CLI's ``run``), its launches by
+    route and losses, then steps on one repeated batch."""
+    import hashlib
+
     from differential_transformer_replication_tpu_torch.ops import flash
     from differential_transformer_replication_tpu_torch.ops import (
         fused_norm_residual as fnr,
     )
     from differential_transformer_replication_tpu_torch.ops.dropout import fold_seed
-    from differential_transformer_replication_tpu_torch.parallel import init_sequence_group
     from differential_transformer_replication_tpu_torch.train import __main__ as cli
     from differential_transformer_replication_tpu_torch.train.optim import leaves
     from differential_transformer_replication_tpu_torch.train.step import (
         make_eval_step,
-        make_grad_fn,
         make_train_step,
-        train_state,
     )
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    backend = spec["backend"]
-    # the ring's group, joined here so that it outlives the trainer's run
-    # (the trainer joins it rather than making its own)
-    sg = init_sequence_group(backend, "cuda")
-    rank, P = sg.rank, sg.size
-    rec = {"rank": rank, "device": str(sg.device)}
 
     def checksum(params):
         flat = torch.cat([t.detach().reshape(-1) for t in leaves(params)])
         return hashlib.sha1(flat.cpu().numpy().tobytes()).hexdigest()
 
-    if spec["task"] == "train":
-        counters = _port_counters()
-        for fn in counters.values():
-            fn.launches = 0
-        flash.reset_bh_counters()
-        fnr.add_norm_bwd.instances.clear()
-        state, history = cli.run(spec["argv"])
-        torch.cuda.synchronize()
-        rec["launches"] = {k: fn.launches for k, fn in counters.items()}
-        rec["norm_bwd_instances"] = dict(fnr.add_norm_bwd.instances)
-        rec["routes"] = {f"{fn.__name__}/{r}": n
-                         for fn in flash.BH_WRAPPERS + flash.CHUNK_WRAPPERS
-                         for r, n in fn.routes.items()}
-        rec["losses"] = [m["loss"] for m in history]
-        rec["bad"] = [m["bad"] for m in history]
-        rec["step_ms"] = [m["step_time_ms"] for m in history]
-        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        rec["checksum"] = checksum(state["params"])
-        # a few steps on ONE repeated batch, each with its own dropout seed:
-        # the dropout-free eval loss on it must fall
-        args = cli.build_parser().parse_args(spec["argv"])
-        cfg = cli.config_from_args(args)
-        step = make_train_step(cfg.replace(max_iters=1000), sg)
-        eval_step = make_eval_step(cfg, sg)
-        g = torch.Generator(device=sg.device)
-        g.manual_seed(1)
-        T = cfg.model.block_size
-        idx = torch.randint(0, cfg.vocab_size, (1, args.micro_batch_size, T + 1),
-                            generator=g, device=sg.device)
-        batch = {"x": idx[..., :-1], "y": idx[..., 1:]}
-        rec["before"] = float(eval_step(state["params"], batch["x"][0], batch["y"][0]))
-        rec["repeat"] = []
-        for i in range(REPEAT_STEPS):
-            state, m = step(state, batch, fold_seed(99, i))
-            rec["repeat"].append(m["loss"])
-        rec["after"] = float(eval_step(state["params"], batch["x"][0], batch["y"][0]))
-        rec["checksum_after"] = checksum(state["params"])
-        if spec.get("profile"):
-            # where the ring step's time goes: train/step_profile.py on
-            # these ranks (rank 0 profiled; it joins this group)
-            from differential_transformer_replication_tpu_torch.train import step_profile
+    rec = {}
+    counters = _port_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    flash.reset_bh_counters()
+    fnr.add_norm_bwd.instances.clear()
+    state, history = cli.run(spec["argv"])
+    torch.cuda.synchronize()
+    rec["launches"] = {k: fn.launches for k, fn in counters.items()}
+    rec["norm_bwd_instances"] = dict(fnr.add_norm_bwd.instances)
+    rec["routes"] = {f"{fn.__name__}/{r}": n
+                     for fn in flash.BH_WRAPPERS + flash.CHUNK_WRAPPERS
+                     for r, n in fn.routes.items()}
+    rec["losses"] = [m["loss"] for m in history]
+    rec["bad"] = [m["bad"] for m in history]
+    rec["step_ms"] = [m["step_time_ms"] for m in history]
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec["checksum"] = checksum(state["params"])
+    # a few steps on ONE repeated batch, each with its own dropout seed:
+    # the dropout-free eval loss on it must fall
+    args = cli.build_parser().parse_args(spec["argv"])
+    cfg = cli.config_from_args(args)
+    step = make_train_step(cfg.replace(max_iters=1000), sg)
+    eval_step = make_eval_step(cfg, sg)
+    g = torch.Generator(device=sg.device)
+    g.manual_seed(1)
+    T = cfg.model.block_size
+    idx = torch.randint(0, cfg.vocab_size, (1, args.micro_batch_size, T + 1),
+                        generator=g, device=sg.device)
+    batch = {"x": idx[..., :-1], "y": idx[..., 1:]}
+    rec["before"] = float(eval_step(state["params"], batch["x"][0], batch["y"][0]))
+    rec["repeat"] = []
+    for i in range(REPEAT_STEPS):
+        state, m = step(state, batch, fold_seed(99, i))
+        rec["repeat"].append(m["loss"])
+    rec["after"] = float(eval_step(state["params"], batch["x"][0], batch["y"][0]))
+    rec["checksum_after"] = checksum(state["params"])
+    return rec
 
-            del state, step, eval_step
-            rec["profile"] = step_profile.profile(
-                args.model, T, args.micro_batch_size, HM_RATE, P, backend)
-    else:  # e2e: one fp32 step from a seeded init, grads and params
-        for kind in ("diff", "control"):
-            mcfg = ModelConfig(**dict(RECIPE, model=kind, n_layer=2, block_size=1024),
-                               compute_dtype="float32")
-            tcfg = TrainConfig(model=mcfg, mesh=MeshConfig(sequence=P),
-                               vocab_size=RECIPE["vocab_size"], micro_batch_size=1,
-                               warmup_iters=0, learning_rate=1e-3, sampler="replacement")
-            params, batch = e2e_inputs(torch, tcfg)
-            state = train_state(params, tcfg, sg.device)
-            batch = {k: t.to(sg.device) for k, t in batch.items()}
-            loss, grads = make_grad_fn(tcfg, sg)(state["params"], batch)
-            state, m = make_train_step(tcfg, sg)(state, batch)
-            rec[kind] = {"loss": m["loss"], "grad_norm": m["grad_norm"],
-                         "checksum": checksum(state["params"])}
-            if rank == 0:
-                torch.save({"grads": [t.cpu() for t in grads],
-                            "params": [t.detach().cpu() for t in leaves(state["params"])]},
-                           f"{spec['out']}.{kind}.pt")
-    dist.barrier()
-    dist.destroy_process_group()
-    Path(f"{spec['out']}.rank{rank}.json").write_text(json.dumps(rec))
-    return 0
+
+def ring_profile_task(torch, sg, spec: dict) -> dict:
+    """Where the ring step's time goes: train/step_profile.py on these
+    ranks (rank 0 profiled; it joins this group) at the trainer run's
+    model, T and micro-batch, once the file ``spec["after"]`` exists (the
+    other launch has ended: the card is this launch's alone)."""
+    from differential_transformer_replication_tpu_torch.train import __main__ as cli
+    from differential_transformer_replication_tpu_torch.train import step_profile
+
+    t0 = time.perf_counter()
+    while not Path(spec["after"]).exists():
+        expect(time.perf_counter() - t0 < RING_TIMEOUT_S,
+               f"{spec['label']}: {spec['after']} never appeared")
+        time.sleep(0.2)
+    args = cli.build_parser().parse_args(spec["argv"])
+    return {"profile": step_profile.profile(
+        args.model, args.block_size, args.micro_batch_size, HM_RATE, sg.size,
+        sg.backend, n_layer=RING_LAYERS)}
+
+
+def ring_e2e_task(torch, sg, spec: dict) -> dict:
+    """One fp32 step from a seeded init over the ring: its loss, grad
+    norm and params (rank 0 saves grads and params for the comparison)."""
+    from differential_transformer_replication_tpu_torch.config import (
+        MeshConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+    from differential_transformer_replication_tpu_torch.train.optim import leaves
+    from differential_transformer_replication_tpu_torch.train.step import (
+        make_grad_fn,
+        make_train_step,
+        train_state,
+    )
+    import hashlib
+
+    rec = {}
+    for kind in ("diff", "control"):
+        mcfg = ModelConfig(**dict(RECIPE, model=kind, n_layer=2, block_size=1024),
+                           compute_dtype="float32")
+        tcfg = TrainConfig(model=mcfg, mesh=MeshConfig(sequence=sg.size),
+                           vocab_size=RECIPE["vocab_size"], micro_batch_size=1,
+                           warmup_iters=0, learning_rate=1e-3, sampler="replacement")
+        params, batch = e2e_inputs(torch, tcfg)
+        state = train_state(params, tcfg, sg.device)
+        batch = {k: t.to(sg.device) for k, t in batch.items()}
+        loss, grads = make_grad_fn(tcfg, sg)(state["params"], batch)
+        state, m = make_train_step(tcfg, sg)(state, batch)
+        flat = torch.cat([t.detach().reshape(-1) for t in leaves(state["params"])])
+        rec[kind] = {"loss": m["loss"], "grad_norm": m["grad_norm"],
+                     "checksum": hashlib.sha1(flat.cpu().numpy().tobytes()).hexdigest()}
+        if sg.rank == 0:
+            torch.save({"grads": [t.cpu() for t in grads],
+                        "params": [t.detach().cpu() for t in leaves(state["params"])]},
+                       f"{spec['out']}.{kind}.pt")
+    return rec
 
 
 def ring_argv(model: str, P: int, T: int, B: int, steps: int, tokens, backend: str,
@@ -2449,90 +2495,57 @@ def ring_argv(model: str, P: int, T: int, B: int, steps: int, tokens, backend: s
             "--last-checkpoint-path", ""]
 
 
-def run_train_ring(torch, card: str, tokens) -> dict:
-    """Phase train-ring. Returns the launch count of each ring JSON entry
-    (wrapper and route), summed over the ranks of the four runs."""
+def check_ring_run(torch, card: str, label: str, model: str, P: int, T: int, B: int,
+                   steps: int, backend: str, recs: list, totals: dict) -> None:
+    """The checks of one train-ring trainer run, on its ranks' records."""
     from differential_transformer_replication_tpu_torch.ops import flash
 
-    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
-    totals = {name: 0 for name in RING_COUNTS}
-    runs = [(label, model, P, T, B, steps, "gloo")
-            for label, model, P, T, B, steps in RING_RUNS]
-    n_cards = torch.cuda.device_count()
-    if n_cards >= 2:
-        runs.append(("diff P=2 T=8192 nccl", "diff", 2, 8192, 2, 3, "nccl"))
-    else:
-        log(f"[train-ring] NCCL leg not run: this machine has {n_cards} card "
-            "(it needs one card per rank, 2); the runs below are gloo ranks sharing "
-            "one card")
-    prof = None
-    for i, (label, model, P, T, B, steps, backend) in enumerate(runs):
-        argv = ring_argv(model, P, T, B, steps, tokens, backend,
-                         str(out_dir / f"metrics_ring_{model}_P{P}_T{T}.jsonl"))
-        t0 = time.perf_counter()
-        recs = launch_ranks(P, {"label": label, "task": "train", "argv": argv,
-                                "backend": backend, "profile": i == 0})
-        prof = prof or recs[0].get("profile")
-        wall = time.perf_counter() - t0
-        Tl, L = T // P, RING_LAYERS
-        r0 = recs[0]
-        losses = r0["losses"]
-        expect(len(losses) == steps and all(math.isfinite(x) for x in losses),
-               f"{label}: non-finite or missing losses {losses}")
-        expect(all(b == 0 for b in r0["bad"]), f"{label}: a step was skipped")
-        expect(all(r["losses"] == losses for r in recs),
-               f"{label}: the ranks report different losses")
-        expect(len({r["checksum"] for r in recs}) == 1
-               and len({r["checksum_after"] for r in recs}) == 1,
-               f"{label}: the params differ between ranks")
-        # per rank and layer: P chunk forwards per forward (train steps and
-        # 2 * eval_iters eval batches), P chunk backwards (dq, dk/dv) per
-        # train step; the last rotation is skipped (P - 1 per layer and
-        # direction) but no chunk is: masked chunks launch and write zeros
-        fr, br = flash.chunk_fwd_route(Tl), flash.chunk_bwd_route(Tl)
-        n_fwd = steps + 2 * RING_EVAL_ITERS
-        want = {f"flash_chunk_fwd/{fr}": L * P * n_fwd,
-                f"flash_chunk_bwd_dq/{br}": L * P * steps,
-                f"flash_chunk_bwd_dkv/{br}": L * P * steps}
-        for r in recs:
-            expect(r["routes"] == want, f"{label} rank {r['rank']}: launches by route "
-                   f"{r['routes']}, expected {want}")
-            for name in ("fused_norm", "fused_add_norm", "fused_swiglu", "add_norm_bwd",
-                         "swiglu_bwd"):
-                expect(r["launches"][name] > 0, f"{label}: {name} never launched")
-            expect_norm_bwd_instances(torch, f"{label} rank {r['rank']}",
-                                      r["launches"]["add_norm_bwd"], r["norm_bwd_instances"])
-        if backend == "gloo":
-            for name, (fn, route) in RING_COUNTS.items():
-                totals[name] += sum(r["routes"].get(f"{fn}/{route}", 0) for r in recs)
-        log(f"[train-ring] {label}: {model}, {L} layers, width {RECIPE['n_embd']}, "
-            f"T {T} over {P} ranks (Tl {Tl}), micro-batch {B}, attention/residual/FFN "
-            f"dropout {HM_RATE}, bf16, {backend}; {steps} trainer steps in {wall:.1f} s "
-            f"(process start and eval included); losses {[round(x, 4) for x in losses]}; "
-            f"rank 0 step ms {[round(x, 1) for x in r0['step_ms']]}; peak device memory "
-            f"per rank {[round(r['peak_gib'], 2) for r in recs]} GiB; launches per rank "
-            f"by route {want} (fwd {fr}, bwd {br}); params equal on all ranks "
-            f"({r0['checksum'][:12]}); {card}; ranks share one card: not a multi-card "
-            "ring")
-        log(f"[train-ring] {label}: one repeated batch, loss {r0['before']:.4f} -> "
-            f"{[round(x, 4) for x in r0['repeat']]} -> {r0['after']:.4f}")
-        expect(math.isfinite(r0["after"]) and r0["after"] < r0["before"],
-               f"{label}: the loss on a repeated batch did not fall "
-               f"({r0['before']} -> {r0['repeat']} -> {r0['after']})")
-    # where the ring step's time goes: train/step_profile.py on run (a)'s
-    # ranks, after its trainer run
-    expect(prof is not None, f"{runs[0][0]}: no step profile")
-    top = ", ".join(f"{k['name'][:40]} {k['ms_per_step']:.2f}"
-                    for k in prof["top_kernels"][:8])
-    log(f"[train-ring] step_profile diff P=2 T=8192 B=2 dropout {HM_RATE} (gloo, ranks "
-        f"sharing one card; rank 0 profiled): wall {prof['wall_ms_per_step']:.1f} ms "
-        f"({prof['tokens_per_s']:.0f} tok/s over the ring), rank 0 busy "
-        f"{prof['device_busy_ms_per_step']:.1f} ms, {prof['rotations_per_step']:.0f} "
-        f"exchanges/step of {prof['rotation_mb_per_step']:.1f} MB in all, their host "
-        f"time {prof['rotation_host_ms_per_step']:.1f} ms/step, peak "
-        f"{prof['peak_device_memory_gib']:.2f} GiB, routes "
-        f"{prof['head_major_routes_per_step']}; top device ms/step: {top}")
-    return totals
+    Tl, L = T // P, RING_LAYERS
+    r0 = recs[0]
+    losses = r0["losses"]
+    expect(len(losses) == steps and all(math.isfinite(x) for x in losses),
+           f"{label}: non-finite or missing losses {losses}")
+    expect(all(b == 0 for b in r0["bad"]), f"{label}: a step was skipped")
+    expect(all(r["losses"] == losses for r in recs),
+           f"{label}: the ranks report different losses")
+    expect(len({r["checksum"] for r in recs}) == 1
+           and len({r["checksum_after"] for r in recs}) == 1,
+           f"{label}: the params differ between ranks")
+    # per rank and layer: P chunk forwards per forward (train steps and
+    # 2 * eval_iters eval batches), P chunk backwards (dq, dk/dv) per
+    # train step; the last rotation is skipped (P - 1 per layer and
+    # direction) but no chunk is: masked chunks launch and write zeros
+    fr, br = flash.chunk_fwd_route(Tl), flash.chunk_bwd_route(Tl)
+    n_fwd = steps + 2 * RING_EVAL_ITERS
+    want = {f"flash_chunk_fwd/{fr}": L * P * n_fwd,
+            f"flash_chunk_bwd_dq/{br}": L * P * steps,
+            f"flash_chunk_bwd_dkv/{br}": L * P * steps}
+    for r in recs:
+        expect(r["routes"] == want, f"{label} rank {r['rank']}: launches by route "
+               f"{r['routes']}, expected {want}")
+        for name in ("fused_norm", "fused_add_norm", "fused_swiglu", "add_norm_bwd",
+                     "swiglu_bwd"):
+            expect(r["launches"][name] > 0, f"{label}: {name} never launched")
+        expect_norm_bwd_instances(torch, f"{label} rank {r['rank']}",
+                                  r["launches"]["add_norm_bwd"], r["norm_bwd_instances"])
+    if backend == "gloo":
+        for name, (fn, route) in RING_COUNTS.items():
+            totals[name] += sum(r["routes"].get(f"{fn}/{route}", 0) for r in recs)
+    log(f"[train-ring] {label}: {model}, {L} layers, width {RECIPE['n_embd']}, "
+        f"T {T} over {P} ranks (Tl {Tl}), micro-batch {B}, attention/residual/FFN "
+        f"dropout {HM_RATE}, bf16, {backend}; {steps} trainer steps, the task "
+        f"{r0['task_s']:.1f} s in its launch (eval and the repeated batch included); "
+        f"losses {[round(x, 4) for x in losses]}; "
+        f"rank 0 step ms {[round(x, 1) for x in r0['step_ms']]}; peak device memory "
+        f"per rank {[round(r['peak_gib'], 2) for r in recs]} GiB; launches per rank "
+        f"by route {want} (fwd {fr}, bwd {br}); params equal on all ranks "
+        f"({r0['checksum'][:12]}); {card}; ranks share one card: not a multi-card "
+        "ring")
+    log(f"[train-ring] {label}: one repeated batch, loss {r0['before']:.4f} -> "
+        f"{[round(x, 4) for x in r0['repeat']]} -> {r0['after']:.4f}")
+    expect(math.isfinite(r0["after"]) and r0["after"] < r0["before"],
+           f"{label}: the loss on a repeated batch did not fall "
+           f"({r0['before']} -> {r0['repeat']} -> {r0['after']})")
 
 
 def e2e_inputs(torch, tcfg):
@@ -2549,10 +2562,9 @@ def e2e_inputs(torch, tcfg):
     return params, {"x": idx[..., :-1], "y": idx[..., 1:]}
 
 
-def run_train_ring_e2e(torch) -> None:
-    """Phase train-ring-e2e: one fp32 step of a 2-layer diff and control at
-    recipe width, T 1024, over P = 2 and 4 gloo ranks on this card, against
-    the single-card head-major step from the same params and batch."""
+def ring_e2e_reference(torch) -> dict:
+    """The single-card head-major fp32 step of a 2-layer diff and control
+    at recipe width, T 1024, from e2e_inputs: the ring's reference."""
     from differential_transformer_replication_tpu_torch.config import (
         ModelConfig,
         TrainConfig,
@@ -2578,32 +2590,155 @@ def run_train_ring_e2e(torch) -> None:
         state, m = make_train_step(tcfg)(state, batch)
         ref[kind] = (m, [g.cpu() for g in grads],
                      [t.detach().cpu() for t in leaves(state["params"])])
+    return ref
+
+
+def check_ring_e2e(torch, P: int, ref: dict, recs: list, out: str) -> None:
+    """train-ring-e2e: one fp32 step over P gloo ranks against one card."""
     lr = 1e-3
-    for P in (2, 4):
-        recs = launch_ranks(P, {"label": f"e2e P={P}", "task": "e2e",
-                                "backend": "gloo"})
-        base = (Path(__file__).resolve().parent / "build" / "chip_smoke" / "ring"
-                / f"e2e_P{P}")
-        for kind, (m, grads, params) in ref.items():
-            got = torch.load(f"{base}.{kind}.pt")
-            r0 = recs[0][kind]
-            rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-                      for a, b in zip(got["grads"], grads))
-            p_max = max(float((a - b).abs().max()) for a, b in zip(got["params"], params))
-            p_mean = max(float((a - b).abs().mean()) for a, b in zip(got["params"], params))
-            log(f"[train-ring-e2e] {kind} recipe width, 2 layers, fp32, T 1024 over P={P} "
-                f"gloo ranks vs one card (head-major): loss {r0['loss']:.6f} vs "
-                f"{m['loss']:.6f} (bound 1e-5), grad norm {r0['grad_norm']:.6f} vs "
-                f"{m['grad_norm']:.6f} (1e-4 relative), worst gradient {rel:.3g} of its "
-                f"leaf's max (1e-3), params after the step max {p_max:.3g} (2 lr = "
-                f"{2 * lr}), mean {p_mean:.3g} (1e-6); params equal on all ranks")
-            expect(abs(r0["loss"] - m["loss"]) <= 1e-5, f"e2e P={P} {kind}: loss")
-            expect(abs(r0["grad_norm"] - m["grad_norm"]) <= 1e-4 * m["grad_norm"],
-                   f"e2e P={P} {kind}: grad norm")
-            expect(rel <= 1e-3, f"e2e P={P} {kind}: gradients differ: {rel:.3g}")
-            expect(p_max <= 2 * lr and p_mean <= 1e-6, f"e2e P={P} {kind}: params")
-            expect(len({r[kind]["checksum"] for r in recs}) == 1,
-                   f"e2e P={P} {kind}: the params differ between ranks")
+    for kind, (m, grads, params) in ref.items():
+        got = torch.load(f"{out}.{kind}.pt")
+        r0 = recs[0][kind]
+        rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                  for a, b in zip(got["grads"], grads))
+        p_max = max(float((a - b).abs().max()) for a, b in zip(got["params"], params))
+        p_mean = max(float((a - b).abs().mean()) for a, b in zip(got["params"], params))
+        log(f"[train-ring-e2e] {kind} recipe width, 2 layers, fp32, T 1024 over P={P} "
+            f"gloo ranks vs one card (head-major): loss {r0['loss']:.6f} vs "
+            f"{m['loss']:.6f} (bound 1e-5), grad norm {r0['grad_norm']:.6f} vs "
+            f"{m['grad_norm']:.6f} (1e-4 relative), worst gradient {rel:.3g} of its "
+            f"leaf's max (1e-3), params after the step max {p_max:.3g} (2 lr = "
+            f"{2 * lr}), mean {p_mean:.3g} (1e-6); params equal on all ranks; the "
+            f"task {recs[0]['task_s']:.1f} s in its launch")
+        expect(abs(r0["loss"] - m["loss"]) <= 1e-5, f"e2e P={P} {kind}: loss")
+        expect(abs(r0["grad_norm"] - m["grad_norm"]) <= 1e-4 * m["grad_norm"],
+               f"e2e P={P} {kind}: grad norm")
+        expect(rel <= 1e-3, f"e2e P={P} {kind}: gradients differ: {rel:.3g}")
+        expect(p_max <= 2 * lr and p_mean <= 1e-6, f"e2e P={P} {kind}: params")
+        expect(len({r[kind]["checksum"] for r in recs}) == 1,
+               f"e2e P={P} {kind}: the params differ between ranks")
+
+
+def run_train_ring(torch, card: str, tokens) -> dict:
+    """Phase train-ring, with train-ring-e2e: every run at P ranks in one
+    torch.distributed.run launch of P ranks (the trainer runs of
+    RING_RUNS, then the fp32 step against one card), so each launch's
+    start (~25-35 s) is paid once per P. The P = 2 runs also carry the
+    heartbeat and the step watchdog: one heartbeat file per rank, no
+    fire. Returns the launch count of each ring JSON entry (wrapper and
+    route), summed over the ranks of the gloo runs."""
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    hb_dir = out_dir / "ring_heartbeat"
+    shutil.rmtree(hb_dir, ignore_errors=True)
+    for stale in out_dir.glob("*.hang_report*"):
+        stale.unlink()
+    totals = {name: 0 for name in RING_COUNTS}
+    t0 = time.perf_counter()
+    ref = ring_e2e_reference(torch)
+    log(f"[train-ring-e2e] the single-card reference steps in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches = []
+    for P in sorted({run[2] for run in RING_RUNS}):
+        runs = [(label, model, P, T, B, steps, "gloo")
+                for label, model, p, T, B, steps in RING_RUNS if p == P]
+        launches.append((P, "gloo", runs, True))
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        launches.append((2, "nccl", [("diff P=2 T=8192 nccl", "diff", 2, 8192, 2, 3,
+                                      "nccl")], False))
+    else:
+        log(f"[train-ring] NCCL leg not run: this machine has {n_cards} card "
+            "(it needs one card per rank, 2); the runs below are gloo ranks sharing "
+            "one card")
+    # the gloo launches run side by side (each launch's start, ~20 s, and
+    # its runs overlap the other's); the step profile, a task of its own
+    # at the end of the P = 2 launch, waits until the P = 4 launch ended
+    alone = out_dir / "ring_profile_alone"
+    alone.unlink(missing_ok=True)
+    plans = []
+    for P, backend, runs, with_e2e in launches:
+        tasks = []
+        for label, model, _, T, B, steps, _ in runs:
+            argv = ring_argv(model, P, T, B, steps, tokens, backend,
+                             str(out_dir / f"metrics_ring_{model}_P{P}_T{T}.jsonl"))
+            if P == 2 and backend == "gloo":
+                argv += ["--heartbeat-dir", str(hb_dir), "--step-deadline-s", "300",
+                         "--heartbeat-timeout-s", "60"]
+            tasks.append({"label": label, "task": "train", "argv": argv})
+        if with_e2e:
+            tasks.append({"label": f"e2e P={P}", "task": "e2e"})
+        if P == 2 and backend == "gloo":
+            tasks.append({"label": "profile P=2", "task": "profile",
+                          "argv": tasks[0]["argv"], "after": str(alone)})
+        plans.append((P, backend, runs, with_e2e, tasks))
+
+    def launch(plan, box):
+        P, backend, _, _, tasks = plan
+        t0 = time.perf_counter()
+        try:
+            box["results"] = launch_ranks(P, backend, tasks)
+        except BaseException as e:  # noqa: BLE001 - raised on the main thread
+            box["error"] = e
+        finally:
+            box["wall"] = time.perf_counter() - t0
+            if P != 2:
+                alone.touch()
+
+    gloo = [pl for pl in plans if pl[1] == "gloo"]
+    boxes = [{} for _ in gloo]
+    threads = [threading.Thread(target=launch, args=(pl, box), daemon=True)
+               for pl, box in zip(gloo, boxes)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(2 * RING_TIMEOUT_S)
+    for pl in plans[len(gloo):]:  # nccl: after the gloo launches
+        boxes.append({})
+        launch(pl, boxes[-1])
+    prof = None
+    for (P, backend, runs, with_e2e, tasks), box in zip(plans, boxes):
+        if "error" in box:
+            raise box["error"]
+        expect("results" in box, f"P={P} {backend} launch: no end")
+        results = box["results"]
+        log(f"[train-ring] one P={P} {backend} launch{' beside the other' if backend == 'gloo' else ''}: "
+            f"{len(tasks)} tasks ({', '.join(t['label'] for t in tasks)}) in "
+            f"{box['wall']:.1f} s; in it "
+            + ", ".join(f"{t['label']} {recs[0]['task_s']:.1f} s"
+                        for t, recs in zip(tasks, results))
+            + f"; the launch's start and exit "
+            f"{box['wall'] - sum(r[0]['task_s'] for r in results):.1f} s")
+        for (label, model, _, T, B, steps, _), recs in zip(runs, results):
+            check_ring_run(torch, card, label, model, P, T, B, steps, backend, recs,
+                           totals)
+        if with_e2e:
+            out = (out_dir / "ring" / f"e2e_P{P}")
+            check_ring_e2e(torch, P, ref, results[len(runs)], str(out))
+        if P == 2 and backend == "gloo":
+            prof = results[-1][0]["profile"]
+    # the P = 2 runs' liveness: a heartbeat file a rank, no watchdog fire
+    beats = sorted(p.name for p in hb_dir.iterdir()) if hb_dir.exists() else []
+    expect(beats == ["hb-0.json", "hb-1.json"], f"train-ring: heartbeat files {beats}")
+    expect(not any(out_dir.glob("*.hang_report*")), "train-ring: the watchdog fired")
+    log(f"[train-ring] P=2 runs with --heartbeat-dir and --step-deadline-s 300: "
+        f"heartbeat files {beats} (last iters "
+        f"{[json.loads((hb_dir / b).read_text())['iter'] for b in beats]}), no "
+        "watchdog fire")
+    # where the ring step's time goes: train/step_profile.py on the P = 2
+    # ranks, the card theirs alone
+    expect(prof is not None, f"{RING_RUNS[0][0]}: no step profile")
+    top = ", ".join(f"{k['name'][:40]} {k['ms_per_step']:.2f}"
+                    for k in prof["top_kernels"][:8])
+    log(f"[train-ring] step_profile diff P=2 T=8192 B=2 dropout {HM_RATE}, "
+        f"{prof['n_layer']} layers, after the P=4 launch ended (gloo, ranks "
+        f"sharing one card; rank 0 profiled): wall {prof['wall_ms_per_step']:.1f} ms "
+        f"({prof['tokens_per_s']:.0f} tok/s over the ring), rank 0 busy "
+        f"{prof['device_busy_ms_per_step']:.1f} ms, {prof['rotations_per_step']:.0f} "
+        f"exchanges/step of {prof['rotation_mb_per_step']:.1f} MB in all, their host "
+        f"time {prof['rotation_host_ms_per_step']:.1f} ms/step, peak "
+        f"{prof['peak_device_memory_gib']:.2f} GiB, routes "
+        f"{prof['head_major_routes_per_step']}; top device ms/step: {top}")
+    return totals
 
 
 # ---------------------------------------------------------------------------
@@ -2780,9 +2915,16 @@ def cli_worker(spec: dict) -> int:
 
     zero()
     if spec["cli"] == "train":
+        import torch
+
         from differential_transformer_replication_tpu_torch.train import __main__ as cli
 
         rc = cli.main(spec["argv"])
+        out = counts()
+        out["peak_mib"] = (torch.cuda.max_memory_allocated() / 2 ** 20
+                           if torch.cuda.is_available() else 0.0)
+        Path(spec["out"]).write_text(json.dumps(out))
+        return rc
     elif spec["cli"] == "sample":
         from differential_transformer_replication_tpu_torch import sample
 
@@ -2806,12 +2948,14 @@ def cli_worker(spec: dict) -> int:
     return rc
 
 
-def start_worker(cli: str, argv: list, out: Path, **spec) -> subprocess.Popen:
+def start_worker(cli: str, argv: list, out: Path, env: dict = None,
+                 **spec) -> subprocess.Popen:
     out.unlink(missing_ok=True)
     return subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--cli-worker",
          json.dumps({"cli": cli, "argv": argv, "out": str(out), **spec})],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=None if env is None else {**os.environ, **env})
 
 
 def finish_worker(proc: subprocess.Popen, label: str, timeout: float = CKPT_TIMEOUT_S,
@@ -2919,7 +3063,98 @@ def ckpt_samples(torch, params, mcfg, tok, tok_dir: Path, ckpt: Path, work: Path
             for route, r in rates.items()) + f"; {card}")
 
 
-def run_train_ckpt(torch, card: str) -> dict:
+def ckpt_serving(torch, params, mcfg, meta, tok, tok_dir: Path, a: Path, work: Path,
+                 card: str) -> None:
+    """train-ckpt (b) and (c) on run a's best checkpoint: the ``sample``
+    command line against the in-process generators, and the server with
+    ``--tokenizer`` against the in-process engine (run on a thread beside
+    the killed and the resumed runs)."""
+    import socket
+
+    import numpy as np
+
+    from differential_transformer_replication_tpu_torch.config import ServingConfig
+    from differential_transformer_replication_tpu_torch.data.corpus import (
+        synthetic_corpus,
+    )
+    from differential_transformer_replication_tpu_torch.serving.engine import (
+        ServingEngine,
+    )
+
+    # (c) the server, started first so that it comes up while (b) runs
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    proc = start_worker("serve", ["--checkpoint", str(a / "best.ckpt"),
+                                  "--tokenizer", str(tok_dir),
+                                  "--device", "cuda", "--port", str(port),
+                                  "--num-slots", "8", "--prefill-chunk", "128",
+                                  "--prefill-budget", "256"], work / "s.json")
+    url = f"http://127.0.0.1:{port}"
+    try:
+        # (b) the sample command line against the in-process generators
+        ckpt_samples(torch, params, mcfg, tok, tok_dir, a / "best.ckpt", work, card)
+        # (c) against the in-process engine: token prompts, then text prompts
+        serving = dict(num_slots=8, prefill_chunk=128, prefill_budget=256)
+        rng = np.random.default_rng(4)
+        prompts = [rng.integers(0, mcfg.vocab_size, n).tolist() for n in CKPT_PROMPTS]
+        texts = [" ".join(synthetic_corpus(k, seed=6 + k)) for k in CKPT_TEXT_DOCS]
+        engine = ServingEngine(params, mcfg, ServingConfig(**serving), device="cuda")
+        want = [engine.generate([p], max_new_tokens=CKPT_NEW, temperature=0.0)[0].tokens
+                for p in prompts + [tok.encode(t).ids for t in texts]]
+        del engine, params
+        torch.cuda.empty_cache()
+        while True:
+            try:
+                with urllib.request.urlopen(url + "/health", timeout=5) as r:
+                    if json.load(r)["ok"]:
+                        break
+            except OSError:
+                expect(proc.poll() is None and time.perf_counter() - t0 < CKPT_TIMEOUT_S,
+                       f"train-ckpt: the server did not come up:\n"
+                       f"{proc.stdout.read() if proc.poll() is not None else ''}")
+                time.sleep(0.2)
+        up_s = time.perf_counter() - t0
+        replies = []
+        for body in ([{"prompt_ids": p} for p in prompts]
+                     + [{"prompt": t} for t in texts]):
+            # one at a time, as the engine ran them
+            status, reply = _post(url + "/generate", dict(
+                body, max_new_tokens=CKPT_NEW, temperature=0.0))
+            expect(status == 200, f"train-ckpt: /generate answered {status}")
+            replies.append(reply)
+    finally:
+        proc.send_signal(15)
+    out_s = finish_worker(proc, "train-ckpt server")
+    served = json.loads((work / "s.json").read_text())
+    expect(served["decode_attention"] > 0 and served["fused_swiglu"] > 0
+           and served["fused_norm"] > 0 and served["fused_add_norm"] > 0,
+           f"train-ckpt: the server's kernels did not launch: {served}")
+    expect(str(a / "best.ckpt") in out_s, "train-ckpt: the server did not name "
+           "its checkpoint")
+    got = [r["tokens"] for r in replies]
+    text_ok = all(r["prompt_ids"] == tok.encode(t).ids
+                  and r["text"] == tok.decode(r["tokens"])
+                  for r, t in zip(replies[len(prompts):], texts))
+    log(f"[train-ckpt] (c) server on {a / 'best.ckpt'} with --tokenizer (step "
+        f"{meta['iter_num']}, up within {up_s:.1f} s of its start, (b) and the "
+        f"engine's runs beside it): {len(prompts)} greedy token "
+        f"requests of {list(CKPT_PROMPTS)} prompt tokens and {len(texts)} greedy "
+        f"text requests of {[len(tok.encode(t).ids) for t in texts]} tokens, "
+        f"{CKPT_NEW} new tokens each, "
+        f"{'equal to' if got == want else 'DIFFERENT from'} the in-process engine on "
+        f"load_params_for_inference of the same directory (text prompts on "
+        f"encode(text)); replies' \"text\" "
+        f"{'equal to' if text_ok else 'DIFFERENT from'} decode(tokens), e.g. "
+        f"{replies[-1]['text'][:60]!r}; server launches "
+        f"{ {k: served[k] for k in ('decode_attention', 'fused_swiglu', 'fused_norm', 'fused_add_norm')} }")
+    expect(got == want, f"train-ckpt: served tokens {got} != engine tokens {want}")
+    expect(text_ok, "train-ckpt: a text reply's prompt or text is not the "
+           "tokenizer's")
+
+
+def run_train_ckpt(torch, card: str, work: Path) -> dict:
     """Phase train-ckpt, from text: (a) the corpus, the BPE and the epoch
     sampler across an epoch boundary, the first run building the cache
     and the later ones loading it; a run killed by SIGKILL after its
@@ -2928,18 +3163,11 @@ def run_train_ckpt(torch, card: str) -> dict:
     the tokenizer's fingerprint; (b) the ``sample`` command line on the
     best checkpoint; (c) the server on it gives the in-process engine's
     greedy tokens for token and text prompts; (d) the host's data,
-    sampling and checkpoint costs. Returns the uninterrupted run's
-    launch counts."""
-    import shutil
-    import socket
-    import tempfile
-
+    sampling and checkpoint costs. Works in ``work``, where the
+    uninterrupted run stays (``a/``) for train-full. Returns the
+    uninterrupted run's launch counts and wall seconds."""
     import numpy as np
 
-    from differential_transformer_replication_tpu_torch.config import ServingConfig
-    from differential_transformer_replication_tpu_torch.data.corpus import (
-        synthetic_corpus,
-    )
     from differential_transformer_replication_tpu_torch.data.native import (
         EpochPermutation,
     )
@@ -2948,9 +3176,6 @@ def run_train_ckpt(torch, card: str) -> dict:
         tokenizer_fingerprint,
     )
     from differential_transformer_replication_tpu_torch.models import param_count
-    from differential_transformer_replication_tpu_torch.serving.engine import (
-        ServingEngine,
-    )
     from differential_transformer_replication_tpu_torch.train.checkpoint import (
         load_params_for_inference,
         read_meta,
@@ -2961,210 +3186,446 @@ def run_train_ckpt(torch, card: str) -> dict:
     )
 
     N = CKPT_N
-    work = Path(tempfile.mkdtemp(prefix="train_ckpt_",
-                                 dir=Path(__file__).resolve().parent / "build"))
-    try:
-        t0 = time.perf_counter()
-        tok_pred, stream = ckpt_stream()
-        pred_s = time.perf_counter() - t0
-        tok_dir = work / "tok"
-        windows = int(0.9 * len(stream)) - RECIPE["block_size"]
-        per_step = CKPT_B * CKPT_ACC
-        # (a) where the epoch boundary falls, from the port's permutation
-        perm = EpochPermutation(windows, 0)
-        cross = 0
-        while perm.epoch == 0:
-            perm.take(per_step)
-            cross += 1
-        log(f"[train-ckpt] (a) corpus: {CKPT_DOCS} synthetic documents (seed 0), BPE "
-            f"vocab {tok_pred.get_vocab_size()}, {len(stream)} tokens (predicted in "
-            f"process in {pred_s:.2f} s); epoch sampler: {windows} training windows "
-            f"an epoch, {per_step} a step (micro-batch {CKPT_B} x {CKPT_ACC}); step "
-            f"{cross} crosses into epoch 1, after the resume at step {N} (the draws "
-            f"equal the JAX package's EpochPermutation bit for bit: "
-            f"tests/test_torch_data.py)")
-        # 1. the uninterrupted run: builds the corpus cache
-        a, b = work / "a", work / "b"
-        a.mkdir()
-        b.mkdir()
-        t0 = time.perf_counter()
-        proc = start_worker("train", ckpt_argv(tok_dir, a), work / "a.json")
-        out_a = finish_worker(proc, "train-ckpt uninterrupted run")
-        wall_a = time.perf_counter() - t0
-        counts = json.loads((work / "a.json").read_text())
-        expect_train_launches(counts, 2 * N, "train-ckpt uninterrupted run")
-        miss = re.search(r"\[data\] cache miss: .*? in ([\d.]+) s; BPE trained in "
-                         r"([\d.]+) s; (\d+) tokens encoded in ([\d.]+) s \((\d+) "
-                         r"tokens/s\)", out_a)
-        expect(miss is not None, f"train-ckpt: the first run built no cache:\n{out_a[-3000:]}")
-        (entry,) = [p for p in tok_dir.iterdir() if p.name.startswith("cache-")]
-        cached = np.load(entry / "tokens.npy")
-        expect(np.array_equal(cached, stream), "train-ckpt: the CLI's cached stream "
-               "differs from the in-process corpus + BPE")
-        tok = load_tokenizer(str(tok_dir))
-        fp = tokenizer_fingerprint(tok)
-        expect(fp == tokenizer_fingerprint(tok_pred) == tokenizer_fingerprint(
-            load_tokenizer(str(entry))), "train-ckpt: the tokenizers differ")
-        # 2. the run killed once its step-N checkpoint is certified
-        t0 = time.perf_counter()
-        proc = start_worker("train", ckpt_argv(tok_dir, b), work / "b.json")
-        manifest = b / "best.steps" / step_dir_name(N) / "manifest.json"
-        while not manifest.exists() and proc.poll() is None \
-                and time.perf_counter() - t0 < CKPT_TIMEOUT_S:
-            time.sleep(0.01)
-        proc.send_signal(9)
-        out_b = finish_worker(proc, "train-ckpt killed run", rc=-9)
-        killed_at = max(r["iter"] for r in step_records(b / "metrics.jsonl"))
-        # 3. the resume
-        t0 = time.perf_counter()
-        proc = start_worker("train", ckpt_argv(tok_dir, b, "--resume-from",
-                                               "auto"), work / "c.json")
-        out_c = finish_worker(proc, "train-ckpt resumed run")
-        wall_c = time.perf_counter() - t0
-        resumed = re.search(r"resuming from (\S+)", out_c)
-        expect(resumed is not None, f"train-ckpt: the resume found no checkpoint:\n{out_c}")
-        resumed_step = read_meta(resumed.group(1))["iter_num"]
-        counts_c = json.loads((work / "c.json").read_text())
-        expect_train_launches(counts_c, 2 * N - resumed_step, "train-ckpt resumed run")
-        hits = [re.search(r"\[data\] cache hit: tokenizer and stream loaded in "
-                          r"([\d.]+) s", o) for o in (out_b, out_c)]
-        expect(all(hits), "train-ckpt: the killed or resumed run missed the cache")
-        # every checkpoint of both runs records the tokenizer's fingerprint
-        metas = [p.parent for p in a.rglob("meta.json")] + \
-            [p.parent for p in b.rglob("meta.json")]
-        bad_fp = [str(m) for m in metas if read_meta(str(m)).get(
-            "tokenizer_fingerprint") != fp]
-        expect(len(metas) >= 6 and not bad_fp, f"train-ckpt: checkpoints without the "
-               f"fingerprint {fp}: {bad_fp} (of {len(metas)})")
-        log(f"[train-ckpt] (a) the first run built the cache {entry.name} from "
-            f"--dataset synthetic (the stream equal to the in-process build), the "
-            f"killed and the resumed run loaded it; {len(metas)} checkpoints "
-            f"(best, last, step) all record tokenizer fingerprint {fp}")
-        # bit for bit: the train states (params, mu, nu, counts, step)
-        # serialize to the same bytes, and every step's loss is equal
-        ra, rb = step_records(a / "metrics.jsonl"), step_records(b / "metrics.jsonl")
-        la = {r["iter"]: r["loss"] for r in ra}
-        expect(sorted(la) == list(range(1, 2 * N + 1)), f"train-ckpt: steps {sorted(la)}")
-        unequal = [(r["iter"], r["loss"], la[r["iter"]]) for r in rb
-                   if r["loss"] != la[r["iter"]]]
-        same = state_bytes(a / "best.last.ckpt") == state_bytes(b / "best.last.ckpt")
-        log(f"[train-ckpt] (a) killed at step {killed_at} (SIGKILL once "
-            f"step-{N} was certified), resumed from {resumed.group(1)} (step "
-            f"{resumed_step}) to {2 * N}: state.msgpack of the last checkpoints "
-            f"{'bit-equal' if same else 'DIFFERENT'}, {len(rb)} step losses of the "
-            f"killed and resumed runs against the uninterrupted run's, "
-            f"{len(unequal)} unequal {unequal[:4]}; losses "
-            f"{[round(la[i], 4) for i in sorted(la)]}")
-        expect(same and not unequal, "train-ckpt: the resumed run is not bit-equal "
-               "to the uninterrupted run")
-        # (d) costs on this machine's disk
-        save_ms = [r["ckpt_save_ms"] for r in ra if "ckpt_save_ms" in r]
-        blocked = [r["ckpt_blocked_ms"] for r in ra if r["iter"] % N == 0]
-        loop = [r["ckpt_loop_ms"] for r in ra if r["iter"] % N == 0]
-        best_s = [float(x) for x in re.findall(r"\[ckpt\] best checkpoint written to "
-                                               r"\S+ in ([\d.]+) s", out_a)]
-        last_s = [float(x) for x in re.findall(r"\[ckpt\] last checkpoint written to "
-                                               r"\S+ in ([\d.]+) s", out_a)]
-        step_dir = a / "best.steps" / step_dir_name(2 * N)
-        mb = sum(f.stat().st_size for f in step_dir.iterdir()) / 1e6
-        t0 = time.perf_counter()
-        verify_checkpoint(str(step_dir))
-        verify_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        params, mcfg, meta = load_params_for_inference(str(a / "best.ckpt"), device="cuda")
-        load_s = time.perf_counter() - t0
-        expect(meta["consumed_windows"] % per_step == 0 and meta["iter_num"] > 0,
-               f"train-ckpt: best checkpoint meta {meta['iter_num']}, "
-               f"{meta['consumed_windows']}")
-        expect(mcfg.vocab_size == tok.get_vocab_size(), f"train-ckpt: model vocab "
-               f"{mcfg.vocab_size} is not the tokenizer's {tok.get_vocab_size()}")
-        log(f"[train-ckpt] (d) data on this host: corpus of {CKPT_DOCS} documents "
-            f"{miss.group(1)} s, BPE trained in {miss.group(2)} s, {miss.group(3)} "
-            f"tokens encoded in {miss.group(4)} s ({miss.group(5)} tokens/s); cache "
-            f"hits loaded in {hits[0].group(1)} s and {hits[1].group(1)} s; {card}")
-        log(f"[train-ckpt] (d) checkpoint {mb:.1f} MB (state.msgpack + meta + manifest, "
-            f"{param_count(params) / 1e6:.1f} M params and two "
-            f"moments); async step saves {sorted({round(x / 1e3, 3) for x in save_ms})} s "
-            f"on the writer thread; the "
-            f"loop's time in each periodic save {[round(x, 1) for x in loop]} ms, of it "
-            f"blocked on the previous save {[round(x, 1) for x in blocked]} ms; best "
-            f"(inline) saves {best_s} s; last {last_s} s; verify "
-            f"{verify_s:.3f} s; load for inference {load_s:.3f} s; uninterrupted run "
-            f"{wall_a:.1f} s, resumed run {wall_c:.1f} s (process start included); {card}")
-        # (b) the sample command line against the in-process generators
-        ckpt_samples(torch, params, mcfg, tok, tok_dir, a / "best.ckpt", work, card)
-        # (c) the server on the best checkpoint against the in-process engine:
-        # token prompts, then text prompts
-        serving = dict(num_slots=8, prefill_chunk=128, prefill_budget=256)
-        rng = np.random.default_rng(4)
-        prompts = [rng.integers(0, mcfg.vocab_size, n).tolist() for n in CKPT_PROMPTS]
-        texts = [" ".join(synthetic_corpus(k, seed=6 + k)) for k in CKPT_TEXT_DOCS]
-        engine = ServingEngine(params, mcfg, ServingConfig(**serving), device="cuda")
-        want = [engine.generate([p], max_new_tokens=CKPT_NEW, temperature=0.0)[0].tokens
-                for p in prompts + [tok.encode(t).ids for t in texts]]
-        del engine, params
-        torch.cuda.empty_cache()
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            port = s.getsockname()[1]
-        proc = start_worker("serve", ["--checkpoint", str(a / "best.ckpt"),
-                                      "--tokenizer", str(tok_dir),
-                                      "--device", "cuda", "--port", str(port),
-                                      "--num-slots", "8", "--prefill-chunk", "128",
-                                      "--prefill-budget", "256"], work / "s.json")
-        url = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    tok_pred, stream = ckpt_stream()
+    pred_s = time.perf_counter() - t0
+    tok_dir = work / "tok"
+    windows = int(0.9 * len(stream)) - RECIPE["block_size"]
+    per_step = CKPT_B * CKPT_ACC
+    # (a) where the epoch boundary falls, from the port's permutation
+    perm = EpochPermutation(windows, 0)
+    cross = 0
+    while perm.epoch == 0:
+        perm.take(per_step)
+        cross += 1
+    log(f"[train-ckpt] (a) corpus: {CKPT_DOCS} synthetic documents (seed 0), BPE "
+        f"vocab {tok_pred.get_vocab_size()}, {len(stream)} tokens (predicted in "
+        f"process in {pred_s:.2f} s); epoch sampler: {windows} training windows "
+        f"an epoch, {per_step} a step (micro-batch {CKPT_B} x {CKPT_ACC}); step "
+        f"{cross} crosses into epoch 1, after the resume at step {N} (the draws "
+        f"equal the JAX package's EpochPermutation bit for bit: "
+        f"tests/test_torch_data.py)")
+    # 1. the uninterrupted run: builds the corpus cache
+    a, b = work / "a", work / "b"
+    a.mkdir()
+    b.mkdir()
+    t0 = time.perf_counter()
+    proc = start_worker("train", ckpt_argv(tok_dir, a), work / "a.json")
+    out_a = finish_worker(proc, "train-ckpt uninterrupted run")
+    wall_a = time.perf_counter() - t0
+    counts = json.loads((work / "a.json").read_text())
+    expect_train_launches(counts, 2 * N, "train-ckpt uninterrupted run")
+    miss = re.search(r"\[data\] cache miss: .*? in ([\d.]+) s; BPE trained in "
+                     r"([\d.]+) s; (\d+) tokens encoded in ([\d.]+) s \((\d+) "
+                     r"tokens/s\)", out_a)
+    expect(miss is not None, f"train-ckpt: the first run built no cache:\n{out_a[-3000:]}")
+    (entry,) = [p for p in tok_dir.iterdir() if p.name.startswith("cache-")]
+    cached = np.load(entry / "tokens.npy")
+    expect(np.array_equal(cached, stream), "train-ckpt: the CLI's cached stream "
+           "differs from the in-process corpus + BPE")
+    tok = load_tokenizer(str(tok_dir))
+    fp = tokenizer_fingerprint(tok)
+    expect(fp == tokenizer_fingerprint(tok_pred) == tokenizer_fingerprint(
+        load_tokenizer(str(entry))), "train-ckpt: the tokenizers differ")
+    t0 = time.perf_counter()
+    params, mcfg, meta = load_params_for_inference(str(a / "best.ckpt"), device="cuda")
+    load_s = time.perf_counter() - t0
+    expect(meta["consumed_windows"] % per_step == 0 and meta["iter_num"] > 0,
+           f"train-ckpt: best checkpoint meta {meta['iter_num']}, "
+           f"{meta['consumed_windows']}")
+    expect(mcfg.vocab_size == tok.get_vocab_size(), f"train-ckpt: model vocab "
+           f"{mcfg.vocab_size} is not the tokenizer's {tok.get_vocab_size()}")
+    n_params = param_count(params)
+    # (b) and (c) on run a's best checkpoint, on a thread beside 2. and 3.
+    serving = {}
+
+    def serve_side():
         try:
-            t0 = time.perf_counter()
-            while True:
-                try:
-                    with urllib.request.urlopen(url + "/health", timeout=5) as r:
-                        if json.load(r)["ok"]:
-                            break
-                except OSError:
-                    expect(proc.poll() is None and time.perf_counter() - t0 < CKPT_TIMEOUT_S,
-                           f"train-ckpt: the server did not come up:\n"
-                           f"{proc.stdout.read() if proc.poll() is not None else ''}")
-                    time.sleep(0.2)
-            up_s = time.perf_counter() - t0
-            replies = []
-            for body in ([{"prompt_ids": p} for p in prompts]
-                         + [{"prompt": t} for t in texts]):
-                # one at a time, as the engine ran them
-                status, reply = _post(url + "/generate", dict(
-                    body, max_new_tokens=CKPT_NEW, temperature=0.0))
-                expect(status == 200, f"train-ckpt: /generate answered {status}")
-                replies.append(reply)
-        finally:
-            proc.send_signal(15)
-        out_s = finish_worker(proc, "train-ckpt server")
-        served = json.loads((work / "s.json").read_text())
-        expect(served["decode_attention"] > 0 and served["fused_swiglu"] > 0
-               and served["fused_norm"] > 0 and served["fused_add_norm"] > 0,
-               f"train-ckpt: the server's kernels did not launch: {served}")
-        expect(str(a / "best.ckpt") in out_s, "train-ckpt: the server did not name "
-               "its checkpoint")
-        got = [r["tokens"] for r in replies]
-        text_ok = all(r["prompt_ids"] == tok.encode(t).ids
-                      and r["text"] == tok.decode(r["tokens"])
-                      for r, t in zip(replies[len(prompts):], texts))
-        log(f"[train-ckpt] (c) server on {a / 'best.ckpt'} with --tokenizer (step "
-            f"{meta['iter_num']}, up in {up_s:.1f} s): {len(prompts)} greedy token "
-            f"requests of {list(CKPT_PROMPTS)} prompt tokens and {len(texts)} greedy "
-            f"text requests of {[len(tok.encode(t).ids) for t in texts]} tokens, "
-            f"{CKPT_NEW} new tokens each, "
-            f"{'equal to' if got == want else 'DIFFERENT from'} the in-process engine on "
-            f"load_params_for_inference of the same directory (text prompts on "
-            f"encode(text)); replies' \"text\" "
-            f"{'equal to' if text_ok else 'DIFFERENT from'} decode(tokens), e.g. "
-            f"{replies[-1]['text'][:60]!r}; server launches "
-            f"{ {k: served[k] for k in ('decode_attention', 'fused_swiglu', 'fused_norm', 'fused_add_norm')} }")
-        expect(got == want, f"train-ckpt: served tokens {got} != engine tokens {want}")
-        expect(text_ok, "train-ckpt: a text reply's prompt or text is not the "
-               "tokenizer's")
-        log(f"[train-ckpt] uninterrupted run launches {counts}")
-        return counts
+            ckpt_serving(torch, params, mcfg, meta, tok, tok_dir, a, work, card)
+        except BaseException as e:  # noqa: BLE001 - raised on the main thread
+            serving["error"] = e
+
+    thread = threading.Thread(target=serve_side, daemon=True)
+    thread.start()
+    del params
+    # 2. the run killed once its step-N checkpoint is certified
+    t0 = time.perf_counter()
+    proc = start_worker("train", ckpt_argv(tok_dir, b), work / "b.json")
+    manifest = b / "best.steps" / step_dir_name(N) / "manifest.json"
+    while not manifest.exists() and proc.poll() is None \
+            and time.perf_counter() - t0 < CKPT_TIMEOUT_S:
+        time.sleep(0.01)
+    proc.send_signal(9)
+    out_b = finish_worker(proc, "train-ckpt killed run", rc=-9)
+    killed_at = max(r["iter"] for r in step_records(b / "metrics.jsonl"))
+    # 3. the resume
+    t0 = time.perf_counter()
+    proc = start_worker("train", ckpt_argv(tok_dir, b, "--resume-from",
+                                           "auto"), work / "c.json")
+    out_c = finish_worker(proc, "train-ckpt resumed run")
+    wall_c = time.perf_counter() - t0
+    resumed = re.search(r"resuming from (\S+)", out_c)
+    expect(resumed is not None, f"train-ckpt: the resume found no checkpoint:\n{out_c}")
+    resumed_step = read_meta(resumed.group(1))["iter_num"]
+    counts_c = json.loads((work / "c.json").read_text())
+    expect_train_launches(counts_c, 2 * N - resumed_step, "train-ckpt resumed run")
+    hits = [re.search(r"\[data\] cache hit: tokenizer and stream loaded in "
+                      r"([\d.]+) s", o) for o in (out_b, out_c)]
+    expect(all(hits), "train-ckpt: the killed or resumed run missed the cache")
+    # every checkpoint of both runs records the tokenizer's fingerprint
+    metas = [p.parent for p in a.rglob("meta.json")] + \
+        [p.parent for p in b.rglob("meta.json")]
+    bad_fp = [str(m) for m in metas if read_meta(str(m)).get(
+        "tokenizer_fingerprint") != fp]
+    expect(len(metas) >= 6 and not bad_fp, f"train-ckpt: checkpoints without the "
+           f"fingerprint {fp}: {bad_fp} (of {len(metas)})")
+    log(f"[train-ckpt] (a) the first run built the cache {entry.name} from "
+        f"--dataset synthetic (the stream equal to the in-process build), the "
+        f"killed and the resumed run loaded it; {len(metas)} checkpoints "
+        f"(best, last, step) all record tokenizer fingerprint {fp}")
+    # bit for bit: the train states (params, mu, nu, counts, step)
+    # serialize to the same bytes, and every step's loss is equal
+    ra, rb = step_records(a / "metrics.jsonl"), step_records(b / "metrics.jsonl")
+    la = {r["iter"]: r["loss"] for r in ra}
+    expect(sorted(la) == list(range(1, 2 * N + 1)), f"train-ckpt: steps {sorted(la)}")
+    unequal = [(r["iter"], r["loss"], la[r["iter"]]) for r in rb
+               if r["loss"] != la[r["iter"]]]
+    same = state_bytes(a / "best.last.ckpt") == state_bytes(b / "best.last.ckpt")
+    log(f"[train-ckpt] (a) killed at step {killed_at} (SIGKILL once "
+        f"step-{N} was certified), resumed from {resumed.group(1)} (step "
+        f"{resumed_step}) to {2 * N}: state.msgpack of the last checkpoints "
+        f"{'bit-equal' if same else 'DIFFERENT'}, {len(rb)} step losses of the "
+        f"killed and resumed runs against the uninterrupted run's, "
+        f"{len(unequal)} unequal {unequal[:4]}; losses "
+        f"{[round(la[i], 4) for i in sorted(la)]}")
+    expect(same and not unequal, "train-ckpt: the resumed run is not bit-equal "
+           "to the uninterrupted run")
+    # (d) costs on this machine's disk
+    save_ms = [r["ckpt_save_ms"] for r in ra if "ckpt_save_ms" in r]
+    blocked = [r["ckpt_blocked_ms"] for r in ra if r["iter"] % N == 0]
+    loop = [r["ckpt_loop_ms"] for r in ra if r["iter"] % N == 0]
+    best_s = [float(x) for x in re.findall(r"\[ckpt\] best checkpoint written to "
+                                           r"\S+ in ([\d.]+) s", out_a)]
+    last_s = [float(x) for x in re.findall(r"\[ckpt\] last checkpoint written to "
+                                           r"\S+ in ([\d.]+) s", out_a)]
+    step_dir = a / "best.steps" / step_dir_name(2 * N)
+    mb = sum(f.stat().st_size for f in step_dir.iterdir()) / 1e6
+    t0 = time.perf_counter()
+    verify_checkpoint(str(step_dir))
+    verify_s = time.perf_counter() - t0
+    log(f"[train-ckpt] (d) data on this host: corpus of {CKPT_DOCS} documents "
+        f"{miss.group(1)} s, BPE trained in {miss.group(2)} s, {miss.group(3)} "
+        f"tokens encoded in {miss.group(4)} s ({miss.group(5)} tokens/s); cache "
+        f"hits loaded in {hits[0].group(1)} s and {hits[1].group(1)} s; {card}")
+    log(f"[train-ckpt] (d) checkpoint {mb:.1f} MB (state.msgpack + meta + manifest, "
+        f"{n_params / 1e6:.1f} M params and two "
+        f"moments); async step saves {sorted({round(x / 1e3, 3) for x in save_ms})} s "
+        f"on the writer thread; the "
+        f"loop's time in each periodic save {[round(x, 1) for x in loop]} ms, of it "
+        f"blocked on the previous save {[round(x, 1) for x in blocked]} ms; best "
+        f"(inline) saves {best_s} s; last {last_s} s; verify "
+        f"{verify_s:.3f} s (beside (b) and (c)); load for inference {load_s:.3f} s; "
+        f"uninterrupted run {wall_a:.1f} s, resumed run {wall_c:.1f} s (process start "
+        f"included; (b) and (c) beside it); {card}")
+    thread.join(CKPT_TIMEOUT_S)
+    if "error" in serving:
+        raise serving["error"]
+    expect(not thread.is_alive(), "train-ckpt: (b) and (c) did not end")
+    log(f"[train-ckpt] uninterrupted run launches {counts}")
+    return {"counts": counts, "wall_a": wall_a}
+
+
+# the JAX trainer's metric families on its sidecar, less
+# train_compile_events_total (eager PyTorch has no compile cache);
+# train_heartbeat_age_seconds is labelled by peer and a single process
+# has no peer
+TRAIN_FAMILIES = ("build_info", "process_start_time_seconds", "train_step_seconds",
+                  "train_data_wait_seconds", "train_data_stall_ratio",
+                  "train_device_memory_peak_mb", "train_iterations_total",
+                  "train_anomaly_events_total", "ckpt_save_seconds",
+                  "ckpt_blocked_seconds", "ckpt_verify_failures_total",
+                  "ckpt_save_failures_total", "train_watchdog_fires_total")
+# kernels the profiler window must name (the port's hand-written ones)
+PROFILED_KERNELS = ("tm_fwd_mma", "tm_bwd_dq_mma", "tm_bwd_dk_mma", "tm_bwd_dv_mma",
+                    "swiglu_act_wgmma", "addnorm_bwd_warp")
+FULL_HANG_AT = 8     # (g): train_hang's iteration
+FULL_DEADLINE_S = 10
+
+
+def scrape_while_running(proc, url: str, want_iters: int) -> dict:
+    """Scrape ``url`` every 0.25 s while ``proc`` runs (a thread, so the
+    caller can drain the process's output); keep the first parse whose
+    ``train_iterations_total`` reaches ``want_iters``, and the last."""
+    from differential_transformer_replication_tpu_torch.obs import parse_exposition
+
+    got = {"first": None, "last": None, "n": 0}
+
+    def loop():
+        while proc.poll() is None:
+            try:
+                with urllib.request.urlopen(url, timeout=2) as r:
+                    types, samples = parse_exposition(r.read().decode())
+            except OSError:
+                time.sleep(0.25)
+                continue
+            vals = {(n, tuple(sorted(lab.items()))): v for n, lab, v in samples}
+            snap = {"types": types, "values": vals, "t": time.perf_counter()}
+            got["n"] += 1
+            got["last"] = snap
+            if got["first"] is None and \
+                    vals.get(("train_iterations_total", ()), 0) >= want_iters:
+                got["first"] = snap
+            time.sleep(0.25)
+
+    th = threading.Thread(target=loop, daemon=True)
+    th.start()
+    got["thread"] = th
+    return got
+
+
+def run_train_full(torch, card: str, work: Path, a_info: dict) -> None:
+    """Phase train-full, on train-ckpt's corpus, tokenizer (a cache hit)
+    and uninterrupted run a: (f) run a's command line with
+    ``corrupt_params@8`` and a guard that checks every step, rolls back
+    after 2 bad steps to a snapshot taken every 3, at most once, plus the
+    sidecar, the span trace, the profiler window, the watchdog and a
+    heartbeat: one rollback to iteration 6, the final state byte-equal to
+    a's, a live /metrics scrape, the traces, lambda rows; (g) run a's
+    command line with ``nan@3`` and ``train_hang@8`` under a 10 s step
+    deadline: exit 113, the hang report, one skipped step, a step-6
+    checkpoint that resumes."""
+    import socket
+
+    import numpy as np
+
+    from differential_transformer_replication_tpu_torch.obs.introspect import (
+        effective_diff_lambda,
+    )
+    from differential_transformer_replication_tpu_torch.train.checkpoint import (
+        load_params_for_inference,
+        read_meta,
+        resolve_resume_auto,
+    )
+    from differential_transformer_replication_tpu_torch.train.optim import leaves
+    from differential_transformer_replication_tpu_torch.train.ckpt_writer import (
+        step_dir_name,
+    )
+    from differential_transformer_replication_tpu_torch.train.watchdog import (
+        HANG_EXIT_CODE,
+    )
+    from differential_transformer_replication_tpu_torch.train.__main__ import (
+        build_parser,
+        config_from_args,
+    )
+
+    N, L, tools = CKPT_N, RECIPE["n_layer"], Path(__file__).resolve().parent / "tools"
+    a, tok_dir = work / "a", work / "tok"
+    ra = step_records(a / "metrics.jsonl")
+    la = {r["iter"]: r["loss"] for r in ra}
+    counts_a = json.loads((work / "a.json").read_text())
+    med_a = statistics.median(r["step_time_ms"] for r in ra if r["iter"] > 1)
+
+    # (f) rollback and observability
+    f = work / "f"
+    f.mkdir()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    argv = ckpt_argv(tok_dir, f, "--faults", "corrupt_params@8",
+                     "--anomaly-check-interval", "1", "--anomaly-rollback-after", "2",
+                     "--anomaly-snapshot-interval", "3", "--anomaly-max-rollbacks", "1",
+                     "--metrics-port", str(port), "--trace-path", str(f / "trace.json"),
+                     "--profile-dir", str(f / "profile"), "--step-deadline-s", "60",
+                     "--heartbeat-dir", str(f / "hb"))
+    # (g) runs beside (f) on the card (its output drained on a thread):
+    # the layer's own cost is train/obs_bench.py's, A B B A in one process
+    g = work / "g"
+    g.mkdir()
+    argv_g = ckpt_argv(tok_dir, g, "--faults", f"nan@3,train_hang@{FULL_HANG_AT}",
+                       "--step-deadline-s", str(FULL_DEADLINE_S))
+    t0 = time.perf_counter()
+    proc = start_worker("train", argv, work / "f.json")
+    proc_g = start_worker("train", argv_g, work / "g.json",
+                          env={"DTX_TRAIN_HANG_S": "120"})
+    done_g = {}
+
+    def finish_g():
+        try:
+            finish_worker(proc_g, "train-full (g)", rc=HANG_EXIT_CODE)
+        except BaseException as e:  # noqa: BLE001 - raised on the main thread
+            done_g["error"] = e
+        done_g["wall"] = time.perf_counter() - t0
+
+    thread_g = threading.Thread(target=finish_g, daemon=True)
+    thread_g.start()
+    scrape = scrape_while_running(proc, f"http://127.0.0.1:{port}/metrics", 11)
+    try:
+        out_f = finish_worker(proc, "train-full (f)")
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        thread_g.join(CKPT_TIMEOUT_S)
+    wall_f = time.perf_counter() - t0
+    scrape["thread"].join(5)
+    counts_f = json.loads((work / "f.json").read_text())
+    rolls = re.findall(r"\[anomaly\] (\d+) consecutive bad steps at iter (\d+): "
+                       r"rolling back to iter (\d+)", out_f)
+    expect(rolls == [("2", "10", "6")], f"train-full (f): rollbacks {rolls}, expected "
+           "one, at iter 10 to iter 6")
+    rf = step_records(f / "metrics.jsonl")
+    last_f = {r["iter"]: r for r in rf}
+    expect([r["iter"] for r in rf] == [*range(1, 10), *range(7, 2 * N + 1)],
+           f"train-full (f): step records {[r['iter'] for r in rf]}")
+    unequal = [(i, last_f[i]["loss"], la[i]) for i in la if last_f[i]["loss"] != la[i]]
+    same = state_bytes(f / "best.last.ckpt") == state_bytes(a / "best.last.ckpt")
+    expect(not unequal and same, f"train-full (f): not bit-equal to run a: losses "
+           f"{unequal}, state.msgpack {'equal' if same else 'DIFFERENT'}")
+    expect([r["rollbacks"] for r in rf] == [0] * 9 + [1] * 6
+           and [r["skipped_steps"] for r in rf] == [0] * 8 + [1] + [0] * 6,
+           f"train-full (f): rollbacks {[r['rollbacks'] for r in rf]}, skipped "
+           f"{[r['skipped_steps'] for r in rf]}")
+    # 9 + 1 rolled back + 6 replayed steps launched their backward kernels
+    expect_train_launches(counts_f, 2 * N + 4, "train-full (f)")
+    # the live scrape
+    first, last = scrape["first"], scrape["last"]
+    expect(first is not None, f"train-full (f): no scrape past 11 iterations "
+           f"({scrape['n']} scrapes)")
+    missing = [n for n in TRAIN_FAMILIES if n not in first["types"]]
+    expect(not missing, f"train-full (f): /metrics lacks {missing}")
+    v = first["values"]
+    iters = v[("train_iterations_total", ())]
+    expect(11 <= iters <= len(rf)
+           and v[("train_anomaly_events_total", (("kind", "rollback"),))] == 1
+           and v[("train_anomaly_events_total", (("kind", "skip"),))] == 1
+           and v[("train_watchdog_fires_total", ())] == 0,
+           f"train-full (f): scraped counters {v}")
+    expect(last["values"][("train_iterations_total", ())] <= len(rf),
+           "train-full (f): the last scrape counts more iterations than records")
+    # the span trace
+    events = json.loads((f / "trace.json").read_text())
+    spans = {e["name"] for e in events if e.get("ph") == "X"}
+    expect({"data_wait", "dispatch", "eval", "ckpt_snapshot", "block"} <= spans,
+           f"train-full (f): span names {spans}")
+    # the introspection rows against the plain lambdas of the final state
+    intro = [r for r in map(json.loads, (f / "metrics.jsonl").read_text().splitlines())
+             if r.get("record") == "introspection"]
+    expect([r["iter"] for r in intro] == [N, 2 * N]
+           and all(f"lambda_l{k}" in intro[-1] for k in range(1, L + 1)),
+           f"train-full (f): introspection rows {[r['iter'] for r in intro]}")
+    params, _, meta = load_params_for_inference(str(f / "best.last.ckpt"), device="cpu")
+    state_mib = 3 * sum(t.numel() * 4 for t in leaves(params)) / 2 ** 20  # fp32 p, mu, nu
+    lam = [float(effective_diff_lambda(blk["attn"], k))
+           for k, blk in enumerate(params["blocks"], 1)]
+    lam_err = max(abs(intro[-1][f"lambda_l{k}"] - lam[k - 1]) for k in range(1, L + 1))
+    expect(meta["iter_num"] == 2 * N and lam_err <= 1e-6,
+           f"train-full (f): lambdas {lam} against the row's (max error {lam_err})")
+    # the repo's own readers of metrics.jsonl
+    rep = subprocess.run([sys.executable, str(tools / "metrics_report.py"),
+                          str(a / "metrics.jsonl"), "--check",
+                          "--require-loss-decrease"], capture_output=True, text=True)
+    expect(rep.returncode == 0, f"train-full: metrics_report --check on run a: "
+           f"{rep.stdout[-2000:]} {rep.stderr[-2000:]}")
+    rep_f = subprocess.run([sys.executable, str(tools / "metrics_report.py"),
+                            str(f / "metrics.jsonl"), "--check",
+                            "--require-loss-decrease", "--max-skipped", "1",
+                            "--max-rollbacks", "1"], capture_output=True, text=True)
+    expect(rep_f.returncode == 1
+           and "non-finite loss values in the stream" in rep_f.stdout + rep_f.stderr
+           and "did not decrease" not in rep_f.stdout + rep_f.stderr
+           and "rollbacks >" not in rep_f.stdout + rep_f.stderr,
+           f"train-full (f): metrics_report --check: rc {rep_f.returncode} "
+           f"{rep_f.stdout[-2000:]} {rep_f.stderr[-2000:]}")
+    summary_f = json.loads(rep_f.stdout.splitlines()[0])
+    lam_rep = subprocess.run([sys.executable, str(tools / "lambda_report.py"),
+                              str(f / "metrics.jsonl"), "--ascii"],
+                             capture_output=True, text=True)
+    expect(lam_rep.returncode == 0 and "lambda" in lam_rep.stdout.lower(),
+           f"train-full (f): lambda_report: rc {lam_rep.returncode} "
+           f"{lam_rep.stdout[-2000:]} {lam_rep.stderr[-2000:]}")
+    # the profiler window names the hand-written kernels
+    traces = sorted((f / "profile").glob("*.json"))
+    exported = re.search(r"Profiler trace written to \S+ \(([\d.]+) MB\) in ([\d.]+) s",
+                         out_f)
+    expect(len(traces) == 1 and exported is not None,
+           f"train-full (f): profiler traces {traces}")
+    raw = traces[0].read_bytes()  # ~10^5-10^6 events: searched, not parsed
+    n_kernels = len(re.findall(rb'"cat": ?"kernel"', raw))
+    absent = [k for k in PROFILED_KERNELS if k.encode() not in raw]
+    expect(n_kernels > 0 and not absent, f"train-full (f): the profiler trace "
+           f"({n_kernels} kernel events) lacks {absent}")
+    del raw
+    beats = sorted(x.name for x in (f / "hb").iterdir())
+    expect(beats == ["hb-0.json"] and not (f / "best.hang_report.json").exists(),
+           f"train-full (f): heartbeat files {beats}, or the watchdog fired")
+    # the first pass (iterations 2-9: a guard read every step, a snapshot
+    # every 3) and the replay (7-12, inside the profiler window)
+    med_f = statistics.median(r["step_time_ms"] for r in rf[1:9])
+    med_replay = statistics.median(r["step_time_ms"] for r in rf[9:])
+    log(f"[train-full] (f) run a's command line + --faults corrupt_params@8, a guard "
+        f"checking every step (rollback after 2, snapshots every 3, at most 1), "
+        f"--metrics-port, --trace-path, --profile-dir, --step-deadline-s 60, "
+        f"--heartbeat-dir: rollback {rolls[0][1]} -> {rolls[0][2]}; the last record "
+        f"of each of the {len(la)} iterations equal to run a's loss and the final "
+        f"state.msgpack byte-equal to a's; {scrape['n']} /metrics scrapes while it "
+        f"ran, the first past 11 iterations: iterations {iters:.0f}, rollback "
+        f"{v[('train_anomaly_events_total', (('kind', 'rollback'),))]:.0f}, skip "
+        f"{v[('train_anomaly_events_total', (('kind', 'skip'),))]:.0f}, watchdog "
+        f"fires 0, {len(first['types'])} families (the JAX trainer's, less compile "
+        f"events); spans {sorted(spans)}; introspection rows at {[r['iter'] for r in intro]}, "
+        f"lambda_l1..l{L} {[round(x, 6) for x in lam]} within {lam_err:.2g} of the "
+        f"plain CPU lambdas of the final state; metrics_report --check exits 0 on run a, "
+        f"and on (f) exits 1 naming only the non-finite loss of the poisoned step "
+        f"(skipped {summary_f.get('skipped_steps_total')}, rollbacks "
+        f"{summary_f.get('rollbacks_total')}); lambda_report exits 0; profiler trace "
+        f"{traces[0].name}, {exported.group(1)} MB written in {exported.group(2)} s, "
+        f"{n_kernels} kernel events, {list(PROFILED_KERNELS)} among them; heartbeat "
+        f"{beats}, no watchdog fire")
+    log(f"[train-full] (f) against run a, with (g) running beside (f) on the card: "
+        f"median step_time_ms of iterations 2-9 {med_f:.1f} vs {med_a:.1f} "
+        f"({100 * (med_f / med_a - 1):+.1f}%), of the replayed 7-12 under the "
+        f"profiler {med_replay:.1f} ({100 * (med_replay / med_a - 1):+.1f}%); peak "
+        f"device memory {counts_f['peak_mib']:.0f} vs {counts_a['peak_mib']:.0f} MiB "
+        f"(both hold the guard's snapshot of the {state_mib:.0f} MiB train state: the "
+        f"default guard takes one at the loop's entry); wall {wall_f:.1f} vs "
+        f"{a_info['wall_a']:.1f} s (process start included); {card}")
+    log(f"[train-full] (f) step_time_ms by record {[round(r['step_time_ms']) for r in rf]}, "
+        f"run a's {[round(r['step_time_ms']) for r in ra]}; gpu_memory MiB at each log "
+        f"{[round(r.get('gpu_memory', 0)) for r in rf]}, run a's "
+        f"{[round(r.get('gpu_memory', 0)) for r in ra]}")
+
+    # (g) watchdog and poison
+    if "error" in done_g:
+        raise done_g["error"]
+    expect("wall" in done_g, "train-full (g): no end")
+    wall_g = done_g["wall"]
+    rows = [json.loads(x) for x in (g / "metrics.jsonl").read_text().splitlines()]
+    rg = [r for r in rows if "loss" in r and "record" not in r]
+    hang_rows = [r for r in rows if r.get("record") == "hang"]
+    report = json.loads((g / "best.hang_report.json").read_text())
+    expect(len(hang_rows) == 1 and report["iter"] == FULL_HANG_AT
+           and hang_rows[0]["iter"] == FULL_HANG_AT
+           and "train_stall" in report["threads"]["MainThread"],
+           f"train-full (g): hang rows {hang_rows}, report iter {report['iter']}")
+    start_8 = [r["ts"] for r in rg if r["iter"] == FULL_HANG_AT]
+    fire_after = hang_rows[0]["ts"] - start_8[-1]
+    expect([r["iter"] for r in rg] == list(range(1, FULL_HANG_AT + 1))
+           and FULL_DEADLINE_S <= fire_after <= FULL_DEADLINE_S + 5,
+           f"train-full (g): records {[r['iter'] for r in rg]}, fired "
+           f"{fire_after:.1f} s after iteration {FULL_HANG_AT} began")
+    expect([r["skipped_steps"] for r in rg] == [0, 0, 0] + [1] * (FULL_HANG_AT - 3)
+           and not math.isfinite(rg[3]["loss"]),
+           f"train-full (g): skipped {[r['skipped_steps'] for r in rg]}")
+    cfg_g = config_from_args(build_parser().parse_args(argv_g))
+    resolved, skipped = resolve_resume_auto(cfg_g)
+    expect(resolved is not None and Path(resolved).name == step_dir_name(N)
+           and read_meta(resolved)["iter_num"] == N,
+           f"train-full (g): resume auto picks {resolved} (skipped {skipped})")
+    log(f"[train-full] (g) run a's command line + --faults nan@3,train_hang@"
+        f"{FULL_HANG_AT} --step-deadline-s {FULL_DEADLINE_S} (DTX_TRAIN_HANG_S 120), "
+        f"beside (f): exit {proc_g.returncode} {fire_after:.1f} s after iteration {FULL_HANG_AT} "
+        f"began; hang report iter {report['iter']}, the main thread in train_stall, "
+        f"keys {sorted(report)}; one hang row; skipped_steps "
+        f"{[r['skipped_steps'] for r in rg]} (iteration 3's NaN skipped); resume auto "
+        f"picks and verifies {Path(resolved).name}; wall {wall_g:.1f} s (process "
+        f"start included); {card}")
 
 
 def main() -> int:
@@ -3271,11 +3732,16 @@ def main() -> int:
     ring_counts = phase("train-ring", run_train_ring, torch, card,
                         Path(__file__).resolve().parent / "build" / "chip_smoke"
                         / "tokens.npy")
-    phase("train-ring-e2e", run_train_ring_e2e, torch)
     phase("train-e2e", run_train_e2e, torch)
-    phase("train-ckpt", run_train_ckpt, torch, card)
-    import shutil
+    import tempfile
 
+    work = Path(tempfile.mkdtemp(prefix="train_ckpt_",
+                                 dir=Path(__file__).resolve().parent / "build"))
+    try:
+        a_info = phase("train-ckpt", run_train_ckpt, torch, card, work)
+        phase("train-full", run_train_full, torch, card, work, a_info)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     shutil.rmtree(SMOKE_BEST, ignore_errors=True)
     log(f"[done] phases {', '.join(f'{k} {v:.1f} s' for k, v in phases.items())}; "
         f"total {time.perf_counter() - t_all:.1f} s")

@@ -372,22 +372,10 @@ class MeshConfig:
 # carries over) but does not run yet: each must stay at its default, and
 # the ROADMAP item that brings it is named when it does not.
 LATER_SLICE_FIELDS = {
-    "anomaly_rollback_after": "guard rollback (ROADMAP Queue A: full trainer)",
-    "anomaly_max_rollbacks": "guard rollback (ROADMAP Queue A: full trainer)",
-    "anomaly_snapshot_interval": "guard rollback (ROADMAP Queue A: full trainer)",
-    "anomaly_check_interval": "guard rollback (ROADMAP Queue A: full trainer)",
-    "step_deadline_s": "the watchdog (ROADMAP Queue A: full trainer)",
-    "hang_report_path": "the watchdog (ROADMAP Queue A: full trainer)",
-    "heartbeat_dir": "the watchdog (ROADMAP Queue A: full trainer)",
-    "heartbeat_interval_s": "the watchdog (ROADMAP Queue A: full trainer)",
-    "heartbeat_timeout_s": "the watchdog (ROADMAP Queue A: full trainer)",
-    "profile_dir": "profiling (ROADMAP Queue A: full trainer)",
-    "profile_every": "profiling (ROADMAP Queue A: full trainer)",
-    "profile_spool_dir": "profiling (ROADMAP Queue A: full trainer)",
-    "metrics_port": "the obs sidecar (ROADMAP Queue A: full trainer)",
-    "trace_path": "the obs sidecar (ROADMAP Queue A: full trainer)",
-    "use_wandb": "the obs sidecar (ROADMAP Queue A: full trainer)",
-    "faults": "fault injection (ROADMAP Queue A: full trainer)",
+    "profile_every": "the continuous device profile (ROADMAP Queue A: "
+                     "tooling and analysis, obs/device_profile.py)",
+    "profile_spool_dir": "the continuous device profile (ROADMAP Queue A: "
+                         "tooling and analysis, obs/device_profile.py)",
     "dp_overlap": "parallelism (ROADMAP Queue A: parallelism)",
     "dp_bucket_layers": "parallelism (ROADMAP Queue A: parallelism)",
 }
@@ -458,7 +446,10 @@ class TrainConfig:
 
     # Anomaly guard: a step whose loss or grad norm is non-finite, or
     # whose grad norm exceeds spike_factor x the EMA of good steps' norms
-    # (armed after warmup_steps good steps), skips its update.
+    # (armed after warmup_steps good steps), skips its update; every
+    # check_interval steps the trainer reads the bad streak, rolls back
+    # to a snapshot (taken every snapshot_interval good steps) after
+    # rollback_after bad steps in a row, and aborts past max_rollbacks.
     anomaly_guard: bool = True
     anomaly_spike_factor: float = 4.0
     anomaly_ema_beta: float = 0.99
@@ -470,6 +461,10 @@ class TrainConfig:
 
     dp_overlap: bool = True
     dp_bucket_layers: int = 2
+    # The step watchdog (train/watchdog.py): an iteration hung past
+    # step_deadline_s (0 = off) writes the hang report and exits 113;
+    # heartbeats (parallel/heartbeat.py) every heartbeat_interval_s in
+    # heartbeat_dir, a peer silent past heartbeat_timeout_s trips it.
     step_deadline_s: float = 0.0
     hang_report_path: str = "auto"
     heartbeat_dir: Optional[str] = None
@@ -514,6 +509,17 @@ class TrainConfig:
 
         root, ext = os.path.splitext(self.checkpoint_path)
         return f"{root}.last{ext or '.ckpt'}"
+
+    def resolved_hang_report_path(self) -> str:
+        """The watchdog's hang report (train/watchdog.py); "auto" keys it
+        off checkpoint_path like the rotation tree, so concurrent runs in
+        one directory never clobber each other's post-mortem."""
+        if self.hang_report_path != "auto":
+            return self.hang_report_path
+        import os
+
+        root, _ = os.path.splitext(self.checkpoint_path)
+        return f"{root}.hang_report.json"
 
     def resolved_ckpt_dir(self) -> str:
         """Root of the rotating step-checkpoint tree

@@ -1,5 +1,6 @@
 """Parallelism of the port: the sequence-parallel ring (``mesh.py``: the
-process group; ``ring.py``: ring flash attention). Data, FSDP, tensor and
+process group; ``ring.py``: ring flash attention) and the liveness mesh
+between processes (``heartbeat.py``). Data, FSDP, tensor and
 pipeline parallelism and Ulysses are later slices (ROADMAP Queue A)."""
 
 from differential_transformer_replication_tpu_torch.parallel.mesh import (  # noqa: F401

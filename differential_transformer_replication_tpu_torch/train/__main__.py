@@ -34,6 +34,21 @@ with the backend named:
 card (the ring's K/V exchanges then go through host memory) or run on
 the CPU (``--device cpu``). ``--block-size`` must split into P equal
 shards.
+
+Resilience and observability, as ``train.py`` takes them:
+
+    python -m differential_transformer_replication_tpu_torch.train ... \
+        --step-deadline-s 300 --heartbeat-dir run/hb --metrics-port 9310 \
+        --trace-path run/train.trace.json --profile-dir run/profile
+
+arms the step watchdog (a hung iteration writes
+``<checkpoint stem>.hang_report.json`` and exits 113, which
+``tools/train_supervisor.py`` restarts as a hang), publishes heartbeats,
+serves the Prometheus registry at ``:9310/metrics``, writes the host span
+trace and a 5-step ``torch.profiler`` trace; ``--faults`` (or
+``DTX_FAULTS``) injects the chaos plans of ``utils/faults.py``. The guard
+rolls back to an in-memory snapshot after ``--anomaly-rollback-after``
+bad steps and aborts past ``--anomaly-max-rollbacks``.
 """
 
 from __future__ import annotations
@@ -51,31 +66,19 @@ from differential_transformer_replication_tpu_torch.config import (
 LATER_FLAGS = {
     "--attention-impl": "none: the port dispatches kernels by device",
     "--ffn-impl": "none: the port dispatches kernels by device",
-    "--loss-chunk": "the chunked loss (ROADMAP Queue A)",
-    "--remat": "remat (ROADMAP Queue A)",
-    "--remat-policy": "remat (ROADMAP Queue A)",
-    "--no-dp-overlap": "parallelism (ROADMAP Queue A)",
-    "--dp-bucket-layers": "parallelism (ROADMAP Queue A)",
-    "--anomaly-rollback-after": "the full trainer (ROADMAP Queue A)",
-    "--anomaly-max-rollbacks": "the full trainer (ROADMAP Queue A)",
-    "--anomaly-snapshot-interval": "the full trainer (ROADMAP Queue A)",
-    "--anomaly-check-interval": "the full trainer (ROADMAP Queue A)",
-    "--step-deadline-s": "the full trainer (ROADMAP Queue A)",
-    "--hang-report-path": "the full trainer (ROADMAP Queue A)",
-    "--heartbeat-dir": "the full trainer (ROADMAP Queue A)",
-    "--heartbeat-interval-s": "the full trainer (ROADMAP Queue A)",
-    "--heartbeat-timeout-s": "the full trainer (ROADMAP Queue A)",
-    "--faults": "the full trainer (ROADMAP Queue A)",
-    "--metrics-port": "the full trainer (ROADMAP Queue A)",
-    "--trace-path": "the full trainer (ROADMAP Queue A)",
-    "--wandb": "the full trainer (ROADMAP Queue A)",
-    "--profile-dir": "the full trainer (ROADMAP Queue A)",
-    "--profile-every": "the full trainer (ROADMAP Queue A)",
-    "--profile-spool-dir": "the full trainer (ROADMAP Queue A)",
-    "--data-parallel": "parallelism (ROADMAP Queue A)",
-    "--tensor-parallel": "parallelism (ROADMAP Queue A)",
-    "--fsdp": "parallelism (ROADMAP Queue A)",
-    "--pipeline-parallel": "parallelism (ROADMAP Queue A)",
+    "--loss-chunk": "the chunked loss (ROADMAP Queue A: chunked loss, item 7)",
+    "--remat": "remat (ROADMAP Queue A: remat, item 6)",
+    "--remat-policy": "remat (ROADMAP Queue A: remat, item 6)",
+    "--no-dp-overlap": "parallelism (ROADMAP Queue A: parallelism, item 9)",
+    "--dp-bucket-layers": "parallelism (ROADMAP Queue A: parallelism, item 9)",
+    "--data-parallel": "parallelism (ROADMAP Queue A: parallelism, item 9)",
+    "--tensor-parallel": "parallelism (ROADMAP Queue A: parallelism, item 9)",
+    "--fsdp": "parallelism (ROADMAP Queue A: parallelism, item 9)",
+    "--pipeline-parallel": "parallelism (ROADMAP Queue A: parallelism, item 9)",
+    "--profile-every": "the continuous device profile (ROADMAP Queue A: "
+                       "tooling and analysis, item 10)",
+    "--profile-spool-dir": "the continuous device profile (ROADMAP Queue A: "
+                           "tooling and analysis, item 10)",
 }
 
 
@@ -157,6 +160,57 @@ def build_parser() -> argparse.ArgumentParser:
                    default=t.anomaly_spike_factor)
     p.add_argument("--anomaly-warmup-steps", type=int,
                    default=t.anomaly_warmup_steps)
+    p.add_argument("--anomaly-rollback-after", type=int,
+                   default=t.anomaly_rollback_after,
+                   help="consecutive bad steps before rolling back to the "
+                        "good-state snapshot")
+    p.add_argument("--anomaly-max-rollbacks", type=int,
+                   default=t.anomaly_max_rollbacks,
+                   help="rollbacks before the run aborts")
+    p.add_argument("--anomaly-snapshot-interval", type=int,
+                   default=t.anomaly_snapshot_interval,
+                   help="iterations between good-state snapshots (pins one "
+                        "extra train state in device memory)")
+    p.add_argument("--anomaly-check-interval", type=int,
+                   default=t.anomaly_check_interval,
+                   help="iterations between reads of the guard's bad streak")
+    p.add_argument("--step-deadline-s", type=float, default=t.step_deadline_s,
+                   help="step-deadline watchdog (train/watchdog.py): a "
+                        "training iteration hung past this many seconds "
+                        "dumps the hang report and exits 113, the code "
+                        "tools/train_supervisor.py restarts as a hang; 0 = off")
+    p.add_argument("--hang-report-path", default=t.hang_report_path,
+                   help="watchdog post-mortem destination ('auto' = "
+                        "<checkpoint-path stem>.hang_report.json)")
+    p.add_argument("--heartbeat-dir", default=t.heartbeat_dir,
+                   help="liveness mesh (parallel/heartbeat.py): directory of "
+                        "per-process heartbeat files; a peer silent past "
+                        "--heartbeat-timeout-s trips the watchdog at once "
+                        "(coordinated abort); unset = off")
+    p.add_argument("--heartbeat-interval-s", type=float,
+                   default=t.heartbeat_interval_s,
+                   help="seconds between heartbeat publications")
+    p.add_argument("--heartbeat-timeout-s", type=float,
+                   default=t.heartbeat_timeout_s,
+                   help="peer silence past this = dead (coordinated abort); "
+                        "must exceed the interval")
+    p.add_argument("--faults", default=None,
+                   help="fault-injection spec for chaos testing, e.g. "
+                        "'sigkill@120,nan@50-52' (utils/faults.py; also via "
+                        "the DTX_FAULTS variable)")
+    p.add_argument("--metrics-port", type=int, default=t.metrics_port,
+                   help="serve the trainer's Prometheus registry at "
+                        "http://0.0.0.0:PORT/metrics from a sidecar thread "
+                        "(obs/http.py); 0 = off")
+    p.add_argument("--trace-path", default=t.trace_path,
+                   help="write a Chrome trace-event JSON of the train loop's "
+                        "host spans (data_wait/dispatch/block/eval/"
+                        "ckpt_snapshot; open in Perfetto) to this path")
+    p.add_argument("--wandb", action="store_true", help="enable the wandb sink")
+    p.add_argument("--profile-dir", default=t.profile_dir,
+                   help="capture a 5-step torch.profiler trace (CPU and CUDA "
+                        "activity, starting 10 iterations after this run "
+                        "begins or resumes) into this directory")
     # the port's own
     p.add_argument("--tokens", default=None,
                    help="an encoded token stream (.npy, 1-D integer ids below "
@@ -214,6 +268,20 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         ckpt_async=args.ckpt_async, ckpt_keep_last=args.ckpt_keep_last,
         ckpt_keep_every=args.ckpt_keep_every,
         allow_inexact_resume=args.allow_inexact_resume,
+        anomaly_rollback_after=args.anomaly_rollback_after,
+        anomaly_max_rollbacks=args.anomaly_max_rollbacks,
+        anomaly_snapshot_interval=args.anomaly_snapshot_interval,
+        anomaly_check_interval=args.anomaly_check_interval,
+        step_deadline_s=args.step_deadline_s,
+        hang_report_path=args.hang_report_path,
+        heartbeat_dir=args.heartbeat_dir,
+        heartbeat_interval_s=args.heartbeat_interval_s,
+        heartbeat_timeout_s=args.heartbeat_timeout_s,
+        faults=args.faults,
+        metrics_port=args.metrics_port,
+        trace_path=args.trace_path,
+        use_wandb=args.wandb,
+        profile_dir=args.profile_dir,
     )
 
 

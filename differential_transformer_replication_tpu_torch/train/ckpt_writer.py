@@ -31,9 +31,8 @@ A copy of the JAX package's ``train/ckpt_writer.py`` (which imports no
 jax): the same files, names and order of writes, so a checkpoint tree
 either package writes verifies in the other. It imports only the stdlib
 at module scope. Fault points (``ckpt_write``, ``ckpt_fsync``,
-``ckpt_manifest``, ``ckpt_gc``, ``ckpt_hang``) are looked up lazily in
-the port's own ``utils.faults``, which the full trainer brings (ROADMAP
-Queue A); until then they do nothing.
+``ckpt_manifest``, ``ckpt_gc``, ``ckpt_hang``) fire from the port's own
+``utils.faults`` plan, looked up at the first point.
 """
 
 from __future__ import annotations
@@ -44,7 +43,6 @@ import os
 import queue
 import re
 import shutil
-import sys
 import threading
 import time
 from typing import Callable, List, Optional, Tuple
@@ -62,31 +60,20 @@ class CheckpointError(RuntimeError):
 
 
 def _faults():
-    """The process-wide fault-injection plan (the port's utils/faults.py),
-    resolved lazily; None while the port has no such module, and then
-    every fault point is inert."""
-    mod = sys.modules.get(
-        "differential_transformer_replication_tpu_torch.utils.faults"
-    )
-    if mod is not None:
-        return mod
-    try:
-        from differential_transformer_replication_tpu_torch.utils import faults
-    except ImportError:  # not ported yet (ROADMAP Queue A: full trainer)
-        return None
+    """The process-wide fault-injection plan (the port's utils/faults.py,
+    stdlib only), resolved at the first fault point so this module
+    imports only the stdlib at module scope; inert until armed."""
+    from differential_transformer_replication_tpu_torch.utils import faults
+
     return faults
 
 
 def _fault_check(point: str) -> None:
-    f = _faults()
-    if f is not None:
-        f.check(point)
+    _faults().check(point)
 
 
 def _fault_stall(point: str) -> None:
-    f = _faults()
-    if f is not None and hasattr(f, "stall"):
-        f.stall(point)
+    _faults().stall(point)
 
 
 # -- atomic + durable file I/O --------------------------------------------

@@ -27,6 +27,7 @@ import torch
 
 from differential_transformer_replication_tpu_torch.config import ModelConfig, TrainConfig
 from differential_transformer_replication_tpu_torch.models import init_model, model_forward
+from differential_transformer_replication_tpu_torch.obs.introspect import group_norms
 from differential_transformer_replication_tpu_torch.ops.dropout import fold_seed
 from differential_transformer_replication_tpu_torch.parallel.mesh import all_reduce_sum_
 from differential_transformer_replication_tpu_torch.parallel.ring import use_ring
@@ -90,17 +91,26 @@ def make_grad_fn(cfg: TrainConfig, group=None):
     order) of one optimizer step's ``grad_acc_steps`` microbatches,
     averaged; microbatch i runs with ``fold_seed(seed, i)``. With a
     sequence group, of the global batch: each rank computes its shard's
-    terms and one all-reduce sums them."""
+    terms and one all-reduce sums them.
+
+    ``batch["poison"]``, present only while ``nan`` faults are armed
+    (utils/faults.py), is one scale per microbatch: microbatch i's loss
+    is multiplied by it before its backward, so NaN there makes that loss
+    and every gradient NaN (the failure the guard must catch) and 1.0
+    changes nothing."""
     model_cfg = cfg.resolved_model()
 
     def grads_fn(params: dict, batch: dict, seed=None):
         plist = leaves(params)
         xs, ys = shard_tokens(batch["x"], group), shard_tokens(batch["y"], group)
+        poison = batch.get("poison")
         n_micro = xs.shape[0]
         grads = loss = None
         for i in range(n_micro):
             si = None if seed is None else fold_seed(seed, i)
             li = loss_fn(params, xs[i], ys[i], model_cfg, si, group)
+            if poison is not None:
+                li = li * float(poison[i])
             gi = torch.autograd.grad(li, plist)
             if grads is None:
                 grads, loss = list(gi), li.detach()
@@ -119,19 +129,6 @@ def make_grad_fn(cfg: TrainConfig, group=None):
         return loss, grads
 
     return grads_fn
-
-
-def group_norms(tree) -> dict:
-    """Global L2 norm per layer group (a copy of the JAX package's
-    obs/introspect.py:group_norms): embeddings, each block, the final
-    norm + lm head."""
-    embed = {k: v for k, v in tree.items() if k in ("tok_emb", "pos_emb")}
-    head = {k: v for k, v in tree.items() if k in ("ln_f", "lm_head")}
-    return {
-        "embed": global_norm(leaves(embed)),
-        "blocks": torch.stack([global_norm(leaves(b)) for b in tree["blocks"]]),
-        "head": global_norm(leaves(head)),
-    }
 
 
 def make_step_fn(cfg: TrainConfig, group=None):

@@ -86,10 +86,11 @@ def _card() -> str:
 
 def profile(model: str = "diff", block_size: int = 512, micro_batch: int = BATCH,
             dropout: float = 0.0, sequence_parallel: int = 1,
-            dist_backend: str = "nccl") -> dict:
+            dist_backend: str = "nccl", n_layer: int = 8) -> dict:
     """The breakdown of one train step of this configuration (see the
-    module docstring); returns the JSON record (on rank 0; None on the
-    other ranks of a sequence-parallel run)."""
+    module docstring; ``n_layer`` cuts the recipe's depth); returns the
+    JSON record (on rank 0; None on the other ranks of a
+    sequence-parallel run)."""
     if not torch.cuda.is_available():
         raise SystemExit("step_profile needs a CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -97,15 +98,15 @@ def profile(model: str = "diff", block_size: int = 512, micro_batch: int = BATCH
              else None)
     try:
         return _profile(model, block_size, micro_batch, dropout, sequence_parallel,
-                        group)
+                        group, n_layer)
     finally:
         if group is not None:
             destroy_sequence_group(group)
 
 
-def _profile(model, block_size, micro_batch, dropout, P, group):
+def _profile(model, block_size, micro_batch, dropout, P, group, n_layer):
     cfg = TrainConfig(model=ModelConfig(model=model, block_size=block_size,
-                                        dropout=dropout),
+                                        dropout=dropout, n_layer=n_layer),
                       mesh=MeshConfig(sequence=P),
                       micro_batch_size=micro_batch, warmup_iters=2,
                       learning_rate=1e-3, sampler="replacement")

@@ -25,9 +25,18 @@ and the last state on every exit, SIGTERM included
 continues a run: its state, its best val loss and the epoch sampler's
 position, recorded in consumed windows so a resume under another global
 batch stays exact where it can (``elastic_resume_info``); a tokenizer
-whose fingerprint differs from the checkpoint's is refused. Rollback,
-the watchdog and the obs sidecar belong to later slices (ROADMAP Queue
-A).
+whose fingerprint differs from the checkpoint's is refused.
+
+Resilience and observability, in the JAX trainer's order and under its
+names: the anomaly guard's rollback to an on-device snapshot and its
+abort (train/anomaly.py; a non-finite state never replaces the last
+checkpoint), the fault plan (utils/faults.py: ``cfg.faults`` or
+``DTX_FAULTS``), the step watchdog (train/watchdog.py: a hung iteration
+writes its report and exits 113) and heartbeats (parallel/heartbeat.py:
+a silent ring rank trips every other rank's watchdog), the metrics
+registry and its Prometheus sidecar, the host span trace (obs/), the
+per-layer lambda records at each eval (obs/introspect.py) and a 5-step
+``torch.profiler`` window (utils/profiling.py).
 
 ``cfg.mesh.sequence`` = P > 1 trains sequence-parallel (JAX's sharded
 path on a ``sequence`` mesh): the process is one of P ranks started by
@@ -41,7 +50,6 @@ left on exit and on error.
 from __future__ import annotations
 
 import dataclasses
-import json
 import math
 import os
 import signal
@@ -68,15 +76,34 @@ from differential_transformer_replication_tpu_torch.data.tokenizer import (
     train_bpe_tokenizer,
 )
 from differential_transformer_replication_tpu_torch.models import check_card_envelope
+from differential_transformer_replication_tpu_torch.obs import (
+    NOOP_TRACER,
+    Registry,
+    SpanTracer,
+    set_build_info,
+    start_metrics_server,
+)
+from differential_transformer_replication_tpu_torch.obs.introspect import (
+    lambda_record,
+    make_param_summary,
+)
 from differential_transformer_replication_tpu_torch.ops.dropout import fold_seed
+from differential_transformer_replication_tpu_torch.parallel.heartbeat import (
+    FileHeartbeatTransport,
+    Heartbeat,
+)
 from differential_transformer_replication_tpu_torch.parallel.mesh import (
     all_reduce_sum_,
     destroy_sequence_group,
     init_sequence_group,
 )
+from differential_transformer_replication_tpu_torch.train.anomaly import (
+    TrainingDivergedError,
+    restore_state,
+    snapshot_state,
+)
 from differential_transformer_replication_tpu_torch.train.checkpoint import (
     AsyncCheckpointWriter,
-    config_hash,
     elastic_resume_info,
     load_checkpoint,
     read_meta,
@@ -84,10 +111,22 @@ from differential_transformer_replication_tpu_torch.train.checkpoint import (
     save_checkpoint,
     save_step_checkpoint,
 )
+from differential_transformer_replication_tpu_torch.train.metrics import (
+    MetricLogger,
+    config_hash,
+    device_memory_mb,
+)
+from differential_transformer_replication_tpu_torch.train.optim import leaves
 from differential_transformer_replication_tpu_torch.train.step import (
     create_train_state,
     make_eval_many,
     make_train_step,
+)
+from differential_transformer_replication_tpu_torch.train.watchdog import StepWatchdog
+from differential_transformer_replication_tpu_torch.utils import faults
+from differential_transformer_replication_tpu_torch.utils.profiling import (
+    ProfilerWindow,
+    Throughput,
 )
 
 
@@ -99,26 +138,6 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("device 'cuda' was asked for but CUDA is not "
                            "available; pass device='cpu' for a CPU run")
     return device
-
-
-class Throughput:
-    """Rolling tokens/sec between ``update`` calls (a copy of the JAX
-    package's ``utils/profiling.py`` ``Throughput``): ``update`` takes the
-    cumulative token count and returns the rate since the previous call,
-    None on the first call, when there is no interval yet."""
-
-    def __init__(self) -> None:
-        self._last_t: Optional[float] = None
-        self._last_tokens = 0
-
-    def update(self, total_tokens: int) -> Optional[float]:
-        now = time.perf_counter()
-        rate = None
-        if self._last_t is not None and now > self._last_t:
-            rate = (total_tokens - self._last_tokens) / (now - self._last_t)
-        self._last_t = now
-        self._last_tokens = total_tokens
-        return rate
 
 
 def estimate_loss(eval_many, params: dict, train_ds: TokenWindows,
@@ -275,63 +294,6 @@ def build_data(cfg: TrainConfig, tokens_path: Optional[str], device, say=print,
             TokenWindows(val_tokens, block, device))
 
 
-class MetricLogger:
-    """stdout + metrics.jsonl with the JAX trainer's record keys: a
-    ``run_header``, per-log ``iter``/``loss``/``learning_rate``/
-    ``gpu_memory``/``tokens_per_sec`` (none on the first log) + extras
-    (``step_time_ms``, the mean iteration wall since the last log;
-    ``data_wait_frac``, the batch draw's share of it; ``skipped_steps``),
-    per-eval ``train_loss``/``val_loss``; every record carries ``ts``."""
-
-    def __init__(self, cfg: TrainConfig, device: torch.device,
-                 primary: bool = True):
-        self._jsonl = None
-        self._cuda = device.type == "cuda"
-        self._primary = primary  # only the primary rank prints and writes
-        if cfg.metrics_path and primary:
-            self._jsonl = open(cfg.metrics_path, "a", buffering=1)
-            self._emit({
-                "record": "run_header",
-                "config_hash": config_hash(cfg.to_dict()),
-                "torch_version": torch.__version__,
-                "device_kind": (torch.cuda.get_device_name(device)
-                                if self._cuda else "cpu"),
-                "device_count": torch.cuda.device_count() if self._cuda else 1,
-                "process_count": cfg.mesh.n_devices,
-                "model": cfg.resolved_model().model,
-            })
-
-    def _emit(self, payload: dict) -> None:
-        payload.setdefault("ts", round(time.time(), 3))
-        if self._jsonl is not None:
-            self._jsonl.write(json.dumps(payload) + "\n")
-
-    def say(self, msg: str) -> None:
-        if self._primary:
-            print(msg, flush=True)
-
-    def log_step(self, iter_num: int, loss: float, lr: float,
-                 tokens_per_sec: Optional[float], extra: dict) -> None:
-        self.say(f"iter {iter_num}: loss {loss:.4f}, lr {lr:.2e}")
-        payload = {"iter": iter_num, "loss": loss, "learning_rate": lr}
-        if self._cuda:  # omitted on the CPU, never a fake 0.0
-            payload["gpu_memory"] = torch.cuda.memory_allocated() / 1024 ** 2
-        if tokens_per_sec is not None:
-            payload["tokens_per_sec"] = round(tokens_per_sec, 1)
-        payload.update(extra)
-        self._emit(payload)
-
-    def log_eval(self, iter_num: int, train_loss: float, val_loss: float) -> None:
-        self.say(f"step {iter_num}: train loss {train_loss:.4f}, val loss "
-                 f"{val_loss:.4f}")
-        self._emit({"iter": iter_num, "train_loss": train_loss,
-                    "val_loss": val_loss})
-
-    def close(self) -> None:
-        if self._jsonl is not None:
-            self._jsonl.close()
-
-
 def resolve_resume(cfg: TrainConfig, say=print, tokenizer=None) -> tuple:
     """The resume half of the JAX trainer's start: ``resume_from="auto"``
     becomes the newest checkpoint that verifies (or None: a fresh start),
@@ -340,8 +302,10 @@ def resolve_resume(cfg: TrainConfig, say=print, tokenizer=None) -> tuple:
     recorded vocabulary and fingerprint, or, for a pre-encoded stream,
     ``cfg.vocab_size`` against the recorded vocabulary). Returns (cfg
     with the resolved ``resume_from``, whether the load must still
-    verify the digests, the elastic-resume facts or None)."""
+    verify the digests, the elastic-resume facts or None, the number of
+    checkpoints ``auto`` skipped because they failed verification)."""
     verify = True
+    skipped = ()
     if cfg.resume_from == "auto":
         resolved, skipped = resolve_resume_auto(cfg)
         for p, why in skipped:
@@ -378,7 +342,7 @@ def resolve_resume(cfg: TrainConfig, say=print, tokenizer=None) -> tuple:
                 f"{recorded_vocab} for {cfg.resume_from} — resume with the "
                 "token stream and vocab_size the checkpoint was trained with"
             )
-    return cfg, verify, info
+    return cfg, verify, info, len(skipped)
 
 
 def train(cfg: TrainConfig, tokens_path: Optional[str] = None, device="cuda",
@@ -386,9 +350,13 @@ def train(cfg: TrainConfig, tokens_path: Optional[str] = None, device="cuda",
     """Run the recipe for ``cfg.max_iters`` steps on ``device``, on the
     pre-encoded stream at ``tokens_path`` or, when it is None, on
     ``cfg.dataset`` through the BPE (:func:`build_data`). Returns
-    (final train state, per-step metrics list). With ``cfg.mesh.sequence``
+    (final train state, per-step metrics list: the steps of the state's
+    own history, rolled-back steps left out). With ``cfg.mesh.sequence``
     > 1 this process is one rank of the ring: ``dist_backend`` (``nccl``
     or ``gloo``) must be named, and ``device`` picks cuda or cpu (gloo)."""
+    # chaos-test fault injection (utils/faults.py); inert unless armed
+    # by cfg.faults or the DTX_FAULTS variable
+    faults.arm(cfg.faults)
     group = None
     if cfg.mesh.sequence > 1:
         if dist_backend is None:
@@ -398,6 +366,7 @@ def train(cfg: TrainConfig, tokens_path: Optional[str] = None, device="cuda",
     elif dist_backend is not None:
         raise ValueError(f"dist backend {dist_backend!r} without sequence "
                          "parallelism: set mesh.sequence > 1")
+    logger = None
     try:
         if group is not None and group.size != cfg.mesh.sequence:
             raise ValueError(f"{group.size} ranks joined, mesh.sequence is "
@@ -410,164 +379,391 @@ def train(cfg: TrainConfig, tokens_path: Optional[str] = None, device="cuda",
         cfg = cfg.replace(vocab_size=vocab_size)
         tok_fp = (None if tokenizer is None
                   else tokenizer_fingerprint(tokenizer))
-        cfg, verify, info = resolve_resume(cfg, say, tokenizer)
+        cfg, verify, info, n_skipped = resolve_resume(cfg, say, tokenizer)
         logger = MetricLogger(cfg, device, primary)
-        try:
-            return _train_loop(cfg, (train_ds, val_ds), tok_fp, device, group,
-                               logger, verify, info)
-        finally:
-            logger.close()
+        return _train_loop(cfg, (train_ds, val_ds), tok_fp, device, group,
+                           logger, verify, info, n_skipped)
     finally:
+        if logger is not None:
+            logger.finish()  # a no-op when the loop's closers ran
         if group is not None:
             destroy_sequence_group(group)
 
 
-def _snapshot(tree):
-    """A device copy of a train state (the deferred best checkpoint): the
-    optimizer updates the live tensors in place."""
-    if isinstance(tree, dict):
-        return {k: _snapshot(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_snapshot(v) for v in tree]
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().clone()
-    return tree
+def _instruments(registry: Registry) -> dict:
+    """The trainer's metric families, under the JAX trainer's names and
+    help texts (one fleet scrape reads both packages). The JAX trainer's
+    ``train_compile_events_total`` has no counterpart: eager PyTorch has no
+    compile cache."""
+    return {
+        "step": registry.histogram(
+            "train_step_seconds",
+            "Wall time of one train-loop iteration, host-observed "
+            "(data wait + dispatch + any blocking).",
+        ),
+        "data": registry.histogram(
+            "train_data_wait_seconds",
+            "Host time assembling the next batch before dispatch.",
+        ),
+        "stall": registry.gauge(
+            "train_data_stall_ratio",
+            "Fraction of recent loop wall time spent waiting on data.",
+        ),
+        "mem": registry.gauge(
+            "train_device_memory_peak_mb",
+            "High-water mark of allocated device memory (MB).",
+        ),
+        "iters": registry.counter(
+            "train_iterations_total", "Optimizer steps completed."
+        ),
+        "anomaly": registry.counter(
+            "train_anomaly_events_total",
+            "Anomaly-guard interventions (train/anomaly.py).",
+            labelnames=("kind",),
+        ),
+        "ckpt_save": registry.histogram(
+            "ckpt_save_seconds",
+            "Wall time of one checkpoint save job (serialize + write + "
+            "certify + GC), wherever it ran (writer thread or inline).",
+        ),
+        "ckpt_blocked": registry.histogram(
+            "ckpt_blocked_seconds",
+            "Train-loop wall time blocked on checkpointing per periodic "
+            "snapshot: back-pressure waiting for a still-in-flight async "
+            "save (steady state ~0; growing = the disk cannot keep up "
+            "with ckpt_interval).",
+        ),
+        "ckpt_verify_failures": registry.counter(
+            "ckpt_verify_failures_total",
+            "Checkpoints that failed integrity verification (digest "
+            "mismatch, truncation, missing manifest) and were skipped "
+            "during resume resolution.",
+        ),
+        "ckpt_save_failures": registry.counter(
+            "ckpt_save_failures_total",
+            "Periodic step-checkpoint saves that failed (the run continues "
+            "but is less protected; a growing count means the checkpoint "
+            "storage is broken).",
+        ),
+        "watchdog_fires": registry.counter(
+            "train_watchdog_fires_total",
+            "Step-deadline watchdog fires (train/watchdog.py): a training "
+            "iteration hung past step_deadline_s, or a peer's heartbeat "
+            "silence coordinated an abort. The process exits with the "
+            "hang code right after incrementing, so any scrape showing "
+            ">0 is the post-mortem of a dying incarnation.",
+        ),
+        "heartbeat_age": registry.gauge(
+            "train_heartbeat_age_seconds",
+            "Seconds since each peer process's heartbeat record last "
+            "changed, judged by this host's monotonic clock "
+            "(parallel/heartbeat.py). Healthy: ~heartbeat_interval_s; "
+            "growing toward heartbeat_timeout_s: that peer is dying.",
+            labelnames=("peer",),
+        ),
+    }
+
+
+def _hang_report_path(cfg: TrainConfig, group) -> str:
+    """The watchdog's report: ``cfg.resolved_hang_report_path()`` on rank
+    0; the other ranks of a ring (which share the host and its paths)
+    write ``<stem>.rank<r><ext>`` beside it."""
+    path = cfg.resolved_hang_report_path()
+    if group is None or group.rank == 0:
+        return path
+    root, ext = os.path.splitext(path)
+    return f"{root}.rank{group.rank}{ext}"
 
 
 def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
                 device: torch.device, group, logger: MetricLogger,
                 resume_verify: bool = True,
-                resume_info: Optional[dict] = None) -> tuple:
+                resume_info: Optional[dict] = None,
+                ckpt_auto_skipped: int = 0) -> tuple:
     model_cfg = cfg.resolved_model()
     if device.type == "cuda":
         check_card_envelope(model_cfg, "train")
     train_ds, val_ds = data
     primary = group is None or group.rank == 0
-    gen = torch.Generator(device=device)
-    gen.manual_seed(cfg.seed)
-    state = create_train_state(gen, cfg, device)
-    best_val_loss = float("inf")
-    if cfg.resume_from:
-        state, best_val_loss = load_checkpoint(cfg.resume_from, cfg, state,
-                                               verify=resume_verify)
-        logger.say(f"Resumed from {cfg.resume_from} at iter {state['step']}")
-    train_step = make_train_step(cfg, group)
-    eval_many = make_eval_many(cfg, group)
-    batch_windows = cfg.grad_acc_steps * cfg.micro_batch_size
+    rank = 0 if group is None else group.rank
 
-    # the epoch sampler's position is kept in WINDOWS CONSUMED, from the
-    # checkpoint's record, so a resume under another global batch size
-    # fast-forwards the permutation to the right place
-    start_iter = state["step"]
-    if resume_info is not None and resume_info["consumed_windows"] is not None:
-        consumed_base = resume_info["consumed_windows"]
-    else:
-        consumed_base = start_iter * batch_windows
+    # -- observability (obs/): the registry always exists; the sidecar
+    # exporter and the Chrome span trace are opt-in (primary rank only)
+    registry = Registry()
+    set_build_info(registry, role="trainer", config_hash=config_hash(cfg),
+                   version=torch.__version__)
+    obs = _instruments(registry)
+    if ckpt_auto_skipped:
+        obs["ckpt_verify_failures"].inc(ckpt_auto_skipped)
+    tracer = (SpanTracer(cfg.trace_path, process_name="trainer")
+              if cfg.trace_path and primary else NOOP_TRACER)
+    metrics_server = None
+    watchdog = heartbeat = ckpt_writer = None
+    profiler = ProfilerWindow(None, 0)
+    prev_handler = None
+    state = metrics = None
+    iter_num = start_iter = 0
+    history = []
+    best_val_loss = float("inf")
+    best_snapshot = None  # a deferred best state not yet on disk
+    best_snapshot_iter = 0
+    in_step = False  # an exception inside a step may leave it half-applied
+    crashed = False
+    batch_windows = cfg.grad_acc_steps * cfg.micro_batch_size
+    consumed_base = 0
+    last_ckpt_path = cfg.resolved_last_checkpoint_path()
 
     def consumed_at(it: int) -> int:
         """Windows consumed once iteration ``it`` of this run is done."""
         return consumed_base + (it - start_iter) * batch_windows
 
-    if cfg.sampler == "epoch":
-        # every window once per epoch; with a sequence group every rank
-        # draws the same offsets
-        perm = EpochPermutation(len(train_ds), cfg.seed)
-        perm.epoch, perm.cursor = divmod(consumed_at(start_iter), len(train_ds))
-
-        def draw_batch():
-            offs = perm.take(batch_windows)
-            return train_ds.batches(offs.reshape(cfg.grad_acc_steps,
-                                                 cfg.micro_batch_size))
-    else:
-        data_rng = np.random.default_rng(cfg.seed)
-
-        def draw_batch():
-            return train_ds.random_batches(data_rng, cfg.micro_batch_size,
-                                           cfg.grad_acc_steps)
-    eval_rng = np.random.default_rng(cfg.seed + 1)
-    # the dropout seed of step i is fold_seed(seed + 2, i): JAX folds the
-    # iteration into PRNGKey(seed + 2); eval runs without one
-    dropout_seed = cfg.seed + 2 if model_cfg.dropout > 0.0 else None
-    tokens_per_step = batch_windows * model_cfg.block_size
-
-    # rotating step checkpoints (train/ckpt_writer.py): the host snapshot
-    # on the loop, serialization, I/O, certification and GC on the
-    # writer's thread when ckpt_async; only the primary rank writes
-    ckpt_root = cfg.resolved_ckpt_dir()
-    ckpt_writer = None
-    ckpt_last_save_s = None  # the sync path's last save, as writer.last_save_s
-    if cfg.ckpt_interval > 0:
-        if cfg.ckpt_keep_last < 1:
-            raise ValueError("ckpt_keep_last must be >= 1 when ckpt_interval "
-                             f"> 0, got {cfg.ckpt_keep_last}")
-        if cfg.ckpt_async and primary:
-            ckpt_writer = AsyncCheckpointWriter()
-    last_ckpt_path = cfg.resolved_last_checkpoint_path()
-
-    # SIGTERM asks for a graceful stop; the last checkpoint is written on
-    # every exit. A ring's ranks agree at log boundaries (one all-reduce
-    # of the flags) so they all leave the loop at the same step.
-    stop_requested = {"flag": False}
-
-    def _on_sigterm(signum, frame):
-        del signum, frame
-        stop_requested["flag"] = True
-
-    def _agreed_stop(it: int) -> bool:
-        if group is None:
-            return stop_requested["flag"]
-        if it % cfg.log_interval:
-            return False
-        flag = torch.tensor([1.0 if stop_requested["flag"] else 0.0],
-                            device=device)
-        return bool(all_reduce_sum_(flag, group).item() > 0)
-
-    prev_handler = None
     try:
-        prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
-    except ValueError:
-        pass  # not the main thread: SIGTERM keeps its handler
+        if cfg.metrics_port > 0 and primary:
+            metrics_server = start_metrics_server(registry, cfg.metrics_port)
+            logger.say(f"[obs] Prometheus sidecar: http://0.0.0.0:"
+                       f"{metrics_server.server_address[1]}/metrics")
+        gen = torch.Generator(device=device)
+        gen.manual_seed(cfg.seed)
+        state = create_train_state(gen, cfg, device)
+        if cfg.resume_from:
+            state, best_val_loss = load_checkpoint(cfg.resume_from, cfg, state,
+                                                   verify=resume_verify)
+            logger.say(f"Resumed from {cfg.resume_from} at iter {state['step']}")
+        train_step = make_train_step(cfg, group)
+        eval_many = make_eval_many(cfg, group)
 
-    history = []
-    where = (f"{device}" if group is None else
-             f"{group.size} ranks over {group.backend} (rank 0 on {device})")
-    logger.say(f"Starting training on {where} ({model_cfg.model}, "
-               f"{model_cfg.n_layer} layers, width {model_cfg.n_embd}, "
-               f"{model_cfg.n_head} heads, {cfg.sampler} sampler)")
-    t0 = time.time()
-    throughput = Throughput()
-    tokens_seen = 0
-    # wall time of each iteration (batch draw included) and the batch
-    # draw's share of it, summed since the last log, as the JAX trainer
-    # keeps them; the loop's time in periodic saves likewise
-    acc_step = acc_data = 0.0
-    acc_n = 0
-    ckpt_acc_blocked = ckpt_acc_loop = 0.0
-    iter_num = state["step"]
-    metrics = None  # the last step's; gates the rescue save
-    best_snapshot = None  # a deferred best state not yet on disk
-    best_snapshot_iter = 0
-    last_best_write = time.monotonic() - cfg.checkpoint_min_interval_s
-    in_step = False  # an exception inside a step may leave it half-applied
-    crashed = False
-    try:
+        # the epoch sampler's position is kept in WINDOWS CONSUMED, from
+        # the checkpoint's record, so a resume under another global batch
+        # size fast-forwards the permutation to the right place
+        iter_num = start_iter = state["step"]
+        if resume_info is not None and resume_info["consumed_windows"] is not None:
+            consumed_base = resume_info["consumed_windows"]
+        else:
+            consumed_base = start_iter * batch_windows
+
+        if cfg.sampler == "epoch":
+            # every window once per epoch; with a sequence group every rank
+            # draws the same offsets
+            perm = EpochPermutation(len(train_ds), cfg.seed)
+            perm.epoch, perm.cursor = divmod(consumed_at(start_iter),
+                                             len(train_ds))
+
+            def draw_batch():
+                offs = perm.take(batch_windows)
+                return train_ds.batches(offs.reshape(cfg.grad_acc_steps,
+                                                     cfg.micro_batch_size))
+        else:
+            data_rng = np.random.default_rng(cfg.seed)
+
+            def draw_batch():
+                return train_ds.random_batches(data_rng, cfg.micro_batch_size,
+                                               cfg.grad_acc_steps)
+        eval_rng = np.random.default_rng(cfg.seed + 1)
+        # the dropout seed of step i is fold_seed(seed + 2, i): JAX folds
+        # the iteration into PRNGKey(seed + 2); eval runs without one
+        dropout_seed = cfg.seed + 2 if model_cfg.dropout > 0.0 else None
+        tokens_per_step = batch_windows * model_cfg.block_size
+        # the lambda-evolution + per-group-norm record at every eval
+        # (obs/introspect.py; tools/lambda_report.py)
+        param_summary = make_param_summary(model_cfg)
+
+        # -- resilience (train/watchdog.py, parallel/heartbeat.py): host
+        # daemon threads. The watchdog also exists when only the
+        # heartbeat is configured: a dead peer trips it directly.
+        wd_warm = False  # True once this process's first iteration ran
+        hb_iter = {"i": start_iter}  # the host iteration the beats carry
+        if cfg.step_deadline_s > 0 or cfg.heartbeat_dir:
+            watchdog = StepWatchdog(
+                cfg.step_deadline_s,
+                report_path=_hang_report_path(cfg, group),
+                sink=logger.log_record,
+                fires_counter=obs["watchdog_fires"],
+                context={"process_index": lambda: rank},
+            )
+        if cfg.heartbeat_dir:
+            def _peer_dead(peer: int, age: float) -> None:
+                # a silent peer means the next collective wedges every
+                # surviving rank: fire the watchdog now
+                watchdog.trip(
+                    f"peer process {peer} heartbeat silent for {age:.1f}s "
+                    f"(timeout {cfg.heartbeat_timeout_s:.1f}s): "
+                    "coordinated abort"
+                )
+
+            heartbeat = Heartbeat(
+                FileHeartbeatTransport(cfg.heartbeat_dir),
+                process_index=rank,
+                num_processes=1 if group is None else group.size,
+                interval_s=cfg.heartbeat_interval_s,
+                timeout_s=cfg.heartbeat_timeout_s,
+                iter_supplier=lambda: hb_iter["i"],
+                on_dead=_peer_dead,
+                age_gauge=obs["heartbeat_age"],
+            )
+            watchdog.add_context(heartbeat_ages=heartbeat.peer_ages)
+
+        # the guard's rollback target: seeded at loop entry so one always
+        # exists, refreshed every anomaly_snapshot_interval good
+        # iterations; it pins one more train state in device memory
+        guard_on = cfg.anomaly_guard
+        nan_fault_armed = faults.nan_armed()
+        rollbacks = 0
+        good_snapshot = snapshot_state(state) if guard_on else None
+        snapshot_iter = iter_num
+
+        # rotating step checkpoints (train/ckpt_writer.py): the host
+        # snapshot on the loop, serialization, I/O, certification and GC
+        # on the writer's thread when ckpt_async; only the primary writes
+        ckpt_root = cfg.resolved_ckpt_dir()
+        ckpt_last_save_s = None  # the sync path's last save
+        if cfg.ckpt_interval > 0:
+            if cfg.ckpt_keep_last < 1:
+                raise ValueError("ckpt_keep_last must be >= 1 when "
+                                 f"ckpt_interval > 0, got {cfg.ckpt_keep_last}")
+            if cfg.ckpt_async and primary:
+                ckpt_writer = AsyncCheckpointWriter(
+                    save_hist=obs["ckpt_save"],
+                    blocked_hist=obs["ckpt_blocked"])
+
+        # a short steady-state window past the first steps, relative to
+        # wherever this run starts (fresh or resumed)
+        if primary:
+            profiler = ProfilerWindow(cfg.profile_dir, start=start_iter + 10,
+                                      device=device)
+
+        # SIGTERM asks for a graceful stop; the last checkpoint is written
+        # on every exit. A ring's ranks agree at log boundaries (one
+        # all-reduce of the flags) so they all leave the loop at the same
+        # step.
+        stop_requested = {"flag": False}
+
+        def _on_sigterm(signum, frame):
+            del signum, frame
+            stop_requested["flag"] = True
+
+        def _agreed_stop(it: int) -> bool:
+            if group is None:
+                return stop_requested["flag"]
+            if it % cfg.log_interval:
+                return False
+            flag = torch.tensor([1.0 if stop_requested["flag"] else 0.0],
+                                device=device)
+            return bool(all_reduce_sum_(flag, group).item() > 0)
+
+        try:
+            prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
+        except ValueError:
+            pass  # not the main thread: SIGTERM keeps its handler
+
+        where = (f"{device}" if group is None else
+                 f"{group.size} ranks over {group.backend} (rank 0 on {device})")
+        logger.say(f"Starting training on {where} ({model_cfg.model}, "
+                   f"{model_cfg.n_layer} layers, width {model_cfg.n_embd}, "
+                   f"{model_cfg.n_head} heads, {cfg.sampler} sampler)")
+        t0 = time.time()
+        throughput = Throughput()
+        tokens_seen = 0
+        # wall time of each iteration (batch draw included) and the batch
+        # draw's share of it, summed since the last log, as the JAX
+        # trainer keeps them; the loop's time in periodic saves likewise
+        acc_step = acc_data = 0.0
+        acc_n = 0
+        ckpt_acc_blocked = ckpt_acc_loop = 0.0
+        # the last skip total seen: the exported counter moves only by
+        # positive deltas (a rollback rewinds the guard's total)
+        prev_skipped = 0
+        last_best_write = time.monotonic() - cfg.checkpoint_min_interval_s
         while iter_num < cfg.max_iters:
             if _agreed_stop(iter_num):
                 logger.say(f"SIGTERM received: stopping at iter {iter_num}")
                 break
+            faults.fire(iter_num)  # injected raise/SIGTERM/SIGKILL points
+            if watchdog is not None and wd_warm:
+                # armed across the step and the syncs that follow it; the
+                # first iteration of this process runs unarmed (its first
+                # launches build and load the kernels: slow, not hung)
+                watchdog.arm(iter_num)
+            # chaos stalls land inside the armed window
+            faults.train_stall(iter_num)
+            if faults.corrupt_params_at(iter_num):
+                # simulated state corruption: NaN the first param leaf;
+                # skipping batches cannot cure it, only a rollback can
+                with torch.no_grad():
+                    leaves(state["params"])[0].mul_(float("nan"))
             t_iter = time.perf_counter()
-            batch = draw_batch()
+            with tracer.span("data_wait", iter=iter_num):
+                batch = draw_batch()
             data_wait = time.perf_counter() - t_iter
+            if nan_fault_armed:
+                # in every batch while armed, as the JAX trainer does
+                scale = np.nan if faults.poison_at(iter_num) else 1.0
+                batch["poison"] = np.full((cfg.grad_acc_steps,), scale,
+                                          np.float32)
             seed = (None if dropout_seed is None
                     else fold_seed(dropout_seed, iter_num))
             in_step = True
-            state, metrics = train_step(state, batch, seed)
+            with tracer.span("dispatch", iter=iter_num):
+                state, metrics = train_step(state, batch, seed)
             in_step = False
+            iter_num += 1
+            hb_iter["i"] = iter_num
+            profiler.step(iter_num)
+            tokens_seen += tokens_per_step
+
+            if guard_on and iter_num % cfg.anomaly_check_interval == 0:
+                # every rank holds the same streak (the guard's inputs are
+                # all-reduced), so the ranks agree with no collective
+                with tracer.span("block", what="anomaly_streak"):
+                    streak = metrics["bad_streak"]
+                if streak == 0:
+                    if iter_num - snapshot_iter >= cfg.anomaly_snapshot_interval:
+                        good_snapshot = snapshot_state(state)
+                        snapshot_iter = iter_num
+                elif streak >= cfg.anomaly_rollback_after:
+                    rollbacks += 1
+                    if rollbacks > cfg.anomaly_max_rollbacks:
+                        raise TrainingDivergedError(
+                            f"{rollbacks - 1} rollback(s) did not recover "
+                            f"the run: still {streak} consecutive bad "
+                            f"steps at iter {iter_num}. Aborting without "
+                            "overwriting the last good checkpoint."
+                        )
+                    logger.say(
+                        f"[anomaly] {streak} consecutive bad steps at iter "
+                        f"{iter_num}: rolling back to iter {snapshot_iter} "
+                        f"(rollback {rollbacks}/{cfg.anomaly_max_rollbacks})"
+                    )
+                    if watchdog is not None:
+                        # the restore is a legitimate slow section
+                        watchdog.disarm()
+                        wd_warm = True
+                    # an in-memory resume: copy the snapshot back (it is
+                    # kept for a later rollback) and rewind the epoch
+                    # sampler; the replacement sampler simply continues
+                    state = restore_state(state, good_snapshot)
+                    del history[snapshot_iter - start_iter:]
+                    iter_num = snapshot_iter
+                    hb_iter["i"] = iter_num
+                    metrics = None
+                    if cfg.sampler == "epoch":
+                        perm.epoch, perm.cursor = divmod(
+                            consumed_at(iter_num), len(train_ds))
+                    continue
+
+            if watchdog is not None:
+                # the slow tails below (checkpoint write, eval) run
+                # disarmed; only the step and its syncs are deadlined
+                watchdog.disarm()
+                wd_warm = True
+
+            # host-observed accounting of the iterations that stand (a
+            # rolled-back one was discarded with its state)
             step_wall = time.perf_counter() - t_iter
             metrics["step_time_ms"] = 1e3 * step_wall
             history.append(metrics)
-            iter_num += 1
-            tokens_seen += tokens_per_step
+            obs["step"].observe(step_wall)
+            obs["data"].observe(data_wait)
+            obs["iters"].inc()
             acc_step += step_wall
             acc_data += data_wait
             acc_n += 1
@@ -575,31 +771,49 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
                     and primary:
                 # a failed periodic save does not stop a healthy run: it
                 # is printed and counted on the step's record
-                t_ck = time.perf_counter()
-                try:
-                    blocked = save_step_checkpoint(
-                        ckpt_root, state, best_val_loss, cfg, tok_fp,
-                        writer=ckpt_writer, keep_last=cfg.ckpt_keep_last,
-                        keep_every=cfg.ckpt_keep_every,
-                        consumed_windows=consumed_at(iter_num))
-                except Exception as e:  # noqa: BLE001
-                    metrics["ckpt_save_failed"] = 1
-                    logger.say(f"[ckpt] step-checkpoint save failed at iter "
-                               f"{iter_num} (continuing): {e!r}")
-                else:
-                    loop_s = time.perf_counter() - t_ck
-                    if ckpt_writer is None:
-                        ckpt_last_save_s = loop_s
-                    ckpt_acc_blocked += blocked
-                    ckpt_acc_loop += loop_s
-                    metrics["ckpt_blocked_ms"] = 1e3 * blocked
-                    metrics["ckpt_loop_ms"] = 1e3 * loop_s
+                with tracer.span("ckpt_snapshot", iter=iter_num):
+                    t_ck = time.perf_counter()
+                    try:
+                        blocked = save_step_checkpoint(
+                            ckpt_root, state, best_val_loss, cfg, tok_fp,
+                            writer=ckpt_writer, keep_last=cfg.ckpt_keep_last,
+                            keep_every=cfg.ckpt_keep_every,
+                            consumed_windows=consumed_at(iter_num))
+                    except Exception as e:  # noqa: BLE001
+                        obs["ckpt_save_failures"].inc()
+                        metrics["ckpt_save_failed"] = 1
+                        logger.say(f"[ckpt] step-checkpoint save failed at "
+                                   f"iter {iter_num} (continuing): {e!r}")
+                    else:
+                        loop_s = time.perf_counter() - t_ck
+                        if ckpt_writer is None:
+                            ckpt_last_save_s = loop_s
+                            obs["ckpt_save"].observe(loop_s)
+                        ckpt_acc_blocked += blocked
+                        ckpt_acc_loop += loop_s
+                        metrics["ckpt_blocked_ms"] = 1e3 * blocked
+                        metrics["ckpt_loop_ms"] = 1e3 * loop_s
             if iter_num % cfg.log_interval == 0:
                 extra = {}
-                if cfg.anomaly_guard:
-                    extra["skipped_steps"] = metrics["skipped"]
+                if watchdog is not None:
+                    watchdog.arm(iter_num)
+                with tracer.span("block", what="log_metrics"):
+                    if guard_on:
+                        skipped = metrics["skipped"]
+                        extra["skipped_steps"] = skipped
+                        extra["rollbacks"] = rollbacks
+                        if skipped > prev_skipped:
+                            obs["anomaly"].inc(skipped - prev_skipped,
+                                               kind="skip")
+                        # after a rollback the guard's total rewinds;
+                        # re-base so replayed skips count as new events
+                        prev_skipped = skipped
+                        obs["anomaly"].set(rollbacks, kind="rollback")
+                if watchdog is not None:
+                    watchdog.disarm()
                 extra["step_time_ms"] = round(1e3 * acc_step / max(acc_n, 1), 3)
                 extra["data_wait_frac"] = round(acc_data / max(acc_step, 1e-9), 4)
+                obs["stall"].set(extra["data_wait_frac"])
                 if cfg.ckpt_interval > 0:
                     # the loop's back-pressure waits and its whole time in
                     # periodic saves since the last log (snapshot
@@ -611,15 +825,26 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
                     if last_save_s is not None:
                         extra["ckpt_save_ms"] = round(1e3 * last_save_s, 3)
                     ckpt_acc_blocked = ckpt_acc_loop = 0.0
+                mem = device_memory_mb(device)  # one query: gauge + record
+                if mem is not None:
+                    obs["mem"].set_max(mem)
                 acc_step = acc_data = 0.0
                 acc_n = 0
                 logger.log_step(iter_num, metrics["loss"],
                                 metrics["learning_rate"],
-                                throughput.update(tokens_seen), extra)
+                                throughput.update(tokens_seen), extra,
+                                gpu_memory_mb=mem)
             if iter_num % cfg.eval_interval == 0:
-                losses = estimate_loss(eval_many, state["params"], train_ds,
-                                       val_ds, cfg, eval_rng)
+                with tracer.span("eval", iter=iter_num):
+                    losses = estimate_loss(eval_many, state["params"],
+                                           train_ds, val_ds, cfg, eval_rng)
                 logger.log_eval(iter_num, losses["train"], losses["val"])
+                with tracer.span("block", what="introspection"):
+                    summ = param_summary(state["params"])
+                    record = {"record": "introspection", "iter": iter_num,
+                              **lambda_record(summ, model_cfg,
+                                              metrics.get("grad_norm_groups"))}
+                logger.log_record(record)
                 if losses["val"] < best_val_loss:
                     best_val_loss = losses["val"]
                     logger.say(f"Saving best model with val loss: "
@@ -641,36 +866,84 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
                         best_snapshot = None
                         last_best_write = time.monotonic()
                     else:
-                        best_snapshot = _snapshot(state)
+                        best_snapshot = snapshot_state(state)
                         best_snapshot_iter = iter_num
         dt = time.time() - t0
-        seen = len(history) * tokens_per_step
-        logger.say(f"Training done: {seen} tokens in {dt:.1f}s "
-                   f"({seen / max(dt, 1e-9):.0f} tokens/sec)")
+        logger.say(f"Training done: {tokens_seen} tokens in {dt:.1f}s "
+                   f"({tokens_seen / max(dt, 1e-9):.0f} tokens/sec)")
     except BaseException:
         crashed = True
         raise
     finally:
         try:
-            if primary:
+            errors = _close_all(
+                crashed, logger,
+                ("the watchdog", watchdog and watchdog.close),
+                ("the heartbeat", heartbeat and heartbeat.close),
+                ("draining the checkpoint writer",
+                 ckpt_writer and (lambda: ckpt_writer.close(600.0))),
+                ("the profiler window", profiler.close),
+                ("the metrics log", logger.finish),
+                ("the span trace", lambda: _close_tracer(tracer, logger)),
+                ("the metrics sidecar",
+                 metrics_server and (lambda: _stop_server(metrics_server))),
+            )
+            if primary and state is not None:
                 _finish_checkpoints(
-                    cfg, ckpt_writer, state, metrics, best_val_loss, in_step,
-                    last_ckpt_path, consumed_at(iter_num), best_snapshot,
+                    cfg, state, metrics, best_val_loss, in_step,
+                    None if ckpt_writer is not None and not ckpt_writer.drained
+                    else last_ckpt_path,
+                    consumed_at(iter_num), best_snapshot,
                     consumed_at(best_snapshot_iter), crashed, logger, tok_fp)
+            if errors:
+                raise errors[0]
         finally:
             if prev_handler is not None:
                 signal.signal(signal.SIGTERM, prev_handler)
     return state, history
 
 
-def _finish_checkpoints(cfg: TrainConfig, writer, state: dict, metrics,
+def _close_tracer(tracer, logger: MetricLogger) -> None:
+    tracer.close()
+    if tracer.path:
+        logger.say(f"[obs] span trace written to {tracer.path}")
+
+
+def _stop_server(server) -> None:
+    server.shutdown()
+    server.server_close()
+
+
+def _close_all(crashed: bool, logger: MetricLogger, *closers) -> list:
+    """Run each ``(what, fn)`` closer in order (a None ``fn`` is skipped),
+    every one whatever the others did, in the JAX trainer's order: the
+    watchdog first (the saves after it are legitimately slow), then the
+    heartbeat, the checkpoint writer's drain, the profiler, the logger,
+    the tracer, the sidecar. A failure is printed; the failures are
+    returned, for the caller to raise once the saves are done, unless the
+    run is already failing with its own exception."""
+    errors = []
+    for what, fn in closers:
+        if fn is None:
+            continue
+        try:
+            fn()
+        except Exception as e:  # noqa: BLE001
+            print(f"shutdown: {what} failed: {e!r}", flush=True)
+            if not crashed:
+                errors.append(e)
+    return errors
+
+
+def _finish_checkpoints(cfg: TrainConfig, state: dict, metrics,
                         best_val_loss: float, in_step: bool,
                         last_path: Optional[str], consumed: int, best_snapshot,
                         best_consumed: int, crashed: bool,
                         logger: MetricLogger,
                         tok_fp: Optional[str] = None) -> None:
-    """The exit's saves, in the JAX trainer's order: drain the async
-    writer (an in-flight step checkpoint lands and certifies first), the
+    """The exit's saves, in the JAX trainer's order, after the checkpoint
+    writer drained (an in-flight step checkpoint lands and certifies
+    first; a writer that would not drain leaves ``last_path`` None): the
     last checkpoint, then a deferred best checkpoint. A failure raises,
     except while another exception is already unwinding the run: it is
     then printed, and the run's own exception goes on."""
@@ -683,8 +956,6 @@ def _finish_checkpoints(cfg: TrainConfig, writer, state: dict, metrics,
             logger.say(f"[ckpt] {what} failed while the run was failing: "
                        f"{e!r}")
 
-    if writer is not None:
-        run("draining the checkpoint writer", writer.close, 600.0)
     run("the last-checkpoint save", _save_last, cfg, state, metrics,
         best_val_loss, in_step, last_path, consumed, logger, tok_fp)
     if best_snapshot is not None:
@@ -702,8 +973,9 @@ def _save_last(cfg: TrainConfig, state: dict, metrics, best_val_loss: float,
     SIGTERM, an exception between steps), so ``--resume-from`` continues
     from the latest step. Not written when there is no path, when the
     last loss is not finite (a diverged state must not replace a good
-    one), or when an exception left a step half-applied: the port updates
-    params in place, so that state is no step's."""
+    one: the guard's abort leaves the previous checkpoint as it was), or
+    when an exception left a step half-applied: the port updates params
+    in place, so that state is no step's."""
     if not path:
         return
     if in_step:

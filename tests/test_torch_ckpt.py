@@ -24,7 +24,6 @@ import subprocess
 import sys
 import threading
 import time
-import types
 import urllib.request
 from pathlib import Path
 
@@ -56,6 +55,7 @@ from differential_transformer_replication_tpu_torch.train import checkpoint as c
 from differential_transformer_replication_tpu_torch.train import ckpt_writer as cw
 from differential_transformer_replication_tpu_torch.train import state_codec
 from differential_transformer_replication_tpu_torch.train.step import create_train_state
+from differential_transformer_replication_tpu_torch.utils import faults as tfaults
 
 REPO = Path(__file__).resolve().parents[1]
 TINY = dict(vocab_size=61, n_embd=32, n_head=2, n_layer=2, block_size=16,
@@ -580,41 +580,22 @@ def test_server_on_a_checkpoint_gives_the_jax_engines_greedy_tokens(tmp_path):
 # the durability cases of tests/test_ckpt.py, against both ckpt_writers
 # ---------------------------------------------------------------------------
 
-PORT_FAULTS = "differential_transformer_replication_tpu_torch.utils.faults"
-
-
-class _PortFaultsStub(types.ModuleType):
-    """A stand-in for the port's fault plan (utils/faults.py is a later
-    item), placed where ckpt_writer looks it up."""
-
-    class FaultInjected(RuntimeError):
-        pass
-
-    def __init__(self):
-        super().__init__(PORT_FAULTS)
-        self.points = set()
-
-    def check(self, point):
-        if point in self.points:
-            self.points.discard(point)
-            raise self.FaultInjected(point)
-
-
 @pytest.fixture(params=["jax", "port"])
-def side(request, monkeypatch):
-    """(ckpt_writer module, arm(point), the injected fault's type)."""
-    jfaults.reset()
-    if request.param == "jax":
-        yield jcw, jfaults.arm, jfaults.FaultInjected
-        jfaults.reset()
-        return
-    stub = _PortFaultsStub()
-    monkeypatch.setitem(sys.modules, PORT_FAULTS, stub)
-    yield cw, stub.points.add, stub.FaultInjected
+def side(request):
+    """(ckpt_writer module, arm(point), the injected fault's type): the
+    JAX package's writer and plan, or the port's writer and its own plan
+    (utils/faults.py, a copy)."""
+    faults = jfaults if request.param == "jax" else tfaults
+    faults.reset()
+    yield ((jcw, faults.arm, faults.FaultInjected) if request.param == "jax"
+           else (cw, faults.arm, faults.FaultInjected))
+    faults.reset()
 
 
 def test_port_fault_points_are_inert_without_a_fault_plan(tmp_path):
-    assert cw._faults() is None
+    tfaults.reset()
+    assert cw._faults() is tfaults  # the port's own plan, found
+    assert not tfaults.armed()
     cw.atomic_write(str(tmp_path / "f"), b"x")
     assert open(tmp_path / "f", "rb").read() == b"x"
 

@@ -80,7 +80,9 @@ def test_epoch_permutation_take_equals_jax_across_epochs(n, takes):
 
 def _record_draws(monkeypatch, trainer):
     """Swap the trainer's step for one that records each batch's x and
-    advances the state without computing: the draws are the subject."""
+    advances the state without computing: the draws are the subject. It
+    reports a good step to the guard (``skipped``, ``bad_streak``), which
+    the trainer reads for its rollback decision."""
     seen = []
 
     def fake_make_train_step(cfg, group=None):
@@ -88,7 +90,8 @@ def _record_draws(monkeypatch, trainer):
             seen.append(batch["x"].clone())
             state["step"] += 1
             state["opt_state"]["count"] += 1
-            return state, {"loss": 1.0, "learning_rate": 0.0, "skipped": 0}
+            return state, {"loss": 1.0, "learning_rate": 0.0, "skipped": 0,
+                           "bad_streak": 0}
         return step
 
     monkeypatch.setattr(trainer, "make_train_step", fake_make_train_step)

@@ -45,9 +45,15 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     assert len(mods) >= 15
     # the walk reaches every subpackage, the sequence-parallel ring included
-    for sub in ("ops", "models", "serving", "train", "parallel"):
+    for sub in ("ops", "models", "serving", "train", "parallel", "obs", "utils"):
         assert f"{PKG}.{sub}" in mods, sub
     assert {f"{PKG}.parallel.mesh", f"{PKG}.parallel.ring"} <= set(mods)
+    # the full trainer's modules: resilience and observability
+    assert {f"{PKG}.utils.faults", f"{PKG}.utils.profiling",
+            f"{PKG}.train.watchdog", f"{PKG}.train.metrics",
+            f"{PKG}.parallel.heartbeat", f"{PKG}.obs.registry",
+            f"{PKG}.obs.http", f"{PKG}.obs.spans",
+            f"{PKG}.obs.introspect"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -207,19 +207,20 @@ TASKS = {"rotate": task_rotate, "ring": task_ring, "wrappers": task_wrappers,
          "cli_corpus": task_cli_corpus}
 
 
-def run_ranks(task: str, P: int, d: Path, inputs: dict, timeout: float) -> list:
-    """Run ``task`` on P worker processes joined in ``d``; return each
-    rank's outputs. Every rank must exit 0 within ``timeout`` seconds, else
-    all are killed and this raises, so a deadlock fails a test instead of
-    hanging it."""
+def start_ranks(task: str, P: int, d: Path, inputs: dict, timeout: float,
+                env: dict = None) -> list:
+    """Run ``task`` on P worker processes joined in ``d`` (``env`` added
+    to each one's environment); return each rank's (exit code, output).
+    Every rank must end within ``timeout`` seconds, else all are killed
+    and this raises, so a deadlock fails a test instead of hanging it."""
     d.mkdir(parents=True, exist_ok=True)
     np.savez(d / "in.npz", **inputs)
     repo = Path(__file__).resolve().parents[1]
-    env = dict(os.environ, WORLD_SIZE=str(P), LOCAL_WORLD_SIZE=str(P),
-               OMP_NUM_THREADS="1", PYTHONPATH=str(repo))
+    base = dict(os.environ, WORLD_SIZE=str(P), LOCAL_WORLD_SIZE=str(P),
+                OMP_NUM_THREADS="1", PYTHONPATH=str(repo), **(env or {}))
     procs = [subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), task, str(d)],
-        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        env=dict(base, RANK=str(r), LOCAL_RANK=str(r)),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(P)]
     try:
@@ -229,9 +230,15 @@ def run_ranks(task: str, P: int, d: Path, inputs: dict, timeout: float) -> list:
             p.kill()
             p.communicate()
         raise AssertionError(f"{task}: the ranks did not finish within {timeout} s")
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        if p.returncode != 0:
-            raise AssertionError(f"{task} rank {r} exited {p.returncode}:\n{log}")
+    return [(p.returncode, log) for p, log in zip(procs, logs)]
+
+
+def run_ranks(task: str, P: int, d: Path, inputs: dict, timeout: float) -> list:
+    """:func:`start_ranks`, every rank exiting 0; return each rank's
+    outputs."""
+    for r, (rc, log) in enumerate(start_ranks(task, P, d, inputs, timeout)):
+        if rc != 0:
+            raise AssertionError(f"{task} rank {r} exited {rc}:\n{log}")
     return [dict(np.load(d / f"out{r}.npz")) for r in range(P)]
 
 
