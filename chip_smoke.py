@@ -92,8 +92,18 @@ these phases, each printing its own lines and its seconds:
    (micro-batch 8, routes resident + split), diff and control at T 512
    (micro-batch 32, fused), diff at T 8192 (micro-batch 2, tiled), all
    8 layers at recipe width; exact launch counts per route and step, a
-   falling loss on a repeated batch; then ``train/step_profile.py`` of
-   the diff T 512 (fused), T 2048 and T 8192 dropout steps;
+   falling loss on a repeated batch; then memory for compute: one
+   forward+backward of the diff recipe at T 8192 (micro-batch 2, tiled)
+   and T 2048 (micro-batch 8, split), dropout 0.1, unremat and under
+   each ``remat_policy``, loss and every gradient bit-equal to the
+   unremat step's, exact launches per policy (each block's forward
+   kernels once more under every policy but ``everything``), peak device
+   memory and ms beside the unremat step's; remat ``nothing`` with the
+   chunked loss (``loss_chunk`` 2048) at T 8192, and the chunked loss
+   alone at T 512 (micro-batch 32, dropout 0), against the dense loss
+   within stated bounds, each beside the dense step's peak and ms; then
+   ``train/step_profile.py`` of the diff T 512 (fused), T 2048 and T
+   8192 dropout steps;
    train-ring: sequence-parallel training through the ring (ring flash
    attention over P ranks, ``parallel/ring.py``): the trainer's command
    line under ``torch.distributed.run`` with ``--dist-backend gloo``, the
@@ -110,8 +120,10 @@ these phases, each printing its own lines and its seconds:
    fp32, loss and every gradient on the card (kernels) against the CPU
    (plain versions); again at T 640 through the head-major route;
    train-ring-e2e: one fp32 step of a 2-layer diff and control at recipe
-   width, T 1024, over P 2 and 4 gloo ranks on the card against the
-   single-card head-major step (loss, grads, updated params);
+   width, T 1024, and of the diff under remat ``nothing`` (the recompute
+   runs the ring's exchanges again in the backward), over P 2 and 4 gloo
+   ranks on the card against the same single-card head-major step (loss,
+   grads, updated params);
 7. train-ckpt: the default recipe from text, with checkpoints, through
    the command lines, each in a process of its own (``chip_smoke.py
    --cli-worker``: the trainer's, the server's or the sampler's ``main``
@@ -2039,6 +2051,7 @@ def run_train_hm(torch, card: str, tokens) -> dict:
                f"({before} -> {rep} -> {after})")
         del state, history, step
         torch.cuda.empty_cache()
+    run_hm_memory(torch, card)
     # where a dropout step's time goes (train/step_profile.py): the fused
     # route at T 512, the split and tiled routes at long context
     for T, B in ((512, 32), (2048, 8), (8192, 2)):
@@ -2054,6 +2067,184 @@ def run_train_hm(torch, card: str, tokens) -> dict:
             f"{prof['head_major_routes_per_step']}; top device ms/step: {top}")
         torch.cuda.empty_cache()
     return totals
+
+
+# ---------------------------------------------------------------------------
+# train-hm, continued: memory for compute. Remat (models/common.py:
+# remat_block) under each policy against the unremat step, bit for bit,
+# and the chunked loss (ops/losses.py:fused_linear_cross_entropy) against
+# the dense loss within its bounds, each beside the other's peak memory
+# and time. Its launches are counted and held here, apart from the
+# train-hm runs' counts above.
+# ---------------------------------------------------------------------------
+
+# (label, T, micro-batch): the tiled and the split route, both dropout 0.1
+REMAT_SHAPES = (("diff T=8192", 8192, 2), ("diff T=2048", 2048, 8))
+LOSS_CHUNK = 2048
+MEM_TIMED = 3          # timed forward+backward calls per variant
+# the chunked loss against the dense one: the same bf16 logits, fp32 sums
+# in another order (the loss); each chunk's dW rounded to bf16 before its
+# fp32 sum and d from softmax in place of exp(x - lse), carried through
+# the model's bf16 backward (every gradient, as test_torch_gpu.py holds
+# the fused and split backwards to each other)
+CHUNK_LOSS_REL, CHUNK_GRAD_REL = 1e-5, 2.0 ** -5
+MEM_COUNTERS = ("fused_norm", "fused_add_norm", "fused_swiglu", "flash_bh_fwd",
+                "flash_bh_bwd_dq", "flash_bh_bwd_dkv", "flash_bh_bwd_fused",
+                "flash_tm_fwd", "flash_tm_bwd", "add_norm_bwd", "swiglu_bwd")
+
+
+def mem_launches_want(L: int, fwd: str, bwd: tuple, recompute: bool) -> dict:
+    """The exact launches of one forward+backward of the diff model: its
+    forward kernels once more per block under remat (every policy but
+    ``everything``: the kernels are opaque to a policy), the backward
+    kernels once; ``fwd`` the attention forward's wrapper, ``bwd`` the
+    backward's."""
+    r = 2 if recompute else 1
+    want = dict.fromkeys(MEM_COUNTERS, 0)
+    want.update(fused_norm=2 * L * r + 1, fused_add_norm=L * r, fused_swiglu=L * r,
+                add_norm_bwd=3 * L + 1, swiglu_bwd=L)
+    want[fwd] = L * r
+    for name in bwd:
+        want[name] = L
+    return want
+
+
+def run_hm_memory(torch, card: str) -> None:
+    from differential_transformer_replication_tpu_torch.config import (
+        REMAT_POLICIES,
+        ModelConfig,
+        TrainConfig,
+    )
+    from differential_transformer_replication_tpu_torch.models import init_model
+    from differential_transformer_replication_tpu_torch.ops import flash
+    from differential_transformer_replication_tpu_torch.ops.dropout import fold_seed
+    from differential_transformer_replication_tpu_torch.train.optim import leaves
+    from differential_transformer_replication_tpu_torch.train.step import make_grad_fn
+
+    counters = {**_train_counters(), **{fn.__name__: fn for fn in flash.BH_WRAPPERS}}
+    t_all = time.perf_counter()
+
+    def measure(tcfg, params, batch, seed):
+        """One forward+backward (loss, grads on the host, peak GiB,
+        launches), then MEM_TIMED more timed by the host clock."""
+        grads_fn = make_grad_fn(tcfg)
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads = grads_fn(params, batch, seed)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts = {k: counters[k].launches for k in MEM_COUNTERS}
+        out = (loss.cpu(), [g.cpu() for g in grads])
+        del loss, grads
+        wall = []
+        for _ in range(MEM_TIMED):
+            t0 = time.perf_counter()
+            grads_fn(params, batch, seed)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        return out, peak, statistics.median(wall), counts
+
+    def setup(T, B, rate):
+        mcfg = ModelConfig(**dict(RECIPE, block_size=T, dropout=rate),
+                           compute_dtype="bfloat16", param_dtype="float32")
+        tcfg = TrainConfig(model=mcfg, vocab_size=RECIPE["vocab_size"],
+                           micro_batch_size=B, sampler="replacement")
+        g = torch.Generator(device="cuda")
+        g.manual_seed(T)
+        params = init_model(g, mcfg)  # fp32 on the card; no optimizer state
+        for t in leaves(params):
+            t.requires_grad_(True)
+        idx = torch.randint(0, RECIPE["vocab_size"], (1, B, T + 1), generator=g,
+                            device="cuda")
+        return tcfg, params, {"x": idx[..., :-1], "y": idx[..., 1:]}
+
+    def with_model(tcfg, **kw):
+        return tcfg.replace(model=tcfg.model.replace(**kw))
+
+    def chunk_vs_dense(label, params, ref, got):
+        (l0, g0), (l1, g1) = ref, got
+        head = [i for i, t in enumerate(leaves(params)) if t is params["lm_head"]["w"]]
+        dl = abs(float(l1) - float(l0))
+        rel = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(g1, g0)]
+        expect(dl <= CHUNK_LOSS_REL * abs(float(l0)),
+               f"{label}: chunked loss {float(l1)} vs dense {float(l0)}")
+        expect(max(rel) <= CHUNK_GRAD_REL, f"{label}: a gradient differs by "
+               f"{max(rel):.3g} of its max (bound {CHUNK_GRAD_REL:.3g})")
+        return (f"loss {float(l1):.6f} vs {float(l0):.6f} (|diff| {dl:.3g}, bound "
+                f"{CHUNK_LOSS_REL:g} of the loss), worst gradient {max(rel):.3g} of its "
+                f"max (lm_head.w {rel[head[0]]:.3g}; bound {CHUNK_GRAD_REL:.3g})")
+
+    L = RECIPE["n_layer"]
+    dense_8192 = None
+    for label, T, B in REMAT_SHAPES:
+        tcfg, params, batch = setup(T, B, HM_RATE)
+        fwd = ("flash_bh_fwd", flash.fwd_route(T))
+        br = flash.bwd_route(2, T)
+        bwd = ("flash_bh_bwd_fused",) if br == "fused" else ("flash_bh_bwd_dq",
+                                                             "flash_bh_bwd_dkv")
+        seed = fold_seed(7, T)
+        flash.reset_bh_counters()
+        ref, peak0, ms0, counts = measure(tcfg, params, batch, seed)
+        want = mem_launches_want(L, "flash_bh_fwd", bwd, False)
+        expect(counts == want, f"{label} unremat: launches {counts}, expected {want}")
+        counts = {k: n for k, n in counts.items() if n}
+        log(f"[train-hm] remat {label} B={B} dropout {HM_RATE} (fwd {fwd[1]}, bwd "
+            f"{br}), one forward+backward, no update: unremat peak {peak0:.2f} GiB, "
+            f"{ms0:.1f} ms; launches {counts}; {card}")
+        for policy in REMAT_POLICIES:
+            flash.reset_bh_counters()
+            got, peak, ms, counts = measure(with_model(tcfg, remat=True,
+                                                       remat_policy=policy),
+                                            params, batch, seed)
+            want = mem_launches_want(L, "flash_bh_fwd", bwd, policy != "everything")
+            expect(counts == want, f"{label} remat {policy}: launches {counts}, "
+                   f"expected {want}")
+            counts = {k: n for k, n in counts.items() if n}
+            routes = {(fn.__name__, r) for fn in flash.BH_WRAPPERS for r in fn.routes}
+            expect(routes == {fwd} | {(n, br) for n in bwd},
+                   f"{label} remat {policy}: routes {routes}")
+            equal = (torch.equal(got[0], ref[0])
+                     and all(torch.equal(a, b) for a, b in zip(got[1], ref[1])))
+            expect(equal, f"{label} remat {policy}: loss or a gradient differs from "
+                   "the unremat step's")
+            log(f"[train-hm] remat {label} policy {policy}: loss and every gradient "
+                f"bit-equal to unremat; peak {peak:.2f} GiB vs {peak0:.2f} "
+                f"({peak - peak0:+.2f}), {ms:.1f} ms vs {ms0:.1f} "
+                f"({100 * (ms / ms0 - 1):+.1f}%); launches {counts}; {card}")
+        if T == 8192:
+            flash.reset_bh_counters()
+            got, peak, ms, counts = measure(
+                with_model(tcfg, remat=True, remat_policy="nothing",
+                           loss_chunk=LOSS_CHUNK), params, batch, seed)
+            want = mem_launches_want(L, "flash_bh_fwd", bwd, True)
+            expect(counts == want, f"{label} remat+chunk: launches {counts}, "
+                   f"expected {want}")
+            log(f"[train-hm] remat nothing + loss_chunk {LOSS_CHUNK} {label} vs "
+                f"unremat dense: {chunk_vs_dense(label, params, ref, got)}; peak {peak:.2f} "
+                f"GiB vs {peak0:.2f} ({peak - peak0:+.2f}), {ms:.1f} ms vs {ms0:.1f} "
+                f"({100 * (ms / ms0 - 1):+.1f}%); {card}")
+            dense_8192 = (peak0, ms0)
+        del params, batch, ref
+        torch.cuda.empty_cache()
+    expect(dense_8192 is not None, "no T 8192 run")
+    # the chunked loss alone at the recipe's T 512, dropout 0 (kernels D/E)
+    tcfg, params, batch = setup(512, 32, 0.0)
+    ref, peak0, ms0, c0 = measure(tcfg, params, batch, None)
+    got, peak, ms, c1 = measure(with_model(tcfg, loss_chunk=LOSS_CHUNK), params,
+                                batch, None)
+    expect(c0 == c1 and c0["flash_tm_fwd"] == L and c0["flash_tm_bwd"] == L,
+           f"diff T=512 loss_chunk: launches {c1} vs dense {c0}")
+    log(f"[train-hm] loss_chunk {LOSS_CHUNK} diff T=512 B=32 dropout 0 (D/E) vs "
+        f"dense: {chunk_vs_dense('diff T=512 loss_chunk', params, ref, got)}; peak "
+        f"{peak:.2f} GiB vs {peak0:.2f} ({peak - peak0:+.2f}), {ms:.1f} ms vs "
+        f"{ms0:.1f} ({100 * (ms / ms0 - 1):+.1f}%), one forward+backward, no "
+        f"update; launches {c1}; {card}")
+    del params, batch, ref
+    torch.cuda.empty_cache()
+    log(f"[train-hm] remat and the chunked loss took {time.perf_counter() - t_all:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2457,8 +2648,8 @@ def ring_e2e_task(torch, sg, spec: dict) -> dict:
     import hashlib
 
     rec = {}
-    for kind in ("diff", "control"):
-        mcfg = ModelConfig(**dict(RECIPE, model=kind, n_layer=2, block_size=1024),
+    for kind, extra in E2E_KINDS.items():
+        mcfg = ModelConfig(**dict(RECIPE, n_layer=2, block_size=1024, **extra),
                            compute_dtype="float32")
         tcfg = TrainConfig(model=mcfg, mesh=MeshConfig(sequence=sg.size),
                            vocab_size=RECIPE["vocab_size"], micro_batch_size=1,
@@ -2548,6 +2739,13 @@ def check_ring_run(torch, card: str, label: str, model: str, P: int, T: int, B: 
            f"({r0['before']} -> {r0['repeat']} -> {r0['after']})")
 
 
+# the train-ring-e2e steps: each family, and the diff step under remat
+# (its recompute runs the ring's exchanges again inside the backward),
+# each over the ring against the same step on one card
+E2E_KINDS = {"diff": {"model": "diff"}, "control": {"model": "control"},
+             "diff_remat": {"model": "diff", "remat": True, "remat_policy": "nothing"}}
+
+
 def e2e_inputs(torch, tcfg):
     """The seeded params and batch of the train-ring-e2e step (the same in
     every process that asks)."""
@@ -2564,7 +2762,8 @@ def e2e_inputs(torch, tcfg):
 
 def ring_e2e_reference(torch) -> dict:
     """The single-card head-major fp32 step of a 2-layer diff and control
-    at recipe width, T 1024, from e2e_inputs: the ring's reference."""
+    at recipe width, T 1024, and of the diff under remat, from
+    e2e_inputs: the ring's reference."""
     from differential_transformer_replication_tpu_torch.config import (
         ModelConfig,
         TrainConfig,
@@ -2577,8 +2776,8 @@ def ring_e2e_reference(torch) -> dict:
     )
 
     ref = {}
-    for kind in ("diff", "control"):
-        mcfg = ModelConfig(**dict(RECIPE, model=kind, n_layer=2, block_size=1024),
+    for kind, extra in E2E_KINDS.items():
+        mcfg = ModelConfig(**dict(RECIPE, n_layer=2, block_size=1024, **extra),
                            compute_dtype="float32")
         tcfg = TrainConfig(model=mcfg, vocab_size=RECIPE["vocab_size"],
                            micro_batch_size=1, warmup_iters=0, learning_rate=1e-3,

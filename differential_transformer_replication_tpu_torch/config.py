@@ -26,6 +26,8 @@ from dataclasses import dataclass
 from typing import Optional
 
 MODEL_KINDS = ("control", "diff", "ndiff")
+# what a rematerialized block may save (models/common.py:remat_block)
+REMAT_POLICIES = ("none", "dots", "dots_no_batch", "nothing", "everything")
 
 
 @dataclass(frozen=True)
@@ -60,8 +62,13 @@ class ModelConfig:
     # scale planes (ops/decode_attention.py:quantize_kv).
     kv_cache_dtype: str = "auto"
     sequence_impl: str = "ring"
+    # Recompute each block's activations in the backward
+    # (models/common.py:remat_block); remat_policy picks what a block may
+    # save instead and acts only when remat is true, as in JAX.
     remat: bool = False
     remat_policy: str = "none"
+    # Positions per chunk of the chunked lm-head loss
+    # (ops/losses.py:fused_linear_cross_entropy); None: the dense loss.
     loss_chunk: Optional[int] = None
 
     def __post_init__(self):
@@ -78,18 +85,10 @@ class ModelConfig:
                 "kv_cache_dtype must be one of auto|bf16|int8, got "
                 f"{self.kv_cache_dtype!r}"
             )
-        if self.remat_policy not in (
-            "none", "dots", "dots_no_batch", "nothing", "everything"
-        ):
+        if self.remat_policy not in REMAT_POLICIES:
             raise ValueError(
                 "remat_policy must be one of none|dots|dots_no_batch|"
                 f"nothing|everything, got {self.remat_policy!r}"
-            )
-        if self.remat or self.remat_policy != "none":
-            raise NotImplementedError(
-                f"remat={self.remat}, remat_policy={self.remat_policy!r}: "
-                "activation rematerialization is not ported yet (ROADMAP "
-                "Queue A: remat)"
             )
         if self.sequence_impl not in ("ring", "ulysses"):
             raise ValueError(

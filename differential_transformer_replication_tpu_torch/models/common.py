@@ -18,6 +18,11 @@ ring each rank folds its rank into the forward's seed first
 (:func:`rank_seed`), as JAX's ``sequence_shard_map`` folds the mesh
 position into the attention key: every rank's masks are its own.
 
+With ``cfg.remat`` each block runs under :func:`remat_block`
+(``torch.utils.checkpoint``, the counterpart of JAX's ``jax.checkpoint``):
+its activations are recomputed in the backward from its saved inputs,
+and its dropout seeds redraw the same masks there.
+
 The block-boundary norms, the SwiGLU chain and the training attention
 always go through the kernel wrappers (ops/fused_norm_residual.py,
 ops/fused_ffn.py, ops/flash.py), which dispatch by device: GPU kernel
@@ -27,7 +32,14 @@ way. There is no config switch between the two.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from differential_transformer_replication_tpu_torch.ops.dropout import (
     dropout,
@@ -55,6 +67,7 @@ from differential_transformer_replication_tpu_torch.ops.lambdas import (
 )
 from differential_transformer_replication_tpu_torch.ops.losses import (
     dense_linear_cross_entropy,
+    fused_linear_cross_entropy,
 )
 from differential_transformer_replication_tpu_torch.ops.rope import apply_rope
 from differential_transformer_replication_tpu_torch.ops.streams import (
@@ -169,6 +182,51 @@ def apply_block_ffn(x: torch.Tensor, attn_out: torch.Tensor, blk: dict,
     return x + apply_dropout(linear(h, p["out"]), rate, seed)
 
 
+# The products a ``dots`` policy saves (JAX ``dots_saveable``) and those
+# of them with no batch dimension (``dots_with_no_batch_dims_saveable``).
+_DOTS = {"dots": ("mm", "addmm", "bmm", "baddbmm"),
+         "dots_no_batch": ("mm", "addmm")}
+
+
+def remat_block(block_fn, cfg):
+    """``block_fn`` (a family's ``block_forward``) recomputed in the
+    backward under ``cfg.remat_policy`` (JAX ``models/common.py:
+    remat_block``): ``none`` and ``nothing`` save the block's inputs only;
+    ``dots`` also the outputs of the aten products (``mm``, ``addmm``,
+    ``bmm``, ``baddbmm``), ``dots_no_batch`` of those with no batch
+    dimension (``mm``, ``addmm``), through a selective-checkpoint policy;
+    ``everything`` saves all, so the block runs as it is and nothing is
+    recomputed.
+
+    The checkpoint is the non-reentrant one: the block's params arrive in
+    a dict, and its autograd Functions keep their residuals through
+    ``save_for_backward``, which it frees. The hand-written kernels are
+    launched through ctypes, opaque to a policy as a ``pallas_call`` is
+    to JAX's: on the card ``dots`` saves the projections' products and
+    recomputes the kernels. On the CPU the plain versions' products
+    inside those Functions are visible to it too, so what is saved there
+    differs from the card, but not the math. Every dropout mask of a
+    block comes from a generator made from the block's integer seed, and
+    nothing draws from the global RNG, so the recompute redraws the same
+    masks without a stash of the RNG state. Without grad (eval,
+    generation) the block runs as it is."""
+    policy = cfg.remat_policy
+    if policy == "everything":
+        return block_fn
+    context_fn = noop_context_fn
+    if policy in _DOTS:
+        ops = [getattr(torch.ops.aten, name).default for name in _DOTS[policy]]
+        context_fn = functools.partial(create_selective_checkpoint_contexts, ops)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return block_fn(*args)
+        return checkpoint(block_fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, context_fn=context_fn)
+
+    return run
+
+
 def layer_coeffs(cfg, p_attn: dict, layer_idx: int) -> torch.Tensor:
     """(S, H) fp32 stream-combine coefficients of one layer (1-based
     ``layer_idx``): [1] for control, [1, -lambda] for diff, sign *
@@ -264,21 +322,21 @@ def tail_and_loss(x: torch.Tensor, params: dict, cfg, targets=None,
                   group=None):
     """The end of every family's forward: ``(logits, loss)``. With
     targets, the final norm feeds :func:`ops.losses.dense_linear_cross_
-    entropy` and the logits returned are its own (no gradient path);
-    without, ``(apply_tail(x), None)``. On the ring the loss is this
-    rank's share of the mean over all ranks' tokens (its sum over the
-    global B*T), so the ranks' losses sum to the global mean.
-    ``cfg.loss_chunk`` (the chunked loss) is a later slice and raises."""
+    entropy` and the logits returned are its own (no gradient path), or,
+    with ``cfg.loss_chunk``, :func:`ops.losses.fused_linear_cross_entropy`
+    in chunks of that many positions, and the logits returned are None,
+    as in JAX; without targets, ``(apply_tail(x), None)``. On the ring the
+    loss is this rank's share of the mean over all ranks' tokens (its sum
+    over the global B*T), so the ranks' losses sum to the global mean."""
     if targets is None:
         return apply_tail(x, params), None
-    if cfg.loss_chunk:
-        raise NotImplementedError(
-            "loss_chunk: the chunked fused lm-head loss is not ported yet "
-            "(ROADMAP Queue A: chunked loss)"
-        )
     x_ln = apply_pre_norm(x, params["ln_f"])
     p = params["lm_head"]
     n_total = targets.numel() * group.size if use_ring(group) else None
+    if cfg.loss_chunk:
+        return None, fused_linear_cross_entropy(x_ln, p["w"], p.get("b"),
+                                                targets, cfg.loss_chunk,
+                                                n_total)
     loss, logits = dense_linear_cross_entropy(x_ln, p["w"], p.get("b"),
                                               targets, n_total)
     return logits, loss

@@ -93,6 +93,7 @@ def forward(params: dict, idx: torch.Tensor, cfg: ModelConfig, targets=None,
     holds the T-shard ``idx``."""
     x = embed(params, idx, cfg, group)
     seeds = common.split_seed(common.rank_seed(seed, group), cfg.n_layer)
+    fn = common.remat_block(block_forward, cfg) if cfg.remat else block_forward
     for li, (blk, s) in enumerate(zip(params["blocks"], seeds), 1):
-        x = block_forward(x, blk, li, cfg, seed=s, group=group)
+        x = fn(x, blk, li, cfg, None, None, s, group)
     return common.tail_and_loss(x, params, cfg, targets, group)

@@ -85,6 +85,7 @@ def forward(params: dict, idx: torch.Tensor, cfg: ModelConfig, targets=None,
     t0 = common.shard_start(T, group)
     cos, sin = (t[t0:] for t in rope_cos_sin(cfg.head_size, t0 + T, device=x.device))
     seeds = common.split_seed(common.rank_seed(seed, group), cfg.n_layer)
+    fn = common.remat_block(block_forward, cfg) if cfg.remat else block_forward
     for li, (blk, s) in enumerate(zip(params["blocks"], seeds), 1):
-        x = block_forward(x, blk, li, cfg, cos, sin, s, group)
+        x = fn(x, blk, li, cfg, cos, sin, s, group)
     return common.tail_and_loss(x, params, cfg, targets, group)

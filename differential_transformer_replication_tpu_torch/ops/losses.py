@@ -1,5 +1,5 @@
-"""The lm-head + mean cross-entropy with a hand-written backward (plain
-PyTorch; not a TPU kernel).
+"""The lm-head + mean cross-entropy with hand-written backwards, dense
+and chunked (plain PyTorch; neither is a TPU kernel).
 
 Counterpart of ``differential_transformer_replication_tpu/ops/losses.py:
 dense_linear_cross_entropy`` with its cast points kept:
@@ -11,8 +11,19 @@ dense_linear_cross_entropy`` with its cast points kept:
   in h's dtype rounded afterwards); ``dh = d W^T`` in h's dtype;
   ``db = (colsum(p) - counts) * g / n``.
 
-The chunked ``fused_linear_cross_entropy`` (``ModelConfig.loss_chunk``)
-is a later slice of the port.
+Counterpart of ``fused_linear_cross_entropy`` there too
+(``ModelConfig.loss_chunk``), which never holds more than one chunk of
+logits:
+
+- forward: per chunk of positions, the product in h's dtype, an fp32
+  upcast, ``log_softmax`` and the target gather; the chunks' sums make
+  the mean (JAX pads and masks the shorter tail chunk, which adds zeros;
+  here the tail chunk is shorter);
+- backward: each chunk's logits recomputed, ``d = (softmax - onehot) *
+  g / n`` cast to h's dtype; ``dh = d W^T`` and ``dW = h^T d`` as
+  products in h's dtype, dW upcast and summed over the chunks in fp32
+  (not the dense path's fp32-result product), ``db`` the fp32 sum of
+  the fp32 ``d``.
 """
 
 from __future__ import annotations
@@ -72,3 +83,63 @@ def dense_linear_cross_entropy(h: torch.Tensor, w: torch.Tensor,
     the sum instead of the local token count (a shard's share of a mean
     over ``n_total`` tokens)."""
     return _DenseLinearCE.apply(h, w, b, targets, n_total)
+
+
+def _chunk_logits(hc, wc, bc):
+    """One chunk's fp32 logits: the product (and bias) in h's dtype,
+    then the upcast."""
+    logits = hc @ wc
+    if bc is not None:
+        logits = logits + bc
+    return logits.to(torch.float32)
+
+
+class _ChunkedLinearCE(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, h, w, b, targets, chunk, n_total):
+        h2, t1 = h.reshape(-1, h.shape[-1]), targets.reshape(-1)
+        wc = w.to(h.dtype)
+        bc = None if b is None else b.to(h.dtype)
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for s in range(0, h2.shape[0], chunk):
+            logp = torch.log_softmax(_chunk_logits(h2[s:s + chunk], wc, bc), -1)
+            total = total + torch.gather(logp, -1, t1[s:s + chunk, None]).sum()
+        ctx.save_for_backward(h, w, b, targets)
+        ctx.chunk = chunk
+        ctx.n = n_total or h2.shape[0]
+        return -total / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, b, targets = ctx.saved_tensors
+        h2, t1 = h.reshape(-1, h.shape[-1]), targets.reshape(-1)
+        wc = w.to(h.dtype)
+        bc = None if b is None else b.to(h.dtype)
+        scale = g.to(torch.float32) / ctx.n
+        dh = torch.empty_like(h2)
+        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+        db = torch.zeros(w.shape[1:], dtype=torch.float32, device=w.device)
+        for s in range(0, h2.shape[0], ctx.chunk):
+            hc, tc = h2[s:s + ctx.chunk], t1[s:s + ctx.chunk]
+            d32 = torch.softmax(_chunk_logits(hc, wc, bc), -1)
+            d32[torch.arange(tc.shape[0], device=tc.device), tc] -= 1.0
+            d32 *= scale
+            d = d32.to(h.dtype)
+            dh[s:s + ctx.chunk] = d @ wc.t()
+            dw += (hc.t() @ d).to(torch.float32)
+            db += d32.sum(0)
+        return (dh.reshape(h.shape), dw.to(w.dtype),
+                None if b is None else db.to(b.dtype), None, None, None)
+
+
+def fused_linear_cross_entropy(h: torch.Tensor, w: torch.Tensor,
+                               b: Optional[torch.Tensor],
+                               targets: torch.Tensor, chunk: int,
+                               n_total: Optional[int] = None) -> torch.Tensor:
+    """The mean cross-entropy of ``h @ w + b`` against ``targets``
+    (int64), ``chunk`` positions of logits at a time, differentiable in
+    ``h``, ``w`` and ``b``; no logits are returned. ``n_total`` divides
+    the sum instead of the local token count, as in
+    :func:`dense_linear_cross_entropy`."""
+    return _ChunkedLinearCE.apply(h, w, b, targets, int(chunk), n_total)

@@ -20,8 +20,11 @@ Counterpart of the JAX package's serving/server.py for this slice:
   carries the decoded ``"text"`` too (same request and reply keys as
   the JAX server), and ``GET /health`` for engine state and stats, with
   ``kv_pages`` (the paged pool and its prefix cache) and ``spec``
-  (speculative decoding) when those are on. A request the page pool
-  cannot take answers HTTP 503 ``page_pool_exhausted``.
+  (speculative decoding) when those are on, and ``GET /ready``: 200
+  while the runner accepts work, 503 with ``Retry-After`` while it
+  drains, restarts or has failed (:meth:`EngineRunner.accepting`). A
+  request the page pool cannot take answers HTTP 503
+  ``page_pool_exhausted``.
 
 A request that carries a field of a later slice of the port (structured
 decoding, penalties, logprobs, replay fields) is refused with HTTP 400
@@ -136,6 +139,13 @@ class EngineRunner:
             overrunning = (self._step_budget > 0 and started is not None
                            and now - started > self._step_budget)
             return "degraded" if self._degraded or overrunning else "healthy"
+
+    def accepting(self) -> bool:
+        """What ``GET /ready`` answers: should traffic come here? False
+        while draining or failed (submits are refused) and while
+        restarting (submits queue behind the rebuild, but a balancer with
+        other replicas should prefer them)."""
+        return self.status() in ("healthy", "degraded")
 
     def stats_snapshot(self) -> dict:
         with self._cond:
@@ -483,6 +493,12 @@ def _make_handler(client: ServingClient, tokenizer=None):
                         ("spec", client.runner.engine.spec_stats()))
                        if val is not None},
                 })
+            elif self.path == "/ready":
+                if client.runner.accepting():
+                    self._reply(200, {"ready": True, "status": client.status()})
+                else:
+                    self._reply(503, {"ready": False, "status": client.status()},
+                                headers=self._retry_after())
             else:
                 self._reply(404, {"error": f"unknown path {self.path}"})
 

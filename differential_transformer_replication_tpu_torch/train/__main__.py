@@ -49,6 +49,15 @@ trace and a 5-step ``torch.profiler`` trace; ``--faults`` (or
 ``DTX_FAULTS``) injects the chaos plans of ``utils/faults.py``. The guard
 rolls back to an in-memory snapshot after ``--anomaly-rollback-after``
 bad steps and aborts past ``--anomaly-max-rollbacks``.
+
+Memory for compute, as ``train.py`` takes them:
+
+    python -m differential_transformer_replication_tpu_torch.train ... \
+        --block-size 8192 --micro-batch-size 2 --remat --remat-policy nothing \
+        --loss-chunk 2048
+
+recomputes each block's activations in the backward from its saved
+inputs, and computes the loss 2048 positions of logits at a time.
 """
 
 from __future__ import annotations
@@ -57,6 +66,7 @@ import argparse
 import sys
 
 from differential_transformer_replication_tpu_torch.config import (
+    REMAT_POLICIES,
     MeshConfig,
     ModelConfig,
     TrainConfig,
@@ -66,9 +76,6 @@ from differential_transformer_replication_tpu_torch.config import (
 LATER_FLAGS = {
     "--attention-impl": "none: the port dispatches kernels by device",
     "--ffn-impl": "none: the port dispatches kernels by device",
-    "--loss-chunk": "the chunked loss (ROADMAP Queue A: chunked loss, item 7)",
-    "--remat": "remat (ROADMAP Queue A: remat, item 6)",
-    "--remat-policy": "remat (ROADMAP Queue A: remat, item 6)",
     "--no-dp-overlap": "parallelism (ROADMAP Queue A: parallelism, item 9)",
     "--dp-bucket-layers": "parallelism (ROADMAP Queue A: parallelism, item 9)",
     "--data-parallel": "parallelism (ROADMAP Queue A: parallelism, item 9)",
@@ -96,6 +103,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n-terms", type=int, default=m.n_terms)
     p.add_argument("--compute-dtype", default=m.compute_dtype,
                    choices=("float32", "bfloat16"))
+    p.add_argument("--loss-chunk", type=int, default=None,
+                   help="fused chunked lm-head loss: positions per chunk "
+                        "(never materializes full logits; for long context)")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize blocks on backward (less activation memory)")
+    p.add_argument("--remat-policy", default=m.remat_policy,
+                   choices=REMAT_POLICIES,
+                   help="what each block's checkpoint may save under --remat "
+                        "(models/common.py:remat_block)")
     p.add_argument("--vocab-size", type=int, default=t.vocab_size)
     p.add_argument("--dataset", default=t.dataset,
                    help="tinystories | synthetic | path/to/corpus.txt")
@@ -244,6 +260,8 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         n_head=args.n_head, n_layer=args.n_layer, block_size=args.block_size,
         dropout=args.dropout, n_terms=args.n_terms,
         compute_dtype=args.compute_dtype, sequence_impl=args.sequence_impl,
+        remat=args.remat, remat_policy=args.remat_policy,
+        loss_chunk=args.loss_chunk,
     )
     return TrainConfig(
         model=model, mesh=MeshConfig(sequence=args.sequence_parallel),

@@ -1,11 +1,13 @@
 """Where a train step of the port spends its time on the GPU.
 
     python -m differential_transformer_replication_tpu_torch.train.step_profile \
-        [--model diff] [--block-size 2048 --micro-batch 8 --dropout 0.1]
+        [--model diff] [--block-size 2048 --micro-batch 8 --dropout 0.1] \
+        [--remat --remat-policy nothing] [--loss-chunk 2048]
 
 Builds the recipe (8 layers, width 768, T = 512, vocab 12000, micro-batch
 32, bf16 compute, fp32 params; random weights from seed 0), or the
-context length, micro-batch and dropout given, and runs train
+context length, micro-batch and dropout given (with remat under the
+policy given, and the chunked loss at the chunk given), and runs train
 steps on random batches (each with its own dropout seed when dropout >
 0): a few to warm up, then ``STEPS`` timed by the host clock (each step
 ends in its metrics' device-to-host copy), then ``STEPS`` under
@@ -44,6 +46,7 @@ import time
 import torch
 
 from differential_transformer_replication_tpu_torch.config import (
+    REMAT_POLICIES,
     MeshConfig,
     ModelConfig,
     TrainConfig,
@@ -86,7 +89,8 @@ def _card() -> str:
 
 def profile(model: str = "diff", block_size: int = 512, micro_batch: int = BATCH,
             dropout: float = 0.0, sequence_parallel: int = 1,
-            dist_backend: str = "nccl", n_layer: int = 8) -> dict:
+            dist_backend: str = "nccl", n_layer: int = 8, remat: bool = False,
+            remat_policy: str = "none", loss_chunk=None) -> dict:
     """The breakdown of one train step of this configuration (see the
     module docstring; ``n_layer`` cuts the recipe's depth); returns the
     JSON record (on rank 0; None on the other ranks of a
@@ -98,15 +102,18 @@ def profile(model: str = "diff", block_size: int = 512, micro_batch: int = BATCH
              else None)
     try:
         return _profile(model, block_size, micro_batch, dropout, sequence_parallel,
-                        group, n_layer)
+                        group, n_layer, remat, remat_policy, loss_chunk)
     finally:
         if group is not None:
             destroy_sequence_group(group)
 
 
-def _profile(model, block_size, micro_batch, dropout, P, group, n_layer):
+def _profile(model, block_size, micro_batch, dropout, P, group, n_layer, remat,
+             remat_policy, loss_chunk):
     cfg = TrainConfig(model=ModelConfig(model=model, block_size=block_size,
-                                        dropout=dropout, n_layer=n_layer),
+                                        dropout=dropout, n_layer=n_layer,
+                                        remat=remat, remat_policy=remat_policy,
+                                        loss_chunk=loss_chunk),
                       mesh=MeshConfig(sequence=P),
                       micro_batch_size=micro_batch, warmup_iters=2,
                       learning_rate=1e-3, sampler="replacement")
@@ -173,7 +180,9 @@ def _profile(model, block_size, micro_batch, dropout, P, group, n_layer):
               "rotation_host_ms_per_step": rot["host_s"] / STEPS * 1e3}
     return {
         "card": _card(), "model": mcfg.model, "n_layer": mcfg.n_layer,
-        "micro_batch": micro_batch, "T": T, "dropout": dropout, "steps": STEPS,
+        "micro_batch": micro_batch, "T": T, "dropout": dropout,
+        "remat": mcfg.remat, "remat_policy": mcfg.remat_policy,
+        "loss_chunk": mcfg.loss_chunk, "steps": STEPS,
         **sp,
         "wall_ms_per_step": wall_ms,
         "tokens_per_s": micro_batch * T / wall_ms * 1e3,
@@ -205,9 +214,13 @@ def main(argv=None) -> None:
     p.add_argument("--dropout", type=float, default=0.0)
     p.add_argument("--sequence-parallel", type=int, default=1)
     p.add_argument("--dist-backend", choices=("nccl", "gloo"), default="nccl")
+    p.add_argument("--remat", action="store_true")
+    p.add_argument("--remat-policy", choices=REMAT_POLICIES, default="none")
+    p.add_argument("--loss-chunk", type=int, default=None)
     args = p.parse_args(argv)
     rec = profile(args.model, args.block_size, args.micro_batch, args.dropout,
-                  args.sequence_parallel, args.dist_backend)
+                  args.sequence_parallel, args.dist_backend, remat=args.remat,
+                  remat_policy=args.remat_policy, loss_chunk=args.loss_chunk)
     if rec is not None:
         print(json.dumps(rec), flush=True)
 

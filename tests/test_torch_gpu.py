@@ -1223,3 +1223,77 @@ def test_generators_on_the_card_match_the_cpu(gen, monkeypatch, kind, route):
             top = a.topk(2, dim=-1).values
             assert float((top[:, 0] - top[:, 1]).min()) <= 1e-4, step
             break
+
+
+# ---------------------------------------------------------------------------
+# remat and the chunked loss on the card (models/common.py:remat_block,
+# ops/losses.py:fused_linear_cross_entropy)
+# ---------------------------------------------------------------------------
+
+
+def _bf16_loss_and_grads(params, cfg, idx, seed=None):
+    from differential_transformer_replication_tpu_torch.train.optim import unflatten
+
+    p = [t.to("cuda").requires_grad_(True) for t in leaves(params)]
+    _, loss = model_forward(unflatten(params, p), idx[:, :-1], cfg,
+                            targets=idx[:, 1:], seed=seed)
+    return loss.detach(), torch.autograd.grad(loss, p)
+
+
+@pytest.mark.parametrize("policy", ["nothing", "dots", "everything"])
+@pytest.mark.parametrize("route,T,rate", [("tm", 512, 0.0), ("split", 2048, 0.1)],
+                         ids=["D-E", "K1-K3"])
+def test_remat_is_bit_equal_to_unremat_on_the_card(gen, route, T, rate, policy):
+    """A 2-layer diff model at recipe width in bf16: loss and every
+    gradient under remat equal the unremat step's bit for bit, through
+    kernels D/E (T 512, dropout 0) and through K1-K3 (T 2048, dropout
+    0.1: K1 resident, K2 + K3 split; every mask redrawn in the recompute).
+    The recompute launches each block's forward kernels once more under
+    every policy but ``everything``; the backward kernels run once."""
+    cfg = ModelConfig(model="diff", n_layer=2, vocab_size=512, block_size=T,
+                      dropout=rate, compute_dtype="bfloat16")
+    cpu_gen = torch.Generator()
+    cpu_gen.manual_seed(10)
+    params = init_model(cpu_gen, cfg)
+    idx = torch.randint(0, 512, (2, T + 1), generator=cpu_gen).to("cuda")
+    seed = 11 if rate else None
+    fwd = flash.flash_tm_fwd if route == "tm" else flash.flash_bh_fwd
+    bwd = flash.flash_tm_bwd if route == "tm" else flash.flash_bh_bwd_dq
+    counted = (fwd, bwd, ffn.fused_swiglu, ffn.swiglu_bwd, fnr.fused_add_norm)
+    runs = {}
+    for remat in (False, True):
+        for fn in counted:
+            fn.launches = 0
+        flash.reset_bh_counters()
+        runs[remat] = (_bf16_loss_and_grads(
+            params, cfg.replace(remat=remat, remat_policy=policy), idx, seed),
+            [fn.launches for fn in counted])
+    ((l0, g0), n0), ((l1, g1), n1) = runs[False], runs[True]
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    again = 1 if policy == "everything" else 2
+    assert n0 == [2, 2, 2, 2, 2]
+    assert n1 == [2 * again, 2, 2 * again, 2, 2 * again]
+
+
+def test_chunked_loss_on_the_card_is_within_its_bound_of_the_dense_loss(gen):
+    """A 2-layer diff model at recipe width in bf16, T 512, micro-batch 8,
+    vocab 12000: the chunked loss (chunks of 1024 positions) against the
+    dense loss. The logits are the same bf16 products, so the losses
+    agree to fp32 sums in another order (1e-5 of the loss). Each chunk's
+    lm-head dW is rounded to bf16 before the fp32 sum (the dense dW is an
+    fp32 product), and ``d`` comes from ``softmax`` in place of ``exp(x -
+    lse)``, so a bf16 rounding may flip on either side: every gradient
+    within 2^-5 of its max |value|, as the fused and split backwards are
+    held to each other."""
+    cfg = ModelConfig(model="diff", n_layer=2, vocab_size=12000, block_size=512,
+                      compute_dtype="bfloat16")
+    cpu_gen = torch.Generator()
+    cpu_gen.manual_seed(12)
+    params = init_model(cpu_gen, cfg)
+    idx = torch.randint(0, 12000, (8, 513), generator=cpu_gen).to("cuda")
+    ld, gd = _bf16_loss_and_grads(params, cfg, idx)
+    lc, gc = _bf16_loss_and_grads(params, cfg.replace(loss_chunk=1024), idx)
+    assert abs(float(lc) - float(ld)) <= 1e-5 * abs(float(ld))
+    for a, b in zip(gc, gd):
+        assert _err(a, b) <= 2.0 ** -5 * float(b.abs().max())

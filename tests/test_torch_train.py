@@ -537,19 +537,6 @@ def test_decode_attention_refuses_inputs_that_require_grad():
 # ---------------------------------------------------------------------------
 
 
-def test_remat_is_refused_until_it_is_ported():
-    from differential_transformer_replication_tpu_torch.config import MeshConfig
-
-    for kw in ({"remat": True}, {"remat_policy": "dots"},
-               {"remat": True, "remat_policy": "dots"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A: remat"):
-            TrainConfig(model=ModelConfig(**kw), sampler="replacement")
-    # the JAX package takes them; the defaults still build in the port
-    JModelConfig(remat=True, remat_policy="dots")
-    assert not TrainConfig(model=ModelConfig(), sampler="replacement",
-                           mesh=MeshConfig()).model.remat
-
-
 @pytest.mark.parametrize("kind", ["control", "diff", "ndiff"])
 def test_card_envelope_holds_the_recipe_and_refuses_past_each_limit(kind):
     from differential_transformer_replication_tpu_torch.models import (

@@ -380,9 +380,6 @@ def test_cli_takes_each_full_trainer_flag_as_train_py_does(flag, value, field, w
     ("--pipeline-parallel", "parallelism, item 9"),
     ("--no-dp-overlap", "parallelism, item 9"),
     ("--dp-bucket-layers", "parallelism, item 9"),
-    ("--remat", "remat, item 6"),
-    ("--remat-policy", "remat, item 6"),
-    ("--loss-chunk", "chunked loss, item 7"),
 ])
 def test_cli_still_refuses_later_items_naming_them(flag, item, capsys):
     from differential_transformer_replication_tpu_torch.train import __main__ as cli
@@ -390,3 +387,35 @@ def test_cli_still_refuses_later_items_naming_them(flag, item, capsys):
     with pytest.raises(SystemExit):
         cli.run([flag, "1"])
     assert f"ROADMAP Queue A: {item}" in capsys.readouterr().err
+
+
+
+MEMORY_FLAGS = [
+    ["--remat"],
+    ["--remat", "--remat-policy", "dots"],
+    ["--remat", "--remat-policy", "dots_no_batch"],
+    ["--remat", "--remat-policy", "nothing"],
+    ["--remat", "--remat-policy", "everything"],
+    ["--remat-policy", "nothing"],
+    ["--loss-chunk", "2048"],
+    ["--remat", "--loss-chunk", "128"],
+]
+
+
+@pytest.mark.parametrize("argv", MEMORY_FLAGS, ids=" ".join)
+def test_cli_takes_remat_and_loss_chunk_as_train_py_does(argv):
+    """The three flags reach ``TrainConfig.model`` with the values that
+    the root ``train.py`` gives the JAX package's."""
+    import importlib.util
+
+    from differential_transformer_replication_tpu_torch.train import __main__ as cli
+
+    spec = importlib.util.spec_from_file_location(
+        "root_train", Path(__file__).resolve().parents[1] / "train.py")
+    jtrain = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jtrain)
+    assert not cli.refused_flags(argv)
+    got = cli.config_from_args(cli.build_parser().parse_args(argv)).model
+    want = jtrain.config_from_args(jtrain.build_parser().parse_args(argv)).model
+    for field in ("remat", "remat_policy", "loss_chunk"):
+        assert getattr(got, field) == getattr(want, field), field

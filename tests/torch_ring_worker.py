@@ -19,6 +19,9 @@ through a ``file://`` rendezvous in DIR (no TCP port), reads
 - ``model``: ``model_forward`` of each family given (its params passed as
   leaves), this rank's logits and loss share;
 - ``step``: one SP train step from a given train state, and the grads;
+- ``grads``: the loss and grads of one SP step (dropout seed given) under
+  each model config given, from the same params and batch (remat and the
+  chunked loss against the plain step);
 - ``cli``: the trainer's command line with the arguments given;
 - ``cli_corpus``: ``cli``, with the rank's BPE trainings counted.
 """
@@ -182,6 +185,22 @@ def task_step(sg, inp):
     return out
 
 
+def task_grads(sg, inp):
+    meta = json.loads(str(inp["meta"]))
+    out = {}
+    for k, mdict in enumerate(meta["models"]):
+        cfg = TrainConfig(model=ModelConfig(**mdict), mesh=MeshConfig(sequence=sg.size),
+                          **meta["train"])
+        params = _params(inp, cfg.resolved_model(), "p", sg.device)
+        for t in leaves(params):
+            t.requires_grad_(True)
+        batch = {"x": _t(inp["x"], sg.device), "y": _t(inp["y"], sg.device)}
+        loss, grads = make_grad_fn(cfg, sg)(params, batch, meta["seed"])
+        out[f"loss{k}"] = _np(loss)
+        out.update({f"g{k}_{i}": _np(g) for i, g in enumerate(grads)})
+    return out
+
+
 def task_cli(sg, inp):
     from differential_transformer_replication_tpu_torch.train.__main__ import run
 
@@ -203,7 +222,7 @@ def task_cli_corpus(sg, inp):
 
 
 TASKS = {"rotate": task_rotate, "ring": task_ring, "wrappers": task_wrappers,
-         "model": task_model, "step": task_step, "cli": task_cli,
+         "model": task_model, "step": task_step, "grads": task_grads, "cli": task_cli,
          "cli_corpus": task_cli_corpus}
 
 
