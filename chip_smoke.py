@@ -65,7 +65,13 @@ these phases, each printing its own lines and its seconds:
    dropout 0 (Tl 4096 and 8192; the full chunk an entry of its own);
 3. serve: a diff model at recipe width (random weights from a seed)
    behind the port's HTTP ``serve()``, 12 concurrent ``/generate``
-   requests, launch counters read around that run; serve-paged: the
+   requests, launch counters read around that run, with the engine's
+   registry, span tracer, event log, quality telemetry and the SLO
+   monitor on: ``/metrics`` against the replies and the engine's stats,
+   the trace's spans and traced requests, one received and one finished
+   event a request; then the same bodies, submitted in one order,
+   through that engine and through one with all of it off: bit-equal
+   tokens; serve-paged: the
    same model served (a) paged, int8, prefix cache, n-gram speculation
    with batched verify and (b) contiguous, int8, batched verify — one
    request carrying a 64-token prefix, then 12 concurrent requests of
@@ -75,7 +81,12 @@ these phases, each printing its own lines and its seconds:
    identity runs (paged vs contiguous, exact spec vs none); and the
    steady-state decode step of ``serving/decode_profile.py`` (wall, device
    busy, idle share) for the contiguous bf16 step, the paged int8 step and
-   the paged batched verify step;
+   the paged batched verify step; a chaos wave (the paged exact-verify
+   run again, its wave submitted twice, a reject storm, then
+   ``prefix_corrupt`` and ``serve_corrupt``): every request served with
+   the unfaulted tokens or failed typed, two restarts, no draft accepted
+   in the storm; and the contiguous bf16 step with quality telemetry and
+   tracing off and on, A B B A;
 4. e2e: prefill + decode logits of one prompt in fp32 on the card
    (kernels) against the CPU (plain versions); and a 2-layer diff at
    recipe width through the paged pool: paged steps and batched verify
@@ -156,7 +167,9 @@ these phases, each printing its own lines and its seconds:
    back-pressure, the inline best and last saves, verify and load
    seconds. Its files live in a temporary directory under ``build/``,
    removed at the end. The earlier train phases write their best
-   checkpoints to ``build/chip_smoke/best.ckpt``, removed likewise.
+   checkpoints to ``build/chip_smoke/best.ckpt`` (the train-ring
+   launches, side by side, to ``best-ring-P<P>.ckpt`` each), removed
+   likewise.
 
 It then prints the kernels' JSON summary, the card line, and, last,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -749,6 +762,12 @@ def _post(url: str, body: dict) -> tuple:
         return r.status, json.load(r)
 
 
+def _snap(engine) -> dict:
+    """The engine's counters and its step counts (prefill chunks, decode
+    and verify steps: what the launch formulas multiply)."""
+    return {**engine.stats.snapshot(), **engine.steps}
+
+
 def _counters():
     from differential_transformer_replication_tpu_torch.ops import (
         decode_attention as dat,
@@ -761,9 +780,77 @@ def _counters():
             "decode_attention": dat.decode_attention}
 
 
+SPAN_NAMES = {"schedule", "prefill", "decode", "sample", "emit"}
+TRACED = (0, 5, 9)  # requests that send a traceparent
+
+
+def _traceparent(i: int) -> str:
+    return f"00-{i + 1:032x}-{i + 1:016x}-01"
+
+
+def _metrics(url: str) -> dict:
+    """GET /metrics parsed: {(name, sorted label items): value}."""
+    from differential_transformer_replication_tpu_torch.obs.registry import (
+        parse_exposition,
+    )
+
+    with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+        body = r.read().decode()
+    _, samples = parse_exposition(body)
+    return {(n, tuple(sorted(lab.items()))): v for n, lab, v in samples}
+
+
+def check_serve_telemetry(cfg, vals: dict, st: dict, bodies, replies,
+                          trace_path, events_path) -> None:
+    """The telemetry of the served run: the /metrics scrape ``vals``
+    against the engine's stats ``st`` and the replies, then the closed
+    span trace and event log."""
+    n_req = len(bodies) + 1  # the wave and the repeat
+    expect(vals[("serving_ttft_seconds_count", ())] == n_req,
+           f"serving_ttft_seconds count {vals[('serving_ttft_seconds_count', ())]}"
+           f" != {n_req} requests")
+    expect(vals[("serving_decode_tokens_total", ())] == st["decode_tokens"],
+           "serving_decode_tokens_total disagrees with stats")
+    expect(vals[("serving_token_entropy_count", ())] == NEW_TOKENS * n_req,
+           f"serving_token_entropy count {vals[('serving_token_entropy_count', ())]}"
+           f" != {NEW_TOKENS * n_req} tokens emitted")
+    lam = sorted(k[1][0][1] for k in vals if k[0] == "serving_lambda_mean")
+    expect(len(lam) == cfg.n_layer, f"serving_lambda_mean series {lam}")
+    slo = {k[0] for k in vals if k[0].startswith("slo_")}
+    expect({"slo_target", "slo_burn_rate", "slo_error_ratio"} <= slo,
+           f"slo gauges {sorted(slo)}")
+    for (_, reply), i in zip(replies, range(len(bodies))):
+        expect(reply["quality"]["tokens_observed"] == NEW_TOKENS,
+               f"request {i}: quality {reply.get('quality')}")
+        if i in TRACED:
+            expect(reply["trace_id"] == _traceparent(i)[3:35],
+                   f"request {i} answered trace id {reply['trace_id']}")
+    trace = json.load(open(trace_path))  # valid Chrome trace JSON
+    names = {e["name"] for e in trace}
+    expect(SPAN_NAMES <= names, f"span names {sorted(names)}")
+    for i in TRACED:
+        tid = _traceparent(i)[3:35]
+        mine = {e["name"] for e in trace if e.get("args", {}).get("trace_id") == tid}
+        expect({"admit", "first_token", "finish", "request"} <= mine,
+               f"request {i}: trace events {sorted(mine)}")
+    lines = [json.loads(x) for x in open(events_path)]
+    got = {ev: sum(1 for r in lines if r["event"] == ev)
+           for ev in ("request_received", "request_finished")}
+    expect(got == {"request_received": n_req, "request_finished": n_req},
+           f"event log {got} for {n_req} requests")
+    log(f"[serve] telemetry: /metrics ttft count {n_req}, "
+        f"{int(vals[('serving_token_entropy_count', ())])} entropy observations, "
+        f"lambda_mean layers {lam}, slo burn ttft "
+        f"{vals.get(('slo_burn_rate', (('objective', 'ttft'),)))}; trace "
+        f"{len(trace)} events; event log {got}")
+
+
 def run_serve(torch, card: str) -> dict:
     """Phase 3. Returns the launch count of each kernel wrapper over the
-    served run."""
+    served run. The engine runs with its registry, a span tracer, an
+    event log and quality telemetry on, the server with the SLO monitor;
+    then the greedy bodies run again through an engine with all of it
+    off, and must give the same tokens."""
     import numpy as np
     from concurrent.futures import ThreadPoolExecutor
 
@@ -775,8 +862,17 @@ def run_serve(torch, card: str) -> dict:
         init_model,
         param_count,
     )
+    from differential_transformer_replication_tpu_torch.obs.events import EventLog
+    from differential_transformer_replication_tpu_torch.obs.slo import (
+        SLOMonitor,
+        default_serving_objectives,
+    )
+    from differential_transformer_replication_tpu_torch.obs.spans import SpanTracer
     from differential_transformer_replication_tpu_torch.serving.engine import (
         ServingEngine,
+    )
+    from differential_transformer_replication_tpu_torch.serving.request import (
+        SamplingParams,
     )
     from differential_transformer_replication_tpu_torch.serving.server import (
         ServingClient,
@@ -787,20 +883,27 @@ def run_serve(torch, card: str) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     params = init_model(gen, cfg)
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    trace_path, events_path = out_dir / "serve.trace.json", out_dir / "serve.events.jsonl"
+    events_path.unlink(missing_ok=True)
+    tracer = SpanTracer(str(trace_path), process_name="serving-engine")
+    events = EventLog(str(events_path), process="replica")
     torch.cuda.reset_peak_memory_stats()
+    serving = dict(num_slots=8, prefill_chunk=128, prefill_budget=256)
     engine = ServingEngine(
-        params, cfg,
-        ServingConfig(num_slots=8, prefill_chunk=128, prefill_budget=256),
-        device="cuda",
+        params, cfg, ServingConfig(**serving, quality_telemetry=True),
+        device="cuda", tracer=tracer,
     )
-    del params
     log(f"[serve] diff recipe: {cfg.n_layer} layers, width {cfg.n_embd}, "
         f"{cfg.n_head} heads (d {cfg.head_size}, dv {cfg.value_size}), block "
         f"{cfg.block_size}, vocab {cfg.vocab_size}, bf16 compute, "
         f"{param_count(engine.params) / 1e6:.1f} M params; KV pool "
-        f"{sum(t.numel() * t.element_size() for c in engine.cache for t in c.values()) / 1e6:.1f} MB")
+        f"{sum(t.numel() * t.element_size() for c in engine.cache for t in c.values()) / 1e6:.1f} MB"
+        "; registry, span tracer, event log, quality telemetry and SLOs on")
     client = ServingClient(engine)
-    httpd = serve(client, port=0)
+    slo = SLOMonitor(engine.registry, *default_serving_objectives())
+    httpd = serve(client, port=0, events=events, slo=slo)
     url = f"http://127.0.0.1:{httpd.server_address[1]}"
     server = threading.Thread(target=httpd.serve_forever, daemon=True)
     server.start()
@@ -811,20 +914,22 @@ def run_serve(torch, card: str) -> dict:
                 "max_new_tokens": NEW_TOKENS, "temperature": 0.0}
         if i in (3, 8):  # two sampled requests
             body.update(temperature=0.8, top_k=50, seed=100 + i)
+        if i in TRACED:
+            body["traceparent"] = _traceparent(i)
         bodies.append(body)
     try:
         counters = _counters()
         for fn in counters.values():
             fn.launches = 0
         counters["fused_swiglu"].instances.clear()
-        stats0 = engine.stats.snapshot()
+        stats0 = _snap(engine)
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(bodies)) as pool:
             replies = list(pool.map(lambda b: _post(url + "/generate", b), bodies))
         wall = time.perf_counter() - t0
         counts = {name: fn.launches for name, fn in counters.items()}
         instances = dict(counters["fused_swiglu"].instances)
-        stats1 = engine.stats.snapshot()
+        stats1 = _snap(engine)
         for (status, reply), body in zip(replies, bodies):
             expect(status == 200, f"/generate answered {status}: {reply}")
             expect(len(reply["tokens"]) == NEW_TOKENS
@@ -837,6 +942,8 @@ def run_serve(torch, card: str) -> dict:
         steps = stats1["decode_steps"] - stats0["decode_steps"]
         chunks = stats1["prefill_chunks"] - stats0["prefill_chunks"]
         L = cfg.n_layer
+        # telemetry launches none of these kernels: the formula is the
+        # one of a run without it
         expected = {"fused_norm": (2 * L + 1) * (steps + chunks),
                     "fused_add_norm": L * (steps + chunks),
                     "fused_swiglu": L * (steps + chunks),
@@ -858,11 +965,40 @@ def run_serve(torch, card: str) -> dict:
         health = json.load(urllib.request.urlopen(url + "/health", timeout=60))
         expect(health["ok"] and health["stats"]["completed"] >= len(bodies) + 1,
                f"/health: {health}")
+        t_tel = time.perf_counter()
+        vals, st = _metrics(url), engine.stats.snapshot()
     finally:
         httpd.shutdown()
         httpd.server_close()
         client.close()
         server.join(timeout=30)
+        tracer.close()
+        events.close()
+    check_serve_telemetry(cfg, vals, st, bodies, replies, trace_path, events_path)
+    # telemetry must not move a token: every body again, submitted in
+    # one order (so both runs share one schedule of prefill chunks and
+    # batches), through the telemetry engine and through an engine on the
+    # same params with all of it off
+    plain = ServingEngine(params, cfg, ServingConfig(**serving), device="cuda")
+    del params
+    sps = [SamplingParams(max_new_tokens=NEW_TOKENS, temperature=b["temperature"],
+                          top_k=b.get("top_k"), seed=b.get("seed", 0)) for b in bodies]
+    prompts = [b["prompt_ids"] for b in bodies]
+    on = [o.tokens for o in engine.generate(prompts, sps)]
+    off = [o.tokens for o in plain.generate(prompts, sps)]
+    greedy = [i for i, b in enumerate(bodies) if b["temperature"] == 0.0]
+    diff = first_difference(on, off)
+    served = first_difference([replies[i][1]["tokens"] for i in greedy],
+                              [off[i] for i in greedy])
+    log(f"[serve] telemetry on vs off, same params and schedule: "
+        f"{len(bodies)} bodies ({len(greedy)} greedy) "
+        f"{'bit-equal' if diff is None else f'differ at {diff}'}; the served "
+        f"greedy replies vs off: {'equal' if served is None else f'differ at {served}'}"
+        f" (reported: the served batches and prefill chunks differ); telemetry "
+        f"checks and the reruns took {time.perf_counter() - t_tel:.1f} s")
+    expect(diff is None, f"tokens with telemetry off differ at {diff}")
+    del plain
+    torch.cuda.empty_cache()
     ttft = sorted(r["ttft_ms"] for _, r in replies)
     p50 = statistics.median(ttft)
     p95 = ttft[min(len(ttft) - 1, math.ceil(0.95 * len(ttft)) - 1)]
@@ -945,13 +1081,13 @@ def serve_waves(torch, params, cfg, serving, donor, wave) -> dict:
         torch.cuda.synchronize()
         status, first = _post(url + "/generate", donor)
         expect(status == 200, f"/generate answered {status}: {first}")
-        stats0 = engine.stats.snapshot()
+        stats0 = _snap(engine)
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(wave)) as pool:
             replies = list(pool.map(lambda b: _post(url + "/generate", b), wave))
         wall = time.perf_counter() - t0
         counts = {k: (fn.launches, fn.int8_launches) for k, fn in counters.items()}
-        stats1 = engine.stats.snapshot()
+        stats1 = _snap(engine)
         health = json.load(urllib.request.urlopen(url + "/health", timeout=60))
     finally:
         httpd.shutdown()
@@ -965,6 +1101,120 @@ def serve_waves(torch, params, cfg, serving, donor, wave) -> dict:
                f"/generate answered {status}: {reply}")
     return dict(first=first, replies=[r for _, r in replies], counts=counts,
                 stats0=stats0, stats1=stats1, health=health, wall=wall)
+
+
+STORM = (14, 113)  # the reject storm's first and last wave iteration
+
+
+def would_accept(draft: list, want: list, g: int) -> int:
+    """Drafts the exact verify accepts when its greedy tokens are
+    ``want``: the length of the draft's common prefix with ``want[g:]``."""
+    n = 0
+    while n < len(draft) and g + n < len(want) and draft[n] == want[g + n]:
+        n += 1
+    return n
+
+
+def serve_chaos(torch, params, cfg, serving, donor, wave, want) -> dict:
+    """The paged exact-verify run again with faults armed over one wave, the wave
+    submitted twice so that requests queue behind the crashes:
+    ``prefix_corrupt`` at wave iteration 7 (a hit slot reads the donor's
+    cached pages), ``serve_corrupt`` at 12, and a reject storm over
+    iterations STORM, counted from the wave's first iteration. Every
+    request must finish with the unfaulted run's tokens ``want``
+    (greedy) or fail typed; the engine restarts once a crash-class
+    fault. During the storm no draft is accepted, and at least one of
+    the storm's drafts must be one that the exact verify accepts without
+    it (its greedy tokens are ``want``), so a storm that never fired
+    cannot pass."""
+    from differential_transformer_replication_tpu_torch.obs.registry import (
+        parse_exposition,
+    )
+    from differential_transformer_replication_tpu_torch.serving.engine import (
+        EngineCrashError,
+        ServingEngine,
+    )
+    from differential_transformer_replication_tpu_torch.serving.server import (
+        ServingClient,
+    )
+    from differential_transformer_replication_tpu_torch.utils import faults
+
+    engine = ServingEngine(params, cfg, serving, device="cuda")
+    client = ServingClient(engine)
+    steps = []  # (iteration, drafts proposed, drafts accepted) per step
+    drafts = []  # (iteration, request id, tokens generated, draft) per proposal
+    step, collect = engine.step, engine._collect_proposals
+
+    def logged_step():
+        it, p0, a0 = (engine.stats[k] for k in ("iterations", "spec_proposed",
+                                                "spec_accepted"))
+        try:
+            return step()
+        finally:
+            steps.append((it, engine.stats["spec_proposed"] - p0,
+                          engine.stats["spec_accepted"] - a0))
+
+    def logged_collect(active):
+        props = collect(active)
+        it = engine.stats["iterations"]
+        drafts.extend((it, s.request.request_id, len(s.generated), list(props[s.index]))
+                      for s in active if props.get(s.index))
+        return props
+
+    engine.step, engine._collect_proposals = logged_step, logged_collect
+    bodies = wave + wave
+    try:
+        out = client.generate(donor["prompt_ids"], max_new_tokens=donor["max_new_tokens"],
+                              temperature=0.0, timeout=600)
+        expect(len(out.tokens) == donor["max_new_tokens"], "chaos donor")
+        it0 = engine.stats["iterations"]
+        storm = (it0 + STORM[0], it0 + STORM[1])
+        faults.arm(f"prefix_corrupt@{it0 + 7},serve_corrupt@{it0 + 12},"
+                   f"spec_reject_storm@{storm[0]}-{storm[1]}")
+        t0 = time.perf_counter()
+        pend = [client.runner.submit(
+            b["prompt_ids"], max_new_tokens=b["max_new_tokens"],
+            temperature=b["temperature"], top_k=b.get("top_k"),
+            seed=b.get("seed", 0)) for b in bodies]
+        for p in pend:
+            expect(p.done.wait(600), "chaos wave did not finish")
+        wall = time.perf_counter() - t0
+        _, samples = parse_exposition(engine.registry.render())
+        restarts_metric = next(v for n, lab, v in samples
+                               if n == "serving_engine_restarts_total")
+        restarts = client.runner.restarts
+    finally:
+        faults.reset()
+        client.close()
+    ok = failed = 0
+    for i, (p, b) in enumerate(zip(pend, bodies)):
+        if p.error is not None:
+            expect(isinstance(p.error, EngineCrashError) and p.error.retriable,
+                   f"chaos request {i} failed untyped: {p.error!r}")
+            failed += 1
+            continue
+        ok += 1
+        expect(len(p.result.tokens) == NEW_TOKENS, f"chaos request {i} length")
+        if b["temperature"] == 0.0:
+            expect(p.result.tokens == want[i % len(wave)],
+                   f"chaos request {i} (greedy) differs from the unfaulted wave")
+    body_of = {p.rid: i % len(wave) for i, p in enumerate(pend)}
+    in_storm = [(p, a) for it, p, a in steps if storm[0] <= it <= storm[1]]
+    would = sum(would_accept(d, want[body_of[rid]], g)
+                for it, rid, g, d in drafts
+                if storm[0] <= it <= storm[1] and body_of[rid] not in SAMPLED)
+    proposed, accepted = (sum(x[k] for x in in_storm) for k in (0, 1))
+    expect(would > 0 and accepted == 0,
+           f"storm iterations {storm}: {proposed} drafts proposed, {accepted} "
+           f"accepted, {would} that the unfaulted exact verify accepts")
+    after = [(p, a) for it, p, a in steps if it > storm[1]]
+    expect(restarts == 2 == restarts_metric,
+           f"restarts {restarts}, serving_engine_restarts_total {restarts_metric}, "
+           "2 crash-class faults armed")
+    expect(ok > 0 and failed > 0, f"chaos: {ok} served, {failed} failed")
+    return dict(ok=ok, failed=failed, restarts=restarts, storm=(proposed, accepted),
+                would=would, wall=wall, it0=it0, after=(sum(p for p, _ in after),
+                                                        sum(a for _, a in after)))
 
 
 def first_difference(a: list, b: list):
@@ -988,6 +1238,7 @@ def run_serve_paged(torch, card: str) -> dict:
         ServingConfig,
     )
     from differential_transformer_replication_tpu_torch.models import init_model
+    from differential_transformer_replication_tpu_torch.obs.spans import SpanTracer
     from differential_transformer_replication_tpu_torch.serving import decode_profile
 
     cfg = ModelConfig(**RECIPE, compute_dtype="bfloat16", param_dtype="float32")
@@ -1049,6 +1300,22 @@ def run_serve_paged(torch, card: str) -> dict:
         if must:
             expect(diff is None, f"greedy {name} differ at {diff}")
     a, b = runs["a"], runs["b"]
+    t_chaos = time.perf_counter()
+    # the exact verify: its greedy tokens do not depend on which slots
+    # share a step, and the crashes change that
+    chaos = serve_chaos(torch, params, cfg, ServingConfig(
+        **base, **paged, spec_mode="ngram", spec_verify="exact",
+        restart_backoff_s=0.05), donor, wave,
+        [r["tokens"] for r in runs["paged-exact"]["replies"]])
+    log(f"[serve-paged] chaos, paged exact verify, wave submitted twice: prefix_corrupt "
+        f"at iteration {chaos['it0'] + 7}, serve_corrupt at {chaos['it0'] + 12}: "
+        f"{chaos['ok']} served with the unfaulted tokens (greedy), {chaos['failed']} "
+        f"failed typed, {chaos['restarts']} restarts = serving_engine_restarts_total; "
+        f"reject storm at {chaos['it0'] + STORM[0]}-{chaos['it0'] + STORM[1]}: "
+        f"(proposed, accepted) {chaos['storm']}, {chaos['would']} of its drafts "
+        f"accepted by the unfaulted exact verify; after it {chaos['after']}; "
+        f"{chaos['wall']:.2f} s for the wave, {time.perf_counter() - t_chaos:.1f} s "
+        f"in all; {card}")
     expect(a["health"]["kv_pages"]["hits_total"] >= len(HITS),
            f"prefix hits {a['health']['kv_pages']['hits_total']} < {len(HITS)}")
     # (c) served every request to completion (serve_waves) through the
@@ -1096,6 +1363,32 @@ def run_serve_paged(torch, card: str) -> dict:
             f"{[(k['name'][:40], round(k['ms_per_step'], 3)) for k in prof['top_kernels'][:4]]}; "
             f"{card}")
         torch.cuda.empty_cache()
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    t_ab = time.perf_counter()
+    ab = {}
+    for tag in ("off", "on", "on", "off"):
+        serving = ServingConfig(num_slots=decode_profile.SLOTS, prefill_chunk=128,
+                                prefill_budget=4096, quality_telemetry=tag == "on")
+        tracer = (SpanTracer(str(out_dir / "profile.trace.json"),
+                             process_name="serving-engine") if tag == "on" else None)
+        prof = decode_profile.profile(
+            decode_profile.recipe_engine(serving, tracer),
+            decode_profile.prompts_for(serving, cfg.vocab_size))
+        if tracer is not None:
+            tracer.close()
+        ab.setdefault(tag, []).append(prof)
+        torch.cuda.empty_cache()
+    for tag, profs in ab.items():
+        log(f"[serve-paged] decode_profile contiguous bf16, quality telemetry and "
+            f"tracing {tag}: wall ms per step "
+            f"{[round(p['wall_ms_per_step'], 3) for p in profs]}, device busy ms "
+            f"{[round(p['device_busy_ms_per_step'], 4) for p in profs]}, kernels "
+            f"per step {[p['device_kernels_per_step'] for p in profs]}, wrapper "
+            f"launches per step {profs[0]['wrapper_launches_per_step']}; {card}")
+    expect(all(p["wrapper_launches_per_step"] == ab["off"][0]["wrapper_launches_per_step"]
+               for p in ab["on"] + ab["off"]),
+           "telemetry changed the kernel launches of a decode step")
+    log(f"[serve-paged] telemetry A B B A took {time.perf_counter() - t_ab:.1f} s")
     return out
 
 
@@ -1786,8 +2079,14 @@ def run_bh_kernels(torch, flash) -> dict:
 # ---------------------------------------------------------------------------
 
 # the best checkpoint of the train, train-hm and train-ring runs (each
-# writes its best at its eval, over the one before; removed at the end)
+# writes its best at its eval, over the one before; removed at the end).
+# The train-ring launches at each P run side by side, so each P writes
+# its own: two writers of one path race on its files' ".tmp" names
 SMOKE_BEST = Path(__file__).resolve().parent / "build" / "chip_smoke" / "best.ckpt"
+
+
+def ring_best(P: int) -> Path:
+    return SMOKE_BEST.with_name(f"best-ring-P{P}.ckpt")
 TRAIN_STEPS = 6     # trainer steps per recipe
 REPEAT_STEPS = 4    # steps on one repeated batch, whose loss must fall
 TRAIN_COUNTERS = ("fused_norm", "fused_add_norm", "fused_swiglu",
@@ -2682,7 +2981,7 @@ def ring_argv(model: str, P: int, T: int, B: int, steps: int, tokens, backend: s
             "--warmup-iters", "2", "--learning-rate", "1e-3", "--dropout", str(HM_RATE),
             "--compute-dtype", "bfloat16", "--log-interval", "1", "--seed", "0",
             "--metrics-path", metrics, "--sequence-parallel", str(P),
-            "--dist-backend", backend, "--checkpoint-path", str(SMOKE_BEST),
+            "--dist-backend", backend, "--checkpoint-path", str(ring_best(P)),
             "--last-checkpoint-path", ""]
 
 
@@ -3941,7 +4240,8 @@ def main() -> int:
         phase("train-full", run_train_full, torch, card, work, a_info)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    shutil.rmtree(SMOKE_BEST, ignore_errors=True)
+    for best in (SMOKE_BEST, ring_best(2), ring_best(4)):
+        shutil.rmtree(best, ignore_errors=True)
     log(f"[done] phases {', '.join(f'{k} {v:.1f} s' for k, v in phases.items())}; "
         f"total {time.perf_counter() - t_all:.1f} s")
 

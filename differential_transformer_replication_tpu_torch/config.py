@@ -124,8 +124,8 @@ class ServingConfig:
     """Continuous-batching engine knobs (serving/engine.py). Same names,
     defaults, meaning and validation as the JAX package's ServingConfig
     for the fields kept: the slot pool, the paged KV pool and its radix
-    prefix cache, the int8 KV cache and speculative decoding. Its
-    structured-decoding, profiling and telemetry fields are absent; the
+    prefix cache, the int8 KV cache, speculative decoding and the quality
+    telemetry. Its structured-decoding and profiling fields are absent; the
     host tier (``host_tier_bytes > 0``) and the model drafter
     (``spec_mode="model"``) are refused with the ROADMAP item that
     brings them."""
@@ -184,6 +184,21 @@ class ServingConfig:
     spec_verify: str = "exact"
     # Host-RAM KV page tier; refused while > 0 (a later slice).
     host_tier_bytes: int = 0
+    # Model-quality telemetry (obs/quality.py). When on, the sampler and
+    # the verify's accept compute a per-token quality vector (sampled-
+    # distribution entropy, top-1 logit margin, repetition flag —
+    # models/decode.py:quality_vector) on the device and bring it to the
+    # host with the tokens; the engine folds it into the
+    # serving_token_entropy / serving_logit_margin histograms,
+    # RequestOutput.quality, the serving_lambda_mean gauges and the
+    # serving_quality_drift gauge against the fingerprint below. Tokens
+    # are bit-identical with it on or off.
+    quality_telemetry: bool = False
+    # Path to a reference quality fingerprint JSON (``--quality-record``
+    # of a known-good window, from either package): the PSI drift of the
+    # live entropy/margin sketches against it is serving_quality_drift.
+    # "" = no reference (drift 0).
+    quality_fingerprint: str = ""
 
     def __post_init__(self):
         if self.kv_cache_dtype not in ("", "auto", "bf16", "int8"):

@@ -93,6 +93,50 @@ def kv_store_dtype(cfg: ModelConfig) -> torch.dtype:
     return compute_dtype(cfg)
 
 
+def entropy_margin(lp: torch.Tensor, proc: torch.Tensor,
+                   top2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The first two columns of :func:`quality_vector`, (..., 2) fp32:
+    the entropy over ``lp`` and the top-1 margin on ``proc`` (``top2``
+    its two largest values, when the caller has them)."""
+    plogp = torch.where(torch.isfinite(lp), torch.exp(lp) * lp,
+                        torch.zeros_like(lp))
+    entropy = -plogp.sum(dim=-1)
+    if top2 is None and proc.shape[-1] >= 2:
+        top2 = torch.topk(proc, 2, dim=-1).values
+    if top2 is not None:
+        margin = top2[..., 0] - top2[..., 1]
+    else:  # degenerate single-token vocab: no runner-up to compare
+        margin = torch.zeros(proc.shape[:-1], dtype=proc.dtype,
+                             device=proc.device)
+    return torch.stack([entropy.float(), margin.float()], dim=-1)
+
+
+def quality_vector(lp: torch.Tensor, proc: torch.Tensor, tokens: torch.Tensor,
+                   prev: torch.Tensor,
+                   top2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-token quality vector (the JAX ``quality_vector``), (..., 3) fp32:
+
+      [..., 0] entropy in nats of the distribution actually drawn from,
+               over ``lp``, its log-softmax (top-k and temperature
+               applied);
+      [..., 1] top-1 logit margin on the processed surface ``proc``
+               (before top-k and temperature);
+      [..., 2] repetition flag: ``tokens`` equals ``prev`` (``prev < 0``
+               = no previous token).
+
+    ``lp``/``proc`` (..., V), ``tokens``/``prev`` (...). ``top2``, when
+    given, is the two largest values of ``proc`` (a sampler that ranked
+    ``proc`` for its top-k threshold has them). A fully masked row gives
+    entropy 0 (``where`` keeps exp(-inf) * -inf out of the sum);
+    non-finite logits propagate as non-finite values, which the host
+    reads as "no signal" (obs/quality.py). The serving engine computes
+    the first two columns on the device (:func:`entropy_margin`) and the
+    flag on the host, where the emitted tokens are decided."""
+    em = entropy_margin(lp, proc, top2)
+    repeat = (tokens == prev) & (prev >= 0)
+    return torch.cat([em, repeat.float()[..., None]], dim=-1)
+
+
 def init_cache(cfg: ModelConfig, batch_size: int, device=None) -> list:
     """Per-layer zeroed K (S, B, H, M, d) / V (B, H, M, dv) buffers, plus
     the fp32 scale planes k_scale (S, B, H, M) / v_scale (B, H, M) on the

@@ -59,6 +59,32 @@ def _layer_lambdas(params: dict, cfg: ModelConfig) -> Optional[torch.Tensor]:
                         for li, blk in enumerate(params["blocks"], 1)])
 
 
+@torch.no_grad()
+def serving_lambda_summary(params: dict, cfg: ModelConfig) -> dict:
+    """Host-side per-layer effective-lambda view for the serving
+    telemetry (serving/engine.py mirrors it into
+    ``serving_lambda_mean{layer=}`` and ``{"record": "quality"}`` rows):
+    the key schema of :func:`lambda_record`. ``lambda_l<k>`` is the term
+    mean for ndiff (the gauge's value); per-term detail rides the
+    ``_t<j>`` keys. Empty dict for the control family.
+
+    It runs once at engine build and after a params rebind (the
+    ``quality_drift`` fault), never per step: it copies to the host."""
+    lams = _layer_lambdas(params, cfg)
+    if lams is None:
+        return {}
+    lams = lams.detach().to("cpu", torch.float32)
+    out = {}
+    for li in range(lams.shape[0]):
+        if lams.dim() == 1:  # diff: one effective lambda per layer
+            out[f"lambda_l{li + 1}"] = float(lams[li])
+        else:  # ndiff: per-term lambdas + their mean
+            out[f"lambda_l{li + 1}"] = float(lams[li].mean())
+            for tj in range(lams.shape[1]):
+                out[f"lambda_l{li + 1}_t{tj}"] = float(lams[li, tj])
+    return out
+
+
 def group_norms(tree: dict) -> dict:
     """Global L2 norm per layer group: embeddings, each block, the final
     norm + lm head (of params or of their gradients)."""

@@ -218,9 +218,15 @@ class Heartbeat:
             t.start()
 
     def close(self) -> None:
+        """Stop both threads and join them (each within 5 s). Safe from
+        the monitor thread itself, which the watchdog's exit path runs
+        on when a dead peer trips it: a publisher joined here has
+        finished its rename, so the exit leaves no temp file behind."""
         self._stop.set()
+        me = threading.current_thread()
         for t in self._threads:
-            t.join(timeout=5.0)
+            if t is not me:
+                t.join(timeout=5.0)
 
     # -- publisher ------------------------------------------------------
 

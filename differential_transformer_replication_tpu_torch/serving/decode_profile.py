@@ -2,7 +2,8 @@
 
     python -m differential_transformer_replication_tpu_torch.serving.decode_profile \\
         [--kv-page-size 16] [--kv-cache-dtype int8] \\
-        [--spec-mode ngram --spec-verify batched]
+        [--spec-mode ngram --spec-verify batched] \\
+        [--quality-telemetry] [--trace-path t.json]
 
 Builds the diff model at the reference recipe's widths (random weights
 from seed 0, bf16 compute), fills the 8 slots of a ``ServingEngine``
@@ -12,7 +13,9 @@ sampler's device-to-host copy), once under ``torch.profiler`` to sum the
 device time of every kernel. With the options the steps run through the
 paged pool (the paged L=1 step), the int8 cache, or speculative verify
 steps (the prompts then repeat an 8-token motif, so the n-gram drafter
-proposes for every slot at every step). Prints one JSON line: the card,
+proposes for every slot at every step). ``--quality-telemetry`` turns on
+the engine's quality tail, ``--trace-path`` its span tracer, so their cost
+reads off the same numbers. Prints one JSON line: the card,
 the configuration, host wall ms per step, device busy ms per step, the
 device's idle share, tokens emitted per step, kernel launches per step,
 and the kernels that take the most device time. Needs a CUDA GPU.
@@ -72,13 +75,13 @@ def profile(engine: ServingEngine, prompts, steps: int = STEPS,
         engine.step()
     torch.cuda.synchronize()
     wall = []
-    tok0 = engine.stats.snapshot()
+    tok0 = {**engine.stats.snapshot(), **engine.steps}
     for _ in range(steps):
         t0 = time.perf_counter()
         engine.step()
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
-    tok1 = engine.stats.snapshot()
+    tok1 = {**engine.stats.snapshot(), **engine.steps}
     for fn in WRAPPERS.values():
         fn.launches = 0
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -112,12 +115,13 @@ def profile(engine: ServingEngine, prompts, steps: int = STEPS,
     }
 
 
-def recipe_engine(serving: ServingConfig) -> ServingEngine:
+def recipe_engine(serving: ServingConfig, tracer=None) -> ServingEngine:
     """The diff recipe (random weights from seed 0) on the card."""
     cfg = ModelConfig(model="diff")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    return ServingEngine(init_model(gen, cfg), cfg, serving, device="cuda")
+    return ServingEngine(init_model(gen, cfg), cfg, serving, device="cuda",
+                         tracer=tracer)
 
 
 def prompts_for(serving: ServingConfig, vocab: int):
@@ -137,6 +141,8 @@ def main() -> None:
     p.add_argument("--spec-mode", default="", choices=("", "ngram"))
     p.add_argument("--spec-draft-len", type=int, default=4)
     p.add_argument("--spec-verify", default="exact", choices=("exact", "batched"))
+    p.add_argument("--quality-telemetry", action="store_true")
+    p.add_argument("--trace-path", default=None)
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("decode_profile needs a CUDA GPU")
@@ -144,15 +150,26 @@ def main() -> None:
         num_slots=SLOTS, prefill_chunk=128, prefill_budget=SLOTS * CONTEXT,
         kv_page_size=args.kv_page_size, kv_cache_dtype=args.kv_cache_dtype,
         spec_mode=args.spec_mode, spec_draft_len=args.spec_draft_len,
-        spec_verify=args.spec_verify)
-    engine = recipe_engine(serving)
+        spec_verify=args.spec_verify, quality_telemetry=args.quality_telemetry)
+    tracer = None
+    if args.trace_path:
+        from differential_transformer_replication_tpu_torch.obs.spans import (
+            SpanTracer,
+        )
+
+        tracer = SpanTracer(args.trace_path, process_name="serving-engine")
+    engine = recipe_engine(serving, tracer)
     out = {"card": card(), "model": engine.cfg.model, "num_slots": SLOTS,
            "context": CONTEXT, "steps": STEPS,
            "kv_cache_dtype": engine.cfg.kv_cache_dtype,
            "kv_page_size": serving.kv_page_size,
            "spec": (f"{serving.spec_mode} k={serving.spec_draft_len} "
-                    f"{serving.spec_verify}" if serving.spec_mode else "off")}
+                    f"{serving.spec_verify}" if serving.spec_mode else "off"),
+           "quality_telemetry": serving.quality_telemetry,
+           "tracing": tracer is not None}
     out.update(profile(engine, prompts_for(serving, engine.cfg.vocab_size)))
+    if tracer is not None:
+        tracer.close()
     print(json.dumps(out))
 
 

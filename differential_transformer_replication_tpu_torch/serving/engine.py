@@ -25,6 +25,25 @@ Counterpart of the JAX package's serving/engine.py:
   rejection sample the residual. The contiguous pool then carries one
   extra trash row for the rejected rows' writes; the paged pool uses its
   trash page.
+- **Telemetry** (obs/): ``stats`` is a :class:`StatsMap` over the JAX
+  engine's counters (the same keys and counter names), beside its
+  histograms and gauges, in a :class:`Registry` the server renders at
+  ``GET /metrics``. A real tracer gets the ``schedule``, ``prefill``,
+  ``decode``, ``sample`` and ``emit`` host spans of every step and the
+  request lifecycle instants stamped with the request's
+  :class:`TraceContext`. With ``ServingConfig.quality_telemetry`` the
+  sampler and the verify's accept compute each token's entropy and
+  margin on the device and bring them to the host in the same copy as
+  the tokens (obs/quality.py consumes them). The families of subsystems
+  not ported yet are left out: :data:`UNPORTED_FAMILIES`.
+- **Chaos** (utils/faults.py): ``serve_raise``, ``serve_hang``,
+  ``serve_corrupt``, ``page_exhaust``, ``prefix_corrupt``,
+  ``spec_reject_storm``, ``quality_drift`` and ``quality_nan`` fire at
+  the JAX engine's points, keyed on ``stats["iterations"]``.
+  ``spec_drafter_crash``, ``constrain_dead_end``, the ``page_demote_fail``
+  / ``page_promote_hang`` / ``page_swap_corrupt`` tier kinds and the
+  ``migrate_*`` kinds stay unfired until the model drafter, constraints,
+  the host tier and migration are ported.
 
 Differences from the JAX engine, by design: the cache is updated in
 place (prefill writes straight into its pool row or through its page
@@ -43,15 +62,15 @@ Family limits: control/ndiff roll the ring past block_size up to
 cannot roll, so its requests are capped at
 ``prompt + max_new_tokens <= block_size``.
 
-The host tier, migration, the model drafter, constraints, penalties,
-logprobs and quality telemetry belong to later slices: ``ServingConfig``
-refuses the first three, and a request that asks for one of the others
-is refused at submit with a ValueError naming the field.
+The host tier, migration, the model drafter, constraints, penalties and
+logprobs belong to later slices: ``ServingConfig`` refuses the first
+three, and a request that asks for one of the others is refused at
+submit with a ValueError naming the field.
 """
 
 from __future__ import annotations
 
-import threading
+import math
 import time
 from typing import List, Optional, Sequence
 
@@ -70,6 +89,7 @@ from differential_transformer_replication_tpu_torch.models.decode import (
     KV_CACHE_BATCH_AXIS,
     compute_dtype,
     copy_cache_pages,
+    entropy_margin,
     forward_chunk,
     forward_decode_pool,
     forward_decode_pool_paged,
@@ -78,11 +98,33 @@ from differential_transformer_replication_tpu_torch.models.decode import (
     gather_slot_cache,
     init_cache,
     init_cache_paged,
+    kv_store_dtype,
     scatter_slot_cache,
+)
+from differential_transformer_replication_tpu_torch.obs.introspect import (
+    serving_lambda_summary,
+)
+from differential_transformer_replication_tpu_torch.obs.quality import (
+    ENTROPY_BINS,
+    MARGIN_BINS,
+    QualityMonitor,
+    build_quality_row,
+    load_fingerprint,
+)
+from differential_transformer_replication_tpu_torch.obs.registry import (
+    Registry,
+    StatsMap,
+)
+from differential_transformer_replication_tpu_torch.obs.spans import NOOP_TRACER
+from differential_transformer_replication_tpu_torch.obs.trace import (
+    TraceContext,
+    child_span_args,
+    instant_args,
 )
 from differential_transformer_replication_tpu_torch.serving.pages import (
     PagePool,
     PagePoolExhaustedError,
+    page_bytes,
 )
 from differential_transformer_replication_tpu_torch.serving.request import (
     Request,
@@ -99,13 +141,146 @@ from differential_transformer_replication_tpu_torch.serving.spec import (
     DraftSlot,
     build_drafter,
 )
+from differential_transformer_replication_tpu_torch.utils import faults
 
-STAT_KEYS = (
-    "iterations", "prefill_tokens", "prefill_chunks", "decode_tokens",
-    "decode_steps", "spec_steps", "spec_proposed", "spec_accepted",
-    "completed", "cancelled", "rejected", "deadline_expired", "page_shed",
-    "engine_restarts",
+# engine.stats keys -> (Prometheus counter name, help): a copy of the JAX
+# engine's _STAT_SPEC. The keys are the /health JSON contract, the names
+# the /metrics one; StatsMap keeps both views over one set of values.
+# The host-tier, preemption and migration counters stay at 0 until those
+# subsystems are ported, as the JAX engine's do with them off.
+_STAT_SPEC = {
+    "iterations": (
+        "serving_engine_iterations_total",
+        "Engine step() iterations executed.",
+    ),
+    "prefill_tokens": (
+        "serving_prefill_tokens_total",
+        "Prompt tokens prefilled into KV slots.",
+    ),
+    "decode_tokens": (
+        "serving_decode_tokens_total",
+        "Tokens generated by batched decode steps.",
+    ),
+    "completed": (
+        "serving_requests_completed_total",
+        "Requests finished normally (eos or length).",
+    ),
+    "cancelled": (
+        "serving_requests_cancelled_total",
+        "Requests abandoned by their caller (timeout/cancel).",
+    ),
+    "rejected": (
+        "serving_requests_rejected_total",
+        "Submissions rejected at admission (queue full / invalid).",
+    ),
+    "deadline_expired": (
+        "serving_requests_deadline_expired_total",
+        "Requests shed or retired past their server-side deadline.",
+    ),
+    "engine_restarts": (
+        "serving_engine_restarts_total",
+        "Slot-pool rebuilds after a crashed engine step.",
+    ),
+    "page_shed": (
+        "serving_requests_page_shed_total",
+        "Requests shed at admission because the KV page pool could "
+        "not hold them (typed PagePoolExhaustedError).",
+    ),
+    "spec_proposed": (
+        "serving_spec_proposed_tokens_total",
+        "Draft tokens proposed to the speculative verify step.",
+    ),
+    "spec_accepted": (
+        "serving_spec_accepted_tokens_total",
+        "Draft tokens the target model accepted.",
+    ),
+    "spec_drafter_crashes": (
+        "serving_spec_drafter_crashes_total",
+        "Drafter pools rebuilt after the finite-logits guard tripped "
+        "(engine fell back to non-spec decode, never garbage tokens).",
+    ),
+    "preemptions": (
+        "serving_preemptions_total",
+        "Mid-decode preemptions: a lower-priority request's KV pages "
+        "stashed to the host tier to unblock a higher class.",
+    ),
+    "resumes": (
+        "serving_preempt_resumes_total",
+        "Preempted requests swapped back in bit-exact from their "
+        "host-tier stash.",
+    ),
+    "tier_demotions": (
+        "serving_host_tier_demotions_total",
+        "Evicted radix pages demoted into the host-RAM tier.",
+    ),
+    "tier_promotions": (
+        "serving_host_tier_promotions_total",
+        "Host-tier pages promoted back to device at admission "
+        "(a copy, never a recompute).",
+    ),
+    "tier_fallbacks": (
+        "serving_host_tier_fallbacks_total",
+        "Tier transfers that degraded to recompute or full restart "
+        "(failed/corrupt demote, promote, or swap-in) — typed, "
+        "counted, never a wedge.",
+    ),
+    "migrate_exports": (
+        "serving_migrate_exports_total",
+        "Slot decode states exported to a peer replica (drain path).",
+    ),
+    "migrate_imports": (
+        "serving_migrate_imports_total",
+        "Migrated slot states imported and re-admitted bit-exact.",
+    ),
+    "migrate_pages_shipped": (
+        "serving_migrate_pages_shipped_total",
+        "KV pages shipped over the wire by slot-state exports.",
+    ),
+    "migrate_pages_deduped": (
+        "serving_migrate_pages_deduped_total",
+        "KV pages NOT shipped because the destination's radix tree "
+        "already held the prompt-prefix node (copied device-locally).",
+    ),
+    "migrate_bytes": (
+        "serving_migrate_bytes_total",
+        "Wire bytes of exported slot states (post-dedup).",
+    ),
+    "migrate_failed": (
+        "serving_migrate_failed_total",
+        "Migration imports that failed after admission (bad checksum, "
+        "torn payload, injection failure) — typed, counted, degraded "
+        "to a bit-exact recompute, never garbage KV.",
+    ),
+}
+
+# Metric families the JAX engine registers that the port leaves out until
+# their subsystems are ported: the constraint cache and validity
+# (structured decoding), the host tier, the model drafter's KV bytes, and
+# the device_* gauges of the sampled on-device profiler
+# (``ServingConfig.profile_every``).
+UNPORTED_FAMILIES = (
+    "serving_constrained_requests_active",
+    "serving_constraint_cache_entries",
+    "serving_constraint_cache_bytes",
+    "serving_constraint_cache_hits_total",
+    "serving_constraint_cache_misses_total",
+    "serving_constraint_validity_rate",
+    "serving_host_tier_prefix_hits_total",
+    "serving_host_tier_budget_bytes",
+    "serving_host_tier_bytes",
+    "serving_host_tier_entries",
+    "serving_host_tier_stashes",
+    "serving_host_tier_hits_total",
+    "serving_host_tier_misses_total",
+    "serving_host_tier_evictions_total",
+    "serving_host_tier_corrupt_total",
+    "serving_spec_drafter_kv_bytes",
+    "device_*",
 )
+
+# the step counts the card's checks turn into kernel launches (the JAX
+# engine has no such counters: its steps are compiled programs)
+STEP_KEYS = ("prefill_chunks", "decode_steps", "spec_steps")
 
 
 class EngineCrashError(RuntimeError):
@@ -114,24 +289,6 @@ class EngineCrashError(RuntimeError):
     in-flight requests with it, rebuilds the slot pool and serves on."""
 
     retriable = True
-
-
-class Stats(dict):
-    """Engine counters: a dict (the /health JSON shape) whose increments
-    and snapshots are locked, because the runner bumps ``rejected`` from
-    HTTP handler threads while the engine thread bumps the rest."""
-
-    def __init__(self, keys):
-        super().__init__((k, 0) for k in keys)
-        self._lock = threading.Lock()
-
-    def inc(self, key: str, n: int = 1) -> None:
-        with self._lock:
-            self[key] += n
-
-    def snapshot(self) -> dict:
-        with self._lock:
-            return dict(self)
 
 
 def unsupported_field(p: SamplingParams) -> Optional[str]:
@@ -174,52 +331,111 @@ def accept_seed(seed: int, t: int) -> int:
     return draw_seed(draw_seed(seed, t), SPEC_ACCEPT_SALT)
 
 
-def _gumbel_argmax(row: torch.Tensor, temperature: float, seed: int) -> int:
+def _gumbel_argmax(row: torch.Tensor, seed: int) -> int:
+    """Gumbel-max draw from a processed row (top-k masked and divided by
+    the temperature), with a generator seeded with ``seed``."""
     gen = torch.Generator(device=row.device)
     gen.manual_seed(seed)
     u = torch.rand(row.shape[-1], generator=gen, device=row.device)
-    return int(torch.argmax(row / temperature - torch.log(-torch.log(u))))
+    return int(torch.argmax(row - torch.log(-torch.log(u))))
 
 
-def _top_k_mask(row: torch.Tensor, top_k: Optional[int]) -> torch.Tensor:
-    """Logits below the k-th largest of their row go to -inf (0/None =
-    off)."""
-    if not top_k:
-        return row
-    kth = torch.topk(row, min(top_k, row.shape[-1]), dim=-1).values[..., -1:]
-    return torch.where(row < kth, torch.full_like(row, -float("inf")), row)
+def _processed(logits: torch.Tensor, params: Sequence[SamplingParams],
+               top_k_on: bool = True):
+    """The JAX ``_sample``'s processed surface of ``logits`` (n, V) or
+    (n, L, V) fp32, batched on their device: values below the k-th
+    largest of their row go to -inf (slot i's ``params[i].top_k``; 0/None
+    = off, and every row off with ``top_k_on=False``, as the JAX verify's
+    all-greedy accept does), then division by the greedy-safe
+    temperature (1 for a greedy row). The port runs no logit pipeline:
+    penalties and constraints are refused at submit. Returns the surface
+    and, when the top-k ranking ran, each row's two largest raw values
+    (else None). Draws, acceptance probabilities and the quality tail
+    all read this one surface."""
+    n, V = logits.shape[0], logits.shape[-1]
+    ks = [(p.top_k or 0) if top_k_on else 0 for p in params]
+    temps = [p.temperature if p.temperature > 0 else 1.0 for p in params]
+    kmax = max(ks)
+    if not kmax and all(t == 1.0 for t in temps):
+        return logits, None
+    ops = torch.as_tensor(np.asarray([temps, ks], np.float32).T,
+                          device=logits.device)
+    bshape = (n,) + (1,) * (logits.dim() - 1)
+    masked, top2 = logits, None
+    if kmax:
+        vals = torch.topk(logits, min(max(kmax, 2), V), dim=-1).values
+        k = ops[:, 1].to(torch.int64)
+        kth = (k - 1).clamp(0, vals.shape[-1] - 1).view(bshape)
+        thresh = vals.gather(-1, kth.expand(*logits.shape[:-1], 1))
+        masked = torch.where((k.view(bshape) > 0) & (logits < thresh),
+                             torch.full_like(logits, -float("inf")), logits)
+        if vals.shape[-1] >= 2:
+            top2 = vals[..., :2]
+    return masked / ops[:, 0].view(bshape), top2
+
+
+def _host_rows(tokens: torch.Tensor, finite: torch.Tensor,
+               em: Optional[torch.Tensor] = None):
+    """Tokens (n, ...) and their finite flags on the host, as numpy
+    (tokens, finite, tail). With the (..., 2) fp32 quality tail ``em``
+    all three come back in ONE copy, packed as int32 (the tail by its
+    float bits); without it the tail is None and the tokens and flags
+    are copied as they are."""
+    if em is None:
+        return tokens.cpu().numpy(), finite.cpu().numpy(), None
+    n, cols = tokens.shape[0], tokens[0].numel()
+    host = torch.cat([tokens.to(torch.int32).reshape(n, -1),
+                      finite.to(torch.int32).reshape(n, -1),
+                      em.view(torch.int32).reshape(n, -1)], dim=1).cpu().numpy()
+    return (host[:, :cols].reshape(tokens.shape),
+            host[:, cols:2 * cols].astype(bool).reshape(finite.shape),
+            host[:, 2 * cols:].view(np.float32).reshape(em.shape))
 
 
 def spec_accept(logits: torch.Tensor, drafts: Sequence[Sequence[int]],
-                params: Sequence[SamplingParams], steps: Sequence[int]):
+                params: Sequence[SamplingParams], steps: Sequence[int],
+                force_reject: bool = False, quality: bool = False):
     """Accept/reject of one verify step, per slot (the JAX
     ``_build_spec_step_fns._accept`` without the logit pipeline).
     ``logits`` (n, L, V) fp32 of the n active slots; ``drafts[i]`` the
     slot's drafted tokens (dl <= L - 1 of them); ``steps[i]`` the index t
     of the token row 0 produces. Greedy rows accept draft j iff it
     equals row j's argmax. Sampled rows accept draft j with probability
-    p_j(d_j) under the top-k / temperature-processed target, with a
+    p_j(d_j) under the processed target (:func:`_processed`), with a
     uniform from :func:`accept_seed`, and draw the correction from row a
     (the first rejected row, or the bonus row) with the rejected token
     masked out — so a row with no draft reduces to :func:`sample_tokens`
-    exactly. Returns host lists (emitted tokens per slot, finite-ok per
-    slot over its used rows)."""
-    pred = torch.argmax(logits, dim=-1).cpu().tolist()
-    finite = torch.isfinite(logits).all(dim=-1).cpu().tolist()
+    exactly. ``force_reject`` rejects every draft (the
+    ``spec_reject_storm`` fault): each slot then emits one token, from
+    row 0. Returns host lists (emitted tokens per slot, finite-ok per
+    slot over its used rows) and, with ``quality``, each row's (entropy,
+    margin) as a host (n, L, 2) float32 array (else None); the argmax,
+    the finite flags and the quality tail come back in one copy."""
+    drawn = any(p.temperature > 0 for p in params)
+    proc = top2 = None
+    if drawn or quality:
+        # the verify ranks for top-k only when a row samples, as JAX's
+        # rungs do
+        proc, top2 = _processed(logits, params, top_k_on=drawn)
+    pred, finite, em_host = _host_rows(
+        torch.argmax(logits, dim=-1), torch.isfinite(logits).all(dim=-1),
+        entropy_margin(torch.log_softmax(proc, dim=-1), logits, top2)
+        if quality else None)
+    pred, finite = pred.tolist(), finite.tolist()
     out, ok = [], []
     for i, (d, p, t0) in enumerate(zip(drafts, params, steps)):
         dl = len(d)
         ok.append(all(finite[i][:dl + 1]))
         if p.temperature <= 0:
             a = 0
-            while a < dl and pred[i][a] == d[a]:
+            while not force_reject and a < dl and pred[i][a] == d[a]:
                 a += 1
             out.append(list(d[:a]) + [pred[i][a]])
             continue
-        rows = _top_k_mask(logits[i, :dl + 1], p.top_k)
+        rows = proc[i, :dl + 1]
         a = 0
-        if dl:
-            probs = torch.softmax(rows[:dl] / p.temperature, dim=-1)
+        if dl and not force_reject:
+            probs = torch.softmax(rows[:dl], dim=-1)
             p_d = probs[torch.arange(dl, device=rows.device),
                         torch.as_tensor(d, device=rows.device)].cpu().tolist()
             for j in range(dl):
@@ -233,28 +449,35 @@ def spec_accept(logits: torch.Tensor, drafts: Sequence[Sequence[int]],
         if a < dl:  # the residual: the target with the rejected token out
             corr = corr.clone()
             corr[d[a]] = -float("inf")
-        out.append(list(d[:a]) + [_gumbel_argmax(corr, p.temperature,
+        out.append(list(d[:a]) + [_gumbel_argmax(corr,
                                                  draw_seed(p.seed, t0 + a))])
-    return out, ok
+    return out, ok, em_host
 
 
 def sample_tokens(logits: torch.Tensor, params: Sequence[SamplingParams],
-                  steps: Sequence[int]):
+                  steps: Sequence[int], quality: bool = False):
     """One token per row of ``logits`` (n, V) fp32. Row i samples with
     ``params[i]``: temperature <= 0 is greedy (argmax, first index on
-    ties); otherwise top-k masking (values below the k-th largest go to
-    -inf; 0/None = off), division by the temperature, and a Gumbel-max
-    draw from a generator seeded with ``draw_seed(seed, steps[i])``.
-    Returns host (tokens int64 (n,), finite-ok bool (n,)) — ``ok`` is
-    over the RAW logits, so a corrupt pool or diverged params surface as
-    a typed crash instead of a garbage argmax."""
-    ok = torch.isfinite(logits).all(dim=-1)
+    ties); otherwise a Gumbel-max draw over the processed surface
+    (:func:`_processed`: top-k masking, division by the temperature) from
+    a generator seeded with ``draw_seed(seed, steps[i])``. Returns host
+    lists (tokens, finite-ok) and, with ``quality``, each row's
+    (entropy, margin) over that same surface as a host (n, 2) float32
+    array (else None), all brought back in one copy. ``ok`` is over the
+    RAW logits, so a corrupt pool or diverged params surface as a typed
+    crash instead of a garbage argmax."""
     tokens = torch.argmax(logits, dim=-1)
-    for i, p in enumerate(params):
-        if p.temperature > 0:
-            tokens[i] = _gumbel_argmax(_top_k_mask(logits[i], p.top_k),
-                                       p.temperature, draw_seed(p.seed, steps[i]))
-    return tokens.cpu(), ok.cpu()
+    drawn = [i for i, p in enumerate(params) if p.temperature > 0]
+    proc = top2 = None
+    if drawn or quality:
+        proc, top2 = _processed(logits, params)
+        for i in drawn:
+            tokens[i] = _gumbel_argmax(proc[i], draw_seed(params[i].seed, steps[i]))
+    tok, ok, em = _host_rows(
+        tokens, torch.isfinite(logits).all(dim=-1),
+        entropy_margin(torch.log_softmax(proc, dim=-1), logits, top2)
+        if quality else None)
+    return tok.tolist(), ok.tolist(), em
 
 
 def resolve_device(device) -> torch.device:
@@ -277,11 +500,15 @@ class ServingEngine:
     thread-safe by itself. ``params`` is the JAX-layout param tree (see
     params.py); the engine keeps a copy on ``device`` with the matmul
     weights cast once to the compute dtype. ``device`` defaults to
-    ``cuda`` and raises when CUDA is absent.
+    ``cuda`` and raises when CUDA is absent. ``registry`` (obs/registry.py;
+    a fresh one when None) holds the counters, histograms and gauges;
+    ``tracer`` (obs/spans.py; the no-op when None) gets the step's host
+    spans and, being real, the request lifecycle instants.
     """
 
     def __init__(self, params: dict, cfg: ModelConfig,
-                 serving: Optional[ServingConfig] = None, device="cuda"):
+                 serving: Optional[ServingConfig] = None, device="cuda",
+                 registry: Optional[Registry] = None, tracer=None):
         self.device = resolve_device(device)
         self.serving = serving or ServingConfig()
         if self.serving.kv_cache_dtype:
@@ -317,7 +544,9 @@ class ServingEngine:
         # outputs of a step() that later raised: already retired, so the
         # supervisor must still deliver them (take_finished)
         self._finished_prior: List[RequestOutput] = []
-        self.stats = Stats(STAT_KEYS)
+        self.steps = dict.fromkeys(STEP_KEYS, 0)
+        self._quality = bool(self.serving.quality_telemetry)
+        self._init_telemetry(registry, tracer)
 
     def _new_cache(self) -> list:
         if self.pages is not None:
@@ -329,19 +558,157 @@ class ServingEngine:
         hook = self._on_retire if (self.pages or self.drafter) else None
         return Scheduler(self.serving, on_retire=hook)
 
+    def _init_telemetry(self, registry: Optional[Registry], tracer) -> None:
+        """The JAX engine's metric families (names, help, labels), less
+        :data:`UNPORTED_FAMILIES`; a supervised restart keeps them."""
+        self.registry = registry or Registry()
+        self.tracer = tracer or NOOP_TRACER
+        # the request lifecycle (admit / first_token / finish instants,
+        # the request span) is gated on a real tracer, so tracing off
+        # costs nothing per request or per token
+        self._tracing = self.tracer is not NOOP_TRACER
+        reg = self.registry
+        self.stats = StatsMap(reg, _STAT_SPEC)
+        self._finished_counter = reg.counter(
+            "serving_requests_finished_total",
+            "Retired requests by finish reason.", labelnames=("reason",))
+        self._ttft_hist = reg.histogram(
+            "serving_ttft_seconds",
+            "Time from submit to first generated token.")
+        self._itl_hist = reg.histogram(
+            "serving_itl_seconds",
+            "Inter-token latency between consecutive generated tokens.")
+        self._queue_wait_hist = reg.histogram(
+            "serving_queue_wait_seconds",
+            "Time from submit to first prefill chunk (slot admission).")
+        self._step_hist = reg.histogram(
+            "serving_engine_step_seconds",
+            "Wall time of one engine iteration (schedule+prefill+decode).")
+        self._slot_gauge = reg.gauge(
+            "serving_slot_occupancy",
+            "KV slots currently held by in-flight requests.")
+        reg.gauge("serving_slots", "Size of the fixed KV slot pool.").set(
+            self.serving.num_slots)
+        self._kv_gauge = reg.gauge(
+            "serving_kv_utilization",
+            "Fraction of pooled KV positions holding live sequence state.")
+        self._queue_gauge = reg.gauge(
+            "serving_queue_depth", "Requests waiting for a slot.")
+        self._queue_class_gauge = reg.gauge(
+            "serving_queue_depth_by_class",
+            "Requests waiting for a slot, by priority class.",
+            labelnames=("priority",))
+        self._class_ttft_hist = reg.histogram(
+            "serving_class_ttft_seconds",
+            "Time from submit to first generated token, by priority "
+            "class.", labelnames=("priority",))
+        self._class_itl_hist = reg.histogram(
+            "serving_class_itl_seconds",
+            "Inter-token latency between consecutive generated tokens, "
+            "by priority class.", labelnames=("priority",))
+        reg.gauge(
+            "serving_kv_cache_bytes_per_slot",
+            "HBM bytes of pooled KV-cache state per slot "
+            "(includes int8 scale planes when quantized).",
+        ).set(sum(t.numel() * t.element_size() for layer in self.cache
+                  for t in layer.values()) // self._rows)
+        reg.gauge(
+            "serving_kv_cache_dtype",
+            "Active KV-cache storage dtype (constant 1; the identity "
+            "rides the label).", labelnames=("dtype",),
+        ).set(1, dtype=str(kv_store_dtype(self.cfg)).replace("torch.", ""))
+        if self.pages is not None:
+            reg.gauge(
+                "serving_kv_pages_total",
+                "Physical KV pages in the pool (trash page excluded).",
+            ).set(self.pages.stats()["total"])
+            self._pages_free_gauge = reg.gauge(
+                "serving_kv_pages_free", "KV pages currently unallocated.")
+            self._pages_cached_gauge = reg.gauge(
+                "serving_kv_pages_cached",
+                "KV pages held by the radix prefix cache.")
+            self._cow_forks_counter = reg.counter(
+                "serving_kv_pages_cow_forks_total",
+                "Copy-on-write forks of shared prefix pages.")
+            self._prefix_hits_counter = reg.counter(
+                "serving_prefix_cache_hits_total",
+                "Admissions that reused a cached prompt prefix.")
+            self._prefix_misses_counter = reg.counter(
+                "serving_prefix_cache_misses_total",
+                "Admissions with no cached prefix to reuse.")
+            self._prefix_evictions_counter = reg.counter(
+                "serving_prefix_cache_evictions_total",
+                "Cached prefix pages LRU-evicted under page pressure.")
+            reg.gauge(
+                "serving_kv_page_bytes",
+                "HBM bytes per physical KV page across all layers "
+                "(int8-aware: values + fp32 scale planes).",
+            ).set(page_bytes(self.cfg, self.serving.kv_page_size))
+        self._spec_accept_gauge = None
+        if self._spec_k:
+            self._spec_accept_gauge = reg.gauge(
+                "serving_spec_acceptance_rate",
+                "Accepted / proposed draft tokens (cumulative).")
+            reg.gauge(
+                "serving_spec_draft_len",
+                "Compiled draft-length rung k of the fused verify step.",
+            ).set(self._spec_k)
+            reg.gauge(
+                "serving_spec_mode",
+                "Active speculative-decoding drafter (constant 1; the "
+                "identity rides the label).", labelnames=("mode",),
+            ).set(1, mode=self.serving.spec_mode)
+        # model-quality telemetry (obs/quality.py): the accumulator and
+        # the fault flag exist always (cheap pops on every retire path),
+        # the monitor and its families only with quality on
+        self._q_acc: dict = {}
+        self._q_force_nan = False
+        self._quality_monitor = None
+        self._lambda_gauge = None
+        self._lambda_summary: dict = {}
+        if self._quality:
+            ref = None
+            if self.serving.quality_fingerprint:
+                # a bad reference path fails at build, not at judging
+                ref = load_fingerprint(self.serving.quality_fingerprint)
+            self._quality_monitor = QualityMonitor(reference=ref)
+            self._q_entropy_hist = reg.histogram(
+                "serving_token_entropy",
+                "Sampled-distribution entropy (nats) per emitted token.",
+                buckets=ENTROPY_BINS)
+            self._q_margin_hist = reg.histogram(
+                "serving_logit_margin",
+                "Top-1 vs top-2 processed-logit margin per emitted "
+                "token.", buckets=MARGIN_BINS)
+            self._q_drift_gauge = reg.gauge(
+                "serving_quality_drift",
+                "Max PSI drift of the live entropy/margin sketches vs "
+                "the recorded reference fingerprint (0 = no reference, "
+                "thin evidence, or no drift).")
+            self._lambda_gauge = reg.gauge(
+                "serving_lambda_mean",
+                "Per-layer effective differential-attention lambda of "
+                "the serving params (head/term mean; absent for the "
+                "control family).", labelnames=("layer",))
+            self._refresh_lambda_gauges()
+
     # -- submission ---------------------------------------------------
 
     def submit(self, prompt: Sequence[int],
                params: Optional[SamplingParams] = None,
-               deadline: Optional[float] = None, **kw) -> int:
+               deadline: Optional[float] = None,
+               trace: Optional[TraceContext] = None, **kw) -> int:
         """Queue one request; returns its request_id. ``kw`` are
         SamplingParams fields. ``deadline`` is an ABSOLUTE
         ``time.perf_counter`` timestamp (None applies
-        ``ServingConfig.default_deadline_s`` when set). Raises ValueError
-        when the request cannot fit the engine (family limits, vocab
-        range) or asks for a feature of a later slice, and a
-        non-retriable PagePoolExhaustedError when its worst case exceeds
-        the whole page pool."""
+        ``ServingConfig.default_deadline_s`` when set). ``trace`` is the
+        request's trace context (obs/trace.py): host-side only, stamped
+        onto its lifecycle instants and span when tracing is on, and
+        echoed as ``RequestOutput.trace_id``. Raises ValueError when the
+        request cannot fit the engine (family limits, vocab range) or
+        asks for a feature of a later slice, and a non-retriable
+        PagePoolExhaustedError when its worst case exceeds the whole
+        page pool."""
         req = Request.make(self._next_id, prompt, params, **kw)
         bad = unsupported_field(req.params)
         if bad is not None:
@@ -392,7 +759,7 @@ class ServingEngine:
         if deadline is None and self.serving.default_deadline_s > 0:
             deadline = now + self.serving.default_deadline_s
         try:
-            self.scheduler.submit(req, p, now, deadline or 0.0)
+            self.scheduler.submit(req, p, now, deadline or 0.0, trace=trace)
         except Exception:
             self.stats.inc("rejected")
             raise
@@ -408,7 +775,9 @@ class ServingEngine:
             return False
         self.scheduler.cancel(request_id)
         del self._seeds[request_id]
+        self._q_acc.pop(request_id, None)
         self.stats.inc("cancelled")
+        self._finished_counter.inc(reason="cancelled")
         return True
 
     def has_work(self) -> bool:
@@ -426,25 +795,50 @@ class ServingEngine:
         if not self.scheduler.has_work():
             out, self._finished_prior = self._finished_prior, []
             return out
+        iteration = self.stats["iterations"]
+        t_step = time.perf_counter()
+        faults.serve_fire(iteration)
+        if self._quality:
+            # the drift detector's drills: quality_drift perturbs the
+            # live params (logits stay finite, only the quality axis
+            # sees it); quality_nan poisons this iteration's tail on the
+            # host, which must degrade to "no signal"
+            if faults.quality_drift_at(iteration):
+                self._apply_quality_drift()
+            self._q_force_nan = faults.quality_nan_at(iteration)
         finished = self._finished_prior
-        now = time.perf_counter()
-        for req, prompt, t_submit, _dl, _trace in self.scheduler.shed_expired(now):
-            finished.append(self._expire_queued(req, prompt, t_submit, now))
-        for slot in self.scheduler.expired_slots(now):
-            finished.append(self._finish(slot, "deadline", now=now))
-        admit = None
-        if self.pages is not None:
-            admit = lambda slot, entry: self._admit_paged(slot, entry, finished)
-        chunks = self.scheduler.plan(admit=admit)
+        if self.pages is not None and faults.page_exhaust_at(iteration):
+            # the next admission plan raises the typed
+            # PagePoolExhaustedError: the 503 shed path
+            self.pages.force_exhaust()
+        with self.tracer.span("schedule", iteration=iteration):
+            now = time.perf_counter()
+            for req, prompt, t_submit, _dl, trace in self.scheduler.shed_expired(now):
+                finished.append(self._expire_queued(req, prompt, t_submit,
+                                                    now, trace))
+            for slot in self.scheduler.expired_slots(now):
+                finished.append(self._finish(slot, "deadline", now=now))
+            admit = None
+            if self.pages is not None:
+                admit = lambda slot, entry: self._admit_paged(slot, entry, finished)
+            chunks = self.scheduler.plan(admit=admit)
         if chunks:
-            self._run_prefill(chunks, finished)
+            with self.tracer.span("prefill", iteration=iteration,
+                                  chunks=len(chunks)):
+                self._run_prefill(chunks, finished)
+        if faults.serve_corrupt_at(iteration):
+            self._corrupt_one_slot()
+        if self.pages is not None and faults.prefix_corrupt_at(iteration):
+            self._corrupt_cached_prefix()
         active = self.scheduler.active_slots()
         proposals = self._collect_proposals(active) if active and self.drafter else {}
         if proposals:
-            self._decode_spec(active, proposals, finished)
+            self._decode_spec(active, proposals, iteration, finished)
         elif active:
-            self._decode(active, finished)
+            self._decode(active, iteration, finished)
         self.stats.inc("iterations")
+        self._step_hist.observe(time.perf_counter() - t_step)
+        self._update_gauges()
         self._finished_prior = []
         return finished
 
@@ -459,6 +853,15 @@ class ServingEngine:
         token from its last position."""
         for slot, start, size in chunks:
             i = slot.index
+            if start == slot.cached_len:
+                # the first chunk RUN: the request got its slot, and the
+                # submit -> admission interval is TTFT's queue wait
+                self._queue_wait_hist.observe(
+                    time.perf_counter() - slot.submit_time)
+                if self._tracing:
+                    self.tracer.instant(
+                        "admit", rid=slot.request.request_id, slot=i,
+                        cached=slot.cached_len, **self._targs(slot.trace))
             if self.pages is not None:
                 table = self._table_row(i)
                 row = gather_slot_cache(self.cache, table)
@@ -475,19 +878,19 @@ class ServingEngine:
                 scatter_slot_cache(self.cache, row, table)
             slot.filled = start + size
             self.stats.inc("prefill_tokens", size)
-            self.stats.inc("prefill_chunks")
+            self.steps["prefill_chunks"] += 1
             if slot.filled == slot.prompt_len:
-                tok, ok = sample_tokens(
+                tok, ok, em = sample_tokens(
                     logits[0, -1:].to(torch.float32), [slot.request.params],
-                    [len(slot.generated)],
-                )
-                if not bool(ok[0]):
+                    [len(slot.generated)], quality=self._quality)
+                if not ok[0]:
                     raise EngineCrashError(
                         f"non-finite logits prefilling slot {i} (request "
                         f"{slot.request.request_id}): corrupt slot pool or "
                         "numerically diverged params"
                     )
-                self._emit(slot, int(tok[0]), time.perf_counter(), finished)
+                self._emit(slot, tok[0], time.perf_counter(), finished,
+                           None if em is None else em[0])
 
     @staticmethod
     def _pos0(s: Slot) -> int:
@@ -507,7 +910,19 @@ class ServingEngine:
                 "corrupt slot pool or numerically diverged params"
             )
 
-    def _decode(self, active: List[Slot], finished: List[RequestOutput]) -> None:
+    def _decode_args(self, iteration: int, active: List[Slot]) -> dict:
+        """The decode span's args: with a real tracer, the trace ids the
+        step advanced, so a stitched timeline shows which requests
+        shared it."""
+        args = {"iteration": iteration, "active": len(active)}
+        if self._tracing:
+            tids = [s.trace.trace_id for s in active if s.trace is not None]
+            if tids:
+                args["trace_ids"] = tids
+        return args
+
+    def _decode(self, active: List[Slot], iteration: int,
+                finished: List[RequestOutput]) -> None:
         """One batched L=1 step over the whole pool; only the active
         rows' K/V land in live rows/pages and only their tokens are
         used."""
@@ -517,35 +932,38 @@ class ServingEngine:
         for s in active:
             tokens[s.index] = s.generated[-1]
             pos[s.index] = self._pos0(s)
-        rows = torch.as_tensor([s.index for s in active], device=self.device)
-        tok_t = torch.as_tensor(tokens, device=self.device)
-        pos_t = torch.as_tensor(pos, device=self.device)
-        if self.pages is not None:
-            tables = self.pages.tables()
-            write = np.zeros((B,), np.int32)  # inactive rows: the trash page
-            for s in active:
-                write[s.index] = self._write_page(tables, s.index, int(pos[s.index]))
-            logits, _ = forward_decode_pool_paged(
-                self.params, tok_t, pos_t, self.cache,
-                torch.as_tensor(tables, device=self.device),
-                torch.as_tensor(write, device=self.device), self.cfg,
-                rope_len=self.max_total)
-        else:
-            logits, _ = forward_decode_pool(
-                self.params, tok_t, pos_t, self.cache, self.cfg,
-                rope_len=self.max_total, active=rows)
-        toks, ok = sample_tokens(
-            logits[rows].to(torch.float32),
-            [s.request.params for s in active],
-            [len(s.generated) for s in active],
-        )
-        self._check_finite([s for s, good in zip(active, ok.tolist()) if not good],
+        with self.tracer.span("decode", **self._decode_args(iteration, active)):
+            rows = torch.as_tensor([s.index for s in active], device=self.device)
+            tok_t = torch.as_tensor(tokens, device=self.device)
+            pos_t = torch.as_tensor(pos, device=self.device)
+            if self.pages is not None:
+                tables = self.pages.tables()
+                write = np.zeros((B,), np.int32)  # inactive rows: the trash page
+                for s in active:
+                    write[s.index] = self._write_page(tables, s.index,
+                                                      int(pos[s.index]))
+                logits, _ = forward_decode_pool_paged(
+                    self.params, tok_t, pos_t, self.cache,
+                    torch.as_tensor(tables, device=self.device),
+                    torch.as_tensor(write, device=self.device), self.cfg,
+                    rope_len=self.max_total)
+            else:
+                logits, _ = forward_decode_pool(
+                    self.params, tok_t, pos_t, self.cache, self.cfg,
+                    rope_len=self.max_total, active=rows)
+        with self.tracer.span("sample", iteration=iteration):
+            toks, ok, em = sample_tokens(
+                logits[rows].to(torch.float32),
+                [s.request.params for s in active],
+                [len(s.generated) for s in active], quality=self._quality)
+        self._check_finite([s for s, good in zip(active, ok) if not good],
                            "decoding")
-        self.stats.inc("decode_steps")
-        self.stats.inc("decode_tokens", len(active))
-        now = time.perf_counter()
-        for s, tok in zip(active, toks.tolist()):
-            self._emit(s, int(tok), now, finished)
+        with self.tracer.span("emit", iteration=iteration):
+            self.steps["decode_steps"] += 1
+            self.stats.inc("decode_tokens", len(active))
+            now = time.perf_counter()
+            for n, (s, tok) in enumerate(zip(active, toks)):
+                self._emit(s, tok, now, finished, None if em is None else em[n])
 
     # -- speculative decoding (serving/spec.py) ------------------------
 
@@ -572,12 +990,13 @@ class ServingEngine:
             infos.append(DraftSlot(s.index, s.prompt_ids + s.generated, pos0, cap))
         return self.drafter.propose_all(infos) if infos else {}
 
-    def _decode_spec(self, active: List[Slot], proposals: dict,
+    def _decode_spec(self, active: List[Slot], proposals: dict, iteration: int,
                      finished: List[RequestOutput]) -> None:
         """One k+1-row verify step over the whole pool: row 0 of each
         slot is its last emitted token, rows 1..dl its drafts; rows past
         the draft length (and every row of an inactive slot) write to
-        the trash row/page. Then accept/reject per slot and emit each
+        the trash row/page. Then accept/reject per slot (every draft
+        rejected under the ``spec_reject_storm`` fault) and emit each
         slot's accepted prefix plus its corrected token."""
         B = self.serving.num_slots
         L = self._spec_k + 1
@@ -603,40 +1022,48 @@ class ServingEngine:
                     s.index if self.pages is None
                     else self._write_page(tables, s.index, p0 + j))
         dev = self.device
-        args = (self.params, torch.as_tensor(tokens, device=dev),
-                torch.as_tensor(pos, device=dev), self.cache)
-        batched = self.serving.spec_verify == "batched"
-        if self.pages is not None:
-            logits, _ = forward_decode_spec_paged(
-                *args, torch.as_tensor(tables, device=dev),
-                torch.as_tensor(targets, device=dev), self.cfg,
-                rope_len=self.max_total, batched=batched)
-        else:
-            logits, _ = forward_decode_spec(
-                *args, self.cfg, torch.as_tensor(targets, device=dev),
-                rope_len=self.max_total, batched=batched)
-        rows = torch.as_tensor([s.index for s in active], device=dev)
-        emitted, ok = spec_accept(logits[rows], drafts,
-                                  [s.request.params for s in active],
-                                  [len(s.generated) for s in active])
+        decode_args = self._decode_args(iteration, active)
+        decode_args["drafted"] = sum(len(d) for d in drafts)
+        with self.tracer.span("decode", **decode_args):
+            args = (self.params, torch.as_tensor(tokens, device=dev),
+                    torch.as_tensor(pos, device=dev), self.cache)
+            batched = self.serving.spec_verify == "batched"
+            if self.pages is not None:
+                logits, _ = forward_decode_spec_paged(
+                    *args, torch.as_tensor(tables, device=dev),
+                    torch.as_tensor(targets, device=dev), self.cfg,
+                    rope_len=self.max_total, batched=batched)
+            else:
+                logits, _ = forward_decode_spec(
+                    *args, self.cfg, torch.as_tensor(targets, device=dev),
+                    rope_len=self.max_total, batched=batched)
+        with self.tracer.span("sample", iteration=iteration):
+            rows = torch.as_tensor([s.index for s in active], device=dev)
+            emitted, ok, em = spec_accept(
+                logits[rows], drafts, [s.request.params for s in active],
+                [len(s.generated) for s in active],
+                force_reject=faults.spec_reject_storm_at(iteration),
+                quality=self._quality)
         self._check_finite([s for s, good in zip(active, ok) if not good],
                            "verifying")
-        self.stats.inc("decode_steps")
-        self.stats.inc("spec_steps")
-        now = time.perf_counter()
-        n_out = 0
-        for s, d, toks in zip(active, drafts, emitted):
-            if d:
-                s.spec_proposed += len(d)
-                s.spec_accepted += len(toks) - 1
-                self.stats.inc("spec_proposed", len(d))
-                self.stats.inc("spec_accepted", len(toks) - 1)
-            for tok in toks:
-                n_out += 1
-                self._emit(s, int(tok), now, finished)
-                if s.state == FREE:
-                    break  # EOS/stop/length retired the slot mid-block
-        self.stats.inc("decode_tokens", n_out)
+        with self.tracer.span("emit", iteration=iteration):
+            self.steps["decode_steps"] += 1
+            self.steps["spec_steps"] += 1
+            now = time.perf_counter()
+            n_out = 0
+            for n, (s, d, toks) in enumerate(zip(active, drafts, emitted)):
+                if d:
+                    s.spec_proposed += len(d)
+                    s.spec_accepted += len(toks) - 1
+                    self.stats.inc("spec_proposed", len(d))
+                    self.stats.inc("spec_accepted", len(toks) - 1)
+                for j, tok in enumerate(toks):
+                    n_out += 1
+                    self._emit(s, tok, now, finished,
+                               None if em is None else em[n, j])
+                    if s.state == FREE:
+                        break  # EOS/stop/length retired the slot mid-block
+            self.stats.inc("decode_tokens", n_out)
 
     def spec_stats(self) -> Optional[dict]:
         """Speculative-decoding snapshot for /health (None with spec
@@ -654,13 +1081,148 @@ class ServingEngine:
             "accepted": accepted,
             "acceptance_rate": (round(accepted / proposed, 4)
                                 if proposed else None),
-            "verify_steps": st["spec_steps"],
+            "drafter_crashes": st["spec_drafter_crashes"],
+            "verify_steps": self.steps["spec_steps"],
             "drafter": self.drafter.stats(),
         }
 
     def page_stats(self) -> Optional[dict]:
         """Page-pool snapshot for /health (None on the contiguous pool)."""
         return None if self.pages is None else self.pages.stats()
+
+    def _update_gauges(self) -> None:
+        """Refresh the point-in-time gauges (/metrics): slot occupancy,
+        queue depths, the spec acceptance rate, the quality drift and the
+        fraction of pooled KV positions holding live state; the paged
+        pool also mirrors its locked host counters."""
+        self._slot_gauge.set(self.scheduler.occupied())
+        self._queue_gauge.set(self.scheduler.queue_len())
+        for cls, depth in self.scheduler.queue_depths().items():
+            self._queue_class_gauge.set(depth, priority=cls)
+        if self._spec_accept_gauge is not None:
+            proposed = self.stats["spec_proposed"]
+            self._spec_accept_gauge.set(
+                self.stats["spec_accepted"] / proposed if proposed else 0.0)
+        if self._quality_monitor is not None:
+            self._q_drift_gauge.set(self._quality_monitor.drift())
+        if self.pages is not None:
+            st = self.pages.stats()
+            self._pages_free_gauge.set(st["free"])
+            self._pages_cached_gauge.set(st["cached"])
+            self._cow_forks_counter.set(st["cow_forks_total"])
+            self._prefix_hits_counter.set(st["hits_total"])
+            self._prefix_misses_counter.set(st["misses_total"])
+            self._prefix_evictions_counter.set(st["evictions_total"])
+            held = sum(min(s.filled + len(s.generated), self.cfg.block_size)
+                       for s in self.scheduler.slots if s.state != FREE)
+            self._kv_gauge.set(held / (st["total"] * self.serving.kv_page_size))
+            return
+        held = sum(min(s.filled + len(s.generated), self.max_total)
+                   for s in self.scheduler.slots if s.state != FREE)
+        self._kv_gauge.set(held / (self.serving.num_slots * self.max_total))
+
+    # -- model-quality observability (obs/quality.py) ------------------
+
+    def quality_stats(self) -> Optional[dict]:
+        """Point-in-time quality snapshot (None with quality off): live
+        sketch means, token counts, skipped ("no signal") observations,
+        the drift score, the constraint-validity rate (1.0: the port
+        serves no constrained request yet), the cumulative spec
+        acceptance when spec ran, and the per-layer lambda summary."""
+        if self._quality_monitor is None:
+            return None
+        out = self._quality_monitor.stats()
+        out["constraint_validity_rate"] = 1.0
+        proposed = self.stats["spec_proposed"]
+        if proposed:
+            out["spec_acceptance_rate"] = round(
+                self.stats["spec_accepted"] / proposed, 4)
+        out.update(self._lambda_summary)
+        return out
+
+    def quality_fingerprint(self, meta: Optional[dict] = None) -> Optional[dict]:
+        """The live sketches as a reference fingerprint —
+        ``--quality-record``'s payload (obs/quality.py:save_fingerprint).
+        None with quality off."""
+        if self._quality_monitor is None:
+            return None
+        return self._quality_monitor.fingerprint(meta=meta)
+
+    def quality_row(self) -> Optional[dict]:
+        """One ``{"record": "quality"}`` JSONL row with the
+        ``lambda_l<k>`` keys ``tools/lambda_report.py --serving`` renders.
+        None with quality off."""
+        if self._quality_monitor is None:
+            return None
+        return build_quality_row(self._quality_monitor,
+                                 self.stats["iterations"],
+                                 lambdas=self._lambda_summary)
+
+    def _refresh_lambda_gauges(self) -> None:
+        """Mirror the serving params' per-layer effective lambdas into
+        ``serving_lambda_mean{layer=}``; at build and after a params
+        rebind (the quality_drift fault), never per step: the summary
+        copies device scalars to the host."""
+        if self._lambda_gauge is None:
+            return
+        self._lambda_summary = serving_lambda_summary(self.params, self.cfg)
+        for key, val in self._lambda_summary.items():
+            if "_t" in key:
+                continue  # per-term ndiff detail rides quality_row only
+            self._lambda_gauge.set(val, layer=key[len("lambda_l"):])
+
+    def _apply_quality_drift(self) -> None:
+        """The ``quality_drift@N`` fault: perturb the live params so the
+        generated distributions shift while every logit stays finite.
+        Every family's lm head is scaled by 0.25 (the greedy argmax is
+        unchanged); diff and ndiff also get +2.0 on both ``lambda_q[0]``
+        and ``lambda_k[0]`` of layer 1, which the lambda gauges show.
+        The tree is rebound with new tensors, as the JAX engine rebinds
+        its params."""
+        params = dict(self.params)
+        if self.cfg.model in ("diff", "ndiff"):
+            blocks = list(params["blocks"])
+            blk = dict(blocks[0])
+            attn = dict(blk["attn"])
+            for name in ("lambda_q", "lambda_k"):
+                vec = attn[name].clone()
+                vec[0] += 2.0
+                attn[name] = vec
+            blk["attn"] = attn
+            blocks[0] = blk
+            params["blocks"] = blocks
+        params["lm_head"] = {k: v * 0.25 for k, v in params["lm_head"].items()}
+        self.params = params
+        self._refresh_lambda_gauges()
+
+    def _q_observe(self, rid: int, ent: float, margin: float,
+                   rep: bool) -> None:
+        """Fold one emitted token's quality tail into the histograms, the
+        drift monitor and the request's accumulator. The ``quality_nan``
+        fault poisons the values here: non-finite signals are skipped
+        everywhere downstream ("no signal", never a crash)."""
+        if self._q_force_nan:
+            ent = margin = float("nan")
+        if math.isfinite(ent):
+            self._q_entropy_hist.observe(ent)
+        if math.isfinite(margin):
+            self._q_margin_hist.observe(margin)
+        self._quality_monitor.observe(ent, margin)
+        acc = self._q_acc.get(rid)
+        if acc is None:
+            # ent_sum, ent_n, margin_sum, margin_n, rep_run, rep_max
+            acc = self._q_acc[rid] = [0.0, 0, 0.0, 0, 0, 0]
+        if math.isfinite(ent):
+            acc[0] += ent
+            acc[1] += 1
+        if math.isfinite(margin):
+            acc[2] += margin
+            acc[3] += 1
+        if rep:
+            acc[4] += 1
+            acc[5] = max(acc[5], acc[4])
+        else:
+            acc[4] = 0
 
     # -- paged admission / release (serving/pages.py) ------------------
 
@@ -678,13 +1240,14 @@ class ServingEngine:
         cache and the page pool. Returns the cached prefix length to
         skip (>= 0), None to keep it queued (pages short right now), or
         -1 after shedding it with a ``page_exhausted`` output."""
-        request, prompt, t_submit, _deadline, _trace = entry
+        request, prompt, t_submit, _deadline, trace = entry
         try:
             adm = self.pages.plan_admission(
                 slot.index, [int(t) for t in prompt],
                 request.params.max_new_tokens)
         except PagePoolExhaustedError:
-            finished.append(self._shed_page_exhausted(request, prompt, t_submit))
+            finished.append(self._shed_page_exhausted(request, prompt,
+                                                      t_submit, trace))
             return -1
         if adm is None:
             return None
@@ -704,13 +1267,19 @@ class ServingEngine:
         )
         self.pages.release(slot.index, prompt, cacheable)
 
-    def _shed_page_exhausted(self, request, prompt,
-                             submit_time: float) -> RequestOutput:
-        """A request the page pool refused: shed at admission with a
-        typed output the server maps to HTTP 503 ``page_pool_exhausted``;
+    def _shed_page_exhausted(self, request, prompt, submit_time: float,
+                             trace=None) -> RequestOutput:
+        """A request the page pool refused (never fits now, or the
+        ``page_exhaust`` fault): shed at admission with a typed output
+        the server maps to HTTP 503 ``page_pool_exhausted``;
         ``retry_after`` comes from the pool's observed drain rate."""
         self._seeds.pop(request.request_id, None)
+        self._q_acc.pop(request.request_id, None)
         self.stats.inc("page_shed")
+        self._finished_counter.inc(reason="page_exhausted")
+        if self._tracing:
+            self.tracer.instant("finish", rid=request.request_id,
+                                reason="page_exhausted", **self._targs(trace))
         return RequestOutput(
             request_id=request.request_id,
             prompt=[int(t) for t in prompt],
@@ -719,19 +1288,107 @@ class ServingEngine:
             submit_time=submit_time,
             first_token_time=0.0,
             finish_time=time.perf_counter(),
+            trace_id=trace.trace_id if trace is not None else None,
             retry_after=self.pages.estimated_drain_s(self.pages.pages_needed(
                 len(prompt), request.params.max_new_tokens)),
         )
 
+    # -- fault injection (utils/faults.py) ------------------------------
+
+    @staticmethod
+    def _poison(key: str, t: torch.Tensor, idx) -> None:
+        """NaN-poison rows ``idx`` of one cache leaf in place (int8 values
+        go to 0 while their fp32 scale planes go NaN, so every
+        dequantized read is NaN)."""
+        ix = (slice(None), idx) if KV_CACHE_BATCH_AXIS[key] else idx
+        t[ix] = float("nan") if t.is_floating_point() else 0
+
+    def _poison_pages(self, pages: List[int]) -> None:
+        """NaN-poison the given physical pages across every layer and
+        leaf."""
+        idx = torch.as_tensor(pages, device=self.device)
+        for layer in self.cache:
+            for key, t in layer.items():
+                self._poison(key, t, idx)
+
+    def _corrupt_one_slot(self) -> None:
+        """The ``serve_corrupt@N`` fault: NaN-poison one occupied slot's
+        KV rows, preferring an ACTIVE slot (whose written keys are
+        visible), so the next decode's logits go NaN and the
+        finite-logits guard raises the typed crash."""
+        target = next(
+            (s for s in self.scheduler.slots if s.state == ACTIVE), None
+        ) or next(
+            (s for s in self.scheduler.slots
+             if s.state != FREE and s.filled > 0), None)
+        if target is None:
+            return
+        i = target.index
+        if self.pages is not None:
+            # paged: the slot's KV lives in the pages its table row names
+            row = [int(p) for p in self.pages.table_row(i)
+                   if int(p) != PagePool.TRASH]
+            if row:
+                self._poison_pages(row)
+            return
+        for layer in self.cache:
+            for key, t in layer.items():
+                self._poison(key, t, i)
+
+    def _corrupt_cached_prefix(self) -> None:
+        """The ``prefix_corrupt@N`` fault: NaN-poison one radix-cached
+        page, preferring one shared with an occupied slot, so the next
+        decode trips the finite-logits guard; the supervised restart
+        then rebuilds the pool and evicts the poisoned prefix."""
+        cached = set(self.pages.cached_pages())
+        if not cached:
+            return
+        tables = self.pages.tables()
+        target = None
+        for s in self.scheduler.slots:
+            if s.state == FREE:
+                continue
+            for pg in tables[s.index]:
+                if int(pg) in cached:
+                    target = int(pg)
+                    break
+            if target is not None:
+                break
+        if target is None:
+            target = next(iter(cached))
+        self._poison_pages([target])
+
     # -- emission / retirement -----------------------------------------
 
+    @staticmethod
+    def _targs(trace) -> dict:
+        return instant_args(trace) if trace is not None else {}
+
     def _emit(self, slot: Slot, token: int, now: float,
-              finished: List[RequestOutput]) -> None:
+              finished: List[RequestOutput], em=None) -> None:
+        """Append one token; ``em`` is its (entropy, margin) with quality
+        on. The repetition flag compares it with the token before it: the
+        last emitted, or the last prompt token for the first."""
+        prev_token_t = slot.token_times[-1] if slot.token_times else None
+        if em is not None:
+            prev = (slot.generated[-1] if slot.generated
+                    else int(slot.prompt[-1]) if slot.prompt_len else -1)
+            self._q_observe(slot.request.request_id, float(em[0]),
+                            float(em[1]), prev >= 0 and token == prev)
         slot.generated.append(token)
         slot.token_times.append(now)
+        cls = slot.request.params.priority
         if len(slot.generated) == 1:
             slot.first_token_time = now
             slot.state = ACTIVE
+            self._ttft_hist.observe(now - slot.submit_time)
+            self._class_ttft_hist.observe(now - slot.submit_time, priority=cls)
+            if self._tracing:
+                self.tracer.instant("first_token", rid=slot.request.request_id,
+                                    **self._targs(slot.trace))
+        elif prev_token_t is not None:
+            self._itl_hist.observe(now - prev_token_t)
+            self._class_itl_hist.observe(now - prev_token_t, priority=cls)
         p = slot.request.params
         eos = (p.eos_token_id if p.eos_token_id is not None
                else self.serving.eos_token_id)
@@ -749,8 +1406,23 @@ class ServingEngine:
 
     def _finish(self, slot: Slot, reason: str,
                 now: Optional[float] = None) -> RequestOutput:
+        rid = slot.request.request_id
+        quality = None
+        if self._quality:
+            acc = self._q_acc.pop(rid, None)
+            quality = {
+                "entropy_mean": (round(acc[0] / acc[1], 6)
+                                 if acc and acc[1] else None),
+                "margin_mean": (round(acc[2] / acc[3], 6)
+                                if acc and acc[3] else None),
+                "tokens_observed": acc[1] if acc else 0,
+                "rep_run_max": acc[5] if acc else 0,
+            }
+            if slot.spec_proposed:
+                quality["spec_acceptance"] = round(
+                    slot.spec_accepted / slot.spec_proposed, 4)
         out = RequestOutput(
-            request_id=slot.request.request_id,
+            request_id=rid,
             prompt=[int(t) for t in slot.prompt],
             tokens=list(slot.generated),
             finish_reason=reason,
@@ -759,19 +1431,37 @@ class ServingEngine:
             finish_time=(slot.token_times[-1] if slot.token_times
                          else (now if now is not None else time.perf_counter())),
             token_times=list(slot.token_times),
+            trace_id=slot.trace.trace_id if slot.trace is not None else None,
             spec_proposed=slot.spec_proposed,
             spec_accepted=slot.spec_accepted,
+            quality=quality,
         )
-        del self._seeds[slot.request.request_id]
+        if self._tracing:
+            self.tracer.instant("finish", rid=rid, reason=reason,
+                                **self._targs(slot.trace))
+            # the request's submit -> finish lifetime as one span,
+            # parented to the caller's traceparent hop
+            self.tracer.complete(
+                "request", slot.submit_time, out.finish_time, rid=rid,
+                reason=reason, tokens=len(out.tokens),
+                **(child_span_args(slot.trace) if slot.trace is not None
+                   else {}))
+        del self._seeds[rid]
         self.stats.inc("deadline_expired" if reason == "deadline" else "completed")
+        self._finished_counter.inc(reason=reason)
         self.scheduler.retire(slot)
         return out
 
     def _expire_queued(self, request, prompt, submit_time: float,
-                       now: float) -> RequestOutput:
+                       now: float, trace=None) -> RequestOutput:
         """A request whose deadline passed while it waited for a slot."""
         self._seeds.pop(request.request_id, None)
+        self._q_acc.pop(request.request_id, None)
         self.stats.inc("deadline_expired")
+        self._finished_counter.inc(reason="deadline")
+        if self._tracing:
+            self.tracer.instant("finish", rid=request.request_id,
+                                reason="deadline", **self._targs(trace))
         return RequestOutput(
             request_id=request.request_id,
             prompt=[int(t) for t in prompt],
@@ -780,6 +1470,7 @@ class ServingEngine:
             submit_time=submit_time,
             first_token_time=0.0,
             finish_time=now,
+            trace_id=trace.trace_id if trace is not None else None,
         )
 
     # -- synchronous use ----------------------------------------------
@@ -819,14 +1510,17 @@ class ServingEngine:
         requests lost their KV and are returned for the supervisor to
         fail; queued requests survive verbatim (same ids, prompts,
         deadlines, seeds). Nothing cached survives: the page pool and its
-        radix tree start empty and the drafter forgets its maps. Params
-        are never written, so the rebuilt pool starts from the same
-        weights."""
+        radix tree start empty and the drafter forgets its maps. The
+        registry and its counts survive, ``engine_restarts`` counting the
+        rebuilds. Params are never written in place, so the rebuilt pool
+        starts from the same weights."""
         lost: List[int] = []
         for slot in self.scheduler.slots:
             if slot.state != FREE and slot.request is not None:
-                lost.append(slot.request.request_id)
-                self._seeds.pop(slot.request.request_id, None)
+                rid = slot.request.request_id
+                lost.append(rid)
+                self._seeds.pop(rid, None)
+                self._q_acc.pop(rid, None)
         preserved = list(self.scheduler.queue)
         if self.pages is not None:
             self.pages.reset()
@@ -836,4 +1530,6 @@ class ServingEngine:
         self.scheduler = self._new_scheduler()
         self.scheduler.queue.extend(preserved)
         self.stats.inc("engine_restarts")
+        # the crashed step never reached its gauge refresh
+        self._update_gauges()
         return lost

@@ -18,13 +18,22 @@ Counterpart of the JAX package's serving/server.py for this slice:
   ``{"prompt_ids": [...]}`` or, when the server was started with a
   tokenizer (``--tokenizer DIR``), ``{"prompt": "text"}``, whose reply
   carries the decoded ``"text"`` too (same request and reply keys as
-  the JAX server), and ``GET /health`` for engine state and stats, with
-  ``kv_pages`` (the paged pool and its prefix cache) and ``spec``
-  (speculative decoding) when those are on, and ``GET /ready``: 200
-  while the runner accepts work, 503 with ``Retry-After`` while it
-  drains, restarts or has failed (:meth:`EngineRunner.accepting`). A
-  request the page pool cannot take answers HTTP 503
-  ``page_pool_exhausted``.
+  the JAX server, ``"quality"`` included with quality telemetry on),
+  ``GET /health`` for engine state and stats, with ``kv_pages`` (the
+  paged pool and its prefix cache) and ``spec`` (speculative decoding)
+  when those are on, ``GET /ready``: 200 while the runner accepts work,
+  503 with ``Retry-After`` while it drains, restarts or has failed
+  (:meth:`EngineRunner.accepting`), and ``GET /metrics``: the engine's
+  registry in the Prometheus text format, the ``slo_*`` burn-rate
+  gauges refreshed on each scrape. A request the page pool cannot take
+  answers HTTP 503 ``page_pool_exhausted``.
+
+A request's ``traceparent`` field (W3C shape, obs/trace.py) gives the
+engine its trace context, so the span trace (``--trace-path``) stamps
+the request's lifecycle with its trace id; a request without one gets a
+fresh id. Every reply carries ``trace_id``. ``--event-log`` appends
+``request_received``, ``request_finished`` and ``request_failed`` lines
+and ``drained`` at shutdown (obs/events.py).
 
 A request that carries a field of a later slice of the port (structured
 decoding, penalties, logprobs, replay fields) is refused with HTTP 400
@@ -34,7 +43,6 @@ decoding, penalties, logprobs, replay fields) is refused with HTTP 400
 from __future__ import annotations
 
 import json
-import os
 import sys
 import threading
 import time
@@ -42,6 +50,13 @@ from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional, Sequence
 
+from differential_transformer_replication_tpu_torch.obs.events import NOOP_EVENTS
+from differential_transformer_replication_tpu_torch.obs.registry import (
+    CONTENT_TYPE as METRICS_CONTENT_TYPE,
+)
+from differential_transformer_replication_tpu_torch.obs.trace import (
+    from_payload as trace_from_payload,
+)
 from differential_transformer_replication_tpu_torch.serving.engine import (
     EngineCrashError,
     ServingEngine,
@@ -70,6 +85,20 @@ LATER_SLICE_KEYS = (
     "key_offset", "journal_id",
 )
 
+# the JAX server's flags that wait for a later slice -> the ROADMAP item
+LATER_FLAGS = {
+    "--host-tier-bytes": "the host tier (ROADMAP Queue A: serving "
+                         "subsystems, item 8)",
+    "--quantize-weights": "int8 weights (ROADMAP Queue A: serving "
+                          "subsystems, item 8)",
+    "--spec-drafter-ckpt": "ModelDrafter (ROADMAP Queue A: serving "
+                           "subsystems, item 8)",
+    "--profile-every": "the continuous device profile (ROADMAP Queue A: "
+                       "tooling and analysis, item 10)",
+    "--profile-dir": "the continuous device profile (ROADMAP Queue A: "
+                     "tooling and analysis, item 10)",
+}
+
 
 class ShuttingDownError(RuntimeError):
     """Admission refused: the server is draining (or already stopped)."""
@@ -80,13 +109,14 @@ class ShuttingDownError(RuntimeError):
 class _Pending:
     """One submitted request's handle across the thread boundary."""
 
-    __slots__ = ("prompt", "params", "deadline", "done", "result", "error",
-                 "rid", "cancelled", "settled")
+    __slots__ = ("prompt", "params", "deadline", "trace", "done", "result",
+                 "error", "rid", "cancelled", "settled")
 
-    def __init__(self, prompt, params, deadline=None):
+    def __init__(self, prompt, params, deadline=None, trace=None):
         self.prompt = prompt
         self.params = params
         self.deadline = deadline  # absolute perf_counter ts, or None
+        self.trace = trace  # TraceContext (obs/trace.py) or None
         self.done = threading.Event()
         self.result: Optional[RequestOutput] = None
         self.error: Optional[BaseException] = None
@@ -153,13 +183,15 @@ class EngineRunner:
 
     def submit(self, prompt: Sequence[int],
                params: Optional[SamplingParams] = None,
-               deadline_s: Optional[float] = None, **kw) -> _Pending:
+               deadline_s: Optional[float] = None, trace=None,
+               **kw) -> _Pending:
         """Thread-safe enqueue. Raises :class:`QueueFullError` at the
-        admission bound and :class:`ShuttingDownError` while draining."""
+        admission bound and :class:`ShuttingDownError` while draining.
+        ``trace`` is the request's TraceContext, handed to the engine."""
         params = params or SamplingParams(**kw)
         deadline = (time.perf_counter() + deadline_s
                     if deadline_s is not None else None)
-        pending = _Pending(list(prompt), params, deadline)
+        pending = _Pending(list(prompt), params, deadline, trace)
         with self._cond:
             if self._failed:
                 err = EngineCrashError(
@@ -193,8 +225,10 @@ class EngineRunner:
     def generate(self, prompt: Sequence[int],
                  params: Optional[SamplingParams] = None,
                  timeout: Optional[float] = None,
-                 deadline_s: Optional[float] = None, **kw) -> RequestOutput:
-        pending = self.submit(prompt, params, deadline_s=deadline_s, **kw)
+                 deadline_s: Optional[float] = None, trace=None,
+                 **kw) -> RequestOutput:
+        pending = self.submit(prompt, params, deadline_s=deadline_s,
+                              trace=trace, **kw)
         if not pending.done.wait(timeout):
             self.cancel(pending)
             raise TimeoutError("generation timed out")
@@ -360,7 +394,7 @@ class EngineRunner:
                 try:
                     pending.rid = self.engine.submit(
                         pending.prompt, params=pending.params,
-                        deadline=pending.deadline,
+                        deadline=pending.deadline, trace=pending.trace,
                     )
                     waiters[pending.rid] = pending
                 except Exception as e:  # invalid request: fail the caller
@@ -396,9 +430,10 @@ class ServingClient:
     def generate(self, prompt: Sequence[int],
                  params: Optional[SamplingParams] = None,
                  timeout: Optional[float] = None,
-                 deadline_s: Optional[float] = None, **kw) -> RequestOutput:
+                 deadline_s: Optional[float] = None, trace=None,
+                 **kw) -> RequestOutput:
         return self.runner.generate(prompt, params, timeout=timeout,
-                                    deadline_s=deadline_s, **kw)
+                                    deadline_s=deadline_s, trace=trace, **kw)
 
     def generate_batch(self, prompts: Sequence[Sequence[int]],
                        params: Optional[Sequence[SamplingParams]] = None,
@@ -433,6 +468,11 @@ class ServingClient:
     def stats(self) -> dict:
         return self.runner.stats_snapshot()
 
+    @property
+    def registry(self):
+        """The engine's metrics registry: what ``GET /metrics`` renders."""
+        return self.runner.engine.registry
+
     def status(self) -> str:
         return self.runner.status()
 
@@ -443,20 +483,9 @@ class ServingClient:
         self.runner.close()
 
 
-def trace_id_of(req: dict) -> str:
-    """The request's trace id: taken from a W3C ``traceparent`` field
-    (``00-<32 hex>-<16 hex>-<flags>``) when one parses, else minted."""
-    tp = req.get("traceparent")
-    if isinstance(tp, str):
-        parts = tp.strip().lower().split("-")
-        if (len(parts) == 4 and len(parts[1]) == 32
-                and all(c in "0123456789abcdef" for c in parts[1])
-                and parts[1] != "0" * 32):
-            return parts[1]
-    return os.urandom(16).hex()
-
-
-def _make_handler(client: ServingClient, tokenizer=None):
+def _make_handler(client: ServingClient, tokenizer=None, events=None,
+                  slo=None):
+    events = events or NOOP_EVENTS
 
     class Handler(BaseHTTPRequestHandler):
         def _reply(self, code: int, payload: dict,
@@ -479,7 +508,17 @@ def _make_handler(client: ServingClient, tokenizer=None):
             return {"Retry-After": str(secs)}
 
         def do_GET(self):
-            if self.path == "/health":
+            if self.path == "/metrics":
+                if slo is not None:
+                    # every scrape carries a current judgment (obs/slo.py)
+                    slo.evaluate()
+                body = client.registry.render().encode("utf-8")
+                self.send_response(200)
+                self.send_header("Content-Type", METRICS_CONTENT_TYPE)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+            elif self.path == "/health":
                 status = client.status()
                 self._reply(200, {
                     "ok": status in ("healthy", "degraded"),
@@ -502,9 +541,9 @@ def _make_handler(client: ServingClient, tokenizer=None):
             else:
                 self._reply(404, {"error": f"unknown path {self.path}"})
 
-        def _run_generate(self, req: dict) -> RequestOutput:
-            """Parse a /generate body and run it; raises the typed errors
-            do_POST maps to HTTP."""
+        def _run_generate(self, req: dict, ctx) -> RequestOutput:
+            """Parse a /generate body and run it under trace context
+            ``ctx``; raises the typed errors do_POST maps to HTTP."""
             if not isinstance(req, dict):
                 raise ValueError("the request body must be a JSON object")
             for key in req:
@@ -542,35 +581,52 @@ def _make_handler(client: ServingClient, tokenizer=None):
                 draft_len=None if draft_len is None else int(draft_len),
             )
             deadline_s = req.get("deadline_s")
+            # arrival at the handler, not admission: the engine's
+            # trace-stamped `admit` instant marks that
+            events.emit("request_received", trace_id=ctx.trace_id,
+                        prompt_len=len(prompt_ids))
             return client.generate(
                 [int(t) for t in prompt_ids], params,
                 timeout=float(req.get("timeout", 600.0)),
                 deadline_s=None if deadline_s is None else float(deadline_s),
+                trace=ctx,
             )
 
         def do_POST(self):
             if self.path != "/generate":
                 self._reply(404, {"error": f"unknown path {self.path}"})
                 return
-            trace_id = None
+            ctx = None  # TraceContext once the body parses
+
+            def _fail(code: int, payload: dict, headers=None) -> None:
+                # every error reply carries the trace id (once the body
+                # parsed) and lands one structured event
+                payload["trace_id"] = ctx.trace_id if ctx is not None else None
+                events.emit("request_failed", status=code,
+                            code=payload.get("code"),
+                            trace_id=payload["trace_id"])
+                self._reply(code, payload, headers=headers)
+
             try:
                 n = int(self.headers.get("Content-Length", "0"))
                 req = json.loads(self.rfile.read(n) or b"{}")
-                trace_id = trace_id_of(req) if isinstance(req, dict) else None
-                out = self._run_generate(req)
+                if not isinstance(req, dict):
+                    raise ValueError("the request body must be a JSON object")
+                # the traceparent field is the trace contract; a request
+                # without one gets a fresh context
+                ctx = trace_from_payload(req)
+                out = self._run_generate(req, ctx)
             except (ValueError, TypeError, json.JSONDecodeError) as e:
-                self._reply(400, {"error": str(e), "code": "bad_request",
-                                  "trace_id": trace_id})
+                _fail(400, {"error": str(e), "code": "bad_request"})
                 return
             except QueueFullError as e:
-                self._reply(503, {"error": f"server overloaded: {e}",
-                                  "code": "queue_full", "trace_id": trace_id},
-                            headers=self._retry_after())
+                _fail(503, {"error": f"server overloaded: {e}",
+                            "code": "queue_full"},
+                      headers=self._retry_after())
                 return
             except ShuttingDownError as e:
-                self._reply(503, {"error": str(e), "code": "shutting_down",
-                                  "trace_id": trace_id},
-                            headers=self._retry_after())
+                _fail(503, {"error": str(e), "code": "shutting_down"},
+                      headers=self._retry_after())
                 return
             except PagePoolExhaustedError as e:
                 # retriable: the pool drains as requests retire; a
@@ -581,32 +637,28 @@ def _make_handler(client: ServingClient, tokenizer=None):
                     ra = getattr(e, "retry_after", None)
                     headers = ({"Retry-After": str(max(1, int(ra + 0.999)))}
                                if ra is not None else self._retry_after())
-                self._reply(503, {"error": str(e), "code": "page_pool_exhausted",
-                                  "trace_id": trace_id}, headers=headers)
+                _fail(503, {"error": str(e), "code": "page_pool_exhausted"},
+                      headers=headers)
                 return
             except EngineCrashError as e:
                 if getattr(e, "retriable", True):
-                    self._reply(503, {"error": f"engine crashed: {e}",
-                                      "code": "engine_crash",
-                                      "trace_id": trace_id},
-                                headers=self._retry_after())
+                    _fail(503, {"error": f"engine crashed: {e}",
+                                "code": "engine_crash"},
+                          headers=self._retry_after())
                 else:
-                    self._reply(503, {"error": str(e), "code": "engine_failed",
-                                      "trace_id": trace_id})
+                    _fail(503, {"error": str(e), "code": "engine_failed"})
                 return
             except DeadlineExceededError as e:
-                self._reply(504, {
-                    "error": str(e), "code": "deadline", "trace_id": trace_id,
+                _fail(504, {
+                    "error": str(e), "code": "deadline",
                     "partial_tokens": e.output.tokens if e.output else [],
                 })
                 return
             except TimeoutError:
-                self._reply(503, {"error": "generation timed out",
-                                  "code": "timeout", "trace_id": trace_id})
+                _fail(503, {"error": "generation timed out", "code": "timeout"})
                 return
             except Exception as e:  # unexpected failure, still typed
-                self._reply(500, {"error": str(e) or repr(e),
-                                  "code": "internal", "trace_id": trace_id})
+                _fail(500, {"error": str(e) or repr(e), "code": "internal"})
                 return
             payload = {
                 "request_id": out.request_id,
@@ -614,10 +666,15 @@ def _make_handler(client: ServingClient, tokenizer=None):
                 "tokens": out.tokens,
                 "finish_reason": out.finish_reason,
                 "ttft_ms": round(out.ttft * 1e3, 3),
-                "trace_id": trace_id,
+                "trace_id": out.trace_id or ctx.trace_id,
             }
+            if out.quality is not None:
+                payload["quality"] = out.quality
             if tokenizer is not None:
                 payload["text"] = tokenizer.decode(out.tokens)
+            events.emit("request_finished", trace_id=payload["trace_id"],
+                        reason=out.finish_reason, tokens=len(out.tokens),
+                        ttft_ms=payload["ttft_ms"])
             self._reply(200, payload)
 
         def log_message(self, *a):  # quiet by default
@@ -627,27 +684,19 @@ def _make_handler(client: ServingClient, tokenizer=None):
 
 
 def serve(client: ServingClient, host: str = "127.0.0.1", port: int = 8000,
-          tokenizer=None) -> ThreadingHTTPServer:
+          tokenizer=None, events=None, slo=None) -> ThreadingHTTPServer:
     """Build the HTTP server (not yet serving; call serve_forever()).
-    ``tokenizer`` (data/tokenizer.py) enables text prompts."""
-    return ThreadingHTTPServer((host, port), _make_handler(client, tokenizer))
+    ``tokenizer`` (data/tokenizer.py) enables text prompts; ``events`` is
+    an obs/events.py EventLog (None = off); ``slo`` an obs/slo.py
+    SLOMonitor evaluated on every /metrics scrape."""
+    return ThreadingHTTPServer(
+        (host, port), _make_handler(client, tokenizer, events, slo))
 
 
-def main() -> None:
-    """CLI: serve a training checkpoint (``--checkpoint DIR``, either
-    package's format) or a random-init demo model (weights from seed 0)
-    over HTTP on ``--device``; ``--tokenizer DIR`` enables text
-    prompts."""
+def build_parser():
+    """The server's command line: the JAX server's flags and defaults,
+    less :data:`LATER_FLAGS`."""
     import argparse
-    import signal
-
-    import torch
-
-    from differential_transformer_replication_tpu_torch.config import (
-        ModelConfig,
-        ServingConfig,
-    )
-    from differential_transformer_replication_tpu_torch.models import init_model
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--checkpoint", default=None,
@@ -673,13 +722,36 @@ def main() -> None:
     p.add_argument("--prefill-chunk", type=int, default=128)
     p.add_argument("--prefill-budget", type=int, default=256)
     p.add_argument("--max-seq-len", type=int, default=0)
-    p.add_argument("--max-queue-len", type=int, default=0)
+    p.add_argument("--decode-attention-impl", default="",
+                   choices=("", "xla", "pallas"),
+                   help="NO EFFECT in the port: accepted so that the JAX "
+                        "server's command lines run, and kept in the model "
+                        "config ('' keeps the model config's). 'xla' does "
+                        "not select a plain route: the device picks the "
+                        "decode attention (the Hopper kernel on the card, "
+                        "its plain version on the CPU)")
+    p.add_argument("--max-queue-len", type=int, default=0,
+                   help="reject (HTTP 503) submissions past this many "
+                        "waiting requests; 0 = unbounded")
     p.add_argument("--default-deadline", type=float, default=0.0)
     p.add_argument("--drain-timeout", type=float, default=30.0)
     p.add_argument("--max-restarts", type=int, default=3)
     p.add_argument("--restart-backoff", type=float, default=0.5)
     p.add_argument("--restart-backoff-max", type=float, default=30.0)
-    p.add_argument("--step-time-budget", type=float, default=0.0)
+    p.add_argument("--step-time-budget", type=float, default=0.0,
+                   help="watchdog: mark the engine degraded on /health "
+                        "when one decode iteration exceeds this many "
+                        "seconds (0 = off)")
+    p.add_argument("--priority-aging", type=float, default=10.0,
+                   help="anti-starvation aging (seconds): every this "
+                        "many seconds waited improves a queued "
+                        "request's effective priority by one class, so "
+                        "batch traffic cannot starve under sustained "
+                        "high-priority load (0 = strict classes)")
+    p.add_argument("--priority-max-slots", default="",
+                   help="per-class slot bounds as 'class:N,...' (e.g. "
+                        "'batch:6') capping how many slots one class "
+                        "may hold; '' = no bounds")
     p.add_argument("--kv-cache-dtype", default="",
                    choices=("", "auto", "bf16", "int8"),
                    help="KV-cache storage dtype; int8 stores per-vector "
@@ -708,7 +780,123 @@ def main() -> None:
                    help="'exact' (k+1 unrolled L=1 steps: greedy output "
                         "bit-identical to no spec) or 'batched' (one pass "
                         "through the multi-row decode-attention kernel)")
-    args = p.parse_args()
+    p.add_argument("--trace-path", default=None,
+                   help="write a Chrome-trace-event JSON of engine "
+                        "iterations (schedule/prefill/decode/sample/emit "
+                        "spans + per-request trace-stamped lifecycle; "
+                        "open in Perfetto or merge fleet-wide with "
+                        "tools/trace_stitch.py) to this path")
+    p.add_argument("--event-log", default=None,
+                   help="append structured JSONL events (request "
+                        "received/finished/failed with trace ids; "
+                        "obs/events.py) to this path")
+    p.add_argument("--event-log-max-bytes", type=int, default=0,
+                   help="rotate --event-log when it reaches this many "
+                        "bytes (atomic rename cascade, whole lines "
+                        "only; 0 = never rotate)")
+    p.add_argument("--event-log-keep", type=int, default=3,
+                   help="rotated --event-log generations to keep "
+                        "(events.jsonl.1 ... .N; 0 = truncate)")
+    p.add_argument("--quality-telemetry", action="store_true",
+                   help="compute per-token model-quality signals "
+                        "(sampled-distribution entropy, top-1 logit "
+                        "margin, repetition runs) on the device beside "
+                        "the sampler (obs/quality.py): per-request "
+                        "quality stats on responses, "
+                        "serving_token_entropy / serving_logit_margin "
+                        "histograms and serving_lambda_mean{layer=} / "
+                        "serving_quality_drift gauges on /metrics")
+    p.add_argument("--quality-fingerprint", default=None,
+                   help="reference quality fingerprint JSON to compare "
+                        "live traffic against (PSI drift score as "
+                        "serving_quality_drift; recorded earlier with "
+                        "--quality-record); implies --quality-telemetry")
+    p.add_argument("--quality-record", default=None,
+                   help="write this replica's quality fingerprint "
+                        "(quantile sketches of the live entropy/margin "
+                        "distributions) to this path at drain/shutdown; "
+                        "implies --quality-telemetry")
+    p.add_argument("--slo-ttft", type=float, default=1.0,
+                   help="TTFT latency objective bound in seconds "
+                        "(obs/slo.py; burn rates exposed as slo_* "
+                        "gauges on /metrics)")
+    p.add_argument("--slo-itl", type=float, default=0.25,
+                   help="inter-token latency objective bound in seconds")
+    p.add_argument("--slo-target", type=float, default=0.99,
+                   help="latency objectives' target fraction of "
+                        "requests under the bound")
+    p.add_argument("--slo-availability-target", type=float,
+                   default=0.999,
+                   help="availability objective target (completed vs "
+                        "rejected/deadline-expired)")
+    return p
+
+
+def refused_flags(argv) -> list:
+    return [a.split("=")[0] for a in argv if a.split("=")[0] in LATER_FLAGS]
+
+
+def serving_config_from_args(args):
+    """The ``ServingConfig`` the parsed flags ask for."""
+    from differential_transformer_replication_tpu_torch.config import (
+        ServingConfig,
+    )
+
+    return ServingConfig(
+        num_slots=args.num_slots, prefill_chunk=args.prefill_chunk,
+        prefill_budget=args.prefill_budget, max_seq_len=args.max_seq_len,
+        max_queue_len=args.max_queue_len,
+        default_deadline_s=args.default_deadline,
+        drain_timeout_s=args.drain_timeout, max_restarts=args.max_restarts,
+        restart_backoff_s=args.restart_backoff,
+        restart_backoff_max_s=args.restart_backoff_max,
+        step_time_budget_s=args.step_time_budget,
+        priority_aging_s=args.priority_aging,
+        priority_max_slots=args.priority_max_slots,
+        kv_cache_dtype=args.kv_cache_dtype, kv_page_size=args.kv_page_size,
+        kv_pool_pages=args.kv_pool_pages,
+        prefix_cache=not args.no_prefix_cache,
+        prefix_cache_pages=args.prefix_cache_pages, spec_mode=args.spec_mode,
+        spec_draft_len=args.spec_draft_len, spec_verify=args.spec_verify,
+        # recording or comparing a fingerprint both need the telemetry
+        # tail, so either flag arms it
+        quality_telemetry=(args.quality_telemetry
+                           or bool(args.quality_fingerprint)
+                           or bool(args.quality_record)),
+        quality_fingerprint=args.quality_fingerprint or "",
+    )
+
+
+def main(argv=None) -> None:
+    """CLI: serve a training checkpoint (``--checkpoint DIR``, either
+    package's format) or a random-init demo model (weights from seed 0)
+    over HTTP on ``--device``; ``--tokenizer DIR`` enables text
+    prompts."""
+    import dataclasses
+    import hashlib
+    import signal
+
+    import torch
+
+    from differential_transformer_replication_tpu_torch.config import (
+        ModelConfig,
+    )
+    from differential_transformer_replication_tpu_torch.models import init_model
+    from differential_transformer_replication_tpu_torch.obs.registry import (
+        set_build_info,
+    )
+    from differential_transformer_replication_tpu_torch.obs.slo import (
+        SLOMonitor,
+        default_serving_objectives,
+    )
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    p = build_parser()
+    bad = refused_flags(argv)
+    if bad:
+        p.error("; ".join(f"{f} is not run by the port yet: {LATER_FLAGS[f]}"
+                          for f in bad))
+    args = p.parse_args(argv)
 
     if args.checkpoint:
         from differential_transformer_replication_tpu_torch.train.checkpoint import (
@@ -729,6 +917,9 @@ def main() -> None:
         gen = torch.Generator(device="cpu")
         gen.manual_seed(0)
         params = init_model(gen, model_cfg)
+    if args.decode_attention_impl:
+        model_cfg = model_cfg.replace(
+            decode_attention_impl=args.decode_attention_impl)
     tokenizer = None
     if args.tokenizer:
         from differential_transformer_replication_tpu_torch.data.tokenizer import (
@@ -743,25 +934,63 @@ def main() -> None:
             check_tokenizer_matches(
                 tokenizer, model_cfg.vocab_size,
                 meta.get("tokenizer_fingerprint"), context=args.checkpoint)
-    serving = ServingConfig(
-        num_slots=args.num_slots, prefill_chunk=args.prefill_chunk,
-        prefill_budget=args.prefill_budget, max_seq_len=args.max_seq_len,
-        max_queue_len=args.max_queue_len,
-        default_deadline_s=args.default_deadline,
-        drain_timeout_s=args.drain_timeout, max_restarts=args.max_restarts,
-        restart_backoff_s=args.restart_backoff,
-        restart_backoff_max_s=args.restart_backoff_max,
-        step_time_budget_s=args.step_time_budget,
-        kv_cache_dtype=args.kv_cache_dtype, kv_page_size=args.kv_page_size,
-        kv_pool_pages=args.kv_pool_pages,
-        prefix_cache=not args.no_prefix_cache,
-        prefix_cache_pages=args.prefix_cache_pages, spec_mode=args.spec_mode,
-        spec_draft_len=args.spec_draft_len, spec_verify=args.spec_verify,
-    )
-    engine = ServingEngine(params, model_cfg, serving, device=args.device)
+    serving = serving_config_from_args(args)
+    tracer = None
+    if args.trace_path:
+        from differential_transformer_replication_tpu_torch.obs.spans import (
+            SpanTracer,
+        )
+
+        tracer = SpanTracer(args.trace_path, process_name="serving-engine")
+    events = None
+    if args.event_log:
+        from differential_transformer_replication_tpu_torch.obs.events import (
+            EventLog,
+        )
+
+        events = EventLog(args.event_log, process="replica",
+                          max_bytes=args.event_log_max_bytes,
+                          keep=args.event_log_keep)
+    engine = ServingEngine(params, model_cfg, serving, device=args.device,
+                           tracer=tracer)
     client = ServingClient(engine)
-    httpd = serve(client, args.host, args.port, tokenizer)
+    # process identity on /metrics: a fleet scrape tells replicas apart
+    # and spots config drift
+    cfg_hash = hashlib.sha1(json.dumps(
+        dataclasses.asdict(model_cfg), sort_keys=True, default=str,
+    ).encode()).hexdigest()[:12]
+    set_build_info(engine.registry, role="replica", config_hash=cfg_hash,
+                   version=torch.__version__)
+    slo_latency, slo_availability = default_serving_objectives(
+        ttft_threshold_s=args.slo_ttft, itl_threshold_s=args.slo_itl,
+        latency_target=args.slo_target,
+        availability_target=args.slo_availability_target,
+    )
+    slo = SLOMonitor(engine.registry, latency=slo_latency,
+                     availability=slo_availability)
+    httpd = serve(client, args.host, args.port, tokenizer, events=events,
+                  slo=slo)
     drained = {"done": False}
+    fingerprint_saved = {"done": False}
+
+    def _save_quality_fingerprint():
+        """Snapshot the live quality sketches to --quality-record; once
+        (the drain path and the final cleanup both call it)."""
+        if not args.quality_record or fingerprint_saved["done"]:
+            return
+        fingerprint_saved["done"] = True
+        try:
+            from differential_transformer_replication_tpu_torch.obs.quality import (
+                save_fingerprint,
+            )
+
+            save_fingerprint(args.quality_record, engine.quality_fingerprint(
+                meta={"model": model_cfg.model, "config_hash": cfg_hash}))
+            print(f"[serve] quality fingerprint written to "
+                  f"{args.quality_record}", file=sys.stderr)
+        except Exception as e:  # forensics must not block shutdown
+            print(f"[serve] quality fingerprint save failed: {e!r}",
+                  file=sys.stderr)
 
     def _graceful(signum, frame):
         del frame
@@ -772,7 +1001,16 @@ def main() -> None:
                 ok = client.drain()
                 print(f"[serve] drain {'complete' if ok else 'TIMED OUT'}",
                       file=sys.stderr)
+            except Exception as e:
+                print(f"[serve] drain failed: {e!r}", file=sys.stderr)
             finally:
+                # buffered telemetry lands before the process goes away
+                _save_quality_fingerprint()
+                if tracer is not None:
+                    tracer.close()
+                if events is not None:
+                    events.emit("drained")
+                    events.close()
                 drained["done"] = True
                 httpd.shutdown()
 
@@ -784,7 +1022,8 @@ def main() -> None:
           f"{serving.num_slots} slots, {engine.cfg.kv_cache_dtype} KV, "
           f"{'paged' if serving.paged() else 'contiguous'} pool, spec "
           f"{serving.spec_mode or 'off'} — POST "
-          f"http://{args.host}:{args.port}/generate")
+          f"http://{args.host}:{args.port}/generate, metrics at GET "
+          f"http://{args.host}:{args.port}/metrics")
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:
@@ -793,6 +1032,12 @@ def main() -> None:
         httpd.server_close()
         if not drained["done"]:
             client.close()
+        _save_quality_fingerprint()
+        if tracer is not None:
+            tracer.close()
+            print(f"[serve] span trace written to {args.trace_path}")
+        if events is not None:
+            events.close()
 
 
 if __name__ == "__main__":

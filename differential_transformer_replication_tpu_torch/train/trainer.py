@@ -601,6 +601,8 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
                 age_gauge=obs["heartbeat_age"],
             )
             watchdog.add_context(heartbeat_ages=heartbeat.peer_ages)
+            # no beat may be mid-write when the watchdog exits 113
+            watchdog.add_exit_hook(heartbeat.close)
 
         # the guard's rollback target: seeded at loop entry so one always
         # exists, refreshed every anomaly_snapshot_interval good

@@ -51,7 +51,7 @@ import sys
 import threading
 import time
 import traceback
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 # Exit status of a watchdog fire. Distinct from every code the trainer
 # can exit with organically (0, 1, tracebacks) and outside the shell's
@@ -164,6 +164,7 @@ class StepWatchdog:
         self._fired = False
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        self._exit_hooks: List[Callable[[], None]] = []
         if self.budget_s > 0:
             self._poll_s = (
                 float(poll_s) if poll_s is not None
@@ -185,6 +186,12 @@ class StepWatchdog:
         exist: compile counter, device-profile sampler, heartbeat
         ages)."""
         self._context.update(fns)
+
+    def add_exit_hook(self, fn: Callable[[], None]) -> None:
+        """Run ``fn`` on the fire path just before the exit, after the
+        report: the heartbeat's publisher is stopped and joined there, so
+        no half-written ``hb-<i>.json.tmp.<pid>`` outlives the process."""
+        self._exit_hooks.append(fn)
 
     def arm(self, iter_num: int, budget_s: Optional[float] = None) -> None:
         """Start (or refresh) the deadline for one armed section."""
@@ -284,4 +291,9 @@ class StepWatchdog:
                   f"{self._report_timeout_s:.0f}s (diagnostics storage "
                   "is itself stuck?); exiting without it",
                   file=sys.stderr, flush=True)
+        for hook in self._exit_hooks:
+            try:
+                hook()
+            except Exception:  # noqa: BLE001 — exiting is the contract
+                pass
         self._exit_fn(HANG_EXIT_CODE)

@@ -9,9 +9,15 @@ and checkpoint layer can use it without device initialization.
 
 A copy of the JAX package's ``utils/faults.py``: the same kinds, spec
 grammar, ``DTX_FAULTS`` variable and one-shot rules, so one plan arms
-either package. The serving, router, migration and control-plane kinds
-parse as there and stay inert until the port's subsystems that fire
-them land (ROADMAP Queue A: serving subsystems).
+either package. The port's serving engine fires ``serve_raise``,
+``serve_hang``, ``canary_regress`` (all three through
+:func:`serve_fire`), ``serve_corrupt``, ``page_exhaust``,
+``prefix_corrupt``, ``spec_reject_storm``, ``quality_drift`` and
+``quality_nan`` at the JAX engine's points. ``spec_drafter_crash``,
+``constrain_dead_end``, the host-tier kinds (``page_demote_fail``,
+``page_promote_hang``, ``page_swap_corrupt``) and the router, migration
+and control-plane kinds parse as there and stay inert until the port's
+subsystems that fire them land (ROADMAP Queue A: serving subsystems).
 
 A fault PLAN is a comma-separated spec of ``kind@step`` (or
 ``kind@a-b`` for an inclusive step range, or bare ``kind`` for

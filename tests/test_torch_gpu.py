@@ -388,6 +388,52 @@ def test_engine_on_the_card_matches_the_cpu(gen, kind):
     assert [o.tokens for o in on_card] == [o.tokens for o in on_cpu]
 
 
+@pytest.mark.parametrize("shape", [(8, 12000), (8, 5, 12000)],
+                         ids=["sampler", "verify"])
+def test_quality_vector_on_the_card_matches_the_cpu(gen, shape):
+    """The quality tail (plain torch ops, no kernel of its own) at the
+    recipe's vocab: the card's result equals the CPU's within 1e-5,
+    fully masked and top-k-masked rows included."""
+    from differential_transformer_replication_tpu_torch.models.decode import (
+        quality_vector,
+    )
+
+    cpu = torch.Generator()
+    cpu.manual_seed(4)
+    proc = torch.randn(shape, generator=cpu) * 4
+    flat = proc.view(-1, shape[-1])
+    flat[1] = -torch.inf
+    flat[2, 50:] = -torch.inf
+    lp = torch.log_softmax(proc / 0.7, dim=-1)
+    tokens = torch.randint(0, 3, shape[:-1], generator=cpu)
+    prev = torch.randint(-1, 3, shape[:-1], generator=cpu)
+    want = quality_vector(lp, proc, tokens, prev)
+    got = quality_vector(*(t.cuda() for t in (lp, proc, tokens, prev))).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5, equal_nan=True)
+
+
+@pytest.mark.parametrize("spec", [False, True], ids=["plain", "paged-spec"])
+def test_quality_telemetry_moves_no_token_on_the_card(gen, spec):
+    """A 2-layer bf16 engine gives the same greedy tokens with quality
+    telemetry on and off (the tail rides the tokens' copy to the host),
+    and every request carries its quality when on."""
+    cfg = ModelConfig(model="diff", vocab_size=12000, n_embd=128, n_head=2,
+                      n_layer=2, block_size=128, compute_dtype="bfloat16")
+    params = init_model(gen, cfg)
+    motif = [11, 12, 13, 14, 15, 16]
+    prompts = [motif * 4, [(7 * i) % 12000 for i in range(40)], motif * 2 + [9]]
+    extra = dict(kv_page_size=16, spec_mode="ngram") if spec else {}
+    outs = {}
+    for q in (False, True):
+        serving = ServingConfig(num_slots=2, prefill_chunk=16, prefill_budget=32,
+                                quality_telemetry=q, **extra)
+        outs[q] = ServingEngine(params, cfg, serving).generate(
+            prompts, max_new_tokens=20, temperature=0.0)
+    assert [o.tokens for o in outs[True]] == [o.tokens for o in outs[False]]
+    assert all(o.quality["tokens_observed"] == 20 for o in outs[True])
+    assert all(o.quality is None for o in outs[False])
+
+
 # ---------------------------------------------------------------------------
 # the training kernels
 # ---------------------------------------------------------------------------

@@ -113,7 +113,7 @@ def test_paged_prefix_spec_greedy_tokens_match_jax_engine(kind, verify):
     assert tpages["hits_total"] == jpages["hits_total"] >= 1
     assert tpages == jpages
     st = teng.stats.snapshot()
-    assert st["spec_accepted"] >= 1 and st["spec_steps"] >= 1
+    assert st["spec_accepted"] >= 1 and teng.steps["spec_steps"] >= 1
     assert st["spec_proposed"] == jeng.stats["spec_proposed"]
     assert st["spec_accepted"] == jeng.stats["spec_accepted"]
     assert [(o.spec_proposed, o.spec_accepted) for o in touts] == \
@@ -181,10 +181,10 @@ def test_spec_accept_semantics():
     logits[2, :, 6] = 50.0
     greedy = SamplingParams(temperature=0.0)
     sampled = SamplingParams(temperature=0.7, top_k=3, seed=9)
-    out, ok = spec_accept(logits, [[2, 3], [], [6, 6]],
-                          [greedy, sampled, sampled], [0, 4, 2])
+    out, ok, _ = spec_accept(logits, [[2, 3], [], [6, 6]],
+                             [greedy, sampled, sampled], [0, 4, 2])
     assert out[0] == [2, 4] and ok == [True, True, True]
-    plain, _ = sample_tokens(logits[1, :1], [sampled], [4])
+    plain, _, _ = sample_tokens(logits[1, :1], [sampled], [4])
     assert out[1] == [int(plain[0])]
     assert out[2][:2] == [6, 6] and len(out[2]) == 3
     logits[0, 1, 0] = float("nan")
