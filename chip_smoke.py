@@ -87,6 +87,31 @@ these phases, each printing its own lines and its seconds:
    the unfaulted tokens or failed typed, two restarts, no draft accepted
    in the storm; and the contiguous bf16 step with quality telemetry and
    tracing off and on, A B B A;
+   serve-tier: KV state that leaves the card, same model, pages of 16:
+   (a) the host tier, int8 and bf16 KV: a wave on a shared 256-token
+   prefix, a flood that evicts and demotes it, the wave again with its
+   prefix promoted back (demotions, promotions and tier hits, the two
+   waves' greedy tokens bit-equal), and the page image's bytes and the
+   ms to extract and inject one; (b) preemption: six low-priority
+   requests (greedy and sampled) preempted by two high-priority ones on
+   a short pool, preemptions equal to resumes, the low requests'
+   tokens bit-equal to their run without pressure, the high requests'
+   TTFT beside a run without the low load; again under batched n-gram
+   speculation (rows 6 and 8, tokens reported); (c) migration between
+   two port servers in this process: a greedy and a sampled request
+   polled on ``A/inflight``, moved by ``POST A/migrate/export``, their
+   ``/generate`` answering ``{"code": "migrated"}`` and ``B/migrate/await``
+   giving B's own tokens for them bit for bit (int8 and bf16 KV); then
+   dedup against a warmed B and ``migrate_corrupt`` (B's typed 409, A
+   finishing the request itself), with the blobs' bytes and the export
+   and import ms; (d) ``page_demote_fail``, ``page_promote_hang``
+   (``DTX_TIER_HANG_S`` 0.2) and ``page_swap_corrupt``: counted
+   fallbacks, no crash, every request finished, tokens reported against
+   the unfaulted runs; (e) replay by ``key_offset`` 32 on the contiguous
+   int8 pool under batched speculation (rows 5 and 7), the first
+   difference from the uninterrupted tail reported. Decode-attention
+   launches of every run equal the paged formula over its decode and
+   verify steps;
 4. e2e: prefill + decode logits of one prompt in fp32 on the card
    (kernels) against the CPU (plain versions); and a 2-layer diff at
    recipe width through the paged pool: paged steps and batched verify
@@ -188,6 +213,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -1390,6 +1416,505 @@ def run_serve_paged(torch, card: str) -> dict:
            "telemetry changed the kernel launches of a decode step")
     log(f"[serve-paged] telemetry A B B A took {time.perf_counter() - t_ab:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: KV state that leaves the card: the host tier, preemption,
+# migration between two servers, the tier's fault drills, replay
+# ---------------------------------------------------------------------------
+
+TIER_SERVING = dict(num_slots=8, prefill_chunk=128, prefill_budget=4096,
+                    kv_page_size=16, host_tier_bytes=4 << 30)
+TIER_NEW = 32     # tokens a tier-wave request generates
+MIG_NEW = 120     # tokens a migrated request generates (~1 s in flight)
+LOW_NEW, HIGH_NEW = 100, 64  # the preemption run's low and high requests
+TIER_COUNTS = ("decode_attention_paged", "decode_attention_multi_paged")
+
+
+def tier_prompts(vocab: int) -> dict:
+    """(a): a donor and a wave of four on one 256-token prefix (16 full
+    pages; each wave prompt adds 16 tokens of its own), and a flood of
+    eight distinct 400-token prompts; (b): six low-priority and two
+    high-priority 200-token prompts; (c): 97-token prompts, so that a
+    radix hit on six cached pages prefills the same one-token chunk that
+    the first prefill ended with (64 + 32 + 1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    draw = lambda n: rng.integers(0, vocab, n).tolist()  # noqa: E731
+    prefix = draw(256)
+    return dict(donor=prefix + draw(16), wave=[prefix + draw(16) for _ in range(4)],
+                flood=[draw(400) for _ in range(8)], low=[draw(200) for _ in range(6)],
+                high=[draw(200) for _ in range(2)], mig=[draw(97) for _ in range(3)])
+
+
+def _arm_span(faults, name: str, it: int, n: int = 600) -> None:
+    faults.arm(",".join(f"{name}@{i}" for i in range(it, it + n)))
+
+
+def _tier_delta(engine, before: dict) -> dict:
+    keys = ("tier_demotions", "tier_promotions", "tier_fallbacks", "preemptions",
+            "resumes", "migrate_failed")
+    return {k: engine.stats[k] - before.get(k, 0) for k in keys}
+
+
+def tier_waves(engine, P: dict, faults, fault: str = "") -> dict:
+    """(a) on one engine: the donor alone, the wave (its prompts hit the
+    donor's prefix pages), the flood (which evicts and demotes them),
+    then the wave again (whose prefix pages come back from the tier).
+    ``fault`` arms ``page_demote_fail`` over the flood or
+    ``page_promote_hang`` over the second wave."""
+    kw = dict(max_new_tokens=TIER_NEW, temperature=0.0)
+    engine.generate([P["donor"]], **kw)
+    first = [o.tokens for o in engine.generate(P["wave"], **kw)]
+    if fault == "page_demote_fail":
+        _arm_span(faults, fault, engine.stats["iterations"])
+    engine.generate(P["flood"], **kw)
+    faults.reset()
+    if fault == "page_promote_hang":
+        _arm_span(faults, fault, engine.stats["iterations"])
+    before = dict(engine.stats.snapshot())
+    hits0 = engine.tier_stats()["hits_total"]
+    outs = engine.generate(P["wave"], **kw)
+    faults.reset()
+    return dict(first=first, second=[o.tokens for o in outs],
+                reasons=[o.finish_reason for o in outs],
+                delta=_tier_delta(engine, before),
+                hits=engine.tier_stats()["hits_total"] - hits0,
+                demotions=engine.stats["tier_demotions"])
+
+
+def _low_kw(i: int) -> dict:
+    """Low request i: greedy, or sampled for odd i."""
+    kw = dict(max_new_tokens=LOW_NEW, temperature=0.0, priority="batch")
+    if i % 2:
+        kw.update(temperature=0.8, top_k=50, seed=200 + i)
+    return kw
+
+
+def pressure(engine, P: dict, faults, fault: str = "") -> dict:
+    """(b) on one engine: the six low-priority requests decode two
+    tokens each, then the two high-priority ones arrive; the pool cannot
+    hold them too, so low slots are preempted (stashed to the tier) and
+    swapped back in later. ``fault`` arms ``page_swap_corrupt`` from the
+    high requests' arrival."""
+    rids = [engine.submit(p, **_low_kw(i)) for i, p in enumerate(P["low"])]
+    outs = {}
+    for _ in range(400):
+        slots = [engine._slot_for(r) for r in rids]
+        if all(s is not None and len(s.generated) >= 2 for s in slots):
+            break
+        outs.update({o.request_id: o for o in engine.step()})
+    before = dict(engine.stats.snapshot())
+    if fault:
+        _arm_span(faults, fault, engine.stats["iterations"])
+    hi = [engine.submit(p, max_new_tokens=HIGH_NEW, temperature=0.0, priority="high")
+          for p in P["high"]]
+    outs.update({o.request_id: o for o in engine.run()})
+    faults.reset()
+    return dict(low=[outs[r] for r in rids], high=[outs[r] for r in hi],
+                delta=_tier_delta(engine, before))
+
+
+def page_transfer_ms(torch, engine, n: int = 64) -> tuple:
+    """(bytes of one page image, ms to extract one page, ms to inject
+    one) over ``n`` pages of the engine's pool, each a synchronous
+    device-to-host or host-to-device copy of the page's leaves."""
+    from differential_transformer_replication_tpu_torch.models.decode import (
+        extract_cache_page,
+        inject_cache_page,
+    )
+
+    pages = range(1, n + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    imgs = [extract_cache_page(engine.cache, p) for p in pages]
+    t_ex = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p, img in zip(pages, imgs):
+        inject_cache_page(engine.cache, p, img)
+    torch.cuda.synchronize()
+    t_in = (time.perf_counter() - t0) / n * 1e3
+    nbytes = sum(t.numel() * t.element_size() for layer in imgs[0] for t in layer.values())
+    return nbytes, t_ex, t_in
+
+
+class TierServer:
+    """A port server on a loopback port, in this process, whose engine's
+    ``export_slot_state`` and ``import_state`` are timed."""
+
+    def __init__(self, torch, params, cfg, serving):
+        from differential_transformer_replication_tpu_torch.serving.engine import (
+            ServingEngine,
+        )
+        from differential_transformer_replication_tpu_torch.serving.server import (
+            ServingClient,
+            serve,
+        )
+
+        self.engine = ServingEngine(params, cfg, serving, device="cuda")
+        self.ms = {"export": [], "import": []}
+        for name, attr in (("export", "export_slot_state"), ("import", "import_state")):
+            fn = getattr(self.engine, attr)
+
+            def timed(*a, _fn=fn, _out=self.ms[name], **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    torch.cuda.synchronize()
+                    _out.append((time.perf_counter() - t0) * 1e3)
+
+            setattr(self.engine, attr, timed)
+        self.client = ServingClient(self.engine)
+        self.httpd = serve(self.client, port=0)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.client.close()
+        self.thread.join(timeout=30)
+
+
+def _post_any(url: str, body: dict) -> tuple:
+    """POST JSON; (status, body) for error statuses too."""
+    try:
+        return _post(url, body)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def _wait_tokens(url: str, journal_id: str, n: int, timeout: float = 120.0) -> dict:
+    """Poll ``/inflight`` until the request tagged ``journal_id`` shows n
+    tokens; its entry."""
+    end = time.monotonic() + timeout
+    while time.monotonic() < end:
+        with urllib.request.urlopen(url + "/inflight", timeout=30) as r:
+            for ent in json.load(r)["inflight"]:
+                if ent.get("journal_id") == journal_id and len(ent["tokens"]) >= n:
+                    return ent
+        time.sleep(0.002)
+    raise Failure(f"{journal_id} showed no {n} tokens on {url}/inflight")
+
+
+def migrate_one(a, b, body: dict, tag: str) -> dict:
+    """(c) one request: ``/generate`` on A, polled on A's ``/inflight``
+    until it shows 8 tokens, then ``POST A/migrate/export`` to B. Returns
+    the export's reply, the blocked call's reply and, when it migrated,
+    B's ``/migrate/await`` reply."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(1) as pool:
+        call = pool.submit(_post_any, a.url + "/generate", dict(body, journal_id=tag))
+        ent = _wait_tokens(a.url, tag, 8)
+        status, export = _post_any(a.url + "/migrate/export", {
+            "request_id": ent["request_id"], "dest": b.url, "migrate_id": tag,
+            "budget_s": 60})
+        src = call.result(timeout=600)
+    out = dict(export=(status, export), src=src, at=len(ent["tokens"]))
+    if status == 200 and export.get("outcome") == "migrated":
+        out["await"] = _post_any(b.url + "/migrate/await", {"migrate_id": tag})
+    return out
+
+
+def migrations(torch, params, cfg, kv: str, P: dict, dat, faults, card: str,
+               full: bool) -> dict:
+    """(c) with ``kv`` storage: a greedy and a sampled request migrate
+    from server A to B and finish there with the tokens B gives them
+    alone; with ``full``, also a migration against a B warmed on the
+    prompt (dedup) and one with ``migrate_corrupt`` armed (B refuses it
+    typed, A finishes it). Decode-attention launches over the migrations
+    equal the paged formula over both engines' decode steps."""
+    from differential_transformer_replication_tpu_torch.config import ServingConfig
+
+    serving = ServingConfig(**{**TIER_SERVING, "kv_cache_dtype": kv})
+    a, b = (TierServer(torch, params, cfg, serving) for _ in range(2))
+    bodies = [{"prompt_ids": P["mig"][0], "max_new_tokens": MIG_NEW, "temperature": 0.0},
+              {"prompt_ids": P["mig"][1], "max_new_tokens": MIG_NEW, "temperature": 0.8,
+               "top_k": 50, "seed": 9}]
+    res = {}
+    try:
+        counters = {k: getattr(dat, k) for k in TIER_COUNTS}
+        for fn in counters.values():
+            fn.launches = fn.int8_launches = 0
+        steps0 = a.engine.steps["decode_steps"] + b.engine.steps["decode_steps"]
+        res["moved"] = [migrate_one(a, b, body, f"{kv}-{i}") for i, body in enumerate(bodies)]
+        steps = a.engine.steps["decode_steps"] + b.engine.steps["decode_steps"] - steps0
+        counts = {k: (fn.launches, fn.int8_launches) for k, fn in counters.items()}
+        res["alone"] = [_post(b.url + "/generate", body)[1]["tokens"] for body in bodies]
+        if full:
+            body = {"prompt_ids": P["mig"][2], "max_new_tokens": MIG_NEW, "temperature": 0.0}
+            _post(b.url + "/generate", dict(body, max_new_tokens=4))  # warm B
+            res["dedup"] = migrate_one(a, b, body, f"{kv}-dedup")
+            res["dedup_ref"] = _post(b.url + "/generate", body)[1]["tokens"]
+            failed0 = a.engine.stats["migrate_failed"]
+            faults.arm("migrate_corrupt")
+            res["corrupt"] = migrate_one(a, b, bodies[0], f"{kv}-corrupt")
+            faults.reset()
+            res["corrupt_failed"] = a.engine.stats["migrate_failed"] - failed0
+        res["stats"] = (a.engine.stats.snapshot(), b.engine.stats.snapshot())
+        res["ms"] = (a.ms["export"], b.ms["import"])
+    finally:
+        faults.reset()
+        a.close()
+        b.close()
+    L = cfg.n_layer
+    expect(counts["decode_attention_paged"][0] == L * steps > 0
+           and counts["decode_attention_multi_paged"][0] == 0
+           and counts["decode_attention_paged"][1] == (L * steps if kv == "int8" else 0),
+           f"(c) {kv}: decode attention launches {counts}, {steps} decode steps "
+           f"of {L} layers")
+    for i, (m, alone) in enumerate(zip(res["moved"], res["alone"])):
+        status, reply = m["export"]
+        expect(status == 200 and reply.get("outcome") == "migrated",
+               f"(c) {kv} request {i}: /migrate/export answered {status}: {reply}")
+        expect(m["src"][0] == 200 and m["src"][1].get("code") == "migrated",
+               f"(c) {kv} request {i}: the blocked /generate answered {m['src']}")
+        st, out = m["await"]
+        expect(st == 200 and out["tokens"] == alone and len(alone) == MIG_NEW,
+               f"(c) {kv} request {i} ({'greedy' if i == 0 else 'sampled'}): the "
+               f"migrated continuation differs from B alone at "
+               f"{first_difference([out.get('tokens', [])], [alone])}")
+    ex, im = res["ms"]
+    sa, sb = res["stats"]
+    log(f"[serve-tier] (c) migration, {kv} KV, A -> B over loopback HTTP at 8 "
+        f"tokens: greedy and sampled continuations bit-equal to B alone "
+        f"({len(res['alone'][0])} tokens each); blobs "
+        f"{[m['export'][1]['bytes'] for m in res['moved']]} B, export ms "
+        f"{[round(t, 3) for t in ex[:2]]}, import ms {[round(t, 3) for t in im[:2]]}; "
+        f"launches {counts} over {steps} decode steps; {card}")
+    if full:
+        st, reply = res["dedup"]["export"]
+        deduped = reply.get("dedup_pages", 0)
+        expect(st == 200 and deduped > 0
+               and sa["migrate_pages_deduped"] > 0,
+               f"(c) dedup: /migrate/export answered {st}: {reply}, "
+               f"{sa['migrate_pages_deduped']} pages deduped")
+        expect(res["dedup"]["await"][1]["tokens"] == res["dedup_ref"],
+               "(c) dedup: the continuation differs from B alone")
+        st, reply = res["corrupt"]["export"]
+        src_st, src = res["corrupt"]["src"]
+        expect(st == 409 and reply.get("code") == "migrate_transfer"
+               and "migrate_corrupt" in reply.get("error", "")
+               and res["corrupt_failed"] == 1,
+               f"(c) migrate_corrupt: /migrate/export answered {st}: {reply}")
+        expect(src_st == 200 and src["tokens"] == res["alone"][0],
+               f"(c) migrate_corrupt: A's own reply {src_st} differs from the "
+               f"unmigrated tokens at {first_difference([src.get('tokens', [])], [res['alone'][0]])}")
+        log(f"[serve-tier] (c) dedup against a warmed B: {deduped} "
+            f"pages not shipped, blob {res['dedup']['export'][1]['bytes']} B, tokens "
+            f"bit-equal to B alone; migrate_corrupt: B answered 409 migrate_corrupt, "
+            f"A's export 409 migrate_transfer, A finished the request with its "
+            f"unmigrated tokens; exports {sa['migrate_exports']}, pages shipped "
+            f"{sa['migrate_pages_shipped']}, deduped {sa['migrate_pages_deduped']}, "
+            f"imports on B {sb['migrate_imports']}; {card}")
+    return res
+
+
+def run_serve_tier(torch, card: str) -> None:
+    """Phase 3c. The diff recipe (random weights from the serve phases'
+    seed), pages of 16, bf16 compute: (a) the host tier, int8 and bf16
+    KV; (b) preemption, int8 KV, greedy and sampled, and again under
+    batched n-gram speculation (rows 6 and 8, its tokens reported);
+    (c) migration between two port servers in this process, int8 (with
+    dedup and ``migrate_corrupt``) and bf16; (d) the three tier faults;
+    (e) replay by ``key_offset`` on the contiguous int8 pool under
+    batched speculation (rows 5 and 7). Requires demotions, promotions,
+    preemptions equal to resumes, bit-equal resumed and migrated tokens,
+    counted fallbacks and the typed 409; reports the page and blob
+    bytes, the transfer times and the replay's first difference."""
+    import os
+
+    from differential_transformer_replication_tpu_torch.config import (
+        ModelConfig,
+        ServingConfig,
+    )
+    from differential_transformer_replication_tpu_torch.models import init_model
+    from differential_transformer_replication_tpu_torch.ops import (
+        decode_attention as dat,
+    )
+    from differential_transformer_replication_tpu_torch.serving.engine import (
+        ServingEngine,
+    )
+    from differential_transformer_replication_tpu_torch.serving.request import (
+        SamplingParams,
+    )
+    from differential_transformer_replication_tpu_torch.utils import faults
+
+    cfg = ModelConfig(**RECIPE, compute_dtype="bfloat16", param_dtype="float32")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = init_model(gen, cfg)
+    P = tier_prompts(cfg.vocab_size)
+    low_params = [SamplingParams(**_low_kw(i)) for i in range(len(P["low"]))]
+    L = cfg.n_layer
+    counters = {k: getattr(dat, k) for k in TIER_COUNTS}
+
+    def engine(**kw):
+        return ServingEngine(params, cfg, ServingConfig(**{**TIER_SERVING, **kw}),
+                             device="cuda")
+
+    def counted(fn, eng):
+        """Run ``fn()`` with the paged decode-attention counters from 0;
+        its result, the launches and the engine's decode and verify
+        steps over the run."""
+        for c in counters.values():
+            c.launches = c.int8_launches = 0
+        s0 = dict(eng.steps)
+        out = fn()
+        return out, {k: (c.launches, c.int8_launches) for k, c in counters.items()}, \
+            {k: eng.steps[k] - s0[k] for k in eng.steps}
+
+    def expect_launches(label, counts, steps, int8):
+        l1 = steps["decode_steps"] - steps["spec_steps"]
+        want = {"decode_attention_paged": L * l1,
+                "decode_attention_multi_paged": L * steps["spec_steps"]}
+        for name, n in want.items():
+            total, q = counts[name]
+            expect(total == n and q == (n if int8 else 0),
+                   f"{label}: {name} launched {counts[name]} (int8), expected {n}")
+        expect(want["decode_attention_paged"] > 0, f"{label}: no decode step")
+
+    t = time.perf_counter()
+    unfaulted = {}
+    for kv in ("int8", "bf16"):
+        eng = engine(kv_cache_dtype=kv, kv_pool_pages=96)
+        r, counts, steps = counted(lambda: tier_waves(eng, P, faults), eng)
+        unfaulted[kv] = r
+        expect_launches(f"(a) {kv}", counts, steps, kv == "int8")
+        d = r["delta"]
+        expect(r["demotions"] > 0 and d["tier_promotions"] > 0 and r["hits"] > 0
+               and d["tier_fallbacks"] == 0,
+               f"(a) {kv}: demotions {r['demotions']}, second wave {d}, tier hits {r['hits']}")
+        expect(r["second"] == r["first"],
+               f"(a) {kv}: the second wave's greedy tokens differ from the first's at "
+               f"{first_difference(r['second'], r['first'])}")
+        nbytes, t_ex, t_in = page_transfer_ms(torch, eng)
+        prompt_tokens = sum(len(p) for p in P["wave"])
+        log(f"[serve-tier] (a) host tier, {kv} KV, pool of 96 pages of 16: "
+            f"{r['demotions']} pages demoted by the flood, {d['tier_promotions']} "
+            f"promoted at the second wave ({d['tier_promotions'] * 16 / prompt_tokens:.3f} "
+            f"of its {prompt_tokens} prompt tokens), {r['hits']} tier hits, greedy "
+            f"tokens of both waves bit-equal; page image {nbytes} B, extract "
+            f"{t_ex:.3f} ms and inject {t_in:.3f} ms a page; launches {counts}; {card}")
+        del eng
+        torch.cuda.empty_cache()
+    log(f"[serve-tier] (a) took {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    ref_eng = engine(kv_cache_dtype="int8", host_tier_bytes=0)
+    ref_outs = ref_eng.generate(P["low"], params=low_params)
+    ref = [o.tokens for o in ref_outs]
+    alone_hi = ref_eng.generate(P["high"], max_new_tokens=HIGH_NEW, temperature=0.0,
+                                priority="high")
+    del ref_eng
+    eng = engine(kv_cache_dtype="int8", kv_pool_pages=128)
+    r, counts, steps = counted(lambda: pressure(eng, P, faults), eng)
+    expect_launches("(b)", counts, steps, True)
+    d = r["delta"]
+    expect(d["preemptions"] >= 1 and d["resumes"] == d["preemptions"]
+           and d["tier_fallbacks"] == 0, f"(b): {d}")
+    got = [o.tokens for o in r["low"]]
+    expect(got == ref, f"(b): a preempted request's tokens differ from its run "
+           f"without pressure at {first_difference(got, ref)}")
+    expect(all(len(o.tokens) == HIGH_NEW for o in r["high"]), "(b) high requests")
+    ttft = [round(o.ttft * 1e3, 1) for o in r["high"]]
+    ttft0 = [round(o.ttft * 1e3, 1) for o in alone_hi]
+    lat = [round((o.finish_time - o.submit_time) * 1e3) for o in r["low"]]
+    lat0 = [round((o.finish_time - o.submit_time) * 1e3) for o in ref_outs]
+    log(f"[serve-tier] (b) preemption, int8 KV, pool of 128 pages: {d['preemptions']} "
+        f"preemptions = {d['resumes']} resumes, the six low requests (3 greedy, 3 "
+        f"sampled) bit-equal to their run without pressure; high TTFT {ttft} ms "
+        f"against {ttft0} ms without the low load; low requests' submit-to-finish "
+        f"{lat} ms against {lat0} ms without pressure; launches {counts}; {card}")
+    del eng
+    eng = engine(kv_cache_dtype="int8", kv_pool_pages=128, spec_mode="ngram",
+                 spec_verify="batched")
+    ref_spec = [o.tokens for o in engine(
+        kv_cache_dtype="int8", host_tier_bytes=0, spec_mode="ngram",
+        spec_verify="batched").generate(P["low"], params=low_params)]
+    r, counts, steps = counted(lambda: pressure(eng, P, faults), eng)
+    expect_launches("(b) batched verify", counts, steps, True)
+    expect(steps["spec_steps"] > 0 and r["delta"]["resumes"] == r["delta"]["preemptions"] >= 1,
+           f"(b) batched verify: {steps}, {r['delta']}")
+    got = [o.tokens for o in r["low"]]
+    diff = first_difference(got, ref_spec)
+    log(f"[serve-tier] (b) again under n-gram speculation, batched verify: "
+        f"{r['delta']['preemptions']} preemptions = resumes, {steps['spec_steps']} verify "
+        f"steps; low requests against their run without pressure: "
+        f"{sum(x == y for x, y in zip(got, ref_spec))}/6 identical"
+        + ("" if diff is None else f", first difference request {diff[0]} token {diff[1]}")
+        + f" (reported, not required: which slots share a verify step changes its "
+        f"products); launches {counts}; {card}")
+    del eng
+    torch.cuda.empty_cache()
+    log(f"[serve-tier] (b) took {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    migrations(torch, params, cfg, "int8", P, dat, faults, card, full=True)
+    migrations(torch, params, cfg, "bf16", P, dat, faults, card, full=False)
+    torch.cuda.empty_cache()
+    log(f"[serve-tier] (c) took {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    os.environ["DTX_TIER_HANG_S"] = "0.2"
+    try:
+        drills = {}
+        for name in ("page_demote_fail", "page_promote_hang"):
+            eng = engine(kv_cache_dtype="int8", kv_pool_pages=96)
+            drills[name] = r = tier_waves(eng, P, faults, name)
+            fell = (eng.stats["tier_fallbacks"] if name == "page_demote_fail"
+                    else r["delta"]["tier_fallbacks"])
+            expect(fell > 0 and all(x == "length" for x in r["reasons"]),
+                   f"(d) {name}: {fell} fallbacks, reasons {r['reasons']}")
+            drills[name]["fell"] = fell
+        eng = engine(kv_cache_dtype="int8", kv_pool_pages=128)
+        drills["page_swap_corrupt"] = r = pressure(eng, P, faults, "page_swap_corrupt")
+        corrupt = eng.tier_stats()["corrupt_total"]
+        expect(corrupt >= 1 and r["delta"]["tier_fallbacks"] >= 1
+               and all(o.finish_reason == "length" for o in r["low"] + r["high"]),
+               f"(d) page_swap_corrupt: corrupt {corrupt}, {r['delta']}")
+        r["fell"] = r["delta"]["tier_fallbacks"]
+    finally:
+        os.environ.pop("DTX_TIER_HANG_S", None)
+        faults.reset()
+    same = {n: (drills[n]["second"] == unfaulted["int8"]["first"]) for n in
+            ("page_demote_fail", "page_promote_hang")}
+    same["page_swap_corrupt"] = [o.tokens for o in drills["page_swap_corrupt"]["low"]] == ref
+    log(f"[serve-tier] (d) fault drills, int8 KV: fallbacks "
+        f"{ {n: d['fell'] for n, d in drills.items()} }, no crash, every request "
+        f"finished by length; tokens equal to the unfaulted run: {same}; "
+        f"{time.perf_counter() - t:.1f} s; {card}")
+    del eng
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    eng = ServingEngine(params, cfg, ServingConfig(
+        num_slots=8, prefill_chunk=128, prefill_budget=4096, kv_cache_dtype="int8",
+        spec_mode="ngram", spec_verify="batched"), device="cuda")
+    motif = P["mig"][0][:5]
+    prompt = (motif * 40)[:150]
+    for fn in (dat.decode_attention, dat.decode_attention_multi):
+        fn.launches = fn.int8_launches = 0
+    full_run = eng.generate([prompt], max_new_tokens=96, temperature=0.0)[0].tokens
+    tail = eng.generate([prompt + full_run[:32]], max_new_tokens=64, temperature=0.0,
+                        key_offset=32)[0].tokens
+    launches = {fn.__name__: fn.launches for fn in (dat.decode_attention,
+                                                   dat.decode_attention_multi)}
+    expect(all(launches.values()) and len(tail) == 64,
+           f"(e) replay: launches {launches}, {len(tail)} tokens")
+    diff = first_difference([tail], [full_run[32:]])
+    log(f"[serve-tier] (e) replay, contiguous int8 pool, batched verify: prompt + the "
+        f"first 32 tokens with key_offset 32 against the uninterrupted tail: "
+        + ("identical" if diff is None else f"first difference at token {diff[1]}")
+        + f" (reported: the replay prefills what the run decoded); launches "
+        f"{launches}; {time.perf_counter() - t:.1f} s; {card}")
+    del eng
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -4222,6 +4747,7 @@ def main() -> int:
     entries.update(phase("kernels-ring", run_ring_kernels, torch, flash))
     serve_counts = phase("serve", run_serve, torch, card)
     serve_counts.update(phase("serve-paged", run_serve_paged, torch, card))
+    phase("serve-tier", run_serve_tier, torch, card)
     phase("e2e", run_e2e, torch)
     train_counts = phase("train", run_train, torch, card)
     hm_counts = phase("train-hm", run_train_hm, torch, card,

@@ -125,10 +125,9 @@ class ServingConfig:
     defaults, meaning and validation as the JAX package's ServingConfig
     for the fields kept: the slot pool, the paged KV pool and its radix
     prefix cache, the int8 KV cache, speculative decoding and the quality
-    telemetry. Its structured-decoding and profiling fields are absent; the
-    host tier (``host_tier_bytes > 0``) and the model drafter
-    (``spec_mode="model"``) are refused with the ROADMAP item that
-    brings them."""
+    telemetry, the host-RAM page tier. Its structured-decoding and
+    profiling fields are absent; the model drafter (``spec_mode="model"``)
+    is refused with the ROADMAP item that brings it."""
 
     # Fixed decode batch = KV slot pool size.
     num_slots: int = 8
@@ -182,7 +181,12 @@ class ServingConfig:
     # unrolls k+1 L=1 steps (greedy output bit-identical to no spec);
     # "batched" runs all rows in one pass through the multi-row kernel.
     spec_verify: str = "exact"
-    # Host-RAM KV page tier; refused while > 0 (a later slice).
+    # Host-RAM KV page tier (serving/host_tier.py). 0 = off. > 0 (paged
+    # pool only) = evicted full radix pages DEMOTE into host memory up to
+    # this many bytes instead of vanishing, admissions matching a demoted
+    # prefix PROMOTE it back with a copy, and a blocked higher-priority
+    # admission may preempt a lower-priority slot (its pages stashed
+    # here, swapped back in bit-exact later).
     host_tier_bytes: int = 0
     # Model-quality telemetry (obs/quality.py). When on, the sampler and
     # the verify's accept compute a per-token quality vector (sampled-
@@ -235,13 +239,6 @@ class ServingConfig:
                 "spec_mode='model' is not served by the port yet: "
                 "ModelDrafter (ROADMAP Queue A: serving subsystems); use "
                 "spec_mode='ngram'"
-            )
-        if self.host_tier_bytes > 0:
-            raise NotImplementedError(
-                f"host_tier_bytes={self.host_tier_bytes}: the port does not "
-                "run the host-RAM page tier yet (ROADMAP Queue A: serving "
-                "subsystems left: host tier, preemption, migration); leave "
-                "it at 0"
             )
         if self.num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {self.num_slots}")
@@ -313,6 +310,11 @@ class ServingConfig:
     def paged(self) -> bool:
         """Whether the engine runs the paged KV pool."""
         return self.kv_page_size > 0
+
+    def tiered(self) -> bool:
+        """Whether the engine runs the host-RAM page tier (and with it
+        mid-decode preemption)."""
+        return self.paged() and self.host_tier_bytes > 0
 
     def spec_enabled(self) -> bool:
         """Whether the engine runs speculative decoding."""

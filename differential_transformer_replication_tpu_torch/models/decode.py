@@ -458,6 +458,63 @@ def copy_cache_pages(cache: list, src: int, dst: int) -> list:
     return cache
 
 
+def _page_leaves(cache: list, page: int):
+    """(layer, key, view of physical page ``page``) of every leaf, widest
+    element first: packed back to back in that order, every leaf's byte
+    offset is a multiple of its element size."""
+    views = [(i, key, leaf.select(KV_CACHE_BATCH_AXIS[key], int(page)))
+             for i, c in enumerate(cache) for key, leaf in c.items()]
+    return sorted(views, key=lambda e: -e[2].element_size())
+
+
+def extract_cache_page(cache: list, page: int) -> list:
+    """Physical page ``page`` of every layer and leaf as OWNED host
+    tensors — K (S, H, ps, d), V (H, ps, dv), and the fp32 ``k_scale`` /
+    ``v_scale`` planes on the int8 path: the capture side of the host
+    tier's demotion and preemption and of a migration export (the JAX
+    engine's ``_page_extract`` and its host copy). The leaves are packed
+    on the device into one byte buffer and brought over in ONE copy;
+    the result never aliases the pool (a fault that flips a byte of the
+    image must not reach the live cache)."""
+    views = _page_leaves(cache, page)
+    flat = torch.cat([v.contiguous().reshape(-1).view(torch.uint8)
+                      for _, _, v in views]).to("cpu")
+    out = [dict.fromkeys(c) for c in cache]  # the pool's key order
+    off = 0
+    for i, key, v in views:
+        n = v.numel() * v.element_size()
+        out[i][key] = flat[off:off + n].view(v.dtype).reshape(v.shape)
+        off += n
+    return out
+
+
+def inject_cache_page(cache: list, page: int, payload: list) -> list:
+    """Write one host page image (:func:`extract_cache_page`'s layout)
+    into physical page ``page``, in place: the promote / swap-in /
+    migration-import transfer (the JAX engine's ``_page_inject``). The
+    leaves go over in ONE copy. A leaf whose dtype or shape differs from
+    the pool's raises ValueError before anything is written: an image is
+    never cast into the cache."""
+    views = _page_leaves(cache, page)
+    for i, key, v in views:
+        src = payload[i][key]
+        if src.dtype != v.dtype or tuple(src.shape) != tuple(v.shape):
+            raise ValueError(
+                f"page image leaf {key!r} of layer {i} is {src.dtype} "
+                f"{tuple(src.shape)}; the pool's is {v.dtype} "
+                f"{tuple(v.shape)}"
+            )
+    flat = torch.cat([payload[i][key].contiguous().reshape(-1)
+                      .view(torch.uint8) for i, key, _ in views])
+    flat = flat.to(views[0][2].device)
+    off = 0
+    for _, _, v in views:
+        n = v.numel() * v.element_size()
+        v.copy_(flat[off:off + n].view(v.dtype).reshape(v.shape))
+        off += n
+    return cache
+
+
 def _update_pages_rows(layer_cache: dict, ks: torch.Tensor, v: torch.Tensor,
                        pos: torch.Tensor, write_pages: torch.Tensor,
                        M: int) -> None:

@@ -12,6 +12,21 @@ Counterpart of the JAX package's serving/engine.py:
   Rows and pages are reused WITHOUT clearing: the ring mask derives
   visibility purely from position arithmetic (models/decode.py). Either
   pool may store int8 K/V (``kv_cache_dtype="int8"``).
+- **Host tier and preemption** (``ServingConfig.host_tier_bytes > 0``,
+  serving/host_tier.py): evicted full radix pages demote into host
+  memory and promote back with a copy at a later admission that matches
+  them; a higher-priority request blocked on pages preempts a
+  lower-priority ACTIVE slot, whose pages are stashed in the tier and
+  injected back (CRC-verified) into whatever pages it gets when it is
+  readmitted, so it continues bit for bit. Pages move between the pool
+  and the host through ``extract_cache_page`` / ``inject_cache_page``.
+- **Migration and replay** (serving/migrate.py): ``export_slot_state``
+  captures an ACTIVE slot's pages and host state as a wire image,
+  ``import_state`` readmits one through the same swap-in as a resume,
+  ``release_migrated`` retires the source slot once the peer holds it.
+  A request with ``key_offset`` (a replay of an earlier attempt's
+  prompt + emitted tokens) draws token t with key position
+  ``key_offset + t``.
 - **Iteration-level scheduling**: each :meth:`step` admits queued
   requests, advances prefill by a bounded token budget in power-of-two
   chunks (serving/scheduler.py), then decodes ALL active slots as one
@@ -38,12 +53,12 @@ Counterpart of the JAX package's serving/engine.py:
   not ported yet are left out: :data:`UNPORTED_FAMILIES`.
 - **Chaos** (utils/faults.py): ``serve_raise``, ``serve_hang``,
   ``serve_corrupt``, ``page_exhaust``, ``prefix_corrupt``,
-  ``spec_reject_storm``, ``quality_drift`` and ``quality_nan`` fire at
-  the JAX engine's points, keyed on ``stats["iterations"]``.
-  ``spec_drafter_crash``, ``constrain_dead_end``, the ``page_demote_fail``
-  / ``page_promote_hang`` / ``page_swap_corrupt`` tier kinds and the
-  ``migrate_*`` kinds stay unfired until the model drafter, constraints,
-  the host tier and migration are ported.
+  ``spec_reject_storm``, ``quality_drift``, ``quality_nan`` and the
+  tier kinds ``page_demote_fail``, ``page_promote_hang`` and
+  ``page_swap_corrupt`` fire at the JAX engine's points, keyed on
+  ``stats["iterations"]``; ``migrate_hang`` and ``migrate_corrupt`` at
+  each export. ``spec_drafter_crash`` and ``constrain_dead_end`` stay
+  unfired until the model drafter and constraints are ported.
 
 Differences from the JAX engine, by design: the cache is updated in
 place (prefill writes straight into its pool row or through its page
@@ -62,10 +77,11 @@ Family limits: control/ndiff roll the ring past block_size up to
 cannot roll, so its requests are capped at
 ``prompt + max_new_tokens <= block_size``.
 
-The host tier, migration, the model drafter, constraints, penalties and
-logprobs belong to later slices: ``ServingConfig`` refuses the first
-three, and a request that asks for one of the others is refused at
-submit with a ValueError naming the field.
+The model drafter, constraints, penalties and logprobs belong to later
+slices: ``ServingConfig`` refuses the first, and a request that asks for
+one of the others is refused at submit with a ValueError naming the
+field (a migrated image that carries one, with a typed
+``MigrateExportError``).
 """
 
 from __future__ import annotations
@@ -90,6 +106,7 @@ from differential_transformer_replication_tpu_torch.models.decode import (
     compute_dtype,
     copy_cache_pages,
     entropy_margin,
+    extract_cache_page,
     forward_chunk,
     forward_decode_pool,
     forward_decode_pool_paged,
@@ -98,6 +115,7 @@ from differential_transformer_replication_tpu_torch.models.decode import (
     gather_slot_cache,
     init_cache,
     init_cache_paged,
+    inject_cache_page,
     kv_store_dtype,
     scatter_slot_cache,
 )
@@ -120,6 +138,17 @@ from differential_transformer_replication_tpu_torch.obs.trace import (
     TraceContext,
     child_span_args,
     instant_args,
+)
+from differential_transformer_replication_tpu_torch.serving.host_tier import (
+    HostTier,
+    TierEntry,
+)
+from differential_transformer_replication_tpu_torch.serving.migrate import (
+    MigrateExportError,
+    decode_slot_state,
+    encode_slot_state,
+    params_from_dict,
+    params_to_dict,
 )
 from differential_transformer_replication_tpu_torch.serving.pages import (
     PagePool,
@@ -146,8 +175,6 @@ from differential_transformer_replication_tpu_torch.utils import faults
 # engine.stats keys -> (Prometheus counter name, help): a copy of the JAX
 # engine's _STAT_SPEC. The keys are the /health JSON contract, the names
 # the /metrics one; StatsMap keeps both views over one set of values.
-# The host-tier, preemption and migration counters stay at 0 until those
-# subsystems are ported, as the JAX engine's do with them off.
 _STAT_SPEC = {
     "iterations": (
         "serving_engine_iterations_total",
@@ -255,9 +282,8 @@ _STAT_SPEC = {
 
 # Metric families the JAX engine registers that the port leaves out until
 # their subsystems are ported: the constraint cache and validity
-# (structured decoding), the host tier, the model drafter's KV bytes, and
-# the device_* gauges of the sampled on-device profiler
-# (``ServingConfig.profile_every``).
+# (structured decoding), the model drafter's KV bytes, and the device_*
+# gauges of the sampled on-device profiler (``ServingConfig.profile_every``).
 UNPORTED_FAMILIES = (
     "serving_constrained_requests_active",
     "serving_constraint_cache_entries",
@@ -265,15 +291,6 @@ UNPORTED_FAMILIES = (
     "serving_constraint_cache_hits_total",
     "serving_constraint_cache_misses_total",
     "serving_constraint_validity_rate",
-    "serving_host_tier_prefix_hits_total",
-    "serving_host_tier_budget_bytes",
-    "serving_host_tier_bytes",
-    "serving_host_tier_entries",
-    "serving_host_tier_stashes",
-    "serving_host_tier_hits_total",
-    "serving_host_tier_misses_total",
-    "serving_host_tier_evictions_total",
-    "serving_host_tier_corrupt_total",
     "serving_spec_drafter_kv_bytes",
     "device_*",
 )
@@ -302,7 +319,6 @@ def unsupported_field(p: SamplingParams) -> Optional[str]:
         ("presence_penalty", p.presence_penalty != 0.0),
         ("frequency_penalty", p.frequency_penalty != 0.0),
         ("logprobs", p.logprobs != 0),
-        ("key_offset", p.key_offset != 0),
     )
     for name, is_set in checks:
         if is_set:
@@ -522,13 +538,25 @@ class ServingEngine:
         # the paged pool (serving/pages.py): KV in fixed pages behind
         # per-slot page tables, admission on free pages, radix prefixes
         self.pages: Optional[PagePool] = None
+        # the host-RAM page tier (serving/host_tier.py): demoted radix
+        # pages and preempted requests' stashes
+        self._tier: Optional[HostTier] = None
+        # request_id -> host-side decode snapshot of a preempted (or
+        # imported) request, consumed by the swap-in in _admit_paged
+        self._resume: dict = {}
+        # (slot, snapshot) pairs swapped in by this step's admission
+        # gate; step() restores their decode state after plan() commits
+        self._resumed: list = []
         if self.serving.paged():
             ps = self.serving.kv_page_size
+            if self.serving.tiered():
+                self._tier = HostTier(budget_bytes=self.serving.host_tier_bytes)
             self.pages = PagePool(
                 page_size=ps, pages_per_slot=cfg.block_size // ps,
                 num_slots=self.serving.num_slots,
                 total_pages=self.serving.resolved_pool_pages(cfg) + 1,
                 prefix_cache=self.serving.prefix_cache,
+                tier=self._tier,
             )
         # speculative decoding: the contiguous pool carries one extra
         # TRASH row (index num_slots) for rejected rows' writes; the
@@ -556,7 +584,9 @@ class ServingEngine:
 
     def _new_scheduler(self) -> Scheduler:
         hook = self._on_retire if (self.pages or self.drafter) else None
-        return Scheduler(self.serving, on_retire=hook)
+        return Scheduler(
+            self.serving, on_retire=hook,
+            on_preempt=self._preempt_slot if self._tier is not None else None)
 
     def _init_telemetry(self, registry: Optional[Registry], tracer) -> None:
         """The JAX engine's metric families (names, help, labels), less
@@ -644,6 +674,38 @@ class ServingEngine:
                 "HBM bytes per physical KV page across all layers "
                 "(int8-aware: values + fp32 scale planes).",
             ).set(page_bytes(self.cfg, self.serving.kv_page_size))
+            self._tier_prefix_hits_counter = reg.counter(
+                "serving_host_tier_prefix_hits_total",
+                "Admissions whose prefix match extended into the "
+                "host tier (promoted, never recomputed).")
+        if self._tier is not None:
+            reg.gauge(
+                "serving_host_tier_budget_bytes",
+                "Configured host-RAM byte budget of the KV page tier.",
+            ).set(self.serving.host_tier_bytes)
+            self._tier_bytes_gauge = reg.gauge(
+                "serving_host_tier_bytes",
+                "Host bytes currently held by the KV page tier "
+                "(cached prefixes + pinned preemption stashes).")
+            self._tier_entries_gauge = reg.gauge(
+                "serving_host_tier_entries",
+                "Demoted prefix pages currently cached in the host tier.")
+            self._tier_stashes_gauge = reg.gauge(
+                "serving_host_tier_stashes",
+                "Preempted requests with KV stashed in the host tier.")
+            self._tier_hits_counter = reg.counter(
+                "serving_host_tier_hits_total",
+                "Host-tier prefix lookups that hit a demoted page.")
+            self._tier_misses_counter = reg.counter(
+                "serving_host_tier_misses_total",
+                "Host-tier prefix lookups that missed.")
+            self._tier_evictions_counter = reg.counter(
+                "serving_host_tier_evictions_total",
+                "Cached tier pages LRU-evicted under the byte budget.")
+            self._tier_corrupt_counter = reg.counter(
+                "serving_host_tier_corrupt_total",
+                "Tier page images whose CRC32 verify failed (dropped "
+                "and recomputed, never injected).")
         self._spec_accept_gauge = None
         if self._spec_k:
             self._spec_accept_gauge = reg.gauge(
@@ -775,6 +837,7 @@ class ServingEngine:
             return False
         self.scheduler.cancel(request_id)
         del self._seeds[request_id]
+        self._drop_resume(request_id)
         self._q_acc.pop(request_id, None)
         self.stats.inc("cancelled")
         self._finished_counter.inc(reason="cancelled")
@@ -820,8 +883,11 @@ class ServingEngine:
                 finished.append(self._finish(slot, "deadline", now=now))
             admit = None
             if self.pages is not None:
-                admit = lambda slot, entry: self._admit_paged(slot, entry, finished)
+                admit = lambda slot, entry: self._admit_paged(
+                    slot, entry, iteration, finished)
             chunks = self.scheduler.plan(admit=admit)
+        if self._resumed:
+            self._restore_resumed()
         if chunks:
             with self.tracer.span("prefill", iteration=iteration,
                                   chunks=len(chunks)):
@@ -882,7 +948,7 @@ class ServingEngine:
             if slot.filled == slot.prompt_len:
                 tok, ok, em = sample_tokens(
                     logits[0, -1:].to(torch.float32), [slot.request.params],
-                    [len(slot.generated)], quality=self._quality)
+                    [self._key_pos(slot)], quality=self._quality)
                 if not ok[0]:
                     raise EngineCrashError(
                         f"non-finite logits prefilling slot {i} (request "
@@ -896,6 +962,14 @@ class ServingEngine:
     def _pos0(s: Slot) -> int:
         """Position of the slot's last emitted token."""
         return s.prompt_len + len(s.generated) - 1
+
+    @staticmethod
+    def _key_pos(s: Slot) -> int:
+        """Key position of the slot's next token: its index t, shifted by
+        the request's ``key_offset`` (a replayed continuation: the first
+        ``key_offset`` prompt tokens were emitted by an earlier attempt,
+        so token t draws as that attempt's token ``key_offset + t``)."""
+        return s.request.params.key_offset + len(s.generated)
 
     def _write_page(self, tables: np.ndarray, index: int, pos: int) -> int:
         """Physical page a row of slot ``index`` at ``pos`` writes."""
@@ -955,7 +1029,7 @@ class ServingEngine:
             toks, ok, em = sample_tokens(
                 logits[rows].to(torch.float32),
                 [s.request.params for s in active],
-                [len(s.generated) for s in active], quality=self._quality)
+                [self._key_pos(s) for s in active], quality=self._quality)
         self._check_finite([s for s, good in zip(active, ok) if not good],
                            "decoding")
         with self.tracer.span("emit", iteration=iteration):
@@ -1041,7 +1115,7 @@ class ServingEngine:
             rows = torch.as_tensor([s.index for s in active], device=dev)
             emitted, ok, em = spec_accept(
                 logits[rows], drafts, [s.request.params for s in active],
-                [len(s.generated) for s in active],
+                [self._key_pos(s) for s in active],
                 force_reject=faults.spec_reject_storm_at(iteration),
                 quality=self._quality)
         self._check_finite([s for s, good in zip(active, ok) if not good],
@@ -1090,6 +1164,22 @@ class ServingEngine:
         """Page-pool snapshot for /health (None on the contiguous pool)."""
         return None if self.pages is None else self.pages.stats()
 
+    def tier_stats(self) -> Optional[dict]:
+        """Host-tier snapshot for /health (None when the tier is off):
+        byte budget and usage, cached entries and pinned stashes, the
+        tier's own counters (serving/host_tier.py:HostTier.stats), and
+        the engine's demote, promote, preempt, resume and fallback
+        totals."""
+        if self._tier is None:
+            return None
+        out = dict(self._tier.stats())
+        out["demotions"] = self.stats["tier_demotions"]
+        out["promotions"] = self.stats["tier_promotions"]
+        out["fallbacks"] = self.stats["tier_fallbacks"]
+        out["preemptions"] = self.stats["preemptions"]
+        out["resumes"] = self.stats["resumes"]
+        return out
+
     def _update_gauges(self) -> None:
         """Refresh the point-in-time gauges (/metrics): slot occupancy,
         queue depths, the spec acceptance rate, the quality drift and the
@@ -1113,6 +1203,16 @@ class ServingEngine:
             self._prefix_hits_counter.set(st["hits_total"])
             self._prefix_misses_counter.set(st["misses_total"])
             self._prefix_evictions_counter.set(st["evictions_total"])
+            self._tier_prefix_hits_counter.set(st["tier_hits_total"])
+            if self._tier is not None:
+                ts = self._tier.stats()
+                self._tier_bytes_gauge.set(ts["bytes"])
+                self._tier_entries_gauge.set(ts["entries"])
+                self._tier_stashes_gauge.set(ts["stashes"])
+                self._tier_hits_counter.set(ts["hits_total"])
+                self._tier_misses_counter.set(ts["misses_total"])
+                self._tier_evictions_counter.set(ts["evictions_total"])
+                self._tier_corrupt_counter.set(ts["corrupt_total"])
             held = sum(min(s.filled + len(s.generated), self.cfg.block_size)
                        for s in self.scheduler.slots if s.state != FREE)
             self._kv_gauge.set(held / (st["total"] * self.serving.kv_page_size))
@@ -1234,26 +1334,414 @@ class ServingEngine:
         if self.drafter is not None:
             self.drafter.release(slot.index)
 
-    def _admit_paged(self, slot: Slot, entry,
+    def _admit_paged(self, slot: Slot, entry, iteration: int,
                      finished: List[RequestOutput]) -> Optional[int]:
         """Scheduler admission gate: plan the request against the radix
-        cache and the page pool. Returns the cached prefix length to
-        skip (>= 0), None to keep it queued (pages short right now), or
-        -1 after shedding it with a ``page_exhausted`` output."""
+        cache, the page pool and, when tiered, the host tier. Returns the
+        cached (or restored) prefix length to skip (>= 0), None to keep
+        it queued (pages short right now; the scheduler may preempt a
+        lower class on this verdict and retry), or -1 after shedding it
+        with a ``page_exhausted`` output."""
         request, prompt, t_submit, _deadline, trace = entry
+        if request.request_id in self._resume:
+            verdict = self._try_resume(slot, entry, iteration)
+            if verdict == "wait":
+                return None
+            if verdict == "ok":
+                # the whole KV image (prompt and generated) is back:
+                # nothing to prefill
+                return int(prompt.shape[0])
+            # "restart": the image was unusable; admit afresh. Draws
+            # are pure functions of (seed, t), so the recompute emits
+            # the uninterrupted run's tokens
         try:
             adm = self.pages.plan_admission(
                 slot.index, [int(t) for t in prompt],
                 request.params.max_new_tokens)
         except PagePoolExhaustedError:
+            self._drain_demotions(iteration)
             finished.append(self._shed_page_exhausted(request, prompt,
                                                       t_submit, trace))
             return -1
+        # this planning call's evicted pages still hold their prefixes
+        # until a copy, promote or prefill reuses them: capture first
+        self._drain_demotions(iteration)
         if adm is None:
             return None
+        cached = adm.cached_len
+        if adm.promotes:
+            cached = self._apply_promotes(adm, iteration)
         for src, dst in adm.copies:  # COW forks, before any pool call
             copy_cache_pages(self.cache, src, dst)
-        return adm.cached_len
+        return cached
+
+    # -- host tier: demote / promote / preempt / resume ----------------
+    # (serving/host_tier.py; engine thread only; lock order pool -> tier)
+
+    def _extract_page(self, page: int) -> list:
+        """One physical page as owned host tensors (per-layer leaf
+        dicts): the capture side of demotion, preemption and export."""
+        return extract_cache_page(self.cache, page)
+
+    def _inject_page(self, page: int, payload) -> bool:
+        """Write one host page image into physical page ``page`` (the
+        promote, swap-in and import transfer), retried twice with a short
+        backoff; a transfer that keeps failing returns False and the
+        caller degrades to recompute, counted."""
+        for attempt in range(3):
+            try:
+                inject_cache_page(self.cache, page, payload)
+                return True
+            except Exception:
+                if attempt == 2:
+                    return False
+                time.sleep(0.005 * (attempt + 1))
+        return False
+
+    def _drain_demotions(self, iteration: int) -> None:
+        """Capture the pool's pending demotions into the host tier. Runs
+        right after EVERY pool planning call: the freed pages still hold
+        the evicted prefixes until a later call hands them out. The
+        ``page_demote_fail`` fault skips the capture: the prefixes
+        degrade to recompute, counted in ``tier_fallbacks``."""
+        if self._tier is None:
+            return
+        plans = self.pages.take_demotions()
+        if not plans:
+            return
+        if faults.page_demote_fail_at(iteration):
+            self.stats.inc("tier_fallbacks", len(plans))
+            return
+        for prefix, page in plans:
+            if self._tier.put(prefix, self._extract_page(page)):
+                self.stats.inc("tier_demotions")
+
+    def _apply_promotes(self, adm, iteration: int) -> int:
+        """Copy an admission's host-tier pages back onto the device, in
+        prompt order; the first failed verify or inject truncates the
+        restored prefix there and the rest prefills. The
+        ``page_promote_hang`` fault stalls (``DTX_TIER_HANG_S``), then
+        fails every promote."""
+        ps = self.serving.kv_page_size
+        ok_pages = 0
+        if not faults.page_promote_hang_at(iteration):
+            for dst, ent in adm.promotes:
+                if not ent.verify():
+                    self._tier.note_corrupt()
+                    break
+                if not self._inject_page(int(dst), ent.payload):
+                    break
+                ok_pages += 1
+        if ok_pages:
+            self.stats.inc("tier_promotions", ok_pages)
+        if ok_pages < len(adm.promotes):
+            self.stats.inc("tier_fallbacks", len(adm.promotes) - ok_pages)
+        return adm.device_cached + ok_pages * ps
+
+    def _live_pages(self, slot: Slot) -> int:
+        """Pages a slot's KV has reached: after g emitted tokens the pool
+        holds positions 0..P+g-2 (the last token's KV is written by its
+        next step), which ceil((P+g)/ps) covers within the slot's
+        allocation."""
+        pos = slot.prompt_len + len(slot.generated)
+        return min(-(-pos // self.serving.kv_page_size),
+                   self.pages.pages_per_slot)
+
+    def _preempt_slot(self, slot: Slot) -> None:
+        """Scheduler preemption hook: stash an ACTIVE lower-priority
+        slot's live pages and host state in the tier, free its pages and
+        REQUEUE it with its original submit time (aging keeps accruing).
+        Its later swap-in (:meth:`_try_resume`) is bit-exact."""
+        rid = slot.request.request_id
+        row = self.pages.table_row(slot.index)
+        n_live = self._live_pages(slot)
+        self._tier.stash(rid, [self._extract_page(int(row[j]))
+                               for j in range(n_live)])
+        self._resume[rid] = {
+            "n_live": n_live,
+            "generated": list(slot.generated),
+            "token_times": list(slot.token_times),
+            "first_token_time": slot.first_token_time,
+            "filled": slot.filled,
+            "cached_len": slot.cached_len,
+            "spec_proposed": slot.spec_proposed,
+            "spec_accepted": slot.spec_accepted,
+            "prompt_ids": slot.prompt_ids,
+            "penalty_counts": slot.penalty_counts,
+            "token_logprobs": slot.token_logprobs,
+            "top_logprobs": slot.top_logprobs,
+            "fsm_state": slot.fsm_state,
+        }
+        self.scheduler.queue.append((slot.request, slot.prompt,
+                                     slot.submit_time, slot.deadline,
+                                     slot.trace))
+        self.pages.release(slot.index, [], False)
+        if self.drafter is not None:
+            self.drafter.release(slot.index)
+        self.stats.inc("preemptions")
+        # reset directly: scheduler.retire would release the pages again
+        slot.reset()
+
+    def _try_resume(self, slot: Slot, entry, iteration: int) -> str:
+        """Swap a preempted (or imported) request back in: reserve
+        private pages for its whole KV image and inject it, CRC-verified.
+        Returns "wait" (the pool cannot free enough yet), "ok" (step()
+        restores the host state once plan() commits) or "restart" (the
+        image was unusable: a full recompute, counted)."""
+        request, prompt, _t_submit, _deadline, _trace = entry
+        rid = request.request_id
+        snap = self._resume[rid]
+        pages = self.pages.plan_resume(
+            slot.index,
+            self.pages.pages_needed(int(prompt.shape[0]),
+                                    request.params.max_new_tokens))
+        self._drain_demotions(iteration)
+        if pages is None:
+            return "wait"
+        # an imported snapshot carries its own (wire) page images
+        migrated = "pages" in snap
+        ents = snap["pages"] if migrated else self._tier.unstash(rid)
+        ok = ents is not None
+        if ok and faults.page_swap_corrupt_at(iteration):
+            # flip one byte of the first leaf of the image in place: the
+            # CRC verify below must catch it
+            layer0 = ents[0].payload[0]
+            leaf = layer0[next(iter(layer0))]
+            leaf.reshape(-1).view(torch.uint8)[0] ^= 0xFF
+        if ok:
+            for pg, ent in zip(pages, ents):
+                if not ent.verify():
+                    if self._tier is not None:
+                        self._tier.note_corrupt()
+                    ok = False
+                    break
+                if not self._inject_page(int(pg), ent.payload):
+                    ok = False
+                    break
+        if not ok:
+            self.pages.release(slot.index, [], False)
+            self._resume.pop(rid, None)
+            if migrated:
+                self.stats.inc("migrate_failed")
+            else:
+                self._tier.drop_stash(rid)
+                self.stats.inc("tier_fallbacks")
+            # the recompute emits every token again
+            self._q_acc.pop(rid, None)
+            return "restart"
+        self._resumed.append((slot, snap))
+        self.stats.inc("resumes")
+        return "ok"
+
+    def _restore_resumed(self) -> None:
+        """Give the slots swapped in by this step's plan() their decode
+        state back: the pool holds their KV again, so generation goes on
+        as if never interrupted. plan() committed each as a PREFILL with
+        its whole prompt filled, so no chunk was planned for it."""
+        for slot, snap in self._resumed:
+            for key in ("first_token_time", "filled", "cached_len",
+                        "spec_proposed", "spec_accepted", "prompt_ids",
+                        "penalty_counts", "token_logprobs", "top_logprobs"):
+                setattr(slot, key, snap[key])
+            slot.generated = list(snap["generated"])
+            slot.token_times = list(snap["token_times"])
+            slot.state = ACTIVE
+            self._resume.pop(slot.request.request_id, None)
+        self._resumed = []
+
+    def _drop_resume(self, request_id: int) -> None:
+        """Forget a preempted request's swap-in state on every path that
+        forgets the request (cancel, expire, shed, crash loss): a leaked
+        stash would pin host-tier bytes for good."""
+        self._resume.pop(request_id, None)
+        if self._tier is not None:
+            self._tier.drop_stash(request_id)
+
+    # -- live migration (serving/migrate.py) ---------------------------
+    # Engine thread only: the runner (serving/server.py) runs these
+    # between steps.
+
+    def _slot_for(self, request_id: int) -> Optional[Slot]:
+        return next((s for s in self.scheduler.slots
+                     if s.state != FREE and s.request is not None
+                     and s.request.request_id == request_id), None)
+
+    def export_slot_state(self, request_id: int, dedup_pages: int = 0) -> bytes:
+        """One ACTIVE slot's whole decode state as a wire image, taken
+        WITHOUT disturbing it: the slot decodes on until the destination
+        acknowledges and :meth:`release_migrated` retires it.
+        ``dedup_pages`` is the destination's radix probe
+        (``PagePool.probe_prefix``): that many leading full prompt pages
+        ship as holes the importer copies from its own pool. Raises the
+        typed :class:`MigrateExportError` when there is nothing to export
+        (contiguous pool; the request is queued, prefilling or done)."""
+        if self.pages is None:
+            raise MigrateExportError(
+                "live migration needs the paged KV layout "
+                "(ServingConfig.kv_page_size > 0) — fall back to replay")
+        slot = self._slot_for(request_id)
+        if slot is None or slot.state != ACTIVE or not slot.generated:
+            raise MigrateExportError(
+                f"request {request_id} holds no ACTIVE slot (queued, "
+                "prefilling, or already finished) — nothing to "
+                "migrate; replay or plain retry covers it",
+                code="migrate_not_active")
+        faults.stall("migrate_hang")
+        ps = self.serving.kv_page_size
+        n_live = self._live_pages(slot)
+        # dedup covers only FULL pages of the PROMPT (generated tokens
+        # never enter a radix tree), and a radix match stops at
+        # prompt_len - 1
+        dedup = max(0, min(int(dedup_pages), n_live,
+                           (slot.prompt_len - 1) // ps if slot.prompt_len else 0))
+        row = self.pages.table_row(slot.index)
+        payloads: List[Optional[list]] = [
+            None if j < dedup else self._extract_page(int(row[j]))
+            for j in range(n_live)]
+        now = time.perf_counter()
+        meta = {
+            "prompt": [int(t) for t in slot.prompt],
+            "params": params_to_dict(slot.request.params),
+            "generated": list(slot.generated),
+            "n_live": n_live,
+            "dedup_pages": dedup,
+            "page_size": ps,
+            "model": self.cfg.model,
+            "block_size": self.cfg.block_size,
+            "filled": slot.filled,
+            "cached_len": slot.cached_len,
+            "spec_proposed": slot.spec_proposed,
+            "spec_accepted": slot.spec_accepted,
+            # the port serves no constraint, logprobs or penalties: their
+            # neutral values, under the JAX engine's keys
+            "fsm_state": slot.fsm_state,
+            "token_logprobs": slot.token_logprobs,
+            "top_logprobs": slot.top_logprobs,
+            "deadline_left_s": (max(0.0, slot.deadline - now)
+                                if slot.deadline else 0.0),
+        }
+        blob = encode_slot_state(meta, payloads)
+        if payloads and faults.consume("migrate_corrupt"):
+            # flip one byte AFTER the page CRCs were stamped: the
+            # importer's decode must convict the transfer
+            torn = bytearray(blob)
+            torn[-1] ^= 0xFF
+            blob = bytes(torn)
+        self.stats.inc("migrate_exports")
+        self.stats.inc("migrate_pages_shipped", n_live - dedup)
+        self.stats.inc("migrate_pages_deduped", dedup)
+        self.stats.inc("migrate_bytes", len(blob))
+        return blob
+
+    def release_migrated(self, request_id: int) -> bool:
+        """Retire a slot whose decode state now lives on the destination
+        (the import was acknowledged). False when the request is unknown
+        or finished: the local output wins."""
+        slot = self._slot_for(request_id)
+        if slot is None:
+            return False
+        self._seeds.pop(request_id, None)
+        self._drop_resume(request_id)
+        self._q_acc.pop(request_id, None)
+        self._finished_counter.inc(reason="migrated")
+        if self._tracing:
+            self.tracer.instant("finish", rid=request_id, reason="migrated",
+                                **self._targs(slot.trace))
+        # the standard retire path: the prompt's pages may go to the
+        # radix cache, so the source keeps serving the prefix
+        self.scheduler.retire(slot)
+        return True
+
+    def import_state(self, blob: bytes) -> int:
+        """Readmit a migrated slot state: decode and CRC-verify the wire
+        image (a flipped byte is convicted HERE, before the device sees
+        anything), resolve dedup holes from the local radix tree, submit
+        the request afresh, and register its snapshot so the paged
+        admission gate injects its pages bit-exact
+        (:meth:`_try_resume`). Returns the new request id. Raises
+        ``MigratePayloadError`` (corrupt or torn) or
+        :class:`MigrateExportError` (contiguous pool, geometry mismatch,
+        dedup miss, a field of a later slice), leaving the engine
+        clean."""
+        if self.pages is None:
+            raise MigrateExportError(
+                "live migration needs the paged KV layout "
+                "(ServingConfig.kv_page_size > 0)")
+        meta, payloads = decode_slot_state(blob)
+        if (meta.get("page_size") != self.serving.kv_page_size
+                or meta.get("model") != self.cfg.model
+                or meta.get("block_size") != self.cfg.block_size):
+            raise MigrateExportError(
+                f"geometry mismatch: wire (model={meta.get('model')}, "
+                f"block={meta.get('block_size')}, "
+                f"page={meta.get('page_size')}) vs engine "
+                f"(model={self.cfg.model}, block={self.cfg.block_size},"
+                f" page={self.serving.kv_page_size})",
+                code="migrate_geometry")
+        params = params_from_dict(meta["params"])
+        bad = unsupported_field(params)
+        if bad is not None:
+            # served with the field dropped, the continuation would
+            # differ from the source's: refuse it, typed
+            raise MigrateExportError(
+                f"migrated request sets {bad}, which the port's serving "
+                "engine does not serve yet", code="migrate_unsupported")
+        prompt = [int(t) for t in meta["prompt"]]
+        dedup = int(meta.get("dedup_pages", 0))
+        if dedup:
+            # resolve the holes now: no planning call runs before the
+            # submit below, so the chain cannot be evicted under us
+            chain = self.pages.chain_pages(prompt, dedup)
+            if chain is None:
+                self.stats.inc("migrate_failed")
+                raise MigrateExportError(
+                    f"dedup chain ({dedup} pages) no longer cached — "
+                    "evicted between probe and import; source retries "
+                    "without dedup or falls back to replay",
+                    code="migrate_dedup_miss")
+            for j, pg in enumerate(chain):
+                payloads[j] = self._extract_page(int(pg))
+        left = float(meta.get("deadline_left_s") or 0.0)
+        rid = self.submit(prompt, params=params,
+                          deadline=(time.perf_counter() + left) if left else None)
+        self._resume[rid] = {
+            "n_live": int(meta["n_live"]),
+            "generated": [int(t) for t in meta["generated"]],
+            # host timestamps do not survive the hop: token times restart
+            # on this clock
+            "token_times": [],
+            "first_token_time": time.perf_counter(),
+            "filled": int(meta["filled"]),
+            "cached_len": int(meta["cached_len"]),
+            "spec_proposed": int(meta.get("spec_proposed", 0)),
+            "spec_accepted": int(meta.get("spec_accepted", 0)),
+            "prompt_ids": None,
+            "penalty_counts": None,
+            "token_logprobs": None,
+            "top_logprobs": None,
+            "fsm_state": int(meta.get("fsm_state", 0)),
+            # wire-borne page images, injected instead of a tier stash
+            "pages": [TierEntry(p) for p in payloads],
+        }
+        self.stats.inc("migrate_imports")
+        return rid
+
+    def progress_snapshot(self) -> List[dict]:
+        """Each in-flight request's emitted tokens so far: the
+        ``GET /inflight`` body a router harvests into its replay journal
+        (serving/migrate.py:ReplayJournal). A journal needs only a
+        PREFIX of the emitted tokens, so lagging a step is correct."""
+        out = []
+        for s in self.scheduler.slots:
+            if s.state == FREE or s.request is None:
+                continue
+            out.append({"request_id": s.request.request_id,
+                        "prompt_len": s.prompt_len,
+                        "tokens": list(s.generated)})
+        for req, prompt, _t, _dl, _tr in list(self.scheduler.queue):
+            out.append({"request_id": req.request_id,
+                        "prompt_len": int(prompt.shape[0]), "tokens": []})
+        return out
 
     def _release_slot_pages(self, slot: Slot) -> None:
         """Dereference shared pages and donate the prompt's pages to the
@@ -1274,6 +1762,7 @@ class ServingEngine:
         the server maps to HTTP 503 ``page_pool_exhausted``;
         ``retry_after`` comes from the pool's observed drain rate."""
         self._seeds.pop(request.request_id, None)
+        self._drop_resume(request.request_id)
         self._q_acc.pop(request.request_id, None)
         self.stats.inc("page_shed")
         self._finished_counter.inc(reason="page_exhausted")
@@ -1393,11 +1882,22 @@ class ServingEngine:
         eos = (p.eos_token_id if p.eos_token_id is not None
                else self.serving.eos_token_id)
         hit_eos = eos is not None and token == eos
-        stop_hit = bool(p.stop) and any(
-            len(slot.generated) >= len(seq)
-            and tuple(slot.generated[-len(seq):]) == seq
-            for seq in p.stop
-        )
+        stop_hit = False
+        if not hit_eos and p.stop:
+            g = slot.generated
+            for seq in p.stop:
+                n = len(seq)
+                tail = g
+                if len(g) < n and p.key_offset:
+                    # a replayed continuation: a stop sequence may span
+                    # the boundary (its head was emitted by the earlier
+                    # attempt and rides the prompt's tail)
+                    P = slot.prompt_len
+                    borrow = min(n - len(g), p.key_offset, P)
+                    tail = [int(t) for t in slot.prompt[P - borrow:P]] + g
+                if len(tail) >= n and tuple(tail[-n:]) == seq:
+                    stop_hit = True
+                    break
         if hit_eos or stop_hit or len(slot.generated) >= p.max_new_tokens:
             finished.append(self._finish(
                 slot,
@@ -1456,6 +1956,7 @@ class ServingEngine:
                        now: float, trace=None) -> RequestOutput:
         """A request whose deadline passed while it waited for a slot."""
         self._seeds.pop(request.request_id, None)
+        self._drop_resume(request.request_id)
         self._q_acc.pop(request.request_id, None)
         self.stats.inc("deadline_expired")
         self._finished_counter.inc(reason="deadline")
@@ -1520,8 +2021,15 @@ class ServingEngine:
                 rid = slot.request.request_id
                 lost.append(rid)
                 self._seeds.pop(rid, None)
+                self._drop_resume(rid)
                 self._q_acc.pop(rid, None)
         preserved = list(self.scheduler.queue)
+        self._resumed = []
+        if self._tier is not None:
+            # cached prefixes are as untrusted as the pool they came from
+            # (a poisoned page demotes with a valid CRC); stashes survive,
+            # their owners ride the preserved queue and resume bit-exact
+            self._tier.clear_cache()
         if self.pages is not None:
             self.pages.reset()
         if self.drafter is not None:

@@ -26,9 +26,10 @@ the JAX package's serving/pages.py, which imports no JAX).
   :class:`PagePoolExhaustedError` (HTTP 503 ``page_pool_exhausted``).
 
 The host-tier hooks (``tier``, demotions, promotions, ``plan_resume``)
-and the migration probes are kept as in the JAX package; the port's
-engine passes no tier (``ServingConfig.host_tier_bytes`` is refused), so
-they stay inert. Byte accounting is int8-aware (:func:`page_bytes`).
+and the migration probes (``probe_prefix``, ``chain_pages``) are kept as
+in the JAX package; the engine passes its tier (serving/host_tier.py)
+when ``ServingConfig.host_tier_bytes > 0``. Byte accounting is
+int8-aware (:func:`page_bytes`).
 """
 
 from __future__ import annotations
@@ -152,12 +153,11 @@ class PagePool:
         self.total_pages = total_pages
         self.capacity = total_pages - 1  # page 0 is the trash page
         self.prefix_cache = prefix_cache
-        # optional host-RAM page tier (the JAX package's
-        # serving/host_tier.py; never passed by the port): evicted
+        # optional host-RAM page tier (serving/host_tier.py): evicted
         # full radix pages demote there instead of vanishing, and
         # admission planning consults it past the device match. Lock
-        # order is PagePool._lock -> HostTier._lock (GL601): the tier
-        # never calls back into the pool.
+        # order is PagePool._lock -> HostTier._lock: the tier never
+        # calls back into the pool.
         self._tier = tier
         self._lock = threading.Lock()
         self._clock = 0

@@ -26,7 +26,21 @@ Counterpart of the JAX package's serving/server.py for this slice:
   (:meth:`EngineRunner.accepting`), and ``GET /metrics``: the engine's
   registry in the Prometheus text format, the ``slo_*`` burn-rate
   gauges refreshed on each scrape. A request the page pool cannot take
-  answers HTTP 503 ``page_pool_exhausted``.
+  answers HTTP 503 ``page_pool_exhausted``. ``/health`` carries
+  ``host_tier`` with the host tier on.
+- Live migration (serving/migrate.py), as in the JAX server: ``GET
+  /inflight`` lists each in-flight request's emitted tokens (with the
+  ``journal_id`` its ``/generate`` carried); ``POST /migrate/export``
+  ``{request_id, dest, migrate_id, budget_s}`` moves an ACTIVE request's
+  decode state to the peer at ``dest`` (probe its radix tree, export,
+  ``POST dest/migrate/import``, then release the slot), and the blocked
+  ``/generate`` answers 200 ``{"code": "migrated", "dest",
+  "migrate_id"}``; ``POST /migrate/await {migrate_id}`` on the peer
+  returns the whole continuation in ``/generate``'s shape;
+  ``POST /migrate/probe {prompt_ids}`` answers ``cached_pages``. HTTP
+  handlers reach the engine only through
+  :meth:`EngineRunner.run_on_engine`, between steps; the network legs of
+  a migration run on the handler's thread, so the other slots decode on.
 
 A request's ``traceparent`` field (W3C shape, obs/trace.py) gives the
 engine its trace context, so the span trace (``--trace-path``) stamps
@@ -36,8 +50,9 @@ fresh id. Every reply carries ``trace_id``. ``--event-log`` appends
 and ``drained`` at shutdown (obs/events.py).
 
 A request that carries a field of a later slice of the port (structured
-decoding, penalties, logprobs, replay fields) is refused with HTTP 400
-``bad_request`` naming the field.
+decoding, penalties, logprobs) is refused with HTTP 400 ``bad_request``
+naming the field. ``key_offset`` (a replayed continuation) and
+``journal_id`` are served.
 """
 
 from __future__ import annotations
@@ -46,7 +61,7 @@ import json
 import sys
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional, Sequence
 
@@ -61,12 +76,21 @@ from differential_transformer_replication_tpu_torch.serving.engine import (
     EngineCrashError,
     ServingEngine,
 )
+from differential_transformer_replication_tpu_torch.serving.migrate import (
+    MigrateExportError,
+    MigratePayloadError,
+    from_wire,
+    to_wire,
+)
 from differential_transformer_replication_tpu_torch.serving.pages import (
     PagePoolExhaustedError,
 )
 from differential_transformer_replication_tpu_torch.serving.request import (
     RequestOutput,
     SamplingParams,
+)
+from differential_transformer_replication_tpu_torch.serving.retry import (
+    http_post_json_with_retries,
 )
 from differential_transformer_replication_tpu_torch.serving.scheduler import (
     DeadlineExceededError,
@@ -77,18 +101,15 @@ from differential_transformer_replication_tpu_torch.serving.scheduler import (
 GENERATE_KEYS = (
     "prompt_ids", "max_new_tokens", "temperature", "top_k", "seed",
     "eos_token_id", "stop", "priority", "deadline_s", "timeout",
-    "traceparent", "draft_len", "prompt",
+    "traceparent", "draft_len", "prompt", "key_offset", "journal_id",
 )
 LATER_SLICE_KEYS = (
     "json_schema", "regex", "choices", "repetition_penalty",
     "presence_penalty", "frequency_penalty", "logprobs", "spec",
-    "key_offset", "journal_id",
 )
 
 # the JAX server's flags that wait for a later slice -> the ROADMAP item
 LATER_FLAGS = {
-    "--host-tier-bytes": "the host tier (ROADMAP Queue A: serving "
-                         "subsystems, item 8)",
     "--quantize-weights": "int8 weights (ROADMAP Queue A: serving "
                           "subsystems, item 8)",
     "--spec-drafter-ckpt": "ModelDrafter (ROADMAP Queue A: serving "
@@ -106,17 +127,32 @@ class ShuttingDownError(RuntimeError):
     retriable = True
 
 
+class MigratedError(RuntimeError):
+    """Settle marker, not a failure: the request's live decode state
+    moved to a peer replica mid-flight (serving/migrate.py). The HTTP
+    handler maps it to 200 ``{"code": "migrated", "dest", "migrate_id"}``
+    so the caller follows with ``POST dest/migrate/await``."""
+
+    def __init__(self, dest: str, migrate_id: str):
+        super().__init__(f"request migrated to {dest}")
+        self.dest = dest
+        self.migrate_id = migrate_id
+
+
 class _Pending:
     """One submitted request's handle across the thread boundary."""
 
     __slots__ = ("prompt", "params", "deadline", "trace", "done", "result",
-                 "error", "rid", "cancelled", "settled")
+                 "error", "rid", "cancelled", "settled", "journal_id")
 
-    def __init__(self, prompt, params, deadline=None, trace=None):
+    def __init__(self, prompt, params, deadline=None, trace=None,
+                 journal_id=None):
         self.prompt = prompt
         self.params = params
         self.deadline = deadline  # absolute perf_counter ts, or None
         self.trace = trace  # TraceContext (obs/trace.py) or None
+        # a router's replay-journal handle, echoed on /inflight
+        self.journal_id = journal_id
         self.done = threading.Event()
         self.result: Optional[RequestOutput] = None
         self.error: Optional[BaseException] = None
@@ -139,6 +175,11 @@ class EngineRunner:
         self._cond = threading.Condition()
         self._incoming: deque = deque()
         self._cancels: deque = deque()
+        self._commands: deque = deque()  # run_on_engine thunks
+        self._inflight: list = []  # the last step's progress snapshot
+        # migrate_id -> the waiter of an imported request (/migrate/await)
+        self._migrated: "OrderedDict[str, _Pending]" = OrderedDict()
+        self._migrated_cap = 256
         self._waiters: dict = {}  # request_id -> _Pending (engine thread)
         self._stop = False
         self._abort = False
@@ -184,14 +225,15 @@ class EngineRunner:
     def submit(self, prompt: Sequence[int],
                params: Optional[SamplingParams] = None,
                deadline_s: Optional[float] = None, trace=None,
-               **kw) -> _Pending:
+               journal_id=None, **kw) -> _Pending:
         """Thread-safe enqueue. Raises :class:`QueueFullError` at the
         admission bound and :class:`ShuttingDownError` while draining.
-        ``trace`` is the request's TraceContext, handed to the engine."""
+        ``trace`` is the request's TraceContext, handed to the engine;
+        ``journal_id`` rides the request's ``/inflight`` entries."""
         params = params or SamplingParams(**kw)
         deadline = (time.perf_counter() + deadline_s
                     if deadline_s is not None else None)
-        pending = _Pending(list(prompt), params, deadline, trace)
+        pending = _Pending(list(prompt), params, deadline, trace, journal_id)
         with self._cond:
             if self._failed:
                 err = EngineCrashError(
@@ -226,15 +268,164 @@ class EngineRunner:
                  params: Optional[SamplingParams] = None,
                  timeout: Optional[float] = None,
                  deadline_s: Optional[float] = None, trace=None,
-                 **kw) -> RequestOutput:
+                 journal_id=None, **kw) -> RequestOutput:
         pending = self.submit(prompt, params, deadline_s=deadline_s,
-                              trace=trace, **kw)
+                              trace=trace, journal_id=journal_id, **kw)
         if not pending.done.wait(timeout):
             self.cancel(pending)
             raise TimeoutError("generation timed out")
         if pending.error is not None:
             raise pending.error
         return pending.result
+
+    # -- live migration (serving/migrate.py) ---------------------------
+
+    def run_on_engine(self, fn, timeout: float = 30.0):
+        """Run ``fn()`` ON the engine thread between steps and return its
+        result (or raise its exception) in the calling thread: the only
+        way an HTTP handler touches engine state. Accepted while draining
+        (a drain may migrate), refused once the runner is stopped or
+        failed."""
+        done = threading.Event()
+        box: dict = {}
+
+        def thunk():
+            try:
+                box["result"] = fn()
+            except BaseException as e:
+                box["error"] = e
+            finally:
+                done.set()
+
+        with self._cond:
+            if self._failed or self._stop:
+                raise ShuttingDownError(
+                    "runner is stopped; no engine thread to run on")
+            self._commands.append(thunk)
+            self._cond.notify()
+        if not done.wait(timeout):
+            raise TimeoutError(
+                f"engine command did not complete within {timeout}s")
+        if "error" in box:
+            raise box["error"]
+        return box.get("result")
+
+    def migrate_out(self, request_id: int, dest_url: str,
+                    migrate_id: str, budget_s: float = 10.0) -> dict:
+        """Move one in-flight request's live decode state to a peer:
+        probe the peer's radix tree (dedup), export the slot's wire
+        image, POST it to ``dest/migrate/import`` within the budget, then
+        release the local slot and settle its waiter with
+        :class:`MigratedError`. Only the export and the release run on
+        the engine thread; the network legs run on the caller's thread,
+        so the other slots keep decoding through a slow transfer. The
+        slot decodes on between export and release, and the tokens it
+        emits past the image are emitted again, identically, at the
+        destination (draws are pure functions of (seed, t)). Raises
+        :class:`MigrateExportError` (typed ``code``) when a leg fails;
+        the request itself is unharmed."""
+        budget = max(0.1, float(budget_s))
+        deadline = time.monotonic() + budget
+
+        def read_prompt():
+            if self._waiters.get(request_id) is None:
+                return None
+            slot = self.engine._slot_for(request_id)
+            return [int(t) for t in slot.prompt] if slot is not None else []
+
+        prompt = self.run_on_engine(read_prompt)
+        if prompt is None:
+            # finished (or never admitted here): its /generate answered
+            return {"outcome": "finished"}
+        cached = 0
+        if prompt:
+            try:
+                status, body, _ = http_post_json_with_retries(
+                    dest_url + "/migrate/probe", {"prompt_ids": prompt},
+                    timeout=min(5.0, budget), max_retries=0,
+                    deadline_s=max(0.1, deadline - time.monotonic()))
+                if status == 200:
+                    cached = int(body.get("cached_pages", 0) or 0)
+            except Exception:
+                cached = 0  # the probe is best-effort: no dedup
+
+        def export():
+            if self._waiters.get(request_id) is None:
+                return None
+            return self.engine.export_slot_state(request_id,
+                                                 dedup_pages=cached)
+
+        blob = self.run_on_engine(export)
+        if blob is None:
+            return {"outcome": "finished"}
+        status, body, _ = http_post_json_with_retries(
+            dest_url + "/migrate/import",
+            {"state": to_wire(blob), "migrate_id": migrate_id},
+            timeout=max(0.1, deadline - time.monotonic()), max_retries=2,
+            deadline_s=max(0.1, deadline - time.monotonic()))
+        if status != 200:
+            code = body.get("code") if isinstance(body, dict) else None
+            self.engine.stats.inc("migrate_failed")
+            raise MigrateExportError(
+                f"destination import failed (status {status}, code {code})",
+                code="migrate_transfer")
+
+        def release():
+            pending = self._waiters.get(request_id)
+            if pending is None or pending.settled:
+                # finished here during the transfer: the real result
+                # answered; the imported copy decodes the same tokens
+                return {"outcome": "finished"}
+            self.engine.release_migrated(request_id)
+            self._waiters.pop(request_id, None)
+            self._settle(pending, error=MigratedError(dest_url, migrate_id))
+            return {"outcome": "migrated", "bytes": len(blob),
+                    "dedup_pages": cached, "dest": dest_url,
+                    "migrate_id": migrate_id}
+
+        return self.run_on_engine(release)
+
+    def import_state(self, blob: bytes, migrate_id: str,
+                     timeout: float = 30.0) -> int:
+        """Land a migrated slot here: decode and CRC-verify the wire
+        image, readmit it through the swap-in path
+        (serving/engine.py:``import_state``) and register a waiter under
+        ``migrate_id`` for ``/migrate/await``. Runs on the engine
+        thread. Raises ``MigratePayloadError`` on a convicted transfer,
+        ``MigrateExportError`` on a typed refusal, and the admission
+        errors when full."""
+        with self._cond:
+            if self._draining or self._stop or self._failed:
+                raise ShuttingDownError("replica is draining; migrate elsewhere")
+
+        def thunk():
+            rid = self.engine.import_state(blob)
+            pending = _Pending([], None)
+            pending.rid = rid
+            self._waiters[rid] = pending
+            with self._cond:
+                self._open += 1
+                self._migrated[migrate_id] = pending
+                while len(self._migrated) > self._migrated_cap:
+                    oldest = next(iter(self._migrated))
+                    if not self._migrated[oldest].settled:
+                        break  # never drop a live import
+                    self._migrated.popitem(last=False)
+            return rid
+
+        return self.run_on_engine(thunk, timeout=timeout)
+
+    def migrated_pending(self, migrate_id: str) -> Optional[_Pending]:
+        with self._cond:
+            return self._migrated.get(migrate_id)
+
+    def inflight_snapshot(self) -> list:
+        """The last completed step's per-request progress (request_id,
+        prompt_len, emitted tokens, and journal_id when the request
+        carried one). A stale snapshot only means a replay regenerates a
+        few tokens, identically."""
+        with self._cond:
+            return list(self._inflight)
 
     def drain(self, timeout: Optional[float] = None) -> bool:
         """Stop admission, wait for everything in flight within the drain
@@ -363,6 +554,7 @@ class EngineRunner:
         while True:
             with self._cond:
                 while (not self._incoming and not self._cancels
+                       and not self._commands
                        and not self.engine.has_work() and not self._abort):
                     if self._stop:
                         return
@@ -371,6 +563,8 @@ class EngineRunner:
                 self._incoming.clear()
                 cancels = list(self._cancels)
                 self._cancels.clear()
+                commands = list(self._commands)
+                self._commands.clear()
                 stopping = self._stop
                 aborting = self._abort
             if aborting:
@@ -399,6 +593,10 @@ class EngineRunner:
                     waiters[pending.rid] = pending
                 except Exception as e:  # invalid request: fail the caller
                     self._settle(pending, error=e)
+            for thunk in commands:
+                # run_on_engine thunks: each catches its own exception
+                # and signals its caller
+                thunk()
             try:
                 t0 = time.perf_counter()
                 with self._cond:
@@ -417,6 +615,13 @@ class EngineRunner:
                     return
                 continue
             self._deliver(outs, waiters)
+            entries = self.engine.progress_snapshot()
+            for ent in entries:
+                p = waiters.get(ent["request_id"])
+                if p is not None and p.journal_id is not None:
+                    ent["journal_id"] = p.journal_id
+            with self._cond:
+                self._inflight = entries
             if stopping and not self.engine.has_work():
                 return
 
@@ -431,9 +636,10 @@ class ServingClient:
                  params: Optional[SamplingParams] = None,
                  timeout: Optional[float] = None,
                  deadline_s: Optional[float] = None, trace=None,
-                 **kw) -> RequestOutput:
+                 journal_id=None, **kw) -> RequestOutput:
         return self.runner.generate(prompt, params, timeout=timeout,
-                                    deadline_s=deadline_s, trace=trace, **kw)
+                                    deadline_s=deadline_s, trace=trace,
+                                    journal_id=journal_id, **kw)
 
     def generate_batch(self, prompts: Sequence[Sequence[int]],
                        params: Optional[Sequence[SamplingParams]] = None,
@@ -529,7 +735,8 @@ def _make_handler(client: ServingClient, tokenizer=None, events=None,
                     "device": str(client.runner.engine.device),
                     **{key: val for key, val in (
                         ("kv_pages", client.runner.engine.page_stats()),
-                        ("spec", client.runner.engine.spec_stats()))
+                        ("spec", client.runner.engine.spec_stats()),
+                        ("host_tier", client.runner.engine.tier_stats()))
                        if val is not None},
                 })
             elif self.path == "/ready":
@@ -538,8 +745,91 @@ def _make_handler(client: ServingClient, tokenizer=None, events=None,
                 else:
                     self._reply(503, {"ready": False, "status": client.status()},
                                 headers=self._retry_after())
+            elif self.path == "/inflight":
+                # per-request progress: a router's replay-journal harvest
+                # and a drain's migration list
+                self._reply(200, {"inflight": client.runner.inflight_snapshot()})
             else:
                 self._reply(404, {"error": f"unknown path {self.path}"})
+
+        # -- live migration endpoints (serving/migrate.py) ------------
+
+        def _read_json(self) -> dict:
+            n = int(self.headers.get("Content-Length", "0"))
+            return json.loads(self.rfile.read(n) or b"{}")
+
+        def _migrate_probe(self) -> None:
+            """How many leading prompt pages this replica's radix tree
+            holds: the source ships holes for them (dedup)."""
+            try:
+                req = self._read_json()
+                prompt = [int(t) for t in req.get("prompt_ids") or []]
+                pool = client.runner.engine.pages
+                cached = pool.probe_prefix(prompt) if pool is not None and prompt else 0
+                self._reply(200, {"cached_pages": int(cached)})
+            except Exception as e:
+                self._reply(400, {"error": str(e), "code": "bad_request"})
+
+        def _migrate_import(self) -> None:
+            """Land a migrated slot. A convicted (corrupt or torn) image
+            answers a typed 409: garbage KV never lands."""
+            try:
+                req = self._read_json()
+                migrate_id = str(req.get("migrate_id") or "")
+                if not migrate_id or "state" not in req:
+                    raise ValueError("migrate_id and state required")
+                blob = from_wire(str(req["state"]))
+                rid = client.runner.import_state(blob, migrate_id)
+            except MigratePayloadError as e:
+                self._reply(409, {"error": str(e), "code": "migrate_corrupt"})
+            except MigrateExportError as e:
+                self._reply(409, {"error": str(e), "code": e.code})
+            except (ValueError, TypeError, json.JSONDecodeError) as e:
+                self._reply(400, {"error": str(e), "code": "bad_request"})
+            except QueueFullError as e:
+                self._reply(503, {"error": str(e), "code": "queue_full"},
+                            headers=self._retry_after())
+            except PagePoolExhaustedError as e:
+                self._reply(503, {"error": str(e),
+                                  "code": "page_pool_exhausted"},
+                            headers=self._retry_after())
+            except ShuttingDownError as e:
+                self._reply(503, {"error": str(e), "code": "shutting_down"},
+                            headers=self._retry_after())
+            except TimeoutError as e:
+                self._reply(503, {"error": str(e), "code": "migrate_timeout"})
+            except Exception as e:
+                self._reply(500, {"error": str(e) or repr(e), "code": "internal"})
+            else:
+                events.emit("migrate_imported", migrate_id=migrate_id,
+                            request_id=rid)
+                self._reply(200, {"request_id": rid, "migrate_id": migrate_id})
+
+        def _migrate_export(self) -> None:
+            """Move one in-flight request to ``dest``. A typed failure
+            (contiguous pool, transfer death, a full destination) answers
+            non-200 and the request decodes on here."""
+            try:
+                req = self._read_json()
+                result = client.runner.migrate_out(
+                    int(req["request_id"]), str(req["dest"]).rstrip("/"),
+                    str(req.get("migrate_id") or ""),
+                    budget_s=float(req.get("budget_s", 10.0)))
+            except MigrateExportError as e:
+                self._reply(409, {"error": str(e), "code": e.code})
+            except (ValueError, TypeError, KeyError,
+                    json.JSONDecodeError) as e:
+                self._reply(400, {"error": str(e), "code": "bad_request"})
+            except ShuttingDownError as e:
+                self._reply(503, {"error": str(e), "code": "shutting_down"})
+            except TimeoutError as e:
+                self._reply(503, {"error": str(e), "code": "migrate_timeout"})
+            except Exception as e:
+                self._reply(500, {"error": str(e) or repr(e), "code": "internal"})
+            else:
+                events.emit("migrate_exported", outcome=result.get("outcome"),
+                            dest=result.get("dest"))
+                self._reply(200, result)
 
         def _run_generate(self, req: dict, ctx) -> RequestOutput:
             """Parse a /generate body and run it under trace context
@@ -579,21 +869,32 @@ def _make_handler(client: ServingClient, tokenizer=None, events=None,
                       else tuple(tuple(int(t) for t in seq) for seq in stop)),
                 priority=str(req.get("priority", "normal")),
                 draft_len=None if draft_len is None else int(draft_len),
+                # a replay: the key position of prompt + emitted tokens
+                key_offset=int(req.get("key_offset", 0)),
             )
             deadline_s = req.get("deadline_s")
             # arrival at the handler, not admission: the engine's
             # trace-stamped `admit` instant marks that
             events.emit("request_received", trace_id=ctx.trace_id,
                         prompt_len=len(prompt_ids))
+            jid = req.get("journal_id")
             return client.generate(
                 [int(t) for t in prompt_ids], params,
                 timeout=float(req.get("timeout", 600.0)),
                 deadline_s=None if deadline_s is None else float(deadline_s),
-                trace=ctx,
+                trace=ctx, journal_id=None if jid is None else str(jid),
             )
 
         def do_POST(self):
-            if self.path != "/generate":
+            if self.path == "/migrate/probe":
+                return self._migrate_probe()
+            if self.path == "/migrate/import":
+                return self._migrate_import()
+            if self.path == "/migrate/export":
+                return self._migrate_export()
+            # /migrate/await shares /generate's error ladder and reply:
+            # it is a /generate whose work arrived by migration
+            if self.path not in ("/generate", "/migrate/await"):
                 self._reply(404, {"error": f"unknown path {self.path}"})
                 return
             ctx = None  # TraceContext once the body parses
@@ -615,7 +916,25 @@ def _make_handler(client: ServingClient, tokenizer=None, events=None,
                 # the traceparent field is the trace contract; a request
                 # without one gets a fresh context
                 ctx = trace_from_payload(req)
-                out = self._run_generate(req, ctx)
+                if self.path == "/migrate/await":
+                    # an imported request's waiter, answered in
+                    # /generate's shape (the whole token list: the slot
+                    # restored the source's emitted tokens)
+                    migrate_id = str(req.get("migrate_id") or "")
+                    pending = client.runner.migrated_pending(migrate_id)
+                    if pending is None:
+                        _fail(404, {
+                            "error": f"unknown migrate_id {migrate_id!r}",
+                            "code": "unknown_migrate_id"})
+                        return
+                    if not pending.done.wait(float(req.get("timeout", 600.0))):
+                        client.runner.cancel(pending)
+                        raise TimeoutError("generation timed out")
+                    if pending.error is not None:
+                        raise pending.error
+                    out = pending.result
+                else:
+                    out = self._run_generate(req, ctx)
             except (ValueError, TypeError, json.JSONDecodeError) as e:
                 _fail(400, {"error": str(e), "code": "bad_request"})
                 return
@@ -656,6 +975,17 @@ def _make_handler(client: ServingClient, tokenizer=None, events=None,
                 return
             except TimeoutError:
                 _fail(503, {"error": "generation timed out", "code": "timeout"})
+                return
+            except MigratedError as e:
+                # not a failure: the live state moved to a peer; the
+                # caller picks the continuation up at dest/migrate/await
+                payload = {"code": "migrated", "dest": e.dest,
+                           "migrate_id": e.migrate_id}
+                if ctx is not None:
+                    payload["trace_id"] = ctx.trace_id
+                events.emit("request_migrated", dest=e.dest,
+                            trace_id=payload.get("trace_id"))
+                self._reply(200, payload)
                 return
             except Exception as e:  # unexpected failure, still typed
                 _fail(500, {"error": str(e) or repr(e), "code": "internal"})
@@ -742,6 +1072,13 @@ def build_parser():
                    help="watchdog: mark the engine degraded on /health "
                         "when one decode iteration exceeds this many "
                         "seconds (0 = off)")
+    p.add_argument("--host-tier-bytes", type=int, default=0,
+                   help="host-RAM KV page tier (serving/host_tier.py), "
+                        "in bytes (needs --kv-page-size): evicted "
+                        "radix-cached prefixes DEMOTE here instead of "
+                        "vanishing and promote back with a copy, never "
+                        "a recompute; preempted requests stash their "
+                        "live KV here and resume bit-exact. 0 = off")
     p.add_argument("--priority-aging", type=float, default=10.0,
                    help="anti-starvation aging (seconds): every this "
                         "many seconds waited improves a queued "
@@ -858,6 +1195,7 @@ def serving_config_from_args(args):
         prefix_cache=not args.no_prefix_cache,
         prefix_cache_pages=args.prefix_cache_pages, spec_mode=args.spec_mode,
         spec_draft_len=args.spec_draft_len, spec_verify=args.spec_verify,
+        host_tier_bytes=args.host_tier_bytes,
         # recording or comparing a fingerprint both need the telemetry
         # tail, so either flag arms it
         quality_telemetry=(args.quality_telemetry

@@ -13,10 +13,11 @@ either package. The port's serving engine fires ``serve_raise``,
 ``serve_hang``, ``canary_regress`` (all three through
 :func:`serve_fire`), ``serve_corrupt``, ``page_exhaust``,
 ``prefix_corrupt``, ``spec_reject_storm``, ``quality_drift`` and
-``quality_nan`` at the JAX engine's points. ``spec_drafter_crash``,
-``constrain_dead_end``, the host-tier kinds (``page_demote_fail``,
-``page_promote_hang``, ``page_swap_corrupt``) and the router, migration
-and control-plane kinds parse as there and stay inert until the port's
+``quality_nan``, the host-tier kinds (``page_demote_fail``,
+``page_promote_hang``, ``page_swap_corrupt``) and the migration kinds
+(``migrate_corrupt``, ``migrate_hang``) at the JAX engine's points.
+``spec_drafter_crash``, ``constrain_dead_end`` and the router and
+control-plane kinds parse as there and stay inert until the port's
 subsystems that fire them land (ROADMAP Queue A: serving subsystems).
 
 A fault PLAN is a comma-separated spec of ``kind@step`` (or

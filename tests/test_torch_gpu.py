@@ -338,6 +338,85 @@ def test_paged_int8_spec_engine_on_the_card_matches_the_cpu(gen, kind, verify):
     assert [o.tokens for o in on_card] == [o.tokens for o in on_cpu]
 
 
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_page_extract_and_inject_round_trip_on_the_card(gen, kv):
+    """A page of the recipe's decode pool (bf16 or int8 with its scale
+    planes; K's page axis is not its outer one, so its page is strided)
+    comes to the host as owned tensors and goes back into another page
+    bit for bit; flipping a byte of the image leaves the pool alone."""
+    from differential_transformer_replication_tpu_torch.models.decode import (
+        KV_CACHE_BATCH_AXIS,
+        extract_cache_page,
+        init_cache_paged,
+        inject_cache_page,
+    )
+
+    cfg = ModelConfig(model="diff", vocab_size=97, n_embd=768, n_head=4,
+                      n_layer=2, block_size=512, compute_dtype="bfloat16",
+                      kv_cache_dtype=kv)
+    cache = init_cache_paged(cfg, 9, 16, "cuda")
+    for layer in cache:
+        for t in layer.values():
+            if t.is_floating_point():
+                t.normal_(generator=gen)
+            else:
+                t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                                      device="cuda", dtype=torch.int8))
+    snap = [{k: t.clone() for k, t in layer.items()} for layer in cache]
+    img = extract_cache_page(cache, 3)
+    for layer, c in zip(img, cache):
+        assert set(layer) == set(c)
+        for key, t in layer.items():
+            assert t.device.type == "cpu" and t.dtype == c[key].dtype
+            assert torch.equal(t.cuda(), c[key].select(KV_CACHE_BATCH_AXIS[key], 3))
+    img[0]["k"].reshape(-1).view(torch.uint8)[0] ^= 0xFF
+    assert all(torch.equal(t, snap[i][k]) for i, layer in enumerate(cache)
+               for k, t in layer.items())
+    img[0]["k"].reshape(-1).view(torch.uint8)[0] ^= 0xFF
+    inject_cache_page(cache, 7, img)
+    for i, layer in enumerate(cache):
+        for key, t in layer.items():
+            ax = KV_CACHE_BATCH_AXIS[key]
+            assert torch.equal(t.select(ax, 7), t.select(ax, 3))
+            others = [p for p in range(9) if p != 7]
+            assert torch.equal(t.index_select(ax, torch.tensor(others, device="cuda")),
+                               snap[i][key].index_select(
+                                   ax, torch.tensor(others, device="cuda")))
+
+
+@pytest.mark.parametrize("kv", ["auto", "int8"])
+def test_a_preempted_request_resumes_on_the_card_as_if_never_stopped(gen, kv):
+    """bf16 serving with the host tier: a low-priority request (greedy,
+    and one sampled) is preempted by a high-priority one, its pages go to
+    the host and come back into other pages, and its tokens equal its run
+    without pressure bit for bit."""
+    cfg = ModelConfig(model="diff", vocab_size=97, n_embd=64, n_head=2,
+                      n_layer=2, block_size=64, compute_dtype="bfloat16")
+    cpu_gen = torch.Generator()
+    cpu_gen.manual_seed(6)
+    params = init_model(cpu_gen, cfg)
+    serving = dict(num_slots=3, prefill_chunk=8, prefill_budget=64,
+                   kv_page_size=8, kv_cache_dtype=kv)
+    low = [[(7 * j + 3) % 97 for j in range(20)], [(5 * j + 1) % 97 for j in range(20)]]
+    kws = [dict(max_new_tokens=30, temperature=0.0, priority="batch"),
+           dict(max_new_tokens=30, temperature=0.8, top_k=20, seed=4,
+                priority="batch")]
+    ref = ServingEngine(params, cfg, ServingConfig(**serving))
+    want = [ref.generate([p], **kw)[0].tokens for p, kw in zip(low, kws)]
+    eng = ServingEngine(params, cfg, ServingConfig(
+        **serving, kv_pool_pages=14, host_tier_bytes=1 << 26))
+    rids = [eng.submit(p, **kw) for p, kw in zip(low, kws)]
+    outs = {}
+    while not all(eng._slot_for(r) is not None and len(eng._slot_for(r).generated) >= 3
+                  for r in rids):
+        outs.update({o.request_id: o for o in eng.step()})
+    eng.submit([2] * 30, max_new_tokens=30, temperature=0.0, priority="high")
+    outs.update({o.request_id: o for o in eng.run()})
+    assert eng.stats["preemptions"] >= 1
+    assert eng.stats["resumes"] == eng.stats["preemptions"]
+    assert [outs[r].tokens for r in rids] == want
+
+
 @pytest.mark.parametrize("page_size", [0, 16])
 def test_batched_verify_of_eight_drafts_on_the_card_matches_the_cpu(gen, page_size):
     """Batched verify of up to 8 drafts (L = 9 rows a slot, two kernel

@@ -26,7 +26,7 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 PKG = "differential_transformer_replication_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "tokenizers", "regex",
-             "differential_transformer_replication_tpu")
+             "ml_dtypes", "differential_transformer_replication_tpu")
 
 
 def _modules():

@@ -161,7 +161,7 @@ def test_submit_validation_and_later_slice_fields():
     with pytest.raises(ValueError, match=r"\[0, 61\)"):
         eng.submit([61], max_new_tokens=2)
     for field, value in (("repetition_penalty", 1.3), ("logprobs", 2),
-                         ("regex", "a+"), ("key_offset", 1)):
+                         ("regex", "a+"), ("frequency_penalty", 0.5)):
         with pytest.raises(ValueError, match=field):
             eng.submit([1, 2], max_new_tokens=2, **{field: value})
     assert eng.stats["rejected"] == 6

@@ -256,8 +256,10 @@ def test_http_draft_len_health_and_page_pool_exhausted():
 def test_later_slice_serving_values_are_refused_with_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
         ServingConfig(spec_mode="model")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A.*host tier"):
-        ServingConfig(kv_page_size=8, host_tier_bytes=1 << 20)
+    # the host tier is served since the tier slice: accepted, validated
+    assert ServingConfig(kv_page_size=8, host_tier_bytes=1 << 20).tiered()
+    with pytest.raises(ValueError, match="host_tier_bytes"):
+        ServingConfig(kv_page_size=8, host_tier_bytes=-1)
     with pytest.raises(ValueError, match="spec_verify"):
         ServingConfig(spec_verify="fast")
     with pytest.raises(ValueError, match="must divide"):
