@@ -112,6 +112,28 @@ these phases, each printing its own lines and its seconds:
    difference from the uninterrupted tail reported. Decode-attention
    launches of every run equal the paged formula over its decode and
    verify steps;
+   serve-requests: what a request can ask of the server, same model,
+   8 slots: (a) the model drafter, contiguous pool, exact verify, 8
+   greedy requests of 128 tokens: the target drafting for itself
+   (acceptance >= 0.9) and a random 2-layer control model at the
+   recipe's width, both bit-equal to the non-spec run, decode-attention
+   launches equal to the target's steps plus the drafter's rounds times
+   its layers, ``serving_spec_drafter_kv_bytes`` the pool's bytes; both
+   on the paged int8 pool under batched verify (first difference
+   reported); ``spec_drafter_crash``: one crash, tokens bit-equal; (b)
+   int8 weights: target and drafter saved with the port's checkpoint
+   writer and served through the CLI parser with ``--quantize-weights
+   int8 --spec-drafter-ckpt``, every matmul weight within its channels'
+   half steps, the decode step's kernels those of bf16 weights, greedy
+   agreement reported; (c) regex, choices and JSON-schema requests over
+   HTTP with the smoke corpus's BPE, greedy and sampled, each accepted
+   by its FSM, greedy ones equal under model speculation,
+   ``constraint_compile_failed`` and ``constraint_dead_end`` answered,
+   cache hits; (d) penalties and logprobs beside plain rows in one wave
+   (plain rows bit-equal to their wave alone, presence 100 repeating no
+   token, top lists sorted with the greedy token first), and
+   ``decode_profile``'s step inert (the parent's kernels per step) and
+   with the pipeline on every row;
 4. e2e: prefill + decode logits of one prompt in fp32 on the card
    (kernels) against the CPU (plain versions); and a 2-layer diff at
    recipe width through the paged pool: paged steps and batched verify
@@ -1180,8 +1202,8 @@ def serve_chaos(torch, params, cfg, serving, donor, wave, want) -> dict:
             steps.append((it, engine.stats["spec_proposed"] - p0,
                           engine.stats["spec_accepted"] - a0))
 
-    def logged_collect(active):
-        props = collect(active)
+    def logged_collect(active, iteration):
+        props = collect(active, iteration)
         it = engine.stats["iterations"]
         drafts.extend((it, s.request.request_id, len(s.generated), list(props[s.index]))
                       for s in active if props.get(s.index))
@@ -1915,6 +1937,509 @@ def run_serve_tier(torch, card: str) -> None:
         f"{launches}; {time.perf_counter() - t:.1f} s; {card}")
     del eng
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: what a request can ask of the server
+# ---------------------------------------------------------------------------
+
+REQ_SERVING = dict(num_slots=8, prefill_chunk=128, prefill_budget=4096)
+REQ_NEW = 128        # greedy tokens a drafter-phase request generates
+REQ_PROMPT = 64      # tokens of each of its prompts
+REQ_K = 4            # draft length of the model-drafter runs
+# kernels a contiguous bf16 decode step launches (serving/decode_profile.py
+# on the parent tree, PERF.md section 5): an inert wave must keep it
+PARENT_DECODE_KERNELS = 308
+REQ_SCHEMA = {"type": "object", "properties": {
+    "name": {"type": "string"}, "age": {"type": "integer"}},
+    "required": ["name", "age"]}
+
+
+def _req_counters():
+    from differential_transformer_replication_tpu_torch.ops import (
+        decode_attention as dat,
+        fused_ffn as ffn,
+        fused_norm_residual as fnr,
+    )
+
+    return {"fused_add_norm": fnr.fused_add_norm, "fused_norm": fnr.fused_norm,
+            "fused_swiglu": ffn.fused_swiglu,
+            "decode_attention": dat.decode_attention,
+            "decode_attention_multi": dat.decode_attention_multi,
+            "decode_attention_paged": dat.decode_attention_paged,
+            "decode_attention_multi_paged": dat.decode_attention_multi_paged}
+
+
+def req_counted(torch, fn, engine, path: tuple):
+    """Run ``fn()`` with every kernel wrapper's count set to 0 just
+    before and read just after; fails when a kernel of ``path`` (the
+    wrapper names the run must go through) was never launched. Returns
+    the result, the counts and the engine's step counts over the run."""
+    counters = _req_counters()
+    for c in counters.values():
+        c.launches = 0
+    s0 = dict(engine.steps)
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {k: c.launches for k, c in counters.items()}
+    for k in path:
+        expect(counts[k] > 0, f"serve-requests: {k} never launched in the run "
+               f"({counts})")
+    return out, counts, {k: engine.steps[k] - s0[k] for k in engine.steps}
+
+
+def drafter_pool_bytes(cfg, slots: int) -> int:
+    """Device bytes of a contiguous drafter pool, from its config: per
+    layer K (S, B, H, M, d) and V (B, H, M, dv) in the compute dtype."""
+    S = {"control": 1, "diff": 2, "ndiff": cfg.n_terms}[cfg.model]
+    per = (S * cfg.head_size + cfg.value_size) * slots * cfg.n_head * cfg.block_size
+    return cfg.n_layer * per * (2 if cfg.compute_dtype == "bfloat16" else 4)
+
+
+def to_device(tree, device):
+    """A param tree with every leaf moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _fsm_ok(fsm, tokens: list, reason: str) -> bool:
+    """An output accepted by its FSM: every token allowed from the start
+    state, and a completed constraint in an accepting state."""
+    st = fsm.walk(tokens)
+    return st >= 0 and (reason != "constraint_complete" or fsm.is_accepting(st))
+
+
+def run_serve_requests(torch, card: str) -> None:
+    """Phase 3d. The diff recipe (random weights from the serve phases'
+    seed), 8 slots, bf16: (a) the model drafter on the contiguous pool,
+    exact verify, greedy requests of 128 tokens: a self drafter and a
+    random 2-layer control drafter, tokens bit-equal to the non-spec run,
+    the self drafter's acceptance >= 0.9, decode-attention launches equal
+    to the target's steps plus the drafter's rounds times its layers,
+    ``serving_spec_drafter_kv_bytes`` equal to the pool's bytes; both again
+    on the paged int8 pool with batched verify (first difference from
+    non-spec reported); ``spec_drafter_crash``: one crash, tokens
+    bit-equal, proposals after the rebuild. (b) int8 weights: the target
+    and the control drafter saved with the port's checkpoint writer, a
+    server started through the CLI parser with ``--quantize-weights int8
+    --spec-drafter-ckpt``; dequantized weights within each channel's half
+    step, the decode step's kernels those of bf16 weights, greedy
+    agreement with bf16 weights reported. (c) constraints over HTTP with
+    the smoke corpus's BPE: regex, choices and JSON-schema requests,
+    greedy and sampled, each output accepted by its FSM, greedy
+    constrained output under model speculation equal to the same without,
+    ``constraint_compile_failed`` and ``constraint_dead_end`` (with its
+    partial tokens), cache hits. (d) penalties and logprobs in one wave
+    beside plain rows: the plain rows' tokens equal to their wave alone,
+    an inert wave's kernels per decode step the parent's, presence
+    penalty 100 repeating no token, every echoed top list sorted with the
+    greedy token first."""
+    import tempfile
+
+    import numpy as np
+
+    from differential_transformer_replication_tpu_torch.config import (
+        ModelConfig,
+        ServingConfig,
+        TrainConfig,
+    )
+    from differential_transformer_replication_tpu_torch.data.corpus import (
+        synthetic_corpus,
+    )
+    from differential_transformer_replication_tpu_torch.data.tokenizer import (
+        train_bpe_tokenizer,
+        vocab_strings,
+    )
+    from differential_transformer_replication_tpu_torch.models import init_model
+    from differential_transformer_replication_tpu_torch.obs.registry import (
+        parse_exposition,
+    )
+    from differential_transformer_replication_tpu_torch.serving import server as tserver
+    from differential_transformer_replication_tpu_torch.serving.constrain import (
+        compile_constraint,
+        spec_key,
+    )
+    from differential_transformer_replication_tpu_torch.serving.engine import (
+        ServingEngine,
+    )
+    from differential_transformer_replication_tpu_torch.serving.request import (
+        SamplingParams,
+    )
+    from differential_transformer_replication_tpu_torch.train.checkpoint import (
+        load_params_for_inference,
+        save_checkpoint,
+    )
+    from differential_transformer_replication_tpu_torch.train.step import train_state
+    from differential_transformer_replication_tpu_torch.utils import faults
+
+    cfg = ModelConfig(**RECIPE, compute_dtype="bfloat16", param_dtype="float32")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = init_model(gen, cfg)
+    d_train = TrainConfig(model=ModelConfig(**{**RECIPE, "model": "control",
+                                               "n_layer": 2},
+                                            compute_dtype="bfloat16"),
+                          vocab_size=cfg.vocab_size)
+    dcfg = d_train.resolved_model()
+    gen.manual_seed(1)
+    d_params = init_model(gen, dcfg)
+    L, Ld = cfg.n_layer, dcfg.n_layer
+    rng = np.random.default_rng(19)
+    prompts = rng.integers(0, cfg.vocab_size, (8, REQ_PROMPT)).tolist()
+    greedy = dict(max_new_tokens=REQ_NEW, temperature=0.0)
+
+    def engine(drafter=None, vocab=None, **kw):
+        return ServingEngine(params, cfg, ServingConfig(**{**REQ_SERVING, **kw}),
+                             device="cuda", spec_drafter=drafter, vocab=vocab)
+
+    def tokens_of(eng, ps=prompts, **kw):
+        return [o.tokens for o in eng.generate(ps, **{**greedy, **kw})]
+
+    path = ("fused_add_norm", "fused_norm", "fused_swiglu", "decode_attention")
+    # (a) the model drafter
+    t = time.perf_counter()
+    ref_eng = engine()
+    ref, counts, steps = req_counted(torch, lambda: tokens_of(ref_eng), ref_eng, path)
+    expect(counts["decode_attention"] == L * steps["decode_steps"],
+           f"(a) non-spec: decode attention {counts}, steps {steps}")
+    for name, pair in (("self", (params, cfg)), ("control2", (d_params, dcfg))):
+        eng = engine(pair, spec_mode="model", spec_draft_len=REQ_K)
+        nd = pair[1].n_layer
+        got, counts, steps = req_counted(torch, lambda: tokens_of(eng), eng, path)
+        st = eng.spec_stats()
+        rounds = eng.drafter.rounds_total
+        l1 = steps["decode_steps"] - steps["spec_steps"]
+        want = L * (l1 + (REQ_K + 1) * steps["spec_steps"]) + nd * rounds
+        diff = first_difference(got, ref)
+        expect(got == ref, f"(a) {name} drafter, exact verify: tokens differ from the "
+               f"non-spec run at {diff}")
+        expect(counts["decode_attention"] == want and rounds > 0
+               and counts["decode_attention_multi"] == 0,
+               f"(a) {name}: decode attention launched {counts['decode_attention']}, "
+               f"expected {want} (target L={L}, {l1} plain + {steps['spec_steps']} "
+               f"verify steps of {REQ_K + 1} rows; drafter {nd} layers x {rounds} rounds)")
+        vals = {n: v for n, lab, v in parse_exposition(eng.registry.render())[1]}
+        pool = drafter_pool_bytes(pair[1], REQ_SERVING["num_slots"])
+        expect(vals["serving_spec_drafter_kv_bytes"] == pool == eng.drafter.bytes_total(),
+               f"(a) {name}: serving_spec_drafter_kv_bytes "
+               f"{vals['serving_spec_drafter_kv_bytes']}, pool {pool}")
+        if name == "self":
+            expect(st["acceptance_rate"] >= 0.9,
+                   f"(a) self drafter acceptance {st['acceptance_rate']} < 0.9")
+        log(f"[serve-requests] (a) {name} drafter ({nd} layers), contiguous bf16, "
+            f"exact verify, k {REQ_K}, 8 greedy requests of {REQ_NEW}: tokens bit-equal "
+            f"to non-spec; acceptance {st['acceptance_rate']} ({st['accepted']}/"
+            f"{st['proposed']}), {steps['spec_steps']} verify + {l1} plain steps, "
+            f"{rounds} drafter rounds, {eng.drafter.catchup_chunks} catch-up chunks; "
+            f"decode attention {counts['decode_attention']} launches = formula; "
+            f"drafter pool {pool} B; {card}")
+        del eng
+    paged = dict(kv_page_size=16, kv_cache_dtype="int8", spec_verify="batched")
+    # the paged runs and the crash drill at half the tokens: a
+    # greedy run's first 64 tokens are the 128-token run's
+    half = dict(max_new_tokens=REQ_NEW // 2)
+    pref_eng = engine(kv_page_size=16, kv_cache_dtype="int8")
+    pref = tokens_of(pref_eng, **half)
+    del pref_eng
+    for name, pair in (("self", (params, cfg)), ("control2", (d_params, dcfg))):
+        eng = engine(pair, spec_mode="model", spec_draft_len=REQ_K, **paged)
+        got, counts, steps = req_counted(
+            torch, lambda: tokens_of(eng, **half), eng,
+            ("fused_add_norm", "fused_swiglu", "decode_attention",
+             "decode_attention_multi_paged"))
+        diff = first_difference(got, pref)
+        log(f"[serve-requests] (a) {name} drafter, paged int8, batched verify, "
+            f"{REQ_NEW // 2} tokens: "
+            + ("tokens identical to the non-spec paged int8 run" if diff is None
+               else f"first difference from non-spec at request {diff[0]} token {diff[1]}")
+            + f" (reported, not required); acceptance "
+            f"{eng.spec_stats()['acceptance_rate']}; launches {counts}")
+        del eng
+    eng = engine((params, cfg), spec_mode="model", spec_draft_len=REQ_K)
+    crash_at = eng.stats["iterations"] + 3
+    verify_its = []
+    plain_spec = eng._decode_spec
+
+    def spy(active, proposals, iteration, finished):
+        verify_its.append(iteration)
+        return plain_spec(active, proposals, iteration, finished)
+
+    eng._decode_spec = spy
+    faults.arm(f"spec_drafter_crash@{crash_at}")
+    try:
+        got = tokens_of(eng, **half)
+    finally:
+        faults.reset()
+    crashes = eng.stats["spec_drafter_crashes"]
+    after = [i for i in verify_its if i > crash_at]
+    want = [r[:REQ_NEW // 2] for r in ref]
+    expect(crashes == 1 and eng.drafter.stats()["drafter_crashes_total"] == 1
+           and got == want and after and crash_at not in verify_its,
+           f"(a) spec_drafter_crash@{crash_at}: {crashes} crashes, tokens "
+           f"{'equal' if got == want else first_difference(got, want)}, verify "
+           f"steps after it {len(after)}")
+    log(f"[serve-requests] (a) spec_drafter_crash@{crash_at}, {REQ_NEW // 2} tokens: "
+        f"1 crash counted, the "
+        f"iteration ran the plain step, {len(after)} verify steps after the rebuild, "
+        f"tokens bit-equal; {time.perf_counter() - t:.1f} s")
+    del eng, ref_eng
+    torch.cuda.empty_cache()
+
+    # (b) int8 weights through the CLI
+    t = time.perf_counter()
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="serve_requests_", dir=build))
+    try:
+        tdir, ddir = str(work / "target.ckpt"), str(work / "drafter.ckpt")
+        t_train = TrainConfig(model=cfg, vocab_size=cfg.vocab_size)
+        save_checkpoint(tdir, train_state(params, t_train, "cuda"), 1.0, t_train)
+        save_checkpoint(ddir, train_state(d_params, d_train, "cuda"), 1.0, d_train)
+        t_save = time.perf_counter() - t
+        args = tserver.build_parser().parse_args([
+            "--checkpoint", tdir, "--spec-mode", "model", "--spec-drafter-ckpt", ddir,
+            "--spec-draft-len", str(REQ_K), "--quantize-weights", "int8",
+            "--device", "cuda", "--port", "0"])
+        expect(tserver.refused_flags(["--quantize-weights", "--spec-drafter-ckpt"]) == [],
+               "(b) the server still refuses --quantize-weights or --spec-drafter-ckpt")
+        q_eng, _, _, _ = tserver.engine_from_args(args)
+        # quantized on the host, as the CLI loads it
+        qp, _, _ = load_params_for_inference(tdir, quantize="int8")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    checked = 0
+
+    def half_step(node_q, node, name=None):
+        nonlocal checked
+        if isinstance(node, dict):
+            for k in node:
+                half_step(node_q[k], node[k], k)
+        elif isinstance(node, list):
+            for a, b in zip(node_q, node):
+                half_step(a, b, name)
+        elif name in ("wq", "wk", "wv") or (name == "w" and node.dim() == 2):
+            axis = -3 if name != "w" else 0
+            scale = node.abs().amax(dim=axis, keepdim=True).clamp(min=1e-12) / 127
+            err = (node_q - node).abs()
+            # half a step, up to the fp32 rounding of w / scale and
+            # q * scale (a few ulps of values up to 127 steps)
+            ratio = float((err / (scale / 2)).max())
+            expect(not torch.equal(node_q, node) and ratio <= 1 + 1e-4,
+                   f"(b) {name}: dequantized weight off by {ratio} half steps")
+            checked += 1
+
+    qp = to_device(qp, "cuda")
+    half_step(qp, params)
+    served_w = q_eng.params["lm_head"]["w"]
+    expect(torch.equal(served_w, qp["lm_head"]["w"].to(served_w.dtype))
+           and q_eng.drafter.kind == "model" and q_eng.drafter.cfg.n_layer == Ld,
+           "(b) the CLI engine does not serve the quantized target and drafter")
+    client = tserver.ServingClient(q_eng)
+    httpd = tserver.serve(client, port=0)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    try:
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(4) as pool:
+            served = [r[1]["tokens"] for r in pool.map(
+                lambda p: _post(url + "/generate", {
+                    "prompt_ids": p, "max_new_tokens": 64, "temperature": 0.0}),
+                prompts[:4])]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        client.close()
+        server.join(timeout=30)
+    q_plain = ServingEngine(qp, cfg, ServingConfig(**REQ_SERVING), device="cuda")
+    bf_plain = engine()
+    q_tok, q_counts, q_steps = req_counted(
+        torch, lambda: tokens_of(q_plain, prompts[:4], max_new_tokens=64), q_plain, path)
+    b_tok, b_counts, b_steps = req_counted(
+        torch, lambda: tokens_of(bf_plain, prompts[:4], max_new_tokens=64), bf_plain, path)
+    expect(served == q_tok, f"(b) the CLI server's tokens (int8 weights, model "
+           f"drafter) differ from the int8 engine's at {first_difference(served, q_tok)}")
+    expect(q_counts == b_counts and q_steps == b_steps,
+           f"(b) int8 weights launch {q_counts} over {q_steps}, bf16 weights "
+           f"{b_counts} over {b_steps}")
+    agree = float(np.mean([a == b for x, y in zip(q_tok, b_tok) for a, b in zip(x, y)]))
+    log(f"[serve-requests] (b) int8 weights: target and 2-layer control drafter "
+        f"saved ({t_save:.1f} s) and served through the CLI parser with "
+        f"--quantize-weights int8 --spec-drafter-ckpt; {checked} matmul weights each "
+        f"within its channels' half steps; the served tokens equal the int8 engine's; "
+        f"decode kernels as with bf16 weights ({q_counts}); greedy agreement with bf16 "
+        f"weights over 4 prompts x 64 tokens: {agree:.4f}; "
+        f"{time.perf_counter() - t:.1f} s; {card}")
+    del q_eng, q_plain, bf_plain, qp
+    torch.cuda.empty_cache()
+
+    # (c) constraints over HTTP
+    t = time.perf_counter()
+    tok = train_bpe_tokenizer(synthetic_corpus(CKPT_DOCS, 0), cfg.vocab_size, 2, None)
+    vocab = vocab_strings(tok, cfg.vocab_size)
+    text_prompts = [tok.encode(s).ids for s in
+                    ("One day, Tom", "The dog was very", "Sue and her mom", "Once")]
+    specs = [{"regex": "[a-z ]+\\."},
+             {"choices": ["Tom went home.", "Sue saw a big dog.", "yes"]},
+             {"json_schema": REQ_SCHEMA}]
+    bodies = []
+    for i, spec in enumerate(specs):
+        for j, p in enumerate(text_prompts[:2]):
+            body = {"prompt_ids": p, "max_new_tokens": 24, "temperature": 0.0, **spec}
+            if j:
+                body.update(temperature=0.9, top_k=40, seed=3 + i)
+            bodies.append(body)
+    results = {}
+    for name, kw in (("plain", {}), ("spec", dict(spec_mode="model",
+                                                  spec_draft_len=REQ_K))):
+        eng = engine((d_params, dcfg) if kw else None, vocab=vocab, **kw)
+        client = tserver.ServingClient(eng)
+        httpd = tserver.serve(client, port=0)
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        server = threading.Thread(target=httpd.serve_forever, daemon=True)
+        server.start()
+        try:
+            replies = [_post_any(url + "/generate", b) for b in bodies]
+            replies += [_post_any(url + "/generate", b) for b in bodies[::2]]
+            bad = _post_any(url + "/generate", {"prompt_ids": text_prompts[0],
+                                                "json_schema": "{\"type\": ",
+                                                "temperature": 0.0})
+            # a regex that never closes: the request is still decoding
+            # when the fault poisons its cursor
+            faults.arm(f"constrain_dead_end@{eng.stats['iterations'] + 3}")
+            dead = _post_any(url + "/generate", dict(bodies[0], regex="[a-z ]+"))
+            faults.reset()
+            health = json.load(urllib.request.urlopen(url + "/health", timeout=60))
+        finally:
+            faults.reset()
+            httpd.shutdown()
+            httpd.server_close()
+            client.close()
+            server.join(timeout=30)
+        for (status, reply), body in zip(replies, bodies + bodies[::2]):
+            key = spec_key(SamplingParams(**{k: (json.dumps(v) if k == "json_schema"
+                                                 else v)
+                                             for k, v in body.items()
+                                             if k in ("regex", "choices",
+                                                      "json_schema")}), None)
+            fsm = compile_constraint(key, vocab)
+            expect(status == 200 and _fsm_ok(fsm, reply["tokens"],
+                                             reply["finish_reason"]),
+                   f"(c) {name}: {status} {reply} not accepted by its FSM")
+        expect(bad[0] == 400 and bad[1]["code"] == "constraint_compile_failed",
+               f"(c) {name}: a malformed schema answered {bad}")
+        expect(dead[0] == 400 and dead[1]["code"] == "constraint_dead_end"
+               and dead[1]["partial_tokens"],
+               f"(c) {name}: constrain_dead_end answered {dead}")
+        cst = health["constraints"]
+        expect(cst["hits_total"] >= len(bodies[::2]) and cst["active"] == 0,
+               f"(c) {name}: constraint cache {cst}")
+        results[name] = replies
+        log(f"[serve-requests] (c) constraints over HTTP, {name}: "
+            f"{len(replies)} regex/choices/schema requests (greedy and sampled), each "
+            f"accepted by its FSM, finish reasons "
+            f"{sorted({r['finish_reason'] for _, r in replies})}; a malformed "
+            f"schema 400 constraint_compile_failed; constrain_dead_end 400 "
+            f"constraint_dead_end after {len(dead[1]['partial_tokens'])} tokens; "
+            f"cache {cst}; texts "
+            f"{[tok.decode(r['tokens'])[:40] for _, r in replies[:6:2]]}")
+        del eng
+    greedy_ix = [i for i, b in enumerate(bodies + bodies[::2]) if b["temperature"] == 0]
+    got = [results["spec"][i][1]["tokens"] for i in greedy_ix]
+    want = [results["plain"][i][1]["tokens"] for i in greedy_ix]
+    expect(got == want, f"(c) constrained greedy output under model speculation "
+           f"differs from the same without at {first_difference(got, want)}")
+    log(f"[serve-requests] (c) constrained greedy output with model speculation "
+        f"equal to the same without; {time.perf_counter() - t:.1f} s; {card}")
+
+    # (d) penalties and logprobs in one wave beside plain rows
+    t = time.perf_counter()
+    plain_kw = [dict(max_new_tokens=48, temperature=0.0)] * 4
+    pipe_kw = [dict(max_new_tokens=48, temperature=0.0, presence_penalty=100.0),
+               dict(max_new_tokens=48, temperature=0.0, frequency_penalty=0.5,
+                    repetition_penalty=1.3, logprobs=3),
+               dict(max_new_tokens=48, temperature=0.0, logprobs=5),
+               dict(max_new_tokens=48, temperature=0.8, top_k=50, seed=5, logprobs=5)]
+    eng = engine()
+    wave, counts, steps = req_counted(
+        torch, lambda: eng.generate(prompts, params=[
+            SamplingParams(**kw) for kw in plain_kw + pipe_kw]), eng, path)
+    alone = engine().generate(prompts[:4], params=[SamplingParams(**kw)
+                                                   for kw in plain_kw])
+    expect([o.tokens for o in wave[:4]] == [o.tokens for o in alone],
+           "(d) plain rows beside pipeline rows differ from their wave alone at "
+           f"{first_difference([o.tokens for o in wave[:4]], [o.tokens for o in alone])}")
+    rep = wave[4].tokens
+    expect(len(set(rep)) == len(rep), f"(d) presence_penalty 100 repeated a token: {rep}")
+    for o, kw in zip(wave[5:], pipe_kw[1:]):
+        expect(len(o.token_logprobs) == len(o.tokens) == len(o.top_logprobs),
+               f"(d) echo lengths {len(o.token_logprobs)} / {len(o.tokens)}")
+        for tokn, lp, top in zip(o.tokens, o.token_logprobs, o.top_logprobs):
+            vals = [v for _, v in top]
+            expect(len(top) == kw["logprobs"] and vals == sorted(vals, reverse=True),
+                   f"(d) a top list is not sorted: {top}")
+            if kw["temperature"] == 0:
+                expect(top[0][0] == tokn and top[0][1] == lp,
+                       f"(d) greedy token {tokn} ({lp}) is not first in {top}")
+    # serving/decode_profile.py's steady decode step, as the parent's
+    # number was measured (8 slots of 256-token prompts), in a process
+    # of its own: late in this long process the profiler has come back
+    # short of kernels (never over), in a fresh one it has not
+    del eng
+    torch.cuda.empty_cache()
+    inert, active, constrained = fresh_decode_profiles(
+        {}, dict(presence_penalty=0.5, frequency_penalty=0.1, logprobs=5),
+        dict(regex="[a-z ,.]*"))
+    expect(inert["device_kernels_per_step"] == PARENT_DECODE_KERNELS,
+           f"(d) an inert wave's decode step launched "
+           f"{inert['device_kernels_per_step']} kernels, the parent's "
+           f"{PARENT_DECODE_KERNELS}")
+    log(f"[serve-requests] (d) one wave of 4 plain rows beside presence 100, "
+        f"frequency+repetition with logprobs 3, logprobs 5 greedy and sampled: plain "
+        f"rows bit-equal to their wave alone; presence 100 repeated no token; every "
+        f"top list sorted, the greedy token first with its chosen logprob; "
+        f"launches {counts}")
+    log(f"[serve-requests] (d) decode step, 8 slots, contiguous bf16, in a fresh "
+        f"process: inert wave {inert['device_kernels_per_step']} kernels (the "
+        f"parent's {PARENT_DECODE_KERNELS}), wall {inert['wall_ms_per_step']:.3f} ms, "
+        f"busy {inert['device_busy_ms_per_step']:.3f} ms; "
+        + "; ".join(f"{name} on every row: {p['device_kernels_per_step']} kernels, "
+                    f"wall {p['wall_ms_per_step']:.3f} ms, busy "
+                    f"{p['device_busy_ms_per_step']:.3f} ms, operands "
+                    f"{p['pipeline_operands_ms']:.3f} ms"
+                    for name, p in (("penalties + logprobs 5", active),
+                                    ("a regex constraint", constrained)))
+        + f"; {time.perf_counter() - t:.1f} s; {card}")
+
+
+def fresh_decode_profiles(*requests: dict) -> list:
+    """serving/decode_profile.py's ``profile`` of the diff recipe's
+    steady decode step (8 slots of 256-token prompts, contiguous bf16),
+    once per ``requests`` entry (further SamplingParams fields; a
+    ``regex`` gets decode_profile's synthetic vocabulary), all in one
+    new Python process; returns their measurements."""
+    code = (
+        "import json, sys\n"
+        "from differential_transformer_replication_tpu_torch.config import ServingConfig\n"
+        "from differential_transformer_replication_tpu_torch.serving import "
+        "decode_profile as dp\n"
+        "s = ServingConfig(num_slots=dp.SLOTS, prefill_chunk=128, prefill_budget=4096)\n"
+        "V = dp.ModelConfig(model='diff').vocab_size\n"
+        "for kw in json.loads(sys.argv[1]):\n"
+        "    eng = dp.recipe_engine(s, vocab=dp.synthetic_vocab(V) if 'regex' in kw "
+        "else None)\n"
+        "    print(json.dumps(dp.profile(eng, dp.prompts_for(s, V), **kw)), flush=True)\n"
+        "    del eng\n")
+    proc = subprocess.run([sys.executable, "-c", code, json.dumps(requests)],
+                          cwd=Path(__file__).resolve().parent, capture_output=True,
+                          text=True, timeout=300)
+    expect(proc.returncode == 0, f"decode_profile process failed (exit "
+           f"{proc.returncode}):\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return [json.loads(line) for line in proc.stdout.splitlines()[-len(requests):]]
 
 
 # ---------------------------------------------------------------------------
@@ -4748,6 +5273,7 @@ def main() -> int:
     serve_counts = phase("serve", run_serve, torch, card)
     serve_counts.update(phase("serve-paged", run_serve_paged, torch, card))
     phase("serve-tier", run_serve_tier, torch, card)
+    phase("serve-requests", run_serve_requests, torch, card)
     phase("e2e", run_e2e, torch)
     train_counts = phase("train", run_train, torch, card)
     hm_counts = phase("train-hm", run_train_hm, torch, card,

@@ -125,9 +125,9 @@ class ServingConfig:
     defaults, meaning and validation as the JAX package's ServingConfig
     for the fields kept: the slot pool, the paged KV pool and its radix
     prefix cache, the int8 KV cache, speculative decoding and the quality
-    telemetry, the host-RAM page tier. Its structured-decoding and
-    profiling fields are absent; the model drafter (``spec_mode="model"``)
-    is refused with the ROADMAP item that brings it."""
+    telemetry, the host-RAM page tier, the model drafter and structured
+    decoding (``max_logprobs``, ``constraint_cache_entries``). Its
+    profiling fields are absent."""
 
     # Fixed decode batch = KV slot pool size.
     num_slots: int = 8
@@ -171,11 +171,14 @@ class ServingConfig:
     # Extra pool pages kept as cached-prefix headroom.
     prefix_cache_pages: int = 0
     # Speculative decoding (serving/spec.py): "" = off, "ngram" = the
-    # prompt-lookup drafter; the target verifies up to spec_draft_len
-    # drafted tokens per slot in one k+1-row pool step. "model" (a
-    # drafter checkpoint, ModelDrafter) is refused until it is ported.
+    # prompt-lookup drafter, "model" = a small checkpoint (ModelDrafter)
+    # on its own slot pool; the target verifies up to spec_draft_len
+    # drafted tokens per slot in one k+1-row pool step.
     spec_mode: str = ""
     spec_draft_len: int = 4
+    # Drafter checkpoint dir for spec_mode == "model", loaded beside the
+    # target's params through load_params_for_inference (manifest
+    # verification and int8 weights apply to it too).
     spec_drafter_ckpt: str = ""
     # Verify formulation (models/decode.py:forward_decode_spec): "exact"
     # unrolls k+1 L=1 steps (greedy output bit-identical to no spec);
@@ -188,6 +191,13 @@ class ServingConfig:
     # admission may preempt a lower-priority slot (its pages stashed
     # here, swapped back in bit-exact later).
     host_tier_bytes: int = 0
+    # Structured decoding (serving/constrain.py): the cap on the top-N
+    # alternatives a request may ask to echo per token
+    # (SamplingParams.logprobs; larger asks are truncated to it), and the
+    # number of compiled constraint FSMs the cache holds (refcounted;
+    # refcount-0 entries LRU-evict past the bound).
+    max_logprobs: int = 5
+    constraint_cache_entries: int = 32
     # Model-quality telemetry (obs/quality.py). When on, the sampler and
     # the verify's accept compute a per-token quality vector (sampled-
     # distribution entropy, top-1 logit margin, repetition flag —
@@ -234,11 +244,14 @@ class ServingConfig:
             raise ValueError(
                 f"host_tier_bytes must be >= 0, got {self.host_tier_bytes}"
             )
-        if self.spec_mode == "model":
-            raise NotImplementedError(
-                "spec_mode='model' is not served by the port yet: "
-                "ModelDrafter (ROADMAP Queue A: serving subsystems); use "
-                "spec_mode='ngram'"
+        if self.max_logprobs < 1:
+            raise ValueError(
+                f"max_logprobs must be >= 1, got {self.max_logprobs}"
+            )
+        if self.constraint_cache_entries < 1:
+            raise ValueError(
+                "constraint_cache_entries must be >= 1, got "
+                f"{self.constraint_cache_entries}"
             )
         if self.num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {self.num_slots}")

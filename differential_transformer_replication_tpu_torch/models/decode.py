@@ -93,6 +93,39 @@ def kv_store_dtype(cfg: ModelConfig) -> torch.dtype:
     return compute_dtype(cfg)
 
 
+def apply_logit_pipeline(logits: torch.Tensor, allowed: Optional[torch.Tensor],
+                         counts: Optional[torch.Tensor], rep: torch.Tensor,
+                         pres: torch.Tensor,
+                         freq: torch.Tensor) -> torch.Tensor:
+    """The per-row logit processors of structured decoding (the JAX
+    ``apply_logit_pipeline``): repetition / presence / frequency
+    penalties over the row's generated-token histogram, then the
+    constraint mask. One definition for the L=1 sampler and every
+    verify row (serving/engine.py), so greedy constrained speculation
+    keeps the non-spec argmax surface.
+
+    ``logits`` (N, V) float; ``allowed`` (N, V) bool constraint mask
+    (None = all allowed); ``counts`` (N, V) int occurrence histogram
+    (None = all zero); ``rep`` / ``pres`` / ``freq`` (N,) float
+    penalties (1.0 / 0.0 / 0.0 = off). Rows with every penalty off and
+    an all-ones mask come back BIT-IDENTICAL (a ``where`` selects the
+    raw logits). Applied before top-k and temperature."""
+    x = logits
+    if counts is not None:
+        seen = counts > 0
+        cf = counts.to(logits.dtype)
+        r = rep[:, None]
+        penalized = torch.where(
+            seen, torch.where(logits > 0, logits / r, logits * r), logits)
+        penalized = (penalized - pres[:, None] * seen.to(logits.dtype)
+                     - freq[:, None] * cf)
+        inactive = (rep == 1.0) & (pres == 0.0) & (freq == 0.0)
+        x = torch.where(inactive[:, None], logits, penalized)
+    if allowed is not None:
+        x = torch.where(allowed, x, torch.full_like(x, -float("inf")))
+    return x
+
+
 def entropy_margin(lp: torch.Tensor, proc: torch.Tensor,
                    top2: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The first two columns of :func:`quality_vector`, (..., 2) fp32:

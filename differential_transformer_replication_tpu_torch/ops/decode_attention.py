@@ -478,3 +478,46 @@ for _fn in (decode_attention, decode_attention_paged, decode_attention_multi,
     _fn.launches = 0
     _fn.int8_launches = 0
 del _fn
+
+
+# ---------------------------------------------------------------------------
+# int8 weights on load: quantize then dequantize every matmul weight
+# ---------------------------------------------------------------------------
+
+_QKV_KEYS = ("wq", "wk", "wv")
+
+
+def quantize_weight_int8(w: torch.Tensor, axis: int) -> torch.Tensor:
+    """Symmetric per-output-channel int8 quantize + dequantize of one
+    matmul weight (the JAX ``quantize_weight_int8``): one fp32 scale per
+    slice along the contraction ``axis``, ``max(amax, 1e-12) / 127``,
+    values rounded half to even. Returns the dequantized weight in the
+    input dtype: the int8 form is transient."""
+    wf = w.to(torch.float32)
+    amax = wf.abs().amax(dim=axis, keepdim=True)
+    # a divisor on the tensor's own device: CUDA divides by a host scalar
+    # as a product with its reciprocal, one ulp off the true quotient
+    scale = torch.clamp(amax, min=1e-12) / torch.tensor(127.0, device=w.device)
+    q = torch.round(wf / scale).to(torch.int8)
+    return (q.to(torch.float32) * scale).to(w.dtype)
+
+
+def quantize_params_int8(params: dict) -> dict:
+    """:func:`quantize_weight_int8` applied to every matmul weight of a
+    param tree: ``wq``/``wk``/``wv`` on their embedding axis (-3) and
+    every 2-D Linear ``w`` on axis 0. Embeddings, norms, lambdas and
+    biases pass through untouched. Returns a new tree; the input is not
+    written."""
+
+    def walk(node, name=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, name) for v in node)
+        if name in _QKV_KEYS:
+            return quantize_weight_int8(node, axis=-3)
+        if name == "w" and getattr(node, "ndim", 0) == 2:
+            return quantize_weight_int8(node, axis=0)
+        return node
+
+    return walk(params)

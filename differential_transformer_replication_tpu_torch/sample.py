@@ -7,19 +7,23 @@ run's tokenizer (checked against the checkpoint's recorded
 fingerprint), and samples: through the KV-cache decoder
 (``generate_cached``) when the output fits the context window (or for
 the RoPE families, which roll their cache), else through the windowed
-loop on the training forward (``generate``). With ``--kv-page-size`` or
-``--spec-draft-len`` (n-gram drafts), or ``--stop``, sampling runs in a
-small serving engine, where the ``--n`` samples share the prompt's
-pages.
+loop on the training forward (``generate``). With ``--kv-page-size``,
+speculation (``--spec-draft-ckpt``, a drafter checkpoint, or
+``--spec-draft-len`` alone, n-gram drafts), ``--stop``, a constraint
+(``--json-schema``, ``--regex``, ``--choices``), a penalty or
+``--logprobs``, sampling runs in a small serving engine, where the
+``--n`` samples share the prompt's pages. ``--quantize-weights int8``
+quantizes and dequantizes every matmul weight at load (the drafter's
+too).
 
     python -m differential_transformer_replication_tpu_torch.sample \\
         --checkpoint best_model.ckpt --tokenizer tokenizer \\
         --prompt "One day, " --max-new-tokens 200 --n 2
 
 It runs on ``cuda`` unless ``--device cpu`` is given. Its output lines
-are the root ``sample.py``'s; a timing line goes to stderr. Flags of
-the root script that the port does not run yet are refused with the
-ROADMAP item that brings them.
+are the root ``sample.py``'s; a timing line goes to stderr. The root
+script's ``--decode-attention-impl pallas``/``xla`` is refused: the port
+dispatches its kernels by device.
 """
 
 from __future__ import annotations
@@ -30,17 +34,8 @@ import sys
 import time
 
 # the root sample.py's flags that wait for a later slice -> the ROADMAP item
-LATER_FLAGS = {
-    "--quantize-weights": "int8 weights (ROADMAP Queue A: serving subsystems)",
-    "--spec-draft-ckpt": "ModelDrafter (ROADMAP Queue A: serving subsystems)",
-    "--json-schema": "constraints (ROADMAP Queue A: serving subsystems)",
-    "--regex": "constraints (ROADMAP Queue A: serving subsystems)",
-    "--choices": "constraints (ROADMAP Queue A: serving subsystems)",
-    "--repetition-penalty": "penalties (ROADMAP Queue A: serving subsystems)",
-    "--presence-penalty": "penalties (ROADMAP Queue A: serving subsystems)",
-    "--frequency-penalty": "penalties (ROADMAP Queue A: serving subsystems)",
-    "--logprobs": "logprobs (ROADMAP Queue A: serving subsystems)",
-}
+# (none: every flag of the root script runs)
+LATER_FLAGS: dict = {}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -70,6 +65,10 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("", "auto", "bf16", "int8"),
                    help="KV-cache storage dtype; int8 = per-vector scaled "
                         "int8 K/V; '' keeps the checkpoint's config")
+    p.add_argument("--quantize-weights", default=None, choices=("int8",),
+                   help="per-channel int8 quantize + dequant of every "
+                        "matmul weight on load (embeddings and norms stay "
+                        "exact)")
     p.add_argument("--kv-page-size", type=int, default=0,
                    help="route sampling through the serving engine's PAGED "
                         "KV cache (tokens per page, must divide block_size): "
@@ -81,10 +80,40 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prefix-cache-pages", type=int, default=0,
                    help="with --kv-page-size: extra pool pages kept as "
                         "cached-prefix headroom")
+    p.add_argument("--spec-draft-ckpt", default=None,
+                   help="speculative decoding with a small drafter "
+                        "checkpoint (same tokenizer), loaded through the "
+                        "same verified path as --checkpoint "
+                        "(--no-verify-checkpoint and --quantize-weights "
+                        "apply to it); sampling then runs in the engine")
     p.add_argument("--spec-draft-len", type=int, default=0,
-                   help="n-gram (prompt-lookup) draft tokens verified per "
-                        "step, through the serving engine; greedy output "
-                        "is the plain path's")
+                   help="draft tokens verified per step; > 0 without "
+                        "--spec-draft-ckpt drafts by n-gram lookup. Greedy "
+                        "output is the plain path's")
+    p.add_argument("--json-schema", default=None,
+                   help="constrain output to JSON matching this schema "
+                        "(JSON text, or a path to a .json file); runs in "
+                        "the serving engine")
+    p.add_argument("--regex", default=None,
+                   help="constrain output to match this regular expression "
+                        "(at most one of --json-schema / --regex / "
+                        "--choices)")
+    p.add_argument("--choices", action="append", default=None,
+                   metavar="TEXT",
+                   help="constrain output to exactly one of these strings "
+                        "(repeatable)")
+    p.add_argument("--repetition-penalty", type=float, default=1.0,
+                   help="divide positive / multiply negative logits of "
+                        "already-generated tokens (1.0 = off)")
+    p.add_argument("--presence-penalty", type=float, default=0.0,
+                   help="flat logit subtraction for any token already "
+                        "generated (0 = off)")
+    p.add_argument("--frequency-penalty", type=float, default=0.0,
+                   help="logit subtraction scaled by each token's "
+                        "generated count (0 = off)")
+    p.add_argument("--logprobs", type=int, default=0,
+                   help="echo the chosen token's logprob plus the top-N "
+                        "alternatives per generated token (engine route)")
     p.add_argument("--stop", action="append", default=None, metavar="TEXT",
                    help="stop sequence: finish when the generated tokens "
                         "end with this string's encoding (repeatable)")
@@ -96,7 +125,8 @@ def refused_flags(argv) -> list:
     return [a.split("=")[0] for a in argv if a.split("=")[0] in LATER_FLAGS]
 
 
-def _engine_outputs(params, model_cfg, ids, args, tokenizer, device) -> list:
+def _engine_outputs(params, model_cfg, ids, args, tokenizer, device,
+                    schema=None, drafter=None) -> list:
     """The engine route: the first sample prefills the prompt alone; on
     the paged pool its retirement donates the prompt's pages to the
     prefix cache, so the other ``--n - 1`` samples skip the prefill."""
@@ -108,23 +138,39 @@ def _engine_outputs(params, model_cfg, ids, args, tokenizer, device) -> list:
         SamplingParams,
     )
 
+    spec_mode = ("model" if drafter is not None
+                 else "ngram" if args.spec_draft_len > 0 else "")
     serving = ServingConfig(
         num_slots=max(1, min(args.n, 8)), kv_page_size=args.kv_page_size,
         prefix_cache=not args.no_prefix_cache,
         prefix_cache_pages=args.prefix_cache_pages,
-        spec_mode="ngram" if args.spec_draft_len > 0 else "",
-        spec_draft_len=args.spec_draft_len or 4,
+        spec_mode=spec_mode, spec_draft_len=args.spec_draft_len or 4,
         max_seq_len=(0 if model_cfg.model == "diff"
                      else len(ids) + args.max_new_tokens),
     )
-    engine = ServingEngine(params, model_cfg, serving, device=device)
+    constrained = bool(schema or args.regex or args.choices)
+    vocab = None
+    if constrained:
+        # the FSM compiler walks the id -> decoded-text table
+        from differential_transformer_replication_tpu_torch.data.tokenizer import (
+            vocab_strings,
+        )
+
+        vocab = vocab_strings(tokenizer, model_cfg.vocab_size)
+    engine = ServingEngine(params, model_cfg, serving, device=device,
+                           spec_drafter=drafter, vocab=vocab)
     stop = (tuple(tuple(tokenizer.encode(s).ids) for s in args.stop)
             if args.stop else None)
 
     def sp(i):
-        return SamplingParams(max_new_tokens=args.max_new_tokens,
-                              temperature=args.temperature, top_k=args.top_k,
-                              seed=args.seed + i, stop=stop)
+        return SamplingParams(
+            max_new_tokens=args.max_new_tokens, temperature=args.temperature,
+            top_k=args.top_k, seed=args.seed + i, stop=stop,
+            json_schema=schema, regex=args.regex,
+            choices=tuple(args.choices) if args.choices else None,
+            repetition_penalty=args.repetition_penalty,
+            presence_penalty=args.presence_penalty,
+            frequency_penalty=args.frequency_penalty, logprobs=args.logprobs)
 
     outs = engine.generate([ids], params=[sp(0)])
     if args.n > 1:
@@ -138,6 +184,10 @@ def _engine_outputs(params, model_cfg, ids, args, tokenizer, device) -> list:
     if spec is not None:
         print(f"[sample] spec ({spec['mode']}): proposed={spec['proposed']} "
               f"accepted={spec['accepted']} rate={spec['acceptance_rate']}")
+    if constrained:
+        cs = engine.constrain_stats()
+        print(f"[sample] constrained: cache entries={cs['entries']} "
+              f"hits={cs['hits_total']} misses={cs['misses_total']}")
     return outs
 
 
@@ -175,11 +225,12 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     fp = None  # save_pretrained dirs carry no meta.json / fingerprint
     if os.path.exists(os.path.join(args.checkpoint, "params.msgpack")):
-        params, model_cfg = from_pretrained(args.checkpoint, device=device)
+        params, model_cfg = from_pretrained(
+            args.checkpoint, quantize=args.quantize_weights, device=device)
     else:
         params, model_cfg, meta = load_params_for_inference(
             args.checkpoint, verify=not args.no_verify_checkpoint,
-            device=device)
+            quantize=args.quantize_weights, device=device)
         fp = meta.get("tokenizer_fingerprint")
     if args.kv_cache_dtype:
         model_cfg = model_cfg.replace(kv_cache_dtype=args.kv_cache_dtype)
@@ -197,22 +248,44 @@ def main(argv=None) -> int:
 
     in_window = len(ids) + args.max_new_tokens <= model_cfg.block_size
     rolls = in_window or model_cfg.model != "diff"
-    engine_route = args.kv_page_size > 0 or args.spec_draft_len > 0 or bool(args.stop)
+    schema = args.json_schema
+    if schema and os.path.exists(schema):  # the path form: read the file
+        with open(schema) as f:
+            schema = f.read()
+    # the logit pipeline (constraints, penalties, the logprob echo) and
+    # stop sequences live in the serving engine
+    pipeline = bool(schema or args.regex or args.choices or args.stop
+                    or args.logprobs > 0 or args.repetition_penalty != 1.0
+                    or args.presence_penalty != 0.0
+                    or args.frequency_penalty != 0.0)
+    engine_route = (args.kv_page_size > 0 or args.spec_draft_len > 0
+                    or bool(args.spec_draft_ckpt) or pipeline)
     t0 = time.perf_counter()
     if engine_route and rolls:
-        outs = _engine_outputs(params, model_cfg, ids, args, tokenizer, device)
+        drafter = None
+        if args.spec_draft_ckpt:
+            # the drafter loads through the target's verified path, with
+            # the same weight quantization
+            d_params, d_cfg, _ = load_params_for_inference(
+                args.spec_draft_ckpt, verify=not args.no_verify_checkpoint,
+                quantize=args.quantize_weights, device=device)
+            drafter = (d_params, d_cfg)
+        outs = _engine_outputs(params, model_cfg, ids, args, tokenizer, device,
+                               schema=schema, drafter=drafter)
         route = "engine"
         rows = [o.prompt + o.tokens for o in outs]
         new = sum(len(o.tokens) for o in outs)
         heads = [f"--- sample {i} ({o.finish_reason}) ---"
                  for i, o in enumerate(outs)]
+        lps = [o.token_logprobs for o in outs]
     else:
-        if args.stop:
+        if pipeline:
             raise SystemExit(
-                "--stop runs in the serving engine, which the diff family "
-                "past its context window cannot route through — shorten "
-                "--max-new-tokens to fit block_size or use the "
-                "control/ndiff families")
+                "--json-schema/--regex/--choices/--stop/--logprobs and the "
+                "penalty flags run in the serving engine's logit pipeline, "
+                "which the diff family past its context window cannot "
+                "route through — shorten --max-new-tokens to fit "
+                "block_size or use the control/ndiff families")
         # in the window, or a RoPE family rolling its cache: one prefill
         # and a decode step a token; the diff family past its window
         # recomputes a full window a token
@@ -224,12 +297,15 @@ def main(argv=None) -> int:
         rows = out.cpu().tolist()
         new = args.n * args.max_new_tokens
         heads = [f"--- sample {i} ---" for i in range(len(rows))]
+        lps = [None] * len(rows)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
-    for head, row in zip(heads, rows):
+    for head, row, lp in zip(heads, rows, lps):
         print(head)
         print(tokenizer.decode(row))
+        if lp is not None:
+            print("    logprobs: " + " ".join(f"{v:.3f}" for v in lp))
     print(f"[sample] {new} new tokens through {route} in {dt:.3f} s "
           f"({new / max(dt, 1e-9):.1f} tokens/s) on {device}",
           file=sys.stderr)

@@ -31,8 +31,10 @@ Counterpart of the JAX package's serving/engine.py:
   requests, advances prefill by a bounded token budget in power-of-two
   chunks (serving/scheduler.py), then decodes ALL active slots as one
   batched step, samples, and emits or retires.
-- **Speculative decoding** (``spec_mode="ngram"``, serving/spec.py): when
-  the drafter proposes tokens for some slot, the step is one k+1-row
+- **Speculative decoding** (serving/spec.py; ``spec_mode="ngram"``, or
+  ``"model"``: a small checkpoint on its own slot pool, passed as
+  ``spec_drafter=(params, cfg)`` or loaded from ``spec_drafter_ckpt``):
+  when the drafter proposes tokens for some slot, the step is one k+1-row
   verify over the pool (``forward_decode_spec`` or its paged twin, exact
   or batched) with the accept/reject of the JAX
   ``_build_spec_step_fns._accept``: greedy rows accept draft j iff it
@@ -40,6 +42,20 @@ Counterpart of the JAX package's serving/engine.py:
   rejection sample the residual. The contiguous pool then carries one
   extra trash row for the rejected rows' writes; the paged pool uses its
   trash page.
+- **The logit pipeline** (models/decode.py:``apply_logit_pipeline``):
+  repetition, presence and frequency penalties over a request's
+  generated-token histogram, then its constraint mask, ahead of top-k
+  and temperature, in the L=1 sampler and in every verify row (row j
+  with the histogram and FSM state reached through drafts 0..j-1). A
+  request's ``json_schema``, ``regex`` or ``choices`` compiles at submit
+  into a token FSM (serving/constrain.py, cached and refcounted; a
+  malformed spec raises ``ConstraintCompileError`` with the engine
+  untouched); a sweep before each decode retires a slot whose mask row
+  is empty (``constraint_complete`` or ``constraint_dead_end``).
+  ``logprobs`` echoes each token's logprob and its top-N alternatives
+  over the distribution sampled from, in the same device-to-host copy
+  as the tokens. A step with no constrained or penalized row skips the
+  pipeline (bit-identical: it passes inert rows through).
 - **Telemetry** (obs/): ``stats`` is a :class:`StatsMap` over the JAX
   engine's counters (the same keys and counter names), beside its
   histograms and gauges, in a :class:`Registry` the server renders at
@@ -57,8 +73,9 @@ Counterpart of the JAX package's serving/engine.py:
   tier kinds ``page_demote_fail``, ``page_promote_hang`` and
   ``page_swap_corrupt`` fire at the JAX engine's points, keyed on
   ``stats["iterations"]``; ``migrate_hang`` and ``migrate_corrupt`` at
-  each export. ``spec_drafter_crash`` and ``constrain_dead_end`` stay
-  unfired until the model drafter and constraints are ported.
+  each export; ``spec_drafter_crash`` poisons a model drafter's pool
+  before its propose rounds and ``constrain_dead_end`` a constrained
+  slot's FSM cursor before the sweep.
 
 Differences from the JAX engine, by design: the cache is updated in
 place (prefill writes straight into its pool row or through its page
@@ -77,16 +94,16 @@ Family limits: control/ndiff roll the ring past block_size up to
 cannot roll, so its requests are capped at
 ``prompt + max_new_tokens <= block_size``.
 
-The model drafter, constraints, penalties and logprobs belong to later
-slices: ``ServingConfig`` refuses the first, and a request that asks for
-one of the others is refused at submit with a ValueError naming the
-field (a migrated image that carries one, with a typed
-``MigrateExportError``).
+Where the FSM masks live: as in the JAX engine, each step's mask rows
+are built on the host from the cached FSM tables and copied to the
+device — one copy of the constrained rows per step, none for inert
+traffic.
 """
 
 from __future__ import annotations
 
 import math
+import sys
 import time
 from typing import List, Optional, Sequence
 
@@ -103,6 +120,7 @@ from differential_transformer_replication_tpu_torch.models import (
 )
 from differential_transformer_replication_tpu_torch.models.decode import (
     KV_CACHE_BATCH_AXIS,
+    apply_logit_pipeline,
     compute_dtype,
     copy_cache_pages,
     entropy_margin,
@@ -139,6 +157,11 @@ from differential_transformer_replication_tpu_torch.obs.trace import (
     child_span_args,
     instant_args,
 )
+from differential_transformer_replication_tpu_torch.serving.constrain import (
+    ConstraintCache,
+    ConstraintCompileError,
+    spec_key,
+)
 from differential_transformer_replication_tpu_torch.serving.host_tier import (
     HostTier,
     TierEntry,
@@ -169,6 +192,7 @@ from differential_transformer_replication_tpu_torch.serving.scheduler import (
 from differential_transformer_replication_tpu_torch.serving.spec import (
     DraftSlot,
     build_drafter,
+    constrain_proposals,
 )
 from differential_transformer_replication_tpu_torch.utils import faults
 
@@ -281,19 +305,9 @@ _STAT_SPEC = {
 }
 
 # Metric families the JAX engine registers that the port leaves out until
-# their subsystems are ported: the constraint cache and validity
-# (structured decoding), the model drafter's KV bytes, and the device_*
-# gauges of the sampled on-device profiler (``ServingConfig.profile_every``).
-UNPORTED_FAMILIES = (
-    "serving_constrained_requests_active",
-    "serving_constraint_cache_entries",
-    "serving_constraint_cache_bytes",
-    "serving_constraint_cache_hits_total",
-    "serving_constraint_cache_misses_total",
-    "serving_constraint_validity_rate",
-    "serving_spec_drafter_kv_bytes",
-    "device_*",
-)
+# their subsystem is ported: the device_* gauges of the sampled on-device
+# profiler (``ServingConfig.profile_every``).
+UNPORTED_FAMILIES = ("device_*",)
 
 # the step counts the card's checks turn into kernel launches (the JAX
 # engine has no such counters: its steps are compiled programs)
@@ -308,22 +322,11 @@ class EngineCrashError(RuntimeError):
     retriable = True
 
 
-def unsupported_field(p: SamplingParams) -> Optional[str]:
-    """The first SamplingParams field set to something this slice does
-    not serve (a later slice of the port), or None."""
-    checks = (
-        ("json_schema", p.json_schema is not None),
-        ("regex", p.regex is not None),
-        ("choices", p.choices is not None),
-        ("repetition_penalty", p.repetition_penalty != 1.0),
-        ("presence_penalty", p.presence_penalty != 0.0),
-        ("frequency_penalty", p.frequency_penalty != 0.0),
-        ("logprobs", p.logprobs != 0),
-    )
-    for name, is_set in checks:
-        if is_set:
-            return name
-    return None
+def _penalties_on(p: SamplingParams) -> bool:
+    """Whether a request engages the histogram side of the logit
+    pipeline (repetition, presence or frequency penalty)."""
+    return (p.repetition_penalty != 1.0 or p.presence_penalty != 0.0
+            or p.frequency_penalty != 0.0)
 
 
 def draw_seed(seed: int, t: int) -> int:
@@ -347,27 +350,33 @@ def accept_seed(seed: int, t: int) -> int:
     return draw_seed(draw_seed(seed, t), SPEC_ACCEPT_SALT)
 
 
-def _gumbel_argmax(row: torch.Tensor, seed: int) -> int:
-    """Gumbel-max draw from a processed row (top-k masked and divided by
-    the temperature), with a generator seeded with ``seed``."""
-    gen = torch.Generator(device=row.device)
+def _uniform(n: int, seed: int, device) -> torch.Tensor:
+    """``n`` uniforms in [0, 1) from a generator seeded with ``seed``."""
+    gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    u = torch.rand(row.shape[-1], generator=gen, device=row.device)
-    return int(torch.argmax(row - torch.log(-torch.log(u))))
+    return torch.rand(n, generator=gen, device=device)
+
+
+def _gumbel_argmax(row: torch.Tensor, seed: int) -> torch.Tensor:
+    """Gumbel-max draw from a processed row (top-k masked and divided by
+    the temperature), with a generator seeded with ``seed``: the token
+    as a 0-d tensor on the row's device."""
+    u = _uniform(row.shape[-1], seed, row.device)
+    return torch.argmax(row - torch.log(-torch.log(u)))
 
 
 def _processed(logits: torch.Tensor, params: Sequence[SamplingParams],
                top_k_on: bool = True):
     """The JAX ``_sample``'s processed surface of ``logits`` (n, V) or
-    (n, L, V) fp32, batched on their device: values below the k-th
+    (n, L, V) fp32 — already through the logit pipeline when a row needs
+    it (:func:`_piped`) — batched on their device: values below the k-th
     largest of their row go to -inf (slot i's ``params[i].top_k``; 0/None
     = off, and every row off with ``top_k_on=False``, as the JAX verify's
     all-greedy accept does), then division by the greedy-safe
-    temperature (1 for a greedy row). The port runs no logit pipeline:
-    penalties and constraints are refused at submit. Returns the surface
-    and, when the top-k ranking ran, each row's two largest raw values
-    (else None). Draws, acceptance probabilities and the quality tail
-    all read this one surface."""
+    temperature (1 for a greedy row). Returns the surface and, when the
+    top-k ranking ran, each row's two largest values (else None). Draws,
+    acceptance probabilities, the logprob echo and the quality tail all
+    read this one surface."""
     n, V = logits.shape[0], logits.shape[-1]
     ks = [(p.top_k or 0) if top_k_on else 0 for p in params]
     temps = [p.temperature if p.temperature > 0 else 1.0 for p in params]
@@ -390,110 +399,229 @@ def _processed(logits: torch.Tensor, params: Sequence[SamplingParams],
     return masked / ops[:, 0].view(bshape), top2
 
 
+class Pipe:
+    """The logit-pipeline operands of n sampled rows (None where no row
+    needs that part): ``allowed`` (n, V) or (n, L, V) bool constraint
+    mask rows, ``counts`` (n, V) int32 generated-token histograms (a
+    verify step adds each row's earlier drafts on the device), and
+    ``pens`` (n, 3) fp32 repetition, presence and frequency penalties.
+    Built by the engine only when an active row is constrained or
+    penalized; otherwise the sampler skips the pipeline entirely, which
+    is bit-identical (the pipeline passes inert rows through)."""
+
+    __slots__ = ("allowed", "counts", "pens")
+
+    def __init__(self, allowed=None, counts=None, pens=None):
+        self.allowed, self.counts, self.pens = allowed, counts, pens
+
+
+def _piped(logits: torch.Tensor, pipe: Optional[Pipe],
+           drafts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``logits`` (n, V) or (n, L, V) through
+    models/decode.py:``apply_logit_pipeline`` (unchanged with no
+    ``pipe``). For an L-row verify block, row j's histogram also counts
+    the drafts before it (``drafts`` (n, L - 1), zero-padded; the cumsum
+    of their one-hots on the device, as the JAX accept does) and its
+    mask is ``pipe.allowed[:, j]``."""
+    if pipe is None:
+        return logits
+    shape, V = logits.shape, logits.shape[-1]
+    L = shape[1] if logits.dim() == 3 else 1
+    counts = pens = None
+    if pipe.counts is not None:
+        counts = pipe.counts
+        if L > 1:
+            oh = torch.nn.functional.one_hot(drafts, V).to(counts.dtype)
+            counts = counts[:, None] + torch.cat(
+                [torch.zeros_like(oh[:, :1]), oh.cumsum(dim=1)], dim=1)
+        counts = counts.reshape(-1, V)
+        pens = pipe.pens.repeat_interleave(L, dim=0)
+    out = apply_logit_pipeline(
+        logits.reshape(-1, V),
+        None if pipe.allowed is None else pipe.allowed.reshape(-1, V),
+        counts, *((None,) * 3 if pens is None else pens.unbind(1)))
+    return out.reshape(shape)
+
+
+def _lp_rows(lsm: torch.Tensor, tokens: torch.Tensor, k: int):
+    """The logprob echo of sampled rows on the device: each row's chosen
+    token's logprob under ``lsm`` (the log-softmax of the surface drawn
+    from), and its top-``k`` (ids, logprobs), ties to the lower id as
+    XLA's top_k breaks them."""
+    chosen = lsm.gather(-1, tokens[..., None])[..., 0]
+    vals, ids = torch.sort(lsm, dim=-1, descending=True, stable=True)
+    return chosen, ids[..., :k], vals[..., :k]
+
+
 def _host_rows(tokens: torch.Tensor, finite: torch.Tensor,
-               em: Optional[torch.Tensor] = None):
+               em: Optional[torch.Tensor] = None, lp=None):
     """Tokens (n, ...) and their finite flags on the host, as numpy
-    (tokens, finite, tail). With the (..., 2) fp32 quality tail ``em``
-    all three come back in ONE copy, packed as int32 (the tail by its
-    float bits); without it the tail is None and the tokens and flags
-    are copied as they are."""
-    if em is None:
-        return tokens.cpu().numpy(), finite.cpu().numpy(), None
-    n, cols = tokens.shape[0], tokens[0].numel()
-    host = torch.cat([tokens.to(torch.int32).reshape(n, -1),
-                      finite.to(torch.int32).reshape(n, -1),
-                      em.view(torch.int32).reshape(n, -1)], dim=1).cpu().numpy()
-    return (host[:, :cols].reshape(tokens.shape),
-            host[:, cols:2 * cols].astype(bool).reshape(finite.shape),
-            host[:, 2 * cols:].view(np.float32).reshape(em.shape))
+    (tokens, finite, tail, echo). With the (..., 2) fp32 quality tail
+    ``em`` and/or the logprob echo ``lp`` (:func:`_lp_rows`) everything
+    comes back in ONE copy, packed as int32 (floats by their bits);
+    without either the tokens and flags are copied as they are and the
+    tail and echo are None."""
+    if em is None and lp is None:
+        return tokens.cpu().numpy(), finite.cpu().numpy(), None, None
+    n = tokens.shape[0]
+    parts = [tokens, finite] + ([] if em is None else [em]) + \
+        ([] if lp is None else list(lp))
+    host = torch.cat([(t.contiguous().view(torch.int32)
+                       if t.is_floating_point() else t.to(torch.int32)
+                       ).reshape(n, -1) for t in parts], dim=1).cpu().numpy()
+    out, o = [], 0
+    for t in parts:
+        w = t[0].numel()
+        a = host[:, o:o + w]
+        o += w
+        if t.is_floating_point():
+            a = a.view(np.float32)
+        elif t.dtype == torch.bool:
+            a = a.astype(bool)
+        out.append(a.reshape(t.shape))
+    tok, ok = out[0], out[1]
+    em_h = out[2] if em is not None else None
+    lp_h = tuple(out[-3:]) if lp is not None else None
+    return tok, ok, em_h, lp_h
 
 
 def spec_accept(logits: torch.Tensor, drafts: Sequence[Sequence[int]],
                 params: Sequence[SamplingParams], steps: Sequence[int],
-                force_reject: bool = False, quality: bool = False):
+                force_reject: bool = False, quality: bool = False,
+                pipe: Optional[Pipe] = None, lp_k: int = 0):
     """Accept/reject of one verify step, per slot (the JAX
-    ``_build_spec_step_fns._accept`` without the logit pipeline).
-    ``logits`` (n, L, V) fp32 of the n active slots; ``drafts[i]`` the
-    slot's drafted tokens (dl <= L - 1 of them); ``steps[i]`` the index t
-    of the token row 0 produces. Greedy rows accept draft j iff it
-    equals row j's argmax. Sampled rows accept draft j with probability
-    p_j(d_j) under the processed target (:func:`_processed`), with a
-    uniform from :func:`accept_seed`, and draw the correction from row a
-    (the first rejected row, or the bonus row) with the rejected token
-    masked out — so a row with no draft reduces to :func:`sample_tokens`
-    exactly. ``force_reject`` rejects every draft (the
-    ``spec_reject_storm`` fault): each slot then emits one token, from
-    row 0. Returns host lists (emitted tokens per slot, finite-ok per
-    slot over its used rows) and, with ``quality``, each row's (entropy,
-    margin) as a host (n, L, 2) float32 array (else None); the argmax,
-    the finite flags and the quality tail come back in one copy."""
-    drawn = any(p.temperature > 0 for p in params)
+    ``_build_spec_step_fns._accept``). ``logits`` (n, L, V) fp32 of the
+    n active slots; ``drafts[i]`` the slot's drafted tokens (dl <= L - 1
+    of them); ``steps[i]`` the index t of the token row 0 produces;
+    ``pipe`` the rows' logit-pipeline operands (None: no row needs it).
+    Every row first goes through the pipeline (row j with the histogram
+    and mask reached through drafts 0..j-1). Greedy rows accept draft j
+    iff it equals row j's argmax. Sampled rows accept draft j with
+    probability p_j(d_j) under the processed target (:func:`_processed`),
+    with a uniform from :func:`accept_seed`, and draw the correction
+    from row a (the first rejected row, or the bonus row) with the
+    rejected token masked out — so a row with no draft reduces to
+    :func:`sample_tokens` exactly — all on the device
+    (:func:`_spec_draw`). ``force_reject`` rejects every draft
+    (the ``spec_reject_storm`` fault): each slot then emits one token,
+    from row 0. Returns host values (emitted tokens per slot, finite-ok
+    per slot over its used rows), with ``quality`` each row's (entropy,
+    margin) as a host (n, L, 2) float32 array (else None), and with
+    ``lp_k`` > 0 the logprob echo of every row's emitted token as host
+    arrays (chosen (n, L), top ids (n, L, lp_k), top logprobs) (else
+    None); the argmax, the sampled rows' draws, the flags, the tail and
+    the echo come back in one copy."""
+    drawn = [i for i, p in enumerate(params) if p.temperature > 0]
+    n, L, dev = logits.shape[0], logits.shape[1], logits.device
+    dpad = None
+    if pipe is not None or lp_k or drawn:
+        dpad = torch.as_tensor([list(d) + [0] * (L - len(d)) for d in drafts],
+                               dtype=torch.int64, device=dev)
+    base = _piped(logits, pipe, None if dpad is None else dpad[:, :L - 1])
     proc = top2 = None
-    if drawn or quality:
+    if drawn or quality or lp_k:
         # the verify ranks for top-k only when a row samples, as JAX's
         # rungs do
-        proc, top2 = _processed(logits, params, top_k_on=drawn)
-    pred, finite, em_host = _host_rows(
-        torch.argmax(logits, dim=-1), torch.isfinite(logits).all(dim=-1),
-        entropy_margin(torch.log_softmax(proc, dim=-1), logits, top2)
-        if quality else None)
+        proc, top2 = _processed(base, params, top_k_on=bool(drawn))
+    pred_t = torch.argmax(base, dim=-1)
+    # each sampled row's accepted count and correction token, drawn on
+    # the device: (n, 2), zero on greedy rows
+    drawn_t = torch.zeros((n, 2), dtype=torch.int64, device=dev)
+    emit_t = pred_t
+    if drawn:
+        drawn_t[drawn] = torch.stack([
+            _spec_draw(proc[i, :len(drafts[i]) + 1], dpad[i], len(drafts[i]),
+                       params[i].seed, steps[i], force_reject) for i in drawn])
+        # a sampled row emits its drafts below the first rejection,
+        # then the correction
+        is_drawn = torch.zeros((n, 1), dtype=torch.bool, device=dev)
+        is_drawn[drawn] = True
+        at_a = torch.arange(L, device=dev)[None] == drawn_t[:, :1]
+        emit_t = torch.where(is_drawn, torch.where(at_a, drawn_t[:, 1:], dpad), pred_t)
+    lsm = torch.log_softmax(proc, dim=-1) if (quality or lp_k) else None
+    # the echo reads each row's EMITTED token: a greedy row's is its
+    # argmax at every row up to the correction (an accepted draft
+    # equals it)
+    pred, finite, em_host, lp_host = _host_rows(
+        torch.cat([pred_t, drawn_t], dim=1), torch.isfinite(logits).all(dim=-1),
+        entropy_margin(lsm, base, top2) if quality else None,
+        _lp_rows(lsm, emit_t, lp_k) if lp_k else None)
     pred, finite = pred.tolist(), finite.tolist()
     out, ok = [], []
-    for i, (d, p, t0) in enumerate(zip(drafts, params, steps)):
+    for i, (d, p) in enumerate(zip(drafts, params)):
         dl = len(d)
         ok.append(all(finite[i][:dl + 1]))
-        if p.temperature <= 0:
-            a = 0
-            while not force_reject and a < dl and pred[i][a] == d[a]:
-                a += 1
-            out.append(list(d[:a]) + [pred[i][a]])
+        if p.temperature > 0:
+            a, corr = pred[i][L:]
+            out.append(list(d[:a]) + [corr])
             continue
-        rows = proc[i, :dl + 1]
         a = 0
-        if dl and not force_reject:
-            probs = torch.softmax(rows[:dl], dim=-1)
-            p_d = probs[torch.arange(dl, device=rows.device),
-                        torch.as_tensor(d, device=rows.device)].cpu().tolist()
-            for j in range(dl):
-                gen = torch.Generator(device=rows.device)
-                gen.manual_seed(accept_seed(p.seed, t0 + j))
-                u = float(torch.rand(1, generator=gen, device=rows.device))
-                if u >= p_d[j]:
-                    break
-                a += 1
-        corr = rows[a]
-        if a < dl:  # the residual: the target with the rejected token out
-            corr = corr.clone()
-            corr[d[a]] = -float("inf")
-        out.append(list(d[:a]) + [_gumbel_argmax(corr,
-                                                 draw_seed(p.seed, t0 + a))])
-    return out, ok, em_host
+        while not force_reject and a < dl and pred[i][a] == d[a]:
+            a += 1
+        out.append(list(d[:a]) + [pred[i][a]])
+    return out, ok, em_host, lp_host
+
+
+def _spec_draw(rows: torch.Tensor, dpad: torch.Tensor, dl: int, seed: int,
+               t0: int, force_reject: bool) -> torch.Tensor:
+    """One sampled row's verify decision on its device, without a copy
+    to the host: ``rows`` (dl + 1, V) its processed surface, ``dpad``
+    its drafts zero-padded. Draft j is accepted with probability
+    p_j(d_j) against a uniform from :func:`accept_seed`; a, the accepted
+    count, is the leading run. The correction comes from row a, with
+    the rejected draft masked out when a < dl, drawn by
+    :func:`_gumbel_argmax`'s rule with ``draw_seed(seed, t0 + a)``:
+    every candidate a is drawn and a selects one, as a is not known on
+    the host. Returns (a, correction) as an int64 (2,) tensor."""
+    dev, V = rows.device, rows.shape[-1]
+    d = dpad[:dl]
+    if dl and not force_reject:
+        p_d = torch.softmax(rows[:dl], dim=-1).gather(-1, d[:, None])[:, 0]
+        u = torch.cat([_uniform(1, accept_seed(seed, t0 + j), dev)
+                       for j in range(dl)])
+        a = torch.cumprod((u < p_d).to(torch.int64), dim=0).sum()
+    else:
+        a = torch.zeros((), dtype=torch.int64, device=dev)
+    cand = rows.clone()
+    cand[torch.arange(dl, device=dev), d] = -float("inf")
+    noise = torch.stack([_uniform(V, draw_seed(seed, t0 + c), dev)
+                         for c in range(dl + 1)])
+    toks = torch.argmax(cand - torch.log(-torch.log(noise)), dim=-1)
+    return torch.stack([a, toks.gather(0, a.view(1))[0]])
 
 
 def sample_tokens(logits: torch.Tensor, params: Sequence[SamplingParams],
-                  steps: Sequence[int], quality: bool = False):
-    """One token per row of ``logits`` (n, V) fp32. Row i samples with
-    ``params[i]``: temperature <= 0 is greedy (argmax, first index on
-    ties); otherwise a Gumbel-max draw over the processed surface
+                  steps: Sequence[int], quality: bool = False,
+                  pipe: Optional[Pipe] = None, lp_k: int = 0):
+    """One token per row of ``logits`` (n, V) fp32. The rows first go
+    through the logit pipeline when ``pipe`` is given (penalties, then
+    the constraint mask). Row i samples with ``params[i]``: temperature
+    <= 0 is greedy (argmax of the piped surface, first index on ties);
+    otherwise a Gumbel-max draw over the processed surface
     (:func:`_processed`: top-k masking, division by the temperature) from
     a generator seeded with ``draw_seed(seed, steps[i])``. Returns host
-    lists (tokens, finite-ok) and, with ``quality``, each row's
-    (entropy, margin) over that same surface as a host (n, 2) float32
-    array (else None), all brought back in one copy. ``ok`` is over the
+    values (tokens, finite-ok), with ``quality`` each row's (entropy,
+    margin) over that same surface as a host (n, 2) float32 array (else
+    None), and with ``lp_k`` > 0 the logprob echo (chosen (n,), top ids
+    (n, lp_k), top logprobs (n, lp_k)) over the distribution sampled
+    from (else None), all brought back in one copy. ``ok`` is over the
     RAW logits, so a corrupt pool or diverged params surface as a typed
     crash instead of a garbage argmax."""
-    tokens = torch.argmax(logits, dim=-1)
+    base = _piped(logits, pipe)
+    tokens = torch.argmax(base, dim=-1)
     drawn = [i for i, p in enumerate(params) if p.temperature > 0]
-    proc = top2 = None
-    if drawn or quality:
-        proc, top2 = _processed(logits, params)
+    proc = top2 = lsm = None
+    if drawn or quality or lp_k:
+        proc, top2 = _processed(base, params)
         for i in drawn:
             tokens[i] = _gumbel_argmax(proc[i], draw_seed(params[i].seed, steps[i]))
-    tok, ok, em = _host_rows(
+        if quality or lp_k:
+            lsm = torch.log_softmax(proc, dim=-1)
+    tok, ok, em, lp = _host_rows(
         tokens, torch.isfinite(logits).all(dim=-1),
-        entropy_margin(torch.log_softmax(proc, dim=-1), logits, top2)
-        if quality else None)
-    return tok.tolist(), ok.tolist(), em
+        entropy_margin(lsm, base, top2) if quality else None,
+        _lp_rows(lsm, tokens, lp_k) if lp_k else None)
+    return tok.tolist(), ok.tolist(), em, lp
 
 
 def resolve_device(device) -> torch.device:
@@ -524,7 +652,8 @@ class ServingEngine:
 
     def __init__(self, params: dict, cfg: ModelConfig,
                  serving: Optional[ServingConfig] = None, device="cuda",
-                 registry: Optional[Registry] = None, tracer=None):
+                 registry: Optional[Registry] = None, tracer=None,
+                 spec_drafter=None, vocab: Optional[Sequence[str]] = None):
         self.device = resolve_device(device)
         self.serving = serving or ServingConfig()
         if self.serving.kv_cache_dtype:
@@ -560,9 +689,25 @@ class ServingEngine:
             )
         # speculative decoding: the contiguous pool carries one extra
         # TRASH row (index num_slots) for rejected rows' writes; the
-        # paged pool's trash page does that job
-        self.drafter = build_drafter(self.serving)
+        # paged pool's trash page does that job. A model drafter
+        # (``spec_drafter=(params, cfg)``, or spec_drafter_ckpt) keeps
+        # its own pool, and its ring bounds the verify window
+        self.drafter = build_drafter(self.serving, cfg, self.max_total,
+                                     drafter=spec_drafter, device=self.device)
         self._spec_k = self.serving.spec_draft_len if self.drafter else 0
+        self._spec_window = cfg.block_size
+        if self.drafter is not None and hasattr(self.drafter, "window"):
+            self._spec_window = min(self._spec_window, self.drafter.window())
+        self._drafter_crashes_seen = 0
+        # structured decoding (serving/constrain.py): the compiled-FSM
+        # cache, request_id -> (cache key, token FSM) of in-flight
+        # constrained requests, the id -> string vocabulary the compiler
+        # walks, and the logprob echo's widest top list
+        self._vocab = tuple(vocab) if vocab is not None else None
+        self._lp_k = min(self.serving.max_logprobs, cfg.vocab_size)
+        self._constraint_cache = ConstraintCache(
+            self.serving.constraint_cache_entries)
+        self._constraints: dict = {}
         self._rows = self.serving.num_slots + (
             1 if self._spec_k and self.pages is None else 0)
         self.cache = self._new_cache()
@@ -720,11 +865,33 @@ class ServingEngine:
                 "Active speculative-decoding drafter (constant 1; the "
                 "identity rides the label).", labelnames=("mode",),
             ).set(1, mode=self.serving.spec_mode)
+            if hasattr(self.drafter, "bytes_total"):
+                reg.gauge(
+                    "serving_spec_drafter_kv_bytes",
+                    "HBM bytes held by the drafter's own KV slot pool.",
+                ).set(self.drafter.bytes_total())
+        self._constrained_gauge = reg.gauge(
+            "serving_constrained_requests_active",
+            "In-flight requests decoding under a compiled constraint.")
+        self._ccache_entries_gauge = reg.gauge(
+            "serving_constraint_cache_entries",
+            "Compiled constraint FSMs currently cached.")
+        self._ccache_bytes_gauge = reg.gauge(
+            "serving_constraint_cache_bytes",
+            "Host bytes held by cached constraint FSM tables.")
+        self._ccache_hits_counter = reg.counter(
+            "serving_constraint_cache_hits_total",
+            "Constraint compiles avoided by the FSM cache.")
+        self._ccache_misses_counter = reg.counter(
+            "serving_constraint_cache_misses_total",
+            "Constraint specs compiled from scratch.")
         # model-quality telemetry (obs/quality.py): the accumulator and
         # the fault flag exist always (cheap pops on every retire path),
         # the monitor and its families only with quality on
         self._q_acc: dict = {}
         self._q_force_nan = False
+        self._q_constraint_total = 0
+        self._q_constraint_bad = 0
         self._quality_monitor = None
         self._lambda_gauge = None
         self._lambda_summary: dict = {}
@@ -747,6 +914,12 @@ class ServingEngine:
                 "Max PSI drift of the live entropy/margin sketches vs "
                 "the recorded reference fingerprint (0 = no reference, "
                 "thin evidence, or no drift).")
+            self._q_validity_gauge = reg.gauge(
+                "serving_constraint_validity_rate",
+                "Fraction of finished constrained requests that did "
+                "NOT dead-end (1.0 until any constrained request "
+                "finishes).")
+            self._q_validity_gauge.set(1.0)
             self._lambda_gauge = reg.gauge(
                 "serving_lambda_mean",
                 "Per-layer effective differential-attention lambda of "
@@ -768,16 +941,12 @@ class ServingEngine:
         onto its lifecycle instants and span when tracing is on, and
         echoed as ``RequestOutput.trace_id``. Raises ValueError when the
         request cannot fit the engine (family limits, vocab range) or
-        asks for a feature of a later slice, and a non-retriable
-        PagePoolExhaustedError when its worst case exceeds the whole
-        page pool."""
+        a non-retriable PagePoolExhaustedError when its worst case exceeds
+        the whole page pool, and a ConstraintCompileError (a ValueError)
+        when its constraint does not compile: the constraint is compiled
+        (or found in the cache) before the scheduler sees the request, so
+        a malformed spec leaves the engine untouched."""
         req = Request.make(self._next_id, prompt, params, **kw)
-        bad = unsupported_field(req.params)
-        if bad is not None:
-            self.stats.inc("rejected")
-            raise ValueError(
-                f"{bad} is not supported by the port's serving engine yet"
-            )
         M = self.cfg.block_size
         p = np.asarray(req.prompt, np.int64)
         if p.min() < 0 or p.max() >= self.cfg.vocab_size:
@@ -817,15 +986,36 @@ class ServingEngine:
                 )
                 err.retriable = False
                 raise err
+        ckey = cfsm = None
+        if req.params.constrained:
+            eos = (req.params.eos_token_id
+                   if req.params.eos_token_id is not None
+                   else self.serving.eos_token_id)
+            ckey = spec_key(req.params, eos)
+            if self._vocab is None:
+                self.stats.inc("rejected")
+                raise ConstraintCompileError(
+                    "constrained request but the engine was built "
+                    "without a vocabulary (pass vocab= — the id->string "
+                    "table the FSM compiler walks)")
+            try:
+                cfsm = self._constraint_cache.acquire(ckey, self._vocab)
+            except ConstraintCompileError:
+                self.stats.inc("rejected")
+                raise
         now = time.perf_counter()
         if deadline is None and self.serving.default_deadline_s > 0:
             deadline = now + self.serving.default_deadline_s
         try:
             self.scheduler.submit(req, p, now, deadline or 0.0, trace=trace)
         except Exception:
+            if ckey is not None:
+                self._constraint_cache.release(ckey)
             self.stats.inc("rejected")
             raise
         self._next_id += 1
+        if ckey is not None:
+            self._constraints[req.request_id] = (ckey, cfsm)
         self._seeds[req.request_id] = req.params.seed
         return req.request_id
 
@@ -837,11 +1027,20 @@ class ServingEngine:
             return False
         self.scheduler.cancel(request_id)
         del self._seeds[request_id]
+        self._drop_constraint(request_id)
         self._drop_resume(request_id)
         self._q_acc.pop(request_id, None)
         self.stats.inc("cancelled")
         self._finished_counter.inc(reason="cancelled")
         return True
+
+    def _drop_constraint(self, request_id: int) -> None:
+        """Release a request's compiled-FSM reference on every path that
+        forgets the request (finish, cancel, shed, expire, crash, a
+        migration's release): a leaked reference pins the entry."""
+        ent = self._constraints.pop(request_id, None)
+        if ent is not None:
+            self._constraint_cache.release(ent[0])
 
     def has_work(self) -> bool:
         return self.scheduler.has_work()
@@ -897,7 +1096,10 @@ class ServingEngine:
         if self.pages is not None and faults.prefix_corrupt_at(iteration):
             self._corrupt_cached_prefix()
         active = self.scheduler.active_slots()
-        proposals = self._collect_proposals(active) if active and self.drafter else {}
+        if self._constraints:
+            active = self._sweep_constraints(active, iteration, finished)
+        proposals = (self._collect_proposals(active, iteration)
+                     if active and self.drafter else {})
         if proposals:
             self._decode_spec(active, proposals, iteration, finished)
         elif active:
@@ -946,9 +1148,10 @@ class ServingEngine:
             self.stats.inc("prefill_tokens", size)
             self.steps["prefill_chunks"] += 1
             if slot.filled == slot.prompt_len:
-                tok, ok, em = sample_tokens(
+                tok, ok, em, lp = sample_tokens(
                     logits[0, -1:].to(torch.float32), [slot.request.params],
-                    [self._key_pos(slot)], quality=self._quality)
+                    [self._key_pos(slot)], quality=self._quality,
+                    pipe=self._pipe([slot]), lp_k=self._lp_width([slot]))
                 if not ok[0]:
                     raise EngineCrashError(
                         f"non-finite logits prefilling slot {i} (request "
@@ -956,7 +1159,8 @@ class ServingEngine:
                         "numerically diverged params"
                     )
                 self._emit(slot, tok[0], time.perf_counter(), finished,
-                           None if em is None else em[0])
+                           None if em is None else em[0],
+                           self._lp_pair(slot, lp, 0))
 
     @staticmethod
     def _pos0(s: Slot) -> int:
@@ -1026,10 +1230,11 @@ class ServingEngine:
                     self.params, tok_t, pos_t, self.cache, self.cfg,
                     rope_len=self.max_total, active=rows)
         with self.tracer.span("sample", iteration=iteration):
-            toks, ok, em = sample_tokens(
+            toks, ok, em, lp = sample_tokens(
                 logits[rows].to(torch.float32),
                 [s.request.params for s in active],
-                [self._key_pos(s) for s in active], quality=self._quality)
+                [self._key_pos(s) for s in active], quality=self._quality,
+                pipe=self._pipe(active), lp_k=self._lp_width(active))
         self._check_finite([s for s, good in zip(active, ok) if not good],
                            "decoding")
         with self.tracer.span("emit", iteration=iteration):
@@ -1037,17 +1242,25 @@ class ServingEngine:
             self.stats.inc("decode_tokens", len(active))
             now = time.perf_counter()
             for n, (s, tok) in enumerate(zip(active, toks)):
-                self._emit(s, tok, now, finished, None if em is None else em[n])
+                self._emit(s, tok, now, finished, None if em is None else em[n],
+                           self._lp_pair(s, lp, n))
 
     # -- speculative decoding (serving/spec.py) ------------------------
 
-    def _collect_proposals(self, active: List[Slot]) -> dict:
+    def _collect_proposals(self, active: List[Slot], iteration: int) -> dict:
         """Ask the drafter for up to k tokens per eligible active slot.
         Each slot's cap keeps the verify block inside the request's
         max_new_tokens (the corrected token must still fit), its
-        ``draft_len`` and the ring window (the verify writes positions
-        pos..pos+cap; a rolled-over write would evict keys a rejected row
-        still needs)."""
+        ``draft_len`` and the ring windows of the target and of a model
+        drafter (the verify writes positions pos..pos+cap; a rolled-over
+        write would evict keys a rejected row still needs). Drafts of a
+        constrained slot are cut at the first token its FSM refuses. The
+        ``spec_drafter_crash`` fault poisons a model drafter's pool here;
+        a tripped drafter proposes nothing and its crash is counted."""
+        if faults.spec_drafter_crash_at(iteration):
+            poison = getattr(self.drafter, "poison", None)
+            if poison is not None:
+                poison()
         infos = []
         for s in active:
             p = s.request.params
@@ -1056,13 +1269,34 @@ class ServingEngine:
                 cap = min(cap, p.draft_len)
             pos0 = self._pos0(s)
             cap = min(cap, p.max_new_tokens - len(s.generated) - 1,
-                      self.cfg.block_size - 1 - pos0)
+                      self._spec_window - 1 - pos0)
             if cap <= 0:
                 continue
             if s.prompt_ids is None:  # once per admission
                 s.prompt_ids = [int(t) for t in s.prompt]
             infos.append(DraftSlot(s.index, s.prompt_ids + s.generated, pos0, cap))
-        return self.drafter.propose_all(infos) if infos else {}
+        if not infos:
+            return {}
+        props = self.drafter.propose_all(infos)
+        if props and self._constraints:
+            fsms = {}
+            for s in active:
+                fsm = self._slot_fsm(s)
+                if fsm is not None:
+                    fsms[s.index] = (fsm, s.fsm_state)
+            props = constrain_proposals(props, fsms)
+        if not props:
+            # the no-proposal signature of a tripped drafter: mirror its
+            # crash counter on this path only
+            crashes = self.drafter.stats()["drafter_crashes_total"]
+            if crashes > self._drafter_crashes_seen:
+                self.stats.inc("spec_drafter_crashes",
+                               crashes - self._drafter_crashes_seen)
+                self._drafter_crashes_seen = crashes
+                print("[serving] spec drafter pool tripped the finite-logits "
+                      "guard; rebuilt from params, falling back to non-spec "
+                      "decode this iteration", file=sys.stderr)
+        return props
 
     def _decode_spec(self, active: List[Slot], proposals: dict, iteration: int,
                      finished: List[RequestOutput]) -> None:
@@ -1113,11 +1347,12 @@ class ServingEngine:
                     rope_len=self.max_total, batched=batched)
         with self.tracer.span("sample", iteration=iteration):
             rows = torch.as_tensor([s.index for s in active], device=dev)
-            emitted, ok, em = spec_accept(
+            emitted, ok, em, lp = spec_accept(
                 logits[rows], drafts, [s.request.params for s in active],
                 [self._key_pos(s) for s in active],
                 force_reject=faults.spec_reject_storm_at(iteration),
-                quality=self._quality)
+                quality=self._quality, pipe=self._pipe(active, drafts),
+                lp_k=self._lp_width(active))
         self._check_finite([s for s, good in zip(active, ok) if not good],
                            "verifying")
         with self.tracer.span("emit", iteration=iteration):
@@ -1126,15 +1361,32 @@ class ServingEngine:
             now = time.perf_counter()
             n_out = 0
             for n, (s, d, toks) in enumerate(zip(active, drafts, emitted)):
+                if s.constraint is not None:
+                    # a constraint can close inside the verify block:
+                    # every later row's mask is all-zero, so its "token"
+                    # is garbage. Cut at the first token of a zeroed row;
+                    # the next step's sweep retires the slot typed
+                    st, keep = s.fsm_state, 0
+                    for tok in toks:
+                        if st < 0 or not s.constraint.masks[st].any():
+                            break
+                        st = s.constraint.advance(st, tok)
+                        keep += 1
+                    toks = toks[:keep]
+                p0 = self._pos0(s)
                 if d:
                     s.spec_proposed += len(d)
                     s.spec_accepted += len(toks) - 1
                     self.stats.inc("spec_proposed", len(d))
                     self.stats.inc("spec_accepted", len(toks) - 1)
+                # the drafter's validity cursor follows the accepted
+                # prefix; its entries past it are fed again next round
+                self.drafter.commit(s.index, p0 + len(toks))
                 for j, tok in enumerate(toks):
                     n_out += 1
                     self._emit(s, tok, now, finished,
-                               None if em is None else em[n, j])
+                               None if em is None else em[n, j],
+                               self._lp_pair(s, lp, n, j))
                     if s.state == FREE:
                         break  # EOS/stop/length retired the slot mid-block
             self.stats.inc("decode_tokens", n_out)
@@ -1180,21 +1432,39 @@ class ServingEngine:
         out["resumes"] = self.stats["resumes"]
         return out
 
+    def constrain_stats(self) -> dict:
+        """Structured-decoding snapshot for /health: in-flight
+        constrained requests and the compile cache's counters
+        (serving/constrain.py:ConstraintCache.stats)."""
+        out = dict(self._constraint_cache.stats())
+        out["active"] = len(self._constraints)
+        return out
+
     def _update_gauges(self) -> None:
         """Refresh the point-in-time gauges (/metrics): slot occupancy,
-        queue depths, the spec acceptance rate, the quality drift and the
-        fraction of pooled KV positions holding live state; the paged
-        pool also mirrors its locked host counters."""
+        queue depths, the constraint cache, the spec acceptance rate,
+        the quality drift and constraint validity, and the fraction of
+        pooled KV positions holding live state; the paged pool also
+        mirrors its locked host counters."""
         self._slot_gauge.set(self.scheduler.occupied())
         self._queue_gauge.set(self.scheduler.queue_len())
         for cls, depth in self.scheduler.queue_depths().items():
             self._queue_class_gauge.set(depth, priority=cls)
+        self._constrained_gauge.set(len(self._constraints))
+        cst = self._constraint_cache.stats()
+        self._ccache_entries_gauge.set(cst["entries"])
+        self._ccache_bytes_gauge.set(cst["bytes"])
+        self._ccache_hits_counter.set(cst["hits_total"])
+        self._ccache_misses_counter.set(cst["misses_total"])
         if self._spec_accept_gauge is not None:
             proposed = self.stats["spec_proposed"]
             self._spec_accept_gauge.set(
                 self.stats["spec_accepted"] / proposed if proposed else 0.0)
         if self._quality_monitor is not None:
             self._q_drift_gauge.set(self._quality_monitor.drift())
+            if self._q_constraint_total:
+                self._q_validity_gauge.set(
+                    1.0 - self._q_constraint_bad / self._q_constraint_total)
         if self.pages is not None:
             st = self.pages.stats()
             self._pages_free_gauge.set(st["free"])
@@ -1226,13 +1496,16 @@ class ServingEngine:
     def quality_stats(self) -> Optional[dict]:
         """Point-in-time quality snapshot (None with quality off): live
         sketch means, token counts, skipped ("no signal") observations,
-        the drift score, the constraint-validity rate (1.0: the port
-        serves no constrained request yet), the cumulative spec
-        acceptance when spec ran, and the per-layer lambda summary."""
+        the drift score, the constraint-validity rate (the share of
+        finished constrained requests that did not dead-end), the
+        cumulative spec acceptance when spec ran, and the per-layer
+        lambda summary."""
         if self._quality_monitor is None:
             return None
         out = self._quality_monitor.stats()
-        out["constraint_validity_rate"] = 1.0
+        out["constraint_validity_rate"] = (
+            1.0 - self._q_constraint_bad / self._q_constraint_total
+            if self._q_constraint_total else 1.0)
         proposed = self.stats["spec_proposed"]
         if proposed:
             out["spec_acceptance_rate"] = round(
@@ -1323,6 +1596,132 @@ class ServingEngine:
             acc[5] = max(acc[5], acc[4])
         else:
             acc[4] = 0
+
+    # -- structured decoding and the logit pipeline (serving/constrain.py)
+
+    def _sweep_constraints(self, active: List[Slot], iteration: int,
+                           finished: List[RequestOutput]) -> List[Slot]:
+        """Before each decode: retire every constrained slot whose mask
+        row is all-zero (nothing it could emit) — ``constraint_complete``
+        in an accepting state (the structure is done and no EOS was
+        configured), ``constraint_dead_end`` otherwise (only the
+        ``constrain_dead_end`` fault plants one: compiled FSMs have no
+        dead states). Returns the slots still active."""
+        if faults.constrain_dead_end_at(iteration):
+            for s in active:
+                if self._slot_fsm(s) is not None:
+                    s.fsm_state = -1
+                    break
+        swept = False
+        for s in active:
+            fsm = self._slot_fsm(s)
+            if fsm is None:
+                continue
+            if s.fsm_state >= 0 and fsm.masks[s.fsm_state].any():
+                continue
+            swept = True
+            finished.append(self._finish(
+                s, "constraint_complete" if fsm.is_accepting(s.fsm_state)
+                else "constraint_dead_end"))
+        return self.scheduler.active_slots() if swept else active
+
+    def _slot_fsm(self, s: Slot):
+        """The slot's compiled token FSM (None when unconstrained),
+        attached at its first use: admission happens in the scheduler,
+        which knows nothing of constraints. A replayed continuation
+        (``key_offset``) walks the fresh cursor over the prompt tail the
+        earlier attempt emitted, so the masks go on from its state."""
+        if s.constraint is None:
+            ent = self._constraints.get(s.request.request_id)
+            if ent is None:
+                return None
+            s.constraint = ent[1]
+            s.fsm_state = ent[1].start
+            ko = s.request.params.key_offset
+            if ko:
+                P, st = s.prompt_len, s.fsm_state
+                for t in s.prompt[max(0, P - ko):P]:
+                    if st < 0:
+                        break
+                    st = ent[1].advance(st, int(t))
+                s.fsm_state = st
+        return s.constraint
+
+    def _slot_counts(self, s: Slot) -> np.ndarray:
+        """The slot's generated-token histogram, built at its first
+        penalized sample (seeded from a replay's prompt tail, which the
+        earlier attempt emitted and penalized) and then advanced per
+        emitted token by :meth:`_emit`."""
+        if s.penalty_counts is None:
+            h = np.zeros((self.cfg.vocab_size,), np.int32)
+            ko = s.request.params.key_offset
+            if ko:
+                P = s.prompt_len
+                for t in s.prompt[max(0, P - ko):P]:
+                    h[int(t)] += 1
+            for t in s.generated:
+                h[t] += 1
+            s.penalty_counts = h
+        return s.penalty_counts
+
+    def _pipe(self, slots: List[Slot], drafts=None) -> Optional[Pipe]:
+        """The logit-pipeline operands of the rows of ``slots`` (one row
+        each, or with ``drafts`` a verify block of spec_draft_len + 1
+        rows each), or None when no slot is constrained or penalized:
+        inert traffic then runs the sampler of a pipeline-free engine,
+        with no (n, V) operand built or copied. The constraint rows are
+        built on the host from the cached FSM tables (row j of a verify
+        block: the state reached through drafts 0..j-1) and copied to
+        the device with the histograms, once per step."""
+        fsms = [self._slot_fsm(s) for s in slots]
+        penal = [_penalties_on(s.request.params) for s in slots]
+        if not any(f is not None for f in fsms) and not any(penal):
+            return None
+        n, V, dev = len(slots), self.cfg.vocab_size, self.device
+        allowed = counts = pens = None
+        if any(f is not None for f in fsms):
+            L = 1 if drafts is None else self._spec_k + 1
+            am = np.ones((n, L, V), bool)
+            for i, (s, fsm) in enumerate(zip(slots, fsms)):
+                if fsm is None:
+                    continue
+                st = s.fsm_state
+                am[i, 0] = fsm.allowed_row(st)
+                for j, t in enumerate(drafts[i] if drafts is not None else ()):
+                    st = fsm.advance(st, int(t))
+                    am[i, j + 1] = fsm.allowed_row(st)
+            allowed = torch.as_tensor(am if drafts is not None else am[:, 0],
+                                      device=dev)
+        if any(penal):
+            cm = np.zeros((n, V), np.int32)
+            pv = np.tile(np.asarray([1.0, 0.0, 0.0], np.float32), (n, 1))
+            for i, s in enumerate(slots):
+                if penal[i]:
+                    p = s.request.params
+                    cm[i] = self._slot_counts(s)
+                    pv[i] = (p.repetition_penalty, p.presence_penalty,
+                             p.frequency_penalty)
+            counts = torch.as_tensor(cm, device=dev)
+            pens = torch.as_tensor(pv, device=dev)
+        return Pipe(allowed, counts, pens)
+
+    def _lp_width(self, slots: List[Slot]) -> int:
+        """Top-list width of this step's logprob echo: the widest the
+        rows ask for, capped at ``max_logprobs`` (0 = no echo)."""
+        return min(max(s.request.params.logprobs for s in slots), self._lp_k)
+
+    @staticmethod
+    def _lp_pair(s: Slot, lp, n: int, j: Optional[int] = None):
+        """Row n's (row n, verify row j's) echo as the (chosen logprob,
+        [(id, logprob)]) pair :meth:`_emit` keeps, truncated to what the
+        request asked for; None when it asked for none."""
+        k = s.request.params.logprobs
+        if not k or lp is None:
+            return None
+        chosen, ids, vals = lp
+        at = (n,) if j is None else (n, j)
+        return float(chosen[at]), [(int(i), float(v)) for i, v in
+                                   zip(ids[at][:k], vals[at][:k])]
 
     # -- paged admission / release (serving/pages.py) ------------------
 
@@ -1545,6 +1944,12 @@ class ServingEngine:
                 setattr(slot, key, snap[key])
             slot.generated = list(snap["generated"])
             slot.token_times = list(snap["token_times"])
+            ent = self._constraints.get(slot.request.request_id)
+            if ent is not None:
+                # attach the FSM here: _slot_fsm's lazy path would reset
+                # the cursor to the start state
+                slot.constraint = ent[1]
+                slot.fsm_state = snap["fsm_state"]
             slot.state = ACTIVE
             self._resume.pop(slot.request.request_id, None)
         self._resumed = []
@@ -1612,8 +2017,6 @@ class ServingEngine:
             "cached_len": slot.cached_len,
             "spec_proposed": slot.spec_proposed,
             "spec_accepted": slot.spec_accepted,
-            # the port serves no constraint, logprobs or penalties: their
-            # neutral values, under the JAX engine's keys
             "fsm_state": slot.fsm_state,
             "token_logprobs": slot.token_logprobs,
             "top_logprobs": slot.top_logprobs,
@@ -1641,6 +2044,7 @@ class ServingEngine:
         if slot is None:
             return False
         self._seeds.pop(request_id, None)
+        self._drop_constraint(request_id)
         self._drop_resume(request_id)
         self._q_acc.pop(request_id, None)
         self._finished_counter.inc(reason="migrated")
@@ -1661,8 +2065,8 @@ class ServingEngine:
         (:meth:`_try_resume`). Returns the new request id. Raises
         ``MigratePayloadError`` (corrupt or torn) or
         :class:`MigrateExportError` (contiguous pool, geometry mismatch,
-        dedup miss, a field of a later slice), leaving the engine
-        clean."""
+        dedup miss), or the submit's own errors (a constraint that does
+        not compile here), leaving the engine clean."""
         if self.pages is None:
             raise MigrateExportError(
                 "live migration needs the paged KV layout "
@@ -1678,14 +2082,6 @@ class ServingEngine:
                 f"(model={self.cfg.model}, block={self.cfg.block_size},"
                 f" page={self.serving.kv_page_size})",
                 code="migrate_geometry")
-        params = params_from_dict(meta["params"])
-        bad = unsupported_field(params)
-        if bad is not None:
-            # served with the field dropped, the continuation would
-            # differ from the source's: refuse it, typed
-            raise MigrateExportError(
-                f"migrated request sets {bad}, which the port's serving "
-                "engine does not serve yet", code="migrate_unsupported")
         prompt = [int(t) for t in meta["prompt"]]
         dedup = int(meta.get("dedup_pages", 0))
         if dedup:
@@ -1701,6 +2097,7 @@ class ServingEngine:
                     code="migrate_dedup_miss")
             for j, pg in enumerate(chain):
                 payloads[j] = self._extract_page(int(pg))
+        params = params_from_dict(meta["params"])
         left = float(meta.get("deadline_left_s") or 0.0)
         rid = self.submit(prompt, params=params,
                           deadline=(time.perf_counter() + left) if left else None)
@@ -1716,9 +2113,12 @@ class ServingEngine:
             "spec_proposed": int(meta.get("spec_proposed", 0)),
             "spec_accepted": int(meta.get("spec_accepted", 0)),
             "prompt_ids": None,
-            "penalty_counts": None,
-            "token_logprobs": None,
-            "top_logprobs": None,
+            "penalty_counts": None,  # _slot_counts rebuilds it lazily
+            "token_logprobs": meta.get("token_logprobs"),
+            "top_logprobs": (
+                [[(int(i), float(v)) for i, v in alts]
+                 for alts in meta["top_logprobs"]]
+                if meta.get("top_logprobs") is not None else None),
             "fsm_state": int(meta.get("fsm_state", 0)),
             # wire-borne page images, injected instead of a tier stash
             "pages": [TierEntry(p) for p in payloads],
@@ -1762,6 +2162,7 @@ class ServingEngine:
         the server maps to HTTP 503 ``page_pool_exhausted``;
         ``retry_after`` comes from the pool's observed drain rate."""
         self._seeds.pop(request.request_id, None)
+        self._drop_constraint(request.request_id)
         self._drop_resume(request.request_id)
         self._q_acc.pop(request.request_id, None)
         self.stats.inc("page_shed")
@@ -1854,10 +2255,13 @@ class ServingEngine:
         return instant_args(trace) if trace is not None else {}
 
     def _emit(self, slot: Slot, token: int, now: float,
-              finished: List[RequestOutput], em=None) -> None:
+              finished: List[RequestOutput], em=None, lp=None) -> None:
         """Append one token; ``em`` is its (entropy, margin) with quality
-        on. The repetition flag compares it with the token before it: the
-        last emitted, or the last prompt token for the first."""
+        on, ``lp`` its (chosen logprob, [(id, logprob)]) echo when the
+        request asked for one. The repetition flag compares the token
+        with the one before it: the last emitted, or the last prompt
+        token for the first. A slot that decodes on advances its penalty
+        histogram and its FSM cursor."""
         prev_token_t = slot.token_times[-1] if slot.token_times else None
         if em is not None:
             prev = (slot.generated[-1] if slot.generated
@@ -1866,6 +2270,11 @@ class ServingEngine:
                             float(em[1]), prev >= 0 and token == prev)
         slot.generated.append(token)
         slot.token_times.append(now)
+        if lp is not None:
+            if slot.token_logprobs is None:
+                slot.token_logprobs, slot.top_logprobs = [], []
+            slot.token_logprobs.append(lp[0])
+            slot.top_logprobs.append(lp[1])
         cls = slot.request.params.priority
         if len(slot.generated) == 1:
             slot.first_token_time = now
@@ -1903,6 +2312,11 @@ class ServingEngine:
                 slot,
                 "eos" if hit_eos else ("stop_sequence" if stop_hit else "length"),
             ))
+            return
+        if slot.penalty_counts is not None:
+            slot.penalty_counts[token] += 1
+        if slot.constraint is not None:
+            slot.fsm_state = slot.constraint.advance(slot.fsm_state, token)
 
     def _finish(self, slot: Slot, reason: str,
                 now: Optional[float] = None) -> RequestOutput:
@@ -1921,6 +2335,11 @@ class ServingEngine:
             if slot.spec_proposed:
                 quality["spec_acceptance"] = round(
                     slot.spec_accepted / slot.spec_proposed, 4)
+            if slot.request.params.constrained:
+                # a dead end is the constrained path's wrong answer
+                self._q_constraint_total += 1
+                if reason == "constraint_dead_end":
+                    self._q_constraint_bad += 1
         out = RequestOutput(
             request_id=rid,
             prompt=[int(t) for t in slot.prompt],
@@ -1934,6 +2353,10 @@ class ServingEngine:
             trace_id=slot.trace.trace_id if slot.trace is not None else None,
             spec_proposed=slot.spec_proposed,
             spec_accepted=slot.spec_accepted,
+            token_logprobs=(list(slot.token_logprobs)
+                            if slot.token_logprobs is not None else None),
+            top_logprobs=(list(slot.top_logprobs)
+                          if slot.top_logprobs is not None else None),
             quality=quality,
         )
         if self._tracing:
@@ -1947,7 +2370,13 @@ class ServingEngine:
                 **(child_span_args(slot.trace) if slot.trace is not None
                    else {}))
         del self._seeds[rid]
-        self.stats.inc("deadline_expired" if reason == "deadline" else "completed")
+        self._drop_constraint(rid)
+        if reason == "deadline":
+            self.stats.inc("deadline_expired")
+        elif reason != "constraint_dead_end":
+            # a dead end is a typed failure (HTTP 400 with the partial
+            # output), counted only under its finish reason
+            self.stats.inc("completed")
         self._finished_counter.inc(reason=reason)
         self.scheduler.retire(slot)
         return out
@@ -1956,6 +2385,7 @@ class ServingEngine:
                        now: float, trace=None) -> RequestOutput:
         """A request whose deadline passed while it waited for a slot."""
         self._seeds.pop(request.request_id, None)
+        self._drop_constraint(request.request_id)
         self._drop_resume(request.request_id)
         self._q_acc.pop(request.request_id, None)
         self.stats.inc("deadline_expired")
@@ -2021,6 +2451,7 @@ class ServingEngine:
                 rid = slot.request.request_id
                 lost.append(rid)
                 self._seeds.pop(rid, None)
+                self._drop_constraint(rid)
                 self._drop_resume(rid)
                 self._q_acc.pop(rid, None)
         preserved = list(self.scheduler.queue)

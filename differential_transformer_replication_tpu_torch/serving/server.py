@@ -49,10 +49,18 @@ fresh id. Every reply carries ``trace_id``. ``--event-log`` appends
 ``request_received``, ``request_finished`` and ``request_failed`` lines
 and ``drained`` at shutdown (obs/events.py).
 
-A request that carries a field of a later slice of the port (structured
-decoding, penalties, logprobs) is refused with HTTP 400 ``bad_request``
-naming the field. ``key_offset`` (a replayed continuation) and
-``journal_id`` are served.
+``/generate`` takes the JAX server's request fields: ``json_schema``
+(an object or its JSON text), ``regex`` or ``choices`` constrain the
+output (serving/constrain.py); ``repetition_penalty``,
+``presence_penalty`` and ``frequency_penalty`` run the logit pipeline;
+``logprobs`` N echoes ``token_logprobs`` and ``top_logprobs`` in the
+reply; ``key_offset`` replays a continuation and ``journal_id`` tags it.
+A constraint that does not compile answers 400
+``constraint_compile_failed``, one that dead-ends mid-decode 400
+``constraint_dead_end`` with ``partial_tokens``; ``/health`` carries
+``constraints``. ``--spec-mode model --spec-drafter-ckpt DIR`` loads a
+drafter through the same verified (and, with ``--quantize-weights
+int8``, quantized) path as the target.
 """
 
 from __future__ import annotations
@@ -71,6 +79,10 @@ from differential_transformer_replication_tpu_torch.obs.registry import (
 )
 from differential_transformer_replication_tpu_torch.obs.trace import (
     from_payload as trace_from_payload,
+)
+from differential_transformer_replication_tpu_torch.serving.constrain import (
+    ConstraintCompileError,
+    ConstraintDeadEndError,
 )
 from differential_transformer_replication_tpu_torch.serving.engine import (
     EngineCrashError,
@@ -97,23 +109,19 @@ from differential_transformer_replication_tpu_torch.serving.scheduler import (
     QueueFullError,
 )
 
-# /generate body keys this slice serves; LATER_SLICE_KEYS are refused
+# /generate body keys the server serves; any other key is refused with a
+# 400 naming it. LATER_SLICE_KEYS (served by a later slice) is empty now
 GENERATE_KEYS = (
     "prompt_ids", "max_new_tokens", "temperature", "top_k", "seed",
     "eos_token_id", "stop", "priority", "deadline_s", "timeout",
     "traceparent", "draft_len", "prompt", "key_offset", "journal_id",
-)
-LATER_SLICE_KEYS = (
     "json_schema", "regex", "choices", "repetition_penalty",
-    "presence_penalty", "frequency_penalty", "logprobs", "spec",
+    "presence_penalty", "frequency_penalty", "logprobs",
 )
+LATER_SLICE_KEYS = ()
 
 # the JAX server's flags that wait for a later slice -> the ROADMAP item
 LATER_FLAGS = {
-    "--quantize-weights": "int8 weights (ROADMAP Queue A: serving "
-                          "subsystems, item 8)",
-    "--spec-drafter-ckpt": "ModelDrafter (ROADMAP Queue A: serving "
-                           "subsystems, item 8)",
     "--profile-every": "the continuous device profile (ROADMAP Queue A: "
                        "tooling and analysis, item 10)",
     "--profile-dir": "the continuous device profile (ROADMAP Queue A: "
@@ -494,6 +502,11 @@ class EngineRunner:
                 err.output = out
                 err.retry_after = out.retry_after
                 self._settle(pending, error=err)
+            elif out.finish_reason == "constraint_dead_end":
+                # typed failure with the partial output: HTTP 400
+                self._settle(pending, error=ConstraintDeadEndError(
+                    f"request {out.request_id} hit a constraint dead end "
+                    f"after {len(out.tokens)} generated tokens", output=out))
             else:
                 self._settle(pending, result=out)
 
@@ -738,6 +751,7 @@ def _make_handler(client: ServingClient, tokenizer=None, events=None,
                         ("spec", client.runner.engine.spec_stats()),
                         ("host_tier", client.runner.engine.tier_stats()))
                        if val is not None},
+                    "constraints": client.runner.engine.constrain_stats(),
                 })
             elif self.path == "/ready":
                 if client.runner.accepting():
@@ -837,10 +851,6 @@ def _make_handler(client: ServingClient, tokenizer=None, events=None,
             if not isinstance(req, dict):
                 raise ValueError("the request body must be a JSON object")
             for key in req:
-                if key in LATER_SLICE_KEYS:
-                    raise ValueError(
-                        f"field {key!r} is not supported by this server yet"
-                    )
                 if key not in GENERATE_KEYS:
                     raise ValueError(f"unknown field {key!r}")
             prompt_ids = req.get("prompt_ids")
@@ -859,6 +869,11 @@ def _make_handler(client: ServingClient, tokenizer=None, events=None,
             eos = req.get("eos_token_id")
             stop = req.get("stop")
             draft_len = req.get("draft_len")
+            # json_schema arrives as a JSON value (object) or as its
+            # text; SamplingParams takes the text
+            schema = req.get("json_schema")
+            if schema is not None and not isinstance(schema, str):
+                schema = json.dumps(schema)
             params = SamplingParams(
                 max_new_tokens=int(req.get("max_new_tokens", 16)),
                 temperature=float(req.get("temperature", 1.0)),
@@ -867,6 +882,13 @@ def _make_handler(client: ServingClient, tokenizer=None, events=None,
                 eos_token_id=None if eos is None else int(eos),
                 stop=(None if stop is None
                       else tuple(tuple(int(t) for t in seq) for seq in stop)),
+                json_schema=schema,
+                regex=req.get("regex"),
+                choices=req.get("choices"),
+                repetition_penalty=float(req.get("repetition_penalty", 1.0)),
+                presence_penalty=float(req.get("presence_penalty", 0.0)),
+                frequency_penalty=float(req.get("frequency_penalty", 0.0)),
+                logprobs=int(req.get("logprobs", 0)),
                 priority=str(req.get("priority", "normal")),
                 draft_len=None if draft_len is None else int(draft_len),
                 # a replay: the key position of prompt + emitted tokens
@@ -935,8 +957,20 @@ def _make_handler(client: ServingClient, tokenizer=None, events=None,
                     out = pending.result
                 else:
                     out = self._run_generate(req, ctx)
+            except ConstraintCompileError as e:
+                # before the ValueError branch (it is one): "fix your
+                # spec", told apart from a malformed body
+                _fail(400, {"error": str(e),
+                            "code": "constraint_compile_failed"})
+                return
             except (ValueError, TypeError, json.JSONDecodeError) as e:
                 _fail(400, {"error": str(e), "code": "bad_request"})
+                return
+            except ConstraintDeadEndError as e:
+                _fail(400, {"error": str(e), "code": "constraint_dead_end",
+                            "partial_tokens": (e.output.tokens
+                                               if e.output is not None
+                                               else [])})
                 return
             except QueueFullError as e:
                 _fail(503, {"error": f"server overloaded: {e}",
@@ -998,6 +1032,10 @@ def _make_handler(client: ServingClient, tokenizer=None, events=None,
                 "ttft_ms": round(out.ttft * 1e3, 3),
                 "trace_id": out.trace_id or ctx.trace_id,
             }
+            if out.token_logprobs is not None:
+                payload["token_logprobs"] = out.token_logprobs
+                payload["top_logprobs"] = [[[tid, lp] for tid, lp in row]
+                                           for row in out.top_logprobs]
             if out.quality is not None:
                 payload["quality"] = out.quality
             if tokenizer is not None:
@@ -1108,10 +1146,21 @@ def build_parser():
                    help="extra pool pages kept as cached-prefix headroom")
     p.add_argument("--spec-mode", default="", choices=("", "ngram", "model"),
                    help="speculative decoding: 'ngram' = prompt lookup over "
-                        "each request's own tokens; 'model' (ModelDrafter) "
-                        "is refused until it is ported")
+                        "each request's own tokens; 'model' = a small "
+                        "drafter checkpoint (--spec-drafter-ckpt) proposing "
+                        "greedily on its own KV pool")
     p.add_argument("--spec-draft-len", type=int, default=4,
                    help="draft tokens verified per slot per iteration")
+    p.add_argument("--spec-drafter-ckpt", default="",
+                   help="drafter checkpoint dir for --spec-mode model "
+                        "(loaded like --checkpoint: manifest verification "
+                        "and --quantize-weights apply); must share the "
+                        "target's tokenizer and vocab")
+    p.add_argument("--quantize-weights", default=None, choices=("int8",),
+                   help="per-channel int8 quantize + dequantize of every "
+                        "matmul weight at load (the target, the demo "
+                        "model and the drafter); embeddings and norms "
+                        "stay exact")
     p.add_argument("--spec-verify", default="exact",
                    choices=("exact", "batched"),
                    help="'exact' (k+1 unrolled L=1 steps: greedy output "
@@ -1195,6 +1244,7 @@ def serving_config_from_args(args):
         prefix_cache=not args.no_prefix_cache,
         prefix_cache_pages=args.prefix_cache_pages, spec_mode=args.spec_mode,
         spec_draft_len=args.spec_draft_len, spec_verify=args.spec_verify,
+        spec_drafter_ckpt=args.spec_drafter_ckpt,
         host_tier_bytes=args.host_tier_bytes,
         # recording or comparing a fingerprint both need the telemetry
         # tail, so either flag arms it
@@ -1203,6 +1253,78 @@ def serving_config_from_args(args):
                            or bool(args.quality_record)),
         quality_fingerprint=args.quality_fingerprint or "",
     )
+
+
+def engine_from_args(args, tracer=None):
+    """The engine the parsed flags ask for: ``(engine, model_cfg, meta,
+    tokenizer)``. ``--checkpoint`` loads through
+    ``load_params_for_inference`` (manifest verified unless
+    ``--no-verify-checkpoint``, ``--quantize-weights`` applied), else the
+    random-init demo model (weights from seed 0, quantized the same
+    way); ``--spec-mode model`` loads ``--spec-drafter-ckpt`` through the
+    same verified and quantized path. The engine gets the tokenizer's id
+    -> text table for constraints (``--tokenizer``), else the demo table
+    that maps printable-ASCII ids to their characters, as the JAX
+    server's does."""
+    import torch
+
+    from differential_transformer_replication_tpu_torch.config import (
+        ModelConfig,
+    )
+    from differential_transformer_replication_tpu_torch.models import init_model
+    from differential_transformer_replication_tpu_torch.train.checkpoint import (
+        apply_weight_quantization,
+        load_params_for_inference,
+    )
+
+    if args.checkpoint:
+        params, model_cfg, meta = load_params_for_inference(
+            args.checkpoint, verify=not args.no_verify_checkpoint,
+            quantize=args.quantize_weights)
+    else:
+        meta = None
+        if args.recipe:
+            model_cfg = ModelConfig(model=args.model)
+        else:
+            model_cfg = ModelConfig(
+                model=args.model, vocab_size=512, n_embd=64, n_head=2,
+                n_layer=2, block_size=128, compute_dtype="float32",
+            )
+        gen = torch.Generator(device="cpu")
+        gen.manual_seed(0)
+        params = apply_weight_quantization(init_model(gen, model_cfg),
+                                           args.quantize_weights)
+    if args.decode_attention_impl:
+        model_cfg = model_cfg.replace(
+            decode_attention_impl=args.decode_attention_impl)
+    tokenizer = None
+    vocab = [chr(i) if 32 <= i < 127 else ""
+             for i in range(model_cfg.vocab_size)]
+    if args.tokenizer:
+        from differential_transformer_replication_tpu_torch.data.tokenizer import (
+            check_tokenizer_matches,
+            load_tokenizer,
+            vocab_strings,
+        )
+
+        tokenizer = load_tokenizer(args.tokenizer)
+        vocab = vocab_strings(tokenizer, model_cfg.vocab_size)
+        if meta is not None:
+            # a tokenizer that cannot belong to the checkpoint would
+            # silently serve garbage text
+            check_tokenizer_matches(
+                tokenizer, model_cfg.vocab_size,
+                meta.get("tokenizer_fingerprint"), context=args.checkpoint)
+    spec_drafter = None
+    if args.spec_mode == "model" and args.spec_drafter_ckpt:
+        d_params, d_cfg, _ = load_params_for_inference(
+            args.spec_drafter_ckpt, verify=not args.no_verify_checkpoint,
+            quantize=args.quantize_weights)
+        spec_drafter = (d_params, d_cfg)
+    engine = ServingEngine(params, model_cfg, serving_config_from_args(args),
+                           device=args.device, tracer=tracer,
+                           spec_drafter=spec_drafter, vocab=vocab)
+    return engine, model_cfg, meta, tokenizer
 
 
 def main(argv=None) -> None:
@@ -1216,10 +1338,6 @@ def main(argv=None) -> None:
 
     import torch
 
-    from differential_transformer_replication_tpu_torch.config import (
-        ModelConfig,
-    )
-    from differential_transformer_replication_tpu_torch.models import init_model
     from differential_transformer_replication_tpu_torch.obs.registry import (
         set_build_info,
     )
@@ -1235,44 +1353,6 @@ def main(argv=None) -> None:
         p.error("; ".join(f"{f} is not run by the port yet: {LATER_FLAGS[f]}"
                           for f in bad))
     args = p.parse_args(argv)
-
-    if args.checkpoint:
-        from differential_transformer_replication_tpu_torch.train.checkpoint import (
-            load_params_for_inference,
-        )
-
-        params, model_cfg, meta = load_params_for_inference(
-            args.checkpoint, verify=not args.no_verify_checkpoint)
-    else:
-        meta = None
-        if args.recipe:
-            model_cfg = ModelConfig(model=args.model)
-        else:
-            model_cfg = ModelConfig(
-                model=args.model, vocab_size=512, n_embd=64, n_head=2,
-                n_layer=2, block_size=128, compute_dtype="float32",
-            )
-        gen = torch.Generator(device="cpu")
-        gen.manual_seed(0)
-        params = init_model(gen, model_cfg)
-    if args.decode_attention_impl:
-        model_cfg = model_cfg.replace(
-            decode_attention_impl=args.decode_attention_impl)
-    tokenizer = None
-    if args.tokenizer:
-        from differential_transformer_replication_tpu_torch.data.tokenizer import (
-            check_tokenizer_matches,
-            load_tokenizer,
-        )
-
-        tokenizer = load_tokenizer(args.tokenizer)
-        if meta is not None:
-            # a tokenizer that cannot belong to the checkpoint would
-            # silently serve garbage text
-            check_tokenizer_matches(
-                tokenizer, model_cfg.vocab_size,
-                meta.get("tokenizer_fingerprint"), context=args.checkpoint)
-    serving = serving_config_from_args(args)
     tracer = None
     if args.trace_path:
         from differential_transformer_replication_tpu_torch.obs.spans import (
@@ -1289,8 +1369,8 @@ def main(argv=None) -> None:
         events = EventLog(args.event_log, process="replica",
                           max_bytes=args.event_log_max_bytes,
                           keep=args.event_log_keep)
-    engine = ServingEngine(params, model_cfg, serving, device=args.device,
-                           tracer=tracer)
+    engine, model_cfg, _meta, tokenizer = engine_from_args(args, tracer)
+    serving = engine.serving
     client = ServingClient(engine)
     # process identity on /metrics: a fleet scrape tells replicas apart
     # and spots config drift

@@ -405,15 +405,28 @@ def read_meta(path: str) -> dict:
 
 
 def _validate_quantize(quantize: Optional[str]) -> None:
-    if quantize == "int8":
-        raise NotImplementedError(
-            "int8 weights are not ported yet (ROADMAP Queue A: serving "
-            "subsystems (int8 weights))")
-    if quantize not in (None, "", "none"):
+    if quantize not in ("int8", None, "", "none"):
         raise ValueError(
             f"unsupported weight quantization {quantize!r}; expected "
             "'int8' or None"
         )
+
+
+def apply_weight_quantization(params: dict, quantize: Optional[str]) -> dict:
+    """The one place the ``--quantize-weights`` option is interpreted:
+    validates ``quantize`` and returns ``params`` with per-channel int8
+    quantize-then-dequantize applied to every matmul weight
+    (ops/decode_attention.py:``quantize_params_int8``), or untouched for
+    None/""/"none". Shared by :func:`load_params_for_inference`,
+    :func:`from_pretrained` and the server's random-init demo model."""
+    _validate_quantize(quantize)
+    if quantize == "int8":
+        from differential_transformer_replication_tpu_torch.ops.decode_attention import (
+            quantize_params_int8,
+        )
+
+        params = quantize_params_int8(params)
+    return params
 
 
 def _expected_params(model_cfg: ModelConfig) -> dict:
@@ -432,7 +445,8 @@ def load_params_for_inference(
     inference: (params as fp32 tensors on ``device``, the resolved
     ModelConfig, the raw meta dict). ``verify`` digest-checks the
     manifest first, as :func:`load_checkpoint` does; ``quantize="int8"``
-    is refused until int8 weights are ported."""
+    quantizes and dequantizes every matmul weight on load
+    (:func:`apply_weight_quantization`)."""
     _validate_quantize(quantize)
     meta = read_meta(path)
     try:
@@ -465,7 +479,7 @@ def load_params_for_inference(
             f"checkpoint params at {os.path.join(path, 'state.msgpack')!r} "
             f"do not fit the saved model config: {e}"
         ) from e
-    return params, model_cfg, meta
+    return apply_weight_quantization(params, quantize), model_cfg, meta
 
 
 def save_pretrained(path: str, params: dict, model_cfg: ModelConfig) -> None:
@@ -483,7 +497,8 @@ def from_pretrained(
     path: str, quantize: Optional[str] = None, device="cpu",
 ) -> Tuple[dict, ModelConfig]:
     """(params on ``device``, ModelConfig) from a :func:`save_pretrained`
-    directory of either package."""
+    directory of either package; ``quantize`` as in
+    :func:`load_params_for_inference`."""
     _validate_quantize(quantize)
     with open(os.path.join(path, "config.json")) as f:
         model_cfg = ModelConfig(**json.load(f)["model_args"])
@@ -496,5 +511,5 @@ def from_pretrained(
             f"params at {os.path.join(path, 'params.msgpack')!r} do not "
             f"fit the model config in config.json: {e}"
         ) from e
-    return params, model_cfg
+    return apply_weight_quantization(params, quantize), model_cfg
 

@@ -253,8 +253,14 @@ def test_wrong_model_checkpoint_raises_checkpoint_error(tmp_path):
     target = create_train_state(torch.Generator().manual_seed(0), other, "cpu")
     with pytest.raises(cw.CheckpointError, match="does not fit"):
         ckpt.load_checkpoint(path, other, target)
-    with pytest.raises(NotImplementedError, match="int8 weights"):
-        ckpt.load_params_for_inference(path, quantize="int8")
+    # int8 weights load: every matmul weight quantized and dequantized,
+    # the embeddings untouched; an unknown scheme is refused
+    q, _, _ = ckpt.load_params_for_inference(path, quantize="int8")
+    plain, _, _ = ckpt.load_params_for_inference(path)
+    assert not torch.equal(q["lm_head"]["w"], plain["lm_head"]["w"])
+    assert torch.equal(q["tok_emb"], plain["tok_emb"])
+    with pytest.raises(ValueError, match="unsupported weight quantization"):
+        ckpt.load_params_for_inference(path, quantize="int4")
 
 
 @pytest.mark.parametrize("kind", KINDS)

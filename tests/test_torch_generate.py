@@ -238,6 +238,12 @@ def _root_sample(argv, capsys) -> str:
     ("One day, Tom saw", 20, [], "generate"),  # past the window of 16
     ("One day, Tom", 8, ["--kv-page-size", "8"], "engine"),  # paged, prefix hits
     ("One day, Tom", 8, ["--spec-draft-len", "3", "--stop", "."], "engine"),
+    ("One day, Tom", 8, ["--quantize-weights", "int8"], "generate_cached"),
+    ("One day, Tom", 6, ["--regex", "[a-z ]+", "--logprobs", "2",
+                         "--presence-penalty", "1.0"], "engine"),
+    # a model drafter: the run's own checkpoint, int8 like the target
+    ("One day, Tom", 6, ["--spec-draft-ckpt", "RUN", "--quantize-weights", "int8",
+                         "--choices", " saw", "--choices", " went"], "engine"),
 ])
 def test_sample_cli_prints_the_root_sample_text(jax_run, capsys, prompt, new,
                                                 extra, route):
@@ -245,7 +251,8 @@ def test_sample_cli_prints_the_root_sample_text(jax_run, capsys, prompt, new,
 
     argv = ["--checkpoint", str(jax_run / "best.ckpt"), "--tokenizer",
             str(jax_run / "tok"), "--prompt", prompt, "--max-new-tokens",
-            str(new), "--temperature", "0", "--n", "2", *extra]
+            str(new), "--temperature", "0", "--n", "2",
+            *[str(jax_run / "best.ckpt") if a == "RUN" else a for a in extra]]
     want = _root_sample(argv, capsys)
     assert sample.main([*argv, "--device", "cpu"]) == 0
     captured = capsys.readouterr()
@@ -258,10 +265,11 @@ def test_sample_cli_refuses_what_the_port_does_not_run(jax_run, capsys):
 
     base = ["--checkpoint", str(jax_run / "best.ckpt"), "--tokenizer",
             str(jax_run / "tok"), "--device", "cpu"]
-    for extra, needle in ((["--quantize-weights", "int8"], "int8 weights"),
-                          (["--regex", "a+"], "constraints"),
-                          (["--logprobs", "2"], "logprobs"),
-                          (["--decode-attention-impl", "pallas"], "by device")):
+    # every flag of the root script runs (the parity cases above) but
+    # the impl switch: the port dispatches its kernels by device
+    assert sample.LATER_FLAGS == {} and sample.refused_flags(
+        ["--quantize-weights=int8", "--regex", "--logprobs"]) == []
+    for extra, needle in ((["--decode-attention-impl", "pallas"], "by device"),):
         with pytest.raises(SystemExit):
             sample.main(base + extra)
         assert needle in capsys.readouterr().err

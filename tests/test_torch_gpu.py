@@ -29,6 +29,7 @@ rows'.
 
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 
@@ -1422,3 +1423,176 @@ def test_chunked_loss_on_the_card_is_within_its_bound_of_the_dense_loss(gen):
     assert abs(float(lc) - float(ld)) <= 1e-5 * abs(float(ld))
     for a, b in zip(gc, gd):
         assert _err(a, b) <= 2.0 ** -5 * float(b.abs().max())
+
+
+def test_logit_pipeline_and_logprob_echo_on_the_card_equal_the_cpu(gen):
+    """The request path's plain PyTorch on the card: ``apply_logit_pipeline``
+    bit for bit against the CPU on the same fp32 logits (elementwise ops
+    only), and the sampler's greedy tokens and logprob echo through it
+    (ids exactly, logprobs within 1e-5: the log-softmax sums in another
+    order)."""
+    from differential_transformer_replication_tpu_torch.models.decode import (
+        apply_logit_pipeline,
+    )
+    from differential_transformer_replication_tpu_torch.serving.engine import (
+        Pipe,
+        sample_tokens,
+    )
+    from differential_transformer_replication_tpu_torch.serving.request import (
+        SamplingParams,
+    )
+
+    n, V = 8, 12000
+    cpu = torch.Generator().manual_seed(3)
+    logits = torch.randn(n, V, generator=cpu) * 4
+    allowed = torch.rand(n, V, generator=cpu) > 0.5
+    allowed[:4] = True
+    counts = torch.randint(0, 3, (n, V), generator=cpu, dtype=torch.int32)
+    pens = torch.tensor([[1.0, 0.0, 0.0], [1.3, 0.0, 0.0], [1.0, 2.0, 0.0],
+                         [1.0, 0.0, 0.5]] * 2)
+    args = (allowed, counts, pens[:, 0].contiguous(), pens[:, 1].contiguous(),
+            pens[:, 2].contiguous())
+    want = apply_logit_pipeline(logits, *args)
+    got = apply_logit_pipeline(logits.cuda(), *(a.cuda() for a in args))
+    assert torch.equal(got.cpu(), want)
+    params = [SamplingParams(temperature=0.0, logprobs=5, top_k=k or None)
+              for k in (0, 0, 7, 0, 0, 3, 0, 0)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        pipe = Pipe(allowed.to(dev), counts.to(dev), pens.to(dev))
+        outs[dev] = sample_tokens(logits.to(dev), params, [0] * n, pipe=pipe, lp_k=5)
+    (tc, okc, _, lpc), (tg, okg, _, lpg) = outs["cpu"], outs["cuda"]
+    assert tc == tg and okc == okg
+    assert (lpc[1] == lpg[1]).all()
+    # top-k rows echo -inf past their k: equal infinities pass
+    np.testing.assert_allclose(lpg[0], lpc[0], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(lpg[2], lpc[2], atol=1e-5, rtol=0)
+
+
+def test_sampled_verify_rows_on_the_card_draw_by_the_host_rule(gen):
+    """``spec_accept``'s sampled rows decide on the card without a copy
+    to the host (every candidate correction drawn, the accepted count
+    selecting one). Held against the rule step by step on the same card
+    generators: each draft's uniform against its probability, stop at
+    the first rejection, the correction's Gumbel-max draw from that row
+    with the rejected draft masked out. Tokens exactly; the echo's
+    chosen logprob against the log-softmax of the processed surface at
+    each emitted token, within 1e-5."""
+    from differential_transformer_replication_tpu_torch.serving.engine import (
+        Pipe,
+        _gumbel_argmax,
+        _piped,
+        _processed,
+        _uniform,
+        accept_seed,
+        draw_seed,
+        spec_accept,
+    )
+    from differential_transformer_replication_tpu_torch.serving.request import (
+        SamplingParams,
+    )
+
+    n, L, V = 6, 5, 12000
+    cpu = torch.Generator().manual_seed(5)
+    logits = torch.randn(n, L, V, generator=cpu)
+    drafts = [torch.randint(0, V, (dl,), generator=cpu).tolist()
+              for dl in (4, 4, 3, 0, 4, 2)]
+    # each draft lifted by a random margin: some accepted, some not
+    for i, d in enumerate(drafts):
+        for j, tok in enumerate(d):
+            logits[i, j, tok] += 6 + 10 * torch.rand(1, generator=cpu).item()
+    allowed = torch.rand(n, L, V, generator=cpu) > 0.3
+    for i, d in enumerate(drafts):
+        allowed[i, torch.arange(len(d)), torch.as_tensor(d, dtype=torch.long)] = True
+    pipe = Pipe(allowed.cuda(),
+                torch.randint(0, 3, (n, V), generator=cpu, dtype=torch.int32).cuda(),
+                torch.tensor([[1.2, 0.5, 0.1]] * n).cuda())
+    params = [SamplingParams(temperature=t, top_k=k, seed=s, logprobs=4)
+              for t, k, s in ((0.8, None, 1), (1.1, 40, 2), (1.3, None, 3),
+                              (0.9, 8, 4), (0.0, None, 0), (0.7, None, 6))]
+    steps = [3, 0, 17, 5, 2, 9]
+    x = logits.cuda()
+    got, ok, _, (chosen, _, _) = spec_accept(x, drafts, params, steps, pipe=pipe,
+                                             lp_k=4)
+    dpad = torch.as_tensor([d + [0] * (L - len(d)) for d in drafts], device="cuda")
+    proc, _ = _processed(_piped(x, pipe, dpad[:, :L - 1]), params)
+    lsm = torch.log_softmax(proc, dim=-1).cpu()
+    accepted = 0
+    for i, (d, p, t0, out) in enumerate(zip(drafts, params, steps, got)):
+        if p.temperature <= 0:
+            continue
+        a = 0
+        probs = torch.softmax(proc[i, :len(d)], dim=-1)
+        while a < len(d):
+            u = _uniform(1, accept_seed(p.seed, t0 + a), "cuda")
+            if not bool(u < probs[a, d[a]]):
+                break
+            a += 1
+        row = proc[i, a].clone()
+        if a < len(d):
+            row[d[a]] = -float("inf")
+        assert out == d[:a] + [int(_gumbel_argmax(row, draw_seed(p.seed, t0 + a)))]
+        accepted += a
+        for j, tok in enumerate(out):
+            assert abs(float(chosen[i, j]) - float(lsm[i, j, tok])) <= 1e-5
+    assert all(ok) and accepted > 0
+
+
+def test_self_drafter_proposals_equal_the_targets_greedy_decode(gen):
+    """A self drafter (the target's own params) on the card, bf16: from
+    the state after the prompt and the first generated token, its k
+    proposals are the target's next k greedy tokens, bit for bit (the
+    same prefill chunks and the same pool-step shapes)."""
+    from differential_transformer_replication_tpu_torch.serving.spec import (
+        DraftSlot,
+        ModelDrafter,
+    )
+
+    cfg = ModelConfig(model="diff", vocab_size=512, n_embd=256, n_head=2,
+                      n_layer=2, block_size=128, compute_dtype="bfloat16")
+    params = init_model(gen, cfg)
+    prompt = torch.randint(0, 512, (45,), generator=torch.Generator().manual_seed(1),
+                           ).tolist()
+    k = 6
+    engine = ServingEngine(params, cfg, ServingConfig(num_slots=4), device="cuda")
+    out = engine.generate([prompt], max_new_tokens=k + 1, temperature=0.0)[0].tokens
+    drafter = ModelDrafter(params, cfg, 4, cfg.block_size, draft_len=k, device="cuda")
+    hist = prompt + out[:1]
+    props = drafter.propose_all([DraftSlot(0, hist, len(hist) - 1, k)])
+    assert props == {0: out[1:]}
+    assert drafter.rounds_total == k and drafter.stats()["drafter_crashes_total"] == 0
+
+
+def test_int8_weight_quantization_on_the_card_equals_the_cpu(gen):
+    """``quantize_params_int8`` on the card gives the CPU's weights bit for
+    bit (the per-channel scale divides on the card, not by a reciprocal)."""
+    from differential_transformer_replication_tpu_torch.ops.decode_attention import (
+        quantize_params_int8,
+    )
+
+    cfg = ModelConfig(model="diff", vocab_size=512, n_embd=256, n_head=2,
+                      n_layer=2, block_size=128)
+    params = init_model(gen, cfg)
+    got = quantize_params_int8(params)
+    want = quantize_params_int8(_host(params))
+    for a, b in zip(_flat(got), _flat(want)):
+        assert torch.equal(a.cpu(), b)
+
+
+def _host(tree):
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_host(v) for v in tree]
+    return tree.cpu()
+
+
+def _flat(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat(tree[k])
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _flat(v)
+    else:
+        yield tree

@@ -14,7 +14,8 @@ package.
   uninterrupted tokens, fp32 and int8 KV, with and without dedup. All
   token comparisons are exact.
 - The typed failures (contiguous pool, request not active, geometry,
-  dedup miss, a field of a later slice) and the ``migrate_corrupt`` and
+  dedup miss, a constraint the destination cannot compile) and the
+  ``migrate_corrupt`` and
   ``migrate_hang`` faults, alone and in one plan with the three tier
   faults, with the JAX engine's outcome.
 - Replay: a ``key_offset`` continuation equals the uninterrupted tail
@@ -279,16 +280,29 @@ def test_typed_failures_leave_both_engines_clean():
 
 
 def test_an_image_with_a_later_slice_field_is_refused_typed():
-    """A JAX request with penalties (not served by the port yet) is
-    refused at import, never served with the field dropped."""
+    """Penalties, constraints and logprobs are served now: a JAX image of
+    a penalized request imports into the port and continues to the
+    source's uninterrupted tokens. An image whose constraint the
+    destination cannot compile (an engine built without a vocabulary)
+    is refused typed, with the engine untouched."""
     src = jax_engine()
     rid = src.submit(PROMPT, max_new_tokens=10, temperature=0.0,
                      repetition_penalty=1.3)
+    want = jax_engine().generate([PROMPT], max_new_tokens=10, temperature=0.0,
+                                 repetition_penalty=1.3)[0].tokens
     _decode_until(src, rid, 3)
     dst = port_engine()
-    with pytest.raises(MigrateExportError, match="repetition_penalty") as ei:
+    new = dst.import_state(src.export_slot_state(rid))
+    (out,) = [o for o in dst.run() if o.request_id == new]
+    assert out.tokens == want and dst.stats["migrate_imports"] == 1
+    src = jax_engine()
+    src._vocab = tuple(chr(48 + i % 75) for i in range(61))
+    rid = src.submit(PROMPT, max_new_tokens=10, temperature=0.0, regex="[a-z]+")
+    _decode_until(src, rid, 3)
+    dst = port_engine()
+    with pytest.raises(ValueError, match="vocabulary") as ei:
         dst.import_state(src.export_slot_state(rid))
-    assert ei.value.code == "migrate_unsupported"
+    assert type(ei.value).__name__ == "ConstraintCompileError"
     assert not dst.has_work() and dst.stats["migrate_imports"] == 0
 
 

@@ -17,8 +17,9 @@ pool, request not active, geometry mismatch, dedup miss, corrupt and
 malformed bodies, an unknown migrate id) with the JAX server's status
 codes and ``code``s; ``/metrics`` families and ``/health``'s
 ``host_tier`` keys against the JAX engine's; ``--host-tier-bytes``,
-``key_offset`` and ``journal_id`` accepted while every other later-slice
-flag and key stays refused.
+``key_offset`` and ``journal_id`` accepted, and the request-path fields
+served (no key is refused as a later slice's; ``"spec"`` meets the
+unknown-field 400).
 """
 
 from __future__ import annotations
@@ -288,10 +289,28 @@ def test_host_tier_flag_key_offset_and_journal_id_are_served(pair):
     assert status == 200 and tail["tokens"] == full[2:]
 
 
-@pytest.mark.parametrize("key", tserver.LATER_SLICE_KEYS)
+# the request fields the request-path slice serves, each with a valid
+# value; "spec" was never a /generate field of the JAX server
+SERVED_KEYS = {"json_schema": {"type": "integer"}, "regex": "[a-z]+",
+               "choices": ["12", "ab"], "repetition_penalty": 1.2,
+               "presence_penalty": 0.5, "frequency_penalty": 0.5,
+               "logprobs": 2, "spec": None}
+
+
+@pytest.mark.parametrize("key", list(SERVED_KEYS))
 def test_later_slice_keys_stay_refused(pair, key):
+    """No field is refused as "a later slice's" any more
+    (``LATER_SLICE_KEYS`` is empty): the request-path fields answer 200
+    for a valid value, and "spec" meets the unknown-field 400."""
     a, _ = pair
-    status, reply = _post(a.url + "/generate", {"prompt_ids": [1, 2],
-                                                key: 1})
-    assert status == 400 and reply["code"] == "bad_request"
-    assert key in reply["error"]
+    assert tserver.LATER_SLICE_KEYS == ()
+    # the id -> text table constrained requests compile against
+    a.engine._vocab = tuple(chr(48 + i % 75) for i in range(61))
+    body = {"prompt_ids": [1, 2], "max_new_tokens": 3, key: SERVED_KEYS[key]}
+    status, reply = _post(a.url + "/generate", body)
+    if key == "spec":
+        assert status == 400 and reply["code"] == "bad_request"
+        assert reply["error"] == "unknown field 'spec'"
+        return
+    assert status == 200 and len(reply["tokens"]) >= 1, reply
+    assert ("token_logprobs" in reply) == (key == "logprobs")

@@ -160,10 +160,20 @@ def test_submit_validation_and_later_slice_fields():
         eng.submit([1] * 30, max_new_tokens=3)  # diff: prompt + new <= 32
     with pytest.raises(ValueError, match=r"\[0, 61\)"):
         eng.submit([61], max_new_tokens=2)
-    for field, value in (("repetition_penalty", 1.3), ("logprobs", 2),
-                         ("regex", "a+"), ("frequency_penalty", 0.5)):
-        with pytest.raises(ValueError, match=field):
+    # penalties and logprobs are served since the request-path slice ...
+    rid = eng.submit([1, 2], max_new_tokens=2, repetition_penalty=1.3,
+                     frequency_penalty=0.5, logprobs=2)
+    assert eng.cancel(rid)
+    # ... and a constraint needs the engine's vocabulary and must compile:
+    # refused typed at submit, counted, the engine untouched
+    for field, value in (("regex", "a+"), ("json_schema", '{"type": "integer"}'),
+                         ("choices", ("ab",))):
+        with pytest.raises(ValueError, match="vocabulary"):
             eng.submit([1, 2], max_new_tokens=2, **{field: value})
+    eng._vocab = tuple(chr(97 + i % 26) for i in range(61))
+    with pytest.raises(ValueError) as ei:
+        eng.submit([1, 2], max_new_tokens=2, regex="(ab")
+    assert type(ei.value).__name__ == "ConstraintCompileError"
     assert eng.stats["rejected"] == 6
     assert not eng.has_work()
 
@@ -228,11 +238,14 @@ def test_http_generate_and_health_round_trip():
             health = json.load(r)
         assert health["ok"] and health["stats"]["completed"] >= 4
         assert health["device"] == "cpu"
+        # the request-path fields are served; malformed values of them
+        # are still a 400 bad_request naming the field
         for bad, needle in (({}, "prompt_ids"),
-                            ({"prompt_ids": [1], "logprobs": 2}, "logprobs"),
-                            ({"prompt_ids": [1], "json_schema": {}}, "json_schema"),
-                            ({"prompt_ids": [1], "frequency_penalty": 0.5},
-                             "frequency_penalty")):
+                            ({"prompt_ids": [1], "logprobs": -2}, "logprobs"),
+                            ({"prompt_ids": [1], "json_schema": {}, "regex": "a"},
+                             "json_schema"),
+                            ({"prompt_ids": [1], "repetition_penalty": 0},
+                             "repetition_penalty")):
             with pytest.raises(urllib.error.HTTPError) as ei:
                 _post(url + "/generate", bad)
             assert ei.value.code == 400

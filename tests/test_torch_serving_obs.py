@@ -12,8 +12,9 @@
   spans and the request's lifecycle stamped with its ``traceparent``'s
   trace id, and the event log holds its received and finished lines;
 - the server's command line takes JAX's telemetry, SLO and priority flags
-  with JAX's defaults, and refuses each later flag naming its ROADMAP
-  item.
+  with JAX's defaults, starts its engine with ``--quantize-weights int8``
+  and with ``--spec-drafter-ckpt``, and refuses each later flag naming
+  its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from differential_transformer_replication_tpu.config import ModelConfig as JModelConfig
 from differential_transformer_replication_tpu.config import ServingConfig as JServingConfig
@@ -85,13 +87,20 @@ def _families(registry, unported=()):
 
 
 @pytest.mark.parametrize("extra", [dict(quality_telemetry=True),
-                                   dict(PAGED_SPEC, quality_telemetry=True)],
-                         ids=["contiguous", "paged-spec"])
+                                   dict(PAGED_SPEC, quality_telemetry=True),
+                                   dict(spec_mode="model", spec_draft_len=3,
+                                        quality_telemetry=True)],
+                         ids=["contiguous", "paged-spec", "model-spec"])
 def test_counters_and_families_equal_the_jax_engines(diff, extra):
+    """The model-spec case (the target drafting for itself) adds the
+    drafter's ``serving_spec_drafter_kv_bytes``, equal to JAX's."""
     jcfg, tcfg, jparams, tparams = diff
-    jeng = JServingEngine(jparams, jcfg, JServingConfig(**POOL, **extra))
+    model = extra.get("spec_mode") == "model"
+    jeng = JServingEngine(jparams, jcfg, JServingConfig(**POOL, **extra),
+                          spec_drafter=(jparams, jcfg) if model else None)
     teng = ServingEngine(tparams, tcfg, ServingConfig(**POOL, **extra),
-                         device="cpu")
+                         device="cpu",
+                         spec_drafter=(tparams, tcfg) if model else None)
     jouts = jeng.generate(_prompts(), max_new_tokens=6, temperature=0.0)
     touts = teng.generate(_prompts(), max_new_tokens=6, temperature=0.0)
     assert [o.tokens for o in touts] == [o.tokens for o in jouts]
@@ -115,6 +124,13 @@ def test_counters_and_families_equal_the_jax_engines(diff, extra):
     assert tvals[("serving_ttft_seconds_count", ())] == len(_prompts())
     assert tvals[("serving_token_entropy_count", ())] == 6 * len(_prompts())
     assert tvals[("serving_kv_cache_bytes_per_slot", ())] > 0
+    for name in ("serving_constraint_cache_entries",
+                 "serving_constrained_requests_active",
+                 "serving_constraint_validity_rate"):
+        assert tvals[(name, ())] == jvals[(name, ())]
+    if model:
+        key = ("serving_spec_drafter_kv_bytes", ())
+        assert tvals[key] == jvals[key] == teng.drafter.bytes_total() > 0
 
 
 def _get(url):
@@ -153,7 +169,7 @@ def test_server_round_trip_metrics_trace_and_events(diff, tmp_path):
         code, fresh = _post(url + "/generate", {"prompt_ids": [3, 3],
                                                 "max_new_tokens": 2})
         assert code == 200 and len(fresh["trace_id"]) == 32
-        code, bad = _post(url + "/generate", {"prompt_ids": [3], "logprobs": 2})
+        code, bad = _post(url + "/generate", {"prompt_ids": [3], "spec": 2})
         assert code == 400 and bad["code"] == "bad_request" and bad["trace_id"]
         code, body, headers = _get(url + "/metrics")
         assert code == 200 and headers["Content-Type"].startswith("text/plain")
@@ -252,3 +268,64 @@ def test_later_server_flags_are_refused_naming_their_item(flag, capsys):
     assert flag in err and tserver.LATER_FLAGS[flag] in err
     assert "ROADMAP Queue A: " in tserver.LATER_FLAGS[flag]
     assert tserver.refused_flags([f"{flag}=1"]) == [flag]
+
+
+def test_quantize_weights_flag_starts_the_engine_with_int8_weights():
+    """``--quantize-weights int8`` (no longer refused): the parser takes
+    it, and the engine it starts serves the random-init demo model with
+    every matmul weight quantized and dequantized, as
+    ``apply_weight_quantization`` does, and decodes greedily."""
+    from differential_transformer_replication_tpu_torch.train.checkpoint import (
+        apply_weight_quantization,
+    )
+
+    assert tserver.refused_flags(["--quantize-weights=int8"]) == []
+    p = tserver.build_parser()
+    args = p.parse_args(["--device", "cpu", "--quantize-weights", "int8"])
+    engine, cfg, meta, tok = tserver.engine_from_args(args)
+    plain, _, _, _ = tserver.engine_from_args(p.parse_args(["--device", "cpu"]))
+    assert meta is None and tok is None and args.quantize_weights == "int8"
+    w, w0 = engine.params["lm_head"]["w"], plain.params["lm_head"]["w"]
+    want = apply_weight_quantization({"lm_head": {"w": w0}}, "int8")
+    assert torch.equal(w, want["lm_head"]["w"]) and not torch.equal(w, w0)
+    assert torch.equal(engine.params["tok_emb"], plain.params["tok_emb"])
+    out = engine.generate([[5, 9, 2]], max_new_tokens=4, temperature=0.0)[0]
+    assert len(out.tokens) == 4
+    with pytest.raises(SystemExit):
+        p.parse_args(["--quantize-weights", "int4"])
+
+
+def test_spec_drafter_ckpt_flag_starts_a_model_drafter(tmp_path):
+    """``--spec-mode model --spec-drafter-ckpt DIR`` (no longer refused):
+    the engine drafts with the checkpoint's model, loaded through the
+    target's verified path (int8 with ``--quantize-weights``), and its
+    greedy tokens equal the engine's without speculation."""
+    from differential_transformer_replication_tpu_torch.config import TrainConfig
+    from differential_transformer_replication_tpu_torch.train import checkpoint as ckpt
+    from differential_transformer_replication_tpu_torch.train.step import (
+        create_train_state,
+    )
+
+    dcfg = TrainConfig(model=ModelConfig(
+        model="control", vocab_size=512, n_embd=32, n_head=2, n_layer=1,
+        block_size=128, compute_dtype="float32"), vocab_size=512)
+    path = str(tmp_path / "drafter.ckpt")
+    ckpt.save_checkpoint(path, create_train_state(
+        torch.Generator().manual_seed(4), dcfg, "cpu"), 1.0, dcfg)
+    assert tserver.refused_flags([f"--spec-drafter-ckpt={path}"]) == []
+    p = tserver.build_parser()
+    argv = ["--device", "cpu", "--spec-mode", "model", "--spec-drafter-ckpt", path,
+            "--spec-draft-len", "3", "--quantize-weights", "int8"]
+    engine, _, _, _ = tserver.engine_from_args(p.parse_args(argv))
+    assert engine.serving.spec_drafter_ckpt == path
+    assert engine.drafter.kind == "model" and engine.drafter.cfg.n_layer == 1
+    want, _, _ = ckpt.load_params_for_inference(path, quantize="int8")
+    assert torch.equal(engine.drafter.params["lm_head"]["w"], want["lm_head"]["w"])
+    plain, _, _, _ = tserver.engine_from_args(
+        p.parse_args(["--device", "cpu", "--quantize-weights", "int8"]))
+    prompts = [[5, 9, 2, 5, 9, 2], [7, 7, 1]]
+    got = [o.tokens for o in engine.generate(prompts, max_new_tokens=8,
+                                             temperature=0.0)]
+    assert got == [o.tokens for o in plain.generate(prompts, max_new_tokens=8,
+                                                    temperature=0.0)]
+    assert engine.spec_stats()["proposed"] > 0

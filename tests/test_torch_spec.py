@@ -181,10 +181,10 @@ def test_spec_accept_semantics():
     logits[2, :, 6] = 50.0
     greedy = SamplingParams(temperature=0.0)
     sampled = SamplingParams(temperature=0.7, top_k=3, seed=9)
-    out, ok, _ = spec_accept(logits, [[2, 3], [], [6, 6]],
-                             [greedy, sampled, sampled], [0, 4, 2])
+    out, ok, _, _ = spec_accept(logits, [[2, 3], [], [6, 6]],
+                                [greedy, sampled, sampled], [0, 4, 2])
     assert out[0] == [2, 4] and ok == [True, True, True]
-    plain, _, _ = sample_tokens(logits[1, :1], [sampled], [4])
+    plain, _, _, _ = sample_tokens(logits[1, :1], [sampled], [4])
     assert out[1] == [int(plain[0])]
     assert out[2][:2] == [6, 6] and len(out[2]) == 3
     logits[0, 1, 0] = float("nan")
@@ -254,8 +254,15 @@ def test_http_draft_len_health_and_page_pool_exhausted():
 
 
 def test_later_slice_serving_values_are_refused_with_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        ServingConfig(spec_mode="model")
+    # the model drafter is served since the request-path slice: accepted
+    # and validated like the JAX config's fields
+    assert ServingConfig(spec_mode="model").spec_enabled()
+    with pytest.raises(ValueError, match="spec_draft_len"):
+        ServingConfig(spec_mode="model", spec_draft_len=0)
+    with pytest.raises(ValueError, match="max_logprobs"):
+        ServingConfig(max_logprobs=0)
+    with pytest.raises(ValueError, match="constraint_cache_entries"):
+        ServingConfig(constraint_cache_entries=0)
     # the host tier is served since the tier slice: accepted, validated
     assert ServingConfig(kv_page_size=8, host_tier_bytes=1 << 20).tiered()
     with pytest.raises(ValueError, match="host_tier_bytes"):
