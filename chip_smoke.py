@@ -134,6 +134,22 @@ these phases, each printing its own lines and its seconds:
    token, top lists sorted with the greedy token first), and
    ``decode_profile``'s step inert (the parent's kernels per step) and
    with the pipeline on every row;
+   serve-fleet: the fleet front: two replicas of the port's server (the
+   diff recipe, seed-0 weights, 8 slots, pages of 16, prefix cache) on
+   this card through ``serving/fleet.py``, the port's router in this
+   process: one ``config_hash`` and one greedy reply on both; the
+   router's added latency on an idle replica; (a) a rolling restart
+   (``pre_drain=router.migrate_out``) and a SIGKILL under 4 client
+   threads with no failed reply, every reply attributed and the probe
+   prompt's tokens unchanged, with the SIGKILL's ejection, relaunch,
+   ready, first-reply and re-admission seconds; (c) gate A on that
+   SIGKILL: journaled requests caught mid-decode, every one finished by
+   replay (first differences reported); (b) gate B: a drain by
+   migration within its budget, the continuations bit-equal to the
+   destination alone, its ms against the pages moved; (d) the four router faults in one plan, and
+   an admission burst whose sheds carry the controller's clamped
+   predicted wait as Retry-After, beside the time the backlog took to
+   clear; the serving kernels' launches in the replicas;
 4. e2e: prefill + decode logits of one prompt in fp32 on the card
    (kernels) against the CPU (plain versions); and a 2-layer diff at
    recipe width through the paged pool: paged steps and batched verify
@@ -165,14 +181,14 @@ these phases, each printing its own lines and its seconds:
    train-ring: sequence-parallel training through the ring (ring flash
    attention over P ranks, ``parallel/ring.py``): the trainer's command
    line under ``torch.distributed.run`` with ``--dist-backend gloo``, the
-   P ranks sharing this card, diff at recipe width, 4 layers, dropout 0.1,
+   P ranks sharing this card, diff at recipe width, 2 layers, dropout 0.1,
    16,384 tokens per step: P 2 at T 8192 (chunk routes resident +
    split), P 4 at T 8192, P 2 at T 16384 (tiled), control P 2 at T 8192;
    exact launches per route and rank, losses equal on every rank and
    falling on a repeated batch, params bit-identical across ranks; with
    two or more cards the first run again over nccl (else a line says the
    leg was not run); the first run's ranks then run
-   ``train/step_profile.py`` over the ring at the recipe's 8 layers
+   ``train/step_profile.py`` over the ring at the runs' depth
    (rank 0: wall, busy, the exchanges' host time);
 6. train e2e: one train step of a 2-layer diff model at recipe width in
    fp32, loss and every gradient on the card (kernels) against the CPU
@@ -186,7 +202,7 @@ these phases, each printing its own lines and its seconds:
    the command lines, each in a process of its own (``chip_smoke.py
    --cli-worker``: the trainer's, the server's or the sampler's ``main``
    with the kernel wrappers' counts written out at its end): the diff
-   recipe at full width and depth, bf16, micro-batch 8 x 48 grad-acc
+   recipe at full width and 4 of its 8 layers, bf16, micro-batch 8 x 48 grad-acc
    steps, built with ``--dataset synthetic --num-train-samples D
    --tokenizer-dir`` (D the first corpus size whose stream, encoded by the
    port's BPE, has an epoch that ends inside the run; the model's vocab
@@ -238,6 +254,10 @@ import time
 import urllib.error
 import urllib.request
 from pathlib import Path
+
+# wall time this module was imported (a serve-fleet replica's interpreter
+# start, before ``import torch``)
+T_IMPORT = time.time()
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_BYTES_S = 3.35e12
@@ -2443,6 +2463,578 @@ def fresh_decode_profiles(*requests: dict) -> list:
 
 
 # ---------------------------------------------------------------------------
+# phase 3e: the fleet front: two port replicas behind the router
+# ---------------------------------------------------------------------------
+
+# every replica: the diff recipe (seed-0 weights), 8 slots, the paged pool
+# with pages of 16 and the prefix cache, on the card
+FLEET_ARGS = ["--model", "diff", "--recipe", "--num-slots", "8",
+              "--kv-page-size", "16", "--drain-timeout", "60"]
+FLEET_TTFT_N = 24      # requests timed direct and through the router
+GATE_B_N = 2           # greedy requests the drain catches
+GATE_B_NEW = 320       # tokens each generates
+GATE_B_BUDGET_S = 2.0  # the drain's budget (RouterConfig.migrate_budget_s)
+GATE_A_NEW = 96        # greedy tokens of each request the SIGKILL catches
+GATE_A_PROMPT = 6      # their prompts' length (the load's are 8-64)
+BURST = 96             # batch-class requests of the admission burst
+BURST_NEW = 128        # greedy tokens of each
+ADMIT_BOUND_S = 0.2    # admission_wait_bound_s (a batch request: half of it)
+
+
+def _get_json(url: str, timeout: float = 30.0) -> dict:
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.load(r)
+
+
+def _ready(url: str) -> bool:
+    try:
+        with urllib.request.urlopen(url + "/ready", timeout=0.5) as r:
+            return r.status == 200
+    except (OSError, ValueError):
+        return False
+
+
+def _timed_post(url: str, body: dict) -> tuple:
+    """(status, body, headers, seconds) of one POST, errors included."""
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            out = (r.status, json.load(r), dict(r.headers))
+    except urllib.error.HTTPError as e:
+        out = (e.code, json.loads(e.read() or b"{}"), dict(e.headers))
+    except OSError as e:
+        out = (-1, {"error": repr(e)}, {})
+    return (*out, time.perf_counter() - t)
+
+
+class _Load:
+    """Client threads posting ``make(worker, k)`` bodies to ``url`` (no
+    client-side retries) until stopped, or one each with ``once``; every
+    reply is kept with its body and the monotonic time it arrived."""
+
+    def __init__(self, url: str, n: int, make, once: bool = False,
+                 stagger_s: float = 0.0):
+        self.results, self._lock = [], threading.Lock()
+        self._stop = threading.Event()
+
+        def client(wid):
+            # arrivals spread by stagger_s: the front's listen backlog is
+            # the stdlib server's 5
+            time.sleep(wid * stagger_s)
+            k = 0
+            while once or not self._stop.is_set():
+                body = make(wid, k)
+                status, reply, headers, _ = _timed_post(url, body)
+                with self._lock:
+                    self.results.append((body, status, reply, headers, time.monotonic()))
+                k += 1
+                if once:
+                    return
+
+        self.threads = [threading.Thread(target=client, args=(w,), daemon=True)
+                        for w in range(n)]
+        for t in self.threads:
+            t.start()
+
+    def join(self, timeout: float = 300.0) -> list:
+        self._stop.set()
+        for t in self.threads:
+            t.join(timeout)
+        expect(not any(t.is_alive() for t in self.threads),
+               "serve-fleet: a client thread did not finish in time")
+        return self.results
+
+
+def _fleet_counts(work: Path) -> dict:
+    """The kernel wrappers' launches summed over every replica process
+    that ended on its own (a SIGKILLed process writes none)."""
+    total, files = {}, sorted(work.glob("counts-*.json"))
+    for f in files:
+        for name, n in json.loads(f.read_text()).items():
+            if name != "timeline":
+                total[name] = total.get(name, 0) + n
+    return {"files": len(files), **total}
+
+
+def _timeline(work: Path, index: int, pid: int) -> dict:
+    """The interpreter-start and torch-imported wall times that the
+    replica process ``pid`` wrote when it ended."""
+    f = work / f"counts-{index}-{pid}.json"
+    return json.loads(f.read_text())["timeline"] if f.exists() else {}
+
+
+def _watch_restart(fleet, router, idx: int, t_kill: float, url: str) -> dict:
+    """Seconds from a SIGKILL to the router's ejection, the relaunch, the
+    relaunched process's /ready, its first reply and the router's
+    re-admission (the router's view is polled on a thread of its own, so
+    the first reply's wait does not delay it); ``pid`` the new process."""
+    from differential_transformer_replication_tpu_torch.serving.router import (
+        EJECTED,
+        UP,
+    )
+
+    rep = next(r for r in router.replicas if r.url == url)
+    pid0 = fleet.replicas[idx].proc.pid
+    t, end = {}, time.monotonic() + 240
+
+    def router_view():
+        while time.monotonic() < end and "readmitted" not in t:
+            now = time.monotonic()
+            if "ejected" not in t and rep.state == EJECTED:
+                t["ejected"] = now - t_kill
+            if "ejected" in t and rep.state == UP:
+                t["readmitted"] = now - t_kill
+            time.sleep(0.002)
+
+    watcher = threading.Thread(target=router_view, daemon=True)
+    watcher.start()
+    while time.monotonic() < end and "first_reply" not in t:
+        proc = fleet.replicas[idx].proc
+        if "launch" not in t and proc is not None and proc.pid != pid0:
+            t["launch"], t["pid"] = time.monotonic() - t_kill, proc.pid
+        if "launch" in t and _ready(url):
+            t["ready"] = time.monotonic() - t_kill
+            _post(url + "/generate", {"prompt_ids": [1, 2, 3], "max_new_tokens": 1,
+                                      "temperature": 0.0})
+            t["first_reply"] = time.monotonic() - t_kill
+        time.sleep(0.005)
+    watcher.join(max(0.0, end - time.monotonic()))
+    expect({"ejected", "launch", "ready", "first_reply", "readmitted"} <= set(t),
+           f"serve-fleet: the killed replica's restart did not complete: {t}")
+    return t
+
+
+def _fmt_restart(t: dict, timeline: dict, t_kill_wall: float) -> str:
+    """The restart's seconds after the SIGKILL, and its process's own
+    split when it wrote one (interpreter start, torch imported)."""
+    split = ""
+    if timeline:
+        start = t_kill_wall + t["launch"]
+        split = (f" = interpreter start {timeline['module'] - start:.2f} s, torch "
+                 f"import {timeline['torch'] - timeline['module']:.2f} s, the port's "
+                 f"import, model, engine and HTTP up "
+                 f"{t_kill_wall + t['ready'] - timeline['torch']:.2f} s")
+    return (f"ejected {t['ejected']:.3f} s, relaunched {t['launch']:.2f} s, /ready "
+            f"{t['ready']:.2f} s, first reply {t['first_reply']:.2f} s, re-admitted "
+            f"{t['readmitted']:.2f} s after the SIGKILL (process start to ready "
+            f"{t['ready'] - t['launch']:.2f} s{split}; ready to its first reply, the "
+            f"kernels' first launches included, {t['first_reply'] - t['ready']:.2f} s)")
+
+
+def _pin_and_load(router, rurl: str, src: str, tag: str, prompts: list, new: int) -> _Load:
+    """One greedy request a prompt through the router's HTTP front, each
+    on a session pinned to replica ``src``."""
+    for i in range(len(prompts)):
+        router.repin(f"{tag}{i}", src)
+    return _Load(rurl, len(prompts), lambda w, k: {
+        "prompt_ids": prompts[w], "max_new_tokens": new, "temperature": 0.0,
+        "session_id": f"{tag}{w}"}, once=True)
+
+
+def _inflight(url: str) -> list:
+    try:
+        return _get_json(url + "/inflight", 5.0).get("inflight", [])
+    except OSError:
+        return []
+
+
+def run_serve_fleet(torch, card: str) -> None:
+    """Phase 3e. Through ``serving/fleet.py``, two replicas of the port's
+    server on this card (``FLEET_ARGS``; each replica runs the server's
+    command line under ``--cli-worker`` so its kernel launches are
+    written out when it ends), the port's router in this process with a
+    50 ms probe interval. Both replicas report one ``config_hash`` and
+    give one greedy reply to a probe prompt; the router's added latency
+    is timed on idle replicas. (a) 4 client threads, greedy and sampled
+    requests on sessions, through a rolling restart with
+    ``pre_drain=router.migrate_out`` and then a SIGKILL: no failed
+    reply, every reply attributed, the probe prompt's tokens unchanged
+    on each replica. (c) gate A rides on that SIGKILL: greedy requests
+    pinned to the victim and journaled mid-decode all finish by the
+    replay rung (first differences from the run alone reported: replay
+    rebuilds KV by prefill). (b) gate B: a drain by migration of greedy
+    requests with far more decode left than its budget ends within the
+    budget, every continuation bit-equal to its request run alone on the
+    destination. (d) the four router faults
+    in one plan, each seen in the router's counters and events, no
+    request lost but the pick fault's typed 500; then a batch-class burst
+    past capacity under ``admission_wait_bound_s``: every shed a 503
+    ``admission_shed`` whose Retry-After is the controller's clamped
+    predicted wait, and that wait beside the time the backlog took to
+    clear. Every kernel of the serving path launched in the replicas."""
+    import random
+
+    from differential_transformer_replication_tpu_torch.config import RouterConfig
+    from differential_transformer_replication_tpu_torch.serving import fleet as tfleet
+    from differential_transformer_replication_tpu_torch.serving.admission import (
+        honest_retry_after,
+    )
+    from differential_transformer_replication_tpu_torch.serving.router import (
+        UP,
+        Router,
+        serve_router,
+    )
+    from differential_transformer_replication_tpu_torch.utils import faults
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke" / "fleet"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    rng = random.Random(0)
+    vocab = RECIPE["vocab_size"]
+
+    def prompt(n):
+        return [rng.randrange(vocab) for _ in range(n)]
+
+    fleet = tfleet.Fleet(2, server_args=FLEET_ARGS, max_restarts=3, backoff_base=0.2,
+                         backoff_max=2.0, ready_timeout_s=180.0,
+                         fleet_log=str(work / "fleet.jsonl"))
+    for r in fleet.replicas:
+        expect(r.argv[1:3] == ["-m", tfleet.SERVER_MODULE],
+               f"serve-fleet: replica {r.index} command line {r.argv}")
+        r.argv = [sys.executable, str(Path(__file__).resolve()), "--cli-worker",
+                  json.dumps({"cli": "serve", "argv": r.argv[3:],
+                              "out": str(work / f"counts-{r.index}-{{pid}}.json")})]
+    cfg = RouterConfig(probe_interval_s=0.05, probe_backoff_s=0.05,
+                       probe_backoff_max_s=0.5, eject_after=2, readmit_after=2,
+                       max_attempts=4, retry_base_s=0.02, retry_cap_s=0.2,
+                       default_deadline_s=120.0, wait_for_replica_s=10.0,
+                       migrate_budget_s=GATE_B_BUDGET_S)
+    routers, servers = [], []
+
+    def front(c, **kw):
+        router = Router(fleet.urls, c, **kw)
+        routers.append(router)
+        httpd = serve_router(router, port=0)
+        servers.append(httpd)
+        threading.Thread(target=httpd.serve_forever, args=(0.05,), daemon=True).start()
+        return router, f"http://127.0.0.1:{httpd.server_address[1]}/generate"
+
+    try:
+        t = time.perf_counter()
+        fleet.start()
+        t_start = time.perf_counter() - t
+        urls = fleet.urls
+        names = [u.split("//")[1] for u in urls]
+        devices = [_get_json(u + "/health")["device"] for u in urls]
+        expect(all(d.startswith("cuda") for d in devices),
+               f"serve-fleet: replicas on {devices}, not the card")
+        hashes = []
+        for u in urls:
+            info = [dict(lab) for (n, lab), _ in _metrics(u).items() if n == "build_info"]
+            hashes.append(info[0]["config_hash"] if info else None)
+        expect(hashes[0] is not None and hashes[0] == hashes[1],
+               f"serve-fleet: config_hash {hashes}")
+        probe = {"prompt_ids": prompt(16), "max_new_tokens": 24, "temperature": 0.0}
+        before = [_post(u + "/generate", probe)[1]["tokens"] for u in urls]
+        expect(before[0] == before[1],
+               f"serve-fleet: the replicas' greedy replies differ {before}")
+        log(f"[serve-fleet] 2 replicas of the port's server through serving/fleet.py "
+            f"({' '.join(FLEET_ARGS)}), both up in {t_start:.1f} s from launch, on "
+            f"{devices}, config_hash {hashes[0]} on both, one greedy reply to the "
+            f"probe prompt; {card}")
+
+        router, rurl = front(cfg)
+        router.start()
+        # the router's added latency: one-token requests on idle replica 0,
+        # direct and through the router (its session pinned there), in turn
+        router.repin("ttft", urls[0])
+        direct, routed, d_ttft, r_ttft = [], [], [], []
+        for i in range(FLEET_TTFT_N):
+            body = {"prompt_ids": prompt(32), "max_new_tokens": 1, "temperature": 0.0}
+            for which in ((0, 1) if i % 2 else (1, 0)):
+                if which == 0:
+                    s, b, _, dt = _timed_post(urls[0] + "/generate", body)
+                    direct.append(dt)
+                    d_ttft.append(b.get("ttft_ms", 0.0))
+                else:
+                    s, b, _, dt = _timed_post(rurl, dict(body, session_id="ttft"))
+                    routed.append(dt)
+                    r_ttft.append(b.get("ttft_ms", 0.0))
+                    expect(b.get("replica") == names[0], f"serve-fleet: ttft reply {b}")
+                expect(s == 200, f"serve-fleet: ttft request {s} {b}")
+        md, mr = statistics.median(direct) * 1e3, statistics.median(routed) * 1e3
+        log(f"[serve-fleet] router's added latency on an idle replica, {FLEET_TTFT_N} "
+            f"one-token requests each way: client-side median {mr:.2f} ms through the "
+            f"router vs {md:.2f} ms direct (+{mr - md:.2f} ms); the replica's own "
+            f"ttft_ms median {statistics.median(r_ttft):.2f} vs "
+            f"{statistics.median(d_ttft):.2f}; {card}")
+
+        # (a) a rolling restart, then a SIGKILL, under load
+        t_a = time.perf_counter()
+
+        def load_body(wid, k):
+            r = random.Random(wid * 1000 + k)
+            return {"prompt_ids": [r.randrange(vocab) for _ in range(r.randint(8, 64))],
+                    "max_new_tokens": 32, "temperature": 0.0 if k % 2 else 0.8,
+                    "seed": wid * 1000 + k, "session_id": f"w{wid}"}
+
+        load = _Load(rurl, 4, load_body)
+        by_url = {rep.url: rep for rep in router.replicas}
+        time.sleep(1.0)
+        t = time.perf_counter()
+        fleet.rolling_restart(ready_check=lambda r: by_url[r.url].eligible(),
+                              pre_drain=router.migrate_out)
+        t_roll = time.perf_counter() - t
+        n_roll = len(load.results)
+        # (c) gate A rides on this SIGKILL: greedy requests of a prompt
+        # length the load never sends, pinned to replica 1, journaled
+        ga = [prompt(GATE_A_PROMPT) for _ in range(4)]
+        gate_a = _pin_and_load(router, rurl, urls[1], "ga", ga, GATE_A_NEW)
+
+        def journaled():
+            ents = [e for e in _inflight(urls[1])
+                    if e.get("journal_id") and e.get("prompt_len") == GATE_A_PROMPT]
+            return len(ents) == len(ga) and all(
+                len(router.journal.tokens(e["journal_id"]) or []) >= 8 for e in ents)
+
+        end = time.monotonic() + 60
+        while time.monotonic() < end and not journaled():
+            time.sleep(0.005)
+        expect(journaled(), "serve-fleet (c): no journaled decode of gate A on replica 1")
+        t_kill, wall_a = time.monotonic(), time.time()
+        fleet.kill(1)
+        kill_a = _watch_restart(fleet, router, 1, t_kill, urls[1])
+        replayed = gate_a.join()
+        time.sleep(1.0)
+        results = load.join()
+        bad = [(s, b) for _, s, b, _, _ in results if s != 200]
+        expect(not bad and len(results) >= 20,
+               f"serve-fleet (a): {len(bad)} failed of {len(results)}, first {bad[:3]}")
+        unknown = [b for _, _, b, _, _ in results if b.get("replica") not in names]
+        expect(not unknown, f"serve-fleet (a): unattributed replies {unknown[:2]}")
+        after = [_post(u + "/generate", probe)[1]["tokens"] for u in urls]
+        expect(after == before, "serve-fleet (a): the probe prompt's greedy tokens "
+               f"changed across the restarts: {first_difference(before, after)}")
+        rows = [json.loads(x) for x in (work / "fleet.jsonl").read_text().splitlines()]
+        per = {}
+        for i in range(2):
+            drain = next(r["ts"] for r in rows
+                         if r["event"] == "rolling_drain" and r["replica"] == i)
+            up = next(r["ts"] for r in rows
+                      if r["event"] == "launch" and r["replica"] == i and r["ts"] >= drain)
+            done = next(r["ts"] for r in rows
+                        if r["event"] == "rolling_done" and r["replica"] == i)
+            per[i] = f"drain {up - drain:.2f} s, relaunch to re-admission {done - up:.2f} s"
+        migr = {o: router._migration_counter.labels(outcome=o).value
+                for o in ("migrated", "replayed", "migrate_failed")}
+        log(f"[serve-fleet] (a) 4 client threads (greedy and sampled, 32 tokens, "
+            f"sessions), no client retries: {len(results)} replies, all 200, every one "
+            f"attributed; rolling restart with migrate_out pre-drain {t_roll:.1f} s "
+            f"({n_roll} replies by its end; by replica {per}), then SIGKILL of replica 1 "
+            f"(gate A's, below): {_fmt_restart(kill_a, {}, wall_a)}; router "
+            f"retries {router._retry_counter.value:.0f}, ejections "
+            f"{sum(router._eject_counter.labels(replica=n).value for n in names):.0f}, "
+            f"ladder {migr}; the probe prompt's greedy tokens unchanged on both "
+            f"replicas; {time.perf_counter() - t_a:.1f} s; {card}")
+
+        expect(all(s == 200 and b.get("replayed") and b.get("replica") == names[0]
+                   and len(b["tokens"]) == GATE_A_NEW for _, s, b, _, _ in replayed),
+               f"serve-fleet (c): replies {[(s, b.get('code'), b.get('replayed')) for _, s, b, _, _ in replayed]}")
+        got = {tuple(b["prompt_ids"]): b["tokens"] for _, _, b, _, _ in replayed}
+        mine = [got[tuple(p)] for p in ga]
+        ref = [_post(urls[0] + "/generate", {"prompt_ids": p, "max_new_tokens": GATE_A_NEW,
+                                             "temperature": 0.0})[1]["tokens"] for p in ga]
+        diffs = [first_difference([m], [r]) for m, r in zip(mine, ref)]
+        log(f"[serve-fleet] (c) gate A: the SIGKILL of (a) caught {len(ga)} journaled "
+            f"greedy requests of {GATE_A_NEW} tokens on replica 1: every one finished 200 "
+            f"by the replay rung on replica 0; first difference from the request alone "
+            f"there (request 0, position) {diffs} (replay rebuilds KV by prefill; None: "
+            f"equal); {card}")
+
+        # (b) gate B: drain replica 0 by migration
+        t_b = time.perf_counter()
+        for u in urls:  # the router sees both up before the drain
+            rep = by_url[u]
+            end = time.monotonic() + 60
+            while rep.state != UP and time.monotonic() < end:
+                time.sleep(0.01)
+        gb = [prompt(12) for _ in range(GATE_B_N)]  # under a page: never a prefix hit
+        m0 = [_metrics(u) for u in urls]
+        load = _pin_and_load(router, rurl, urls[0], "gb", gb, GATE_B_NEW)
+        end = time.monotonic() + 60
+        while time.monotonic() < end and sum(
+                len(e.get("tokens") or []) >= 8 for e in _inflight(urls[0])) < len(gb):
+            time.sleep(0.005)
+        drained = router.migrate_out(urls[0])
+        t_drained = time.monotonic()
+        results = load.join()
+        m1 = [_metrics(u) for u in urls]
+
+        def delta(i, name):
+            return sum(v for (n, _), v in m1[i].items() if n == name) - \
+                sum(v for (n, _), v in m0[i].items() if n == name)
+
+        expect(drained["migrated"] == len(gb) and drained["drain_seconds"] <= GATE_B_BUDGET_S,
+               f"serve-fleet (b): drain {drained} (budget {GATE_B_BUDGET_S} s)")
+        expect(all(s == 200 and b.get("migrated") and b.get("replica") == names[1]
+                   and len(b["tokens"]) == GATE_B_NEW for _, s, b, _, _ in results),
+               f"serve-fleet (b): replies {[(s, b.get('code'), b.get('replica')) for _, s, b, _, _ in results]}")
+        left = max(r[4] for r in results) - t_drained
+        expect(left > GATE_B_BUDGET_S, f"serve-fleet (b): decode left after the drain "
+               f"{left:.2f} s is not more than its budget {GATE_B_BUDGET_S} s")
+        got = {tuple(b["prompt_ids"]): b["tokens"] for _, _, b, _, _ in results}
+        t = time.perf_counter()
+        ref = [_post(urls[1] + "/generate", {"prompt_ids": p, "max_new_tokens": GATE_B_NEW,
+                                             "temperature": 0.0})[1]["tokens"] for p in gb]
+        t_alone = (time.perf_counter() - t) / len(gb)
+        mine = [got[tuple(p)] for p in gb]
+        expect(mine == ref, "serve-fleet (b): a migrated continuation differs from its "
+               f"request alone on the destination at {first_difference(mine, ref)}")
+        pages = delta(0, "serving_migrate_pages_shipped_total")
+        log(f"[serve-fleet] (b) gate B: replica 0 held {len(gb)} greedy requests of "
+            f"{GATE_B_NEW} tokens; migrate_out moved {drained['migrated']} in "
+            f"{drained['drain_seconds'] * 1e3:.1f} ms (budget {GATE_B_BUDGET_S * 1e3:.0f} "
+            f"ms), {pages:.0f} pages shipped (+{delta(0, 'serving_migrate_pages_deduped_total'):.0f} "
+            f"deduped), {delta(1, 'serving_migrate_imports_total'):.0f} imports on replica 1, "
+            f"{drained['drain_seconds'] * 1e3 / max(pages, 1):.2f} ms a page; the "
+            f"continuations decoded {left:.2f} s more on replica 1 (a request alone there: "
+            f"{t_alone:.2f} s); every continuation bit-equal to its request alone on the "
+            f"destination; {time.perf_counter() - t_b:.1f} s; {card}")
+
+        # (d) the four router faults in one plan, hedging on (the main
+        # router's prober stops first: the plan is this process's)
+        t_d = time.perf_counter()
+        router.close()
+        end = time.monotonic() + 30
+        while any(rep.probing for rep in router.replicas) and time.monotonic() < end:
+            time.sleep(0.01)  # its last probes, each on a thread of its own
+        events = _Recorder()
+        os.environ[faults.ROUTER_HANG_ENV_VAR] = "0.5"
+        router_d, durl = front(cfg.replace(hedge_factor=2.0, hedge_min_s=0.05,
+                                           eject_after=1), events=events)
+        faults.arm("router_probe_fail,router_stale_metrics,router_pick_raise,"
+                   "router_replica_hang")
+        for rep in router_d.replicas:  # one ejected by the probe fault, one unscraped
+            router_d.probe(rep)
+        states = [(rep.state, rep.metrics_t is None) for rep in router_d.replicas]
+        router_d.start()
+        end = time.monotonic() + 30
+        while time.monotonic() < end and router_d.eligible_count() < 2:
+            time.sleep(0.01)
+        replies = [_timed_post(durl, {"prompt_ids": prompt(16), "max_new_tokens": 8,
+                                      "temperature": 0.0}) for _ in range(8)]
+        faults_left = faults.armed()
+        faults.reset()
+        os.environ.pop(faults.ROUTER_HANG_ENV_VAR, None)
+        codes = [(s, b.get("code")) for s, b, _, _ in replies]
+        ev = [e for e, _ in events.rows]
+        hedged = [b for s, b, _, _ in replies if s == 200 and b.get("hedged")]
+        expect(sorted(states) == [("ejected", True), ("up", True)]
+               and router_d._eject_counter.labels(replica=names[0]).value
+               + router_d._eject_counter.labels(replica=names[1]).value == 1
+               and "replica_ejected" in ev and "replica_readmitted" in ev,
+               f"serve-fleet (d): probe faults: states {states}, events {ev}")
+        expect(codes[0] == (500, "internal") and all(c == (200, None) for c in codes[1:])
+               and replies[1][1].get("hedged") and router_d._hedge_counter.value >= 1
+               and router_d._hedge_win_counter.value >= 1 and "request_hedged" in ev
+               and not faults_left,
+               f"serve-fleet (d): replies {codes}, hedges {router_d._hedge_counter.value}, "
+               f"events {ev}, plan left armed {faults_left}")
+        log(f"[serve-fleet] (d) one plan of router_probe_fail, router_stale_metrics, "
+            f"router_pick_raise and router_replica_hang (DTX_ROUTER_HANG_S 0.5, hedge "
+            f"factor 2, floor 50 ms): first probes {states} ((state, body unscraped)), ejections 1, events "
+            f"{sorted(set(ev))}; replies {codes}: the pick fault's typed 500, the hung "
+            f"forward (the second request) rescued by its hedge, {len(hedged)} "
+            f"replies hedged (hedges {router_d._hedge_counter.value:.0f}, wins "
+            f"{router_d._hedge_win_counter.value:.0f}); no other request lost; {card}")
+
+        # (d) admission: a batch-class burst past capacity
+        router_e, eurl = front(cfg.replace(admission_wait_bound_s=ADMIT_BOUND_S,
+                                           admission_rate_halflife_s=2.0))
+        router_e.start()
+        decisions = []
+        admit = router_e.admission.admit
+
+        def recording_admit(priority="normal"):
+            d = admit(priority)
+            decisions.append((time.monotonic(), priority, d))
+            return d
+
+        router_e.admission.admit = recording_admit
+        # the warm wave goes to the replicas directly: the controller
+        # measures the rate from their completion counters, and a bound
+        # it already enforces must not shed the wave that measures it
+        warm = [r for u in urls for r in _Load(
+            u + "/generate", 16, lambda w, k: {"prompt_ids": prompt(32),
+                                               "max_new_tokens": 64, "temperature": 0.0},
+            once=True, stagger_s=0.005).join()]
+        expect(all(s == 200 for _, s, _, _, _ in warm), "serve-fleet (d): warm wave "
+               f"{sorted(set((s, b.get('code'), b.get('error', '')[:80]) for _, s, b, _, _ in warm))}")
+        time.sleep(0.2)
+        rate = router_e.admission.service_rate()
+        t_burst = time.monotonic()
+        burst = _Load(eurl, BURST, lambda w, k: {
+            "prompt_ids": prompt(32), "max_new_tokens": BURST_NEW, "temperature": 0.0,
+            "priority": "batch"}, once=True, stagger_s=0.005).join()
+        shed = [(b, h) for _, s, b, h, _ in burst if s == 503]
+        served = [r for r in burst if r[1] == 200]
+        expect(len(shed) + len(served) == BURST and shed and served,
+               f"serve-fleet (d): burst {sorted(set((s, b.get('code')) for _, s, b, _, _ in burst))}")
+        sheds = [d for _, _, d in decisions if not d.admitted]
+        for b, h in shed:
+            # the decisions that gave this reply's reason (its wait to 2 places)
+            mine = [d for d in sheds if "admission shed: " + d.reason == b.get("error")]
+            expect(b.get("code") == "admission_shed" and any(
+                d.retry_after_s == honest_retry_after(
+                    d.predicted_wait_s, cfg.shed_retry_after_s,
+                    cfg.admission_max_retry_after_s)
+                and h.get("Retry-After") == str(max(1, int(d.retry_after_s)))
+                for d in mine),
+                f"serve-fleet (d): shed {b} with Retry-After {h.get('Retry-After')}, "
+                f"decisions {mine}")
+        first = min((t, d) for t, p, d in decisions if not d.admitted)
+        cleared = max(r[4] for r in served) - first[0]
+        log(f"[serve-fleet] (d) admission (admission_wait_bound_s {ADMIT_BOUND_S}, batch bound "
+            f"{ADMIT_BOUND_S / 2} s, "
+            f"rate halflife 2 s): measured rate {rate:.1f} req/s after a 32-request warm "
+            f"wave sent to the replicas directly; a burst of {BURST} batch requests ({BURST_NEW} tokens): {len(served)} "
+            f"served, "
+            f"{len(shed)} shed 503 admission_shed, each with Retry-After equal to its "
+            f"clamped predicted wait ({sorted(set(h['Retry-After'] for _, h in shed))} s); "
+            f"at the first shed the predicted wait was {first[1].predicted_wait_s:.2f} s "
+            f"and the admitted backlog cleared {cleared:.2f} s later "
+            f"({time.monotonic() - t_burst:.1f} s after the burst began); "
+            f"{time.perf_counter() - t_d:.1f} s for (d); {card}")
+    finally:
+        for httpd in servers:
+            httpd.shutdown()
+            httpd.server_close()
+        for router in routers:
+            router.close()
+        faults.reset()
+        fleet.stop()
+    log(f"[serve-fleet] restart after the SIGKILL of (a), replica 1: "
+        f"{_fmt_restart(kill_a, _timeline(work, 1, kill_a['pid']), wall_a)}; {card}")
+    counts = _fleet_counts(work)
+    path = ("fused_add_norm", "fused_norm", "fused_swiglu", "decode_attention_paged")
+    expect(counts["files"] >= 4 and all(counts.get(k, 0) > 0 for k in path),
+           f"serve-fleet: replica launches {counts}")
+    log(f"[serve-fleet] kernel launches in the replicas that ended by SIGTERM "
+        f"({counts['files']} processes): " + ", ".join(f"{k} {counts[k]}" for k in path)
+        + f"; phase {time.perf_counter() - t_phase:.1f} s; {card}")
+
+
+class _Recorder:
+    """An in-memory event sink (obs/events.py surface)."""
+
+    def __init__(self):
+        self.rows = []
+
+    def emit(self, event, **fields):
+        self.rows.append((event, fields))
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the card's kernels against the CPU's plain versions, end to end
 # ---------------------------------------------------------------------------
 
@@ -3833,7 +4425,8 @@ RING_RUNS = (("diff P=2 T=8192", "diff", 2, 8192, 2, 3),
              ("diff P=2 T=16384", "diff", 2, 16384, 1, 3),
              ("control P=2 T=8192", "control", 2, 8192, 2, 3))
 RING_EVAL_ITERS = 1
-RING_LAYERS = 4     # the train-ring runs' depth: the recipe's width, half its depth
+RING_LAYERS = 2     # the train-ring runs' depth: the recipe's width, a quarter
+                    # of its depth (the smoke's time limit)
 RING_TIMEOUT_S = 600  # a launch: all the runs at one P
 
 
@@ -4372,6 +4965,8 @@ def run_train_e2e(torch) -> None:
 # ---------------------------------------------------------------------------
 
 CKPT_N = 6          # steps between step checkpoints and evals; runs of 2N
+CKPT_LAYERS = 4     # the recipe's width at half its depth: the smoke's time
+                    # limit (the host's process starts and steps dominate)
 CKPT_B = 8          # micro-batch
 CKPT_ACC = 48       # grad-acc steps: 384 windows a step, so 2N steps cross
 CKPT_DOCS = 200     # synthetic documents: the stream crosses an epoch in the
@@ -4387,13 +4982,13 @@ CKPT_TIMEOUT_S = 300
 
 def ckpt_argv(tok_dir, run_dir, *extra) -> list:
     """The trainer's command line for one train-ckpt run: the diff recipe
-    at full width and depth from the synthetic corpus (BPE target vocab
+    at full width, ``CKPT_LAYERS`` deep, from the synthetic corpus (BPE target vocab
     12000, the tokenizer's own size in the end), bf16 compute, the epoch
     sampler, async step checkpoints and an eval every N steps."""
     return ["--model", "diff", "--dataset", "synthetic", "--num-train-samples",
             str(CKPT_DOCS), "--tokenizer-dir", str(tok_dir), "--device", "cuda",
             "--n-embd", str(RECIPE["n_embd"]), "--n-head", str(RECIPE["n_head"]),
-            "--n-layer", str(RECIPE["n_layer"]),
+            "--n-layer", str(CKPT_LAYERS),
             "--block-size", str(RECIPE["block_size"]),
             "--vocab-size", str(RECIPE["vocab_size"]), "--compute-dtype", "bfloat16",
             "--micro-batch-size", str(CKPT_B), "--grad-acc-steps", str(CKPT_ACC),
@@ -4439,16 +5034,15 @@ def cli_worker(spec: dict) -> int:
     the kernel wrappers' counts set to 0 before and written to
     ``spec["out"]`` after (a process killed before its end writes none).
     ``sample`` runs each of ``spec["runs"]`` in turn, with its counts and
-    its standard output and error recorded apart."""
+    its standard output and error recorded apart. A ``{pid}`` in
+    ``spec["out"]`` becomes this process's id (a serve-fleet replica
+    relaunched on the same command line writes a file of its own)."""
     import contextlib
     import io
     import sys as _sys
 
-    from differential_transformer_replication_tpu_torch.ops import (
-        decode_attention as dat,
-    )
-
-    counters = dict(_train_counters(), decode_attention=dat.decode_attention)
+    counters = dict(_train_counters(), **_req_counters())
+    spec = dict(spec, out=spec["out"].replace("{pid}", str(os.getpid())))
     carry = counters["add_norm_bwd"]
 
     def zero():
@@ -4487,11 +5081,15 @@ def cli_worker(spec: dict) -> int:
         Path(spec["out"]).write_text(json.dumps(runs))
         return rc
     else:
+        t_torch = time.time()  # main() imported torch before this call
         from differential_transformer_replication_tpu_torch.serving import server
 
         _sys.argv = ["server", *spec["argv"]]
         server.main()
         rc = 0
+        Path(spec["out"]).write_text(json.dumps(
+            {**counts(), "timeline": {"module": T_IMPORT, "torch": t_torch}}))
+        return rc
     Path(spec["out"]).write_text(json.dumps(counts()))
     return rc
 
@@ -4530,7 +5128,7 @@ def state_bytes(ckpt_dir: Path) -> bytes:
 def expect_train_launches(counts: dict, steps: int, label: str) -> None:
     """The backward kernels ran once per layer and microbatch of each step
     (never in eval); every forward kernel of the path launched."""
-    L, A = RECIPE["n_layer"], CKPT_ACC
+    L, A = CKPT_LAYERS, CKPT_ACC
     per_micro = {"flash_tm_bwd": L, "swiglu_bwd": L, "add_norm_bwd": 3 * L + 1,
                  "add_norm_bwd_carry": L}
     for name, per in per_micro.items():
@@ -4556,7 +5154,7 @@ def ckpt_samples(torch, params, mcfg, tok, tok_dir: Path, ckpt: Path, work: Path
         generate_cached,
     )
 
-    T, L = RECIPE["block_size"], RECIPE["n_layer"]
+    T, L = RECIPE["block_size"], CKPT_LAYERS
     long_ids = tok.encode(" ".join(synthetic_corpus(40, seed=5))).ids
     long_prompt = tok.decode(long_ids[-(T - 24):])  # ~488 tokens: 488 + 40 > 512
     cases = (("generate_cached", "One day, Tom", CKPT_SAMPLE_NEW, 2, generate_cached),
@@ -4966,7 +5564,7 @@ def run_train_full(torch, card: str, work: Path, a_info: dict) -> None:
         config_from_args,
     )
 
-    N, L, tools = CKPT_N, RECIPE["n_layer"], Path(__file__).resolve().parent / "tools"
+    N, L, tools = CKPT_N, CKPT_LAYERS, Path(__file__).resolve().parent / "tools"
     a, tok_dir = work / "a", work / "tok"
     ra = step_records(a / "metrics.jsonl")
     la = {r["iter"]: r["loss"] for r in ra}
@@ -5274,6 +5872,7 @@ def main() -> int:
     serve_counts.update(phase("serve-paged", run_serve_paged, torch, card))
     phase("serve-tier", run_serve_tier, torch, card)
     phase("serve-requests", run_serve_requests, torch, card)
+    phase("serve-fleet", run_serve_fleet, torch, card)
     phase("e2e", run_e2e, torch)
     train_counts = phase("train", run_train, torch, card)
     hm_counts = phase("train-hm", run_train_hm, torch, card,

@@ -4,7 +4,8 @@ A copy of the JAX package's ``ModelConfig`` (every field, so a saved
 model config carries over unchanged), of the ``ServingConfig`` fields
 the serving slices read (the slot pool, the paged KV pool with its
 radix prefix cache, the int8 KV cache and n-gram speculative decoding),
-and of ``TrainConfig``
+of ``RouterConfig`` (the fleet router's and predictive admission's
+knobs), and of ``TrainConfig``
 (``differential_transformer_replication_tpu/config.py``), whose fields
 of later slices must stay at their defaults. The port keeps its own
 copy: it imports nothing of the JAX package.
@@ -365,6 +366,199 @@ LATER_MESH_AXES = {
     "tensor": "tensor parallelism (ROADMAP Queue A: parallelism)",
     "pipeline": "pipeline parallelism (ROADMAP Queue A: parallelism)",
 }
+
+
+@dataclass(frozen=True)
+class RouterConfig:
+    """Multi-replica router knobs (serving/router.py).
+
+    A copy of the JAX package's ``RouterConfig``: every field, default
+    and check, so one set of knobs means the same fleet in either
+    package.
+
+    The router is the fleet-level robustness layer over N single-engine
+    replicas: it probes each replica's ``/ready`` + ``/metrics``, spreads
+    ``/generate`` traffic with a power-of-two-choices picker over passive
+    load scores, fails retriable replies over to a DIFFERENT replica
+    under a total per-request deadline, and (optionally) hedges requests
+    stuck past a p99-derived latency budget. All knobs are host-side —
+    nothing here touches device code or compile caches.
+    """
+
+    # -- active health probing ----------------------------------------
+    # Seconds between probes of a replica whose last probe succeeded.
+    probe_interval_s: float = 0.5
+    # Per-probe HTTP timeout (GET /ready, GET /metrics).
+    probe_timeout_s: float = 2.0
+    # A FAILING replica is probed with exponential backoff: first retry
+    # after probe_backoff_s, doubling up to probe_backoff_max_s — a dead
+    # host is not hammered at the healthy cadence.
+    probe_backoff_s: float = 0.5
+    probe_backoff_max_s: float = 10.0
+    # Consecutive probe/request transport failures before the replica is
+    # EJECTED (never picked, probed on the backoff schedule).
+    eject_after: int = 3
+    # Slow re-admission: an ejected replica must pass this many
+    # consecutive probes before it takes traffic again (a flapping host
+    # does not oscillate in and out of rotation on one lucky probe).
+    readmit_after: int = 2
+
+    # -- failover / retry ----------------------------------------------
+    # Max failover ATTEMPTS per request (first attempt included).
+    # Attempts prefer distinct replicas, but when nothing un-tried is
+    # eligible a recovered already-tried replica may be re-tried — so
+    # on a small fleet this bounds attempts, not distinct replicas.
+    max_attempts: int = 3
+    # Total per-request wall-clock budget at the router (seconds),
+    # bounding first attempt + backoffs + failovers; a client deadline_s
+    # tightens it further. 0 = unbounded.
+    default_deadline_s: float = 120.0
+    # Jittered-backoff envelope between failover attempts
+    # (serving/retry.py:backoff_delay semantics).
+    retry_base_s: float = 0.05
+    retry_cap_s: float = 1.0
+    # Honored Retry-After values are capped here — a replica asking for
+    # a 30 s drain-budget wait must not stall a request that another
+    # replica could serve right now (and a buggy/hostile header must
+    # never park the router for minutes).
+    retry_after_cap_s: float = 2.0
+
+    # -- hedging -------------------------------------------------------
+    # Fire a second (hedged) attempt on a different replica when the
+    # first has been in flight longer than hedge_factor * observed-p99
+    # latency (floored at hedge_min_s). First reply wins. 0 = off.
+    hedge_factor: float = 0.0
+    hedge_min_s: float = 0.25
+
+    # -- load scoring (power-of-two-choices inputs) --------------------
+    # score = queue_weight * queue_depth/slots
+    #       + slot_weight  * slot_occupancy/slots
+    #       + kv_weight    * kv_utilization
+    #       + inflight/slots   (router-side, always on: the passive
+    #         metrics are probe-stale; in-flight counts are not)
+    queue_weight: float = 1.0
+    slot_weight: float = 1.0
+    kv_weight: float = 0.5
+
+    # -- admission shedding / affinity ---------------------------------
+    # Before shedding (or failing a mid-failover request), wait up to
+    # this long for SOME replica to become eligible — it bridges the
+    # sub-second windows where a rolling restart has one replica
+    # draining and the other not yet re-admitted. Bounded additionally
+    # by the request's deadline. 0 = shed immediately.
+    wait_for_replica_s: float = 2.0
+    # Retry-After sent when the router itself sheds (zero eligible
+    # replicas, or every eligible replica already tried and failed).
+    shed_retry_after_s: float = 1.0
+    # Sticky session routing: requests carrying a "session_id" stick to
+    # one replica (prefix-cache locality groundwork, ROADMAP item 1)
+    # and fail over — with re-pinning — when it dies.
+    affinity: bool = True
+    # The affinity map is LRU-capped at this many sessions — a router
+    # fronting months of unique session_ids must not grow without
+    # bound. Evicting a quiet session only costs it its pin.
+    affinity_max_sessions: int = 10_000
+
+    # -- fleet metrics staleness ---------------------------------------
+    # /fleet/metrics re-serves each replica's LAST probed /metrics body.
+    # Bodies older than this are EXCLUDED from the aggregation (a
+    # blackholed replica's hour-old counters must not be silently judged
+    # as current); every replica's age is stamped as a
+    # fleet_scrape_age_seconds gauge so downstream judges
+    # (tools/slo_report.py --max-scrape-age, the autoscaler) can apply
+    # their own bound. 0 = legacy unbounded behavior.
+    metrics_max_age_s: float = 10.0
+
+    # -- live migration / resume-by-replay (serving/migrate.py) --------
+    # Total wall-clock budget for migrating ONE slot (destination probe
+    # + export + checksummed transfer + import ACK). A migration that
+    # cannot land within it falls back to replay — the request is never
+    # harmed either way. 0 disables migration: drain degrades to the
+    # replay/plain-retry rungs only.
+    migrate_budget_s: float = 10.0
+    # A migrated continuation can be migrated AGAIN while the router is
+    # following it (one-at-a-time rolling restarts drain the destination
+    # next); /migrate/await then answers another forwarding pointer.
+    # The router follows the chain up to this many hops before falling
+    # back to the replay rung — a bound, not a retry count, so a
+    # pathological ping-pong can never loop forever.
+    migrate_max_hops: int = 4
+    # Per-request cap on journaled emitted tokens (ReplayJournal). A
+    # runaway generation stops growing its entry; replay then degrades
+    # gracefully to a longer — still bit-exact — re-decode of the tail.
+    replay_journal_max_tokens: int = 4096
+    # Finished-entry LRU size: journal ids of completed requests are
+    # remembered this long so late duplicate replies resolve without
+    # re-registering, bounded against months of unique requests.
+    replay_journal_max_finished: int = 1024
+
+    # -- predictive admission (serving/admission.py) -------------------
+    # When on, the router's shed paths (no_replica, exhausted failover,
+    # proactive admission sheds) compute an HONEST Retry-After from
+    # fleet-wide capacity — backlog at-or-above the request's priority
+    # class divided by the MEASURED fleet service rate — instead of the
+    # static shed_retry_after_s. Falls back to the static value until
+    # enough traffic has been observed to measure a rate.
+    admission_predictive: bool = True
+    # EWMA halflife for the measured fleet service rate (req/s).
+    admission_rate_halflife_s: float = 10.0
+    # Cap on the computed Retry-After (a deep backlog must answer "come
+    # back in 30 s", not "come back in an hour" — clients treat large
+    # values as outages).
+    admission_max_retry_after_s: float = 30.0
+    # Proactive shedding: reject a request whose PREDICTED wait
+    # (backlog ahead of its class / service rate) exceeds this bound
+    # scaled by its class multiplier (high 2x, normal 1x, batch 0.5x —
+    # batch sheds first, high last). 0 = never shed proactively; the
+    # honest Retry-After still applies to organic sheds.
+    admission_wait_bound_s: float = 0.0
+
+    def __post_init__(self):
+        for name in ("probe_interval_s", "probe_timeout_s",
+                     "probe_backoff_s", "probe_backoff_max_s",
+                     "default_deadline_s", "retry_base_s", "retry_cap_s",
+                     "retry_after_cap_s", "hedge_factor", "hedge_min_s",
+                     "queue_weight", "slot_weight", "kv_weight",
+                     "wait_for_replica_s", "shed_retry_after_s",
+                     "metrics_max_age_s", "migrate_budget_s",
+                     "admission_rate_halflife_s",
+                     "admission_max_retry_after_s",
+                     "admission_wait_bound_s"):
+            if getattr(self, name) < 0:
+                raise ValueError(
+                    f"{name} must be >= 0, got {getattr(self, name)}"
+                )
+        if self.eject_after < 1:
+            raise ValueError(
+                f"eject_after must be >= 1, got {self.eject_after}"
+            )
+        if self.readmit_after < 1:
+            raise ValueError(
+                f"readmit_after must be >= 1, got {self.readmit_after}"
+            )
+        if self.max_attempts < 1:
+            raise ValueError(
+                f"max_attempts must be >= 1, got {self.max_attempts}"
+            )
+        if self.affinity_max_sessions < 1:
+            raise ValueError(
+                f"affinity_max_sessions must be >= 1, got "
+                f"{self.affinity_max_sessions}"
+            )
+        if self.migrate_max_hops < 1:
+            raise ValueError(
+                f"migrate_max_hops must be >= 1, got "
+                f"{self.migrate_max_hops}"
+            )
+        for name in ("replay_journal_max_tokens",
+                     "replay_journal_max_finished"):
+            if getattr(self, name) < 0:
+                raise ValueError(
+                    f"{name} must be >= 0, got {getattr(self, name)}"
+                )
+
+    def replace(self, **kw) -> "RouterConfig":
+        return dataclasses.replace(self, **kw)
 
 
 @dataclass(frozen=True)

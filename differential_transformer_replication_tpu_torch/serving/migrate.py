@@ -34,34 +34,32 @@ the sampling stream bit-exactly):
   :class:`ReplayJournal`, the router's bounded per-inflight-request
   journal.
 
-The fallback ladder is migrate -> replay -> plain retry (driven by a
-router: the JAX package's serving/router.py, not ported yet); every
-rung is typed. A torn or
+The fallback ladder is migrate -> replay -> plain retry (driven by the
+router, serving/router.py); every rung is typed. A torn or
 corrupted transfer is convicted by checksum HERE, at decode — garbage
 KV can never be attended.
 
 Checksums reuse serving/host_tier.py's canonical (layer, sorted-key)
 CRC32 so a page image that round-trips through the tier and the wire
 carries one consistent fingerprint.
+
+The router imports :class:`ReplayJournal` from here, and the router
+must not load torch (it keeps routing while the runtimes it fronts
+crash), so this module imports torch, and the host tier that needs it,
+only inside the functions that move pages.
 """
 
 from __future__ import annotations
 
 import base64
 import json
+import math
 import struct
 import threading
 from collections import OrderedDict
 from dataclasses import asdict
 from typing import List, Optional, Tuple
 
-import numpy as np
-import torch
-
-from differential_transformer_replication_tpu_torch.serving.host_tier import (
-    leaf_bytes,
-    payload_checksum,
-)
 from differential_transformer_replication_tpu_torch.serving.request import (
     SamplingParams,
 )
@@ -76,13 +74,15 @@ _HDR = struct.Struct(">4sHI")       # magic, version, meta length
 _PAGE_HDR = struct.Struct(">BII")   # present flag, crc32, section length
 
 
-# page-layout dtype names (numpy's) <-> the torch dtypes of the leaves
-_TORCH_DTYPES = {
-    "float32": torch.float32, "float16": torch.float16,
-    "bfloat16": torch.bfloat16, "int8": torch.int8, "uint8": torch.uint8,
-    "int16": torch.int16, "int32": torch.int32,
-}
-_DTYPE_NAMES = {dt: name for name, dt in _TORCH_DTYPES.items()}
+def _torch_dtypes() -> dict:
+    """page-layout dtype names (numpy's) -> the torch dtypes of the leaves"""
+    import torch
+
+    return {
+        "float32": torch.float32, "float16": torch.float16,
+        "bfloat16": torch.bfloat16, "int8": torch.int8, "uint8": torch.uint8,
+        "int16": torch.int16, "int32": torch.int32,
+    }
 
 
 class MigratePayloadError(ValueError):
@@ -120,8 +120,10 @@ def params_from_dict(d: dict) -> SamplingParams:
 def _dtype_name(leaf) -> str:
     """numpy's name of a leaf's dtype (a torch tensor's under its numpy
     name, ``torch.bfloat16`` as ``"bfloat16"``)."""
+    import torch
+
     if isinstance(leaf, torch.Tensor):
-        return _DTYPE_NAMES[leaf.dtype]
+        return {dt: name for name, dt in _torch_dtypes().items()}[leaf.dtype]
     return str(leaf.dtype)
 
 
@@ -140,6 +142,10 @@ def _page_layout(payload) -> list:
 
 
 def _pack_page(payload) -> bytes:
+    from differential_transformer_replication_tpu_torch.serving.host_tier import (
+        leaf_bytes,
+    )
+
     return b"".join(
         leaf_bytes(layer[key])
         for layer in payload
@@ -147,25 +153,28 @@ def _pack_page(payload) -> bytes:
     )
 
 
-def _leaf_from_bytes(chunk: bytes, dtype: torch.dtype, shape) -> torch.Tensor:
+def _leaf_from_bytes(chunk: bytes, dtype, shape):
     """An owned, writable host tensor over a copy of ``chunk``."""
+    import torch
+
     if not chunk:
         return torch.empty(shape, dtype=dtype)
     return torch.frombuffer(bytearray(chunk), dtype=dtype).reshape(shape)
 
 
 def _unpack_page(data: bytes, layout: list) -> list:
+    dtypes = _torch_dtypes()
     payload = []
     off = 0
     for layer_desc in layout:
         layer = {}
         for key, dtype, shape in layer_desc:
-            tdtype = _TORCH_DTYPES.get(dtype)
+            tdtype = dtypes.get(dtype)
             if tdtype is None:
                 raise MigratePayloadError(
                     f"leaf {key!r} has an unknown dtype {dtype!r}"
                 )
-            n = int(tdtype.itemsize * int(np.prod(shape)))
+            n = int(tdtype.itemsize * math.prod(shape))
             chunk = data[off:off + n]
             if len(chunk) != n:
                 raise MigratePayloadError(
@@ -190,6 +199,10 @@ def encode_slot_state(meta: dict,
     geometry); ``payloads`` is the per-logical-page list of host page
     images (``_extract_page`` output) with ``None`` holes for pages the
     destination's radix tree already holds (dedup — not shipped)."""
+    from differential_transformer_replication_tpu_torch.serving.host_tier import (
+        payload_checksum,
+    )
+
     first = next((p for p in payloads if p is not None), None)
     meta = dict(meta)
     meta["page_layout"] = _page_layout(first) if first is not None else []
@@ -213,6 +226,10 @@ def decode_slot_state(blob: bytes) -> Tuple[dict, List[Optional[list]]]:
     recomputed over the rebuilt arrays (the same canonical walk that
     stamped it) before anything reaches the device — a flipped byte
     anywhere in a shipped page raises :class:`MigratePayloadError`."""
+    from differential_transformer_replication_tpu_torch.serving.host_tier import (
+        payload_checksum,
+    )
+
     if len(blob) < _HDR.size:
         raise MigratePayloadError("torn header")
     magic, version, meta_len = _HDR.unpack_from(blob, 0)

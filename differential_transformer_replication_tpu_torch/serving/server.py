@@ -110,13 +110,16 @@ from differential_transformer_replication_tpu_torch.serving.scheduler import (
 )
 
 # /generate body keys the server serves; any other key is refused with a
-# 400 naming it. LATER_SLICE_KEYS (served by a later slice) is empty now
+# 400 naming it. LATER_SLICE_KEYS (served by a later slice) is empty now.
+# ``session_id`` is the router's affinity key: the router forwards the
+# client's body whole, and the server accepts and ignores the key, as
+# the JAX server does
 GENERATE_KEYS = (
     "prompt_ids", "max_new_tokens", "temperature", "top_k", "seed",
     "eos_token_id", "stop", "priority", "deadline_s", "timeout",
     "traceparent", "draft_len", "prompt", "key_offset", "journal_id",
     "json_schema", "regex", "choices", "repetition_penalty",
-    "presence_penalty", "frequency_penalty", "logprobs",
+    "presence_penalty", "frequency_penalty", "logprobs", "session_id",
 )
 LATER_SLICE_KEYS = ()
 

@@ -15,10 +15,14 @@ either package. The port's serving engine fires ``serve_raise``,
 ``prefix_corrupt``, ``spec_reject_storm``, ``quality_drift`` and
 ``quality_nan``, the host-tier kinds (``page_demote_fail``,
 ``page_promote_hang``, ``page_swap_corrupt``) and the migration kinds
-(``migrate_corrupt``, ``migrate_hang``) at the JAX engine's points.
-``spec_drafter_crash``, ``constrain_dead_end`` and the router and
-control-plane kinds parse as there and stay inert until the port's
-subsystems that fire them land (ROADMAP Queue A: serving subsystems).
+(``migrate_corrupt``, ``migrate_hang``) at the JAX engine's points;
+its model drafter fires ``spec_drafter_crash`` and its constraint FSM
+``constrain_dead_end``. The port's router (serving/router.py) fires the
+four router kinds where the JAX router does: ``router_probe_fail`` and
+``router_stale_metrics`` in its probe, ``router_pick_raise`` in its
+pick and ``router_replica_hang`` in each forwarded attempt. The
+control-plane kind ``scale_flap`` parses as there and stays inert until
+the port's control plane lands (ROADMAP Queue A item 8).
 
 A fault PLAN is a comma-separated spec of ``kind@step`` (or
 ``kind@a-b`` for an inclusive step range, or bare ``kind`` for

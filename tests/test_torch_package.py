@@ -5,7 +5,10 @@ package, not even its jax-free modules: a fresh interpreter that imports
 every module of the port must end with neither in ``sys.modules`` (the
 pattern of tests/test_lint_clean.py), and no source file of the port may
 name them in an import statement, lazy imports inside functions
-included. Nor does it import ``tokenizers`` or ``regex``: the card's
+included. The fleet front (``serving/router.py``, ``serving/admission.py``
+and ``serving/fleet.py``) loads not even torch or numpy, so it keeps
+routing and relaunching while the runtimes it fronts crash. Nor does
+the port import ``tokenizers`` or ``regex``: the card's
 machine is not promised them, and the port's byte-level BPE is its own
 (``datasets`` stays allowed, imported lazily inside the corpus loader's
 fallback ``try``). Kernel wrappers dispatch by device: off the CPU they launch
@@ -29,6 +32,13 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "tokenizers", "regex",
              "ml_dtypes", "differential_transformer_replication_tpu")
 
 
+# host-side modules that must never load torch: the router keeps routing,
+# and the fleet supervisor keeps relaunching, while the runtimes they
+# front crash
+FLEET_FRONT = (f"{PKG}.serving.router", f"{PKG}.serving.admission",
+               f"{PKG}.serving.fleet")
+
+
 def _modules():
     root = REPO / PKG
     out = []
@@ -48,6 +58,8 @@ def test_every_module_imports_without_jax():
     for sub in ("ops", "models", "serving", "train", "parallel", "obs", "utils"):
         assert f"{PKG}.{sub}" in mods, sub
     assert {f"{PKG}.parallel.mesh", f"{PKG}.parallel.ring"} <= set(mods)
+    # the fleet front: router, predictive admission, fleet supervisor
+    assert set(FLEET_FRONT) <= set(mods)
     # the full trainer's modules: resilience and observability
     assert {f"{PKG}.utils.faults", f"{PKG}.utils.profiling",
             f"{PKG}.train.watchdog", f"{PKG}.train.metrics",
@@ -64,6 +76,23 @@ def test_every_module_imports_without_jax():
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
                        capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_fleet_front_imports_without_torch():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {FLEET_FRONT!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"from {PKG}.serving import Router, serve_router, backoff_delay\n"
+        f"from {PKG}.serving.migrate import ReplayJournal\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"('torch', 'numpy', 'triton') + {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                       capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
 
 
