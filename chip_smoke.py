@@ -149,7 +149,20 @@ these phases, each printing its own lines and its seconds:
    destination alone, its ms against the pages moved; (d) the four router faults in one plan, and
    an admission burst whose sheds carry the controller's clamped
    predicted wait as Retry-After, beside the time the backlog took to
-   clear; the serving kernels' launches in the replicas;
+   clear; (e) the control plane (``serving/autoscaler.py``) through a
+   router of its own: (e1) the autoscaler polling ``/fleet/metrics``
+   and acting through ``FleetActuator`` between 1 and 2 replicas, under
+   client load: calm scales down by drain (no launch), a ``scale_flap``
+   window moves nothing, pressure scales up by one launch, held pressure
+   holds at max_replicas; no failed reply, one up and one down, the
+   ``autoscaler_*`` families on the router's ``/metrics``, the record
+   replaying to the live decisions byte for byte, each action's signals
+   and its decision-to-effect seconds; (e2) a ``canary_regress`` canary
+   rolled back by ``CanaryController`` for its burn or p95 regression
+   onto its exact previous argv and env, the probe prompt's tokens
+   unchanged, no failed reply, with the window's counts, p95 TTFT
+   against control and the rollback's seconds; the serving kernels'
+   launches in the replicas;
 4. e2e: prefill + decode logits of one prompt in fp32 on the card
    (kernels) against the CPU (plain versions); and a 2-layer diff at
    recipe width through the paged pool: paged steps and batched verify
@@ -202,7 +215,7 @@ these phases, each printing its own lines and its seconds:
    the command lines, each in a process of its own (``chip_smoke.py
    --cli-worker``: the trainer's, the server's or the sampler's ``main``
    with the kernel wrappers' counts written out at its end): the diff
-   recipe at full width and 4 of its 8 layers, bf16, micro-batch 8 x 48 grad-acc
+   recipe at full width and 2 of its 8 layers, bf16, micro-batch 8 x 48 grad-acc
    steps, built with ``--dataset synthetic --num-train-samples D
    --tokenizer-dir`` (D the first corpus size whose stream, encoded by the
    port's BPE, has an epoch that ends inside the run; the model's vocab
@@ -2479,6 +2492,19 @@ GATE_A_PROMPT = 6      # their prompts' length (the load's are 8-64)
 BURST = 96             # batch-class requests of the admission burst
 BURST_NEW = 128        # greedy tokens of each
 ADMIT_BOUND_S = 0.2    # admission_wait_bound_s (a batch request: half of it)
+# (e) the control plane: the autoscaler steers on the windowed TTFT burn
+# (its utilization gates off: util_high 1 is never exceeded and util_low
+# above 1 always holds, since by (e) the replicas' prefix caches hold
+# nearly every KV page, which the score reads as pressure); calm is 2
+# client threads of short requests, pressure 32 threads of long ones
+SCALE_POLL_S = 0.5
+SCALE_TTFT_S = 0.5     # the objective's bound; slo_target 0.9
+SCALE_FLAP_TICKS = 8   # the scale_flap window
+CALM_CLIENTS, PRESS_CLIENTS, PRESS_NEW = 2, 32, 64
+CANARY_WINDOW_S = 8.0
+CANARY_REGRESS_S = "0.25"  # the canary's sleep per engine step (DTX_CANARY_REGRESS_S)
+CANARY_TTFT_S = 0.2    # under every canary TTFT (one regress sleep at least)
+CANARY_CLIENTS = 8
 
 
 def _get_json(url: str, timeout: float = 30.0) -> dict:
@@ -2663,7 +2689,10 @@ def run_serve_fleet(torch, card: str) -> None:
     past capacity under ``admission_wait_bound_s``: every shed a 503
     ``admission_shed`` whose Retry-After is the controller's clamped
     predicted wait, and that wait beside the time the backlog took to
-    clear. Every kernel of the serving path launched in the replicas."""
+    clear. (e) the control plane on this fleet: ``fleet_autoscale`` (e1)
+    and ``fleet_canary`` (e2); every replica slot, scaled-up and canary
+    ones included, runs under ``--cli-worker``. Every kernel of the
+    serving path launched in the replicas."""
     import random
 
     from differential_transformer_replication_tpu_torch.config import RouterConfig
@@ -2689,15 +2718,26 @@ def run_serve_fleet(torch, card: str) -> None:
     def prompt(n):
         return [rng.randrange(vocab) for _ in range(n)]
 
-    fleet = tfleet.Fleet(2, server_args=FLEET_ARGS, max_restarts=3, backoff_base=0.2,
+    class CountedFleet(tfleet.Fleet):
+        """Every replica slot the fleet builds, the first two, a scale-up's
+        and a canary's alike (``_make_replica`` rebuilds a slot's command
+        line for ``scale_up`` and ``relaunch_replica``), runs the server's
+        command line under ``--cli-worker``, so its kernel launches are
+        written out when it ends."""
+
+        def _make_replica(self, index, port, server_args=None, extra_env=None):
+            r = super()._make_replica(index, port, server_args=server_args,
+                                      extra_env=extra_env)
+            expect(r.argv[1:3] == ["-m", tfleet.SERVER_MODULE],
+                   f"serve-fleet: replica {index} command line {r.argv}")
+            r.argv = [sys.executable, str(Path(__file__).resolve()), "--cli-worker",
+                      json.dumps({"cli": "serve", "argv": r.argv[3:],
+                                  "out": str(work / f"counts-{index}-{{pid}}.json")})]
+            return r
+
+    fleet = CountedFleet(2, server_args=FLEET_ARGS, max_restarts=3, backoff_base=0.2,
                          backoff_max=2.0, ready_timeout_s=180.0,
                          fleet_log=str(work / "fleet.jsonl"))
-    for r in fleet.replicas:
-        expect(r.argv[1:3] == ["-m", tfleet.SERVER_MODULE],
-               f"serve-fleet: replica {r.index} command line {r.argv}")
-        r.argv = [sys.executable, str(Path(__file__).resolve()), "--cli-worker",
-                  json.dumps({"cli": "serve", "argv": r.argv[3:],
-                              "out": str(work / f"counts-{r.index}-{{pid}}.json")})]
     cfg = RouterConfig(probe_interval_s=0.05, probe_backoff_s=0.05,
                        probe_backoff_max_s=0.5, eject_after=2, readmit_after=2,
                        max_attempts=4, retry_base_s=0.02, retry_cap_s=0.2,
@@ -2809,7 +2849,7 @@ def run_serve_fleet(torch, card: str) -> None:
         after = [_post(u + "/generate", probe)[1]["tokens"] for u in urls]
         expect(after == before, "serve-fleet (a): the probe prompt's greedy tokens "
                f"changed across the restarts: {first_difference(before, after)}")
-        rows = [json.loads(x) for x in (work / "fleet.jsonl").read_text().splitlines()]
+        rows = _fleet_ts(work)
         per = {}
         for i in range(2):
             drain = next(r["ts"] for r in rows
@@ -2999,6 +3039,17 @@ def run_serve_fleet(torch, card: str) -> None:
             f"and the admitted backlog cleared {cleared:.2f} s later "
             f"({time.monotonic() - t_burst:.1f} s after the burst began); "
             f"{time.perf_counter() - t_d:.1f} s for (d); {card}")
+
+        # (e) the control plane over this fleet, through a router of its own
+        t_e = time.perf_counter()
+        for done in (router_d, router_e):
+            done.close()
+        router_f, furl = front(cfg)
+        router_f.start()
+        fleet_autoscale(fleet, router_f, furl, work, prompt, card)
+        fleet_canary(fleet, router_f, furl, probe, before[0], prompt, card)
+        log(f"[serve-fleet] (e) the control plane: {time.perf_counter() - t_e:.1f} s; "
+            f"{card}")
     finally:
         for httpd in servers:
             httpd.shutdown()
@@ -3018,13 +3069,256 @@ def run_serve_fleet(torch, card: str) -> None:
         + f"; phase {time.perf_counter() - t_phase:.1f} s; {card}")
 
 
+def _fleet_ts(work: Path) -> list:
+    """The fleet log's records (``fleet.jsonl``), each with its wall ``ts``."""
+    return [json.loads(x) for x in (work / "fleet.jsonl").read_text().splitlines()]
+
+
+def _streak(rows: list, tick: int, n: int) -> str:
+    """The signals of the ``n`` ticks up to ``tick`` (the sustain that
+    made its action)."""
+    got = [r for r in rows if tick - n < r["tick"] <= tick]
+    def burn(b):
+        return "none" if b is None else f"{b:.3f}"
+
+    return ", ".join(f"t{r['tick']} burn {burn(r['signals']['burn'])} util "
+                     f"{r['signals']['util']:.3f}" for r in got)
+
+
+def fleet_autoscale(fleet, router, furl: str, work: Path, prompt, card: str) -> None:
+    """(e1) The port's ``Autoscaler`` in this process, polling ``router``'s
+    ``/fleet/metrics`` over HTTP and acting through ``FleetActuator``,
+    between 1 and 2 replicas, the router's registry, a ``--record`` file,
+    under client load through the router in four stages: calm (it drains
+    the least-loaded replica out by ``migrate_out`` and SIGTERM, no
+    launch); ``scale_flap`` armed over a window of ticks (no scale action
+    in it); pressure (one launch and ``add_replica``); pressure held at 2
+    (it holds at max_replicas). No failed reply, one ``up`` and one
+    ``down``, the ``autoscaler_*`` families on the router's ``/metrics``,
+    and the record replaying to the live decisions byte for byte."""
+    from differential_transformer_replication_tpu_torch.config import AutoscalerConfig
+    from differential_transformer_replication_tpu_torch.serving import autoscaler as tas
+    from differential_transformer_replication_tpu_torch.utils import faults
+
+    base = furl.rsplit("/", 1)[0]
+    t_e1 = time.perf_counter()
+    end = time.monotonic() + 60
+    while router.eligible_count() < 2 and time.monotonic() < end:
+        time.sleep(0.01)
+    expect(router.eligible_count() == 2, "serve-fleet (e1): the router never saw both up")
+    acfg = AutoscalerConfig(
+        poll_interval_s=SCALE_POLL_S, min_replicas=1, max_replicas=2,
+        scale_up_burn=1.0, scale_down_burn=0.5, scale_up_sustain=2,
+        scale_down_sustain=4, cooldown_up_s=2.0, cooldown_down_s=60.0,
+        util_high=1.0, util_low=1.01, ttft_threshold_s=SCALE_TTFT_S,
+        itl_threshold_s=1.0, slo_target=0.9)
+    record = work / "scaler.jsonl"
+    events = _Recorder()
+    mono0, wall0 = time.monotonic(), time.time()
+    n_logged = len(_fleet_ts(work))
+    scaler = tas.Autoscaler(
+        acfg, poll=lambda: tas._http_poll(base + "/fleet/metrics"),
+        actuator=tas.FleetActuator(fleet, router), registry=router.registry,
+        events=events, record_path=str(record))
+    expect(scaler.current == 2, f"serve-fleet (e1): the scaler starts at {scaler.current}")
+    stop = threading.Event()
+    loop = threading.Thread(target=scaler.run, args=(stop,), daemon=True)
+    calm = _Load(furl, CALM_CLIENTS, lambda w, k: {
+        "prompt_ids": prompt(16), "max_new_tokens": 8, "temperature": 0.0},
+        stagger_s=0.1)
+    loads, press = [calm], None
+
+    def scaled(action):
+        return [t for (e, kw), t in zip(events.rows, events.times)
+                if e == "autoscaler_scaled" and kw["action"] == action]
+
+    def wait_for(cond, timeout, what):
+        end = time.monotonic() + timeout
+        while not cond() and time.monotonic() < end:
+            failed = [kw for e, kw in events.rows if e == "autoscaler_scale_failed"]
+            expect(not failed, f"serve-fleet (e1): a scale failed {failed}")
+            time.sleep(0.005)
+        expect(cond(), f"serve-fleet (e1): {what} within {timeout} s")
+
+    try:
+        loop.start()
+        # 1. calm: one down, by drain, no launch
+        wait_for(lambda: scaled("down"), 90, "no scale-down under calm")
+        expect(len(fleet.replicas) == 1 and len(router.replicas) == 1
+               and not any(r["event"] in ("launch", "scale_up")
+                           for r in _fleet_ts(work)[n_logged:]),
+               f"serve-fleet (e1): after the scale-down {fleet.urls}, router "
+               f"{[r.url for r in router.replicas]}")
+        # 2. scale_flap over a window of ticks
+        flap_a = scaler._tick + 2
+        flap_b = flap_a + SCALE_FLAP_TICKS - 1
+        faults.arm(f"scale_flap@{flap_a}-{flap_b}")
+        wait_for(lambda: scaler._tick > flap_b + 1, 30, "the flap window did not pass")
+        faults.reset()
+        # 3. pressure: one launch, added to the router and admitted
+        press = _Load(furl, PRESS_CLIENTS, lambda w, k: {
+            "prompt_ids": prompt(32), "max_new_tokens": PRESS_NEW, "temperature": 0.0},
+            stagger_s=0.02)
+        loads.append(press)
+        wait_for(lambda: scaled("up"), 120, "no scale-up under pressure")
+        new = max(fleet.replicas, key=lambda r: r.index)
+        rep = next(x for x in router.replicas if x.url == new.url)
+        wait_for(rep.eligible, 60, "the scaled-up replica was not admitted")
+        t_admitted = time.monotonic()
+        # 4. pressure held at max_replicas
+        up_tick = next(kw["tick"] for e, kw in events.rows
+                       if e == "autoscaler_decision" and kw["action"] == "up")
+        wait_for(lambda: any(e == "autoscaler_decision" and kw["tick"] > up_tick
+                             and "at max_replicas" in kw["reason"]
+                             for e, kw in events.rows),
+                 60, "no hold at max_replicas under held pressure")
+    finally:
+        stop.set()
+        loop.join(60)
+        scaler.close()
+        faults.reset()
+        results = [r for ld in loads for r in ld.join()]
+    expect(not loop.is_alive(), "serve-fleet (e1): the scaler loop did not stop")
+    bad = [(s, b.get("code"), b.get("error", "")[:80]) for _, s, b, _, _ in results if s != 200]
+    expect(not bad, f"serve-fleet (e1): {len(bad)} failed of {len(results)}, first {bad[:3]}")
+    decisions = [kw for e, kw in events.rows if e == "autoscaler_decision"]
+    actions = [d["action"] for d in decisions]
+    expect(actions.count("up") == 1 and actions.count("down") == 1,
+           f"serve-fleet (e1): {actions.count('up')} up and {actions.count('down')} down "
+           f"decisions")
+    in_window = [d for d in decisions if flap_a <= d["tick"] <= flap_b]
+    rows = [json.loads(x) for x in record.read_text().splitlines() if x]
+    flapped = [(r["signals"]["burn"], r["signals"]["util"]) for r in rows
+               if flap_a <= r["tick"] <= flap_b]
+    expect(len(in_window) == SCALE_FLAP_TICKS and all(d["action"] == "hold" for d in in_window)
+           and flapped == [(99.0, 1.0) if t % 2 == 0 else (0.0, 0.0)
+                           for t in range(flap_a, flap_b + 1)],
+           f"serve-fleet (e1): the flap window {in_window}, signals {flapped}")
+    live = [json.dumps(r["decision"]) for r in rows]
+    replayed = [json.dumps(d.to_row()) for d in tas.replay(rows, acfg, initial_replicas=2)]
+    expect(len(rows) == len(decisions) and replayed == live,
+           f"serve-fleet (e1): the record ({len(rows)} rows, {len(decisions)} decisions) "
+           "does not replay to the live decisions")
+    vals = _metrics(base)
+    fams = {n for n, _ in vals}
+    want = {"autoscaler_replicas_target", "autoscaler_burn_observed",
+            "autoscaler_util_observed", "autoscaler_decisions_total"}
+    expect(want <= fams and vals[("autoscaler_decisions_total", (("action", "up"),))] == 1
+           and vals[("autoscaler_decisions_total", (("action", "down"),))] == 1
+           and vals[("autoscaler_replicas_target", ())] == 2,
+           f"serve-fleet (e1): the router's /metrics {sorted(f for f in fams if 'autoscaler' in f)}")
+    # decision to effect: the fleet log's wall stamps against the record's clock
+    log_rows = _fleet_ts(work)[n_logged:]
+    down = next(r for r in rows if r["decision"]["action"] == "down")
+    up = next(r for r in rows if r["decision"]["action"] == "up")
+
+    def wall(t):
+        return t - mono0 + wall0
+
+    drain = next(r for r in log_rows if r["event"] == "scale_down_drain")
+    done = next(r for r in log_rows if r["event"] == "scale_down_done")
+    migr = next((r for r in log_rows if r["event"] == "drain_migrate"), {})
+    launch = next(r for r in log_rows if r["event"] == "launch" and r["replica"] == new.index)
+    log(f"[serve-fleet] (e1) autoscaler between 1 and 2 replicas (poll {SCALE_POLL_S} s, "
+        f"up after 2 ticks over burn 1, down after 4 under burn 0.5, cooldowns 2 s up and "
+        f"60 s down, TTFT objective {SCALE_TTFT_S} s at target 0.9, the utilization "
+        f"gates off), {len(rows)} ticks; {card}")
+    log(f"[serve-fleet] (e1) down at tick {down['tick']} on [{_streak(rows, down['tick'], 4)}]: "
+        f"replica {drain['replica']} the victim {drain['ts'] - wall(down['now']):.3f} s after "
+        f"the decision, migrate_out moved {migr.get('migrated', 0)}, drained and exited "
+        f"{done['ts'] - wall(down['now']):.2f} s, out of the router "
+        f"{scaled('down')[0] - down['now']:.2f} s after it; no launch; {card}")
+    log(f"[serve-fleet] (e1) scale_flap@{flap_a}-{flap_b}: {len(in_window)} ticks, every "
+        f"one a hold (burn, util alternating {flapped[:2]}); {card}")
+    log(f"[serve-fleet] (e1) up at tick {up['tick']} on [{_streak(rows, up['tick'], 2)}] "
+        f"({PRESS_CLIENTS} client threads of {PRESS_NEW} tokens): replica {new.index} "
+        f"launched {launch['ts'] - wall(up['now']):.3f} s after the decision, ready and in "
+        f"the router {scaled('up')[0] - up['now']:.2f} s, admitted "
+        f"{t_admitted - up['now']:.2f} s after it; then at max_replicas: "
+        f"{next(d['reason'] for d in decisions if d['tick'] > up['tick'] and 'at max_replicas' in d['reason'])}; {card}")
+    log(f"[serve-fleet] (e1) {len(results)} replies, all 200; one up and one down of "
+        f"{len(decisions)} decisions; autoscaler_* on the router's /metrics; the record "
+        f"replayed to the live decisions byte for byte; {time.perf_counter() - t_e1:.1f} s; "
+        f"{card}")
+
+
+def fleet_canary(fleet, router, furl: str, probe: dict, want: list, prompt,
+                 card: str) -> None:
+    """(e2) ``CanaryController.run`` relaunches the highest-index replica
+    with ``canary_regress`` in its ``DTX_FAULTS`` under load through the
+    router: the verdict is a rollback for the burn or p95 regression, not
+    thin evidence; the replica comes back on its exact previous argv and
+    env, its probe tokens unchanged; no failed reply."""
+    from differential_transformer_replication_tpu_torch.config import AutoscalerConfig
+    from differential_transformer_replication_tpu_torch.serving import autoscaler as tas
+
+    t_e2 = time.perf_counter()
+    r = max(fleet.replicas, key=lambda x: x.index)
+    end = time.monotonic() + 60
+    while router.eligible_count() < 2 and time.monotonic() < end:
+        time.sleep(0.01)
+    before = _post(r.url + "/generate", probe)[1]["tokens"]
+    expect(before == want, "serve-fleet (e2): the canary replica's probe tokens differ "
+           f"from the fleet's at {first_difference([before], [want])}")
+    argv0, env0 = list(r.argv), (dict(r.env) if r.env is not None else None)
+    ccfg = AutoscalerConfig(canary_fraction=0.5, canary_window_s=CANARY_WINDOW_S,
+                            canary_min_requests=8, ttft_threshold_s=CANARY_TTFT_S,
+                            slo_target=0.9, canary_max_burn=1.0, canary_max_regress=0.5)
+    events = _Recorder()
+    load = _Load(furl, CANARY_CLIENTS, lambda w, k: {
+        "prompt_ids": prompt(16), "max_new_tokens": 8, "temperature": 0.0},
+        stagger_s=0.05)
+    try:
+        rec = tas.CanaryController(fleet, router, ccfg, events=events).run(
+            index=r.index, extra_env={"DTX_FAULTS": "canary_regress",
+                                      "DTX_CANARY_REGRESS_S": CANARY_REGRESS_S})
+        time.sleep(1.0)  # serve a little while healed
+    finally:
+        results = load.join()
+    at = {e: t for (e, _), t in zip(events.rows, events.times)}
+    bad = [(s, b.get("code"), b.get("error", "")[:80]) for _, s, b, _, _ in results if s != 200]
+    expect(not bad, f"serve-fleet (e2): {len(bad)} failed of {len(results)}, first {bad[:3]}")
+    c, ctl = rec["canary"], rec["control"]
+    expect(rec["verdict"] == "rollback" and c["count"] >= ccfg.canary_min_requests
+           and not rec["reason"].startswith("inconclusive")
+           and ("burn rate" in rec["reason"] or "p95" in rec["reason"]),
+           f"serve-fleet (e2): verdict {rec['verdict']}: {rec['reason']} ({c['count']} "
+           "canary requests)")
+    expect(r.argv == argv0 and r.env == env0 and router.canary() == (None, 0.0)
+           and "canary_rolled_back" in at,
+           f"serve-fleet (e2): after the rollback argv {r.argv == argv0}, env "
+           f"{r.env == env0}, split {router.canary()}, events {sorted(at)}")
+    after = _post(r.url + "/generate", probe)[1]["tokens"]
+    expect(after == before, "serve-fleet (e2): the probe tokens changed across the "
+           f"rollout at {first_difference([before], [after])}")
+
+    def num(x, unit=""):
+        return "none" if x is None else f"{x:.3f}{unit}"
+
+    log(f"[serve-fleet] (e2) canary on replica {r.index} (canary_regress, "
+        f"DTX_CANARY_REGRESS_S {CANARY_REGRESS_S}, fraction 0.5, window "
+        f"{CANARY_WINDOW_S:.0f} s, TTFT objective {CANARY_TTFT_S} s at target 0.9, "
+        f"{CANARY_CLIENTS} client threads): window counts canary {c['count']:.0f}, control "
+        f"{ctl['count']:.0f}; p95 TTFT canary {num(c['p95_ttft_s'], ' s')} against control "
+        f"{num(ctl['p95_ttft_s'], ' s')} (histogram bucket edges); burn canary "
+        f"{num(c['burn_rate'])}, control {num(ctl['burn_rate'])}; verdict {rec['verdict']}: {rec['reason']}; {card}")
+    log(f"[serve-fleet] (e2) relaunch to the split {at['canary_judged'] - at['canary_started'] - CANARY_WINDOW_S:.2f} s "
+        f"(the canary's drain, launch, ready and re-admission), the window "
+        f"{CANARY_WINDOW_S:.0f} s; the judgment to the rollback ready and re-admitted "
+        f"{at['canary_rolled_back'] - at['canary_judged']:.2f} s; back on its exact argv "
+        f"and env (no DTX_FAULTS), the probe prompt's greedy tokens unchanged; "
+        f"{len(results)} replies, all 200; {time.perf_counter() - t_e2:.1f} s; {card}")
+
+
 class _Recorder:
-    """An in-memory event sink (obs/events.py surface)."""
+    """An in-memory event sink (obs/events.py surface); ``times`` holds
+    the monotonic time each row arrived."""
 
     def __init__(self):
-        self.rows = []
+        self.rows, self.times = [], []
 
     def emit(self, event, **fields):
+        self.times.append(time.monotonic())
         self.rows.append((event, fields))
 
     def flush(self):
@@ -4965,7 +5259,7 @@ def run_train_e2e(torch) -> None:
 # ---------------------------------------------------------------------------
 
 CKPT_N = 6          # steps between step checkpoints and evals; runs of 2N
-CKPT_LAYERS = 4     # the recipe's width at half its depth: the smoke's time
+CKPT_LAYERS = 2     # the recipe's width at a quarter of its depth: the smoke's time
                     # limit (the host's process starts and steps dominate)
 CKPT_B = 8          # micro-batch
 CKPT_ACC = 48       # grad-acc steps: 384 windows a step, so 2N steps cross

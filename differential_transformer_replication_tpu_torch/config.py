@@ -5,7 +5,8 @@ model config carries over unchanged), of the ``ServingConfig`` fields
 the serving slices read (the slot pool, the paged KV pool with its
 radix prefix cache, the int8 KV cache and n-gram speculative decoding),
 of ``RouterConfig`` (the fleet router's and predictive admission's
-knobs), and of ``TrainConfig``
+knobs), of ``AutoscalerConfig`` (the control plane's), and of
+``TrainConfig``
 (``differential_transformer_replication_tpu/config.py``), whose fields
 of later slices must stay at their defaults. The port keeps its own
 copy: it imports nothing of the JAX package.
@@ -558,6 +559,132 @@ class RouterConfig:
                 )
 
     def replace(self, **kw) -> "RouterConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class AutoscalerConfig:
+    """Fleet control-plane knobs (serving/autoscaler.py).
+
+    A copy of the JAX package's ``AutoscalerConfig``: every field,
+    default and check, so one set of knobs steers the same fleet in
+    either package.
+
+    The autoscaler closes the loop over surfaces that already exist:
+    it polls the router's ``/fleet/metrics``, judges windowed SLO burn
+    (obs/slo.py semantics) plus queue/KV utilization, and actuates
+    replica count through serving/fleet.py's chaos-proven drain/relaunch
+    machinery. Hysteresis (sustain counts), per-direction cooldowns and
+    hard min/max bounds make the state machine immune to a flapping
+    signal by construction — tests/test_torch_autoscaler.py drives it
+    with synthetic burn traces and the ``scale_flap`` fault.
+    """
+
+    # Seconds between /fleet/metrics polls (one control tick each).
+    poll_interval_s: float = 1.0
+    # Hard replica-count bounds. The autoscaler never drains the fleet
+    # below min_replicas (even at zero load) and never grows it past
+    # max_replicas (even at infinite burn).
+    min_replicas: int = 1
+    max_replicas: int = 4
+    # Scale-up trigger: windowed burn rate above this (1.0 = the SLO
+    # error budget is being spent exactly as provisioned) OR
+    # utilization above util_high, sustained for scale_up_sustain
+    # consecutive ticks.
+    scale_up_burn: float = 1.0
+    # Scale-down trigger: burn below this AND utilization below
+    # util_low, sustained for scale_down_sustain consecutive ticks.
+    # The asymmetry (down needs a longer streak) is deliberate: adding
+    # capacity late sheds traffic, removing it late only costs money.
+    scale_down_burn: float = 0.5
+    scale_up_sustain: int = 3
+    scale_down_sustain: int = 6
+    # Per-direction cooldowns: after any scale action, no further
+    # action in that direction until this much time has passed (the
+    # fleet must re-equilibrate before the signal is trusted again).
+    cooldown_up_s: float = 5.0
+    cooldown_down_s: float = 15.0
+    # Utilization score thresholds: the score is the max of fleet
+    # queue-pressure (queued / total slots), mean KV utilization and
+    # mean host-tier utilization over FRESH replicas.
+    util_high: float = 0.85
+    util_low: float = 0.30
+    # Metrics bodies older than this (per-replica scrape_age_seconds)
+    # are treated as MISSING, not current — a blackholed replica must
+    # not feed the control loop hour-old numbers.
+    stale_after_s: float = 5.0
+    # SLO objective bounds used for the windowed burn computation
+    # (same semantics as slo_report's --ttft/--itl/--target).
+    ttft_threshold_s: float = 1.0
+    itl_threshold_s: float = 0.25
+    slo_target: float = 0.99
+
+    # -- canaried rollout ----------------------------------------------
+    # Traffic fraction the router splits to a designated canary
+    # replica while its window runs.
+    canary_fraction: float = 0.25
+    # Canary observation window (seconds) before the judge rules.
+    canary_window_s: float = 15.0
+    # Judge: the canary must hold windowed burn at or under this...
+    canary_max_burn: float = 1.0
+    # ...and its TTFT p95 must not exceed the control replicas' pooled
+    # p95 by more than this fraction (0.5 = +50%).
+    canary_max_regress: float = 0.5
+    # A verdict needs at least this many canary-served requests in the
+    # window; fewer is "inconclusive" and the controller ROLLS BACK
+    # (never promote on no evidence).
+    canary_min_requests: int = 8
+    # Quality axis (obs/quality.py): a canary whose
+    # serving_quality_drift (PSI vs the fleet's reference fingerprint)
+    # exceeds this rolls back even when latency is flat — the knee of
+    # the conventional PSI reading ("> 0.25 = shifted"). 0 = quality
+    # drift never gates (e.g. a fleet without quality telemetry).
+    canary_max_drift: float = 0.25
+    # ...and a canary whose constraint-validity rate falls more than
+    # this far below the control replicas' rate rolls back too (a
+    # checkpoint that stops satisfying its FSMs is broken regardless
+    # of its latency). 0 = validity delta never gates.
+    canary_max_validity_delta: float = 0.05
+
+    def __post_init__(self):
+        for name in ("poll_interval_s", "scale_up_burn",
+                     "scale_down_burn", "cooldown_up_s",
+                     "cooldown_down_s", "util_high", "util_low",
+                     "stale_after_s", "ttft_threshold_s",
+                     "itl_threshold_s", "canary_window_s",
+                     "canary_max_burn", "canary_max_regress",
+                     "canary_max_drift", "canary_max_validity_delta"):
+            if getattr(self, name) < 0:
+                raise ValueError(
+                    f"{name} must be >= 0, got {getattr(self, name)}"
+                )
+        if self.min_replicas < 1:
+            raise ValueError(
+                f"min_replicas must be >= 1, got {self.min_replicas}"
+            )
+        if self.max_replicas < self.min_replicas:
+            raise ValueError(
+                f"max_replicas ({self.max_replicas}) must be >= "
+                f"min_replicas ({self.min_replicas})"
+            )
+        if self.scale_up_sustain < 1 or self.scale_down_sustain < 1:
+            raise ValueError("sustain counts must be >= 1")
+        if not 0.0 < self.slo_target < 1.0:
+            raise ValueError(
+                f"slo_target must be in (0, 1), got {self.slo_target}"
+            )
+        if not 0.0 < self.canary_fraction < 1.0:
+            raise ValueError(
+                f"canary_fraction must be in (0, 1), got "
+                f"{self.canary_fraction}"
+            )
+        if self.canary_min_requests < 1:
+            raise ValueError(
+                f"canary_min_requests must be >= 1, got "
+                f"{self.canary_min_requests}"
+            )
+
+    def replace(self, **kw) -> "AutoscalerConfig":
         return dataclasses.replace(self, **kw)
 
 

@@ -21,8 +21,12 @@ its model drafter fires ``spec_drafter_crash`` and its constraint FSM
 four router kinds where the JAX router does: ``router_probe_fail`` and
 ``router_stale_metrics`` in its probe, ``router_pick_raise`` in its
 pick and ``router_replica_hang`` in each forwarded attempt. The
-control-plane kind ``scale_flap`` parses as there and stays inert until
-the port's control plane lands (ROADMAP Queue A item 8).
+control plane's two kinds fire where JAX's do: ``scale_flap`` in
+``Autoscaler.tick`` (serving/autoscaler.py), which oscillates the
+polled signal over its tick window before the pure ``decide()``, and
+``canary_regress`` in every engine step of a canary replica that was
+relaunched with it in ``DTX_FAULTS`` (``CanaryController.run``'s
+``extra_env``).
 
 A fault PLAN is a comma-separated spec of ``kind@step`` (or
 ``kind@a-b`` for an inclusive step range, or bare ``kind`` for

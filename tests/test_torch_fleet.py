@@ -100,6 +100,82 @@ def test_supervisor_relaunches_a_killed_replica(tmp_path):
     assert not fleet.replicas[0].alive()
 
 
+# -- the scale surface (twins of JAX's TestFleetScaling) -----------------------
+# No replica launches here: each fleet's ports are OS-assigned (port 0),
+# and launches are recorded or stubbed.
+
+
+def test_scale_down_drains_least_loaded_and_releases_lease():
+    fleet = tfleet.Fleet(3)
+    urls = fleet.urls
+    scores = {urls[0]: 2.0, urls[1]: 0.5, urls[2]: 1.0}
+    fleet._relaunch_at[1] = 999.0  # pretend a relaunch is pending
+    # least-loaded by the router's score, and its supervision lease
+    # (pending relaunch) is RELEASED with the slot
+    assert fleet.scale_down(score_of=scores.get) == urls[1]
+    assert [r.index for r in fleet.replicas] == [0, 2]
+    assert 1 not in fleet._relaunch_at
+    # a replica the scorer hides (the canary) is never the victim
+    assert fleet.scale_down(score_of=lambda u: None if u == urls[0] else 5.0) == urls[2]
+    with pytest.raises(ValueError):
+        fleet.scale_down()  # never below one replica
+    # no scores at all: fall back to the highest index
+    fleet = tfleet.Fleet(2)
+    last = fleet.urls[-1]
+    assert fleet.scale_down() == last
+    assert [r.index for r in fleet.replicas] == [0]
+
+
+def test_scale_down_explicit_index():
+    fleet = tfleet.Fleet(2)
+    first = fleet.urls[0]
+    assert fleet.scale_down(index=0) == first
+    assert [r.index for r in fleet.replicas] == [1]
+    fleet = tfleet.Fleet(2)
+    with pytest.raises(ValueError):
+        fleet.scale_down(index=99)
+
+
+def test_scale_up_mints_fresh_slots():
+    fleet = tfleet.Fleet(2, server_args=["--event-log", "ev-{replica}.jsonl"])
+    launched = []
+    fleet._launch = launched.append
+    urls = fleet.scale_up(2, wait_ready=False)
+    assert len(urls) == 2 and len(fleet.replicas) == 4
+    assert [r.index for r in launched] == [2, 3]
+    assert urls == [r.url for r in launched]
+    r2 = launched[0]
+    assert r2.restarts == 0 and not r2.gave_up  # fresh budget
+    assert "ev-2.jsonl" in r2.argv  # per-replica templating holds
+    assert r2.argv[1:3] == ["-m", tfleet.SERVER_MODULE]
+    # indices are never reused: a scar on slot 3 cannot haunt a future
+    # scale-up
+    fleet.scale_down(index=3)
+    assert fleet.scale_up(1, wait_ready=False)
+    assert fleet.replicas[-1].index == 4
+    with pytest.raises(ValueError):
+        fleet.scale_up(0)
+
+
+def test_relaunch_replica_overrides_and_restores():
+    fleet = tfleet.Fleet(1, server_args=["--model", "base"])
+    restarted = []
+    fleet._restart_one = lambda r, ready_check=None: restarted.append(r.index)
+    old = fleet.relaunch_replica(
+        0, server_args=["--model", "canary"],
+        extra_env={"DTX_FAULTS": "canary_regress"})
+    r = fleet.replicas[0]
+    assert "canary" in r.argv and "base" not in r.argv
+    assert r.env["DTX_FAULTS"] == "canary_regress"
+    assert "base" in old[0] and old[1] is None
+    # rollback: pass back exactly what relaunch returned
+    fleet.relaunch_replica(0, argv=old[0], env=old[1])
+    assert r.argv == old[0] and r.env is None
+    assert restarted == [0, 0]
+    with pytest.raises(ValueError):
+        fleet.relaunch_replica(99)
+
+
 # -- the fleet gates (slow tier, as the JAX originals) -------------------------
 
 

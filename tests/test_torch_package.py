@@ -5,9 +5,12 @@ package, not even its jax-free modules: a fresh interpreter that imports
 every module of the port must end with neither in ``sys.modules`` (the
 pattern of tests/test_lint_clean.py), and no source file of the port may
 name them in an import statement, lazy imports inside functions
-included. The fleet front (``serving/router.py``, ``serving/admission.py``
-and ``serving/fleet.py``) loads not even torch or numpy, so it keeps
-routing and relaunching while the runtimes it fronts crash. Nor does
+included, nor the repo's ``tools/`` modules (which import the JAX
+package). The fleet front (``serving/router.py``,
+``serving/admission.py``, ``serving/fleet.py``) and the control plane
+over it (``serving/autoscaler.py``) load not even torch or numpy, so
+they keep routing, relaunching and steering while the runtimes they
+front crash. Nor does
 the port import ``tokenizers`` or ``regex``: the card's
 machine is not promised them, and the port's byte-level BPE is its own
 (``datasets`` stays allowed, imported lazily inside the corpus loader's
@@ -33,10 +36,14 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "tokenizers", "regex",
 
 
 # host-side modules that must never load torch: the router keeps routing,
-# and the fleet supervisor keeps relaunching, while the runtimes they
-# front crash
+# the fleet supervisor keeps relaunching and the control plane keeps
+# steering, while the runtimes they front crash
 FLEET_FRONT = (f"{PKG}.serving.router", f"{PKG}.serving.admission",
-               f"{PKG}.serving.fleet")
+               f"{PKG}.serving.fleet", f"{PKG}.serving.autoscaler")
+# the repo's tools/ modules, which import the JAX package: the port keeps
+# its own copies of what it needs from them
+TOOL_MODULES = ("tools", "autoscaler", "fleet", "perf_gate", "slo_report",
+                "serve_bench", "train_supervisor")
 
 
 def _modules():
@@ -58,7 +65,8 @@ def test_every_module_imports_without_jax():
     for sub in ("ops", "models", "serving", "train", "parallel", "obs", "utils"):
         assert f"{PKG}.{sub}" in mods, sub
     assert {f"{PKG}.parallel.mesh", f"{PKG}.parallel.ring"} <= set(mods)
-    # the fleet front: router, predictive admission, fleet supervisor
+    # the fleet front: router, predictive admission, fleet supervisor,
+    # and the control plane over them
     assert set(FLEET_FRONT) <= set(mods)
     # the full trainer's modules: resilience and observability
     assert {f"{PKG}.utils.faults", f"{PKG}.utils.profiling",
@@ -115,7 +123,7 @@ def _imported_roots(tree):
 def test_source_names_no_jax_import(path):
     tree = ast.parse((REPO / path).read_text(), filename=path)
     bad = [(root, line) for root, line in _imported_roots(tree)
-           if root in FORBIDDEN]
+           if root in FORBIDDEN + TOOL_MODULES]
     assert not bad, f"{path} imports {bad}"
 
 
