@@ -203,6 +203,25 @@ these phases, each printing its own lines and its seconds:
    leg was not run); the first run's ranks then run
    ``train/step_profile.py`` over the ring at the runs' depth
    (rank 0: wall, busy, the exchanges' host time);
+   train-mesh, tasks of the same two launches (``parallel/dp_step.py``):
+   the P = 2 launch runs Ulysses (``--sequence-parallel 2
+   --sequence-impl ulysses``) for the diff at T 8192 at the ring runs'
+   depth, dropout 0.1, and then, the card its alone, the diff recipe at
+   full width and depth (8 layers, T 512, dropout 0, global micro-batch
+   32, bf16) at ``--data-parallel 2`` (the overlap path), with
+   ``--no-dp-overlap`` (the flat path) and at ``--fsdp 2``; the P = 4
+   launch runs ``--data-parallel 2 --sequence-parallel 2`` over the ring
+   at T 8192 and ``--data-parallel 2 --fsdp 2`` on the recipe's width at
+   2 of its layers (the launches start before train-e2e and run beside
+   it, train-ckpt and train-full; the runs that time the card alone wait
+   for those to end); each with
+   exact launches per kernel (or route) and rank, losses equal on every
+   rank and falling on a repeated batch, params identical on every rank
+   (gathered under fsdp), ms per step, tokens/s, the collectives' host
+   time per step and each rank's peak and state at rest (fsdp's about
+   half of data's), beside a one-rank step of the recipe; with two or
+   more cards ``--data-parallel 2`` again over nccl (else a line says
+   the leg was not run);
 6. train e2e: one train step of a 2-layer diff model at recipe width in
    fp32, loss and every gradient on the card (kernels) against the CPU
    (plain versions); again at T 640 through the head-major route;
@@ -210,7 +229,10 @@ these phases, each printing its own lines and its seconds:
    width, T 1024, and of the diff under remat ``nothing`` (the recompute
    runs the ring's exchanges again in the backward), over P 2 and 4 gloo
    ranks on the card against the same single-card head-major step (loss,
-   grads, updated params);
+   grads, updated params); train-mesh-e2e, beside it: one fp32 diff step
+   at ``data=2`` (overlap), ``fsdp=2``, ``data=2, sequence=2`` and
+   Ulysses ``sequence`` 2 and 4, against the single-card step of the same
+   global batch (micro-batch 2 where the data axes split it);
 7. train-ckpt: the default recipe from text, with checkpoints, through
    the command lines, each in a process of its own (``chip_smoke.py
    --cli-worker``: the trainer's, the server's or the sampler's ``main``
@@ -4721,7 +4743,8 @@ RING_RUNS = (("diff P=2 T=8192", "diff", 2, 8192, 2, 3),
 RING_EVAL_ITERS = 1
 RING_LAYERS = 2     # the train-ring runs' depth: the recipe's width, a quarter
                     # of its depth (the smoke's time limit)
-RING_TIMEOUT_S = 600  # a launch: all the runs at one P
+RING_TIMEOUT_S = 900  # a launch: all the runs at one P (the P = 2 launch
+                      # waits for train-ckpt and train-full beside it)
 
 
 def _port_counters():
@@ -4733,11 +4756,14 @@ def _port_counters():
     return counters
 
 
-def launch_ranks(P: int, backend: str, tasks: list, timeout: float = RING_TIMEOUT_S) -> list:
+def launch_ranks(P: int, backend: str, tasks: list, timeout: float = RING_TIMEOUT_S,
+                 procs: list = None) -> list:
     """Run ``tasks`` in turn on P rank processes of this script
     (``--ring-worker``) under one torch.distributed.run launch, so the
     ranks start and join the group once for all of them; every rank must
-    exit 0 in time. Returns, per task, each rank's JSON record."""
+    exit 0 in time (else the launch is stopped). The launch's process
+    goes into ``procs``, for a caller that must stop it. Returns, per
+    task, each rank's JSON record."""
     out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / "ring"
     out_dir.mkdir(parents=True, exist_ok=True)
     tasks = [dict(t, out=str(out_dir / t["label"].replace(" ", "_").replace("=", "")))
@@ -4750,18 +4776,39 @@ def launch_ranks(P: int, backend: str, tasks: list, timeout: float = RING_TIMEOU
            f"--nproc-per-node={P}", str(Path(__file__).resolve()),
            "--ring-worker", json.dumps(spec)]
     label = f"P={P} {backend} launch ({', '.join(t['label'] for t in tasks)})"
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    if procs is not None:
+        procs.append(proc)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        stop_process(proc)
+        raise Failure(f"{label}: no end within {timeout} s")
     expect(proc.returncode == 0, f"{label}: a rank failed (exit "
-           f"{proc.returncode}):\n{proc.stdout[-4000:]}\n{proc.stderr[-6000:]}")
+           f"{proc.returncode}):\n{out[-4000:]}\n{err[-6000:]}")
     return [[json.loads(Path(f"{t['out']}.rank{r}.json").read_text())
              for r in range(P)] for t in tasks]
+
+
+def stop_process(proc: subprocess.Popen) -> None:
+    """SIGTERM (torch.distributed.run stops its workers on it), then
+    SIGKILL if it has not ended within 30 s."""
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
 
 
 def ring_worker(spec: dict) -> int:
     """One rank of a train-ring launch (see launch_ranks): joins the ring
     once, then runs each task of ``spec["tasks"]`` in turn, a trainer run
-    (``train``) or the fp32 step against one card (``e2e``), and writes
-    each task's record."""
+    (``train``, or ``mesh`` on a mesh of the same ranks) or the fp32 step
+    against one card (``e2e``, ``mesh_e2e``), and writes each task's
+    record."""
     import torch
     import torch.distributed as dist
 
@@ -4776,7 +4823,8 @@ def ring_worker(spec: dict) -> int:
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         rec = {"train": ring_train_task, "e2e": ring_e2e_task,
-               "profile": ring_profile_task}[task["task"]](torch, sg, task)
+               "profile": ring_profile_task, "mesh": mesh_train_task,
+               "mesh_e2e": mesh_e2e_task}[task["task"]](torch, sg, task)
         torch.cuda.synchronize()
         dist.barrier()
         rec.update(rank=sg.rank, device=str(sg.device),
@@ -4906,18 +4954,20 @@ def ring_e2e_task(torch, sg, spec: dict) -> dict:
 
 
 def ring_argv(model: str, P: int, T: int, B: int, steps: int, tokens, backend: str,
-              metrics: str) -> list:
+              metrics: str, layers: int = RING_LAYERS, rate: float = HM_RATE,
+              mesh: tuple = None) -> list:
     """The trainer's command line for one train-ring run (what a user runs
-    under torchrun)."""
+    under torchrun); ``mesh``: the mesh flags in place of
+    ``--sequence-parallel P``."""
     return ["--model", model, "--tokens", str(tokens), "--sampler", "replacement",
             "--device", "cuda", "--n-embd", str(RECIPE["n_embd"]),
-            "--n-head", str(RECIPE["n_head"]), "--n-layer", str(RING_LAYERS),
+            "--n-head", str(RECIPE["n_head"]), "--n-layer", str(layers),
             "--block-size", str(T), "--vocab-size", str(RECIPE["vocab_size"]),
             "--micro-batch-size", str(B), "--max-iters", str(steps),
             "--eval-interval", str(steps), "--eval-iters", str(RING_EVAL_ITERS),
-            "--warmup-iters", "2", "--learning-rate", "1e-3", "--dropout", str(HM_RATE),
+            "--warmup-iters", "2", "--learning-rate", "1e-3", "--dropout", str(rate),
             "--compute-dtype", "bfloat16", "--log-interval", "1", "--seed", "0",
-            "--metrics-path", metrics, "--sequence-parallel", str(P),
+            "--metrics-path", metrics, *(mesh or ("--sequence-parallel", str(P))),
             "--dist-backend", backend, "--checkpoint-path", str(ring_best(P)),
             "--last-checkpoint-path", ""]
 
@@ -5054,22 +5104,414 @@ def check_ring_e2e(torch, P: int, ref: dict, recs: list, out: str) -> None:
                f"e2e P={P} {kind}: the params differ between ranks")
 
 
-def run_train_ring(torch, card: str, tokens) -> dict:
-    """Phase train-ring, with train-ring-e2e: every run at P ranks in one
-    torch.distributed.run launch of P ranks (the trainer runs of
-    RING_RUNS, then the fp32 step against one card), so each launch's
-    start (~25-35 s) is paid once per P. The P = 2 runs also carry the
-    heartbeat and the step watchdog: one heartbeat file per rank, no
-    fire. Returns the launch count of each ring JSON entry (wrapper and
-    route), summed over the ranks of the gloo runs."""
+# ---------------------------------------------------------------------------
+# train-mesh: data parallelism, FSDP and Ulysses on the train-ring
+# launches' ranks (parallel/dp_step.py, parallel/ulysses.py)
+# ---------------------------------------------------------------------------
+
+# (label, mesh flags, T, global micro-batch, steps, layers, dropout, alone):
+# the runs of each launch, by its P; "alone" runs after the P = 4 launch
+# ended, the card theirs alone (their times are the ones to read)
+MESH_RUNS = {
+    2: (("ulysses P=2 T=8192", ("--sequence-parallel", "2", "--sequence-impl", "ulysses"),
+         8192, 2, 3, RING_LAYERS, HM_RATE, False),
+        ("data=2 recipe", ("--data-parallel", "2"), 512, TRAIN_B, 3, 8, 0.0, True),
+        ("data=2 no-overlap recipe", ("--data-parallel", "2", "--no-dp-overlap"), 512,
+         TRAIN_B, 3, 8, 0.0, True),
+        ("fsdp=2 recipe", ("--fsdp", "2"), 512, TRAIN_B, 3, 8, 0.0, True)),
+    # the P = 4 recipe run at 2 of the 8 layers: it holds up the P = 2
+    # launch's runs alone on the card (the smoke's time limit)
+    4: (("data=2 sequence=2 T=8192", ("--data-parallel", "2", "--sequence-parallel", "2"),
+         8192, 2, 3, RING_LAYERS, HM_RATE, False),
+        ("data=2 fsdp=2 recipe", ("--data-parallel", "2", "--fsdp", "2"), 512, TRAIN_B,
+         3, 2, 0.0, False)),
+}
+# the train-mesh-e2e steps: (label, mesh, micro-batch, sequence_impl) per P
+MESH_E2E = {2: (("data=2", {"data": 2}, 2, "ring"), ("fsdp=2", {"fsdp": 2}, 2, "ring"),
+                ("ulysses sequence=2", {"sequence": 2}, 1, "ulysses")),
+            4: (("data=2 sequence=2", {"data": 2, "sequence": 2}, 2, "ring"),
+                ("ulysses sequence=4", {"sequence": 4}, 1, "ulysses"))}
+
+
+def _mesh_of(torch, cfg, backend: str):
+    """This rank's mesh for ``cfg`` over the launch's world, and the FSDP
+    layout of ``cfg``'s params (None without fsdp)."""
+    from differential_transformer_replication_tpu_torch.models import init_model
+    from differential_transformer_replication_tpu_torch.parallel import create_mesh
+    from differential_transformer_replication_tpu_torch.parallel.dp_step import fsdp_layout
+
+    mesh = create_mesh(cfg.mesh, backend, "cuda")
+    layout = None
+    if cfg.mesh.fsdp > 1:  # the layout reads only the tree's shapes
+        layout = fsdp_layout(cfg, mesh, init_model(torch.Generator(), cfg.resolved_model()))
+    return mesh, layout
+
+
+def _params_checksum(torch, params) -> str:
+    import hashlib
+
+    from differential_transformer_replication_tpu_torch.train.optim import leaves
+
+    flat = torch.cat([t.detach().reshape(-1) for t in leaves(params)])
+    return hashlib.sha1(flat.cpu().numpy().tobytes()).hexdigest()
+
+
+def mesh_train_task(torch, sg, spec: dict) -> dict:
+    """A trainer run on this rank of a mesh (the CLI's ``run``): launches
+    by kernel and route, losses, peak and state at rest, the params'
+    checksum (gathered under fsdp); then steps on one repeated batch, each
+    timed with its collectives' host time; with ``spec["after"]``, once
+    that file exists (the card this launch's alone)."""
+    from differential_transformer_replication_tpu_torch.ops import flash
+    from differential_transformer_replication_tpu_torch.ops import (
+        fused_norm_residual as fnr,
+    )
+    from differential_transformer_replication_tpu_torch.ops.dropout import fold_seed
+    from differential_transformer_replication_tpu_torch.parallel import (
+        destroy_mesh,
+        make_sharded_train_step,
+        mesh as pmesh,
+        ring,
+        ulysses,
+    )
+    from differential_transformer_replication_tpu_torch.train import __main__ as cli
+    from differential_transformer_replication_tpu_torch.train.optim import leaves
+    from differential_transformer_replication_tpu_torch.train.step import make_eval_step
+
+    if spec.get("after"):
+        t0 = time.perf_counter()
+        while not Path(spec["after"]).exists():
+            expect(time.perf_counter() - t0 < RING_TIMEOUT_S,
+                   f"{spec['label']}: {spec['after']} never appeared")
+            time.sleep(0.2)
+        torch.cuda.reset_peak_memory_stats()
+    rec = {}
+    counters = _port_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    flash.reset_bh_counters()
+    fnr.add_norm_bwd.instances.clear()
+    state, history = cli.run(spec["argv"])
+    torch.cuda.synchronize()
+    rec["launches"] = {k: fn.launches for k, fn in counters.items()}
+    rec["norm_bwd_instances"] = dict(fnr.add_norm_bwd.instances)
+    rec["routes"] = {f"{fn.__name__}/{r}": n
+                     for fn in flash.BH_WRAPPERS + flash.CHUNK_WRAPPERS
+                     for r, n in fn.routes.items()}
+    rec["losses"] = [m["loss"] for m in history]
+    rec["bad"] = [m["bad"] for m in history]
+    rec["step_ms"] = [m["step_time_ms"] for m in history]
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    opt = state["opt_state"]
+    rec["rest_gib"] = sum(t.numel() * t.element_size() for part in (
+        state["params"], opt["mu"], opt["nu"]) for t in leaves(part)) / 2 ** 30
+    args = cli.build_parser().parse_args(spec["argv"])
+    cfg = cli.config_from_args(args)
+    mesh, layout = _mesh_of(torch, cfg, sg.backend)
+    try:
+        full = state["params"] if layout is None else layout.gather_tree(state["params"])
+        rec["checksum"] = _params_checksum(torch, full)
+        # steps on ONE repeated batch: the dropout-free eval loss on it
+        # must fall; each step timed (synced) with its collectives
+        step = make_sharded_train_step(cfg.replace(max_iters=1000), mesh, layout)
+        eval_step = make_eval_step(cfg, mesh)
+        g = torch.Generator(device=mesh.device)
+        g.manual_seed(1)
+        T = cfg.model.block_size
+        idx = torch.randint(0, cfg.vocab_size, (1, args.micro_batch_size, T + 1),
+                            generator=g, device=mesh.device)
+        batch = {"x": idx[..., :-1], "y": idx[..., 1:]}
+        rec["before"] = float(eval_step(full, batch["x"][0], batch["y"][0]))
+        del full
+        rec["repeat"], rec["repeat_ms"], rec["coll"], rec["a2a"] = [], [], [], []
+        rec["rot"] = []
+        for i in range(REPEAT_STEPS):
+            torch.cuda.synchronize()
+            pmesh.reset_collective_stats()
+            ulysses.reset_exchange_stats()
+            ring.reset_rotation_stats()
+            t0 = time.perf_counter()
+            state, m = step(state, batch, fold_seed(99, i))
+            torch.cuda.synchronize()
+            rec["repeat_ms"].append(1e3 * (time.perf_counter() - t0))
+            rec["coll"].append(dict(pmesh.STATS))
+            rec["a2a"].append(dict(ulysses.EXCHANGE))
+            rec["rot"].append(dict(ring.ROTATION))
+            rec["repeat"].append(m["loss"])
+        full = state["params"] if layout is None else layout.gather_tree(state["params"])
+        rec["after"] = float(eval_step(full, batch["x"][0], batch["y"][0]))
+        rec["checksum_after"] = _params_checksum(torch, full)
+        rec["coords"] = list(mesh.coords)
+    finally:
+        destroy_mesh(mesh)
+    return rec
+
+
+def mesh_grads(tcfg, mesh, layout, state, batch) -> list:
+    """The full gradients (``leaves`` order) of one step of ``tcfg`` on
+    this rank, through the path its sharded step takes: the overlap
+    path's bucket means, the fsdp gather and reduce-scatter (the shards'
+    gradients then gathered), or the flat all-reduce."""
+    from differential_transformer_replication_tpu_torch.parallel import dp_step, shard_batch
+    from differential_transformer_replication_tpu_torch.train.optim import leaves
+    from differential_transformer_replication_tpu_torch.train.step import make_grad_fn
+
+    if dp_step.overlap_eligible(tcfg):
+        line = mesh.line("data")
+        fn = make_grad_fn(tcfg, None, dp_step.make_param_sync(line, tcfg.dp_bucket_layers),
+                          dp_step.tree_mean(line))
+        return fn(state["params"], shard_batch(batch, mesh))[1]
+    if layout is not None:
+        fn = make_grad_fn(tcfg, mesh, dp_step.make_param_gather(layout))
+        return leaves(layout.gather_tree(fn(state["params"], batch)[1]))
+    return make_grad_fn(tcfg, mesh)(state["params"], batch)[1]
+
+
+def _e2e_cfg(mesh: dict, B: int, impl: str):
+    from differential_transformer_replication_tpu_torch.config import (
+        MeshConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+
+    mcfg = ModelConfig(**dict(RECIPE, n_layer=2, block_size=1024, sequence_impl=impl),
+                       compute_dtype="float32")
+    return TrainConfig(model=mcfg, mesh=MeshConfig(**mesh), vocab_size=RECIPE["vocab_size"],
+                       micro_batch_size=B, warmup_iters=0, learning_rate=1e-3,
+                       sampler="replacement")
+
+
+def mesh_e2e_task(torch, sg, spec: dict) -> dict:
+    """One fp32 diff step from a seeded init on each mesh of
+    ``MESH_E2E[P]``: loss, grad norm, the params' checksum (rank 0 saves
+    the full grads and params for the comparison)."""
+    from differential_transformer_replication_tpu_torch.parallel import (
+        destroy_mesh,
+        make_sharded_train_step,
+    )
+    from differential_transformer_replication_tpu_torch.train.optim import leaves
+    from differential_transformer_replication_tpu_torch.train.step import train_state
+
+    rec = {}
+    for label, mesh_axes, B, impl in MESH_E2E[sg.size]:
+        tcfg = _e2e_cfg(mesh_axes, B, impl)
+        mesh, layout = _mesh_of(torch, tcfg, sg.backend)
+        try:
+            params, batch = e2e_inputs(torch, tcfg)
+            state = train_state(params, tcfg, mesh.device)
+            if layout is not None:
+                state = layout.shard_state(state)
+            batch = {k: t.to(mesh.device) for k, t in batch.items()}
+            grads = mesh_grads(tcfg, mesh, layout, state, batch)
+            state, m = make_sharded_train_step(tcfg, mesh, layout)(state, batch)
+            full = state["params"] if layout is None else layout.gather_tree(state["params"])
+            rec[label] = {"loss": m["loss"], "grad_norm": m["grad_norm"],
+                          "checksum": _params_checksum(torch, full)}
+            if sg.rank == 0:
+                torch.save({"grads": [t.cpu() for t in grads],
+                            "params": [t.detach().cpu() for t in leaves(full)]},
+                           f"{spec['out']}.{label.replace(' ', '_')}.pt")
+        finally:
+            destroy_mesh(mesh)
+    return rec
+
+
+def mesh_e2e_reference(torch) -> dict:
+    """The single-card fp32 diff step of train-mesh-e2e at each
+    micro-batch it uses (e2e_inputs), keyed by the micro-batch."""
+    from differential_transformer_replication_tpu_torch.train.optim import leaves
+    from differential_transformer_replication_tpu_torch.train.step import (
+        make_grad_fn,
+        make_train_step,
+        train_state,
+    )
+
+    ref = {}
+    for B in sorted({c[2] for cases in MESH_E2E.values() for c in cases}):
+        tcfg = _e2e_cfg({}, B, "ring")
+        params, batch = e2e_inputs(torch, tcfg)
+        state = train_state(params, tcfg, "cuda")
+        batch = {k: t.cuda() for k, t in batch.items()}
+        _, grads = make_grad_fn(tcfg)(state["params"], batch)
+        state, m = make_train_step(tcfg)(state, batch)
+        ref[B] = (m, [g.cpu() for g in grads],
+                  [t.detach().cpu() for t in leaves(state["params"])])
+    return ref
+
+
+def check_mesh_e2e(torch, P: int, ref: dict, recs: list, out: str) -> None:
+    """train-mesh-e2e: each mesh's fp32 step against one card, the ring's
+    bounds (check_ring_e2e)."""
+    lr = 1e-3
+    for label, _, B, _ in MESH_E2E[P]:
+        m, grads, params = ref[B]
+        got = torch.load(f"{out}.{label.replace(' ', '_')}.pt")
+        r0 = recs[0][label]
+        rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                  for a, b in zip(got["grads"], grads))
+        p_max = max(float((a - b).abs().max()) for a, b in zip(got["params"], params))
+        p_mean = max(float((a - b).abs().mean()) for a, b in zip(got["params"], params))
+        log(f"[train-mesh-e2e] diff recipe width, 2 layers, fp32, T 1024, micro-batch "
+            f"{B}, {label} over {P} gloo ranks vs one card: loss {r0['loss']:.6f} vs "
+            f"{m['loss']:.6f} (bound 1e-5), grad norm {r0['grad_norm']:.6f} vs "
+            f"{m['grad_norm']:.6f} (1e-4 relative), worst gradient {rel:.3g} of its "
+            f"leaf's max (1e-3), params after the step max {p_max:.3g} (2 lr = "
+            f"{2 * lr}), mean {p_mean:.3g} (1e-6); params equal on all ranks")
+        expect(abs(r0["loss"] - m["loss"]) <= 1e-5, f"mesh e2e {label}: loss")
+        expect(abs(r0["grad_norm"] - m["grad_norm"]) <= 1e-4 * m["grad_norm"],
+               f"mesh e2e {label}: grad norm")
+        expect(rel <= 1e-3, f"mesh e2e {label}: gradients differ: {rel:.3g}")
+        expect(p_max <= 2 * lr and p_mean <= 1e-6, f"mesh e2e {label}: params")
+        expect(len({r[label]["checksum"] for r in recs}) == 1,
+               f"mesh e2e {label}: the params differ between ranks")
+
+
+def check_mesh_run(torch, card: str, label: str, P: int, run: tuple, backend: str,
+                   recs: list, totals: dict) -> dict:
+    """The checks of one train-mesh run on its ranks' records; returns its
+    figures for the summary lines."""
+    from differential_transformer_replication_tpu_torch.ops import flash
+
+    _, flags, T, B, steps, L, rate, _ = run
+    seq = int(flags[flags.index("--sequence-parallel") + 1]) if \
+        "--sequence-parallel" in flags else 1
+    ulysses = "ulysses" in flags
+    r0 = recs[0]
+    losses = r0["losses"]
+    expect(len(losses) == steps and all(math.isfinite(x) for x in losses),
+           f"{label}: non-finite or missing losses {losses}")
+    expect(all(b == 0 for b in r0["bad"]), f"{label}: a step was skipped")
+    expect(all(r["losses"] == losses for r in recs),
+           f"{label}: the ranks report different losses")
+    expect(len({r["checksum"] for r in recs}) == 1
+           and len({r["checksum_after"] for r in recs}) == 1,
+           f"{label}: the params differ between ranks")
+    n_fwd = steps + 2 * RING_EVAL_ITERS
+    Tl = T // seq
+    if seq > 1 and not ulysses:  # the ring over the sequence line
+        fr, br = flash.chunk_fwd_route(Tl), flash.chunk_bwd_route(Tl)
+        want = {f"flash_chunk_fwd/{fr}": L * seq * n_fwd,
+                f"flash_chunk_bwd_dq/{br}": L * seq * steps,
+                f"flash_chunk_bwd_dkv/{br}": L * seq * steps}
+    elif ulysses:  # full T over H / P heads: the aligned head-major routes
+        S = 2
+        fr, br = flash.fwd_route(T), flash.bwd_route(S, T)
+        want = {f"flash_bh_fwd/{fr}": L * n_fwd}
+        want.update({f"flash_bh_bwd_fused/{br}": L * steps} if br == "fused" else
+                    {f"flash_bh_bwd_dq/{br}": L * steps, f"flash_bh_bwd_dkv/{br}": L * steps})
+    else:  # T 512, dropout 0: the token-major kernels D and E
+        want = {}
+    for r in recs:
+        expect(r["routes"] == want, f"{label} rank {r['rank']}: launches by route "
+               f"{r['routes']}, expected {want}")
+        if not want:
+            per = {"flash_tm_fwd": L * n_fwd, "flash_tm_bwd": L * steps,
+                   "swiglu_bwd": L * steps, "add_norm_bwd": (3 * L + 1) * steps}
+            got = {k: r["launches"][k] for k in per}
+            expect(got == per, f"{label} rank {r['rank']}: launches {got}, expected {per}")
+        for name in ("fused_norm", "fused_add_norm", "fused_swiglu", "add_norm_bwd",
+                     "swiglu_bwd"):
+            expect(r["launches"][name] > 0, f"{label}: {name} never launched")
+        expect_norm_bwd_instances(torch, f"{label} rank {r['rank']}",
+                                  r["launches"]["add_norm_bwd"], r["norm_bwd_instances"])
+    if backend == "gloo" and seq > 1 and not ulysses:
+        for name, (fn, route) in RING_COUNTS.items():
+            totals[name] += sum(r["routes"].get(f"{fn}/{route}", 0) for r in recs)
+    expect(math.isfinite(r0["after"]) and r0["after"] < r0["before"],
+           f"{label}: the loss on a repeated batch did not fall "
+           f"({r0['before']} -> {r0['repeat']} -> {r0['after']})")
+    # the repeated batch's steps past the first: the steady state
+    ms = sorted(r0["repeat_ms"][1:])[len(r0["repeat_ms"][1:]) // 2]
+    coll = r0["coll"][1:]
+    coll_ms = 1e3 * sum(c["host_s"] for c in coll) / len(coll)
+    coll_mb = sum(c["bytes"] for c in coll) / len(coll) / 2 ** 20
+    a2a, rot = r0["a2a"][1:], r0["rot"][1:]
+    fig = {"ms": ms, "tok_s": B * T / (ms / 1e3), "coll_ms": coll_ms,
+           "calls": coll[0]["calls"], "coll_mb": coll_mb,
+           "a2a_ms": 1e3 * sum(c["host_s"] for c in a2a) / len(a2a),
+           "rot_ms": 1e3 * sum(c["host_s"] for c in rot) / len(rot),
+           "peaks": [round(r["peak_gib"], 2) for r in recs],
+           "rest": [round(r["rest_gib"], 3) for r in recs]}
+    log(f"[train-mesh] {label}: diff, {L} layers, width {RECIPE['n_embd']}, T {T}, "
+        f"global micro-batch {B}, dropout {rate}, bf16, {P} {backend} ranks sharing one "
+        f"card ({card}); {steps} trainer steps, losses {[round(x, 4) for x in losses]}, "
+        f"rank 0 step ms {[round(x, 1) for x in r0['step_ms']]}; repeated batch: "
+        f"{ms:.1f} ms/step median past the first ({fig['tok_s']:.0f} tokens/s over the "
+        f"mesh), the collectives {coll_ms:.1f} ms of host time a step ({fig['calls']} "
+        f"calls, {coll_mb:.1f} MB in per rank), the all-to-alls {fig['a2a_ms']:.1f} ms, "
+        f"the ring's exchanges {fig['rot_ms']:.1f} ms; "
+        f"peak per rank {fig['peaks']} GiB, params + AdamW moments at rest per rank "
+        f"{fig['rest']} GiB; launches per rank by route {want or 'kernels D and E'}; "
+        f"params equal on all ranks ({r0['checksum'][:12]}); mesh coords "
+        f"{[r['coords'] for r in recs]}")
+    log(f"[train-mesh] {label}: one repeated batch, loss {r0['before']:.4f} -> "
+        f"{[round(x, 4) for x in r0['repeat']]} -> {r0['after']:.4f}")
+    return fig
+
+
+def recipe_single_step(torch, card: str) -> dict:
+    """One rank's step of the diff recipe (8 layers, T 512, micro-batch 32,
+    bf16, dropout 0) on the card alone: the scale the train-mesh recipe
+    runs stand beside."""
+    from differential_transformer_replication_tpu_torch.config import (
+        ModelConfig,
+        TrainConfig,
+    )
+    from differential_transformer_replication_tpu_torch.train.step import (
+        create_train_state,
+        make_train_step,
+    )
+
+    cfg = TrainConfig(model=ModelConfig(**RECIPE), micro_batch_size=TRAIN_B,
+                      warmup_iters=2, learning_rate=1e-3, sampler="replacement")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    state = create_train_state(g, cfg, "cuda")
+    step = make_train_step(cfg)
+    idx = torch.randint(0, RECIPE["vocab_size"], (1, TRAIN_B, RECIPE["block_size"] + 1),
+                        generator=g, device="cuda")
+    batch = {"x": idx[..., :-1], "y": idx[..., 1:]}
+    times = []
+    for _ in range(REPEAT_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    ms = sorted(times[1:])[len(times[1:]) // 2]
+    fig = {"ms": ms, "tok_s": TRAIN_B * RECIPE["block_size"] / (ms / 1e3),
+           "peak": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(f"[train-mesh] one rank, the diff recipe (8 layers, T 512, micro-batch 32, bf16): "
+        f"{ms:.1f} ms/step median of {REPEAT_STEPS} past the first "
+        f"({fig['tok_s']:.0f} tokens/s), peak {fig['peak']:.2f} GiB ({card})")
+    del state, step
+    torch.cuda.empty_cache()
+    return fig
+
+
+def start_train_ring(torch, tokens) -> dict:
+    """Phase train-ring, with train-ring-e2e and train-mesh, its first
+    half: the single-card reference steps, then every run at P ranks in
+    one torch.distributed.run launch of P ranks (the trainer runs of
+    RING_RUNS and MESH_RUNS, the fp32 steps against one card), so each
+    launch's start (~25-35 s) is paid once per P. The gloo launches start
+    here, side by side, and run beside the phases that follow (train-e2e,
+    train-ckpt, train-full: processes of their own, launch counts of
+    their own); the P = 2 launch's profile and recipe runs wait in it
+    until :func:`finish_train_ring` finds the card theirs. The P = 2 runs
+    also carry the heartbeat and the step watchdog: one heartbeat file
+    per rank, no fire. Returns the phase's state for
+    :func:`finish_train_ring`."""
     out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
     hb_dir = out_dir / "ring_heartbeat"
     shutil.rmtree(hb_dir, ignore_errors=True)
     for stale in out_dir.glob("*.hang_report*"):
         stale.unlink()
-    totals = {name: 0 for name in RING_COUNTS}
     t0 = time.perf_counter()
     ref = ring_e2e_reference(torch)
+    mref = mesh_e2e_reference(torch)
     log(f"[train-ring-e2e] the single-card reference steps in "
         f"{time.perf_counter() - t0:.1f} s")
     launches = []
@@ -5085,11 +5527,26 @@ def run_train_ring(torch, card: str, tokens) -> dict:
         log(f"[train-ring] NCCL leg not run: this machine has {n_cards} card "
             "(it needs one card per rank, 2); the runs below are gloo ranks sharing "
             "one card")
+        log(f"[train-mesh] NCCL leg (--data-parallel 2 over nccl) not run: this "
+            f"machine has {n_cards} card (it needs one card per rank, 2); the mesh "
+            "runs below are gloo ranks sharing one card")
     # the gloo launches run side by side (each launch's start, ~20 s, and
-    # its runs overlap the other's); the step profile, a task of its own
-    # at the end of the P = 2 launch, waits until the P = 4 launch ended
+    # its runs overlap the other's); the step profile and the recipe runs,
+    # tasks at the end of the P = 2 launch, wait until the P = 4 launch and
+    # the phases beside it ended
     alone = out_dir / "ring_profile_alone"
     alone.unlink(missing_ok=True)
+    def mesh_task(P, backend, run):
+        label, flags, T, B, steps, L, rate, on_its_own = run
+        name = re.sub(r"[^A-Za-z0-9]+", "_", label)
+        argv = ring_argv("diff", P, T, B, steps, tokens, backend,
+                         str(out_dir / f"metrics_mesh_{name}.jsonl"), layers=L,
+                         rate=rate, mesh=flags)
+        return {"label": label, "task": "mesh", "argv": argv,
+                **({"after": str(alone)} if on_its_own else {})}
+
+    if n_cards >= 2:
+        launches.append((2, "nccl", [], False))
     plans = []
     for P, backend, runs, with_e2e in launches:
         tasks = []
@@ -5100,24 +5557,32 @@ def run_train_ring(torch, card: str, tokens) -> dict:
                 argv += ["--heartbeat-dir", str(hb_dir), "--step-deadline-s", "300",
                          "--heartbeat-timeout-s", "60"]
             tasks.append({"label": label, "task": "train", "argv": argv})
+        mruns = [r for r in MESH_RUNS[P] if backend == "gloo"] if runs else \
+            [(f"{MESH_RUNS[2][1][0]} nccl", *MESH_RUNS[2][1][1:7], False)]
+        # the mesh runs that share the card with the other launch, then
+        # the e2e steps; the P = 2 launch's profile and its recipe runs
+        # wait for the P = 4 launch to end
+        tasks += [mesh_task(P, backend, r) for r in mruns if not r[7]]
         if with_e2e:
             tasks.append({"label": f"e2e P={P}", "task": "e2e"})
+            tasks.append({"label": f"mesh e2e P={P}", "task": "mesh_e2e"})
         if P == 2 and backend == "gloo":
             tasks.append({"label": "profile P=2", "task": "profile",
                           "argv": tasks[0]["argv"], "after": str(alone)})
-        plans.append((P, backend, runs, with_e2e, tasks))
+        tasks += [mesh_task(P, backend, r) for r in mruns if r[7]]
+        plans.append((P, backend, runs, with_e2e, tasks, mruns))
+
+    procs = []
 
     def launch(plan, box):
-        P, backend, _, _, tasks = plan
+        P, backend, _, _, tasks, _ = plan
         t0 = time.perf_counter()
         try:
-            box["results"] = launch_ranks(P, backend, tasks)
+            box["results"] = launch_ranks(P, backend, tasks, procs=procs)
         except BaseException as e:  # noqa: BLE001 - raised on the main thread
             box["error"] = e
         finally:
             box["wall"] = time.perf_counter() - t0
-            if P != 2:
-                alone.touch()
 
     gloo = [pl for pl in plans if pl[1] == "gloo"]
     boxes = [{} for _ in gloo]
@@ -5125,17 +5590,48 @@ def run_train_ring(torch, card: str, tokens) -> dict:
                for pl, box in zip(gloo, boxes)]
     for th in threads:
         th.start()
+    return dict(ref=ref, mref=mref, plans=plans, boxes=boxes, threads=threads,
+                launch=launch, alone=alone, hb_dir=hb_dir, out_dir=out_dir,
+                procs=procs)
+
+
+def stop_train_ring(ring: dict) -> None:
+    """Stop the train-ring launches still running (a phase beside them
+    failed): no process of the smoke outlives it."""
+    for proc in ring["procs"]:
+        stop_process(proc)
+
+
+def finish_train_ring(torch, card: str, ring: dict) -> dict:
+    """Phase train-ring's second half, once the phases beside it ended:
+    the card is the launches' alone (the P = 2 launch's profile and
+    recipe runs go on once the P = 4 launch ended), the nccl launches
+    with two or more cards, then every check of the runs' records.
+    Returns the launch count of each ring JSON entry (wrapper and route),
+    summed over the ranks of the gloo runs."""
+    plans, boxes, threads = ring["plans"], ring["boxes"], ring["threads"]
+    ref, mref, out_dir, hb_dir = ring["ref"], ring["mref"], ring["out_dir"], ring["hb_dir"]
+    gloo = [pl for pl in plans if pl[1] == "gloo"]
+    try:
+        for pl, th in zip(gloo, threads):
+            if pl[0] != 2:
+                th.join(RING_TIMEOUT_S)
+    finally:
+        ring["alone"].touch()
     for th in threads:
-        th.join(2 * RING_TIMEOUT_S)
+        th.join(RING_TIMEOUT_S)
     for pl in plans[len(gloo):]:  # nccl: after the gloo launches
         boxes.append({})
-        launch(pl, boxes[-1])
+        ring["launch"](pl, boxes[-1])
+    totals = {name: 0 for name in RING_COUNTS}
     prof = None
-    for (P, backend, runs, with_e2e, tasks), box in zip(plans, boxes):
+    figs = {}
+    for (P, backend, runs, with_e2e, tasks, mruns), box in zip(plans, boxes):
         if "error" in box:
             raise box["error"]
         expect("results" in box, f"P={P} {backend} launch: no end")
         results = box["results"]
+        by_label = dict(zip((t["label"] for t in tasks), results))
         log(f"[train-ring] one P={P} {backend} launch{' beside the other' if backend == 'gloo' else ''}: "
             f"{len(tasks)} tasks ({', '.join(t['label'] for t in tasks)}) in "
             f"{box['wall']:.1f} s; in it "
@@ -5146,11 +5642,16 @@ def run_train_ring(torch, card: str, tokens) -> dict:
         for (label, model, _, T, B, steps, _), recs in zip(runs, results):
             check_ring_run(torch, card, label, model, P, T, B, steps, backend, recs,
                            totals)
+        for run in mruns:
+            figs[run[0]] = check_mesh_run(torch, card, run[0], P, run, backend,
+                                          by_label[run[0]], totals)
         if with_e2e:
             out = (out_dir / "ring" / f"e2e_P{P}")
-            check_ring_e2e(torch, P, ref, results[len(runs)], str(out))
+            check_ring_e2e(torch, P, ref, by_label[f"e2e P={P}"], str(out))
+            out = out_dir / "ring" / f"mesh_e2e_P{P}"
+            check_mesh_e2e(torch, P, mref, by_label[f"mesh e2e P={P}"], str(out))
         if P == 2 and backend == "gloo":
-            prof = results[-1][0]["profile"]
+            prof = by_label["profile P=2"][0]["profile"]
     # the P = 2 runs' liveness: a heartbeat file a rank, no watchdog fire
     beats = sorted(p.name for p in hb_dir.iterdir()) if hb_dir.exists() else []
     expect(beats == ["hb-0.json", "hb-1.json"], f"train-ring: heartbeat files {beats}")
@@ -5161,11 +5662,27 @@ def run_train_ring(torch, card: str, tokens) -> dict:
         "watchdog fire")
     # where the ring step's time goes: train/step_profile.py on the P = 2
     # ranks, the card theirs alone
+    # the recipe on one rank beside the mesh runs of it, and the state at
+    # rest under fsdp against data's
+    one = recipe_single_step(torch, card)
+    dp, fs = figs["data=2 recipe"], figs["fsdp=2 recipe"]
+    ratio = max(fs["rest"]) / max(dp["rest"])
+    log(f"[train-mesh] the diff recipe (8 layers, T 512, global micro-batch 32, bf16) "
+        f"on 2 gloo ranks sharing one card against one rank: "
+        + ", ".join(f"{k} {figs[k]['ms']:.1f} ms/step ({figs[k]['tok_s']:.0f} tok/s, "
+                    f"collectives {figs[k]['coll_ms']:.1f} ms host, peak "
+                    f"{max(figs[k]['peaks']):.2f} GiB)"
+                    for k in ("data=2 recipe", "data=2 no-overlap recipe", "fsdp=2 recipe"))
+        + f"; one rank {one['ms']:.1f} ms/step ({one['tok_s']:.0f} tok/s, peak "
+        f"{one['peak']:.2f} GiB); fsdp's params + moments at rest {max(fs['rest']):.3f} "
+        f"GiB a rank against data's {max(dp['rest']):.3f} ({ratio:.3f}); {card}")
+    expect(0.49 <= ratio <= 0.51, f"fsdp=2 keeps {ratio:.3f} of data=2's state at rest")
     expect(prof is not None, f"{RING_RUNS[0][0]}: no step profile")
     top = ", ".join(f"{k['name'][:40]} {k['ms_per_step']:.2f}"
                     for k in prof["top_kernels"][:8])
     log(f"[train-ring] step_profile diff P=2 T=8192 B=2 dropout {HM_RATE}, "
-        f"{prof['n_layer']} layers, after the P=4 launch ended (gloo, ranks "
+        f"{prof['n_layer']} layers, after the P=4 launch and the phases beside it "
+        f"ended (gloo, ranks "
         f"sharing one card; rank 0 profiled): wall {prof['wall_ms_per_step']:.1f} ms "
         f"({prof['tokens_per_s']:.0f} tok/s over the ring), rank 0 busy "
         f"{prof['device_busy_ms_per_step']:.1f} ms, {prof['rotations_per_step']:.0f} "
@@ -6172,19 +6689,25 @@ def main() -> int:
     hm_counts = phase("train-hm", run_train_hm, torch, card,
                       Path(__file__).resolve().parent / "build" / "chip_smoke"
                       / "tokens.npy")
-    ring_counts = phase("train-ring", run_train_ring, torch, card,
-                        Path(__file__).resolve().parent / "build" / "chip_smoke"
-                        / "tokens.npy")
-    phase("train-e2e", run_train_e2e, torch)
+    # the train-ring launches run beside train-e2e, train-ckpt and
+    # train-full (ranks and CLI workers in processes of their own); their
+    # runs that time the card alone wait for those phases to end
+    ring = phase("train-ring-start", start_train_ring, torch,
+                 Path(__file__).resolve().parent / "build" / "chip_smoke" / "tokens.npy")
     import tempfile
 
     work = Path(tempfile.mkdtemp(prefix="train_ckpt_",
                                  dir=Path(__file__).resolve().parent / "build"))
+    ring_counts = None
     try:
+        phase("train-e2e", run_train_e2e, torch)
         a_info = phase("train-ckpt", run_train_ckpt, torch, card, work)
         phase("train-full", run_train_full, torch, card, work, a_info)
+        ring_counts = phase("train-ring", finish_train_ring, torch, card, ring)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+        if ring_counts is None:
+            stop_train_ring(ring)
     for best in (SMOKE_BEST, ring_best(2), ring_best(4)):
         shutil.rmtree(best, ignore_errors=True)
     log(f"[done] phases {', '.join(f'{k} {v:.1f} s' for k, v in phases.items())}; "

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 MODEL_KINDS = ("control", "diff", "ndiff")
 # what a rematerialized block may save (models/common.py:remat_block)
@@ -362,8 +362,6 @@ class ServingConfig:
 
 # the mesh axes the port does not run yet -> the ROADMAP item that brings it
 LATER_MESH_AXES = {
-    "data": "data parallelism (ROADMAP Queue A: parallelism, DDP/FSDP)",
-    "fsdp": "FSDP (ROADMAP Queue A: parallelism, DDP/FSDP)",
     "tensor": "tensor parallelism (ROADMAP Queue A: parallelism)",
     "pipeline": "pipeline parallelism (ROADMAP Queue A: parallelism)",
 }
@@ -691,9 +689,9 @@ class AutoscalerConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """A copy of the JAX package's MeshConfig (the same axes, defaults and
-    order). The port runs the ``sequence`` axis (ring attention over
-    ``torch.distributed`` ranks, ``parallel/``); every other axis must
-    stay 1 and names the ROADMAP item that brings it."""
+    order). The port runs the ``data``, ``fsdp`` and ``sequence`` axes
+    over ``torch.distributed`` ranks (``parallel/``); ``tensor`` and
+    ``pipeline`` must stay 1 and name the ROADMAP item that brings them."""
 
     pipeline: int = 1
     data: int = 1
@@ -710,8 +708,18 @@ class MeshConfig:
             if getattr(self, name) != 1:
                 raise NotImplementedError(
                     f"MeshConfig.{name}={getattr(self, name)}: the port does "
-                    f"not run {item} yet; only the sequence axis may be > 1"
+                    f"not run {item} yet; only the data, fsdp and sequence "
+                    "axes may be > 1"
                 )
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        # JAX's order: pipeline last (the fastest-varying axis)
+        return ("data", "fsdp", "tensor", "sequence", "pipeline")
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (self.data, self.fsdp, self.tensor, self.sequence, self.pipeline)
 
     @property
     def n_devices(self) -> int:
@@ -726,8 +734,6 @@ LATER_SLICE_FIELDS = {
                      "tooling and analysis, obs/device_profile.py)",
     "profile_spool_dir": "the continuous device profile (ROADMAP Queue A: "
                          "tooling and analysis, obs/device_profile.py)",
-    "dp_overlap": "parallelism (ROADMAP Queue A: parallelism)",
-    "dp_bucket_layers": "parallelism (ROADMAP Queue A: parallelism)",
 }
 
 
@@ -736,8 +742,11 @@ class TrainConfig:
     """The training recipe: a copy of the JAX package's TrainConfig
     (same names, defaults and meaning). The fields in
     :data:`LATER_SLICE_FIELDS` are kept for config round-trips and must
-    stay at their defaults. ``mesh.sequence`` > 1 is the sequence-parallel
-    ring over that many ranks (the other mesh axes are refused)."""
+    stay at their defaults. A mesh of more than one rank trains over that
+    many ``torch.distributed`` ranks: ``data`` and ``fsdp`` split the
+    batch (``fsdp`` also shards params and AdamW's moments at rest),
+    ``sequence`` the sequence (the ring or Ulysses); ``tensor`` and
+    ``pipeline`` are refused."""
 
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
@@ -809,7 +818,13 @@ class TrainConfig:
     anomaly_snapshot_interval: int = 200
     anomaly_check_interval: int = 10
 
+    # Pure data-parallel meshes (data > 1, every other axis 1) sync the
+    # gradients bucket by bucket inside the backward
+    # (parallel/dp_step.py); other meshes take the flat or sharded step
+    # whatever this flag says.
     dp_overlap: bool = True
+    # Consecutive transformer blocks per gradient-sync bucket. The
+    # embeddings and the ln_f/lm_head tail always form their own buckets.
     dp_bucket_layers: int = 2
     # The step watchdog (train/watchdog.py): an iteration hung past
     # step_deadline_s (0 = off) writes the hang report and exits 113;
@@ -838,13 +853,26 @@ class TrainConfig:
             raise ValueError(f"unknown sampler {self.sampler!r}")
         if self.grad_acc_steps < 1 or self.micro_batch_size < 1:
             raise ValueError("grad_acc_steps and micro_batch_size must be >= 1")
+        n_batch = self.mesh.data * self.mesh.fsdp
+        if self.micro_batch_size % n_batch:
+            # JAX's jit refuses a batch its ("data", "fsdp") spec cannot split
+            raise ValueError(
+                f"micro_batch_size {self.micro_batch_size} must split into "
+                f"data x fsdp = {self.mesh.data} x {self.mesh.fsdp} = "
+                f"{n_batch} equal batch shards"
+            )
         if self.mesh.sequence > 1:
-            if self.model.sequence_impl != "ring":
-                raise NotImplementedError(
-                    f"sequence_impl={self.model.sequence_impl!r}: the port "
-                    "runs the ring only; Ulysses sequence parallelism is a "
-                    "later slice (ROADMAP Queue A: parallelism)"
-                )
+            if self.model.sequence_impl == "ulysses":
+                # the text of JAX parallel/ulysses.py:_check_heads
+                heads = self.resolved_model().n_head // self.mesh.tensor
+                p = self.mesh.sequence
+                if heads % p:
+                    raise ValueError(
+                        f"ulysses sequence parallelism needs local heads "
+                        f"divisible by the sequence axis: {heads} heads per "
+                        f"tensor shard vs sequence={p} (use the ring, "
+                        f"sequence_impl='ring', for uneven head counts)"
+                    )
             P, T = self.mesh.sequence, self.model.block_size
             if T % P:
                 # any shard length: the chunk kernels mask rows and keys

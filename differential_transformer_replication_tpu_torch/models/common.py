@@ -13,10 +13,11 @@ the JAX-initialized params through ``params.py``).
 Dropout follows the JAX package's sites and order of key splits, with
 integer seeds in place of keys (:func:`split_seed`): per layer, then per
 block (attention, FFN), then per attention (probabilities, output). A
-forward without a seed (eval) drops nothing. On the sequence-parallel
-ring each rank folds its rank into the forward's seed first
-(:func:`rank_seed`), as JAX's ``sequence_shard_map`` folds the mesh
-position into the attention key: every rank's masks are its own.
+forward without a seed (eval) drops nothing. On a mesh of ranks each
+rank folds its mesh position into the forward's seed first
+(:func:`rank_seed`), as JAX's ``sequence_shard_map`` and
+``shard_flash`` fold the mesh position into the attention key: every
+rank's masks are its own.
 
 With ``cfg.remat`` each block runs under :func:`remat_block`
 (``torch.utils.checkpoint``, the counterpart of JAX's ``jax.checkpoint``):
@@ -78,6 +79,9 @@ from differential_transformer_replication_tpu_torch.ops.streams import (
 from differential_transformer_replication_tpu_torch.parallel.ring import (
     ring_flash_body,
     use_ring,
+)
+from differential_transformer_replication_tpu_torch.parallel.ulysses import (
+    ulysses_flash_body,
 )
 
 INIT_STD = 0.02
@@ -147,11 +151,20 @@ def split_seed(seed, n: int) -> tuple:
 
 
 def rank_seed(seed, group):
-    """The forward's dropout seed on this rank: ``seed`` with the ring
-    rank folded in on the sequence-parallel path, else ``seed``."""
-    if seed is None or not use_ring(group):
+    """The forward's dropout seed on this rank: ``seed`` with this rank's
+    mesh position folded in on a mesh of more than one rank (the data,
+    fsdp, tensor and sequence coordinates, data major: JAX
+    ``ring.py:207-209``; with sequence 1 the batch position of JAX
+    ``shard_flash.py:79-88``), with the ring rank on a ring alone, else
+    ``seed``. The fold comes first, so every seed the forward derives
+    (attention, and residual and FFN dropout, which JAX's GSPMD path
+    draws from one global mask sharded over the batch) is this rank's
+    own."""
+    if seed is None or group is None:
         return seed
-    return fold_seed(seed, group.rank)
+    if group.position is not None:
+        return fold_seed(seed, group.position)
+    return fold_seed(seed, group.rank) if use_ring(group) else seed
 
 
 def shard_start(T: int, group) -> int:
@@ -246,7 +259,7 @@ def layer_coeffs(cfg, p_attn: dict, layer_idx: int) -> torch.Tensor:
 def flash_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
                     wv: torch.Tensor, coeffs: torch.Tensor, cos=None,
                     sin=None, rate: float = 0.0, seed=None,
-                    group=None) -> torch.Tensor:
+                    group=None, seq_impl: str = "ring") -> torch.Tensor:
     """The training attention of all three families (the JAX
     ``flash_bh_fn``): x (B, T, E) normed block input, wq/wk (S, E, H, d),
     wv (E, H, dv), coeffs (S, H) fp32, attention-dropout ``rate`` with an
@@ -266,8 +279,10 @@ def flash_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     With a sequence ``group`` of more than one rank (JAX
     ``dispatch_attention`` branch 1), x is this rank's T-shard and the
     same head-major operands (RoPE tables at the shard's global
-    positions) go around the ring (``parallel/ring.py``); ``seed`` is
-    then already this rank's (:func:`rank_seed`)."""
+    positions) go around the ring (``parallel/ring.py``), or, with
+    ``seq_impl="ulysses"`` (``ModelConfig.sequence_impl``), through the
+    two all-to-alls of ``parallel/ulysses.py``; ``seed`` is then already
+    this rank's (:func:`rank_seed`)."""
     B, T, E = x.shape
     S, _, H, d = wq.shape
     dv = wv.shape[-1]
@@ -305,7 +320,8 @@ def flash_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     gen = generator(seed, "cpu") if rate_live > 0.0 else None
     if use_ring(group):
         words = dropout_seed_from_generator(gen) if gen is not None else None
-        out = ring_flash_body(q_r, k_r, v_r, coeffs, group, words, rate_live)
+        body = ulysses_flash_body if seq_impl == "ulysses" else ring_flash_body
+        out = body(q_r, k_r, v_r, coeffs, group, words, rate_live)
     else:
         out = multi_stream_flash_attention_bh(q_r, k_r, v_r, coeffs, B, H,
                                               dropout_rate=rate_live,

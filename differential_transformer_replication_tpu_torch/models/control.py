@@ -50,7 +50,8 @@ def _attn(x: torch.Tensor, p: dict, cfg: ModelConfig, cos, sin,
     s_att, s_out = common.split_seed(seed, 2)
     out = common.flash_attention(x, p["wq"][None], p["wk"][None], p["wv"],
                                  common.layer_coeffs(cfg, p, 1), cos, sin,
-                                 rate=cfg.dropout, seed=s_att, group=group)
+                                 rate=cfg.dropout, seed=s_att, group=group,
+                                 seq_impl=cfg.sequence_impl)
     out = common.linear(out.reshape(B, T, -1), p["out"])
     return common.apply_dropout(out, cfg.dropout, s_out)
 

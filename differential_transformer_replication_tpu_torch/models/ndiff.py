@@ -54,7 +54,8 @@ def _attn(x: torch.Tensor, p: dict, layer_idx: int, cfg: ModelConfig, cos,
     s_att, s_out = common.split_seed(seed, 2)
     out = common.flash_attention(x, p["wq"], p["wk"], p["wv"],
                                  common.layer_coeffs(cfg, p, layer_idx), cos, sin,
-                                 rate=cfg.dropout, seed=s_att, group=group)
+                                 rate=cfg.dropout, seed=s_att, group=group,
+                                 seq_impl=cfg.sequence_impl)
     out = common.apply_group_norm(out.reshape(B, T, -1), p["gn"])
     out = common.linear(out * OUTPUT_SCALE, p["out"])
     return common.apply_dropout(out, cfg.dropout, s_out)

@@ -19,6 +19,10 @@ that own them. JAX's loop makes P rotations, the last of which only
 restores the placement and goes unused; the port makes P - 1 (same
 numbers, one exchange less per layer and direction).
 
+Beside a data or fsdp axis the ring is this rank's sequence line of the
+mesh (``parallel/mesh.py``): the exchanges go to the global ranks of the
+line's neighbouring positions, over the line's group.
+
 Every rank launches the same kernels a rank with a card of its own would,
 at the same offsets; only the transport differs. On ``nccl`` the
 exchange moves CUDA tensors; gloo has no send/recv for CUDA tensors, so
@@ -59,7 +63,10 @@ def reset_rotation_stats() -> None:
 
 def _shift(x: torch.Tensor, sg: SequenceGroup, step: int) -> torch.Tensor:
     """Send ``x`` to ring position rank + step, receive the same shape
-    from rank - step. With gloo and CUDA tensors, through host buffers."""
+    from rank - step, over the sequence line's group: the peers are the
+    global ranks at those positions of the line (beside a data axis the
+    line is not the world). With gloo and CUDA tensors, through host
+    buffers."""
     src = x.detach().contiguous()
     if sg.stages_through_host:
         # the copy waits for x's kernels anyway: wait first, so the host
@@ -69,8 +76,8 @@ def _shift(x: torch.Tensor, sg: SequenceGroup, step: int) -> torch.Tensor:
     if sg.stages_through_host:
         src = to_host(src)
     out = torch.empty_like(src, pin_memory=sg.stages_through_host)
-    ops = [dist.P2POp(dist.isend, src, (sg.rank + step) % sg.size),
-           dist.P2POp(dist.irecv, out, (sg.rank - step) % sg.size)]
+    ops = [dist.P2POp(dist.isend, src, sg.peer(sg.rank + step), sg.group),
+           dist.P2POp(dist.irecv, out, sg.peer(sg.rank - step), sg.group)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     out = out.to(x.device)

@@ -24,16 +24,23 @@ writes the best state at each improving eval, a certified
 on every exit; run again, ``--resume-from auto`` continues from the
 newest checkpoint that verifies.
 
-Sequence parallelism (ring attention over P ranks) runs under torchrun,
-with the backend named:
+Data parallelism, FSDP and sequence parallelism (the ring, or Ulysses'
+all-to-alls) run under torchrun on a mesh of data x fsdp x sequence
+ranks, with the backend named:
 
-    torchrun --nproc-per-node P -m differential_transformer_replication_tpu_torch.train \
-        --sequence-parallel P --dist-backend gloo ...
+    torchrun --nproc-per-node 2 -m differential_transformer_replication_tpu_torch.train \
+        --data-parallel 2 --dist-backend gloo ...
+    torchrun --nproc-per-node 4 -m differential_transformer_replication_tpu_torch.train \
+        --data-parallel 2 --sequence-parallel 2 --sequence-impl ulysses \
+        --dist-backend gloo ...
 
-``nccl`` needs one card per rank; ``gloo`` lets the P ranks share one
-card (the ring's K/V exchanges then go through host memory) or run on
-the CPU (``--device cpu``). ``--block-size`` must split into P equal
-shards.
+``nccl`` needs one card per rank; ``gloo`` lets the ranks share one
+card (the exchanges then go through host memory) or run on the CPU
+(``--device cpu``). ``--micro-batch-size`` must split into data x fsdp
+equal shards and ``--block-size`` into ``--sequence-parallel`` equal
+ones; under Ulysses the heads must split over the sequence ranks. A
+pure data mesh syncs its gradients bucket by bucket in the backward
+(``--dp-bucket-layers`` blocks a bucket) unless ``--no-dp-overlap``.
 
 Resilience and observability, as ``train.py`` takes them:
 
@@ -76,11 +83,7 @@ from differential_transformer_replication_tpu_torch.config import (
 LATER_FLAGS = {
     "--attention-impl": "none: the port dispatches kernels by device",
     "--ffn-impl": "none: the port dispatches kernels by device",
-    "--no-dp-overlap": "parallelism (ROADMAP Queue A: parallelism, item 9)",
-    "--dp-bucket-layers": "parallelism (ROADMAP Queue A: parallelism, item 9)",
-    "--data-parallel": "parallelism (ROADMAP Queue A: parallelism, item 9)",
     "--tensor-parallel": "parallelism (ROADMAP Queue A: parallelism, item 9)",
-    "--fsdp": "parallelism (ROADMAP Queue A: parallelism, item 9)",
     "--pipeline-parallel": "parallelism (ROADMAP Queue A: parallelism, item 9)",
     "--profile-every": "the continuous device profile (ROADMAP Queue A: "
                        "tooling and analysis, item 10)",
@@ -239,13 +242,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "uniform draws")
     p.add_argument("--log-interval", type=int, default=t.log_interval)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    p.add_argument("--sequence-parallel", type=int, default=1,
-                   help="ranks of the sequence ring (run under torchrun)")
     p.add_argument("--sequence-impl", choices=("ring", "ulysses"),
                    default=m.sequence_impl,
-                   help="'ring' is the one the port runs")
+                   help="sequence-parallel strategy when --sequence-parallel "
+                        "> 1: K/V ring rotation or all-to-all re-sharding")
+    p.add_argument("--no-dp-overlap", action="store_true",
+                   help="disable the bucketed backward-overlapped DP "
+                        "gradient all-reduce (parallel/dp_step.py)")
+    p.add_argument("--dp-bucket-layers", type=int, default=t.dp_bucket_layers,
+                   help="transformer blocks per overlapped gradient "
+                        "all-reduce bucket (parallel/dp_step.py)")
+    p.add_argument("--data-parallel", type=int, default=1,
+                   help="devices on the data mesh axis")
+    p.add_argument("--fsdp", type=int, default=1,
+                   help="devices on the fsdp (param-sharding) mesh axis")
+    p.add_argument("--sequence-parallel", type=int, default=1,
+                   help="devices on the sequence mesh axis (ring attention)")
     p.add_argument("--dist-backend", choices=("nccl", "gloo"), default="nccl",
-                   help="the ring's backend: nccl (one card per rank, the "
+                   help="the mesh's backend: nccl (one card per rank, the "
                    "default) or gloo (ranks may share a card, or the CPU)")
     return p
 
@@ -264,7 +278,11 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         loss_chunk=args.loss_chunk,
     )
     return TrainConfig(
-        model=model, mesh=MeshConfig(sequence=args.sequence_parallel),
+        model=model,
+        mesh=MeshConfig(data=args.data_parallel, fsdp=args.fsdp,
+                        sequence=args.sequence_parallel),
+        dp_overlap=not args.no_dp_overlap,
+        dp_bucket_layers=args.dp_bucket_layers,
         vocab_size=args.vocab_size, dataset=args.dataset,
         num_train_samples=args.num_train_samples,
         tokenizer_dir=args.tokenizer_dir,
@@ -312,15 +330,11 @@ def run(argv) -> tuple:
         parser.error("; ".join(f"{f} is not run by the port yet: "
                                f"{LATER_FLAGS[f]}" for f in bad))
     args = parser.parse_args(argv)
-    if args.sequence_impl != "ring":
-        parser.error(f"--sequence-impl {args.sequence_impl} is not run by the "
-                     "port yet: Ulysses sequence parallelism (ROADMAP Queue A: "
-                     "parallelism); use ring")
     from differential_transformer_replication_tpu_torch.train.trainer import train
 
-    sp = args.sequence_parallel > 1
-    return train(config_from_args(args), args.tokens, device=args.device,
-                 dist_backend=args.dist_backend if sp else None)
+    cfg = config_from_args(args)
+    return train(cfg, args.tokens, device=args.device,
+                 dist_backend=args.dist_backend if cfg.mesh.n_devices > 1 else None)
 
 
 def main(argv=None) -> int:

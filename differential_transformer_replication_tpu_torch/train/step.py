@@ -11,14 +11,26 @@ The train state is a plain dict ``{"params": tree, "opt_state": {"mu",
 "nu", "count"}, "step": int[, "guard": dict]}``; params are fp32 leaves
 that require grad and are updated in place.
 
-With a sequence group (``parallel/``, the counterpart of the JAX
-``make_sharded_train_step`` on a ``sequence`` mesh) every rank takes the
-same global batch and keeps its T-shard; each runs its shard's forward
-and backward through the ring (K/V cotangents travel back to their owners
-through the rotations), then the param gradients and the loss are summed
-over the ranks in one all-reduce. Clip, AdamW and the guard then run on
-identical values on every rank, so the params stay bit-identical across
-ranks. Eval goes through the ring too, as JAX's ``make_eval_step(mesh=)``.
+With a sequence group or a mesh of ranks (``parallel/``, the
+counterpart of the JAX ``make_sharded_train_step``) every rank takes the
+same global batch and keeps its shard (its T-shard on a ring; its rows
+and T-shard on a mesh, ``parallel/sharding.py:shard_batch``); each runs
+its shard's forward and backward (through the ring or Ulysses on a
+sequence line), then the param gradients and the loss are summed over
+the ranks in one all-reduce and divided by the batch shards: the flat
+step. Clip, AdamW and the guard then run on identical values on every
+rank, so the params stay bit-identical across ranks. Eval goes through
+the mesh too, as JAX's ``make_eval_step(mesh=)``.
+
+``make_step_fn`` also takes JAX's three hooks, which
+``parallel/dp_step.py`` passes for its overlap and sharded steps:
+``param_sync`` maps the params inside each microbatch's loss (the
+per-bucket sync or gather, whose backward reduces that bucket's
+gradient), ``loss_sync`` the local loss to the global mean, and
+``grad_sync`` the accumulated gradients (with ``grad_acc_steps > 1``
+the microbatches then differentiate the local loss, as in JAX). Under
+FSDP the state's params are flat shards and ``layout``
+(``parallel/sharding.py:FsdpLayout``) computes the norms over them.
 """
 
 from __future__ import annotations
@@ -29,8 +41,12 @@ from differential_transformer_replication_tpu_torch.config import ModelConfig, T
 from differential_transformer_replication_tpu_torch.models import init_model, model_forward
 from differential_transformer_replication_tpu_torch.obs.introspect import group_norms
 from differential_transformer_replication_tpu_torch.ops.dropout import fold_seed
-from differential_transformer_replication_tpu_torch.parallel.mesh import all_reduce_sum_
+from differential_transformer_replication_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_sum_,
+)
 from differential_transformer_replication_tpu_torch.parallel.ring import use_ring
+from differential_transformer_replication_tpu_torch.parallel.sharding import shard_batch
 from differential_transformer_replication_tpu_torch.train.anomaly import (
     apply_guard,
     init_guard_state,
@@ -85,13 +101,34 @@ def shard_tokens(t: torch.Tensor, group) -> torch.Tensor:
     return t[..., group.rank * Tl:(group.rank + 1) * Tl]
 
 
-def make_grad_fn(cfg: TrainConfig, group=None):
+def _placement(group) -> tuple:
+    """(the mesh or None, the model's sequence view, the ranks the flat
+    sync spans or None, the batch shards) of a step's ``group``: None,
+    a ring's ``SequenceGroup``, or a ``parallel.Mesh``."""
+    if isinstance(group, Mesh):
+        return (group, group.sequence_group, group if group.size > 1 else None,
+                group.n_batch)
+    return None, group, group if use_ring(group) else None, 1
+
+
+def _local(t: torch.Tensor, mesh, sg) -> torch.Tensor:
+    """This rank's rows and T-shard of a (..., B, T) token array."""
+    if mesh is not None:
+        return shard_batch({"x": t}, mesh)["x"]
+    return shard_tokens(t, sg)
+
+
+def make_grad_fn(cfg: TrainConfig, group=None, param_sync=None,
+                 grad_sync=None):
     """``grads(params, batch, seed=None) -> (loss, grads)``: the mean loss
     (a 0-d tensor) and the param gradients (a list in :func:`leaves`
     order) of one optimizer step's ``grad_acc_steps`` microbatches,
     averaged; microbatch i runs with ``fold_seed(seed, i)``. With a
-    sequence group, of the global batch: each rank computes its shard's
-    terms and one all-reduce sums them.
+    sequence group or a mesh, of the global batch: each rank computes its
+    shard's terms and one all-reduce sums them (divided by the batch
+    shards). ``param_sync`` and ``grad_sync`` are JAX's hooks (module
+    docstring): the loss is then this rank's, for the caller's
+    ``loss_sync``.
 
     ``batch["poison"]``, present only while ``nan`` faults are armed
     (utils/faults.py), is one scale per microbatch: microbatch i's loss
@@ -99,19 +136,26 @@ def make_grad_fn(cfg: TrainConfig, group=None):
     and every gradient NaN (the failure the guard must catch) and 1.0
     changes nothing."""
     model_cfg = cfg.resolved_model()
+    mesh, sg, spans, n_batch = _placement(group)
+    hooked = param_sync is not None or grad_sync is not None
 
-    def grads_fn(params: dict, batch: dict, seed=None):
+    def grads_fn(params, batch: dict, seed=None):
         plist = leaves(params)
-        xs, ys = shard_tokens(batch["x"], group), shard_tokens(batch["y"], group)
+        xs, ys = _local(batch["x"], mesh, sg), _local(batch["y"], mesh, sg)
         poison = batch.get("poison")
         n_micro = xs.shape[0]
+        # JAX: one microbatch differentiates through param_sync; an
+        # accumulation does too unless grad_sync syncs after the loop
+        sync_each = param_sync is not None and (n_micro == 1 or grad_sync is None)
         grads = loss = None
         for i in range(n_micro):
             si = None if seed is None else fold_seed(seed, i)
-            li = loss_fn(params, xs[i], ys[i], model_cfg, si, group)
+            p = param_sync(params) if sync_each else params
+            li = loss_fn(p, xs[i], ys[i], model_cfg, si, sg)
             if poison is not None:
                 li = li * float(poison[i])
             gi = torch.autograd.grad(li, plist)
+            del p
             if grads is None:
                 grads, loss = list(gi), li.detach()
             else:
@@ -120,9 +164,13 @@ def make_grad_fn(cfg: TrainConfig, group=None):
         if n_micro > 1:
             grads = [g / n_micro for g in grads]
             loss = loss / n_micro
-        if use_ring(group):
+            if grad_sync is not None:
+                grads = grad_sync(grads)
+        if spans is not None and not hooked:
             flat = torch.cat([loss.reshape(1)] + [g.reshape(-1) for g in grads])
-            all_reduce_sum_(flat, group)
+            all_reduce_sum_(flat, spans)
+            if n_batch > 1:
+                flat.div_(n_batch)
             loss = flat[0]
             grads = list(torch.split(flat[1:], [g.numel() for g in grads]))
             grads = [g.view(p.shape) for g, p in zip(grads, plist)]
@@ -131,29 +179,41 @@ def make_grad_fn(cfg: TrainConfig, group=None):
     return grads_fn
 
 
-def make_step_fn(cfg: TrainConfig, group=None):
+def make_step_fn(cfg: TrainConfig, group=None, param_sync=None,
+                 loss_sync=None, grad_sync=None, layout=None):
     """``step(state, batch, seed=None) -> (state, metrics)``. ``batch`` is
     ``{"x": (A, B, T), "y": (A, B, T)}`` int64 with A = grad_acc_steps
-    (the global batch: with a sequence group each rank keeps its
-    T-shard). ``seed`` is the step's dropout seed (None: no dropout);
-    microbatch i runs with ``fold_seed(seed, i)``, as JAX folds ``i`` into
-    the step's key. The state is updated in place and returned; metrics
-    are host floats."""
+    (the global batch: with a sequence group or a mesh each rank keeps
+    its shard). ``seed`` is the step's dropout seed (None: no dropout);
+    microbatch i runs with ``fold_seed(seed, i)``, as JAX folds ``i``
+    into the step's key. The state is updated in place and returned;
+    metrics are host floats. The hooks and ``layout`` are JAX's (module
+    docstring)."""
     schedule = cosine_warmup_schedule(cfg.learning_rate, cfg.warmup_iters,
                                       cfg.max_iters, cfg.min_lr)
-    grads_fn = make_grad_fn(cfg, group)
+    grads_fn = make_grad_fn(cfg, group, param_sync, grad_sync)
 
     def step(state: dict, batch: dict, seed=None):
         params = state["params"]
         loss, grads = grads_fn(params, batch, seed)
-        gg = group_norms(unflatten(params, grads))
-        loss_f, norm_f = float(loss), float(global_norm(grads))
+        if loss_sync is not None:
+            # the global mean before the guard reads it: every rank must
+            # judge the same value
+            loss = loss_sync(loss)
+        if layout is None:
+            gg = group_norms(unflatten(params, grads))
+            groups = torch.cat([gg["embed"][None], gg["blocks"], gg["head"][None]])
+            norm_f = float(global_norm(grads))
+        else:
+            # the shards' squared sums, reduced over the fsdp line
+            sq = layout.group_sq(grads)
+            groups, norm_f = torch.sqrt(sq), float(torch.sqrt(sq.sum()))
+        loss_f = float(loss)
         metrics = {
             "loss": loss_f,
             "learning_rate": float(schedule(state["step"])),
             "grad_norm": norm_f,
-            "grad_norm_groups": torch.cat([gg["embed"][None], gg["blocks"],
-                                           gg["head"][None]]).tolist(),
+            "grad_norm_groups": groups.tolist(),
         }
 
         def do_update():
@@ -175,24 +235,29 @@ def make_step_fn(cfg: TrainConfig, group=None):
 
 
 def make_train_step(cfg: TrainConfig, group=None):
-    """The train step, on one card or (with a sequence group) on this
-    rank of the ring (PyTorch runs it eagerly; there is nothing to
-    compile)."""
+    """The train step, on one card or (with a sequence group or a mesh)
+    the flat step on this rank (PyTorch runs it eagerly; there is nothing
+    to compile). ``parallel/dp_step.py:make_sharded_train_step`` picks a
+    mesh's step."""
     return make_step_fn(cfg, group)
 
 
 def make_eval_step(cfg: TrainConfig, group=None):
     """``eval_step(params, x, y) -> loss`` (a 0-d tensor), no grad: the
-    attention runs its forward without residuals. With a sequence group,
-    of the global (B, T) batch through the ring, summed over the ranks."""
+    attention runs its forward without residuals. With a sequence group
+    or a mesh, of the global (B, T) batch: each rank's shard (through the
+    ring or Ulysses), summed over the ranks and divided by the batch
+    shards. The params are full trees (a sharded state is gathered
+    first)."""
     model_cfg = cfg.resolved_model()
+    mesh, sg, spans, n_batch = _placement(group)
 
     @torch.no_grad()
     def eval_step(params: dict, x: torch.Tensor, y: torch.Tensor):
-        loss = loss_fn(params, shard_tokens(x, group), shard_tokens(y, group),
-                       model_cfg, None, group)
-        if use_ring(group):
-            loss = all_reduce_sum_(loss.reshape(1), group)[0]
+        loss = loss_fn(params, _local(x, mesh, sg), _local(y, mesh, sg),
+                       model_cfg, None, sg)
+        if spans is not None:
+            loss = all_reduce_sum_(loss.reshape(1), spans)[0] / n_batch
         return loss
 
     return eval_step

@@ -38,13 +38,17 @@ registry and its Prometheus sidecar, the host span trace (obs/), the
 per-layer lambda records at each eval (obs/introspect.py) and a 5-step
 ``torch.profiler`` window (utils/profiling.py).
 
-``cfg.mesh.sequence`` = P > 1 trains sequence-parallel (JAX's sharded
-path on a ``sequence`` mesh): the process is one of P ranks started by
-``torchrun``, joins the ring over the backend the caller names
-(``parallel/mesh.py``), draws the same batches from the same seeds as
-every other rank and trains on its T-shard of them
-(``train/step.py``). Only rank 0 prints and writes metrics; the group is
-left on exit and on error.
+A mesh of more than one rank (``cfg.mesh``: ``data``, ``fsdp``,
+``sequence``) trains on JAX's sharded path: the process is one of the
+ranks started by ``torchrun``, joins the mesh over the backend the
+caller names (``parallel/mesh.py``), draws the same global batches from
+the same seeds as every other rank and trains on its shard of them
+(``parallel/dp_step.py:make_sharded_train_step``); eval runs through the
+mesh. Under fsdp the state at rest is this rank's shards: eval and the
+introspection records gather the params, and a checkpoint gathers the
+full state (every rank joins the gather, rank 0 writes); a resume loads
+the full state and keeps this rank's shards. Only rank 0 prints and
+writes; the mesh is left on exit and on error.
 """
 
 from __future__ import annotations
@@ -92,10 +96,14 @@ from differential_transformer_replication_tpu_torch.parallel.heartbeat import (
     FileHeartbeatTransport,
     Heartbeat,
 )
+from differential_transformer_replication_tpu_torch.parallel.dp_step import (
+    fsdp_layout,
+    make_sharded_train_step,
+)
 from differential_transformer_replication_tpu_torch.parallel.mesh import (
     all_reduce_sum_,
-    destroy_sequence_group,
-    init_sequence_group,
+    create_mesh,
+    destroy_mesh,
 )
 from differential_transformer_replication_tpu_torch.train.anomaly import (
     TrainingDivergedError,
@@ -247,10 +255,11 @@ def corpus_tokens(cfg: TrainConfig, say=print) -> tuple:
 
 
 def ring_corpus_tokens(cfg: TrainConfig, say, group) -> tuple:
-    """:func:`corpus_tokens` on a ring: rank 0 builds or loads the cache
-    entry while the other ranks wait on one all-reduce, then they load
-    it. So a host trains the BPE once, and one process writes
-    ``tokenizer_dir``. A failure on rank 0 is raised on every rank."""
+    """:func:`corpus_tokens` on a mesh of ranks (``group``: its world):
+    rank 0 builds or loads the cache entry while the other ranks wait on
+    one all-reduce, then they load it. So a host trains the BPE once, and
+    one process writes ``tokenizer_dir``. A failure on rank 0 is raised
+    on every rank."""
     if group.rank == 0:
         built = None
         try:
@@ -271,7 +280,7 @@ def build_data(cfg: TrainConfig, tokens_path: Optional[str], device, say=print,
     windows). With ``tokens_path`` the encoded stream is loaded and held
     against ``cfg.vocab_size`` (no tokenizer); without it the corpus is
     built or loaded from the cache (:func:`corpus_tokens`, through rank 0
-    first on a ring ``group``) and the vocab size is the tokenizer's. The
+    first on a mesh ``group``) and the vocab size is the tokenizer's. The
     stream is split 90/10."""
     tokenizer = None
     if tokens_path is None:
@@ -351,26 +360,25 @@ def train(cfg: TrainConfig, tokens_path: Optional[str] = None, device="cuda",
     pre-encoded stream at ``tokens_path`` or, when it is None, on
     ``cfg.dataset`` through the BPE (:func:`build_data`). Returns
     (final train state, per-step metrics list: the steps of the state's
-    own history, rolled-back steps left out). With ``cfg.mesh.sequence``
-    > 1 this process is one rank of the ring: ``dist_backend`` (``nccl``
-    or ``gloo``) must be named, and ``device`` picks cuda or cpu (gloo)."""
+    own history, rolled-back steps left out; under fsdp the state holds
+    this rank's shards). With a mesh of more than one rank
+    (``cfg.mesh.n_devices`` > 1) this process is one of its ranks:
+    ``dist_backend`` (``nccl`` or ``gloo``) must be named, and ``device``
+    picks cuda or cpu (gloo)."""
     # chaos-test fault injection (utils/faults.py); inert unless armed
     # by cfg.faults or the DTX_FAULTS variable
     faults.arm(cfg.faults)
     group = None
-    if cfg.mesh.sequence > 1:
+    if cfg.mesh.n_devices > 1:
         if dist_backend is None:
-            raise ValueError("sequence parallelism needs a named dist "
+            raise ValueError("a mesh of more than one rank needs a named dist "
                              "backend: 'nccl' (one card per rank) or 'gloo'")
-        group = init_sequence_group(dist_backend, str(torch.device(device).type))
+        group = create_mesh(cfg.mesh, dist_backend, str(torch.device(device).type))
     elif dist_backend is not None:
-        raise ValueError(f"dist backend {dist_backend!r} without sequence "
-                         "parallelism: set mesh.sequence > 1")
+        raise ValueError(f"dist backend {dist_backend!r} without a mesh of "
+                         "ranks: set a mesh axis > 1")
     logger = None
     try:
-        if group is not None and group.size != cfg.mesh.sequence:
-            raise ValueError(f"{group.size} ranks joined, mesh.sequence is "
-                             f"{cfg.mesh.sequence}")
         device = resolve_device(device) if group is None else group.device
         primary = group is None or group.rank == 0
         say = (lambda m: print(m, flush=True)) if primary else (lambda m: None)
@@ -381,13 +389,18 @@ def train(cfg: TrainConfig, tokens_path: Optional[str] = None, device="cuda",
                   else tokenizer_fingerprint(tokenizer))
         cfg, verify, info, n_skipped = resolve_resume(cfg, say, tokenizer)
         logger = MetricLogger(cfg, device, primary)
-        return _train_loop(cfg, (train_ds, val_ds), tok_fp, device, group,
-                           logger, verify, info, n_skipped)
+        out = _train_loop(cfg, (train_ds, val_ds), tok_fp, device, group,
+                          logger, verify, info, n_skipped)
+        if group is not None:
+            # rank 0 wrote the exit's checkpoints: the ranks leave together,
+            # so a run that follows in the same processes can resume them
+            all_reduce_sum_(torch.zeros(1, device=group.device), group)
+        return out
     finally:
         if logger is not None:
             logger.finish()  # a no-op when the loop's closers ran
         if group is not None:
-            destroy_sequence_group(group)
+            destroy_mesh(group)
 
 
 def _instruments(registry: Registry) -> dict:
@@ -501,7 +514,7 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
     watchdog = heartbeat = ckpt_writer = None
     profiler = ProfilerWindow(None, 0)
     prev_handler = None
-    state = metrics = None
+    state = metrics = layout = None
     iter_num = start_iter = 0
     history = []
     best_val_loss = float("inf")
@@ -529,7 +542,15 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
             state, best_val_loss = load_checkpoint(cfg.resume_from, cfg, state,
                                                    verify=resume_verify)
             logger.say(f"Resumed from {cfg.resume_from} at iter {state['step']}")
-        train_step = make_train_step(cfg, group)
+        layout = None
+        if group is None:
+            train_step = make_train_step(cfg)
+        else:
+            # under fsdp every rank keeps its shards of the full state
+            layout = fsdp_layout(cfg, group, state["params"])
+            if layout is not None:
+                state = layout.shard_state(state)
+            train_step = make_sharded_train_step(cfg, group, layout)
         eval_many = make_eval_many(cfg, group)
 
         # the epoch sampler's position is kept in WINDOWS CONSUMED, from
@@ -542,8 +563,8 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
             consumed_base = start_iter * batch_windows
 
         if cfg.sampler == "epoch":
-            # every window once per epoch; with a sequence group every rank
-            # draws the same offsets
+            # every window once per epoch; on a mesh every rank draws the
+            # same offsets
             perm = EpochPermutation(len(train_ds), cfg.seed)
             perm.epoch, perm.cursor = divmod(consumed_at(start_iter),
                                              len(train_ds))
@@ -658,7 +679,9 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
             pass  # not the main thread: SIGTERM keeps its handler
 
         where = (f"{device}" if group is None else
-                 f"{group.size} ranks over {group.backend} (rank 0 on {device})")
+                 f"{group.size} ranks (mesh data {cfg.mesh.data}, fsdp "
+                 f"{cfg.mesh.fsdp}, sequence {cfg.mesh.sequence}) over "
+                 f"{group.backend} (rank 0 on {device})")
         logger.say(f"Starting training on {where} ({model_cfg.model}, "
                    f"{model_cfg.n_layer} layers, width {model_cfg.n_embd}, "
                    f"{model_cfg.n_head} heads, {cfg.sampler} sampler)")
@@ -769,15 +792,16 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
             acc_step += step_wall
             acc_data += data_wait
             acc_n += 1
-            if cfg.ckpt_interval > 0 and iter_num % cfg.ckpt_interval == 0 \
-                    and primary:
+            ckpt_due = cfg.ckpt_interval > 0 and iter_num % cfg.ckpt_interval == 0
+            ckpt_state = _full_state(state, layout) if ckpt_due else state
+            if ckpt_due and primary:
                 # a failed periodic save does not stop a healthy run: it
                 # is printed and counted on the step's record
                 with tracer.span("ckpt_snapshot", iter=iter_num):
                     t_ck = time.perf_counter()
                     try:
                         blocked = save_step_checkpoint(
-                            ckpt_root, state, best_val_loss, cfg, tok_fp,
+                            ckpt_root, ckpt_state, best_val_loss, cfg, tok_fp,
                             writer=ckpt_writer, keep_last=cfg.ckpt_keep_last,
                             keep_every=cfg.ckpt_keep_every,
                             consumed_windows=consumed_at(iter_num))
@@ -838,16 +862,22 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
                                 gpu_memory_mb=mem)
             if iter_num % cfg.eval_interval == 0:
                 with tracer.span("eval", iter=iter_num):
-                    losses = estimate_loss(eval_many, state["params"],
+                    params = (state["params"] if layout is None
+                              else layout.gather_tree(state["params"]))
+                    losses = estimate_loss(eval_many, params,
                                            train_ds, val_ds, cfg, eval_rng)
                 logger.log_eval(iter_num, losses["train"], losses["val"])
                 with tracer.span("block", what="introspection"):
-                    summ = param_summary(state["params"])
+                    summ = param_summary(params)
                     record = {"record": "introspection", "iter": iter_num,
                               **lambda_record(summ, model_cfg,
                                               metrics.get("grad_norm_groups"))}
+                del params
                 logger.log_record(record)
                 if losses["val"] < best_val_loss:
+                    # every rank sees the same val loss: under fsdp they
+                    # all join the gather here
+                    best_state = _full_state(state, layout)
                     best_val_loss = losses["val"]
                     logger.say(f"Saving best model with val loss: "
                                f"{best_val_loss:.4f}")
@@ -859,7 +889,7 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
                         if primary:
                             t_b = time.perf_counter()
                             save_checkpoint(
-                                cfg.checkpoint_path, state, best_val_loss,
+                                cfg.checkpoint_path, best_state, best_val_loss,
                                 cfg, tok_fp,
                                 consumed_windows=consumed_at(iter_num))
                             logger.say(f"[ckpt] best checkpoint written to "
@@ -868,8 +898,9 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
                         best_snapshot = None
                         last_best_write = time.monotonic()
                     else:
-                        best_snapshot = snapshot_state(state)
+                        best_snapshot = snapshot_state(best_state)
                         best_snapshot_iter = iter_num
+                    del best_state
         dt = time.time() - t0
         logger.say(f"Training done: {tokens_seen} tokens in {dt:.1f}s "
                    f"({tokens_seen / max(dt, 1e-9):.0f} tokens/sec)")
@@ -890,11 +921,21 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
                 ("the metrics sidecar",
                  metrics_server and (lambda: _stop_server(metrics_server))),
             )
+            last_state, last_path = state, (
+                None if ckpt_writer is not None and not ckpt_writer.drained
+                else last_ckpt_path)
+            if layout is not None and state is not None:
+                if crashed:
+                    # the gather needs every rank, and after a failure one
+                    # may be gone: the last checkpoint stays as it was
+                    last_path = None
+                    logger.say("[ckpt] skipping last-checkpoint save: an fsdp "
+                               "run that failed cannot gather its shards")
+                else:
+                    last_state = _full_state(state, layout)
             if primary and state is not None:
                 _finish_checkpoints(
-                    cfg, state, metrics, best_val_loss, in_step,
-                    None if ckpt_writer is not None and not ckpt_writer.drained
-                    else last_ckpt_path,
+                    cfg, last_state, metrics, best_val_loss, in_step, last_path,
                     consumed_at(iter_num), best_snapshot,
                     consumed_at(best_snapshot_iter), crashed, logger, tok_fp)
             if errors:
@@ -903,6 +944,12 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
             if prev_handler is not None:
                 signal.signal(signal.SIGTERM, prev_handler)
     return state, history
+
+
+def _full_state(state: dict, layout) -> dict:
+    """The full train state: ``state`` itself, or under fsdp the gather
+    of its shards, which every rank must join."""
+    return state if layout is None else layout.gather_state(state)
 
 
 def _close_tracer(tracer, logger: MetricLogger) -> None:

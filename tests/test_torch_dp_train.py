@@ -1,0 +1,109 @@
+"""The trainer's command line on a mesh of ranks, and checkpoints across
+mesh shapes, on the CPU.
+
+Ranks are processes of ``tests/torch_ring_worker.py`` (task ``clis``:
+several trainer command lines in turn on one launch of ranks, each run
+joining the world's group; ``file://`` rendezvous under ``tmp_path``, a
+time limit on the launch). Held here:
+
+- ``--data-parallel 2``, ``--fsdp 2`` and ``--sequence-parallel 2
+  --sequence-impl ulysses``, each with ``--dist-backend gloo --device
+  cpu``, train two steps with an eval through the mesh; every rank
+  reports the same losses;
+- elastic resume, twins of JAX ``tests/test_elastic.py:190-235`` at the
+  port's tiny size: a ``data=2`` run's last checkpoint resumed at
+  ``data=2`` twice (byte-identical ``state.msgpack``), at ``data=1`` (in
+  this process) and at ``fsdp=2`` gives loss trajectories equal within
+  rtol 1e-5;
+- an fsdp save (the gathered full state) loads in the JAX package's
+  ``load_checkpoint`` and equals the ``data=2`` run's state within the
+  step tolerance (2e-5).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import jax
+import numpy as np
+
+from differential_transformer_replication_tpu.config import (
+    ModelConfig as JModelConfig,
+    TrainConfig as JTrainConfig,
+)
+from differential_transformer_replication_tpu.train import checkpoint as jckpt
+from differential_transformer_replication_tpu.train.step import (
+    create_train_state as j_create_train_state,
+)
+from differential_transformer_replication_tpu_torch.train import __main__ as cli
+
+import torch_ring_worker  # tests/: torch and the port only
+
+RANK_TIMEOUT_S = 240
+TINY_ARGS = ["--model", "diff", "--device", "cpu", "--n-embd", "32", "--n-head", "2",
+             "--n-layer", "2", "--block-size", "32", "--vocab-size", "64",
+             "--micro-batch-size", "4", "--eval-interval", "2", "--eval-iters", "1",
+             "--warmup-iters", "1", "--learning-rate", "3e-3", "--compute-dtype",
+             "float32", "--metrics-path", "", "--seed", "5"]
+
+
+def _state_bytes(run) -> bytes:
+    return open(os.path.join(run, "last.ckpt", "state.msgpack"), "rb").read()
+
+
+def test_mesh_command_lines_train_and_resume_across_mesh_shapes(tmp_path):
+    rng = np.random.default_rng(51)
+    tokens = tmp_path / "tokens.npy"
+    np.save(tokens, ((rng.zipf(1.3, 20000) - 1) % 64).astype(np.int32))
+
+    def argv(name, *extra, steps=2, resume=None):
+        run = tmp_path / name
+        a = TINY_ARGS + ["--tokens", str(tokens), "--max-iters", str(steps),
+                         "--checkpoint-path", str(run / "best.ckpt"),
+                         "--last-checkpoint-path", str(run / "last.ckpt"), *extra]
+        if resume:
+            a += ["--resume-from", str(tmp_path / resume / "last.ckpt")]
+        return a
+
+    gloo = ["--dist-backend", "gloo"]
+    runs = [argv("dp", "--data-parallel", "2", *gloo),
+            argv("fsdp", "--fsdp", "2", *gloo),
+            argv("uly", "--sequence-parallel", "2", "--sequence-impl", "ulysses",
+                 "--dropout", "0.1", *gloo),
+            # the elastic chain: a data=2 base, then its resumes
+            argv("base", "--data-parallel", "2", *gloo, steps=4),
+            argv("dp_a", "--data-parallel", "2", *gloo, steps=6, resume="base"),
+            argv("dp_b", "--data-parallel", "2", *gloo, steps=6, resume="base"),
+            argv("fsdp_c", "--fsdp", "2", *gloo, steps=6, resume="base")]
+    outs = torch_ring_worker.run_ranks("clis", 2, tmp_path / "ranks",
+                                       {"runs": np.array(json.dumps(runs))},
+                                       RANK_TIMEOUT_S)
+    for k in range(3):
+        losses = outs[0][f"losses{k}"]
+        assert len(losses) == 2 and np.all(np.isfinite(losses)), k
+        # the loss is reduced over the mesh: every rank reports the same one
+        assert np.array_equal(outs[1][f"losses{k}"], losses), k
+    # two resumes of one checkpoint: byte-identical states, moments included
+    assert _state_bytes(tmp_path / "dp_a") == _state_bytes(tmp_path / "dp_b")
+    meta = json.load(open(tmp_path / "dp_a" / "last.ckpt" / "meta.json"))
+    assert meta["consumed_windows"] == 6 * 4
+    # data=1 in this process, from the same checkpoint
+    _, history = cli.run(argv("one", steps=6, resume="base"))
+    la, lc = outs[0]["losses4"], outs[0]["losses6"]
+    lb = np.array([m["loss"] for m in history])
+    assert len(la) == len(lb) == len(lc) == 2
+    np.testing.assert_allclose(la, lb, rtol=1e-5)
+    np.testing.assert_allclose(la, lc, rtol=1e-5)
+    # the fsdp run's save is the gathered full state, in the JAX format
+    jcfg = JTrainConfig(model=JModelConfig(model="diff", vocab_size=64, n_embd=32,
+                                           n_head=2, n_layer=2, block_size=32,
+                                           compute_dtype="float32"), vocab_size=64)
+    target = j_create_train_state(jax.random.PRNGKey(0), jcfg)
+    got, _ = jckpt.load_checkpoint(str(tmp_path / "fsdp_c" / "last.ckpt"), jcfg, target)
+    target = j_create_train_state(jax.random.PRNGKey(0), jcfg)
+    want, _ = jckpt.load_checkpoint(str(tmp_path / "dp_a" / "last.ckpt"), jcfg, target)
+    assert int(got["step"]) == int(want["step"]) == 6
+    for a, b in zip(jax.tree_util.tree_leaves(got["params"]),
+                    jax.tree_util.tree_leaves(want["params"])):
+        assert float(np.max(np.abs(np.asarray(a) - np.asarray(b)))) <= 2e-5

@@ -64,7 +64,9 @@ def test_every_module_imports_without_jax():
     # the walk reaches every subpackage, the sequence-parallel ring included
     for sub in ("ops", "models", "serving", "train", "parallel", "obs", "utils"):
         assert f"{PKG}.{sub}" in mods, sub
-    assert {f"{PKG}.parallel.mesh", f"{PKG}.parallel.ring"} <= set(mods)
+    assert {f"{PKG}.parallel.mesh", f"{PKG}.parallel.ring",
+            f"{PKG}.parallel.ulysses", f"{PKG}.parallel.sharding",
+            f"{PKG}.parallel.dp_step"} <= set(mods)
     # the fleet front: router, predictive admission, fleet supervisor,
     # and the control plane over them
     assert set(FLEET_FRONT) <= set(mods)
@@ -78,6 +80,9 @@ def test_every_module_imports_without_jax():
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        # the parallel package's exports, the lazy ones included
+        f"from {PKG}.parallel import (create_mesh, make_sharded_train_step,\n"
+        "    shard_batch, ulysses_multi_stream_attention)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -535,19 +535,24 @@ def test_cli_trains_sequence_parallel_from_the_corpus_over_gloo(tmp_path):
 
 
 def test_cli_refuses_ulysses_and_a_bad_split():
+    """Ulysses runs where the heads split over the sequence ranks; it is
+    refused, with JAX's text, where they do not. The axes
+    still to come are refused with their ROADMAP item."""
     with pytest.raises(SystemExit):
         cli.run(["--tokens", "t.npy", "--sequence-parallel", "2",
-                 "--sequence-impl", "ulysses", "--dist-backend", "gloo"])
-    with pytest.raises(NotImplementedError, match="Ulysses"):
-        TrainConfig(model=ModelConfig(sequence_impl="ulysses"),
-                    mesh=MeshConfig(sequence=2))
+                 "--tensor-parallel", "2", "--dist-backend", "gloo"])
+    with pytest.raises(ValueError, match="local heads divisible"):
+        TrainConfig(model=ModelConfig(model="diff", sequence_impl="ulysses"),
+                    mesh=MeshConfig(sequence=8), control_head_multiplier=1)
+    assert TrainConfig(model=ModelConfig(model="diff", sequence_impl="ulysses"),
+                       mesh=MeshConfig(sequence=2)).mesh.sequence == 2
     with pytest.raises(ValueError, match="equal sequence shards"):
         TrainConfig(model=ModelConfig(block_size=97), mesh=MeshConfig(sequence=2))
     # a shard off the kernels' 32-row tile grid is fine: they mask past it
     assert TrainConfig(model=ModelConfig(block_size=100),
                        mesh=MeshConfig(sequence=2)).mesh.sequence == 2
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MeshConfig(data=2)
+        MeshConfig(tensor=2)
     args = cli.build_parser().parse_args(["--tokens", "t.npy", "--sequence-parallel", "4",
                                           "--block-size", "1024"])
     assert args.dist_backend == "nccl"

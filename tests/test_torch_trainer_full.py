@@ -382,8 +382,29 @@ def test_cli_takes_each_full_trainer_flag_as_train_py_does(flag, value, field, w
     ("--dp-bucket-layers", "parallelism, item 9"),
 ])
 def test_cli_still_refuses_later_items_naming_them(flag, item, capsys):
+    """A flag of a later item is refused naming it. The data-parallel
+    flags of item 9 run now: each is taken as the root
+    ``train.py`` takes it."""
+    import importlib.util
+
     from differential_transformer_replication_tpu_torch.train import __main__ as cli
 
+    if flag not in cli.LATER_FLAGS:
+        assert flag in ("--data-parallel", "--fsdp", "--no-dp-overlap",
+                        "--dp-bucket-layers")
+        spec = importlib.util.spec_from_file_location(
+            "root_train", Path(__file__).resolve().parents[1] / "train.py")
+        jtrain = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(jtrain)
+        argv = [flag] if flag == "--no-dp-overlap" else [flag, "2"]
+        assert not cli.refused_flags(argv)
+        got = cli.config_from_args(cli.build_parser().parse_args(argv))
+        want = jtrain.config_from_args(jtrain.build_parser().parse_args(argv))
+        for field in ("dp_overlap", "dp_bucket_layers"):
+            assert getattr(got, field) == getattr(want, field)
+        for axis in ("data", "fsdp", "tensor", "sequence", "pipeline"):
+            assert getattr(got.mesh, axis) == getattr(want.mesh, axis)
+        return
     with pytest.raises(SystemExit):
         cli.run([flag, "1"])
     assert f"ROADMAP Queue A: {item}" in capsys.readouterr().err

@@ -1,6 +1,6 @@
 """One rank of the port's sequence-parallel ring, for the ring tests.
 
-    python tests/torch_ring_worker.py TASK DIR
+    python tests/torch_ring_worker.py TASK[+TASK...] DIR
 
 is started P times by :func:`run_ranks` (from ``tests/test_torch_ring.py``
 on the CPU and ``tests/test_torch_gpu.py`` on one card, gloo both), with
@@ -23,7 +23,20 @@ through a ``file://`` rendezvous in DIR (no TCP port), reads
   each model config given, from the same params and batch (remat and the
   chunked loss against the plain step);
 - ``cli``: the trainer's command line with the arguments given;
-- ``cli_corpus``: ``cli``, with the rank's BPE trainings counted.
+- ``cli_corpus``: ``cli``, with the rank's BPE trainings counted;
+- ``clis``: ``cli`` for each command line of a list, in turn;
+- ``mesh_step``: on a mesh of the world's ranks (``create_mesh`` over
+  data, fsdp, sequence), one ``make_sharded_train_step`` step per case
+  given, from the same full train state and global batch: the metrics,
+  the updated params (gathered under fsdp), the elements each rank holds
+  at rest, and every collective the step issued (kind and size, in
+  order);
+- ``mesh_attention``: on such a mesh, each rank's attention on its batch
+  rows (and T-shard) with the seed words of its mesh position, forward
+  and backward: the flat path's ``flash_bh``, or the ring over the
+  sequence line;
+- ``ulysses``: ``ulysses_multi_stream_attention`` on this rank's shards,
+  forward and backward, for each coefficient set and dropout rate given.
 """
 
 from __future__ import annotations
@@ -136,7 +149,9 @@ def task_wrappers(sg, inp):
 
 def _params(inp, cfg, prefix, device):
     template = init_model(torch.Generator().manual_seed(0), cfg)
-    flat = [_t(inp[f"{prefix}{i}"], device) for i in range(len(leaves(template)))]
+    # fresh copies: a step updates them in place
+    flat = [_t(inp[f"{prefix}{i}"], device).clone()
+            for i in range(len(leaves(template)))]
     return unflatten(template, flat)
 
 
@@ -208,6 +223,18 @@ def task_cli(sg, inp):
     return {"losses": np.array([m["loss"] for m in history], np.float64)}
 
 
+def task_clis(sg, inp):
+    """``cli`` for each command line of the JSON list ``inp["runs"]``, in
+    turn (each run joins the world's group and leaves its own)."""
+    from differential_transformer_replication_tpu_torch.train.__main__ import run
+
+    out = {}
+    for k, argv in enumerate(json.loads(str(inp["runs"]))):
+        _, history = run([str(a) for a in argv])
+        out[f"losses{k}"] = np.array([m["loss"] for m in history], np.float64)
+    return out
+
+
 def task_cli_corpus(sg, inp):
     from differential_transformer_replication_tpu_torch.train import trainer
 
@@ -221,9 +248,171 @@ def task_cli_corpus(sg, inp):
     return {**task_cli(sg, inp), "bpe_trainings": np.array(len(trained))}
 
 
+def _counting(log):
+    """Wrap the collectives the mesh step's modules call so that each
+    call appends (kind, elements) to ``log``; returns the undo."""
+    from differential_transformer_replication_tpu_torch.parallel import dp_step, sharding
+    from differential_transformer_replication_tpu_torch.train import step as step_mod
+
+    saved = []
+    for mod, name, kind in ((dp_step, "all_reduce_sum_", "all_reduce"),
+                            (step_mod, "all_reduce_sum_", "all_reduce"),
+                            (sharding, "all_reduce_sum_", "all_reduce"),
+                            (sharding, "reduce_scatter_", "reduce_scatter"),
+                            (sharding, "all_gather_", "all_gather")):
+        real = getattr(mod, name)
+
+        def wrapped(*a, _real=real, _kind=kind):
+            t = a[0] if _kind == "all_reduce" else a[1]
+            if a[-1].size > 1:
+                log.append((_kind, int(t.numel())))
+            return _real(*a)
+
+        saved.append((mod, name, real))
+        setattr(mod, name, wrapped)
+
+    def undo():
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+    return undo
+
+
+def task_mesh_step(sg, inp):
+    from differential_transformer_replication_tpu_torch.parallel import (
+        create_mesh,
+        destroy_mesh,
+    )
+    from differential_transformer_replication_tpu_torch.parallel.dp_step import (
+        fsdp_layout,
+        make_sharded_train_step,
+    )
+
+    meta = json.loads(str(inp["meta"]))
+    out = {}
+    for c, case in enumerate(meta["cases"]):
+        cfg = TrainConfig(model=ModelConfig(**dict(meta["model"], **case.get("model", {}))),
+                          mesh=MeshConfig(**case["mesh"]),
+                          **dict(meta["train"], **case.get("train", {})))
+        mesh = create_mesh(cfg.mesh, "gloo", str(sg.device))
+        try:
+            mcfg = cfg.resolved_model()
+            dev = mesh.device
+            params = _params(inp, mcfg, "p", dev)
+            for t in leaves(params):
+                t.requires_grad_(True)
+            state = {"params": params,
+                     "opt_state": {"mu": _params(inp, mcfg, "mu", dev),
+                                   "nu": _params(inp, mcfg, "nu", dev),
+                                   "count": int(meta["count"])},
+                     "step": int(meta["step"])}
+            g = meta["guard"]
+            state["guard"] = {"ema": np.float32(g["ema"]), "good_steps": g["good_steps"],
+                              "bad_streak": g["bad_streak"], "skipped": g["skipped"]}
+            layout = fsdp_layout(cfg, mesh, state["params"])
+            if layout is not None:
+                state = layout.shard_state(state)
+                opt = state["opt_state"]
+                out[f"{c}_rest"] = np.array([sum(t.numel() for t in ts) for ts in (
+                    state["params"], opt["mu"], opt["nu"])])
+            step = make_sharded_train_step(cfg, mesh, layout)
+            x = case.get("x", "x")
+            batch = {"x": _t(inp[x], dev), "y": _t(inp[case.get("y", "y")], dev)}
+            log = []
+            undo = _counting(log)
+            try:
+                state, m = step(state, batch, case.get("seed"))
+            finally:
+                undo()
+            full = state if layout is None else layout.gather_state(state)
+            out[f"{c}_loss"] = np.float32(m["loss"])
+            out[f"{c}_grad_norm"] = np.float32(m["grad_norm"])
+            out[f"{c}_groups"] = np.array(m["grad_norm_groups"], np.float32)
+            out[f"{c}_calls"] = np.array([[("all_reduce", "reduce_scatter",
+                                            "all_gather").index(k), n] for k, n in log],
+                                         np.int64).reshape(-1, 2)
+            for i, t in enumerate(leaves(full["params"])):
+                out[f"{c}_p{i}"] = _np(t).copy()
+            out[f"{c}_coords"] = np.array(mesh.coords)
+        finally:
+            destroy_mesh(mesh)
+    return out
+
+
+def task_mesh_attention(sg, inp):
+    from differential_transformer_replication_tpu_torch.ops.flash import flash_bh
+    from differential_transformer_replication_tpu_torch.parallel import (
+        create_mesh,
+        destroy_mesh,
+    )
+
+    meta = json.loads(str(inp["meta"]))
+    out = {}
+    for c, case in enumerate(meta["cases"]):
+        mesh = create_mesh(MeshConfig(**case["mesh"]), "gloo", str(sg.device))
+        try:
+            dev = mesh.device
+            qs, ks, v = (_t(inp[k], dev) for k in ("qs", "ks", "v"))
+            S, B, T, H, d = qs.shape
+            dv = v.shape[-1]
+            n, b = mesh.n_batch, mesh.batch_index
+            seq = mesh.sequence_group
+            rows, Tl = slice(b * B // n, (b + 1) * B // n), T // seq.size
+            cols = slice(seq.rank * Tl, (seq.rank + 1) * Tl)
+            ql = qs[:, rows, cols].clone().requires_grad_(True)
+            kl = ks[:, rows, cols].clone().requires_grad_(True)
+            vl = v[rows, cols].clone().requires_grad_(True)
+            coeffs = _t(inp["coeffs"], dev).requires_grad_(True)
+            words = torch.from_numpy(inp["words"][mesh.position].reshape(1, 2))
+            if seq.size > 1:
+                o = ring_multi_stream_attention(ql, kl, vl, coeffs, seq,
+                                                dropout_rate=case["rate"],
+                                                dropout_seed=words)
+            else:
+                Bl = ql.shape[1]
+                q_r = ql.permute(1, 3, 0, 2, 4).reshape(Bl * H, S, Tl, d)
+                k_r = kl.permute(1, 3, 0, 2, 4).reshape(Bl * H, S, Tl, d)
+                v_r = vl.permute(0, 2, 1, 3).reshape(Bl * H, Tl, dv)
+                o = flash_bh(q_r, k_r, v_r, coeffs, words, H, case["rate"])
+                o = o.reshape(Bl, H, Tl, dv).transpose(1, 2)
+            o.backward(_t(inp["g"], dev)[rows, cols])
+            for name, t in (("out", o), ("dqs", ql.grad), ("dks", kl.grad),
+                            ("dv", vl.grad), ("dcoeffs", coeffs.grad)):
+                out[f"{c}_{name}"] = _np(t)
+            out[f"{c}_where"] = np.array([b, seq.rank, mesh.position])
+        finally:
+            destroy_mesh(mesh)
+    return out
+
+
+def task_ulysses(sg, inp):
+    from differential_transformer_replication_tpu_torch.parallel import ulysses
+
+    dev, P, r = sg.device, sg.size, sg.rank
+    out = {}
+    for i, rate in enumerate(inp["rates"].tolist()):
+        Tl = inp[f"qs{i}"].shape[2] // P
+        sl = slice(r * Tl, (r + 1) * Tl)
+        qs = _t(inp[f"qs{i}"][:, :, sl], dev).requires_grad_(True)
+        ks = _t(inp[f"ks{i}"][:, :, sl], dev).requires_grad_(True)
+        v = _t(inp[f"v{i}"][:, sl], dev).requires_grad_(True)
+        c = _t(inp[f"coeffs{i}"], dev).requires_grad_(True)
+        seed = torch.from_numpy(inp["words"][r].reshape(1, 2)) if rate > 0 else None
+        ulysses.reset_exchange_stats()
+        o = ulysses.ulysses_multi_stream_attention(qs, ks, v, c, sg, dropout_rate=rate,
+                                                   dropout_seed=seed)
+        o.backward(_t(inp[f"g{i}"][:, sl], dev))
+        out[f"exchanges{i}"] = np.int64(ulysses.EXCHANGE["calls"])
+        for name, t in (("out", o), ("dqs", qs.grad), ("dks", ks.grad),
+                        ("dv", v.grad), ("dcoeffs", c.grad)):
+            out[f"{name}{i}"] = _np(t)
+    return out
+
+
 TASKS = {"rotate": task_rotate, "ring": task_ring, "wrappers": task_wrappers,
          "model": task_model, "step": task_step, "grads": task_grads, "cli": task_cli,
-         "cli_corpus": task_cli_corpus}
+         "cli_corpus": task_cli_corpus, "clis": task_clis, "mesh_step": task_mesh_step,
+         "mesh_attention": task_mesh_attention, "ulysses": task_ulysses}
 
 
 def start_ranks(task: str, P: int, d: Path, inputs: dict, timeout: float,
@@ -271,7 +460,11 @@ def main() -> int:
                             rank=rank, world_size=size)
     sg = init_sequence_group("gloo", device)
     try:
-        out = TASKS[task](sg, inp)
+        if "+" in task:  # several tasks in turn, each output key "task/key"
+            out = {f"{name}/{k}": v for name in task.split("+")
+                   for k, v in TASKS[name](sg, inp).items()}
+        else:
+            out = TASKS[task](sg, inp)
     finally:
         destroy_sequence_group(sg)
         dist.destroy_process_group()
