@@ -206,22 +206,29 @@ these phases, each printing its own lines and its seconds:
    train-mesh, tasks of the same two launches (``parallel/dp_step.py``):
    the P = 2 launch runs Ulysses (``--sequence-parallel 2
    --sequence-impl ulysses``) for the diff at T 8192 at the ring runs'
-   depth, dropout 0.1, and then, the card its alone, the diff recipe at
+   depth, dropout 0.1, control at ``--tensor-parallel 2`` at that depth,
+   T 512, dropout 0.1 (the head-major kernels on 4 of its 8 heads, the
+   evals on kernel D), and then, the card its alone, the diff recipe at
    full width and depth (8 layers, T 512, dropout 0, global micro-batch
    32, bf16) at ``--data-parallel 2`` (the overlap path), with
-   ``--no-dp-overlap`` (the flat path) and at ``--fsdp 2``; the P = 4
-   launch runs ``--data-parallel 2 --sequence-parallel 2`` over the ring
-   at T 8192 and ``--data-parallel 2 --fsdp 2`` on the recipe's width at
-   2 of its layers (the launches start before train-e2e and run beside
-   it, train-ckpt and train-full; the runs that time the card alone wait
-   for those to end); each with
+   ``--no-dp-overlap`` (the flat path), at ``--fsdp 2`` and at
+   ``--tensor-parallel 2`` (Megatron: 2 of the 4 heads, the SwiGLU at F
+   1536, the vocab split; ``parallel/regions.py``); the P = 4 launch
+   runs ``--data-parallel 2 --sequence-parallel 2`` and
+   ``--tensor-parallel 2 --sequence-parallel 2`` over the ring at T 8192,
+   and ``--data-parallel 2 --fsdp 2`` and ``--data-parallel 2
+   --tensor-parallel 2`` on the recipe's width at 2 layers (the launches
+   start before train-e2e and run beside it, train-ckpt and train-full;
+   the runs that time the card alone wait for those to end); each with
    exact launches per kernel (or route) and rank, losses equal on every
    rank and falling on a repeated batch, params identical on every rank
-   (gathered under fsdp), ms per step, tokens/s, the collectives' host
-   time per step and each rank's peak and state at rest (fsdp's about
-   half of data's), beside a one-rank step of the recipe; with two or
-   more cards ``--data-parallel 2`` again over nccl (else a line says
-   the leg was not run);
+   (gathered under tensor and fsdp, so a tensor line's replicated leaves
+   are bit-identical), ms per step, tokens/s, the collectives' calls,
+   bytes and host time per step and each rank's peak and state at rest
+   (fsdp's and tensor's about half of data's), beside a one-rank step of
+   the recipe; with two or more cards ``--data-parallel 2`` and
+   ``--tensor-parallel 2`` again over nccl (else a line says the leg was
+   not run);
 6. train e2e: one train step of a 2-layer diff model at recipe width in
    fp32, loss and every gradient on the card (kernels) against the CPU
    (plain versions); again at T 640 through the head-major route;
@@ -230,9 +237,11 @@ these phases, each printing its own lines and its seconds:
    runs the ring's exchanges again in the backward), over P 2 and 4 gloo
    ranks on the card against the same single-card head-major step (loss,
    grads, updated params); train-mesh-e2e, beside it: one fp32 diff step
-   at ``data=2`` (overlap), ``fsdp=2``, ``data=2, sequence=2`` and
-   Ulysses ``sequence`` 2 and 4, against the single-card step of the same
-   global batch (micro-batch 2 where the data axes split it);
+   at ``data=2`` (overlap), ``fsdp=2``, ``data=2, sequence=2``, Ulysses
+   ``sequence`` 2 and 4, ``tensor=2``, ``data=2, tensor=2``, ``fsdp=2,
+   tensor=2`` and ``tensor=2, sequence=2`` (the ring, and Ulysses),
+   against the single-card step of the same global batch (micro-batch 2
+   where the data axes split it);
 7. train-ckpt: the default recipe from text, with checkpoints, through
    the command lines, each in a process of its own (``chip_smoke.py
    --cli-worker``: the trainer's, the server's or the sampler's ``main``
@@ -5109,41 +5118,62 @@ def check_ring_e2e(torch, P: int, ref: dict, recs: list, out: str) -> None:
 # launches' ranks (parallel/dp_step.py, parallel/ulysses.py)
 # ---------------------------------------------------------------------------
 
-# (label, mesh flags, T, global micro-batch, steps, layers, dropout, alone):
-# the runs of each launch, by its P; "alone" runs after the P = 4 launch
-# ended, the card theirs alone (their times are the ones to read)
+# (label, mesh flags, T, global micro-batch, steps, layers, dropout, alone,
+# model): the runs of each launch, by its P; "alone" runs after the P = 4
+# launch ended, the card theirs alone (their times are the ones to read)
 MESH_RUNS = {
     2: (("ulysses P=2 T=8192", ("--sequence-parallel", "2", "--sequence-impl", "ulysses"),
-         8192, 2, 3, RING_LAYERS, HM_RATE, False),
-        ("data=2 recipe", ("--data-parallel", "2"), 512, TRAIN_B, 3, 8, 0.0, True),
+         8192, 2, 3, RING_LAYERS, HM_RATE, False, "diff"),
+        ("tensor=2 control dropout", ("--tensor-parallel", "2"), 512, TRAIN_B, 3,
+         RING_LAYERS, HM_RATE, False, "control"),
+        ("data=2 recipe", ("--data-parallel", "2"), 512, TRAIN_B, 3, 8, 0.0, True, "diff"),
         ("data=2 no-overlap recipe", ("--data-parallel", "2", "--no-dp-overlap"), 512,
-         TRAIN_B, 3, 8, 0.0, True),
-        ("fsdp=2 recipe", ("--fsdp", "2"), 512, TRAIN_B, 3, 8, 0.0, True)),
-    # the P = 4 recipe run at 2 of the 8 layers: it holds up the P = 2
+         TRAIN_B, 3, 8, 0.0, True, "diff"),
+        ("fsdp=2 recipe", ("--fsdp", "2"), 512, TRAIN_B, 3, 8, 0.0, True, "diff"),
+        ("tensor=2 recipe", ("--tensor-parallel", "2"), 512, TRAIN_B, 3, 8, 0.0, True,
+         "diff")),
+    # the P = 4 recipe runs at 2 of the 8 layers: they hold up the P = 2
     # launch's runs alone on the card (the smoke's time limit)
     4: (("data=2 sequence=2 T=8192", ("--data-parallel", "2", "--sequence-parallel", "2"),
-         8192, 2, 3, RING_LAYERS, HM_RATE, False),
+         8192, 2, 3, RING_LAYERS, HM_RATE, False, "diff"),
+        ("tensor=2 sequence=2 T=8192", ("--tensor-parallel", "2", "--sequence-parallel",
+                                         "2"), 8192, 2, 3, RING_LAYERS, HM_RATE, False,
+         "diff"),
         ("data=2 fsdp=2 recipe", ("--data-parallel", "2", "--fsdp", "2"), 512, TRAIN_B,
-         3, 2, 0.0, False)),
+         3, 2, 0.0, False, "diff"),
+        ("data=2 tensor=2 recipe", ("--data-parallel", "2", "--tensor-parallel", "2"), 512,
+         TRAIN_B, 3, 2, 0.0, False, "diff")),
 }
 # the train-mesh-e2e steps: (label, mesh, micro-batch, sequence_impl) per P
 MESH_E2E = {2: (("data=2", {"data": 2}, 2, "ring"), ("fsdp=2", {"fsdp": 2}, 2, "ring"),
-                ("ulysses sequence=2", {"sequence": 2}, 1, "ulysses")),
+                ("ulysses sequence=2", {"sequence": 2}, 1, "ulysses"),
+                ("tensor=2", {"tensor": 2}, 2, "ring")),
             4: (("data=2 sequence=2", {"data": 2, "sequence": 2}, 2, "ring"),
-                ("ulysses sequence=4", {"sequence": 4}, 1, "ulysses"))}
+                ("ulysses sequence=4", {"sequence": 4}, 1, "ulysses"),
+                ("data=2 tensor=2", {"data": 2, "tensor": 2}, 2, "ring"),
+                ("fsdp=2 tensor=2", {"fsdp": 2, "tensor": 2}, 2, "ring"),
+                ("tensor=2 sequence=2", {"tensor": 2, "sequence": 2}, 1, "ring"),
+                ("ulysses tensor=2 sequence=2", {"tensor": 2, "sequence": 2}, 1,
+                 "ulysses"))}
 
 
 def _mesh_of(torch, cfg, backend: str):
     """This rank's mesh for ``cfg`` over the launch's world, and the FSDP
-    layout of ``cfg``'s params (None without fsdp)."""
+    layout of ``cfg``'s params (None without fsdp; under tensor, of the
+    rank's tensor shard)."""
     from differential_transformer_replication_tpu_torch.models import init_model
     from differential_transformer_replication_tpu_torch.parallel import create_mesh
     from differential_transformer_replication_tpu_torch.parallel.dp_step import fsdp_layout
+    from differential_transformer_replication_tpu_torch.parallel.sharding import (
+        tensor_layout,
+    )
 
     mesh = create_mesh(cfg.mesh, backend, "cuda")
     layout = None
     if cfg.mesh.fsdp > 1:  # the layout reads only the tree's shapes
-        layout = fsdp_layout(cfg, mesh, init_model(torch.Generator(), cfg.resolved_model()))
+        params = init_model(torch.Generator(), cfg.resolved_model())
+        tl = tensor_layout(mesh)
+        layout = fsdp_layout(cfg, mesh, params if tl is None else tl.shard_tree(params))
     return mesh, layout
 
 
@@ -5159,9 +5189,10 @@ def _params_checksum(torch, params) -> str:
 def mesh_train_task(torch, sg, spec: dict) -> dict:
     """A trainer run on this rank of a mesh (the CLI's ``run``): launches
     by kernel and route, losses, peak and state at rest, the params'
-    checksum (gathered under fsdp); then steps on one repeated batch, each
-    timed with its collectives' host time; with ``spec["after"]``, once
-    that file exists (the card this launch's alone)."""
+    checksum (gathered under tensor and fsdp: a tensor line's replicated
+    leaves are each rank's own copies); then steps on one repeated batch,
+    each timed with its collectives' host time; with ``spec["after"]``,
+    once that file exists (the card this launch's alone)."""
     from differential_transformer_replication_tpu_torch.ops import flash
     from differential_transformer_replication_tpu_torch.ops import (
         fused_norm_residual as fnr,
@@ -5173,6 +5204,10 @@ def mesh_train_task(torch, sg, spec: dict) -> dict:
         mesh as pmesh,
         ring,
         ulysses,
+    )
+    from differential_transformer_replication_tpu_torch.parallel.dp_step import (
+        full_params,
+        model_params,
     )
     from differential_transformer_replication_tpu_torch.train import __main__ as cli
     from differential_transformer_replication_tpu_torch.train.optim import leaves
@@ -5209,8 +5244,7 @@ def mesh_train_task(torch, sg, spec: dict) -> dict:
     cfg = cli.config_from_args(args)
     mesh, layout = _mesh_of(torch, cfg, sg.backend)
     try:
-        full = state["params"] if layout is None else layout.gather_tree(state["params"])
-        rec["checksum"] = _params_checksum(torch, full)
+        rec["checksum"] = _params_checksum(torch, full_params(state["params"], mesh, layout))
         # steps on ONE repeated batch: the dropout-free eval loss on it
         # must fall; each step timed (synced) with its collectives
         step = make_sharded_train_step(cfg.replace(max_iters=1000), mesh, layout)
@@ -5221,8 +5255,8 @@ def mesh_train_task(torch, sg, spec: dict) -> dict:
         idx = torch.randint(0, cfg.vocab_size, (1, args.micro_batch_size, T + 1),
                             generator=g, device=mesh.device)
         batch = {"x": idx[..., :-1], "y": idx[..., 1:]}
-        rec["before"] = float(eval_step(full, batch["x"][0], batch["y"][0]))
-        del full
+        rec["before"] = float(eval_step(model_params(state["params"], layout),
+                                        batch["x"][0], batch["y"][0]))
         rec["repeat"], rec["repeat_ms"], rec["coll"], rec["a2a"] = [], [], [], []
         rec["rot"] = []
         for i in range(REPEAT_STEPS):
@@ -5238,9 +5272,10 @@ def mesh_train_task(torch, sg, spec: dict) -> dict:
             rec["a2a"].append(dict(ulysses.EXCHANGE))
             rec["rot"].append(dict(ring.ROTATION))
             rec["repeat"].append(m["loss"])
-        full = state["params"] if layout is None else layout.gather_tree(state["params"])
-        rec["after"] = float(eval_step(full, batch["x"][0], batch["y"][0]))
-        rec["checksum_after"] = _params_checksum(torch, full)
+        rec["after"] = float(eval_step(model_params(state["params"], layout),
+                                       batch["x"][0], batch["y"][0]))
+        rec["checksum_after"] = _params_checksum(
+            torch, full_params(state["params"], mesh, layout))
         rec["coords"] = list(mesh.coords)
     finally:
         destroy_mesh(mesh)
@@ -5251,9 +5286,10 @@ def mesh_grads(tcfg, mesh, layout, state, batch) -> list:
     """The full gradients (``leaves`` order) of one step of ``tcfg`` on
     this rank, through the path its sharded step takes: the overlap
     path's bucket means, the fsdp gather and reduce-scatter (the shards'
-    gradients then gathered), or the flat all-reduce."""
+    gradients then gathered), or the flat all-reduce; under tensor the
+    tensor shards' gradients then gathered over the line."""
     from differential_transformer_replication_tpu_torch.parallel import dp_step, shard_batch
-    from differential_transformer_replication_tpu_torch.train.optim import leaves
+    from differential_transformer_replication_tpu_torch.train.optim import leaves, unflatten
     from differential_transformer_replication_tpu_torch.train.step import make_grad_fn
 
     if dp_step.overlap_eligible(tcfg):
@@ -5263,8 +5299,11 @@ def mesh_grads(tcfg, mesh, layout, state, batch) -> list:
         return fn(state["params"], shard_batch(batch, mesh))[1]
     if layout is not None:
         fn = make_grad_fn(tcfg, mesh, dp_step.make_param_gather(layout))
-        return leaves(layout.gather_tree(fn(state["params"], batch)[1]))
-    return make_grad_fn(tcfg, mesh)(state["params"], batch)[1]
+        tree = fn(state["params"], batch)[1]
+    else:
+        grads = make_grad_fn(tcfg, mesh)(state["params"], batch)[1]
+        tree = unflatten(state["params"], grads)
+    return leaves(dp_step.full_params(tree, mesh, layout))
 
 
 def _e2e_cfg(mesh: dict, B: int, impl: str):
@@ -5286,8 +5325,13 @@ def mesh_e2e_task(torch, sg, spec: dict) -> dict:
     ``MESH_E2E[P]``: loss, grad norm, the params' checksum (rank 0 saves
     the full grads and params for the comparison)."""
     from differential_transformer_replication_tpu_torch.parallel import (
+        create_mesh,
         destroy_mesh,
         make_sharded_train_step,
+    )
+    from differential_transformer_replication_tpu_torch.parallel.dp_step import (
+        full_params,
+        shard_train_state,
     )
     from differential_transformer_replication_tpu_torch.train.optim import leaves
     from differential_transformer_replication_tpu_torch.train.step import train_state
@@ -5295,16 +5339,15 @@ def mesh_e2e_task(torch, sg, spec: dict) -> dict:
     rec = {}
     for label, mesh_axes, B, impl in MESH_E2E[sg.size]:
         tcfg = _e2e_cfg(mesh_axes, B, impl)
-        mesh, layout = _mesh_of(torch, tcfg, sg.backend)
+        mesh = create_mesh(tcfg.mesh, sg.backend, "cuda")
         try:
             params, batch = e2e_inputs(torch, tcfg)
-            state = train_state(params, tcfg, mesh.device)
-            if layout is not None:
-                state = layout.shard_state(state)
+            state, layout = shard_train_state(tcfg, mesh,
+                                              train_state(params, tcfg, mesh.device))
             batch = {k: t.to(mesh.device) for k, t in batch.items()}
             grads = mesh_grads(tcfg, mesh, layout, state, batch)
             state, m = make_sharded_train_step(tcfg, mesh, layout)(state, batch)
-            full = state["params"] if layout is None else layout.gather_tree(state["params"])
+            full = full_params(state["params"], mesh, layout)
             rec[label] = {"loss": m["loss"], "grad_norm": m["grad_norm"],
                           "checksum": _params_checksum(torch, full)}
             if sg.rank == 0:
@@ -5372,10 +5415,11 @@ def check_mesh_run(torch, card: str, label: str, P: int, run: tuple, backend: st
     figures for the summary lines."""
     from differential_transformer_replication_tpu_torch.ops import flash
 
-    _, flags, T, B, steps, L, rate, _ = run
+    _, flags, T, B, steps, L, rate, _, model = run
     seq = int(flags[flags.index("--sequence-parallel") + 1]) if \
         "--sequence-parallel" in flags else 1
     ulysses = "ulysses" in flags
+    S = 1 if model == "control" else 2
     r0 = recs[0]
     losses = r0["losses"]
     expect(len(losses) == steps and all(math.isfinite(x) for x in losses),
@@ -5393,10 +5437,12 @@ def check_mesh_run(torch, card: str, label: str, P: int, run: tuple, backend: st
         want = {f"flash_chunk_fwd/{fr}": L * seq * n_fwd,
                 f"flash_chunk_bwd_dq/{br}": L * seq * steps,
                 f"flash_chunk_bwd_dkv/{br}": L * seq * steps}
-    elif ulysses:  # full T over H / P heads: the aligned head-major routes
-        S = 2
+    elif ulysses or rate > 0:  # full T (over H / P heads, or this tensor
+        # rank's heads): the aligned head-major routes; an eval at T <= 512
+        # (no dropout) takes kernel D
         fr, br = flash.fwd_route(T), flash.bwd_route(S, T)
-        want = {f"flash_bh_fwd/{fr}": L * n_fwd}
+        n_bh = L * n_fwd if ulysses else L * steps
+        want = {f"flash_bh_fwd/{fr}": n_bh}
         want.update({f"flash_bh_bwd_fused/{br}": L * steps} if br == "fused" else
                     {f"flash_bh_bwd_dq/{br}": L * steps, f"flash_bh_bwd_dkv/{br}": L * steps})
     else:  # T 512, dropout 0: the token-major kernels D and E
@@ -5404,11 +5450,19 @@ def check_mesh_run(torch, card: str, label: str, P: int, run: tuple, backend: st
     for r in recs:
         expect(r["routes"] == want, f"{label} rank {r['rank']}: launches by route "
                f"{r['routes']}, expected {want}")
+        # the add+LayerNorm backward: ln1, ln2 (and diff's GroupLayerNorm,
+        # at full width on a tensor line) per layer, and ln_f
+        norms = (2 if model == "control" else 3) * L + 1
         if not want:
             per = {"flash_tm_fwd": L * n_fwd, "flash_tm_bwd": L * steps,
-                   "swiglu_bwd": L * steps, "add_norm_bwd": (3 * L + 1) * steps}
-            got = {k: r["launches"][k] for k in per}
-            expect(got == per, f"{label} rank {r['rank']}: launches {got}, expected {per}")
+                   "swiglu_bwd": L * steps, "add_norm_bwd": norms * steps}
+        elif seq == 1 and not ulysses:  # the evals' forwards on kernel D
+            per = {"flash_tm_fwd": L * (n_fwd - steps), "flash_tm_bwd": 0,
+                   "swiglu_bwd": L * steps, "add_norm_bwd": norms * steps}
+        else:
+            per = {}
+        got = {k: r["launches"][k] for k in per}
+        expect(got == per, f"{label} rank {r['rank']}: launches {got}, expected {per}")
         for name in ("fused_norm", "fused_add_norm", "fused_swiglu", "add_norm_bwd",
                      "swiglu_bwd"):
             expect(r["launches"][name] > 0, f"{label}: {name} never launched")
@@ -5432,7 +5486,7 @@ def check_mesh_run(torch, card: str, label: str, P: int, run: tuple, backend: st
            "rot_ms": 1e3 * sum(c["host_s"] for c in rot) / len(rot),
            "peaks": [round(r["peak_gib"], 2) for r in recs],
            "rest": [round(r["rest_gib"], 3) for r in recs]}
-    log(f"[train-mesh] {label}: diff, {L} layers, width {RECIPE['n_embd']}, T {T}, "
+    log(f"[train-mesh] {label}: {model}, {L} layers, width {RECIPE['n_embd']}, T {T}, "
         f"global micro-batch {B}, dropout {rate}, bf16, {P} {backend} ranks sharing one "
         f"card ({card}); {steps} trainer steps, losses {[round(x, 4) for x in losses]}, "
         f"rank 0 step ms {[round(x, 1) for x in r0['step_ms']]}; repeated batch: "
@@ -5444,6 +5498,8 @@ def check_mesh_run(torch, card: str, label: str, P: int, run: tuple, backend: st
         f"{fig['rest']} GiB; launches per rank by route {want or 'kernels D and E'}; "
         f"params equal on all ranks ({r0['checksum'][:12]}); mesh coords "
         f"{[r['coords'] for r in recs]}")
+    log(f"[train-mesh] {label}: launches on each rank by kernel "
+        f"{[{k: r['launches'][k] for k in TRAIN_COUNTERS} for r in recs]}")
     log(f"[train-mesh] {label}: one repeated batch, loss {r0['before']:.4f} -> "
         f"{[round(x, 4) for x in r0['repeat']]} -> {r0['after']:.4f}")
     return fig
@@ -5527,9 +5583,9 @@ def start_train_ring(torch, tokens) -> dict:
         log(f"[train-ring] NCCL leg not run: this machine has {n_cards} card "
             "(it needs one card per rank, 2); the runs below are gloo ranks sharing "
             "one card")
-        log(f"[train-mesh] NCCL leg (--data-parallel 2 over nccl) not run: this "
-            f"machine has {n_cards} card (it needs one card per rank, 2); the mesh "
-            "runs below are gloo ranks sharing one card")
+        log(f"[train-mesh] NCCL leg (--data-parallel 2 and --tensor-parallel 2 over "
+            f"nccl) not run: this machine has {n_cards} card (it needs one card per "
+            "rank, 2); the mesh runs below are gloo ranks sharing one card")
     # the gloo launches run side by side (each launch's start, ~20 s, and
     # its runs overlap the other's); the step profile and the recipe runs,
     # tasks at the end of the P = 2 launch, wait until the P = 4 launch and
@@ -5537,9 +5593,9 @@ def start_train_ring(torch, tokens) -> dict:
     alone = out_dir / "ring_profile_alone"
     alone.unlink(missing_ok=True)
     def mesh_task(P, backend, run):
-        label, flags, T, B, steps, L, rate, on_its_own = run
+        label, flags, T, B, steps, L, rate, on_its_own, model = run
         name = re.sub(r"[^A-Za-z0-9]+", "_", label)
-        argv = ring_argv("diff", P, T, B, steps, tokens, backend,
+        argv = ring_argv(model, P, T, B, steps, tokens, backend,
                          str(out_dir / f"metrics_mesh_{name}.jsonl"), layers=L,
                          rate=rate, mesh=flags)
         return {"label": label, "task": "mesh", "argv": argv,
@@ -5558,7 +5614,8 @@ def start_train_ring(torch, tokens) -> dict:
                          "--heartbeat-timeout-s", "60"]
             tasks.append({"label": label, "task": "train", "argv": argv})
         mruns = [r for r in MESH_RUNS[P] if backend == "gloo"] if runs else \
-            [(f"{MESH_RUNS[2][1][0]} nccl", *MESH_RUNS[2][1][1:7], False)]
+            [(f"{r[0]} nccl", *r[1:7], False, r[8]) for r in MESH_RUNS[2]
+             if r[0] in ("data=2 recipe", "tensor=2 recipe")]
         # the mesh runs that share the card with the other launch, then
         # the e2e steps; the P = 2 launch's profile and its recipe runs
         # wait for the P = 4 launch to end
@@ -5677,6 +5734,17 @@ def finish_train_ring(torch, card: str, ring: dict) -> dict:
         f"{one['peak']:.2f} GiB); fsdp's params + moments at rest {max(fs['rest']):.3f} "
         f"GiB a rank against data's {max(dp['rest']):.3f} ({ratio:.3f}); {card}")
     expect(0.49 <= ratio <= 0.51, f"fsdp=2 keeps {ratio:.3f} of data=2's state at rest")
+    tp = figs["tensor=2 recipe"]
+    t_ratio = max(tp["rest"]) / max(dp["rest"])
+    log(f"[train-mesh] the diff recipe at --tensor-parallel 2 (2 of 4 heads, SwiGLU "
+        f"width 1536, vocab 6000 a rank; gloo, ranks sharing one card): {tp['ms']:.1f} "
+        f"ms/step ({tp['tok_s']:.0f} tok/s), the collectives {tp['calls']} calls, "
+        f"{tp['coll_mb']:.1f} MB in per rank, {tp['coll_ms']:.1f} ms host a step; "
+        f"against one rank {one['ms']:.1f} ms/step; peak per rank {tp['peaks']} GiB; "
+        f"params + moments at rest {max(tp['rest']):.3f} GiB a rank against data's "
+        f"{max(dp['rest']):.3f} ({t_ratio:.3f}); {card}")
+    expect(0.49 <= t_ratio <= 0.51,
+           f"tensor=2 keeps {t_ratio:.3f} of data=2's state at rest")
     expect(prof is not None, f"{RING_RUNS[0][0]}: no step profile")
     top = ", ".join(f"{k['name'][:40]} {k['ms_per_step']:.2f}"
                     for k in prof["top_kernels"][:8])

@@ -362,7 +362,6 @@ class ServingConfig:
 
 # the mesh axes the port does not run yet -> the ROADMAP item that brings it
 LATER_MESH_AXES = {
-    "tensor": "tensor parallelism (ROADMAP Queue A: parallelism)",
     "pipeline": "pipeline parallelism (ROADMAP Queue A: parallelism)",
 }
 
@@ -689,9 +688,9 @@ class AutoscalerConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """A copy of the JAX package's MeshConfig (the same axes, defaults and
-    order). The port runs the ``data``, ``fsdp`` and ``sequence`` axes
-    over ``torch.distributed`` ranks (``parallel/``); ``tensor`` and
-    ``pipeline`` must stay 1 and name the ROADMAP item that brings them."""
+    order). The port runs the ``data``, ``fsdp``, ``tensor`` and
+    ``sequence`` axes over ``torch.distributed`` ranks (``parallel/``);
+    ``pipeline`` must stay 1 and names the ROADMAP item that brings it."""
 
     pipeline: int = 1
     data: int = 1
@@ -708,8 +707,8 @@ class MeshConfig:
             if getattr(self, name) != 1:
                 raise NotImplementedError(
                     f"MeshConfig.{name}={getattr(self, name)}: the port does "
-                    f"not run {item} yet; only the data, fsdp and sequence "
-                    "axes may be > 1"
+                    f"not run {item} yet; only the data, fsdp, tensor and "
+                    "sequence axes may be > 1"
                 )
 
     @property
@@ -861,6 +860,8 @@ class TrainConfig:
                 f"data x fsdp = {self.mesh.data} x {self.mesh.fsdp} = "
                 f"{n_batch} equal batch shards"
             )
+        if self.mesh.tensor > 1:
+            self._check_tensor_split()
         if self.mesh.sequence > 1:
             if self.model.sequence_impl == "ulysses":
                 # the text of JAX parallel/ulysses.py:_check_heads
@@ -879,6 +880,23 @@ class TrainConfig:
                 # past it and causal offsets off their 32-row tile grid
                 raise ValueError(f"block_size {T} must split into {P} equal "
                                  "sequence shards")
+
+    def _check_tensor_split(self) -> None:
+        """The widths the ``tensor`` axis shards (JAX
+        ``parallel/sharding.py:spec_for``) must split into equal shards,
+        as JAX's jit refuses a spec that does not divide its dim: the
+        heads (q/k/v, lambdas, the GroupLayerNorm), the vocab (tok_emb
+        rows, lm_head columns), the SwiGLU width 4 x n_embd and, for diff,
+        the position table's rows (block_size)."""
+        m, tp = self.resolved_model(), self.mesh.tensor
+        widths = [("n_head", m.n_head), ("vocab_size", m.vocab_size),
+                  ("the SwiGLU width 4 x n_embd", 4 * m.n_embd)]
+        if m.model == "diff":
+            widths.append(("block_size (diff's pos_emb rows)", m.block_size))
+        for name, n in widths:
+            if n % tp:
+                raise ValueError(f"{name} {n} must split into tensor = {tp} "
+                                 "equal shards")
 
     def resolved_last_checkpoint_path(self) -> Optional[str]:
         if self.last_checkpoint_path != "auto":

@@ -14,10 +14,22 @@ Dropout follows the JAX package's sites and order of key splits, with
 integer seeds in place of keys (:func:`split_seed`): per layer, then per
 block (attention, FFN), then per attention (probabilities, output). A
 forward without a seed (eval) drops nothing. On a mesh of ranks each
-rank folds its mesh position into the forward's seed first
-(:func:`rank_seed`), as JAX's ``sequence_shard_map`` and
-``shard_flash`` fold the mesh position into the attention key: every
-rank's masks are its own.
+rank folds its data, fsdp and sequence position into the forward's seed
+first (:func:`rank_seed`), and the attention folds the tensor index into
+its own (``parallel/shard_flash.py:attention_seed``), as JAX's
+``sequence_shard_map`` and ``shard_flash`` fold the mesh position into
+the attention key: every rank's attention masks are its own, and the
+residual and FFN masks are one per tensor line.
+
+On a tensor line (``group.tensor``, ``parallel/mesh.py``) the params are
+this rank's Megatron shard (``parallel/sharding.py:TensorLayout``) and
+the forward crosses the region boundaries of ``parallel/regions.py``:
+the attention's and the SwiGLU's inputs and the lm head's through
+``copy_to_region``; the attention and FFN out-projections and the
+vocab-sharded embedding lookups through ``reduce_from_region``, each
+row-parallel bias added once after the sum (:func:`row_linear`); the
+GroupLayerNorm gathers the head concat and its params, normalizes at
+full width and keeps this rank's columns (:func:`apply_group_norm`).
 
 With ``cfg.remat`` each block runs under :func:`remat_block`
 (``torch.utils.checkpoint``, the counterpart of JAX's ``jax.checkpoint``):
@@ -36,6 +48,7 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (
     checkpoint,
     create_selective_checkpoint_contexts,
@@ -76,9 +89,19 @@ from differential_transformer_replication_tpu_torch.ops.streams import (
     ndiff_coeffs,
     vanilla_coeffs,
 )
+from differential_transformer_replication_tpu_torch.parallel.regions import (
+    copy_to_region,
+    gather_columns,
+    live,
+    own_columns,
+    reduce_from_region,
+)
 from differential_transformer_replication_tpu_torch.parallel.ring import (
     ring_flash_body,
     use_ring,
+)
+from differential_transformer_replication_tpu_torch.parallel.shard_flash import (
+    attention_seed,
 )
 from differential_transformer_replication_tpu_torch.parallel.ulysses import (
     ulysses_flash_body,
@@ -132,14 +155,50 @@ def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
     return y
 
 
+def tensor_line(group):
+    """The forward's tensor line (None off a tensor mesh)."""
+    return None if group is None else group.tensor
+
+
+def row_linear(x: torch.Tensor, p: dict, tp) -> torch.Tensor:
+    """A row-parallel Linear: this rank's rows of ``w`` against its
+    columns of ``x``, the partial products summed over the tensor line,
+    then the (replicated) bias once; :func:`linear` off a tensor line."""
+    y = reduce_from_region(x @ p["w"].to(x.dtype), tp)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def embed_rows(table: torch.Tensor, ids: torch.Tensor, tp) -> torch.Tensor:
+    """``table[ids]`` (fp32, not yet summed) where ``table`` is this
+    rank's block of rows of a row-sharded table: the ids it holds, zeros
+    for the others; the caller reduces the sum from the region."""
+    if not live(tp):
+        return F.embedding(ids, table)
+    n = table.shape[0]
+    local = ids - tp.index * n
+    held = (local >= 0) & (local < n)
+    rows = F.embedding(local.clamp(0, n - 1), table)
+    return rows * held[..., None].to(rows.dtype)
+
+
 def apply_pre_norm(x: torch.Tensor, p: dict) -> torch.Tensor:
     """A LayerNorm with no residual input: the block's ln1 and ln_f."""
     return fused_norm(x.contiguous(), p["w"], p["b"])
 
 
-def apply_group_norm(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """The full-width GroupLayerNorm over the head concat (diff/ndiff)."""
-    return fused_group_norm(x.contiguous(), p["w"], p["b"])
+def apply_group_norm(x: torch.Tensor, p: dict, tp=None) -> torch.Tensor:
+    """The full-width GroupLayerNorm over the head concat (diff/ndiff).
+    On a tensor line its statistics span every rank's heads (JAX's
+    partitioner reduces them): the ranks' head outputs and ``gn`` params
+    are gathered, the norm kernel runs at full width, and this rank's
+    columns are kept; each gather's backward reduce-scatters."""
+    if not live(tp):
+        return fused_group_norm(x.contiguous(), p["w"], p["b"])
+    wb = gather_columns(torch.stack([p["w"], p["b"]]), tp)
+    full = fused_group_norm(gather_columns(x, tp), wb[0], wb[1])
+    return own_columns(full, tp)
 
 
 def split_seed(seed, n: int) -> tuple:
@@ -152,14 +211,16 @@ def split_seed(seed, n: int) -> tuple:
 
 def rank_seed(seed, group):
     """The forward's dropout seed on this rank: ``seed`` with this rank's
-    mesh position folded in on a mesh of more than one rank (the data,
-    fsdp, tensor and sequence coordinates, data major: JAX
-    ``ring.py:207-209``; with sequence 1 the batch position of JAX
-    ``shard_flash.py:79-88``), with the ring rank on a ring alone, else
-    ``seed``. The fold comes first, so every seed the forward derives
-    (attention, and residual and FFN dropout, which JAX's GSPMD path
-    draws from one global mask sharded over the batch) is this rank's
-    own."""
+    mesh position over data, fsdp and sequence folded in on a mesh of
+    more than one rank (``Mesh.replicated_position``, data major), with
+    the ring rank on a ring alone, else ``seed``. The fold comes first,
+    so every seed the forward derives (attention, and residual and FFN
+    dropout, which JAX's GSPMD path draws from one global mask sharded
+    over the batch) is this batch and sequence shard's own. The tensor
+    index is left out: the residual and FFN masks fall on activations
+    every rank of a tensor line holds in full, and must be the same
+    there; the attention, on the rank's own heads, folds it in
+    (``parallel/shard_flash.py:attention_seed``)."""
     if seed is None or group is None:
         return seed
     if group.position is not None:
@@ -182,17 +243,18 @@ def apply_dropout(x: torch.Tensor, rate: float, seed) -> torch.Tensor:
 
 
 def apply_block_ffn(x: torch.Tensor, attn_out: torch.Tensor, blk: dict,
-                    rate: float = 0.0, seed=None) -> torch.Tensor:
+                    rate: float = 0.0, seed=None, tp=None) -> torch.Tensor:
     """The block's FFN half: attention residual add + ln2 (one fused
     pass producing the carried residual and the normalized FFN input),
     the fused SwiGLU chain, the down projection, its dropout and the FFN
-    residual."""
+    residual. On a tensor line ``tp`` the SwiGLU is column-parallel (this
+    rank's F / tp columns) and the down projection row-parallel."""
     p = blk["ffn"]
     x, normed = fused_add_norm(x.contiguous(), attn_out.contiguous(),
                                blk["ln2"]["w"], blk["ln2"]["b"])
-    h = fused_swiglu(normed, p["gate"]["w"], p["gate"]["b"],
+    h = fused_swiglu(copy_to_region(normed, tp), p["gate"]["w"], p["gate"]["b"],
                      p["xform"]["w"], p["xform"]["b"])
-    return x + apply_dropout(linear(h, p["out"]), rate, seed)
+    return x + apply_dropout(row_linear(h, p["out"], tp), rate, seed)
 
 
 # The products a ``dots`` policy saves (JAX ``dots_saveable``) and those
@@ -244,8 +306,8 @@ def layer_coeffs(cfg, p_attn: dict, layer_idx: int) -> torch.Tensor:
     """(S, H) fp32 stream-combine coefficients of one layer (1-based
     ``layer_idx``): [1] for control, [1, -lambda] for diff, sign *
     lambda for ndiff; differentiable in the lambda vectors."""
-    if cfg.model == "control":
-        return vanilla_coeffs(cfg.n_head, device=p_attn["wq"].device)
+    if cfg.model == "control":  # this rank's heads on a tensor line
+        return vanilla_coeffs(p_attn["wq"].shape[-2], device=p_attn["wq"].device)
     lq = p_attn["lambda_q"].to(torch.float32)
     lk = p_attn["lambda_k"].to(torch.float32)
     if cfg.model == "diff":
@@ -282,7 +344,14 @@ def flash_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     positions) go around the ring (``parallel/ring.py``), or, with
     ``seq_impl="ulysses"`` (``ModelConfig.sequence_impl``), through the
     two all-to-alls of ``parallel/ulysses.py``; ``seed`` is then already
-    this rank's (:func:`rank_seed`)."""
+    this rank's (:func:`rank_seed`).
+
+    On a tensor line (``group.tensor``) wq/wk/wv and coeffs are this
+    rank's heads, H the local count, and every route runs on them; x
+    enters the column-parallel projections through ``copy_to_region``
+    and the seed takes the tensor index (``attention_seed``)."""
+    x = copy_to_region(x, tensor_line(group))
+    seed = attention_seed(seed, group)
     B, T, E = x.shape
     S, _, H, d = wq.shape
     dv = wv.shape[-1]
@@ -329,9 +398,11 @@ def flash_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     return out.reshape(B, H, T, dv).transpose(1, 2)
 
 
-def apply_tail(x: torch.Tensor, params: dict) -> torch.Tensor:
-    """Final LayerNorm + untied lm head."""
-    return linear(apply_pre_norm(x, params["ln_f"]), params["lm_head"])
+def apply_tail(x: torch.Tensor, params: dict, tp=None) -> torch.Tensor:
+    """Final LayerNorm + untied lm head; on a tensor line the logits of
+    this rank's vocab shard."""
+    return linear(copy_to_region(apply_pre_norm(x, params["ln_f"]), tp),
+                  params["lm_head"])
 
 
 def tail_and_loss(x: torch.Tensor, params: dict, cfg, targets=None,
@@ -343,18 +414,23 @@ def tail_and_loss(x: torch.Tensor, params: dict, cfg, targets=None,
     in chunks of that many positions, and the logits returned are None,
     as in JAX; without targets, ``(apply_tail(x), None)``. On the ring the
     loss is this rank's share of the mean over all ranks' tokens (its sum
-    over the global B*T), so the ranks' losses sum to the global mean."""
+    over the global B*T), so the ranks' losses sum to the global mean.
+    On a tensor line the lm head is vocab-parallel: the loss is the
+    global one on every rank of the line (``ops/losses.py``), and the
+    logits returned (with targets or without) are this rank's vocab
+    shard, (B, T, V / tp); nothing gathers them."""
+    tp = tensor_line(group)
     if targets is None:
-        return apply_tail(x, params), None
-    x_ln = apply_pre_norm(x, params["ln_f"])
+        return apply_tail(x, params, tp), None
+    x_ln = copy_to_region(apply_pre_norm(x, params["ln_f"]), tp)
     p = params["lm_head"]
     n_total = targets.numel() * group.size if use_ring(group) else None
     if cfg.loss_chunk:
         return None, fused_linear_cross_entropy(x_ln, p["w"], p.get("b"),
                                                 targets, cfg.loss_chunk,
-                                                n_total)
+                                                n_total, tp)
     loss, logits = dense_linear_cross_entropy(x_ln, p["w"], p.get("b"),
-                                              targets, n_total)
+                                              targets, n_total, tp)
     return logits, loss
 
 

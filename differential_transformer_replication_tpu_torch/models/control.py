@@ -10,8 +10,6 @@ from __future__ import annotations
 
 import torch
 
-import torch.nn.functional as F
-
 from differential_transformer_replication_tpu_torch.config import ModelConfig
 from differential_transformer_replication_tpu_torch.models import common
 from differential_transformer_replication_tpu_torch.ops.rope import rope_cos_sin
@@ -52,13 +50,17 @@ def _attn(x: torch.Tensor, p: dict, cfg: ModelConfig, cos, sin,
                                  common.layer_coeffs(cfg, p, 1), cos, sin,
                                  rate=cfg.dropout, seed=s_att, group=group,
                                  seq_impl=cfg.sequence_impl)
-    out = common.linear(out.reshape(B, T, -1), p["out"])
+    out = common.row_linear(out.reshape(B, T, -1), p["out"], common.tensor_line(group))
     return common.apply_dropout(out, cfg.dropout, s_out)
 
 
-def embed(params: dict, idx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Token embedding only (RoPE is the position encoding)."""
-    return F.embedding(idx, params["tok_emb"]).to(common.compute_dtype(cfg))
+def embed(params: dict, idx: torch.Tensor, cfg: ModelConfig,
+          group=None) -> torch.Tensor:
+    """Token embedding only (RoPE is the position encoding); on a tensor
+    line the table's rows are sharded and the lookups' sum reduced."""
+    tp = common.tensor_line(group)
+    x = common.reduce_from_region(common.embed_rows(params["tok_emb"], idx, tp), tp)
+    return x.to(common.compute_dtype(cfg))
 
 
 def block_forward(x: torch.Tensor, blk: dict, layer_idx: int,
@@ -69,7 +71,8 @@ def block_forward(x: torch.Tensor, blk: dict, layer_idx: int,
     s_attn, s_ffn = common.split_seed(seed, 2)
     a = _attn(common.apply_pre_norm(x, blk["ln1"]), blk["attn"], cfg, cos, sin,
               s_attn, group)
-    return common.apply_block_ffn(x, a, blk, cfg.dropout, s_ffn)
+    return common.apply_block_ffn(x, a, blk, cfg.dropout, s_ffn,
+                                  common.tensor_line(group))
 
 
 def forward(params: dict, idx: torch.Tensor, cfg: ModelConfig, targets=None,
@@ -77,7 +80,7 @@ def forward(params: dict, idx: torch.Tensor, cfg: ModelConfig, targets=None,
     """(B, T) int64 tokens -> (logits (B, T, V), loss or None); ``seed``
     turns dropout on (None: eval); ``group`` the sequence ring, whose rank
     holds the T-shard ``idx`` (RoPE at its global positions)."""
-    x = embed(params, idx, cfg)
+    x = embed(params, idx, cfg, group)
     T = idx.shape[-1]
     t0 = common.shard_start(T, group)
     cos, sin = (t[t0:] for t in rope_cos_sin(cfg.head_size, t0 + T, device=x.device))

@@ -57,8 +57,9 @@ def _attn(x: torch.Tensor, p: dict, layer_idx: int, cfg: ModelConfig,
                                  common.layer_coeffs(cfg, p, layer_idx),
                                  rate=cfg.dropout, seed=s_att, group=group,
                                  seq_impl=cfg.sequence_impl)
-    out = common.apply_group_norm(out.reshape(B, T, -1), p["gn"])
-    out = common.linear(out * OUTPUT_SCALE, p["out"])
+    tp = common.tensor_line(group)
+    out = common.apply_group_norm(out.reshape(B, T, -1), p["gn"], tp)
+    out = common.row_linear(out * OUTPUT_SCALE, p["out"], tp)
     return common.apply_dropout(out, cfg.dropout, s_out)
 
 
@@ -66,12 +67,19 @@ def embed(params: dict, idx: torch.Tensor, cfg: ModelConfig,
           group=None) -> torch.Tensor:
     """Token embedding PLUS the learned absolute position table (added in
     fp32, then cast to the compute dtype); on the ring, the rows of this
-    rank's global positions."""
+    rank's global positions. On a tensor line both tables are row shards:
+    each rank looks up the rows it holds and the sum is reduced."""
     T = idx.shape[-1]
     t0 = common.shard_start(T, group)
     if t0 + T > cfg.block_size:
         raise ValueError(f"sequence length {t0 + T} exceeds block_size {cfg.block_size}")
-    x = F.embedding(idx, params["tok_emb"]) + params["pos_emb"][t0:t0 + T]
+    tp = common.tensor_line(group)
+    if tp is None:
+        x = F.embedding(idx, params["tok_emb"]) + params["pos_emb"][t0:t0 + T]
+    else:
+        pos = torch.arange(t0, t0 + T, device=idx.device)
+        x = common.reduce_from_region(common.embed_rows(params["tok_emb"], idx, tp)
+                                      + common.embed_rows(params["pos_emb"], pos, tp), tp)
     return x.to(common.compute_dtype(cfg))
 
 
@@ -84,7 +92,8 @@ def block_forward(x: torch.Tensor, blk: dict, layer_idx: int,
     s_attn, s_ffn = common.split_seed(seed, 2)
     a = _attn(common.apply_pre_norm(x, blk["ln1"]), blk["attn"], layer_idx,
               cfg, s_attn, group)
-    return common.apply_block_ffn(x, a, blk, cfg.dropout, s_ffn)
+    return common.apply_block_ffn(x, a, blk, cfg.dropout, s_ffn,
+                                  common.tensor_line(group))
 
 
 def forward(params: dict, idx: torch.Tensor, cfg: ModelConfig, targets=None,

@@ -1,10 +1,12 @@
 """Parallelism of the port: the mesh of ranks and its collectives
-(``mesh.py``), the batch and FSDP layouts (``sharding.py``), the step on
-a mesh (``dp_step.py``: overlap-scheduled data parallelism, the flat
-step, FSDP), the two strategies of the ``sequence`` axis (``ring.py``:
-ring flash attention; ``ulysses.py``: all-to-all), and the liveness mesh
-between processes (``heartbeat.py``). Tensor parallelism, the pipeline
-and multihost are what is left (ROADMAP Queue A: parallelism, item 9).
+(``mesh.py``), the batch, tensor and FSDP layouts (``sharding.py``), the
+``tensor`` axis's region collectives (``regions.py``) and its per-rank
+attention seed (``shard_flash.py``), the step on a mesh (``dp_step.py``:
+overlap-scheduled data parallelism, the flat step, FSDP), the two
+strategies of the ``sequence`` axis (``ring.py``: ring flash attention;
+``ulysses.py``: all-to-all), and the liveness mesh between processes
+(``heartbeat.py``). The pipeline and multihost are what is left (ROADMAP
+Queue A: parallelism, item 9).
 
 ``dp_step`` imports the train step, which imports the models, which
 import this package: its names load at first use."""

@@ -17,11 +17,14 @@ dp_step.py``. :func:`make_sharded_train_step` routes as JAX's does:
    after the loop (JAX's ``grad_sync``). The step's dropout seed is
    folded with the data index, so every shard draws its own masks (JAX
    ``dp_step.py:191-200``).
-2. **The flat step** (any other mesh without fsdp: data beside sequence,
-   the ring or Ulysses alone, or ``dp_overlap`` off): the step body runs
-   with the mesh threaded into the forward, and one all-reduce of the
-   loss and every gradient over the world follows the backward, divided
-   by the batch shards (what GSPMD's partitioner inserts in JAX).
+2. **The flat step** (any other mesh without fsdp: data beside sequence
+   or tensor, the ring or Ulysses alone, tensor alone, or ``dp_overlap``
+   off): the step body runs with the mesh threaded into the forward (on
+   a tensor line through the region collectives of
+   ``parallel/regions.py``), and one all-reduce of the loss and every
+   gradient over the plane of every axis but ``tensor`` follows the
+   backward, divided by the batch shards (what GSPMD's partitioner
+   inserts in JAX).
 3. **The sharded (FSDP) step** (fsdp > 1): the state at rest is this
    rank's flat shards (``parallel/sharding.py:FsdpLayout``). Each bucket
    is all-gathered over the fsdp line where the forward first reaches it,
@@ -31,7 +34,17 @@ dp_step.py``. :func:`make_sharded_train_step` routes as JAX's does:
    as the autograd graph holds them (a remat block's recompute reads
    them again in the backward) and are freed with it after the step.
    Global-norm clipping, the per-group norms and AdamW then run on the
-   shards, their squared sums reduced over the fsdp line.
+   shards, their squared sums reduced over the fsdp line. With tensor
+   the FSDP layout cuts the rank's tensor shard (JAX's test mesh is
+   ``data=2, fsdp=2, tensor=2``), the gradients are summed over the
+   plane of every axis but fsdp and tensor, and the loss over the plane
+   of every axis but tensor.
+
+:func:`shard_train_state` turns a full train state into a rank's state
+at rest (its tensor shard, then the fsdp shards of that) and
+:func:`full_train_state` gathers it back (a checkpoint's);
+:func:`model_params` is what the forward takes (the tensor shard) and
+:func:`full_params` the whole tree (eval's lambda summaries).
 
 Over gloo with CUDA tensors every collective stages through pinned host
 memory (``parallel/mesh.py``), so a bucket's sync is synchronous with
@@ -56,6 +69,7 @@ from differential_transformer_replication_tpu_torch.parallel.sharding import (
     FsdpLayout,
     param_buckets,
     shard_batch,
+    tensor_layout,
 )
 from differential_transformer_replication_tpu_torch.train.optim import leaves, unflatten
 from differential_transformer_replication_tpu_torch.train.step import make_step_fn
@@ -221,10 +235,11 @@ def make_param_gather(layout: FsdpLayout):
 
 
 def _make_fsdp_train_step(cfg: TrainConfig, mesh: Mesh, layout: FsdpLayout):
-    world = mesh.world
+    # every rank of a tensor line holds the same loss: sum over the rest
+    plane = mesh.plane("tensor")
 
     def loss_sync(loss):
-        return all_reduce_sum_(loss.reshape(1).clone(), world)[0] / mesh.n_batch
+        return all_reduce_sum_(loss.reshape(1).clone(), plane)[0] / mesh.n_batch
 
     # the mesh threads into the forward: rows and T-shard by shard_batch,
     # the sequence line, the dropout fold
@@ -242,6 +257,42 @@ def fsdp_layout(cfg: TrainConfig, mesh: Mesh, params: dict):
     if mesh.axis_size("fsdp") == 1:
         return None
     return FsdpLayout(params, mesh, cfg.dp_bucket_layers)
+
+
+def shard_train_state(cfg: TrainConfig, mesh: Mesh, state: dict) -> tuple:
+    """(this rank's train state at rest, its FSDP layout or None) from a
+    full state: the tensor shard (``sharding.TensorLayout``), then under
+    fsdp that shard's flat shards."""
+    tl = tensor_layout(mesh)
+    if tl is not None:
+        state = tl.shard_state(state)
+    layout = fsdp_layout(cfg, mesh, state["params"])
+    if layout is not None:
+        state = layout.shard_state(state)
+    return state, layout
+
+
+def model_params(params, layout):
+    """The param tree the forward takes: the rank's tensor shard (the
+    fsdp shards gathered where ``layout`` is set)."""
+    return params if layout is None else layout.gather_tree(params)
+
+
+def full_params(params, mesh, layout) -> dict:
+    """The whole param tree of a rank's params at rest (every rank of
+    the mesh joins)."""
+    tree = model_params(params, layout)
+    tl = None if mesh is None else tensor_layout(mesh)
+    return tree if tl is None else tl.gather_tree(tree)
+
+
+def full_train_state(state: dict, mesh, layout) -> dict:
+    """The full train state of a rank's state at rest (every rank
+    joins): the fsdp gather, then the tensor gather."""
+    if layout is not None:
+        state = layout.gather_state(state)
+    tl = None if mesh is None else tensor_layout(mesh)
+    return state if tl is None else tl.gather_state(state)
 
 
 def make_sharded_train_step(cfg: TrainConfig, mesh: Mesh, layout=None):

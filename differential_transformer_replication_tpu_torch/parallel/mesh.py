@@ -6,17 +6,21 @@ mesh.py`` (``create_mesh``): the ``torch.distributed`` ranks that
 order ``(data, fsdp, tensor, sequence, pipeline)`` (JAX
 ``config.py:MeshConfig.axis_names``): world rank r sits at the row-major
 coordinates of r over ``MeshConfig.shape``, as JAX reshapes its device
-list. The port runs the ``data``, ``fsdp`` and ``sequence`` axes;
-``tensor`` and ``pipeline`` stay 1 (``config.py:LATER_MESH_AXES``).
+list. The port runs the ``data``, ``fsdp``, ``tensor`` and ``sequence``
+axes; ``pipeline`` stays 1 (``config.py:LATER_MESH_AXES``).
 
 :func:`create_mesh` joins the world (or the default group the process
 already joined) and makes one ``dist.new_group`` for each line of each
 axis whose size is > 1. ``new_group`` is collective over the world even
 for ranks outside the group, so every rank makes every line, in one
 order; each keeps its own. A :class:`Line` is this rank's line: the
-global ranks on it, by position, and its group. Under FSDP the mesh
-also makes the lines of the plane of every other axis (the ranks that
-hold the same fsdp shard), over which the shards' gradients are summed.
+global ranks on it, by position, and its group. The mesh also makes the
+planes its steps sum over: with ``tensor`` the plane of every other axis
+(the ranks holding the same tensor shard: the flat step's loss and
+gradient sum), and under FSDP the plane of every axis but fsdp and
+tensor (the ranks holding the same fsdp shard of the same tensor
+shard). The autograd collectives at the tensor axis's region boundaries
+are in ``parallel/regions.py``.
 
 :func:`init_sequence_group` joins a mesh whose only axis > 1 is
 ``sequence`` (the ring alone) and returns its :class:`SequenceGroup`,
@@ -51,6 +55,9 @@ AXES = ("data", "fsdp", "tensor", "sequence", "pipeline")
 # the axes whose mesh position folds a dropout seed, in JAX's order
 # (parallel/ring.py:sequence_shard_map; pipeline stages hold no shard)
 FOLD_AXES = ("data", "fsdp", "tensor", "sequence")
+# the axes of the activations every tensor rank holds in full: their
+# dropout masks fold these only, so the tensor line draws one mask
+REPLICATED_FOLD_AXES = ("data", "fsdp", "sequence")
 
 
 @dataclass(frozen=True)
@@ -75,9 +82,16 @@ class SequenceGroup:
     the line) of ``size``, its ``device`` and the ``backend``; ``peers``
     the global ranks of the line's positions (None: 0 .. size - 1, the
     line is the world) and ``group`` the line's process group (None: the
-    default group). ``position`` is the dropout fold of this rank's full
-    mesh position (JAX ``ring.py:sequence_shard_map``) when the mesh has
-    more than one rank, else None (the ring rank is then the fold)."""
+    default group). ``position`` is the dropout fold of this rank's mesh
+    position over data, fsdp and sequence (:data:`REPLICATED_FOLD_AXES`:
+    what every rank of a tensor line shares) when the mesh has more than
+    one rank, else None (the ring rank is then the fold). ``tensor`` is
+    this rank's tensor line where that axis is > 1, else None: the model
+    then holds its tensor shard of the params (``parallel/sharding.py``)
+    and crosses the region boundaries of ``parallel/regions.py``; the
+    attention folds the line's index into its own seed, so that each
+    (data, fsdp, tensor, sequence) position draws its own masks, as JAX's
+    ``Mesh.position`` fold makes them."""
 
     rank: int
     size: int
@@ -87,6 +101,7 @@ class SequenceGroup:
     peers: Optional[Tuple[int, ...]] = None
     group: Any = None
     position: Optional[int] = None
+    tensor: Optional[Line] = None
 
     @property
     def stages_through_host(self) -> bool:
@@ -140,15 +155,28 @@ class Mesh:
         """The batch shards: data x fsdp."""
         return self.axis_size("data") * self.axis_size("fsdp")
 
+    def _fold(self, axes: tuple) -> int:
+        pos = 0
+        for ax in axes:
+            pos = pos * self.axis_size(ax) + self.axis_index(ax)
+        return pos
+
     @property
     def position(self) -> int:
         """The dropout fold of JAX ``ring.py:207-209`` (and, with
         sequence 1, of ``shard_flash.py:80-83``): the mesh position over
         data, fsdp, tensor, sequence, data major."""
-        pos = 0
-        for ax in FOLD_AXES:
-            pos = pos * self.axis_size(ax) + self.axis_index(ax)
-        return pos
+        return self._fold(FOLD_AXES)
+
+    @property
+    def replicated_position(self) -> int:
+        """The fold of the activations a tensor line holds in full: the
+        position over data, fsdp, sequence (the tensor index left out)."""
+        return self._fold(REPLICATED_FOLD_AXES)
+
+    def plane(self, *without: str) -> Line:
+        """This rank's line over every axis but ``without``."""
+        return self.line(*(a for a in AXES if a not in without))
 
     def line(self, *axes: str) -> Line:
         """This rank's line along ``axes``; a line of this rank alone
@@ -156,6 +184,8 @@ class Mesh:
         key = tuple(a for a in AXES if a in axes and self.axis_size(a) > 1)
         if not key:
             return Line((self.rank,), 0, None, self.stages_through_host)
+        if key == tuple(a for a in AXES if self.axis_size(a) > 1):
+            return self.world
         return self.lines[key]
 
     @property
@@ -165,10 +195,11 @@ class Mesh:
     @property
     def sequence_group(self) -> SequenceGroup:
         """The view of this rank's sequence line the model takes."""
-        ln = self.line("sequence")
+        ln, tp = self.line("sequence"), self.line("tensor")
         return SequenceGroup(ln.index, ln.size, self.device, self.backend, owned=False,
                              peers=ln.ranks, group=ln.group,
-                             position=self.position if self.size > 1 else None)
+                             position=self.replicated_position if self.size > 1 else None,
+                             tensor=tp if tp.size > 1 else None)
 
 
 def _env_int(name: str, default: Optional[int] = None) -> int:
@@ -229,14 +260,21 @@ def _join(backend: str, device: str) -> tuple:
 
 def _axis_sets(shape: Tuple[int, ...]) -> list:
     """The axis sets whose lines a mesh of ``shape`` makes, in one order:
-    each axis of size > 1, then under fsdp the plane of the other axes
-    of size > 1 (the ranks holding the same shard) where it spans more
-    than one of them."""
+    each axis of size > 1, then with tensor the plane of the other axes
+    of size > 1 (the ranks holding the same tensor shard), then under
+    fsdp the plane of the axes of size > 1 but fsdp and tensor (the
+    ranks holding the same shard), each where it spans more than one of
+    them."""
     live = [a for a, n in zip(AXES, shape) if n > 1]
     sets = [(a,) for a in live]
-    rest = tuple(a for a in live if a != "fsdp")
-    if "fsdp" in live and len(rest) > 1:
-        sets.append(rest)
+    planes = []
+    if "tensor" in live:
+        planes.append(tuple(a for a in live if a != "tensor"))
+    if "fsdp" in live:
+        planes.append(tuple(a for a in live if a not in ("fsdp", "tensor")))
+    for rest in planes:
+        if len(rest) > 1 and rest not in sets:
+            sets.append(rest)
     return sets
 
 

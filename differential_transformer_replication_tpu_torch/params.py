@@ -98,11 +98,14 @@ def _find_adam(node):
     return None
 
 
-def train_state_from_jax(state, cfg: ModelConfig, device="cpu") -> dict:
+def train_state_from_jax(state, cfg: ModelConfig, device="cpu",
+                         tensor=None) -> dict:
     """The port's train state (train/step.py layout) from a JAX one
     ``{"params", "opt_state", "step"[, "guard"]}`` whose leaves are
     numpy-convertible: fp32 params that require grad, the AdamW moments
-    ``mu``/``nu`` in the param layout and the optimizer ``count``."""
+    ``mu``/``nu`` in the param layout and the optimizer ``count``. With
+    a ``tensor`` line (``parallel/mesh.py:Line``) of more than one rank,
+    this rank's shard of it (``parallel/sharding.py:TensorLayout``)."""
     adam = _find_adam(state["opt_state"])
     if adam is None:
         raise ValueError("no AdamW state (mu, nu, count) in opt_state")
@@ -122,6 +125,12 @@ def train_state_from_jax(state, cfg: ModelConfig, device="cpu") -> dict:
                         "good_steps": int(np.asarray(g["good_steps"])),
                         "bad_streak": int(np.asarray(g["bad_streak"])),
                         "skipped": int(np.asarray(g["skipped"]))}
+    if tensor is not None and tensor.size > 1:
+        from differential_transformer_replication_tpu_torch.parallel.sharding import (
+            TensorLayout,
+        )
+
+        out = TensorLayout(tensor).shard_state(out)
     return out
 
 

@@ -24,12 +24,14 @@ writes the best state at each improving eval, a certified
 on every exit; run again, ``--resume-from auto`` continues from the
 newest checkpoint that verifies.
 
-Data parallelism, FSDP and sequence parallelism (the ring, or Ulysses'
-all-to-alls) run under torchrun on a mesh of data x fsdp x sequence
-ranks, with the backend named:
+Data parallelism, FSDP, tensor parallelism and sequence parallelism
+(the ring, or Ulysses' all-to-alls) run under torchrun on a mesh of
+data x fsdp x tensor x sequence ranks, with the backend named:
 
     torchrun --nproc-per-node 2 -m differential_transformer_replication_tpu_torch.train \
         --data-parallel 2 --dist-backend gloo ...
+    torchrun --nproc-per-node 4 -m differential_transformer_replication_tpu_torch.train \
+        --tensor-parallel 2 --sequence-parallel 2 --dist-backend gloo ...
     torchrun --nproc-per-node 4 -m differential_transformer_replication_tpu_torch.train \
         --data-parallel 2 --sequence-parallel 2 --sequence-impl ulysses \
         --dist-backend gloo ...
@@ -38,7 +40,9 @@ ranks, with the backend named:
 card (the exchanges then go through host memory) or run on the CPU
 (``--device cpu``). ``--micro-batch-size`` must split into data x fsdp
 equal shards and ``--block-size`` into ``--sequence-parallel`` equal
-ones; under Ulysses the heads must split over the sequence ranks. A
+ones; ``--tensor-parallel`` must split the heads, the vocab and the
+SwiGLU width (and diff's ``--block-size``); under Ulysses each tensor
+rank's heads must split over the sequence ranks. A
 pure data mesh syncs its gradients bucket by bucket in the backward
 (``--dp-bucket-layers`` blocks a bucket) unless ``--no-dp-overlap``.
 
@@ -83,7 +87,6 @@ from differential_transformer_replication_tpu_torch.config import (
 LATER_FLAGS = {
     "--attention-impl": "none: the port dispatches kernels by device",
     "--ffn-impl": "none: the port dispatches kernels by device",
-    "--tensor-parallel": "parallelism (ROADMAP Queue A: parallelism, item 9)",
     "--pipeline-parallel": "parallelism (ROADMAP Queue A: parallelism, item 9)",
     "--profile-every": "the continuous device profile (ROADMAP Queue A: "
                        "tooling and analysis, item 10)",
@@ -256,6 +259,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="devices on the data mesh axis")
     p.add_argument("--fsdp", type=int, default=1,
                    help="devices on the fsdp (param-sharding) mesh axis")
+    p.add_argument("--tensor-parallel", type=int, default=1,
+                   help="devices on the tensor mesh axis (Megatron: heads, "
+                   "the SwiGLU width and the vocab sharded)")
     p.add_argument("--sequence-parallel", type=int, default=1,
                    help="devices on the sequence mesh axis (ring attention)")
     p.add_argument("--dist-backend", choices=("nccl", "gloo"), default="nccl",
@@ -280,6 +286,7 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
     return TrainConfig(
         model=model,
         mesh=MeshConfig(data=args.data_parallel, fsdp=args.fsdp,
+                        tensor=args.tensor_parallel,
                         sequence=args.sequence_parallel),
         dp_overlap=not args.no_dp_overlap,
         dp_bucket_layers=args.dp_bucket_layers,

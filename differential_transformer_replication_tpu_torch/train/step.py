@@ -16,11 +16,17 @@ counterpart of the JAX ``make_sharded_train_step``) every rank takes the
 same global batch and keeps its shard (its T-shard on a ring; its rows
 and T-shard on a mesh, ``parallel/sharding.py:shard_batch``); each runs
 its shard's forward and backward (through the ring or Ulysses on a
-sequence line), then the param gradients and the loss are summed over
-the ranks in one all-reduce and divided by the batch shards: the flat
-step. Clip, AdamW and the guard then run on identical values on every
-rank, so the params stay bit-identical across ranks. Eval goes through
-the mesh too, as JAX's ``make_eval_step(mesh=)``.
+sequence line, through the region collectives of its tensor line),
+then the param gradients and the loss are summed in one all-reduce over
+the ranks that hold the same tensor shard (the plane of every axis but
+``tensor``: every rank of a tensor line holds the same loss, and a
+sharded gradient sums only with its own shard's) and divided by the
+batch shards: the flat step. Clip, AdamW and the guard then run on
+identical values on every rank of that plane, and the gradient norms
+count a tensor-sharded leaf over its line and a replicated one once
+(``sharding.tensor_group_sq``), so every rank judges the same norm and
+the replicated params stay bit-identical across ranks. Eval goes
+through the mesh too, as JAX's ``make_eval_step(mesh=)``.
 
 ``make_step_fn`` also takes JAX's three hooks, which
 ``parallel/dp_step.py`` passes for its overlap and sharded steps:
@@ -46,7 +52,11 @@ from differential_transformer_replication_tpu_torch.parallel.mesh import (
     all_reduce_sum_,
 )
 from differential_transformer_replication_tpu_torch.parallel.ring import use_ring
-from differential_transformer_replication_tpu_torch.parallel.sharding import shard_batch
+from differential_transformer_replication_tpu_torch.parallel.sharding import (
+    shard_batch,
+    tensor_group_sq,
+    tensor_norm_slots,
+)
 from differential_transformer_replication_tpu_torch.train.anomaly import (
     apply_guard,
     init_guard_state,
@@ -104,9 +114,11 @@ def shard_tokens(t: torch.Tensor, group) -> torch.Tensor:
 def _placement(group) -> tuple:
     """(the mesh or None, the model's sequence view, the ranks the flat
     sync spans or None, the batch shards) of a step's ``group``: None,
-    a ring's ``SequenceGroup``, or a ``parallel.Mesh``."""
+    a ring's ``SequenceGroup``, or a ``parallel.Mesh`` (whose sync spans
+    the plane of every axis but ``tensor``)."""
     if isinstance(group, Mesh):
-        return (group, group.sequence_group, group if group.size > 1 else None,
+        plane = group.plane("tensor")
+        return (group, group.sequence_group, plane if plane.size > 1 else None,
                 group.n_batch)
     return None, group, group if use_ring(group) else None, 1
 
@@ -192,6 +204,8 @@ def make_step_fn(cfg: TrainConfig, group=None, param_sync=None,
     schedule = cosine_warmup_schedule(cfg.learning_rate, cfg.warmup_iters,
                                       cfg.max_iters, cfg.min_lr)
     grads_fn = make_grad_fn(cfg, group, param_sync, grad_sync)
+    tp = group.line("tensor") if isinstance(group, Mesh) else None
+    norm_slots = []  # tensor_norm_slots of the params, made at the first step
 
     def step(state: dict, batch: dict, seed=None):
         params = state["params"]
@@ -200,7 +214,12 @@ def make_step_fn(cfg: TrainConfig, group=None, param_sync=None,
             # the global mean before the guard reads it: every rank must
             # judge the same value
             loss = loss_sync(loss)
-        if layout is None:
+        if layout is None and tp is not None and tp.size > 1:
+            if not norm_slots:
+                norm_slots.append(tensor_norm_slots(params, grads[0].device))
+            sq = tensor_group_sq(grads, norm_slots[0], tp)
+            groups, norm_f = torch.sqrt(sq), float(torch.sqrt(sq.sum()))
+        elif layout is None:
             gg = group_norms(unflatten(params, grads))
             groups = torch.cat([gg["embed"][None], gg["blocks"], gg["head"][None]])
             norm_f = float(global_norm(grads))

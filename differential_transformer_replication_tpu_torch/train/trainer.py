@@ -39,16 +39,18 @@ per-layer lambda records at each eval (obs/introspect.py) and a 5-step
 ``torch.profiler`` window (utils/profiling.py).
 
 A mesh of more than one rank (``cfg.mesh``: ``data``, ``fsdp``,
-``sequence``) trains on JAX's sharded path: the process is one of the
-ranks started by ``torchrun``, joins the mesh over the backend the
-caller names (``parallel/mesh.py``), draws the same global batches from
-the same seeds as every other rank and trains on its shard of them
-(``parallel/dp_step.py:make_sharded_train_step``); eval runs through the
-mesh. Under fsdp the state at rest is this rank's shards: eval and the
-introspection records gather the params, and a checkpoint gathers the
-full state (every rank joins the gather, rank 0 writes); a resume loads
-the full state and keeps this rank's shards. Only rank 0 prints and
-writes; the mesh is left on exit and on error.
+``tensor``, ``sequence``) trains on JAX's sharded path: the process is
+one of the ranks started by ``torchrun``, joins the mesh over the
+backend the caller names (``parallel/mesh.py``), draws the same global
+batches from the same seeds as every other rank and trains on its shard
+of them (``parallel/dp_step.py:make_sharded_train_step``); eval runs
+through the mesh. Under tensor and fsdp the state at rest is this
+rank's shards (``dp_step.shard_train_state``): eval gathers the fsdp
+shards (its forward takes the tensor shard), the introspection records
+gather the full params, and a checkpoint gathers the full state in
+JAX's layout (every rank joins the gather, rank 0 writes); a resume
+loads the full state, at any mesh, and keeps this rank's shards. Only
+rank 0 prints and writes; the mesh is left on exit and on error.
 """
 
 from __future__ import annotations
@@ -97,8 +99,11 @@ from differential_transformer_replication_tpu_torch.parallel.heartbeat import (
     Heartbeat,
 )
 from differential_transformer_replication_tpu_torch.parallel.dp_step import (
-    fsdp_layout,
+    full_params,
+    full_train_state,
     make_sharded_train_step,
+    model_params,
+    shard_train_state,
 )
 from differential_transformer_replication_tpu_torch.parallel.mesh import (
     all_reduce_sum_,
@@ -546,10 +551,9 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
         if group is None:
             train_step = make_train_step(cfg)
         else:
-            # under fsdp every rank keeps its shards of the full state
-            layout = fsdp_layout(cfg, group, state["params"])
-            if layout is not None:
-                state = layout.shard_state(state)
+            # under tensor and fsdp every rank keeps its shards of the
+            # full state
+            state, layout = shard_train_state(cfg, group, state)
             train_step = make_sharded_train_step(cfg, group, layout)
         eval_many = make_eval_many(cfg, group)
 
@@ -680,7 +684,8 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
 
         where = (f"{device}" if group is None else
                  f"{group.size} ranks (mesh data {cfg.mesh.data}, fsdp "
-                 f"{cfg.mesh.fsdp}, sequence {cfg.mesh.sequence}) over "
+                 f"{cfg.mesh.fsdp}, tensor {cfg.mesh.tensor}, sequence "
+                 f"{cfg.mesh.sequence}) over "
                  f"{group.backend} (rank 0 on {device})")
         logger.say(f"Starting training on {where} ({model_cfg.model}, "
                    f"{model_cfg.n_layer} layers, width {model_cfg.n_embd}, "
@@ -793,7 +798,7 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
             acc_data += data_wait
             acc_n += 1
             ckpt_due = cfg.ckpt_interval > 0 and iter_num % cfg.ckpt_interval == 0
-            ckpt_state = _full_state(state, layout) if ckpt_due else state
+            ckpt_state = _full_state(state, group, layout) if ckpt_due else state
             if ckpt_due and primary:
                 # a failed periodic save does not stop a healthy run: it
                 # is printed and counted on the step's record
@@ -862,13 +867,13 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
                                 gpu_memory_mb=mem)
             if iter_num % cfg.eval_interval == 0:
                 with tracer.span("eval", iter=iter_num):
-                    params = (state["params"] if layout is None
-                              else layout.gather_tree(state["params"]))
+                    params = model_params(state["params"], layout)
                     losses = estimate_loss(eval_many, params,
                                            train_ds, val_ds, cfg, eval_rng)
                 logger.log_eval(iter_num, losses["train"], losses["val"])
                 with tracer.span("block", what="introspection"):
-                    summ = param_summary(params)
+                    # the full lambdas and norms: a tensor shard gathered
+                    summ = param_summary(full_params(state["params"], group, layout))
                     record = {"record": "introspection", "iter": iter_num,
                               **lambda_record(summ, model_cfg,
                                               metrics.get("grad_norm_groups"))}
@@ -877,7 +882,7 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
                 if losses["val"] < best_val_loss:
                     # every rank sees the same val loss: under fsdp they
                     # all join the gather here
-                    best_state = _full_state(state, layout)
+                    best_state = _full_state(state, group, layout)
                     best_val_loss = losses["val"]
                     logger.say(f"Saving best model with val loss: "
                                f"{best_val_loss:.4f}")
@@ -924,15 +929,17 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
             last_state, last_path = state, (
                 None if ckpt_writer is not None and not ckpt_writer.drained
                 else last_ckpt_path)
-            if layout is not None and state is not None:
+            sharded = group is not None and (layout is not None
+                                             or group.axis_size("tensor") > 1)
+            if sharded and state is not None:
                 if crashed:
                     # the gather needs every rank, and after a failure one
                     # may be gone: the last checkpoint stays as it was
                     last_path = None
-                    logger.say("[ckpt] skipping last-checkpoint save: an fsdp "
-                               "run that failed cannot gather its shards")
+                    logger.say("[ckpt] skipping last-checkpoint save: a tensor "
+                               "or fsdp run that failed cannot gather its shards")
                 else:
-                    last_state = _full_state(state, layout)
+                    last_state = _full_state(state, group, layout)
             if primary and state is not None:
                 _finish_checkpoints(
                     cfg, last_state, metrics, best_val_loss, in_step, last_path,
@@ -946,10 +953,10 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
     return state, history
 
 
-def _full_state(state: dict, layout) -> dict:
-    """The full train state: ``state`` itself, or under fsdp the gather
-    of its shards, which every rank must join."""
-    return state if layout is None else layout.gather_state(state)
+def _full_state(state: dict, group, layout) -> dict:
+    """The full train state: ``state`` itself, or under tensor or fsdp
+    the gather of its shards, which every rank must join."""
+    return state if group is None else full_train_state(state, group, layout)
 
 
 def _close_tracer(tracer, logger: MetricLogger) -> None:

@@ -431,10 +431,24 @@ def test_a_batch_or_an_axis_the_mesh_cannot_take_is_refused(capsys):
                                          r"fsdp = 2 x 2 = 4"):
         TrainConfig(mesh=MeshConfig(data=2, fsdp=2), micro_batch_size=6)
     assert TrainConfig(mesh=MeshConfig(data=2, fsdp=2), micro_batch_size=8).mesh.fsdp == 2
-    for flag in ("--tensor-parallel", "--pipeline-parallel"):
-        with pytest.raises(SystemExit):
-            cli.run(["--tokens", "t.npy", flag, "2"])
-        assert "ROADMAP Queue A: parallelism, item 9" in capsys.readouterr().err
-    for axis in ("tensor", "pipeline"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A: parallelism"):
-            MeshConfig(**{axis: 2})
+    with pytest.raises(SystemExit):
+        cli.run(["--tokens", "t.npy", "--pipeline-parallel", "2"])
+    assert "ROADMAP Queue A: parallelism, item 9" in capsys.readouterr().err
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A: parallelism"):
+        MeshConfig(pipeline=2)
+    # the tensor axis runs, and refuses a width it cannot split (JAX's jit
+    # refuses the spec): heads, vocab, the SwiGLU width, diff's positions
+    assert MeshConfig(tensor=2).tensor == 2
+    assert cli.config_from_args(cli.build_parser().parse_args(
+        ["--tokens", "t.npy", "--tensor-parallel", "2"])).mesh.tensor == 2
+    model = ModelConfig(model="diff", **dict(TINY, n_head=4, vocab_size=64))
+    ok = TrainConfig(model=model, mesh=MeshConfig(tensor=2), vocab_size=64)
+    assert ok.mesh.tensor == 2
+    for kw, tensor, what in (
+            (dict(n_head=3), 2, "n_head 3"), (dict(vocab_size=63), 2, "vocab_size 63"),
+            (dict(model="control", n_head=3, vocab_size=66), 3,
+             "the SwiGLU width 4 x n_embd 128"),
+            (dict(block_size=33), 2, r"block_size \(diff's pos_emb rows\) 33")):
+        m = model.replace(**kw)
+        with pytest.raises(ValueError, match=f"{what} must split into tensor = {tensor}"):
+            TrainConfig(model=m, mesh=MeshConfig(tensor=tensor), vocab_size=m.vocab_size)

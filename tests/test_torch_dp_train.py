@@ -17,7 +17,11 @@ time limit on the launch). Held here:
   rtol 1e-5;
 - an fsdp save (the gathered full state) loads in the JAX package's
   ``load_checkpoint`` and equals the ``data=2`` run's state within the
-  step tolerance (2e-5).
+  step tolerance (2e-5);
+- ``--tensor-parallel 2`` trains the ``data=2`` base run's steps with its
+  losses (rtol 1e-5), every rank reporting the same ones, and its last
+  checkpoint (the gathered full state) resumes at ``--data-parallel 2``
+  as at ``data=1``.
 """
 
 from __future__ import annotations
@@ -75,7 +79,10 @@ def test_mesh_command_lines_train_and_resume_across_mesh_shapes(tmp_path):
             argv("base", "--data-parallel", "2", *gloo, steps=4),
             argv("dp_a", "--data-parallel", "2", *gloo, steps=6, resume="base"),
             argv("dp_b", "--data-parallel", "2", *gloo, steps=6, resume="base"),
-            argv("fsdp_c", "--fsdp", "2", *gloo, steps=6, resume="base")]
+            argv("fsdp_c", "--fsdp", "2", *gloo, steps=6, resume="base"),
+            # a tensor=2 run of the base's steps, resumed at data=2
+            argv("tp", "--tensor-parallel", "2", *gloo, steps=4),
+            argv("tp_dp", "--data-parallel", "2", *gloo, steps=6, resume="tp")]
     outs = torch_ring_worker.run_ranks("clis", 2, tmp_path / "ranks",
                                        {"runs": np.array(json.dumps(runs))},
                                        RANK_TIMEOUT_S)
@@ -107,3 +114,10 @@ def test_mesh_command_lines_train_and_resume_across_mesh_shapes(tmp_path):
     for a, b in zip(jax.tree_util.tree_leaves(got["params"]),
                     jax.tree_util.tree_leaves(want["params"])):
         assert float(np.max(np.abs(np.asarray(a) - np.asarray(b)))) <= 2e-5
+    # tensor=2: the base's losses on every rank, and a resume at another mesh
+    lt = outs[0]["losses7"]
+    assert np.array_equal(outs[1]["losses7"], lt)
+    np.testing.assert_allclose(lt, outs[0]["losses3"], rtol=1e-5)
+    _, history = cli.run(argv("tp_one", steps=6, resume="tp"))
+    np.testing.assert_allclose(outs[0]["losses8"], [m["loss"] for m in history],
+                               rtol=1e-5)

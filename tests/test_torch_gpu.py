@@ -1219,6 +1219,55 @@ def _ring_step_vs_single_card(tmp_path, T):
         assert np.array_equal(outs[1][f"p{i}"], o[f"p{i}"]), i
 
 
+def test_tensor_parallel_step_on_the_card_matches_the_single_card_step(gen, tmp_path):
+    """One fp32 train step of a 2-layer diff model at recipe width (4 heads,
+    2 a rank), T 512, micro-batch 2: two gloo ranks sharing the card at
+    ``tensor=2`` (the kernels on each rank's heads and SwiGLU columns, the
+    region collectives through host memory) against the single-card step
+    from the same params and batch: loss, grad norm, the updated params
+    gathered, and every rank's params (the replicated leaves each rank's
+    own) bit-equal."""
+    import json
+
+    import numpy as np
+
+    from torch_ring_worker import run_ranks
+
+    mdict = dict(model="diff", n_layer=2, vocab_size=512, block_size=512,
+                 compute_dtype="float32")
+    tdict = dict(vocab_size=512, micro_batch_size=2, warmup_iters=0,
+                 learning_rate=1e-3, sampler="replacement")
+    cfg = ModelConfig(**mdict)
+    tcfg = TrainConfig(model=cfg, **tdict)
+    cpu_gen = torch.Generator()
+    cpu_gen.manual_seed(10)
+    params = init_model(cpu_gen, cfg)
+    idx = torch.randint(0, 512, (1, 2, 513), generator=cpu_gen)
+    batch = {"x": idx[..., :-1], "y": idx[..., 1:]}
+    state = train_state(params, tcfg, "cuda")
+    state, m = make_train_step(tcfg)(state, {k: t.cuda() for k, t in batch.items()})
+    ref_p = [t.detach().cpu() for t in leaves(state["params"])]
+
+    s0 = train_state(params, tcfg, "cpu")
+    meta = {"model": mdict, "train": tdict, "count": 0, "step": 0,
+            "guard": {"ema": 0.0, "good_steps": 0, "bad_streak": 0, "skipped": 0},
+            "cases": [{"mesh": {"tensor": 2}}]}
+    inputs = {"meta": np.array(json.dumps(meta)), "x": batch["x"].numpy(),
+              "y": batch["y"].numpy(), "device": np.array("cuda")}
+    for name, tree in (("p", s0["params"]), ("mu", s0["opt_state"]["mu"]),
+                       ("nu", s0["opt_state"]["nu"])):
+        inputs.update({f"{name}{i}": t.detach().numpy() for i, t in enumerate(leaves(tree))})
+    outs = run_ranks("mesh_step", 2, tmp_path, inputs, timeout=300)
+    o = outs[0]
+    assert abs(float(o["0_loss"]) - m["loss"]) <= 1e-5
+    assert abs(float(o["0_grad_norm"]) - m["grad_norm"]) <= 1e-4 * m["grad_norm"]
+    for i, p in enumerate(ref_p):
+        got = torch.from_numpy(o[f"0_p{i}"])
+        assert _err(got, p) <= 2 * tcfg.learning_rate
+        assert float((got - p).abs().mean()) <= 1e-6
+        assert np.array_equal(outs[1][f"0_p{i}"], o[f"0_p{i}"]), i
+
+
 def _train_cli(argv, **popen):
     import subprocess
     import sys

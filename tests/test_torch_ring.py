@@ -540,7 +540,7 @@ def test_cli_refuses_ulysses_and_a_bad_split():
     still to come are refused with their ROADMAP item."""
     with pytest.raises(SystemExit):
         cli.run(["--tokens", "t.npy", "--sequence-parallel", "2",
-                 "--tensor-parallel", "2", "--dist-backend", "gloo"])
+                 "--pipeline-parallel", "2", "--dist-backend", "gloo"])
     with pytest.raises(ValueError, match="local heads divisible"):
         TrainConfig(model=ModelConfig(model="diff", sequence_impl="ulysses"),
                     mesh=MeshConfig(sequence=8), control_head_multiplier=1)
@@ -552,7 +552,7 @@ def test_cli_refuses_ulysses_and_a_bad_split():
     assert TrainConfig(model=ModelConfig(block_size=100),
                        mesh=MeshConfig(sequence=2)).mesh.sequence == 2
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MeshConfig(tensor=2)
+        MeshConfig(pipeline=2)
     args = cli.build_parser().parse_args(["--tokens", "t.npy", "--sequence-parallel", "4",
                                           "--block-size", "1024"])
     assert args.dist_backend == "nccl"

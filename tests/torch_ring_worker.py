@@ -26,15 +26,19 @@ through a ``file://`` rendezvous in DIR (no TCP port), reads
 - ``cli_corpus``: ``cli``, with the rank's BPE trainings counted;
 - ``clis``: ``cli`` for each command line of a list, in turn;
 - ``mesh_step``: on a mesh of the world's ranks (``create_mesh`` over
-  data, fsdp, sequence), one ``make_sharded_train_step`` step per case
-  given, from the same full train state and global batch: the metrics,
-  the updated params (gathered under fsdp), the elements each rank holds
-  at rest, and every collective the step issued (kind and size, in
-  order);
+  data, fsdp, tensor, sequence), one ``make_sharded_train_step`` step
+  per case given, from the same full train state (cut to the rank's
+  shards) and global batch: the metrics, the updated params (gathered
+  under tensor and fsdp), the elements each rank holds at rest, and
+  every collective the step issued (kind and size, in order);
 - ``mesh_attention``: on such a mesh, each rank's attention on its batch
-  rows (and T-shard) with the seed words of its mesh position, forward
-  and backward: the flat path's ``flash_bh``, or the ring over the
-  sequence line;
+  rows, heads (tensor) and T-shard with the seed words of its mesh
+  position, forward and backward: ``shard_flash_multi_stream_attention``,
+  or the ring over the sequence line;
+- ``tensor_parts``: on a tensor line of the world, the GroupLayerNorm of
+  the rank's columns, the vocab-parallel losses (dense and chunked) of
+  its vocab shard, forward and backward, and the dropout seeds of a
+  mesh position;
 - ``ulysses``: ``ulysses_multi_stream_attention`` on this rank's shards,
   forward and backward, for each coefficient set and dropout rate given.
 """
@@ -254,12 +258,19 @@ def _counting(log):
     from differential_transformer_replication_tpu_torch.parallel import dp_step, sharding
     from differential_transformer_replication_tpu_torch.train import step as step_mod
 
+    from differential_transformer_replication_tpu_torch.ops import losses
+    from differential_transformer_replication_tpu_torch.parallel import regions
+
     saved = []
     for mod, name, kind in ((dp_step, "all_reduce_sum_", "all_reduce"),
                             (step_mod, "all_reduce_sum_", "all_reduce"),
                             (sharding, "all_reduce_sum_", "all_reduce"),
                             (sharding, "reduce_scatter_", "reduce_scatter"),
-                            (sharding, "all_gather_", "all_gather")):
+                            (sharding, "all_gather_", "all_gather"),
+                            (regions, "all_reduce_sum_", "all_reduce"),
+                            (regions, "reduce_scatter_", "reduce_scatter"),
+                            (regions, "all_gather_", "all_gather"),
+                            (losses, "all_gather_", "all_gather")):
         real = getattr(mod, name)
 
         def wrapped(*a, _real=real, _kind=kind):
@@ -284,8 +295,9 @@ def task_mesh_step(sg, inp):
         destroy_mesh,
     )
     from differential_transformer_replication_tpu_torch.parallel.dp_step import (
-        fsdp_layout,
+        full_train_state,
         make_sharded_train_step,
+        shard_train_state,
     )
 
     meta = json.loads(str(inp["meta"]))
@@ -298,23 +310,22 @@ def task_mesh_step(sg, inp):
         try:
             mcfg = cfg.resolved_model()
             dev = mesh.device
-            params = _params(inp, mcfg, "p", dev)
+            pre = case.get("prefix", "")  # the case's own params, where given
+            params = _params(inp, mcfg, pre + "p", dev)
             for t in leaves(params):
                 t.requires_grad_(True)
             state = {"params": params,
-                     "opt_state": {"mu": _params(inp, mcfg, "mu", dev),
-                                   "nu": _params(inp, mcfg, "nu", dev),
+                     "opt_state": {"mu": _params(inp, mcfg, pre + "mu", dev),
+                                   "nu": _params(inp, mcfg, pre + "nu", dev),
                                    "count": int(meta["count"])},
                      "step": int(meta["step"])}
             g = meta["guard"]
             state["guard"] = {"ema": np.float32(g["ema"]), "good_steps": g["good_steps"],
                               "bad_streak": g["bad_streak"], "skipped": g["skipped"]}
-            layout = fsdp_layout(cfg, mesh, state["params"])
-            if layout is not None:
-                state = layout.shard_state(state)
-                opt = state["opt_state"]
-                out[f"{c}_rest"] = np.array([sum(t.numel() for t in ts) for ts in (
-                    state["params"], opt["mu"], opt["nu"])])
+            state, layout = shard_train_state(cfg, mesh, state)
+            opt = state["opt_state"]
+            out[f"{c}_rest"] = np.array([sum(t.numel() for t in leaves(ts)) for ts in (
+                state["params"], opt["mu"], opt["nu"])])
             step = make_sharded_train_step(cfg, mesh, layout)
             x = case.get("x", "x")
             batch = {"x": _t(inp[x], dev), "y": _t(inp[case.get("y", "y")], dev)}
@@ -324,7 +335,7 @@ def task_mesh_step(sg, inp):
                 state, m = step(state, batch, case.get("seed"))
             finally:
                 undo()
-            full = state if layout is None else layout.gather_state(state)
+            full = full_train_state(state, mesh, layout)
             out[f"{c}_loss"] = np.float32(m["loss"])
             out[f"{c}_grad_norm"] = np.float32(m["grad_norm"])
             out[f"{c}_groups"] = np.array(m["grad_norm_groups"], np.float32)
@@ -340,10 +351,12 @@ def task_mesh_step(sg, inp):
 
 
 def task_mesh_attention(sg, inp):
-    from differential_transformer_replication_tpu_torch.ops.flash import flash_bh
     from differential_transformer_replication_tpu_torch.parallel import (
         create_mesh,
         destroy_mesh,
+    )
+    from differential_transformer_replication_tpu_torch.parallel.shard_flash import (
+        shard_flash_multi_stream_attention,
     )
 
     meta = json.loads(str(inp["meta"]))
@@ -359,27 +372,91 @@ def task_mesh_attention(sg, inp):
             seq = mesh.sequence_group
             rows, Tl = slice(b * B // n, (b + 1) * B // n), T // seq.size
             cols = slice(seq.rank * Tl, (seq.rank + 1) * Tl)
-            ql = qs[:, rows, cols].clone().requires_grad_(True)
-            kl = ks[:, rows, cols].clone().requires_grad_(True)
-            vl = v[rows, cols].clone().requires_grad_(True)
-            coeffs = _t(inp["coeffs"], dev).requires_grad_(True)
+            tp = mesh.line("tensor")
+            Hl = H // tp.size
+            heads = slice(tp.index * Hl, (tp.index + 1) * Hl)
+            ql = qs[:, rows, cols, heads].clone().requires_grad_(True)
+            kl = ks[:, rows, cols, heads].clone().requires_grad_(True)
+            vl = v[rows, cols, heads].clone().requires_grad_(True)
+            coeffs = _t(inp["coeffs"], dev)[:, heads].clone().requires_grad_(True)
             words = torch.from_numpy(inp["words"][mesh.position].reshape(1, 2))
+            kw = dict(dropout_rate=case["rate"], dropout_seed=words)
             if seq.size > 1:
-                o = ring_multi_stream_attention(ql, kl, vl, coeffs, seq,
-                                                dropout_rate=case["rate"],
-                                                dropout_seed=words)
+                o = ring_multi_stream_attention(ql, kl, vl, coeffs, seq, **kw)
             else:
-                Bl = ql.shape[1]
-                q_r = ql.permute(1, 3, 0, 2, 4).reshape(Bl * H, S, Tl, d)
-                k_r = kl.permute(1, 3, 0, 2, 4).reshape(Bl * H, S, Tl, d)
-                v_r = vl.permute(0, 2, 1, 3).reshape(Bl * H, Tl, dv)
-                o = flash_bh(q_r, k_r, v_r, coeffs, words, H, case["rate"])
-                o = o.reshape(Bl, H, Tl, dv).transpose(1, 2)
-            o.backward(_t(inp["g"], dev)[rows, cols])
+                o = shard_flash_multi_stream_attention(ql, kl, vl, coeffs, **kw)
+            o.backward(_t(inp["g"], dev)[rows, cols, heads])
             for name, t in (("out", o), ("dqs", ql.grad), ("dks", kl.grad),
                             ("dv", vl.grad), ("dcoeffs", coeffs.grad)):
                 out[f"{c}_{name}"] = _np(t)
             out[f"{c}_where"] = np.array([b, seq.rank, mesh.position])
+            out[f"{c}_heads"] = np.array([heads.start, heads.stop])
+        finally:
+            destroy_mesh(mesh)
+    return out
+
+
+def task_tensor_parts(sg, inp):
+    """On the world as one tensor line: the GroupLayerNorm of this rank's
+    columns of ``gn_x`` (gathered statistics), the vocab-parallel dense and
+    chunked losses of its vocab columns of ``ce_w``, each forward and
+    backward, and the forward's dropout seeds for the mesh positions of
+    ``meta["seed_meshes"]``."""
+    from differential_transformer_replication_tpu_torch.models import common
+    from differential_transformer_replication_tpu_torch.ops import losses
+    from differential_transformer_replication_tpu_torch.ops.dropout import generator
+    from differential_transformer_replication_tpu_torch.parallel import (
+        create_mesh,
+        destroy_mesh,
+    )
+    from differential_transformer_replication_tpu_torch.parallel.regions import (
+        copy_to_region,
+        own_columns,
+    )
+    from differential_transformer_replication_tpu_torch.parallel.shard_flash import (
+        attention_seed,
+    )
+
+    meta = json.loads(str(inp["meta"]))
+    out = {}
+    mesh = create_mesh(MeshConfig(tensor=sg.size), "gloo", str(sg.device))
+    try:
+        dev, tp = mesh.device, mesh.line("tensor")
+
+        def mine(a):  # this rank's block of the last dim
+            return own_columns(_t(a, dev), tp).contiguous().clone().requires_grad_(True)
+
+        x, w, b = mine(inp["gn_x"]), mine(inp["gn_w"]), mine(inp["gn_b"])
+        y = common.apply_group_norm(x, {"w": w, "b": b}, tp)
+        y.backward(own_columns(_t(inp["gn_g"], dev), tp))
+        out.update(gn_y=_np(y), gn_dx=_np(x.grad), gn_dw=_np(w.grad), gn_db=_np(b.grad))
+        for kind in ("dense", "chunked"):
+            h = _t(inp["ce_h"], dev).requires_grad_(True)
+            cw, cb = mine(inp["ce_w"]), mine(inp["ce_b"])
+            hh = copy_to_region(h, tp)
+            tgt = _t(inp["ce_t"], dev)
+            if kind == "dense":
+                loss, logits = losses.dense_linear_cross_entropy(hh, cw, cb, tgt, None, tp)
+                out["ce_logits"] = _np(logits)
+            else:
+                loss = losses.fused_linear_cross_entropy(hh, cw, cb, tgt, meta["chunk"],
+                                                         None, tp)
+            loss.backward()
+            out.update({f"ce_{kind}_loss": _np(loss), f"ce_{kind}_dh": _np(h.grad),
+                        f"ce_{kind}_dw": _np(cw.grad), f"ce_{kind}_db": _np(cb.grad)})
+    finally:
+        destroy_mesh(mesh)
+    for c, axes in enumerate(meta["seed_meshes"]):
+        mesh = create_mesh(MeshConfig(**axes), "gloo", str(sg.device))
+        try:
+            grp = mesh.sequence_group
+            s = common.rank_seed(meta["seed"], grp)
+            shape = (64,)
+            out[f"seed{c}_residual"] = _np(common.apply_dropout(
+                torch.ones(shape), 0.5, s))
+            gen = generator(attention_seed(s, grp), "cpu")
+            out[f"seed{c}_attention"] = _np(torch.rand(shape, generator=gen))
+            out[f"seed{c}_coords"] = np.array(mesh.coords)
         finally:
             destroy_mesh(mesh)
     return out
@@ -412,7 +489,8 @@ def task_ulysses(sg, inp):
 TASKS = {"rotate": task_rotate, "ring": task_ring, "wrappers": task_wrappers,
          "model": task_model, "step": task_step, "grads": task_grads, "cli": task_cli,
          "cli_corpus": task_cli_corpus, "clis": task_clis, "mesh_step": task_mesh_step,
-         "mesh_attention": task_mesh_attention, "ulysses": task_ulysses}
+         "mesh_attention": task_mesh_attention, "ulysses": task_ulysses,
+         "tensor_parts": task_tensor_parts}
 
 
 def start_ranks(task: str, P: int, d: Path, inputs: dict, timeout: float,
@@ -460,9 +538,12 @@ def main() -> int:
                             rank=rank, world_size=size)
     sg = init_sequence_group("gloo", device)
     try:
-        if "+" in task:  # several tasks in turn, each output key "task/key"
+        if "+" in task:  # several tasks in turn, each output key "task/key",
+            # each reading its own "meta_<task>" as "meta" where given
             out = {f"{name}/{k}": v for name in task.split("+")
-                   for k, v in TASKS[name](sg, inp).items()}
+                   for k, v in TASKS[name](sg, dict(
+                       inp, **({"meta": inp[f"meta_{name}"]}
+                               if f"meta_{name}" in inp else {}))).items()}
         else:
             out = TASKS[task](sg, inp)
     finally:
