@@ -213,22 +213,30 @@ these phases, each printing its own lines and its seconds:
    32, bf16) at ``--data-parallel 2`` (the overlap path), with
    ``--no-dp-overlap`` (the flat path), at ``--fsdp 2`` and at
    ``--tensor-parallel 2`` (Megatron: 2 of the 4 heads, the SwiGLU at F
-   1536, the vocab split; ``parallel/regions.py``); the P = 4 launch
-   runs ``--data-parallel 2 --sequence-parallel 2`` and
-   ``--tensor-parallel 2 --sequence-parallel 2`` over the ring at T 8192,
-   and ``--data-parallel 2 --fsdp 2`` and ``--data-parallel 2
-   --tensor-parallel 2`` on the recipe's width at 2 layers (the launches
+   1536, the vocab split; ``parallel/regions.py``) and at
+   ``--pipeline-parallel 2`` (GPipe, ``parallel/pipeline.py``: 4 layers a
+   stage, the step's 16,384 tokens as 4 microbatches of 8, 3 steps and an
+   eval); the P = 4 launch runs ``--data-parallel 2 --sequence-parallel
+   2`` and ``--tensor-parallel 2 --sequence-parallel 2`` over the ring at
+   T 8192, ``--data-parallel 2 --fsdp 2`` and ``--data-parallel 2
+   --tensor-parallel 2`` on the recipe's width at 1 layer,
+   ``--pipeline-parallel 4`` at 8 layers and ``--pipeline-parallel 2``
+   with ``--data-parallel 2`` and with ``--tensor-parallel 2`` at 2 (the launches
    start before train-e2e and run beside it, train-ckpt and train-full;
    the runs that time the card alone wait for those to end); each with
-   exact launches per kernel (or route) and rank, losses equal on every
-   rank and falling on a repeated batch, params identical on every rank
-   (gathered under tensor and fsdp, so a tensor line's replicated leaves
+   exact launches per kernel (or route) and rank (under pipeline per
+   stage: its layers' kernels for each microbatch, ln_f on the last stage
+   only), losses equal on every rank and falling on a repeated batch,
+   params identical on every rank (gathered under tensor, fsdp and
+   pipeline, so a tensor line's or a pipeline line's replicated leaves
    are bit-identical), ms per step, tokens/s, the collectives' calls,
-   bytes and host time per step and each rank's peak and state at rest
-   (fsdp's and tensor's about half of data's), beside a one-rank step of
-   the recipe; with two or more cards ``--data-parallel 2`` and
-   ``--tensor-parallel 2`` again over nccl (else a line says the leg was
-   not run);
+   bytes and host time per step (under pipeline also the sends' and
+   receives'), and each rank's peak and state at rest (fsdp's and
+   tensor's about half of data's, a pipeline stage's its half of the
+   blocks and the replicated leaves), beside a one-rank step of the
+   recipe; with two or more cards ``--data-parallel 2``,
+   ``--tensor-parallel 2`` and ``--pipeline-parallel 2`` again over nccl
+   (else a line says the leg was not run);
 6. train e2e: one train step of a 2-layer diff model at recipe width in
    fp32, loss and every gradient on the card (kernels) against the CPU
    (plain versions); again at T 640 through the head-major route;
@@ -239,9 +247,11 @@ these phases, each printing its own lines and its seconds:
    grads, updated params); train-mesh-e2e, beside it: one fp32 diff step
    at ``data=2`` (overlap), ``fsdp=2``, ``data=2, sequence=2``, Ulysses
    ``sequence`` 2 and 4, ``tensor=2``, ``data=2, tensor=2``, ``fsdp=2,
-   tensor=2`` and ``tensor=2, sequence=2`` (the ring, and Ulysses),
-   against the single-card step of the same global batch (micro-batch 2
-   where the data axes split it);
+   tensor=2`` and ``tensor=2, sequence=2`` (the ring, and Ulysses), and
+   at 4 layers ``pipeline=2``, ``pipeline=4``, ``pipeline=2, data=2``,
+   ``pipeline=2, tensor=2`` and ``pipeline=2, sequence=2`` (M microbatches
+   a step), against the single-card step of the same global batch
+   (micro-batch 2 where the data axes split it; grad-acc M);
 7. train-ckpt: the default recipe from text, with checkpoints, through
    the command lines, each in a process of its own (``chip_smoke.py
    --cli-worker``: the trainer's, the server's or the sampler's ``main``
@@ -4056,6 +4066,7 @@ def ring_best(P: int) -> Path:
     return SMOKE_BEST.with_name(f"best-ring-P{P}.ckpt")
 TRAIN_STEPS = 6     # trainer steps per recipe
 REPEAT_STEPS = 4    # steps on one repeated batch, whose loss must fall
+PIPE_M = 4          # the pipeline recipe's microbatches (grad-acc) a step
 TRAIN_COUNTERS = ("fused_norm", "fused_add_norm", "fused_swiglu",
                   "flash_tm_fwd", "flash_tm_bwd", "add_norm_bwd", "swiglu_bwd")
 
@@ -5050,7 +5061,7 @@ def e2e_inputs(torch, tcfg):
     gen = torch.Generator()
     gen.manual_seed(21)
     params = init_model(gen, mcfg)
-    idx = torch.randint(0, mcfg.vocab_size, (1, tcfg.micro_batch_size,
+    idx = torch.randint(0, mcfg.vocab_size, (tcfg.grad_acc_steps, tcfg.micro_batch_size,
                                              mcfg.block_size + 1), generator=gen)
     return params, {"x": idx[..., :-1], "y": idx[..., 1:]}
 
@@ -5131,30 +5142,52 @@ MESH_RUNS = {
          TRAIN_B, 3, 8, 0.0, True, "diff"),
         ("fsdp=2 recipe", ("--fsdp", "2"), 512, TRAIN_B, 3, 8, 0.0, True, "diff"),
         ("tensor=2 recipe", ("--tensor-parallel", "2"), 512, TRAIN_B, 3, 8, 0.0, True,
-         "diff")),
-    # the P = 4 recipe runs at 2 of the 8 layers: they hold up the P = 2
-    # launch's runs alone on the card (the smoke's time limit)
-    4: (("data=2 sequence=2 T=8192", ("--data-parallel", "2", "--sequence-parallel", "2"),
-         8192, 2, 3, RING_LAYERS, HM_RATE, False, "diff"),
-        ("tensor=2 sequence=2 T=8192", ("--tensor-parallel", "2", "--sequence-parallel",
-                                         "2"), 8192, 2, 3, RING_LAYERS, HM_RATE, False,
          "diff"),
+        # the recipe's 16,384 tokens a step as 4 microbatches of 8, 4 of its
+        # 8 layers a stage
+        ("pipeline=2 recipe", ("--pipeline-parallel", "2", "--grad-acc-steps",
+                               str(PIPE_M)), 512, TRAIN_B // PIPE_M, 3, 8, 0.0, True,
+         "diff")),
+    # the P = 4 runs at 1 of the 8 layers (pipeline=4 at all 8, 2 a
+    # stage; the pipelines x data and x tensor at 2): they hold up the
+    # P = 2 launch's runs alone on the card (the smoke's time limit)
+    4: (("data=2 sequence=2 T=8192", ("--data-parallel", "2", "--sequence-parallel", "2"),
+         8192, 2, 3, 1, HM_RATE, False, "diff"),
+        ("tensor=2 sequence=2 T=8192", ("--tensor-parallel", "2", "--sequence-parallel",
+                                         "2"), 8192, 2, 3, 1, HM_RATE, False, "diff"),
         ("data=2 fsdp=2 recipe", ("--data-parallel", "2", "--fsdp", "2"), 512, TRAIN_B,
-         3, 2, 0.0, False, "diff"),
+         3, 1, 0.0, False, "diff"),
         ("data=2 tensor=2 recipe", ("--data-parallel", "2", "--tensor-parallel", "2"), 512,
-         TRAIN_B, 3, 2, 0.0, False, "diff")),
+         TRAIN_B, 3, 1, 0.0, False, "diff"),
+        ("pipeline=4 recipe", ("--pipeline-parallel", "4", "--grad-acc-steps",
+                               str(PIPE_M)), 512, TRAIN_B // PIPE_M, 3, 8, 0.0, False,
+         "diff"),
+        ("pipeline=2 data=2", ("--pipeline-parallel", "2", "--data-parallel", "2",
+                               "--grad-acc-steps", str(PIPE_M)), 512, TRAIN_B // PIPE_M,
+         3, 2, 0.0, False, "diff"),
+        ("pipeline=2 tensor=2", ("--pipeline-parallel", "2", "--tensor-parallel", "2",
+                                 "--grad-acc-steps", str(PIPE_M)), 512, TRAIN_B // PIPE_M,
+         3, 2, 0.0, False, "diff")),
 }
-# the train-mesh-e2e steps: (label, mesh, micro-batch, sequence_impl) per P
-MESH_E2E = {2: (("data=2", {"data": 2}, 2, "ring"), ("fsdp=2", {"fsdp": 2}, 2, "ring"),
-                ("ulysses sequence=2", {"sequence": 2}, 1, "ulysses"),
-                ("tensor=2", {"tensor": 2}, 2, "ring")),
-            4: (("data=2 sequence=2", {"data": 2, "sequence": 2}, 2, "ring"),
-                ("ulysses sequence=4", {"sequence": 4}, 1, "ulysses"),
-                ("data=2 tensor=2", {"data": 2, "tensor": 2}, 2, "ring"),
-                ("fsdp=2 tensor=2", {"fsdp": 2, "tensor": 2}, 2, "ring"),
-                ("tensor=2 sequence=2", {"tensor": 2, "sequence": 2}, 1, "ring"),
+# the train-mesh-e2e steps: (label, mesh, micro-batch, sequence_impl,
+# grad-acc microbatches, layers) per P; the pipelines at 4 layers, against
+# the single-card step with grad-acc M
+MESH_E2E = {2: (("data=2", {"data": 2}, 2, "ring", 1, 2),
+                ("fsdp=2", {"fsdp": 2}, 2, "ring", 1, 2),
+                ("ulysses sequence=2", {"sequence": 2}, 1, "ulysses", 1, 2),
+                ("tensor=2", {"tensor": 2}, 2, "ring", 1, 2),
+                ("pipeline=2", {"pipeline": 2}, 1, "ring", 2, 4)),
+            4: (("data=2 sequence=2", {"data": 2, "sequence": 2}, 2, "ring", 1, 2),
+                ("ulysses sequence=4", {"sequence": 4}, 1, "ulysses", 1, 2),
+                ("data=2 tensor=2", {"data": 2, "tensor": 2}, 2, "ring", 1, 2),
+                ("fsdp=2 tensor=2", {"fsdp": 2, "tensor": 2}, 2, "ring", 1, 2),
+                ("tensor=2 sequence=2", {"tensor": 2, "sequence": 2}, 1, "ring", 1, 2),
                 ("ulysses tensor=2 sequence=2", {"tensor": 2, "sequence": 2}, 1,
-                 "ulysses"))}
+                 "ulysses", 1, 2),
+                ("pipeline=4", {"pipeline": 4}, 1, "ring", 4, 4),
+                ("pipeline=2 data=2", {"pipeline": 2, "data": 2}, 2, "ring", 2, 4),
+                ("pipeline=2 tensor=2", {"pipeline": 2, "tensor": 2}, 1, "ring", 2, 4),
+                ("pipeline=2 sequence=2", {"pipeline": 2, "sequence": 2}, 1, "ring", 2, 4))}
 
 
 def _mesh_of(torch, cfg, backend: str):
@@ -5190,9 +5223,12 @@ def mesh_train_task(torch, sg, spec: dict) -> dict:
     """A trainer run on this rank of a mesh (the CLI's ``run``): launches
     by kernel and route, losses, peak and state at rest, the params'
     checksum (gathered under tensor and fsdp: a tensor line's replicated
-    leaves are each rank's own copies); then steps on one repeated batch,
-    each timed with its collectives' host time; with ``spec["after"]``,
-    once that file exists (the card this launch's alone)."""
+    leaves are each rank's own copies; under pipeline ``train`` returns
+    the gathered state, which is then cut to the rank's stage again);
+    then steps on one repeated batch (``grad_acc_steps`` microbatches of
+    it), each timed with its collectives' and its sends' host time; with
+    ``spec["after"]``, once that file exists (the card this launch's
+    alone)."""
     from differential_transformer_replication_tpu_torch.ops import flash
     from differential_transformer_replication_tpu_torch.ops import (
         fused_norm_residual as fnr,
@@ -5202,12 +5238,14 @@ def mesh_train_task(torch, sg, spec: dict) -> dict:
         destroy_mesh,
         make_sharded_train_step,
         mesh as pmesh,
+        pipeline,
         ring,
         ulysses,
     )
     from differential_transformer_replication_tpu_torch.parallel.dp_step import (
         full_params,
         model_params,
+        shard_train_state,
     )
     from differential_transformer_replication_tpu_torch.train import __main__ as cli
     from differential_transformer_replication_tpu_torch.train.optim import leaves
@@ -5234,34 +5272,46 @@ def mesh_train_task(torch, sg, spec: dict) -> dict:
                      for fn in flash.BH_WRAPPERS + flash.CHUNK_WRAPPERS
                      for r, n in fn.routes.items()}
     rec["losses"] = [m["loss"] for m in history]
-    rec["bad"] = [m["bad"] for m in history]
+    # the pipeline step carries no anomaly guard (as JAX's)
+    rec["bad"] = [m.get("bad", 0) for m in history]
     rec["step_ms"] = [m["step_time_ms"] for m in history]
     rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    opt = state["opt_state"]
-    rec["rest_gib"] = sum(t.numel() * t.element_size() for part in (
-        state["params"], opt["mu"], opt["nu"]) for t in leaves(part)) / 2 ** 30
     args = cli.build_parser().parse_args(spec["argv"])
     cfg = cli.config_from_args(args)
     mesh, layout = _mesh_of(torch, cfg, sg.backend)
+    pipelined = cfg.mesh.pipeline > 1
     try:
-        rec["checksum"] = _params_checksum(torch, full_params(state["params"], mesh, layout))
+        if pipelined:
+            rec["checksum"] = _params_checksum(torch, state["params"])
+            state, _ = shard_train_state(cfg, mesh, state)
+            for t in leaves(state["params"]):  # a gathered state's are snapshots
+                t.requires_grad_(True)
+            step = pipeline.make_pipeline_train_step(cfg.replace(max_iters=1000), mesh)
+            eval_step = pipeline.make_pipeline_eval_step(cfg, mesh)
+        else:
+            rec["checksum"] = _params_checksum(torch, full_params(state["params"], mesh,
+                                                                  layout))
+            step = make_sharded_train_step(cfg.replace(max_iters=1000), mesh, layout)
+            eval_step = make_eval_step(cfg, mesh)
+        opt = state["opt_state"]
+        rec["rest_gib"] = sum(t.numel() * t.element_size() for part in (
+            state["params"], opt["mu"], opt["nu"]) for t in leaves(part)) / 2 ** 30
         # steps on ONE repeated batch: the dropout-free eval loss on it
         # must fall; each step timed (synced) with its collectives
-        step = make_sharded_train_step(cfg.replace(max_iters=1000), mesh, layout)
-        eval_step = make_eval_step(cfg, mesh)
         g = torch.Generator(device=mesh.device)
         g.manual_seed(1)
         T = cfg.model.block_size
-        idx = torch.randint(0, cfg.vocab_size, (1, args.micro_batch_size, T + 1),
-                            generator=g, device=mesh.device)
+        idx = torch.randint(0, cfg.vocab_size, (cfg.grad_acc_steps, args.micro_batch_size,
+                                                T + 1), generator=g, device=mesh.device)
         batch = {"x": idx[..., :-1], "y": idx[..., 1:]}
         rec["before"] = float(eval_step(model_params(state["params"], layout),
                                         batch["x"][0], batch["y"][0]))
         rec["repeat"], rec["repeat_ms"], rec["coll"], rec["a2a"] = [], [], [], []
-        rec["rot"] = []
+        rec["rot"], rec["send"] = [], []
         for i in range(REPEAT_STEPS):
             torch.cuda.synchronize()
             pmesh.reset_collective_stats()
+            pmesh.reset_send_stats()
             ulysses.reset_exchange_stats()
             ring.reset_rotation_stats()
             t0 = time.perf_counter()
@@ -5269,6 +5319,7 @@ def mesh_train_task(torch, sg, spec: dict) -> dict:
             torch.cuda.synchronize()
             rec["repeat_ms"].append(1e3 * (time.perf_counter() - t0))
             rec["coll"].append(dict(pmesh.STATS))
+            rec["send"].append(dict(pmesh.SEND))
             rec["a2a"].append(dict(ulysses.EXCHANGE))
             rec["rot"].append(dict(ring.ROTATION))
             rec["repeat"].append(m["loss"])
@@ -5286,12 +5337,23 @@ def mesh_grads(tcfg, mesh, layout, state, batch) -> list:
     """The full gradients (``leaves`` order) of one step of ``tcfg`` on
     this rank, through the path its sharded step takes: the overlap
     path's bucket means, the fsdp gather and reduce-scatter (the shards'
-    gradients then gathered), or the flat all-reduce; under tensor the
-    tensor shards' gradients then gathered over the line."""
-    from differential_transformer_replication_tpu_torch.parallel import dp_step, shard_batch
+    gradients then gathered), the flat all-reduce, or the pipeline's
+    schedule (each stage's gradients then gathered over the pipeline
+    line); under tensor the tensor shards' gradients then gathered over
+    the line."""
+    from differential_transformer_replication_tpu_torch.parallel import (
+        dp_step,
+        pipeline,
+        shard_batch,
+    )
     from differential_transformer_replication_tpu_torch.train.optim import leaves, unflatten
     from differential_transformer_replication_tpu_torch.train.step import make_grad_fn
 
+    if tcfg.mesh.pipeline > 1:
+        local = shard_batch(batch, mesh)
+        grads = pipeline.make_pipeline_loss(tcfg.resolved_model(), mesh)(
+            state["params"], local["x"], local["y"], grads=True)[1]
+        return leaves(dp_step.full_params(unflatten(state["params"], grads), mesh, None))
     if dp_step.overlap_eligible(tcfg):
         line = mesh.line("data")
         fn = make_grad_fn(tcfg, None, dp_step.make_param_sync(line, tcfg.dp_bucket_layers),
@@ -5306,18 +5368,18 @@ def mesh_grads(tcfg, mesh, layout, state, batch) -> list:
     return leaves(dp_step.full_params(tree, mesh, layout))
 
 
-def _e2e_cfg(mesh: dict, B: int, impl: str):
+def _e2e_cfg(mesh: dict, B: int, impl: str, M: int = 1, L: int = 2):
     from differential_transformer_replication_tpu_torch.config import (
         MeshConfig,
         ModelConfig,
         TrainConfig,
     )
 
-    mcfg = ModelConfig(**dict(RECIPE, n_layer=2, block_size=1024, sequence_impl=impl),
+    mcfg = ModelConfig(**dict(RECIPE, n_layer=L, block_size=1024, sequence_impl=impl),
                        compute_dtype="float32")
     return TrainConfig(model=mcfg, mesh=MeshConfig(**mesh), vocab_size=RECIPE["vocab_size"],
-                       micro_batch_size=B, warmup_iters=0, learning_rate=1e-3,
-                       sampler="replacement")
+                       micro_batch_size=B, grad_acc_steps=M, warmup_iters=0,
+                       learning_rate=1e-3, sampler="replacement")
 
 
 def mesh_e2e_task(torch, sg, spec: dict) -> dict:
@@ -5328,6 +5390,7 @@ def mesh_e2e_task(torch, sg, spec: dict) -> dict:
         create_mesh,
         destroy_mesh,
         make_sharded_train_step,
+        pipeline,
     )
     from differential_transformer_replication_tpu_torch.parallel.dp_step import (
         full_params,
@@ -5337,8 +5400,8 @@ def mesh_e2e_task(torch, sg, spec: dict) -> dict:
     from differential_transformer_replication_tpu_torch.train.step import train_state
 
     rec = {}
-    for label, mesh_axes, B, impl in MESH_E2E[sg.size]:
-        tcfg = _e2e_cfg(mesh_axes, B, impl)
+    for label, mesh_axes, B, impl, M, L in MESH_E2E[sg.size]:
+        tcfg = _e2e_cfg(mesh_axes, B, impl, M, L)
         mesh = create_mesh(tcfg.mesh, sg.backend, "cuda")
         try:
             params, batch = e2e_inputs(torch, tcfg)
@@ -5346,7 +5409,9 @@ def mesh_e2e_task(torch, sg, spec: dict) -> dict:
                                               train_state(params, tcfg, mesh.device))
             batch = {k: t.to(mesh.device) for k, t in batch.items()}
             grads = mesh_grads(tcfg, mesh, layout, state, batch)
-            state, m = make_sharded_train_step(tcfg, mesh, layout)(state, batch)
+            step = (pipeline.make_pipeline_train_step(tcfg, mesh) if tcfg.mesh.pipeline > 1
+                    else make_sharded_train_step(tcfg, mesh, layout))
+            state, m = step(state, batch)
             full = full_params(state["params"], mesh, layout)
             rec[label] = {"loss": m["loss"], "grad_norm": m["grad_norm"],
                           "checksum": _params_checksum(torch, full)}
@@ -5361,7 +5426,7 @@ def mesh_e2e_task(torch, sg, spec: dict) -> dict:
 
 def mesh_e2e_reference(torch) -> dict:
     """The single-card fp32 diff step of train-mesh-e2e at each
-    micro-batch it uses (e2e_inputs), keyed by the micro-batch."""
+    (micro-batch, grad-acc, layers) it uses (e2e_inputs), keyed by them."""
     from differential_transformer_replication_tpu_torch.train.optim import leaves
     from differential_transformer_replication_tpu_torch.train.step import (
         make_grad_fn,
@@ -5370,14 +5435,15 @@ def mesh_e2e_reference(torch) -> dict:
     )
 
     ref = {}
-    for B in sorted({c[2] for cases in MESH_E2E.values() for c in cases}):
-        tcfg = _e2e_cfg({}, B, "ring")
+    for B, M, L in sorted({(c[2], c[4], c[5]) for cases in MESH_E2E.values()
+                           for c in cases}):
+        tcfg = _e2e_cfg({}, B, "ring", M, L)
         params, batch = e2e_inputs(torch, tcfg)
         state = train_state(params, tcfg, "cuda")
         batch = {k: t.cuda() for k, t in batch.items()}
         _, grads = make_grad_fn(tcfg)(state["params"], batch)
         state, m = make_train_step(tcfg)(state, batch)
-        ref[B] = (m, [g.cpu() for g in grads],
+        ref[(B, M, L)] = (m, [g.cpu() for g in grads],
                   [t.detach().cpu() for t in leaves(state["params"])])
     return ref
 
@@ -5386,16 +5452,17 @@ def check_mesh_e2e(torch, P: int, ref: dict, recs: list, out: str) -> None:
     """train-mesh-e2e: each mesh's fp32 step against one card, the ring's
     bounds (check_ring_e2e)."""
     lr = 1e-3
-    for label, _, B, _ in MESH_E2E[P]:
-        m, grads, params = ref[B]
+    for label, _, B, _, M, L in MESH_E2E[P]:
+        m, grads, params = ref[(B, M, L)]
         got = torch.load(f"{out}.{label.replace(' ', '_')}.pt")
         r0 = recs[0][label]
         rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
                   for a, b in zip(got["grads"], grads))
         p_max = max(float((a - b).abs().max()) for a, b in zip(got["params"], params))
         p_mean = max(float((a - b).abs().mean()) for a, b in zip(got["params"], params))
-        log(f"[train-mesh-e2e] diff recipe width, 2 layers, fp32, T 1024, micro-batch "
-            f"{B}, {label} over {P} gloo ranks vs one card: loss {r0['loss']:.6f} vs "
+        log(f"[train-mesh-e2e] diff recipe width, {L} layers, fp32, T 1024, micro-batch "
+            f"{B} x {M} grad-acc, {label} over {P} gloo ranks vs one card (grad-acc "
+            f"{M}): loss {r0['loss']:.6f} vs "
             f"{m['loss']:.6f} (bound 1e-5), grad norm {r0['grad_norm']:.6f} vs "
             f"{m['grad_norm']:.6f} (1e-4 relative), worst gradient {rel:.3g} of its "
             f"leaf's max (1e-3), params after the step max {p_max:.3g} (2 lr = "
@@ -5416,8 +5483,12 @@ def check_mesh_run(torch, card: str, label: str, P: int, run: tuple, backend: st
     from differential_transformer_replication_tpu_torch.ops import flash
 
     _, flags, T, B, steps, L, rate, _, model = run
-    seq = int(flags[flags.index("--sequence-parallel") + 1]) if \
-        "--sequence-parallel" in flags else 1
+
+    def flag(name: str) -> int:
+        return int(flags[flags.index(name) + 1]) if name in flags else 1
+
+    seq, pp, M = flag("--sequence-parallel"), flag("--pipeline-parallel"), \
+        flag("--grad-acc-steps")
     ulysses = "ulysses" in flags
     S = 1 if model == "control" else 2
     r0 = recs[0]
@@ -5453,7 +5524,16 @@ def check_mesh_run(torch, card: str, label: str, P: int, run: tuple, backend: st
         # the add+LayerNorm backward: ln1, ln2 (and diff's GroupLayerNorm,
         # at full width on a tensor line) per layer, and ln_f
         norms = (2 if model == "control" else 3) * L + 1
-        if not want:
+        if pp > 1:  # this rank's stage: its Lp layers a microbatch; only the
+            # last stage runs ln_f (and the lm head and the loss)
+            Lp, last = L // pp, int(r["coords"][-1] == pp - 1)
+            n_f, n_b = M * steps + 2 * RING_EVAL_ITERS, M * steps
+            ln = 1 if model == "control" else 2  # ln1 (and diff's GroupLayerNorm)
+            per = {"fused_norm": (ln * Lp + last) * n_f, "fused_add_norm": Lp * n_f,
+                   "fused_swiglu": Lp * n_f, "flash_tm_fwd": Lp * n_f,
+                   "flash_tm_bwd": Lp * n_b, "swiglu_bwd": Lp * n_b,
+                   "add_norm_bwd": ((ln + 1) * Lp + last) * n_b}
+        elif not want:
             per = {"flash_tm_fwd": L * n_fwd, "flash_tm_bwd": L * steps,
                    "swiglu_bwd": L * steps, "add_norm_bwd": norms * steps}
         elif seq == 1 and not ulysses:  # the evals' forwards on kernel D
@@ -5479,15 +5559,26 @@ def check_mesh_run(torch, card: str, label: str, P: int, run: tuple, backend: st
     coll = r0["coll"][1:]
     coll_ms = 1e3 * sum(c["host_s"] for c in coll) / len(coll)
     coll_mb = sum(c["bytes"] for c in coll) / len(coll) / 2 ** 20
-    a2a, rot = r0["a2a"][1:], r0["rot"][1:]
-    fig = {"ms": ms, "tok_s": B * T / (ms / 1e3), "coll_ms": coll_ms,
+    a2a, rot, send = r0["a2a"][1:], r0["rot"][1:], r0["send"][1:]
+    fig = {"ms": ms, "tok_s": M * B * T / (ms / 1e3), "coll_ms": coll_ms,
            "calls": coll[0]["calls"], "coll_mb": coll_mb,
            "a2a_ms": 1e3 * sum(c["host_s"] for c in a2a) / len(a2a),
            "rot_ms": 1e3 * sum(c["host_s"] for c in rot) / len(rot),
+           "sends": send[0]["calls"], "recvs": send[0]["recv_calls"],
+           "send_mb": sum(c["bytes"] for c in send) / len(send) / 2 ** 20,
+           "send_ms": 1e3 * sum(c["host_s"] + c["recv_host_s"] for c in send) / len(send),
            "peaks": [round(r["peak_gib"], 2) for r in recs],
            "rest": [round(r["rest_gib"], 3) for r in recs]}
+    if pp > 1:
+        log(f"[train-mesh] {label}: rank 0 (stage 0) of {pp} stages, {M} microbatches "
+            f"a step (bubble {(pp - 1) / (M + pp - 1):.3f} of the ticks): its sends "
+            f"{fig['sends']} and receives {fig['recvs']} a step, {fig['send_mb']:.1f} MB "
+            f"sent, {fig['send_ms']:.1f} ms of host time in both; the sums over the "
+            f"pipeline line and the mesh (the replicated leaves' gradients, the loss, the "
+            f"norm) {fig['calls']} calls, {coll_mb:.1f} MB, {coll_ms:.1f} ms host")
     log(f"[train-mesh] {label}: {model}, {L} layers, width {RECIPE['n_embd']}, T {T}, "
-        f"global micro-batch {B}, dropout {rate}, bf16, {P} {backend} ranks sharing one "
+        f"global micro-batch {B} x {M} grad-acc, dropout {rate}, bf16, {P} {backend} "
+        f"ranks sharing one "
         f"card ({card}); {steps} trainer steps, losses {[round(x, 4) for x in losses]}, "
         f"rank 0 step ms {[round(x, 1) for x in r0['step_ms']]}; repeated batch: "
         f"{ms:.1f} ms/step median past the first ({fig['tok_s']:.0f} tokens/s over the "
@@ -5503,6 +5594,20 @@ def check_mesh_run(torch, card: str, label: str, P: int, run: tuple, backend: st
     log(f"[train-mesh] {label}: one repeated batch, loss {r0['before']:.4f} -> "
         f"{[round(x, 4) for x in r0['repeat']]} -> {r0['after']:.4f}")
     return fig
+
+
+def pipeline_rest_share(torch, P: int) -> float:
+    """The share of the recipe's params a pipeline stage holds: 1/P of
+    the blocks, the embeddings, ln_f and lm_head whole."""
+    from differential_transformer_replication_tpu_torch.config import ModelConfig
+    from differential_transformer_replication_tpu_torch.models import init_model, param_count
+
+    # one layer's params: the blocks are n_layer of its block
+    params = init_model(torch.Generator(), ModelConfig(**dict(RECIPE, n_layer=1)))
+    block = param_count(params["blocks"])
+    rest = param_count(params) - block
+    L = RECIPE["n_layer"]
+    return (rest + L * block / P) / (rest + L * block)
 
 
 def recipe_single_step(torch, card: str) -> dict:
@@ -5583,9 +5688,10 @@ def start_train_ring(torch, tokens) -> dict:
         log(f"[train-ring] NCCL leg not run: this machine has {n_cards} card "
             "(it needs one card per rank, 2); the runs below are gloo ranks sharing "
             "one card")
-        log(f"[train-mesh] NCCL leg (--data-parallel 2 and --tensor-parallel 2 over "
-            f"nccl) not run: this machine has {n_cards} card (it needs one card per "
-            "rank, 2); the mesh runs below are gloo ranks sharing one card")
+        log(f"[train-mesh] NCCL leg (--data-parallel 2, --tensor-parallel 2 and "
+            f"--pipeline-parallel 2 over nccl) not run: this machine has {n_cards} card "
+            "(it needs one card per rank, 2); the mesh runs below are gloo ranks sharing "
+            "one card")
     # the gloo launches run side by side (each launch's start, ~20 s, and
     # its runs overlap the other's); the step profile and the recipe runs,
     # tasks at the end of the P = 2 launch, wait until the P = 4 launch and
@@ -5615,7 +5721,7 @@ def start_train_ring(torch, tokens) -> dict:
             tasks.append({"label": label, "task": "train", "argv": argv})
         mruns = [r for r in MESH_RUNS[P] if backend == "gloo"] if runs else \
             [(f"{r[0]} nccl", *r[1:7], False, r[8]) for r in MESH_RUNS[2]
-             if r[0] in ("data=2 recipe", "tensor=2 recipe")]
+             if r[0] in ("data=2 recipe", "tensor=2 recipe", "pipeline=2 recipe")]
         # the mesh runs that share the card with the other launch, then
         # the e2e steps; the P = 2 launch's profile and its recipe runs
         # wait for the P = 4 launch to end
@@ -5745,6 +5851,23 @@ def finish_train_ring(torch, card: str, ring: dict) -> dict:
         f"{max(dp['rest']):.3f} ({t_ratio:.3f}); {card}")
     expect(0.49 <= t_ratio <= 0.51,
            f"tensor=2 keeps {t_ratio:.3f} of data=2's state at rest")
+    # the pipeline recipe: a stage's 4 layers, the replicated embeddings
+    # and head whole
+    pp = figs["pipeline=2 recipe"]
+    p_ratio = max(pp["rest"]) / max(dp["rest"])
+    p_want = pipeline_rest_share(torch, 2)
+    log(f"[train-mesh] the diff recipe at --pipeline-parallel 2 (4 of the 8 layers a "
+        f"stage, 4 microbatches of 8 a step; gloo, ranks sharing one card): "
+        f"{pp['ms']:.1f} ms/step ({pp['tok_s']:.0f} tok/s), against one rank "
+        f"{one['ms']:.1f} ms/step ({one['tok_s']:.0f} tok/s); rank 0's sends "
+        f"{pp['sends']} and receives {pp['recvs']} a step, {pp['send_mb']:.1f} MB, "
+        f"{pp['send_ms']:.1f} ms host; the pipeline sum {pp['calls']} calls, "
+        f"{pp['coll_mb']:.1f} MB, {pp['coll_ms']:.1f} ms host; peak per rank "
+        f"{pp['peaks']} GiB; params + moments at rest {pp['rest']} GiB a rank against "
+        f"data's {max(dp['rest']):.3f} ({p_ratio:.3f}; the blocks' half and the "
+        f"replicated leaves: {p_want:.3f}); {card}")
+    expect(abs(p_ratio - p_want) <= 0.01,
+           f"pipeline=2 keeps {p_ratio:.3f} of data=2's state at rest, not {p_want:.3f}")
     expect(prof is not None, f"{RING_RUNS[0][0]}: no step profile")
     top = ", ".join(f"{k['name'][:40]} {k['ms_per_step']:.2f}"
                     for k in prof["top_kernels"][:8])

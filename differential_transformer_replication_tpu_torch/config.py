@@ -360,12 +360,6 @@ class ServingConfig:
         return dataclasses.replace(self, **kw)
 
 
-# the mesh axes the port does not run yet -> the ROADMAP item that brings it
-LATER_MESH_AXES = {
-    "pipeline": "pipeline parallelism (ROADMAP Queue A: parallelism)",
-}
-
-
 @dataclass(frozen=True)
 class RouterConfig:
     """Multi-replica router knobs (serving/router.py).
@@ -688,9 +682,10 @@ class AutoscalerConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """A copy of the JAX package's MeshConfig (the same axes, defaults and
-    order). The port runs the ``data``, ``fsdp``, ``tensor`` and
-    ``sequence`` axes over ``torch.distributed`` ranks (``parallel/``);
-    ``pipeline`` must stay 1 and names the ROADMAP item that brings it."""
+    order). The port runs every axis over ``torch.distributed`` ranks
+    (``parallel/``): ``data``, ``fsdp``, ``tensor``, ``sequence``, and
+    ``pipeline``, the last and fastest-varying one, whose stages hold
+    consecutive layers (``parallel/pipeline.py``)."""
 
     pipeline: int = 1
     data: int = 1
@@ -703,13 +698,6 @@ class MeshConfig:
             if getattr(self, name) < 1:
                 raise ValueError(f"mesh axis {name} must be >= 1, got "
                                  f"{getattr(self, name)}")
-        for name, item in LATER_MESH_AXES.items():
-            if getattr(self, name) != 1:
-                raise NotImplementedError(
-                    f"MeshConfig.{name}={getattr(self, name)}: the port does "
-                    f"not run {item} yet; only the data, fsdp, tensor and "
-                    "sequence axes may be > 1"
-                )
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
@@ -744,8 +732,9 @@ class TrainConfig:
     stay at their defaults. A mesh of more than one rank trains over that
     many ``torch.distributed`` ranks: ``data`` and ``fsdp`` split the
     batch (``fsdp`` also shards params and AdamW's moments at rest),
-    ``sequence`` the sequence (the ring or Ulysses); ``tensor`` and
-    ``pipeline`` are refused."""
+    ``sequence`` the sequence (the ring or Ulysses), ``tensor`` the heads,
+    the SwiGLU width and the vocab (Megatron), ``pipeline`` the layers
+    (GPipe stages; ``fsdp`` is then a second data axis)."""
 
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
@@ -853,6 +842,8 @@ class TrainConfig:
         if self.grad_acc_steps < 1 or self.micro_batch_size < 1:
             raise ValueError("grad_acc_steps and micro_batch_size must be >= 1")
         n_batch = self.mesh.data * self.mesh.fsdp
+        if self.mesh.pipeline > 1:
+            self._check_pipeline_split()
         if self.micro_batch_size % n_batch:
             # JAX's jit refuses a batch its ("data", "fsdp") spec cannot split
             raise ValueError(
@@ -880,6 +871,22 @@ class TrainConfig:
                 # past it and causal offsets off their 32-row tile grid
                 raise ValueError(f"block_size {T} must split into {P} equal "
                                  "sequence shards")
+
+    def _check_pipeline_split(self) -> None:
+        """What JAX's pipeline refuses, with its texts
+        (``parallel/pipeline.py:_check_pipeline_cfg`` and
+        ``make_pipeline_train_step``): layers that do not split into the
+        stages, and a micro-batch that does not split over data x fsdp."""
+        P, L = self.mesh.pipeline, self.model.n_layer
+        if L % P:
+            raise ValueError(f"n_layer={L} not divisible by pipeline={P}")
+        shards = self.mesh.data * self.mesh.fsdp
+        if self.micro_batch_size % shards:
+            raise ValueError(
+                f"micro_batch_size={self.micro_batch_size} not divisible by the "
+                f"data*fsdp shard count {shards} (mesh "
+                f"{dict(zip(self.mesh.axis_names, self.mesh.shape))})"
+            )
 
     def _check_tensor_split(self) -> None:
         """The widths the ``tensor`` axis shards (JAX

@@ -4,12 +4,13 @@
 attention seed (``shard_flash.py``), the step on a mesh (``dp_step.py``:
 overlap-scheduled data parallelism, the flat step, FSDP), the two
 strategies of the ``sequence`` axis (``ring.py``: ring flash attention;
-``ulysses.py``: all-to-all), and the liveness mesh between processes
-(``heartbeat.py``). The pipeline and multihost are what is left (ROADMAP
-Queue A: parallelism, item 9).
+``ulysses.py``: all-to-all), the GPipe stages of the ``pipeline`` axis
+(``pipeline.py``), the multi-process runtime (``multihost.py``: joining
+the world, the primary rank, each rank's batch, the full state on the
+host) and the liveness mesh between processes (``heartbeat.py``).
 
-``dp_step`` imports the train step, which imports the models, which
-import this package: its names load at first use."""
+``dp_step`` and ``pipeline`` import the train step, which imports the
+models, which import this package: their names load at first use."""
 
 from differential_transformer_replication_tpu_torch.parallel.mesh import (  # noqa: F401
     Line,
@@ -28,6 +29,7 @@ from differential_transformer_replication_tpu_torch.parallel.sharding import (  
     FsdpLayout,
     shard_batch,
 )
+from differential_transformer_replication_tpu_torch.parallel import multihost  # noqa: F401
 from differential_transformer_replication_tpu_torch.parallel import ring  # noqa: F401
 from differential_transformer_replication_tpu_torch.parallel.ring import (  # noqa: F401
     ring_diff_attention,
@@ -43,12 +45,18 @@ from differential_transformer_replication_tpu_torch.parallel.ulysses import (  #
     ulysses_multi_stream_attention,
 )
 
-_LAZY = ("make_sharded_train_step", "make_param_sync", "overlap_eligible")
+_LAZY = {"dp_step": ("make_sharded_train_step", "make_param_sync", "overlap_eligible"),
+         "pipeline": ("create_pipeline_train_state", "make_pipeline_eval_many",
+                      "make_pipeline_eval_step", "make_pipeline_train_step",
+                      "stack_blocks", "unstack_blocks")}
 
 
 def __getattr__(name: str):
-    if name in _LAZY:
-        from differential_transformer_replication_tpu_torch.parallel import dp_step
+    import importlib
 
-        return getattr(dp_step, name)
+    for module, names in _LAZY.items():
+        if name in names:
+            mod = importlib.import_module(
+                f"differential_transformer_replication_tpu_torch.parallel.{module}")
+            return getattr(mod, name)
     raise AttributeError(name)

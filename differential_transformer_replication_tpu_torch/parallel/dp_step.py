@@ -65,6 +65,11 @@ from differential_transformer_replication_tpu_torch.parallel.mesh import (
     Mesh,
     all_reduce_sum_,
 )
+from differential_transformer_replication_tpu_torch.parallel.pipeline import (
+    gather_stage_state,
+    gather_stage_tree,
+    stage_state,
+)
 from differential_transformer_replication_tpu_torch.parallel.sharding import (
     FsdpLayout,
     param_buckets,
@@ -186,7 +191,7 @@ def tree_mean(line: Line):
     return sync
 
 
-def _make_overlap_train_step(cfg: TrainConfig, mesh: Mesh):
+def _make_overlap_train_step(cfg: TrainConfig, mesh: Mesh, batch_is_local: bool):
     line = mesh.line("data")
     sync = tree_mean(line)
     # group=None: every shard runs the single-card forward on its rows
@@ -196,7 +201,7 @@ def _make_overlap_train_step(cfg: TrainConfig, mesh: Mesh):
     def step(state: dict, batch: dict, seed=None):
         if seed is not None:
             seed = fold_seed(seed, mesh.axis_index("data"))
-        return inner(state, shard_batch(batch, mesh), seed)
+        return inner(state, batch if batch_is_local else shard_batch(batch, mesh), seed)
 
     return step
 
@@ -234,7 +239,8 @@ def make_param_gather(layout: FsdpLayout):
     return gather
 
 
-def _make_fsdp_train_step(cfg: TrainConfig, mesh: Mesh, layout: FsdpLayout):
+def _make_fsdp_train_step(cfg: TrainConfig, mesh: Mesh, layout: FsdpLayout,
+                          batch_is_local: bool):
     # every rank of a tensor line holds the same loss: sum over the rest
     plane = mesh.plane("tensor")
 
@@ -244,7 +250,7 @@ def _make_fsdp_train_step(cfg: TrainConfig, mesh: Mesh, layout: FsdpLayout):
     # the mesh threads into the forward: rows and T-shard by shard_batch,
     # the sequence line, the dropout fold
     return make_step_fn(cfg, mesh, param_sync=make_param_gather(layout),
-                        loss_sync=loss_sync, layout=layout)
+                        loss_sync=loss_sync, layout=layout, batch_is_local=batch_is_local)
 
 
 # ---------------------------------------------------------------------------
@@ -253,16 +259,21 @@ def _make_fsdp_train_step(cfg: TrainConfig, mesh: Mesh, layout: FsdpLayout):
 
 
 def fsdp_layout(cfg: TrainConfig, mesh: Mesh, params: dict):
-    """The FSDP layout of ``params`` on ``mesh`` (None without fsdp)."""
-    if mesh.axis_size("fsdp") == 1:
+    """The FSDP layout of ``params`` on ``mesh`` (None without fsdp, and
+    under pipeline, where fsdp is a second data axis)."""
+    if mesh.axis_size("fsdp") == 1 or mesh.axis_size("pipeline") > 1:
         return None
     return FsdpLayout(params, mesh, cfg.dp_bucket_layers)
 
 
 def shard_train_state(cfg: TrainConfig, mesh: Mesh, state: dict) -> tuple:
     """(this rank's train state at rest, its FSDP layout or None) from a
-    full state: the tensor shard (``sharding.TensorLayout``), then under
-    fsdp that shard's flat shards."""
+    full state: under pipeline its stage's layers
+    (``pipeline.stage_state``), then the tensor shard
+    (``sharding.TensorLayout``), then under fsdp that shard's flat
+    shards."""
+    if mesh.axis_size("pipeline") > 1:
+        state = stage_state(state, mesh)
     tl = tensor_layout(mesh)
     if tl is not None:
         state = tl.shard_state(state)
@@ -280,32 +291,48 @@ def model_params(params, layout):
 
 def full_params(params, mesh, layout) -> dict:
     """The whole param tree of a rank's params at rest (every rank of
-    the mesh joins)."""
+    the mesh joins): the fsdp gather, the tensor gather, then under
+    pipeline every stage's blocks."""
     tree = model_params(params, layout)
-    tl = None if mesh is None else tensor_layout(mesh)
-    return tree if tl is None else tl.gather_tree(tree)
+    if mesh is None:
+        return tree
+    tl = tensor_layout(mesh)
+    if tl is not None:
+        tree = tl.gather_tree(tree)
+    return gather_stage_tree(tree, mesh)
 
 
 def full_train_state(state: dict, mesh, layout) -> dict:
     """The full train state of a rank's state at rest (every rank
-    joins): the fsdp gather, then the tensor gather."""
+    joins): the fsdp gather, then the tensor gather, then under pipeline
+    the stages' gather (the canonical list of blocks)."""
     if layout is not None:
         state = layout.gather_state(state)
-    tl = None if mesh is None else tensor_layout(mesh)
-    return state if tl is None else tl.gather_state(state)
+    if mesh is None:
+        return state
+    tl = tensor_layout(mesh)
+    if tl is not None:
+        state = tl.gather_state(state)
+    return gather_stage_state(state, mesh)
 
 
-def make_sharded_train_step(cfg: TrainConfig, mesh: Mesh, layout=None):
+def make_sharded_train_step(cfg: TrainConfig, mesh: Mesh, layout=None,
+                            batch_is_local: bool = False):
     """``step(state, batch, seed=None) -> (state, metrics)`` on this rank
     of ``mesh``, given the GLOBAL batch (each rank keeps its
-    ``shard_batch`` slice): the overlap path on a pure data mesh with
-    ``dp_overlap``, the sharded step with fsdp (``layout``, from
+    ``shard_batch`` slice; ``batch_is_local``: the batch is that slice
+    already, ``multihost.local_batch``): the overlap path on a pure data
+    mesh with ``dp_overlap``, the sharded step with fsdp (``layout``, from
     :func:`fsdp_layout`; the state is then its shards), else the flat
-    step (module docstring)."""
+    step (module docstring). A pipeline mesh takes
+    ``pipeline.make_pipeline_train_step``, as JAX's trainer does."""
+    if mesh.axis_size("pipeline") > 1:
+        raise ValueError("a pipeline mesh trains through "
+                         "parallel/pipeline.py:make_pipeline_train_step")
     if overlap_eligible(cfg):
-        return _make_overlap_train_step(cfg, mesh)
+        return _make_overlap_train_step(cfg, mesh, batch_is_local)
     if mesh.axis_size("fsdp") > 1:
         if layout is None:
             raise ValueError("an fsdp mesh needs the state's FsdpLayout")
-        return _make_fsdp_train_step(cfg, mesh, layout)
-    return make_step_fn(cfg, mesh)
+        return _make_fsdp_train_step(cfg, mesh, layout, batch_is_local)
+    return make_step_fn(cfg, mesh, batch_is_local=batch_is_local)

@@ -6,8 +6,10 @@ mesh.py`` (``create_mesh``): the ``torch.distributed`` ranks that
 order ``(data, fsdp, tensor, sequence, pipeline)`` (JAX
 ``config.py:MeshConfig.axis_names``): world rank r sits at the row-major
 coordinates of r over ``MeshConfig.shape``, as JAX reshapes its device
-list. The port runs the ``data``, ``fsdp``, ``tensor`` and ``sequence``
-axes; ``pipeline`` stays 1 (``config.py:LATER_MESH_AXES``).
+list. The port runs every axis. ``pipeline`` is the last, stride-1
+axis (JAX ``config.py:MeshConfig.axis_names``): neighbouring stages are
+neighbouring ranks; :attr:`Mesh.stage` and :attr:`Mesh.n_stages` say
+where this rank stands on it.
 
 :func:`create_mesh` joins the world (or the default group the process
 already joined) and makes one ``dist.new_group`` for each line of each
@@ -17,10 +19,12 @@ order; each keeps its own. A :class:`Line` is this rank's line: the
 global ranks on it, by position, and its group. The mesh also makes the
 planes its steps sum over: with ``tensor`` the plane of every other axis
 (the ranks holding the same tensor shard: the flat step's loss and
-gradient sum), and under FSDP the plane of every axis but fsdp and
-tensor (the ranks holding the same fsdp shard of the same tensor
-shard). The autograd collectives at the tensor axis's region boundaries
-are in ``parallel/regions.py``.
+gradient sum), under FSDP the plane of every axis but fsdp and tensor
+(the ranks holding the same fsdp shard of the same tensor shard), and
+with pipeline the plane of every axis but tensor and pipeline (the
+ranks holding the same layers of the same tensor shard: the pipeline
+step's block-gradient sum). The autograd collectives at the tensor
+axis's region boundaries are in ``parallel/regions.py``.
 
 :func:`init_sequence_group` joins a mesh whose only axis > 1 is
 ``sequence`` (the ring alone) and returns its :class:`SequenceGroup`,
@@ -167,6 +171,15 @@ class Mesh:
         sequence 1, of ``shard_flash.py:80-83``): the mesh position over
         data, fsdp, tensor, sequence, data major."""
         return self._fold(FOLD_AXES)
+
+    @property
+    def stage(self) -> int:
+        """This rank's pipeline stage: its index on the pipeline line."""
+        return self.axis_index("pipeline")
+
+    @property
+    def n_stages(self) -> int:
+        return self.axis_size("pipeline")
 
     @property
     def replicated_position(self) -> int:
@@ -445,3 +458,52 @@ def all_to_all_(out: torch.Tensor, t: torch.Tensor, over) -> torch.Tensor:
         return out.copy_(t)
     return _run(over, t, lambda dst, src, g: dist.all_to_all_single(
         dst, src, group=g), out)
+
+
+# ---------------------------------------------------------------------------
+# point to point: the pipeline's neighbours
+# ---------------------------------------------------------------------------
+
+# the sends of this process: count, bytes sent, host seconds spent in them
+# (the copy to the host, the send and its wait); the receives are
+# counted under ``recv_*`` (read by the chip smoke around a step)
+SEND = {"calls": 0, "bytes": 0, "host_s": 0.0,
+        "recv_calls": 0, "recv_bytes": 0, "recv_host_s": 0.0}
+
+
+def reset_send_stats() -> None:
+    SEND.update(calls=0, bytes=0, host_s=0.0, recv_calls=0, recv_bytes=0,
+                recv_host_s=0.0)
+
+
+def send_(t: torch.Tensor, over: Line, index: int) -> None:
+    """Send ``t`` to the rank at position ``index`` of the line ``over``
+    (its group) and wait for the send: an ``isend`` whose buffer lives
+    until then (with gloo and a CUDA tensor, a pinned host copy taken once
+    ``t``'s kernels are done)."""
+    staged = over.stages_through_host and t.is_cuda
+    if staged:
+        torch.cuda.current_stream(t.device).synchronize()
+    t0 = time.perf_counter()
+    buf = to_host(t.detach()) if staged else t.detach().contiguous()
+    dist.isend(buf, over.ranks[index], group=over.group).wait()
+    SEND["calls"] += 1
+    SEND["bytes"] += buf.numel() * buf.element_size()
+    SEND["host_s"] += time.perf_counter() - t0
+
+
+def recv_(out: torch.Tensor, over: Line, index: int) -> torch.Tensor:
+    """Receive into ``out`` from the rank at position ``index`` of the
+    line ``over`` and wait for it (with gloo and a CUDA ``out``, through a
+    pinned host buffer)."""
+    staged = over.stages_through_host and out.is_cuda
+    t0 = time.perf_counter()
+    buf = (torch.empty(out.shape, dtype=out.dtype, pin_memory=staged)
+           if staged or not out.is_contiguous() else out)
+    dist.irecv(buf, over.ranks[index], group=over.group).wait()
+    if buf.data_ptr() != out.data_ptr():
+        out.copy_(buf)
+    SEND["recv_calls"] += 1
+    SEND["recv_bytes"] += out.numel() * out.element_size()
+    SEND["recv_host_s"] += time.perf_counter() - t0
+    return out

@@ -24,9 +24,10 @@ writes the best state at each improving eval, a certified
 on every exit; run again, ``--resume-from auto`` continues from the
 newest checkpoint that verifies.
 
-Data parallelism, FSDP, tensor parallelism and sequence parallelism
-(the ring, or Ulysses' all-to-alls) run under torchrun on a mesh of
-data x fsdp x tensor x sequence ranks, with the backend named:
+Data parallelism, FSDP, tensor parallelism, sequence parallelism (the
+ring, or Ulysses' all-to-alls) and pipeline parallelism (GPipe stages)
+run under torchrun on a mesh of data x fsdp x tensor x sequence x
+pipeline ranks, with the backend named:
 
     torchrun --nproc-per-node 2 -m differential_transformer_replication_tpu_torch.train \
         --data-parallel 2 --dist-backend gloo ...
@@ -35,6 +36,8 @@ data x fsdp x tensor x sequence ranks, with the backend named:
     torchrun --nproc-per-node 4 -m differential_transformer_replication_tpu_torch.train \
         --data-parallel 2 --sequence-parallel 2 --sequence-impl ulysses \
         --dist-backend gloo ...
+    torchrun --nproc-per-node 2 -m differential_transformer_replication_tpu_torch.train \
+        --pipeline-parallel 2 --grad-acc-steps 4 --dist-backend gloo ...
 
 ``nccl`` needs one card per rank; ``gloo`` lets the ranks share one
 card (the exchanges then go through host memory) or run on the CPU
@@ -42,7 +45,9 @@ card (the exchanges then go through host memory) or run on the CPU
 equal shards and ``--block-size`` into ``--sequence-parallel`` equal
 ones; ``--tensor-parallel`` must split the heads, the vocab and the
 SwiGLU width (and diff's ``--block-size``); under Ulysses each tensor
-rank's heads must split over the sequence ranks. A
+rank's heads must split over the sequence ranks; ``--n-layer`` must split
+into ``--pipeline-parallel`` stages, whose microbatch stream is
+``--grad-acc-steps`` (at least P of them, or the bubble dominates). A
 pure data mesh syncs its gradients bucket by bucket in the backward
 (``--dp-bucket-layers`` blocks a bucket) unless ``--no-dp-overlap``.
 
@@ -87,7 +92,6 @@ from differential_transformer_replication_tpu_torch.config import (
 LATER_FLAGS = {
     "--attention-impl": "none: the port dispatches kernels by device",
     "--ffn-impl": "none: the port dispatches kernels by device",
-    "--pipeline-parallel": "parallelism (ROADMAP Queue A: parallelism, item 9)",
     "--profile-every": "the continuous device profile (ROADMAP Queue A: "
                        "tooling and analysis, item 10)",
     "--profile-spool-dir": "the continuous device profile (ROADMAP Queue A: "
@@ -264,6 +268,10 @@ def build_parser() -> argparse.ArgumentParser:
                    "the SwiGLU width and the vocab sharded)")
     p.add_argument("--sequence-parallel", type=int, default=1,
                    help="devices on the sequence mesh axis (ring attention)")
+    p.add_argument("--pipeline-parallel", type=int, default=1,
+                   help="devices on the pipeline mesh axis (GPipe stages of "
+                   "n_layer / P consecutive layers; --grad-acc-steps is the "
+                   "microbatch stream)")
     p.add_argument("--dist-backend", choices=("nccl", "gloo"), default="nccl",
                    help="the mesh's backend: nccl (one card per rank, the "
                    "default) or gloo (ranks may share a card, or the CPU)")
@@ -287,7 +295,8 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         model=model,
         mesh=MeshConfig(data=args.data_parallel, fsdp=args.fsdp,
                         tensor=args.tensor_parallel,
-                        sequence=args.sequence_parallel),
+                        sequence=args.sequence_parallel,
+                        pipeline=args.pipeline_parallel),
         dp_overlap=not args.no_dp_overlap,
         dp_bucket_layers=args.dp_bucket_layers,
         vocab_size=args.vocab_size, dataset=args.dataset,

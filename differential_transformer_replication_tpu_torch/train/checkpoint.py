@@ -14,12 +14,17 @@ rotation and the async writer). The bytes of ``state.msgpack`` are what
 verifies in the other. ``save_pretrained`` / ``from_pretrained`` keep
 the JAX package's ``params.msgpack`` + ``config.json`` pair.
 
-The port has no pipeline, so the stage-stacked layout is never written
-or read. A run built from a corpus records its tokenizer's
+A checkpoint always holds the canonical list-of-blocks layout, whatever
+mesh trained it: a pipeline run's trainer gathers every stage's blocks
+and their AdamW moments (``parallel/pipeline.py:gather_stage_state``,
+under tensor after the tensor gather) and rank 0 writes them, as JAX
+canonicalizes its stage-stacked state (``checkpoint.py:99-161``); a
+resume at any mesh, with or without pipeline, loads the full state on
+every rank, which keeps its stage's layers (and its tensor or fsdp
+shards). A run built from a corpus records its tokenizer's
 ``tokenizer_fingerprint`` in the meta (a pre-encoded token stream has
-none); the trainer checks it on resume. With a
-sequence-parallel group every rank holds the same state: rank 0 writes,
-every rank reads.
+none); the trainer checks it on resume. With a sequence-parallel group
+every rank holds the same state: rank 0 writes, every rank reads.
 """
 
 from __future__ import annotations

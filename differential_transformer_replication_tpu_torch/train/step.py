@@ -131,14 +131,15 @@ def _local(t: torch.Tensor, mesh, sg) -> torch.Tensor:
 
 
 def make_grad_fn(cfg: TrainConfig, group=None, param_sync=None,
-                 grad_sync=None):
+                 grad_sync=None, batch_is_local: bool = False):
     """``grads(params, batch, seed=None) -> (loss, grads)``: the mean loss
     (a 0-d tensor) and the param gradients (a list in :func:`leaves`
     order) of one optimizer step's ``grad_acc_steps`` microbatches,
     averaged; microbatch i runs with ``fold_seed(seed, i)``. With a
-    sequence group or a mesh, of the global batch: each rank computes its
-    shard's terms and one all-reduce sums them (divided by the batch
-    shards). ``param_sync`` and ``grad_sync`` are JAX's hooks (module
+    sequence group or a mesh, of the global batch (``batch_is_local``:
+    this rank's shard of it already): each rank computes its shard's
+    terms and one all-reduce sums them (divided by the batch shards).
+    ``param_sync`` and ``grad_sync`` are JAX's hooks (module
     docstring): the loss is then this rank's, for the caller's
     ``loss_sync``.
 
@@ -153,7 +154,9 @@ def make_grad_fn(cfg: TrainConfig, group=None, param_sync=None,
 
     def grads_fn(params, batch: dict, seed=None):
         plist = leaves(params)
-        xs, ys = _local(batch["x"], mesh, sg), _local(batch["y"], mesh, sg)
+        xs, ys = batch["x"], batch["y"]
+        if not batch_is_local:
+            xs, ys = _local(xs, mesh, sg), _local(ys, mesh, sg)
         poison = batch.get("poison")
         n_micro = xs.shape[0]
         # JAX: one microbatch differentiates through param_sync; an
@@ -192,18 +195,19 @@ def make_grad_fn(cfg: TrainConfig, group=None, param_sync=None,
 
 
 def make_step_fn(cfg: TrainConfig, group=None, param_sync=None,
-                 loss_sync=None, grad_sync=None, layout=None):
+                 loss_sync=None, grad_sync=None, layout=None,
+                 batch_is_local: bool = False):
     """``step(state, batch, seed=None) -> (state, metrics)``. ``batch`` is
     ``{"x": (A, B, T), "y": (A, B, T)}`` int64 with A = grad_acc_steps
     (the global batch: with a sequence group or a mesh each rank keeps
-    its shard). ``seed`` is the step's dropout seed (None: no dropout);
-    microbatch i runs with ``fold_seed(seed, i)``, as JAX folds ``i``
-    into the step's key. The state is updated in place and returned;
-    metrics are host floats. The hooks and ``layout`` are JAX's (module
-    docstring)."""
+    its shard, or is given it with ``batch_is_local``). ``seed`` is the
+    step's dropout seed (None: no dropout); microbatch i runs with
+    ``fold_seed(seed, i)``, as JAX folds ``i`` into the step's key. The
+    state is updated in place and returned; metrics are host floats. The
+    hooks and ``layout`` are JAX's (module docstring)."""
     schedule = cosine_warmup_schedule(cfg.learning_rate, cfg.warmup_iters,
                                       cfg.max_iters, cfg.min_lr)
-    grads_fn = make_grad_fn(cfg, group, param_sync, grad_sync)
+    grads_fn = make_grad_fn(cfg, group, param_sync, grad_sync, batch_is_local)
     tp = group.line("tensor") if isinstance(group, Mesh) else None
     norm_slots = []  # tensor_norm_slots of the params, made at the first step
 
@@ -261,20 +265,21 @@ def make_train_step(cfg: TrainConfig, group=None):
     return make_step_fn(cfg, group)
 
 
-def make_eval_step(cfg: TrainConfig, group=None):
+def make_eval_step(cfg: TrainConfig, group=None, batch_is_local: bool = False):
     """``eval_step(params, x, y) -> loss`` (a 0-d tensor), no grad: the
     attention runs its forward without residuals. With a sequence group
-    or a mesh, of the global (B, T) batch: each rank's shard (through the
-    ring or Ulysses), summed over the ranks and divided by the batch
-    shards. The params are full trees (a sharded state is gathered
-    first)."""
+    or a mesh, of the global (B, T) batch (``batch_is_local``: this
+    rank's shard of it already): each rank's shard (through the ring or
+    Ulysses), summed over the ranks and divided by the batch shards. The
+    params are full trees (a sharded state is gathered first)."""
     model_cfg = cfg.resolved_model()
     mesh, sg, spans, n_batch = _placement(group)
 
     @torch.no_grad()
     def eval_step(params: dict, x: torch.Tensor, y: torch.Tensor):
-        loss = loss_fn(params, _local(x, mesh, sg), _local(y, mesh, sg),
-                       model_cfg, None, sg)
+        if not batch_is_local:
+            x, y = _local(x, mesh, sg), _local(y, mesh, sg)
+        loss = loss_fn(params, x, y, model_cfg, None, sg)
         if spans is not None:
             loss = all_reduce_sum_(loss.reshape(1), spans)[0] / n_batch
         return loss
@@ -282,10 +287,10 @@ def make_eval_step(cfg: TrainConfig, group=None):
     return eval_step
 
 
-def make_eval_many(cfg: TrainConfig, group=None):
+def make_eval_many(cfg: TrainConfig, group=None, batch_is_local: bool = False):
     """``eval_many(params, xs, ys) -> (K,) losses`` over K stacked eval
     batches, one host sync per call."""
-    eval_step = make_eval_step(cfg, group)
+    eval_step = make_eval_step(cfg, group, batch_is_local)
 
     def eval_many(params: dict, xs: torch.Tensor, ys: torch.Tensor):
         return torch.stack([eval_step(params, x, y) for x, y in zip(xs, ys)])

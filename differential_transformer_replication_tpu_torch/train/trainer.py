@@ -39,18 +39,26 @@ per-layer lambda records at each eval (obs/introspect.py) and a 5-step
 ``torch.profiler`` window (utils/profiling.py).
 
 A mesh of more than one rank (``cfg.mesh``: ``data``, ``fsdp``,
-``tensor``, ``sequence``) trains on JAX's sharded path: the process is
-one of the ranks started by ``torchrun``, joins the mesh over the
-backend the caller names (``parallel/mesh.py``), draws the same global
-batches from the same seeds as every other rank and trains on its shard
-of them (``parallel/dp_step.py:make_sharded_train_step``); eval runs
-through the mesh. Under tensor and fsdp the state at rest is this
-rank's shards (``dp_step.shard_train_state``): eval gathers the fsdp
-shards (its forward takes the tensor shard), the introspection records
-gather the full params, and a checkpoint gathers the full state in
-JAX's layout (every rank joins the gather, rank 0 writes); a resume
-loads the full state, at any mesh, and keeps this rank's shards. Only
-rank 0 prints and writes; the mesh is left on exit and on error.
+``tensor``, ``sequence``, ``pipeline``) trains on JAX's sharded path: the process is
+one of the ranks started by ``torchrun``, joins the world
+(``parallel/multihost.py:initialize``) and the mesh over the backend the
+caller names (``parallel/mesh.py``), draws the same offsets from the same
+seeds as every other rank and builds only its own rows and T-shard of
+each batch (``multihost.local_batch``), and trains on them
+(``parallel/dp_step.py:make_sharded_train_step``); eval runs through
+the mesh. Under tensor and fsdp the state at rest is this rank's shards
+(``dp_step.shard_train_state``): eval gathers the fsdp shards (its
+forward takes the tensor shard), the introspection records gather the
+full params, and a checkpoint gathers the full state in JAX's layout
+(every rank joins the gather, rank 0 writes); a resume loads the full
+state, at any mesh, and keeps this rank's shards. With ``pipeline`` > 1
+the run takes JAX's pipeline path (``parallel/pipeline.py``): each rank
+holds its stage's layers, eval streams its ``eval_iters`` batches
+through the stages as one microbatch stream, the anomaly guard, NaN
+injection and the lambda records are off (as in JAX), and ``train``
+returns the gathered canonical state. Only rank 0
+(``multihost.is_primary``) prints and writes; the mesh is left on exit
+and on error.
 """
 
 from __future__ import annotations
@@ -105,10 +113,15 @@ from differential_transformer_replication_tpu_torch.parallel.dp_step import (
     model_params,
     shard_train_state,
 )
+from differential_transformer_replication_tpu_torch.parallel import multihost
 from differential_transformer_replication_tpu_torch.parallel.mesh import (
     all_reduce_sum_,
     create_mesh,
     destroy_mesh,
+)
+from differential_transformer_replication_tpu_torch.parallel.pipeline import (
+    make_pipeline_eval_many,
+    make_pipeline_train_step,
 )
 from differential_transformer_replication_tpu_torch.train.anomaly import (
     TrainingDivergedError,
@@ -155,10 +168,11 @@ def resolve_device(device) -> torch.device:
 
 def estimate_loss(eval_many, params: dict, train_ds: TokenWindows,
                   val_ds: TokenWindows, cfg: TrainConfig,
-                  rng: np.random.Generator) -> dict:
+                  rng: np.random.Generator, materialize) -> dict:
     """Mean loss over eval_iters batches of each split: train batches
     shuffled (one ``integers(size=B)`` draw per batch), val batches
-    sequential from the start."""
+    sequential from the start. ``materialize(ds, offsets)`` builds a
+    batch (on a mesh this rank's share, ``multihost.local_batch``)."""
     out = {}
     for split, ds in (("train", train_ds), ("val", val_ds)):
         if split == "train":
@@ -169,7 +183,7 @@ def estimate_loss(eval_many, params: dict, train_ds: TokenWindows,
         else:
             offs = np.stack([ds.sequential_offsets(k, cfg.micro_batch_size)
                              for k in range(cfg.eval_iters)])
-        batch = ds.batches(offs)
+        batch = materialize(ds, offs)
         losses = eval_many(params, batch["x"], batch["y"])
         out[split] = float(losses.to(torch.float64).mean())
     return out
@@ -366,26 +380,33 @@ def train(cfg: TrainConfig, tokens_path: Optional[str] = None, device="cuda",
     ``cfg.dataset`` through the BPE (:func:`build_data`). Returns
     (final train state, per-step metrics list: the steps of the state's
     own history, rolled-back steps left out; under fsdp the state holds
-    this rank's shards). With a mesh of more than one rank
-    (``cfg.mesh.n_devices`` > 1) this process is one of its ranks:
-    ``dist_backend`` (``nccl`` or ``gloo``) must be named, and ``device``
-    picks cuda or cpu (gloo)."""
+    this rank's shards; under pipeline the gathered full state). With a
+    mesh of more than one rank (``cfg.mesh.n_devices`` > 1) this process
+    is one of its ranks: ``dist_backend`` (``nccl`` or ``gloo``) must be
+    named, and ``device`` picks cuda or cpu (gloo)."""
     # chaos-test fault injection (utils/faults.py); inert unless armed
     # by cfg.faults or the DTX_FAULTS variable
     faults.arm(cfg.faults)
     group = None
+    joined = False
     if cfg.mesh.n_devices > 1:
         if dist_backend is None:
             raise ValueError("a mesh of more than one rank needs a named dist "
                              "backend: 'nccl' (one card per rank) or 'gloo'")
-        group = create_mesh(cfg.mesh, dist_backend, str(torch.device(device).type))
+        joined = multihost.initialize(backend=dist_backend)
+        try:
+            group = create_mesh(cfg.mesh, dist_backend, str(torch.device(device).type))
+        except BaseException:
+            if joined:
+                torch.distributed.destroy_process_group()
+            raise
     elif dist_backend is not None:
         raise ValueError(f"dist backend {dist_backend!r} without a mesh of "
                          "ranks: set a mesh axis > 1")
     logger = None
     try:
         device = resolve_device(device) if group is None else group.device
-        primary = group is None or group.rank == 0
+        primary = multihost.is_primary()
         say = (lambda m: print(m, flush=True)) if primary else (lambda m: None)
         tokenizer, vocab_size, train_ds, val_ds = build_data(
             cfg, tokens_path, device, say, group)
@@ -406,6 +427,8 @@ def train(cfg: TrainConfig, tokens_path: Optional[str] = None, device="cuda",
             logger.finish()  # a no-op when the loop's closers ran
         if group is not None:
             destroy_mesh(group)
+            if joined:
+                torch.distributed.destroy_process_group()
 
 
 def _instruments(registry: Registry) -> dict:
@@ -502,8 +525,9 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
     if device.type == "cuda":
         check_card_envelope(model_cfg, "train")
     train_ds, val_ds = data
-    primary = group is None or group.rank == 0
+    primary = multihost.is_primary()
     rank = 0 if group is None else group.rank
+    pipelined = cfg.mesh.pipeline > 1
 
     # -- observability (obs/): the registry always exists; the sidecar
     # exporter and the Chrome span trace are opt-in (primary rank only)
@@ -550,12 +574,24 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
         layout = None
         if group is None:
             train_step = make_train_step(cfg)
+            eval_many = make_eval_many(cfg)
         else:
             # under tensor and fsdp every rank keeps its shards of the
-            # full state
+            # full state, under pipeline its stage's layers; each batch is
+            # built as this rank's share (multihost.local_batch)
             state, layout = shard_train_state(cfg, group, state)
-            train_step = make_sharded_train_step(cfg, group, layout)
-        eval_many = make_eval_many(cfg, group)
+            if pipelined:
+                # eval streams all eval_iters batches through the stages
+                # as ONE microbatch stream: the bubble amortized
+                train_step = make_pipeline_train_step(cfg, group, batch_is_local=True)
+                eval_many = make_pipeline_eval_many(cfg, group, batch_is_local=True)
+            else:
+                train_step = make_sharded_train_step(cfg, group, layout,
+                                                     batch_is_local=True)
+                eval_many = make_eval_many(cfg, group, batch_is_local=True)
+
+        def materialize(ds, offs):
+            return multihost.local_batch(ds, offs, group)
 
         # the epoch sampler's position is kept in WINDOWS CONSUMED, from
         # the checkpoint's record, so a resume under another global batch
@@ -575,22 +611,27 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
 
             def draw_batch():
                 offs = perm.take(batch_windows)
-                return train_ds.batches(offs.reshape(cfg.grad_acc_steps,
-                                                     cfg.micro_batch_size))
+                return materialize(train_ds, offs.reshape(cfg.grad_acc_steps,
+                                                          cfg.micro_batch_size))
         else:
             data_rng = np.random.default_rng(cfg.seed)
 
             def draw_batch():
-                return train_ds.random_batches(data_rng, cfg.micro_batch_size,
-                                               cfg.grad_acc_steps)
+                # train_ds.random_batches's draw, built as this rank's share
+                offs = data_rng.integers(0, len(train_ds),
+                                         size=(cfg.grad_acc_steps,
+                                               cfg.micro_batch_size),
+                                         dtype=np.int64)
+                return materialize(train_ds, offs)
         eval_rng = np.random.default_rng(cfg.seed + 1)
         # the dropout seed of step i is fold_seed(seed + 2, i): JAX folds
         # the iteration into PRNGKey(seed + 2); eval runs without one
         dropout_seed = cfg.seed + 2 if model_cfg.dropout > 0.0 else None
         tokens_per_step = batch_windows * model_cfg.block_size
         # the lambda-evolution + per-group-norm record at every eval
-        # (obs/introspect.py; tools/lambda_report.py)
-        param_summary = make_param_summary(model_cfg)
+        # (obs/introspect.py; tools/lambda_report.py); not on the
+        # pipeline path, as in JAX
+        param_summary = None if pipelined else make_param_summary(model_cfg)
 
         # -- resilience (train/watchdog.py, parallel/heartbeat.py): host
         # daemon threads. The watchdog also exists when only the
@@ -632,8 +673,14 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
         # the guard's rollback target: seeded at loop entry so one always
         # exists, refreshed every anomaly_snapshot_interval good
         # iterations; it pins one more train state in device memory
-        guard_on = cfg.anomaly_guard
-        nan_fault_armed = faults.nan_armed()
+        # the pipeline step carries no guard and no poison, as JAX's
+        guard_on = cfg.anomaly_guard and not pipelined
+        if cfg.anomaly_guard and pipelined:
+            logger.say("[anomaly] guard is unsupported on the pipeline path; disabled")
+        nan_fault_armed = faults.nan_armed() and not pipelined
+        if faults.nan_armed() and pipelined:
+            logger.say("[faults] nan injection is unsupported on the pipeline "
+                       "path; disabled")
         rollbacks = 0
         good_snapshot = snapshot_state(state) if guard_on else None
         snapshot_iter = iter_num
@@ -685,7 +732,7 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
         where = (f"{device}" if group is None else
                  f"{group.size} ranks (mesh data {cfg.mesh.data}, fsdp "
                  f"{cfg.mesh.fsdp}, tensor {cfg.mesh.tensor}, sequence "
-                 f"{cfg.mesh.sequence}) over "
+                 f"{cfg.mesh.sequence}, pipeline {cfg.mesh.pipeline}) over "
                  f"{group.backend} (rank 0 on {device})")
         logger.say(f"Starting training on {where} ({model_cfg.model}, "
                    f"{model_cfg.n_layer} layers, width {model_cfg.n_embd}, "
@@ -869,16 +916,18 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
                 with tracer.span("eval", iter=iter_num):
                     params = model_params(state["params"], layout)
                     losses = estimate_loss(eval_many, params,
-                                           train_ds, val_ds, cfg, eval_rng)
+                                           train_ds, val_ds, cfg, eval_rng,
+                                           materialize)
                 logger.log_eval(iter_num, losses["train"], losses["val"])
-                with tracer.span("block", what="introspection"):
-                    # the full lambdas and norms: a tensor shard gathered
-                    summ = param_summary(full_params(state["params"], group, layout))
-                    record = {"record": "introspection", "iter": iter_num,
-                              **lambda_record(summ, model_cfg,
-                                              metrics.get("grad_norm_groups"))}
                 del params
-                logger.log_record(record)
+                if param_summary is not None:
+                    with tracer.span("block", what="introspection"):
+                        # the full lambdas and norms: a tensor shard gathered
+                        summ = param_summary(full_params(state["params"], group, layout))
+                        record = {"record": "introspection", "iter": iter_num,
+                                  **lambda_record(summ, model_cfg,
+                                                  metrics.get("grad_norm_groups"))}
+                    logger.log_record(record)
                 if losses["val"] < best_val_loss:
                     # every rank sees the same val loss: under fsdp they
                     # all join the gather here
@@ -930,14 +979,16 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
                 None if ckpt_writer is not None and not ckpt_writer.drained
                 else last_ckpt_path)
             sharded = group is not None and (layout is not None
-                                             or group.axis_size("tensor") > 1)
+                                             or group.axis_size("tensor") > 1
+                                             or pipelined)
             if sharded and state is not None:
                 if crashed:
                     # the gather needs every rank, and after a failure one
                     # may be gone: the last checkpoint stays as it was
                     last_path = None
-                    logger.say("[ckpt] skipping last-checkpoint save: a tensor "
-                               "or fsdp run that failed cannot gather its shards")
+                    logger.say("[ckpt] skipping last-checkpoint save: a tensor, "
+                               "fsdp or pipeline run that failed cannot gather "
+                               "its shards")
                 else:
                     last_state = _full_state(state, group, layout)
             if primary and state is not None:
@@ -950,6 +1001,10 @@ def _train_loop(cfg: TrainConfig, data: tuple, tok_fp: Optional[str],
         finally:
             if prev_handler is not None:
                 signal.signal(signal.SIGTERM, prev_handler)
+    if pipelined:
+        # the canonical list-of-blocks layout, as every other path returns
+        # (the exit's gather above made it)
+        state = last_state
     return state, history
 
 

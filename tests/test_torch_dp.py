@@ -431,11 +431,16 @@ def test_a_batch_or_an_axis_the_mesh_cannot_take_is_refused(capsys):
                                          r"fsdp = 2 x 2 = 4"):
         TrainConfig(mesh=MeshConfig(data=2, fsdp=2), micro_batch_size=6)
     assert TrainConfig(mesh=MeshConfig(data=2, fsdp=2), micro_batch_size=8).mesh.fsdp == 2
-    with pytest.raises(SystemExit):
-        cli.run(["--tokens", "t.npy", "--pipeline-parallel", "2"])
-    assert "ROADMAP Queue A: parallelism, item 9" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A: parallelism"):
-        MeshConfig(pipeline=2)
+    # the pipeline axis runs, and refuses what JAX's pipeline refuses,
+    # with its texts: layers that do not split into the stages, a batch
+    # that does not split over data x fsdp
+    assert MeshConfig(pipeline=2).pipeline == 2
+    with pytest.raises(ValueError, match="n_layer=3 not divisible by pipeline=2"):
+        cli.run(["--tokens", "t.npy", "--n-layer", "3", "--pipeline-parallel", "2"])
+    with pytest.raises(ValueError, match=r"micro_batch_size=6 not divisible by the "
+                                         r"data\*fsdp shard count 4"):
+        TrainConfig(mesh=MeshConfig(data=2, fsdp=2, pipeline=2), micro_batch_size=6)
+    assert not capsys.readouterr().err
     # the tensor axis runs, and refuses a width it cannot split (JAX's jit
     # refuses the spec): heads, vocab, the SwiGLU width, diff's positions
     assert MeshConfig(tensor=2).tensor == 2

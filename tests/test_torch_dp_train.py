@@ -21,7 +21,13 @@ time limit on the launch). Held here:
 - ``--tensor-parallel 2`` trains the ``data=2`` base run's steps with its
   losses (rtol 1e-5), every rank reporting the same ones, and its last
   checkpoint (the gathered full state) resumes at ``--data-parallel 2``
-  as at ``data=1``.
+  as at ``data=1``;
+- ``--pipeline-parallel 2`` trains the base run's steps with its losses
+  (rtol 1e-5), every rank reporting the same ones; its last checkpoint
+  holds the canonical list of blocks: it loads in JAX's
+  ``load_checkpoint`` (the base run's params within 2e-5) and resumes at
+  ``data=1`` (in this process) as the base does, and a one-rank
+  checkpoint resumes at ``pipeline=2`` likewise.
 """
 
 from __future__ import annotations
@@ -71,6 +77,8 @@ def test_mesh_command_lines_train_and_resume_across_mesh_shapes(tmp_path):
         return a
 
     gloo = ["--dist-backend", "gloo"]
+    # a one-rank run of the base's steps, for a resume at pipeline=2
+    cli.run(argv("solo", steps=4))
     runs = [argv("dp", "--data-parallel", "2", *gloo),
             argv("fsdp", "--fsdp", "2", *gloo),
             argv("uly", "--sequence-parallel", "2", "--sequence-impl", "ulysses",
@@ -82,7 +90,10 @@ def test_mesh_command_lines_train_and_resume_across_mesh_shapes(tmp_path):
             argv("fsdp_c", "--fsdp", "2", *gloo, steps=6, resume="base"),
             # a tensor=2 run of the base's steps, resumed at data=2
             argv("tp", "--tensor-parallel", "2", *gloo, steps=4),
-            argv("tp_dp", "--data-parallel", "2", *gloo, steps=6, resume="tp")]
+            argv("tp_dp", "--data-parallel", "2", *gloo, steps=6, resume="tp"),
+            # pipeline=2: the base's steps, and a resume of the one-rank run
+            argv("pp", "--pipeline-parallel", "2", *gloo, steps=4),
+            argv("pp_solo", "--pipeline-parallel", "2", *gloo, steps=6, resume="solo")]
     outs = torch_ring_worker.run_ranks("clis", 2, tmp_path / "ranks",
                                        {"runs": np.array(json.dumps(runs))},
                                        RANK_TIMEOUT_S)
@@ -121,3 +132,21 @@ def test_mesh_command_lines_train_and_resume_across_mesh_shapes(tmp_path):
     _, history = cli.run(argv("tp_one", steps=6, resume="tp"))
     np.testing.assert_allclose(outs[0]["losses8"], [m["loss"] for m in history],
                                rtol=1e-5)
+    # pipeline=2: the base's losses on every rank; its checkpoint is the
+    # canonical layout (JAX reads it) and resumes at data=1; a one-rank
+    # checkpoint resumes at pipeline=2
+    lp = outs[0]["losses9"]
+    assert np.array_equal(outs[1]["losses9"], lp)
+    np.testing.assert_allclose(lp, outs[0]["losses3"], rtol=1e-5)
+    target = j_create_train_state(jax.random.PRNGKey(0), jcfg)
+    got, _ = jckpt.load_checkpoint(str(tmp_path / "pp" / "last.ckpt"), jcfg, target)
+    target = j_create_train_state(jax.random.PRNGKey(0), jcfg)
+    want, _ = jckpt.load_checkpoint(str(tmp_path / "base" / "last.ckpt"), jcfg, target)
+    assert int(got["step"]) == int(want["step"]) == 4
+    assert isinstance(got["params"]["blocks"], list)
+    for a, b in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)):
+        assert float(np.max(np.abs(np.asarray(a) - np.asarray(b)))) <= 2e-5
+    _, history = cli.run(argv("pp_one", steps=6, resume="pp"))
+    np.testing.assert_allclose([m["loss"] for m in history], lb, rtol=1e-5)
+    assert np.array_equal(outs[1]["losses10"], outs[0]["losses10"])
+    np.testing.assert_allclose(outs[0]["losses10"], lb, rtol=1e-5)

@@ -536,10 +536,10 @@ def test_cli_trains_sequence_parallel_from_the_corpus_over_gloo(tmp_path):
 
 def test_cli_refuses_ulysses_and_a_bad_split():
     """Ulysses runs where the heads split over the sequence ranks; it is
-    refused, with JAX's text, where they do not. The axes
-    still to come are refused with their ROADMAP item."""
-    with pytest.raises(SystemExit):
-        cli.run(["--tokens", "t.npy", "--sequence-parallel", "2",
+    refused, with JAX's text, where they do not. The pipeline axis
+    runs too, and refuses the splits JAX refuses: the pipeline's layers."""
+    with pytest.raises(ValueError, match="n_layer=3 not divisible by pipeline=2"):
+        cli.run(["--tokens", "t.npy", "--sequence-parallel", "2", "--n-layer", "3",
                  "--pipeline-parallel", "2", "--dist-backend", "gloo"])
     with pytest.raises(ValueError, match="local heads divisible"):
         TrainConfig(model=ModelConfig(model="diff", sequence_impl="ulysses"),
@@ -551,8 +551,7 @@ def test_cli_refuses_ulysses_and_a_bad_split():
     # a shard off the kernels' 32-row tile grid is fine: they mask past it
     assert TrainConfig(model=ModelConfig(block_size=100),
                        mesh=MeshConfig(sequence=2)).mesh.sequence == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MeshConfig(pipeline=2)
+    assert MeshConfig(sequence=2, pipeline=2).n_devices == 4
     args = cli.build_parser().parse_args(["--tokens", "t.npy", "--sequence-parallel", "4",
                                           "--block-size", "1024"])
     assert args.dist_backend == "nccl"

@@ -382,16 +382,16 @@ def test_cli_takes_each_full_trainer_flag_as_train_py_does(flag, value, field, w
     ("--dp-bucket-layers", "parallelism, item 9"),
 ])
 def test_cli_still_refuses_later_items_naming_them(flag, item, capsys):
-    """A flag of a later item is refused naming it. The data-parallel
-    and tensor-parallel flags of item 9 run now: each is taken as the
-    root ``train.py`` takes it."""
+    """A flag of a later item is refused naming it. The parallelism
+    flags of item 9 run now: each is taken as the root ``train.py`` takes
+    it."""
     import importlib.util
 
     from differential_transformer_replication_tpu_torch.train import __main__ as cli
 
     if flag not in cli.LATER_FLAGS:
         assert flag in ("--data-parallel", "--tensor-parallel", "--fsdp",
-                        "--no-dp-overlap", "--dp-bucket-layers")
+                        "--pipeline-parallel", "--no-dp-overlap", "--dp-bucket-layers")
         spec = importlib.util.spec_from_file_location(
             "root_train", Path(__file__).resolve().parents[1] / "train.py")
         jtrain = importlib.util.module_from_spec(spec)

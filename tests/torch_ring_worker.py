@@ -40,7 +40,16 @@ through a ``file://`` rendezvous in DIR (no TCP port), reads
   its vocab shard, forward and backward, and the dropout seeds of a
   mesh position;
 - ``ulysses``: ``ulysses_multi_stream_attention`` on this rank's shards,
-  forward and backward, for each coefficient set and dropout rate given.
+  forward and backward, for each coefficient set and dropout rate given;
+- ``pipeline``: on a mesh of the world's ranks with a pipeline axis, per
+  case given, from the same full train state cut to the rank's stage
+  (and tensor shard) and the same global batch: one
+  ``make_pipeline_train_step`` step (the metrics, the updated params
+  gathered to the canonical layout on the host by
+  ``multihost.gather_to_host``, the rank's own replicated leaves,
+  every send and receive of the step in order), or the forward loss
+  alone; the eval stream against per-batch evals, and dropout's losses
+  by seed, where the case asks.
 """
 
 from __future__ import annotations
@@ -72,6 +81,9 @@ from differential_transformer_replication_tpu_torch.parallel import (  # noqa: E
     ring,
     ring_multi_stream_attention,
     rotate,
+)
+from differential_transformer_replication_tpu_torch.parallel.sharding import (  # noqa: E402
+    shard_batch,
 )
 from differential_transformer_replication_tpu_torch.train.optim import (  # noqa: E402
     leaves,
@@ -486,11 +498,99 @@ def task_ulysses(sg, inp):
     return out
 
 
+def task_pipeline(sg, inp):
+    from differential_transformer_replication_tpu_torch.parallel import (
+        create_mesh,
+        destroy_mesh,
+        multihost,
+        pipeline,
+    )
+    from differential_transformer_replication_tpu_torch.parallel.dp_step import (
+        shard_train_state,
+    )
+
+    meta = json.loads(str(inp["meta"]))
+    out = {}
+    for c, case in enumerate(meta["cases"]):
+        cfg = TrainConfig(model=ModelConfig(**dict(meta["model"], **case.get("model", {}))),
+                          mesh=MeshConfig(**case["mesh"]),
+                          **dict(meta["train"], **case.get("train", {})))
+        mesh = create_mesh(cfg.mesh, "gloo", str(sg.device))
+        try:
+            mcfg = cfg.resolved_model()
+            dev, pre = mesh.device, case["prefix"]
+            state = {"params": _params(inp, mcfg, pre + "p", dev),
+                     "opt_state": {"mu": _params(inp, mcfg, pre + "mu", dev),
+                                   "nu": _params(inp, mcfg, pre + "nu", dev),
+                                   "count": int(meta["count"])},
+                     "step": int(meta["step"])}
+            for t in leaves(state["params"]):
+                t.requires_grad_(True)
+            state, _ = shard_train_state(cfg, mesh, state)
+            x, y = _t(inp[case["x"]], dev), _t(inp[case["y"]], dev)
+            out[f"{c}_coords"] = np.array(mesh.coords)
+            out[f"{c}_rest"] = np.int64(sum(t.numel() for t in leaves(state["params"])))
+            if case.get("loss_only"):
+                local = shard_batch({"x": x, "y": y}, mesh)
+                loss = pipeline.make_pipeline_loss(mcfg, mesh)(
+                    state["params"], local["x"], local["y"])
+                out[f"{c}_loss"] = np.float32(loss)
+                continue
+            if "xe" in case:
+                xe, ye = _t(inp[case["xe"]], dev), _t(inp[case["ye"]], dev)
+                out[f"{c}_eval_many"] = np.float32(pipeline.make_pipeline_eval_many(
+                    cfg, mesh)(state["params"], xe, ye))
+                ev = pipeline.make_pipeline_eval_step(cfg, mesh)
+                out[f"{c}_eval_each"] = np.array(
+                    [float(ev(state["params"], a, b)) for a, b in zip(xe, ye)], np.float32)
+            if case.get("dropout"):
+                dcfg = mcfg.replace(dropout=0.3)
+                local = shard_batch({"x": x, "y": y}, mesh)
+                loss_f = pipeline.make_pipeline_loss(dcfg, mesh)
+                runs = [loss_f(state["params"], local["x"], local["y"], s)
+                        for s in (2, 2, 3, None)]
+                runs.append(pipeline.make_pipeline_loss(mcfg, mesh)(
+                    state["params"], local["x"], local["y"]))
+                out[f"{c}_dropout"] = np.array([float(v) for v in runs], np.float64)
+                _, g = loss_f(state["params"], local["x"], local["y"], 2, grads=True)
+                out[f"{c}_dropout_gsq"] = np.float64(sum(float((t ** 2).sum()) for t in g))
+            log = []
+            real = (pipeline.send_, pipeline.recv_)
+
+            def send(t, over, index):
+                log.append((0, index, t.numel()))
+                return real[0](t, over, index)
+
+            def recv(t, over, index):
+                log.append((1, index, t.numel()))
+                return real[1](t, over, index)
+
+            pipeline.send_, pipeline.recv_ = send, recv
+            try:
+                step = pipeline.make_pipeline_train_step(cfg, mesh)
+                state, m = step(state, {"x": x, "y": y}, case.get("seed"))
+            finally:
+                pipeline.send_, pipeline.recv_ = real
+            out[f"{c}_traffic"] = np.array(log, np.int64).reshape(-1, 3)
+            out[f"{c}_loss"] = np.float32(m["loss"])
+            out[f"{c}_grad_norm"] = np.float32(m["grad_norm"])
+            own = {k: v for k, v in state["params"].items() if k != "blocks"}
+            for i, t in enumerate(leaves(own)):
+                out[f"{c}_rep{i}"] = _np(t).copy()
+            full = multihost.gather_to_host(state, mesh)
+            assert all(not t.is_cuda for t in leaves(full["params"]))
+            for i, t in enumerate(leaves(full["params"])):
+                out[f"{c}_p{i}"] = _np(t).copy()
+        finally:
+            destroy_mesh(mesh)
+    return out
+
+
 TASKS = {"rotate": task_rotate, "ring": task_ring, "wrappers": task_wrappers,
          "model": task_model, "step": task_step, "grads": task_grads, "cli": task_cli,
          "cli_corpus": task_cli_corpus, "clis": task_clis, "mesh_step": task_mesh_step,
          "mesh_attention": task_mesh_attention, "ulysses": task_ulysses,
-         "tensor_parts": task_tensor_parts}
+         "tensor_parts": task_tensor_parts, "pipeline": task_pipeline}
 
 
 def start_ranks(task: str, P: int, d: Path, inputs: dict, timeout: float,
